@@ -5,24 +5,39 @@
 
 Phases, each of which fails the run:
 
-1. build   - compile the CUDA kernel library with plain nvcc (sm_90a).
-2. kernels - each kernel of the eval path (K1 GCFN, K2 rel-pos, K3 masked
-             softmax·V) against its plain PyTorch version on the card, at
-             the shapes SepReformer_Base_WSJ0 gives it for a B=4 x 4 s
-             batch; times of the kernel, the plain version, a library
-             call where one exists, and the least time the card could take.
-3. serve   - Base at full width, seeded weights: three requests through
-             ``Separator.__call__`` and one batched B=4 x 4 s forward with
-             ragged lengths; every kernel's launch count must rise.
-4. profile - the same model: repeated requests and batched forwards on
-             the host clock, then one batched forward traced with
-             ``torch.profiler``: the card's idle share, kernel time by
-             group, and each kernel's launches per forward.
-5. cpu     - the same weights on the CPU (plain versions) against the card
-             on a 1 s utterance, with the branches' LayerScale at 0.5 so
-             they carry signal; a control run on the card with TF32
-             allowed must exceed the limit, so the check can see a
-             product that lost float32 accuracy.
+1. build     - compile the CUDA kernel library with plain nvcc (sm_90a).
+2. kernels   - each kernel against its plain PyTorch version on the card,
+               at the shapes SepReformer_Base_WSJ0 gives it: the eval
+               kernels (K1 GCFN, K2 rel-pos, K3 masked softmax·V) for a
+               B=4 x 4 s batch, the train kernels (K5 k65 depthwise
+               backward, K9 and K10 softmax·dropout·V forward and
+               backward, K11 uPIT SI-SNR table) for a B=2 x 4 s train
+               batch; times of the kernel, the plain version, a library
+               call where one exists, and the least time the card could
+               take.
+3. serve     - Base at full width, seeded weights: three requests through
+               ``Separator.__call__`` and one batched B=4 x 4 s forward
+               with ragged lengths; every eval kernel's count must rise.
+4. profile   - the same model: repeated requests and batched forwards on
+               the host clock, then one batched forward traced with
+               ``torch.profiler``: the card's idle share, kernel time by
+               group, and each kernel's launches per forward.
+5. cpu       - the same weights on the CPU (plain versions) against the
+               card on a 1 s utterance, with the branches' LayerScale at
+               0.5 so they carry signal; a control run on the card with
+               TF32 allowed must exceed the limit, so the check can see a
+               product that lost float32 accuracy.
+6. train     - Base at full width, seeded weights: six ``train_step``s on
+               seeded B=2 x 4 s batches (lr from the warmup schedule,
+               alpha 0.4); the losses stay finite, the parameters and the
+               BatchNorm statistics move, the train kernels' counts rise
+               and K1's and K3's do not.  Then one ``eval_step`` through
+               K1-K3, and one traced train step: idle share, kernel time
+               by group, launches per step, peak memory.
+7. train_cpu - one train step at dropout 0, every LayerScale at 0.5, on a
+               1 s crop, on the card and on the CPU from the same weights:
+               the loss and every gradient agree, within a limit that a
+               control run with TF32 allowed exceeds.
 
 Prints one JSON line of kernel results, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -44,21 +59,40 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 SAMPLE_RATE = 8000
-# wrapper -> the CUDA kernel it launches, as named in a profiler trace
+TRAIN_SECONDS = 4.0            # the dataset's 4 s crop (max_len 32000)
+# wrapper -> the CUDA kernels it launches, as named in a profiler trace
 KERNEL_SYMBOLS = {"fused_gcfn": "gcfn_kernel",
                   "materialize_pos_kt": "relpos_kernel",
-                  "softmax_pv": "softmax_pv_kernel"}
+                  "softmax_pv": "softmax_pv_kernel",
+                  "depthwise_bwd": "depthwise_bwd",
+                  "softmax_pv_train_fwd": "softmax_pv_train_fwd_kernel",
+                  "softmax_pv_train_bwd": "softmax_pv_train_bwd_kernel",
+                  "sisnr_pairwise_neg_fused": "pit_sisnr_kernel"}
+EVAL_KERNELS = ("fused_gcfn", "materialize_pos_kt", "softmax_pv")
+TRAIN_KERNELS = ("materialize_pos_kt", "depthwise_bwd",
+                 "softmax_pv_train_fwd", "softmax_pv_train_bwd",
+                 "sisnr_pairwise_neg_fused")
+NO_BACKWARD = ("fused_gcfn", "softmax_pv")
 # |card - cpu| over max|out| allowed in phase 5; see PERF.md for the
 # readings it sits between (float32 on the card, and TF32 allowed)
 CPU_REL_LIMIT = 3e-5
+# phase 7: max |card - cpu| over every gradient element, over the largest
+# cpu gradient; see PERF.md for the readings it sits between
+TRAIN_CPU_REL_LIMIT = 1e-4
 KERNEL_GROUPS = (  # profile groups of the card's kernels, first match wins
     ("K1 gcfn", ("gcfn_kernel",)),
     ("K2 relpos", ("relpos_kernel",)),
+    ("K9 softmax_pv_train_fwd", ("softmax_pv_train_fwd",)),
+    ("K10 softmax_pv_train_bwd", ("softmax_pv_train_bwd",)),
     ("K3 softmax_pv", ("softmax_pv_kernel",)),
+    ("K5 depthwise_bwd", ("depthwise_bwd",)),
+    ("K11 pit", ("pit_sisnr",)),
+    ("optimizer (foreach)", ("multi_tensor", "foreach")),
     ("matmul (cuBLAS)", ("gemm", "cutlass", "cublas", "xmma", "sm90_")),
-    ("conv (cuDNN)", ("conv", "cudnn", "implicit", "dgrad", "wgrad")),
+    ("conv (PyTorch, cuDNN)", ("conv", "cudnn", "implicit", "dgrad",
+                               "wgrad")),
     ("copy / layout", ("copy", "cat", "transpose", "index", "gather",
-                       "pad", "repeat")),
+                       "pad", "repeat", "scatter")),
     ("reduce", ("reduce", "norm", "softmax")),
 )
 
@@ -172,6 +206,109 @@ def kernel_phase(torch, K, device_ms):
            shape=(f"scores [{b}, {heads}, {lp}, {lp}], v [{b}, {lp}, {f}], "
                   f"lens {klens.tolist()}, length {length}"),
            tolerance="rtol 1e-4, atol 1e-5 (float32)")
+
+    # K5: the widest k65 conv of a B=2 x 4 s train batch, in a decoder
+    # stage (B*spks = 4 rows of 8000 frames)
+    b, t, c, k = 4, 8000, 128, 65
+    x, dy = randn(b, t, c), randn(b, t, c)
+    w = randn(c, 1, k, scale=0.1)
+    got, ref = K.depthwise_bwd(x, w, dy), K.depthwise_bwd_plain(x, w, dy)
+    torch.cuda.synchronize()
+    # dw and db sum B*T products each: float32 sums in another order
+    for g, r, atol in zip(got, ref, (1e-5, 1e-3, 1e-3)):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=atol)
+    xp = torch.nn.functional.pad(x.transpose(1, 2), (k // 2, k // 2))
+    dy_ncw = dy.transpose(1, 2).contiguous()
+    record(K.depthwise_bwd, lambda: K.depthwise_bwd(x, w, dy),
+           lambda: K.depthwise_bwd_plain(x, w, dy),
+           lambda: torch.ops.aten.convolution_backward(
+               dy_ncw, xp, w, [c], [1], [0], [1], False, [0], c,
+               [True, True, True]),
+           max((g - r).abs().max().item() for g, r in zip(got, ref)),
+           4 * (3 * x.numel() + 2 * w.numel() + c),
+           x.numel() * (4 * k + 1),
+           source="sepreformer_torch/csrc/depthwise.cu",
+           replaces="sepreformer_tpu/ops/pallas/depthwise.py:147",
+           shape=f"x, dy [{b}, {t}, {c}], w [{c}, 1, {k}]",
+           tolerance="rtol 1e-4; atol 1e-5 dx, 1e-3 dw and db")
+
+    # K9 and K10: decoder attention of a B=2 x 4 s train batch (B*spks=4
+    # rows, 8 heads, L=500 padded to 512), no key lengths, as in training
+    b, length, seed = 4, 500, 1234
+    scores = randn(b, heads, lp, lp, scale=3.0)
+    v, dout = randn(b, lp, f), randn(b, lp, f)
+    key_len = torch.full((b,), length, dtype=torch.int32, device=dev)
+    err = 0.0
+    for p in (0.05, 0.0):
+        out, row_max, row_sum = K.softmax_pv_train_fwd(scores, v, seed,
+                                                       key_len, length, p)
+        ref = K.softmax_pv_dropout_plain(scores, v, seed, None, length, p)
+        torch.cuda.synchronize()
+        # a wrong dropout mask errs by O(1) at p = 0.05
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+        err = max(err, (out - ref).abs().max().item())
+    p = 0.05
+    out, row_max, row_sum = K.softmax_pv_train_fwd(scores, v, seed, key_len,
+                                                   length, p)
+    keys = b * length
+    record(K.softmax_pv_train_fwd,
+           lambda: K.softmax_pv_train_fwd(scores, v, seed, key_len, length,
+                                          p),
+           lambda: K.softmax_pv_dropout_plain(scores, v, seed, None, length,
+                                              p),
+           None, err,
+           # the function's own bytes: scores and V of the valid keys in,
+           # out written; the row stats are this design's residuals
+           4 * (heads * lp * keys + keys * f + b * lp * f),
+           heads * lp * keys * (2 * d + 4),
+           source="sepreformer_torch/csrc/softmax_pv_train.cu",
+           replaces="sepreformer_tpu/ops/pallas/softmax_pv_train.py:221",
+           shape=(f"scores [{b}, {heads}, {lp}, {lp}], v [{b}, {lp}, {f}], "
+                  f"length {length}, p 0.05 and 0"),
+           tolerance="rtol 1e-4, atol 1e-5 (float32)")
+    ds, dv = K.softmax_pv_train_bwd(scores, v, out, dout, row_max, row_sum,
+                                    seed, key_len, length, p)
+    ds_ref, dv_ref = K.softmax_pv_dropout_bwd_plain(scores, v, seed, None,
+                                                    length, p, dout)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ds, ds_ref, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(dv, dv_ref, rtol=1e-4, atol=1e-4)
+    record(K.softmax_pv_train_bwd,
+           lambda: K.softmax_pv_train_bwd(scores, v, out, dout, row_max,
+                                          row_sum, seed, key_len, length, p),
+           lambda: K.softmax_pv_dropout_bwd_plain(scores, v, seed, None,
+                                                  length, p, dout),
+           None, max((ds - ds_ref).abs().max().item(),
+                     (dv - dv_ref).abs().max().item()),
+           # JAX's K10 reads scores, v and dout: scores and V of the valid
+           # keys and dout in, the full dScores and dV written
+           4 * (heads * lp * keys + scores.numel() + keys * f
+                + 2 * b * lp * f),
+           heads * lp * keys * (4 * d + 8),
+           source="sepreformer_torch/csrc/softmax_pv_train.cu",
+           replaces="sepreformer_tpu/ops/pallas/softmax_pv_train.py:249",
+           shape=(f"scores [{b}, {heads}, {lp}, {lp}], v, out, dout "
+                  f"[{b}, {lp}, {f}], length {length}, p 0.05"),
+           tolerance="rtol 1e-4; atol 1e-5 dScores, 1e-4 dV")
+
+    # K11: the time-loss table of a B=2 x 4 s batch, two speakers
+    spk, b, t = 2, 2, 32000
+    src = randn(spk, b, t, scale=0.1)
+    est = src.flip(0) + randn(spk, b, t, scale=0.02)
+    got = K.sisnr_pairwise_neg_fused(est, src)
+    ref = K.sisnr_pairwise_neg(est, src)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    record(K.sisnr_pairwise_neg_fused,
+           lambda: K.sisnr_pairwise_neg_fused(est, src),
+           lambda: K.sisnr_pairwise_neg(est, src), None,
+           (got - ref).abs().max().item(),
+           4 * (2 * est.numel() + b * spk * spk),
+           b * spk * spk * t * 11,
+           source="sepreformer_torch/csrc/pit.cu",
+           replaces="sepreformer_tpu/ops/pallas/pit.py:70",
+           shape=f"est, src [{spk}, {b}, {t}]",
+           tolerance="rtol 1e-4, atol 1e-4 (dB, float32)")
     return results
 
 
@@ -214,7 +351,7 @@ def serve_phase(torch, np, sep_torch, K):
           f"{sum(lengths) / SAMPLE_RATE / dt:.2f} audio-s/s")
     counts = K.launch_counts()
     print(f"[serve] launches over {forwards} forwards: {counts}")
-    missing = [name for name, n in counts.items() if n == 0]
+    missing = [name for name in EVAL_KERNELS if counts[name] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
     return sep, counts
 
@@ -266,26 +403,9 @@ def profile_phase(torch, np, sep, K, busy_us, kernel_events, iters=5):
         forward()
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
-    per_forward = K.launch_counts()
     kernels = kernel_events(prof)
-    busy = busy_us(kernels)
-    by_group, by_name = defaultdict(float), defaultdict(float)
-    count = defaultdict(int)
-    for name, _, dur in kernels:
-        low = name.lower()
-        group = next((g for g, keys in KERNEL_GROUPS
-                      if any(k in low for k in keys)), "elementwise / other")
-        by_group[group] += dur
-        by_name[name[:80]] += dur
-        count[name[:80]] += 1
-    print(f"[profile] traced forward: window {window_us / 1e3:.2f} ms, card "
-          f"busy {busy / 1e3:.2f} ms, idle share {1 - busy / window_us:.3f}, "
-          f"{len(kernels)} kernel launches; ours per forward {per_forward}")
-    for group, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        print(f"[profile] group {group}: {us / 1e3:.3f} ms")
-    for name in sorted(by_name, key=lambda n: -by_name[n])[:10]:
-        print(f"[profile] kernel {by_name[name] / 1e3:.3f} ms "
-              f"x{count[name]}: {name}")
+    print_trace("profile", kernels, busy_us(kernels), window_us,
+                K.launch_counts(), "forward")
 
 
 def cpu_phase(torch, np, sep_torch, sep):
@@ -319,6 +439,195 @@ def cpu_phase(torch, np, sep_torch, sep):
               f"{CPU_REL_LIMIT:.1e}")
     assert errs["float32"] <= CPU_REL_LIMIT, "card disagrees with the CPU"
     assert errs["control, TF32 allowed"] > CPU_REL_LIMIT, (
+        "the limit does not catch TF32 products")
+
+
+def synthetic_batch(torch, np, rng, batch, samples, spks=2):
+    """A seeded stand-in for a training batch: ``spks`` sources of noise
+    shaped by random 9-tap filters at 0.1 rms, and their sum.  Returns
+    (mixture [B, T], sources [S, B, T]) on the CPU."""
+    noise = rng.normal(size=(spks, batch, samples + 8))
+    taps = rng.uniform(-1.0, 1.0, size=(spks, batch, 9))
+    src = np.stack([[np.convolve(noise[i, j], taps[i, j], "valid")[:samples]
+                     for j in range(batch)] for i in range(spks)])
+    src = 0.1 * src / src.std(axis=-1, keepdims=True)
+    src = torch.from_numpy(src.astype(np.float32))
+    return src.sum(dim=0), src
+
+
+def group_kernels(kernels):
+    by_group, by_name = defaultdict(float), defaultdict(float)
+    count = defaultdict(int)
+    for name, _, dur in kernels:
+        low = name.lower()
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in low for k in keys)), "elementwise / other")
+        by_group[group] += dur
+        by_name[name[:80]] += dur
+        count[name[:80]] += 1
+    return by_group, by_name, count
+
+
+def print_trace(tag, kernels, busy, window_us, ours, what):
+    by_group, by_name, count = group_kernels(kernels)
+    print(f"[{tag}] traced {what}: window {window_us / 1e3:.2f} ms, card "
+          f"busy {busy / 1e3:.2f} ms, idle share {1 - busy / window_us:.3f}, "
+          f"{len(kernels)} kernel launches; ours per {what} {ours}")
+    for group, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"[{tag}] group {group}: {us / 1e3:.3f} ms")
+    for name in sorted(by_name, key=lambda n: -by_name[n])[:10]:
+        print(f"[{tag}] kernel {by_name[name] / 1e3:.3f} ms "
+              f"x{count[name]}: {name}")
+
+
+def train_phase(torch, np, sep_torch, K, busy_us, kernel_events, steps=6):
+    """Base at full width: ``steps`` train steps on seeded B=2 x 4 s
+    batches, one eval step, one traced train step."""
+    from sepreformer_torch.engine import (
+        LRController,
+        create_train_state,
+        eval_step,
+        train_step,
+    )
+
+    cfg = sep_torch.get_variant("SepReformer_Base_WSJ0")
+    o = cfg.optim
+    t0 = time.perf_counter()
+    state = create_train_state(cfg, device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+    print(f"[train] Base built in {time.perf_counter() - t0:.2f} s; batch "
+          f"{cfg.dataset.batch_size} x {cfg.dataset.max_len} samples, "
+          f"dropout {cfg.model.dropout}")
+    lrc = LRController(o.lr, o.warmup_steps, o.plateau_factor,
+                       o.plateau_patience, o.plateau_min_lr)
+    rng = np.random.default_rng(3)
+    batches = [tuple(a.cuda() for a in synthetic_batch(
+        torch, np, rng, cfg.dataset.batch_size, cfg.dataset.max_len))
+        for _ in range(steps + 2)]
+    model = state.model
+    watched = {name: p.detach().clone() for name, p in
+               model.named_parameters() if name.endswith(
+                   ("pe_k.weight", "dw_conv_1d.weight", "linear_q.weight"))}
+    watched.update({name: b.clone() for name, b in model.named_buffers()
+                    if name.endswith(("running_mean", "running_var"))})
+    gen = torch.Generator().manual_seed(1)
+
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    times = []
+    for step in range(steps):
+        lrc.warmup_step()
+        mix, src = batches[step]
+        t0 = time.perf_counter()
+        metrics = train_step(state, mix, src, lrc.lr, 0.4, gen)
+        values = {k: float(v) for k, v in metrics.items()}  # waits
+        times.append((time.perf_counter() - t0) * 1e3)
+        assert all(np.isfinite(v) for v in values.values()), values
+        print(f"[train] step {step}: {times[-1]:.2f} ms, lr {lrc.lr:.2e}, "
+              + ", ".join(f"{k} {v:.4f}" for k, v in values.items()))
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[train] launches over {steps} steps: {counts}")
+    missing = [n for n in TRAIN_KERNELS if counts[n] == 0]
+    assert not missing, f"train kernels never launched: {missing}"
+    stray = [n for n in NO_BACKWARD if counts[n]]
+    assert not stray, f"eval kernels without a backward ran: {stray}"
+    now = dict(model.named_parameters())
+    now.update(model.named_buffers())
+    frozen = [n for n, before in watched.items()
+              if torch.equal(before, now[n].detach())]
+    assert not frozen, f"unchanged by training: {frozen}"
+    median = statistics.median(times[1:])
+    batch_s = cfg.dataset.batch_size * TRAIN_SECONDS
+    print(f"[train] step ms after the first: "
+          f"{[round(t, 2) for t in times[1:]]}; median {median:.2f} ms, "
+          f"{batch_s / (median / 1e3):.2f} training audio-s/s; "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB")
+
+    K.reset_launches()
+    mix, src = batches[steps]
+    metrics = {k: float(v) for k, v in eval_step(state, mix, src).items()}
+    eval_counts = K.launch_counts()
+    print(f"[train] eval step: {metrics}; launches {eval_counts}")
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    missing = [n for n in EVAL_KERNELS if eval_counts[n] == 0]
+    assert not missing, f"eval kernels never launched: {missing}"
+
+    mix, src = batches[steps + 1]
+    K.reset_launches()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        train_step(state, mix, src, lrc.lr, 0.4, gen)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    kernels = kernel_events(prof)
+    print_trace("train", kernels, busy_us(kernels), window_us,
+                K.launch_counts(), "train step")
+    return counts
+
+
+def train_cpu_phase(torch, np, sep_torch):
+    """One train step on the card and on the CPU from the same weights:
+    dropout 0, every LayerScale at 0.5, a 1 s crop.  The loss and every
+    gradient (read after the step's clip) must agree; a control run on
+    the card with TF32 allowed must exceed the gradient limit."""
+    import dataclasses
+
+    from sepreformer_torch.engine import create_train_state, train_step
+    from sepreformer_torch.models import build_model
+
+    base = sep_torch.get_variant("SepReformer_Base_WSJ0")
+    cfg = dataclasses.replace(base, model=dataclasses.replace(
+        base.model, dropout=0.0))
+    model = build_model(cfg.model, device="cpu",
+                        generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("layer_scale"):
+                p.fill_(0.5)
+    mix, src = synthetic_batch(torch, np, np.random.default_rng(5),
+                               cfg.dataset.batch_size, SAMPLE_RATE)
+
+    def step(device):
+        state = create_train_state(cfg, model=copy.deepcopy(model).to(device))
+        metrics = train_step(state, mix, src, 1e-3, 0.4,
+                             torch.Generator().manual_seed(6))
+        grads = {n: p.grad.detach().cpu()
+                 for n, p in state.model.named_parameters()}
+        return float(metrics["total_loss"]), grads
+
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = step("cpu")
+    print(f"[train_cpu] CPU step {time.perf_counter() - t0:.2f} s, "
+          f"loss {cpu_loss:.6f}")
+    scale = max(g.abs().max().item() for g in cpu_grads.values())
+    errs = {}
+    for label, tf32 in (("float32", False), ("control, TF32 allowed", True)):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            loss, grads = step("cuda")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        assert all(torch.isfinite(g).all() for g in grads.values()), label
+        worst = max(grads, key=lambda n: (grads[n] - cpu_grads[n]).abs().max())
+        errs[label] = (grads[worst] - cpu_grads[worst]).abs().max().item()
+        errs[label] /= scale
+        loss_err = abs(loss - cpu_loss) / abs(cpu_loss)
+        print(f"[train_cpu] {label}: loss {loss:.6f} (|card - cpu| / |cpu| "
+              f"{loss_err:.3e}); max |card - cpu| over every gradient / max "
+              f"|cpu gradient| {errs[label]:.3e} (max {scale:.3e}, worst "
+              f"{worst}), limit {TRAIN_CPU_REL_LIMIT:.1e}")
+        if not tf32:
+            assert loss_err <= TRAIN_CPU_REL_LIMIT, "loss disagrees"
+    assert errs["float32"] <= TRAIN_CPU_REL_LIMIT, (
+        "card gradients disagree with the CPU")
+    assert errs["control, TF32 allowed"] > TRAIN_CPU_REL_LIMIT, (
         "the limit does not catch TF32 products")
 
 
@@ -390,9 +699,17 @@ def main() -> int:
         run("profile", profile_phase, torch, np, served[0], K, busy_us,
             kernel_events)
         run("cpu", cpu_phase, torch, np, sep_torch, served[0])
+        del served
+    train_counts = run("train", train_phase, torch, np, sep_torch, K,
+                       busy_us, kernel_events) or {}
+    run("train_cpu", train_cpu_phase, torch, np, sep_torch)
 
+    # each kernel's launches on the main path of its slice: the eval
+    # kernels' in serving, the train kernels' in training
     for row in kernels:
-        row["launches"] = counts.get(row["name"], 0)
+        name = row["name"]
+        row["launches"] = (counts.get(name, 0) if name in EVAL_KERNELS
+                           else train_counts.get(name, 0))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -402,9 +719,10 @@ def main() -> int:
     print(card)
     if not ok:
         return 1
+    # the run used one card, whatever the machine shows
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

@@ -1,7 +1,8 @@
-"""PyTorch/CUDA port of SepReformer (eval forward).
+"""PyTorch/CUDA port of SepReformer: the eval forward (``api``) and the
+train step (``engine``).
 
-Imports ``torch`` and nothing of the JAX package.  The kernels on the
-eval path are hand-written CUDA for Hopper (``csrc/``), built with plain
+Imports ``torch`` and nothing of the JAX package.  The kernels on these
+paths are hand-written CUDA for Hopper (``csrc/``), built with plain
 ``nvcc`` at first use; each has a plain PyTorch version that the CPU
 runs.
 """

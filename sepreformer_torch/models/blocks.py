@@ -1,18 +1,25 @@
-"""Separator building blocks, eval forward, channels-last [B, T, F].
+"""Separator building blocks, channels-last [B, T, F].
 
 Each class mirrors the JAX package's ``models/blocks.py`` class of the
 same name; its ``TorchLinear`` and ``TorchLayerNorm`` are ``nn.Linear``
 and ``nn.LayerNorm`` here, and its ``FoldableBatchNorm`` is
-``BatchNorm`` (running statistics; nothing here folds it).  Submodules
-carry the reference model's state_dict names (``linear_q``, ``net1.1``,
-``Layer_scale`` ...), so a reference checkpoint loads with
-``load_state_dict(strict=True)`` and ``models/convert.py`` maps the flax
-trees onto them.
+``BatchNorm`` (nothing here folds it).  Submodules carry the reference
+model's state_dict names (``linear_q``, ``net1.1``, ``Layer_scale`` ...),
+so a reference checkpoint loads with ``load_state_dict(strict=True)`` and
+``models/convert.py`` maps the flax trees onto them.
+
+A forward is an eval forward unless it is given a ``TrainMode`` (the JAX
+package's ``train=True`` and its dropout rng): then every dropout site of
+the JAX blocks drops, and BatchNorm normalises with the batch statistics
+and updates its running ones.
 
 Where the JAX package reaches a Pallas kernel on the TPU, the port calls
-its CUDA kernel wrapper (``ops/kernels``): the GCFN (K1), the rel-pos
-materializer (K2, in ``models/sepreformer.py``) and the masked softmax·V
-(K3).  Everything else is plain PyTorch.
+its CUDA kernel wrapper (``ops/kernels``).  Eval: the GCFN (K1), the
+rel-pos materializer (K2, in ``models/sepreformer.py``) and the masked
+softmax·V (K3).  Train: K2 with its gradient, the backward of the CLA's
+k65 depthwise conv (K5) and the softmax·dropout·V pair (K9, K10); the
+GCFN runs its plain composition, as the JAX package does with
+``fused_ffn="off"``.  Everything else is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -24,11 +31,44 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sepreformer_torch.ops.kernels import fused_gcfn, softmax_pv
+from sepreformer_torch.ops.kernels import (
+    depthwise_large,
+    fused_gcfn,
+    softmax_pv,
+    softmax_pv_dropout,
+)
 from sepreformer_torch.ops.resample import (
     adaptive_avg_pool_time,
     nearest_upsample_time,
 )
+
+
+class TrainMode:
+    """What a train-mode forward draws at random.  Dropout masks come from
+    ``generator``, a generator on the model's device, through
+    ``torch.rand`` (PyTorch's functional dropout takes no generator); the
+    int32 hash seed of each kernel dropout site comes from ``seeds``, a
+    CPU generator, as the JAX package draws one per site, so no seed waits
+    on the device.  At ``p`` 0 nothing drops, and BatchNorm still uses
+    the batch statistics."""
+
+    def __init__(self, p: float, generator: torch.Generator,
+                 seeds: torch.Generator):
+        self.p, self.generator, self.seeds = float(p), generator, seeds
+
+    def dropout(self, x: torch.Tensor) -> torch.Tensor:
+        if self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.p
+        return x * keep.to(x.dtype).mul_(1.0 / (1.0 - self.p))
+
+    def kernel_seed(self) -> int:
+        """A hash seed in [0, 2**31 - 1), or 0 when nothing drops."""
+        if self.p == 0.0:
+            return 0
+        return int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                 generator=self.seeds))
 
 
 class RelPos(NamedTuple):
@@ -81,9 +121,12 @@ class Conv1x1(nn.Module):
 class DepthwiseConv1d(nn.Module):
     """Channels-last depthwise conv over time: [B, T, C] -> [B, T', C];
     weight [C, 1, k] as in the reference.  ``padding`` is an int or
-    "SAME".  The GCFN's k3 conv runs inside the K1 kernel; the CLA's k65
-    and the down-conv's k5 stride-2 go to ``F.conv1d`` (cuDNN), as the
-    JAX package left them to XLA."""
+    "SAME".  Every forward is ``F.conv1d`` (PyTorch's depthwise conv
+    kernels on the card), as the JAX package leaves it to XLA (the eval
+    GCFN's k3 runs inside K1).  A large odd
+    "same" kernel (the CLA's k65) goes through ``depthwise_large``, whose
+    backward is K5: where the JAX package takes its Pallas backward
+    (``blocks.py:344-355``), less its TPU tiling rule C % 128 == 0."""
 
     def __init__(self, channels: int, kernel_size: int, stride: int = 1,
                  padding="SAME", bias: bool = True):
@@ -92,6 +135,8 @@ class DepthwiseConv1d(nn.Module):
             kernel_size, stride, padding)
         self.weight = nn.Parameter(torch.empty(channels, 1, kernel_size))
         self.bias = nn.Parameter(torch.empty(channels)) if bias else None
+        self.large = (kernel_size > 8 and kernel_size % 2 == 1
+                      and stride == 1 and padding == "SAME")
 
     def _pads(self):
         if self.padding == "SAME":
@@ -100,6 +145,8 @@ class DepthwiseConv1d(nn.Module):
         return self.padding, self.padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.large:
+            return depthwise_large(x, self.weight, self.bias)
         lo, hi = self._pads()
         xp = F.pad(x.transpose(1, 2), (lo, hi))
         y = F.conv1d(xp, self.weight, self.bias, stride=self.stride,
@@ -119,8 +166,15 @@ class LayerScale(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval BatchNorm over the last axis with running statistics, under the
-    reference's parameter and buffer names."""
+    """BatchNorm over the last axis, under the reference's parameter and
+    buffer names.  Eval normalises with the running statistics; train
+    with the batch's, var = mean(x²) - mean² (biased, as flax), which
+    also update the running ones: r = 0.9 r + 0.1 batch.  (PyTorch's
+    ``BatchNorm1d`` would update ``running_var`` with the unbiased
+    variance.)  A variance that roundoff takes below 0 counts as 0, as
+    flax's ``nn.BatchNorm`` has it."""
+
+    momentum = 0.9
 
     def __init__(self, features: int, eps: float = 1.0e-5):
         super().__init__()
@@ -132,10 +186,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.long))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return ((x - self.running_mean) * torch.rsqrt(self.running_var
-                                                      + self.eps)
-                * self.weight + self.bias)
+    def forward(self, x: torch.Tensor,
+                train: Optional[TrainMode] = None) -> torch.Tensor:
+        if train is None:
+            mean, var = self.running_mean, self.running_var
+        else:
+            red = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=red)
+            var = torch.clamp((x * x).mean(dim=red) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+                self.num_batches_tracked += 1
+        return ((x - mean) * torch.rsqrt(var + self.eps) * self.weight
+                + self.bias)
 
 
 class MaskedGroupNorm(nn.Module):
@@ -166,8 +231,9 @@ class MaskedGroupNorm(nn.Module):
 
 
 class GCFN(nn.Module):
-    """Gated conv feed-forward (reference network.py:46-66), eval:
-    x + LayerScale(Linear(GLU(dw3(Linear(LN(x)))))) through the K1 kernel.
+    """Gated conv feed-forward (reference network.py:46-66):
+    x + LayerScale(drop(Linear(drop(GLU(dw3(Linear(LN(x)))))))), in eval
+    through the K1 kernel, in train as that plain composition.
     Reference names: net1 = [LayerNorm, Linear F->6F], depthwise,
     net2 = [GLU, Dropout, Linear 3F->F, Dropout], Layer_scale."""
 
@@ -189,9 +255,17 @@ class GCFN(nn.Module):
                 torch.empty(lin.in_features, lin.out_features).t())
 
     def forward(self, x: torch.Tensor,
-                seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                seq_lens: Optional[torch.Tensor] = None,
+                train: Optional[TrainMode] = None) -> torch.Tensor:
         norm, proj_in = self.net1
         proj_out = self.net2[2]
+        if train is not None:
+            y = proj_in(norm(x))
+            if seq_lens is not None:
+                # the k3 conv at the last valid frame reads a zero past it
+                y = y * length_mask(seq_lens, y.shape[1], y.dtype)
+            y = train.dropout(glu_last(self.depthwise(y)))
+            return x + self.Layer_scale(train.dropout(proj_out(y)))
         params = (norm.weight, norm.bias, proj_in.weight.t(), proj_in.bias,
                   self.depthwise.weight.squeeze(1), self.depthwise.bias,
                   proj_out.weight.t(), proj_out.bias,
@@ -218,9 +292,11 @@ def fused_pv_scores(q, k, pos_kt) -> torch.Tensor:
 class MultiHeadAttention(nn.Module):
     """Pre-LN MHA with additive rel-pos bias (reference network.py:69-124);
     LayerScale on the output, no inner residual.  3D input attends over
-    time on the fused_pv path (torch products for the scores, the K3
-    kernel for masked softmax·V); 4D input [B, S, T, F] attends over the
-    speaker axis."""
+    time on the fused_pv path: torch products for the scores at the
+    128-padded length, then the K3 kernel for masked softmax·V in eval,
+    K9 and K10 for masked softmax·dropout·V in train (padded lengths up
+    to 512, as in the JAX package).  4D input [B, S, T, F] attends over
+    the speaker axis."""
 
     def __init__(self, dim: int, num_heads: int, norm_eps: float = 1.0e-5):
         super().__init__()
@@ -232,13 +308,18 @@ class MultiHeadAttention(nn.Module):
         self.linear_out = nn.Linear(dim, dim)
         self.Layer_scale = LayerScale(dim)
 
-    def _project_out(self, out: torch.Tensor) -> torch.Tensor:
-        return self.Layer_scale(self.linear_out(out))
+    def _project_out(self, out: torch.Tensor,
+                     train: Optional[TrainMode]) -> torch.Tensor:
+        out = self.linear_out(out)
+        if train is not None:
+            out = train.dropout(out)
+        return self.Layer_scale(out)
 
     def forward(self, x: torch.Tensor, pos: Optional[RelPos] = None,
-                key_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                key_lens: Optional[torch.Tensor] = None,
+                train: Optional[TrainMode] = None) -> torch.Tensor:
         if x.dim() == 4:
-            return self._speaker_axis_attention(x)
+            return self._speaker_axis_attention(x, train)
         b, t, _ = x.shape
         h = self.num_heads
         d = self.dim // h
@@ -248,12 +329,18 @@ class MultiHeadAttention(nn.Module):
         v = self.linear_v(y)
         scores = fused_pv_scores(q, k, pos.pos_kt)
         v = pad_time(v, pos.pos_kt.shape[0]).contiguous()
-        out = softmax_pv(scores, v, key_lens, t)
-        return self._project_out(out[:, :t])
+        if train is None:
+            out = softmax_pv(scores, v, key_lens, t)
+        else:
+            out = softmax_pv_dropout(scores, v, train.kernel_seed(),
+                                     key_lens, t, train.p)
+        return self._project_out(out[:, :t], train)
 
-    def _speaker_axis_attention(self, x: torch.Tensor) -> torch.Tensor:
+    def _speaker_axis_attention(self, x: torch.Tensor,
+                                train: Optional[TrainMode]) -> torch.Tensor:
         """x [B, S, T, F]: attention over S at every (b, t).  For S == 2 the
-        2-way softmax is a sigmoid of the score difference."""
+        2-way softmax is a sigmoid of the score difference; in train each
+        of the four probability maps drops on its own, unrenormalised."""
         b, s, t, f = x.shape
         h = self.num_heads
         d = self.dim // h
@@ -270,15 +357,18 @@ class MultiHeadAttention(nn.Module):
                                 - head_scores(q[:, 0], k[:, 1]))[..., None]
             w11 = torch.sigmoid(head_scores(q[:, 1], k[:, 1])
                                 - head_scores(q[:, 1], k[:, 0]))[..., None]
-            out0 = w00 * v[:, 0] + (1.0 - w00) * v[:, 1]
-            out1 = w11 * v[:, 1] + (1.0 - w11) * v[:, 0]
+            drop = train.dropout if train is not None else (lambda w: w)
+            out0 = drop(w00) * v[:, 0] + drop(1.0 - w00) * v[:, 1]
+            out1 = drop(w11) * v[:, 1] + drop(1.0 - w11) * v[:, 0]
             out = torch.stack([out0, out1], dim=1).reshape(b, s, t, f)
         else:
             scores = torch.einsum("bpthd,bqthd->bpqth", q, k) * scale
             attn = torch.softmax(scores.float(), dim=2).to(x.dtype)
+            if train is not None:
+                attn = train.dropout(attn)
             out = torch.einsum("bpqth,bqthd->bpthd", attn, v).reshape(
                 b, s, t, f)
-        return self._project_out(out)
+        return self._project_out(out, train)
 
 
 class EGA(nn.Module):
@@ -296,23 +386,26 @@ class EGA(nn.Module):
         })
 
     def forward(self, x: torch.Tensor, pos: RelPos,
-                seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                seq_lens: Optional[torch.Tensor] = None,
+                train: Optional[TrainMode] = None) -> torch.Tensor:
         t = x.shape[1]
         x_down = adaptive_avg_pool_time(x, pos.length)
         # the stage length is an exact multiple of the bottleneck length, so
         # a pool window is all valid or all padding
         pooled_lens = (seq_lens // (t // pos.length)
                        if seq_lens is not None else None)
-        x_down = self.block["self_attn"](x_down, pos, key_lens=pooled_lens)
+        x_down = self.block["self_attn"](x_down, pos, key_lens=pooled_lens,
+                                         train=train)
         norm, proj = self.block["linear"]
         gate = torch.sigmoid(proj(norm(x)))
         return x + gate * nearest_upsample_time(x_down, t)
 
 
 class CLA(nn.Module):
-    """Convolutional Local Attention (reference network.py:159-187), eval:
-    LN -> Linear F->2F -> GLU -> depthwise k65 SAME -> Linear F->2F -> BN
-    (running stats) -> GELU -> Linear 2F->F, LayerScale residual."""
+    """Convolutional Local Attention (reference network.py:159-187):
+    LN -> Linear F->2F -> GLU -> depthwise k65 SAME (backward K5) ->
+    Linear F->2F -> BN -> GELU -> Linear 2F->F -> dropout, LayerScale
+    residual."""
 
     def __init__(self, dim: int, kernel_size: int, norm_eps: float = 1.0e-5):
         super().__init__()
@@ -326,14 +419,18 @@ class CLA(nn.Module):
         self.Layer_scale = LayerScale(dim)
 
     def forward(self, x: torch.Tensor,
-                seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                seq_lens: Optional[torch.Tensor] = None,
+                train: Optional[TrainMode] = None) -> torch.Tensor:
         y = glu_last(self.linear1(self.layer_norm(x)))
         if seq_lens is not None:
             # the k65 conv reads 32 frames past the valid length: zeros there
             y = y * length_mask(seq_lens, y.shape[1], y.dtype)
         y = self.dw_conv_1d(y)
-        y = gelu_exact(self.BN(self.linear2(y)))
-        return x + self.Layer_scale(self.linear3[1](y))
+        y = gelu_exact(self.BN(self.linear2(y), train))
+        y = self.linear3[1](y)
+        if train is not None:
+            y = train.dropout(y)
+        return x + self.Layer_scale(y)
 
 
 class GlobalBlock(nn.Module):
@@ -344,9 +441,9 @@ class GlobalBlock(nn.Module):
         self.block = nn.ModuleDict({"ega": EGA(dim, num_heads, norm_eps),
                                     "gcfn": GCFN(dim, norm_eps)})
 
-    def forward(self, x, pos: RelPos, seq_lens=None):
-        x = self.block["ega"](x, pos, seq_lens)
-        return self.block["gcfn"](x, seq_lens)
+    def forward(self, x, pos: RelPos, seq_lens=None, train=None):
+        x = self.block["ega"](x, pos, seq_lens, train)
+        return self.block["gcfn"](x, seq_lens, train)
 
 
 class LocalBlock(nn.Module):
@@ -357,9 +454,9 @@ class LocalBlock(nn.Module):
         self.block = nn.ModuleDict({"cla": CLA(dim, kernel_size, norm_eps),
                                     "gcfn": GCFN(dim, norm_eps)})
 
-    def forward(self, x, seq_lens=None):
-        x = self.block["cla"](x, seq_lens)
-        return self.block["gcfn"](x, seq_lens)
+    def forward(self, x, seq_lens=None, train=None):
+        x = self.block["cla"](x, seq_lens, train)
+        return self.block["gcfn"](x, seq_lens, train)
 
 
 class SpkAttention(nn.Module):
@@ -373,11 +470,11 @@ class SpkAttention(nn.Module):
         self.self_attn = MultiHeadAttention(dim, num_heads, norm_eps)
         self.feed_forward = GCFN(dim, norm_eps)
 
-    def forward(self, x, seq_lens=None):
+    def forward(self, x, seq_lens=None, train=None):
         bs, t, f = x.shape
         y = x.reshape(bs // self.num_spks, self.num_spks, t, f)
-        y = (y + self.self_attn(y)).reshape(bs, t, f)
-        return self.feed_forward(y, seq_lens)
+        y = (y + self.self_attn(y, train=train)).reshape(bs, t, f)
+        return self.feed_forward(y, seq_lens, train)
 
 
 class DownConvLayer(nn.Module):
@@ -391,11 +488,11 @@ class DownConvLayer(nn.Module):
                                          padding=(kernel_size - 1) // 2)
         self.BN = BatchNorm(dim, eps=norm_eps)
 
-    def forward(self, x, seq_lens=None):
+    def forward(self, x, seq_lens=None, train=None):
         if seq_lens is not None:
             # the last valid output reads one frame past the valid length
             x = x * length_mask(seq_lens, x.shape[1], x.dtype)
-        return gelu_exact(self.BN(self.down_conv(x)))
+        return gelu_exact(self.BN(self.down_conv(x), train))
 
 
 class SpkSplitStage(nn.Module):

@@ -1,4 +1,5 @@
-"""SepReformer, eval forward, in PyTorch.
+"""SepReformer in PyTorch: the eval forward, and the train forward when a
+``TrainMode`` is given.
 
 Pipeline (reference model.py:38-52, module.py:190-218), as in the JAX
 package's ``models/sepreformer.py``:
@@ -36,13 +37,14 @@ from sepreformer_torch.models.blocks import (
     RelPos,
     SpkAttention,
     SpkSplitStage,
+    TrainMode,
     gelu_exact,
     glu_last,
     length_mask,
     pad_time,
 )
 from sepreformer_torch.ops.framing import decoder_overlap_add, encoder_conv
-from sepreformer_torch.ops.kernels import materialize_pos_kt
+from sepreformer_torch.ops.kernels import pos_kt
 from sepreformer_torch.ops.resample import nearest_upsample_time
 
 # float32 on the card means float32: cuDNN would otherwise run the k65
@@ -82,7 +84,8 @@ class FeatureProjector(nn.Module):
 class RelativePositionalEncoding(nn.Module):
     """Rel-pos key table Embedding(2*maxlen, F/heads) (reference
     module.py:42-57).  ``forward(length)`` materializes pos_kt once, at
-    the 128-padded attention length, through the K2 kernel."""
+    the 128-padded attention length, through the K2 kernel (with its
+    gradient)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -91,7 +94,7 @@ class RelativePositionalEncoding(nn.Module):
 
     def forward(self, length: int) -> RelPos:
         lp = -(-length // 128) * 128
-        return RelPos(length=length, pos_kt=materialize_pos_kt(
+        return RelPos(length=length, pos_kt=pos_kt(
             self.pe_k.weight, lp, self.maxlen))
 
 
@@ -109,13 +112,13 @@ class SepEncStage(nn.Module):
         self.downconv = (DownConvLayer(f, cfg.down_kernel, eps)
                          if down_conv else None)
 
-    def forward(self, x, pos: RelPos, seq_lens=None):
+    def forward(self, x, pos: RelPos, seq_lens=None, train=None):
         for i in (1, 2):
-            x = getattr(self, f"g_block_{i}")(x, pos, seq_lens)
-            x = getattr(self, f"l_block_{i}")(x, seq_lens)
+            x = getattr(self, f"g_block_{i}")(x, pos, seq_lens, train)
+            x = getattr(self, f"l_block_{i}")(x, seq_lens, train)
         skip = x
         if self.downconv is not None:
-            x = self.downconv(x, seq_lens)
+            x = self.downconv(x, seq_lens, train)
         return x, skip
 
 
@@ -133,11 +136,11 @@ class SepDecStage(nn.Module):
             setattr(self, f"spk_attn_{i}",
                     SpkAttention(f, cfg.num_heads, cfg.num_spks, eps))
 
-    def forward(self, x, pos: RelPos, seq_lens=None):
+    def forward(self, x, pos: RelPos, seq_lens=None, train=None):
         for i in (1, 2, 3):
-            x = getattr(self, f"g_block_{i}")(x, pos, seq_lens)
-            x = getattr(self, f"l_block_{i}")(x, seq_lens)
-            x = getattr(self, f"spk_attn_{i}")(x, seq_lens)
+            x = getattr(self, f"g_block_{i}")(x, pos, seq_lens, train)
+            x = getattr(self, f"l_block_{i}")(x, seq_lens, train)
+            x = getattr(self, f"spk_attn_{i}")(x, seq_lens, train)
         return x
 
 
@@ -159,7 +162,7 @@ class Separator(nn.Module):
             [Conv1x1(2 * cfg.feat_dim, cfg.feat_dim) for _ in range(r)])
         self.dec_stages = nn.ModuleList([SepDecStage(cfg) for _ in range(r)])
 
-    def forward(self, x, frame_lens=None):
+    def forward(self, x, frame_lens=None, train=None):
         cfg = self.cfg
         r = cfg.num_stages
         x = pad_time(x, cfg.padded_frames(x.shape[1]))
@@ -179,9 +182,9 @@ class Separator(nn.Module):
 
         skips = []
         for s in range(r):
-            x, skip = self.enc_stages[s](x, pos, lens_at(s))
+            x, skip = self.enc_stages[s](x, pos, lens_at(s), train)
             skips.append(self.spk_split_block(skip, lens_at(s)))
-        x, _ = self.bottleneck_G(x, pos, lens_at(r))
+        x, _ = self.bottleneck_G(x, pos, lens_at(r), train)
         x = self.spk_split_block(x, lens_at(r))
 
         stage_outputs = []
@@ -190,7 +193,8 @@ class Separator(nn.Module):
             skip = skips[r - 1 - s]
             x = nearest_upsample_time(x, skip.shape[1])
             x = self.simple_fusion[s](torch.cat([x, skip], dim=-1))
-            x = self.dec_stages[s](x, pos, lens_at(r - 1 - s, spk=True))
+            x = self.dec_stages[s](x, pos, lens_at(r - 1 - s, spk=True),
+                                   train)
         return x, stage_outputs
 
 
@@ -235,10 +239,13 @@ class AudioDecoder(nn.Module):
 class SepReformer(nn.Module):
     """Full model with per-stage aux heads (reference model.py:13-52).
 
-    ``forward(x, lengths=None)`` with x [B, T] (T % enc_stride == 0)
-    returns (audio [spks, B, T], aux [num_stages, spks, B, T]), coarsest
-    stage first.  The aux heads are not length-masked: they feed only the
-    training losses.
+    ``forward(x, lengths=None, train=None)`` with x [B, T] (T %
+    enc_stride == 0) returns (audio [spks, B, T], aux [num_stages, spks,
+    B, T]), coarsest stage first.  The aux heads are not length-masked:
+    they feed only the training losses.  ``train``, a ``TrainMode``,
+    makes it the train forward (the JAX package's ``train=True``):
+    dropout, and BatchNorm on batch statistics with a running update.
+    ``nn.Module.train()`` does not select it.
     """
 
     def __init__(self, cfg: ModelConfig):
@@ -254,7 +261,8 @@ class SepReformer(nn.Module):
             [OutputLayer(cfg, masking=True) for _ in range(r)])
         self.decoder_bn = nn.ModuleList([AudioDecoder(cfg) for _ in range(r)])
 
-    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None
+    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                train: Optional[TrainMode] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
         t_samples = x.shape[-1]
@@ -270,7 +278,7 @@ class SepReformer(nn.Module):
         proj = self.feature_projector(enc, frame_lens)
         if enc_mask is not None:
             proj = proj * enc_mask
-        last, stage_outs = self.separator(proj, frame_lens)
+        last, stage_outs = self.separator(proj, frame_lens, train)
 
         out = self.out_layer(last, enc)
         if enc_mask is not None:

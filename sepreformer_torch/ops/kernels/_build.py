@@ -28,15 +28,27 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
+_F = ctypes.c_float
 # launcher name -> argument types; every launcher returns cudaGetLastError()
 SIGNATURES = {
     # x, lens, lns, lnb, win, bin, wdw, bdw, wout, bout, ls, out,
     # B, T, F, eps, stream
-    "sep_gcfn_f32": [_P] * 12 + [_I, _I, _I, ctypes.c_float, _P],
+    "sep_gcfn_f32": [_P] * 12 + [_I, _I, _I, _F, _P],
     # table, out, t, d, maxlen, stream
     "sep_relpos_f32": [_P, _P, _I, _I, _I, _P],
     # scores, v, lens, out, B, H, Lp, F, length, stream
     "sep_softmax_pv_f32": [_P] * 4 + [_I] * 5 + [_P],
+    # x, dy, w, dx, dw, db, partial, partial_floats, B, T, C, K, stream
+    "sep_depthwise_bwd_f32": [_P] * 7 + [ctypes.c_longlong] + [_I] * 4 + [_P],
+    # scores, v, lens, out, row_max, row_sum, B, H, Lp, F, length,
+    # seed_word, threshold, keep_scale, stream
+    "sep_softmax_pv_train_fwd_f32": [_P] * 6 + [_I] * 5 + [_U, _U, _F, _P],
+    # scores, v, out, dout, row_max, row_sum, lens, dscores, dv, B, H, Lp,
+    # F, length, seed_word, threshold, keep_scale, stream
+    "sep_softmax_pv_train_bwd_f32": [_P] * 9 + [_I] * 5 + [_U, _U, _F, _P],
+    # est, src, out, S, B, T, scale_inv, eps, clamp_db, has_clamp, stream
+    "sep_pit_sisnr_f32": [_P] * 3 + [_I] * 4 + [_F, _F, _I, _P],
 }
 
 
@@ -127,3 +139,16 @@ def check_tensor(a, name: str, shape, device, dtype=None,
         raise ValueError(f"{name}: not contiguous")
     if a.data_ptr() % align:
         raise ValueError(f"{name}: data pointer not {align}-byte aligned")
+
+
+def check_no_grad(name: str, *tensors) -> None:
+    """Raise if autograd would record a call on ``tensors``: a wrapper of
+    an eval kernel returns a result with no gradient, which would cut
+    every gradient upstream of it."""
+    import torch
+
+    if torch.is_grad_enabled() and any(a.requires_grad for a in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward; call it under "
+            f"torch.no_grad() or torch.inference_mode(), or take the train "
+            f"path")

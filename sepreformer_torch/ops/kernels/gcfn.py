@@ -49,9 +49,11 @@ def fused_gcfn(x: torch.Tensor, params: Sequence[torch.Tensor], eps: float,
                lens: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [B, T, F] float32; ``lens`` [B] int (optional) masks u-rows at
     t >= lens[b].  CPU tensors take ``gcfn_plain``; CUDA tensors launch
-    the kernel."""
+    the kernel, which has no backward: it raises where autograd would
+    record the call."""
     if x.device.type == "cpu":
         return gcfn_plain(x, params, eps, lens)
+    _build.check_no_grad("fused_gcfn", x, *params)
     b, t, f = x.shape
     hidden = 6 * f
     shapes = [(f,), (f,), (f, hidden), (hidden,), (hidden, 3), (hidden,),

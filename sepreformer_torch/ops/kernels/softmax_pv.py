@@ -51,9 +51,11 @@ def softmax_pv(scores: torch.Tensor, v: torch.Tensor,
     """Masked softmax(scores)·V with channels-last V and output.  CPU
     tensors take the plain version; CUDA tensors launch the kernel, which
     needs every ``lens[b] >= 1`` (a row with no valid key cannot occur on
-    the model's path)."""
+    the model's path) and has no backward: it raises where autograd would
+    record the call."""
     if scores.device.type == "cpu":
         return softmax_pv_plain(scores, v, lens, length)
+    _build.check_no_grad("softmax_pv", scores, v)
     b, h, lp, _ = scores.shape
     f = v.shape[-1]
     length = lp if length is None else int(length)

@@ -146,7 +146,8 @@ def test_wrappers_refuse_other_devices():
 
 def test_build_names_library_by_source_hash():
     srcs = [p.name for p in _build.sources()]
-    assert srcs == ["gcfn.cu", "relpos.cu", "softmax_pv.cu"]
+    assert srcs == ["depthwise.cu", "gcfn.cu", "pit.cu", "relpos.cu",
+                    "softmax_pv.cu", "softmax_pv_train.cu"]
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libsepkernels-") and path.suffix == ".so"
