@@ -10,6 +10,7 @@ Phases, each of which fails the run:
                at the shapes SepReformer_Base_WSJ0 gives it: the eval
                kernels (K1 GCFN, K2 rel-pos, K3 masked softmax·V) for a
                B=4 x 4 s batch, the train kernels (K5 k65 depthwise
+               backward, K7 and K8 GCFN with hash dropout forward and
                backward, K9 and K10 softmax·dropout·V forward and
                backward, K11 uPIT SI-SNR table) for a B=2 x 4 s train
                batch; times of the kernel, the plain version, a library
@@ -33,11 +34,21 @@ Phases, each of which fails the run:
                BatchNorm statistics move, the train kernels' counts rise
                and K1's and K3's do not.  Then one ``eval_step`` through
                K1-K3, and one traced train step: idle share, kernel time
-               by group, launches per step, peak memory.
+               by group, launches per step (one K7 and one K8 per GCFN),
+               peak memory.
 7. train_cpu - one train step at dropout 0, every LayerScale at 0.5, on a
                1 s crop, on the card and on the CPU from the same weights:
                the loss and every gradient agree, within a limit that a
-               control run with TF32 allowed exceeds.
+               control run with TF32 allowed exceeds.  Then one Base-width
+               GCFN in train mode at dropout 0.05 (the hash masks are the
+               same on both): its output and ten gradients, card against
+               CPU, within the same limit.
+8. engine    - the training entry point, ``sepreformer_torch.cli.main``:
+               a seeded synthetic corpus (16/4/4 utterances of 3-6 s),
+               Base at full width trained for 2 epochs at batch 2 with
+               validation and a best checkpoint, resumed for a third,
+               then tested (SI-SNRi, SDRi); every kernel of the train and
+               eval paths launches.
 
 Prints one JSON line of kernel results, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -65,13 +76,15 @@ KERNEL_SYMBOLS = {"fused_gcfn": "gcfn_kernel",
                   "materialize_pos_kt": "relpos_kernel",
                   "softmax_pv": "softmax_pv_kernel",
                   "depthwise_bwd": "depthwise_bwd",
+                  "gcfn_train_fwd": "gcfn_train_fwd_kernel",
+                  "gcfn_train_bwd": "gcfn_train_bwd",
                   "softmax_pv_train_fwd": "softmax_pv_train_fwd_kernel",
                   "softmax_pv_train_bwd": "softmax_pv_train_bwd_kernel",
                   "sisnr_pairwise_neg_fused": "pit_sisnr_kernel"}
 EVAL_KERNELS = ("fused_gcfn", "materialize_pos_kt", "softmax_pv")
-TRAIN_KERNELS = ("materialize_pos_kt", "depthwise_bwd",
-                 "softmax_pv_train_fwd", "softmax_pv_train_bwd",
-                 "sisnr_pairwise_neg_fused")
+TRAIN_KERNELS = ("materialize_pos_kt", "depthwise_bwd", "gcfn_train_fwd",
+                 "gcfn_train_bwd", "softmax_pv_train_fwd",
+                 "softmax_pv_train_bwd", "sisnr_pairwise_neg_fused")
 NO_BACKWARD = ("fused_gcfn", "softmax_pv")
 # |card - cpu| over max|out| allowed in phase 5; see PERF.md for the
 # readings it sits between (float32 on the card, and TF32 allowed)
@@ -80,6 +93,8 @@ CPU_REL_LIMIT = 3e-5
 # cpu gradient; see PERF.md for the readings it sits between
 TRAIN_CPU_REL_LIMIT = 1e-4
 KERNEL_GROUPS = (  # profile groups of the card's kernels, first match wins
+    ("K7 gcfn_train_fwd", ("gcfn_train_fwd",)),
+    ("K8 gcfn_train_bwd", ("gcfn_train_bwd",)),
     ("K1 gcfn", ("gcfn_kernel",)),
     ("K2 relpos", ("relpos_kernel",)),
     ("K9 softmax_pv_train_fwd", ("softmax_pv_train_fwd",)),
@@ -232,9 +247,57 @@ def kernel_phase(torch, K, device_ms):
            shape=f"x, dy [{b}, {t}, {c}], w [{c}, 1, {k}]",
            tolerance="rtol 1e-4; atol 1e-5 dx, 1e-3 dw and db")
 
+    # K7 and K8: the widest GCFN of a B=2 x 4 s train batch, in a decoder
+    # stage (B*spks = 4 rows of 8000 frames), p 0.05
+    b, t, f, p, seed = 4, 8000, 128, 0.05, 4321
+    h = 6 * f
+    x, dout = randn(b, t, f), randn(b, t, f)
+    params = [randn(f), randn(f), randn(f, h, scale=0.1), randn(h, scale=0.1),
+              randn(h, 3, scale=0.3), randn(h, scale=0.1),
+              randn(h // 2, f, scale=0.1), randn(f, scale=0.1),
+              randn(f, scale=0.5)]
+    got = K.gcfn_train_fwd(x, params, 1e-5, seed, p)
+    ref = K.gcfn_train_plain(x, params, 1e-5, seed, p)
+    torch.cuda.synchronize()
+    # a wrong dropout mask errs by O(1) at p = 0.05
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    products = 2 * f * h + 2 * (h // 2) * f         # flops per row
+    record(K.gcfn_train_fwd,
+           lambda: K.gcfn_train_fwd(x, params, 1e-5, seed, p),
+           lambda: K.gcfn_train_plain(x, params, 1e-5, seed, p), None,
+           (got - ref).abs().max().item(),
+           4 * (2 * x.numel() + sum(q.numel() for q in params)),
+           b * t * (products + 8 * f + 7 * h + 6 * (h // 2) + 4 * f),
+           source="sepreformer_torch/csrc/gcfn_train.cu",
+           replaces="sepreformer_tpu/ops/pallas/gcfn_train.py:549",
+           shape=f"x [{b}, {t}, {f}], hidden {h}, p {p}",
+           tolerance="rtol 1e-4, atol 1e-4 (float32)")
+    dx, dparams = K.gcfn_train_bwd(x, params, 1e-5, seed, p, dout)
+    ref_dx, ref_dparams = K.gcfn_train_bwd_plain(x, params, 1e-5, seed, p,
+                                                 dout)
+    torch.cuda.synchronize()
+    err = 0.0
+    # dx, then the nine parameter gradients: each sums B*T rows in another
+    # order than the plain version's cuBLAS products
+    for g, r in zip((dx, *dparams), (ref_dx, *ref_dparams)):
+        torch.testing.assert_close(g, r, rtol=1e-4,
+                                   atol=1e-5 * r.abs().max().item() + 1e-6)
+        err = max(err, (g - r).abs().max().item())
+    record(K.gcfn_train_bwd,
+           lambda: K.gcfn_train_bwd(x, params, 1e-5, seed, p, dout),
+           lambda: K.gcfn_train_bwd_plain(x, params, 1e-5, seed, p, dout),
+           None, err,
+           4 * (3 * x.numel() + 2 * sum(q.numel() for q in params)),
+           # the forward's products again, then dg, dWout, dWin and dxn
+           b * t * (3 * products + 40 * f + 20 * h),
+           source="sepreformer_torch/csrc/gcfn_train.cu",
+           replaces="sepreformer_tpu/ops/pallas/gcfn_train.py:599",
+           shape=f"x, dout [{b}, {t}, {f}], hidden {h}, p {p}",
+           tolerance="rtol 1e-4; atol 1e-5 x max|plain| + 1e-6, ten outputs")
+
     # K9 and K10: decoder attention of a B=2 x 4 s train batch (B*spks=4
     # rows, 8 heads, L=500 padded to 512), no key lengths, as in training
-    b, length, seed = 4, 500, 1234
+    b, f, length, seed = 4, 128, 500, 1234
     scores = randn(b, heads, lp, lp, scale=3.0)
     v, dout = randn(b, lp, f), randn(b, lp, f)
     key_len = torch.full((b,), length, dtype=torch.int32, device=dev)
@@ -533,6 +596,12 @@ def train_phase(torch, np, sep_torch, K, busy_us, kernel_events, steps=6):
     assert not missing, f"train kernels never launched: {missing}"
     stray = [n for n in NO_BACKWARD if counts[n]]
     assert not stray, f"eval kernels without a backward ran: {stray}"
+    gcfns = sum(type(m).__name__ == "GCFN" for m in model.modules())
+    per_step = {n: counts[n] / steps for n in ("gcfn_train_fwd",
+                                               "gcfn_train_bwd")}
+    print(f"[train] {gcfns} GCFNs; K7, K8 launches per step {per_step}")
+    assert all(v == gcfns for v in per_step.values()), (
+        "one K7 and one K8 launch per GCFN and step")
     now = dict(model.named_parameters())
     now.update(model.named_buffers())
     frozen = [n for n, before in watched.items()
@@ -629,6 +698,106 @@ def train_cpu_phase(torch, np, sep_torch):
         "card gradients disagree with the CPU")
     assert errs["control, TF32 allowed"] > TRAIN_CPU_REL_LIMIT, (
         "the limit does not catch TF32 products")
+    gcfn_train_cpu(torch, np)
+
+
+def gcfn_train_cpu(torch, np):
+    """One Base-width GCFN in train mode at dropout 0.05 on the card (K7,
+    K8) and on the CPU (plain, the same hash masks): the output and the
+    ten gradients (x and nine parameters) within the phase's limit, each
+    over its largest CPU value."""
+    from sepreformer_torch.models.blocks import GCFN, TrainMode
+
+    gen = torch.Generator().manual_seed(7)
+    gcfn = GCFN(128)
+    with torch.no_grad():
+        for prm in gcfn.parameters():
+            prm.copy_(torch.randn(prm.shape, generator=gen) * 0.2)
+        gcfn.Layer_scale.layer_scale.fill_(0.5)
+    x = torch.randn(2, 2000, 128, generator=gen)
+    w = torch.randn(2, 2000, 128, generator=gen)
+
+    def run(device):
+        module = copy.deepcopy(gcfn).to(device)
+        xd = x.to(device).detach().requires_grad_()
+        train = TrainMode(0.05, torch.Generator(device=device),
+                          torch.Generator().manual_seed(8))
+        out = module(xd, None, train)
+        (out * w.to(device)).sum().backward()
+        grads = [xd.grad] + [prm.grad for prm in module.parameters()]
+        return [a.detach().cpu() for a in [out] + grads]
+
+    cpu, card = run("cpu"), run("cuda")
+    names = ["out", "dx"] + [n for n, _ in gcfn.named_parameters()]
+    worst = max(((c - g).abs().max().item() / g.abs().max().item(), n)
+                for n, c, g in zip(names, card, cpu))
+    print(f"[train_cpu] GCFN [2, 2000, 128], p 0.05: max |card - cpu| / "
+          f"max|cpu| over the output and ten gradients {worst[0]:.3e} "
+          f"(worst {worst[1]}), limit {TRAIN_CPU_REL_LIMIT:.1e}")
+    assert worst[0] <= TRAIN_CPU_REL_LIMIT, "the train GCFN disagrees"
+
+
+def engine_phase(torch, np, K):
+    """Train Base from ``sepreformer_torch.cli.main`` on a seeded synthetic
+    corpus: 2 epochs, a resumed third, then test."""
+    import csv
+    import logging
+    import tempfile
+
+    from sepreformer_torch import cli
+    from sepreformer_torch.data.synth import generate_corpus
+
+    lines = []
+
+    class Collect(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    logger = logging.getLogger("sepreformer_torch")
+    logger.setLevel(logging.INFO)
+    logger.addHandler(Collect())
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        generate_corpus(os.path.join(tmp, "corpus"), n_train=16, n_valid=4,
+                        n_test=4, seed=0)
+        print(f"[engine] corpus 16/4/4 utterances of 3-6 s in "
+              f"{time.perf_counter() - t0:.2f} s")
+        work = os.path.join(tmp, "work")
+        args = ["--model", "SepReformer_Base_WSJ0", "--scp-root",
+                os.path.join(tmp, "corpus"), "--scp-dir", "scp",
+                "--workdir", work, "--batch-size", "2",
+                "--set", "engine.test_epochs="]
+        K.reset_launches()
+        for mode, extra in (("train", ["--max-epoch", "3"]),
+                            ("resume", ["--max-epoch", "4"]),
+                            ("test", ["--engine-mode", "test"])):
+            t0 = time.perf_counter()
+            assert cli.main(args + extra) == 0, mode
+            print(f"[engine] {mode}: {time.perf_counter() - t0:.2f} s")
+        counts = K.launch_counts()
+        for line in lines:
+            print(f"[engine] log: {line}")
+        epochs = [ln for ln in lines if ln.startswith("epoch ")]
+        assert len(epochs) == 3, epochs
+        assert any(ln.startswith("resumed from epoch") for ln in lines)
+        for ln in epochs:
+            losses = [float(v) for v in ln.split()[3:6:2]]   # train, valid
+            assert all(np.isfinite(v) for v in losses), ln
+        ckpt = os.path.join(work, "log", "scratch_weights", "epoch.0003.pth")
+        assert os.path.exists(ckpt), "no checkpoint of the resumed epoch"
+        means = {}
+        for name in ("SISNRi", "SDRi"):
+            with open(os.path.join(work, f"test_{name}_value.csv")) as f:
+                rows = list(csv.reader(f))
+            assert len(rows) == 4, rows
+            means[name] = float(np.mean([float(r[1]) for r in rows]))
+        print(f"[engine] test over 4 utterances: SI-SNRi {means['SISNRi']:.4f}"
+              f" dB, SDRi {means['SDRi']:.4f} dB")
+        assert all(np.isfinite(v) for v in means.values()), means
+    print(f"[engine] launches over the three runs: {counts}")
+    missing = [n for n in TRAIN_KERNELS + EVAL_KERNELS if counts[n] == 0]
+    assert not missing, f"kernels never launched by the CLI: {missing}"
+    return counts
 
 
 def main() -> int:
@@ -703,6 +872,7 @@ def main() -> int:
     train_counts = run("train", train_phase, torch, np, sep_torch, K,
                        busy_us, kernel_events) or {}
     run("train_cpu", train_cpu_phase, torch, np, sep_torch)
+    run("engine", engine_phase, torch, np, K)
 
     # each kernel's launches on the main path of its slice: the eval
     # kernels' in serving, the train kernels' in training

@@ -1,5 +1,6 @@
-"""PyTorch/CUDA port of SepReformer: the eval forward (``api``) and the
-train step (``engine``).
+"""PyTorch/CUDA port of SepReformer: the eval forward (``api``), the
+train step and the run loop (``engine``), the data pipeline (``data``)
+and the command line (``python -m sepreformer_torch.cli``).
 
 Imports ``torch`` and nothing of the JAX package.  The kernels on these
 paths are hand-written CUDA for Hopper (``csrc/``), built with plain

@@ -17,10 +17,8 @@
 //           softmax_pv_dropout, forward _fwd_impl (body _fwd_kernel) and
 //           backward _bwd_impl (body _bwd_kernel).
 //
-// The dropout hash is ops/pallas/gcfn_train.py::keep_mask, bit for bit:
-// uint32 multiplies and xor-shifts of (seed + site * 0x27D4EB2F, row, col),
-// kept iff the top 24 bits reach int(p * 2^24).  C's uint32_t arithmetic
-// wraps as JAX's uint32 does, so the masks are the JAX package's masks.
+// The dropout hash is ops/pallas/gcfn_train.py::keep_mask, bit for bit
+// (hash_dropout.cuh, shared with K7 and K8), at site 0.
 //
 // What bounds them on the H100: the forward reads each valid score once
 // (B*H*Lp*lim floats, 33 MB at B=4, H=8, Lp=512, lim=500) and the backward
@@ -43,6 +41,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hash_dropout.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -63,18 +63,6 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// Whether the element is kept: gcfn_train.py::keep_mask at site 0.
-__device__ __forceinline__ bool keep(uint32_t seed_word, uint32_t row,
-                                     uint32_t col, uint32_t threshold) {
-  uint32_t h = (row * 0x9E3779B1u) ^ (col * 0x85EBCA77u) ^ seed_word;
-  h ^= h >> 15;
-  h *= 0x2C1B3C6Du;
-  h ^= h >> 12;
-  h *= 0x297A2D39u;
-  h ^= h >> 15;
-  return (h >> 8) >= threshold;
 }
 
 template <int D>
@@ -154,7 +142,8 @@ softmax_pv_train_fwd_kernel(const float* __restrict__ scores,
           l += p;
           float pd = p;
           if (threshold)
-            pd = keep(seed_word, row_base + r, (uint32_t)(k0 + j), threshold)
+            pd = sep_keep(seed_word, row_base + r, (uint32_t)(k0 + j),
+                          threshold)
                      ? p * keep_scale
                      : 0.f;
 #pragma unroll
@@ -258,8 +247,8 @@ softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
         const float p = expf(sb[(size_t)i * Lp + j] - m_s[r]) * linv_s[r];
         float scale = 1.f;
         if (threshold)
-          scale = keep(seed_word, (uint32_t)(bh * Lp + i), (uint32_t)j,
-                       threshold)
+          scale = sep_keep(seed_word, (uint32_t)(bh * Lp + i), (uint32_t)j,
+                           threshold)
                       ? keep_scale
                       : 0.f;
         float dot = 0.f;

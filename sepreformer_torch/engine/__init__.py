@@ -1,3 +1,9 @@
+from sepreformer_torch.engine.checkpoint import (
+    latest_epoch,
+    load_checkpoint,
+    save_checkpoint,
+)
+from sepreformer_torch.engine.engine import Engine, apply_cmvn
 from sepreformer_torch.engine.lr_control import LRController
 from sepreformer_torch.engine.train import (
     TrainState,
@@ -10,6 +16,7 @@ from sepreformer_torch.engine.train import (
 )
 
 __all__ = [
-    "LRController", "TrainState", "apply_gradients", "compute_losses",
-    "create_train_state", "eval_step", "make_optimizer", "train_step",
+    "Engine", "LRController", "TrainState", "apply_cmvn", "apply_gradients",
+    "compute_losses", "create_train_state", "eval_step", "latest_epoch",
+    "load_checkpoint", "make_optimizer", "save_checkpoint", "train_step",
 ]

@@ -10,9 +10,9 @@ instead).  Conventions, as in the reference:
 - magnitude loss: eps 1e-12, scale clamped at >= 1e-2, Frobenius norms
   of the window-scaled STFT magnitudes;
 - batch reduction: the mean over utterances of the best permutation's
-  summed loss; the train step divides by the number of speakers.
-
-``pit_sisnr_improvement`` and ``sisnr_db`` (metrics) are not ported yet.
+  summed loss; the train step divides by the number of speakers;
+- SI-SNRi metric (``pit_sisnr_improvement``): the PIT-max of the summed
+  per-speaker improvements, eps 1e-15 (criterions.py:219-260).
 """
 
 from __future__ import annotations
@@ -31,8 +31,9 @@ from sepreformer_torch.ops.kernels.pit import (
 from sepreformer_torch.ops.stft import stft_magnitude
 
 __all__ = [
-    "pit_sisnr_mag", "pit_sisnr_time", "progressive_alpha",
-    "sisnr_pairwise_neg", "stft_mag_pairwise_neg",
+    "pit_sisnr_improvement", "pit_sisnr_mag", "pit_sisnr_time",
+    "progressive_alpha", "sisnr_db", "sisnr_pairwise_neg",
+    "stft_mag_pairwise_neg",
 ]
 
 
@@ -105,6 +106,47 @@ def pit_sisnr_mag(est: torch.Tensor, src: torch.Tensor,
     pair = stft_mag_pairwise_neg(est, src, stft_kernel, frame_shift,
                                  scale_inv=scale_inv, mel_fb=mel_fb)
     return _gather_perm_totals(pair).min(dim=0).values.mean()
+
+
+def _l2(x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt((x * x).sum(dim=-1))
+
+
+def _proj_snr(x: torch.Tensor, t: torch.Tensor, eps: float) -> torch.Tensor:
+    """SNR in dB of x against its projection on t (both zero-mean)."""
+    scale = (x * t).sum(dim=-1, keepdim=True) / (
+        (t * t).sum(dim=-1, keepdim=True) + eps)
+    tt = scale * t
+    return 20.0 * torch.log10(eps + _l2(tt) / (_l2(x - tt) + eps))
+
+
+def sisnr_db(est: torch.Tensor, src: torch.Tensor,
+             eps: float = 1.0e-15) -> torch.Tensor:
+    """Scale-invariant SNR (dB), elementwise over matching leading dims."""
+    return _proj_snr(_zero_mean(est), _zero_mean(src), eps)
+
+
+def pit_sisnr_improvement(est: torch.Tensor, src: torch.Tensor,
+                          mixture: torch.Tensor, eps: float = 1.0e-15):
+    """SI-SNRi (criterions.py:219-260): est, src [S, B, T], mixture [B, T]
+    -> (the batch mean of the best permutation's summed improvement,
+    per-source improvements of that permutation [B, S]).  The permutation
+    is the PIT-max of the summed improvements (the reference takes each
+    speaker's max on its own, which differs only when speakers disagree
+    on the best permutation)."""
+    spks = est.shape[0]
+    e = _zero_mean(est)[:, None]
+    s = _zero_mean(src)[None, :]
+    m = _zero_mean(mixture)[None, None]
+    snr_est = _proj_snr(e, s, eps)                   # [S_e, S_s, B]
+    snr_mix = _proj_snr(m.expand(e.shape), s, eps)
+    improvement = (snr_est - snr_mix).permute(2, 0, 1)  # [B, e, s]
+    totals = _gather_perm_totals(improvement)            # [P, B]
+    best = totals.argmax(dim=0)
+    perms = torch.from_numpy(_perm_matrix(spks)).to(est.device)
+    chosen = perms[best]                                  # [B, S]
+    per_src = torch.gather(improvement, 2, chosen[:, :, None])[..., 0]
+    return totals.max(dim=0).values.mean(), per_src
 
 
 def progressive_alpha(epoch: int, alpha: float = 0.4,

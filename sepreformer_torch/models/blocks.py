@@ -17,9 +17,10 @@ Where the JAX package reaches a Pallas kernel on the TPU, the port calls
 its CUDA kernel wrapper (``ops/kernels``).  Eval: the GCFN (K1), the
 rel-pos materializer (K2, in ``models/sepreformer.py``) and the masked
 softmax·V (K3).  Train: K2 with its gradient, the backward of the CLA's
-k65 depthwise conv (K5) and the softmax·dropout·V pair (K9, K10); the
-GCFN runs its plain composition, as the JAX package does with
-``fused_ffn="off"``.  Everything else is plain PyTorch.
+k65 depthwise conv (K5), the GCFN with hash dropout (K7, K8; with
+``seq_lens`` the plain composition, as in JAX) and the softmax·dropout·V
+pair (K9, K10; past a padded length of 512 the dense attention that the
+JAX package's "xla" train path runs).  Everything else is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -34,8 +35,13 @@ from torch import nn
 from sepreformer_torch.ops.kernels import (
     depthwise_large,
     fused_gcfn,
+    fused_gcfn_train,
     softmax_pv,
     softmax_pv_dropout,
+)
+from sepreformer_torch.ops.kernels.softmax_pv import NEG_INF
+from sepreformer_torch.ops.kernels.softmax_pv_train import (
+    MAX_LENGTH as TRAIN_PV_MAX_LENGTH,
 )
 from sepreformer_torch.ops.resample import (
     adaptive_avg_pool_time,
@@ -233,7 +239,9 @@ class MaskedGroupNorm(nn.Module):
 class GCFN(nn.Module):
     """Gated conv feed-forward (reference network.py:46-66):
     x + LayerScale(drop(Linear(drop(GLU(dw3(Linear(LN(x)))))))), in eval
-    through the K1 kernel, in train as that plain composition.
+    through the K1 kernel, in train through K7 and K8 with the hash
+    dropout (sites 0 and 1 of one seed per GCFN), or, with ``seq_lens``,
+    as that plain composition.
     Reference names: net1 = [LayerNorm, Linear F->6F], depthwise,
     net2 = [GLU, Dropout, Linear 3F->F, Dropout], Layer_scale."""
 
@@ -259,17 +267,19 @@ class GCFN(nn.Module):
                 train: Optional[TrainMode] = None) -> torch.Tensor:
         norm, proj_in = self.net1
         proj_out = self.net2[2]
-        if train is not None:
+        if train is not None and seq_lens is not None:
             y = proj_in(norm(x))
-            if seq_lens is not None:
-                # the k3 conv at the last valid frame reads a zero past it
-                y = y * length_mask(seq_lens, y.shape[1], y.dtype)
+            # the k3 conv at the last valid frame reads a zero past it
+            y = y * length_mask(seq_lens, y.shape[1], y.dtype)
             y = train.dropout(glu_last(self.depthwise(y)))
             return x + self.Layer_scale(train.dropout(proj_out(y)))
         params = (norm.weight, norm.bias, proj_in.weight.t(), proj_in.bias,
                   self.depthwise.weight.squeeze(1), self.depthwise.bias,
                   proj_out.weight.t(), proj_out.bias,
                   self.Layer_scale.layer_scale.reshape(-1))
+        if train is not None:
+            return fused_gcfn_train(x.contiguous(), params, self.norm_eps,
+                                    train.kernel_seed(), train.p)
         return fused_gcfn(x.contiguous(), params, self.norm_eps, seq_lens)
 
 
@@ -295,8 +305,9 @@ class MultiHeadAttention(nn.Module):
     time on the fused_pv path: torch products for the scores at the
     128-padded length, then the K3 kernel for masked softmax·V in eval,
     K9 and K10 for masked softmax·dropout·V in train (padded lengths up
-    to 512, as in the JAX package).  4D input [B, S, T, F] attends over
-    the speaker axis."""
+    to 512, as in the JAX package; past it the dense attention of JAX's
+    "xla" train path).  4D input [B, S, T, F] attends over the speaker
+    axis."""
 
     def __init__(self, dim: int, num_heads: int, norm_eps: float = 1.0e-5):
         super().__init__()
@@ -328,13 +339,32 @@ class MultiHeadAttention(nn.Module):
         k = self.linear_k(y).reshape(b, t, h, d)
         v = self.linear_v(y)
         scores = fused_pv_scores(q, k, pos.pos_kt)
-        v = pad_time(v, pos.pos_kt.shape[0]).contiguous()
+        lp = pos.pos_kt.shape[0]
+        v = pad_time(v, lp).contiguous()
         if train is None:
             out = softmax_pv(scores, v, key_lens, t)
-        else:
+        elif lp <= TRAIN_PV_MAX_LENGTH:
             out = softmax_pv_dropout(scores, v, train.kernel_seed(),
                                      key_lens, t, train.p)
+        else:
+            out = self._dense_train_attention(scores, v, key_lens, t, train)
         return self._project_out(out[:, :t], train)
+
+    def _dense_train_attention(self, scores, v, key_lens, t, train):
+        """The JAX package's "xla" train attention (``blocks.py:755-792``),
+        which it runs past the train kernel's padded length of 512: the
+        unpadded scores, keys at or past ``key_lens`` masked, a float32
+        softmax, ``TrainMode.dropout`` on the probabilities, then ·V.
+        Returns [B, t, F]."""
+        s = scores[:, :, :t, :t]
+        if key_lens is not None:
+            kmask = torch.arange(t, device=s.device)[None] < key_lens[:, None]
+            s = torch.where(kmask[:, None, None, :], s,
+                            torch.tensor(NEG_INF, device=s.device))
+        attn = train.dropout(torch.softmax(s, dim=-1))
+        b, h = s.shape[:2]
+        vh = v[:, :t].reshape(b, t, h, -1).transpose(1, 2)
+        return torch.matmul(attn, vh).transpose(1, 2).reshape(b, t, -1)
 
     def _speaker_axis_attention(self, x: torch.Tensor,
                                 train: Optional[TrainMode]) -> torch.Tensor:

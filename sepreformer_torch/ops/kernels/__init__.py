@@ -5,9 +5,10 @@ launches.
 
 Eval: K1 ``fused_gcfn``, K2 ``materialize_pos_kt`` (``pos_kt`` adds its
 gradient), K3 ``softmax_pv``.  Train: K5 ``depthwise_bwd`` (the backward
-of ``depthwise_large``), K9 ``softmax_pv_train_fwd`` and K10
-``softmax_pv_train_bwd`` (the autograd function ``softmax_pv_dropout``),
-K11 ``sisnr_pairwise_neg_fused``.
+of ``depthwise_large``), K7 ``gcfn_train_fwd`` and K8 ``gcfn_train_bwd``
+(the autograd function ``fused_gcfn_train``), K9 ``softmax_pv_train_fwd``
+and K10 ``softmax_pv_train_bwd`` (the autograd function
+``softmax_pv_dropout``), K11 ``sisnr_pairwise_neg_fused``.
 """
 
 from sepreformer_torch.ops.kernels.depthwise import (
@@ -16,6 +17,13 @@ from sepreformer_torch.ops.kernels.depthwise import (
     depthwise_large,
 )
 from sepreformer_torch.ops.kernels.gcfn import fused_gcfn, gcfn_plain
+from sepreformer_torch.ops.kernels.gcfn_train import (
+    fused_gcfn_train,
+    gcfn_train_bwd,
+    gcfn_train_bwd_plain,
+    gcfn_train_fwd,
+    gcfn_train_plain,
+)
 from sepreformer_torch.ops.kernels.pit import (
     sisnr_pairwise_neg,
     sisnr_pairwise_neg_fused,
@@ -38,8 +46,8 @@ from sepreformer_torch.ops.kernels.softmax_pv_train import (
 )
 
 WRAPPERS = (fused_gcfn, materialize_pos_kt, softmax_pv, depthwise_bwd,
-            softmax_pv_train_fwd, softmax_pv_train_bwd,
-            sisnr_pairwise_neg_fused)
+            gcfn_train_fwd, gcfn_train_bwd, softmax_pv_train_fwd,
+            softmax_pv_train_bwd, sisnr_pairwise_neg_fused)
 
 
 def reset_launches() -> None:
@@ -53,7 +61,9 @@ def launch_counts() -> dict:
 
 __all__ = [
     "WRAPPERS", "depthwise_bwd", "depthwise_bwd_plain", "depthwise_large",
-    "fused_gcfn", "gcfn_plain", "launch_counts", "materialize_pos_kt",
+    "fused_gcfn", "fused_gcfn_train", "gcfn_plain", "gcfn_train_bwd",
+    "gcfn_train_bwd_plain", "gcfn_train_fwd", "gcfn_train_plain",
+    "launch_counts", "materialize_pos_kt",
     "materialize_pos_kt_plain", "pos_kt", "reset_launches",
     "sisnr_pairwise_neg", "sisnr_pairwise_neg_fused", "softmax_pv",
     "softmax_pv_dropout", "softmax_pv_dropout_bwd_plain",

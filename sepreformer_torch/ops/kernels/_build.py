@@ -1,12 +1,12 @@
 """Build and load the port's CUDA kernel library.
 
-All sources under ``sepreformer_torch/csrc/*.cu`` are compiled by one
-plain ``nvcc`` call for ``sm_90a`` into a shared library with a C
-interface, which is loaded with ``ctypes``.  No PyTorch header is
-included, so the build takes seconds, not minutes.  The library lands
-in ``build/sepreformer_torch/`` at the root of the checkout, named by a
-hash of the sources: an edited source gets a fresh build, an unchanged
-one is loaded as it is.
+All sources under ``sepreformer_torch/csrc/*.cu`` (with the headers
+``*.cuh`` they include) are compiled by one plain ``nvcc`` call for
+``sm_90a`` into a shared library with a C interface, which is loaded
+with ``ctypes``.  No PyTorch header is included, so the build takes
+seconds, not minutes.  The library lands in ``build/sepreformer_torch/``
+at the root of the checkout, named by a hash of the sources and headers:
+an edited file gets a fresh build, an unchanged one is loaded as it is.
 """
 
 from __future__ import annotations
@@ -30,7 +30,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
-# launcher name -> argument types; every launcher returns cudaGetLastError()
+_L = ctypes.c_longlong
+# launcher name -> argument types; a launcher returns cudaGetLastError()
 SIGNATURES = {
     # x, lens, lns, lnb, win, bin, wdw, bdw, wout, bout, ls, out,
     # B, T, F, eps, stream
@@ -40,7 +41,7 @@ SIGNATURES = {
     # scores, v, lens, out, B, H, Lp, F, length, stream
     "sep_softmax_pv_f32": [_P] * 4 + [_I] * 5 + [_P],
     # x, dy, w, dx, dw, db, partial, partial_floats, B, T, C, K, stream
-    "sep_depthwise_bwd_f32": [_P] * 7 + [ctypes.c_longlong] + [_I] * 4 + [_P],
+    "sep_depthwise_bwd_f32": [_P] * 7 + [_L] + [_I] * 4 + [_P],
     # scores, v, lens, out, row_max, row_sum, B, H, Lp, F, length,
     # seed_word, threshold, keep_scale, stream
     "sep_softmax_pv_train_fwd_f32": [_P] * 6 + [_I] * 5 + [_U, _U, _F, _P],
@@ -49,11 +50,27 @@ SIGNATURES = {
     "sep_softmax_pv_train_bwd_f32": [_P] * 9 + [_I] * 5 + [_U, _U, _F, _P],
     # est, src, out, S, B, T, scale_inv, eps, clamp_db, has_clamp, stream
     "sep_pit_sisnr_f32": [_P] * 3 + [_I] * 4 + [_F, _F, _I, _P],
+    # x, lns, lnb, win, bin, wdw, bdw, wout, bout, ls, out, B, T, F, eps,
+    # seed0, seed1, threshold, scale, stream
+    "sep_gcfn_train_fwd_f32": [_P] * 11 + [_I] * 3 + [_F, _U, _U, _U, _F,
+                                                      _P],
+    # x, dout, 9 params, dx, grads_small, grads_big, scratch,
+    # scratch_floats, B, T, F, eps, seed0, seed1, threshold, scale, stream
+    "sep_gcfn_train_bwd_f32": [_P] * 15 + [_L] + [_I] * 3 + [_F, _U, _U, _U,
+                                                             _F, _P],
+    # B, T, F -> floats of K8's scratch
+    "sep_gcfn_train_bwd_scratch_floats": [_I, _I, _I],
 }
+# launchers that return something else than a cudaError_t
+RESTYPES = {"sep_gcfn_train_bwd_scratch_floats": _L}
 
 
 def sources():
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers():
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -69,7 +86,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -107,7 +124,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

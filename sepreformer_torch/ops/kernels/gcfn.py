@@ -7,7 +7,7 @@ math in PyTorch (the JAX package's ``gcfn_reference``).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -22,12 +22,15 @@ def _length_mask(lens: torch.Tensor, t: int) -> torch.Tensor:
 
 
 def gcfn_plain(x: torch.Tensor, params: Sequence[torch.Tensor], eps: float,
-               lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+               lens: Optional[torch.Tensor] = None,
+               drop: Optional[Callable] = None) -> torch.Tensor:
     """LN -> Linear F->6F -> u-row mask (rows t >= lens[b]) -> depthwise
     k3 with zero padding in u-space -> GLU -> Linear 3F->F -> LayerScale
     residual.  ``params`` = (lns, lnb, win [F, 6F], bin, wdw [6F, 3], bdw,
     wout [3F, F], bout, ls): the products' weights [in, out], the k3
-    weight as the Conv1d weight [6F, 1, 3] without its middle axis."""
+    weight as the Conv1d weight [6F, 1, 3] without its middle axis.
+    ``drop(site, v)``, when given, drops the GLU output (site 0) and the
+    down-projection (site 1)."""
     lns, lnb, win, bin_, wdw, bdw, wout, bout, ls = params
     mean = x.mean(dim=-1, keepdim=True)
     c = x - mean
@@ -42,7 +45,28 @@ def gcfn_plain(x: torch.Tensor, params: Sequence[torch.Tensor], eps: float,
          + up[:, 2:t + 2] * wdw[:, 2] + bdw)
     half = y.shape[-1] // 2
     g = y[..., :half] * torch.sigmoid(y[..., half:])
-    return x + ls * (torch.matmul(g, wout) + bout)
+    if drop is not None:
+        g = drop(0, g)
+    o = torch.matmul(g, wout) + bout
+    if drop is not None:
+        o = drop(1, o)
+    return x + ls * o
+
+
+def check_params(name: str, x: torch.Tensor,
+                 params: Sequence[torch.Tensor]) -> None:
+    """Raise unless x [B, T, F] and ``params`` (``gcfn_plain``'s) are
+    contiguous float32 CUDA tensors at a width the kernels are built for."""
+    b, t, f = x.shape
+    hidden = 6 * f
+    if f not in SUPPORTED_WIDTHS:
+        raise ValueError(f"{name}: width {f} not in {SUPPORTED_WIDTHS}")
+    shapes = [(f,), (f,), (f, hidden), (hidden,), (hidden, 3), (hidden,),
+              (hidden // 2, f), (f,), (f,)]
+    _build.check_tensor(x, f"{name} x", (b, t, f), x.device)
+    for pname, a, shape in zip("lns lnb win bin wdw bdw wout bout ls".split(),
+                               params, shapes):
+        _build.check_tensor(a, f"{name} {pname}", shape, x.device)
 
 
 def fused_gcfn(x: torch.Tensor, params: Sequence[torch.Tensor], eps: float,
@@ -54,16 +78,8 @@ def fused_gcfn(x: torch.Tensor, params: Sequence[torch.Tensor], eps: float,
     if x.device.type == "cpu":
         return gcfn_plain(x, params, eps, lens)
     _build.check_no_grad("fused_gcfn", x, *params)
+    check_params("fused_gcfn", x, params)
     b, t, f = x.shape
-    hidden = 6 * f
-    shapes = [(f,), (f,), (f, hidden), (hidden,), (hidden, 3), (hidden,),
-              (hidden // 2, f), (f,), (f,)]
-    if f not in SUPPORTED_WIDTHS:
-        raise ValueError(f"fused_gcfn: width {f} not in {SUPPORTED_WIDTHS}")
-    _build.check_tensor(x, "fused_gcfn x", (b, t, f), x.device)
-    for name, a, shape in zip("lns lnb win bin wdw bdw wout bout ls".split(),
-                              params, shapes):
-        _build.check_tensor(a, f"fused_gcfn {name}", shape, x.device)
     lens_ptr = None
     if lens is not None:
         lens = lens.to(dtype=torch.int32).contiguous()

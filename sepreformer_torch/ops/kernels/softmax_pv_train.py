@@ -193,7 +193,8 @@ def softmax_pv_dropout(scores: torch.Tensor, v: torch.Tensor, seed: int,
     if lp > MAX_LENGTH:
         raise NotImplementedError(
             f"softmax_pv_dropout: padded length {lp} > {MAX_LENGTH}; the "
-            f"JAX package's dense train attention is not ported")
+            f"caller takes the dense train attention there "
+            f"(MultiHeadAttention._dense_train_attention)")
     if scores.device.type == "cpu":
         return softmax_pv_dropout_plain(scores, v, seed, lens, length, p)
     key_len = _key_lens(scores.shape[0], length, lens,

@@ -14,7 +14,12 @@ from sepreformer_torch.ops.kernels import (
     depthwise_bwd,
     depthwise_bwd_plain,
     fused_gcfn,
+    fused_gcfn_train,
     gcfn_plain,
+    gcfn_train_bwd,
+    gcfn_train_bwd_plain,
+    gcfn_train_fwd,
+    gcfn_train_plain,
     materialize_pos_kt,
     materialize_pos_kt_plain,
     pos_kt,
@@ -204,3 +209,86 @@ def test_eval_kernels_refuse_autograd(cuda_device):
         softmax_pv(scores, torch.randn(1, 128, 128, device=cuda_device))
     with torch.no_grad():
         materialize_pos_kt(table, 32, 20)
+
+
+def gcfn_train_case(device, b, t, f, seed=10):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, t, f, generator=gen).to(device)
+    dout = torch.randn(b, t, f, generator=gen).to(device)
+    return x, gcfn_params(gen, f, device), dout
+
+
+def assert_grads_close(got, ref):
+    """dx and the nine parameter gradients: the parameter gradients sum
+    B*T rows, float32 sums in another order than cuBLAS's."""
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        torch.testing.assert_close(g, r, rtol=1e-4,
+                                   atol=1e-5 * r.abs().max().item() + 1e-6)
+
+
+@pytest.mark.cuda
+# T=77 ends in a partial tile of 16 rows: the halo rows of K8 must take
+# their masks and their zero padding from the global rows
+@pytest.mark.parametrize("b,t,p", [(3, 77, 0.05), (4, 8000, 0.05),
+                                   (2, 200, 0.0)])
+def test_gcfn_train_kernels_match_plain(cuda_device, b, t, p):
+    x, params, dout = gcfn_train_case(cuda_device, b, t, 128)
+    before = (gcfn_train_fwd.launches, gcfn_train_bwd.launches)
+    out = gcfn_train_fwd(x, params, 1e-5, 4321, p)
+    dx, dparams = gcfn_train_bwd(x, params, 1e-5, 4321, p, dout)
+    torch.cuda.synchronize()
+    assert (gcfn_train_fwd.launches, gcfn_train_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(out, gcfn_train_plain(x, params, 1e-5, 4321,
+                                                     p), rtol=1e-4, atol=1e-4)
+    ref_dx, ref_dparams = gcfn_train_bwd_plain(x, params, 1e-5, 4321, p,
+                                               dout)
+    assert_grads_close((dx, *dparams), (ref_dx, *ref_dparams))
+
+
+@pytest.mark.cuda
+def test_gcfn_train_backward_is_deterministic(cuda_device):
+    x, params, dout = gcfn_train_case(cuda_device, 4, 2000, 128, seed=11)
+    first = gcfn_train_bwd(x, params, 1e-5, 7, 0.05, dout)
+    again = gcfn_train_bwd(x, params, 1e-5, 7, 0.05, dout)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], again[0])
+    for g, a in zip(first[1], again[1]):
+        assert torch.equal(g, a)      # no atomics: the same bits every run
+
+
+@pytest.mark.cuda
+def test_fused_gcfn_train_gradient_on_the_card(cuda_device):
+    """The autograd function hands each gradient back in its parameter's
+    shape: the [6F, F] transposed view, the [6F, 1, 3] conv weight."""
+    from sepreformer_torch.models.blocks import GCFN
+
+    gcfn = GCFN(128).to(cuda_device)
+    gen = torch.Generator().manual_seed(12)
+    with torch.no_grad():
+        for prm in gcfn.parameters():
+            prm.copy_(torch.randn(prm.shape, generator=gen) * 0.2)
+    x = torch.randn(2, 300, 128, generator=gen).to(cuda_device)
+    params = (gcfn.net1[0].weight, gcfn.net1[0].bias,
+              gcfn.net1[1].weight.t(), gcfn.net1[1].bias,
+              gcfn.depthwise.weight.squeeze(1), gcfn.depthwise.bias,
+              gcfn.net2[2].weight.t(), gcfn.net2[2].bias,
+              gcfn.Layer_scale.layer_scale.reshape(-1))
+    fused_gcfn_train(x, params, 1e-5, 99, 0.1).square().sum().backward()
+    got = [prm.grad.clone() for prm in gcfn.parameters()]
+    gcfn.zero_grad()
+    gcfn_train_plain(x, params, 1e-5, 99, 0.1).square().sum().backward()
+    for g, prm in zip(got, gcfn.parameters()):
+        assert g.shape == prm.shape
+        torch.testing.assert_close(g, prm.grad, rtol=1e-4,
+                                   atol=1e-5 * prm.grad.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_gcfn_train_kernels_refuse_other_widths(cuda_device):
+    x, params, dout = gcfn_train_case(cuda_device, 2, 64, 16)
+    with pytest.raises(ValueError, match="width 16"):
+        gcfn_train_fwd(x, params, 1e-5, 1, 0.05)
+    with pytest.raises(ValueError, match="width 16"):
+        gcfn_train_bwd(x, params, 1e-5, 1, 0.05, dout)

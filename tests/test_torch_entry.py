@@ -1,8 +1,8 @@
 """The PyTorch port stands alone and runs on a card unless asked not to.
 
 - No file of ``sepreformer_torch/`` and not ``chip_smoke.py`` imports
-  ``jax``, ``flax`` or ``sepreformer_tpu``; importing the port loads none
-  of them.
+  ``jax``, ``flax`` or ``sepreformer_tpu``; importing the port, and
+  running its CLI, loads none of them.
 - The entry points default to CUDA and raise without a card instead of
   running on the CPU; ``chip_smoke.py`` fails and prints no result.
 """
@@ -52,6 +52,27 @@ def test_importing_the_port_loads_no_jax():
         "for m in pkgutil.walk_packages(sepreformer_torch.__path__,"
         " 'sepreformer_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_cli_runs_without_jax():
+    """``python -m sepreformer_torch.cli --list-models`` in a process of
+    its own lists the presets; the CLI module, the data pipeline and the
+    engine load no JAX module."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "sepreformer_torch.cli", "--list-models"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["SepReformer_Base_WSJ0", "tiny"]
+    code = (
+        "import sys\n"
+        "from sepreformer_torch import cli\n"
+        "import sepreformer_torch.data, sepreformer_torch.engine.engine\n"
+        "assert cli.main(['--list-models']) == 0\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

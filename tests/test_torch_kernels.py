@@ -6,6 +6,8 @@ kernel run in interpret mode, on the same numpy-seeded inputs.  The CUDA
 kernels against their plain versions are in ``test_torch_cuda.py``.
 """
 
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -146,14 +148,18 @@ def test_wrappers_refuse_other_devices():
 
 def test_build_names_library_by_source_hash():
     srcs = [p.name for p in _build.sources()]
-    assert srcs == ["depthwise.cu", "gcfn.cu", "pit.cu", "relpos.cu",
-                    "softmax_pv.cu", "softmax_pv_train.cu"]
+    assert srcs == ["depthwise.cu", "gcfn.cu", "gcfn_train.cu", "pit.cu",
+                    "relpos.cu", "softmax_pv.cu", "softmax_pv_train.cu"]
+    assert [p.name for p in _build.headers()] == ["gcfn_tile.cuh",
+                                                  "hash_dropout.cuh"]
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libsepkernels-") and path.suffix == ".so"
+    c_types = {ctypes.c_int: "int", ctypes.c_longlong: "long long"}
     for name in _build.SIGNATURES:
+        ret = c_types[_build.RESTYPES.get(name, ctypes.c_int)]
         for src in _build.sources():
-            if f'"C" int {name}(' in src.read_text():
+            if f'"C" {ret} {name}(' in src.read_text():
                 break
         else:
             raise AssertionError(f"no extern C launcher {name}")
