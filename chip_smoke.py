@@ -13,9 +13,10 @@ Phases, each of which fails the run:
                backward, K7 and K8 GCFN with hash dropout forward and
                backward, K9 and K10 softmax·dropout·V forward and
                backward, K11 uPIT SI-SNR table) for a B=2 x 4 s train
-               batch; times of the kernel, the plain version, a library
-               call where one exists, and the least time the card could
-               take.
+               batch, and K12 (flash rel-pos attention) for the decoder
+               batch of a 70 s request ([2, 8750, 128], maxlen 2000);
+               times of the kernel, the plain version, a library call
+               where one exists, and the least time the card could take.
 3. serve     - Base at full width, seeded weights: three requests through
                ``Separator.__call__`` and one batched B=4 x 4 s forward
                with ragged lengths; every eval kernel's count must rise.
@@ -49,6 +50,19 @@ Phases, each of which fails the run:
                validation and a best checkpoint, resumed for a third,
                then tested (SI-SNRi, SDRi); every kernel of the train and
                eval paths launches.
+9. long      - long-form serving, Base at full width, seeded weights with
+               every LayerScale at 0.5: a 70 s request (bottleneck length
+               8750 > 8192) in full context through ``Separator.__call__``
+               runs K12 in all 22 global attentions and no K2 or K3; the
+               same request with the switch raised runs the dense K2/K3
+               route and must agree within phase 5's limit, which
+               control runs exceed (TF32 allowed; K12 on bfloat16 inputs;
+               K12 without the rel-pos bias); a 300 s request in
+               full context (L 37500, which only K12 can hold) with one
+               traced forward; the same 300 s in 8 s chunks
+               (``chunk_seconds``: K2 and K3, no K12); and the 70 s
+               request as a wav through ``cli.main``'s ``infer_sample``.
+               Wall times, audio-s/s and peak memory of each.
 
 Prints one JSON line of kernel results, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -59,6 +73,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -71,6 +86,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 SAMPLE_RATE = 8000
 TRAIN_SECONDS = 4.0            # the dataset's 4 s crop (max_len 32000)
+LONG_SECONDS = 70.0            # bottleneck length 8750: past K12's switch
+LONGEST_SECONDS = 300.0        # bottleneck length 37500
+CHUNK_SECONDS = 8.0            # phase 9's chunked serving
 # wrapper -> the CUDA kernels it launches, as named in a profiler trace
 KERNEL_SYMBOLS = {"fused_gcfn": "gcfn_kernel",
                   "materialize_pos_kt": "relpos_kernel",
@@ -80,12 +98,14 @@ KERNEL_SYMBOLS = {"fused_gcfn": "gcfn_kernel",
                   "gcfn_train_bwd": "gcfn_train_bwd",
                   "softmax_pv_train_fwd": "softmax_pv_train_fwd_kernel",
                   "softmax_pv_train_bwd": "softmax_pv_train_bwd_kernel",
-                  "sisnr_pairwise_neg_fused": "pit_sisnr_kernel"}
+                  "sisnr_pairwise_neg_fused": "pit_sisnr_kernel",
+                  "flash_relpos_attention": "flash_relpos_kernel"}
 EVAL_KERNELS = ("fused_gcfn", "materialize_pos_kt", "softmax_pv")
+LONG_KERNELS = ("flash_relpos_attention",)
 TRAIN_KERNELS = ("materialize_pos_kt", "depthwise_bwd", "gcfn_train_fwd",
                  "gcfn_train_bwd", "softmax_pv_train_fwd",
                  "softmax_pv_train_bwd", "sisnr_pairwise_neg_fused")
-NO_BACKWARD = ("fused_gcfn", "softmax_pv")
+NO_BACKWARD = ("fused_gcfn", "softmax_pv", "flash_relpos_attention")
 # |card - cpu| over max|out| allowed in phase 5; see PERF.md for the
 # readings it sits between (float32 on the card, and TF32 allowed)
 CPU_REL_LIMIT = 3e-5
@@ -96,6 +116,7 @@ KERNEL_GROUPS = (  # profile groups of the card's kernels, first match wins
     ("K7 gcfn_train_fwd", ("gcfn_train_fwd",)),
     ("K8 gcfn_train_bwd", ("gcfn_train_bwd",)),
     ("K1 gcfn", ("gcfn_kernel",)),
+    ("K12 flash_relpos", ("flash_relpos",)),
     ("K2 relpos", ("relpos_kernel",)),
     ("K9 softmax_pv_train_fwd", ("softmax_pv_train_fwd",)),
     ("K10 softmax_pv_train_bwd", ("softmax_pv_train_bwd",)),
@@ -118,6 +139,20 @@ def bound_ms(nbytes: float, flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_relpos_ops(length, klens, maxlen, heads, d):
+    """K12's float32 operations on these inputs, per head: 4*d per (query,
+    valid key) pair for q·kᵀ and P·V, and 2*d per query row for each
+    distinct clamped table row that its valid keys reach (q·tableᵀ is
+    taken once per row and table row, as the plain version takes it)."""
+    ops = 0
+    for keys in klens:
+        ops += 4 * d * length * keys
+        for i in range(length):
+            lo = max(min(i - keys + 1, maxlen - 1), -maxlen)
+            ops += 2 * d * (min(i, maxlen - 1) - lo + 1)
+    return heads * ops
 
 
 def kernel_phase(torch, K, device_ms):
@@ -372,7 +407,90 @@ def kernel_phase(torch, K, device_ms):
            replaces="sepreformer_tpu/ops/pallas/pit.py:70",
            shape=f"est, src [{spk}, {b}, {t}]",
            tolerance="rtol 1e-4, atol 1e-4 (dB, float32)")
+    flash_kernel_row(torch, K, device_ms, randn, record)
     return results
+
+
+def flash_kernel_row(torch, K, device_ms, randn, record):
+    """K12 at the decoder batch of a 70 s request in full context (B*spks
+    = 2 rows, 8 heads, L = 8750 > 8192, maxlen 2000, ragged key lengths),
+    against its plain version; the library yardstick is PyTorch's SDPA
+    with the rel-pos bias and the key mask as a float mask built outside
+    the timed call; today's dense route at the same shape (K2, the score
+    products, K3) is timed beside it.  ``record`` adds the row."""
+    from sepreformer_torch.models.blocks import fused_pv_scores, pad_time
+
+    dev = torch.device("cuda")
+    b, length, maxlen, heads, d = 2, 8750, 2000, 8, 16
+    f = heads * d
+    q, k, v = randn(b, length, f), randn(b, length, f), randn(b, length, f)
+    table = randn(2 * maxlen, d)
+    klens = torch.tensor([8750, 7000], device=dev)
+    got = K.flash_relpos_attention(q, k, v, table, maxlen, klens)
+    ref = K.flash_relpos_attention_plain(q, k, v, table, maxlen, klens)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+    err = (got - ref).abs().max().item()
+    del got
+
+    def split(a):                                   # [B, H, L, d]
+        return a.reshape(b, length, heads, d).transpose(1, 2).contiguous()
+
+    qh, kh, vh = split(q), split(k), split(v)
+    # the mask's rows padded to a multiple of 16 floats, so SDPA takes it
+    # as it is
+    storage = torch.empty(b, heads, length, -(-length // 16) * 16,
+                          device=dev)
+    bias = storage[..., :length]
+    pos = torch.arange(length, device=dev)
+    with torch.no_grad():
+        for i0 in range(0, length, 1024):
+            by_row = torch.matmul(qh[:, :, i0:i0 + 1024], table.t())
+            idx = torch.clamp(pos[i0:i0 + 1024, None] - pos[None],
+                              -maxlen, maxlen - 1) + maxlen
+            bias[:, :, i0:i0 + 1024] = torch.gather(
+                by_row, 3, idx.expand(b, heads, *idx.shape)) / math.sqrt(d)
+        kmask = pos[None] < klens[:, None]
+        bias.masked_fill_(~kmask[:, None, None, :], float("-inf"))
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=bias)
+
+    lib_err = (library().transpose(1, 2).reshape(b, length, f)
+               - ref).abs().max().item()
+    print(f"[kernels] SDPA with the bias as a float mask: max |sdpa - plain| "
+          f"{lib_err:.3e}")
+    keys = sum(klens.tolist())
+    lp = -(-length // 128) * 128
+    q4, k4 = q.reshape(b, length, heads, d), k.reshape(b, length, heads, d)
+    vpad = pad_time(v, lp).contiguous()
+
+    def dense():
+        kt = K.materialize_pos_kt(table, lp, maxlen)
+        return K.softmax_pv(fused_pv_scores(q4, k4, kt), vpad, klens, length)
+
+    torch.testing.assert_close(dense()[:, :length], ref, rtol=1e-4,
+                               atol=1e-5)
+    record(K.flash_relpos_attention,
+           lambda: K.flash_relpos_attention(q, k, v, table, maxlen, klens),
+           lambda: K.flash_relpos_attention_plain(q, k, v, table, maxlen,
+                                                  klens),
+           library, err,
+           # q in and out written; k and v of the valid keys; the table
+           4 * (2 * q.numel() + 2 * keys * f + table.numel() + b),
+           flash_relpos_ops(length, klens.tolist(), maxlen, heads, d),
+           source="sepreformer_torch/csrc/flash_relpos.cu",
+           replaces="sepreformer_tpu/ops/pallas/attention.py:237",
+           shape=(f"q, k, v [{b}, {length}, {f}], table [{2 * maxlen}, "
+                  f"{d}], lens {klens.tolist()}"),
+           tolerance="rtol 1e-4, atol 1e-5 (float32)")
+    del storage, bias
+    torch.cuda.empty_cache()
+    print(f"[kernels] the same shape through the dense route (K2 pos_kt "
+          f"[{lp}, {d}, {lp}], the score products, K3): "
+          f"{device_ms(dense):.4f} ms")
+    torch.cuda.empty_cache()
 
 
 def serve_phase(torch, np, sep_torch, K):
@@ -800,6 +918,266 @@ def engine_phase(torch, np, K):
     return counts
 
 
+class peak_by_module:
+    """Context: for each top-level part of a SepReformer forward (the
+    encoder, each separator stage, the output layer and decoder, each aux
+    head), the bytes allocated when it starts and the peak while it runs,
+    read from the caching allocator's counters (no synchronisation)."""
+
+    def __init__(self, torch, model):
+        sep = model.separator
+        self.torch = torch
+        self.parts = {"audio_encoder": model.audio_encoder,
+                      "feature_projector": model.feature_projector,
+                      "bottleneck_G": sep.bottleneck_G,
+                      "out_layer": model.out_layer,
+                      "audio_decoder": model.audio_decoder}
+        for prefix, mods in (("enc_stages", sep.enc_stages),
+                             ("dec_stages", sep.dec_stages),
+                             ("out_layer_bn", model.out_layer_bn),
+                             ("decoder_bn", model.decoder_bn)):
+            self.parts.update({f"{prefix}.{i}": m for i, m in enumerate(mods)})
+        self.peaks, self.handles = {}, []
+
+    def __enter__(self):
+        cuda = self.torch.cuda
+        for name, module in self.parts.items():
+            def pre(module, args, name=name):
+                cuda.reset_peak_memory_stats()
+                self.peaks[name] = (cuda.memory_allocated(), 0)
+
+            def post(module, args, out, name=name):
+                self.peaks[name] = (self.peaks[name][0],
+                                    max(self.peaks[name][1],
+                                        cuda.max_memory_allocated()))
+            self.handles += [module.register_forward_pre_hook(pre),
+                             module.register_forward_hook(post)]
+        return self.peaks
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+
+def size_checks(torch, K, frames):
+    """K1 and K12 against their plain versions at the sizes a 300 s
+    request gives them: the decoder's last GCFN on [2, frames, 128] and
+    the decoder's attention at L = frames / 16, ragged.  Both index with
+    64-bit offsets; at 300 s the largest element offset, K1's x at
+    2 * 600000 * 128, is 1.5e8, far below 2**31 (K1 keeps its hidden
+    width in shared memory).  An int32 offset into x would first wrap at
+    2**31 / 256 = 8.4e6 frames, a 70 min input at 8 kHz."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    f, h = 128, 768
+    x = randn(2, frames, f)
+    params = [randn(f), randn(f), randn(f, h, scale=0.1), randn(h, scale=0.1),
+              randn(h, 3, scale=0.3), randn(h, scale=0.1),
+              randn(h // 2, f, scale=0.1), randn(f, scale=0.1),
+              randn(f, scale=0.5)]
+    lens = torch.tensor([frames, frames * 3 // 4], device=dev)
+    got = K.fused_gcfn(x, params, 1e-5, lens)
+    ref = K.gcfn_plain(x, params, 1e-5, lens)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    print(f"[long] K1 at x [2, {frames}, {f}], lens {lens.tolist()}: max "
+          f"|kernel - plain| {(got - ref).abs().max().item():.3e}")
+    del x, got, ref
+    length = frames // 16
+    q, k, v = randn(2, length, f), randn(2, length, f), randn(2, length, f)
+    table = randn(4000, 16)
+    lens = torch.tensor([length, length * 4 // 5], device=dev)
+    got = K.flash_relpos_attention(q, k, v, table, 2000, lens)
+    ref = K.flash_relpos_attention_plain(q, k, v, table, 2000, lens)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+    print(f"[long] K12 at q, k, v [2, {length}, {f}], lens {lens.tolist()}: "
+          f"max |kernel - plain| {(got - ref).abs().max().item():.3e}")
+    torch.cuda.empty_cache()
+
+
+def long_phase(torch, np, sep_torch, K, busy_us, kernel_events):
+    """Long-form serving of Base at full width, seeded weights, every
+    LayerScale at 0.5 (so that the attention branches carry signal): a
+    70 s request in full context (K12) against the dense K2/K3 route
+    with three controls, a 300 s request in full context with one traced
+    forward, the same 300 s in 8 s chunks, and the 70 s request as a wav
+    through ``cli.main``'s ``infer_sample``.  Returns the kernels'
+    launches over the runs of the main path (not the comparison runs)."""
+    import tempfile
+
+    from sepreformer_torch import cli
+    from sepreformer_torch.data.audio import read_wav, write_wav
+    from sepreformer_torch.models import blocks
+
+    variant = sep_torch.get_variant("SepReformer_Base_WSJ0")
+    model = sep_torch.build_model(variant.model, device="cuda",
+                                  generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("layer_scale"):
+                p.fill_(0.5)
+    sep = sep_torch.Separator(variant, model)
+    global_attentions = sum(type(m).__name__ == "EGA" for m in model.modules())
+    rng = np.random.default_rng(9)
+    total = defaultdict(int)
+
+    def run(label, fn, seconds, main_path=True):
+        """``fn()`` with every count at 0 just before and read just after,
+        on the host clock, with the peak memory of the call."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = K.launch_counts()
+        if main_path:
+            for name, n in counts.items():
+                total[name] += n
+        ours = {n: c for n, c in counts.items() if c}
+        print(f"[long] {label}: {dt:.3f} s wall, {seconds / dt:.2f} "
+              f"audio-s/s, max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+              f"launches {ours}")
+        return out, counts
+
+    def separated(separator, wav):
+        out = np.stack(separator(wav))
+        assert out.shape == (2, len(wav)), out.shape
+        assert np.isfinite(out).all(), "non-finite audio"
+        return out
+
+    # a. 70 s in full context: K12 in every global attention, no pos_kt
+    n70 = int(LONG_SECONDS * SAMPLE_RATE)
+    wav70 = (rng.normal(size=n70) * 0.1).astype(np.float32)
+    for label in ("70 s full context, K12 route (first call)",
+                  "70 s full context, K12 route"):
+        flash, counts = run(label, lambda: separated(sep, wav70),
+                            LONG_SECONDS)
+        assert counts["flash_relpos_attention"] == global_attentions == 22
+        assert counts["materialize_pos_kt"] == counts["softmax_pv"] == 0
+    saved = blocks.FUSED_PV_MAX_LENGTH
+    blocks.FUSED_PV_MAX_LENGTH = 10 ** 9
+    try:
+        dense, counts = run("70 s full context, dense K2/K3 route (switch "
+                            "raised)", lambda: separated(sep, wav70),
+                            LONG_SECONDS, main_path=False)
+    finally:
+        blocks.FUSED_PV_MAX_LENGTH = saved
+    assert counts["flash_relpos_attention"] == 0
+    assert counts["materialize_pos_kt"] == 1
+    assert counts["softmax_pv"] == global_attentions
+    scale = float(np.abs(dense).max())
+    errs = {"float32": float(np.abs(flash - dense).max()) / scale}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        control, _ = run("70 s full context, K12 route, TF32 allowed",
+                         lambda: separated(sep, wav70), LONG_SECONDS,
+                         main_path=False)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    errs["control, TF32 allowed"] = float(
+        np.abs(control - dense).max()) / scale
+    # TF32 reaches only the cuBLAS and cuDNN products (K12 runs FMAs), so
+    # two controls change the K12 route itself: K12 on inputs rounded to
+    # bfloat16 (what a bfloat16 version of the route would read), and K12
+    # without the rel-pos bias
+    routes = {
+        "control, K12 on bfloat16 inputs":
+            lambda q, k, v, table, maxlen, lens: K.flash_relpos_attention(
+                *(a.bfloat16().float() for a in (q, k, v, table)), maxlen,
+                lens),
+        "control, K12 without the bias":
+            lambda q, k, v, table, maxlen, lens: K.flash_relpos_attention(
+                q, k, v, torch.zeros_like(table), maxlen, lens),
+    }
+    k12_route = blocks.flash_relpos_attention
+    for label, route in routes.items():
+        blocks.flash_relpos_attention = route
+        try:
+            control, counts = run(f"70 s full context, {label}",
+                                  lambda: separated(sep, wav70),
+                                  LONG_SECONDS, main_path=False)
+        finally:
+            blocks.flash_relpos_attention = k12_route
+        assert counts["flash_relpos_attention"] == global_attentions
+        errs[label] = float(np.abs(control - dense).max()) / scale
+    for label, e in errs.items():
+        print(f"[long] K12 route against the dense route, {label}: max |d| "
+              f"/ max|out| {e:.3e} (max|out| {scale:.3f}), limit "
+              f"{CPU_REL_LIMIT:.1e}")
+    assert errs["float32"] <= CPU_REL_LIMIT, "K12 route disagrees"
+    for label, e in errs.items():
+        assert label == "float32" or e > CPU_REL_LIMIT, (
+            f"the limit does not catch the {label}")
+    del flash, dense, control
+
+    # b. 300 s in full context (L 37500: only K12 holds it), then traced
+    n300 = int(LONGEST_SECONDS * SAMPLE_RATE)
+    wav300 = (rng.normal(size=n300) * 0.1).astype(np.float32)
+    _, counts = run("300 s full context", lambda: separated(sep, wav300),
+                    LONGEST_SECONDS)
+    assert counts["flash_relpos_attention"] == global_attentions
+    assert counts["materialize_pos_kt"] == counts["softmax_pv"] == 0
+    size_checks(torch, K, n300 // variant.model.enc_stride)
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    K.reset_launches()
+    torch.cuda.synchronize()
+    with peak_by_module(torch, model) as peaks, \
+            torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        sep.separate(wav300[None], [n300])
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    for name, n in K.launch_counts().items():
+        total[name] += n
+    kernels = kernel_events(prof)
+    print_trace("long", kernels, busy_us(kernels), window_us,
+                K.launch_counts(), "300 s forward")
+    for name, (before, peak) in peaks.items():
+        print(f"[long] traced 300 s forward, memory by module: {name}: "
+              f"{before / 2**30:.3f} GiB held at its start, peak "
+              f"{peak / 2**30:.3f} GiB")
+
+    # c. the same 300 s in 8 s chunks: K2 and K3, no K12
+    chunked = sep_torch.Separator(variant, model, chunk_seconds=CHUNK_SECONDS)
+    _, counts = run(f"300 s in {CHUNK_SECONDS:.0f} s chunks",
+                    lambda: separated(chunked, wav300), LONGEST_SECONDS)
+    assert counts["flash_relpos_attention"] == 0
+    assert counts["materialize_pos_kt"] > 0 and counts["softmax_pv"] > 0
+    del sep, chunked, model
+    torch.cuda.empty_cache()
+
+    # d. the 70 s request as a wav through the CLI, in full context
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "long70.wav")
+        write_wav(path, wav70, SAMPLE_RATE)
+        out_dir = os.path.join(tmp, "out")
+        args = ["--model", "SepReformer_Base_WSJ0", "--engine-mode",
+                "infer_sample", "--sample-file", path, "--workdir",
+                os.path.join(tmp, "work"), "--out-wav-dir", out_dir]
+        status, counts = run("cli infer_sample, 70 s wav (with the model's "
+                             "set-up)", lambda: cli.main(args), LONG_SECONDS)
+        assert status == 0
+        assert counts["flash_relpos_attention"] == global_attentions
+        for i in range(2):
+            x, rate = read_wav(os.path.join(out_dir, f"long70_out_{i}.wav"))
+            assert rate == SAMPLE_RATE and x.shape == (n70,), x.shape
+            assert np.isfinite(x).all() and np.abs(x).max() > 0.5
+    print(f"[long] launches over the phase's main-path runs: {dict(total)}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -873,12 +1251,17 @@ def main() -> int:
                        busy_us, kernel_events) or {}
     run("train_cpu", train_cpu_phase, torch, np, sep_torch)
     run("engine", engine_phase, torch, np, K)
+    long_counts = run("long", long_phase, torch, np, sep_torch, K, busy_us,
+                      kernel_events) or {}
 
     # each kernel's launches on the main path of its slice: the eval
-    # kernels' in serving, the train kernels' in training
+    # kernels' in serving, the train kernels' in training, K12's in
+    # long-form serving
     for row in kernels:
         name = row["name"]
         row["launches"] = (counts.get(name, 0) if name in EVAL_KERNELS
+                           else long_counts.get(name, 0)
+                           if name in LONG_KERNELS
                            else train_counts.get(name, 0))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -3,11 +3,12 @@
 
     python -m sepreformer_torch.cli --engine-mode train --scp-root DATA
     python -m sepreformer_torch.cli --engine-mode test --device cpu ...
+    python -m sepreformer_torch.cli --engine-mode infer_sample \
+        --sample-file mix.wav [--chunk-seconds 8] [--checkpoint ...]
 
 Runs on the CUDA card unless ``--device cpu`` asks for the plain versions
-on the CPU.  ``infer_sample`` and the mesh flags (``--data-parallel``,
-``--model-parallel``) are not ported yet and exit with an error naming
-their ROADMAP item.
+on the CPU.  The mesh flags (``--data-parallel``, ``--model-parallel``)
+are not ported yet and exit with an error naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -20,7 +21,6 @@ from dataclasses import replace
 from typing import Optional
 
 NOT_PORTED = {
-    "infer_sample": "ROADMAP.md queue A, item 3 (infer_sample)",
     "--data-parallel": "ROADMAP.md queue A, item 9 (parallel/)",
     "--model-parallel": "ROADMAP.md queue A, item 9 (parallel/)",
 }
@@ -35,6 +35,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--engine-mode", default="train",
                    choices=["train", "test", "test_save", "test_wav",
                             "infer_sample"])
+    p.add_argument("--sample-file", default=None,
+                   help="infer_sample: the wav file to separate")
     p.add_argument("--out-wav-dir", "--out_wav_dir", dest="out_wav_dir",
                    default=None)
     p.add_argument("--workdir", default=None,
@@ -64,6 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the plain versions)")
+    p.add_argument("--chunk-seconds", type=float, default=None,
+                   help="infer_sample: chunked overlap-add long-form "
+                        "processing with this chunk length (linear cost)")
     return p
 
 
@@ -73,9 +78,8 @@ def main(argv: Optional[list] = None) -> int:
     for flag in ("--data-parallel", "--model-parallel"):
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             parser.error(f"{flag} is not ported yet: {NOT_PORTED[flag]}")
-    if args.engine_mode == "infer_sample":
-        parser.error("--engine-mode infer_sample is not ported yet: "
-                     + NOT_PORTED["infer_sample"])
+    if args.engine_mode == "infer_sample" and not args.sample_file:
+        parser.error("--sample-file is required for infer_sample")
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
@@ -114,8 +118,10 @@ def main(argv: Optional[list] = None) -> int:
     from sepreformer_torch.data.dataset import build_dataloaders
     from sepreformer_torch.engine.engine import Engine
 
-    loaders = build_dataloaders(cfg.dataset, args.engine_mode,
-                                scp_root=args.scp_root, seed=args.seed)
+    loaders = {}
+    if args.engine_mode != "infer_sample":
+        loaders = build_dataloaders(cfg.dataset, args.engine_mode,
+                                    scp_root=args.scp_root, seed=args.seed)
     engine = Engine(cfg, workdir, loaders, seed=args.seed,
                     device=args.device)
     if args.checkpoint:
@@ -124,6 +130,11 @@ def main(argv: Optional[list] = None) -> int:
         sd = torch.load(args.checkpoint, map_location=engine.device,
                         weights_only=True)
         engine.state.model.load_state_dict(sd.get("model_state_dict", sd))
+    if args.engine_mode == "infer_sample":
+        outs = engine.infer_sample(args.sample_file, args.out_wav_dir,
+                                   chunk_seconds=args.chunk_seconds)
+        print("\n".join(outs))
+        return 0
     result = engine.run(args.engine_mode, out_wav_dir=args.out_wav_dir)
     if "sisnri" in result:
         print(f"SI-SNRi: {result['sisnri']:.2f} dB")

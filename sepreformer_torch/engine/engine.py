@@ -13,11 +13,13 @@ behaviour, models/<VARIANT>/engine.py) on the port's train and eval steps:
 - best-checkpoint saving with proper best tracking, or the reference's
   per-epoch reset with ``strict_reference_best`` (engine.py:194);
 - per-utterance metric CSVs during test (engine.py:118-136);
-- ``test_save`` writes peak-normalized (x0.5) wavs (engine.py:137-144).
+- ``test_save`` writes peak-normalized (x0.5) wavs (engine.py:137-144);
+- ``infer_sample`` separates one wav file in full context or in chunks
+  (engine.py:152-172).
 
 One process on one device.  The mesh and multi-host paths, grouped
-dispatch (``steps_per_dispatch``), TensorBoard and ``infer_sample`` are
-not ported (ROADMAP A.4, A.6, A.9).
+dispatch (``steps_per_dispatch``) and TensorBoard are not ported
+(ROADMAP A.4, A.9).
 """
 
 from __future__ import annotations
@@ -27,13 +29,13 @@ import logging
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from sepreformer_torch.config import VariantConfig
-from sepreformer_torch.data.audio import peak_normalize, write_wav
+from sepreformer_torch.data.audio import peak_normalize, read_wav, write_wav
 from sepreformer_torch.data.dataset import DataLoader
 from sepreformer_torch.engine.checkpoint import (
     latest_epoch,
@@ -48,6 +50,7 @@ from sepreformer_torch.engine.train import (
 )
 from sepreformer_torch.losses import progressive_alpha
 from sepreformer_torch.metrics import pit_sisnri_np, sdri_np
+from sepreformer_torch.serving import separate_long
 
 log = logging.getLogger("sepreformer_torch")
 
@@ -217,6 +220,47 @@ class Engine:
             out["sdri"] = float(tot_sdri) / max(1, n)
         log.info("test: %s over %d utterances", out, n)
         return out
+
+    def infer_sample(self, sample_file: str, out_dir: Optional[str] = None,
+                     chunk_seconds: Optional[float] = None) -> List[str]:
+        """Separate one wav file (engine.py:152-172) and write
+        ``<stem>_in.wav`` and ``<stem>_out_<i>.wav``, peak-normalized to
+        0.9, into ``out_dir`` (default: the file's directory).  The whole
+        file goes through one forward, padded to the encoder stride, unless
+        it is longer than ``chunk_seconds``: then it is separated in
+        overlapping chunks (``serving.separate_chunked``).  Returns the
+        output paths."""
+        out_dir = out_dir or os.path.dirname(os.path.abspath(sample_file))
+        rate = self.cfg.dataset.sampling_rate
+        wav, sr = read_wav(sample_file, sr=rate)
+        if self.cfg.engine.mvn:
+            wav = apply_cmvn(wav[None])[0]
+        stride = self.cfg.model.enc_stride
+
+        def forward(batch: np.ndarray) -> np.ndarray:   # -> [spks, N, T]
+            with torch.inference_mode():
+                audio, _ = self.state.model(
+                    torch.from_numpy(batch).to(self.device))
+            return audio.cpu().numpy()
+
+        def full_context(wav: np.ndarray) -> np.ndarray:
+            t = len(wav)
+            x = np.pad(wav, (0, (-t) % stride))[None].astype(np.float32)
+            return forward(x)[:, 0, :t]
+
+        audio = separate_long(
+            lambda batch: forward(batch).transpose(1, 0, 2), full_context,
+            wav, chunk_seconds, rate, stride)
+        stem = os.path.splitext(os.path.basename(sample_file))[0]
+        os.makedirs(out_dir, exist_ok=True)
+        write_wav(os.path.join(out_dir, f"{stem}_in.wav"),
+                  peak_normalize(wav, 0.9), sr)
+        outs = []
+        for i in range(audio.shape[0]):
+            path = os.path.join(out_dir, f"{stem}_out_{i}.wav")
+            write_wav(path, peak_normalize(audio[i], 0.9), sr)
+            outs.append(path)
+        return outs
 
     # -- main loop ---------------------------------------------------------
 

@@ -16,11 +16,14 @@ and updates its running ones.
 Where the JAX package reaches a Pallas kernel on the TPU, the port calls
 its CUDA kernel wrapper (``ops/kernels``).  Eval: the GCFN (K1), the
 rel-pos materializer (K2, in ``models/sepreformer.py``) and the masked
-softmax·V (K3).  Train: K2 with its gradient, the backward of the CLA's
-k65 depthwise conv (K5), the GCFN with hash dropout (K7, K8; with
-``seq_lens`` the plain composition, as in JAX) and the softmax·dropout·V
-pair (K9, K10; past a padded length of 512 the dense attention that the
-JAX package's "xla" train path runs).  Everything else is plain PyTorch.
+softmax·V (K3); past a bottleneck length of ``FUSED_PV_MAX_LENGTH`` the
+flash rel-pos attention (K12) in place of K2 and K3, as the JAX
+package's "auto" rule does.  Train: K2 with its gradient, the backward
+of the CLA's k65 depthwise conv (K5), the GCFN with hash dropout (K7,
+K8; with ``seq_lens`` the plain composition, as in JAX) and the
+softmax·dropout·V pair (K9, K10; past a padded length of 512 the dense
+attention that the JAX package's "xla" train path runs).  Everything
+else is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from torch import nn
 
 from sepreformer_torch.ops.kernels import (
     depthwise_large,
+    flash_relpos_attention,
     fused_gcfn,
     fused_gcfn_train,
     softmax_pv,
@@ -47,6 +51,18 @@ from sepreformer_torch.ops.resample import (
     adaptive_avg_pool_time,
     nearest_upsample_time,
 )
+
+# Eval attention at bottleneck lengths above this runs K12 on the raw
+# rel-pos table; at or below it, scores through K2's pos_kt and K3.  The
+# JAX package's "auto" switch (``blocks.resolve_attention_impl``): past
+# it the [B*spks, H, L, L] scores and the [L, d, L] pos_kt (about 4.3 GB
+# each at 8192) stop fitting.
+FUSED_PV_MAX_LENGTH = 8192
+
+
+def flash_route(length: int, train: bool) -> bool:
+    """Whether the global attentions at bottleneck ``length`` take K12."""
+    return not train and length > FUSED_PV_MAX_LENGTH
 
 
 class TrainMode:
@@ -79,11 +95,14 @@ class TrainMode:
 
 class RelPos(NamedTuple):
     """Relative-position context shared by every global block: the
-    bottleneck length every EGA pools to, and pos_kt [Lp, d, Lp] at the
-    128-padded length Lp, made once per forward by the K2 kernel."""
+    bottleneck length every EGA pools to, pos_kt [Lp, d, Lp] at the
+    128-padded length Lp, made once per forward by the K2 kernel (None on
+    the K12 route), and the raw [2*maxlen, d] table K12 reads."""
 
     length: int
-    pos_kt: torch.Tensor
+    pos_kt: Optional[torch.Tensor]
+    table: Optional[torch.Tensor] = None
+    maxlen: int = 0
 
 
 def length_mask(seq_lens: torch.Tensor, t: int,
@@ -306,8 +325,9 @@ class MultiHeadAttention(nn.Module):
     128-padded length, then the K3 kernel for masked softmax·V in eval,
     K9 and K10 for masked softmax·dropout·V in train (padded lengths up
     to 512, as in the JAX package; past it the dense attention of JAX's
-    "xla" train path).  4D input [B, S, T, F] attends over the speaker
-    axis."""
+    "xla" train path).  In eval past ``FUSED_PV_MAX_LENGTH`` it runs K12
+    on the unpadded q, k, v and the raw table instead, with no scores
+    tensor.  4D input [B, S, T, F] attends over the speaker axis."""
 
     def __init__(self, dim: int, num_heads: int, norm_eps: float = 1.0e-5):
         super().__init__()
@@ -335,6 +355,11 @@ class MultiHeadAttention(nn.Module):
         h = self.num_heads
         d = self.dim // h
         y = self.layer_norm(x)
+        if flash_route(t, train is not None):
+            out = flash_relpos_attention(
+                self.linear_q(y), self.linear_k(y), self.linear_v(y),
+                pos.table, pos.maxlen, key_lens)
+            return self._project_out(out, None)
         q = self.linear_q(y).reshape(b, t, h, d)
         k = self.linear_k(y).reshape(b, t, h, d)
         v = self.linear_v(y)

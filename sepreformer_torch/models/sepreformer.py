@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from sepreformer_torch.config import ModelConfig
+from sepreformer_torch.models import blocks
 from sepreformer_torch.models.blocks import (
     BatchNorm,
     Conv1x1,
@@ -83,19 +84,24 @@ class FeatureProjector(nn.Module):
 
 class RelativePositionalEncoding(nn.Module):
     """Rel-pos key table Embedding(2*maxlen, F/heads) (reference
-    module.py:42-57).  ``forward(length)`` materializes pos_kt once, at
-    the 128-padded attention length, through the K2 kernel (with its
-    gradient)."""
+    module.py:42-57).  ``forward(length, train)`` materializes pos_kt
+    once, at the 128-padded attention length, through the K2 kernel
+    (with its gradient), except in eval past the K12 switch
+    (``blocks.flash_route``), where the attention reads the raw table
+    and nothing would read pos_kt."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.maxlen = cfg.pos_maxlen
         self.pe_k = nn.Embedding(2 * cfg.pos_maxlen, cfg.head_dim)
 
-    def forward(self, length: int) -> RelPos:
-        lp = -(-length // 128) * 128
-        return RelPos(length=length, pos_kt=pos_kt(
-            self.pe_k.weight, lp, self.maxlen))
+    def forward(self, length: int, train: bool = False) -> RelPos:
+        table = self.pe_k.weight
+        kt = None
+        if not blocks.flash_route(length, train):
+            kt = pos_kt(table, -(-length // 128) * 128, self.maxlen)
+        return RelPos(length=length, pos_kt=kt, table=table,
+                      maxlen=self.maxlen)
 
 
 class SepEncStage(nn.Module):
@@ -166,7 +172,7 @@ class Separator(nn.Module):
         cfg = self.cfg
         r = cfg.num_stages
         x = pad_time(x, cfg.padded_frames(x.shape[1]))
-        pos = self.pos_emb(x.shape[1] // 2 ** r)
+        pos = self.pos_emb(x.shape[1] // 2 ** r, train is not None)
 
         # each row's in-separator valid length is its own pad_signal result
         # (frames rounded up to 2^R); frames past it are bucket padding

@@ -4,8 +4,10 @@ its kernel for a CUDA tensor; its ``launches`` attribute counts the
 launches.
 
 Eval: K1 ``fused_gcfn``, K2 ``materialize_pos_kt`` (``pos_kt`` adds its
-gradient), K3 ``softmax_pv``.  Train: K5 ``depthwise_bwd`` (the backward
-of ``depthwise_large``), K7 ``gcfn_train_fwd`` and K8 ``gcfn_train_bwd``
+gradient), K3 ``softmax_pv``, K12 ``flash_relpos_attention`` (past the
+bottleneck length ``blocks.FUSED_PV_MAX_LENGTH``, in place of K2 and
+K3).  Train: K5 ``depthwise_bwd`` (the backward of
+``depthwise_large``), K7 ``gcfn_train_fwd`` and K8 ``gcfn_train_bwd``
 (the autograd function ``fused_gcfn_train``), K9 ``softmax_pv_train_fwd``
 and K10 ``softmax_pv_train_bwd`` (the autograd function
 ``softmax_pv_dropout``), K11 ``sisnr_pairwise_neg_fused``.
@@ -15,6 +17,10 @@ from sepreformer_torch.ops.kernels.depthwise import (
     depthwise_bwd,
     depthwise_bwd_plain,
     depthwise_large,
+)
+from sepreformer_torch.ops.kernels.flash_attention import (
+    flash_relpos_attention,
+    flash_relpos_attention_plain,
 )
 from sepreformer_torch.ops.kernels.gcfn import fused_gcfn, gcfn_plain
 from sepreformer_torch.ops.kernels.gcfn_train import (
@@ -47,7 +53,8 @@ from sepreformer_torch.ops.kernels.softmax_pv_train import (
 
 WRAPPERS = (fused_gcfn, materialize_pos_kt, softmax_pv, depthwise_bwd,
             gcfn_train_fwd, gcfn_train_bwd, softmax_pv_train_fwd,
-            softmax_pv_train_bwd, sisnr_pairwise_neg_fused)
+            softmax_pv_train_bwd, sisnr_pairwise_neg_fused,
+            flash_relpos_attention)
 
 
 def reset_launches() -> None:
@@ -61,7 +68,8 @@ def launch_counts() -> dict:
 
 __all__ = [
     "WRAPPERS", "depthwise_bwd", "depthwise_bwd_plain", "depthwise_large",
-    "fused_gcfn", "fused_gcfn_train", "gcfn_plain", "gcfn_train_bwd",
+    "flash_relpos_attention", "flash_relpos_attention_plain", "fused_gcfn",
+    "fused_gcfn_train", "gcfn_plain", "gcfn_train_bwd",
     "gcfn_train_bwd_plain", "gcfn_train_fwd", "gcfn_train_plain",
     "launch_counts", "materialize_pos_kt",
     "materialize_pos_kt_plain", "pos_kt", "reset_launches",

@@ -60,6 +60,8 @@ SIGNATURES = {
                                                              _F, _P],
     # B, T, F -> floats of K8's scratch
     "sep_gcfn_train_bwd_scratch_floats": [_I, _I, _I],
+    # q, k, v, table, lens, out, B, L, H, maxlen, stream
+    "sep_flash_relpos_f32": [_P] * 6 + [_I] * 4 + [_P],
 }
 # launchers that return something else than a cudaError_t
 RESTYPES = {"sep_gcfn_train_bwd_scratch_floats": _L}

@@ -13,6 +13,8 @@ import torch
 from sepreformer_torch.ops.kernels import (
     depthwise_bwd,
     depthwise_bwd_plain,
+    flash_relpos_attention,
+    flash_relpos_attention_plain,
     fused_gcfn,
     fused_gcfn_train,
     gcfn_plain,
@@ -292,3 +294,39 @@ def test_gcfn_train_kernels_refuse_other_widths(cuda_device):
         gcfn_train_fwd(x, params, 1e-5, 1, 0.05)
     with pytest.raises(ValueError, match="width 16"):
         gcfn_train_bwd(x, params, 1e-5, 1, 0.05, dout)
+
+
+@pytest.mark.cuda
+# L 77: one partial query tile and key tile; L 300 with maxlen 64: tiles
+# that straddle the clamp edge |i - j| = 64; L 8750, maxlen 2000: the
+# decoder batch of a 70 s request, where most pairs clamp
+@pytest.mark.parametrize("b,length,maxlen,lens", [
+    (3, 77, 64, (77, 30, 1)), (2, 300, 64, None), (2, 300, 64, (300, 131)),
+    (2, 8750, 2000, (8750, 7000))])
+def test_flash_kernel_matches_plain(cuda_device, b, length, maxlen, lens):
+    h, d = 8, 16
+    gen = torch.Generator().manual_seed(length)
+    q, k, v = (torch.randn(b, length, h * d, generator=gen).to(cuda_device)
+               for _ in range(3))
+    table = torch.randn(2 * maxlen, d, generator=gen).to(cuda_device)
+    tl = None if lens is None else torch.tensor(lens, device=cuda_device)
+    ref = flash_relpos_attention_plain(q, k, v, table, maxlen, tl)
+    before = flash_relpos_attention.launches
+    got = flash_relpos_attention(q, k, v, table, maxlen, tl)
+    torch.cuda.synchronize()
+    assert flash_relpos_attention.launches == before + 1
+    torch.testing.assert_close(got, ref, **CARD_TOL)
+    assert torch.equal(got, flash_relpos_attention(q, k, v, table, maxlen,
+                                                   tl))
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_autograd_and_other_head_widths(cuda_device):
+    q = torch.randn(1, 100, 128, device=cuda_device, requires_grad=True)
+    table = torch.randn(128, 16, device=cuda_device)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_relpos_attention(q, q, q, table, 64)
+    with torch.no_grad():
+        flash_relpos_attention(q, q, q, table, 64)
+        with pytest.raises(ValueError, match="head dim 8"):
+            flash_relpos_attention(q, q, q, table[:, :8], 64)
