@@ -63,6 +63,20 @@ Phases, each of which fails the run:
                (``chunk_seconds``: K2 and K3, no K12); and the 70 s
                request as a wav through ``cli.main``'s ``infer_sample``.
                Wall times, audio-s/s and peak memory of each.
+10. routes   - the JAX package's other routes, Base at full width, seeded
+               weights: ``train_step``s on B=2 x 4 s with
+               ``attention_train_impl="pallas"`` (K13 and K14 in all 22
+               global attentions) and the depthwise module's ``BWD_MODE =
+               "conv"`` (K6 in all 22 CLAs), where K2, K5, K9 and K10 must
+               not launch, in turns with the default route's steps on the
+               same batch, with one traced step; one such step card
+               against CPU (phase 7's limit, with two controls: TF32
+               allowed, K13/K14 without the rel-pos bias); a ragged
+               B=4 x 4 s batch served on ``attention_impl="single"`` (K13
+               in all 22 attentions, no K2 or K3) against the default
+               route within phase 5's limit; one epoch through
+               ``cli.main`` with ``--set model.attention_train_impl=
+               pallas`` on phase 8's synthetic corpus.
 
 Prints one JSON line of kernel results, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -71,6 +85,7 @@ printing no result, without a CUDA card or without the package beside it.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -99,9 +114,14 @@ KERNEL_SYMBOLS = {"fused_gcfn": "gcfn_kernel",
                   "softmax_pv_train_fwd": "softmax_pv_train_fwd_kernel",
                   "softmax_pv_train_bwd": "softmax_pv_train_bwd_kernel",
                   "sisnr_pairwise_neg_fused": "pit_sisnr_kernel",
-                  "flash_relpos_attention": "flash_relpos_kernel"}
+                  "flash_relpos_attention": "flash_relpos_kernel",
+                  "depthwise_bwd_w": "depthwise_dw",
+                  "attention_train_fwd": "attn_train_fwd",
+                  "attention_train_bwd": "attn_train_bwd"}
 EVAL_KERNELS = ("fused_gcfn", "materialize_pos_kt", "softmax_pv")
 LONG_KERNELS = ("flash_relpos_attention",)
+ROUTE_KERNELS = ("depthwise_bwd_w", "attention_train_fwd",
+                 "attention_train_bwd")
 TRAIN_KERNELS = ("materialize_pos_kt", "depthwise_bwd", "gcfn_train_fwd",
                  "gcfn_train_bwd", "softmax_pv_train_fwd",
                  "softmax_pv_train_bwd", "sisnr_pairwise_neg_fused")
@@ -117,10 +137,13 @@ KERNEL_GROUPS = (  # profile groups of the card's kernels, first match wins
     ("K8 gcfn_train_bwd", ("gcfn_train_bwd",)),
     ("K1 gcfn", ("gcfn_kernel",)),
     ("K12 flash_relpos", ("flash_relpos",)),
+    ("K13 attn_train_fwd", ("attn_train_fwd",)),
+    ("K14 attn_train_bwd", ("attn_train_bwd",)),
     ("K2 relpos", ("relpos_kernel",)),
     ("K9 softmax_pv_train_fwd", ("softmax_pv_train_fwd",)),
     ("K10 softmax_pv_train_bwd", ("softmax_pv_train_bwd",)),
     ("K3 softmax_pv", ("softmax_pv_kernel",)),
+    ("K6 depthwise_dw", ("depthwise_dw",)),
     ("K5 depthwise_bwd", ("depthwise_bwd",)),
     ("K11 pit", ("pit_sisnr",)),
     ("optimizer (foreach)", ("multi_tensor", "foreach")),
@@ -141,18 +164,33 @@ def bound_ms(nbytes: float, flops: float):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def flash_relpos_ops(length, klens, maxlen, heads, d):
-    """K12's float32 operations on these inputs, per head: 4*d per (query,
-    valid key) pair for q·kᵀ and P·V, and 2*d per query row for each
-    distinct clamped table row that its valid keys reach (q·tableᵀ is
-    taken once per row and table row, as the plain version takes it)."""
-    ops = 0
+def relpos_pairs(length, klens, maxlen):
+    """(query, valid key) pairs of one head over the rows ``klens``, and
+    (query, distinct clamped table row its valid keys reach) pairs."""
+    pairs = rows = 0
     for keys in klens:
-        ops += 4 * d * length * keys
+        pairs += length * keys
         for i in range(length):
             lo = max(min(i - keys + 1, maxlen - 1), -maxlen)
-            ops += 2 * d * (min(i, maxlen - 1) - lo + 1)
-    return heads * ops
+            rows += min(i, maxlen - 1) - lo + 1
+    return pairs, rows
+
+
+def flash_relpos_ops(length, klens, maxlen, heads, d):
+    """K12's (and K13's) float32 operations on these inputs, per head:
+    4*d per (query, valid key) pair for q·kᵀ and P·V, and 2*d per query
+    row for each distinct clamped table row that its valid keys reach
+    (q·tableᵀ is taken once per row and table row, as the plain version
+    takes it)."""
+    pairs, rows = relpos_pairs(length, klens, maxlen)
+    return heads * (4 * d * pairs + 2 * d * rows)
+
+
+def attention_train_bwd_ops(length, klens, maxlen, heads, d):
+    """K14's: 10*d per pair (q·kᵀ, dO·vᵀ, dV, dQ, dK) and 6*d per (row,
+    table row) (q·tableᵀ, its adjoints to dQ and to the table)."""
+    pairs, rows = relpos_pairs(length, klens, maxlen)
+    return heads * (10 * d * pairs + 6 * d * rows)
 
 
 def kernel_phase(torch, K, device_ms):
@@ -282,6 +320,23 @@ def kernel_phase(torch, K, device_ms):
            shape=f"x, dy [{b}, {t}, {c}], w [{c}, 1, {k}]",
            tolerance="rtol 1e-4; atol 1e-5 dx, 1e-3 dw and db")
 
+    # K6: the same conv's dw and db alone (BWD_MODE "conv")
+    got, ref = K.depthwise_bwd_w(x, dy, k), K.depthwise_bwd_w_plain(x, dy, k)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-3)
+    record(K.depthwise_bwd_w, lambda: K.depthwise_bwd_w(x, dy, k),
+           lambda: K.depthwise_bwd_w_plain(x, dy, k),
+           lambda: torch.ops.aten.convolution_backward(
+               dy_ncw, xp, w, [c], [1], [0], [1], False, [0], c,
+               [False, True, True]),
+           max((g - r).abs().max().item() for g, r in zip(got, ref)),
+           4 * (2 * x.numel() + w.numel() + c), x.numel() * (2 * k + 1),
+           source="sepreformer_torch/csrc/depthwise.cu",
+           replaces="sepreformer_tpu/ops/pallas/depthwise.py:193",
+           shape=f"x, dy [{b}, {t}, {c}], k {k}",
+           tolerance="rtol 1e-4, atol 1e-3 (sums of B*T products)")
+
     # K7 and K8: the widest GCFN of a B=2 x 4 s train batch, in a decoder
     # stage (B*spks = 4 rows of 8000 frames), p 0.05
     b, t, f, p, seed = 4, 8000, 128, 0.05, 4321
@@ -408,7 +463,87 @@ def kernel_phase(torch, K, device_ms):
            shape=f"est, src [{spk}, {b}, {t}]",
            tolerance="rtol 1e-4, atol 1e-4 (dB, float32)")
     flash_kernel_row(torch, K, device_ms, randn, record)
+    attention_train_rows(torch, K, device_ms, randn, record)
     return results
+
+
+def attention_train_rows(torch, K, device_ms, randn, record):
+    """K13 and K14 at the decoder attention of a B=2 x 4 s train batch
+    (B*spks = 4 rows, 8 heads, L = 500, maxlen 2000, p 0.05), against
+    their plain versions: the forward at atol 1e-5, each gradient within
+    phase 7's limit of its largest value.  K13's library yardstick is
+    SDPA with the rel-pos bias as a float mask (at p 0: SDPA's dropout is
+    not the hash mask); no library call computes K14's four gradients."""
+    dev = torch.device("cuda")
+    b, heads, length, maxlen, d, p, seed = 4, 8, 500, 2000, 16, 0.05, 4321
+    q, k, v, dout = (randn(b, heads, length, d) for _ in range(4))
+    table = randn(2 * maxlen, d)
+    key_len = torch.full((b,), length, dtype=torch.int32, device=dev)
+    klens = [length] * b
+    out, row_max, row_sum = K.attention_train_fwd(q, k, v, table, maxlen,
+                                                  seed, p, key_len)
+    ref = K.attention_train_plain(q, k, v, table, maxlen, seed, p)
+    torch.cuda.synchronize()
+    # a wrong dropout mask or hash row errs by O(1) at p = 0.05
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    pos = torch.arange(length, device=dev)
+    idx = torch.clamp(pos[:, None] - pos[None], -maxlen, maxlen - 1) + maxlen
+    storage = torch.empty(b, heads, length, -(-length // 16) * 16, device=dev)
+    bias = storage[..., :length]
+    with torch.no_grad():
+        bias.copy_(torch.gather(torch.matmul(q, table.t()), 3,
+                                idx.expand(b, heads, length, length))
+                   / math.sqrt(d))
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias)
+
+    lib_err = (library() - K.attention_train_plain(q, k, v, table, maxlen,
+                                                   seed, 0.0)).abs().max()
+    print(f"[kernels] SDPA with the bias as a float mask, p 0: max |sdpa - "
+          f"plain| {lib_err.item():.3e}")
+    keys = b * length
+    record(K.attention_train_fwd,
+           lambda: K.attention_train_fwd(q, k, v, table, maxlen, seed, p,
+                                         key_len),
+           lambda: K.attention_train_plain(q, k, v, table, maxlen, seed, p),
+           library, (out - ref).abs().max().item(),
+           # q in and out written, k and v of the valid keys, the table
+           4 * (2 * q.numel() + 2 * keys * heads * d + table.numel() + b),
+           flash_relpos_ops(length, klens, maxlen, heads, d),
+           source="sepreformer_torch/csrc/attention_train.cu",
+           replaces="sepreformer_tpu/ops/pallas/attention_train.py:202",
+           shape=(f"q, k, v [{b}, {heads}, {length}, {d}], table "
+                  f"[{2 * maxlen}, {d}], p {p}"),
+           tolerance="rtol 1e-4, atol 1e-5 (float32)")
+    grads = K.attention_train_bwd(q, k, v, table, maxlen, seed, p, key_len,
+                                  out, dout, row_max, row_sum)
+    refs = K.attention_train_bwd_plain(q, k, v, table, maxlen, seed, p, None,
+                                       dout)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, r in zip(("dq", "dk", "dv", "dtable"), grads, refs):
+        e = (g - r).abs().max().item()
+        assert e <= TRAIN_CPU_REL_LIMIT * r.abs().max().item(), (name, e)
+        err = max(err, e)
+    record(K.attention_train_bwd,
+           lambda: K.attention_train_bwd(q, k, v, table, maxlen, seed, p,
+                                         key_len, out, dout, row_max,
+                                         row_sum),
+           lambda: K.attention_train_bwd_plain(q, k, v, table, maxlen, seed,
+                                               p, None, dout),
+           None, err,
+           # q, k, v, dout and the table in; dq, dk, dv and dtable out
+           4 * (7 * q.numel() + 2 * table.numel() + b),
+           attention_train_bwd_ops(length, klens, maxlen, heads, d),
+           source="sepreformer_torch/csrc/attention_train.cu",
+           replaces="sepreformer_tpu/ops/pallas/attention_train.py:226",
+           shape=(f"q, k, v, out, dout [{b}, {heads}, {length}, {d}], "
+                  f"table [{2 * maxlen}, {d}], p {p}"),
+           tolerance=f"max |kernel - plain| <= {TRAIN_CPU_REL_LIMIT:.0e} x "
+                     f"max|plain| per gradient")
+    del storage, bias
 
 
 def flash_kernel_row(torch, K, device_ms, randn, record):
@@ -757,19 +892,27 @@ def train_phase(torch, np, sep_torch, K, busy_us, kernel_events, steps=6):
     return counts
 
 
-def train_cpu_phase(torch, np, sep_torch):
-    """One train step on the card and on the CPU from the same weights:
-    dropout 0, every LayerScale at 0.5, a 1 s crop.  The loss and every
-    gradient (read after the step's clip) must agree; a control run on
-    the card with TF32 allowed must exceed the gradient limit."""
-    import dataclasses
+@contextlib.contextmanager
+def tf32_allowed(torch):
+    """TF32 in cuBLAS's and cuDNN's float32 products, for a control run."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
 
+
+def train_against_cpu(torch, np, sep_torch, tag, cfg, controls):
+    """One train step of ``cfg`` on the card and on the CPU from the same
+    weights: dropout 0, every LayerScale at 0.5, a 1 s crop.  The loss and
+    every gradient (read after the step's clip) must agree within
+    ``TRAIN_CPU_REL_LIMIT``; each of ``controls`` (label -> a context in
+    which the card's step runs) must exceed it."""
     from sepreformer_torch.engine import create_train_state, train_step
     from sepreformer_torch.models import build_model
 
-    base = sep_torch.get_variant("SepReformer_Base_WSJ0")
-    cfg = dataclasses.replace(base, model=dataclasses.replace(
-        base.model, dropout=0.0))
     model = build_model(cfg.model, device="cpu",
                         generator=torch.Generator().manual_seed(4))
     with torch.no_grad():
@@ -789,33 +932,42 @@ def train_cpu_phase(torch, np, sep_torch):
 
     t0 = time.perf_counter()
     cpu_loss, cpu_grads = step("cpu")
-    print(f"[train_cpu] CPU step {time.perf_counter() - t0:.2f} s, "
+    print(f"[{tag}] CPU step {time.perf_counter() - t0:.2f} s, "
           f"loss {cpu_loss:.6f}")
     scale = max(g.abs().max().item() for g in cpu_grads.values())
     errs = {}
-    for label, tf32 in (("float32", False), ("control, TF32 allowed", True)):
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-        torch.backends.cudnn.allow_tf32 = tf32
-        try:
+    for label, context in {"float32": contextlib.nullcontext,
+                           **controls}.items():
+        with context():
             loss, grads = step("cuda")
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
         assert all(torch.isfinite(g).all() for g in grads.values()), label
         worst = max(grads, key=lambda n: (grads[n] - cpu_grads[n]).abs().max())
         errs[label] = (grads[worst] - cpu_grads[worst]).abs().max().item()
         errs[label] /= scale
         loss_err = abs(loss - cpu_loss) / abs(cpu_loss)
-        print(f"[train_cpu] {label}: loss {loss:.6f} (|card - cpu| / |cpu| "
+        print(f"[{tag}] {label}: loss {loss:.6f} (|card - cpu| / |cpu| "
               f"{loss_err:.3e}); max |card - cpu| over every gradient / max "
               f"|cpu gradient| {errs[label]:.3e} (max {scale:.3e}, worst "
               f"{worst}), limit {TRAIN_CPU_REL_LIMIT:.1e}")
-        if not tf32:
+        if label == "float32":
             assert loss_err <= TRAIN_CPU_REL_LIMIT, "loss disagrees"
     assert errs["float32"] <= TRAIN_CPU_REL_LIMIT, (
         "card gradients disagree with the CPU")
-    assert errs["control, TF32 allowed"] > TRAIN_CPU_REL_LIMIT, (
-        "the limit does not catch TF32 products")
+    for label in controls:
+        assert errs[label] > TRAIN_CPU_REL_LIMIT, (
+            f"the limit does not catch the {label}")
+
+
+def train_cpu_phase(torch, np, sep_torch):
+    """One train step on the card and on the CPU from the same weights,
+    with a TF32 control; then one train-mode GCFN at dropout 0.05."""
+    import dataclasses
+
+    base = sep_torch.get_variant("SepReformer_Base_WSJ0")
+    cfg = dataclasses.replace(base, model=dataclasses.replace(
+        base.model, dropout=0.0))
+    train_against_cpu(torch, np, sep_torch, "train_cpu", cfg, {
+        "control, TF32 allowed": lambda: tf32_allowed(torch)})
     gcfn_train_cpu(torch, np)
 
 
@@ -1178,6 +1330,223 @@ def long_phase(torch, np, sep_torch, K, busy_us, kernel_events):
     return total
 
 
+@contextlib.contextmanager
+def depthwise_conv_mode():
+    """The depthwise module's ``BWD_MODE = "conv"`` (dx by the library
+    convolution, dw and db by K6), as the JAX module's constant is set."""
+    from sepreformer_torch.ops.kernels import depthwise
+
+    saved = depthwise.BWD_MODE
+    depthwise.BWD_MODE = "conv"
+    try:
+        yield
+    finally:
+        depthwise.BWD_MODE = saved
+
+
+@contextlib.contextmanager
+def k13_without_bias(torch):
+    """A control of the K13/K14 route: the rel-pos table zeroed inside the
+    graph (its gradient still flows, as zeros)."""
+    from sepreformer_torch.models import blocks
+
+    route = blocks.flash_relpos_attention_train
+    blocks.flash_relpos_attention_train = (
+        lambda q, k, v, table, *args: route(q, k, v, table * 0.0, *args))
+    try:
+        yield
+    finally:
+        blocks.flash_relpos_attention_train = route
+
+
+def routes_phase(torch, np, sep_torch, K, busy_us, kernel_events, steps=6):
+    """The JAX package's other routes at Base width: training on
+    ``attention_train_impl="pallas"`` and ``BWD_MODE = "conv"`` (K13, K14,
+    K6), ``steps`` pairs of steps in turns with the default route, card
+    against CPU on them, serving on ``attention_impl="single"`` (K13),
+    and one epoch through ``cli.main`` with ``--set``.  Returns the
+    kernels' launches over the main-path runs."""
+    import dataclasses
+    import tempfile
+
+    from sepreformer_torch import cli
+    from sepreformer_torch.config import apply_override
+    from sepreformer_torch.data.synth import generate_corpus
+    from sepreformer_torch.engine import (
+        LRController,
+        create_train_state,
+        train_step,
+    )
+
+    total = defaultdict(int)
+    base = sep_torch.get_variant("SepReformer_Base_WSJ0")
+    cfg = apply_override(base, "model.attention_train_impl", "pallas")
+    states = {label: create_train_state(
+        variant, device="cuda", generator=torch.Generator().manual_seed(0))
+        for label, variant in (("pallas/conv", cfg), ("default", base))}
+    model = states["pallas/conv"].model
+    attentions = sum(type(m).__name__ == "EGA" for m in model.modules())
+    clas = sum(type(m).__name__ == "CLA" for m in model.modules())
+    assert attentions == clas == 22
+    o = cfg.optim
+    lrc = LRController(o.lr, o.warmup_steps, o.plateau_factor,
+                       o.plateau_patience, o.plateau_min_lr)
+    rng = np.random.default_rng(13)
+    batch = tuple(a.cuda() for a in synthetic_batch(
+        torch, np, rng, cfg.dataset.batch_size, cfg.dataset.max_len))
+    gens = {label: torch.Generator().manual_seed(14) for label in states}
+    route_kernels = ("attention_train_fwd", "attention_train_bwd",
+                     "depthwise_bwd_w")
+    absent = ("materialize_pos_kt", "depthwise_bwd", "softmax_pv_train_fwd",
+              "softmax_pv_train_bwd", "softmax_pv", "flash_relpos_attention")
+
+    def step(label):
+        """One train step of ``label``'s state on the host clock, the
+        counts at 0 just before and read just after, and its peak."""
+        mode = (depthwise_conv_mode() if label == "pallas/conv"
+                else contextlib.nullcontext())
+        with mode:
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = train_step(states[label], *batch, lrc.lr, 0.4,
+                                 gens[label])
+            values = {k: float(v) for k, v in metrics.items()}  # waits
+            dt = (time.perf_counter() - t0) * 1e3
+        counts = K.launch_counts()
+        assert all(np.isfinite(v) for v in values.values()), (label, values)
+        if label == "pallas/conv":
+            for name, n in counts.items():
+                total[name] += n
+            for name in route_kernels:
+                assert counts[name] == 22, (name, counts[name])
+            stray = [n for n in absent if counts[n]]
+            assert not stray, f"kernels off these routes launched: {stray}"
+        return dt, torch.cuda.max_memory_allocated(), values
+
+    # a. train steps of the "pallas" attention and the "conv" backward
+    # (K13, K14, K6), in turns with the default route's on the same batch
+    lrc.warmup_step()
+    times = defaultdict(list)
+    for label in ("pallas/conv", "default"):
+        dt, _, values = step(label)
+        print(f"[routes] {label} first train step: {dt:.2f} ms, "
+              + ", ".join(f"{k} {v:.4f}" for k, v in values.items()))
+    for i in range(steps):
+        for label in (("pallas/conv", "default") if i % 2 == 0
+                      else ("default", "pallas/conv")):
+            dt, peak, values = step(label)
+            times[label].append(dt)
+    print(f"[routes] {attentions} global attentions, {clas} CLAs; each "
+          f"pallas/conv step launched K13, K14 and K6 22 times and no K2, "
+          f"K5, K9 or K10")
+    batch_s = cfg.dataset.batch_size * TRAIN_SECONDS
+    for label, ts in times.items():
+        median = statistics.median(ts)
+        print(f"[routes] {label} train steps in turns, ms: "
+              f"{[round(t, 2) for t in ts]}; median {median:.2f} ms, "
+              f"{batch_s / (median / 1e3):.2f} training audio-s/s")
+    for label in states:
+        dt, peak, _ = step(label)
+        print(f"[routes] {label} step: max_memory_allocated "
+              f"{peak / 2**30:.3f} GiB")
+
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with depthwise_conv_mode():
+        K.reset_launches()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            train_step(states["pallas/conv"], *batch, lrc.lr, 0.4,
+                       gens["pallas/conv"])
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+    for name, n in K.launch_counts().items():
+        total[name] += n
+    kernels = kernel_events(prof)
+    print_trace("routes", kernels, busy_us(kernels), window_us,
+                K.launch_counts(), "pallas/conv train step")
+    del states, model, batch
+    torch.cuda.empty_cache()
+
+    # b. one such step card against CPU, with two controls
+    with depthwise_conv_mode():
+        train_against_cpu(
+            torch, np, sep_torch, "routes",
+            dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, dropout=0.0)),
+            {"control, TF32 allowed": lambda: tf32_allowed(torch),
+             "control, K13/K14 without the rel-pos bias":
+                 lambda: k13_without_bias(torch)})
+
+    # c. a ragged batch served on "single" against the default route
+    single = apply_override(base, "model.attention_impl", "single")
+    seps = {}
+    for label, variant in (("single", single), ("default", base)):
+        m = sep_torch.build_model(variant.model, device="cuda",
+                                  generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            for name, prm in m.named_parameters():
+                if name.endswith("layer_scale"):
+                    prm.fill_(0.5)
+        seps[label] = sep_torch.Separator(variant, m)
+    lengths = [32000, 28000, 24000, 20000]
+    batch = np.zeros((4, 32000), np.float32)
+    for i, n in enumerate(lengths):
+        batch[i, :n] = rng.normal(size=n) * 0.1
+    outs = {}
+    for label in ("single", "default", "single"):
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[label] = seps[label].separate(batch, lengths).cpu().numpy()
+        dt = time.perf_counter() - t0
+        counts = K.launch_counts()
+        print(f"[routes] batch B=4 x 4 s on the {label} route: "
+              f"{dt * 1e3:.2f} ms; launches "
+              f"{ {n: c for n, c in counts.items() if c} }")
+        if label == "single":
+            assert counts["attention_train_fwd"] == attentions
+            assert counts["materialize_pos_kt"] == counts["softmax_pv"] == 0
+    for name, n in counts.items():
+        total[name] += n
+    assert np.isfinite(outs["single"]).all()
+    scale = max(float(np.abs(outs["default"][:, i, :n]).max())
+                for i, n in enumerate(lengths))
+    err = max(float(np.abs(outs["single"][:, i, :n]
+                           - outs["default"][:, i, :n]).max())
+              for i, n in enumerate(lengths)) / scale
+    print(f"[routes] single against the default route: max |d| / max|out| "
+          f"{err:.3e} (max|out| {scale:.3f}), limit {CPU_REL_LIMIT:.1e}")
+    assert err <= CPU_REL_LIMIT, "the single route disagrees"
+    del seps
+    torch.cuda.empty_cache()
+
+    # d. one epoch through the CLI with --set, on phase 8's corpus
+    with tempfile.TemporaryDirectory() as tmp:
+        generate_corpus(os.path.join(tmp, "corpus"), n_train=16, n_valid=4,
+                        n_test=4, seed=0)
+        args = ["--model", "SepReformer_Base_WSJ0", "--scp-root",
+                os.path.join(tmp, "corpus"), "--scp-dir", "scp",
+                "--workdir", os.path.join(tmp, "work"), "--batch-size", "2",
+                "--max-epoch", "2", "--set", "engine.test_epochs=",
+                "--set", "model.attention_train_impl=pallas"]
+        K.reset_launches()
+        t0 = time.perf_counter()
+        assert cli.main(args) == 0
+        counts = K.launch_counts()
+        print(f"[routes] cli.main, one epoch on the pallas route: "
+              f"{time.perf_counter() - t0:.2f} s; launches {counts}")
+    for name, n in counts.items():
+        total[name] += n
+    assert counts["attention_train_fwd"] == counts["attention_train_bwd"] > 0
+    assert counts["softmax_pv_train_fwd"] == 0
+    print(f"[routes] launches over the phase's main-path runs: {dict(total)}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1253,15 +1622,19 @@ def main() -> int:
     run("engine", engine_phase, torch, np, K)
     long_counts = run("long", long_phase, torch, np, sep_torch, K, busy_us,
                       kernel_events) or {}
+    route_counts = run("routes", routes_phase, torch, np, sep_torch, K,
+                       busy_us, kernel_events) or {}
 
     # each kernel's launches on the main path of its slice: the eval
     # kernels' in serving, the train kernels' in training, K12's in
-    # long-form serving
+    # long-form serving, K6's, K13's and K14's on the routes
     for row in kernels:
         name = row["name"]
         row["launches"] = (counts.get(name, 0) if name in EVAL_KERNELS
                            else long_counts.get(name, 0)
                            if name in LONG_KERNELS
+                           else route_counts.get(name, 0)
+                           if name in ROUTE_KERNELS
                            else train_counts.get(name, 0))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -4,10 +4,12 @@ The port's own copy of the hyperparameters of SepReformer (the JAX
 package's ``config.py`` holds the same numbers; the port imports nothing
 from it), with its ``--set`` overrides (``apply_override``) and its
 reader of the reference's ``configs.yaml`` (``from_reference_yaml``).
-Only the knobs the port reads are kept: the TPU implementation selectors
-of the JAX package have no counterpart here, because the port has one
-path per module, the JAX package's default one (in training the GCFN
-takes the hash-dropout kernels K7/K8).  The Large variants (F=256, one
+Only the knobs the port reads are kept.  Of the JAX package's
+implementation selectors the port keeps the two attention routes,
+``attention_impl`` and ``attention_train_impl``, with their names and
+defaults; every other module has one path, the JAX package's default
+one (in training the GCFN takes the hash-dropout kernels K7/K8).  The
+Large variants (F=256, one
 speaker-split block per stage) are not ported yet, nor
 ``OptimConfig.flat_opt_state`` (a TPU lever the JAX package measured
 neutral), ``EngineConfig.steps_per_dispatch`` (ROADMAP A.4),
@@ -21,6 +23,13 @@ import dataclasses
 import pathlib
 from dataclasses import dataclass, field, replace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+
+# the values of ModelConfig's two attention routes; the JAX package's
+# "*_interpret" values have no counterpart (on the CPU the port always
+# runs its kernels' plain versions)
+ATTENTION_IMPLS = ("auto", "fused_pv", "pallas", "single", "xla")
+ATTENTION_TRAIN_IMPLS = ("auto", "fused_pv", "pallas", "xla")
 
 
 @dataclass(frozen=True)
@@ -41,6 +50,24 @@ class ModelConfig:
     layer_scale_init: float = 1.0e-5
     norm_eps: float = 1.0e-5      # LayerNorm / BatchNorm
     group_norm_eps: float = 1.0e-8
+    # global attention in eval (and in train at dropout 0 for "single"):
+    # "auto" (K2 pos_kt + K3 up to a bottleneck length of 8192, K12
+    # past it), "fused_pv" (K2 + K3), "pallas" (K12), "single" (K13 on
+    # the raw table up to 512, dense past it), "xla" (dense torch)
+    attention_impl: str = "auto"
+    # global attention in train: "auto" and "fused_pv" (K2 + K9/K10 up
+    # to a padded length of 512, dense past it), "pallas" (K13/K14 up to
+    # 512 without key lengths, dense past it), "xla" (dense torch)
+    attention_train_impl: str = "auto"
+
+    def __post_init__(self):
+        for name, allowed in (("attention_impl", ATTENTION_IMPLS),
+                              ("attention_train_impl",
+                               ATTENTION_TRAIN_IMPLS)):
+            value = getattr(self, name)
+            if value not in allowed:
+                raise ValueError(f"model.{name} {value!r} is not one of "
+                                 f"{allowed}")
 
     @property
     def head_dim(self) -> int:

@@ -8,16 +8,20 @@
 // weight's own layout [C, 1, K], so the parameter reaches the kernel, and
 // its gradient leaves it, without a copy.
 //
-// Replaces: sepreformer_tpu/ops/pallas/depthwise.py::depthwise_large's
-//           backward (_impl_bwd, body _bwd_kernel).  The forward stays the
-//           library convolution, as the JAX package's forward stays XLA's.
-//           The JAX package takes its kernel only where C % 128 == 0 (a TPU
-//           tiling rule); this one serves any T and any C, odd K <= 81.
+// Replaces: K5, sepreformer_tpu/ops/pallas/depthwise.py::depthwise_large's
+//           backward (_impl_bwd, body _bwd_kernel), and K6, its dw/db-only
+//           form (_impl_bwd_w, body _bwd_w_kernel) that the JAX package's
+//           BWD_MODE = "conv" runs, with dx left to a library convolution
+//           of dy with the flipped kernel.  The forward stays the library
+//           convolution, as the JAX package's forward stays XLA's.  The JAX
+//           package takes its kernels only where C % 128 == 0 (a TPU tiling
+//           rule); these serve any T and any C, odd K <= 81.
 //
-// What bounds it on the H100: it reads x and dy once and writes dx once
+// What bounds it on the H100: K5 reads x and dy once and writes dx once
 // (3 * B*T*C floats, 49 MB at [4, 8000, 128]) and does 2K FMAs per
 // element (1.1 GFLOP at K=65), so the bytes and the float32 operations
-// give about the same bound, ~0.016 ms.
+// give about the same bound, ~0.016 ms.  K6 reads x and dy once (33 MB,
+// 0.0098 ms) and does K FMAs per element (0.008 ms): bound by the bytes.
 //
 // Design: the TPU summed dw and db across a sequential grid in VMEM.  Here
 // blocks run in parallel and in no order, so each block writes its own
@@ -31,6 +35,8 @@
 // dx each warp takes 8 consecutive rows and walks the taps; for dw each
 // warp takes every 8th tap and walks the rows, reusing each dy value for
 // all of its taps.  The partial dw stays in registers across the tiles.
+// K6 is the same kernel without the dx loop and the weight's staging
+// (depthwise_dw_kernel), and the same fixed-order reduction.
 #include <cuda_runtime.h>
 
 namespace {
@@ -48,10 +54,12 @@ size_t smem_bytes(int K) {
   return sizeof(float) * ((size_t)2 * (kTT + K - 1) * kCW + (size_t)K * kCW);
 }
 
-__global__ void __launch_bounds__(kThreads)
-depthwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
-                     const float* __restrict__ w, float* __restrict__ dx,
-                     float* __restrict__ partial, int T, int C, int K) {
+// kDx: K5 (dx, and the partial dw and db); else K6 (the partials only)
+template <bool kDx>
+__device__ __forceinline__ void depthwise_bwd_body(
+    const float* __restrict__ x, const float* __restrict__ dy,
+    const float* __restrict__ w, float* __restrict__ dx,
+    float* __restrict__ partial, int T, int C, int K) {
   extern __shared__ float smem[];
   const int halo = (K - 1) / 2, rows = kTT + K - 1;
   float* xs = smem;                 // [rows][kCW]
@@ -62,9 +70,11 @@ depthwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   const int c = c0 + lane;
   const bool c_ok = c < C;
 
-  for (int e = threadIdx.x; e < K * kCW; e += kThreads) {
-    const int tap = e / kCW, cc = c0 + e % kCW;
-    ws[e] = cc < C ? w[(size_t)cc * K + tap] : 0.f;
+  if (kDx) {
+    for (int e = threadIdx.x; e < K * kCW; e += kThreads) {
+      const int tap = e / kCW, cc = c0 + e % kCW;
+      ws[e] = cc < C ? w[(size_t)cc * K + tap] : 0.f;
+    }
   }
   float dw_acc[kTapsPerWarp];
 #pragma unroll
@@ -85,22 +95,24 @@ depthwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
     }
     __syncthreads();
 
-    // dx for rows i0 .. i0 + 7 of the tile: dx[i] = sum_tap w[tap] *
-    // dys[i + K - 1 - tap]
-    const int i0 = grp * kRowsPerWarp;
-    float acc[kRowsPerWarp];
+    if (kDx) {
+      // dx for rows i0 .. i0 + 7 of the tile: dx[i] = sum_tap w[tap] *
+      // dys[i + K - 1 - tap]
+      const int i0 = grp * kRowsPerWarp;
+      float acc[kRowsPerWarp];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) acc[r] = 0.f;
-    for (int tap = 0; tap < K; ++tap) {
-      const float wv = ws[tap * kCW + lane];
-      const float* d = dys + (i0 + K - 1 - tap) * kCW + lane;
+      for (int r = 0; r < kRowsPerWarp; ++r) acc[r] = 0.f;
+      for (int tap = 0; tap < K; ++tap) {
+        const float wv = ws[tap * kCW + lane];
+        const float* d = dys + (i0 + K - 1 - tap) * kCW + lane;
 #pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) acc[r] += wv * d[r * kCW];
-    }
+        for (int r = 0; r < kRowsPerWarp; ++r) acc[r] += wv * d[r * kCW];
+      }
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int t = t0 + i0 + r;
-      if (t < T && c_ok) dx[base + (size_t)t * C + c] = acc[r];
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const int t = t0 + i0 + r;
+        if (t < T && c_ok) dx[base + (size_t)t * C + c] = acc[r];
+      }
     }
 
     // dw[tap] += sum_i xs[i + tap] * dys[i + halo], taps grp, grp + 8, ...
@@ -126,11 +138,23 @@ depthwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+depthwise_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+                     const float* __restrict__ w, float* __restrict__ dx,
+                     float* __restrict__ partial, int T, int C, int K) {
+  depthwise_bwd_body<true>(x, dy, w, dx, partial, T, C, K);
+}
+
+__global__ void __launch_bounds__(kThreads)
+depthwise_dw_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+                    float* __restrict__ partial, int T, int C, int K) {
+  depthwise_bwd_body<false>(x, dy, nullptr, nullptr, partial, T, C, K);
+}
+
 // dw[c, tap] and db[c]: the block partials summed in order.
-__global__ void depthwise_bwd_reduce_kernel(const float* __restrict__ partial,
-                                            float* __restrict__ dw,
-                                            float* __restrict__ db, int parts,
-                                            int C, int K) {
+__device__ __forceinline__ void reduce_partials(
+    const float* __restrict__ partial, float* __restrict__ dw,
+    float* __restrict__ db, int parts, int C, int K) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   const int n = (K + 1) * C;
   if (idx >= n) return;
@@ -141,6 +165,26 @@ __global__ void depthwise_bwd_reduce_kernel(const float* __restrict__ partial,
     dw[(size_t)c * K + tap] = s;
   else
     db[c] = s;
+}
+
+__global__ void depthwise_bwd_reduce_kernel(const float* __restrict__ partial,
+                                            float* __restrict__ dw,
+                                            float* __restrict__ db, int parts,
+                                            int C, int K) {
+  reduce_partials(partial, dw, db, parts, C, K);
+}
+
+__global__ void depthwise_dw_reduce_kernel(const float* __restrict__ partial,
+                                           float* __restrict__ dw,
+                                           float* __restrict__ db, int parts,
+                                           int C, int K) {
+  reduce_partials(partial, dw, db, parts, C, K);
+}
+
+bool bad_args(int B, int T, int C, int K, long long partial_floats) {
+  const int chunks = (T + kTT * kTiles - 1) / (kTT * kTiles);
+  return K < 1 || K % 2 == 0 || K > kMaxK || B > 65535 ||
+         partial_floats < (long long)B * chunks * (K + 1) * C;
 }
 
 }  // namespace
@@ -154,10 +198,8 @@ extern "C" int sep_depthwise_bwd_f32(const void* x, const void* dy,
                                      long long partial_floats, int B, int T,
                                      int C, int K, void* stream) {
   if (B <= 0 || T <= 0 || C <= 0) return 0;
+  if (bad_args(B, T, C, K, partial_floats)) return (int)cudaErrorInvalidValue;
   const int chunks = (T + kTT * kTiles - 1) / (kTT * kTiles);
-  if (K < 1 || K % 2 == 0 || K > kMaxK || B > 65535 ||
-      partial_floats < (long long)B * chunks * (K + 1) * C)
-    return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   dim3 grid((C + kCW - 1) / kCW, chunks, B);
   depthwise_bwd_kernel<<<grid, kThreads, smem_bytes(K), st>>>(
@@ -168,6 +210,30 @@ extern "C" int sep_depthwise_bwd_f32(const void* x, const void* dy,
   if (err != cudaSuccess) return (int)err;
   const int n = (K + 1) * C;
   depthwise_bwd_reduce_kernel<<<(n + 255) / 256, 256, 0, st>>>(
+      static_cast<const float*>(partial), static_cast<float*>(dw),
+      static_cast<float*>(db), B * chunks, C, K);
+  return (int)cudaGetLastError();
+}
+
+// K6: dw and db only, as sep_depthwise_bwd_f32 without w and dx.
+extern "C" int sep_depthwise_bwd_w_f32(const void* x, const void* dy,
+                                       void* dw, void* db, void* partial,
+                                       long long partial_floats, int B,
+                                       int T, int C, int K, void* stream) {
+  if (B <= 0 || T <= 0 || C <= 0) return 0;
+  if (bad_args(B, T, C, K, partial_floats)) return (int)cudaErrorInvalidValue;
+  const int chunks = (T + kTT * kTiles - 1) / (kTT * kTiles);
+  auto st = static_cast<cudaStream_t>(stream);
+  dim3 grid((C + kCW - 1) / kCW, chunks, B);
+  // the shared weight tile is not staged: only x and dy
+  const size_t smem = smem_bytes(K) - sizeof(float) * (size_t)K * kCW;
+  depthwise_dw_kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dy),
+      static_cast<float*>(partial), T, C, K);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int n = (K + 1) * C;
+  depthwise_dw_reduce_kernel<<<(n + 255) / 256, 256, 0, st>>>(
       static_cast<const float*>(partial), static_cast<float*>(dw),
       static_cast<float*>(db), B * chunks, C, K);
   return (int)cudaGetLastError();

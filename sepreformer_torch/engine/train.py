@@ -142,9 +142,19 @@ def compute_losses(cfg: VariantConfig, audio: torch.Tensor,
 
 def apply_gradients(state: TrainState, lr: float) -> torch.Tensor:
     """Clip the parameters' gradients to a global norm of ``clip_norm``,
-    take one AdamW step at ``lr``; returns the norm before the clip."""
-    params = [p for p in state.model.parameters() if p.grad is not None]
-    norm = torch.nn.utils.clip_grad_norm_(params, state.cfg.optim.clip_norm)
+    take one AdamW step at ``lr``; returns the norm before the clip.
+
+    The clip is ``optax.clip_by_global_norm``'s: a gradient whose global
+    norm reaches the clip becomes g / norm * clip, in place, and one
+    under it is left alone (``torch.nn.utils.clip_grad_norm_`` scales by
+    clip / (norm + 1e-6) instead, which is far off at a small clip).  The
+    choice is made on the device, with no host sync."""
+    grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+    clip = state.cfg.optim.clip_norm
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    keep = norm < clip
+    torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
+    torch._foreach_mul_(grads, torch.where(keep, 1.0, clip))
     for group in state.optimizer.param_groups:
         group["lr"] = float(lr)
     state.optimizer.step()

@@ -19,11 +19,15 @@ rel-pos materializer (K2, in ``models/sepreformer.py``) and the masked
 softmax·V (K3); past a bottleneck length of ``FUSED_PV_MAX_LENGTH`` the
 flash rel-pos attention (K12) in place of K2 and K3, as the JAX
 package's "auto" rule does.  Train: K2 with its gradient, the backward
-of the CLA's k65 depthwise conv (K5), the GCFN with hash dropout (K7,
-K8; with ``seq_lens`` the plain composition, as in JAX) and the
+of the CLA's k65 depthwise conv (K5, or K6 under the depthwise module's
+``BWD_MODE = "conv"``), the GCFN with hash dropout (K7, K8; with
+``seq_lens`` the plain composition, as in JAX) and the
 softmax·dropout·V pair (K9, K10; past a padded length of 512 the dense
-attention that the JAX package's "xla" train path runs).  Everything
-else is plain PyTorch.
+attention that the JAX package's "xla" train path runs).  The config's
+``attention_impl`` and ``attention_train_impl`` pick other attention
+routes, as in the JAX package (``attention_route``): among them K13/K14,
+the single-block attention with the bias and the dropout in the kernel.
+Everything else is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -38,10 +42,14 @@ from torch import nn
 from sepreformer_torch.ops.kernels import (
     depthwise_large,
     flash_relpos_attention,
+    flash_relpos_attention_train,
     fused_gcfn,
     fused_gcfn_train,
     softmax_pv,
     softmax_pv_dropout,
+)
+from sepreformer_torch.ops.kernels.attention_train import (
+    MAX_LENGTH as SINGLE_MAX_LENGTH,
 )
 from sepreformer_torch.ops.kernels.softmax_pv import NEG_INF
 from sepreformer_torch.ops.kernels.softmax_pv_train import (
@@ -60,9 +68,46 @@ from sepreformer_torch.ops.resample import (
 FUSED_PV_MAX_LENGTH = 8192
 
 
-def flash_route(length: int, train: bool) -> bool:
-    """Whether the global attentions at bottleneck ``length`` take K12."""
-    return not train and length > FUSED_PV_MAX_LENGTH
+# the routes of a global attention: "fused_pv" (scores through K2's
+# pos_kt, then K3 in eval, K9/K10 in train), "dense" (the same scores,
+# a torch softmax), "flash" (K12 on the raw table, eval) and "single"
+# (K13/K14 on the raw table)
+POS_KT_ROUTES = ("fused_pv", "dense")
+
+
+def attention_route(impl: str, train_impl: str, length: int,
+                    train_p: Optional[float], has_key_lens: bool) -> str:
+    """The route of every global attention of a forward at bottleneck
+    ``length``, from the config's ``attention_impl`` and
+    ``attention_train_impl``, the train dropout ``train_p`` (None in
+    eval) and whether key lengths are given; the JAX package's order
+    (``models/blocks.py`` ``MultiHeadAttention``).  Routes in
+    ``POS_KT_ROUTES`` read K2's pos_kt; the others read the raw table.
+
+    Train: without key lengths the train route first ("auto" and
+    "fused_pv": K9/K10 up to a padded length of 512; "pallas": K13/K14 up
+    to 512); then "single" at dropout 0 up to 512; with key lengths
+    K9/K10 take them as before; else dense.  Eval "single" and train
+    "pallas" take the dense attention past 512, as JAX's do.  Eval: "auto"
+    is K2/K3 up to ``FUSED_PV_MAX_LENGTH`` and K12 past it; "fused_pv" is
+    K2/K3, "pallas" K12, "xla" dense.  In train only "single" of the eval
+    routes is taken: K3 and K12 have no backward."""
+    single_ok = length <= SINGLE_MAX_LENGTH
+    if train_p is not None:
+        pv_ok = (train_impl in ("auto", "fused_pv")
+                 and -(-length // 128) * 128 <= TRAIN_PV_MAX_LENGTH)
+        if not has_key_lens and pv_ok:
+            return "fused_pv"
+        if not has_key_lens and train_impl == "pallas" and single_ok:
+            return "single"
+        if impl == "single" and train_p == 0.0 and single_ok:
+            return "single"
+        return "fused_pv" if pv_ok else "dense"
+    if impl == "auto":
+        return "flash" if length > FUSED_PV_MAX_LENGTH else "fused_pv"
+    if impl == "single":
+        return "single" if single_ok else "dense"
+    return {"fused_pv": "fused_pv", "pallas": "flash", "xla": "dense"}[impl]
 
 
 class TrainMode:
@@ -97,12 +142,17 @@ class RelPos(NamedTuple):
     """Relative-position context shared by every global block: the
     bottleneck length every EGA pools to, pos_kt [Lp, d, Lp] at the
     128-padded length Lp, made once per forward by the K2 kernel (None on
-    the K12 route), and the raw [2*maxlen, d] table K12 reads."""
+    the routes that read the raw table), the raw [2*maxlen, d] table K12
+    and K13 read, and the config's two attention routes, from which
+    every attention and the encoding that built this context take the
+    same ``attention_route``."""
 
     length: int
     pos_kt: Optional[torch.Tensor]
     table: Optional[torch.Tensor] = None
     maxlen: int = 0
+    impl: str = "auto"
+    train_impl: str = "auto"
 
 
 def length_mask(seq_lens: torch.Tensor, t: int,
@@ -321,13 +371,14 @@ def fused_pv_scores(q, k, pos_kt) -> torch.Tensor:
 class MultiHeadAttention(nn.Module):
     """Pre-LN MHA with additive rel-pos bias (reference network.py:69-124);
     LayerScale on the output, no inner residual.  3D input attends over
-    time on the fused_pv path: torch products for the scores at the
-    128-padded length, then the K3 kernel for masked softmax·V in eval,
-    K9 and K10 for masked softmax·dropout·V in train (padded lengths up
-    to 512, as in the JAX package; past it the dense attention of JAX's
-    "xla" train path).  In eval past ``FUSED_PV_MAX_LENGTH`` it runs K12
-    on the unpadded q, k, v and the raw table instead, with no scores
-    tensor.  4D input [B, S, T, F] attends over the speaker axis."""
+    time on the route ``attention_route`` picks: "fused_pv", torch
+    products for the scores at the 128-padded length, then the K3 kernel
+    for masked softmax·V in eval, K9 and K10 for masked softmax·dropout·V
+    in train; "dense", the same scores and a torch softmax (JAX's "xla"
+    path); "flash", K12 on the unpadded q, k, v and the raw table, with
+    no scores tensor (eval); "single", K13 (K14 in the backward) on
+    [B, H, L, d] and the raw table, with the dropout in the kernel.  4D
+    input [B, S, T, F] attends over the speaker axis."""
 
     def __init__(self, dim: int, num_heads: int, norm_eps: float = 1.0e-5):
         super().__init__()
@@ -355,7 +406,10 @@ class MultiHeadAttention(nn.Module):
         h = self.num_heads
         d = self.dim // h
         y = self.layer_norm(x)
-        if flash_route(t, train is not None):
+        route = attention_route(pos.impl, pos.train_impl, t,
+                                None if train is None else train.p,
+                                key_lens is not None)
+        if route == "flash":
             out = flash_relpos_attention(
                 self.linear_q(y), self.linear_k(y), self.linear_v(y),
                 pos.table, pos.maxlen, key_lens)
@@ -363,30 +417,40 @@ class MultiHeadAttention(nn.Module):
         q = self.linear_q(y).reshape(b, t, h, d)
         k = self.linear_k(y).reshape(b, t, h, d)
         v = self.linear_v(y)
+        if route == "single":
+            seed, p = (0, 0.0) if train is None else (train.kernel_seed(),
+                                                      train.p)
+            out = flash_relpos_attention_train(
+                q.transpose(1, 2), k.transpose(1, 2),
+                v.reshape(b, t, h, d).transpose(1, 2), pos.table, seed,
+                pos.maxlen, p, key_lens)
+            return self._project_out(out.transpose(1, 2).reshape(b, t, -1),
+                                     train)
         scores = fused_pv_scores(q, k, pos.pos_kt)
-        lp = pos.pos_kt.shape[0]
-        v = pad_time(v, lp).contiguous()
-        if train is None:
+        v = pad_time(v, pos.pos_kt.shape[0]).contiguous()
+        if route == "dense":
+            out = self._dense_attention(scores, v, key_lens, t, train)
+        elif train is None:
             out = softmax_pv(scores, v, key_lens, t)
-        elif lp <= TRAIN_PV_MAX_LENGTH:
+        else:
             out = softmax_pv_dropout(scores, v, train.kernel_seed(),
                                      key_lens, t, train.p)
-        else:
-            out = self._dense_train_attention(scores, v, key_lens, t, train)
         return self._project_out(out[:, :t], train)
 
-    def _dense_train_attention(self, scores, v, key_lens, t, train):
-        """The JAX package's "xla" train attention (``blocks.py:755-792``),
-        which it runs past the train kernel's padded length of 512: the
+    def _dense_attention(self, scores, v, key_lens, t, train):
+        """The JAX package's "xla" attention (``blocks.py:755-792``), which
+        its train path runs past the kernels' padded length of 512: the
         unpadded scores, keys at or past ``key_lens`` masked, a float32
-        softmax, ``TrainMode.dropout`` on the probabilities, then ·V.
-        Returns [B, t, F]."""
+        softmax, in train ``TrainMode.dropout`` on the probabilities, then
+        ·V.  Returns [B, t, F]."""
         s = scores[:, :, :t, :t]
         if key_lens is not None:
             kmask = torch.arange(t, device=s.device)[None] < key_lens[:, None]
             s = torch.where(kmask[:, None, None, :], s,
                             torch.tensor(NEG_INF, device=s.device))
-        attn = train.dropout(torch.softmax(s, dim=-1))
+        attn = torch.softmax(s, dim=-1)
+        if train is not None:
+            attn = train.dropout(attn)
         b, h = s.shape[:2]
         vh = v[:, :t].reshape(b, t, h, -1).transpose(1, 2)
         return torch.matmul(attn, vh).transpose(1, 2).reshape(b, t, -1)

@@ -84,24 +84,38 @@ class FeatureProjector(nn.Module):
 
 class RelativePositionalEncoding(nn.Module):
     """Rel-pos key table Embedding(2*maxlen, F/heads) (reference
-    module.py:42-57).  ``forward(length, train)`` materializes pos_kt
-    once, at the 128-padded attention length, through the K2 kernel
-    (with its gradient), except in eval past the K12 switch
-    (``blocks.flash_route``), where the attention reads the raw table
-    and nothing would read pos_kt."""
+    module.py:42-57).  ``forward(length, train, has_key_lens)`` takes the
+    attention route of the forward (``blocks.attention_route``, from the
+    config's ``attention_impl`` and ``attention_train_impl``) and
+    materializes pos_kt once, at the 128-padded attention length, through
+    the K2 kernel (with its gradient), only where that route reads it:
+    the K12 and K13 routes read the raw table, and then the table's
+    gradient comes from K14 alone."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.maxlen = cfg.pos_maxlen
+        self.dropout = cfg.dropout
+        self.impl, self.train_impl = (cfg.attention_impl,
+                                      cfg.attention_train_impl)
         self.pe_k = nn.Embedding(2 * cfg.pos_maxlen, cfg.head_dim)
 
-    def forward(self, length: int, train: bool = False) -> RelPos:
+    def forward(self, length: int, train=None,
+                has_key_lens: bool = False) -> RelPos:
+        """``train``: the forward's ``TrainMode``, None in eval (True: a
+        train forward at the config's dropout); ``has_key_lens``: whether
+        the attentions get key lengths."""
         table = self.pe_k.weight
+        p = (None if not train
+             else train.p if isinstance(train, TrainMode) else self.dropout)
+        route = blocks.attention_route(self.impl, self.train_impl, length, p,
+                                       has_key_lens)
         kt = None
-        if not blocks.flash_route(length, train):
+        if route in blocks.POS_KT_ROUTES:
             kt = pos_kt(table, -(-length // 128) * 128, self.maxlen)
         return RelPos(length=length, pos_kt=kt, table=table,
-                      maxlen=self.maxlen)
+                      maxlen=self.maxlen, impl=self.impl,
+                      train_impl=self.train_impl)
 
 
 class SepEncStage(nn.Module):
@@ -172,7 +186,8 @@ class Separator(nn.Module):
         cfg = self.cfg
         r = cfg.num_stages
         x = pad_time(x, cfg.padded_frames(x.shape[1]))
-        pos = self.pos_emb(x.shape[1] // 2 ** r, train is not None)
+        pos = self.pos_emb(x.shape[1] // 2 ** r, train,
+                           frame_lens is not None)
 
         # each row's in-separator valid length is its own pad_signal result
         # (frames rounded up to 2^R); frames past it are bucket padding

@@ -7,15 +7,29 @@ Eval: K1 ``fused_gcfn``, K2 ``materialize_pos_kt`` (``pos_kt`` adds its
 gradient), K3 ``softmax_pv``, K12 ``flash_relpos_attention`` (past the
 bottleneck length ``blocks.FUSED_PV_MAX_LENGTH``, in place of K2 and
 K3).  Train: K5 ``depthwise_bwd`` (the backward of
-``depthwise_large``), K7 ``gcfn_train_fwd`` and K8 ``gcfn_train_bwd``
-(the autograd function ``fused_gcfn_train``), K9 ``softmax_pv_train_fwd``
-and K10 ``softmax_pv_train_bwd`` (the autograd function
-``softmax_pv_dropout``), K11 ``sisnr_pairwise_neg_fused``.
+``depthwise_large``; under ``depthwise.BWD_MODE = "conv"`` K6
+``depthwise_bwd_w`` for dw and db), K7 ``gcfn_train_fwd`` and K8
+``gcfn_train_bwd`` (the autograd function ``fused_gcfn_train``), K9
+``softmax_pv_train_fwd`` and K10 ``softmax_pv_train_bwd`` (the autograd
+function ``softmax_pv_dropout``), K11 ``sisnr_pairwise_neg_fused``.  The
+routes ``attention_train_impl="pallas"`` (train) and
+``attention_impl="single"`` (eval): K13 ``attention_train_fwd`` and K14
+``attention_train_bwd`` (the autograd function
+``flash_relpos_attention_train``).
 """
 
+from sepreformer_torch.ops.kernels.attention_train import (
+    attention_train_bwd,
+    attention_train_bwd_plain,
+    attention_train_fwd,
+    attention_train_plain,
+    flash_relpos_attention_train,
+)
 from sepreformer_torch.ops.kernels.depthwise import (
     depthwise_bwd,
     depthwise_bwd_plain,
+    depthwise_bwd_w,
+    depthwise_bwd_w_plain,
     depthwise_large,
 )
 from sepreformer_torch.ops.kernels.flash_attention import (
@@ -54,7 +68,8 @@ from sepreformer_torch.ops.kernels.softmax_pv_train import (
 WRAPPERS = (fused_gcfn, materialize_pos_kt, softmax_pv, depthwise_bwd,
             gcfn_train_fwd, gcfn_train_bwd, softmax_pv_train_fwd,
             softmax_pv_train_bwd, sisnr_pairwise_neg_fused,
-            flash_relpos_attention)
+            flash_relpos_attention, depthwise_bwd_w, attention_train_fwd,
+            attention_train_bwd)
 
 
 def reset_launches() -> None:
@@ -67,7 +82,10 @@ def launch_counts() -> dict:
 
 
 __all__ = [
-    "WRAPPERS", "depthwise_bwd", "depthwise_bwd_plain", "depthwise_large",
+    "WRAPPERS", "attention_train_bwd", "attention_train_bwd_plain",
+    "attention_train_fwd", "attention_train_plain", "depthwise_bwd",
+    "depthwise_bwd_plain", "depthwise_bwd_w", "depthwise_bwd_w_plain",
+    "depthwise_large", "flash_relpos_attention_train",
     "flash_relpos_attention", "flash_relpos_attention_plain", "fused_gcfn",
     "fused_gcfn_train", "gcfn_plain", "gcfn_train_bwd",
     "gcfn_train_bwd_plain", "gcfn_train_fwd", "gcfn_train_plain",

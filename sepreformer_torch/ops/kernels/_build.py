@@ -62,9 +62,22 @@ SIGNATURES = {
     "sep_gcfn_train_bwd_scratch_floats": [_I, _I, _I],
     # q, k, v, table, lens, out, B, L, H, maxlen, stream
     "sep_flash_relpos_f32": [_P] * 6 + [_I] * 4 + [_P],
+    # x, dy, dw, db, partial, partial_floats, B, T, C, K, stream
+    "sep_depthwise_bwd_w_f32": [_P] * 5 + [_L] + [_I] * 4 + [_P],
+    # q, k, v, table, lens, out, row_max, row_sum, BH, L, H, maxlen, block,
+    # seed_word, threshold, keep_scale, stream
+    "sep_attn_train_fwd_f32": [_P] * 8 + [_I] * 5 + [_U, _U, _F, _P],
+    # BH, L -> floats of K14's scratch
+    "sep_attn_train_bwd_scratch_floats": [_I, _I],
+    # q, k, v, table, lens, out, dout, row_max, row_sum, dq, dk, dv,
+    # dtable, scratch, scratch_floats, BH, L, H, maxlen, block, seed_word,
+    # threshold, keep_scale, stream
+    "sep_attn_train_bwd_f32": [_P] * 14 + [_L] + [_I] * 5 + [_U, _U, _F,
+                                                             _P],
 }
 # launchers that return something else than a cudaError_t
-RESTYPES = {"sep_gcfn_train_bwd_scratch_floats": _L}
+RESTYPES = {"sep_gcfn_train_bwd_scratch_floats": _L,
+            "sep_attn_train_bwd_scratch_floats": _L}
 
 
 def sources():

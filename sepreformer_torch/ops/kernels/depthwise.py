@@ -1,13 +1,19 @@
-"""K5: the backward of the CLA's large-kernel "same" depthwise conv.
+"""K5 and K6: the backward of the CLA's large-kernel "same" depthwise
+conv.
 
 Replaces the backward of ``sepreformer_tpu/ops/pallas/depthwise.py::
-depthwise_large`` (``_impl_bwd``).  ``depthwise_large`` is an autograd
-function: its forward is the library convolution (``F.conv1d``, cuDNN on
-the card), as the JAX package's forward is XLA's; its backward launches
-the CUDA kernel ``sepreformer_torch/csrc/depthwise.cu`` for CUDA tensors
-and runs ``depthwise_bwd_plain``, the same tap loop in PyTorch, for CPU
-tensors.  Tensors are channels-last [B, T, C]; the weight is the Conv1d
-weight [C, 1, K] (odd K), read and written in that layout.
+depthwise_large``.  ``depthwise_large`` is an autograd function: its
+forward is the library convolution (``F.conv1d``, cuDNN on the card), as
+the JAX package's forward is XLA's.  Its backward follows ``BWD_MODE``,
+as the JAX module's does: "fused" (the default) launches K5
+(``_impl_bwd``: dx, dw and db in one tap loop); "conv" takes dx as the
+library convolution of dy with the time-flipped kernel, as the JAX
+package takes it from XLA, and dw and db from K6 (``_impl_bwd_w``).  The
+CUDA kernels are ``sepreformer_torch/csrc/depthwise.cu``;
+``depthwise_bwd_plain`` and ``depthwise_bwd_w_plain`` are the same tap
+loops in PyTorch, which CPU tensors run.  Tensors are channels-last
+[B, T, C]; the weight is the Conv1d weight [C, 1, K] (odd K), read and
+written in that layout.
 """
 
 from __future__ import annotations
@@ -21,6 +27,9 @@ from sepreformer_torch.ops.kernels import _build
 
 MAX_KERNEL = 81   # the kernel's shared-memory tiles hold K - 1 halo rows
 CHUNK_ROWS = 256  # time steps per block of the kernel (kTT * kTiles)
+# the backward's route, a module constant as in the JAX module: "fused"
+# (K5) or "conv" (dx by the library convolution, dw and db by K6)
+BWD_MODE = "fused"
 
 
 def depthwise_forward(x: torch.Tensor, weight: torch.Tensor,
@@ -50,25 +59,41 @@ def depthwise_bwd_plain(x: torch.Tensor, weight: torch.Tensor,
     return dx, dw, dy.sum(dim=(0, 1))
 
 
+def depthwise_bwd_w_plain(x: torch.Tensor, dy: torch.Tensor, k: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dw [C, 1, K], db [C]) of ``depthwise_forward`` with a kernel of
+    ``k`` taps, as the tap loop of the JAX package's ``_bwd_w_kernel``."""
+    half = (k - 1) // 2
+    t = x.shape[1]
+    xp = F.pad(x, (0, 0, half, half))
+    dw = torch.stack([(xp[:, tap:tap + t] * dy).sum(dim=(0, 1))
+                      for tap in range(k)], dim=-1)
+    return dw[:, None, :], dy.sum(dim=(0, 1))
+
+
+def _check_and_scratch(name, x, dy, k):
+    """Check the kernel's operands; the scratch of per-block partial sums
+    of dw and db that the kernel's second pass adds up."""
+    b, t, c = x.shape
+    if k % 2 == 0 or k > MAX_KERNEL:
+        raise ValueError(f"{name}: kernel {k} is not odd <= {MAX_KERNEL}")
+    _build.check_tensor(x, f"{name} x", (b, t, c), x.device, align=4)
+    _build.check_tensor(dy, f"{name} dy", (b, t, c), x.device, align=4)
+    return torch.empty(b * -(-t // CHUNK_ROWS) * (k + 1) * c,
+                       dtype=torch.float32, device=x.device)
+
+
 def depthwise_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``depthwise_bwd_plain`` for CPU tensors; the kernel for CUDA
+    """K5: ``depthwise_bwd_plain`` for CPU tensors; the kernel for CUDA
     tensors."""
     if x.device.type == "cpu":
         return depthwise_bwd_plain(x, weight, dy)
     b, t, c = x.shape
     k = weight.shape[-1]
-    if k % 2 == 0 or k > MAX_KERNEL:
-        raise ValueError(f"depthwise_bwd: kernel {k} is not odd <= "
-                         f"{MAX_KERNEL}")
-    _build.check_tensor(x, "depthwise x", (b, t, c), x.device, align=4)
-    _build.check_tensor(dy, "depthwise dy", (b, t, c), x.device, align=4)
-    _build.check_tensor(weight, "depthwise weight", (c, 1, k), x.device,
+    scratch = _check_and_scratch("depthwise_bwd", x, dy, k)
+    _build.check_tensor(weight, "depthwise_bwd weight", (c, 1, k), x.device,
                         align=4)
-    # per-block partial sums of dw and db, added up by the kernel's
-    # second pass
-    scratch = torch.empty(b * -(-t // CHUNK_ROWS) * (k + 1) * c,
-                          dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dw = torch.empty_like(weight)
     db = torch.empty(c, dtype=torch.float32, device=x.device)
@@ -82,7 +107,27 @@ def depthwise_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor
     return dx, dw, db
 
 
+def depthwise_bwd_w(x: torch.Tensor, dy: torch.Tensor, k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6, (dw [C, 1, K], db [C]): ``depthwise_bwd_w_plain`` for CPU
+    tensors; the kernel for CUDA tensors."""
+    if x.device.type == "cpu":
+        return depthwise_bwd_w_plain(x, dy, k)
+    b, t, c = x.shape
+    scratch = _check_and_scratch("depthwise_bwd_w", x, dy, k)
+    dw = torch.empty((c, 1, k), dtype=torch.float32, device=x.device)
+    db = torch.empty(c, dtype=torch.float32, device=x.device)
+    err = _build.library().sep_depthwise_bwd_w_f32(
+        x.data_ptr(), dy.data_ptr(), dw.data_ptr(), db.data_ptr(),
+        scratch.data_ptr(), scratch.numel(), b, t, c, k,
+        _build.stream_handle(x.device))
+    _build.check_launch("sep_depthwise_bwd_w_f32", err)
+    depthwise_bwd_w.launches += 1
+    return dw, db
+
+
 depthwise_bwd.launches = 0
+depthwise_bwd_w.launches = 0
 
 
 class _DepthwiseLarge(torch.autograd.Function):
@@ -95,12 +140,23 @@ class _DepthwiseLarge(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
-        dx, dw, db = depthwise_bwd(x.contiguous(), weight, dy.contiguous())
+        x, dy = x.contiguous(), dy.contiguous()
+        if BWD_MODE == "conv":
+            # dx[t] = sum_tap w[tap] dy[t + h - tap]: the "same" conv of dy
+            # with the kernel reversed along its taps
+            dx = depthwise_forward(dy, weight.flip(-1), None)
+            dw, db = depthwise_bwd_w(x, dy, weight.shape[-1])
+        elif BWD_MODE == "fused":
+            dx, dw, db = depthwise_bwd(x, weight, dy)
+        else:
+            raise ValueError(f"depthwise.BWD_MODE {BWD_MODE!r} is not "
+                             f"'fused' or 'conv'")
         return dx, dw, db if ctx.has_bias else None
 
 
 def depthwise_large(x: torch.Tensor, weight: torch.Tensor,
                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """"Same" depthwise conv of x [B, T, C] with weight [C, 1, K] (odd K)
-    and bias [C]; its backward is K5."""
+    and bias [C]; its backward is K5, or under ``BWD_MODE = "conv"`` a
+    library conv for dx and K6 for dw and db."""
     return _DepthwiseLarge.apply(x, weight, bias)

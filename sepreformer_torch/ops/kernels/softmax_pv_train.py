@@ -194,7 +194,7 @@ def softmax_pv_dropout(scores: torch.Tensor, v: torch.Tensor, seed: int,
         raise NotImplementedError(
             f"softmax_pv_dropout: padded length {lp} > {MAX_LENGTH}; the "
             f"caller takes the dense train attention there "
-            f"(MultiHeadAttention._dense_train_attention)")
+            f"(MultiHeadAttention._dense_attention)")
     if scores.device.type == "cpu":
         return softmax_pv_dropout_plain(scores, v, seed, lens, length, p)
     key_len = _key_lens(scores.shape[0], length, lens,

@@ -38,10 +38,12 @@ def busy_us(events: List[Tuple[str, float, float]]) -> float:
 
 
 def device_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3,
-              kernel: Optional[str] = None) -> float:
+              kernel: Optional[str] = None, attempts: int = 3) -> float:
     """Device time of one call of ``fn`` in ms: the summed durations of
     the kernels that ``iters`` calls ran (only those whose name contains
-    ``kernel``, when given), over ``iters``."""
+    ``kernel``, when given), over ``iters``.  A trace that holds none of
+    them (the profiler can drop a window's kernel records) is taken
+    again, up to ``attempts`` times, and then raises."""
     import torch
 
     for _ in range(warmup):
@@ -49,9 +51,14 @@ def device_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3,
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(dur for name, _, dur in kernel_events(prof)
-               if kernel is None or kernel in name) / iters / 1e3
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        durations = [dur for name, _, dur in kernel_events(prof)
+                     if kernel is None or kernel in name]
+        if durations:
+            return sum(durations) / iters / 1e3
+    raise RuntimeError(f"device_ms: no kernel {kernel or ''} in "
+                       f"{attempts} traces")

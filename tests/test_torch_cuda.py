@@ -11,10 +11,17 @@ import pytest
 import torch
 
 from sepreformer_torch.ops.kernels import (
+    attention_train_bwd,
+    attention_train_bwd_plain,
+    attention_train_fwd,
+    attention_train_plain,
     depthwise_bwd,
     depthwise_bwd_plain,
+    depthwise_bwd_w,
+    depthwise_bwd_w_plain,
     flash_relpos_attention,
     flash_relpos_attention_plain,
+    flash_relpos_attention_train,
     fused_gcfn,
     fused_gcfn_train,
     gcfn_plain,
@@ -330,3 +337,93 @@ def test_flash_kernel_refuses_autograd_and_other_head_widths(cuda_device):
         flash_relpos_attention(q, q, q, table, 64)
         with pytest.raises(ValueError, match="head dim 8"):
             flash_relpos_attention(q, q, q, table[:, :8], 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,c,k", [(4, 8000, 128, 65), (2, 500, 128, 65),
+                                     (3, 77, 40, 9)])
+def test_depthwise_bwd_w_kernel_matches_plain(cuda_device, b, t, c, k):
+    gen = torch.Generator().manual_seed(16)
+    x = torch.randn(b, t, c, generator=gen).to(cuda_device)
+    dy = torch.randn(b, t, c, generator=gen).to(cuda_device)
+    ref = depthwise_bwd_w_plain(x, dy, k)
+    before = depthwise_bwd_w.launches
+    got = depthwise_bwd_w(x, dy, k)
+    torch.cuda.synchronize()
+    assert depthwise_bwd_w.launches == before + 1
+    # dw and db sum B*T products: float32 sums in another order
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-3)
+    again = depthwise_bwd_w(x, dy, k)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)      # no atomics: the same bits every run
+
+
+def attention_train_case(b, h, length, maxlen, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, dout = (torch.randn(b, h, length, 16, generator=gen).to(device)
+                     for _ in range(4))
+    table = torch.randn(2 * maxlen, 16, generator=gen).to(device)
+    return q, k, v, table, dout
+
+
+# L 77: one partial tile (hash row stride 128); L 300 with maxlen 64: tiles
+# straddling the clamp edge, both end rows of the table gathering runs of
+# offsets, and a row stride of 512 where K9's would be 384; L 500, maxlen
+# 2000: the decoder batch of a B=2 x 4 s train batch
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,length,maxlen,lens,p", [
+    (2, 77, 64, (77, 30), 0.0), (2, 77, 64, None, 0.1),
+    (2, 300, 64, None, 0.1), (2, 300, 64, (300, 131), 0.0),
+    (4, 500, 2000, None, 0.05)])
+def test_attention_train_kernels_match_plain(cuda_device, b, length, maxlen,
+                                             lens, p):
+    h, seed = 8, 4321
+    q, k, v, table, dout = attention_train_case(b, h, length, maxlen,
+                                                cuda_device, length)
+    tl = None if lens is None else torch.tensor(lens, device=cuda_device)
+    key_len = (torch.full((b,), length, dtype=torch.int32, device=cuda_device)
+               if tl is None else tl.to(torch.int32))
+    fwd, bwd = attention_train_fwd.launches, attention_train_bwd.launches
+    out, row_max, row_sum = attention_train_fwd(q, k, v, table, maxlen, seed,
+                                                p, key_len)
+    grads = attention_train_bwd(q, k, v, table, maxlen, seed, p, key_len,
+                                out, dout, row_max, row_sum)
+    torch.cuda.synchronize()
+    assert (attention_train_fwd.launches, attention_train_bwd.launches) == (
+        fwd + 1, bwd + 1)
+    # a wrong dropout mask or hash row errs by O(1) at p > 0
+    torch.testing.assert_close(
+        out, attention_train_plain(q, k, v, table, maxlen, seed, p, tl),
+        **CARD_TOL)
+    ref = attention_train_bwd_plain(q, k, v, table, maxlen, seed, p, tl, dout)
+    for name, g, r in zip(("dq", "dk", "dv", "dtable"), grads, ref):
+        # dtable sums B*H*L pairs per row in another order than cuBLAS's
+        torch.testing.assert_close(g, r, rtol=1e-4,
+                                   atol=1e-5 * r.abs().max().item() + 1e-6,
+                                   msg=name)
+    again = attention_train_bwd(q, k, v, table, maxlen, seed, p, key_len,
+                                out, dout, row_max, row_sum)
+    for g, a in zip(grads, again):
+        assert torch.equal(g, a)      # no atomics: the same bits every run
+
+
+@pytest.mark.cuda
+def test_flash_relpos_attention_train_gradient_on_the_card(cuda_device):
+    """The autograd function (K13, then K14) against the CPU's plain
+    version and its autograd, the table's gradient included."""
+    b, h, length, maxlen, p, seed = 2, 8, 300, 64, 0.1, 99
+    cpu = attention_train_case(b, h, length, maxlen, "cpu", 5)
+
+    def run(device):
+        q, k, v, table = (a.to(device).requires_grad_() for a in cpu[:4])
+        out = flash_relpos_attention_train(q, k, v, table, seed, maxlen, p)
+        (out * cpu[4].to(device)).sum().backward()
+        return [a.detach().cpu() for a in (out, q.grad, k.grad, v.grad,
+                                           table.grad)]
+
+    for name, g, r in zip(("out", "dq", "dk", "dv", "dtable"),
+                          run(cuda_device), run("cpu")):
+        torch.testing.assert_close(g, r, rtol=1e-4,
+                                   atol=1e-5 * r.abs().max().item() + 1e-6,
+                                   msg=name)

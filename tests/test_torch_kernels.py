@@ -148,9 +148,9 @@ def test_wrappers_refuse_other_devices():
 
 def test_build_names_library_by_source_hash():
     srcs = [p.name for p in _build.sources()]
-    assert srcs == ["depthwise.cu", "flash_relpos.cu", "gcfn.cu",
-                    "gcfn_train.cu", "pit.cu", "relpos.cu", "softmax_pv.cu",
-                    "softmax_pv_train.cu"]
+    assert srcs == ["attention_train.cu", "depthwise.cu", "flash_relpos.cu",
+                    "gcfn.cu", "gcfn_train.cu", "pit.cu", "relpos.cu",
+                    "softmax_pv.cu", "softmax_pv_train.cu"]
     assert [p.name for p in _build.headers()] == ["gcfn_tile.cuh",
                                                   "hash_dropout.cuh"]
     path = _build.library_path()
