@@ -14,9 +14,11 @@ Phases, each of which fails the run:
                backward, K9 and K10 softmax·dropout·V forward and
                backward, K11 uPIT SI-SNR table) for a B=2 x 4 s train
                batch, and K12 (flash rel-pos attention) for the decoder
-               batch of a 70 s request ([2, 8750, 128], maxlen 2000);
-               times of the kernel, the plain version, a library call
-               where one exists, and the least time the card could take.
+               batch of a 70 s request ([2, 8750, 128], maxlen 2000),
+               and the fused eval blocks' K15 (CLA) and K16 (EGA tail +
+               GCFN) and the k65 forward K4 at [4, 8000, 128]; times of
+               the kernel, the plain version, a library call where one
+               exists, and the least time the card could take.
 3. serve     - Base at full width, seeded weights: three requests through
                ``Separator.__call__`` and one batched B=4 x 4 s forward
                with ragged lengths; every eval kernel's count must rise.
@@ -77,6 +79,22 @@ Phases, each of which fails the run:
                route within phase 5's limit; one epoch through
                ``cli.main`` with ``--set model.attention_train_impl=
                pallas`` on phase 8's synthetic corpus.
+11. fused    - the fused eval blocks, Base at full width, seeded weights,
+               every LayerScale at 0.5 and seeded BatchNorm statistics:
+               ``fused_local="on"`` and ``fused_pair="on"`` (K15 in the
+               CLAs, K16 in the GlobalBlocks, where ``blocks.fused_route``
+               allows) against the default route on requests of 2.0, 3.3
+               and 4.0 s and a B=4 x 4 s batch without lengths (within
+               phase 5's limit, with a TF32 control), each forward's
+               launches against the rule's count, a ragged batch with
+               lengths that launches neither; the batch's wall times in
+               turns and one traced forward per route; 300 s in 8 s chunks
+               and 70 s in full context on both routes; a train step at
+               dropout 0 on the pair route against the default one
+               (phase 7's limit; 22 K16 launches, none at dropout 0.05)
+               and four steps of each in turns;
+               ``infer_sample`` of a 70 s wav through ``cli.main`` with
+               ``--set model.fused_local=on --set model.fused_pair=on``.
 
 Prints one JSON line of kernel results, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -117,11 +135,16 @@ KERNEL_SYMBOLS = {"fused_gcfn": "gcfn_kernel",
                   "flash_relpos_attention": "flash_relpos_kernel",
                   "depthwise_bwd_w": "depthwise_dw",
                   "attention_train_fwd": "attn_train_fwd",
-                  "attention_train_bwd": "attn_train_bwd"}
+                  "attention_train_bwd": "attn_train_bwd",
+                  "depthwise_fwd": "depthwise_fwd_kernel",
+                  "fused_cla": "cla_",       # cla_glu_ and cla_tail_kernel
+                  "fused_ega_tail_gcfn": "ega_gcfn_kernel"}
 EVAL_KERNELS = ("fused_gcfn", "materialize_pos_kt", "softmax_pv")
 LONG_KERNELS = ("flash_relpos_attention",)
 ROUTE_KERNELS = ("depthwise_bwd_w", "attention_train_fwd",
                  "attention_train_bwd")
+FUSED_KERNELS = ("fused_cla", "fused_ega_tail_gcfn")
+OFF_PATH_KERNELS = ("depthwise_fwd",)   # K4: no route takes it
 TRAIN_KERNELS = ("materialize_pos_kt", "depthwise_bwd", "gcfn_train_fwd",
                  "gcfn_train_bwd", "softmax_pv_train_fwd",
                  "softmax_pv_train_bwd", "sisnr_pairwise_neg_fused")
@@ -135,6 +158,10 @@ TRAIN_CPU_REL_LIMIT = 1e-4
 KERNEL_GROUPS = (  # profile groups of the card's kernels, first match wins
     ("K7 gcfn_train_fwd", ("gcfn_train_fwd",)),
     ("K8 gcfn_train_bwd", ("gcfn_train_bwd",)),
+    # before K1: K16's kernel name holds "gcfn_kernel"
+    ("K16 ega_gcfn", ("ega_gcfn_kernel",)),
+    ("K15 cla", ("cla_glu_kernel", "cla_tail_kernel")),
+    ("K4 depthwise_fwd", ("depthwise_fwd_kernel",)),
     ("K1 gcfn", ("gcfn_kernel",)),
     ("K12 flash_relpos", ("flash_relpos",)),
     ("K13 attn_train_fwd", ("attn_train_fwd",)),
@@ -464,7 +491,86 @@ def kernel_phase(torch, K, device_ms):
            tolerance="rtol 1e-4, atol 1e-4 (dB, float32)")
     flash_kernel_row(torch, K, device_ms, randn, record)
     attention_train_rows(torch, K, device_ms, randn, record)
+    fused_kernel_rows(torch, K, device_ms, randn, record)
     return results
+
+
+def fused_kernel_rows(torch, K, device_ms, randn, record):
+    """K15, K16 and K4 at the widest blocks of a B=4 x 4 s forward without
+    lengths ([4, 8000, 128]; K16's attention output at the bottleneck
+    length 500), against their plain versions.  No single PyTorch call
+    computes K15's or K16's function; K4's library yardstick is the
+    depthwise ``F.conv1d`` that ``DepthwiseConv1d`` runs (its plain
+    version too)."""
+    from sepreformer_torch.ops.kernels.depthwise import depthwise_forward
+
+    b, t, f, k, length = 4, 8000, 128, 65, 500
+    h = 2 * f
+    x = randn(b, t, f)
+    # wdw as the CLA module passes it: the Conv1d weight [F, 1, k] as [k, F]
+    cla = [randn(f), randn(f), randn(f, h, scale=0.1), randn(h, scale=0.1),
+           randn(f, k, scale=0.1).t(), randn(f, scale=0.1),
+           randn(f, h, scale=0.1), randn(h, scale=0.1),
+           1.0 + randn(h, scale=0.1), randn(h, scale=0.1),
+           randn(h, f, scale=0.1), randn(f, scale=0.1), randn(f, scale=0.5)]
+    got = K.fused_cla(x, cla, 1e-5)
+    ref = K.cla_plain(x, cla, 1e-5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    record(K.fused_cla, lambda: K.fused_cla(x, cla, 1e-5),
+           lambda: K.cla_plain(x, cla, 1e-5), None,
+           (got - ref).abs().max().item(),
+           4 * (2 * x.numel() + sum(q.numel() for q in cla)),
+           # three products, the conv, and LN, GLU, biases, the folded BN,
+           # GELU and the residual
+           b * t * (3 * 2 * f * h + 2 * k * f + 37 * f),
+           source="sepreformer_torch/csrc/cla.cu",
+           replaces="sepreformer_tpu/ops/pallas/cla.py:209",
+           shape=f"x [{b}, {t}, {f}], k {k}",
+           tolerance="rtol 1e-4, atol 1e-4 (float32)")
+
+    h6 = 6 * f
+    xd = randn(b, length, f)
+    gate = [randn(f), randn(f), randn(f, f, scale=0.1), randn(f, scale=0.1)]
+    gcfn = [randn(f), randn(f), randn(f, h6, scale=0.1), randn(h6, scale=0.1),
+            randn(h6, 3, scale=0.3), randn(h6, scale=0.1),
+            randn(h6 // 2, f, scale=0.1), randn(f, scale=0.1),
+            randn(f, scale=0.5)]
+    got = K.fused_ega_tail_gcfn(x, xd, gate, gcfn, 1e-5)
+    ref = K.ega_tail_gcfn_plain(x, xd, gate, gcfn, 1e-5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    k1_row = (2 * f * h6 + 2 * (h6 // 2) * f + 8 * f + 7 * h6
+              + 5 * (h6 // 2) + 3 * f)
+    record(K.fused_ega_tail_gcfn,
+           lambda: K.fused_ega_tail_gcfn(x, xd, gate, gcfn, 1e-5),
+           lambda: K.ega_tail_gcfn_plain(x, xd, gate, gcfn, 1e-5), None,
+           (got - ref).abs().max().item(),
+           4 * (2 * x.numel() + xd.numel()
+                + sum(q.numel() for q in gate + gcfn)),
+           # K1's row, the gate's product, its LayerNorm, sigmoid and the
+           # gated residual
+           b * t * (k1_row + 2 * f * f + 8 * f + 5 * f + 2 * f),
+           source="sepreformer_torch/csrc/ega_gcfn.cu",
+           replaces="sepreformer_tpu/ops/pallas/ega_gcfn.py:181",
+           shape=f"x [{b}, {t}, {f}], x_down [{b}, {length}, {f}], hidden "
+                 f"{h6}",
+           tolerance="rtol 1e-4, atol 1e-4 (float32)")
+
+    w, bias = randn(f, 1, k, scale=0.1), randn(f, scale=0.1)
+    got = K.depthwise_fwd(x, w, bias)
+    ref = K.depthwise_fwd_plain(x, w, bias)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+    record(K.depthwise_fwd, lambda: K.depthwise_fwd(x, w, bias),
+           lambda: K.depthwise_fwd_plain(x, w, bias),
+           lambda: depthwise_forward(x, w, bias),
+           (got - ref).abs().max().item(),
+           4 * (2 * x.numel() + w.numel() + f), x.numel() * (2 * k + 1),
+           source="sepreformer_torch/csrc/depthwise.cu",
+           replaces="sepreformer_tpu/ops/pallas/depthwise.py:117",
+           shape=f"x [{b}, {t}, {f}], w [{f}, 1, {k}]",
+           tolerance="rtol 1e-4, atol 1e-5 (float32)")
 
 
 def attention_train_rows(torch, K, device_ms, randn, record):
@@ -1547,6 +1653,319 @@ def routes_phase(torch, np, sep_torch, K, busy_us, kernel_events, steps=6):
     return total
 
 
+def seeded_model(torch, sep_torch, variant, seed=0, device="cuda"):
+    """Base at full width from ``seed``, every LayerScale at 0.5 and every
+    BatchNorm's running statistics drawn from a second seed (so that the
+    branches carry signal and K15's folded BatchNorm is not near the
+    identity), on ``device``."""
+    from sepreformer_torch.models.blocks import BatchNorm
+
+    model = sep_torch.build_model(
+        variant.model, device="cpu",
+        generator=torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 15)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("layer_scale"):
+                p.fill_(0.5)
+        for mod in model.modules():
+            if isinstance(mod, BatchNorm):
+                mod.running_mean.copy_(
+                    torch.randn(mod.running_mean.shape, generator=gen) * 0.1)
+                mod.running_var.uniform_(0.5, 2.0, generator=gen)
+    return model.to(device)
+
+
+def fused_expected(variant, frames, gcfns, train_p=None):
+    """Launches of K15, K16 and K1 per forward of ``frames`` padded frames
+    without lengths on the fused routes, by ``blocks.fused_route``: five
+    blocks of each kind at every scale (two in the encoder stage, three
+    in the decoder stage) and two at the bottleneck."""
+    from sepreformer_torch.models import blocks
+
+    r = variant.model.num_stages
+    local = pair = 0
+    for scale, n in [(s, 5) for s in range(r)] + [(r, 2)]:
+        l_ok, p_ok = (blocks.fused_route("on", frames >> scale, train_p,
+                                         False, train_ok)
+                      for train_ok in (False, True))
+        local, pair = local + n * l_ok, pair + n * p_ok
+    return {"fused_cla": local, "fused_ega_tail_gcfn": pair,
+            "fused_gcfn": gcfns - pair}
+
+
+def fused_phase(torch, np, sep_torch, K, busy_us, kernel_events, iters=10):
+    """The fused eval blocks at Base width against the default route:
+    requests and a batch without lengths (agreement, launches against the
+    rule, a TF32 control), a ragged batch with lengths, wall times in
+    turns and one traced forward per route, 300 s in 8 s chunks and 70 s
+    in full context, a train step at dropout 0, and ``infer_sample``
+    through ``cli.main`` with ``--set``.  Returns the kernels' launches
+    over the fused route's main-path runs."""
+    import dataclasses
+    import tempfile
+
+    from sepreformer_torch import cli
+    from sepreformer_torch.config import apply_override
+    from sepreformer_torch.data.audio import read_wav, write_wav
+    from sepreformer_torch.engine import create_train_state, train_step
+
+    base = sep_torch.get_variant("SepReformer_Base_WSJ0")
+    fused = apply_override(apply_override(base, "model.fused_local", "on"),
+                           "model.fused_pair", "on")
+    seps = {"fused": sep_torch.Separator(fused, seeded_model(
+                torch, sep_torch, fused)),
+            "default": sep_torch.Separator(base, seeded_model(
+                torch, sep_torch, base))}
+    model = seps["fused"].model
+    gcfns = sum(type(m).__name__ == "GCFN" for m in model.modules())
+    mc = base.model
+    rng = np.random.default_rng(16)
+    total = defaultdict(int)
+
+    def frames_of(samples):
+        return mc.padded_frames((samples - mc.enc_kernel) // mc.enc_stride
+                                + 1)
+
+    def run(label, fn, seconds=None, main_path=True):
+        """``fn()`` with every count at 0 just before and read just after;
+        host-clock wall, peak memory."""
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = K.launch_counts()
+        if main_path:
+            for name, n in counts.items():
+                total[name] += n
+        rate = "" if seconds is None else f", {seconds / dt:.2f} audio-s/s"
+        print(f"[fused] {label}: {dt * 1e3:.2f} ms wall{rate}, "
+              f"max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
+              f"{ {n: c for n, c in counts.items() if c} }")
+        return out, counts, dt
+
+    def check_counts(counts, frames, label):
+        want = fused_expected(base, frames, gcfns)
+        got = {n: counts[n] for n in want}
+        assert got == want, (label, got, want)
+
+    def agreement(label, a, b, scale=None):
+        scale = float(np.abs(b).max()) if scale is None else scale
+        err = float(np.abs(a - b).max()) / scale
+        print(f"[fused] {label}: max |fused - default| / max|out| "
+              f"{err:.3e} (max|out| {scale:.3f}), limit {CPU_REL_LIMIT:.1e}")
+        return err
+
+    # a, b. requests and a batch without lengths, against the default route
+    batch = (rng.normal(size=(4, int(TRAIN_SECONDS * SAMPLE_RATE)))
+             * 0.1).astype(np.float32)
+    for label in seps:                                     # warm both
+        seps[label].separate(batch)
+    cases = [(f"request {sec:.1f} s", (rng.normal(size=(
+        1, int(sec * SAMPLE_RATE))) * 0.1).astype(np.float32))
+        for sec in (2.0, 3.3, 4.0)] + [("batch B=4 x 4 s", batch)]
+    for label, wav in cases:
+        seconds = wav.size / SAMPLE_RATE
+        outs = {}
+        for route in ("fused", "default"):
+            out, counts, _ = run(f"{label}, {route} route",
+                                 lambda: seps[route].separate(wav),
+                                 seconds, main_path=route == "fused")
+            outs[route] = out.cpu().numpy()
+            assert np.isfinite(outs[route]).all(), (label, route)
+            if route == "fused":
+                frames = frames_of(wav.shape[1])
+                check_counts(counts, frames, label)
+                print(f"[fused] {label}: {frames} frames, stage lengths "
+                      f"{[frames >> s for s in range(mc.num_stages + 1)]}; "
+                      f"launches match the rule")
+        err = agreement(label, outs["fused"], outs["default"])
+        assert err <= CPU_REL_LIMIT, f"the fused route disagrees: {label}"
+    with tf32_allowed(torch):
+        control = seps["fused"].separate(batch).cpu().numpy()
+    err = agreement("batch, control: fused route with TF32 allowed", control,
+                    outs["default"])
+    assert err > CPU_REL_LIMIT, "the limit does not catch TF32 products"
+
+    lengths = [32000, 28000, 24000, 20000]
+    ragged = np.zeros_like(batch)
+    for i, n in enumerate(lengths):
+        ragged[i, :n] = batch[i, :n]
+    outs = {}
+    for route in ("fused", "default"):
+        out, counts, _ = run(f"ragged batch with lengths {lengths}, {route} "
+                             f"route", lambda: seps[route].separate(
+                                 ragged, lengths), main_path=False)
+        outs[route] = out.cpu().numpy()
+        if route == "fused":
+            assert counts["fused_cla"] == 0, counts
+            assert counts["fused_ega_tail_gcfn"] == 0, counts
+    assert agreement("ragged batch", outs["fused"],
+                     outs["default"]) <= CPU_REL_LIMIT
+
+    # c. the batch's wall times in turns, then one traced forward per route
+    x = torch.from_numpy(batch).cuda()
+
+    def forward(route):
+        with torch.inference_mode():
+            return seps[route].model(x)
+
+    walls = defaultdict(list)
+    for i in range(iters):
+        for route in (("fused", "default") if i % 2 == 0
+                      else ("default", "fused")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward(route)
+            torch.cuda.synchronize()
+            walls[route].append((time.perf_counter() - t0) * 1e3)
+    for route, ts in walls.items():
+        median = statistics.median(ts)
+        print(f"[fused] batch B=4 x 4 s, no lengths, {route} route, in "
+              f"turns, ms: {[round(t, 2) for t in ts]}; median "
+              f"{median:.2f} ms, {16.0 / (median / 1e3):.2f} audio-s/s")
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    for route in ("fused", "default"):
+        K.reset_launches()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            forward(route)
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+        if route == "fused":
+            for name, n in K.launch_counts().items():
+                total[name] += n
+        kernels = kernel_events(prof)
+        print_trace("fused", kernels, busy_us(kernels), window_us,
+                    K.launch_counts(), f"B=4 x 4 s forward, {route} route")
+
+    # d. 300 s in 8 s chunks, and 70 s in full context without lengths
+    n300 = int(LONGEST_SECONDS * SAMPLE_RATE)
+    wav300 = (rng.normal(size=n300) * 0.1).astype(np.float32)
+    chunked = {route: sep_torch.Separator(sep.variant, sep.model,
+                                          chunk_seconds=CHUNK_SECONDS)
+               for route, sep in seps.items()}
+    outs = {}
+    for route in ("fused", "default", "fused", "default"):
+        out, counts, _ = run(f"300 s in {CHUNK_SECONDS:.0f} s chunks, "
+                             f"{route} route",
+                             lambda: np.stack(chunked[route](wav300)),
+                             LONGEST_SECONDS, main_path=route == "fused")
+        outs[route] = out
+        if route == "fused":
+            assert counts["fused_cla"] > 0
+            assert counts["fused_ega_tail_gcfn"] > 0
+    assert agreement("300 s in chunks", outs["fused"],
+                     outs["default"]) <= CPU_REL_LIMIT
+    del chunked, outs, wav300
+    n70 = int(LONG_SECONDS * SAMPLE_RATE)
+    wav70 = (np.random.default_rng(9).normal(size=n70) * 0.1).astype(
+        np.float32)
+    outs = {}
+    for route in ("fused", "default", "fused", "default"):
+        out, counts, _ = run(f"70 s full context, no lengths, {route} route",
+                             lambda: seps[route].separate(wav70[None]),
+                             LONG_SECONDS, main_path=route == "fused")
+        outs[route] = out.cpu().numpy()
+        assert counts["flash_relpos_attention"] == 22
+        if route == "fused":
+            check_counts(counts, frames_of(n70), "70 s")
+    assert agreement("70 s full context", outs["fused"],
+                     outs["default"]) <= CPU_REL_LIMIT
+    del outs, seps, model
+    torch.cuda.empty_cache()
+
+    # e. a train step at dropout 0 on the pair route against the default,
+    # then steps of both in turns
+    train_cfgs = {label: dataclasses.replace(v, model=dataclasses.replace(
+        v.model, dropout=0.0)) for label, v in (("fused", fused),
+                                               ("default", base))}
+    mix, src = (a.cuda() for a in synthetic_batch(
+        torch, np, np.random.default_rng(17), base.dataset.batch_size,
+        base.dataset.max_len))
+    # the same seeded weights; the model's blocks read the route
+    states = {label: create_train_state(cfg, model=seeded_model(
+        torch, sep_torch, cfg)) for label, cfg in train_cfgs.items()}
+    results = {}
+    for label, state in states.items():
+        metrics, counts, _ = run(
+            f"train step at dropout 0, {label} route (its first)",
+            lambda: train_step(state, mix, src, 1e-3, 0.4,
+                               torch.Generator().manual_seed(18)),
+            main_path=label == "fused")
+        results[label] = (float(metrics["total_loss"]), {
+            n: p.grad.detach().clone()
+            for n, p in state.model.named_parameters()})
+        if label == "fused":
+            assert counts["fused_ega_tail_gcfn"] == 22, counts
+            assert counts["fused_cla"] == 0, counts
+    (loss, grads), (ref_loss, ref_grads) = results["fused"], results["default"]
+    scale = max(g.abs().max().item() for g in ref_grads.values())
+    worst = max(grads, key=lambda n: (grads[n] - ref_grads[n]).abs().max())
+    err = (grads[worst] - ref_grads[worst]).abs().max().item() / scale
+    print(f"[fused] train step at dropout 0: loss {loss:.6f} against "
+          f"{ref_loss:.6f}; max |fused - default| over every gradient / max "
+          f"|gradient| {err:.3e} (max {scale:.3e}, worst {worst}), limit "
+          f"{TRAIN_CPU_REL_LIMIT:.1e}")
+    assert abs(loss - ref_loss) <= TRAIN_CPU_REL_LIMIT * abs(ref_loss)
+    assert err <= TRAIN_CPU_REL_LIMIT, "the pair route's gradients disagree"
+    del results, grads, ref_grads
+    steps = defaultdict(list)
+    for i in range(4):
+        for label in (("fused", "default") if i % 2 == 0
+                      else ("default", "fused")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = train_step(states[label], mix, src, 1e-3, 0.4,
+                                 torch.Generator().manual_seed(18))
+            assert np.isfinite(float(metrics["total_loss"]))   # waits
+            steps[label].append((time.perf_counter() - t0) * 1e3)
+    for label, ts in steps.items():
+        print(f"[fused] train steps at dropout 0 in turns, {label} route, "
+              f"ms: {[round(t, 2) for t in ts]}; median "
+              f"{statistics.median(ts):.2f} ms")
+    del states
+    torch.cuda.empty_cache()
+    state = create_train_state(fused, model=seeded_model(torch, sep_torch,
+                                                         fused))
+    _, counts, _ = run("train step at dropout 0.05, fused settings",
+                       lambda: train_step(state, mix, src, 1e-3, 0.4,
+                                          torch.Generator().manual_seed(19)),
+                       main_path=False)
+    assert counts["fused_ega_tail_gcfn"] == counts["fused_cla"] == 0, counts
+    del state
+    torch.cuda.empty_cache()
+
+    # f. infer_sample of phase 9's 70 s wav through the CLI, with --set
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "long70.wav")
+        write_wav(path, wav70, SAMPLE_RATE)
+        out_dir = os.path.join(tmp, "out")
+        args = ["--model", "SepReformer_Base_WSJ0", "--engine-mode",
+                "infer_sample", "--sample-file", path, "--workdir",
+                os.path.join(tmp, "work"), "--out-wav-dir", out_dir,
+                "--set", "model.fused_local=on",
+                "--set", "model.fused_pair=on"]
+        status, counts, _ = run("cli infer_sample, 70 s wav, --set "
+                                "model.fused_local=on model.fused_pair=on "
+                                "(with the model's set-up)",
+                                lambda: cli.main(args), LONG_SECONDS)
+        assert status == 0
+        check_counts(counts, frames_of(n70), "infer_sample")
+        for i in range(2):
+            y, rate = read_wav(os.path.join(out_dir, f"long70_out_{i}.wav"))
+            assert rate == SAMPLE_RATE and y.shape == (n70,), y.shape
+            assert np.isfinite(y).all() and np.abs(y).max() > 0.5
+    print(f"[fused] launches over the phase's main-path runs: {dict(total)}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1624,10 +2043,16 @@ def main() -> int:
                       kernel_events) or {}
     route_counts = run("routes", routes_phase, torch, np, sep_torch, K,
                        busy_us, kernel_events) or {}
+    fused_counts = run("fused", fused_phase, torch, np, sep_torch, K,
+                       busy_us, kernel_events) or {}
 
     # each kernel's launches on the main path of its slice: the eval
     # kernels' in serving, the train kernels' in training, K12's in
-    # long-form serving, K6's, K13's and K14's on the routes
+    # long-form serving, K6's, K13's and K14's on the routes, K15's and
+    # K16's on the fused routes; K4, on no path, its launches summed over
+    # every phase's main-path runs, which must be 0
+    main_paths = (counts, train_counts, long_counts, route_counts,
+                  fused_counts)
     for row in kernels:
         name = row["name"]
         row["launches"] = (counts.get(name, 0) if name in EVAL_KERNELS
@@ -1635,7 +2060,15 @@ def main() -> int:
                            if name in LONG_KERNELS
                            else route_counts.get(name, 0)
                            if name in ROUTE_KERNELS
+                           else fused_counts.get(name, 0)
+                           if name in FUSED_KERNELS
+                           else sum(c.get(name, 0) for c in main_paths)
+                           if name in OFF_PATH_KERNELS
                            else train_counts.get(name, 0))
+        if name in OFF_PATH_KERNELS and row["launches"]:
+            print(f"[kernels] FAILED: {name} is on no route, yet the main "
+                  f"paths launched it {row['launches']} times")
+            ok = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)

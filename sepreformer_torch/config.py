@@ -6,9 +6,11 @@ from it), with its ``--set`` overrides (``apply_override``) and its
 reader of the reference's ``configs.yaml`` (``from_reference_yaml``).
 Only the knobs the port reads are kept.  Of the JAX package's
 implementation selectors the port keeps the two attention routes,
-``attention_impl`` and ``attention_train_impl``, with their names and
-defaults; every other module has one path, the JAX package's default
-one (in training the GCFN takes the hash-dropout kernels K7/K8).  The
+``attention_impl`` and ``attention_train_impl``, and the two fused eval
+blocks, ``fused_local`` (the CLA through K15) and ``fused_pair`` (the
+EGA tail and the GCFN through K16), with their names and defaults;
+every other module has one path, the JAX package's default one (in
+training the GCFN takes the hash-dropout kernels K7/K8).  The
 Large variants (F=256, one
 speaker-split block per stage) are not ported yet, nor
 ``OptimConfig.flat_opt_state`` (a TPU lever the JAX package measured
@@ -30,6 +32,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 # runs its kernels' plain versions)
 ATTENTION_IMPLS = ("auto", "fused_pv", "pallas", "single", "xla")
 ATTENTION_TRAIN_IMPLS = ("auto", "fused_pv", "pallas", "xla")
+# the values of the two fused-block selectors: "auto" is off, as the JAX
+# package resolves it; "interpret" has no counterpart either
+FUSED_BLOCK_MODES = ("auto", "on", "off")
 
 
 @dataclass(frozen=True)
@@ -59,11 +64,22 @@ class ModelConfig:
     # to a padded length of 512, dense past it), "pallas" (K13/K14 up to
     # 512 without key lengths, dense past it), "xla" (dense torch)
     attention_train_impl: str = "auto"
+    # every LocalBlock's CLA through the fused K15 kernel: "on" takes it
+    # in eval without lengths where pick_block(T) > 0 (the JAX kernels'
+    # time block, ops/kernels/gcfn.py); "auto" and "off" keep the
+    # unfused chain
+    fused_local: str = "auto"
+    # every GlobalBlock's EGA tail and GCFN through the fused K16 kernel:
+    # "on" takes it without lengths, in eval or at dropout 0, where
+    # pick_block(T) > 0; "auto" and "off" keep EGA, then GCFN
+    fused_pair: str = "auto"
 
     def __post_init__(self):
         for name, allowed in (("attention_impl", ATTENTION_IMPLS),
                               ("attention_train_impl",
-                               ATTENTION_TRAIN_IMPLS)):
+                               ATTENTION_TRAIN_IMPLS),
+                              ("fused_local", FUSED_BLOCK_MODES),
+                              ("fused_pair", FUSED_BLOCK_MODES)):
             value = getattr(self, name)
             if value not in allowed:
                 raise ValueError(f"model.{name} {value!r} is not one of "

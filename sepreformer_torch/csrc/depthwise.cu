@@ -1,4 +1,5 @@
-// Backward of the CLA's large-kernel "same" depthwise conv
+// The CLA's large-kernel "same" depthwise conv, its forward (K4) and its
+// backward (K5, K6):
 //   y[b, t, c] = sum_tap x[b, t + tap - h, c] * w[c, tap] + bias[c],
 //   h = (K - 1) / 2, zero padding outside [0, T):
 //   dx[b, t, c] = sum_tap w[c, tap] * dy[b, t + h - tap, c]
@@ -8,7 +9,10 @@
 // weight's own layout [C, 1, K], so the parameter reaches the kernel, and
 // its gradient leaves it, without a copy.
 //
-// Replaces: K5, sepreformer_tpu/ops/pallas/depthwise.py::depthwise_large's
+// Replaces: K4, sepreformer_tpu/ops/pallas/depthwise.py::_impl_fwd (body
+//           _fwd_kernel), the Pallas forward that no route of either
+//           package takes (depthwise_large's forward is the library
+//           convolution); K5, depthwise_large's
 //           backward (_impl_bwd, body _bwd_kernel), and K6, its dw/db-only
 //           form (_impl_bwd_w, body _bwd_w_kernel) that the JAX package's
 //           BWD_MODE = "conv" runs, with dx left to a library convolution
@@ -17,7 +21,9 @@
 //           package takes its kernels only where C % 128 == 0 (a TPU tiling
 //           rule); these serve any T and any C, odd K <= 81.
 //
-// What bounds it on the H100: K5 reads x and dy once and writes dx once
+// What bounds it on the H100: K4 reads x once and writes y once (32.8 MB
+// at [4, 8000, 128], 0.0098 ms) and does K FMAs per element (0.008 ms):
+// bound by the bytes.  K5 reads x and dy once and writes dx once
 // (3 * B*T*C floats, 49 MB at [4, 8000, 128]) and does 2K FMAs per
 // element (1.1 GFLOP at K=65), so the bytes and the float32 operations
 // give about the same bound, ~0.016 ms.  K6 reads x and dy once (33 MB,
@@ -36,8 +42,13 @@
 // warp takes every 8th tap and walks the rows, reusing each dy value for
 // all of its taps.  The partial dw stays in registers across the tiles.
 // K6 is the same kernel without the dx loop and the weight's staging
-// (depthwise_dw_kernel), and the same fixed-order reduction.
+// (depthwise_dw_kernel), and the same fixed-order reduction.  K4 stages
+// x and the weight as K5 stages dy and the weight, and each warp runs
+// the tap loop of depthwise_tap.cuh (shared with K15's conv stage) over
+// its 8 rows, with the weight unflipped.
 #include <cuda_runtime.h>
+
+#include "depthwise_tap.cuh"
 
 namespace {
 
@@ -151,6 +162,48 @@ depthwise_dw_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   depthwise_bwd_body<false>(x, dy, nullptr, nullptr, partial, T, C, K);
 }
 
+// K4: y = the "same" conv of x, one tile of kTT rows at a time.
+__global__ void __launch_bounds__(kThreads)
+depthwise_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ bias, float* __restrict__ y,
+                     int T, int C, int K) {
+  extern __shared__ float smem[];
+  const int halo = (K - 1) / 2, rows = kTT + K - 1;
+  float* xs = smem;                 // [rows][kCW]
+  float* ws = xs + rows * kCW;      // [K][kCW]
+  const int c0 = blockIdx.x * kCW, chunk = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, grp = threadIdx.x >> 5;
+  const int c = c0 + lane;
+  const bool c_ok = c < C;
+  for (int e = threadIdx.x; e < K * kCW; e += kThreads) {
+    const int tap = e / kCW, cc = c0 + e % kCW;
+    ws[e] = cc < C ? w[(size_t)cc * K + tap] : 0.f;
+  }
+  const float bv = c_ok ? bias[c] : 0.f;
+  const size_t base = (size_t)b * T * C;
+  for (int tile = 0; tile < kTiles; ++tile) {
+    const int t0 = (chunk * kTiles + tile) * kTT;
+    if (t0 >= T) break;  // the same for every thread of the block
+    __syncthreads();     // the previous tile is consumed
+    for (int e = threadIdx.x; e < rows * kCW; e += kThreads) {
+      const int r = e / kCW, cc = c0 + e % kCW, t = t0 - halo + r;
+      xs[e] = t >= 0 && t < T && cc < C ? x[base + (size_t)t * C + cc] : 0.f;
+    }
+    __syncthreads();
+    const int i0 = grp * kRowsPerWarp;
+    float acc[kRowsPerWarp];
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) acc[r] = bv;
+    dwtap::taps<kRowsPerWarp>(xs + i0 * kCW + lane, kCW, ws + lane, kCW, K,
+                              acc);
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int t = t0 + i0 + r;
+      if (t < T && c_ok) y[base + (size_t)t * C + c] = acc[r];
+    }
+  }
+}
+
 // dw[c, tap] and db[c]: the block partials summed in order.
 __device__ __forceinline__ void reduce_partials(
     const float* __restrict__ partial, float* __restrict__ dw,
@@ -236,5 +289,24 @@ extern "C" int sep_depthwise_bwd_w_f32(const void* x, const void* dy,
   depthwise_dw_reduce_kernel<<<(n + 255) / 256, 256, 0, st>>>(
       static_cast<const float*>(partial), static_cast<float*>(dw),
       static_cast<float*>(db), B * chunks, C, K);
+  return (int)cudaGetLastError();
+}
+
+// K4: x, y device float32 [B, T, C]; w [C, 1, K]; bias [C].
+extern "C" int sep_depthwise_fwd_f32(const void* x, const void* w,
+                                     const void* bias, void* y, int B, int T,
+                                     int C, int K, void* stream) {
+  if (B <= 0 || T <= 0 || C <= 0) return 0;
+  if (K < 1 || K % 2 == 0 || K > kMaxK || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int chunks = (T + kTT * kTiles - 1) / (kTT * kTiles);
+  dim3 grid((C + kCW - 1) / kCW, chunks, B);
+  // x and the weight: smem_bytes less K5's second [rows][kCW] tile
+  const size_t smem =
+      smem_bytes(K) - sizeof(float) * (size_t)(kTT + K - 1) * kCW;
+  depthwise_fwd_kernel<<<grid, kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<float*>(y), T, C, K);
   return (int)cudaGetLastError();
 }

@@ -25,6 +25,13 @@
 // and the down-projection o at site 1 (columns 0..F-1) by the hash of
 // hash_dropout.cuh at the global row b*T + t, and scales the kept values
 // by 1 / (1 - p): the JAX package's gcfn_train.py::_fwd_train_kernel.
+//
+// With kPair the tile first applies a GlobalBlock's EGA tail to its R rows
+// (K16, csrc/ega_gcfn.cu): y = x + sigmoid(LN_g(x) Wg + bg) * x_down[t / r]
+// with r = T / L, the nearest upsample of the attention output read in
+// place, into a shared [R][F] buffer past the tile's others; the GCFN then
+// normalises y instead of x, and its residual adds to y.  Rows outside
+// [0, T) of y are zero, and their u rows are masked as before.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -49,6 +56,16 @@ static __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The EGA tail of a pair tile (unused otherwise).
+struct Pair {
+  const float* x_down;    // [B, L, F], the attention's output
+  int L;                  // the bottleneck length; T = L * (T / L)
+  const float* gns;       // the gate's LayerNorm scale and bias [F]
+  const float* gnb;
+  const float* wg;        // the gate's Linear [F, F], [in, out]
+  const float* bg;        // [F]
+};
+
 template <int F, int TT>
 struct Shape {
   static constexpr int H6 = 6 * F;
@@ -56,9 +73,40 @@ struct Shape {
   static constexpr int R = TT + 2;  // tile rows plus one halo row per side
   static constexpr size_t smem_bytes =
       sizeof(float) * (size_t)(R * F + R * H6 + TT * H3);
+  // a pair tile's: the tail's output y [R][F] after the others
+  static constexpr size_t pair_smem_bytes =
+      smem_bytes + sizeof(float) * (size_t)(R * F);
 };
 
-template <int F, int TT, bool kDrop>
+// LayerNorm of one row of F values (src, in global or shared memory) into
+// dst, by one warp.
+template <int F>
+__device__ __forceinline__ void layer_norm_row(
+    const float* src, float* dst, const float* __restrict__ scale,
+    const float* __restrict__ shift, float eps, int lane) {
+  float v[F / 32];
+  float s = 0.f;
+#pragma unroll
+  for (int q = 0; q < F / 32; ++q) {
+    v[q] = src[lane + 32 * q];
+    s += v[q];
+  }
+  const float mean = warp_sum(s) * (1.f / F);
+  float s2 = 0.f;
+#pragma unroll
+  for (int q = 0; q < F / 32; ++q) {
+    v[q] -= mean;
+    s2 += v[q] * v[q];
+  }
+  const float inv = rsqrtf(warp_sum(s2) * (1.f / F) + eps);
+#pragma unroll
+  for (int q = 0; q < F / 32; ++q) {
+    const int k = lane + 32 * q;
+    dst[k] = v[q] * inv * scale[k] + shift[k];
+  }
+}
+
+template <int F, int TT, bool kDrop, bool kPair = false>
 __device__ __forceinline__ void tile(
     float* smem, const float* __restrict__ x, const int* __restrict__ lens,
     const float* __restrict__ lns, const float* __restrict__ lnb,
@@ -66,12 +114,13 @@ __device__ __forceinline__ void tile(
     const float* __restrict__ wdw, const float* __restrict__ bdw,
     const float* __restrict__ wout, const float* __restrict__ bout,
     const float* __restrict__ ls, float* __restrict__ out, int T, float eps,
-    Drop drop) {
+    Drop drop, Pair pair = Pair{}) {
   using S = Shape<F, TT>;
   constexpr int H6 = S::H6, H3 = S::H3, R = S::R;
   float* xn = smem;          // [R][F]  normalized rows
   float* u = xn + R * F;     // [R][H6] projected rows (masked)
   float* g = u + R * H6;     // [TT][H3] gated rows
+  float* y = g + TT * H3;    // [R][F]  a pair tile's EGA tail output
 
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * TT;
@@ -80,7 +129,56 @@ __device__ __forceinline__ void tile(
   const float* xb = x + (size_t)b * T * F;
   const uint32_t row0 = (uint32_t)b * (uint32_t)T + (uint32_t)t0;
 
-  // 1. LayerNorm of frames t0-1 .. t0+TT, one warp per row.
+  if constexpr (kPair) {
+    // 0a. y <- x and xn <- LN_g(x) for frames t0-1 .. t0+TT (zero rows
+    //     outside [0, T)), one warp per row.
+    for (int r = warp; r < R; r += kThreads / 32) {
+      const int t = t0 - 1 + r;
+      if (t < 0 || t >= T) {
+        for (int k = lane; k < F; k += 32) xn[r * F + k] = y[r * F + k] = 0.f;
+        continue;
+      }
+      for (int k = lane; k < F; k += 32) y[r * F + k] = xb[(size_t)t * F + k];
+      layer_norm_row<F>(xb + (size_t)t * F, xn + r * F, pair.gns, pair.gnb,
+                        eps, lane);
+    }
+    __syncthreads();
+    // 0b. y += sigmoid(xn Wg + bg) * x_down[t / (T / L)]: a thread takes
+    //     column c of every other row.
+    constexpr int RP = (R + 1) / 2;
+    const int c = tid % F, half = tid / F;
+    static_assert(2 * F == kThreads, "two threads per column of the gate");
+    float acc[RP];
+#pragma unroll
+    for (int q = 0; q < RP; ++q) acc[q] = 0.f;
+    for (int k = 0; k < F; k += 4) {
+      float w[4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) w[kk] = pair.wg[(size_t)(k + kk) * F + c];
+#pragma unroll
+      for (int q = 0; q < RP; ++q) {
+        const int r = half + 2 * q;
+        if (r < R) {
+          const float4 a = *reinterpret_cast<const float4*>(xn + r * F + k);
+          acc[q] += a.x * w[0] + a.y * w[1] + a.z * w[2] + a.w * w[3];
+        }
+      }
+    }
+    const int ratio = T / pair.L;
+    const float* db = pair.x_down + (size_t)b * pair.L * F;
+#pragma unroll
+    for (int q = 0; q < RP; ++q) {
+      const int r = half + 2 * q, t = t0 - 1 + r;
+      if (r < R && t >= 0 && t < T) {
+        const float gate = 1.f / (1.f + expf(-(acc[q] + pair.bg[c])));
+        y[r * F + c] += gate * db[(size_t)(t / ratio) * F + c];
+      }
+    }
+    __syncthreads();
+  }
+
+  // 1. LayerNorm of frames t0-1 .. t0+TT (of y in a pair tile), one warp
+  //    per row.
   for (int r = warp; r < R; r += kThreads / 32) {
     const int t = t0 - 1 + r;
     float* dst = xn + r * F;
@@ -88,27 +186,8 @@ __device__ __forceinline__ void tile(
       for (int k = lane; k < F; k += 32) dst[k] = 0.f;
       continue;
     }
-    const float* src = xb + (size_t)t * F;
-    float v[F / 32];
-    float s = 0.f;
-#pragma unroll
-    for (int q = 0; q < F / 32; ++q) {
-      v[q] = src[lane + 32 * q];
-      s += v[q];
-    }
-    const float mean = warp_sum(s) * (1.f / F);
-    float s2 = 0.f;
-#pragma unroll
-    for (int q = 0; q < F / 32; ++q) {
-      v[q] -= mean;
-      s2 += v[q] * v[q];
-    }
-    const float inv = rsqrtf(warp_sum(s2) * (1.f / F) + eps);
-#pragma unroll
-    for (int q = 0; q < F / 32; ++q) {
-      const int k = lane + 32 * q;
-      dst[k] = v[q] * inv * lns[k] + lnb[k];
-    }
+    layer_norm_row<F>(kPair ? y + r * F : xb + (size_t)t * F, dst, lns, lnb,
+                      eps, lane);
   }
   __syncthreads();
 
@@ -195,7 +274,8 @@ __device__ __forceinline__ void tile(
                   ? o * drop.scale
                   : 0.f;
         const size_t off = (size_t)t * F + col;
-        out[(size_t)b * T * F + off] = xb[off] + scale * o;
+        const float base = kPair ? y[(row_a + q + 1) * F + col] : xb[off];
+        out[(size_t)b * T * F + off] = base + scale * o;
       }
     }
   }

@@ -3,10 +3,11 @@
 Each class mirrors the JAX package's ``models/blocks.py`` class of the
 same name; its ``TorchLinear`` and ``TorchLayerNorm`` are ``nn.Linear``
 and ``nn.LayerNorm`` here, and its ``FoldableBatchNorm`` is
-``BatchNorm`` (nothing here folds it).  Submodules carry the reference
-model's state_dict names (``linear_q``, ``net1.1``, ``Layer_scale`` ...),
-so a reference checkpoint loads with ``load_state_dict(strict=True)`` and
-``models/convert.py`` maps the flax trees onto them.
+``BatchNorm`` (``folded()`` gives the affine K15 takes).  Submodules
+carry the reference model's state_dict names (``linear_q``, ``net1.1``,
+``Layer_scale`` ...), so a reference checkpoint loads with
+``load_state_dict(strict=True)`` and ``models/convert.py`` maps the flax
+trees onto them.
 
 A forward is an eval forward unless it is given a ``TrainMode`` (the JAX
 package's ``train=True`` and its dropout rng): then every dropout site of
@@ -27,13 +28,15 @@ attention that the JAX package's "xla" train path runs).  The config's
 ``attention_impl`` and ``attention_train_impl`` pick other attention
 routes, as in the JAX package (``attention_route``): among them K13/K14,
 the single-block attention with the bias and the dropout in the kernel.
-Everything else is plain PyTorch.
+Its ``fused_local`` and ``fused_pair`` take the fused blocks where
+``fused_route`` allows: the CLA through K15, and the EGA tail with the
+GCFN after it through K16.  Everything else is plain PyTorch.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +46,8 @@ from sepreformer_torch.ops.kernels import (
     depthwise_large,
     flash_relpos_attention,
     flash_relpos_attention_train,
+    fused_cla,
+    fused_ega_tail_gcfn,
     fused_gcfn,
     fused_gcfn_train,
     softmax_pv,
@@ -51,6 +56,7 @@ from sepreformer_torch.ops.kernels import (
 from sepreformer_torch.ops.kernels.attention_train import (
     MAX_LENGTH as SINGLE_MAX_LENGTH,
 )
+from sepreformer_torch.ops.kernels.gcfn import pick_block
 from sepreformer_torch.ops.kernels.softmax_pv import NEG_INF
 from sepreformer_torch.ops.kernels.softmax_pv_train import (
     MAX_LENGTH as TRAIN_PV_MAX_LENGTH,
@@ -108,6 +114,32 @@ def attention_route(impl: str, train_impl: str, length: int,
     if impl == "single":
         return "single" if single_ok else "dense"
     return {"fused_pv": "fused_pv", "pallas": "flash", "xla": "dense"}[impl]
+
+
+def fused_route(mode: str, length: int, train_p: Optional[float],
+                has_seq_lens: bool, train_ok: bool) -> bool:
+    """Whether a fused block takes its kernel at stage length ``length``,
+    train dropout ``train_p`` (None in eval) and with or without
+    ``seq_lens``: the JAX package's rules (``models/blocks.py`` ``CLA``
+    and ``GlobalBlock``).  It needs ``mode`` "on" ("auto" is off, as the
+    JAX package resolves it), no ``seq_lens``, and ``pick_block(length)
+    > 0``; in train only where ``train_ok`` and the dropout is 0.  A
+    LocalBlock's CLA (K15, ``fused_local``) passes ``train_ok=False``: it
+    runs in eval only (BatchNorm on the running statistics).  A
+    GlobalBlock's EGA tail and GCFN (K16, ``fused_pair``) pass True."""
+    mode_ok = train_p is None or (train_ok and train_p == 0.0)
+    return (mode == "on" and mode_ok and not has_seq_lens
+            and pick_block(length) > 0)
+
+
+def store_in_out(*linears: nn.Linear) -> None:
+    """Store each Linear's weight [in, out] in memory, as a transposed view
+    with ``nn.Linear``'s [out, in] shape, so that ``weight.t()`` reaches a
+    kernel that streams [in, out] rows without a copy.  In-place loads and
+    inits, ``.to()`` and deepcopy keep the strides."""
+    for lin in linears:
+        lin.weight = nn.Parameter(
+            torch.empty(lin.in_features, lin.out_features).t())
 
 
 class TrainMode:
@@ -277,6 +309,14 @@ class BatchNorm(nn.Module):
         return ((x - mean) * torch.rsqrt(var + self.eps) * self.weight
                 + self.bias)
 
+    def folded(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The eval normalisation as an affine x·s + t: s = γ·rsqrt(running
+        var + eps), t = β − running mean·s (the JAX package's
+        ``FoldableBatchNorm(return_folded=True)``), in torch, so that γ
+        and β get gradients through the fold."""
+        s = self.weight * torch.rsqrt(self.running_var + self.eps)
+        return s, self.bias - self.running_mean * s
+
 
 class MaskedGroupNorm(nn.Module):
     """GroupNorm(1, C) of channels-last [B, T, C] whose statistics span the
@@ -323,29 +363,29 @@ class GCFN(nn.Module):
         self.net2 = nn.ModuleList([nn.Identity(), nn.Identity(),
                                    nn.Linear(3 * dim, dim), nn.Identity()])
         self.Layer_scale = LayerScale(dim)
-        # K1 reads the products' weights [in, out]: store them so, as
-        # transposed views with nn.Linear's [out, in] shape.  In-place
-        # loads and inits, .to() and deepcopy keep the strides, so
-        # weight.t() reaches the kernel without a copy.
-        for lin in (self.net1[1], self.net2[2]):
-            lin.weight = nn.Parameter(
-                torch.empty(lin.in_features, lin.out_features).t())
+        # K1, K7/K8 and K16 read the products' weights [in, out]
+        store_in_out(self.net1[1], self.net2[2])
+
+    def params(self) -> tuple:
+        """The kernels' parameter tuple (``gcfn_plain``'s order)."""
+        norm, proj_in = self.net1
+        proj_out = self.net2[2]
+        return (norm.weight, norm.bias, proj_in.weight.t(), proj_in.bias,
+                self.depthwise.weight.squeeze(1), self.depthwise.bias,
+                proj_out.weight.t(), proj_out.bias,
+                self.Layer_scale.layer_scale.reshape(-1))
 
     def forward(self, x: torch.Tensor,
                 seq_lens: Optional[torch.Tensor] = None,
                 train: Optional[TrainMode] = None) -> torch.Tensor:
-        norm, proj_in = self.net1
-        proj_out = self.net2[2]
         if train is not None and seq_lens is not None:
+            norm, proj_in = self.net1
             y = proj_in(norm(x))
             # the k3 conv at the last valid frame reads a zero past it
             y = y * length_mask(seq_lens, y.shape[1], y.dtype)
             y = train.dropout(glu_last(self.depthwise(y)))
-            return x + self.Layer_scale(train.dropout(proj_out(y)))
-        params = (norm.weight, norm.bias, proj_in.weight.t(), proj_in.bias,
-                  self.depthwise.weight.squeeze(1), self.depthwise.bias,
-                  proj_out.weight.t(), proj_out.bias,
-                  self.Layer_scale.layer_scale.reshape(-1))
+            return x + self.Layer_scale(train.dropout(self.net2[2](y)))
+        params = self.params()
         if train is not None:
             return fused_gcfn_train(x.contiguous(), params, self.norm_eps,
                                     train.kernel_seed(), train.p)
@@ -493,7 +533,10 @@ class MultiHeadAttention(nn.Module):
 class EGA(nn.Module):
     """Efficient Global Attention (reference network.py:126-155): pool to
     the bottleneck length, attend, nearest-upsample back, and gate into
-    the residual: x + sigmoid(Linear(LN(x))) * up(attn(pool(x))).
+    the residual: x + sigmoid(Linear(LN(x))) * up(attn(pool(x))).  With
+    ``fused_tail`` it stops after the attention and returns (its output
+    at the bottleneck length, the gate's (LN scale, LN bias, weight
+    [in, out], bias)) for K16.
     Reference names: block.self_attn, block.linear = [LayerNorm, Linear]."""
 
     def __init__(self, dim: int, num_heads: int, norm_eps: float = 1.0e-5):
@@ -503,10 +546,12 @@ class EGA(nn.Module):
             "linear": nn.ModuleList([nn.LayerNorm(dim, eps=norm_eps),
                                      nn.Linear(dim, dim)]),
         })
+        store_in_out(self.block["linear"][1])  # K16 reads the gate [in, out]
 
     def forward(self, x: torch.Tensor, pos: RelPos,
                 seq_lens: Optional[torch.Tensor] = None,
-                train: Optional[TrainMode] = None) -> torch.Tensor:
+                train: Optional[TrainMode] = None,
+                fused_tail: bool = False):
         t = x.shape[1]
         x_down = adaptive_avg_pool_time(x, pos.length)
         # the stage length is an exact multiple of the bottleneck length, so
@@ -516,6 +561,9 @@ class EGA(nn.Module):
         x_down = self.block["self_attn"](x_down, pos, key_lens=pooled_lens,
                                          train=train)
         norm, proj = self.block["linear"]
+        if fused_tail:
+            return x_down, (norm.weight, norm.bias, proj.weight.t(),
+                            proj.bias)
         gate = torch.sigmoid(proj(norm(x)))
         return x + gate * nearest_upsample_time(x_down, t)
 
@@ -524,10 +572,14 @@ class CLA(nn.Module):
     """Convolutional Local Attention (reference network.py:159-187):
     LN -> Linear F->2F -> GLU -> depthwise k65 SAME (backward K5) ->
     Linear F->2F -> BN -> GELU -> Linear 2F->F -> dropout, LayerScale
-    residual."""
+    residual.  Where ``fused_route`` allows (``fused`` "on", eval, no
+    ``seq_lens``), the whole block is one K15 call with the BatchNorm
+    folded."""
 
-    def __init__(self, dim: int, kernel_size: int, norm_eps: float = 1.0e-5):
+    def __init__(self, dim: int, kernel_size: int, norm_eps: float = 1.0e-5,
+                 fused: str = "auto"):
         super().__init__()
+        self.fused = fused
         self.layer_norm = nn.LayerNorm(dim, eps=norm_eps)
         self.linear1 = nn.Linear(dim, 2 * dim)
         self.dw_conv_1d = DepthwiseConv1d(dim, kernel_size, padding="SAME")
@@ -536,10 +588,24 @@ class CLA(nn.Module):
         self.linear3 = nn.ModuleList([nn.Identity(),
                                       nn.Linear(2 * dim, dim)])
         self.Layer_scale = LayerScale(dim)
+        # K15 reads the three products' weights [in, out]
+        store_in_out(self.linear1, self.linear2, self.linear3[1])
 
     def forward(self, x: torch.Tensor,
                 seq_lens: Optional[torch.Tensor] = None,
                 train: Optional[TrainMode] = None) -> torch.Tensor:
+        if fused_route(self.fused, x.shape[1],
+                       None if train is None else train.p,
+                       seq_lens is not None, train_ok=False):
+            bn_s, bn_t = self.BN.folded()
+            dw = self.dw_conv_1d
+            params = (self.layer_norm.weight, self.layer_norm.bias,
+                      self.linear1.weight.t(), self.linear1.bias,
+                      dw.weight[:, 0, :].t(), dw.bias,
+                      self.linear2.weight.t(), self.linear2.bias, bn_s, bn_t,
+                      self.linear3[1].weight.t(), self.linear3[1].bias,
+                      self.Layer_scale.layer_scale.reshape(-1))
+            return fused_cla(x.contiguous(), params, self.layer_norm.eps)
         y = glu_last(self.linear1(self.layer_norm(x)))
         if seq_lens is not None:
             # the k65 conv reads 32 frames past the valid length: zeros there
@@ -553,24 +619,44 @@ class CLA(nn.Module):
 
 
 class GlobalBlock(nn.Module):
-    """EGA + GCFN (reference network.py:189-209)."""
+    """EGA + GCFN (reference network.py:189-209).  Where ``fused_route``
+    allows (``fused_pair`` "on", no ``seq_lens``, eval or dropout 0), the
+    EGA's tail and the GCFN are one K16 call on the attention's output."""
 
-    def __init__(self, dim: int, num_heads: int, norm_eps: float = 1.0e-5):
+    def __init__(self, dim: int, num_heads: int, norm_eps: float = 1.0e-5,
+                 fused_pair: str = "auto"):
         super().__init__()
+        self.fused_pair = fused_pair
         self.block = nn.ModuleDict({"ega": EGA(dim, num_heads, norm_eps),
                                     "gcfn": GCFN(dim, norm_eps)})
 
     def forward(self, x, pos: RelPos, seq_lens=None, train=None):
-        x = self.block["ega"](x, pos, seq_lens, train)
-        return self.block["gcfn"](x, seq_lens, train)
+        ega, gcfn = self.block["ega"], self.block["gcfn"]
+        if fused_route(self.fused_pair, x.shape[1],
+                       None if train is None else train.p,
+                       seq_lens is not None, train_ok=True):
+            if ega.block["linear"][0].eps != gcfn.norm_eps:
+                # K16 normalises the gate's LN and the GCFN's with one eps
+                raise ValueError(
+                    f"fused_pair: the EGA gate's LayerNorm eps "
+                    f"{ega.block['linear'][0].eps} differs from the GCFN's "
+                    f"{gcfn.norm_eps}")
+            x_down, gate_params = ega(x, pos, train=train, fused_tail=True)
+            return fused_ega_tail_gcfn(x.contiguous(), x_down.contiguous(),
+                                       gate_params, gcfn.params(),
+                                       gcfn.norm_eps)
+        x = ega(x, pos, seq_lens, train)
+        return gcfn(x, seq_lens, train)
 
 
 class LocalBlock(nn.Module):
     """CLA + GCFN (reference network.py:212-224)."""
 
-    def __init__(self, dim: int, kernel_size: int, norm_eps: float = 1.0e-5):
+    def __init__(self, dim: int, kernel_size: int, norm_eps: float = 1.0e-5,
+                 fused_local: str = "auto"):
         super().__init__()
-        self.block = nn.ModuleDict({"cla": CLA(dim, kernel_size, norm_eps),
+        self.block = nn.ModuleDict({"cla": CLA(dim, kernel_size, norm_eps,
+                                               fused_local),
                                     "gcfn": GCFN(dim, norm_eps)})
 
     def forward(self, x, seq_lens=None, train=None):

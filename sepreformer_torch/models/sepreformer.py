@@ -126,9 +126,10 @@ class SepEncStage(nn.Module):
         super().__init__()
         f, eps = cfg.feat_dim, cfg.norm_eps
         for i in (1, 2):
-            setattr(self, f"g_block_{i}", GlobalBlock(f, cfg.num_heads, eps))
-            setattr(self, f"l_block_{i}",
-                    LocalBlock(f, cfg.local_kernel, eps))
+            setattr(self, f"g_block_{i}", GlobalBlock(
+                f, cfg.num_heads, eps, cfg.fused_pair))
+            setattr(self, f"l_block_{i}", LocalBlock(
+                f, cfg.local_kernel, eps, cfg.fused_local))
         self.downconv = (DownConvLayer(f, cfg.down_kernel, eps)
                          if down_conv else None)
 
@@ -150,9 +151,10 @@ class SepDecStage(nn.Module):
         super().__init__()
         f, eps = cfg.feat_dim, cfg.norm_eps
         for i in (1, 2, 3):
-            setattr(self, f"g_block_{i}", GlobalBlock(f, cfg.num_heads, eps))
-            setattr(self, f"l_block_{i}",
-                    LocalBlock(f, cfg.local_kernel, eps))
+            setattr(self, f"g_block_{i}", GlobalBlock(
+                f, cfg.num_heads, eps, cfg.fused_pair))
+            setattr(self, f"l_block_{i}", LocalBlock(
+                f, cfg.local_kernel, eps, cfg.fused_local))
             setattr(self, f"spk_attn_{i}",
                     SpkAttention(f, cfg.num_heads, cfg.num_spks, eps))
 

@@ -15,7 +15,11 @@ function ``softmax_pv_dropout``), K11 ``sisnr_pairwise_neg_fused``.  The
 routes ``attention_train_impl="pallas"`` (train) and
 ``attention_impl="single"`` (eval): K13 ``attention_train_fwd`` and K14
 ``attention_train_bwd`` (the autograd function
-``flash_relpos_attention_train``).
+``flash_relpos_attention_train``).  The fused eval blocks
+(``fused_local="on"``, ``fused_pair="on"``): K15 ``fused_cla`` and K16
+``fused_ega_tail_gcfn``, autograd functions whose backward recomputes
+the plain version.  K4 ``depthwise_fwd``, the k65 forward, is on no
+route, as in the JAX package.
 """
 
 from sepreformer_torch.ops.kernels.attention_train import (
@@ -25,12 +29,19 @@ from sepreformer_torch.ops.kernels.attention_train import (
     attention_train_plain,
     flash_relpos_attention_train,
 )
+from sepreformer_torch.ops.kernels.cla import cla_plain, fused_cla
 from sepreformer_torch.ops.kernels.depthwise import (
     depthwise_bwd,
     depthwise_bwd_plain,
     depthwise_bwd_w,
     depthwise_bwd_w_plain,
+    depthwise_fwd,
+    depthwise_fwd_plain,
     depthwise_large,
+)
+from sepreformer_torch.ops.kernels.ega_gcfn import (
+    ega_tail_gcfn_plain,
+    fused_ega_tail_gcfn,
 )
 from sepreformer_torch.ops.kernels.flash_attention import (
     flash_relpos_attention,
@@ -69,7 +80,8 @@ WRAPPERS = (fused_gcfn, materialize_pos_kt, softmax_pv, depthwise_bwd,
             gcfn_train_fwd, gcfn_train_bwd, softmax_pv_train_fwd,
             softmax_pv_train_bwd, sisnr_pairwise_neg_fused,
             flash_relpos_attention, depthwise_bwd_w, attention_train_fwd,
-            attention_train_bwd)
+            attention_train_bwd, depthwise_fwd, fused_cla,
+            fused_ega_tail_gcfn)
 
 
 def reset_launches() -> None:
@@ -83,10 +95,12 @@ def launch_counts() -> dict:
 
 __all__ = [
     "WRAPPERS", "attention_train_bwd", "attention_train_bwd_plain",
-    "attention_train_fwd", "attention_train_plain", "depthwise_bwd",
-    "depthwise_bwd_plain", "depthwise_bwd_w", "depthwise_bwd_w_plain",
-    "depthwise_large", "flash_relpos_attention_train",
-    "flash_relpos_attention", "flash_relpos_attention_plain", "fused_gcfn",
+    "attention_train_fwd", "attention_train_plain", "cla_plain",
+    "depthwise_bwd", "depthwise_bwd_plain", "depthwise_bwd_w",
+    "depthwise_bwd_w_plain", "depthwise_fwd", "depthwise_fwd_plain",
+    "depthwise_large", "ega_tail_gcfn_plain", "flash_relpos_attention_train",
+    "flash_relpos_attention", "flash_relpos_attention_plain", "fused_cla",
+    "fused_ega_tail_gcfn", "fused_gcfn",
     "fused_gcfn_train", "gcfn_plain", "gcfn_train_bwd",
     "gcfn_train_bwd_plain", "gcfn_train_fwd", "gcfn_train_plain",
     "launch_counts", "materialize_pos_kt",

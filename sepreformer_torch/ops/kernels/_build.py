@@ -74,6 +74,12 @@ SIGNATURES = {
     # threshold, keep_scale, stream
     "sep_attn_train_bwd_f32": [_P] * 14 + [_L] + [_I] * 5 + [_U, _U, _F,
                                                              _P],
+    # x, w, bias, y, B, T, C, K, stream
+    "sep_depthwise_fwd_f32": [_P] * 4 + [_I] * 4 + [_P],
+    # x, 13 params, v, out, B, T, F, eps, stream
+    "sep_cla_f32": [_P] * 16 + [_I] * 3 + [_F, _P],
+    # x, x_down, 4 gate params, 9 GCFN params, out, B, T, L, F, eps, stream
+    "sep_ega_gcfn_f32": [_P] * 16 + [_I] * 4 + [_F, _P],
 }
 # launchers that return something else than a cudaError_t
 RESTYPES = {"sep_gcfn_train_bwd_scratch_floats": _L,

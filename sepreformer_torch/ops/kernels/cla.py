@@ -1,0 +1,119 @@
+"""K15: the fused CLA local block (eval).
+
+Replaces ``sepreformer_tpu/ops/pallas/cla.py::fused_cla``.  The CUDA
+kernel is ``sepreformer_torch/csrc/cla.cu``; ``cla_plain`` is the same
+math in PyTorch (the JAX package's ``cla_reference``).  BatchNorm enters
+folded to an affine (s, t) from its running statistics, computed by the
+caller outside the kernel (``blocks.BatchNorm.folded``), so that its
+parameters get gradients through the fold.  ``fused_cla`` is an autograd
+function whose backward recomputes ``cla_plain`` and returns its VJP, as
+the JAX package's ``custom_vjp`` does.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from sepreformer_torch.ops.kernels import _build
+
+SUPPORTED_WIDTHS = (128,)
+KERNEL_SIZE = 65
+PARAM_NAMES = ("lns", "lnb", "w_in", "b_in", "wdw", "bdw", "w_mid", "b_mid",
+               "bn_s", "bn_t", "w_out", "b_out", "ls")
+
+
+def cla_plain(x: torch.Tensor, params: Sequence[torch.Tensor],
+              eps: float) -> torch.Tensor:
+    """LN -> Linear F->2F -> GLU -> depthwise k "same" (zero padding of the
+    GLU output) -> Linear F->2F -> x·s + t (the folded BatchNorm) -> exact
+    GELU -> Linear 2F->F -> x + ls·out.  ``params`` = (lns, lnb, w_in
+    [F, 2F], b_in, wdw [k, F], bdw, w_mid [F, 2F], b_mid, bn_s, bn_t,
+    w_out [2F, F], b_out, ls): the products' weights [in, out]."""
+    (lns, lnb, w_in, b_in, wdw, bdw, w_mid, b_mid, bn_s, bn_t,
+     w_out, b_out, ls) = params
+    mean = x.mean(dim=-1, keepdim=True)
+    c = x - mean
+    var = (c * c).mean(dim=-1, keepdim=True)
+    xn = c * torch.rsqrt(var + eps) * lns + lnb
+    u = torch.matmul(xn, w_in) + b_in
+    f = x.shape[-1]
+    v = u[..., :f] * torch.sigmoid(u[..., f:])
+    k = wdw.shape[0]
+    vp = F.pad(v.transpose(1, 2), ((k - 1) // 2, (k - 1) // 2))
+    y = F.conv1d(vp, wdw.t()[:, None, :], bdw, groups=f).transpose(1, 2)
+    y = (torch.matmul(y, w_mid) + b_mid) * bn_s + bn_t
+    y = F.gelu(y, approximate="none")
+    return x + ls * (torch.matmul(y, w_out) + b_out)
+
+
+def check_params(name: str, x: torch.Tensor,
+                 params: Sequence[torch.Tensor]) -> None:
+    """Raise unless x [B, T, F] and ``params`` (``cla_plain``'s) are float32
+    CUDA tensors the kernel takes: F in ``SUPPORTED_WIDTHS``, k 65, every
+    tensor contiguous except wdw, which the kernel reads in the Conv1d
+    weight's [F, k] layout (``wdw.t()`` contiguous, as the CLA module's
+    ``weight[:, 0, :].t()`` is)."""
+    b, t, f = x.shape
+    if f not in SUPPORTED_WIDTHS:
+        raise ValueError(f"{name}: width {f} not in {SUPPORTED_WIDTHS}")
+    k = params[4].shape[0]
+    if k != KERNEL_SIZE:
+        raise ValueError(f"{name}: depthwise kernel {k}, the kernel is "
+                         f"built for {KERNEL_SIZE}")
+    h = 2 * f
+    shapes = [(f,), (f,), (f, h), (h,), (f, k), (f,), (f, h), (h,), (h,),
+              (h,), (h, f), (f,), (f,)]
+    _build.check_tensor(x, f"{name} x", (b, t, f), x.device)
+    for pname, a, shape in zip(PARAM_NAMES, params, shapes):
+        if pname == "wdw":
+            a = a.t()
+        _build.check_tensor(a, f"{name} {pname}", shape, x.device, align=4)
+
+
+def cla_kernel(x: torch.Tensor, params: Sequence[torch.Tensor],
+               eps: float) -> torch.Tensor:
+    """The K15 launch on CUDA tensors (no autograd)."""
+    check_params("fused_cla", x, params)
+    b, t, f = x.shape
+    out = torch.empty_like(x)
+    # GLU(LN(x) W_in + b_in), the first launch's output and the second's
+    # input (csrc/cla.cu)
+    v = torch.empty_like(x)
+    err = _build.library().sep_cla_f32(
+        x.data_ptr(), *(p.data_ptr() for p in params), v.data_ptr(),
+        out.data_ptr(), b, t, f, float(eps), _build.stream_handle(x.device))
+    _build.check_launch("sep_cla_f32", err)
+    fused_cla.launches += 1
+    return out
+
+
+class _FusedCla(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, eps, x, *params):
+        ctx.eps = eps
+        ctx.save_for_backward(x, *params)
+        if x.device.type == "cpu":
+            return cla_plain(x, params, eps)
+        return cla_kernel(x, params, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [a.detach().requires_grad_() for a in (x, *params)]
+            out = cla_plain(inputs[0], inputs[1:], ctx.eps)
+            grads = torch.autograd.grad(out, inputs, g)
+        return (None, *grads)
+
+
+def fused_cla(x: torch.Tensor, params: Sequence[torch.Tensor],
+              eps: float) -> torch.Tensor:
+    """K15: ``cla_plain`` for CPU tensors; the kernel for CUDA tensors.
+    Gradients recompute ``cla_plain``."""
+    return _FusedCla.apply(eps, x, *params)
+
+
+fused_cla.launches = 0

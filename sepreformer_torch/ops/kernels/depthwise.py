@@ -1,5 +1,5 @@
-"""K5 and K6: the backward of the CLA's large-kernel "same" depthwise
-conv.
+"""K4, K5 and K6: the CLA's large-kernel "same" depthwise conv: K4 its
+forward, K5 and K6 its backward.
 
 Replaces the backward of ``sepreformer_tpu/ops/pallas/depthwise.py::
 depthwise_large``.  ``depthwise_large`` is an autograd function: its
@@ -8,10 +8,13 @@ the JAX package's forward is XLA's.  Its backward follows ``BWD_MODE``,
 as the JAX module's does: "fused" (the default) launches K5
 (``_impl_bwd``: dx, dw and db in one tap loop); "conv" takes dx as the
 library convolution of dy with the time-flipped kernel, as the JAX
-package takes it from XLA, and dw and db from K6 (``_impl_bwd_w``).  The
-CUDA kernels are ``sepreformer_torch/csrc/depthwise.cu``;
-``depthwise_bwd_plain`` and ``depthwise_bwd_w_plain`` are the same tap
-loops in PyTorch, which CPU tensors run.  Tensors are channels-last
+package takes it from XLA, and dw and db from K6 (``_impl_bwd_w``).  K4
+(``depthwise_fwd``) is the JAX package's Pallas forward (``_impl_fwd``),
+which no route of either package takes; its tap loop is the one the
+fused CLA (K15) runs.  The CUDA kernels are
+``sepreformer_torch/csrc/depthwise.cu``; ``depthwise_fwd_plain``,
+``depthwise_bwd_plain`` and ``depthwise_bwd_w_plain`` are the same
+functions in PyTorch, which CPU tensors run.  Tensors are channels-last
 [B, T, C]; the weight is the Conv1d weight [C, 1, K] (odd K), read and
 written in that layout.
 """
@@ -38,6 +41,38 @@ def depthwise_forward(x: torch.Tensor, weight: torch.Tensor,
     half = (weight.shape[-1] - 1) // 2
     xp = F.pad(x.transpose(1, 2), (half, half))
     return F.conv1d(xp, weight, bias, groups=x.shape[-1]).transpose(1, 2)
+
+
+def depthwise_fwd_plain(x: torch.Tensor, weight: torch.Tensor,
+                        bias: torch.Tensor) -> torch.Tensor:
+    """K4's function, the "same" depthwise conv with zero padding: the JAX
+    package's ``depthwise_reference``."""
+    return depthwise_forward(x, weight, bias)
+
+
+def depthwise_fwd(x: torch.Tensor, weight: torch.Tensor,
+                  bias: torch.Tensor) -> torch.Tensor:
+    """K4: ``depthwise_fwd_plain`` for CPU tensors; the kernel for CUDA
+    tensors (no backward: it raises where autograd would record it)."""
+    if x.device.type == "cpu":
+        return depthwise_fwd_plain(x, weight, bias)
+    _build.check_no_grad("depthwise_fwd", x, weight, bias)
+    b, t, c = x.shape
+    k = weight.shape[-1]
+    if k % 2 == 0 or k > MAX_KERNEL:
+        raise ValueError(f"depthwise_fwd: kernel {k} is not odd <= "
+                         f"{MAX_KERNEL}")
+    _build.check_tensor(x, "depthwise_fwd x", (b, t, c), x.device, align=4)
+    _build.check_tensor(weight, "depthwise_fwd weight", (c, 1, k), x.device,
+                        align=4)
+    _build.check_tensor(bias, "depthwise_fwd bias", (c,), x.device, align=4)
+    out = torch.empty_like(x)
+    err = _build.library().sep_depthwise_fwd_f32(
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        b, t, c, k, _build.stream_handle(x.device))
+    _build.check_launch("sep_depthwise_fwd_f32", err)
+    depthwise_fwd.launches += 1
+    return out
 
 
 def depthwise_bwd_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -126,6 +161,7 @@ def depthwise_bwd_w(x: torch.Tensor, dy: torch.Tensor, k: int
     return dw, db
 
 
+depthwise_fwd.launches = 0
 depthwise_bwd.launches = 0
 depthwise_bwd_w.launches = 0
 

@@ -1,0 +1,99 @@
+"""K16: the EGA tail fused with the GCFN that follows it (a GlobalBlock's
+second half).
+
+Replaces ``sepreformer_tpu/ops/pallas/ega_gcfn.py::fused_ega_tail_gcfn``:
+y = x + sigmoid(LN_g(x)·Wg + bg) ⊙ nearest_up(x_down), then the GCFN on
+y with its residual on y.  The CUDA kernel is
+``sepreformer_torch/csrc/ega_gcfn.cu`` (K1's tile with the tail as its
+prologue); ``ega_tail_gcfn_plain`` is the same math in PyTorch (the JAX
+package's ``ega_tail_gcfn_reference``).  ``fused_ega_tail_gcfn`` is an
+autograd function whose backward recomputes the plain version, as the
+JAX package's ``custom_vjp`` does.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from sepreformer_torch.ops.kernels import _build
+from sepreformer_torch.ops.kernels.gcfn import check_params, gcfn_plain
+from sepreformer_torch.ops.resample import nearest_upsample_time
+
+
+def ega_tail_gcfn_plain(x: torch.Tensor, x_down: torch.Tensor,
+                        gate_params: Sequence[torch.Tensor],
+                        gcfn_params: Sequence[torch.Tensor],
+                        eps: float) -> torch.Tensor:
+    """x [B, T, F], x_down [B, L, F] (the attention's output at the
+    bottleneck length); ``gate_params`` = (gns, gnb, wg [F, F] as [in,
+    out], bg), ``gcfn_params`` as ``gcfn_plain``'s."""
+    gns, gnb, wg, bg = gate_params
+    mean = x.mean(dim=-1, keepdim=True)
+    c = x - mean
+    var = (c * c).mean(dim=-1, keepdim=True)
+    gn = c * torch.rsqrt(var + eps) * gns + gnb
+    gate = torch.sigmoid(torch.matmul(gn, wg) + bg)
+    y = x + gate * nearest_upsample_time(x_down, x.shape[1])
+    return gcfn_plain(y, gcfn_params, eps)
+
+
+def pair_kernel(x: torch.Tensor, x_down: torch.Tensor,
+                gate_params: Sequence[torch.Tensor],
+                gcfn_params: Sequence[torch.Tensor],
+                eps: float) -> torch.Tensor:
+    """The K16 launch on CUDA tensors (no autograd)."""
+    name = "fused_ega_tail_gcfn"
+    b, t, f = x.shape
+    length = x_down.shape[1]
+    if t % length:
+        raise ValueError(f"{name}: T {t} is not a multiple of the "
+                         f"bottleneck length {length}")
+    check_params(name, x, gcfn_params)
+    _build.check_tensor(x_down, f"{name} x_down", (b, length, f), x.device)
+    for pname, a, shape in zip(("gns", "gnb", "wg", "bg"), gate_params,
+                               ((f,), (f,), (f, f), (f,))):
+        _build.check_tensor(a, f"{name} {pname}", shape, x.device)
+    out = torch.empty_like(x)
+    err = _build.library().sep_ega_gcfn_f32(
+        x.data_ptr(), x_down.data_ptr(),
+        *(p.data_ptr() for p in gate_params),
+        *(p.data_ptr() for p in gcfn_params), out.data_ptr(), b, t, length,
+        f, float(eps), _build.stream_handle(x.device))
+    _build.check_launch("sep_ega_gcfn_f32", err)
+    fused_ega_tail_gcfn.launches += 1
+    return out
+
+
+class _FusedEgaTailGcfn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, eps, x, x_down, *params):
+        ctx.eps = eps
+        ctx.save_for_backward(x, x_down, *params)
+        if x.device.type == "cpu":
+            return ega_tail_gcfn_plain(x, x_down, params[:4], params[4:],
+                                       eps)
+        return pair_kernel(x, x_down, params[:4], params[4:], eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [a.detach().requires_grad_() for a in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ega_tail_gcfn_plain(inputs[0], inputs[1], inputs[2:6],
+                                      inputs[6:], ctx.eps)
+            grads = torch.autograd.grad(out, inputs, g)
+        return (None, *grads)
+
+
+def fused_ega_tail_gcfn(x: torch.Tensor, x_down: torch.Tensor,
+                        gate_params: Sequence[torch.Tensor],
+                        gcfn_params: Sequence[torch.Tensor],
+                        eps: float) -> torch.Tensor:
+    """K16: ``ega_tail_gcfn_plain`` for CPU tensors; the kernel for CUDA
+    tensors.  Gradients recompute the plain version."""
+    return _FusedEgaTailGcfn.apply(eps, x, x_down, *gate_params,
+                                   *gcfn_params)
+
+
+fused_ega_tail_gcfn.launches = 0

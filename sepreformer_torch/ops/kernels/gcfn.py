@@ -14,6 +14,23 @@ import torch
 from sepreformer_torch.ops.kernels import _build
 
 SUPPORTED_WIDTHS = (128,)
+MAX_BLOCK = 512
+MIN_BLOCK = 64
+
+
+def pick_block(t: int) -> int:
+    """The JAX GCFN and CLA kernels' time block (``gcfn.py::pick_block``,
+    ``cla.py::pick_block``, one rule): t itself up to ``MAX_BLOCK``, else
+    the largest multiple-of-8 divisor of t in [``MIN_BLOCK``,
+    ``MAX_BLOCK``], 0 if none.  The port reads it only as the route
+    condition of the fused CLA (K15) and the EGA-tail+GCFN pair (K16);
+    its kernels tile any T their own way."""
+    if t <= MAX_BLOCK:
+        return t
+    for bt in range(MAX_BLOCK, MIN_BLOCK - 1, -8):
+        if t % bt == 0:
+            return bt
+    return 0
 
 
 def _length_mask(lens: torch.Tensor, t: int) -> torch.Tensor:

@@ -15,13 +15,19 @@ from sepreformer_torch.ops.kernels import (
     attention_train_bwd_plain,
     attention_train_fwd,
     attention_train_plain,
+    cla_plain,
     depthwise_bwd,
     depthwise_bwd_plain,
     depthwise_bwd_w,
     depthwise_bwd_w_plain,
+    depthwise_fwd,
+    depthwise_fwd_plain,
+    ega_tail_gcfn_plain,
     flash_relpos_attention,
     flash_relpos_attention_plain,
     flash_relpos_attention_train,
+    fused_cla,
+    fused_ega_tail_gcfn,
     fused_gcfn,
     fused_gcfn_train,
     gcfn_plain,
@@ -427,3 +433,107 @@ def test_flash_relpos_attention_train_gradient_on_the_card(cuda_device):
         torch.testing.assert_close(g, r, rtol=1e-4,
                                    atol=1e-5 * r.abs().max().item() + 1e-6,
                                    msg=name)
+
+
+def cla_params(gen, f, k, device):
+    """``cla_plain``'s params, wdw as the CLA module passes it: the Conv1d
+    weight [F, 1, k] seen as [k, F]."""
+    h = 2 * f
+    shapes_scales = [((f,), 1.0), ((f,), 1.0), ((f, h), 0.1), ((h,), 0.1),
+                     ((f, k), 0.1), ((f,), 0.1), ((f, h), 0.1), ((h,), 0.1),
+                     ((h,), 0.1), ((h,), 0.1), ((h, f), 0.1), ((f,), 0.1),
+                     ((f,), 0.5)]
+    out = [(torch.randn(s, generator=gen) * sc).to(device)
+           for s, sc in shapes_scales]
+    out[8] = out[8] + 1.0               # bn_s near 1
+    out[4] = out[4].t()                 # [k, F], Conv1d storage
+    return out
+
+
+def pair_params(gen, f, device):
+    gate = [(torch.randn(s, generator=gen) * sc).to(device)
+            for s, sc in (((f,), 1.0), ((f,), 1.0), ((f, f), 0.1),
+                          ((f,), 0.1))]
+    return gate, gcfn_params(gen, f, device)
+
+
+@pytest.mark.cuda
+# 8000 rows: many tiles; 77: one partial tile whose halo reaches both ends
+@pytest.mark.parametrize("b,t", [(4, 8000), (3, 77)])
+def test_cla_kernel_matches_plain(cuda_device, b, t):
+    gen = torch.Generator().manual_seed(31)
+    x = torch.randn(b, t, 128, generator=gen).to(cuda_device)
+    params = cla_params(gen, 128, 65, cuda_device)
+    ref = cla_plain(x, params, 1e-5)
+    before = fused_cla.launches
+    with torch.no_grad():
+        got = fused_cla(x, params, 1e-5)
+    torch.cuda.synchronize()
+    assert fused_cla.launches == before + 1
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+# r = 16 over many tiles; r = 1 on one partial tile
+@pytest.mark.parametrize("b,t,length", [(4, 8000, 500), (2, 77, 77)])
+def test_pair_kernel_matches_plain(cuda_device, b, t, length):
+    gen = torch.Generator().manual_seed(32)
+    x = torch.randn(b, t, 128, generator=gen).to(cuda_device)
+    xd = torch.randn(b, length, 128, generator=gen).to(cuda_device)
+    gate, gcfn = pair_params(gen, 128, cuda_device)
+    ref = ega_tail_gcfn_plain(x, xd, gate, gcfn, 1e-5)
+    before = fused_ega_tail_gcfn.launches
+    with torch.no_grad():
+        got = fused_ega_tail_gcfn(x, xd, gate, gcfn, 1e-5)
+    torch.cuda.synchronize()
+    assert fused_ega_tail_gcfn.launches == before + 1
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="not a multiple"):
+        fused_ega_tail_gcfn(x[:, :-1].contiguous(), xd, gate, gcfn, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,c,k", [(4, 8000, 128, 65), (3, 77, 40, 9)])
+def test_depthwise_fwd_kernel_matches_plain(cuda_device, b, t, c, k):
+    gen = torch.Generator().manual_seed(33)
+    x = torch.randn(b, t, c, generator=gen).to(cuda_device)
+    w = (torch.randn(c, 1, k, generator=gen) * 0.1).to(cuda_device)
+    bias = torch.randn(c, generator=gen).to(cuda_device)
+    before = depthwise_fwd.launches
+    got = depthwise_fwd(x, w, bias)
+    torch.cuda.synchronize()
+    assert depthwise_fwd.launches == before + 1
+    torch.testing.assert_close(got, depthwise_fwd_plain(x, w, bias),
+                               **CARD_TOL)
+
+
+@pytest.mark.cuda
+def test_fused_block_gradients_on_the_card(cuda_device):
+    """K15 and K16 under autograd: the forward launches the kernel, the
+    backward recomputes the plain version; every gradient within 1e-4 of
+    its largest value of the plain version's own."""
+    gen = torch.Generator().manual_seed(34)
+    b, t, length = 2, 1000, 125
+    x = torch.randn(b, t, 128, generator=gen).to(cuda_device)
+    xd = torch.randn(b, length, 128, generator=gen).to(cuda_device)
+    w = torch.randn(b, t, 128, generator=gen).to(cuda_device)
+    cla = cla_params(gen, 128, 65, cuda_device)
+    gate, gcfn = pair_params(gen, 128, cuda_device)
+    cases = (
+        (fused_cla, cla_plain, [x], cla, "fused_cla"),
+        (lambda x, xd, *p: fused_ega_tail_gcfn(x, xd, p[:4], p[4:], 1e-5),
+         lambda x, xd, *p: ega_tail_gcfn_plain(x, xd, p[:4], p[4:], 1e-5),
+         [x, xd], gate + gcfn, "fused_ega_tail_gcfn"))
+    for fused, plain, args, params, name in cases:
+        grads = []
+        for fn in (fused, plain):
+            leaves = [a.detach().clone().requires_grad_()
+                      for a in args + params]
+            if name == "fused_cla":
+                out = fn(leaves[0], leaves[1:], 1e-5)
+            else:
+                out = fn(*leaves)
+            (out * w).sum().backward()
+            grads.append([a.grad for a in leaves])
+        for g, r in zip(*grads):
+            assert (g - r).abs().max() <= 1e-4 * r.abs().max(), name

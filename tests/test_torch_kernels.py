@@ -148,10 +148,12 @@ def test_wrappers_refuse_other_devices():
 
 def test_build_names_library_by_source_hash():
     srcs = [p.name for p in _build.sources()]
-    assert srcs == ["attention_train.cu", "depthwise.cu", "flash_relpos.cu",
-                    "gcfn.cu", "gcfn_train.cu", "pit.cu", "relpos.cu",
-                    "softmax_pv.cu", "softmax_pv_train.cu"]
-    assert [p.name for p in _build.headers()] == ["gcfn_tile.cuh",
+    assert srcs == ["attention_train.cu", "cla.cu", "depthwise.cu",
+                    "ega_gcfn.cu", "flash_relpos.cu", "gcfn.cu",
+                    "gcfn_train.cu", "pit.cu", "relpos.cu", "softmax_pv.cu",
+                    "softmax_pv_train.cu"]
+    assert [p.name for p in _build.headers()] == ["depthwise_tap.cuh",
+                                                  "gcfn_tile.cuh",
                                                   "hash_dropout.cuh"]
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
