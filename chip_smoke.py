@@ -16,9 +16,13 @@ Phases, each of which fails the run:
                batch, and K12 (flash rel-pos attention) for the decoder
                batch of a 70 s request ([2, 8750, 128], maxlen 2000),
                and the fused eval blocks' K15 (CLA) and K16 (EGA tail +
-               GCFN) and the k65 forward K4 at [4, 8000, 128]; times of
-               the kernel, the plain version, a library call where one
-               exists, and the least time the card could take.
+               GCFN) and the k65 forward K4 at [4, 8000, 128], and the
+               two-tensor forms K3b (beside K3's shape) and K9b/K10b
+               (beside K9's and K10's); times of the kernel, the plain
+               version, a library call where one exists, and the least
+               time the card could take; and the port's scores producer
+               followed by K3 against a two-tensor producer (no add
+               pass) followed by K3b, at K3's shape.
 3. serve     - Base at full width, seeded weights: three requests through
                ``Separator.__call__`` and one batched B=4 x 4 s forward
                with ragged lengths; every eval kernel's count must rise.
@@ -31,6 +35,16 @@ Phases, each of which fails the run:
                0.5 so they carry signal; a control run on the card with
                TF32 allowed must exceed the limit, so the check can see a
                product that lost float32 accuracy.
+5b. eval_grad - gradients through the eval forward, as ``jax.grad`` of
+               the JAX package's takes them through its eval kernels'
+               custom VJPs: Base at full width, seeded weights, every
+               LayerScale at 0.5, a 1 s request with lengths on the
+               default route (K1, K2, K3 launch); the gradient of a fixed
+               scalar of the output with respect to the mixture and
+               every parameter, card against CPU within phase 7's limit,
+               which a TF32 control exceeds; then K12's gradients (q, k,
+               v, the table) at [1, 2000, 128] with lengths, card against
+               CPU.
 6. train     - Base at full width, seeded weights: six ``train_step``s on
                seeded B=2 x 4 s batches (lr from the warmup schedule,
                alpha 0.4); the losses stay finite, the parameters and the
@@ -126,11 +140,14 @@ CHUNK_SECONDS = 8.0            # phase 9's chunked serving
 KERNEL_SYMBOLS = {"fused_gcfn": "gcfn_kernel",
                   "materialize_pos_kt": "relpos_kernel",
                   "softmax_pv": "softmax_pv_kernel",
+                  "softmax_pv_bias": "softmax_pv_kernel",
                   "depthwise_bwd": "depthwise_bwd",
                   "gcfn_train_fwd": "gcfn_train_fwd_kernel",
                   "gcfn_train_bwd": "gcfn_train_bwd",
                   "softmax_pv_train_fwd": "softmax_pv_train_fwd_kernel",
                   "softmax_pv_train_bwd": "softmax_pv_train_bwd_kernel",
+                  "softmax_pv_train_fwd_bias": "softmax_pv_train_fwd_kernel",
+                  "softmax_pv_train_bwd_bias": "softmax_pv_train_bwd_kernel",
                   "sisnr_pairwise_neg_fused": "pit_sisnr_kernel",
                   "flash_relpos_attention": "flash_relpos_kernel",
                   "depthwise_bwd_w": "depthwise_dw",
@@ -144,11 +161,15 @@ LONG_KERNELS = ("flash_relpos_attention",)
 ROUTE_KERNELS = ("depthwise_bwd_w", "attention_train_fwd",
                  "attention_train_bwd")
 FUSED_KERNELS = ("fused_cla", "fused_ega_tail_gcfn")
-OFF_PATH_KERNELS = ("depthwise_fwd",)   # K4: no route takes it
+# K4 and the two-tensor forms K3b, K9b, K10b: no route takes them
+OFF_PATH_KERNELS = ("depthwise_fwd", "softmax_pv_bias",
+                    "softmax_pv_train_fwd_bias", "softmax_pv_train_bwd_bias")
 TRAIN_KERNELS = ("materialize_pos_kt", "depthwise_bwd", "gcfn_train_fwd",
                  "gcfn_train_bwd", "softmax_pv_train_fwd",
                  "softmax_pv_train_bwd", "sisnr_pairwise_neg_fused")
-NO_BACKWARD = ("fused_gcfn", "softmax_pv", "flash_relpos_attention")
+# eval kernels, which the train path must not take (their gradients
+# recompute the plain versions; training has K7/K8, K9/K10, K13/K14)
+EVAL_ONLY_KERNELS = ("fused_gcfn", "softmax_pv", "flash_relpos_attention")
 # |card - cpu| over max|out| allowed in phase 5; see PERF.md for the
 # readings it sits between (float32 on the card, and TF32 allowed)
 CPU_REL_LIMIT = 3e-5
@@ -492,7 +513,129 @@ def kernel_phase(torch, K, device_ms):
     flash_kernel_row(torch, K, device_ms, randn, record)
     attention_train_rows(torch, K, device_ms, randn, record)
     fused_kernel_rows(torch, K, device_ms, randn, record)
+    bias_kernel_rows(torch, K, device_ms, randn, record)
     return results
+
+
+def bias_kernel_rows(torch, K, device_ms, randn, record):
+    """The two-tensor forms, which no route takes: K3b at K3's shape
+    (decoder attention of a B=4 x 4 s forward, [8, 8, 512, 512], ragged)
+    and K9b/K10b at K9's and K10's ([4, 8, 512, 512], length 500, p
+    0.05), each against its plain version; the library yardstick of K3b
+    is softmax(scores + bias) · V.  Then the port's scores producer
+    (``blocks.fused_pv_scores``: the two products, an add pass and a
+    scale pass) followed by K3, against a two-tensor producer (q scaled
+    first, so both products come scaled; the bias product's layout copy
+    and no add) followed by K3b, at the same shape: a measurement, on no
+    route."""
+    from sepreformer_torch.models.blocks import fused_pv_scores, pad_time
+
+    dev = torch.device("cuda")
+    b, heads, lp, length, f = 8, 8, 512, 500, 128
+    d = f // heads
+    scores, bias = randn(b, heads, lp, lp, scale=3.0), randn(b, heads, lp, lp)
+    v = randn(b, lp, f)
+    klens = torch.tensor([500, 500, 438, 438, 376, 376, 313, 313], device=dev)
+    got = K.softmax_pv(scores, v, klens, length, bias=bias)
+    ref = K.softmax_pv_plain(scores, v, klens, length, bias)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+    kmask = torch.arange(lp, device=dev)[None] < klens[:, None]
+    vh = v.reshape(b, lp, heads, d).permute(0, 2, 1, 3).contiguous()
+
+    def library():
+        masked = torch.where(kmask[:, None, None, :], scores + bias,
+                             torch.tensor(-1e30, device=dev))
+        return torch.matmul(torch.softmax(masked, dim=-1), vh)
+
+    keys = sum(klens.tolist())               # valid keys over the batch
+    record(K.softmax_pv_bias,
+           lambda: K.softmax_pv(scores, v, klens, length, bias=bias),
+           lambda: K.softmax_pv_plain(scores, v, klens, length, bias),
+           library, (got - ref).abs().max().item(),
+           # both score tensors and V of the valid keys in, out written
+           4 * (2 * heads * lp * keys + keys * f + b * lp * f + b),
+           heads * lp * keys * (2 * d + 5),
+           source="sepreformer_torch/csrc/softmax_pv.cu",
+           replaces="sepreformer_tpu/ops/pallas/softmax_pv.py:288",
+           shape=(f"scores, bias [{b}, {heads}, {lp}, {lp}], v [{b}, {lp}, "
+                  f"{f}], lens {klens.tolist()}, length {length}"),
+           tolerance="rtol 1e-4, atol 1e-5 (float32)")
+
+    # the producers at the same shape: q, k [8, 500, 8, 16], Base's table
+    maxlen = 2000
+    q, k = randn(b, length, heads, d), randn(b, length, heads, d)
+    pos_kt = K.materialize_pos_kt(randn(2 * maxlen, d), lp, maxlen)
+
+    def two_tensor_scores():
+        qp = pad_time(q, lp).permute(0, 2, 1, 3) * (1.0 / math.sqrt(d))
+        kp = pad_time(k, lp).permute(0, 2, 3, 1)
+        qi = qp.permute(2, 0, 1, 3).reshape(lp, b * heads, d)
+        rel = torch.matmul(qi, pos_kt).reshape(lp, b, heads, lp)
+        return torch.matmul(qp, kp), rel.permute(1, 2, 0, 3).contiguous()
+
+    def one_tensor():
+        return K.softmax_pv(fused_pv_scores(q, k, pos_kt), v, klens, length)
+
+    def two_tensor():
+        qk, rel = two_tensor_scores()
+        return K.softmax_pv(qk, v, klens, length, bias=rel)
+
+    diff = (two_tensor() - one_tensor()).abs().max().item()
+    one_ms, two_ms = device_ms(one_tensor), device_ms(two_tensor)
+    print(f"[kernels] scores producer + K3 {one_ms:.4f} ms against the "
+          f"two-tensor producer + K3b {two_ms:.4f} ms (scores [{b}, "
+          f"{heads}, {lp}, {lp}], lens {klens.tolist()}); max |two - one| "
+          f"{diff:.3e}")
+    assert diff <= 1e-4, "the two producers disagree"
+
+    b, length, p, seed = 4, 500, 0.05, 1234
+    scores, bias = randn(b, heads, lp, lp, scale=3.0), randn(b, heads, lp, lp)
+    v, dout = randn(b, lp, f), randn(b, lp, f)
+    key_len = torch.full((b,), length, dtype=torch.int32, device=dev)
+    out, row_max, row_sum = K.softmax_pv_train_fwd_bias(
+        scores, bias, v, seed, key_len, length, p)
+    ref = K.softmax_pv_dropout_plain(scores, v, seed, None, length, p, bias)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    keys = b * length
+    record(K.softmax_pv_train_fwd_bias,
+           lambda: K.softmax_pv_train_fwd_bias(scores, bias, v, seed,
+                                               key_len, length, p),
+           lambda: K.softmax_pv_dropout_plain(scores, v, seed, None, length,
+                                              p, bias),
+           None, (out - ref).abs().max().item(),
+           4 * (2 * heads * lp * keys + keys * f + b * lp * f),
+           heads * lp * keys * (2 * d + 5),
+           source="sepreformer_torch/csrc/softmax_pv_train.cu",
+           replaces="sepreformer_tpu/ops/pallas/softmax_pv_train.py:221",
+           shape=(f"scores, bias [{b}, {heads}, {lp}, {lp}], v [{b}, {lp}, "
+                  f"{f}], length {length}, p {p}"),
+           tolerance="rtol 1e-4, atol 1e-5 (float32)")
+    ds, dv = K.softmax_pv_train_bwd_bias(scores, bias, v, out, dout, row_max,
+                                         row_sum, seed, key_len, length, p)
+    ds_ref, dv_ref = K.softmax_pv_dropout_bwd_plain(scores, v, seed, None,
+                                                    length, p, dout, bias)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ds, ds_ref, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(dv, dv_ref, rtol=1e-4, atol=1e-4)
+    record(K.softmax_pv_train_bwd_bias,
+           lambda: K.softmax_pv_train_bwd_bias(scores, bias, v, out, dout,
+                                               row_max, row_sum, seed,
+                                               key_len, length, p),
+           lambda: K.softmax_pv_dropout_bwd_plain(scores, v, seed, None,
+                                                  length, p, dout, bias),
+           None, max((ds - ds_ref).abs().max().item(),
+                     (dv - dv_ref).abs().max().item()),
+           # as K10's, with the bias of the valid keys read too
+           4 * (2 * heads * lp * keys + scores.numel() + keys * f
+                + 2 * b * lp * f),
+           heads * lp * keys * (4 * d + 9),
+           source="sepreformer_torch/csrc/softmax_pv_train.cu",
+           replaces="sepreformer_tpu/ops/pallas/softmax_pv_train.py:249",
+           shape=(f"scores, bias [{b}, {heads}, {lp}, {lp}], v, out, dout "
+                  f"[{b}, {lp}, {f}], length {length}, p {p}"),
+           tolerance="rtol 1e-4; atol 1e-5 dScores, 1e-4 dV")
 
 
 def fused_kernel_rows(torch, K, device_ms, randn, record):
@@ -864,6 +1007,108 @@ def cpu_phase(torch, np, sep_torch, sep):
         "the limit does not catch TF32 products")
 
 
+def eval_grad_phase(torch, np, sep_torch, K):
+    """Gradients through the eval forward: K1, K2 and K3 launch in the
+    card's forward and their gradients recompute the plain versions (K2's
+    is its own adjoint).  A fixed scalar of the output (the separated
+    audio and the aux heads, each weighted by seeded noise) is
+    differentiated with respect to the mixture and every parameter, on
+    the card and on the CPU from the same weights; the largest |card -
+    cpu| over every gradient, over the largest CPU gradient, must stay
+    within phase 7's limit, and a control with TF32 allowed must exceed
+    it.  Then K12 alone: the gradients of q, k, v and the table at [1,
+    2000, 128] with lengths, card against CPU."""
+    variant = sep_torch.get_variant("SepReformer_Base_WSJ0")
+    model = seeded_model(torch, sep_torch, variant, seed=3, device="cpu")
+    rng = np.random.default_rng(3)
+    n = SAMPLE_RATE
+    mix = torch.from_numpy((rng.normal(size=(1, n)) * 0.1).astype(
+        np.float32))
+    lengths = torch.tensor([n])
+    spks, stages = variant.model.num_spks, variant.model.num_stages
+    w_audio = torch.from_numpy(rng.normal(size=(spks, 1, n)).astype(
+        np.float32))
+    w_aux = torch.from_numpy(rng.normal(size=(stages, spks, 1, n)).astype(
+        np.float32))
+
+    def grads(device):
+        m = copy.deepcopy(model).to(device)
+        x = mix.detach().to(device, copy=True).requires_grad_()
+        audio, aux = m(x, lengths=lengths.to(device))
+        value = ((audio * w_audio.to(device)).sum()
+                 + (aux * w_aux.to(device)).sum())
+        names = ["mixture"] + [name for name, _ in m.named_parameters()]
+        got = torch.autograd.grad(value, [x] + list(m.parameters()),
+                                  allow_unused=True)
+        return float(value.detach()), {
+            name: g.detach().cpu() for name, g in zip(names, got)
+            if g is not None}
+
+    t0 = time.perf_counter()
+    cpu_value, cpu_grads = grads("cpu")
+    print(f"[eval_grad] CPU forward and backward "
+          f"{time.perf_counter() - t0:.2f} s; {len(cpu_grads)} gradients "
+          f"(the mixture and parameters)")
+    scale = max(g.abs().max().item() for g in cpu_grads.values())
+    errs = {}
+    for label, context in (("float32", contextlib.nullcontext),
+                           ("control, TF32 allowed",
+                            lambda: tf32_allowed(torch))):
+        K.reset_launches()
+        t0 = time.perf_counter()
+        with context():
+            value, card_grads = grads("cuda")
+        dt = time.perf_counter() - t0
+        counts = K.launch_counts()
+        missing = [n for n in EVAL_KERNELS if counts[n] == 0]
+        assert not missing, f"eval kernels never launched: {missing}"
+        assert card_grads.keys() == cpu_grads.keys(), label
+        assert all(torch.isfinite(g).all() for g in card_grads.values())
+        worst = max(card_grads, key=lambda n: (card_grads[n]
+                                               - cpu_grads[n]).abs().max())
+        errs[label] = (card_grads[worst] - cpu_grads[worst]).abs().max(
+        ).item() / scale
+        value_err = abs(value - cpu_value) / abs(cpu_value)
+        print(f"[eval_grad] {label}: {dt:.2f} s, launches "
+              f"{ {n: counts[n] for n in EVAL_KERNELS} }; value {value:.6f}"
+              f" (|card - cpu| / |cpu| {value_err:.3e}); max |card - cpu| "
+              f"over every gradient / max |cpu gradient| {errs[label]:.3e} "
+              f"(max {scale:.3e}, worst {worst}), limit "
+              f"{TRAIN_CPU_REL_LIMIT:.1e}")
+        if label == "float32":
+            assert value_err <= TRAIN_CPU_REL_LIMIT, "value disagrees"
+    assert errs["float32"] <= TRAIN_CPU_REL_LIMIT, (
+        "eval-forward gradients disagree with the CPU")
+    assert errs["control, TF32 allowed"] > TRAIN_CPU_REL_LIMIT, (
+        "the limit does not catch TF32 products")
+
+    gen = torch.Generator().manual_seed(12)
+    length, maxlen = 2000, variant.model.pos_maxlen
+    q, k, v, w = (torch.randn(1, length, 128, generator=gen)
+                  for _ in range(4))
+    table = torch.randn(2 * maxlen, 16, generator=gen)
+    lens = torch.tensor([1700])
+
+    def k12_grads(device):
+        leaves = [a.to(device, copy=True).requires_grad_()
+                  for a in (q, k, v, table)]
+        out = K.flash_relpos_attention(*leaves, maxlen, lens.to(device))
+        got = torch.autograd.grad((out * w.to(device)).sum(), leaves)
+        return [g.cpu() for g in got]
+
+    K.reset_launches()
+    card = k12_grads("cuda")
+    assert K.flash_relpos_attention.launches == 1
+    cpu = k12_grads("cpu")
+    scale = max(g.abs().max().item() for g in cpu)
+    err = max((a - b).abs().max().item() for a, b in zip(card, cpu)) / scale
+    print(f"[eval_grad] K12 [1, {length}, 128], maxlen {maxlen}, lens "
+          f"{lens.tolist()}: max |card - cpu| over dq, dk, dv, dtable / max "
+          f"|cpu gradient| {err:.3e} (max {scale:.3e}), limit "
+          f"{TRAIN_CPU_REL_LIMIT:.1e}")
+    assert err <= TRAIN_CPU_REL_LIMIT, "K12's gradients disagree"
+
+
 def synthetic_batch(torch, np, rng, batch, samples, spks=2):
     """A seeded stand-in for a training batch: ``spks`` sources of noise
     shaped by random 9-tap filters at 0.1 rms, and their sum.  Returns
@@ -953,8 +1198,8 @@ def train_phase(torch, np, sep_torch, K, busy_us, kernel_events, steps=6):
     print(f"[train] launches over {steps} steps: {counts}")
     missing = [n for n in TRAIN_KERNELS if counts[n] == 0]
     assert not missing, f"train kernels never launched: {missing}"
-    stray = [n for n in NO_BACKWARD if counts[n]]
-    assert not stray, f"eval kernels without a backward ran: {stray}"
+    stray = [n for n in EVAL_ONLY_KERNELS if counts[n]]
+    assert not stray, f"eval-only kernels on the train path: {stray}"
     gcfns = sum(type(m).__name__ == "GCFN" for m in model.modules())
     per_step = {n: counts[n] / steps for n in ("gcfn_train_fwd",
                                                "gcfn_train_bwd")}
@@ -2035,6 +2280,7 @@ def main() -> int:
             kernel_events)
         run("cpu", cpu_phase, torch, np, sep_torch, served[0])
         del served
+    run("eval_grad", eval_grad_phase, torch, np, sep_torch, K)
     train_counts = run("train", train_phase, torch, np, sep_torch, K,
                        busy_us, kernel_events) or {}
     run("train_cpu", train_cpu_phase, torch, np, sep_torch)

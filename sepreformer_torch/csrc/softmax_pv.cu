@@ -1,19 +1,23 @@
 // Masked softmax·V (eval): for each (b, h, i),
 //   lim = min(length, lens[b]);  p = softmax(scores[b, h, i, :lim]) in f32;
 //   out[b, i, h*D:(h+1)*D] = sum_j p[j] * v[b, j, h*D:(h+1)*D].
+// The two-tensor form (K3b) takes the softmax of scores + bias, the two
+// [B, H, Lp, Lp] tensors summed in f32 key by key as they are loaded.
 // Keys j >= lim are the -1e30 keys of the reference: their weight is
-// exactly 0 in float32, so they are skipped and never read.  V and the
-// output are channels-last [B, Lp, H*D].
+// exactly 0 in float32, so they are skipped and never read, in either
+// tensor.  V and the output are channels-last [B, Lp, H*D].
 //
 // Replaces: sepreformer_tpu/ops/pallas/softmax_pv.py::softmax_pv
-//           (_kernel, full row, and _kernel_kb, query- and key-blocked).
+//           (_kernel, full row, and _kernel_kb, query- and key-blocked;
+//           with bias=, _softmax_pv2_impl's _kernel2).
 // The TPU needed two bodies because a full [Lp, Lp] row block did not
 // fit VMEM at long lengths.  This one kernel streams the keys in chunks
 // with an online softmax, so it serves every length the path uses.
 //
 // What bounds it on the H100: each score is read once and used for one
 // exp and D multiply-adds, so it is bound by the bytes of the scores
-// tensor (B*H*Lp*lim*4: 67 MB at B=8, H=8, Lp=512) at 3.35 TB/s.
+// tensor (B*H*Lp*lim*4: 67 MB at B=8, H=8, Lp=512) at 3.35 TB/s; the
+// two-tensor form reads twice those bytes for one more add per key.
 //
 // Design: one block of 8 warps per (query tile of 64 rows, head, batch).
 // The block stages a chunk of V's head slice in shared memory (rows
@@ -57,9 +61,10 @@ struct PvShape {
       sizeof(float4) * (size_t)KC * RS + kStateBytes;
 };
 
-template <int D>
+template <int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads)
 softmax_pv_kernel(const float* __restrict__ scores,
+                  const float* __restrict__ bias,
                   const float* __restrict__ v, const int* __restrict__ lens,
                   float* __restrict__ out, int H, int Lp, int F, int length) {
   using S = PvShape<D>;
@@ -96,13 +101,22 @@ softmax_pv_kernel(const float* __restrict__ scores,
     __syncthreads();
 
     for (int r = warp; r < rows; r += kWarps) {
-      const float* srow = sb + (size_t)(i0 + r) * Lp + k0;
+      const size_t row_off = (size_t)(i0 + r) * Lp + k0;
+      const float* srow = sb + row_off;
       // all of the lane's scores of this chunk in flight at once
       float sv[NPL];
 #pragma unroll
       for (int q = 0; q < NPL; ++q) {
         const int j = lane + 32 * q;
         sv[q] = j < kc ? srow[j] : -INFINITY;
+      }
+      if constexpr (HAS_BIAS) {
+        const float* brow = bias + ((size_t)b * H + h) * Lp * Lp + row_off;
+#pragma unroll
+        for (int q = 0; q < NPL; ++q) {
+          const int j = lane + 32 * q;
+          if (j < kc) sv[q] += brow[j];
+        }
       }
       float m = -INFINITY;
 #pragma unroll
@@ -157,15 +171,24 @@ softmax_pv_kernel(const float* __restrict__ scores,
   }
 }
 
-template <int D>
-int launch(const float* scores, const float* v, const int* lens, float* out,
-           int B, int H, int Lp, int F, int length, cudaStream_t stream) {
+template <int D, bool HAS_BIAS>
+int launch(const float* scores, const float* bias, const float* v,
+           const int* lens, float* out, int B, int H, int Lp, int F,
+           int length, cudaStream_t stream) {
   constexpr size_t smem = PvShape<D>::smem_bytes;
   static_assert(smem <= kSmemBytes, "fits the default smem limit");
   dim3 grid((Lp + kRows - 1) / kRows, H, B);
-  softmax_pv_kernel<D><<<grid, kThreads, smem, stream>>>(scores, v, lens, out,
-                                                         H, Lp, F, length);
+  softmax_pv_kernel<D, HAS_BIAS><<<grid, kThreads, smem, stream>>>(
+      scores, bias, v, lens, out, H, Lp, F, length);
   return (int)cudaGetLastError();
+}
+
+int check(int B, int H, int Lp, int F, int length) {
+  if (H <= 0 || F % H != 0 || length < 1 || length > Lp || B > 65535 ||
+      H > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (F / H != 16) return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 }  // namespace
@@ -176,14 +199,26 @@ int launch(const float* scores, const float* v, const int* lens, float* out,
 extern "C" int sep_softmax_pv_f32(const void* scores, const void* v,
                                   const void* lens, void* out, int B, int H,
                                   int Lp, int F, int length, void* stream) {
-  auto s = static_cast<const float*>(scores);
-  auto vv = static_cast<const float*>(v);
-  auto l = static_cast<const int*>(lens);
-  auto o = static_cast<float*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Lp <= 0) return 0;
-  if (H <= 0 || F % H != 0 || length < 1 || length > Lp)
-    return (int)cudaErrorInvalidValue;
-  if (F / H != 16) return (int)cudaErrorInvalidValue;
-  return launch<16>(s, vv, l, o, B, H, Lp, F, length, st);
+  if (int err = check(B, H, Lp, F, length)) return err;
+  return launch<16, false>(
+      static_cast<const float*>(scores), nullptr,
+      static_cast<const float*>(v), static_cast<const int*>(lens),
+      static_cast<float*>(out), B, H, Lp, F, length,
+      static_cast<cudaStream_t>(stream));
+}
+
+// K3b: the same on scores + bias, bias a second device float32
+// [B, H, Lp, Lp] tensor.
+extern "C" int sep_softmax_pv_bias_f32(const void* scores, const void* bias,
+                                       const void* v, const void* lens,
+                                       void* out, int B, int H, int Lp,
+                                       int F, int length, void* stream) {
+  if (B <= 0 || Lp <= 0) return 0;
+  if (int err = check(B, H, Lp, F, length)) return err;
+  return launch<16, true>(
+      static_cast<const float*>(scores), static_cast<const float*>(bias),
+      static_cast<const float*>(v), static_cast<const int*>(lens),
+      static_cast<float*>(out), B, H, Lp, F, length,
+      static_cast<cudaStream_t>(stream));
 }

@@ -11,11 +11,15 @@
 //   dP     = (dOut[i] . V[j]) * keep / (1 - p)
 //   dS     = P * (dP - rowsum(dP * P)),  rowsum(dP * P) = dOut[i] . out[i]
 // Keys j >= lim have P = 0: the forward skips them and the backward writes
-// dS = 0 there.  V, out, dOut and dV are channels-last [B, Lp, H*D].
+// dS = 0 there.  V, out, dOut and dV are channels-last [B, Lp, H*D].  The
+// two-tensor forms (K9b, K10b) read s = scores + bias, both [B, H, Lp, Lp],
+// summed in f32 as they are loaded, in the forward and again where the
+// backward recomputes P; dS is then also the bias's cotangent.
 //
 // Replaces: sepreformer_tpu/ops/pallas/softmax_pv_train.py::
 //           softmax_pv_dropout, forward _fwd_impl (body _fwd_kernel) and
-//           backward _bwd_impl (body _bwd_kernel).
+//           backward _bwd_impl (body _bwd_kernel), each with has_bias
+//           False and True.
 //
 // The dropout hash is ops/pallas/gcfn_train.py::keep_mask, bit for bit
 // (hash_dropout.cuh, shared with K7 and K8), at site 0.
@@ -23,7 +27,8 @@
 // What bounds them on the H100: the forward reads each valid score once
 // (B*H*Lp*lim floats, 33 MB at B=4, H=8, Lp=512, lim=500) and the backward
 // reads every score and writes every dS (2 * B*H*Lp*Lp floats, 67 MB); both
-// do a few tens of operations per score, so both are bound by bytes.
+// do a few tens of operations per score, so both are bound by bytes.  The
+// two-tensor forms read the bias's bytes too.
 //
 // Design.  K9 is K3's kernel (csrc/softmax_pv.cu) with the mask applied to
 // the numerator only: one block per (64 query rows, head, batch) streams
@@ -74,9 +79,10 @@ struct FwdShape {
       sizeof(float4) * (size_t)KC * RS + kStateBytes;
 };
 
-template <int D>
+template <int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads)
 softmax_pv_train_fwd_kernel(const float* __restrict__ scores,
+                            const float* __restrict__ bias,
                             const float* __restrict__ v,
                             const int* __restrict__ lens,
                             float* __restrict__ out,
@@ -119,12 +125,21 @@ softmax_pv_train_fwd_kernel(const float* __restrict__ scores,
     __syncthreads();
 
     for (int r = warp; r < rows; r += kWarps) {
-      const float* srow = sb + (size_t)(i0 + r) * Lp + k0;
+      const size_t row_off = (size_t)(i0 + r) * Lp + k0;
+      const float* srow = sb + row_off;
       float sv[NPL];
 #pragma unroll
       for (int q = 0; q < NPL; ++q) {
         const int j = lane + 32 * q;
         sv[q] = j < kc ? srow[j] : -INFINITY;
+      }
+      if constexpr (HAS_BIAS) {
+        const float* brow = bias + ((size_t)b * H + h) * Lp * Lp + row_off;
+#pragma unroll
+        for (int q = 0; q < NPL; ++q) {
+          const int j = lane + 32 * q;
+          if (j < kc) sv[q] += brow[j];
+        }
       }
       float m = -INFINITY;
 #pragma unroll
@@ -189,9 +204,10 @@ softmax_pv_train_fwd_kernel(const float* __restrict__ scores,
   }
 }
 
-template <int D>
+template <int D, bool HAS_BIAS>
 __global__ void __launch_bounds__(kThreads)
 softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
+                            const float* __restrict__ bias,
                             const float* __restrict__ v,
                             const float* __restrict__ out,
                             const float* __restrict__ dout,
@@ -244,7 +260,9 @@ softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
       const int i = r0 + r;
       float ds = 0.f;
       if (valid) {
-        const float p = expf(sb[(size_t)i * Lp + j] - m_s[r]) * linv_s[r];
+        float s = sb[(size_t)i * Lp + j];
+        if constexpr (HAS_BIAS) s += bias[bh * Lp * Lp + (size_t)i * Lp + j];
+        const float p = expf(s - m_s[r]) * linv_s[r];
         float scale = 1.f;
         if (threshold)
           scale = sep_keep(seed_word, (uint32_t)(bh * Lp + i), (uint32_t)j,
@@ -276,30 +294,31 @@ softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
   }
 }
 
-template <int D>
-int launch_fwd(const float* scores, const float* v, const int* lens,
-               float* out, float* row_max, float* row_sum, int B, int H,
-               int Lp, int F, int length, uint32_t seed_word,
+template <int D, bool HAS_BIAS>
+int launch_fwd(const float* scores, const float* bias, const float* v,
+               const int* lens, float* out, float* row_max, float* row_sum,
+               int B, int H, int Lp, int F, int length, uint32_t seed_word,
                uint32_t threshold, float keep_scale, cudaStream_t stream) {
   constexpr size_t smem = FwdShape<D>::smem_bytes;
   static_assert(smem <= kSmemBytes, "fits the default smem limit");
   dim3 grid((Lp + kRows - 1) / kRows, H, B);
-  softmax_pv_train_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      scores, v, lens, out, row_max, row_sum, H, Lp, F, length, seed_word,
-      threshold, keep_scale);
+  softmax_pv_train_fwd_kernel<D, HAS_BIAS><<<grid, kThreads, smem, stream>>>(
+      scores, bias, v, lens, out, row_max, row_sum, H, Lp, F, length,
+      seed_word, threshold, keep_scale);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_bwd(const float* scores, const float* v, const float* out,
-               const float* dout, const float* row_max, const float* row_sum,
-               const int* lens, float* dscores, float* dv, int B, int H,
-               int Lp, int F, int length, uint32_t seed_word,
-               uint32_t threshold, float keep_scale, cudaStream_t stream) {
+template <int D, bool HAS_BIAS>
+int launch_bwd(const float* scores, const float* bias, const float* v,
+               const float* out, const float* dout, const float* row_max,
+               const float* row_sum, const int* lens, float* dscores,
+               float* dv, int B, int H, int Lp, int F, int length,
+               uint32_t seed_word, uint32_t threshold, float keep_scale,
+               cudaStream_t stream) {
   dim3 grid((Lp + kKeys - 1) / kKeys, H, B);
-  softmax_pv_train_bwd_kernel<D><<<grid, kThreads, 0, stream>>>(
-      scores, v, out, dout, row_max, row_sum, lens, dscores, dv, H, Lp, F,
-      length, seed_word, threshold, keep_scale);
+  softmax_pv_train_bwd_kernel<D, HAS_BIAS><<<grid, kThreads, 0, stream>>>(
+      scores, bias, v, out, dout, row_max, row_sum, lens, dscores, dv, H, Lp,
+      F, length, seed_word, threshold, keep_scale);
   return (int)cudaGetLastError();
 }
 
@@ -325,11 +344,28 @@ extern "C" int sep_softmax_pv_train_fwd_f32(
     void* stream) {
   if (B <= 0 || Lp <= 0) return 0;
   if (int err = check(B, H, Lp, F, length)) return err;
-  return launch_fwd<16>(static_cast<const float*>(scores), static_cast<const float*>(v),
-            static_cast<const int*>(lens), static_cast<float*>(out),
-            static_cast<float*>(row_max), static_cast<float*>(row_sum), B, H,
-            Lp, F, length, seed_word, threshold, keep_scale,
-            static_cast<cudaStream_t>(stream));
+  return launch_fwd<16, false>(
+      static_cast<const float*>(scores), nullptr,
+      static_cast<const float*>(v), static_cast<const int*>(lens),
+      static_cast<float*>(out), static_cast<float*>(row_max),
+      static_cast<float*>(row_sum), B, H, Lp, F, length, seed_word,
+      threshold, keep_scale, static_cast<cudaStream_t>(stream));
+}
+
+// K9b: the same on scores + bias, bias a second [B, H, Lp, Lp] tensor.
+extern "C" int sep_softmax_pv_train_fwd_bias_f32(
+    const void* scores, const void* bias, const void* v, const void* lens,
+    void* out, void* row_max, void* row_sum, int B, int H, int Lp, int F,
+    int length, unsigned int seed_word, unsigned int threshold,
+    float keep_scale, void* stream) {
+  if (B <= 0 || Lp <= 0) return 0;
+  if (int err = check(B, H, Lp, F, length)) return err;
+  return launch_fwd<16, true>(
+      static_cast<const float*>(scores), static_cast<const float*>(bias),
+      static_cast<const float*>(v), static_cast<const int*>(lens),
+      static_cast<float*>(out), static_cast<float*>(row_max),
+      static_cast<float*>(row_sum), B, H, Lp, F, length, seed_word,
+      threshold, keep_scale, static_cast<cudaStream_t>(stream));
 }
 
 // The forward's inputs, its out, row_max and row_sum, and dout [B, Lp, F];
@@ -342,11 +378,31 @@ extern "C" int sep_softmax_pv_train_bwd_f32(
     void* stream) {
   if (B <= 0 || Lp <= 0) return 0;
   if (int err = check(B, H, Lp, F, length)) return err;
-  return launch_bwd<16>(static_cast<const float*>(scores), static_cast<const float*>(v),
-            static_cast<const float*>(out), static_cast<const float*>(dout),
-            static_cast<const float*>(row_max),
-            static_cast<const float*>(row_sum), static_cast<const int*>(lens),
-            static_cast<float*>(dscores), static_cast<float*>(dv), B, H, Lp, F,
-            length, seed_word, threshold, keep_scale,
-            static_cast<cudaStream_t>(stream));
+  return launch_bwd<16, false>(
+      static_cast<const float*>(scores), nullptr,
+      static_cast<const float*>(v), static_cast<const float*>(out),
+      static_cast<const float*>(dout), static_cast<const float*>(row_max),
+      static_cast<const float*>(row_sum), static_cast<const int*>(lens),
+      static_cast<float*>(dscores), static_cast<float*>(dv), B, H, Lp, F,
+      length, seed_word, threshold, keep_scale,
+      static_cast<cudaStream_t>(stream));
+}
+
+// K10b: the same with K9b's bias; dscores is also the bias's cotangent.
+extern "C" int sep_softmax_pv_train_bwd_bias_f32(
+    const void* scores, const void* bias, const void* v, const void* out,
+    const void* dout, const void* row_max, const void* row_sum,
+    const void* lens, void* dscores, void* dv, int B, int H, int Lp, int F,
+    int length, unsigned int seed_word, unsigned int threshold,
+    float keep_scale, void* stream) {
+  if (B <= 0 || Lp <= 0) return 0;
+  if (int err = check(B, H, Lp, F, length)) return err;
+  return launch_bwd<16, true>(
+      static_cast<const float*>(scores), static_cast<const float*>(bias),
+      static_cast<const float*>(v), static_cast<const float*>(out),
+      static_cast<const float*>(dout), static_cast<const float*>(row_max),
+      static_cast<const float*>(row_sum), static_cast<const int*>(lens),
+      static_cast<float*>(dscores), static_cast<float*>(dv), B, H, Lp, F,
+      length, seed_word, threshold, keep_scale,
+      static_cast<cudaStream_t>(stream));
 }

@@ -6,9 +6,10 @@ launches.
 Eval: K1 ``fused_gcfn``, K2 ``materialize_pos_kt`` (``pos_kt`` adds its
 gradient), K3 ``softmax_pv``, K12 ``flash_relpos_attention`` (past the
 bottleneck length ``blocks.FUSED_PV_MAX_LENGTH``, in place of K2 and
-K3).  Train: K5 ``depthwise_bwd`` (the backward of
-``depthwise_large``; under ``depthwise.BWD_MODE = "conv"`` K6
-``depthwise_bwd_w`` for dw and db), K7 ``gcfn_train_fwd`` and K8
+K3); the gradients of K1, K3 and K12 recompute their plain versions,
+as the JAX package's ``custom_vjp``s do.  Train: K5 ``depthwise_bwd``
+(the backward of ``depthwise_large``; under ``depthwise.BWD_MODE =
+"conv"`` K6 ``depthwise_bwd_w`` for dw and db), K7 ``gcfn_train_fwd`` and K8
 ``gcfn_train_bwd`` (the autograd function ``fused_gcfn_train``), K9
 ``softmax_pv_train_fwd`` and K10 ``softmax_pv_train_bwd`` (the autograd
 function ``softmax_pv_dropout``), K11 ``sisnr_pairwise_neg_fused``.  The
@@ -19,7 +20,10 @@ routes ``attention_train_impl="pallas"`` (train) and
 (``fused_local="on"``, ``fused_pair="on"``): K15 ``fused_cla`` and K16
 ``fused_ega_tail_gcfn``, autograd functions whose backward recomputes
 the plain version.  K4 ``depthwise_fwd``, the k65 forward, is on no
-route, as in the JAX package.
+route, as in the JAX package, and so are the two-tensor forms that
+take ``bias=``: K3b ``softmax_pv_bias`` (``softmax_pv(..., bias=)``), K9b
+``softmax_pv_train_fwd_bias`` and K10b ``softmax_pv_train_bwd_bias``
+(``softmax_pv_dropout(..., bias=)``).
 """
 
 from sepreformer_torch.ops.kernels.attention_train import (
@@ -66,6 +70,7 @@ from sepreformer_torch.ops.kernels.relpos import (
 )
 from sepreformer_torch.ops.kernels.softmax_pv import (
     softmax_pv,
+    softmax_pv_bias,
     softmax_pv_plain,
 )
 from sepreformer_torch.ops.kernels.softmax_pv_train import (
@@ -73,7 +78,9 @@ from sepreformer_torch.ops.kernels.softmax_pv_train import (
     softmax_pv_dropout_bwd_plain,
     softmax_pv_dropout_plain,
     softmax_pv_train_bwd,
+    softmax_pv_train_bwd_bias,
     softmax_pv_train_fwd,
+    softmax_pv_train_fwd_bias,
 )
 
 WRAPPERS = (fused_gcfn, materialize_pos_kt, softmax_pv, depthwise_bwd,
@@ -81,7 +88,8 @@ WRAPPERS = (fused_gcfn, materialize_pos_kt, softmax_pv, depthwise_bwd,
             softmax_pv_train_bwd, sisnr_pairwise_neg_fused,
             flash_relpos_attention, depthwise_bwd_w, attention_train_fwd,
             attention_train_bwd, depthwise_fwd, fused_cla,
-            fused_ega_tail_gcfn)
+            fused_ega_tail_gcfn, softmax_pv_bias, softmax_pv_train_fwd_bias,
+            softmax_pv_train_bwd_bias)
 
 
 def reset_launches() -> None:
@@ -106,7 +114,8 @@ __all__ = [
     "launch_counts", "materialize_pos_kt",
     "materialize_pos_kt_plain", "pos_kt", "reset_launches",
     "sisnr_pairwise_neg", "sisnr_pairwise_neg_fused", "softmax_pv",
-    "softmax_pv_dropout", "softmax_pv_dropout_bwd_plain",
+    "softmax_pv_bias", "softmax_pv_dropout", "softmax_pv_dropout_bwd_plain",
     "softmax_pv_dropout_plain", "softmax_pv_plain", "softmax_pv_train_bwd",
-    "softmax_pv_train_fwd",
+    "softmax_pv_train_bwd_bias", "softmax_pv_train_fwd",
+    "softmax_pv_train_fwd_bias",
 ]

@@ -40,6 +40,8 @@ SIGNATURES = {
     "sep_relpos_f32": [_P, _P, _I, _I, _I, _P],
     # scores, v, lens, out, B, H, Lp, F, length, stream
     "sep_softmax_pv_f32": [_P] * 4 + [_I] * 5 + [_P],
+    # scores, bias, v, lens, out, B, H, Lp, F, length, stream
+    "sep_softmax_pv_bias_f32": [_P] * 5 + [_I] * 5 + [_P],
     # x, dy, w, dx, dw, db, partial, partial_floats, B, T, C, K, stream
     "sep_depthwise_bwd_f32": [_P] * 7 + [_L] + [_I] * 4 + [_P],
     # scores, v, lens, out, row_max, row_sum, B, H, Lp, F, length,
@@ -48,6 +50,11 @@ SIGNATURES = {
     # scores, v, out, dout, row_max, row_sum, lens, dscores, dv, B, H, Lp,
     # F, length, seed_word, threshold, keep_scale, stream
     "sep_softmax_pv_train_bwd_f32": [_P] * 9 + [_I] * 5 + [_U, _U, _F, _P],
+    # the same two with the bias after the scores
+    "sep_softmax_pv_train_fwd_bias_f32": [_P] * 7 + [_I] * 5 + [_U, _U, _F,
+                                                               _P],
+    "sep_softmax_pv_train_bwd_bias_f32": [_P] * 10 + [_I] * 5 + [_U, _U, _F,
+                                                                _P],
     # est, src, out, S, B, T, scale_inv, eps, clamp_db, has_clamp, stream
     "sep_pit_sisnr_f32": [_P] * 3 + [_I] * 4 + [_F, _F, _I, _P],
     # x, lns, lnb, win, bin, wdw, bdw, wout, bout, ls, out, B, T, F, eps,

@@ -5,9 +5,9 @@ kernel is ``sepreformer_torch/csrc/cla.cu``; ``cla_plain`` is the same
 math in PyTorch (the JAX package's ``cla_reference``).  BatchNorm enters
 folded to an affine (s, t) from its running statistics, computed by the
 caller outside the kernel (``blocks.BatchNorm.folded``), so that its
-parameters get gradients through the fold.  ``fused_cla`` is an autograd
-function whose backward recomputes ``cla_plain`` and returns its VJP, as
-the JAX package's ``custom_vjp`` does.
+parameters get gradients through the fold.  The gradient of
+``fused_cla`` recomputes ``cla_plain`` and returns its VJP, as the JAX
+package's ``custom_vjp`` does.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from sepreformer_torch.ops.kernels import _build
+from sepreformer_torch.ops.kernels._autograd import with_plain_grad
 
 SUPPORTED_WIDTHS = (128,)
 KERNEL_SIZE = 65
@@ -90,30 +91,14 @@ def cla_kernel(x: torch.Tensor, params: Sequence[torch.Tensor],
     return out
 
 
-class _FusedCla(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, eps, x, *params):
-        ctx.eps = eps
-        ctx.save_for_backward(x, *params)
-        if x.device.type == "cpu":
-            return cla_plain(x, params, eps)
-        return cla_kernel(x, params, eps)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, *params = ctx.saved_tensors
-        with torch.enable_grad():
-            inputs = [a.detach().requires_grad_() for a in (x, *params)]
-            out = cla_plain(inputs[0], inputs[1:], ctx.eps)
-            grads = torch.autograd.grad(out, inputs, g)
-        return (None, *grads)
-
-
 def fused_cla(x: torch.Tensor, params: Sequence[torch.Tensor],
               eps: float) -> torch.Tensor:
     """K15: ``cla_plain`` for CPU tensors; the kernel for CUDA tensors.
     Gradients recompute ``cla_plain``."""
-    return _FusedCla.apply(eps, x, *params)
+    kernel = cla_plain if x.device.type == "cpu" else cla_kernel
+    return with_plain_grad(lambda xx, *pp: kernel(xx, pp, eps),
+                           lambda xx, *pp: cla_plain(xx, pp, eps),
+                           x, *params)
 
 
 fused_cla.launches = 0

@@ -6,9 +6,9 @@ y = x + sigmoid(LN_g(x)·Wg + bg) ⊙ nearest_up(x_down), then the GCFN on
 y with its residual on y.  The CUDA kernel is
 ``sepreformer_torch/csrc/ega_gcfn.cu`` (K1's tile with the tail as its
 prologue); ``ega_tail_gcfn_plain`` is the same math in PyTorch (the JAX
-package's ``ega_tail_gcfn_reference``).  ``fused_ega_tail_gcfn`` is an
-autograd function whose backward recomputes the plain version, as the
-JAX package's ``custom_vjp`` does.
+package's ``ega_tail_gcfn_reference``).  The gradient of
+``fused_ega_tail_gcfn`` recomputes the plain version, as the JAX
+package's ``custom_vjp`` does.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from typing import Sequence
 import torch
 
 from sepreformer_torch.ops.kernels import _build
+from sepreformer_torch.ops.kernels._autograd import with_plain_grad
 from sepreformer_torch.ops.kernels.gcfn import check_params, gcfn_plain
 from sepreformer_torch.ops.resample import nearest_upsample_time
 
@@ -66,34 +67,17 @@ def pair_kernel(x: torch.Tensor, x_down: torch.Tensor,
     return out
 
 
-class _FusedEgaTailGcfn(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, eps, x, x_down, *params):
-        ctx.eps = eps
-        ctx.save_for_backward(x, x_down, *params)
-        if x.device.type == "cpu":
-            return ega_tail_gcfn_plain(x, x_down, params[:4], params[4:],
-                                       eps)
-        return pair_kernel(x, x_down, params[:4], params[4:], eps)
-
-    @staticmethod
-    def backward(ctx, g):
-        inputs = [a.detach().requires_grad_() for a in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = ega_tail_gcfn_plain(inputs[0], inputs[1], inputs[2:6],
-                                      inputs[6:], ctx.eps)
-            grads = torch.autograd.grad(out, inputs, g)
-        return (None, *grads)
-
-
 def fused_ega_tail_gcfn(x: torch.Tensor, x_down: torch.Tensor,
                         gate_params: Sequence[torch.Tensor],
                         gcfn_params: Sequence[torch.Tensor],
                         eps: float) -> torch.Tensor:
     """K16: ``ega_tail_gcfn_plain`` for CPU tensors; the kernel for CUDA
     tensors.  Gradients recompute the plain version."""
-    return _FusedEgaTailGcfn.apply(eps, x, x_down, *gate_params,
-                                   *gcfn_params)
+    kernel = ega_tail_gcfn_plain if x.device.type == "cpu" else pair_kernel
+    return with_plain_grad(
+        lambda xx, xd, *pp: kernel(xx, xd, pp[:4], pp[4:], eps),
+        lambda xx, xd, *pp: ega_tail_gcfn_plain(xx, xd, pp[:4], pp[4:], eps),
+        x, x_down, *gate_params, *gcfn_params)
 
 
 fused_ega_tail_gcfn.launches = 0

@@ -7,7 +7,9 @@ eval at bottleneck lengths past 8192 (``blocks.FUSED_PV_MAX_LENGTH`` in
 the port).  The CUDA kernel is ``sepreformer_torch/csrc/flash_relpos.cu``;
 ``flash_relpos_attention_plain`` is the same math in PyTorch (the JAX
 package's ``relpos_attention_reference``), one block of query rows at a
-time so that no [L, L] tensor is ever whole.
+time so that no [L, L] tensor is ever whole.  On CUDA tensors the
+gradient recomputes the plain version, as the JAX package's
+``custom_vjp`` recomputes its reference.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Optional
 import torch
 
 from sepreformer_torch.ops.kernels import _build
+from sepreformer_torch.ops.kernels._autograd import with_plain_grad
 from sepreformer_torch.ops.kernels.softmax_pv import NEG_INF, _key_lens
 
 SUPPORTED_HEAD_DIMS = (16,)
@@ -62,6 +65,31 @@ def flash_relpos_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return out.transpose(1, 2).reshape(b, length, f)
 
 
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            table: torch.Tensor, maxlen: int,
+            key_len: torch.Tensor) -> torch.Tensor:
+    """The K12 launch on checked CUDA tensors (no autograd)."""
+    b, length, f = q.shape
+    out = torch.empty_like(q)
+    err = _build.library().sep_flash_relpos_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
+        key_len.data_ptr(), out.data_ptr(), b, length, f // table.shape[1],
+        maxlen, _build.stream_handle(q.device))
+    _build.check_launch("sep_flash_relpos_f32", err)
+    flash_relpos_attention.launches += 1
+    return out
+
+
+def _with_grad(kernel, q, k, v, table, maxlen, key_len):
+    """``kernel(q, k, v, table, maxlen, key_len)`` with the gradient of
+    ``flash_relpos_attention_plain`` with respect to q, k, v and the
+    table, as the JAX package's ``_bwd`` returns."""
+    return with_plain_grad(
+        lambda *a: kernel(*a[:4], maxlen, a[4]),
+        lambda *a: flash_relpos_attention_plain(*a[:4], maxlen, a[4]),
+        q, k, v, table, key_len)
+
+
 def flash_relpos_attention(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, table: torch.Tensor, maxlen: int,
                            lens: Optional[torch.Tensor] = None
@@ -69,12 +97,10 @@ def flash_relpos_attention(q: torch.Tensor, k: torch.Tensor,
     """Rel-pos attention without an [L, L] tensor: q, k, v [B, L, H*d]
     float32, ``table`` the raw [2*maxlen, d] embedding, ``lens`` [B] the
     valid keys per row (optional).  CPU tensors take the plain version;
-    CUDA tensors launch the kernel, which needs every ``lens[b] >= 1``
-    and has no backward: it raises where autograd would record the
-    call."""
+    CUDA tensors launch the kernel, which needs every ``lens[b] >= 1``;
+    their gradient recomputes the plain version."""
     if q.device.type == "cpu":
         return flash_relpos_attention_plain(q, k, v, table, maxlen, lens)
-    _build.check_no_grad("flash_relpos_attention", q, k, v, table)
     b, length, f = q.shape
     n, d = table.shape
     if d not in SUPPORTED_HEAD_DIMS or f % d:
@@ -91,14 +117,7 @@ def flash_relpos_attention(q: torch.Tensor, k: torch.Tensor,
     key_len = _key_lens(b, length, lens, q.device).contiguous()
     if lens is not None:
         torch._assert_async(key_len.min() >= 1)  # no host sync
-    out = torch.empty_like(q)
-    err = _build.library().sep_flash_relpos_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
-        key_len.data_ptr(), out.data_ptr(), b, length, f // d, maxlen,
-        _build.stream_handle(q.device))
-    _build.check_launch("sep_flash_relpos_f32", err)
-    flash_relpos_attention.launches += 1
-    return out
+    return _with_grad(_launch, q, k, v, table, maxlen, key_len)
 
 
 flash_relpos_attention.launches = 0

@@ -2,7 +2,9 @@
 
 Replaces ``sepreformer_tpu/ops/pallas/gcfn.py::fused_gcfn``.  The CUDA
 kernel is ``sepreformer_torch/csrc/gcfn.cu``; ``gcfn_plain`` is the same
-math in PyTorch (the JAX package's ``gcfn_reference``).
+math in PyTorch (the JAX package's ``gcfn_reference``).  On CUDA tensors
+the gradient recomputes ``gcfn_plain``, as the JAX package's
+``custom_vjp`` recomputes its reference.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from sepreformer_torch.ops.kernels import _build
+from sepreformer_torch.ops.kernels._autograd import with_plain_grad
 
 SUPPORTED_WIDTHS = (128,)
 MAX_BLOCK = 512
@@ -86,32 +89,43 @@ def check_params(name: str, x: torch.Tensor,
         _build.check_tensor(a, f"{name} {pname}", shape, x.device)
 
 
-def fused_gcfn(x: torch.Tensor, params: Sequence[torch.Tensor], eps: float,
-               lens: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x [B, T, F] float32; ``lens`` [B] int (optional) masks u-rows at
-    t >= lens[b].  CPU tensors take ``gcfn_plain``; CUDA tensors launch
-    the kernel, which has no backward: it raises where autograd would
-    record the call."""
-    if x.device.type == "cpu":
-        return gcfn_plain(x, params, eps, lens)
-    _build.check_no_grad("fused_gcfn", x, *params)
-    check_params("fused_gcfn", x, params)
+def _launch(x: torch.Tensor, params: Sequence[torch.Tensor], eps: float,
+            lens: Optional[torch.Tensor]) -> torch.Tensor:
+    """The K1 launch on checked CUDA tensors (no autograd)."""
     b, t, f = x.shape
-    lens_ptr = None
-    if lens is not None:
-        lens = lens.to(dtype=torch.int32).contiguous()
-        _build.check_tensor(lens, "fused_gcfn lens", (b,), x.device,
-                            torch.int32, align=4)
-        lens_ptr = lens.data_ptr()
     out = torch.empty_like(x)
-    lib = _build.library()
-    err = lib.sep_gcfn_f32(
-        x.data_ptr(), lens_ptr, *(p.data_ptr() for p in params),
-        out.data_ptr(), b, t, f, float(eps), _build.stream_handle(x.device))
+    err = _build.library().sep_gcfn_f32(
+        x.data_ptr(), None if lens is None else lens.data_ptr(),
+        *(p.data_ptr() for p in params), out.data_ptr(), b, t, f, float(eps),
+        _build.stream_handle(x.device))
     _build.check_launch("sep_gcfn_f32", err)
     fused_gcfn.launches += 1
     return out
 
 
-fused_gcfn.launches = 0
+def _with_grad(kernel, x, params, eps, lens):
+    """``kernel(x, params, eps, lens)`` with the gradient of ``gcfn_plain``
+    with respect to x and the nine parameters (none for ``lens``), as the
+    JAX package's ``_bwd`` returns."""
+    return with_plain_grad(
+        lambda xx, ll, *pp: kernel(xx, pp, eps, ll),
+        lambda xx, ll, *pp: gcfn_plain(xx, pp, eps, ll),
+        x, lens, *params)
 
+
+def fused_gcfn(x: torch.Tensor, params: Sequence[torch.Tensor], eps: float,
+               lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x [B, T, F] float32; ``lens`` [B] int (optional) masks u-rows at
+    t >= lens[b].  CPU tensors take ``gcfn_plain``; CUDA tensors launch
+    the kernel, and their gradient recomputes ``gcfn_plain``."""
+    if x.device.type == "cpu":
+        return gcfn_plain(x, params, eps, lens)
+    check_params("fused_gcfn", x, params)
+    if lens is not None:
+        lens = lens.to(dtype=torch.int32).contiguous()
+        _build.check_tensor(lens, "fused_gcfn lens", (x.shape[0],), x.device,
+                            torch.int32, align=4)
+    return _with_grad(_launch, x, params, eps, lens)
+
+
+fused_gcfn.launches = 0

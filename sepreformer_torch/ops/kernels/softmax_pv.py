@@ -1,9 +1,11 @@
-"""K3: masked softmax·V (eval).
+"""K3: masked softmax·V (eval), and K3b, its two-tensor form.
 
-Replaces ``sepreformer_tpu/ops/pallas/softmax_pv.py::softmax_pv``.  The
-CUDA kernel is ``sepreformer_torch/csrc/softmax_pv.cu``;
-``softmax_pv_plain`` is the same math in PyTorch (the JAX package's
-``softmax_pv_reference``).
+Replaces ``sepreformer_tpu/ops/pallas/softmax_pv.py::softmax_pv``, with
+``bias=`` its ``_softmax_pv2_impl``.  The CUDA kernels are
+``sepreformer_torch/csrc/softmax_pv.cu``; ``softmax_pv_plain`` is the
+same math in PyTorch (the JAX package's ``softmax_pv_reference``).  On
+CUDA tensors the gradient recomputes ``softmax_pv_plain``, as the JAX
+package's ``custom_vjp`` recomputes its reference.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Optional
 import torch
 
 from sepreformer_torch.ops.kernels import _build
+from sepreformer_torch.ops.kernels._autograd import with_plain_grad
 
 NEG_INF = -1.0e30
 SUPPORTED_HEAD_DIMS = (16,)
@@ -27,10 +30,14 @@ def _key_lens(b: int, length: int, lens: Optional[torch.Tensor],
 
 def softmax_pv_plain(scores: torch.Tensor, v: torch.Tensor,
                      lens: Optional[torch.Tensor] = None,
-                     length: Optional[int] = None) -> torch.Tensor:
+                     length: Optional[int] = None,
+                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """scores [B, H, Lp, Lp] (already scaled), v [B, Lp, H*d] -> [B, Lp,
-    H*d]: keys j >= min(length, lens[b]) get -1e30, f32 softmax over the
-    keys, then ·V.  Rows past ``length`` are padding the caller drops."""
+    H*d]: ``bias`` (a second scores tensor, optional) added in f32 first,
+    keys j >= min(length, lens[b]) get -1e30, f32 softmax over the keys,
+    then ·V.  Rows past ``length`` are padding the caller drops."""
+    if bias is not None:
+        scores = scores.float() + bias.float()
     b, h, lp, _ = scores.shape
     d = v.shape[-1] // h
     length = lp if length is None else length
@@ -45,17 +52,58 @@ def softmax_pv_plain(scores: torch.Tensor, v: torch.Tensor,
     return out.permute(0, 2, 1, 3).reshape(b, lp, h * d)
 
 
+def _launch(scores: torch.Tensor, v: torch.Tensor, key_len: torch.Tensor,
+            length: int, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """K3, or K3b with ``bias``, on checked CUDA tensors (no autograd)."""
+    if bias is not None:
+        return softmax_pv_bias(scores, bias, v, key_len, length)
+    b, h, lp, _ = scores.shape
+    out = torch.empty_like(v)
+    err = _build.library().sep_softmax_pv_f32(
+        scores.data_ptr(), v.data_ptr(), key_len.data_ptr(), out.data_ptr(),
+        b, h, lp, v.shape[-1], length, _build.stream_handle(scores.device))
+    _build.check_launch("sep_softmax_pv_f32", err)
+    softmax_pv.launches += 1
+    return out
+
+
+def softmax_pv_bias(scores: torch.Tensor, bias: torch.Tensor,
+                    v: torch.Tensor, key_len: torch.Tensor,
+                    length: int) -> torch.Tensor:
+    """K3b's launch on checked CUDA tensors (no autograd): the kernel of
+    ``softmax_pv(..., bias=bias)``, with ``key_len`` int32 [B]."""
+    b, h, lp, _ = scores.shape
+    out = torch.empty_like(v)
+    err = _build.library().sep_softmax_pv_bias_f32(
+        scores.data_ptr(), bias.data_ptr(), v.data_ptr(), key_len.data_ptr(),
+        out.data_ptr(), b, h, lp, v.shape[-1], length,
+        _build.stream_handle(scores.device))
+    _build.check_launch("sep_softmax_pv_bias_f32", err)
+    softmax_pv_bias.launches += 1
+    return out
+
+
+def _with_grad(kernel, scores, v, key_len, length, bias):
+    """``kernel(scores, v, key_len, length, bias)`` with the gradient of
+    ``softmax_pv_plain`` with respect to scores, v and bias, as the JAX
+    package's ``_bwd`` returns (dscores, dv, dbias)."""
+    return with_plain_grad(
+        lambda s, vv, kl, bb: kernel(s, vv, kl, length, bb),
+        lambda s, vv, kl, bb: softmax_pv_plain(s, vv, kl, length, bb),
+        scores, v, key_len, bias)
+
+
 def softmax_pv(scores: torch.Tensor, v: torch.Tensor,
                lens: Optional[torch.Tensor] = None,
-               length: Optional[int] = None) -> torch.Tensor:
-    """Masked softmax(scores)·V with channels-last V and output.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel, which
-    needs every ``lens[b] >= 1`` (a row with no valid key cannot occur on
-    the model's path) and has no backward: it raises where autograd would
-    record the call."""
+               length: Optional[int] = None,
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked softmax(scores [+ bias])·V with channels-last V and output.
+    CPU tensors take the plain version; CUDA tensors launch K3 (K3b with
+    ``bias``, a second [B, H, Lp, Lp] float32 tensor), which needs every
+    ``lens[b] >= 1`` (a row with no valid key cannot occur on the model's
+    path); their gradient recomputes the plain version."""
     if scores.device.type == "cpu":
-        return softmax_pv_plain(scores, v, lens, length)
-    _build.check_no_grad("softmax_pv", scores, v)
+        return softmax_pv_plain(scores, v, lens, length, bias)
     b, h, lp, _ = scores.shape
     f = v.shape[-1]
     length = lp if length is None else int(length)
@@ -66,17 +114,15 @@ def softmax_pv(scores: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"softmax_pv: length {length} outside [1, {lp}]")
     _build.check_tensor(scores, "softmax_pv scores", (b, h, lp, lp),
                         scores.device)
+    if bias is not None:
+        _build.check_tensor(bias, "softmax_pv bias", (b, h, lp, lp),
+                            scores.device)
     _build.check_tensor(v, "softmax_pv v", (b, lp, f), scores.device)
     key_len = _key_lens(b, length, lens, scores.device).contiguous()
     if lens is not None:
         torch._assert_async(key_len.min() >= 1)  # no host sync
-    out = torch.empty_like(v)
-    err = _build.library().sep_softmax_pv_f32(
-        scores.data_ptr(), v.data_ptr(), key_len.data_ptr(), out.data_ptr(),
-        b, h, lp, f, length, _build.stream_handle(scores.device))
-    _build.check_launch("sep_softmax_pv_f32", err)
-    softmax_pv.launches += 1
-    return out
+    return _with_grad(_launch, scores, v, key_len, length, bias)
 
 
 softmax_pv.launches = 0
+softmax_pv_bias.launches = 0

@@ -41,12 +41,15 @@ from sepreformer_torch.ops.kernels import (
     sisnr_pairwise_neg,
     sisnr_pairwise_neg_fused,
     softmax_pv,
+    softmax_pv_bias,
     softmax_pv_dropout,
     softmax_pv_dropout_bwd_plain,
     softmax_pv_dropout_plain,
     softmax_pv_plain,
     softmax_pv_train_bwd,
+    softmax_pv_train_bwd_bias,
     softmax_pv_train_fwd,
+    softmax_pv_train_fwd_bias,
 )
 
 # float32 sums in the kernels' order against cuBLAS's
@@ -161,6 +164,83 @@ def test_softmax_pv_train_kernels_match_plain(cuda_device, p, ragged):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d,lp,length", [(16, 512, 500), (16, 2048, 1900),
+                                         (16, 128, 77)])
+def test_softmax_pv_bias_kernel_matches_plain(cuda_device, d, lp, length):
+    """K3b: the softmax of scores + bias, the two summed in float32."""
+    b, h = 3, 4
+    scores = torch.randn(b, h, lp, lp, device=cuda_device) * 3
+    bias = torch.randn(b, h, lp, lp, device=cuda_device) * 2
+    v = torch.randn(b, lp, h * d, device=cuda_device)
+    lens = torch.tensor([length, length // 2, 1], device=cuda_device)
+    before = softmax_pv_bias.launches, softmax_pv.launches
+    got = softmax_pv(scores, v, lens, length, bias=bias)
+    torch.cuda.synchronize()
+    assert (softmax_pv_bias.launches, softmax_pv.launches) == (
+        before[0] + 1, before[1])
+    torch.testing.assert_close(
+        got, softmax_pv_plain(scores, v, lens, length, bias), **CARD_TOL)
+    with pytest.raises(ValueError, match="bias"):
+        softmax_pv(scores, v, lens, length, bias=bias[:, :1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.0, 0.05])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_softmax_pv_train_bias_kernels_match_plain(cuda_device, p, ragged):
+    """K9b and K10b: K9 and K10 on scores + bias."""
+    b, h, lp, d, length = 4, 8, 512, 16, 500
+    gen = torch.Generator().manual_seed(42)
+    scores = (torch.randn(b, h, lp, lp, generator=gen) * 3).to(cuda_device)
+    bias = (torch.randn(b, h, lp, lp, generator=gen) * 2).to(cuda_device)
+    v = torch.randn(b, lp, h * d, generator=gen).to(cuda_device)
+    dout = torch.randn(b, lp, h * d, generator=gen).to(cuda_device)
+    lens = (torch.tensor([500, 313, 438, 1], device=cuda_device) if ragged
+            else None)
+    key_len = (torch.full((b,), length, dtype=torch.int32, device=cuda_device)
+               if lens is None else lens.to(torch.int32))
+    out, row_max, row_sum = softmax_pv_train_fwd_bias(
+        scores, bias, v, 1234, key_len, length, p)
+    ds, dv = softmax_pv_train_bwd_bias(scores, bias, v, out, dout, row_max,
+                                       row_sum, 1234, key_len, length, p)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out, softmax_pv_dropout_plain(scores, v, 1234, lens, length, p, bias),
+        **CARD_TOL)
+    ds_ref, dv_ref = softmax_pv_dropout_bwd_plain(scores, v, 1234, lens,
+                                                  length, p, dout, bias)
+    torch.testing.assert_close(ds, ds_ref, **CARD_TOL)
+    torch.testing.assert_close(dv, dv_ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_softmax_pv_dropout_bias_gradient_on_the_card(cuda_device):
+    """softmax_pv_dropout with bias under autograd (K9b, K10b): dscores,
+    dv and dbias against the plain autograd; dbias in storage of its
+    own."""
+    b, h, lp, d, length = 2, 8, 128, 16, 100
+    gen = torch.Generator().manual_seed(43)
+    scores, bias = (torch.randn(b, h, lp, lp, generator=gen).to(cuda_device)
+                    for _ in range(2))
+    v = torch.randn(b, lp, h * d, generator=gen).to(cuda_device)
+    g = torch.randn(b, length, h * d, generator=gen).to(cuda_device)
+    grads = []
+    before = (softmax_pv_train_fwd_bias.launches,
+              softmax_pv_train_bwd_bias.launches)
+    for fn in (softmax_pv_dropout, softmax_pv_dropout_plain):
+        leaves = [a.clone().requires_grad_() for a in (scores, v, bias)]
+        out = fn(leaves[0], leaves[1], 9, None, length, 0.1, bias=leaves[2])
+        (out[:, :length] * g).sum().backward()
+        grads.append([a.grad for a in leaves])
+    assert (softmax_pv_train_fwd_bias.launches,
+            softmax_pv_train_bwd_bias.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+    assert grads[0][0].data_ptr() != grads[0][2].data_ptr()
+
+
+@pytest.mark.cuda
 def test_softmax_pv_dropout_gradient_on_the_card(cuda_device):
     b, h, lp, d, length = 2, 8, 128, 16, 100
     gen = torch.Generator().manual_seed(8)
@@ -213,17 +293,68 @@ def test_pos_kt_gradient_on_the_card(cuda_device):
 
 @pytest.mark.cuda
 def test_eval_kernels_refuse_autograd(cuda_device):
-    """K1, K2 and K3 have no backward: under autograd they raise instead of
-    returning a result with no gradient."""
+    """K2 has no backward (``pos_kt`` is its gradient): under autograd it
+    raises instead of returning a result with no gradient.  K1, K3 and
+    K12 have their plain versions' gradients (the tests below)."""
     table = torch.randn(40, 16, device=cuda_device, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
         materialize_pos_kt(table, 32, 20)
-    scores = torch.randn(1, 8, 128, 128, device=cuda_device,
-                         requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        softmax_pv(scores, torch.randn(1, 128, 128, device=cuda_device))
     with torch.no_grad():
         materialize_pos_kt(table, 32, 20)
+
+
+def grads_of(fn, args, w):
+    """Gradients of sum(fn(*leaves) * w) with respect to every argument."""
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    (fn(*leaves) * w).sum().backward()
+    return [a.grad for a in leaves]
+
+
+def assert_grads_match(got, ref, name):
+    """Each gradient within 1e-4 of the largest value of the plain
+    version's own: the backward recomputes the plain version, so only
+    the kernel's forward can differ, and it does not reach the
+    gradient."""
+    for g, r in zip(got, ref):
+        assert g is not None and g.shape == r.shape, name
+        assert (g - r).abs().max() <= 1e-4 * r.abs().max(), name
+
+
+@pytest.mark.cuda
+def test_eval_kernel_gradients_match_plain(cuda_device):
+    """K1, K3 and K3b under autograd: the forward launches the kernel, the
+    backward recomputes the plain version, as the JAX package's
+    ``custom_vjp``s do; gradients of every input against the plain
+    version's autograd."""
+    gen = torch.Generator().manual_seed(40)
+    x = torch.randn(2, 500, 128, generator=gen).to(cuda_device)
+    params = gcfn_params(gen, 128, cuda_device)
+    lens = torch.tensor([500, 313], device=cuda_device)
+    w = torch.randn(2, 500, 128, generator=gen).to(cuda_device)
+    before = fused_gcfn.launches
+    got = grads_of(lambda x, *p: fused_gcfn(x, p, 1e-5, lens), [x] + params,
+                   w)
+    assert fused_gcfn.launches == before + 1
+    ref = grads_of(lambda x, *p: gcfn_plain(x, p, 1e-5, lens), [x] + params,
+                   w)
+    assert_grads_match(got, ref, "fused_gcfn")
+
+    b, h, lp, length = 2, 8, 512, 500
+    scores = (torch.randn(b, h, lp, lp, generator=gen) * 3).to(cuda_device)
+    bias = torch.randn(b, h, lp, lp, generator=gen).to(cuda_device)
+    v = torch.randn(b, lp, 128, generator=gen).to(cuda_device)
+    w = torch.randn(b, lp, 128, generator=gen).to(cuda_device)
+    klens = torch.tensor([500, 313], device=cuda_device)
+    for args, counter in (([scores, v], softmax_pv),
+                          ([scores, v, bias], softmax_pv_bias)):
+        before = counter.launches
+        got = grads_of(lambda s, vv, *bb: softmax_pv(s, vv, klens, length,
+                                                     *bb), args, w)
+        assert counter.launches == before + 1
+        ref = grads_of(lambda s, vv, *bb: softmax_pv_plain(s, vv, klens,
+                                                           length, *bb),
+                       args, w)
+        assert_grads_match(got, ref, counter.__name__)
 
 
 def gcfn_train_case(device, b, t, f, seed=10):
@@ -334,15 +465,30 @@ def test_flash_kernel_matches_plain(cuda_device, b, length, maxlen, lens):
 
 
 @pytest.mark.cuda
-def test_flash_kernel_refuses_autograd_and_other_head_widths(cuda_device):
-    q = torch.randn(1, 100, 128, device=cuda_device, requires_grad=True)
+def test_flash_kernel_refuses_other_head_widths(cuda_device):
+    q = torch.randn(1, 100, 128, device=cuda_device)
     table = torch.randn(128, 16, device=cuda_device)
-    with pytest.raises(RuntimeError, match="no backward"):
-        flash_relpos_attention(q, q, q, table, 64)
-    with torch.no_grad():
-        flash_relpos_attention(q, q, q, table, 64)
-        with pytest.raises(ValueError, match="head dim 8"):
-            flash_relpos_attention(q, q, q, table[:, :8], 64)
+    with pytest.raises(ValueError, match="head dim 8"):
+        flash_relpos_attention(q, q, q, table[:, :8], 64)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_gradient_matches_plain(cuda_device):
+    """K12 under autograd: dq, dk, dv and the table's gradient recompute
+    the plain version, as the JAX package's ``custom_vjp`` does."""
+    gen = torch.Generator().manual_seed(41)
+    length, maxlen = 2000, 500
+    q, k, v, w = (torch.randn(1, length, 128, generator=gen).to(cuda_device)
+                  for _ in range(4))
+    table = torch.randn(2 * maxlen, 16, generator=gen).to(cuda_device)
+    lens = torch.tensor([1700], device=cuda_device)
+    before = flash_relpos_attention.launches
+    got = grads_of(lambda *a: flash_relpos_attention(*a, maxlen, lens),
+                   [q, k, v, table], w)
+    assert flash_relpos_attention.launches == before + 1
+    ref = grads_of(lambda *a: flash_relpos_attention_plain(*a, maxlen, lens),
+                   [q, k, v, table], w)
+    assert_grads_match(got, ref, "flash_relpos_attention")
 
 
 @pytest.mark.cuda

@@ -233,10 +233,11 @@ def test_pos_kt_gradient_is_the_scatter_add(t, maxlen):
 
 
 def test_eval_wrappers_refuse_autograd_off_the_cpu():
-    """K1, K2 and K3 have no backward: off the CPU, a call that autograd
-    would record raises instead of returning a result with no gradient
-    (meta tensors stand in for the card's here); without autograd the
-    same call reaches the wrapper's device checks."""
+    """K2 has no backward: off the CPU, a call that autograd would record
+    raises instead of returning a result with no gradient (meta tensors
+    stand in for the card's here).  K1 and K3 have the gradient of their
+    plain versions, as in the JAX package: under autograd as without it,
+    the same call reaches the wrapper's device checks."""
     meta = torch.device("meta")
     x = torch.empty(1, 8, 128, device=meta, requires_grad=True)
     params = [torch.empty(s, device=meta) for s in
@@ -245,11 +246,14 @@ def test_eval_wrappers_refuse_autograd_off_the_cpu():
     table = torch.empty(20, 4, device=meta, requires_grad=True)
     scores = torch.empty(1, 2, 16, 16, device=meta, requires_grad=True)
     v = torch.empty(1, 16, 32, device=meta)
-    calls = [lambda: fused_gcfn(x, params, 1e-5),
-             lambda: materialize_pos_kt(table, 12, 10),
-             lambda: softmax_pv(scores, v, None, 10)]
-    for call in calls:
-        with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(RuntimeError, match="no backward"):
+        materialize_pos_kt(table, 12, 10)
+    with torch.no_grad(), pytest.raises(ValueError):
+        materialize_pos_kt(table, 12, 10)
+    for call in (lambda: fused_gcfn(x, params, 1e-5),
+                 lambda: softmax_pv(scores, v, None, 10),
+                 lambda: softmax_pv(scores, v, None, 10, bias=scores)):
+        with pytest.raises(ValueError):
             call()
         with torch.no_grad(), pytest.raises(ValueError):
             call()
