@@ -20,7 +20,12 @@ Phases, each of which fails the run:
                two-tensor forms K3b (beside K3's shape) and K9b/K10b
                (beside K9's and K10's); times of the kernel, the plain
                version, a library call where one exists, and the least
-               time the card could take; and the port's scores producer
+               time the card could take (for K8 and K12, which take their
+               products on the tensor cores as 3xTF32, with those
+               products and their exponentials at the tensor cores' and
+               the SFUs' rates, and the CUDA-core bound of earlier
+               readings on a line before), K8's time by launch, K8's and
+               K12's bits on a repeat call; and the port's scores producer
                followed by K3 against a two-tensor producer (no add
                pass) followed by K3b, at K3's shape.
 3. serve     - Base at full width, seeded weights: three requests through
@@ -131,6 +136,10 @@ from collections import defaultdict
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+TF32X3_FLOPS = 495e12 / 3      # H100 SXM TF32 tensor cores, three TF32
+                               # products per float32-accurate product
+SFU_EXP_PER_S = 132 * 16 * 1.98e9  # H100 SXM: 16 SFU results per SM and
+                                   # clock, 132 SMs, 1.98 GHz
 SAMPLE_RATE = 8000
 TRAIN_SECONDS = 4.0            # the dataset's 4 s crop (max_len 32000)
 LONG_SECONDS = 70.0            # bottleneck length 8750: past K12's switch
@@ -204,12 +213,47 @@ KERNEL_GROUPS = (  # profile groups of the card's kernels, first match wins
 )
 
 
-def bound_ms(nbytes: float, flops: float):
-    """The least time the card could take: bytes at the memory rate or
-    float32 operations at the CUDA cores' rate, whichever is longer."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+def bound_ms(nbytes: float, flops: float, tc_flops: float = 0.0,
+             exps: float = 0.0):
+    """The least time the card could take: the longest of the bytes at the
+    memory rate, the float32 operations at the CUDA cores' rate and, for a
+    kernel that takes its products on the tensor cores at float32
+    accuracy (3xTF32), those products at that rate and its exponentials at
+    the SFUs' rate.  Returns (ms, "bytes" or "operations", the term)."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "CUDA-core operations": flops / F32_FLOPS * 1e3,
+             "3xTF32 products": tc_flops / TF32X3_FLOPS * 1e3,
+             "exponentials": exps / SFU_EXP_PER_S * 1e3}
+    term = max(terms, key=terms.get)
+    return (terms[term], "bytes" if term == "bytes" else "operations", term)
+
+
+def launch_split(torch, fn, symbol, labels, iters=20, attempts=3):
+    """Device time of each launch of one call of ``fn`` (the kernels whose
+    name contains ``symbol``, in launch order), mean over ``iters`` calls,
+    printed with ``labels``."""
+    from sepreformer_torch.profiling import kernel_events
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in kernel_events(prof) if symbol in e[0]),
+                        key=lambda e: e[1])
+        if len(events) == len(labels) * iters:
+            break
+    else:
+        raise RuntimeError(f"launch_split: {len(events)} {symbol} kernels in "
+                           f"{iters} calls, expected {len(labels)} each")
+    ms = [sum(e[2] for e in events[i::len(labels)]) / iters / 1e3
+          for i in range(len(labels))]
+    print(f"[kernels] {symbol} by launch: " + ", ".join(
+        f"{label} {t:.4f} ms" for label, t in zip(labels, ms)))
+    return ms
 
 
 def relpos_pairs(length, klens, maxlen):
@@ -256,9 +300,15 @@ def kernel_phase(torch, K, device_ms):
     results = []
 
     def record(wrapper, kernel, plain, library, err, nbytes, flops, source,
-               replaces, shape, tolerance):
-        bound, bound_by = bound_ms(nbytes, flops)
+               replaces, shape, tolerance, tc_flops=0.0, exps=0.0,
+               cuda_core_flops=None):
+        bound, bound_by, term = bound_ms(nbytes, flops, tc_flops, exps)
         name = wrapper.__name__
+        if cuda_core_flops is not None:
+            old, old_by, _ = bound_ms(nbytes, cuda_core_flops)
+            print(f"[kernels] {name}: bound with every operation on the CUDA "
+                  f"cores (the earlier CUDA-core design's count) {old:.4f} ms "
+                  f"({old_by})")
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
                    launches=0, max_abs_err=err,
                    ms=device_ms(kernel, kernel=KERNEL_SYMBOLS[name]),
@@ -269,7 +319,7 @@ def kernel_phase(torch, K, device_ms):
         print(f"[kernels] {name}: {shape}; max |kernel - plain| {err:.3e} "
               f"({tolerance}); ms {row['ms']:.4f}, plain {row['plain_ms']:.4f}"
               f", library {row['library_ms']}, bound {bound:.4f} "
-              f"({bound_by})")
+              f"({term})")
 
     # K1: the widest GCFN of the path, [B=4, T=8000, F=128], ragged lengths
     b, t, f = 4, 8000, 128
@@ -421,17 +471,30 @@ def kernel_phase(torch, K, device_ms):
         torch.testing.assert_close(g, r, rtol=1e-4,
                                    atol=1e-5 * r.abs().max().item() + 1e-6)
         err = max(err, (g - r).abs().max().item())
+    again = K.gcfn_train_bwd(x, params, 1e-5, seed, p, dout)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip((dx, *dparams),
+                                                 (again[0], *again[1]))), (
+        "K8 is not bit-equal on repeat")
     record(K.gcfn_train_bwd,
            lambda: K.gcfn_train_bwd(x, params, 1e-5, seed, p, dout),
            lambda: K.gcfn_train_bwd_plain(x, params, 1e-5, seed, p, dout),
            None, err,
            4 * (3 * x.numel() + 2 * sum(q.numel() for q in params)),
-           # the forward's products again, then dg, dWout, dWin and dxn
-           b * t * (3 * products + 40 * f + 20 * h),
+           # the LN, conv, GLU, dropout and LN-backward work per row
+           b * t * (40 * f + 20 * h),
            source="sepreformer_torch/csrc/gcfn_train.cu",
            replaces="sepreformer_tpu/ops/pallas/gcfn_train.py:599",
            shape=f"x, dout [{b}, {t}, {f}], hidden {h}, p {p}",
-           tolerance="rtol 1e-4; atol 1e-5 x max|plain| + 1e-6, ten outputs")
+           tolerance="rtol 1e-4; atol 1e-5 x max|plain| + 1e-6, ten outputs",
+           # the forward's products again, then dg, dWout, dWin and dxn, on
+           # the tensor cores; one exponential per gate (its sigmoid)
+           tc_flops=b * t * 3 * products, exps=b * t * (h // 2),
+           cuda_core_flops=b * t * (3 * products + 40 * f + 20 * h))
+    launch_split(torch, lambda: K.gcfn_train_bwd(x, params, 1e-5, seed, p,
+                                                 dout),
+                 "gcfn_train_bwd", ("rows", "atb dWin", "atb dWout",
+                                    "reduce dWin, dWout", "reduce small"))
 
     # K9 and K10: decoder attention of a B=2 x 4 s train batch (B*spks=4
     # rows, 8 heads, L=500 padded to 512), no key lengths, as in training
@@ -856,6 +919,12 @@ def flash_kernel_row(torch, K, device_ms, randn, record):
 
     torch.testing.assert_close(dense()[:, :length], ref, rtol=1e-4,
                                atol=1e-5)
+    again = K.flash_relpos_attention(q, k, v, table, maxlen, klens)
+    assert torch.equal(again, K.flash_relpos_attention(q, k, v, table,
+                                                       maxlen, klens)), (
+        "K12 is not bit-equal on repeat")
+    del again
+    pairs = heads * relpos_pairs(length, klens.tolist(), maxlen)[0]
     record(K.flash_relpos_attention,
            lambda: K.flash_relpos_attention(q, k, v, table, maxlen, klens),
            lambda: K.flash_relpos_attention_plain(q, k, v, table, maxlen,
@@ -863,12 +932,20 @@ def flash_kernel_row(torch, K, device_ms, randn, record):
            library, err,
            # q in and out written; k and v of the valid keys; the table
            4 * (2 * q.numel() + 2 * keys * f + table.numel() + b),
-           flash_relpos_ops(length, klens.tolist(), maxlen, heads, d),
+           # the online softmax's max, subtraction and sum per pair
+           3 * pairs,
            source="sepreformer_torch/csrc/flash_relpos.cu",
            replaces="sepreformer_tpu/ops/pallas/attention.py:237",
            shape=(f"q, k, v [{b}, {length}, {f}], table [{2 * maxlen}, "
                   f"{d}], lens {klens.tolist()}"),
-           tolerance="rtol 1e-4, atol 1e-5 (float32)")
+           tolerance="rtol 1e-4, atol 1e-5 (float32)",
+           # QKᵀ, P·V and q·tableᵀ on the tensor cores; one exponential
+           # per pair
+           tc_flops=flash_relpos_ops(length, klens.tolist(), maxlen, heads,
+                                     d),
+           exps=pairs,
+           cuda_core_flops=flash_relpos_ops(length, klens.tolist(), maxlen,
+                                            heads, d))
     del storage, bias
     torch.cuda.empty_cache()
     print(f"[kernels] the same shape through the dense route (K2 pos_kt "
@@ -1590,8 +1667,9 @@ def long_phase(torch, np, sep_torch, K, busy_us, kernel_events):
         torch.backends.cudnn.allow_tf32 = False
     errs["control, TF32 allowed"] = float(
         np.abs(control - dense).max()) / scale
-    # TF32 reaches only the cuBLAS and cuDNN products (K12 runs FMAs), so
-    # two controls change the K12 route itself: K12 on inputs rounded to
+    # TF32 reaches only the cuBLAS and cuDNN products (K12 takes its
+    # products as 3xTF32 whatever the flag), so two controls change the
+    # K12 route itself: K12 on inputs rounded to
     # bfloat16 (what a bfloat16 version of the route would read), and K12
     # without the rel-pos bias
     routes = {

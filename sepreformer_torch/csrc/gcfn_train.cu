@@ -12,32 +12,42 @@
 // What bounds them on the H100: per row, K7 does the two products of K1
 // (2*F*6F + 2*3F*F = 295 kflop at F=128) and K8 recomputes them and adds
 // four of the same sizes (dg = do0 wout^T, dWout = g^T do0, dWin = xn^T du,
-// dxn = du win^T): 885 kflop.  In float32 on the CUDA cores both are bound
-// by operations (0.14 and 0.42 ms at [4, 8000, 128]), not by their
-// 33 and 66 MB of traffic.
+// dxn = du win^T): 885 kflop.  K7 runs them in float32 on the CUDA cores
+// (0.14 ms at [4, 8000, 128]).  K8 runs its six on the tensor cores at
+// float32 accuracy (3xTF32, mma_tf32x3.cuh): 2.8e10 operations at
+// 165 TFLOP/s, 0.17 ms, against 66 MB of traffic and the scratch round
+// trip below.
 //
 // K7 is K1's tile (gcfn_tile.cuh) with no length mask and the two dropout
 // sites.
 //
 // K8 keeps what JAX's backward keeps (x, the parameters, the seed) and
 // recomputes the rest, in three hand-written kernels:
-//  1. rows: one block walks a fixed run of tiles of TT rows.  Per tile it
-//     recomputes LN and u for the rows t0-2 .. t0+TT+1 (the transpose conv
-//     needs dy one row past each side, and dy there needs y, which needs u
-//     one row further), y and the dropout masks for t0-1 .. t0+TT (masks
-//     regenerate from the same global rows), then do0, dg, dy, du, dxn and
-//     the LayerNorm backward, and writes dx.  The sums over rows of the
-//     small gradients (LN scale and bias, b_in, the k3 weight and bias,
-//     b_out, ls) stay in shared memory across the block's tiles, each
-//     column owned by one thread; it writes them once per block.  It also
-//     writes xn, du, g and do0 for the two weight products.
-//  2. atb: dWin = xn^T du and dWout = g^T do0 as 64x64 output tiles over a
-//     fixed split of the rows, each split's partial written apart.
+//  1. rows: one block walks a fixed run of tiles of TT = 28 rows.  Per
+//     tile it recomputes LN for the rows t0-2 .. t0+TT+1 (the transpose
+//     conv needs dy one row past each side, and dy there needs y, which
+//     needs u one row further: 32 rows, two m16 fragments) and do0 for
+//     t0-1 .. t0+TT, then walks the 6F hidden columns in six chunks of
+//     64 GLU pairs (columns c and c + 3F together, since the k3 conv and
+//     the GLU are per column): u, y and the dropout masks, g, dg, dy, du
+//     and the chunk's small gradients, with the chunk's four products on
+//     the tensor cores (u = xn win_c, o0 += g_c wout_c, dg_c = do0 wout_c^T,
+//     dxn += du_c win_c^T; each warp owns fixed fragments, B read from L2
+//     as the fragments need it).  o0 (for dls) and dxn stay in registers
+//     across the chunks; then the LayerNorm backward (x-hat recomputed
+//     from x) writes dx.  The sums over rows of the small gradients (LN
+//     scale and bias, b_in, the k3 weight and bias, b_out, ls) stay in
+//     shared memory across the block's tiles, each column owned by one
+//     thread; it writes them once per block.  It also writes xn, du, g
+//     and do0 for the two weight products.
+//  2. atb: dWin = xn^T du and dWout = g^T do0 as 64x64 output tiles on the
+//     tensor cores over a fixed split of the rows, 32 rows at a time
+//     double-buffered with cp.async, each split's partial written apart.
 //  3. reduce: the partials of each split (or block) added in a fixed order.
 // No atomics: two runs give the same bits.  The launcher picks the
-// partition from B and T (bwd_partition): at most kRowGroups blocks of
-// pass 1 and kMaxSplits row splits, so the partial buffers, [blocks,
-// 34F] and [splits, 9F^2] floats, stay at 9 MB and 19 MB at
+// partition from B and T (BwdPartition): at most kRowGroups blocks of
+// pass 1 (two per SM) and kMaxSplits row splits, so the partial buffers,
+// [blocks, 34F] and [splits, 9F^2] floats, stay at 5 MB and 19 MB at
 // [4, 8000, 128].  The caller sizes its one scratch buffer with
 // sep_gcfn_train_bwd_scratch_floats.
 #include <cuda_runtime.h>
@@ -46,13 +56,16 @@
 #include <stdint.h>
 
 #include "gcfn_tile.cuh"
+#include "mma_tf32x3.cuh"
 
 namespace {
 
 using gcfn::kThreads;
 
-constexpr int kTT = 16;  // K7 and K8 rows per tile
-constexpr int kRowGroups = 528;  // K8: at most this many blocks walk tiles
+constexpr int kTT = 16;          // K7 rows per tile
+constexpr int kBwdTT = 28;       // K8 rows per tile: TT + 4 = 32 u rows
+constexpr int kCH = 64;          // K8 GLU pairs per hidden chunk
+constexpr int kRowGroups = 264;  // K8: at most this many blocks walk tiles
 constexpr int kMaxSplits = 32;   // K8: at most this many row splits of the
                                  // weight products
 
@@ -74,53 +87,56 @@ gcfn_train_fwd_kernel(const float* __restrict__ x,
                           wout, bout, ls, out, T, eps, drop);
 }
 
-// C[r][n] = sum_k A[r][k] * B(k, n) for r < R, n < N, by all kThreads
-// threads: A and C in shared memory (rows 16-byte aligned), B in global
-// memory, B(k, n) = B[k * N + n] ([K][N]) or, with kBT, B[n * K + k]
-// ([N][K], read 4 k at a time as one float4).  Each thread owns columns
-// and keeps a column of up to RPG rows in registers.  Two variants ran
-// slower on an H100 80GB HBM3 at 700 W (K8 at [4, 8000, 128]: 2.91 ms
-// with this one): coalesced reads of transposed copies of win and wout
-// for the kBT products (3.81 ms), and K1's register tile of 2-3 columns
-// per thread (3.29 ms; the row pass then spills at 128 registers).
-template <int R, int K, int N, bool kBT>
-__device__ __forceinline__ void smem_product(const float* A, int lda,
-                                             const float* __restrict__ B,
-                                             float* C, int ldc) {
-  constexpr int CT = N < kThreads ? N : kThreads;  // threads along columns
-  constexpr int RG = kThreads / CT;                 // row groups
-  constexpr int RPG = (R + RG - 1) / RG;            // rows per group
-  static_assert(K % 4 == 0 && CT * RG == kThreads, "shape");
-  const int col = threadIdx.x % CT, rg = threadIdx.x / CT;
-  for (int n = col; n < N; n += CT) {
-    float acc[RPG];
+// acc[mt][nt] += A[16 mt .. 16 mt + 15][0 .. 8 KS) B(., n-tile nt) by one
+// warp, 3xTF32.  A is row-major in shared memory (lda = 8 mod 32: the
+// 8-byte fragment loads are free of bank conflicts); k slots t and t+4 of
+// each k-step take k = 2t and 2t+1, so bfrag(ks, nt) returns
+// (B(8 ks + 2t, n), B(8 ks + 2t + 1, n)) for the lane's column n = the
+// n-tile's column g.  The product sums into zeroed fragments, added to
+// acc in float32 at the end (mma_tf32x3.cuh: the tensor cores' own
+// accumulation drifts over many calls).
+template <int MT, int NT, int KS, class BFrag>
+__device__ __forceinline__ void warp_product(float (&acc)[MT][NT][4],
+                                             const float* A, int lda,
+                                             BFrag bfrag) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float c[MT][NT][4] = {};
+#pragma unroll 2
+  for (int ks = 0; ks < KS; ++ks) {
+    uint32_t ab[MT][4], as[MT][4];
 #pragma unroll
-    for (int q = 0; q < RPG; ++q) acc[q] = 0.f;
-    for (int k = 0; k < K; k += 4) {
-      float4 w;
-      if (kBT) {
-        w = *reinterpret_cast<const float4*>(B + (size_t)n * K + k);
-      } else {
-        w.x = B[(size_t)k * N + n];
-        w.y = B[(size_t)(k + 1) * N + n];
-        w.z = B[(size_t)(k + 2) * N + n];
-        w.w = B[(size_t)(k + 3) * N + n];
-      }
-#pragma unroll
-      for (int q = 0; q < RPG; ++q) {
-        const int r = rg * RPG + q;
-        if (r < R) {
-          const float4 a = *reinterpret_cast<const float4*>(A + r * lda + k);
-          acc[q] += a.x * w.x + a.y * w.y + a.z * w.z + a.w * w.w;
-        }
-      }
+    for (int mt = 0; mt < MT; ++mt) {
+      const float* a = A + (16 * mt + g) * lda + 8 * ks + 2 * t;
+      const float2 lo = *reinterpret_cast<const float2*>(a);
+      const float2 hi = *reinterpret_cast<const float2*>(a + 8 * lda);
+      const float v[4] = {lo.x, hi.x, lo.y, hi.y};
+      tf32x3::split(v, ab[mt], as[mt]);
     }
 #pragma unroll
-    for (int q = 0; q < RPG; ++q) {
-      const int r = rg * RPG + q;
-      if (r < R) C[r * ldc + n] = acc[q];
+    for (int nt = 0; nt < NT; ++nt) {
+      const float2 b = bfrag(ks, nt);
+      uint32_t bb[2], bs[2];
+      tf32x3::split(b.x, bb[0], bs[0]);
+      tf32x3::split(b.y, bb[1], bs[1]);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        tf32x3::mma3(c[mt][nt], ab[mt], as[mt], bb, bs);
     }
   }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] += c[mt][nt][e];
+}
+
+// Row and column of element e of a lane's C fragment (m16n8).
+__device__ __forceinline__ int frag_row(int e) {
+  return ((threadIdx.x & 31) >> 2) + 8 * (e >> 1);
+}
+__device__ __forceinline__ int frag_col(int e) {
+  return 2 * (threadIdx.x & 3) + (e & 1);
 }
 
 __device__ __forceinline__ float sigmoid(float v) {
@@ -136,21 +152,36 @@ struct Small {
                        ls = 3 * F + 5 * H6, size = 4 * F + 5 * H6;
 };
 
-template <int F, int TT>
+// K8's row tile: TT rows, a hidden chunk of NC = 2 CH columns (CH GLU
+// pairs), and the shared-memory layout in floats.
+template <int F>
 struct BwdShape {
-  static constexpr int H6 = 6 * F, H3 = 3 * F;
-  static constexpr int R4 = TT + 4, R2 = TT + 2;
-  static constexpr int xn = 0, xh = xn + R4 * F, inv = xh + TT * F,
-                       u = inv + TT, y = u + R4 * H6, g = y + R2 * H6,
-                       d0 = g + TT * H3, dg = d0 + R2 * F,
-                       small = dg + R2 * H3,
+  static constexpr int TT = kBwdTT, R4 = TT + 4, R2 = TT + 2;
+  static constexpr int H6 = 6 * F, H3 = 3 * F, CH = kCH, NC = 2 * CH;
+  static constexpr int chunks = H3 / CH;
+  // row strides = 8 mod 32 floats (conflict-free A fragment loads)
+  static constexpr int LX = F + 8, LU = NC + 8, LG = CH + 8;
+  static constexpr int xn = 0, d0 = xn + R4 * LX, u = d0 + 32 * LX,
+                       y = u + (R4 + 2) * LU, gc = y + R2 * LU,
+                       dgc = gc + 32 * LG, small = dgc + 32 * LG,
                        floats = small + Small<F>::size;
   static constexpr size_t smem_bytes = sizeof(float) * (size_t)floats;
-  static_assert(TT % 4 == 0, "16-byte aligned rows");
+  static_assert(R4 == 32 && H3 % CH == 0 && F == 16 * (kThreads / 32) &&
+                    CH == 8 * (kThreads / 32),
+                "two m16 fragments of rows; a warp owns 16 columns of F "
+                "and 8 of a chunk's GLU pairs");
+  static_assert(TT <= R2, "o0 and dxn of the tile rows fit u and y");
 };
 
-template <int F, int TT>
-__global__ void __launch_bounds__(kThreads)
+// Hidden column of a chunk's local column j: the first CH are GLU values
+// c*CH + j, the next CH their gates 3F + c*CH + j - CH.
+template <int F>
+__device__ __forceinline__ int hidden_col(int c, int j) {
+  return c * kCH + j + (j < kCH ? 0 : 3 * F - kCH);
+}
+
+template <int F>
+__global__ void __launch_bounds__(kThreads, 2)
 gcfn_train_bwd_rows_kernel(
     const float* __restrict__ x, const float* __restrict__ dout,
     const float* __restrict__ lns, const float* __restrict__ lnb,
@@ -161,26 +192,36 @@ gcfn_train_bwd_rows_kernel(
     float* __restrict__ xn_g, float* __restrict__ du_g,
     float* __restrict__ g_g, float* __restrict__ do0_g,
     float* __restrict__ partial, int B, int T, float eps, gcfn::Drop drop) {
-  using S = BwdShape<F, TT>;
+  using S = BwdShape<F>;
   using P = Small<F>;
-  constexpr int H6 = S::H6, H3 = S::H3, R4 = S::R4, R2 = S::R2;
+  constexpr int TT = S::TT, R4 = S::R4, R2 = S::R2, H6 = S::H6, H3 = S::H3,
+                CH = S::CH, NC = S::NC, LX = S::LX, LU = S::LU, LG = S::LG;
+  constexpr int kWarps = kThreads / 32;
   extern __shared__ __align__(16) float smem[];
-  float* xn = smem + S::xn;    // [R4][F] LN rows t0-2 .. t0+TT+1
-  float* xh = smem + S::xh;    // [TT][F] normalized rows before the affine
-  float* inv = smem + S::inv;  // [TT]   1 / std of the tile rows
-  float* u = smem + S::u;      // [R4][H6] u rows t0-2 ..; later du
-  float* y = smem + S::y;      // [R2][H6] y rows t0-1 .. t0+TT; later dy
-  float* g = smem + S::g;      // [TT][H3] dropped GLU output
-  float* d0 = smem + S::d0;    // [R2][F] do0 rows t0-1 ..; later dxn [TT]
-  float* dg = smem + S::dg;    // [TT][F] o0, then [R2][H3] dg
+  float* xn = smem + S::xn;    // [R4][LX] LN rows t0-2 .. t0+TT+1
+  float* d0 = smem + S::d0;    // [32][LX] do0 rows t0-1 .. t0+TT, rows R2..
+                               // zero; at the end x-hat of the tile rows
+  float* u = smem + S::u;      // [R4+2][LU] the chunk's u rows t0-2 ..
+                               // (rows R4.. zero); then du of row t0+i at
+                               // row i+2; at the end o0 of the tile rows
+  float* y = smem + S::y;      // [R2][LU] the chunk's y rows t0-1 ..; then
+                               // dy; at the end dxn of the tile rows
+  float* gc = smem + S::gc;    // [32][LG] the chunk's g, tile rows (rows
+                               // TT.. zero)
+  float* dgc = smem + S::dgc;  // [32][LG] the chunk's dg rows t0-1 ..
   float* acc = smem + S::small;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
   const int tiles_per_row = (T + TT - 1) / TT;
   const int tiles = B * tiles_per_row;
   const int tile_begin = (int)((long long)tiles * blockIdx.x / gridDim.x);
   const int tile_end = (int)((long long)tiles * (blockIdx.x + 1) / gridDim.x);
   for (int e = tid; e < P::size; e += kThreads) acc[e] = 0.f;
+  // the fragments' padding rows, which no step writes
+  for (int e = tid; e < (32 - R2) * LX; e += kThreads) d0[R2 * LX + e] = 0.f;
+  for (int e = tid; e < 2 * LU; e += kThreads) u[R4 * LU + e] = 0.f;
+  for (int e = tid; e < (32 - TT) * LG; e += kThreads) gc[TT * LG + e] = 0.f;
 
   for (int tile = tile_begin; tile < tile_end; ++tile) {
     const int b = tile / tiles_per_row;
@@ -189,17 +230,13 @@ gcfn_train_bwd_rows_kernel(
     __syncthreads();  // the previous tile's last reads are done
 
     // 1. LayerNorm of rows t0-2 .. t0+TT+1, one warp per row; the tile
-    //    rows keep x-hat and 1/std for the LN backward and write xn.
-    for (int r = warp; r < R4; r += kThreads / 32) {
-      const int t = t0 - 2 + r, i = r - 2;
-      const bool main = i >= 0 && i < TT;
-      float* dst = xn + r * F;
+    //    rows write xn.
+    for (int r = warp; r < R4; r += kWarps) {
+      const int t = t0 - 2 + r;
+      const bool main = r >= 2 && r < TT + 2;
+      float* dst = xn + r * LX;
       if (t < 0 || t >= T) {
-        for (int k = lane; k < F; k += 32) {
-          dst[k] = 0.f;
-          if (main) xh[i * F + k] = 0.f;
-        }
-        if (main && lane == 0) inv[i] = 0.f;
+        for (int k = lane; k < F; k += 32) dst[k] = 0.f;
         continue;
       }
       const float* src = x + (base + t) * F;
@@ -221,34 +258,13 @@ gcfn_train_bwd_rows_kernel(
 #pragma unroll
       for (int q = 0; q < F / 32; ++q) {
         const int k = lane + 32 * q;
-        const float h = v[q] * iv, n = h * lns[k] + lnb[k];
+        const float n = v[q] * iv * lns[k] + lnb[k];
         dst[k] = n;
-        if (main) {
-          xh[i * F + k] = h;
-          xn_g[(base + t) * F + k] = n;
-        }
+        if (main) xn_g[(base + t) * F + k] = n;
       }
-      if (main && lane == 0) inv[i] = iv;
     }
-    __syncthreads();
-
-    // 2. u = xn @ win + bin; rows outside [0, T) are the conv's zero pad.
-    smem_product<R4, F, H6, false>(xn, F, win, u, H6);
-    __syncthreads();
-    for (int e = tid; e < R4 * H6; e += kThreads) {
-      const int r = e / H6, j = e - r * H6, t = t0 - 2 + r;
-      u[e] = (t >= 0 && t < T) ? u[e] + bin[j] : 0.f;
-    }
-    __syncthreads();
-
-    // 3. y = dw3(u) for rows t0-1 .. t0+TT, and do0 = dout * ls * m1 / (1-p)
-    //    there (zero outside [0, T)).
-    for (int e = tid; e < R2 * H6; e += kThreads) {
-      const int i = e / H6, j = e - i * H6;
-      const float* w = wdw + 3 * j;
-      y[e] = u[i * H6 + j] * w[0] + u[(i + 1) * H6 + j] * w[1] +
-             u[(i + 2) * H6 + j] * w[2] + bdw[j];
-    }
+    // 2. do0 = dout * ls * m1 / (1-p) for rows t0-1 .. t0+TT (zero outside
+    //    [0, T)).
     for (int e = tid; e < R2 * F; e += kThreads) {
       const int i = e / F, f = e - i * F, t = t0 - 1 + i;
       float v = 0.f;
@@ -259,137 +275,242 @@ gcfn_train_bwd_rows_kernel(
                 : 0.f;
         if (i >= 1 && i <= TT) do0_g[gr * F + f] = v;
       }
-      d0[e] = v;
+      d0[i * LX + f] = v;
     }
+    // this warp's fragments of o0 = g wout and dxn = du win^T: rows 0..31,
+    // columns 16 warp .. 16 warp + 15
+    float o0[2][2][4], dxn[2][2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o0[mt][nt][e] = dxn[mt][nt][e] = 0.f;
     __syncthreads();
 
-    // 4. g = drop0(GLU(y)) for the tile rows (zero past T); written out.
-    for (int e = tid; e < TT * H3; e += kThreads) {
-      const int i = e / H3, c = e - i * H3, t = t0 + i;
-      float v = 0.f;
-      if (t < T) {
-        const size_t gr = base + t;
-        const float* yr = y + (i + 1) * H6;
-        v = sep_keep(drop.seed0, (uint32_t)gr, (uint32_t)c, drop.threshold)
-                ? yr[c] * sigmoid(yr[c + H3]) * drop.scale
-                : 0.f;
-        g_g[gr * H3 + c] = v;
+    for (int c = 0; c < S::chunks; ++c) {
+      // a. u = xn win_c + bin; rows outside [0, T) are the conv's zero pad.
+      //    This warp: local columns 16 warp .. 16 warp + 15.
+      {
+        float a[2][2][4] = {};
+        warp_product<2, 2, F / 8>(a, xn, LX, [&](int ks, int nt) {
+          const float* w = win + (size_t)(8 * ks + 2 * t4) * H6 +
+                           hidden_col<F>(c, 16 * warp + 8 * nt + g8);
+          return make_float2(w[0], w[H6]);
+        });
+        __syncthreads();  // the previous chunk's dxn product has read u
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = 16 * mt + frag_row(e), t = t0 - 2 + r;
+              const int j = 16 * warp + 8 * nt + frag_col(e);
+              u[r * LU + j] = (t >= 0 && t < T)
+                                  ? a[mt][nt][e] + bin[hidden_col<F>(c, j)]
+                                  : 0.f;
+            }
       }
-      g[e] = v;
+      __syncthreads();
+
+      // b. y = dw3(u) for rows t0-1 .. t0+TT.
+      for (int e = tid; e < R2 * NC; e += kThreads) {
+        const int i = e / NC, j = e - i * NC, hj = hidden_col<F>(c, j);
+        const float* w = wdw + 3 * hj;
+        y[i * LU + j] = u[i * LU + j] * w[0] + u[(i + 1) * LU + j] * w[1] +
+                        u[(i + 2) * LU + j] * w[2] + bdw[hj];
+      }
+      __syncthreads();
+
+      // c. g = drop0(GLU(y)) for the tile rows (zero past T); written out.
+      for (int e = tid; e < TT * CH; e += kThreads) {
+        const int i = e / CH, cl = e - i * CH, t = t0 + i, col = c * CH + cl;
+        float v = 0.f;
+        if (t < T) {
+          const size_t gr = base + t;
+          const float* yr = y + (i + 1) * LU;
+          v = sep_keep(drop.seed0, (uint32_t)gr, (uint32_t)col,
+                       drop.threshold)
+                  ? yr[cl] * sigmoid(yr[CH + cl]) * drop.scale
+                  : 0.f;
+          g_g[gr * H3 + col] = v;
+        }
+        gc[i * LG + cl] = v;
+      }
+      __syncthreads();
+
+      // d. o0 += g_c wout_c (wout rows c*CH ..); dg_c = do0 wout_c^T, this
+      //    warp's 8 GLU pairs.
+      warp_product<2, 2, CH / 8>(o0, gc, LG, [&](int ks, int nt) {
+        const float* w = wout + (size_t)(c * CH + 8 * ks + 2 * t4) * F +
+                         16 * warp + 8 * nt + g8;
+        return make_float2(w[0], w[F]);
+      });
+      {
+        float a[2][1][4] = {};
+        warp_product<2, 1, F / 8>(a, d0, LX, [&](int ks, int) {
+          return *reinterpret_cast<const float2*>(
+              wout + (size_t)(c * CH + 8 * warp + g8) * F + 8 * ks + 2 * t4);
+        });
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dgc[(16 * mt + frag_row(e)) * LG + 8 * warp + frag_col(e)] =
+                a[mt][0][e];
+      }
+      __syncthreads();
+
+      // e. dy through the GLU with m0, in place of y; zero outside [0, T).
+      for (int e = tid; e < R2 * CH; e += kThreads) {
+        const int i = e / CH, cl = e - i * CH, t = t0 - 1 + i;
+        float* yr = y + i * LU;
+        float da = 0.f, db = 0.f;
+        if (t >= 0 && t < T) {
+          const size_t gr = base + t;
+          if (sep_keep(drop.seed0, (uint32_t)gr, (uint32_t)(c * CH + cl),
+                       drop.threshold)) {
+            const float dg0 = dgc[i * LG + cl] * drop.scale;
+            const float a = yr[cl], sg = sigmoid(yr[CH + cl]);
+            da = dg0 * sg;
+            db = dg0 * a * sg * (1.f - sg);
+          }
+        }
+        yr[cl] = da;
+        yr[CH + cl] = db;
+      }
+      __syncthreads();
+
+      // f. Per column j: dbdw, dwdw, then du = dy[t+1] w0 + dy[t] w1 +
+      //    dy[t-1] w2 in place of u (the column's u is read first), dbin.
+      for (int j = tid; j < NC; j += kThreads) {
+        const int hj = hidden_col<F>(c, j);
+        const float* w = wdw + 3 * hj;
+        float sb = 0.f, s0 = 0.f, s1 = 0.f, s2 = 0.f, sbin = 0.f;
+        for (int i = 0; i < TT && t0 + i < T; ++i) {
+          const float d = y[(i + 1) * LU + j];
+          sb += d;
+          s0 += d * u[(i + 1) * LU + j];
+          s1 += d * u[(i + 2) * LU + j];
+          s2 += d * u[(i + 3) * LU + j];
+        }
+        for (int i = 0; i < TT; ++i) {
+          float v = 0.f;
+          if (t0 + i < T) {
+            v = y[(i + 2) * LU + j] * w[0] + y[(i + 1) * LU + j] * w[1] +
+                y[i * LU + j] * w[2];
+            du_g[(base + t0 + i) * H6 + hj] = v;
+            sbin += v;
+          }
+          u[(i + 2) * LU + j] = v;
+        }
+        acc[P::bdw + hj] += sb;
+        acc[P::wdw + 3 * hj] += s0;
+        acc[P::wdw + 3 * hj + 1] += s1;
+        acc[P::wdw + 3 * hj + 2] += s2;
+        acc[P::bin + hj] += sbin;
+      }
+      __syncthreads();
+
+      // g. dxn += du_c win_c^T (du rows from u row 2; the fragments' rows
+      //    past TT are discarded).
+      warp_product<2, 2, NC / 8>(dxn, u + 2 * LU, LU, [&](int ks, int nt) {
+        return *reinterpret_cast<const float2*>(
+            win + (size_t)(16 * warp + 8 * nt + g8) * H6 +
+            hidden_col<F>(c, 8 * ks + 2 * t4));
+      });
     }
+    __syncthreads();  // the last dxn product has read u
+
+    // 3. o0 and dxn of the tile rows into u and y.
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 16 * mt + frag_row(e);
+          const int f = 16 * warp + 8 * nt + frag_col(e);
+          if (r < TT) {
+            u[r * LU + f] = o0[mt][nt][e];
+            y[r * LU + f] = dxn[mt][nt][e];
+          }
+        }
     __syncthreads();
 
-    // 5. o0 = g @ wout for dls = sum dout * o, o = (o0 + bout) m1 / (1-p);
-    //    dbout = sum do0.
-    smem_product<TT, H3, F, false>(g, H3, wout, dg, F);
-    __syncthreads();
+    // 4. dls = sum dout * o, o = (o0 + bout) m1 / (1-p); dbout = sum do0.
     if (tid < F) {
       const int f = tid;
       float s = 0.f;
       for (int i = 0; i < TT && t0 + i < T; ++i) {
         const size_t gr = base + t0 + i;
         if (sep_keep(drop.seed1, (uint32_t)gr, (uint32_t)f, drop.threshold))
-          s += dout[gr * F + f] * (dg[i * F + f] + bout[f]) * drop.scale;
+          s += dout[gr * F + f] * (u[i * LU + f] + bout[f]) * drop.scale;
       }
       acc[P::ls + f] += s;
     } else if (tid < 2 * F) {
       const int f = tid - F;
       float s = 0.f;
-      for (int i = 0; i < TT; ++i) s += d0[(i + 1) * F + f];
+      for (int i = 0; i < TT; ++i) s += d0[(i + 1) * LX + f];
       acc[P::bout + f] += s;
     }
     __syncthreads();
 
-    // 6. dg = do0 @ wout^T for rows t0-1 .. t0+TT.
-    smem_product<R2, F, H3, true>(d0, F, wout, dg, H3);
-    __syncthreads();
-
-    // 7. dy through the GLU with m0, in place of y; zero outside [0, T).
-    for (int e = tid; e < R2 * H3; e += kThreads) {
-      const int i = e / H3, c = e - i * H3, t = t0 - 1 + i;
-      float* yr = y + i * H6;
-      float da = 0.f, db = 0.f;
-      if (t >= 0 && t < T) {
-        const size_t gr = base + t;
-        if (sep_keep(drop.seed0, (uint32_t)gr, (uint32_t)c, drop.threshold)) {
-          const float dg0 = dg[e] * drop.scale;
-          const float a = yr[c], sg = sigmoid(yr[c + H3]);
-          da = dg0 * sg;
-          db = dg0 * a * sg * (1.f - sg);
-        }
-      }
-      yr[c] = da;
-      yr[c + H3] = db;
-    }
-    __syncthreads();
-
-    // 8. Per column j: dbdw, dwdw, then du = dy[t+1] w0 + dy[t] w1 +
-    //    dy[t-1] w2 in place of u (the column's u is read first), dbin.
-    for (int j = tid; j < H6; j += kThreads) {
-      const float* w = wdw + 3 * j;
-      float sb = 0.f, s0 = 0.f, s1 = 0.f, s2 = 0.f, sbin = 0.f;
-      for (int i = 0; i < TT && t0 + i < T; ++i) {
-        const float d = y[(i + 1) * H6 + j];
-        sb += d;
-        s0 += d * u[(i + 1) * H6 + j];
-        s1 += d * u[(i + 2) * H6 + j];
-        s2 += d * u[(i + 3) * H6 + j];
-      }
-      for (int i = 0; i < TT; ++i) {
-        float v = 0.f;
-        if (t0 + i < T) {
-          v = y[(i + 2) * H6 + j] * w[0] + y[(i + 1) * H6 + j] * w[1] +
-              y[i * H6 + j] * w[2];
-          du_g[(base + t0 + i) * H6 + j] = v;
-          sbin += v;
-        }
-        u[(i + 2) * H6 + j] = v;
-      }
-      acc[P::bdw + j] += sb;
-      acc[P::wdw + 3 * j] += s0;
-      acc[P::wdw + 3 * j + 1] += s1;
-      acc[P::wdw + 3 * j + 2] += s2;
-      acc[P::bin + j] += sbin;
-    }
-    __syncthreads();
-
-    // 9. dxn = du @ win^T into d0.
-    smem_product<TT, H6, F, true>(u + 2 * H6, H6, win, d0, F);
-    __syncthreads();
-
-    // 10. LayerNorm backward, one warp per row; dx = dout + dx_ln.
-    for (int i = warp; i < TT; i += kThreads / 32) {
+    // 5. LayerNorm backward, one warp per row, x-hat recomputed from x as
+    //    step 1 computed it (into d0); dx = dout + dx_ln.
+    for (int i = warp; i < TT; i += kWarps) {
       const int t = t0 + i;
-      if (t >= T) continue;
+      if (t >= T) {
+        for (int k = lane; k < F; k += 32) d0[i * LX + k] = 0.f;
+        continue;
+      }
       const size_t gr = base + t;
-      float dh[F / 32], hv[F / 32];
-      float s1 = 0.f, s2 = 0.f;
+      const float* src = x + gr * F;
+      float hv[F / 32], dh[F / 32];
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < F / 32; ++q) {
+        hv[q] = src[lane + 32 * q];
+        s += hv[q];
+      }
+      const float mean = gcfn::warp_sum(s) * (1.f / F);
+      float s2 = 0.f;
+#pragma unroll
+      for (int q = 0; q < F / 32; ++q) {
+        hv[q] -= mean;
+        s2 += hv[q] * hv[q];
+      }
+      const float iv = rsqrtf(gcfn::warp_sum(s2) * (1.f / F) + eps);
+      float s1 = 0.f;
+      s2 = 0.f;
 #pragma unroll
       for (int q = 0; q < F / 32; ++q) {
         const int k = lane + 32 * q;
-        dh[q] = d0[i * F + k] * lns[k];
-        hv[q] = xh[i * F + k];
+        hv[q] *= iv;
+        dh[q] = y[i * LU + k] * lns[k];
         s1 += dh[q];
         s2 += dh[q] * hv[q];
+        d0[i * LX + k] = hv[q];
       }
       const float m1 = gcfn::warp_sum(s1) * (1.f / F);
       const float m2 = gcfn::warp_sum(s2) * (1.f / F);
 #pragma unroll
       for (int q = 0; q < F / 32; ++q) {
         const int k = lane + 32 * q;
-        dx[gr * F + k] =
-            dout[gr * F + k] + (dh[q] - m1 - hv[q] * m2) * inv[i];
+        dx[gr * F + k] = dout[gr * F + k] + (dh[q] - m1 - hv[q] * m2) * iv;
       }
     }
+    __syncthreads();
     if (tid < F) {
       const int f = tid;
       float s = 0.f;
-      for (int i = 0; i < TT; ++i) s += d0[i * F + f] * xh[i * F + f];
+      for (int i = 0; i < TT; ++i) s += y[i * LU + f] * d0[i * LX + f];
       acc[P::lns + f] += s;
     } else if (tid < 2 * F) {
       const int f = tid - F;
       float s = 0.f;
-      for (int i = 0; i < TT && t0 + i < T; ++i) s += d0[i * F + f];
+      for (int i = 0; i < TT && t0 + i < T; ++i) s += y[i * LU + f];
       acc[P::lnb + f] += s;
     }
   }
@@ -398,59 +519,94 @@ gcfn_train_bwd_rows_kernel(
     partial[(size_t)blockIdx.x * P::size + e] = acc[e];
 }
 
-constexpr int kTM = 64, kTN = 64, kTR = 32;
+constexpr int kAtbThreads = 128;            // 4 warps, 32 x 32 outputs each
+constexpr int kTM = 64, kTN = 64, kTR = 32;  // output tile, rows per stage
+constexpr int kAL = kTM + 8;                // staged row stride (8 mod 32)
 
 // partial[split][m][n] = sum over the split's rows r of A[r][m] * B[r][n];
-// A [rows][M], B [rows][N], M and N multiples of 64.  16x16 threads, each
-// a 4x4 output tile; 32 rows at a time staged in shared memory.
-__global__ void __launch_bounds__(kThreads)
+// A [rows][M], B [rows][N], M and N multiples of 64.  The row index is
+// the products' k: a k-step's A fragment is As[r][m] and its B fragment
+// Bs[r][n], 32 rows staged at a time, two stages in flight.
+__global__ void __launch_bounds__(kAtbThreads)
 gcfn_train_bwd_atb_kernel(const float* __restrict__ A,
                           const float* __restrict__ Bm,
                           float* __restrict__ partial, int rows, int M, int N,
                           int rows_per_split, long long split_stride) {
-  __shared__ __align__(16) float As[kTR][kTM];
-  __shared__ __align__(16) float Bs[kTR][kTN];
+  __shared__ __align__(16) float As[2][kTR][kAL];
+  __shared__ __align__(16) float Bs[2][kTR][kAL];
   const int n0 = blockIdx.x * kTN, m0 = blockIdx.y * kTM, s = blockIdx.z;
   const int r_begin = s * rows_per_split;
   const int r_end = min(rows, r_begin + rows_per_split);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float c[4][4];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = 32 * (warp & 1), wn = 32 * (warp >> 1);
+  float c[2][4][4] = {};
+
+  auto stage = [&](int buf, int r0) {
+    for (int e = tid; e < kTR * kTM / 4; e += kAtbThreads) {
+      const int rr = e / (kTM / 4), c4 = 4 * (e - rr * (kTM / 4));
+      const int r = r0 + rr;
+      const bool ok = r < r_end;
+      const size_t row = (size_t)(ok ? r : r_begin);
+      tf32x3::cp_async16(&As[buf][rr][c4], A + row * M + m0 + c4, ok);
+      tf32x3::cp_async16(&Bs[buf][rr][c4], Bm + row * N + n0 + c4, ok);
+    }
+    tf32x3::cp_async_commit();
+  };
+
+  const int stages = (r_end - r_begin + kTR - 1) / kTR;
+  if (stages > 0) stage(0, r_begin);
+  for (int n = 0; n < stages; ++n) {
+    if (n + 1 < stages) {
+      stage((n + 1) & 1, r_begin + (n + 1) * kTR);
+      tf32x3::cp_async_wait<1>();
+    } else {
+      tf32x3::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int buf = n & 1;
+    float cs[2][4][4] = {};  // this stage's rows, added to c in float32
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < kTR / 8; ++kk) {
+      uint32_t ab[2][4], as[2][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
-  for (int r0 = r_begin; r0 < r_end; r0 += kTR) {
-    for (int e = threadIdx.x; e < kTR * kTM / 4; e += kThreads) {
-      const int rr = e / (kTM / 4), c4 = e - rr * (kTM / 4), r = r0 + rr;
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), bv = a;
-      if (r < r_end) {
-        a = *reinterpret_cast<const float4*>(A + (size_t)r * M + m0 + 4 * c4);
-        bv = *reinterpret_cast<const float4*>(Bm + (size_t)r * N + n0 +
-                                              4 * c4);
+      for (int mt = 0; mt < 2; ++mt) {
+        const int m = wm + 16 * mt + g;
+        const float a[4] = {As[buf][8 * kk + t][m], As[buf][8 * kk + t][m + 8],
+                            As[buf][8 * kk + t + 4][m],
+                            As[buf][8 * kk + t + 4][m + 8]};
+        tf32x3::split(a, ab[mt], as[mt]);
       }
-      *reinterpret_cast<float4*>(&As[rr][4 * c4]) = a;
-      *reinterpret_cast<float4*>(&Bs[rr][4 * c4]) = bv;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int rr = 0; rr < kTR; ++rr) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[rr][4 * ty]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[rr][4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bw[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int nt = 0; nt < 4; ++nt) {
+        const int nn = wn + 8 * nt + g;
+        uint32_t bb[2], bs[2];
+        tf32x3::split(Bs[buf][8 * kk + t][nn], bb[0], bs[0]);
+        tf32x3::split(Bs[buf][8 * kk + t + 4][nn], bb[1], bs[1]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) c[i][j] += av[i] * bw[j];
+        for (int mt = 0; mt < 2; ++mt)
+          tf32x3::mma3(cs[mt][nt], ab[mt], as[mt], bb, bs);
+      }
     }
-    __syncthreads();
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[mt][nt][e] += cs[mt][nt][e];
+    __syncthreads();  // this stage's buffers are consumed
   }
   float* out = partial + (size_t)s * split_stride;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    *reinterpret_cast<float4*>(out + (size_t)(m0 + 4 * ty + i) * N + n0 +
-                               4 * tx) =
-        make_float4(c[i][0], c[i][1], c[i][2], c[i][3]);
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(
+            out + (size_t)(m0 + wm + 16 * mt + g + 8 * h) * N + n0 + wn +
+            8 * nt + 2 * t) = make_float2(c[mt][nt][2 * h],
+                                          c[mt][nt][2 * h + 1]);
 }
 
 // out[l] = sum over s = 0, 1, ... of partial[s][l], in that order.
@@ -483,7 +639,7 @@ struct BwdPartition {
   BwdPartition(int B, int T)
       : rows((long long)B * T),
         groups((int)std::min<long long>(
-            (long long)B * ((T + kTT - 1) / kTT), kRowGroups)),
+            (long long)B * ((T + kBwdTT - 1) / kBwdTT), kRowGroups)),
         splits((int)std::max<long long>(
             1, std::min<long long>(kMaxSplits, rows / 1024))) {}
   long long xn() const { return 0; }
@@ -560,12 +716,12 @@ extern "C" int sep_gcfn_train_bwd_f32(
   float *xn = base + part.xn(), *du = base + part.du(), *g = base + part.g(),
         *do0 = base + part.do0(), *small_partial = base + part.small_partial(),
         *big_partial = base + part.big_partial();
-  constexpr size_t smem = BwdShape<kF, kTT>::smem_bytes;
+  constexpr size_t smem = BwdShape<kF>::smem_bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      gcfn_train_bwd_rows_kernel<kF, kTT>,
+      gcfn_train_bwd_rows_kernel<kF>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  gcfn_train_bwd_rows_kernel<kF, kTT><<<part.groups, kThreads, smem, s>>>(
+  gcfn_train_bwd_rows_kernel<kF><<<part.groups, kThreads, smem, s>>>(
       f(x), f(dout), f(lns), f(lnb), f(win), f(bin), f(wdw), f(bdw),
       f(wout), f(bout), f(ls), w(dx), xn, du, g, do0, small_partial, B, T,
       eps, gcfn::Drop{seed0, seed1, threshold, scale});
@@ -575,11 +731,11 @@ extern "C" int sep_gcfn_train_bwd_f32(
   const int per_split = (rows + part.splits - 1) / part.splits;
   const long long big = (long long)kF * H6 + (long long)H3 * kF;
   gcfn_train_bwd_atb_kernel<<<dim3(H6 / kTN, kF / kTM, part.splits),
-                              kThreads, 0, s>>>(xn, du, big_partial, rows, kF,
-                                                H6, per_split, big);
+                              kAtbThreads, 0, s>>>(
+      xn, du, big_partial, rows, kF, H6, per_split, big);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   gcfn_train_bwd_atb_kernel<<<dim3(kF / kTN, H3 / kTM, part.splits),
-                              kThreads, 0, s>>>(
+                              kAtbThreads, 0, s>>>(
       g, do0, big_partial + (size_t)kF * H6, rows, H3, kF, per_split, big);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   int e = reduce(big_partial, w(grads_big), part.splits, big, s);

@@ -1,0 +1,114 @@
+// Float32-accurate products on the tensor cores: "3xTF32".
+//
+// A float x is split as x = big + small, where big is x rounded to TF32
+// (10 mantissa bits, round to nearest with ties away from zero, as
+// cvt.rna.tf32.f32 rounds) and small is the remainder x - big, exact in
+// float32, whose low 13 bits the tensor core drops (TF32 toward zero, as
+// CUTLASS's 3xTF32 takes it).  A product a·b is then taken as
+//   a_small·b_big + a_big·b_small + a_big·b_big
+// in float32 accumulators; the dropped a_small·b_small term and the
+// truncated small parts leave about 2^-21 of |a||b|, against 2^-11 for one
+// TF32 product (tests/test_torch_tf32x3.py emulates both).  The three
+// products run at 495 / 3 TFLOP/s on an H100 SXM, against 67 for float32
+// FMAs on the CUDA cores.  The split costs three instructions (an integer
+// add, a mask, a float subtract): cvt.rna.tf32.f32 compiles to a longer
+// sequence with special-value checks, and both kernels ran slower with
+// it on an H100.
+//
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32: D[16x8] += A[16x8]
+// B[8x8] per warp.  With g = lane / 4 and t = lane % 4, a lane holds
+//   A: a0 = A[g][t],  a1 = A[g+8][t],  a2 = A[g][t+4],  a3 = A[g+8][t+4]
+//   B: b0 = B[t][g],  b1 = B[t+4][g]
+//   C: c0 = C[g][2t], c1 = C[g][2t+1], c2 = C[g+8][2t], c3 = C[g+8][2t+1]
+// The product sums over k, so any one permutation of k applied to both
+// A's columns and B's rows gives the same D: a caller may put k = 2t and
+// 2t+1 in the slots t and t+4 (one 8-byte load for a row-major A, or a C
+// fragment reused as an A fragment, as flash_relpos.cu does with P).
+//
+// Each call's products should start from zeroed fragments and be added
+// to a running sum in float32 registers: with the tensor cores'
+// accumulation run over thousands of steps into one fragment, K12 missed
+// its card test's rtol of 1e-4 at L 8750.
+//
+// mma.sync and not wgmma: the callers' products are short (head width 16
+// in K12, row tiles of 32 in K8), and their float32 softmax, LayerNorm
+// and GLU work sets their pace; a warp owns its rows' fragments.
+#pragma once
+
+#include <stdint.h>
+
+namespace tf32x3 {
+
+// x rounded to TF32 (as cvt.rna.tf32.f32 rounds a finite x): half a TF32
+// unit added to the magnitude bits, then the 13 low bits dropped.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small: big rounded to TF32, small the exact remainder, whose
+// low bits the tensor core ignores.
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = to_tf32(x);
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+template <int N>
+__device__ __forceinline__ void split(const float (&x)[N], uint32_t (&big)[N],
+                                      uint32_t (&small)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split(x[i], big[i], small[i]);
+}
+
+// c += a·b, one TF32 product.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a·b at float32 accuracy: the two small cross terms first, then the
+// big one.
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&a_big)[4],
+                                     const uint32_t (&a_small)[4],
+                                     const uint32_t (&b_big)[2],
+                                     const uint32_t (&b_small)[2]) {
+  mma(c, a_small, b_big);
+  mma(c, a_big, b_small);
+  mma(c, a_big, b_big);
+}
+
+// The same with B given as floats, split here.
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&a_big)[4],
+                                     const uint32_t (&a_small)[4], float b0,
+                                     float b1) {
+  uint32_t bb[2], bs[2];
+  split(b0, bb[0], bs[0]);
+  split(b1, bb[1], bs[1]);
+  mma3(c, a_big, a_small, bb, bs);
+}
+
+// The 16-byte asynchronous copies that stage K8's and K12's tiles in
+// shared memory: zero-filled where !valid (src must still be a valid
+// address), committed as one group, waited on with at most N groups
+// still in flight.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+}  // namespace tf32x3

@@ -97,7 +97,10 @@ def attention_route(impl: str, train_impl: str, length: int,
     "pallas" take the dense attention past 512, as JAX's do.  Eval: "auto"
     is K2/K3 up to ``FUSED_PV_MAX_LENGTH`` and K12 past it; "fused_pv" is
     K2/K3, "pallas" K12, "xla" dense.  In train only "single" of the eval
-    routes is taken: K3 and K12 have no backward."""
+    routes is taken: where JAX trains through K3 or K12 at dropout 0 with
+    their reference VJPs, the port takes the dense attention, as it did
+    before K3 and K12 had gradients (their plain-recompute backward,
+    ``ops/kernels/_autograd.py``)."""
     single_ok = length <= SINGLE_MAX_LENGTH
     if train_p is not None:
         pv_ok = (train_impl in ("auto", "fused_pv")

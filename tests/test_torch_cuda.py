@@ -374,10 +374,15 @@ def assert_grads_close(got, ref):
 
 
 @pytest.mark.cuda
-# T=77 ends in a partial tile of 16 rows: the halo rows of K8 must take
-# their masks and their zero padding from the global rows
+# T=77 ends in a partial tile: the halo rows of K8 must take their masks
+# and their zero padding from the global rows.  K8's row tile is 28 rows:
+# T 65 and 129 end one to nine rows into a tile, and B*T = 20 is under
+# one tile, at both rates
 @pytest.mark.parametrize("b,t,p", [(3, 77, 0.05), (4, 8000, 0.05),
-                                   (2, 200, 0.0)])
+                                   (2, 200, 0.0), (2, 65, 0.0),
+                                   (2, 65, 0.05), (3, 129, 0.0),
+                                   (3, 129, 0.05), (1, 20, 0.0),
+                                   (1, 20, 0.05)])
 def test_gcfn_train_kernels_match_plain(cuda_device, b, t, p):
     x, params, dout = gcfn_train_case(cuda_device, b, t, 128)
     before = (gcfn_train_fwd.launches, gcfn_train_bwd.launches)
@@ -443,10 +448,16 @@ def test_gcfn_train_kernels_refuse_other_widths(cuda_device):
 @pytest.mark.cuda
 # L 77: one partial query tile and key tile; L 300 with maxlen 64: tiles
 # that straddle the clamp edge |i - j| = 64; L 8750, maxlen 2000: the
-# decoder batch of a 70 s request, where most pairs clamp
+# decoder batch of a 70 s request, where most pairs clamp.  The tile
+# classes of the tensor-core kernel: maxlen >= L (no tile clamps), a
+# band that meets the clamp inside a tile (L 1000, maxlen 100), and key
+# lengths of exactly 64 n and 64 n + 1 (a full last key tile, and a last
+# tile of one key)
 @pytest.mark.parametrize("b,length,maxlen,lens", [
     (3, 77, 64, (77, 30, 1)), (2, 300, 64, None), (2, 300, 64, (300, 131)),
-    (2, 8750, 2000, (8750, 7000))])
+    (2, 8750, 2000, (8750, 7000)), (2, 300, 512, (300, 200)),
+    (2, 1000, 100, None), (2, 1000, 100, (1000, 517)),
+    (3, 300, 64, (256, 257, 64)), (2, 129, 2000, (128, 129))])
 def test_flash_kernel_matches_plain(cuda_device, b, length, maxlen, lens):
     h, d = 8, 16
     gen = torch.Generator().manual_seed(length)
