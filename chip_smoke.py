@@ -20,14 +20,16 @@ Phases, each of which fails the run:
                two-tensor forms K3b (beside K3's shape) and K9b/K10b
                (beside K9's and K10's); times of the kernel, the plain
                version, a library call where one exists, and the least
-               time the card could take (for K8 and K12, which take their
-               products on the tensor cores as 3xTF32, with those
-               products and their exponentials at the tensor cores' and
-               the SFUs' rates, and the CUDA-core bound of earlier
-               readings on a line before), K8's time by launch, K8's and
-               K12's bits on a repeat call; and the port's scores producer
-               followed by K3 against a two-tensor producer (no add
-               pass) followed by K3b, at K3's shape.
+               time the card could take (for K1, K7, K8 and K12, which
+               take their products on the tensor cores as 3xTF32, with
+               those products and their exponentials at the tensor cores'
+               and the SFUs' rates, and the CUDA-core bound of earlier
+               readings on a line before; K1's products counted on the
+               rows its lengths need), K8's time by launch, K1's, K7's,
+               K8's and K12's bits on a repeat call, K7's and its plain
+               version's distance from a float64 run; and the port's
+               scores producer followed by K3 against a two-tensor
+               producer (no add pass) followed by K3b, at K3's shape.
 3. serve     - Base at full width, seeded weights: three requests through
                ``Separator.__call__`` and one batched B=4 x 4 s forward
                with ragged lengths; every eval kernel's count must rise.
@@ -61,7 +63,9 @@ Phases, each of which fails the run:
 7. train_cpu - one train step at dropout 0, every LayerScale at 0.5, on a
                1 s crop, on the card and on the CPU from the same weights:
                the loss and every gradient agree, within a limit that a
-               control run with TF32 allowed exceeds.  Then one Base-width
+               control run with TF32 allowed exceeds; a witness run with
+               K7's plain version in place of the kernel is printed
+               beside.  Then one Base-width
                GCFN in train mode at dropout 0.05 (the hash masks are the
                same on both): its output and ten gradients, card against
                CPU, within the same limit.
@@ -321,6 +325,14 @@ def kernel_phase(torch, K, device_ms):
               f", library {row['library_ms']}, bound {bound:.4f} "
               f"({term})")
 
+    def bit_equal(name, run):
+        """Fail unless two calls of ``run`` give the same bits."""
+        first, again = run(), run()
+        torch.cuda.synchronize()
+        same = torch.equal(first, again)
+        print(f"[kernels] {name}: bit-equal on a repeat call: {same}")
+        assert same, f"{name} is not bit-equal on repeat"
+
     # K1: the widest GCFN of the path, [B=4, T=8000, F=128], ragged lengths
     b, t, f = 4, 8000, 128
     h = 6 * f
@@ -337,15 +349,27 @@ def kernel_phase(torch, K, device_ms):
         torch.cuda.synchronize()
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
         err = max(err, (got - ref).abs().max().item())
-    flops = b * t * (2 * f * h + 2 * (h // 2) * f       # the two products
-                     + 8 * f + 7 * h + 5 * (h // 2) + 3 * f)  # LN, dw3, GLU
+    bit_equal("fused_gcfn", lambda: K.fused_gcfn(x, params, 1e-5, lens))
+    products = 2 * f * h + 2 * (h // 2) * f         # flops per row
+    rest = 8 * f + 7 * h + 5 * (h // 2) + 3 * f     # LN, dw3, GLU per row
+    # What these lengths need: u rows past a length are zero, so the F->6F
+    # product runs on the valid rows only; from two rows past a length the
+    # conv sees zeros alone and g is one row of constants, so the GLU and
+    # the 3F->F product run on the valid rows, one more and that row.
+    valid = [min(n, t) for n in lens.tolist()]
+    g_rows = sum(min(n + 1, t) + (n + 1 < t) for n in valid)
+    tc_flops = sum(valid) * 2 * f * h + g_rows * 2 * (h // 2) * f
     record(K.fused_gcfn, lambda: K.fused_gcfn(x, params, 1e-5, lens),
            lambda: K.gcfn_plain(x, params, 1e-5, lens), None, err,
-           4 * (2 * x.numel() + sum(p.numel() for p in params) + b), flops,
+           4 * (2 * x.numel() + sum(p.numel() for p in params) + b),
+           b * t * rest,
            source="sepreformer_torch/csrc/gcfn.cu",
            replaces="sepreformer_tpu/ops/pallas/gcfn.py:394",
            shape=f"x [{b}, {t}, {f}], hidden {h}, lens {lens.tolist()}",
-           tolerance="rtol 1e-4, atol 1e-4 (float32)")
+           tolerance="rtol 1e-4, atol 1e-4 (float32)",
+           # the two products on the tensor cores; a sigmoid per GLU pair
+           tc_flops=tc_flops, exps=g_rows * (h // 2),
+           cuda_core_flops=b * t * (products + rest))
 
     # K2: pos_kt at the padded bottleneck length 512 from a [4000, 16] table
     lp, maxlen, d = 512, 2000, 16
@@ -449,17 +473,29 @@ def kernel_phase(torch, K, device_ms):
     torch.cuda.synchronize()
     # a wrong dropout mask errs by O(1) at p = 0.05
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    bit_equal("gcfn_train_fwd",
+              lambda: K.gcfn_train_fwd(x, params, 1e-5, seed, p))
+    # how far the kernel and the plain version each lie from float64
+    exact = K.gcfn_train_plain(x.double(), [q.double() for q in params],
+                               1e-5, seed, p)
+    print(f"[kernels] gcfn_train_fwd: max |result - float64 plain| "
+          f"{(got - exact).abs().max().item():.3e}, the float32 plain "
+          f"version's {(ref - exact).abs().max().item():.3e}")
+    del exact
     products = 2 * f * h + 2 * (h // 2) * f         # flops per row
+    rest = 8 * f + 7 * h + 6 * (h // 2) + 4 * f     # LN, dw3, GLU, dropout
     record(K.gcfn_train_fwd,
            lambda: K.gcfn_train_fwd(x, params, 1e-5, seed, p),
            lambda: K.gcfn_train_plain(x, params, 1e-5, seed, p), None,
            (got - ref).abs().max().item(),
            4 * (2 * x.numel() + sum(q.numel() for q in params)),
-           b * t * (products + 8 * f + 7 * h + 6 * (h // 2) + 4 * f),
+           b * t * rest,
            source="sepreformer_torch/csrc/gcfn_train.cu",
            replaces="sepreformer_tpu/ops/pallas/gcfn_train.py:549",
            shape=f"x [{b}, {t}, {f}], hidden {h}, p {p}",
-           tolerance="rtol 1e-4, atol 1e-4 (float32)")
+           tolerance="rtol 1e-4, atol 1e-4 (float32)",
+           tc_flops=b * t * products, exps=b * t * (h // 2),
+           cuda_core_flops=b * t * (products + rest))
     dx, dparams = K.gcfn_train_bwd(x, params, 1e-5, seed, p, dout)
     ref_dx, ref_dparams = K.gcfn_train_bwd_plain(x, params, 1e-5, seed, p,
                                                  dout)
@@ -1332,12 +1368,14 @@ def tf32_allowed(torch):
         torch.backends.cudnn.allow_tf32 = False
 
 
-def train_against_cpu(torch, np, sep_torch, tag, cfg, controls):
+def train_against_cpu(torch, np, sep_torch, tag, cfg, controls,
+                      witnesses=None):
     """One train step of ``cfg`` on the card and on the CPU from the same
     weights: dropout 0, every LayerScale at 0.5, a 1 s crop.  The loss and
     every gradient (read after the step's clip) must agree within
     ``TRAIN_CPU_REL_LIMIT``; each of ``controls`` (label -> a context in
-    which the card's step runs) must exceed it."""
+    which the card's step runs) must exceed it.  Each of ``witnesses``
+    (the same) is run and printed, to show where the reading comes from."""
     from sepreformer_torch.engine import create_train_state, train_step
     from sepreformer_torch.models import build_model
 
@@ -1364,8 +1402,8 @@ def train_against_cpu(torch, np, sep_torch, tag, cfg, controls):
           f"loss {cpu_loss:.6f}")
     scale = max(g.abs().max().item() for g in cpu_grads.values())
     errs = {}
-    for label, context in {"float32": contextlib.nullcontext,
-                           **controls}.items():
+    for label, context in {"float32": contextlib.nullcontext, **controls,
+                           **(witnesses or {})}.items():
         with context():
             loss, grads = step("cuda")
         assert all(torch.isfinite(g).all() for g in grads.values()), label
@@ -1386,16 +1424,32 @@ def train_against_cpu(torch, np, sep_torch, tag, cfg, controls):
             f"the limit does not catch the {label}")
 
 
+@contextlib.contextmanager
+def k7_plain():
+    """K7's plain version in place of the kernel (K8 stays), for a
+    witness run."""
+    from sepreformer_torch.ops.kernels import gcfn_train
+
+    kernel = gcfn_train.gcfn_train_fwd
+    gcfn_train.gcfn_train_fwd = gcfn_train.gcfn_train_plain
+    try:
+        yield
+    finally:
+        gcfn_train.gcfn_train_fwd = kernel
+
+
 def train_cpu_phase(torch, np, sep_torch):
     """One train step on the card and on the CPU from the same weights,
-    with a TF32 control; then one train-mode GCFN at dropout 0.05."""
+    with a TF32 control and a witness with K7's plain version; then one
+    train-mode GCFN at dropout 0.05."""
     import dataclasses
 
     base = sep_torch.get_variant("SepReformer_Base_WSJ0")
     cfg = dataclasses.replace(base, model=dataclasses.replace(
         base.model, dropout=0.0))
     train_against_cpu(torch, np, sep_torch, "train_cpu", cfg, {
-        "control, TF32 allowed": lambda: tf32_allowed(torch)})
+        "control, TF32 allowed": lambda: tf32_allowed(torch)},
+        {"witness, K7 as its plain version": k7_plain})
     gcfn_train_cpu(torch, np)
 
 

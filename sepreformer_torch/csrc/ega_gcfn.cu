@@ -12,15 +12,16 @@
 // 2*F*4 bytes of row traffic (x_down is 1/r of that): bound by the
 // float32 operations on the CUDA cores, 0.161 ms at [4, 8000, 128].
 //
-// Design: K1's tile (gcfn_tile.cuh) with the tail as a prologue over its
-// R = TT + 2 rows, halo rows included, so the GCFN's k3 conv sees the
-// tail's output on both sides of the tile.  The TPU kernel took the
+// Design: the CUDA-core GCFN tile that K1 ran until it moved to the tensor
+// cores (gcfn_tile.cuh), with the tail as a prologue over its R = TT + 2
+// rows, halo rows included, so the GCFN's k3 conv sees the tail's output
+// on both sides of the tile.  The TPU kernel took the
 // upsampled attention output as a second [B, T, F] input, because a row
 // gather cost it a one-hot product; here each row reads x_down[t / r]
 // directly (r = T / L is exact in every GlobalBlock: the stage length is
 // the bottleneck length times a power of two), which saves writing and
 // reading a [B, T, F] tensor.  The tail's output y stays in 9 KB of
-// shared memory beside K1's 87 KB, so two blocks still fit an SM.
+// shared memory beside the GCFN's 87 KB, so two blocks still fit an SM.
 #include <cuda_runtime.h>
 
 #include "gcfn_tile.cuh"
@@ -37,9 +38,8 @@ ega_gcfn_kernel(const float* __restrict__ x, gcfn::Pair pair,
                 const float* __restrict__ bout, const float* __restrict__ ls,
                 float* __restrict__ out, int T, float eps) {
   extern __shared__ __align__(16) float smem[];
-  gcfn::tile<F, TT, false, true>(smem, x, nullptr, lns, lnb, win, bin, wdw,
-                                 bdw, wout, bout, ls, out, T, eps,
-                                 gcfn::Drop{}, pair);
+  gcfn::tile<F, TT>(smem, x, pair, lns, lnb, win, bin, wdw, bdw, wout,
+                    bout, ls, out, T, eps);
 }
 
 template <int F, int TT>
@@ -48,7 +48,7 @@ int launch(const float* x, gcfn::Pair pair, const float* lns,
            const float* wdw, const float* bdw, const float* wout,
            const float* bout, const float* ls, float* out, int B, int T,
            float eps, cudaStream_t stream) {
-  constexpr size_t smem = gcfn::Shape<F, TT>::pair_smem_bytes;
+  constexpr size_t smem = gcfn::Shape<F, TT>::smem_bytes;
   cudaError_t err = cudaFuncSetAttribute(
       ega_gcfn_kernel<F, TT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

@@ -1,24 +1,30 @@
 // Fused GCFN forward (eval), K1: LayerNorm -> Linear F->6F -> optional
 // u-row length mask -> depthwise k3 (zero pad in u-space) -> GLU ->
-// Linear 3F->F -> LayerScale residual, in float32.
+// Linear 3F->F -> LayerScale residual, at float32 accuracy.
 //
 // Replaces: sepreformer_tpu/ops/pallas/gcfn.py::fused_gcfn
 //           (_gcfn_pipe_kernel[_masked], _gcfn_kernel[_masked]).
 //
 // What bounds it on the H100: the two products are 2*F*6F + 2*3F*F
 // flops per row (295 kflop at F=128) against 2*F*4 bytes of row traffic,
-// ~290 flop per byte.  In float32 on the CUDA cores (67 TFLOP/s) the
-// kernel is bound by operations, not by the 3.35 TB/s of memory.
+// ~290 flop per byte: bound by the products.  On the tensor cores at
+// float32 accuracy (3xTF32, 495/3 TFLOP/s) that is 0.057 ms at
+// [4, 8000, 128]; the LayerNorm, conv and GLU on the CUDA cores and the
+// sigmoids on the SFUs take under a tenth of that.
 //
-// Design: gcfn_tile.cuh (shared with K7, the train forward).
+// Design: gcfn_tile_mma.cuh (shared with K7, the train forward): tiles of
+// 62 rows, the hidden width in chunks whose weights are staged in shared
+// memory, both products as 3xTF32 mma.sync.
 #include <cuda_runtime.h>
 
-#include "gcfn_tile.cuh"
+#include "gcfn_tile_mma.cuh"
 
 namespace {
 
-template <int F, int TT>
-__global__ void __launch_bounds__(gcfn::kThreads)
+using gcfn_mma::kThreads;
+
+template <int F>
+__global__ void __launch_bounds__(kThreads, 2)
 gcfn_kernel(const float* __restrict__ x, const int* __restrict__ lens,
             const float* __restrict__ lns, const float* __restrict__ lnb,
             const float* __restrict__ win, const float* __restrict__ bin,
@@ -27,23 +33,28 @@ gcfn_kernel(const float* __restrict__ x, const int* __restrict__ lens,
             const float* __restrict__ ls, float* __restrict__ out, int T,
             float eps) {
   extern __shared__ __align__(16) float smem[];
-  gcfn::tile<F, TT, false>(smem, x, lens, lns, lnb, win, bin, wdw, bdw, wout,
-                           bout, ls, out, T, eps, gcfn::Drop{});
+  gcfn_mma::tile<F, false>(smem, x, lens, lns, lnb, win, bin, wdw, bdw,
+                           wout, bout, ls, out, T, eps, GcfnDrop{});
 }
 
-template <int F, int TT>
+template <int F>
 int launch(const float* x, const int* lens, const float* lns,
            const float* lnb, const float* win, const float* bin,
            const float* wdw, const float* bdw, const float* wout,
            const float* bout, const float* ls, float* out, int B, int T,
            float eps, cudaStream_t stream) {
-  constexpr size_t smem = gcfn::Shape<F, TT>::smem_bytes;
+  constexpr size_t smem = gcfn_mma::Shape<F>::smem_bytes;
+  constexpr int TT = gcfn_mma::kTT;
   cudaError_t err = cudaFuncSetAttribute(
-      gcfn_kernel<F, TT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gcfn_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
+  if (err == cudaSuccess)  // room for two blocks per SM
+    err = cudaFuncSetAttribute(gcfn_kernel<F>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T + TT - 1) / TT, B);
-  gcfn_kernel<F, TT><<<grid, gcfn::kThreads, smem, stream>>>(
+  gcfn_kernel<F><<<grid, kThreads, smem, stream>>>(
       x, lens, lns, lnb, win, bin, wdw, bdw, wout, bout, ls, out, T, eps);
   return (int)cudaGetLastError();
 }
@@ -64,6 +75,6 @@ extern "C" int sep_gcfn_f32(const void* x, const void* lens, const void* lns,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T <= 0) return 0;
   if (F != 128) return (int)cudaErrorInvalidValue;
-  return launch<128, 16>(f(x), l, f(lns), f(lnb), f(win), f(bin), f(wdw),
-                         f(bdw), f(wout), f(bout), f(ls), o, B, T, eps, s);
+  return launch<128>(f(x), l, f(lns), f(lnb), f(win), f(bin), f(wdw),
+                     f(bdw), f(wout), f(bout), f(ls), o, B, T, eps, s);
 }

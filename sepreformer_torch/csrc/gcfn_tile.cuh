@@ -1,54 +1,40 @@
-// One tile of the fused GCFN forward, shared by K1 (eval, csrc/gcfn.cu) and
-// K7 (train, csrc/gcfn_train.cu): LayerNorm -> Linear F->6F -> optional
-// u-row length mask -> depthwise k3 (zero pad in u-space) -> GLU ->
-// [hash dropout, site 0] -> Linear 3F->F -> [hash dropout, site 1] ->
-// LayerScale residual, in float32.
+// The tile of K16 (csrc/ega_gcfn.cu): a GlobalBlock's EGA tail, then the
+// GCFN -- LayerNorm -> Linear F->6F -> depthwise k3 (zero pad in u-space)
+// -> GLU -> Linear 3F->F -> LayerScale residual -- in float32 on the CUDA
+// cores.
+//
+// K1 and K7 ran this tile too until they moved to gcfn_tile_mma.cuh,
+// which takes the two products on the tensor cores at float32 accuracy
+// (3xTF32) over 62-row tiles with the weights staged in shared memory.
+// K16 waits for that move until the spread of its time between machines
+// (0.38 to 0.51 ms on the same code) is settled, so that its change can
+// be timed.
 //
 // Design: one block of 256 threads per (batch row, tile of TT frames).
-// The block recomputes LayerNorm and the F->6F product for one halo row
-// on each side of its tile, so tiles are independent and the 6F-wide u
-// never leaves shared memory.  u rows outside [0, min(lens[b], T)) are
-// set to zero, which is both the conv's zero padding and the length mask
-// of masked eval.  Each thread keeps a register tile (all rows x 3F/128
-// columns) for the first product and (TT*F/256 rows x 1 column) for the
-// second; the weights stream from L2 in coalesced rows.  That needs the
-// two products' weights as [in, out] in memory: the GCFN module stores
-// its Linear weights so (transposed views with nn.Linear's [out, in]
-// shape), and passes weight.t() without a copy.  Reading the [out, in]
-// rows instead, where a warp's 32 rows lie 512 or 1536 bytes apart, ran
-// 1.6x slower on an H100, straight from global memory or staged through
-// shared memory; double-buffered cp.async staging closed only part of
-// the gap.  Tensor cores (mma.sync / wgmma in TF32 or bf16) are later
-// work: they would change the float32 numerics the reference is held to.
-//
-// With kDrop the tile drops the GLU output g at site 0 (columns 0..3F-1)
-// and the down-projection o at site 1 (columns 0..F-1) by the hash of
-// hash_dropout.cuh at the global row b*T + t, and scales the kept values
-// by 1 / (1 - p): the JAX package's gcfn_train.py::_fwd_train_kernel.
-//
-// With kPair the tile first applies a GlobalBlock's EGA tail to its R rows
-// (K16, csrc/ega_gcfn.cu): y = x + sigmoid(LN_g(x) Wg + bg) * x_down[t / r]
-// with r = T / L, the nearest upsample of the attention output read in
-// place, into a shared [R][F] buffer past the tile's others; the GCFN then
-// normalises y instead of x, and its residual adds to y.  Rows outside
-// [0, T) of y are zero, and their u rows are masked as before.
+// The tail first runs over the tile's R = TT + 2 rows, halo rows included:
+// y = x + sigmoid(LN_g(x) Wg + bg) * x_down[t / r] with r = T / L, the
+// nearest upsample of the attention output read in place, into a shared
+// [R][F] buffer past the tile's others; rows outside [0, T) of y are
+// zero.  The block then recomputes LayerNorm of y and the F->6F product
+// for one halo row on each side, so tiles are independent and the 6F-wide
+// u never leaves shared memory.  u rows outside [0, T) are set to zero,
+// the conv's zero padding.  Each thread keeps a register tile (all rows x
+// 3F/128 columns) for the first product and (TT*F/256 rows x 1 column)
+// for the second; the weights stream from L2 in coalesced rows.  That
+// needs the two products' weights as [in, out] in memory: the GCFN module
+// stores its Linear weights so (transposed views with nn.Linear's
+// [out, in] shape), and passes weight.t() without a copy.  Reading the
+// [out, in] rows instead, where a warp's 32 rows lie 512 or 1536 bytes
+// apart, ran 1.6x slower on an H100, straight from global memory or
+// staged through shared memory; double-buffered cp.async staging closed
+// only part of the gap.  The residual adds to y.
 #pragma once
 
 #include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "hash_dropout.cuh"
 
 namespace gcfn {
 
 constexpr int kThreads = 256;
-
-// The hash-dropout arguments of a train tile (unused in eval).
-struct Drop {
-  uint32_t seed0, seed1;  // seed words of sites 0 and 1
-  uint32_t threshold;     // int(p * 2^24)
-  float scale;            // 1 / (1 - p)
-};
 
 static __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -56,7 +42,7 @@ static __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The EGA tail of a pair tile (unused otherwise).
+// The EGA tail's inputs.
 struct Pair {
   const float* x_down;    // [B, L, F], the attention's output
   int L;                  // the bottleneck length; T = L * (T / L)
@@ -71,11 +57,9 @@ struct Shape {
   static constexpr int H6 = 6 * F;
   static constexpr int H3 = 3 * F;
   static constexpr int R = TT + 2;  // tile rows plus one halo row per side
+  // xn [R][F], u [R][H6], g [TT][H3], then the tail's output y [R][F]
   static constexpr size_t smem_bytes =
-      sizeof(float) * (size_t)(R * F + R * H6 + TT * H3);
-  // a pair tile's: the tail's output y [R][F] after the others
-  static constexpr size_t pair_smem_bytes =
-      smem_bytes + sizeof(float) * (size_t)(R * F);
+      sizeof(float) * (size_t)(R * F + R * H6 + TT * H3 + R * F);
 };
 
 // LayerNorm of one row of F values (src, in global or shared memory) into
@@ -106,30 +90,27 @@ __device__ __forceinline__ void layer_norm_row(
   }
 }
 
-template <int F, int TT, bool kDrop, bool kPair = false>
+template <int F, int TT>
 __device__ __forceinline__ void tile(
-    float* smem, const float* __restrict__ x, const int* __restrict__ lens,
+    float* smem, const float* __restrict__ x, Pair pair,
     const float* __restrict__ lns, const float* __restrict__ lnb,
     const float* __restrict__ win, const float* __restrict__ bin,
     const float* __restrict__ wdw, const float* __restrict__ bdw,
     const float* __restrict__ wout, const float* __restrict__ bout,
-    const float* __restrict__ ls, float* __restrict__ out, int T, float eps,
-    Drop drop, Pair pair = Pair{}) {
+    const float* __restrict__ ls, float* __restrict__ out, int T, float eps) {
   using S = Shape<F, TT>;
   constexpr int H6 = S::H6, H3 = S::H3, R = S::R;
   float* xn = smem;          // [R][F]  normalized rows
   float* u = xn + R * F;     // [R][H6] projected rows (masked)
   float* g = u + R * H6;     // [TT][H3] gated rows
-  float* y = g + TT * H3;    // [R][F]  a pair tile's EGA tail output
+  float* y = g + TT * H3;    // [R][F]  the EGA tail's output
 
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * TT;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int valid = lens ? min(lens[b], T) : T;
   const float* xb = x + (size_t)b * T * F;
-  const uint32_t row0 = (uint32_t)b * (uint32_t)T + (uint32_t)t0;
 
-  if constexpr (kPair) {
+  {  // 0. the EGA tail
     // 0a. y <- x and xn <- LN_g(x) for frames t0-1 .. t0+TT (zero rows
     //     outside [0, T)), one warp per row.
     for (int r = warp; r < R; r += kThreads / 32) {
@@ -177,8 +158,7 @@ __device__ __forceinline__ void tile(
     __syncthreads();
   }
 
-  // 1. LayerNorm of frames t0-1 .. t0+TT (of y in a pair tile), one warp
-  //    per row.
+  // 1. LayerNorm of y for frames t0-1 .. t0+TT, one warp per row.
   for (int r = warp; r < R; r += kThreads / 32) {
     const int t = t0 - 1 + r;
     float* dst = xn + r * F;
@@ -186,12 +166,11 @@ __device__ __forceinline__ void tile(
       for (int k = lane; k < F; k += 32) dst[k] = 0.f;
       continue;
     }
-    layer_norm_row<F>(kPair ? y + r * F : xb + (size_t)t * F, dst, lns, lnb,
-                      eps, lane);
+    layer_norm_row<F>(y + r * F, dst, lns, lnb, eps, lane);
   }
   __syncthreads();
 
-  // 2. u = xn @ win + bin for all R rows; rows outside [0, valid) -> 0.
+  // 2. u = xn @ win + bin for all R rows; rows outside [0, T) -> 0.
   {
     constexpr int NC = H6 / kThreads;
     float acc[R][NC];
@@ -218,7 +197,7 @@ __device__ __forceinline__ void tile(
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int t = t0 - 1 + r;
-      const bool keep = t >= 0 && t < valid;
+      const bool keep = t >= 0 && t < T;
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int o = tid + c * kThreads;
@@ -228,8 +207,7 @@ __device__ __forceinline__ void tile(
   }
   __syncthreads();
 
-  // 3. depthwise k3 over time, then GLU: g = y[:H3] * sigmoid(y[H3:]),
-  //    dropped at site 0 in training.
+  // 3. depthwise k3 over time, then GLU: g = y[:H3] * sigmoid(y[H3:]).
   for (int idx = tid; idx < TT * H3; idx += kThreads) {
     const int i = idx / H3, c = idx - (idx / H3) * H3;
     const float* u0 = u + i * H6;  // frame t-1 (tile row i is u row i+1)
@@ -240,17 +218,11 @@ __device__ __forceinline__ void tile(
                      u0[2 * H6 + c] * wa[2] + bdw[c];
     const float yb = u0[c2] * wb[0] + u0[H6 + c2] * wb[1] +
                      u0[2 * H6 + c2] * wb[2] + bdw[c2];
-    float gv = ya * (1.f / (1.f + expf(-yb)));
-    if (kDrop)
-      gv = sep_keep(drop.seed0, row0 + i, (uint32_t)c, drop.threshold)
-               ? gv * drop.scale
-               : 0.f;
-    g[i * H3 + c] = gv;
+    g[i * H3 + c] = ya * (1.f / (1.f + expf(-yb)));
   }
   __syncthreads();
 
-  // 4. out = x + ls * (g @ wout + bout), the sum dropped at site 1 in
-  //    training.
+  // 4. out = y + ls * (g @ wout + bout).
   {
     constexpr int RPT = TT * F / kThreads;  // rows per thread
     const int col = tid % F, row_a = (tid / F) * RPT;
@@ -267,15 +239,9 @@ __device__ __forceinline__ void tile(
     for (int q = 0; q < RPT; ++q) {
       const int t = t0 + row_a + q;
       if (t < T) {
-        float o = acc[q] + bias;
-        if (kDrop)
-          o = sep_keep(drop.seed1, row0 + row_a + q, (uint32_t)col,
-                       drop.threshold)
-                  ? o * drop.scale
-                  : 0.f;
+        const float o = acc[q] + bias;
         const size_t off = (size_t)t * F + col;
-        const float base = kPair ? y[(row_a + q + 1) * F + col] : xb[off];
-        out[(size_t)b * T * F + off] = base + scale * o;
+        out[(size_t)b * T * F + off] = y[(row_a + q + 1) * F + col] + scale * o;
       }
     }
   }

@@ -1,0 +1,309 @@
+// The GCFN forward tile of K1 (eval, csrc/gcfn.cu) and K7 (train,
+// csrc/gcfn_train.cu): LayerNorm -> Linear F->6F -> optional u-row length
+// mask -> depthwise k3 (zero pad in u-space) -> GLU -> [hash dropout,
+// site 0] -> Linear 3F->F -> [hash dropout, site 1] -> LayerScale
+// residual, with both products on the tensor cores at float32 accuracy
+// (3xTF32, mma_tf32x3.cuh) and the rest in float32 on the CUDA cores.
+//
+// Design: one block of 256 threads per (batch row, tile of TT = 62
+// frames), two blocks per SM.  The block recomputes LayerNorm and the
+// F->6F product for one halo row on each side, so tiles are independent:
+// R = TT + 2 = 64 u rows, four m16 fragments.  It walks the hidden width
+// in chunks of CH = 32 GLU pairs (columns c and c + 3F together, since
+// the k3 conv and the GLU act per column), as K8's row pass does.  Per
+// chunk:
+//   - u = xn win_c + bin, each warp a 32 x 16 block of the [64, 2 CH]
+//     chunk; u rows outside [0, min(lens[b], T)) are zero, which is both
+//     the conv's zero padding and the length mask of masked eval (a tile
+//     whose rows all lie past lens[b] skips the product);
+//   - dw3 and the GLU give g_c for the TT tile rows;
+//   - o += g_c wout_c, each warp a 32 x 32 block of o [64, F], which
+//     stays in float32 registers across the chunks.
+// win[:, chunk] and wout[chunk rows, :] are staged in shared memory by
+// cp.async, one buffer each: win_{c+1} is issued once the u product has
+// read win_c and lands during the GLU and the second product; wout_c is
+// issued at the chunk's start and lands during the first product and the
+// GLU.  Each chunk's products start from zeroed fragments and are added
+// to the float32 sums (mma_tf32x3.cuh says why).  The epilogue writes
+// out = x + ls * (o + bout) from the fragments, for the rows t < T.
+//
+// Why: the CUDA-core tile this replaces (gcfn_tile.cuh, now K16's alone)
+// ran every multiply-add on the CUDA cores and read all 590 KB of win and
+// wout from L2 for each tile of 16 rows, 1.2 GB per [4, 8000, 128] call.
+// Here the products run at the 3xTF32 rate (their bound falls from 0.145
+// to 0.057 ms at that shape) and the weights cross from L2 once per 62
+// rows, 0.3 GB.  mma.sync and not wgmma, for the reason mma_tf32x3.cuh
+// gives: a chunk's product is 64 rows by one chunk deep, and the float32
+// LayerNorm, conv and GLU between the products set the pace.  The single
+// buffers keep the block at 113 KB of shared memory and 128 registers, so
+// two blocks share an SM and one's GLU overlaps the other's products: a
+// double-buffered tile of 163 KB ran one block per SM and slower on an
+// H100, and so did 30-row tiles, 16-pair chunks and 126-row tiles of 512
+// threads (one block per SM, and half the blocks for the narrow stages).
+// The A operands (xn, g) are split into TF32 parts per fragment, as K8
+// splits them: split once they would need twice the shared memory.  The
+// GLU loop has a fixed trip count and no branch (its division is
+// __fdividef, 2 ulp): an IEEE division's slow-path call kept its rows
+// from overlapping.
+//
+// With kDrop the tile drops g at site 0 (columns 0..3F-1) and o at site
+// 1 (columns 0..F-1) by the hash of hash_dropout.cuh at the global row
+// b*T + t, and scales the kept values by 1 / (1 - p): the JAX package's
+// gcfn_train.py::_fwd_train_kernel.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hash_dropout.cuh"
+#include "mma_tf32x3.cuh"
+
+namespace gcfn_mma {
+
+constexpr int kThreads = 256;
+constexpr int kTT = 62;  // output rows per tile
+constexpr int kCH = 32;  // GLU pairs per hidden chunk
+
+static __device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <int F>
+struct Shape {
+  static constexpr int TT = kTT, CH = kCH;
+  static constexpr int H6 = 6 * F, H3 = 3 * F, R = TT + 2, NC = 2 * CH;
+  static constexpr int chunks = H3 / CH;
+  // the eight warps as 2 x 4 blocks of the u chunk [R, NC] and of o [R, F]
+  static constexpr int WN = 4, WM = kThreads / 32 / WN;
+  static constexpr int UMT = R / 16 / WM, UNT = NC / 8 / WN;
+  static constexpr int OMT = UMT, ONT = F / 8 / WN;
+  // row strides: 8 mod 32 where a fragment takes 8 bytes of a row (the A
+  // operands xn and g, the u stores), 4 mod 32 where it takes rows 2t and
+  // 2t+1 of a column (the staged B operands): no bank conflicts
+  static constexpr int LX = F + 8, LW = NC + 4, LO = F + 4, LU = NC + 8,
+                       LG = CH + 8;
+  static constexpr int xn = 0, wi = xn + R * LX, wo = wi + F * LW,
+                       u = wo + CH * LO, g = u + R * LU,
+                       floats = g + R * LG;
+  static constexpr size_t smem_bytes = sizeof(float) * (size_t)floats;
+  // of an SM's 228 KB, 1 KB is reserved per block
+  static_assert(R == 16 * UMT * WM && smem_bytes <= 113 * 1024,
+                "four m16 fragments of rows; two blocks per SM");
+};
+
+// Hidden column of a chunk's local column j: the first CH are GLU values
+// c*CH + j, the next CH their gates 3F + c*CH + j - CH.
+template <int CH, int H3>
+__device__ __forceinline__ int hidden_col(int c, int j) {
+  return c * CH + j + (j < CH ? 0 : H3 - CH);
+}
+
+template <int F, bool kDrop>
+__device__ __forceinline__ void tile(
+    float* smem, const float* __restrict__ x, const int* __restrict__ lens,
+    const float* __restrict__ lns, const float* __restrict__ lnb,
+    const float* __restrict__ win, const float* __restrict__ bin,
+    const float* __restrict__ wdw, const float* __restrict__ bdw,
+    const float* __restrict__ wout, const float* __restrict__ bout,
+    const float* __restrict__ ls, float* __restrict__ out, int T, float eps,
+    GcfnDrop drop) {
+  using S = Shape<F>;
+  using tf32x3::frag_col;
+  using tf32x3::frag_row;
+  constexpr int TT = S::TT, CH = S::CH, H6 = S::H6, H3 = S::H3, R = S::R,
+                NC = S::NC, LX = S::LX, LW = S::LW, LO = S::LO, LU = S::LU,
+                LG = S::LG;
+  constexpr int UMT = S::UMT, UNT = S::UNT, OMT = S::OMT, ONT = S::ONT;
+  float* xn = smem + S::xn;  // [R][LX] LN rows t0-1 .. t0+TT
+  float* wi = smem + S::wi;  // [F][LW] win[:, chunk]
+  float* wo = smem + S::wo;  // [CH][LO] wout[chunk rows, :]
+  float* u = smem + S::u;    // [R][LU] the chunk's u rows (masked)
+  float* g = smem + S::g;    // [R][LG] the chunk's g, tile rows (rows
+                             // TT.. zero)
+
+  const int b = blockIdx.y, t0 = blockIdx.x * TT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int wm = warp / S::WN, wn = warp - wm * S::WN;
+  const int valid = lens ? min(lens[b], T) : T;
+  const uint32_t row0 = (uint32_t)b * (uint32_t)T + (uint32_t)t0;
+
+  // chunk c's win columns, then its wout rows, each one cp.async group of
+  // 16-byte copies (fixed counts per thread)
+  auto stage_in = [&](int c) {
+#pragma unroll
+    for (int q = 0; q < F * NC / 4 / kThreads; ++q) {
+      const int e = tid + q * kThreads;
+      const int k = e / (NC / 4), j = 4 * (e - k * (NC / 4));
+      tf32x3::cp_async16(wi + k * LW + j,
+                         win + (size_t)k * H6 + hidden_col<CH, H3>(c, j),
+                         true);
+    }
+    tf32x3::cp_async_commit();
+  };
+  auto stage_out = [&](int c) {
+#pragma unroll
+    for (int q = 0; q < CH * F / 4 / kThreads; ++q) {
+      const int e = tid + q * kThreads;
+      const int k = e / (F / 4), j = 4 * (e - k * (F / 4));
+      tf32x3::cp_async16(wo + k * LO + j,
+                         wout + (size_t)(c * CH + k) * F + j, true);
+    }
+    tf32x3::cp_async_commit();
+  };
+  stage_in(0);
+
+  for (int e = tid; e < (R - TT) * LG; e += kThreads) g[TT * LG + e] = 0.f;
+  // LayerNorm of frames t0-1 .. t0+TT, a warp taking every (kThreads/32)th
+  // row, all its rows' loads in flight at once; rows outside [0, T) are
+  // zero (their u rows are masked).
+  {
+    constexpr int kWarps = kThreads / 32, RW = R / kWarps, Q = F / 32;
+    float v[RW][Q];
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      const int t = t0 - 1 + warp + i * kWarps;
+      const bool in = t >= 0 && t < T;
+      const float* src = x + ((size_t)b * T + (in ? t : 0)) * F + lane;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) v[i][q] = in ? src[32 * q] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      const int r = warp + i * kWarps, t = t0 - 1 + r;
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) s += v[i][q];
+      const float mean = warp_sum(s) * (1.f / F);
+      float s2 = 0.f;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        v[i][q] -= mean;
+        s2 += v[i][q] * v[i][q];
+      }
+      const float inv = rsqrtf(warp_sum(s2) * (1.f / F) + eps);
+      const bool in = t >= 0 && t < T;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const int k = lane + 32 * q;
+        xn[r * LX + k] = in ? v[i][q] * inv * lns[k] + lnb[k] : 0.f;
+      }
+    }
+  }
+
+  float o[OMT][ONT][4] = {};
+  // One buffer of each weight: win_c lands during chunk c-1's GLU and
+  // second product, wout_c during chunk c's first product and GLU.
+  for (int c = 0; c < S::chunks; ++c) {
+    tf32x3::cp_async_wait<0>();
+    // win_c (and xn) are in place, and chunk c-1 has read wout and g
+    __syncthreads();
+    stage_out(c);
+
+    // a. u = xn win_c + bin; rows outside [0, valid) -> 0, and no product
+    //    where that is every row of the tile.  This warp: rows
+    //    16 UMT wm .., local columns 8 UNT wn ..
+    {
+      float a[UMT][UNT][4] = {};
+      if (t0 - 1 < valid)
+        tf32x3::warp_product<UMT, UNT, F / 8>(
+            a, xn + 16 * UMT * wm * LX, LX, [&](int ks, int nt) {
+              const float* w =
+                  wi + (8 * ks + 2 * t4) * LW + 8 * (UNT * wn + nt) + g8;
+              return make_float2(w[0], w[LW]);
+            });
+#pragma unroll
+      for (int mt = 0; mt < UMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < UNT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 16 * (UMT * wm + mt) + frag_row(e);
+            const int j = 8 * (UNT * wn + nt) + frag_col(e);
+            const int t = t0 - 1 + r;
+            u[r * LU + j] = (t >= 0 && t < valid)
+                                ? a[mt][nt][e] + bin[hidden_col<CH, H3>(c, j)]
+                                : 0.f;
+          }
+    }
+    __syncthreads();  // u is written and win_c read
+    if (c + 1 < S::chunks) stage_in(c + 1);
+
+    // b. depthwise k3 over time, then GLU: g = y[:H3] * sigmoid(y[H3:]),
+    //    dropped at site 0 in training (the global GLU column).  A thread
+    //    keeps one column and its weights and takes a fixed count of rows
+    //    (the last pass's rows past TT read row TT-1 and store nothing):
+    //    with no branch in the loop its rows overlap.  The sigmoid's
+    //    division is __fdividef (2 ulp): the IEEE division's slow-path call
+    //    kept the rows apart.
+    {
+      constexpr int RS = kThreads / CH;  // rows per pass
+      const int cl = tid % CH, ca = c * CH + cl, cb = H3 + ca;  // value, gate
+      const float wa0 = wdw[3 * ca], wa1 = wdw[3 * ca + 1],
+                  wa2 = wdw[3 * ca + 2], ba = bdw[ca];  // wdw [H6][3]
+      const float wb0 = wdw[3 * cb], wb1 = wdw[3 * cb + 1],
+                  wb2 = wdw[3 * cb + 2], bb = bdw[cb];
+#pragma unroll
+      for (int q = 0; q < (TT + RS - 1) / RS; ++q) {
+        const int i = tid / CH + q * RS;
+        // frame t-1 (tile row i: u row i+1)
+        const float* u0 = u + min(i, TT - 1) * LU;
+        const float ya = u0[cl] * wa0 + u0[LU + cl] * wa1 +
+                         u0[2 * LU + cl] * wa2 + ba;
+        const float yb = u0[CH + cl] * wb0 + u0[LU + CH + cl] * wb1 +
+                         u0[2 * LU + CH + cl] * wb2 + bb;
+        float gv = __fdividef(ya, 1.f + expf(-yb));
+        if (kDrop)
+          gv = sep_keep(drop.seed0, row0 + i, (uint32_t)ca, drop.threshold)
+                   ? gv * drop.scale
+                   : 0.f;
+        if (i < TT) g[i * LG + cl] = gv;
+      }
+    }
+    if (c + 1 < S::chunks)
+      tf32x3::cp_async_wait<1>();  // wout_c; win_{c+1} may be in flight
+    else
+      tf32x3::cp_async_wait<0>();
+    __syncthreads();
+
+    // c. o += g_c wout_c.  This warp: rows 16 OMT wm .., columns 8 ONT wn ..
+    tf32x3::warp_product<OMT, ONT, CH / 8>(
+        o, g + 16 * OMT * wm * LG, LG, [&](int ks, int nt) {
+          const float* w =
+              wo + (8 * ks + 2 * t4) * LO + 8 * (ONT * wn + nt) + g8;
+          return make_float2(w[0], w[LO]);
+        });
+  }
+
+  // out = x + ls * (o + bout), o dropped at site 1 in training; tile rows
+  // past TT and rows t >= T are not written.
+#pragma unroll
+  for (int mt = 0; mt < OMT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 16 * (OMT * wm + mt) + g8 + 8 * h, t = t0 + i;
+      if (i >= TT || t >= T) continue;
+      const size_t off = ((size_t)b * T + t) * F;
+#pragma unroll
+      for (int nt = 0; nt < ONT; ++nt) {
+        const int col = 8 * (ONT * wn + nt) + 2 * t4;
+        const float2 xv = *reinterpret_cast<const float2*>(x + off + col);
+        float v[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          float ov = o[mt][nt][2 * h + q] + bout[col + q];
+          if (kDrop)
+            ov = sep_keep(drop.seed1, row0 + i, (uint32_t)(col + q),
+                          drop.threshold)
+                     ? ov * drop.scale
+                     : 0.f;
+          v[q] = (q ? xv.y : xv.x) + ls[col + q] * ov;
+        }
+        *reinterpret_cast<float2*>(out + off + col) = make_float2(v[0], v[1]);
+      }
+    }
+}
+
+}  // namespace gcfn_mma

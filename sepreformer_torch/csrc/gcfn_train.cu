@@ -12,13 +12,13 @@
 // What bounds them on the H100: per row, K7 does the two products of K1
 // (2*F*6F + 2*3F*F = 295 kflop at F=128) and K8 recomputes them and adds
 // four of the same sizes (dg = do0 wout^T, dWout = g^T do0, dWin = xn^T du,
-// dxn = du win^T): 885 kflop.  K7 runs them in float32 on the CUDA cores
-// (0.14 ms at [4, 8000, 128]).  K8 runs its six on the tensor cores at
-// float32 accuracy (3xTF32, mma_tf32x3.cuh): 2.8e10 operations at
-// 165 TFLOP/s, 0.17 ms, against 66 MB of traffic and the scratch round
-// trip below.
+// dxn = du win^T): 885 kflop.  Both run their products on the tensor cores
+// at float32 accuracy (3xTF32, mma_tf32x3.cuh): K7 9.4e9 operations at
+// 165 TFLOP/s, 0.057 ms at [4, 8000, 128]; K8 2.8e10, 0.17 ms, against
+// 66 MB of traffic and the scratch round trip below.
 //
-// K7 is K1's tile (gcfn_tile.cuh) with no length mask and the two dropout
+// K7 is K1's tile (gcfn_tile_mma.cuh: 62-row tiles, the hidden width in
+// chunks of staged weights) with no length mask and the two dropout
 // sites.
 //
 // K8 keeps what JAX's backward keeps (x, the parameters, the seed) and
@@ -55,22 +55,20 @@
 #include <algorithm>
 #include <stdint.h>
 
-#include "gcfn_tile.cuh"
+#include "gcfn_tile_mma.cuh"
 #include "mma_tf32x3.cuh"
 
 namespace {
 
-using gcfn::kThreads;
-
-constexpr int kTT = 16;          // K7 rows per tile
+constexpr int kThreads = 256;    // K8's blocks
 constexpr int kBwdTT = 28;       // K8 rows per tile: TT + 4 = 32 u rows
 constexpr int kCH = 64;          // K8 GLU pairs per hidden chunk
 constexpr int kRowGroups = 264;  // K8: at most this many blocks walk tiles
 constexpr int kMaxSplits = 32;   // K8: at most this many row splits of the
                                  // weight products
 
-template <int F, int TT>
-__global__ void __launch_bounds__(kThreads)
+template <int F>
+__global__ void __launch_bounds__(gcfn_mma::kThreads, 2)
 gcfn_train_fwd_kernel(const float* __restrict__ x,
                       const float* __restrict__ lns,
                       const float* __restrict__ lnb,
@@ -81,63 +79,15 @@ gcfn_train_fwd_kernel(const float* __restrict__ x,
                       const float* __restrict__ wout,
                       const float* __restrict__ bout,
                       const float* __restrict__ ls, float* __restrict__ out,
-                      int T, float eps, gcfn::Drop drop) {
+                      int T, float eps, GcfnDrop drop) {
   extern __shared__ __align__(16) float smem[];
-  gcfn::tile<F, TT, true>(smem, x, nullptr, lns, lnb, win, bin, wdw, bdw,
+  gcfn_mma::tile<F, true>(smem, x, nullptr, lns, lnb, win, bin, wdw, bdw,
                           wout, bout, ls, out, T, eps, drop);
 }
 
-// acc[mt][nt] += A[16 mt .. 16 mt + 15][0 .. 8 KS) B(., n-tile nt) by one
-// warp, 3xTF32.  A is row-major in shared memory (lda = 8 mod 32: the
-// 8-byte fragment loads are free of bank conflicts); k slots t and t+4 of
-// each k-step take k = 2t and 2t+1, so bfrag(ks, nt) returns
-// (B(8 ks + 2t, n), B(8 ks + 2t + 1, n)) for the lane's column n = the
-// n-tile's column g.  The product sums into zeroed fragments, added to
-// acc in float32 at the end (mma_tf32x3.cuh: the tensor cores' own
-// accumulation drifts over many calls).
-template <int MT, int NT, int KS, class BFrag>
-__device__ __forceinline__ void warp_product(float (&acc)[MT][NT][4],
-                                             const float* A, int lda,
-                                             BFrag bfrag) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  float c[MT][NT][4] = {};
-#pragma unroll 2
-  for (int ks = 0; ks < KS; ++ks) {
-    uint32_t ab[MT][4], as[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const float* a = A + (16 * mt + g) * lda + 8 * ks + 2 * t;
-      const float2 lo = *reinterpret_cast<const float2*>(a);
-      const float2 hi = *reinterpret_cast<const float2*>(a + 8 * lda);
-      const float v[4] = {lo.x, hi.x, lo.y, hi.y};
-      tf32x3::split(v, ab[mt], as[mt]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const float2 b = bfrag(ks, nt);
-      uint32_t bb[2], bs[2];
-      tf32x3::split(b.x, bb[0], bs[0]);
-      tf32x3::split(b.y, bb[1], bs[1]);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        tf32x3::mma3(c[mt][nt], ab[mt], as[mt], bb, bs);
-    }
-  }
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] += c[mt][nt][e];
-}
-
-// Row and column of element e of a lane's C fragment (m16n8).
-__device__ __forceinline__ int frag_row(int e) {
-  return ((threadIdx.x & 31) >> 2) + 8 * (e >> 1);
-}
-__device__ __forceinline__ int frag_col(int e) {
-  return 2 * (threadIdx.x & 3) + (e & 1);
-}
+using tf32x3::frag_col;
+using tf32x3::frag_row;
+using tf32x3::warp_product;
 
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
@@ -191,7 +141,7 @@ gcfn_train_bwd_rows_kernel(
     const float* __restrict__ ls, float* __restrict__ dx,
     float* __restrict__ xn_g, float* __restrict__ du_g,
     float* __restrict__ g_g, float* __restrict__ do0_g,
-    float* __restrict__ partial, int B, int T, float eps, gcfn::Drop drop) {
+    float* __restrict__ partial, int B, int T, float eps, GcfnDrop drop) {
   using S = BwdShape<F>;
   using P = Small<F>;
   constexpr int TT = S::TT, R4 = S::R4, R2 = S::R2, H6 = S::H6, H3 = S::H3,
@@ -247,14 +197,14 @@ gcfn_train_bwd_rows_kernel(
         v[q] = src[lane + 32 * q];
         s += v[q];
       }
-      const float mean = gcfn::warp_sum(s) * (1.f / F);
+      const float mean = gcfn_mma::warp_sum(s) * (1.f / F);
       float s2 = 0.f;
 #pragma unroll
       for (int q = 0; q < F / 32; ++q) {
         v[q] -= mean;
         s2 += v[q] * v[q];
       }
-      const float iv = rsqrtf(gcfn::warp_sum(s2) * (1.f / F) + eps);
+      const float iv = rsqrtf(gcfn_mma::warp_sum(s2) * (1.f / F) + eps);
 #pragma unroll
       for (int q = 0; q < F / 32; ++q) {
         const int k = lane + 32 * q;
@@ -474,14 +424,14 @@ gcfn_train_bwd_rows_kernel(
         hv[q] = src[lane + 32 * q];
         s += hv[q];
       }
-      const float mean = gcfn::warp_sum(s) * (1.f / F);
+      const float mean = gcfn_mma::warp_sum(s) * (1.f / F);
       float s2 = 0.f;
 #pragma unroll
       for (int q = 0; q < F / 32; ++q) {
         hv[q] -= mean;
         s2 += hv[q] * hv[q];
       }
-      const float iv = rsqrtf(gcfn::warp_sum(s2) * (1.f / F) + eps);
+      const float iv = rsqrtf(gcfn_mma::warp_sum(s2) * (1.f / F) + eps);
       float s1 = 0.f;
       s2 = 0.f;
 #pragma unroll
@@ -493,8 +443,8 @@ gcfn_train_bwd_rows_kernel(
         s2 += dh[q] * hv[q];
         d0[i * LX + k] = hv[q];
       }
-      const float m1 = gcfn::warp_sum(s1) * (1.f / F);
-      const float m2 = gcfn::warp_sum(s2) * (1.f / F);
+      const float m1 = gcfn_mma::warp_sum(s1) * (1.f / F);
+      const float m2 = gcfn_mma::warp_sum(s2) * (1.f / F);
 #pragma unroll
       for (int q = 0; q < F / 32; ++q) {
         const int k = lane + 32 * q;
@@ -671,16 +621,21 @@ extern "C" int sep_gcfn_train_fwd_f32(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T <= 0) return 0;
   if (F != 128) return (int)cudaErrorInvalidValue;
-  constexpr size_t smem = gcfn::Shape<128, kTT>::smem_bytes;
+  constexpr int TT = gcfn_mma::kTT;
+  constexpr size_t smem = gcfn_mma::Shape<128>::smem_bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      gcfn_train_fwd_kernel<128, kTT>,
+      gcfn_train_fwd_kernel<128>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)  // room for two blocks per SM
+    err = cudaFuncSetAttribute(gcfn_train_fwd_kernel<128>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + kTT - 1) / kTT, B);
-  gcfn_train_fwd_kernel<128, kTT><<<grid, kThreads, smem, s>>>(
+  dim3 grid((T + TT - 1) / TT, B);
+  gcfn_train_fwd_kernel<128><<<grid, gcfn_mma::kThreads, smem, s>>>(
       f(x), f(lns), f(lnb), f(win), f(bin), f(wdw), f(bdw), f(wout),
       f(bout), f(ls), static_cast<float*>(out), T, eps,
-      gcfn::Drop{seed0, seed1, threshold, scale});
+      GcfnDrop{seed0, seed1, threshold, scale});
   return (int)cudaGetLastError();
 }
 
@@ -724,7 +679,7 @@ extern "C" int sep_gcfn_train_bwd_f32(
   gcfn_train_bwd_rows_kernel<kF><<<part.groups, kThreads, smem, s>>>(
       f(x), f(dout), f(lns), f(lnb), f(win), f(bin), f(wdw), f(bdw),
       f(wout), f(bout), f(ls), w(dx), xn, du, g, do0, small_partial, B, T,
-      eps, gcfn::Drop{seed0, seed1, threshold, scale});
+      eps, GcfnDrop{seed0, seed1, threshold, scale});
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const int rows = B * T;

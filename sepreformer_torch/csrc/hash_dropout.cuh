@@ -23,3 +23,11 @@ static __device__ __forceinline__ bool sep_keep(uint32_t seed_word,
   h ^= h >> 15;
   return (h >> 8) >= threshold;
 }
+
+// The two sites of the GCFN's train kernels (K7, K8): g after the GLU at
+// site 0, the down-projection at site 1.
+struct GcfnDrop {
+  uint32_t seed0, seed1;  // seed words of sites 0 and 1
+  uint32_t threshold;     // int(p * 2^24)
+  float scale;            // 1 / (1 - p)
+};

@@ -31,8 +31,9 @@
 // its card test's rtol of 1e-4 at L 8750.
 //
 // mma.sync and not wgmma: the callers' products are short (head width 16
-// in K12, row tiles of 32 in K8), and their float32 softmax, LayerNorm
-// and GLU work sets their pace; a warp owns its rows' fragments.
+// in K12, row tiles of 32 in K8 and of 64 in K1 and K7), and their float32
+// softmax, LayerNorm and GLU work sets their pace; a warp owns its rows'
+// fragments.
 #pragma once
 
 #include <stdint.h>
@@ -91,8 +92,72 @@ __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&a_big)[4],
   mma3(c, a_big, a_small, bb, bs);
 }
 
-// The 16-byte asynchronous copies that stage K8's and K12's tiles in
-// shared memory: zero-filled where !valid (src must still be a valid
+// acc[mt][nt] += A[16 mt .. 16 mt + 15][0 .. 8 KS) B(., n-tile nt) by one
+// warp, 3xTF32.  A is row-major in shared memory (lda = 8 mod 32: the
+// 8-byte fragment loads are free of bank conflicts); k slots t and t+4 of
+// each k-step take k = 2t and 2t+1, so bfrag(ks, nt) returns
+// (B(8 ks + 2t, n), B(8 ks + 2t + 1, n)) for the lane's column n = the
+// n-tile's column g.  Each fragment takes the three terms in mma3's
+// order, but each term is issued over all MT x NT fragments before the
+// next, so independent products sit between dependent ones (and K1's and
+// K7's tile fits 128 registers without spilling, which issuing mma3 per
+// fragment did not).  The product sums into zeroed fragments, added to
+// acc in float32 at the end.  K1's and K7's tile (gcfn_tile_mma.cuh) and
+// K8's row pass (gcfn_train.cu) take their products so.
+template <int MT, int NT, int KS, class BFrag>
+__device__ __forceinline__ void warp_product(float (&acc)[MT][NT][4],
+                                             const float* A, int lda,
+                                             BFrag bfrag) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float c[MT][NT][4] = {};
+#pragma unroll 2
+  for (int ks = 0; ks < KS; ++ks) {
+    uint32_t ab[MT][4], as[MT][4], bb[NT][2], bs[NT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const float* a = A + (16 * mt + g) * lda + 8 * ks + 2 * t;
+      const float2 lo = *reinterpret_cast<const float2*>(a);
+      const float2 hi = *reinterpret_cast<const float2*>(a + 8 * lda);
+      const float v[4] = {lo.x, hi.x, lo.y, hi.y};
+      split(v, ab[mt], as[mt]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float2 b = bfrag(ks, nt);
+      const float v[2] = {b.x, b.y};
+      split(v, bb[nt], bs[nt]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) mma(c[mt][nt], as[mt], bb[nt]);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) mma(c[mt][nt], ab[mt], bs[nt]);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) mma(c[mt][nt], ab[mt], bb[nt]);
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] += c[mt][nt][e];
+}
+
+// Row and column of element e of a lane's C fragment (m16n8).
+__device__ __forceinline__ int frag_row(int e) {
+  return ((threadIdx.x & 31) >> 2) + 8 * (e >> 1);
+}
+__device__ __forceinline__ int frag_col(int e) {
+  return 2 * (threadIdx.x & 3) + (e & 1);
+}
+
+// The 16-byte asynchronous copies that stage K1's, K7's, K8's and K12's
+// tiles in shared memory: zero-filled where !valid (src must still be a valid
 // address), committed as one group, waited on with at most N groups
 // still in flight.
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,

@@ -73,17 +73,27 @@ def gcfn_params(gen, f, device):
 
 
 @pytest.mark.cuda
+# K1's tile is 62 rows: T 63 and 125 end one row into a tile, T 124 is a
+# multiple of it, B*T = 20 is under one tile, and the explicit lengths end
+# mid-tile (93), on a tile edge (62, 124) and one row past it (63)
 @pytest.mark.parametrize("b,t,f,masked", [(2, 500, 128, True),
                                           (3, 77, 128, False),
-                                          (4, 8000, 128, True)])
+                                          (4, 8000, 128, True),
+                                          (2, 63, 128, False),
+                                          (2, 125, 128, True),
+                                          (2, 124, 128, False),
+                                          (1, 20, 128, (13,)),
+                                          (4, 200, 128, (93, 62, 124, 63))])
 def test_gcfn_kernel_matches_plain(cuda_device, b, t, f, masked):
     gen = torch.Generator().manual_seed(5)
     x = torch.randn(b, t, f, generator=gen).to(cuda_device)
     params = gcfn_params(gen, f, cuda_device)
     lens = None
-    if masked:
+    if masked is True:
         lens = torch.tensor([t, max(1, t // 3)] + [t] * (b - 2),
                             device=cuda_device)
+    elif masked:
+        lens = torch.tensor(masked, device=cuda_device)
     ref = gcfn_plain(x, params, 1e-5, lens)
     before = fused_gcfn.launches
     got = fused_gcfn(x, params, 1e-5, lens)
@@ -374,15 +384,19 @@ def assert_grads_close(got, ref):
 
 
 @pytest.mark.cuda
-# T=77 ends in a partial tile: the halo rows of K8 must take their masks
-# and their zero padding from the global rows.  K8's row tile is 28 rows:
-# T 65 and 129 end one to nine rows into a tile, and B*T = 20 is under
-# one tile, at both rates
+# T=77 ends in a partial tile: the halo rows of K7 and K8 must take their
+# masks and their zero padding from the global rows.  K8's row tile is 28
+# rows: T 65 and 129 end one to nine rows into a tile, and B*T = 20 is
+# under one tile, at both rates.  K7's is 62 rows: T 63 and 125 end one
+# row into a tile, T 124 is a multiple of it
 @pytest.mark.parametrize("b,t,p", [(3, 77, 0.05), (4, 8000, 0.05),
                                    (2, 200, 0.0), (2, 65, 0.0),
                                    (2, 65, 0.05), (3, 129, 0.0),
                                    (3, 129, 0.05), (1, 20, 0.0),
-                                   (1, 20, 0.05)])
+                                   (1, 20, 0.05), (2, 63, 0.0),
+                                   (2, 63, 0.05), (2, 124, 0.0),
+                                   (2, 124, 0.05), (2, 125, 0.0),
+                                   (2, 125, 0.05)])
 def test_gcfn_train_kernels_match_plain(cuda_device, b, t, p):
     x, params, dout = gcfn_train_case(cuda_device, b, t, 128)
     before = (gcfn_train_fwd.launches, gcfn_train_bwd.launches)
@@ -396,6 +410,17 @@ def test_gcfn_train_kernels_match_plain(cuda_device, b, t, p):
     ref_dx, ref_dparams = gcfn_train_bwd_plain(x, params, 1e-5, 4321, p,
                                                dout)
     assert_grads_close((dx, *dparams), (ref_dx, *ref_dparams))
+
+
+@pytest.mark.cuda
+def test_gcfn_forward_kernels_are_deterministic(cuda_device):
+    x, params, _ = gcfn_train_case(cuda_device, 4, 2000, 128, seed=12)
+    lens = torch.tensor([2000, 1500, 1001, 62], device=cuda_device)
+    for run in (lambda: fused_gcfn(x, params, 1e-5, lens),
+                lambda: gcfn_train_fwd(x, params, 1e-5, 7, 0.05)):
+        first, again = run(), run()
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)  # no atomics: the same bits
 
 
 @pytest.mark.cuda

@@ -154,6 +154,7 @@ def test_build_names_library_by_source_hash():
                     "softmax_pv_train.cu"]
     assert [p.name for p in _build.headers()] == ["depthwise_tap.cuh",
                                                   "gcfn_tile.cuh",
+                                                  "gcfn_tile_mma.cuh",
                                                   "hash_dropout.cuh",
                                                   "mma_tf32x3.cuh"]
     path = _build.library_path()

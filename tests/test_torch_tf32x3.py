@@ -1,6 +1,6 @@
 """The accuracy argument of ``sepreformer_torch/csrc/mma_tf32x3.cuh``,
-emulated in numpy: why K8 and K12 take their products on the tensor cores
-as three TF32 products ("3xTF32") and not one.
+emulated in numpy: why K1, K7, K8 and K12 take their products on the
+tensor cores as three TF32 products ("3xTF32") and not one.
 
 The header splits a float32 x into big = x rounded to TF32 (10 mantissa
 bits, round to nearest with ties away from zero, as ``cvt.rna.tf32.f32``
@@ -14,7 +14,9 @@ head width 16) and K8's (the hidden width 768), the three products must
 err by under 1e-6 of the largest |result|, which holds the kernels' card
 tests and the smoke's limits (rtol 1e-4, 3e-5 of max|out|) with room;
 one TF32 product must err by more than 1e-4 of it, which is why plain
-TF32 cannot pass them.
+TF32 cannot pass them.  The same holds for K1's whole tile
+(``csrc/gcfn_tile_mma.cuh``), emulated row tile by row tile and chunk by
+chunk at its height (62 rows) and chunk width (32 GLU pairs).
 """
 
 import numpy as np
@@ -84,6 +86,90 @@ def test_three_tf32_products_hold_float32_accuracy(depth):
     scale = np.abs(ref).max()
     three = mma_product(a, b, ("a_small", "b_small", "big"))
     one = mma_product(a, b, ("big",))
+    err3 = np.abs(three - ref).max() / scale
+    err1 = np.abs(one - ref).max() / scale
+    assert err3 < 1e-6, err3
+    assert err1 > 1e-4, err1
+
+
+def gcfn_f64(x, params, eps, lens):
+    """The GCFN forward with the u-row length mask, in float64."""
+    lns, lnb, win, bin_, wdw, bdw, wout, bout, ls = (
+        p.astype(np.float64) for p in params)
+    x = x.astype(np.float64)
+    c = x - x.mean(-1, keepdims=True)
+    xn = c / np.sqrt((c * c).mean(-1, keepdims=True) + eps) * lns + lnb
+    u = xn @ win + bin_
+    t = x.shape[1]
+    u = u * (np.arange(t)[None, :, None] < np.asarray(lens)[:, None, None])
+    up = np.pad(u, ((0, 0), (1, 1), (0, 0)))
+    y = (up[:, :t] * wdw[:, 0] + up[:, 1:t + 1] * wdw[:, 1]
+         + up[:, 2:] * wdw[:, 2] + bdw)
+    half = y.shape[-1] // 2
+    g = y[..., :half] / (1.0 + np.exp(-y[..., half:]))
+    return x + ls * (g @ wout + bout)
+
+
+def gcfn_tile(x, params, eps, lens, tt, ch, terms):
+    """K1's tile (``csrc/gcfn_tile_mma.cuh``) in numpy: per batch row,
+    tiles of ``tt`` rows with one halo row on each side (rows outside
+    [0, T) zero); LayerNorm in float32; per chunk of ``ch`` GLU pairs,
+    u = xn win_c as the tensor cores take it (``terms``, from zeroed
+    fragments) + bin with rows outside [0, lens[b]) zero, then the k3
+    conv and the GLU in float32, then o += g_c wout_c (a zeroed product
+    per chunk, added to o in float32); out = x + ls (o + bout)."""
+    lns, lnb, win, bin_, wdw, bdw, wout, bout, ls = params
+    b, t, f = x.shape
+    h3 = 3 * f
+    out = np.empty_like(x)
+    for bi in range(b):
+        valid = min(lens[bi], t)
+        for t0 in range(0, t, tt):
+            rows = np.arange(t0 - 1, t0 + tt + 1)
+            inside = (rows >= 0) & (rows < t)
+            xr = np.where(inside[:, None], x[bi, np.clip(rows, 0, t - 1)],
+                          np.float32(0))
+            c = xr - xr.mean(-1, keepdims=True, dtype=np.float32)
+            inv = 1 / np.sqrt((c * c).mean(-1, keepdims=True) + np.float32(eps))
+            xn = np.where(inside[:, None], c * inv * lns + lnb, np.float32(0))
+            keep = ((rows >= 0) & (rows < valid))[:, None]
+            o = np.zeros((tt + 2, f), dtype=np.float32)
+            for c0 in range(0, h3, ch):
+                cols = np.r_[c0:c0 + ch, h3 + c0:h3 + c0 + ch]
+                u = np.where(keep, mma_product(xn, win[:, cols], terms)
+                             + bin_[cols], np.float32(0))
+                w = wdw[cols]
+                y = u[:-2] * w[:, 0] + u[1:-1] * w[:, 1] + u[2:] * w[:, 2]
+                y = y + bdw[cols]
+                g = y[:, :ch] / (np.float32(1) + np.exp(-y[:, ch:]))
+                g = np.pad(g, ((0, 2), (0, 0)))     # the fragments' padding
+                o = o + mma_product(g, wout[c0:c0 + ch], terms)
+            n = min(tt, t - t0)
+            out[bi, t0:t0 + n] = x[bi, t0:t0 + n] + ls * (o[:n] + bout)
+    return out
+
+
+# (T, lengths) at the tile's 62 rows: T one row into a second tile with a
+# length mid-tile, T a multiple of the tile with a length on its edge, T
+# one row past it with a length one row past an edge, B*T under one tile
+@pytest.mark.parametrize("t,lens", [(63, (63, 31)), (124, (124, 62)),
+                                    (125, (125, 63)), (10, (10, 7))])
+def test_gcfn_tile_holds_float32_accuracy(t, lens):
+    rng = np.random.default_rng(t)
+    f = 128
+    h = 6 * f
+    b = len(lens)
+    x = rng.normal(size=(b, t, f)).astype(np.float32)
+    shapes_scales = [((f,), 1.0), ((f,), 1.0), ((f, h), 0.1), ((h,), 0.1),
+                     ((h, 3), 0.3), ((h,), 0.1), ((h // 2, f), 0.1),
+                     ((f,), 0.1), ((f,), 1.0)]
+    params = [(rng.normal(size=s) * sc).astype(np.float32)
+              for s, sc in shapes_scales]
+    ref = gcfn_f64(x, params, 1e-5, lens)
+    scale = np.abs(ref).max()
+    three = gcfn_tile(x, params, 1e-5, lens, 62, 32,
+                      ("a_small", "b_small", "big"))
+    one = gcfn_tile(x, params, 1e-5, lens, 62, 32, ("big",))
     err3 = np.abs(three - ref).max() / scale
     err1 = np.abs(one - ref).max() / scale
     assert err3 < 1e-6, err3
