@@ -20,14 +20,16 @@ Phases, each of which fails the run:
                two-tensor forms K3b (beside K3's shape) and K9b/K10b
                (beside K9's and K10's); times of the kernel, the plain
                version, a library call where one exists, and the least
-               time the card could take (for K1, K7, K8 and K12, which
-               take their products on the tensor cores as 3xTF32, with
-               those products and their exponentials at the tensor cores'
-               and the SFUs' rates, and the CUDA-core bound of earlier
-               readings on a line before; K1's products counted on the
-               rows its lengths need), K8's time by launch, K1's, K7's,
-               K8's and K12's bits on a repeat call, K7's and its plain
-               version's distance from a float64 run; and the port's
+               time the card could take (for K1, K7, K8, K12, K14 and
+               K16, which take their products on the tensor cores as
+               3xTF32, with those products and their exponentials at the
+               tensor cores' and the SFUs' rates, and the CUDA-core bound
+               of earlier readings on a line before; K1's products
+               counted on the rows its lengths need), K8's and K14's
+               times by launch, K16's blocks per SM and five timings with
+               their median, K1's, K7's, K8's, K12's, K14's and K16's
+               bits on a repeat call, K7's and its plain version's
+               distance from a float64 run; and the port's
                scores producer followed by K3 against a two-tensor
                producer (no add pass) followed by K3b, at K3's shape.
 3. serve     - Base at full width, seeded weights: three requests through
@@ -131,6 +133,7 @@ import copy
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -305,7 +308,7 @@ def kernel_phase(torch, K, device_ms):
 
     def record(wrapper, kernel, plain, library, err, nbytes, flops, source,
                replaces, shape, tolerance, tc_flops=0.0, exps=0.0,
-               cuda_core_flops=None):
+               cuda_core_flops=None, timings=1):
         bound, bound_by, term = bound_ms(nbytes, flops, tc_flops, exps)
         name = wrapper.__name__
         if cuda_core_flops is not None:
@@ -313,9 +316,16 @@ def kernel_phase(torch, K, device_ms):
             print(f"[kernels] {name}: bound with every operation on the CUDA "
                   f"cores (the earlier CUDA-core design's count) {old:.4f} ms "
                   f"({old_by})")
+        # the kernel's time: the median of ``timings`` device timings
+        times = [device_ms(kernel, kernel=KERNEL_SYMBOLS[name])
+                 for _ in range(timings)]
+        if timings > 1:
+            print(f"[kernels] {name}: {timings} timings " + ", ".join(
+                f"{ms:.4f}" for ms in times) + f" ms, median "
+                f"{statistics.median(times):.4f}")
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
                    launches=0, max_abs_err=err,
-                   ms=device_ms(kernel, kernel=KERNEL_SYMBOLS[name]),
+                   ms=statistics.median(times),
                    plain_ms=device_ms(plain), bound_ms=bound,
                    bound_by=bound_by,
                    library_ms=None if library is None else device_ms(library))
@@ -745,6 +755,7 @@ def fused_kernel_rows(torch, K, device_ms, randn, record):
     depthwise ``F.conv1d`` that ``DepthwiseConv1d`` runs (its plain
     version too)."""
     from sepreformer_torch.ops.kernels.depthwise import depthwise_forward
+    from sepreformer_torch.ops.kernels.ega_gcfn import blocks_per_sm
 
     b, t, f, k, length = 4, 8000, 128, 65, 500
     h = 2 * f
@@ -782,22 +793,31 @@ def fused_kernel_rows(torch, K, device_ms, randn, record):
     ref = K.ega_tail_gcfn_plain(x, xd, gate, gcfn, 1e-5)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
-    k1_row = (2 * f * h6 + 2 * (h6 // 2) * f + 8 * f + 7 * h6
-              + 5 * (h6 // 2) + 3 * f)
+    same = torch.equal(got, K.fused_ega_tail_gcfn(x, xd, gate, gcfn, 1e-5))
+    print(f"[kernels] fused_ega_tail_gcfn: bit-equal on a repeat call: "
+          f"{same}")
+    assert same, "K16 is not bit-equal on repeat"
+    print(f"[kernels] fused_ega_tail_gcfn: {blocks_per_sm()} blocks per SM")
+    # per row: the gate's product and K1's two; the two LayerNorms, the
+    # gated residual, the conv and the GLU, and the residual
+    products = 2 * f * f + 2 * f * h6 + 2 * (h6 // 2) * f
+    rest = 8 * f + 5 * f + 8 * f + 7 * h6 + 5 * (h6 // 2) + 3 * f
     record(K.fused_ega_tail_gcfn,
            lambda: K.fused_ega_tail_gcfn(x, xd, gate, gcfn, 1e-5),
            lambda: K.ega_tail_gcfn_plain(x, xd, gate, gcfn, 1e-5), None,
            (got - ref).abs().max().item(),
            4 * (2 * x.numel() + xd.numel()
                 + sum(q.numel() for q in gate + gcfn)),
-           # K1's row, the gate's product, its LayerNorm, sigmoid and the
-           # gated residual
-           b * t * (k1_row + 2 * f * f + 8 * f + 5 * f + 2 * f),
+           b * t * rest,
            source="sepreformer_torch/csrc/ega_gcfn.cu",
            replaces="sepreformer_tpu/ops/pallas/ega_gcfn.py:181",
            shape=f"x [{b}, {t}, {f}], x_down [{b}, {length}, {f}], hidden "
                  f"{h6}",
-           tolerance="rtol 1e-4, atol 1e-4 (float32)")
+           tolerance="rtol 1e-4, atol 1e-4 (float32)",
+           # the three products on the tensor cores; a sigmoid per gate
+           # column and per GLU pair
+           tc_flops=b * t * products, exps=b * t * (f + h6 // 2),
+           cuda_core_flops=b * t * (products + rest), timings=5)
 
     w, bias = randn(f, 1, k, scale=0.1), randn(f, scale=0.1)
     got = K.depthwise_fwd(x, w, bias)
@@ -875,6 +895,15 @@ def attention_train_rows(torch, K, device_ms, randn, record):
         e = (g - r).abs().max().item()
         assert e <= TRAIN_CPU_REL_LIMIT * r.abs().max().item(), (name, e)
         err = max(err, e)
+    again = K.attention_train_bwd(q, k, v, table, maxlen, seed, p, key_len,
+                                  out, dout, row_max, row_sum)
+    torch.cuda.synchronize()
+    same = all(torch.equal(g, a) for g, a in zip(grads, again))
+    print(f"[kernels] attention_train_bwd: bit-equal on a repeat call: "
+          f"{same}")
+    assert same, "K14 is not bit-equal on repeat"
+    pairs = heads * relpos_pairs(length, klens, maxlen)[0]
+    products = attention_train_bwd_ops(length, klens, maxlen, heads, d)
     record(K.attention_train_bwd,
            lambda: K.attention_train_bwd(q, k, v, table, maxlen, seed, p,
                                          key_len, out, dout, row_max,
@@ -884,13 +913,21 @@ def attention_train_rows(torch, K, device_ms, randn, record):
            None, err,
            # q, k, v, dout and the table in; dq, dk, dv and dtable out
            4 * (7 * q.numel() + 2 * table.numel() + b),
-           attention_train_bwd_ops(length, klens, maxlen, heads, d),
+           # P, the dropout and G per pair: the exponent's FMA, the scale,
+           # z dP - delta, times P and c
+           6 * pairs,
            source="sepreformer_torch/csrc/attention_train.cu",
            replaces="sepreformer_tpu/ops/pallas/attention_train.py:226",
            shape=(f"q, k, v, out, dout [{b}, {heads}, {length}, {d}], "
                   f"table [{2 * maxlen}, {d}], p {p}"),
            tolerance=f"max |kernel - plain| <= {TRAIN_CPU_REL_LIMIT:.0e} x "
-                     f"max|plain| per gradient")
+                     f"max|plain| per gradient",
+           # QKᵀ, dO·Vᵀ, dV, dQ, dK, q·bandᵀ and both band adjoints on the
+           # tensor cores; one exponential per pair
+           tc_flops=products, exps=pairs, cuda_core_flops=products)
+    launch_split(torch, lambda: K.attention_train_bwd(
+        q, k, v, table, maxlen, seed, p, key_len, out, dout, row_max,
+        row_sum), "attn_train_bwd", ("dq", "dk/dv", "table"))
     del storage, bias
 
 
@@ -2401,9 +2438,13 @@ def main() -> int:
         return 1
     log = _build.BUILD_DIR / "build.log"
     if log.exists():
+        name = "?"
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {line.strip()}")
+            if "Function properties for" in line:  # a kernel's report follows
+                found = re.search(r"\d+([A-Za-z_]+kernel)", line)
+                name = found.group(1) if found else line.split()[-1]
+            elif "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
     kernels = run("kernels", kernel_phase, torch, K, device_ms) or []
     served = run("serve", serve_phase, torch, np, sep_torch, K)
     counts = served[1] if served else {}

@@ -22,39 +22,66 @@
 // operations per (query, valid key) pair (QKᵀ, P·V) plus 2*D per query
 // row and distinct clamped table row its keys reach (Q·tableᵀ); the
 // backward 10*D per pair (QKᵀ, dO·Vᵀ, dV, dQ, dK) plus 6*D per row and
-// table row (Q·tableᵀ, its adjoints to dQ and to the table).  q, k, v and
-// out are a few MB, so both are bound by the 67 TFLOP/s of the CUDA cores
-// (chip_smoke.py counts each from its inputs).
+// table row (Q·tableᵀ, its adjoints to dQ and to the table), and one
+// exponential per pair.  q, k, v and out are a few MB, so both are bound
+// by their products: K13's at the 67 TFLOP/s of the CUDA cores, K14's at
+// the 3xTF32 rate of the tensor cores (495/3 TFLOP/s), 0.012 ms at
+// [4, 8, 500, 16] (chip_smoke.py counts each from its inputs).
 //
 // Design.  The TPU kernel holds a whole [block, block] score tile per bh
 // in VMEM (1 MB at 512); a Hopper block has 227 KB of shared memory.  So
 // K13 streams key tiles of 64 with an online softmax, as K12
 // (flash_relpos.cu) does, and saves each row's max and sum; the dropout
-// scales the probabilities that P·V accumulates, never the sum.  K14
-// recomputes P tile by tile from those row statistics, in three launches:
-//  1. dq (grid: query tile x bh): delta_i = dO_i·out_i (which equals
-//     sum_j P_ij dP_ij with dropout too), then for each key tile
-//     G_ij = c P_ij (z_ij dO_i·v_j - delta_i) into shared memory, dq_i +=
-//     sum_j G_ij (k_j + pe_{i-j}), and the table's band sums
-//     sum_{i - j = r} G_ij q_i into a per-block frame of relative
-//     offsets in shared memory, written out as the block's partial;
-//  2. dk, dv (grid: key tile x bh): the same P and G transposed, dv_j +=
-//     sum_i P_ij z_ij dO_i, dk_j += sum_i G_ij q_i;
-//  3. dtable: each (table row, column) sums the partials of its relative
+// scales the probabilities that P·V accumulates, never the sum.  K13
+// stays on the CUDA cores: it is a sixth of K14's work, and its scores
+// fix the row statistics that K14's P is measured against.
+//
+// K14 recomputes P tile by tile from those row statistics, every product
+// on the tensor cores as 3xTF32 (mma_tf32x3.cuh, each from zeroed
+// fragments added to float32 sums): blocks of 4 warps, a warp per 16
+// query rows (or keys) whose Q and dO (or K and V) fragments are split
+// once and kept in registers, the other side's tile of 64 rows and the
+// band of 128 clamped table rows staged by cp.async.  Its scores are
+// q·k + q·pe on the tensor cores, which round otherwise than K13's in the
+// last bits, so its P sums to 1 only within float32 rounding.  Three
+// launches:
+//  1. dq (grid: query tile x bh, two blocks per SM; 191 registers, no
+//     spill): delta_i = dO_i·out_i (which equals sum_j P_ij dP_ij with
+//     dropout too); per key tile the bias Q·bandᵀ over the warp's 80 band
+//     rows into its rows of a [64][128] buffer, then by halves of 32 keys
+//     S = Q Kᵀ plus the bias read at i - j + 63, dP = dO Vᵀ and
+//     G = c P (z dP - delta) in the C fragments, written skewed over the
+//     bias (G_skew[i][i - j + 63], zero elsewhere), and dq += G K with the
+//     C fragments as A fragments; then, as the JAX kernel writes both
+//     rel-pos adjoints as products on the skewed G, dq += G_skew·band and
+//     the table's band sums G_skewᵀ·Q (two band m-tiles per warp, ten
+//     k-steps each) into a frame of relative offsets per block: a frame
+//     m-tile is complete after two key tiles, so a warp carries one in
+//     registers and stores it once;
+//  2. dk, dv (grid: key tile x bh x half of the query tiles, split by grid
+//     z so that four blocks of 128 registers share an SM, at a 24-byte
+//     spill): the bias table of the query tile (a [64][128] buffer, each
+//     warp its 16 query rows), then by halves of 32 queries Sᵀ = K Qᵀ
+//     plus the bias, dPᵀ = V dOᵀ, P z and G, dv += (P z)ᵀ dO and
+//     dk += Gᵀ Q; the first half writes dk and dv, the second half its
+//     own scratch copies;
+//  3. dtable: a block per table row sums the frames of its relative
 //     offsets (one, or a run of them at a clamped end row) over bh and
-//     query tiles in a fixed order.
+//     query tiles, in parts of bh added in a fixed order; the same blocks
+//     first add dk's and dv's second halves to their first (a grid-stride
+//     pass, so this launch's time is not the table sum's alone).
 // The TPU kernel's barrel shifter and row-reversed table are Mosaic
 // workarounds (no gather, no reverse); here the <= 127 clamped table rows
-// of a (query tile, key tile) band are staged in shared memory and read
-// at band index i - j + 63.  No float atomics: two runs give the same
-// bits.  Query rows past L are computed on zeros and never written; keys
-// at or past lim score -inf (forward) or carry no gradient (backward).
-// 64-bit offsets throughout.
+// of a (query tile, key tile) band are staged in shared memory.  No float
+// atomics: two runs give the same bits.  Query rows past L are computed
+// on zeros and never written; keys at or past lim score -inf (forward) or
+// carry no gradient (backward).  64-bit offsets throughout.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "hash_dropout.cuh"
+#include "mma_tf32x3.cuh"
 
 namespace {
 
@@ -109,24 +136,20 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ a,
 }
 
 // the 128 clamped table rows of band rel0 .. rel0 + 127, transposed:
-// pt[c * kBS + rr]; and, if pr is given, row-major: pr[rr * D + c]
+// pt[c * kBS + rr]
 __device__ __forceinline__ void stage_band(const float* __restrict__ table,
-                                           int rel0, int maxlen, float* pt,
-                                           float* pr) {
+                                           int rel0, int maxlen, float* pt) {
   for (int e = threadIdx.x; e < kBand * D; e += kThreads) {
     const int rr = e / D, c = e - rr * D;
     const int row = min(max(rel0 + rr, -maxlen), maxlen - 1) + maxlen;
-    const float x = table[(size_t)row * D + c];
-    pt[c * kBS + rr] = x;
-    if (pr != nullptr) pr[e] = x;
+    pt[c * kBS + rr] = table[(size_t)row * D + c];
   }
 }
 
 // a [64, D] tile (rows r0 .., zeros at or past lim) transposed into
-// t[c * kTS + rr], and row-major into r (if given)
+// t[c * kTS + rr]
 __device__ __forceinline__ void stage_tile(const float* __restrict__ a,
-                                           int r0, int lim, float* t,
-                                           float* r) {
+                                           int r0, int lim, float* t) {
   const int rr = threadIdx.x >> 2, c4 = (threadIdx.x & 3) * 4;
   const int row = r0 + rr;
   float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -135,17 +158,15 @@ __device__ __forceinline__ void stage_tile(const float* __restrict__ a,
   t[(c4 + 1) * kTS + rr] = v.y;
   t[(c4 + 2) * kTS + rr] = v.z;
   t[(c4 + 3) * kTS + rr] = v.w;
-  if (r != nullptr) *reinterpret_cast<float4*>(r + rr * D + c4) = v;
 }
 
 // s[a][bb] = sum_c q·(k + pe) over the D columns: the unscaled score of
-// register row a against shared column 4tx + bb (cols_t[c][...], a
+// query row a (registers) against key 4tx + bb (cols_t[c][...], a
 // transposed tile) with the rel-pos bias of the pair read from the band
-// pt[c][...].  kQueryRows: the rows are queries and the columns keys, and
-// the pair's band index is band0 + 3 + a - bb; else the rows are keys and
-// the columns queries, and it is band0 + 3 + bb - a.  Both orders round
-// the same products in the same order, so forward and backward agree.
-template <bool kQueryRows>
+// pt[c][...] at band index band0 + 3 + a - bb.  K14 recomputes the scores
+// on the tensor cores as q·k + q·pe (3xTF32), which round otherwise in
+// the last bits: its P against these row statistics sums to 1 only
+// within float32 rounding.
 __device__ __forceinline__ void scores(const float (&rows)[4][D],
                                        const float* cols_t, const float* pt,
                                        int tx, int band0, float (&s)[4][4]) {
@@ -164,31 +185,8 @@ __device__ __forceinline__ void scores(const float (&rows)[4][D],
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int bb = 0; bb < 4; ++bb) {
-        if (kQueryRows)
-          s[a][bb] = fmaf(rows[a][c], kv[bb] + pv[3 + a - bb], s[a][bb]);
-        else
-          s[a][bb] = fmaf(kv[bb], rows[a][c] + pv[3 + bb - a], s[a][bb]);
-      }
-  }
-}
-
-// d[a][bb] = sum_c rows[a][c] * cols_t[c][4 * tx + bb]
-__device__ __forceinline__ void dots(const float (&rows)[4][D],
-                                     const float* cols_t, int tx,
-                                     float (&d)[4][4]) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int bb = 0; bb < 4; ++bb) d[a][bb] = 0.f;
-#pragma unroll
-  for (int c = 0; c < D; ++c) {
-    const float4 kk = *reinterpret_cast<const float4*>(cols_t + c * kTS + 4 * tx);
-    const float kv[4] = {kk.x, kk.y, kk.z, kk.w};
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb) d[a][bb] = fmaf(rows[a][c], kv[bb], d[a][bb]);
+      for (int bb = 0; bb < 4; ++bb)
+        s[a][bb] = fmaf(rows[a][c], kv[bb] + pv[3 + a - bb], s[a][bb]);
   }
 }
 
@@ -233,18 +231,18 @@ attn_train_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int j0 = 0; j0 < lim; j0 += kTile) {
     __syncthreads();  // the previous tile's shared arrays are consumed
-    stage_tile(k + head, j0, lim, kt, nullptr);
+    stage_tile(k + head, j0, lim, kt);
     {
       const int jj = tid >> 2, c4 = (tid & 3) * 4, j = j0 + jj;
       float4 vv = make_float4(0.f, 0.f, 0.f, 0.f);
       if (j < lim) vv = *reinterpret_cast<const float4*>(v + head + (size_t)j * D + c4);
       *reinterpret_cast<float4*>(vs + jj * D + c4) = vv;
     }
-    stage_band(table, i0 - j0 - (kTile - 1), maxlen, pt, nullptr);
+    stage_band(table, i0 - j0 - (kTile - 1), maxlen, pt);
     __syncthreads();
 
     float s[4][4];
-    scores<true>(qr, kt, pt, tx, band0, s);
+    scores(qr, kt, pt, tx, band0, s);
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
       float mx = -INFINITY;
@@ -308,21 +306,250 @@ attn_train_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ---------------------------------------------------------------- K14
 
-// floats of the dq kernel's dynamic shared memory: kt, vt (transposed
-// K and V tiles), ks (K row-major), pt, pr (band, both layouts), gs (G),
-// qs (Q tile row-major), then the table frame of frame_rows(L) rows
-__host__ __device__ constexpr int dq_fixed_floats() {
-  return 2 * D * kTS + kTile * D + D * kBS + kBand * D + kTile * kTS +
-         kTile * D;
+// K14's launches take their products on the tensor cores as 3xTF32
+// (mma_tf32x3.cuh): blocks of 4 warps, each warp 16 query rows (dq) or 16
+// keys (dk, dv) against tiles of 64.
+namespace bwd {
+
+using tf32x3::cp_async16;
+using tf32x3::cp_async_commit;
+using tf32x3::cp_async_wait;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kS = D + 4;              // row stride of the staged K, V,
+                                       // Q, dO and band rows: a lane's
+                                       // loads of rows g (or 2t) and
+                                       // columns t (or g) miss no bank
+constexpr int kGS = kBand + 8;         // G_skew's row stride (8 mod 32:
+                                       // 8-byte fragment loads)
+constexpr int kQB = kBand + 3;         // the dk/dv bias table's: (row ii,
+                                       // column ii - jj + 63) misses no
+                                       // bank
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kTile == 16 * kWarps && kThreads == 128,
+              "a warp per 16 rows of a tile; a thread stages 16 bytes of "
+              "every 32nd row");
+
+// 2^x on the SFU (relative error about 2^-22; 2^-inf = 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// rows r0 .. r0 + n - 1 of a [*, D] array into s[rr * kS + c] by cp.async,
+// zero at or past lim
+__device__ __forceinline__ void stage_rows(float* s, const float* a, int r0,
+                                           int lim, int n) {
+  const int c4 = (threadIdx.x & 3) * 4;
+  for (int rr = threadIdx.x >> 2; rr < n; rr += kThreads / 4) {
+    const bool ok = r0 + rr < lim;
+    cp_async16(s + rr * kS + c4, a + (size_t)(ok ? r0 + rr : 0) * D + c4,
+               ok);
+  }
+}
+
+// the kBand clamped table rows of offsets rel0 .. rel0 + kBand - 1
+__device__ __forceinline__ void stage_band(float* s, const float* table,
+                                           int rel0, int maxlen) {
+  const int c4 = (threadIdx.x & 3) * 4;
+  for (int rr = threadIdx.x >> 2; rr < kBand; rr += kThreads / 4) {
+    const int row = min(max(rel0 + rr, -maxlen), maxlen - 1) + maxlen;
+    cp_async16(s + rr * kS + c4, table + (size_t)row * D + c4, true);
+  }
+}
+
+// A fragments (standard k order: slots t, t+4 = columns 8 ks + t, + 4) of
+// rows r and r + 8 of a [*, D] array (zero past n), split once
+__device__ __forceinline__ void rows_split(const float* a, int r, int n,
+                                           uint32_t (&big)[2][4],
+                                           uint32_t (&small)[2][4]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r + 8 * (e & 1), col = 8 * ks + t + 4 * (e >> 1);
+      v[e] = row < n ? a[(size_t)row * D + col] : 0.f;
+    }
+    tf32x3::split(v, big[ks], small[ks]);
+  }
+}
+
+// c[nt] = A B(., nt) over D (two k-steps) from zeroed fragments: A the
+// warp's register fragments, split once; bfrag(ks, nt) gives B[8 ks + t]
+// and B[8 ks + t + 4] of the lane's column g of n-tile nt.  Each term is
+// issued over all NT fragments before the next, so that independent
+// products sit between dependent ones.
+template <int NT, class BFrag>
+__device__ __forceinline__ void regs_product(float (&c)[NT][4],
+                                             const uint32_t (&ab)[2][4],
+                                             const uint32_t (&as)[2][4],
+                                             BFrag bfrag) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[nt][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    uint32_t bb[NT][2], bs[NT][2];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float2 b = bfrag(ks, nt);
+      const float v[2] = {b.x, b.y};
+      tf32x3::split(v, bb[nt], bs[nt]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) tf32x3::mma(c[nt], as[ks], bb[nt]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) tf32x3::mma(c[nt], ab[ks], bs[nt]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) tf32x3::mma(c[nt], ab[ks], bb[nt]);
+  }
+}
+
+// c[nt] = A Bᵀ for the 8 n-tiles of 8 rows of a staged tile b (stride
+// kS): the warp's 16 rows against 64 columns
+__device__ __forceinline__ void rows_by_tile(float (&c)[8][4],
+                                             const uint32_t (&ab)[2][4],
+                                             const uint32_t (&as)[2][4],
+                                             const float* b) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  regs_product<8>(c, ab, as, [&](int ks, int nt) {
+    const float* br = b + (8 * nt + g) * kS + 8 * ks + t;
+    return make_float2(br[0], br[4]);
+  });
+}
+
+// acc[nn] += A B over KS k-steps and two n-tiles: afrag(ks, a) fills A's
+// fragment of k-step ks (slots t and t + 4 hold k = 8 ks + 2t and + 1),
+// bfrag(ks, nn) gives B[8 ks + 2t] and B[8 ks + 2t + 1] of the lane's
+// column g of n-tile nn.  The k-steps of either parity sum into their own
+// zeroed fragments (four independent products per term), added to acc in
+// float32 at the end.
+template <int KS, class AFrag, class BFrag>
+__device__ __forceinline__ void pair_product(float (&acc)[2][4], AFrag afrag,
+                                             BFrag bfrag) {
+  static_assert(KS % 2 == 0, "k-steps in pairs");
+  float sum[2][2][4] = {};
+#pragma unroll
+  for (int k2 = 0; k2 < KS; k2 += 2) {
+    uint32_t ab[2][4], as[2][4], bb[2][2][2], bs[2][2][2];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      float a[4];
+      afrag(k2 + x, a);
+      tf32x3::split(a, ab[x], as[x]);
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn) {
+        const float2 b = bfrag(k2 + x, nn);
+        const float v[2] = {b.x, b.y};
+        tf32x3::split(v, bb[x][nn], bs[x][nn]);
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn)
+        tf32x3::mma(sum[x][nn], as[x], bb[x][nn]);
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn)
+        tf32x3::mma(sum[x][nn], ab[x], bs[x][nn]);
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn)
+        tf32x3::mma(sum[x][nn], ab[x], bb[x][nn]);
+  }
+#pragma unroll
+  for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nn][e] += sum[0][nn][e] + sum[1][nn][e];
+}
+
+// acc += C B over the 64 columns of c: the C fragments as A fragments
+// (columns 8 nt + 2t, + 1 in slots t, t + 4), B a staged [64][kS] tile
+__device__ __forceinline__ void frags_by_tile(float (&acc)[2][4],
+                                              const float (&c)[8][4],
+                                              const float* b) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  pair_product<8>(
+      acc,
+      [&](int nt, float(&a)[4]) {
+        a[0] = c[nt][0];
+        a[1] = c[nt][2];
+        a[2] = c[nt][1];
+        a[3] = c[nt][3];
+      },
+      [&](int nt, int nn) {
+        const float* br = b + (8 * nt + 2 * t) * kS + 8 * nn + g;
+        return make_float2(br[0], br[kS]);
+      });
+}
+
+// bias[r][cc] = sum_c A[r][c] band[cc][c] for the warp's 16 rows and 80
+// band rows, written to out[r * LD + cc] (in pairs where LD is even)
+template <int LD>
+__device__ __forceinline__ void band_bias(const uint32_t (&ab)[2][4],
+                                          const uint32_t (&as)[2][4],
+                                          const float* band, float* out) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float c[5][4];
+    regs_product<5>(c, ab, as, [&](int ks, int nt) {
+      const float* br = band + (8 * (5 * half + nt) + g) * kS + 8 * ks + t;
+      return make_float2(br[0], br[4]);
+    });
+#pragma unroll
+    for (int nt = 0; nt < 5; ++nt) {
+      float* o = out + g * LD + 8 * (5 * half + nt) + 2 * t;
+      if (LD % 2 == 0) {
+        *reinterpret_cast<float2*>(o) = make_float2(c[nt][0], c[nt][1]);
+        *reinterpret_cast<float2*>(o + 8 * LD) =
+            make_float2(c[nt][2], c[nt][3]);
+      } else {
+        o[0] = c[nt][0];
+        o[1] = c[nt][1];
+        o[8 * LD] = c[nt][2];
+        o[8 * LD + 1] = c[nt][3];
+      }
+    }
+  }
+}
+
+// The scratch of the three launches, in floats: delta [BH, L]; the second
+// halves' dk and dv [BH, L, D] each (the first halves write the outputs,
+// and the table launch adds the second in a fixed order); the dq blocks'
+// frames of band sums [BH][query tiles][frame_rows(L)][D].
+struct Scratch {
+  float *delta, *dk1, *dv1, *frames;
+};
+
 // rows of a query tile's frame of relative offsets: offset i0 - Lk + 1 +
-// fr for fr in [0, Lk + 63), Lk = L rounded up to the tile; one spare
+// fr for fr in [0, Lk + 64), Lk = L rounded up to the tile
 __host__ __device__ inline int frame_rows(int L) {
   return ((L + kTile - 1) / kTile) * kTile + kTile;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// floats of the dq launch's dynamic shared memory: two stages of K, V and
+// the band, G_skew, the query tile (row stride kQ = 24: the band sums'
+// loads of rows t and t + 4 at column g miss no bank)
+constexpr int kQ = D + 8;
+constexpr int kStageDq = 2 * kTile * kS + kBand * kS;
+constexpr int kDqFloats = 2 * kStageDq + kTile * kGS + kTile * kQ;
+
+// Launch 1, dq: a block per (query tile, bh).
+__global__ void __launch_bounds__(kThreads, 2)
 attn_train_bwd_dq_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
@@ -332,151 +559,253 @@ attn_train_bwd_dq_kernel(const float* __restrict__ q,
                          const float* __restrict__ dout,
                          const float* __restrict__ row_max,
                          const float* __restrict__ row_sum,
-                         float* __restrict__ delta, float* __restrict__ dq,
-                         float* __restrict__ partial, int L, int H,
-                         int maxlen, float scale, Drop drop) {
+                         float* __restrict__ dq, Scratch scratch, int L,
+                         int H, int maxlen, float scale, Drop drop) {
   extern __shared__ __align__(16) float smem[];
-  float* kt = smem;                      // [D][kTS]
-  float* vt = kt + D * kTS;              // [D][kTS]
-  float* ks = vt + D * kTS;              // [kTile][D]
-  float* pt = ks + kTile * D;            // [D][kBS]
-  float* pr = pt + D * kBS;              // [kBand][D]
-  float* gs = pr + kBand * D;            // [kTile][kTS]
-  float* qs = gs + kTile * kTS;          // [kTile][D]
-  float* frame = qs + kTile * D;         // [frame_rows(L)][D]
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int bh = blockIdx.y, nqt = gridDim.x;
-  const int i0 = blockIdx.x * kTile;
+  float* gsk = smem + 2 * kStageDq;      // [kTile][kGS] G_skew
+  float* qsm = gsk + kTile * kGS;        // [kTile][kQ] the query tile
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, qt = blockIdx.x, nqt = gridDim.x;
+  const int i0 = qt * kTile, iw = i0 + 16 * warp;
   const int lim = min(L, lens[bh / H]);
   const size_t head = (size_t)bh * L * D;
-  const int lk = ((L + kTile - 1) / kTile) * kTile;
-  const int nframe = frame_rows(L);
+  const int lk = nqt * kTile, nframe = frame_rows(L);
+  const float cl2 = scale * kLog2e;
+  float* frame = scratch.frames + ((size_t)bh * nqt + qt) * nframe * D;
+  // this warp's rows of G_skew: row r (query iw + r), band column cc
+  // (block column 16 warp + cc): the pair (iw + r, j0 + jj) at cc = r - jj
+  // + 63; first the bias of the same pairs
+  float* wg = gsk + 16 * warp * kGS + 16 * warp;
 
-  float qr[4][D], gr[4][D];
-  load_rows(q + head, i0 + 4 * ty, L, qr);
-  load_rows(dout + head, i0 + 4 * ty, L, gr);
-  float m[4], linv[4], dl[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + 4 * ty + a;
-    m[a] = 0.f;
-    linv[a] = 0.f;
-    dl[a] = 0.f;
-    if (i < L) {
-      m[a] = row_max[(size_t)bh * L + i];
-      linv[a] = 1.f / fmaxf(row_sum[(size_t)bh * L + i], 1e-30f);
-      float dsum = 0.f;
-#pragma unroll
-      for (int c4 = 0; c4 < D / 4; ++c4) {
-        const float4 x =
-            reinterpret_cast<const float4*>(out + head + (size_t)i * D)[c4];
-        dsum = fmaf(gr[a][4 * c4 + 0], x.x, dsum);
-        dsum = fmaf(gr[a][4 * c4 + 1], x.y, dsum);
-        dsum = fmaf(gr[a][4 * c4 + 2], x.z, dsum);
-        dsum = fmaf(gr[a][4 * c4 + 3], x.w, dsum);
-      }
-      dl[a] = dsum;
-      if (tx == 0) delta[(size_t)bh * L + i] = dsum;
-    }
-  }
+  for (int e = tid; e < kTile * kGS; e += kThreads) gsk[e] = 0.f;
   {
-    const int rr = tid >> 2, c4 = (tid & 3) * 4, i = i0 + rr;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (i < L) x = *reinterpret_cast<const float4*>(q + head + (size_t)i * D + c4);
-    *reinterpret_cast<float4*>(qs + rr * D + c4) = x;
+    const int c4 = (tid & 3) * 4;
+    for (int rr = tid >> 2; rr < kTile; rr += kThreads / 4) {
+      const bool ok = i0 + rr < L;
+      cp_async16(qsm + rr * kQ + c4,
+                 q + head + (size_t)(ok ? i0 + rr : 0) * D + c4, ok);
+    }
   }
-  for (int e = tid; e < nframe * D; e += kThreads) frame[e] = 0.f;
+  auto stage = [&](int buf, int j0) {
+    float* st = smem + buf * kStageDq;
+    stage_rows(st, k + head, j0, lim, kTile);
+    stage_rows(st + kTile * kS, v + head, j0, lim, kTile);
+    stage_band(st + 2 * kTile * kS, table, i0 - j0 - (kTile - 1), maxlen);
+    cp_async_commit();
+  };
+  const int nkt = (lim + kTile - 1) / kTile;
+  stage(0, 0);  // with the query tile
 
-  const int orow = tid >> 2, oc = (tid & 3) * 4;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  const int band0 = 4 * (ty - tx) + kTile - 4;
-  // the table band: band index bnd of this thread, 8 columns from cb
-  const int bnd = tid >> 1, cb = (tid & 1) * 8;
-
-  for (int j0 = 0; j0 < lim; j0 += kTile) {
-    __syncthreads();
-    stage_tile(k + head, j0, lim, kt, ks);
-    stage_tile(v + head, j0, lim, vt, nullptr);
-    stage_band(table, i0 - j0 - (kTile - 1), maxlen, pt, pr);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    scores<true>(qr, kt, pt, tx, band0, s);
-    dots(gr, vt, tx, dp);
+  // rows iw + g and iw + g + 8: Q and dO as A fragments, split once; the
+  // row statistics (rows past L: 1 / l = 0, so P and G are 0 there) and
+  // delta_i = dO_i·out_i (= sum_j P_ij dP_ij, with dropout too)
+  uint32_t qb[2][4], qs[2][4], ob[2][4], os[2][4];
+  rows_split(q + head, iw + g, L, qb, qs);
+  rows_split(dout + head, iw + g, L, ob, os);
+  float ml2[2], linv[2], dl[2];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int i = i0 + 4 * ty + a;
-      float g[4];
+  for (int h = 0; h < 2; ++h) {
+    const int i = iw + g + 8 * h;
+    const bool in = i < L;
+    float sum = 0.f;
 #pragma unroll
-      for (int bb = 0; bb < 4; ++bb) {
-        const int j = j0 + 4 * tx + bb;
-        g[bb] = 0.f;
-        if (i < L && j < lim) {
-          const float p = expf(s[a][bb] * scale - m[a]) * linv[a];
-          g[bb] = scale * p * (drop.z(bh, i, j) * dp[a][bb] - dl[a]);
+    for (int c = t; c < D; c += 4)
+      if (in) sum = fmaf(dout[head + (size_t)i * D + c],
+                         out[head + (size_t)i * D + c], sum);
+    dl[h] = quad_sum(sum);
+    ml2[h] = in ? row_max[(size_t)bh * L + i] * kLog2e : 0.f;
+    linv[h] = in ? 1.f / fmaxf(row_sum[(size_t)bh * L + i], 1e-30f) : 0.f;
+    if (in && t == 0) scratch.delta[(size_t)bh * L + i] = dl[h];
+  }
+
+  float dqa[2][4] = {};
+  // the frame rows of band m-tile `warp` of the last key tile, which this
+  // tile's band m-tile warp + 4 completes (see below)
+  float carry[2][4] = {};
+  for (int n = 0; n < nkt; ++n) {
+    const int j0 = n * kTile;
+    cp_async_wait<0>();
+    // this tile's stage landed; every warp is done with the last tile's
+    // stage and G_skew
+    __syncthreads();
+    if (n + 1 < nkt) stage((n + 1) & 1, j0 + kTile);
+    const float* ks_ = smem + (n & 1) * kStageDq;
+    const float* vs_ = ks_ + kTile * kS;
+    const float* band = vs_ + kTile * kS;
+
+    // the bias Q·bandᵀ over the warp's 80 band rows, written to its rows
+    // of G_skew: pair (row r, key jj) reads column r - jj + 63
+    band_bias<kGS>(qb, qs, band + 16 * warp * kS, wg);
+    __syncwarp();
+    // by halves of 32 keys: S = Q Kᵀ plus the bias, dP = dO Vᵀ, then
+    // G = c P (z dP - delta) (keys past lim: 0), written skewed over the
+    // bias (each pair's column is its lane's), and dq += G K
+#pragma unroll
+    for (int kh = 0; kh < 2; ++kh) {
+      const float* kh_ = ks_ + 32 * kh * kS;
+      float s[4][4], dp[4][4];
+      regs_product<4>(s, qb, qs, [&](int ks, int nt) {
+        const float* br = kh_ + (8 * nt + g) * kS + 8 * ks + t;
+        return make_float2(br[0], br[4]);
+      });
+      regs_product<4>(dp, ob, os, [&](int ks, int nt) {
+        const float* br = vs_ + (32 * kh + 8 * nt + g) * kS + 8 * ks + t;
+        return make_float2(br[0], br[4]);
+      });
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, r = g + 8 * h;
+          const int jj = 32 * kh + 8 * nt + 2 * t + (e & 1);
+          const int i = iw + r, j = j0 + jj;
+          float* cell = wg + r * kGS + r - jj + kTile - 1;
+          float gv = 0.f;
+          if (j < lim) {
+            const float p =
+                ex2(fmaf(s[nt][e] + *cell, cl2, -ml2[h])) * linv[h];
+            gv = scale * p * (drop.z(bh, i, j) * dp[nt][e] - dl[h]);
+          }
+          s[nt][e] = gv;
+          *cell = gv;
         }
-      }
-      *reinterpret_cast<float4*>(gs + (4 * ty + a) * kTS + 4 * tx) =
-          make_float4(g[0], g[1], g[2], g[3]);
+      pair_product<4>(
+          dqa,
+          [&](int nt, float(&a)[4]) {
+            a[0] = s[nt][0];
+            a[1] = s[nt][2];
+            a[2] = s[nt][1];
+            a[3] = s[nt][3];
+          },
+          [&](int nt, int nn) {
+            const float* br = kh_ + (8 * nt + 2 * t) * kS + 8 * nn + g;
+            return make_float2(br[0], br[kS]);
+          });
     }
-    __syncthreads();
-
-    // dq_i += sum_j G_ij (k_j + pe_{i-j})
-    const float* grow = gs + orow * kTS;
-#pragma unroll 4
-    for (int jj = 0; jj < kTile; ++jj) {
-      const float g = grow[jj];
-      const float4 kk = *reinterpret_cast<const float4*>(ks + jj * D + oc);
-      const float4 pp = *reinterpret_cast<const float4*>(
-          pr + (orow - jj + kTile - 1) * D + oc);
-      acc[0] = fmaf(g, kk.x + pp.x, acc[0]);
-      acc[1] = fmaf(g, kk.y + pp.y, acc[1]);
-      acc[2] = fmaf(g, kk.z + pp.z, acc[2]);
-      acc[3] = fmaf(g, kk.w + pp.w, acc[3]);
-    }
-    // band bnd (i - j = i0 - j0 - 63 + bnd): sum_{ii - jj = bnd - 63}
-    // G[ii][jj] q[ii], added to frame row lk - 64 - j0 + bnd
-    if (bnd < kBand - 1) {
-      float sum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      const int lo = max(0, bnd - (kTile - 1)), hi = min(kTile - 1, bnd);
-      for (int ii = lo; ii <= hi; ++ii) {
-        const float g = gs[ii * kTS + ii - bnd + kTile - 1];
-        const float4 x0 = *reinterpret_cast<const float4*>(qs + ii * D + cb);
-        const float4 x1 = *reinterpret_cast<const float4*>(qs + ii * D + cb + 4);
-        sum[0] = fmaf(g, x0.x, sum[0]);
-        sum[1] = fmaf(g, x0.y, sum[1]);
-        sum[2] = fmaf(g, x0.z, sum[2]);
-        sum[3] = fmaf(g, x0.w, sum[3]);
-        sum[4] = fmaf(g, x1.x, sum[4]);
-        sum[5] = fmaf(g, x1.y, sum[5]);
-        sum[6] = fmaf(g, x1.z, sum[6]);
-        sum[7] = fmaf(g, x1.w, sum[7]);
-      }
-      float* fr = frame + (size_t)(lk - kTile - j0 + bnd) * D + cb;
+    // the band columns of the warp's rows that no pair reaches
 #pragma unroll
-      for (int x = 0; x < 8; ++x) fr[x] += sum[x];
+    for (int x = 0; x < 8; ++x) {
+      const int r = lane >> 1, c = 8 * (lane & 1) + x;  // 16 per row
+      wg[r * kGS + (c < r ? c : c + kTile)] = 0.f;
     }
+    __syncwarp();
+    // dq += G_skew band: the rel-pos adjoint, pe_{i-j} of every pair,
+    // over the warp's 80 band rows
+    pair_product<10>(
+        dqa,
+        [&](int ks, float(&a)[4]) {
+          const float* a0 = wg + g * kGS + 8 * ks + 2 * t;
+          const float2 lo = *reinterpret_cast<const float2*>(a0);
+          const float2 hi = *reinterpret_cast<const float2*>(a0 + 8 * kGS);
+          a[0] = lo.x;
+          a[1] = hi.x;
+          a[2] = lo.y;
+          a[3] = hi.y;
+        },
+        [&](int ks, int nn) {
+          const float* w =
+              band + (16 * warp + 8 * ks + 2 * t) * kS + 8 * nn + g;
+          return make_float2(w[0], w[kS]);
+        });
+    __syncthreads();  // every warp's rows of G_skew are written
+
+    // The table's band sums, sum_ii G_skew[ii][bnd] q_ii for band bnd
+    // (offset i0 - j0 - 63 + bnd, frame row lk - 64 - j0 + bnd): band
+    // m-tiles warp (query rows 0 .. 16 warp + 15 reach it) and warp + 4
+    // (rows 16 warp + 1 .. 63), ten k-steps of rows for every warp, the
+    // two m-tiles' products issued together.  Frame m-tile f + warp + 4
+    // (f = (lk - 64 - j0) / 16) takes the last key tile's m-tile `warp`
+    // and this one's m-tile warp + 4 and is then complete; this tile's
+    // m-tile `warp` waits for the next key tile.
+    float sums[2][2][4] = {};
+    {
+      const int n0 = 2 * warp + 2, lo1 = 2 * warp, n1 = kTile / 8 - lo1;
+#pragma unroll
+      for (int step = 0; step < kTile / 8; ++step) {
+        const bool on[2] = {step < n0, step < n1};
+        uint32_t ab[2][4], as[2][4], bb[2][2][2], bs[2][2][2];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          // A = G_skewᵀ: band rows 16 m + g (+ 8), query rows 8 ks + t
+          // (+ 4); B = the query tile's rows
+          const int m = warp + 4 * x;
+          const int ks = on[x] ? (x ? lo1 + step : step) : 0;
+          const float* a0 = gsk + (8 * ks + t) * kGS + 16 * m + g;
+          const float a[4] = {a0[0], a0[8], a0[4 * kGS], a0[4 * kGS + 8]};
+          tf32x3::split(a, ab[x], as[x]);
+          const float* br = qsm + (8 * ks + t) * kQ + g;
+#pragma unroll
+          for (int nn = 0; nn < 2; ++nn) {
+            const float v2[2] = {br[8 * nn], br[4 * kQ + 8 * nn]};
+            tf32x3::split(v2, bb[x][nn], bs[x][nn]);
+          }
+        }
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+#pragma unroll
+          for (int nn = 0; nn < 2; ++nn)
+            if (on[x]) tf32x3::mma(sums[x][nn], as[x], bb[x][nn]);
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+#pragma unroll
+          for (int nn = 0; nn < 2; ++nn)
+            if (on[x]) tf32x3::mma(sums[x][nn], ab[x], bs[x][nn]);
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+#pragma unroll
+          for (int nn = 0; nn < 2; ++nn)
+            if (on[x]) tf32x3::mma(sums[x][nn], ab[x], bb[x][nn]);
+      }
+    }
+    const int f = (lk - kTile - j0) / 16;
+#pragma unroll
+    for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = 16 * (f + warp + 4) + g + 8 * h;
+        *reinterpret_cast<float2*>(frame + (size_t)row * D + 8 * nn + 2 * t) =
+            make_float2(carry[nn][2 * h] + sums[1][nn][2 * h],
+                        carry[nn][2 * h + 1] + sums[1][nn][2 * h + 1]);
+        carry[nn][2 * h] = sums[0][nn][2 * h];
+        carry[nn][2 * h + 1] = sums[0][nn][2 * h + 1];
+      }
   }
 
-  const int i = i0 + orow;
-  if (i < L)
-    *reinterpret_cast<float4*>(dq + head + (size_t)i * D + oc) =
-        make_float4(acc[0], acc[1], acc[2], acc[3]);
-  __syncthreads();
-  float* dst = partial + ((size_t)bh * nqt + blockIdx.x) * nframe * D;
-  for (int e = tid; e < nframe * D / 4; e += kThreads)
-    reinterpret_cast<float4*>(dst)[e] = reinterpret_cast<const float4*>(frame)[e];
+  // the last key tile's m-tile `warp`, and zeros in the frame rows below
+  // it that no key tile reaches (keys past lim)
+  const int f = (lk - nkt * kTile) / 16;
+#pragma unroll
+  for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * (f + warp) + g + 8 * h;
+      *reinterpret_cast<float2*>(frame + (size_t)row * D + 8 * nn + 2 * t) =
+          make_float2(carry[nn][2 * h], carry[nn][2 * h + 1]);
+    }
+  for (int e = tid; e < 16 * f * D / 4; e += kThreads)
+    reinterpret_cast<float4*>(frame)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = iw + g + 8 * h;
+    if (i < L)
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn)
+        *reinterpret_cast<float2*>(dq + head + (size_t)i * D + 8 * nn +
+                                   2 * t) =
+            make_float2(dqa[nn][2 * h], dqa[nn][2 * h + 1]);
+  }
 }
 
-// floats of the dk/dv kernel's dynamic shared memory: qt, gt (Q and dO
-// transposed), qs, gs2 (row-major), pt (band), pz, gg (P z and G,
-// key-major), and the row statistics m, 1 / l, delta
-__host__ __device__ constexpr int dkv_floats() {
-  return 2 * D * kTS + 2 * kTile * D + D * kBS + 2 * kTile * kTS + 3 * kTile;
-}
+// floats of the dk/dv launch's dynamic shared memory: Q, dO, the band and
+// the query rows' statistics (max in log2 units, 1 / l, delta) of a query
+// tile, then the bias table
+constexpr int kStageKv = 2 * kTile * kS + kBand * kS + 3 * kTile;
+constexpr int kKvFloats = kStageKv + kTile * kQB;
 
-__global__ void __launch_bounds__(kThreads)
+// Launch 2, dk and dv: block (key tile, bh, z) takes the query tiles of
+// half z (four blocks share an SM).
+__global__ void __launch_bounds__(kThreads, 4)
 attn_train_bwd_dkv_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
@@ -485,112 +814,164 @@ attn_train_bwd_dkv_kernel(const float* __restrict__ q,
                           const float* __restrict__ dout,
                           const float* __restrict__ row_max,
                           const float* __restrict__ row_sum,
-                          const float* __restrict__ delta,
                           float* __restrict__ dk, float* __restrict__ dv,
-                          int L, int H, int maxlen, float scale, Drop drop) {
+                          Scratch scratch, int L,
+                          int H, int maxlen, float scale, Drop drop) {
   extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                      // [D][kTS]
-  float* gt = qt + D * kTS;              // [D][kTS]
-  float* qs = gt + D * kTS;              // [kTile][D]
-  float* gs = qs + kTile * D;            // [kTile][D]
-  float* pt = gs + kTile * D;            // [D][kBS]
-  float* pz = pt + D * kBS;              // [kTile keys][kTS queries]
-  float* gg = pz + kTile * kTS;          // [kTile keys][kTS queries]
-  float* ms = gg + kTile * kTS;          // [kTile]
-  float* ls = ms + kTile;
-  float* ds = ls + kTile;
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;   // queries 4tx..4tx+3 of a tile
-  const int ty = tid >> 4;   // keys 4ty..4ty+3
-  const int bh = blockIdx.y;
-  const int j0 = blockIdx.x * kTile;
+  float* qs_ = smem;                     // [kTile][kS] Q
+  float* os_ = qs_ + kTile * kS;         // [kTile][kS] dO
+  float* band = os_ + kTile * kS;        // [kBand][kS]
+  float* ms = band + kBand * kS;         // [kTile] max * log2(e)
+  float* ls = ms + kTile;                // [kTile] 1 / l
+  float* ds = ls + kTile;                // [kTile] delta
+  float* qbias = smem + kStageKv;        // [kTile][kQB]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, z = blockIdx.z;
+  const int j0 = blockIdx.x * kTile, jw = j0 + 16 * warp;
   const int lim = min(L, lens[bh / H]);
   const size_t head = (size_t)bh * L * D;
-  const int orow = tid >> 2, oc = (tid & 3) * 4;   // key, 4 columns
-  float adk[4] = {0.f, 0.f, 0.f, 0.f}, adv[4] = {0.f, 0.f, 0.f, 0.f};
+  const float cl2 = scale * kLog2e;
 
+  float dka[2][4] = {}, dva[2][4] = {};
+  const int nqt = (L + kTile - 1) / kTile, half = (nqt + 1) / 2;
+  const int qt0 = z ? half : 0, qt1 = z ? nqt : half;
   if (j0 < lim) {
-    float kr[4][D], vr[4][D];
-    load_rows(k + head, j0 + 4 * ty, lim, kr);
-    load_rows(v + head, j0 + 4 * ty, lim, vr);
-    // band index of (key 4ty + a, query 4tx + bb) is band0 + 3 + bb - a
-    const int band0 = 4 * (tx - ty) + kTile - 4;
-    for (int i0 = 0; i0 < L; i0 += kTile) {
-      __syncthreads();
-      stage_tile(q + head, i0, L, qt, qs);
-      stage_tile(dout + head, i0, L, gt, gs);
-      stage_band(table, i0 - j0 - (kTile - 1), maxlen, pt, nullptr);
+    // keys jw + g and jw + g + 8 (zero at or past lim): K and V as A
+    // fragments, split once
+    uint32_t kb[2][4], ksm[2][4], vb[2][4], vsm[2][4];
+    rows_split(k + head, jw + g, lim, kb, ksm);
+    rows_split(v + head, jw + g, lim, vb, vsm);
+    for (int n = qt0; n < qt1; ++n) {
+      const int i0 = n * kTile;
+      __syncthreads();  // every warp is done with the last tile
+      stage_rows(qs_, q + head, i0, L, kTile);
+      stage_rows(os_, dout + head, i0, L, kTile);
+      stage_band(band, table, i0 - j0 - (kTile - 1), maxlen);
+      cp_async_commit();
       if (tid < kTile) {
         const int i = i0 + tid;
-        ms[tid] = i < L ? row_max[(size_t)bh * L + i] : 0.f;
-        ls[tid] = i < L ? 1.f / fmaxf(row_sum[(size_t)bh * L + i], 1e-30f)
-                        : 0.f;
-        ds[tid] = i < L ? delta[(size_t)bh * L + i] : 0.f;
+        const bool in = i < L;
+        ms[tid] = in ? row_max[(size_t)bh * L + i] * kLog2e : 0.f;
+        ls[tid] =
+            in ? 1.f / fmaxf(row_sum[(size_t)bh * L + i], 1e-30f) : 0.f;
+        ds[tid] = in ? scratch.delta[(size_t)bh * L + i] : 0.f;
       }
+      cp_async_wait<0>();
       __syncthreads();
 
-      float s[4][4], dp[4][4];
-      scores<false>(kr, qt, pt, tx, band0, s);
-      dots(vr, gt, tx, dp);
+      // the bias table: query rows 16 warp .. (this warp's A fragments
+      // from the tile) against their 80 band rows; (key jj, query ii)
+      // reads qbias[ii][ii - jj + 63]
+      {
+        uint32_t ab[2][4], as[2][4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int j = j0 + 4 * ty + a;
-        float pzv[4], g[4];
-#pragma unroll
-        for (int bb = 0; bb < 4; ++bb) {
-          const int ii = 4 * tx + bb, i = i0 + ii;
-          pzv[bb] = g[bb] = 0.f;
-          if (i < L && j < lim) {
-            const float p = expf(s[a][bb] * scale - ms[ii]) * ls[ii];
-            const float z = drop.z(bh, i, j);
-            pzv[bb] = p * z;
-            g[bb] = scale * p * (z * dp[a][bb] - ds[ii]);
-          }
+        for (int ks = 0; ks < 2; ++ks) {
+          const float* a0 = qs_ + (16 * warp + g) * kS + 8 * ks + t;
+          const float a[4] = {a0[0], a0[8 * kS], a0[4], a0[8 * kS + 4]};
+          tf32x3::split(a, ab[ks], as[ks]);
         }
-        *reinterpret_cast<float4*>(pz + (4 * ty + a) * kTS + 4 * tx) =
-            make_float4(pzv[0], pzv[1], pzv[2], pzv[3]);
-        *reinterpret_cast<float4*>(gg + (4 * ty + a) * kTS + 4 * tx) =
-            make_float4(g[0], g[1], g[2], g[3]);
+        band_bias<kQB>(ab, as, band + 16 * warp * kS,
+                       qbias + 16 * warp * kQB + 16 * warp);
       }
-      __syncthreads();
-
-      const float* prow = pz + orow * kTS;
-      const float* grow = gg + orow * kTS;
-#pragma unroll 4
-      for (int ii = 0; ii < kTile; ++ii) {
-        const float p = prow[ii], g = grow[ii];
-        const float4 go = *reinterpret_cast<const float4*>(gs + ii * D + oc);
-        const float4 qq = *reinterpret_cast<const float4*>(qs + ii * D + oc);
-        adv[0] = fmaf(p, go.x, adv[0]);
-        adv[1] = fmaf(p, go.y, adv[1]);
-        adv[2] = fmaf(p, go.z, adv[2]);
-        adv[3] = fmaf(p, go.w, adv[3]);
-        adk[0] = fmaf(g, qq.x, adk[0]);
-        adk[1] = fmaf(g, qq.y, adk[1]);
-        adk[2] = fmaf(g, qq.z, adk[2]);
-        adk[3] = fmaf(g, qq.w, adk[3]);
+      __syncthreads();  // the bias table is whole
+      // by halves of 32 queries: Sᵀ = K Qᵀ plus the bias and dPᵀ = V dOᵀ
+      // for this warp's 16 keys, P z and G, then dv += (P z)ᵀ dO and
+      // dk += Gᵀ Q with the C fragments as A fragments
+#pragma unroll
+      for (int qh = 0; qh < 2; ++qh) {
+        float st[4][4], dpt[4][4];
+        regs_product<4>(st, kb, ksm, [&](int ks, int nt) {
+          const float* br = qs_ + (32 * qh + 8 * nt + g) * kS + 8 * ks + t;
+          return make_float2(br[0], br[4]);
+        });
+        regs_product<4>(dpt, vb, vsm, [&](int ks, int nt) {
+          const float* br = os_ + (32 * qh + 8 * nt + g) * kS + 8 * ks + t;
+          return make_float2(br[0], br[4]);
+        });
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int jj = 16 * warp + g + 8 * (e >> 1);
+            const int ii = 32 * qh + 8 * nt + 2 * t + (e & 1);
+            const int i = i0 + ii, j = j0 + jj;
+            float pz = 0.f, gv = 0.f;
+            if (j < lim) {  // rows past L: 1 / l = 0
+              const float sv =
+                  st[nt][e] + qbias[ii * kQB + ii - jj + kTile - 1];
+              const float p = ex2(fmaf(sv, cl2, -ms[ii])) * ls[ii];
+              const float zv = drop.z(bh, i, j);
+              pz = p * zv;
+              gv = scale * p * (zv * dpt[nt][e] - ds[ii]);
+            }
+            st[nt][e] = pz;
+            dpt[nt][e] = gv;
+          }
+        pair_product<4>(
+            dva,
+            [&](int nt, float(&a)[4]) {
+              a[0] = st[nt][0];
+              a[1] = st[nt][2];
+              a[2] = st[nt][1];
+              a[3] = st[nt][3];
+            },
+            [&](int nt, int nn) {
+              const float* br =
+                  os_ + (32 * qh + 8 * nt + 2 * t) * kS + 8 * nn + g;
+              return make_float2(br[0], br[kS]);
+            });
+        pair_product<4>(
+            dka,
+            [&](int nt, float(&a)[4]) {
+              a[0] = dpt[nt][0];
+              a[1] = dpt[nt][2];
+              a[2] = dpt[nt][1];
+              a[3] = dpt[nt][3];
+            },
+            [&](int nt, int nn) {
+              const float* br =
+                  qs_ + (32 * qh + 8 * nt + 2 * t) * kS + 8 * nn + g;
+              return make_float2(br[0], br[kS]);
+            });
       }
     }
   }
-  const int j = j0 + orow;
-  if (j < L) {
-    *reinterpret_cast<float4*>(dk + head + (size_t)j * D + oc) =
-        make_float4(adk[0], adk[1], adk[2], adk[3]);
-    *reinterpret_cast<float4*>(dv + head + (size_t)j * D + oc) =
-        make_float4(adv[0], adv[1], adv[2], adv[3]);
+  float* dkz = z ? scratch.dk1 : dk;
+  float* dvz = z ? scratch.dv1 : dv;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = jw + g + 8 * h;
+    if (j < L)
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn) {
+        const size_t off = head + (size_t)j * D + 8 * nn + 2 * t;
+        *reinterpret_cast<float2*>(dkz + off) =
+            make_float2(dka[nn][2 * h], dka[nn][2 * h + 1]);
+        *reinterpret_cast<float2*>(dvz + off) =
+            make_float2(dva[nn][2 * h], dva[nn][2 * h + 1]);
+      }
   }
 }
 
-// dtable[r][c]: the partials of the relative offsets that row r gathers
-// (rel = r - maxlen; every rel <= -maxlen at r = 0, every rel >= maxlen - 1
-// at the last row), over bh and query tiles, in that order.
-__global__ void attn_train_bwd_table_kernel(const float* __restrict__ partial,
-                                            float* __restrict__ dtable,
-                                            int BH, int L, int maxlen) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= 2 * maxlen * D) return;
-  const int r = idx / D, c = idx - r * D;
+// Launch 3.  dtable[r][c]: the frames' partials of the relative offsets
+// that row r gathers (rel = r - maxlen; every rel <= -maxlen at r = 0,
+// every rel >= maxlen - 1 at the last row), over bh and query tiles.  A block per table row: thread (part, c) sums the partials of
+// bh = part, part + kParts, ..., and the parts are added in their order.
+// The blocks also complete dk and dv (their two halves, in order).
+constexpr int kParts = 16;
+__global__ void __launch_bounds__(kParts * D)
+attn_train_bwd_table_kernel(Scratch scratch, float* __restrict__ dtable,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            int BH, int L, int maxlen) {
+  __shared__ float parts[kParts * D];
+  const size_t n = (size_t)BH * L * D;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x) {
+    dk[e] += scratch.dk1[e];
+    dv[e] += scratch.dv1[e];
+  }
+  const int r = blockIdx.x, c = threadIdx.x % D, part = threadIdx.x / D;
   const int nqt = (L + kTile - 1) / kTile, lk = nqt * kTile;
   const int nframe = frame_rows(L);
   int lo = r - maxlen, hi = r - maxlen;
@@ -600,14 +981,24 @@ __global__ void attn_train_bwd_table_kernel(const float* __restrict__ partial,
   hi = min(hi, L - 1);
   float sum = 0.f;
   for (int rel = lo; rel <= hi; ++rel)
-    for (int bh = 0; bh < BH; ++bh)
+    for (int bh = part; bh < BH; bh += kParts)
       for (int qt = 0; qt < nqt; ++qt) {
         const int fr = rel - (qt * kTile - lk + 1);
         if (fr >= 0 && fr < nframe)
-          sum += partial[(((size_t)bh * nqt + qt) * nframe + fr) * D + c];
+          sum += scratch.frames[(((size_t)bh * nqt + qt) * nframe + fr) * D +
+                                c];
       }
-  dtable[idx] = sum;
+  parts[threadIdx.x] = sum;
+  __syncthreads();
+  if (part == 0) {
+    float total = 0.f;
+#pragma unroll
+    for (int x = 0; x < kParts; ++x) total += parts[x * D + c];
+    dtable[(size_t)r * D + c] = total;
+  }
 }
+
+}  // namespace bwd
 
 Drop make_drop(unsigned seed_word, unsigned threshold, float keep_scale,
                int block) {
@@ -652,11 +1043,11 @@ extern "C" int sep_attn_train_fwd_f32(const void* q, const void* k,
   return (int)cudaGetLastError();
 }
 
-// floats of K14's scratch: delta [B*H, L], then the dq kernel's partial
-// table frames
+// floats of K14's scratch (bwd::Scratch): delta [B*H, L], the dk/dv
+// launch's second halves of dk and dv, the dq launch's frames of band sums
 extern "C" long long sep_attn_train_bwd_scratch_floats(int BH, int L) {
-  const int nqt = (L + kTile - 1) / kTile;
-  return (long long)BH * L + (long long)BH * nqt * frame_rows(L) * D;
+  const long long nqt = (L + kTile - 1) / kTile, rows = (long long)BH * L;
+  return rows + 2 * rows * D + BH * nqt * bwd::frame_rows(L) * D;
 }
 
 // K14.  As K13, plus out and dout [B*H, L, 16]; dq, dk, dv [B*H, L, 16];
@@ -675,42 +1066,46 @@ extern "C" int sep_attn_train_bwd_f32(
   const Drop drop = make_drop(seed_word, threshold, keep_scale, block);
   const float scale = 1.0f / sqrtf((float)D);
   const int nt = (L + kTile - 1) / kTile;
-  float* delta = static_cast<float*>(scratch);
-  float* partial = delta + (size_t)BH * L;
+  const size_t rows = (size_t)BH * L;
+  bwd::Scratch sc;
+  sc.delta = static_cast<float*>(scratch);
+  sc.dk1 = sc.delta + rows;
+  sc.dv1 = sc.dk1 + rows * D;
+  sc.frames = sc.dv1 + rows * D;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto o = [](void* p) { return static_cast<float*>(p); };
 
-  const size_t dq_smem = sizeof(float) * ((size_t)dq_fixed_floats() +
-                                          (size_t)frame_rows(L) * D);
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_train_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)dq_smem);
+  // two (dq) or four (dk, dv) blocks share an SM: the most shared memory
+  auto set_smem = [](auto kernel, size_t bytes) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    return e;
+  };
+  const size_t dq_smem = sizeof(float) * (size_t)bwd::kDqFloats;
+  cudaError_t err = set_smem(bwd::attn_train_bwd_dq_kernel, dq_smem);
   if (err != cudaSuccess) return (int)err;
-  attn_train_bwd_dq_kernel<<<dim3(nt, BH), kThreads, dq_smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(table),
-      static_cast<const int*>(lens), static_cast<const float*>(out),
-      static_cast<const float*>(dout), static_cast<const float*>(row_max),
-      static_cast<const float*>(row_sum), delta, static_cast<float*>(dq),
-      partial, L, H, maxlen, scale, drop);
+  bwd::attn_train_bwd_dq_kernel<<<dim3(nt, BH), bwd::kThreads, dq_smem,
+                                  st>>>(
+      f(q), f(k), f(v), f(table), static_cast<const int*>(lens), f(out),
+      f(dout), f(row_max), f(row_sum), o(dq), sc, L, H, maxlen, scale, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const size_t dkv_smem = sizeof(float) * (size_t)dkv_floats();
-  err = cudaFuncSetAttribute(attn_train_bwd_dkv_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)dkv_smem);
+  const size_t dkv_smem = sizeof(float) * (size_t)bwd::kKvFloats;
+  err = set_smem(bwd::attn_train_bwd_dkv_kernel, dkv_smem);
   if (err != cudaSuccess) return (int)err;
-  attn_train_bwd_dkv_kernel<<<dim3(nt, BH), kThreads, dkv_smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(table),
-      static_cast<const int*>(lens), static_cast<const float*>(dout),
-      static_cast<const float*>(row_max), static_cast<const float*>(row_sum),
-      delta, static_cast<float*>(dk), static_cast<float*>(dv), L, H, maxlen,
-      scale, drop);
+  bwd::attn_train_bwd_dkv_kernel<<<dim3(nt, BH, 2), bwd::kThreads, dkv_smem,
+                                   st>>>(
+      f(q), f(k), f(v), f(table), static_cast<const int*>(lens), f(dout),
+      f(row_max), f(row_sum), o(dk), o(dv), sc, L, H, maxlen, scale, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const int n = 2 * maxlen * D;
-  attn_train_bwd_table_kernel<<<(n + 255) / 256, 256, 0, st>>>(
-      partial, static_cast<float*>(dtable), BH, L, maxlen);
+  bwd::attn_train_bwd_table_kernel<<<2 * maxlen, bwd::kParts * D, 0, st>>>(
+      sc, o(dtable), o(dk), o(dv), BH, L, maxlen);
   return (int)cudaGetLastError();
 }

@@ -27,9 +27,10 @@
 // of depthwise_tap.cuh (shared with K4), then the two products with the
 // 2F-wide intermediate in shared memory over the dead window.  Each
 // product keeps a register tile of rows for one output column per
-// thread and streams its weight [in, out] in coalesced rows from L2, as
-// K1 does (gcfn_tile.cuh says why [out, in] reads were slower); the CLA
-// module stores its Linear weights so.  GELU is exact (erff): the TPU
+// thread and streams its weight [in, out] in coalesced rows from L2: read
+// as [out, in] rows, where a warp's 32 rows lie 512 or 1536 bytes apart,
+// the CUDA-core GCFN tile of K1 and K16 ran 1.6x slower on an H100; the
+// CLA module stores its Linear weights so.  GELU is exact (erff): the TPU
 // kernel approximated erf only because Mosaic had no erf lowering.
 #include <cuda_runtime.h>
 

@@ -1,8 +1,9 @@
-// The GCFN forward tile of K1 (eval, csrc/gcfn.cu) and K7 (train,
-// csrc/gcfn_train.cu): LayerNorm -> Linear F->6F -> optional u-row length
+// The GCFN forward tile of K1 (eval, csrc/gcfn.cu), K7 (train,
+// csrc/gcfn_train.cu) and K16 (the EGA tail + GCFN, csrc/ega_gcfn.cu):
+// [K16's EGA tail] -> LayerNorm -> Linear F->6F -> optional u-row length
 // mask -> depthwise k3 (zero pad in u-space) -> GLU -> [hash dropout,
 // site 0] -> Linear 3F->F -> [hash dropout, site 1] -> LayerScale
-// residual, with both products on the tensor cores at float32 accuracy
+// residual, with every product on the tensor cores at float32 accuracy
 // (3xTF32, mma_tf32x3.cuh) and the rest in float32 on the CUDA cores.
 //
 // Design: one block of 256 threads per (batch row, tile of TT = 62
@@ -27,9 +28,9 @@
 // to the float32 sums (mma_tf32x3.cuh says why).  The epilogue writes
 // out = x + ls * (o + bout) from the fragments, for the rows t < T.
 //
-// Why: the CUDA-core tile this replaces (gcfn_tile.cuh, now K16's alone)
-// ran every multiply-add on the CUDA cores and read all 590 KB of win and
-// wout from L2 for each tile of 16 rows, 1.2 GB per [4, 8000, 128] call.
+// Why: a CUDA-core tile (every multiply-add on the CUDA cores, all 590 KB
+// of win and wout read from L2 for each tile of 16 rows) moves 1.2 GB per
+// [4, 8000, 128] call.
 // Here the products run at the 3xTF32 rate (their bound falls from 0.145
 // to 0.057 ms at that shape) and the weights cross from L2 once per 62
 // rows, 0.3 GB.  mma.sync and not wgmma, for the reason mma_tf32x3.cuh
@@ -45,6 +46,16 @@
 // GLU loop has a fixed trip count and no branch (its division is
 // __fdividef, 2 ulp): an IEEE division's slow-path call kept its rows
 // from overlapping.
+//
+// With kPair (K16) a prologue first runs the EGA tail over the R rows,
+// y = x + sigmoid(LN_g(x) wg + bg) * x_down[t / r] (zero outside
+// [0, T)): LN_g(x) into xn, the gate product as two warp products of NC
+// columns each, the u product's call, with wg's halves staged through wi
+// by cp.async, and the gated residual in the fragments.  y [R][F + 8]
+// (34 KB) overlays wo and u, which the chunk loop fills only after it,
+// so the block keeps its 113 KB; its tile rows also go to out, where the
+// epilogue reads its residual.  LayerNorm of y then fills xn, and the
+// chunk loop runs as K1's.
 //
 // With kDrop the tile drops g at site 0 (columns 0..3F-1) and o at site
 // 1 (columns 0..F-1) by the hash of hash_dropout.cuh at the global row
@@ -91,7 +102,66 @@ struct Shape {
   // of an SM's 228 KB, 1 KB is reserved per block
   static_assert(R == 16 * UMT * WM && smem_bytes <= 113 * 1024,
                 "four m16 fragments of rows; two blocks per SM");
+  // K16's prologue: the EGA tail's output y [R][LY] over wo and u, which
+  // the chunk loop fills only after it; wg's two halves of NC columns
+  // pass through wi as win's chunks do
+  static constexpr int LY = F + 8, y = wo;
+  static_assert(y + R * LY <= g && 2 * NC == F,
+                "y overlays wo and u; wg is two chunks of wi");
 };
+
+// The EGA tail's inputs (K16).
+struct Pair {
+  const float* x_down;  // [B, L, F], the attention's output
+  int L;                // the bottleneck length; T = L * (T / L)
+  const float* gns;     // the gate's LayerNorm scale and bias [F]
+  const float* gnb;
+  const float* wg;      // the gate's Linear [F, F], [in, out]
+  const float* bg;      // [F]
+};
+
+// LayerNorm of frames t0-1 .. t0+TT into xn [R][LX], a warp taking every
+// (kThreads/32)th row, all its rows' loads in flight at once; rows outside
+// [0, T) are zero.  row(r, t) points at the F values of tile row r, frame
+// t (in [0, T)), in global or shared memory.
+template <int F, class Row>
+__device__ __forceinline__ void layer_norm_rows(
+    float* xn, Row row, const float* __restrict__ lns,
+    const float* __restrict__ lnb, int t0, int T, float eps) {
+  constexpr int R = Shape<F>::R, LX = Shape<F>::LX;
+  constexpr int kWarps = kThreads / 32, RW = R / kWarps, Q = F / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float v[RW][Q];
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    const int r = warp + i * kWarps, t = t0 - 1 + r;
+    const bool in = t >= 0 && t < T;
+    const float* src = row(r, in ? t : 0) + lane;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) v[i][q] = in ? src[32 * q] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    const int r = warp + i * kWarps, t = t0 - 1 + r;
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) s += v[i][q];
+    const float mean = warp_sum(s) * (1.f / F);
+    float s2 = 0.f;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      v[i][q] -= mean;
+      s2 += v[i][q] * v[i][q];
+    }
+    const float inv = rsqrtf(warp_sum(s2) * (1.f / F) + eps);
+    const bool in = t >= 0 && t < T;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int k = lane + 32 * q;
+      xn[r * LX + k] = in ? v[i][q] * inv * lns[k] + lnb[k] : 0.f;
+    }
+  }
+}
 
 // Hidden column of a chunk's local column j: the first CH are GLU values
 // c*CH + j, the next CH their gates 3F + c*CH + j - CH.
@@ -100,7 +170,7 @@ __device__ __forceinline__ int hidden_col(int c, int j) {
   return c * CH + j + (j < CH ? 0 : H3 - CH);
 }
 
-template <int F, bool kDrop>
+template <int F, bool kDrop, bool kPair = false>
 __device__ __forceinline__ void tile(
     float* smem, const float* __restrict__ x, const int* __restrict__ lens,
     const float* __restrict__ lns, const float* __restrict__ lnb,
@@ -108,7 +178,8 @@ __device__ __forceinline__ void tile(
     const float* __restrict__ wdw, const float* __restrict__ bdw,
     const float* __restrict__ wout, const float* __restrict__ bout,
     const float* __restrict__ ls, float* __restrict__ out, int T, float eps,
-    GcfnDrop drop) {
+    GcfnDrop drop, Pair pair = Pair{}) {
+  static_assert(!(kDrop && kPair), "K16 runs at dropout 0");
   using S = Shape<F>;
   using tf32x3::frag_col;
   using tf32x3::frag_row;
@@ -153,44 +224,84 @@ __device__ __forceinline__ void tile(
     }
     tf32x3::cp_async_commit();
   };
-  stage_in(0);
+  if (!kPair) stage_in(0);  // K16's prologue stages wg first
 
   for (int e = tid; e < (R - TT) * LG; e += kThreads) g[TT * LG + e] = 0.f;
-  // LayerNorm of frames t0-1 .. t0+TT, a warp taking every (kThreads/32)th
-  // row, all its rows' loads in flight at once; rows outside [0, T) are
-  // zero (their u rows are masked).
-  {
-    constexpr int kWarps = kThreads / 32, RW = R / kWarps, Q = F / 32;
-    float v[RW][Q];
+  auto x_row = [&](int, int t) { return x + ((size_t)b * T + t) * F; };
+  if (kPair) {
+    // K16's prologue, the EGA tail over the R rows:
+    //   y = x + sigmoid(LN_g(x) wg + bg) * x_down[t / r],  r = T / L,
+    // zero outside [0, T).  y lands in shared memory over wo and u, which
+    // the chunk loop fills only after it, and its tile rows also in out,
+    // where the epilogue reads its residual (only this block writes those
+    // rows, and the barriers between make them visible to it).  wg's two
+    // halves of NC columns pass through wi as win's chunks do, and the
+    // gate product is the u product's call.
+    float* y = smem + S::y;
+    auto stage_gate = [&](int h) {
 #pragma unroll
-    for (int i = 0; i < RW; ++i) {
-      const int t = t0 - 1 + warp + i * kWarps;
-      const bool in = t >= 0 && t < T;
-      const float* src = x + ((size_t)b * T + (in ? t : 0)) * F + lane;
-#pragma unroll
-      for (int q = 0; q < Q; ++q) v[i][q] = in ? src[32 * q] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < RW; ++i) {
-      const int r = warp + i * kWarps, t = t0 - 1 + r;
-      float s = 0.f;
-#pragma unroll
-      for (int q = 0; q < Q; ++q) s += v[i][q];
-      const float mean = warp_sum(s) * (1.f / F);
-      float s2 = 0.f;
-#pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        v[i][q] -= mean;
-        s2 += v[i][q] * v[i][q];
+      for (int q = 0; q < F * NC / 4 / kThreads; ++q) {
+        const int e = tid + q * kThreads;
+        const int k = e / (NC / 4), j = 4 * (e - k * (NC / 4));
+        tf32x3::cp_async16(wi + k * LW + j,
+                           pair.wg + (size_t)k * F + h * NC + j, true);
       }
-      const float inv = rsqrtf(warp_sum(s2) * (1.f / F) + eps);
-      const bool in = t >= 0 && t < T;
+      tf32x3::cp_async_commit();
+    };
+    stage_gate(0);
+    layer_norm_rows<F>(xn, x_row, pair.gns, pair.gnb, t0, T, eps);
+    const int ratio = T / pair.L;
+    const float* xd = pair.x_down + (size_t)b * pair.L * F;
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {
+      tf32x3::cp_async_wait<0>();
+      __syncthreads();  // wg's half h (and LN_g(x)) are in place
+      float a[UMT][UNT][4] = {};
+      tf32x3::warp_product<UMT, UNT, F / 8>(
+          a, xn + 16 * UMT * wm * LX, LX, [&](int ks, int nt) {
+            const float* w =
+                wi + (8 * ks + 2 * t4) * LW + 8 * (UNT * wn + nt) + g8;
+            return make_float2(w[0], w[LW]);
+          });
+      __syncthreads();  // every warp has read wi
+      if (h == 0)
+        stage_gate(1);
+      else
+        stage_in(0);  // lands during the epilogue and LN(y)
 #pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        const int k = lane + 32 * q;
-        xn[r * LX + k] = in ? v[i][q] * inv * lns[k] + lnb[k] : 0.f;
-      }
+      for (int mt = 0; mt < UMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < UNT; ++nt)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int r = 16 * (UMT * wm + mt) + g8 + 8 * hr, t = t0 - 1 + r;
+            const int col = h * NC + 8 * (UNT * wn + nt) + 2 * t4;
+            float yv[2] = {0.f, 0.f};
+            if (t >= 0 && t < T) {
+              const size_t off = ((size_t)b * T + t) * F + col;
+              const float2 xv = *reinterpret_cast<const float2*>(x + off);
+              const float2 dv = *reinterpret_cast<const float2*>(
+                  xd + (size_t)(t / ratio) * F + col);
+#pragma unroll
+              for (int q = 0; q < 2; ++q) {
+                const float z = a[mt][nt][2 * hr + q] + pair.bg[col + q];
+                const float gate = __fdividef(1.f, 1.f + expf(-z));
+                yv[q] = (q ? xv.y : xv.x) + gate * (q ? dv.y : dv.x);
+              }
+              if (r >= 1 && r <= TT)  // a tile row: the residual
+                *reinterpret_cast<float2*>(out + off) =
+                    make_float2(yv[0], yv[1]);
+            }
+            *reinterpret_cast<float2*>(y + r * S::LY + col) =
+                make_float2(yv[0], yv[1]);
+          }
     }
+    __syncthreads();  // y is whole and LN_g(x) read
+    layer_norm_rows<F>(
+        xn, [&](int r, int) { return (const float*)(y + r * S::LY); }, lns,
+        lnb, t0, T, eps);
+  } else {
+    layer_norm_rows<F>(xn, x_row, lns, lnb, t0, T, eps);
   }
 
   float o[OMT][ONT][4] = {};
@@ -289,7 +400,9 @@ __device__ __forceinline__ void tile(
 #pragma unroll
       for (int nt = 0; nt < ONT; ++nt) {
         const int col = 8 * (ONT * wn + nt) + 2 * t4;
-        const float2 xv = *reinterpret_cast<const float2*>(x + off + col);
+        // the residual: x, or K16's y, which its prologue wrote to out
+        const float2 xv =
+            *reinterpret_cast<const float2*>((kPair ? out : x) + off + col);
         float v[2];
 #pragma unroll
         for (int q = 0; q < 2; ++q) {

@@ -87,6 +87,8 @@ SIGNATURES = {
     "sep_cla_f32": [_P] * 16 + [_I] * 3 + [_F, _P],
     # x, x_down, 4 gate params, 9 GCFN params, out, B, T, L, F, eps, stream
     "sep_ega_gcfn_f32": [_P] * 16 + [_I] * 4 + [_F, _P],
+    # int* blocks -> K16's blocks per SM
+    "sep_ega_gcfn_blocks_per_sm": [_P],
 }
 # launchers that return something else than a cudaError_t
 RESTYPES = {"sep_gcfn_train_bwd_scratch_floats": _L,

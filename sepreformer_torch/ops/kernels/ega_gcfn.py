@@ -4,15 +4,16 @@ second half).
 Replaces ``sepreformer_tpu/ops/pallas/ega_gcfn.py::fused_ega_tail_gcfn``:
 y = x + sigmoid(LN_g(x)·Wg + bg) ⊙ nearest_up(x_down), then the GCFN on
 y with its residual on y.  The CUDA kernel is
-``sepreformer_torch/csrc/ega_gcfn.cu`` (K1's tile with the tail as its
-prologue); ``ega_tail_gcfn_plain`` is the same math in PyTorch (the JAX
-package's ``ega_tail_gcfn_reference``).  The gradient of
+``sepreformer_torch/csrc/ega_gcfn.cu`` (K1's tensor-core tile with the
+tail as its prologue); ``ega_tail_gcfn_plain`` is the same math in
+PyTorch (the JAX package's ``ega_tail_gcfn_reference``).  The gradient of
 ``fused_ega_tail_gcfn`` recomputes the plain version, as the JAX
 package's ``custom_vjp`` does.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import torch
@@ -65,6 +66,16 @@ def pair_kernel(x: torch.Tensor, x_down: torch.Tensor,
     _build.check_launch("sep_ega_gcfn_f32", err)
     fused_ega_tail_gcfn.launches += 1
     return out
+
+
+def blocks_per_sm() -> int:
+    """How many K16 blocks one SM of the current card holds at once, with
+    the launch's shared-memory attributes set."""
+    blocks = ctypes.c_int(0)
+    _build.check_launch("sep_ega_gcfn_blocks_per_sm",
+                        _build.library().sep_ega_gcfn_blocks_per_sm(
+                            ctypes.addressof(blocks)))
+    return blocks.value
 
 
 def fused_ega_tail_gcfn(x: torch.Tensor, x_down: torch.Tensor,

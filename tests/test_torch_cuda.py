@@ -558,12 +558,15 @@ def attention_train_case(b, h, length, maxlen, device, seed):
 # L 77: one partial tile (hash row stride 128); L 300 with maxlen 64: tiles
 # straddling the clamp edge, both end rows of the table gathering runs of
 # offsets, and a row stride of 512 where K9's would be 384; L 500, maxlen
-# 2000: the decoder batch of a B=2 x 4 s train batch
+# 2000: the decoder batch of a B=2 x 4 s train batch; L 64, maxlen 2000:
+# one whole tile, no offset clamped; L 129 with lengths 129 and 65: a
+# third query tile of one row, and a last key tile of one key
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,length,maxlen,lens,p", [
     (2, 77, 64, (77, 30), 0.0), (2, 77, 64, None, 0.1),
     (2, 300, 64, None, 0.1), (2, 300, 64, (300, 131), 0.0),
-    (4, 500, 2000, None, 0.05)])
+    (4, 500, 2000, None, 0.05), (1, 64, 2000, None, 0.05),
+    (2, 129, 64, (129, 65), 0.1)])
 def test_attention_train_kernels_match_plain(cuda_device, b, length, maxlen,
                                              lens, p):
     h, seed = 8, 4321
@@ -656,8 +659,13 @@ def test_cla_kernel_matches_plain(cuda_device, b, t):
 
 
 @pytest.mark.cuda
-# r = 16 over many tiles; r = 1 on one partial tile
-@pytest.mark.parametrize("b,t,length", [(4, 8000, 500), (2, 77, 77)])
+# r = 16 over many tiles; r = 1 on one partial tile; K16's tile is 62
+# rows: T 63 (r = 1) ends one row into a second tile, T 124 (r = 2) is
+# two whole tiles, T 125 (r = 1) one row past them, and B*T = 10 (r = 2)
+# is under one tile
+@pytest.mark.parametrize("b,t,length", [(4, 8000, 500), (2, 77, 77),
+                                        (2, 63, 63), (2, 124, 62),
+                                        (3, 125, 125), (1, 10, 5)])
 def test_pair_kernel_matches_plain(cuda_device, b, t, length):
     gen = torch.Generator().manual_seed(32)
     x = torch.randn(b, t, 128, generator=gen).to(cuda_device)
@@ -667,9 +675,11 @@ def test_pair_kernel_matches_plain(cuda_device, b, t, length):
     before = fused_ega_tail_gcfn.launches
     with torch.no_grad():
         got = fused_ega_tail_gcfn(x, xd, gate, gcfn, 1e-5)
+        again = fused_ega_tail_gcfn(x, xd, gate, gcfn, 1e-5)
     torch.cuda.synchronize()
-    assert fused_ega_tail_gcfn.launches == before + 1
+    assert fused_ega_tail_gcfn.launches == before + 2
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, again)    # no atomics: the same bits every run
     with pytest.raises(ValueError, match="not a multiple"):
         fused_ega_tail_gcfn(x[:, :-1].contiguous(), xd, gate, gcfn, 1e-5)
 

@@ -16,7 +16,11 @@ tests and the smoke's limits (rtol 1e-4, 3e-5 of max|out|) with room;
 one TF32 product must err by more than 1e-4 of it, which is why plain
 TF32 cannot pass them.  The same holds for K1's whole tile
 (``csrc/gcfn_tile_mma.cuh``), emulated row tile by row tile and chunk by
-chunk at its height (62 rows) and chunk width (32 GLU pairs).
+chunk at its height (62 rows) and chunk width (32 GLU pairs), for K16's
+tile (the EGA tail's gate product as a prologue, then K1's tile on its
+output), and for K14's rel-pos adjoints taken as products on a skewed G
+(``csrc/attention_train.cu``), which are also held against the plain
+version's dq and table gradient.
 """
 
 import numpy as np
@@ -174,3 +178,144 @@ def test_gcfn_tile_holds_float32_accuracy(t, lens):
     err1 = np.abs(one - ref).max() / scale
     assert err3 < 1e-6, err3
     assert err1 > 1e-4, err1
+
+
+def ega_tail_f64(x, xd, gate, eps):
+    """K16's EGA tail in float64: x + sigmoid(LN_g(x) wg + bg) times the
+    nearest upsample of x_down."""
+    gns, gnb, wg, bg = (p.astype(np.float64) for p in gate)
+    x = x.astype(np.float64)
+    c = x - x.mean(-1, keepdims=True)
+    gn = c / np.sqrt((c * c).mean(-1, keepdims=True) + eps) * gns + gnb
+    up = np.repeat(xd.astype(np.float64), x.shape[1] // xd.shape[1], axis=1)
+    return x + up / (1.0 + np.exp(-(gn @ wg + bg)))
+
+
+def ega_tail_tile(x, xd, gate, eps, terms):
+    """K16's prologue (``csrc/gcfn_tile_mma.cuh``, kPair) in numpy: LN_g
+    in float32, the gate product as the tensor cores take it (``terms``),
+    y = x + sigmoid(. + bg) * x_down[t // r] in float32.  Each row is the
+    same whichever tile computes it, halo rows included."""
+    gns, gnb, wg, bg = gate
+    c = x - x.mean(-1, keepdims=True, dtype=np.float32)
+    xn = c / np.sqrt((c * c).mean(-1, keepdims=True) + np.float32(eps))
+    xn = xn * gns + gnb
+    z = np.stack([mma_product(row, wg, terms) for row in xn]) + bg
+    r = x.shape[1] // xd.shape[1]
+    up = xd[:, np.arange(x.shape[1]) // r]
+    return x + up / (np.float32(1) + np.exp(-z))
+
+
+# (T, L) at the tile's 62 rows: T one row into a second tile (r = 1), two
+# whole tiles (r = 2), B*T under one tile (r = 2)
+@pytest.mark.parametrize("t,length", [(63, 63), (124, 62), (10, 5)])
+def test_pair_tile_holds_float32_accuracy(t, length):
+    rng = np.random.default_rng(t + length)
+    f, b = 128, 2
+    h = 6 * f
+    x = rng.normal(size=(b, t, f)).astype(np.float32)
+    xd = rng.normal(size=(b, length, f)).astype(np.float32)
+    shapes_scales = [((f,), 1.0), ((f,), 1.0), ((f, f), 0.1), ((f,), 0.1),
+                     ((f,), 1.0), ((f,), 1.0), ((f, h), 0.1), ((h,), 0.1),
+                     ((h, 3), 0.3), ((h,), 0.1), ((h // 2, f), 0.1),
+                     ((f,), 0.1), ((f,), 1.0)]
+    params = [(rng.normal(size=s) * sc).astype(np.float32)
+              for s, sc in shapes_scales]
+    gate, gcfn = params[:4], params[4:]
+    lens = (t,) * b
+    ref = gcfn_f64(ega_tail_f64(x, xd, gate, 1e-5), gcfn, 1e-5, lens)
+    scale = np.abs(ref).max()
+    errs = []
+    for terms in (("a_small", "b_small", "big"), ("big",)):
+        y = ega_tail_tile(x, xd, gate, 1e-5, terms)
+        out = gcfn_tile(y, gcfn, 1e-5, lens, 62, 32, terms)
+        errs.append(np.abs(out - ref).max() / scale)
+    assert errs[0] < 1e-6, errs
+    assert errs[1] > 1e-4, errs
+
+
+def attention_g_f64(q, k, v, dout, table, maxlen):
+    """G = P (dP - rowsum(dP P)) / sqrt(d) of the rel-pos attention (no
+    dropout, every key valid), and pe[i][j] = table[clip(i - j) +
+    maxlen], in float64."""
+    length, d = q.shape
+    pos = np.arange(length)
+    pe = table.astype(np.float64)[
+        np.clip(pos[:, None] - pos[None], -maxlen, maxlen - 1) + maxlen]
+    q64, k64 = q.astype(np.float64), k.astype(np.float64)
+    s = (q64 @ k64.T + np.einsum("id,ijd->ij", q64, pe)) / np.sqrt(d)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    dp = dout.astype(np.float64) @ v.astype(np.float64).T
+    return p * (dp - (dp * p).sum(-1, keepdims=True)) / np.sqrt(d), pe
+
+
+def skewed_adjoints(g, q, table, maxlen, terms, tile=64):
+    """K14's rel-pos adjoints (``csrc/attention_train.cu``, the dq launch)
+    in numpy, per (query tile, key tile): G_skew[ii][ii - jj + 63] =
+    G[ii][jj] (zero elsewhere), the tile's band of 128 clamped table rows
+    from offset i0 - j0 - 63; dq += G_skew · band and the frame of band
+    sums G_skewᵀ · Q, each as the tensor cores take it (``terms``), each
+    tile's product added in float32; the frames summed into the table
+    rows of their offsets."""
+    length, d = q.shape
+    dq = np.zeros((length, d), dtype=np.float32)
+    dtable = np.zeros((2 * maxlen, d), dtype=np.float64)
+    rr = np.arange(tile)
+    for i0 in range(0, length, tile):
+        qt = q[i0:i0 + tile]
+        for j0 in range(0, length, tile):
+            gs = np.zeros((tile, 2 * tile), dtype=np.float32)
+            gs[rr[:, None], rr[:, None] - rr[None] + tile - 1] = (
+                g[i0:i0 + tile, j0:j0 + tile])
+            rel = i0 - j0 - (tile - 1) + np.arange(2 * tile)
+            rows = np.clip(rel, -maxlen, maxlen - 1) + maxlen
+            dq[i0:i0 + tile] += mma_product(gs, table[rows], terms)
+            np.add.at(dtable, rows, mma_product(gs.T.copy(), qt, terms))
+    return dq, dtable
+
+
+# maxlen 2000: every band inside the clamp; maxlen 64 at L 128: the bands
+# of the (query tile 1, key tile 0) and (0, 1) pairs straddle maxlen - 1
+# and -maxlen, so the end rows of the table gather runs of offsets
+@pytest.mark.parametrize("maxlen", [2000, 64])
+def test_skewed_adjoints_hold_float32_accuracy(maxlen):
+    import torch
+
+    from sepreformer_torch.ops.kernels.attention_train import (
+        attention_train_bwd_plain,
+    )
+
+    rng = np.random.default_rng(maxlen)
+    length, d = 128, 16
+    q, k, v, dout = (rng.normal(size=(length, d)).astype(np.float32)
+                     for _ in range(4))
+    table = rng.normal(size=(2 * maxlen, d)).astype(np.float32)
+    g, pe = attention_g_f64(q, k, v, dout, table, maxlen)
+    # the direct sums: dq_i += sum_j G_ij pe_{i-j}, dtable[r] += G_ij q_i
+    # over the pairs whose clamped offset is row r
+    dq_rel = np.einsum("ij,ijd->id", g, pe)
+    pos = np.arange(length)
+    rows = np.clip(pos[:, None] - pos[None], -maxlen, maxlen - 1) + maxlen
+    dtable = np.zeros((2 * maxlen, d))
+    np.add.at(dtable, rows.reshape(-1),
+              (g[:, :, None] * q.astype(np.float64)[:, None]).reshape(-1, d))
+    errs = []
+    g32 = g.astype(np.float32)
+    for terms in (("a_small", "b_small", "big"), ("big",)):
+        got_dq, got_dt = skewed_adjoints(g32, q, table, maxlen, terms)
+        errs.append(max(np.abs(got_dq - dq_rel).max() / np.abs(dq_rel).max(),
+                        np.abs(got_dt - dtable).max() / np.abs(dtable).max()))
+    assert errs[0] < 1e-6, errs
+    assert errs[1] > 1e-4, errs
+    # and the whole dq and dtable against the plain version's
+    got_dq, got_dt = skewed_adjoints(g32, q, table, maxlen,
+                                     ("a_small", "b_small", "big"))
+    got_dq = got_dq + g @ k.astype(np.float64)
+    ref = attention_train_bwd_plain(
+        *(torch.from_numpy(a)[None, None] for a in (q, k, v)),
+        torch.from_numpy(table), maxlen, 0, 0.0, None,
+        torch.from_numpy(dout)[None, None])
+    for got, want in ((got_dq, ref[0][0, 0].numpy()),
+                      (got_dt, ref[3].numpy())):
+        assert np.abs(got - want).max() < 1e-5 * np.abs(want).max()
