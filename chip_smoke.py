@@ -20,15 +20,16 @@ Phases, each of which fails the run:
                two-tensor forms K3b (beside K3's shape) and K9b/K10b
                (beside K9's and K10's); times of the kernel, the plain
                version, a library call where one exists, and the least
-               time the card could take (for K1, K7, K8, K12, K14 and
-               K16, which take their products on the tensor cores as
+               time the card could take (for K1, K7, K8, K12, K14, K15
+               and K16, which take their products on the tensor cores as
                3xTF32, with those products and their exponentials at the
                tensor cores' and the SFUs' rates, and the CUDA-core bound
                of earlier readings on a line before; K1's products
-               counted on the rows its lengths need), K8's and K14's
-               times by launch, K16's blocks per SM and five timings with
-               their median, K1's, K7's, K8's, K12's, K14's and K16's
-               bits on a repeat call, K7's and its plain version's
+               counted on the rows its lengths need), K8's, K14's and
+               K15's times by launch, K10's, K15's and K16's blocks per
+               SM and five timings with their median, K1's, K7's, K8's,
+               K10's, K12's, K14's, K15's and K16's bits on a repeat
+               call, K7's and its plain version's
                distance from a float64 run; and the port's
                scores producer followed by K3 against a two-tensor
                producer (no add pass) followed by K3b, at K3's shape.
@@ -298,6 +299,10 @@ def kernel_phase(torch, K, device_ms):
     the device time of all the kernels those calls run (durations from a
     profiler trace, not CUDA events: the wrappers' host work outlasts the
     small kernels)."""
+    from sepreformer_torch.ops.kernels.softmax_pv_train import (
+        bwd_blocks_per_sm,
+    )
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -583,6 +588,12 @@ def kernel_phase(torch, K, device_ms):
     torch.cuda.synchronize()
     torch.testing.assert_close(ds, ds_ref, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(dv, dv_ref, rtol=1e-4, atol=1e-4)
+    bit_equal("softmax_pv_train_bwd", lambda: torch.cat([
+        a.flatten() for a in K.softmax_pv_train_bwd(
+            scores, v, out, dout, row_max, row_sum, seed, key_len, length,
+            p)]))
+    print(f"[kernels] softmax_pv_train_bwd: blocks per SM (K10, K10b) "
+          f"{bwd_blocks_per_sm()}")
     record(K.softmax_pv_train_bwd,
            lambda: K.softmax_pv_train_bwd(scores, v, out, dout, row_max,
                                           row_sum, seed, key_len, length, p),
@@ -599,7 +610,7 @@ def kernel_phase(torch, K, device_ms):
            replaces="sepreformer_tpu/ops/pallas/softmax_pv_train.py:249",
            shape=(f"scores [{b}, {heads}, {lp}, {lp}], v, out, dout "
                   f"[{b}, {lp}, {f}], length {length}, p 0.05"),
-           tolerance="rtol 1e-4; atol 1e-5 dScores, 1e-4 dV")
+           tolerance="rtol 1e-4; atol 1e-5 dScores, 1e-4 dV", timings=5)
 
     # K11: the time-loss table of a B=2 x 4 s batch, two speakers
     spk, b, t = 2, 2, 32000
@@ -754,6 +765,9 @@ def fused_kernel_rows(torch, K, device_ms, randn, record):
     computes K15's or K16's function; K4's library yardstick is the
     depthwise ``F.conv1d`` that ``DepthwiseConv1d`` runs (its plain
     version too)."""
+    from sepreformer_torch.ops.kernels.cla import (
+        blocks_per_sm as cla_blocks_per_sm,
+    )
     from sepreformer_torch.ops.kernels.depthwise import depthwise_forward
     from sepreformer_torch.ops.kernels.ega_gcfn import blocks_per_sm
 
@@ -770,17 +784,29 @@ def fused_kernel_rows(torch, K, device_ms, randn, record):
     ref = K.cla_plain(x, cla, 1e-5)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    same = torch.equal(got, K.fused_cla(x, cla, 1e-5))
+    print(f"[kernels] fused_cla: bit-equal on a repeat call: {same}")
+    assert same, "K15 is not bit-equal on repeat"
+    print(f"[kernels] fused_cla: blocks per SM (GLU launch, tail) "
+          f"{cla_blocks_per_sm()}")
+    # per row: three products on the tensor cores; on the CUDA cores the
+    # conv, and LN, GLU, biases, the folded BN, GELU and the residual
+    products = 3 * 2 * f * h
+    rest = 2 * k * f + 37 * f
     record(K.fused_cla, lambda: K.fused_cla(x, cla, 1e-5),
            lambda: K.cla_plain(x, cla, 1e-5), None,
            (got - ref).abs().max().item(),
            4 * (2 * x.numel() + sum(q.numel() for q in cla)),
-           # three products, the conv, and LN, GLU, biases, the folded BN,
-           # GELU and the residual
-           b * t * (3 * 2 * f * h + 2 * k * f + 37 * f),
+           b * t * rest,
            source="sepreformer_torch/csrc/cla.cu",
            replaces="sepreformer_tpu/ops/pallas/cla.py:209",
            shape=f"x [{b}, {t}, {f}], k {k}",
-           tolerance="rtol 1e-4, atol 1e-4 (float32)")
+           tolerance="rtol 1e-4, atol 1e-4 (float32)",
+           # a sigmoid per GLU pair
+           tc_flops=b * t * products, exps=b * t * f,
+           cuda_core_flops=b * t * (products + rest), timings=5)
+    launch_split(torch, lambda: K.fused_cla(x, cla, 1e-5), "cla_",
+                 ("GLU", "conv and tail"))
 
     h6 = 6 * f
     xd = randn(b, length, f)

@@ -1,46 +1,64 @@
 // Fused CLA local block (eval), K15: LayerNorm -> Linear F->2F -> GLU ->
 // depthwise k65 "same" (zero padding of the GLU output v) -> Linear F->2F
 // -> folded BatchNorm y*s + t -> exact GELU -> Linear 2F->F -> x + ls*out,
-// in float32.
+// in float32, with the three products on the tensor cores at float32
+// accuracy (3xTF32, mma_tf32x3.cuh).
 //
 // Replaces: sepreformer_tpu/ops/pallas/cla.py::fused_cla (_fused_cla_impl,
 //           body _cla_kernel).
 //
 // What bounds it on the H100: three products of 2*F*2F flops per row
-// (65.5 kflop each at F = 128), the conv's 2*65*F and the elementwise
-// work, ~216 kflop per row against 2*F*4 bytes of row traffic: bound by
-// the float32 operations on the CUDA cores (67 TFLOP/s), 0.103 ms at
-// [4, 8000, 128], not by the 3.35 TB/s of memory (0.010 ms).
+// (65.5 kflop each at F = 128), at the 3xTF32 rate (495 / 3 TFLOP/s)
+// 0.038 ms at [4, 8000, 128]; the conv's 2*65*F and the elementwise work
+// (~0.68 GFLOP, ~0.010 ms on the CUDA cores) and the bytes (x and out,
+// ~0.010 ms at 3.35 TB/s; ~0.020 ms with v's round trip) lie under it.
+// On the CUDA cores alone the products would take 0.104 ms.
 //
-// Design: two launches.  The k65 conv reads 32 v rows past each edge of a
-// tile, and v = GLU(LN(x) W_in + b_in) must be zero outside [0, T) (the
-// conv pads its input, v, not x: GLU of a zero x row is not zero).  One
-// launch that recomputed LN and the first product on the halo would do
-// 2x that product at a tile of 64 rows (+30 % of the work) and need
-// ~224 KB of shared memory at 128 rows; here the first launch
-// (cla_glu_kernel) writes v [B, T, F] to device memory, 16.4 MB at
-// [4, 8000, 128] (~10 us at the memory rate, against the ~0.1 ms bound),
-// and the second (cla_tail_kernel) reads each tile's window of v rows
-// from L2 with zeros outside [0, T): the halo is right by construction.
-// The second launch stages the window, the conv weight and the conv
-// output in 97 KB of shared memory (two blocks per SM), runs the tap loop
-// of depthwise_tap.cuh (shared with K4), then the two products with the
-// 2F-wide intermediate in shared memory over the dead window.  Each
-// product keeps a register tile of rows for one output column per
-// thread and streams its weight [in, out] in coalesced rows from L2: read
-// as [out, in] rows, where a warp's 32 rows lie 512 or 1536 bytes apart,
-// the CUDA-core GCFN tile of K1 and K16 ran 1.6x slower on an H100; the
-// CLA module stores its Linear weights so.  GELU is exact (erff): the TPU
-// kernel approximated erf only because Mosaic had no erf lowering.
+// Design: two launches of 256 threads per tile of TT = 64 rows, two
+// blocks per SM.  The k65 conv reads 32 v rows past each edge of a tile,
+// and v = GLU(LN(x) W_in + b_in) must be zero outside [0, T) (the conv
+// pads its input, v, not x: GLU of a zero x row is not zero).  One launch
+// that recomputed LN and the first product on the halo would do that
+// product twice at a tile of 64 rows; here the first launch writes v
+// [B, T, F] to device memory, 16.4 MB at [4, 8000, 128], and the second
+// stages each tile's window of v rows with zeros outside [0, T): the halo
+// is right by construction.
+//   - cla_glu_kernel: LayerNorm of the tile into xn [TT][F + 8], then
+//     W_in in four chunks of 32 GLU pairs (value column c and its gate
+//     c + F side by side), double-buffered by cp.async.  Each warp's two
+//     n-tiles are the value and the gate columns of the same 8 pairs, so
+//     the GLU runs on the fragments and v leaves from registers.
+//   - cla_tail_kernel: the window of TT + 64 v rows and the conv weight
+//     staged, the conv as a sliding window of 32 rows in registers per
+//     (channel, half tile), one shared load per tap and row instead of
+//     one per tap and output row; its output y [TT][F + 8] overlays the
+//     dead window.  Then the hidden width in eight chunks of 32 columns:
+//     z_c = GELU((y W_mid[:, c] + b_mid) s + t) on the fragments into
+//     shared memory, o += z_c W_out[c rows, :] in float32 fragments that
+//     stay in registers across the chunks.  W_mid's and W_out's chunks
+//     are staged by cp.async over the dead conv weight, one buffer each
+//     as in the GCFN tile (gcfn_tile_mma.cuh): W_out_c lands during the
+//     z product, W_mid_{c+1} during the o product.  The epilogue writes
+//     out = x + ls * (o + b_out) from the fragments, for the rows t < T.
+// Each weight crosses from L2 once per 64 rows (the CUDA-core design read
+// all three once per 32).  Each chunk's products start from zeroed
+// fragments and are added to float32 sums (mma_tf32x3.cuh says why).
+// GELU is exact (erff): the TPU kernel approximated erf only because
+// Mosaic had no erf lowering.  No atomics: the same bits on every call.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-#include "depthwise_tap.cuh"
+#include "mma_tf32x3.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kK = 65;              // the CLA's depthwise kernel
 constexpr int kHalo = (kK - 1) / 2;
+constexpr int kTT = 64;             // rows per tile, both launches
+constexpr int kCH = 32;             // GLU pairs, or hidden columns, a chunk
+constexpr int kMaxSmem = 113 * 1024;  // of an SM's 228 KB: two blocks
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -48,117 +66,168 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float sigmoid(float v) {
-  return 1.f / (1.f + expf(-v));
-}
+// Row and stride layout of launch 1.  Row strides are 8 mod 32 where a
+// fragment takes 8 bytes of a row (the A operand xn), 4 mod 32 where it
+// takes rows 2t and 2t+1 of a column (the staged B operand): no bank
+// conflicts.
+template <int F>
+struct GluShape {
+  static constexpr int NC = 2 * kCH;          // a chunk's W_in columns
+  static constexpr int chunks = F / kCH;
+  // warps 2 x 4: rows 32 wm .., the 8 pairs 8 wn .. of the chunk
+  static constexpr int WN = 4, WM = kWarps / WN, MT = kTT / 16 / WM;
+  static constexpr int LX = F + 8, LW = NC + 4;
+  static constexpr int xn = 0, wi = xn + kTT * LX, floats = wi + 2 * F * LW;
+  static constexpr size_t smem_bytes = sizeof(float) * (size_t)floats;
+  static_assert(kCH == 8 * WN && kTT == 16 * MT * WM, "warp tiling");
+  static_assert(smem_bytes <= kMaxSmem, "two blocks per SM");
+};
 
-// acc[r] += sum_k a[r * lda + k] * w[k * ldw + col] over k < KD, a in
-// shared memory (rows broadcast to the warp, read as float4), w in global
-// memory (a warp reads 32 neighbouring columns of one row).
-template <int R, int KD>
-__device__ __forceinline__ void rows_times_column(const float* a, int lda,
-                                                  const float* __restrict__ w,
-                                                  int ldw, int col,
-                                                  float (&acc)[R]) {
-  for (int k = 0; k < KD; k += 4) {
-    float wk[4];
+// LayerNorm of rows t0 .. t0+kTT-1 of xb into xn [kTT][LX], zero past T;
+// each warp takes every kWarps-th row, all its rows' loads in flight.
+template <int F, int LX>
+__device__ __forceinline__ void layer_norm_tile(
+    float* xn, const float* __restrict__ xb, const float* __restrict__ lns,
+    const float* __restrict__ lnb, int t0, int T, float eps) {
+  constexpr int RW = kTT / kWarps, Q = F / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float v[RW][Q];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wk[kk] = w[(size_t)(k + kk) * ldw + col];
+  for (int i = 0; i < RW; ++i) {
+    const int t = t0 + warp + i * kWarps;
+    const float* src = xb + (size_t)(t < T ? t : 0) * F + lane;
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float4 v = *reinterpret_cast<const float4*>(a + r * lda + k);
-      acc[r] += v.x * wk[0] + v.y * wk[1] + v.z * wk[2] + v.w * wk[3];
+    for (int q = 0; q < Q; ++q) v[i][q] = t < T ? src[32 * q] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    const int r = warp + i * kWarps;
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) s += v[i][q];
+    const float mean = warp_sum(s) * (1.f / F);
+    float s2 = 0.f;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      v[i][q] -= mean;
+      s2 += v[i][q] * v[i][q];
+    }
+    const float inv = rsqrtf(warp_sum(s2) * (1.f / F) + eps);
+    const bool in = t0 + r < T;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int k = lane + 32 * q;
+      xn[r * LX + k] = in ? v[i][q] * inv * lns[k] + lnb[k] : 0.f;
     }
   }
 }
 
-// Launch 1: v[b, t] = GLU(LN(x[b, t]) W_in + b_in) for TT rows a block.
-template <int F, int TT>
-__global__ void __launch_bounds__(kThreads)
+// Launch 1: v[b, t] = GLU(LN(x[b, t]) W_in + b_in) for kTT rows a block.
+template <int F>
+__global__ void __launch_bounds__(kThreads, 2)
 cla_glu_kernel(const float* __restrict__ x, const float* __restrict__ lns,
                const float* __restrict__ lnb, const float* __restrict__ w_in,
                const float* __restrict__ b_in, float* __restrict__ v, int T,
                float eps) {
-  __shared__ __align__(16) float xn[TT * F];
-  const int b = blockIdx.y, t0 = blockIdx.x * TT;
+  using S = GluShape<F>;
+  constexpr int NC = S::NC, LX = S::LX, LW = S::LW, MT = S::MT;
+  extern __shared__ __align__(16) float smem[];
+  float* xn = smem + S::xn;  // [kTT][LX] LN rows t0 ..
+  const int b = blockIdx.y, t0 = blockIdx.x * kTT;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* xb = x + (size_t)b * T * F;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int wm = warp / S::WN, wn = warp - wm * S::WN;
 
-  for (int r = warp; r < TT; r += kThreads / 32) {
-    const int t = t0 + r;
-    float* dst = xn + r * F;
-    if (t >= T) {
-      for (int k = lane; k < F; k += 32) dst[k] = 0.f;
-      continue;
-    }
-    float e[F / 32];
-    float s = 0.f;
+  // chunk c's columns of W_in [F, 2F] into buffer c % 2 [F][LW]: local
+  // column j < kCH is value column c*kCH + j, j >= kCH its gate, F later
+  auto stage = [&](int c) {
+    float* dst = smem + S::wi + (c & 1) * F * LW;
 #pragma unroll
-    for (int q = 0; q < F / 32; ++q) {
-      e[q] = xb[(size_t)t * F + lane + 32 * q];
-      s += e[q];
+    for (int q = 0; q < F * NC / 4 / kThreads; ++q) {
+      const int e = tid + q * kThreads;
+      const int k = e / (NC / 4), j = 4 * (e - k * (NC / 4));
+      const int col = c * kCH + j + (j < kCH ? 0 : F - kCH);
+      tf32x3::cp_async16(dst + k * LW + j, w_in + (size_t)k * 2 * F + col,
+                         true);
     }
-    const float mean = warp_sum(s) * (1.f / F);
-    float s2 = 0.f;
-#pragma unroll
-    for (int q = 0; q < F / 32; ++q) {
-      e[q] -= mean;
-      s2 += e[q] * e[q];
-    }
-    const float inv = rsqrtf(warp_sum(s2) * (1.f / F) + eps);
-#pragma unroll
-    for (int q = 0; q < F / 32; ++q) {
-      const int k = lane + 32 * q;
-      dst[k] = e[q] * inv * lns[k] + lnb[k];
-    }
-  }
-  __syncthreads();
+    tf32x3::cp_async_commit();
+  };
+  stage(0);
+  layer_norm_tile<F, LX>(xn, x + (size_t)b * T * F, lns, lnb, t0, T, eps);
 
-  // thread: column c of the value half and of the gate half, RPT rows
-  constexpr int RPT = TT * F / kThreads;
-  const int c = tid % F, r0 = (tid / F) * RPT;
-  float acc_a[RPT], acc_g[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) acc_a[r] = acc_g[r] = 0.f;
-  for (int k = 0; k < F; k += 4) {
-    float wa[4], wg[4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wa[kk] = w_in[(size_t)(k + kk) * 2 * F + c];
-      wg[kk] = w_in[(size_t)(k + kk) * 2 * F + F + c];
+  for (int c = 0; c < S::chunks; ++c) {
+    if (c + 1 < S::chunks) {
+      stage(c + 1);  // into the buffer chunk c-1 read
+      tf32x3::cp_async_wait<1>();
+    } else {
+      tf32x3::cp_async_wait<0>();
     }
+    __syncthreads();  // chunk c (and xn) in place
+    const float* wi = smem + S::wi + (c & 1) * F * LW;
+    // n-tile 0: the values of pairs 8 wn .., n-tile 1: their gates
+    float a[MT][2][4] = {};
+    tf32x3::warp_product<MT, 2, F / 8>(
+        a, xn + 16 * MT * wm * LX, LX, [&](int ks, int nt) {
+          const float* w = wi + (8 * ks + 2 * t4) * LW + nt * kCH + 8 * wn + g8;
+          return make_float2(w[0], w[LW]);
+        });
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(xn + (r0 + r) * F + k);
-      acc_a[r] += a.x * wa[0] + a.y * wa[1] + a.z * wa[2] + a.w * wa[3];
-      acc_g[r] += a.x * wg[0] + a.y * wg[1] + a.z * wg[2] + a.w * wg[3];
-    }
-  }
-  const float ba = b_in[c], bg = b_in[F + c];
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int t = t0 + r0 + r;
-    if (t < T)
-      v[((size_t)b * T + t) * F + c] =
-          (acc_a[r] + ba) * sigmoid(acc_g[r] + bg);
+      for (int h = 0; h < 2; ++h) {
+        const int t = t0 + 16 * (MT * wm + mt) + g8 + 8 * h;
+        if (t >= T) continue;
+        const int p = c * kCH + 8 * wn + 2 * t4;  // the pair (column of v)
+        float g[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const float val = a[mt][0][2 * h + q] + b_in[p + q];
+          const float gate = a[mt][1][2 * h + q] + b_in[F + p + q];
+          g[q] = val * __fdividef(1.f, 1.f + expf(-gate));
+        }
+        *reinterpret_cast<float2*>(v + ((size_t)b * T + t) * F + p) =
+            make_float2(g[0], g[1]);
+      }
+    __syncthreads();  // every warp has read buffer c % 2
   }
 }
 
-template <int F, int TT>
+// Launch 2's layout.  During the conv: the window [W][F] of v rows and the
+// conv weight [F][kK] (the Conv1d's own layout: lanes take channels, and
+// the odd stride 65 keeps them on distinct banks).  Then y [kTT][LY] and
+// z [kTT][LZ] over the window, and W_mid's chunk [F][LM] and W_out's
+// [kCH][LO] over the conv weight.
+template <int F>
 struct TailShape {
-  static constexpr int W = TT + kK - 1;  // window rows of v
-  static constexpr int WS = F + 1;       // staged conv weight's tap stride
-  // the staged weight's floats, rounded up so that y stays 16-byte aligned
-  static constexpr int WSZ = (kK * WS + 3) / 4 * 4;
-  static constexpr size_t smem_bytes =
-      sizeof(float) * (size_t)(W * F + WSZ + TT * F);
-  static_assert(TT * 2 * F <= W * F, "z must fit over the dead window");
+  static constexpr int H = 2 * F, chunks = H / kCH;
+  static constexpr int W = kTT + kK - 1;  // window rows t0-32 .. t0+95
+  static constexpr int R = kTT * F / kThreads;  // conv rows a thread
+  // the z product: warps 4 x 2, rows 16 wm .., columns 16 wn ..
+  static constexpr int ZWN = 2, ZWM = kWarps / ZWN, ZMT = kTT / 16 / ZWM,
+                       ZNT = kCH / 8 / ZWN;
+  // the o product: warps 2 x 4, rows 32 wm .., columns 32 wn ..
+  static constexpr int OWN = 4, OWM = kWarps / OWN, OMT = kTT / 16 / OWM,
+                       ONT = F / 8 / OWN;
+  static constexpr int LY = F + 8, LZ = kCH + 8, LM = kCH + 4, LO = F + 4;
+  static constexpr int vw = 0, y = 0, z = y + kTT * LY;
+  static constexpr int ws = vw + W * F, wm = ws, wo = wm + F * LM;
+  static constexpr int weights = F * LM + kCH * LO > F * kK
+                                     ? F * LM + kCH * LO
+                                     : F * kK;
+  static constexpr int floats = ws + weights;
+  static constexpr size_t smem_bytes = sizeof(float) * (size_t)floats;
+  static_assert(z + kTT * LZ <= ws, "y and z fit over the window");
+  static_assert(kTT == 16 * ZMT * ZWM && kTT == 16 * OMT * OWM,
+                "warp tiling");
+  static_assert(kThreads % F == 0 && R * (kThreads / F) == kTT,
+                "conv: a thread per (channel, R rows)");
+  static_assert(smem_bytes <= kMaxSmem, "two blocks per SM");
 };
 
 // Launch 2: out = x + ls * (GELU((conv(v) W_mid + b_mid) * s + t) W_out +
-// b_out) for TT rows a block.
-template <int F, int TT>
-__global__ void __launch_bounds__(kThreads)
+// b_out) for kTT rows a block.
+template <int F>
+__global__ void __launch_bounds__(kThreads, 2)
 cla_tail_kernel(const float* __restrict__ x, const float* __restrict__ v,
                 const float* __restrict__ wdw, const float* __restrict__ bdw,
                 const float* __restrict__ w_mid,
@@ -167,108 +236,213 @@ cla_tail_kernel(const float* __restrict__ x, const float* __restrict__ v,
                 const float* __restrict__ w_out,
                 const float* __restrict__ b_out, const float* __restrict__ ls,
                 float* __restrict__ out, int T) {
-  using S = TailShape<F, TT>;
+  using S = TailShape<F>;
+  constexpr int R = S::R, LY = S::LY, LZ = S::LZ, LM = S::LM, LO = S::LO;
+  constexpr int ZMT = S::ZMT, ZNT = S::ZNT, OMT = S::OMT, ONT = S::ONT,
+                H = S::H;
   extern __shared__ __align__(16) float smem[];
-  float* vw = smem;              // [W][F] v rows t0-32 .. t0+TT+31
-  float* ws = vw + S::W * F;     // [kK][WS] the conv weight, tap-major
-  float* y = ws + S::WSZ;        // [TT][F] the conv's output
-  float* z = vw;                 // [TT][2F] over the window once it is read
-  const int b = blockIdx.y, t0 = blockIdx.x * TT;
-  const int tid = threadIdx.x;
+  float* vw = smem + S::vw;  // [W][F] v rows t0-32 .. (conv)
+  float* ws = smem + S::ws;  // [F][kK] the conv weight (conv)
+  float* y = smem + S::y;    // [kTT][LY] the conv's output (chunk loop)
+  float* z = smem + S::z;    // [kTT][LZ] the chunk's GELU output
+  float* wm = smem + S::wm;  // [F][LM] W_mid[:, chunk]
+  float* wo = smem + S::wo;  // [kCH][LO] W_out[chunk rows, :]
+  const int b = blockIdx.y, t0 = blockIdx.x * kTT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
   const float* vb = v + (size_t)b * T * F;
 
-  for (int e = tid; e < S::W * F / 4; e += kThreads) {
-    const int r = e / (F / 4), q = e % (F / 4), t = t0 - kHalo + r;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (t >= 0 && t < T)
-      val = *reinterpret_cast<const float4*>(vb + (size_t)t * F + 4 * q);
-    *reinterpret_cast<float4*>(vw + r * F + 4 * q) = val;
+  // the window, zero outside [0, T), and the conv weight [F, 1, kK]
+#pragma unroll
+  for (int q = 0; q < S::W * F / 4 / kThreads; ++q) {
+    const int e = tid + q * kThreads;
+    const int r = e / (F / 4), j = 4 * (e - r * (F / 4)), t = t0 - kHalo + r;
+    const bool in = t >= 0 && t < T;
+    tf32x3::cp_async16(vw + r * F + j, vb + (size_t)(in ? t : 0) * F + j, in);
   }
-  // wdw is the Conv1d weight [F, 1, kK]: read along taps, stored tap-major
-  // with a stride of F + 1, so neither side has bank conflicts
-  for (int e = tid; e < F * kK; e += kThreads) {
-    const int c = e / kK, tap = e % kK;
-    ws[tap * S::WS + c] = wdw[e];
-  }
-  __syncthreads();
+  tf32x3::cp_async_commit();
+  for (int e = tid; e < F * kK; e += kThreads) ws[e] = wdw[e];
 
-  // conv: thread takes channel c over RPT consecutive rows
-  constexpr int RPT = TT * F / kThreads;
-  const int c = tid % F, r0 = (tid / F) * RPT;
-  {
-    float acc[RPT];
-    const float bias = bdw[c];
+  // chunk c's columns of W_mid [F, 2F] and rows of W_out [2F, F]
+  auto stage_mid = [&](int c) {
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) acc[r] = bias;
-    dwtap::taps<RPT>(vw + r0 * F + c, F, ws + c, S::WS, kK, acc);
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) y[(r0 + r) * F + c] = acc[r];
-  }
-  __syncthreads();
-
-  // z = GELU((y W_mid + b_mid) * s + t): thread takes column j, all rows;
-  // the window is dead past the barrier above, so z overwrites it
-  static_assert(2 * F == kThreads, "one thread per column of z");
-  {
-    const int j = tid;
-    float acc[TT];
-#pragma unroll
-    for (int r = 0; r < TT; ++r) acc[r] = 0.f;
-    rows_times_column<TT, F>(y, F, w_mid, 2 * F, j, acc);
-    const float bm = b_mid[j], s = bn_s[j], sh = bn_t[j];
-#pragma unroll
-    for (int r = 0; r < TT; ++r) {
-      const float h = (acc[r] + bm) * s + sh;
-      z[r * 2 * F + j] = 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
+    for (int q = 0; q < F * kCH / 4 / kThreads; ++q) {
+      const int e = tid + q * kThreads;
+      const int k = e / (kCH / 4), j = 4 * (e - k * (kCH / 4));
+      tf32x3::cp_async16(wm + k * LM + j, w_mid + (size_t)k * H + c * kCH + j,
+                         true);
     }
-  }
-  __syncthreads();
+    tf32x3::cp_async_commit();
+  };
+  auto stage_out = [&](int c) {
+#pragma unroll
+    for (int q = 0; q < kCH * F / 4 / kThreads; ++q) {
+      const int e = tid + q * kThreads;
+      const int k = e / (F / 4), j = 4 * (e - k * (F / 4));
+      tf32x3::cp_async16(wo + k * LO + j, w_out + (size_t)(c * kCH + k) * F + j,
+                         true);
+    }
+    tf32x3::cp_async_commit();
+  };
 
-  // out = x + ls * (z W_out + b_out): thread takes column c, RPT rows
+  tf32x3::cp_async_wait<0>();
+  __syncthreads();  // the window and the weight are in place
+
+  // conv: thread takes channel ch over the R output rows r0 ..; window
+  // row r0 + r + tap is output row r0 + r's tap, so R window rows slide
+  // through registers, one new row per tap.  acc = bias + the taps in
+  // order.
+  float acc[R];
   {
-    float acc[RPT];
+    const int ch = tid % F, r0 = (tid / F) * R;
+    const float* col = vw + r0 * F + ch;
+    const float* wc = ws + ch * kK;
+    float win[R];
+    const float bias = bdw[ch];
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) acc[r] = 0.f;
-    rows_times_column<RPT, 2 * F>(z + r0 * 2 * F, 2 * F, w_out, F, c, acc);
-    const float scale = ls[c], bias = b_out[c];
+    for (int r = 0; r < R; ++r) {
+      acc[r] = bias;
+      win[r] = col[r * F];
+    }
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int t = t0 + r0 + r;
-      if (t < T) {
-        const size_t off = ((size_t)b * T + t) * F + c;
-        out[off] = x[off] + scale * (acc[r] + bias);
+    for (int tap = 0; tap < kK; ++tap) {
+      const float w = wc[tap];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = fmaf(w, win[r], acc[r]);
+      if (tap + 1 < kK) {
+#pragma unroll
+        for (int r = 0; r + 1 < R; ++r) win[r] = win[r + 1];
+        win[R - 1] = col[(R + tap) * F];
       }
     }
   }
+  __syncthreads();  // the window and the conv weight are read
+  stage_mid(0);     // over the conv weight
+  {
+    const int ch = tid % F, r0 = (tid / F) * R;
+#pragma unroll
+    for (int r = 0; r < R; ++r) y[(r0 + r) * LY + ch] = acc[r];
+  }
+
+  const int zwm = warp / S::ZWN, zwn = warp - zwm * S::ZWN;
+  const int owm = warp / S::OWN, own = warp - owm * S::OWN;
+  float o[OMT][ONT][4] = {};
+  for (int c = 0; c < S::chunks; ++c) {
+    tf32x3::cp_async_wait<0>();
+    // W_mid's chunk c (and y) in place; chunk c-1 has read z and wo
+    __syncthreads();
+    stage_out(c);
+
+    // z_c = GELU((y wm + b_mid) * s + t): rows 16 ZMT zwm ..,
+    // columns 8 ZNT zwn ..
+    {
+      float a[ZMT][ZNT][4] = {};
+      tf32x3::warp_product<ZMT, ZNT, F / 8>(
+          a, y + 16 * ZMT * zwm * LY, LY, [&](int ks, int nt) {
+            const float* w =
+                wm + (8 * ks + 2 * t4) * LM + 8 * (ZNT * zwn + nt) + g8;
+            return make_float2(w[0], w[LM]);
+          });
+#pragma unroll
+      for (int mt = 0; mt < ZMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < ZNT; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = 16 * (ZMT * zwm + mt) + g8 + 8 * h;
+            const int j = 8 * (ZNT * zwn + nt) + 2 * t4, hc = c * kCH + j;
+            float g[2];
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              const float hv =
+                  (a[mt][nt][2 * h + q] + b_mid[hc + q]) * bn_s[hc + q] +
+                  bn_t[hc + q];
+              g[q] = 0.5f * hv * (1.f + erff(hv * 0.70710678118654752f));
+            }
+            *reinterpret_cast<float2*>(z + r * LZ + j) =
+                make_float2(g[0], g[1]);
+          }
+    }
+    tf32x3::cp_async_wait<0>();  // W_out's chunk c
+    __syncthreads();             // z is written, wm read and wo in place
+    if (c + 1 < S::chunks) stage_mid(c + 1);  // lands during the o product
+
+    // o += z_c wo: rows 32 owm .., columns 32 own ..
+    tf32x3::warp_product<OMT, ONT, kCH / 8>(
+        o, z + 16 * OMT * owm * LZ, LZ, [&](int ks, int nt) {
+          const float* w =
+              wo + (8 * ks + 2 * t4) * LO + 8 * (ONT * own + nt) + g8;
+          return make_float2(w[0], w[LO]);
+        });
+  }
+
+  // out = x + ls * (o + b_out) for the rows t < T
+#pragma unroll
+  for (int mt = 0; mt < OMT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = t0 + 16 * (OMT * owm + mt) + g8 + 8 * h;
+      if (t >= T) continue;
+      const size_t off = ((size_t)b * T + t) * F;
+#pragma unroll
+      for (int nt = 0; nt < ONT; ++nt) {
+        const int col = 8 * (ONT * own + nt) + 2 * t4;
+        const float2 xv = *reinterpret_cast<const float2*>(x + off + col);
+        const float o0 = xv.x + ls[col] * (o[mt][nt][0 + 2 * h] + b_out[col]);
+        const float o1 =
+            xv.y + ls[col + 1] * (o[mt][nt][1 + 2 * h] + b_out[col + 1]);
+        *reinterpret_cast<float2*>(out + off + col) = make_float2(o0, o1);
+      }
+    }
 }
 
-template <int F, int TT>
+// Both kernels' dynamic shared memory, and the carveout at its most shared
+// memory, so that two blocks share an SM.
+template <int F>
+cudaError_t set_attributes() {
+  cudaError_t err = cudaFuncSetAttribute(
+      cla_glu_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)GluShape<F>::smem_bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(cla_tail_kernel<F>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)TailShape<F>::smem_bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(cla_glu_kernel<F>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(cla_tail_kernel<F>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+template <int F>
 int launch(const float* x, const float* lns, const float* lnb,
            const float* w_in, const float* b_in, const float* wdw,
            const float* bdw, const float* w_mid, const float* b_mid,
            const float* bn_s, const float* bn_t, const float* w_out,
            const float* b_out, const float* ls, float* v, float* out, int B,
            int T, float eps, cudaStream_t stream) {
-  dim3 grid((T + TT - 1) / TT, B);
-  cla_glu_kernel<F, TT><<<grid, kThreads, 0, stream>>>(x, lns, lnb, w_in,
-                                                        b_in, v, T, eps);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = set_attributes<F>();
   if (err != cudaSuccess) return (int)err;
-  constexpr size_t smem = TailShape<F, TT>::smem_bytes;
-  err = cudaFuncSetAttribute(cla_tail_kernel<F, TT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  dim3 grid((T + kTT - 1) / kTT, B);
+  cla_glu_kernel<F><<<grid, kThreads, GluShape<F>::smem_bytes, stream>>>(
+      x, lns, lnb, w_in, b_in, v, T, eps);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  cla_tail_kernel<F, TT><<<grid, kThreads, smem, stream>>>(
+  cla_tail_kernel<F><<<grid, kThreads, TailShape<F>::smem_bytes, stream>>>(
       x, v, wdw, bdw, w_mid, b_mid, bn_s, bn_t, w_out, b_out, ls, out, T);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Pointers are device pointers to float32.  w_in, w_mid [F, 2F] and w_out
-// [2F, F] are [in, out]; wdw is the Conv1d weight [F, 1, 65]; bn_s, bn_t
-// [2F] the folded BatchNorm; v [B, T, F] is scratch.  Built for Base's
+// Pointers are device pointers to float32, x, v and out 16-byte aligned.
+// w_in, w_mid [F, 2F] and w_out [2F, F] are [in, out], contiguous and
+// 16-byte aligned; wdw is the Conv1d weight [F, 1, 65]; bn_s, bn_t [2F]
+// the folded BatchNorm; v [B, T, F] is scratch.  Built for Base's
 // F = 128.
 extern "C" int sep_cla_f32(const void* x, const void* lns, const void* lnb,
                            const void* w_in, const void* b_in,
@@ -281,9 +455,24 @@ extern "C" int sep_cla_f32(const void* x, const void* lns, const void* lnb,
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   if (B <= 0 || T <= 0) return 0;
   if (F != 128 || B > 65535) return (int)cudaErrorInvalidValue;
-  return launch<128, 32>(f(x), f(lns), f(lnb), f(w_in), f(b_in), f(wdw),
-                         f(bdw), f(w_mid), f(b_mid), f(bn_s), f(bn_t),
-                         f(w_out), f(b_out), f(ls), static_cast<float*>(v),
-                         static_cast<float*>(out), B, T, eps,
-                         static_cast<cudaStream_t>(stream));
+  return launch<128>(f(x), f(lns), f(lnb), f(w_in), f(b_in), f(wdw), f(bdw),
+                     f(w_mid), f(b_mid), f(bn_s), f(bn_t), f(w_out),
+                     f(b_out), f(ls), static_cast<float*>(v),
+                     static_cast<float*>(out), B, T, eps,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of each K15 launch that one SM holds at once, with the launch's
+// attributes set (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into
+// blocks[0] (the GLU launch) and blocks[1] (the tail).
+extern "C" int sep_cla_blocks_per_sm(void* blocks) {
+  int* n = static_cast<int*>(blocks);
+  cudaError_t err = set_attributes<128>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n, cla_glu_kernel<128>, kThreads, GluShape<128>::smem_bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n + 1, cla_tail_kernel<128>, kThreads, TailShape<128>::smem_bytes);
+  return (int)err;
 }

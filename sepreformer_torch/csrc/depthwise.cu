@@ -44,11 +44,8 @@
 // K6 is the same kernel without the dx loop and the weight's staging
 // (depthwise_dw_kernel), and the same fixed-order reduction.  K4 stages
 // x and the weight as K5 stages dy and the weight, and each warp runs
-// the tap loop of depthwise_tap.cuh (shared with K15's conv stage) over
-// its 8 rows, with the weight unflipped.
+// the tap loop (tap_rows) over its 8 rows, with the weight unflipped.
 #include <cuda_runtime.h>
-
-#include "depthwise_tap.cuh"
 
 namespace {
 
@@ -63,6 +60,25 @@ constexpr int kTapsPerWarp = (kMaxK + kGroups - 1) / kGroups;
 
 size_t smem_bytes(int K) {
   return sizeof(float) * ((size_t)2 * (kTT + K - 1) * kCW + (size_t)K * kCW);
+}
+
+// The "same" conv's tap loop for one channel of R consecutive output rows:
+//   acc[r] += sum_tap w[tap] * v[r + tap],  r < R,
+// where v is a window in shared memory whose row 0 lies K / 2 rows before
+// the first output row (zero rows stand for the padding outside [0, T)).
+// The caller sets acc to the bias first.  Strides are in floats: the
+// window's rows and the staged weight's taps; lanes of a warp take
+// neighbouring channels, so every shared access is free of bank conflicts.
+template <int R>
+__device__ __forceinline__ void tap_rows(const float* v, int v_stride,
+                                         const float* w, int w_stride, int K,
+                                         float (&acc)[R]) {
+  for (int tap = 0; tap < K; ++tap) {
+    const float wv = w[tap * w_stride];
+    const float* row = v + tap * v_stride;
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] += wv * row[r * v_stride];
+  }
 }
 
 // kDx: K5 (dx, and the partial dw and db); else K6 (the partials only)
@@ -194,8 +210,8 @@ depthwise_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     float acc[kRowsPerWarp];
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) acc[r] = bv;
-    dwtap::taps<kRowsPerWarp>(xs + i0 * kCW + lane, kCW, ws + lane, kCW, K,
-                              acc);
+    tap_rows<kRowsPerWarp>(xs + i0 * kCW + lane, kCW, ws + lane, kCW, K,
+                           acc);
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const int t = t0 + i0 + r;

@@ -34,19 +34,35 @@
 // the numerator only: one block per (64 query rows, head, batch) streams
 // the keys in chunks of V staged in shared memory, one warp per row, with
 // an online softmax across chunks; it also writes each row's max and sum,
-// which the backward reuses.  K10's sum over query rows for dV is the part
-// the TPU did in one grid step per (b, h): here one block takes 32 keys of
-// one (b, h) and walks every query row, so it owns its dV rows outright and
-// needs no second pass and no atomics.  Lanes run along keys (coalesced
-// score loads and dS stores), each lane keeps its key's V row and dV
-// partial in registers, the 8 warps split the rows, and their dV partials
-// are added in a fixed order at the end.  Each row's dOut slice, max, 1/sum
-// and dOut . out are staged in shared memory for the warps to broadcast.
+// which the backward reuses.
+//
+// K10's sum over query rows for dV is the part the TPU did in one grid
+// step per (b, h): here one block takes 64 keys of one (b, h) and walks
+// every query row, so it owns its dV rows outright and needs no second
+// pass and no atomics.  What limits such a walk is the bytes in flight: a
+// warp that loads a score, computes and stores before its next load keeps
+// ~4 KB in flight per SM, well under 1 TB/s.  So the rows arrive in a ring
+// of kStages stages of kStageRows rows by cp.async (each stage: the score
+// rows of the block's keys, with the bias's in K10b, the rows' dOut and
+// out slices and their max and sum; 12 KB, 20 KB in K10b), issued
+// kStages - 1 tiles ahead: ~36 KB in flight per block, two blocks per SM.
+// Score chunks with no key below lim are not read (zero-filled).  Each
+// lane keeps two neighbouring keys' V rows and dV partials in registers
+// and stores their dS as one float2 (a warp writes a 256-byte row
+// segment); the 8 warps split a stage's rows, four each, and four lanes
+// per row take its max, 1 / sum and dOut . out (a float4 of the dot each)
+// once per stage and shuffle them to the warp.  P is recomputed from the
+// forward's row stats; keys past lim get P = 0 by a select.  The warps'
+// dV partials are added in warp order at the end, a float4 per thread.
+// A block whose keys all lie past lim writes zeros and reads nothing.
+// The products (dP of depth 16, dV) stay on the CUDA cores: about 8 us of
+// FMAs at [4, 8, 512, 512], under the 21 us of bytes.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "hash_dropout.cuh"
+#include "mma_tf32x3.cuh"  // cp_async16 and its group helpers
 
 namespace {
 
@@ -54,8 +70,9 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 64;               // K9: query rows per block
 constexpr int kSmemBytes = 48 * 1024;   // the default dynamic smem limit
-constexpr int kKeys = 32;               // K10: keys per block
-constexpr int kRowChunk = 64;           // K10: rows staged at a time
+constexpr int kKeyTile = 64;            // K10: keys per block
+constexpr int kStageRows = 32;          // K10: query rows per stage
+constexpr int kStages = 4;              // K10: stages in the ring
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -204,8 +221,36 @@ softmax_pv_train_fwd_kernel(const float* __restrict__ scores,
   }
 }
 
+// A 4-byte asynchronous copy, zero-filled where !valid (src must still be
+// a valid address): K10's score rows when Lp % 4 != 0, and its row stats.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// K10's stage of the ring: kStageRows query rows of one (b, h) against the
+// block's kKeyTile keys, and what those rows need besides.
+template <bool HAS_BIAS>
+struct BwdStage {
+  static constexpr int s = 0;                             // [rows][keys]
+  static constexpr int bias = s + kStageRows * kKeyTile;  // the same, bias
+  static constexpr int dout = bias + (HAS_BIAS ? kStageRows * kKeyTile : 0);
+  static constexpr int out = dout + kStageRows * 16;      // [rows][D]
+  static constexpr int m = out + kStageRows * 16;         // [rows] row max
+  static constexpr int l = m + kStageRows;                // [rows] row sum
+  static constexpr int floats = l + kStageRows;
+  static constexpr int red_stride = 16 + 4;  // dV partial rows, 16-B aligned
+  static constexpr size_t smem_bytes =
+      sizeof(float) * (size_t)kStages * floats;
+  static_assert(kWarps * kKeyTile * red_stride <= kStages * floats,
+                "the dV partials fit over the ring");
+  static_assert(floats % 4 == 0, "stages stay 16-byte aligned");
+};
+
 template <int D, bool HAS_BIAS>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
                             const float* __restrict__ bias,
                             const float* __restrict__ v,
@@ -218,80 +263,224 @@ softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
                             float* __restrict__ dv, int H, int Lp, int F,
                             int length, uint32_t seed_word,
                             uint32_t threshold, float keep_scale) {
-  __shared__ float dout_s[kRowChunk][D];
-  __shared__ float m_s[kRowChunk], linv_s[kRowChunk], rowdot_s[kRowChunk];
-  __shared__ float red[kWarps][kKeys][D + 1];
+  static_assert(D == 16, "a stage's dOut and out rows are 16 floats");
+  using S = BwdStage<HAS_BIAS>;
+  constexpr int RW = kStageRows / kWarps;  // rows of a stage per warp
+  static_assert(RW <= 4, "a row's stats in a group of four lanes");
+  extern __shared__ __align__(16) float smem[];
 
   const int h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int j = blockIdx.x * kKeys + lane;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int j0 = blockIdx.x * kKeyTile, jl = j0 + 2 * lane;  // lane's keys
   const int lim = min(min(length, lens[b]), Lp);
-  const bool valid = j < lim;
   const size_t bh = (size_t)b * H + h;
   const float* sb = scores + bh * Lp * Lp;
+  const float* bb = HAS_BIAS ? bias + bh * Lp * Lp : nullptr;
   float* dsb = dscores + bh * Lp * Lp;
+  const bool vec = Lp % 4 == 0;  // score rows in 16-byte copies
+  const int tiles = (Lp + kStageRows - 1) / kStageRows;
 
-  float vj[D], dvj[D];
-#pragma unroll
-  for (int c = 0; c < D; ++c) {
-    vj[c] = valid ? v[((size_t)b * Lp + j) * F + h * D + c] : 0.f;
-    dvj[c] = 0.f;
+  // dS row i at the lane's two keys (nothing at keys >= Lp)
+  auto store_ds = [&](int i, float d0, float d1) {
+    float* dst = dsb + (size_t)i * Lp + jl;
+    if (Lp % 2 == 0 && jl + 1 < Lp) {
+      *reinterpret_cast<float2*>(dst) = make_float2(d0, d1);
+    } else {
+      if (jl < Lp) dst[0] = d0;
+      if (jl + 1 < Lp) dst[1] = d1;
+    }
+  };
+  if (j0 >= lim) {  // no valid key: dS and dV are zero
+    for (int i = warp; i < Lp; i += kWarps) store_ds(i, 0.f, 0.f);
+    for (int e = tid; e < kKeyTile * D; e += kThreads) {
+      const int k = e / D, c = e - k * D;
+      if (j0 + k < Lp) dv[((size_t)b * Lp + j0 + k) * F + h * D + c] = 0.f;
+    }
+    return;
   }
 
-  for (int r0 = 0; r0 < Lp; r0 += kRowChunk) {
-    const int rows = min(kRowChunk, Lp - r0);
-    __syncthreads();  // the previous chunk's staging is consumed
-    for (int e = threadIdx.x; e < rows * D; e += kThreads) {
-      const int r = e / D, c = e - r * D;
-      dout_s[r][c] = dout[((size_t)b * Lp + r0 + r) * F + h * D + c];
-    }
-    for (int r = threadIdx.x; r < rows; r += kThreads) {
-      const size_t row = ((size_t)b * Lp + r0 + r) * F + h * D;
-      float dot = 0.f;
+  // row tile k into stage k % kStages as one cp.async group (an empty one
+  // past the last tile): the score (and bias) chunks that hold a valid key,
+  // zeros elsewhere; the dOut and out rows; the row stats
+  auto stage = [&](int k) {
+    if (k < tiles) {
+      float* st = smem + (k % kStages) * S::floats;
+      const int i0 = k * kStageRows;
+      if (vec) {
 #pragma unroll
-      for (int c = 0; c < D; ++c) dot += dout[row + c] * out[row + c];
-      rowdot_s[r] = dot;
-      m_s[r] = row_max[bh * Lp + r0 + r];
-      linv_s[r] = 1.f / row_sum[bh * Lp + r0 + r];
+        for (int q = 0; q < kStageRows * kKeyTile / 4 / kThreads; ++q) {
+          const int e = tid + q * kThreads;
+          const int r = e / (kKeyTile / 4), j = 4 * (e - r * (kKeyTile / 4));
+          const bool in = i0 + r < Lp && j0 + j < lim;
+          const size_t off = in ? (size_t)(i0 + r) * Lp + j0 + j : 0;
+          tf32x3::cp_async16(st + S::s + r * kKeyTile + j, sb + off, in);
+          if (HAS_BIAS)
+            tf32x3::cp_async16(st + S::bias + r * kKeyTile + j, bb + off, in);
+        }
+      } else {
+#pragma unroll 4
+        for (int q = 0; q < kStageRows * kKeyTile / kThreads; ++q) {
+          const int e = tid + q * kThreads;
+          const int r = e / kKeyTile, j = e - r * kKeyTile;
+          const bool in = i0 + r < Lp && j0 + j < lim;
+          const size_t off = in ? (size_t)(i0 + r) * Lp + j0 + j : 0;
+          cp_async4(st + S::s + r * kKeyTile + j, sb + off, in);
+          if (HAS_BIAS)
+            cp_async4(st + S::bias + r * kKeyTile + j, bb + off, in);
+        }
+      }
+      {  // dOut rows (threads 0..127), then out rows
+        static_assert(2 * kStageRows * D / 4 == kThreads,
+                      "a 16-byte copy of dOut or out a thread");
+        const bool second = tid >= kStageRows * D / 4;
+        const int e = tid - (second ? kStageRows * D / 4 : 0);
+        const int r = e / (D / 4), c = 4 * (e % (D / 4));
+        const bool in = i0 + r < Lp;
+        const float* src = (second ? out : dout) +
+                           ((size_t)b * Lp + (in ? i0 + r : 0)) * F + h * D +
+                           c;
+        tf32x3::cp_async16(st + (second ? S::out : S::dout) + r * D + c, src,
+                           in);
+      }
+      if (tid < 2 * kStageRows) {  // row max (threads 0..31), then sum
+        const bool second = tid >= kStageRows;
+        const int r = tid - (second ? kStageRows : 0);
+        const bool in = i0 + r < Lp;
+        cp_async4(st + (second ? S::l : S::m) + r,
+                  (second ? row_sum : row_max) + bh * Lp + (in ? i0 + r : 0),
+                  in);
+      }
     }
-    __syncthreads();
+    tf32x3::cp_async_commit();
+  };
+#pragma unroll
+  for (int k = 0; k + 1 < kStages; ++k) stage(k);
 
-    for (int r = warp; r < rows; r += kWarps) {
-      const int i = r0 + r;
-      float ds = 0.f;
-      if (valid) {
-        float s = sb[(size_t)i * Lp + j];
-        if constexpr (HAS_BIAS) s += bias[bh * Lp * Lp + (size_t)i * Lp + j];
-        const float p = expf(s - m_s[r]) * linv_s[r];
+  // the lane's two keys: V rows and dV partials (V zero past lim)
+  const bool valid0 = jl < lim, valid1 = jl + 1 < lim;
+  float vj[2][D], dvj[2][D];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const bool in = q ? valid1 : valid0;
+    const float4* src = reinterpret_cast<const float4*>(
+        v + ((size_t)b * Lp + (in ? jl + q : 0)) * F + h * D);
+#pragma unroll
+    for (int c4 = 0; c4 < D / 4; ++c4) {
+      const float4 t = in ? src[c4] : make_float4(0.f, 0.f, 0.f, 0.f);
+      vj[q][4 * c4] = t.x;
+      vj[q][4 * c4 + 1] = t.y;
+      vj[q][4 * c4 + 2] = t.z;
+      vj[q][4 * c4 + 3] = t.w;
+    }
+#pragma unroll
+    for (int c = 0; c < D; ++c) dvj[q][c] = 0.f;
+  }
+
+  for (int k = 0; k < tiles; ++k) {
+    tf32x3::cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile k is in place; tile k-1's stage is consumed
+    stage(k + kStages - 1);
+    const float* st = smem + (k % kStages) * S::floats;
+    const int i0 = k * kStageRows;
+
+    // the warp's rows warp + kWarps * rr: lanes 4 rr .. 4 rr + 3 (and
+    // 16 later) take row rr's max, 1 / sum and dOut . out, a float4 of
+    // the dot each, and shuffle them to the warp per row
+    float m_r, linv_r, dot_r;
+    {
+      const int rr = (lane & 15) >> 2, c4 = lane & 3;
+      const int r = warp + kWarps * rr;
+      const float4 g =
+          reinterpret_cast<const float4*>(st + S::dout + r * D)[c4];
+      const float4 o = reinterpret_cast<const float4*>(st + S::out + r * D)[c4];
+      float d = g.x * o.x + g.y * o.y + g.z * o.z + g.w * o.w;
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      dot_r = d;
+      m_r = st[S::m + r];
+      linv_r = 1.f / st[S::l + r];
+    }
+#pragma unroll 2
+    for (int rr = 0; rr < RW; ++rr) {
+      const int r = warp + kWarps * rr, i = i0 + r;
+      if (i >= Lp) break;
+      const float m = __shfl_sync(0xffffffffu, m_r, 4 * rr);
+      const float linv = __shfl_sync(0xffffffffu, linv_r, 4 * rr);
+      const float rowdot = __shfl_sync(0xffffffffu, dot_r, 4 * rr);
+      float g[D];
+#pragma unroll
+      for (int c4 = 0; c4 < D / 4; ++c4) {
+        const float4 t =
+            reinterpret_cast<const float4*>(st + S::dout + r * D)[c4];
+        g[4 * c4] = t.x;
+        g[4 * c4 + 1] = t.y;
+        g[4 * c4 + 2] = t.z;
+        g[4 * c4 + 3] = t.w;
+      }
+      float2 s2 = *reinterpret_cast<const float2*>(st + S::s + r * kKeyTile +
+                                                   2 * lane);
+      if constexpr (HAS_BIAS) {
+        const float2 b2 = *reinterpret_cast<const float2*>(
+            st + S::bias + r * kKeyTile + 2 * lane);
+        s2.x += b2.x;
+        s2.y += b2.y;
+      }
+      float ds[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        // keys past lim: P = 0 by a select (their staged score may be any
+        // value), so dS and the dV term are 0
+        const float e = expf((q ? s2.y : s2.x) - m) * linv;
+        const float p = (q ? valid1 : valid0) ? e : 0.f;
         float scale = 1.f;
         if (threshold)
-          scale = sep_keep(seed_word, (uint32_t)(bh * Lp + i), (uint32_t)j,
-                           threshold)
+          scale = sep_keep(seed_word, (uint32_t)(bh * Lp + i),
+                           (uint32_t)(jl + q), threshold)
                       ? keep_scale
                       : 0.f;
-        float dot = 0.f;
+        float d0 = 0.f, d1 = 0.f;
 #pragma unroll
-        for (int c = 0; c < D; ++c) dot += dout_s[r][c] * vj[c];
-        ds = p * (dot * scale - rowdot_s[r]);
+        for (int c = 0; c < D; c += 2) {
+          d0 = fmaf(g[c], vj[q][c], d0);
+          d1 = fmaf(g[c + 1], vj[q][c + 1], d1);
+        }
+        ds[q] = p * ((d0 + d1) * scale - rowdot);
         const float pd = p * scale;
 #pragma unroll
-        for (int c = 0; c < D; ++c) dvj[c] += pd * dout_s[r][c];
+        for (int c = 0; c < D; ++c) dvj[q][c] = fmaf(pd, g[c], dvj[q][c]);
       }
-      if (j < Lp) dsb[(size_t)i * Lp + j] = ds;
+      store_ds(i, ds[0], ds[1]);
     }
   }
 
+  // the warps' dV partials, summed in warp order
+  tf32x3::cp_async_wait<0>();
+  __syncthreads();  // the ring is free
+  float* red = smem;  // [kWarps][kKeyTile][red_stride]
 #pragma unroll
-  for (int c = 0; c < D; ++c) red[warp][lane][c] = dvj[c];
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int c4 = 0; c4 < D / 4; ++c4)
+      *reinterpret_cast<float4*>(
+          red + (warp * kKeyTile + 2 * lane + q) * S::red_stride + 4 * c4) =
+          make_float4(dvj[q][4 * c4], dvj[q][4 * c4 + 1], dvj[q][4 * c4 + 2],
+                      dvj[q][4 * c4 + 3]);
   __syncthreads();
-  for (int e = threadIdx.x; e < kKeys * D; e += kThreads) {
-    const int k = e / D, c = e - k * D;
-    const int jj = blockIdx.x * kKeys + k;
-    float s = 0.f;
+  static_assert(kKeyTile * D / 4 == kThreads, "a float4 of dV a thread");
+  const int k = tid / (D / 4), c4 = tid % (D / 4);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w][k][c];
-    if (jj < Lp) dv[((size_t)b * Lp + jj) * F + h * D + c] = s;
+  for (int w = 0; w < kWarps; ++w) {
+    const float4 t = *reinterpret_cast<const float4*>(
+        red + (w * kKeyTile + k) * S::red_stride + 4 * c4);
+    acc.x += t.x;
+    acc.y += t.y;
+    acc.z += t.z;
+    acc.w += t.w;
   }
+  if (j0 + k < Lp)
+    *reinterpret_cast<float4*>(dv + ((size_t)b * Lp + j0 + k) * F + h * D +
+                               4 * c4) = acc;
 }
 
 template <int D, bool HAS_BIAS>
@@ -309,16 +498,26 @@ int launch_fwd(const float* scores, const float* bias, const float* v,
 }
 
 template <int D, bool HAS_BIAS>
+cudaError_t set_bwd_attributes() {
+  return cudaFuncSetAttribute(softmax_pv_train_bwd_kernel<D, HAS_BIAS>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)BwdStage<HAS_BIAS>::smem_bytes);
+}
+
+template <int D, bool HAS_BIAS>
 int launch_bwd(const float* scores, const float* bias, const float* v,
                const float* out, const float* dout, const float* row_max,
                const float* row_sum, const int* lens, float* dscores,
                float* dv, int B, int H, int Lp, int F, int length,
                uint32_t seed_word, uint32_t threshold, float keep_scale,
                cudaStream_t stream) {
-  dim3 grid((Lp + kKeys - 1) / kKeys, H, B);
-  softmax_pv_train_bwd_kernel<D, HAS_BIAS><<<grid, kThreads, 0, stream>>>(
-      scores, bias, v, out, dout, row_max, row_sum, lens, dscores, dv, H, Lp,
-      F, length, seed_word, threshold, keep_scale);
+  const cudaError_t err = set_bwd_attributes<D, HAS_BIAS>();
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Lp + kKeyTile - 1) / kKeyTile, H, B);
+  softmax_pv_train_bwd_kernel<D, HAS_BIAS>
+      <<<grid, kThreads, BwdStage<HAS_BIAS>::smem_bytes, stream>>>(
+          scores, bias, v, out, dout, row_max, row_sum, lens, dscores, dv, H,
+          Lp, F, length, seed_word, threshold, keep_scale);
   return (int)cudaGetLastError();
 }
 
@@ -405,4 +604,21 @@ extern "C" int sep_softmax_pv_train_bwd_bias_f32(
       static_cast<float*>(dscores), static_cast<float*>(dv), B, H, Lp, F,
       length, seed_word, threshold, keep_scale,
       static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of K10 (the one-tensor form) that one SM holds at once, with the
+// launch's attributes set, into *blocks; K10b's into blocks[1].
+extern "C" int sep_softmax_pv_train_bwd_blocks_per_sm(void* blocks) {
+  int* n = static_cast<int*>(blocks);
+  cudaError_t err = set_bwd_attributes<16, false>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n, softmax_pv_train_bwd_kernel<16, false>, kThreads,
+        BwdStage<false>::smem_bytes);
+  if (err == cudaSuccess) err = set_bwd_attributes<16, true>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n + 1, softmax_pv_train_bwd_kernel<16, true>, kThreads,
+        BwdStage<true>::smem_bytes);
+  return (int)err;
 }

@@ -89,6 +89,10 @@ SIGNATURES = {
     "sep_ega_gcfn_f32": [_P] * 16 + [_I] * 4 + [_F, _P],
     # int* blocks -> K16's blocks per SM
     "sep_ega_gcfn_blocks_per_sm": [_P],
+    # int blocks[2] -> K15's blocks per SM, the GLU launch and the tail
+    "sep_cla_blocks_per_sm": [_P],
+    # int* blocks -> K10's (and K10b's) blocks per SM
+    "sep_softmax_pv_train_bwd_blocks_per_sm": [_P],
 }
 # launchers that return something else than a cudaError_t
 RESTYPES = {"sep_gcfn_train_bwd_scratch_floats": _L,

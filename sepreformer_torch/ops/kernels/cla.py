@@ -12,7 +12,8 @@ package's ``custom_vjp`` does.
 
 from __future__ import annotations
 
-from typing import Sequence
+import ctypes
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -56,7 +57,8 @@ def check_params(name: str, x: torch.Tensor,
     CUDA tensors the kernel takes: F in ``SUPPORTED_WIDTHS``, k 65, every
     tensor contiguous except wdw, which the kernel reads in the Conv1d
     weight's [F, k] layout (``wdw.t()`` contiguous, as the CLA module's
-    ``weight[:, 0, :].t()`` is)."""
+    ``weight[:, 0, :].t()`` is); the three products' weights 16-byte
+    aligned, since the kernel stages them in 16-byte copies."""
     b, t, f = x.shape
     if f not in SUPPORTED_WIDTHS:
         raise ValueError(f"{name}: width {f} not in {SUPPORTED_WIDTHS}")
@@ -71,7 +73,9 @@ def check_params(name: str, x: torch.Tensor,
     for pname, a, shape in zip(PARAM_NAMES, params, shapes):
         if pname == "wdw":
             a = a.t()
-        _build.check_tensor(a, f"{name} {pname}", shape, x.device, align=4)
+        align = 16 if pname in ("w_in", "w_mid", "w_out") else 4
+        _build.check_tensor(a, f"{name} {pname}", shape, x.device,
+                            align=align)
 
 
 def cla_kernel(x: torch.Tensor, params: Sequence[torch.Tensor],
@@ -89,6 +93,17 @@ def cla_kernel(x: torch.Tensor, params: Sequence[torch.Tensor],
     _build.check_launch("sep_cla_f32", err)
     fused_cla.launches += 1
     return out
+
+
+def blocks_per_sm() -> Tuple[int, int]:
+    """How many blocks of K15's two launches (the GLU launch, the tail)
+    one SM of the current card holds at once, with the launches'
+    shared-memory attributes set."""
+    blocks = (ctypes.c_int * 2)()
+    _build.check_launch("sep_cla_blocks_per_sm",
+                        _build.library().sep_cla_blocks_per_sm(
+                            ctypes.addressof(blocks)))
+    return blocks[0], blocks[1]
 
 
 def fused_cla(x: torch.Tensor, params: Sequence[torch.Tensor],

@@ -14,6 +14,7 @@ the same probabilities for the same seed.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -195,6 +196,16 @@ def softmax_pv_train_bwd_bias(scores, bias, v, out, dout, row_max, row_sum,
                      out, dout, row_max, row_sum, seed, key_len, length, p)
     softmax_pv_train_bwd_bias.launches += 1
     return res
+
+
+def bwd_blocks_per_sm() -> Tuple[int, int]:
+    """How many blocks of K10 and of K10b one SM of the current card holds
+    at once, with the launches' shared-memory attributes set."""
+    blocks = (ctypes.c_int * 2)()
+    _build.check_launch("sep_softmax_pv_train_bwd_blocks_per_sm",
+                        _build.library().sep_softmax_pv_train_bwd_blocks_per_sm(
+                            ctypes.addressof(blocks)))
+    return blocks[0], blocks[1]
 
 
 softmax_pv_train_fwd.launches = 0

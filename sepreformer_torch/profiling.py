@@ -41,9 +41,12 @@ def device_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3,
               kernel: Optional[str] = None, attempts: int = 3) -> float:
     """Device time of one call of ``fn`` in ms: the summed durations of
     the kernels that ``iters`` calls ran (only those whose name contains
-    ``kernel``, when given), over ``iters``.  A trace that holds none of
-    them (the profiler can drop a window's kernel records) is taken
-    again, up to ``attempts`` times, and then raises."""
+    ``kernel``, when given), over ``iters``.  Every call runs the same
+    kernels, so a trace whose count of them is not a multiple of
+    ``iters`` has dropped records (the profiler can drop some of a
+    window's kernel records, and did on an H100: a kernel read at 30 % of
+    its time).  Such a trace, or one with none of them, is taken again,
+    up to ``attempts`` times, and then raises."""
     import torch
 
     for _ in range(warmup):
@@ -58,7 +61,7 @@ def device_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3,
             torch.cuda.synchronize()
         durations = [dur for name, _, dur in kernel_events(prof)
                      if kernel is None or kernel in name]
-        if durations:
+        if durations and len(durations) % iters == 0:
             return sum(durations) / iters / 1e3
-    raise RuntimeError(f"device_ms: no kernel {kernel or ''} in "
-                       f"{attempts} traces")
+    raise RuntimeError(f"device_ms: no whole trace of kernel "
+                       f"{kernel or ''} in {attempts} traces")

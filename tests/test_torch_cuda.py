@@ -146,23 +146,43 @@ def test_depthwise_bwd_kernel_matches_plain(cuda_device, b, t, c, k):
         assert torch.equal(g, a)      # no atomics: the same bits every run
 
 
+# K10 walks the rows in stages of 32 and takes 64 keys a block: Lp 512
+# with length 500 is the train path's shape; Lp 136 with length 130 ends
+# a row stage 8 rows in and a key block 2 keys past lim (keys 130..135
+# are padding, dS 0); Lp 77 (odd) takes the 4-byte copies and scalar dS
+# stores.  The ragged lens hold 1: a single valid key.
+K10_SHAPES = [(512, 500, (500, 313, 438, 1)), (136, 130, (130, 67, 1, 129)),
+              (77, 77, (77, 1, 40, 65))]
+
+
+def softmax_pv_train_case(gen, device, lp, length, lens, ragged, bias):
+    b, h, d = 4, 8, 16
+    scores = (torch.randn(b, h, lp, lp, generator=gen) * 3).to(device)
+    extra = ((torch.randn(b, h, lp, lp, generator=gen) * 2).to(device)
+             if bias else None)
+    v = torch.randn(b, lp, h * d, generator=gen).to(device)
+    dout = torch.randn(b, lp, h * d, generator=gen).to(device)
+    lens = torch.tensor(lens, device=device) if ragged else None
+    key_len = (torch.full((b,), length, dtype=torch.int32, device=device)
+               if lens is None else lens.to(torch.int32))
+    return scores, extra, v, dout, lens, key_len
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("lp,length,lens", K10_SHAPES)
 @pytest.mark.parametrize("p", [0.0, 0.05])
 @pytest.mark.parametrize("ragged", [False, True])
-def test_softmax_pv_train_kernels_match_plain(cuda_device, p, ragged):
-    b, h, lp, d, length = 4, 8, 512, 16, 500
+def test_softmax_pv_train_kernels_match_plain(cuda_device, p, ragged, lp,
+                                              length, lens):
     gen = torch.Generator().manual_seed(7)
-    scores = (torch.randn(b, h, lp, lp, generator=gen) * 3).to(cuda_device)
-    v = torch.randn(b, lp, h * d, generator=gen).to(cuda_device)
-    dout = torch.randn(b, lp, h * d, generator=gen).to(cuda_device)
-    lens = (torch.tensor([500, 313, 438, 1], device=cuda_device) if ragged
-            else None)
-    key_len = (torch.full((b,), length, dtype=torch.int32, device=cuda_device)
-               if lens is None else lens.to(torch.int32))
+    scores, _, v, dout, lens, key_len = softmax_pv_train_case(
+        gen, cuda_device, lp, length, lens, ragged, bias=False)
     out, row_max, row_sum = softmax_pv_train_fwd(scores, v, 1234, key_len,
                                                  length, p)
     ds, dv = softmax_pv_train_bwd(scores, v, out, dout, row_max, row_sum,
                                   1234, key_len, length, p)
+    again = softmax_pv_train_bwd(scores, v, out, dout, row_max, row_sum,
+                                 1234, key_len, length, p)
     torch.cuda.synchronize()
     torch.testing.assert_close(
         out, softmax_pv_dropout_plain(scores, v, 1234, lens, length, p),
@@ -171,6 +191,8 @@ def test_softmax_pv_train_kernels_match_plain(cuda_device, p, ragged):
                                                   length, p, dout)
     torch.testing.assert_close(ds, ds_ref, **CARD_TOL)
     torch.testing.assert_close(dv, dv_ref, rtol=1e-4, atol=1e-4)
+    # no atomics: the same bits every run
+    assert torch.equal(ds, again[0]) and torch.equal(dv, again[1])
 
 
 @pytest.mark.cuda
@@ -195,24 +217,21 @@ def test_softmax_pv_bias_kernel_matches_plain(cuda_device, d, lp, length):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("lp,length,lens", K10_SHAPES)
 @pytest.mark.parametrize("p", [0.0, 0.05])
 @pytest.mark.parametrize("ragged", [False, True])
-def test_softmax_pv_train_bias_kernels_match_plain(cuda_device, p, ragged):
+def test_softmax_pv_train_bias_kernels_match_plain(cuda_device, p, ragged, lp,
+                                                   length, lens):
     """K9b and K10b: K9 and K10 on scores + bias."""
-    b, h, lp, d, length = 4, 8, 512, 16, 500
     gen = torch.Generator().manual_seed(42)
-    scores = (torch.randn(b, h, lp, lp, generator=gen) * 3).to(cuda_device)
-    bias = (torch.randn(b, h, lp, lp, generator=gen) * 2).to(cuda_device)
-    v = torch.randn(b, lp, h * d, generator=gen).to(cuda_device)
-    dout = torch.randn(b, lp, h * d, generator=gen).to(cuda_device)
-    lens = (torch.tensor([500, 313, 438, 1], device=cuda_device) if ragged
-            else None)
-    key_len = (torch.full((b,), length, dtype=torch.int32, device=cuda_device)
-               if lens is None else lens.to(torch.int32))
+    scores, bias, v, dout, lens, key_len = softmax_pv_train_case(
+        gen, cuda_device, lp, length, lens, ragged, bias=True)
     out, row_max, row_sum = softmax_pv_train_fwd_bias(
         scores, bias, v, 1234, key_len, length, p)
     ds, dv = softmax_pv_train_bwd_bias(scores, bias, v, out, dout, row_max,
                                        row_sum, 1234, key_len, length, p)
+    again = softmax_pv_train_bwd_bias(scores, bias, v, out, dout, row_max,
+                                      row_sum, 1234, key_len, length, p)
     torch.cuda.synchronize()
     torch.testing.assert_close(
         out, softmax_pv_dropout_plain(scores, v, 1234, lens, length, p, bias),
@@ -221,6 +240,7 @@ def test_softmax_pv_train_bias_kernels_match_plain(cuda_device, p, ragged):
                                                   length, p, dout, bias)
     torch.testing.assert_close(ds, ds_ref, **CARD_TOL)
     torch.testing.assert_close(dv, dv_ref, rtol=1e-4, atol=1e-4)
+    assert torch.equal(ds, again[0]) and torch.equal(dv, again[1])
 
 
 @pytest.mark.cuda
@@ -643,8 +663,11 @@ def pair_params(gen, f, device):
 
 
 @pytest.mark.cuda
-# 8000 rows: many tiles; 77: one partial tile whose halo reaches both ends
-@pytest.mark.parametrize("b,t", [(4, 8000), (3, 77)])
+# 8000 rows: many tiles; 77: one partial tile whose halo reaches both
+# ends.  K15's tiles are 64 rows: T 65 ends one row into a second tile,
+# T 128 on a tile edge, T 10 under one tile, and B*T is ragged in each
+@pytest.mark.parametrize("b,t", [(4, 8000), (3, 77), (3, 65), (1, 128),
+                                 (3, 10)])
 def test_cla_kernel_matches_plain(cuda_device, b, t):
     gen = torch.Generator().manual_seed(31)
     x = torch.randn(b, t, 128, generator=gen).to(cuda_device)
@@ -653,9 +676,11 @@ def test_cla_kernel_matches_plain(cuda_device, b, t):
     before = fused_cla.launches
     with torch.no_grad():
         got = fused_cla(x, params, 1e-5)
+        again = fused_cla(x, params, 1e-5)
     torch.cuda.synchronize()
-    assert fused_cla.launches == before + 1
+    assert fused_cla.launches == before + 2
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, again)    # no atomics: the same bits every run
 
 
 @pytest.mark.cuda

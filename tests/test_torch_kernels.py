@@ -152,8 +152,7 @@ def test_build_names_library_by_source_hash():
                     "ega_gcfn.cu", "flash_relpos.cu", "gcfn.cu",
                     "gcfn_train.cu", "pit.cu", "relpos.cu", "softmax_pv.cu",
                     "softmax_pv_train.cu"]
-    assert [p.name for p in _build.headers()] == ["depthwise_tap.cuh",
-                                                  "gcfn_tile_mma.cuh",
+    assert [p.name for p in _build.headers()] == ["gcfn_tile_mma.cuh",
                                                   "hash_dropout.cuh",
                                                   "mma_tf32x3.cuh"]
     path = _build.library_path()

@@ -18,9 +18,10 @@ TF32 cannot pass them.  The same holds for K1's whole tile
 (``csrc/gcfn_tile_mma.cuh``), emulated row tile by row tile and chunk by
 chunk at its height (62 rows) and chunk width (32 GLU pairs), for K16's
 tile (the EGA tail's gate product as a prologue, then K1's tile on its
-output), and for K14's rel-pos adjoints taken as products on a skewed G
-(``csrc/attention_train.cu``), which are also held against the plain
-version's dq and table gradient.
+output), for K15's two launches (``csrc/cla.cu``: the GLU launch, then
+the k65 conv and two products in chunks), and for K14's rel-pos adjoints
+taken as products on a skewed G (``csrc/attention_train.cu``); K15's
+tile and K14's adjoints are also held against the plain version.
 """
 
 import numpy as np
@@ -319,3 +320,105 @@ def test_skewed_adjoints_hold_float32_accuracy(maxlen):
     for got, want in ((got_dq, ref[0][0, 0].numpy()),
                       (got_dt, ref[3].numpy())):
         assert np.abs(got - want).max() < 1e-5 * np.abs(want).max()
+
+
+def cla_f64(x, params, eps):
+    """K15's chain (``cla_plain``'s math) in float64; wdw is [k, F]."""
+    (lns, lnb, w_in, b_in, wdw, bdw, w_mid, b_mid, bn_s, bn_t, w_out, b_out,
+     ls) = (p.astype(np.float64) for p in params)
+    from scipy.special import erf
+
+    x = x.astype(np.float64)
+    c = x - x.mean(-1, keepdims=True)
+    xn = c / np.sqrt((c * c).mean(-1, keepdims=True) + eps) * lns + lnb
+    u = xn @ w_in + b_in
+    f, t, k = x.shape[-1], x.shape[1], wdw.shape[0]
+    v = u[..., :f] / (1.0 + np.exp(-u[..., f:]))
+    vp = np.pad(v, ((0, 0), (k // 2, k // 2), (0, 0)))
+    y = sum(vp[:, tap:tap + t] * wdw[tap] for tap in range(k)) + bdw
+    hv = (y @ w_mid + b_mid) * bn_s + bn_t
+    z = 0.5 * hv * (1.0 + erf(hv / np.sqrt(2.0)))
+    return x + ls * (z @ w_out + b_out)
+
+
+def cla_tile(x, params, eps, tt, ch, terms):
+    """K15 (``csrc/cla.cu``) in numpy, tile by tile of ``tt`` rows.  The
+    GLU launch: LayerNorm in float32, then per chunk of ``ch`` GLU pairs
+    (value columns and their gates F later) a zeroed product as the tensor
+    cores take it (``terms``), the GLU in float32, into v.  The tail: the
+    k65 conv of v with zero rows outside [0, T) in float32 (bias, then the
+    taps in order), then per chunk of ``ch`` hidden columns z_c =
+    GELU((y W_mid_c + b_mid) s + t) in float32 and o += z_c W_out_c (a
+    zeroed product per chunk, added to o in float32); out = x + ls (o +
+    b_out)."""
+    (lns, lnb, w_in, b_in, wdw, bdw, w_mid, b_mid, bn_s, bn_t, w_out, b_out,
+     ls) = params
+    from scipy.special import erf
+
+    b, t, f = x.shape
+    k = wdw.shape[0]
+    v = np.zeros_like(x)
+    for bi in range(b):
+        for t0 in range(0, t, tt):
+            xr = x[bi, t0:t0 + tt]
+            c = xr - xr.mean(-1, keepdims=True, dtype=np.float32)
+            inv = 1 / np.sqrt((c * c).mean(-1, keepdims=True)
+                              + np.float32(eps))
+            xn = c * inv * lns + lnb
+            for c0 in range(0, f, ch):
+                cols = np.r_[c0:c0 + ch, f + c0:f + c0 + ch]
+                u = mma_product(xn, w_in[:, cols], terms) + b_in[cols]
+                v[bi, t0:t0 + tt, c0:c0 + ch] = (
+                    u[:, :ch] / (np.float32(1) + np.exp(-u[:, ch:])))
+    vp = np.pad(v, ((0, 0), (k // 2, k // 2), (0, 0)))
+    y = np.broadcast_to(bdw, v.shape).astype(np.float32)
+    for tap in range(k):
+        y = y + wdw[tap] * vp[:, tap:tap + t]
+    out = np.empty_like(x)
+    for bi in range(b):
+        for t0 in range(0, t, tt):
+            yr = y[bi, t0:t0 + tt]
+            o = np.zeros((len(yr), f), dtype=np.float32)
+            for c0 in range(0, 2 * f, ch):
+                cols = slice(c0, c0 + ch)
+                hv = ((mma_product(yr, w_mid[:, cols], terms) + b_mid[cols])
+                      * bn_s[cols] + bn_t[cols])
+                z = (np.float32(0.5) * hv
+                     * (np.float32(1) + erf(hv * np.float32(0.70710678))))
+                o = o + mma_product(z.astype(np.float32), w_out[cols], terms)
+            out[bi, t0:t0 + tt] = x[bi, t0:t0 + tt] + ls * (o + b_out)
+    return out
+
+
+# T at K15's 64-row tiles: under one tile, on a tile edge, one row into a
+# second tile, and inside the second
+@pytest.mark.parametrize("t", [10, 64, 65, 100])
+def test_cla_tile_holds_float32_accuracy(t):
+    import torch
+
+    from sepreformer_torch.ops.kernels.cla import cla_plain
+
+    rng = np.random.default_rng(t)
+    f, k, b = 128, 65, 2
+    h = 2 * f
+    x = rng.normal(size=(b, t, f)).astype(np.float32)
+    shapes_scales = [((f,), 1.0), ((f,), 1.0), ((f, h), 0.1), ((h,), 0.1),
+                     ((k, f), 0.1), ((f,), 0.1), ((f, h), 0.1), ((h,), 0.1),
+                     ((h,), 0.1), ((h,), 0.1), ((h, f), 0.1), ((f,), 0.1),
+                     ((f,), 1.0)]
+    params = [(rng.normal(size=s) * sc).astype(np.float32)
+              for s, sc in shapes_scales]
+    params[8] = params[8] + np.float32(1.0)       # bn_s near 1
+    ref = cla_f64(x, params, 1e-5)
+    scale = np.abs(ref).max()
+    three = cla_tile(x, params, 1e-5, 64, 32, ("a_small", "b_small", "big"))
+    one = cla_tile(x, params, 1e-5, 64, 32, ("big",))
+    err3 = np.abs(three - ref).max() / scale
+    err1 = np.abs(one - ref).max() / scale
+    assert err3 < 1e-6, err3
+    assert err1 > 1e-4, err1
+    # and against the plain version, float32 in PyTorch's order: each of
+    # the two lies within 1e-6 of max|out| from float64
+    plain = cla_plain(torch.from_numpy(x),
+                      [torch.from_numpy(p) for p in params], 1e-5).numpy()
+    assert np.abs(three - plain).max() < 2e-6 * scale
