@@ -25,11 +25,12 @@ Phases, each of which fails the run:
                3xTF32, with those products and their exponentials at the
                tensor cores' and the SFUs' rates, and the CUDA-core bound
                of earlier readings on a line before; K1's products
-               counted on the rows its lengths need), K8's, K14's and
-               K15's times by launch, K10's, K15's and K16's blocks per
-               SM and five timings with their median, K1's, K7's, K8's,
-               K10's, K12's, K14's, K15's and K16's bits on a repeat
-               call, K7's and its plain version's
+               counted on the rows its lengths need), K5's, K6's,
+               K8's, K14's and K15's times by launch, K5's, K6's, K10's,
+               K15's and K16's blocks per SM and five timings with their
+               median (K5's and K6's registers and spills too), K1's,
+               K5's, K6's, K7's, K8's, K10's, K12's, K14's, K15's and
+               K16's bits on a repeat call, K7's and its plain version's
                distance from a float64 run; and the port's
                scores producer followed by K3 against a two-tensor
                producer (no add pass) followed by K3b, at K3's shape.
@@ -299,6 +300,9 @@ def kernel_phase(torch, K, device_ms):
     the device time of all the kernels those calls run (durations from a
     profiler trace, not CUDA events: the wrappers' host work outlasts the
     small kernels)."""
+    from sepreformer_torch.ops.kernels.depthwise import (
+        occupancy as depthwise_occupancy,
+    )
     from sepreformer_torch.ops.kernels.softmax_pv_train import (
         bwd_blocks_per_sm,
     )
@@ -442,6 +446,14 @@ def kernel_phase(torch, K, device_ms):
     # dw and db sum B*T products each: float32 sums in another order
     for g, r, atol in zip(got, ref, (1e-5, 1e-3, 1e-3)):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=atol)
+    bit_equal("depthwise_bwd", lambda: torch.cat([
+        a.flatten() for a in K.depthwise_bwd(x, w, dy)]))
+    bit_equal("depthwise_bwd_w", lambda: torch.cat([
+        a.flatten() for a in K.depthwise_bwd_w(x, dy, k)]))
+    for name, occ in depthwise_occupancy(k).items():
+        print(f"[kernels] depthwise {name} at k {k}: {occ['warps']} warps, "
+              f"{occ['blocks_per_sm']} blocks per SM, {occ['registers']} "
+              f"registers, {occ['local_bytes']} local (spill) bytes")
     xp = torch.nn.functional.pad(x.transpose(1, 2), (k // 2, k // 2))
     dy_ncw = dy.transpose(1, 2).contiguous()
     record(K.depthwise_bwd, lambda: K.depthwise_bwd(x, w, dy),
@@ -455,7 +467,9 @@ def kernel_phase(torch, K, device_ms):
            source="sepreformer_torch/csrc/depthwise.cu",
            replaces="sepreformer_tpu/ops/pallas/depthwise.py:147",
            shape=f"x, dy [{b}, {t}, {c}], w [{c}, 1, {k}]",
-           tolerance="rtol 1e-4; atol 1e-5 dx, 1e-3 dw and db")
+           tolerance="rtol 1e-4; atol 1e-5 dx, 1e-3 dw and db", timings=5)
+    launch_split(torch, lambda: K.depthwise_bwd(x, w, dy), "depthwise_bwd",
+                 ("tiles", "reduce"))
 
     # K6: the same conv's dw and db alone (BWD_MODE "conv")
     got, ref = K.depthwise_bwd_w(x, dy, k), K.depthwise_bwd_w_plain(x, dy, k)
@@ -472,7 +486,10 @@ def kernel_phase(torch, K, device_ms):
            source="sepreformer_torch/csrc/depthwise.cu",
            replaces="sepreformer_tpu/ops/pallas/depthwise.py:193",
            shape=f"x, dy [{b}, {t}, {c}], k {k}",
-           tolerance="rtol 1e-4, atol 1e-3 (sums of B*T products)")
+           tolerance="rtol 1e-4, atol 1e-3 (sums of B*T products)",
+           timings=5)
+    launch_split(torch, lambda: K.depthwise_bwd_w(x, dy, k), "depthwise_dw",
+                 ("tiles", "reduce"))
 
     # K7 and K8: the widest GCFN of a B=2 x 4 s train batch, in a decoder
     # stage (B*spks = 4 rows of 8000 frames), p 0.05
@@ -2467,8 +2484,11 @@ def main() -> int:
         name = "?"
         for line in log.read_text().splitlines():
             if "Function properties for" in line:  # a kernel's report follows
-                found = re.search(r"\d+([A-Za-z_]+kernel)", line)
-                name = found.group(1) if found else line.split()[-1]
+                found = re.search(r"\d+([A-Za-z_]+kernel)(?:ILi(\d+)E)?",
+                                  line)
+                name = (found.group(1) + (f"<{found.group(2)}>"
+                                          if found.group(2) else "")
+                        if found else line.split()[-1])
             elif "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
     kernels = run("kernels", kernel_phase, torch, K, device_ms) or []

@@ -156,15 +156,25 @@ __device__ __forceinline__ int frag_col(int e) {
   return 2 * (threadIdx.x & 3) + (e & 1);
 }
 
-// The 16-byte asynchronous copies that stage K1's, K7's, K8's and K12's
-// tiles in shared memory: zero-filled where !valid (src must still be a valid
-// address), committed as one group, waited on with at most N groups
-// still in flight.
+// The 16-byte asynchronous copies that stage K1's, K7's, K8's, K10's,
+// K12's and the depthwise backward's tiles in shared memory: zero-filled
+// where !valid (src must still be a valid address), committed as one
+// group, waited on with at most N groups still in flight.
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                                            bool valid) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(valid ? 16 : 0));
+}
+
+// The 4-byte form, for rows whose length is not a multiple of 4 floats
+// (K10's score rows when Lp % 4 != 0, its row stats, the depthwise
+// backward's rows when C % 4 != 0).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

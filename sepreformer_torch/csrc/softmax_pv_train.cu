@@ -62,7 +62,7 @@
 #include <stdint.h>
 
 #include "hash_dropout.cuh"
-#include "mma_tf32x3.cuh"  // cp_async16 and its group helpers
+#include "mma_tf32x3.cuh"  // cp_async16, cp_async4 and their group helpers
 
 namespace {
 
@@ -221,15 +221,6 @@ softmax_pv_train_fwd_kernel(const float* __restrict__ scores,
   }
 }
 
-// A 4-byte asynchronous copy, zero-filled where !valid (src must still be
-// a valid address): K10's score rows when Lp % 4 != 0, and its row stats.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
 // K10's stage of the ring: kStageRows query rows of one (b, h) against the
 // block's kKeyTile keys, and what those rows need besides.
 template <bool HAS_BIAS>
@@ -324,9 +315,9 @@ softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
           const int r = e / kKeyTile, j = e - r * kKeyTile;
           const bool in = i0 + r < Lp && j0 + j < lim;
           const size_t off = in ? (size_t)(i0 + r) * Lp + j0 + j : 0;
-          cp_async4(st + S::s + r * kKeyTile + j, sb + off, in);
+          tf32x3::cp_async4(st + S::s + r * kKeyTile + j, sb + off, in);
           if (HAS_BIAS)
-            cp_async4(st + S::bias + r * kKeyTile + j, bb + off, in);
+            tf32x3::cp_async4(st + S::bias + r * kKeyTile + j, bb + off, in);
         }
       }
       {  // dOut rows (threads 0..127), then out rows
@@ -346,9 +337,9 @@ softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
         const bool second = tid >= kStageRows;
         const int r = tid - (second ? kStageRows : 0);
         const bool in = i0 + r < Lp;
-        cp_async4(st + (second ? S::l : S::m) + r,
-                  (second ? row_sum : row_max) + bh * Lp + (in ? i0 + r : 0),
-                  in);
+        tf32x3::cp_async4(
+            st + (second ? S::l : S::m) + r,
+            (second ? row_sum : row_max) + bh * Lp + (in ? i0 + r : 0), in);
       }
     }
     tf32x3::cp_async_commit();

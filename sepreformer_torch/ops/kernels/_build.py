@@ -93,10 +93,16 @@ SIGNATURES = {
     "sep_cla_blocks_per_sm": [_P],
     # int* blocks -> K10's (and K10b's) blocks per SM
     "sep_softmax_pv_train_bwd_blocks_per_sm": [_P],
+    # B, T, C, K, with_dx -> floats of K5's (K6's) scratch
+    "sep_depthwise_bwd_partial_floats": [_I] * 5,
+    # K, int out[8] -> K5's and K6's blocks per SM, registers, local
+    # bytes, warps
+    "sep_depthwise_bwd_occupancy": [_I, _P],
 }
 # launchers that return something else than a cudaError_t
 RESTYPES = {"sep_gcfn_train_bwd_scratch_floats": _L,
-            "sep_attn_train_bwd_scratch_floats": _L}
+            "sep_attn_train_bwd_scratch_floats": _L,
+            "sep_depthwise_bwd_partial_floats": _L}
 
 
 def sources():

@@ -10,9 +10,11 @@ as the JAX module's does: "fused" (the default) launches K5
 library convolution of dy with the time-flipped kernel, as the JAX
 package takes it from XLA, and dw and db from K6 (``_impl_bwd_w``).  K4
 (``depthwise_fwd``) is the JAX package's Pallas forward (``_impl_fwd``),
-which no route of either package takes; its tap loop is the one the
-fused CLA (K15) runs.  The CUDA kernels are
-``sepreformer_torch/csrc/depthwise.cu``; ``depthwise_fwd_plain``,
+which no route of either package takes.  The CUDA kernels are
+``sepreformer_torch/csrc/depthwise.cu``: K5 and K6 launch twice each,
+the tiles (register windows over cp.async-staged rows, one partial sum
+of dw and db per block) and then the partials' sum in a fixed order;
+``occupancy`` reports their launch on the card.  ``depthwise_fwd_plain``,
 ``depthwise_bwd_plain`` and ``depthwise_bwd_w_plain`` are the same
 functions in PyTorch, which CPU tensors run.  Tensors are channels-last
 [B, T, C]; the weight is the Conv1d weight [C, 1, K] (odd K), read and
@@ -21,15 +23,15 @@ written in that layout.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from sepreformer_torch.ops.kernels import _build
 
-MAX_KERNEL = 81   # the kernel's shared-memory tiles hold K - 1 halo rows
-CHUNK_ROWS = 256  # time steps per block of the kernel (kTT * kTiles)
+MAX_KERNEL = 81   # the kernels' shared-memory tiles hold K - 1 halo rows
 # the backward's route, a module constant as in the JAX module: "fused"
 # (K5) or "conv" (dx by the library convolution, dw and db by K6)
 BWD_MODE = "fused"
@@ -106,16 +108,21 @@ def depthwise_bwd_w_plain(x: torch.Tensor, dy: torch.Tensor, k: int
     return dw[:, None, :], dy.sum(dim=(0, 1))
 
 
-def _check_and_scratch(name, x, dy, k):
+def _check_and_scratch(name, x, dy, k, with_dx):
     """Check the kernel's operands; the scratch of per-block partial sums
-    of dw and db that the kernel's second pass adds up."""
+    of dw and db that the kernel's second launch adds up.  Its size
+    follows the launch's chunks of tiles, which the library sizes to the
+    card's SMs (``sep_depthwise_bwd_partial_floats``)."""
     b, t, c = x.shape
     if k % 2 == 0 or k > MAX_KERNEL:
         raise ValueError(f"{name}: kernel {k} is not odd <= {MAX_KERNEL}")
     _build.check_tensor(x, f"{name} x", (b, t, c), x.device, align=4)
     _build.check_tensor(dy, f"{name} dy", (b, t, c), x.device, align=4)
-    return torch.empty(b * -(-t // CHUNK_ROWS) * (k + 1) * c,
-                       dtype=torch.float32, device=x.device)
+    floats = _build.library().sep_depthwise_bwd_partial_floats(
+        b, t, c, k, int(with_dx))
+    if floats < 0:
+        raise RuntimeError(f"{name}: no launch plan for kernel {k}")
+    return torch.empty(floats, dtype=torch.float32, device=x.device)
 
 
 def depthwise_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor
@@ -126,7 +133,7 @@ def depthwise_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor
         return depthwise_bwd_plain(x, weight, dy)
     b, t, c = x.shape
     k = weight.shape[-1]
-    scratch = _check_and_scratch("depthwise_bwd", x, dy, k)
+    scratch = _check_and_scratch("depthwise_bwd", x, dy, k, True)
     _build.check_tensor(weight, "depthwise_bwd weight", (c, 1, k), x.device,
                         align=4)
     dx = torch.empty_like(x)
@@ -149,7 +156,7 @@ def depthwise_bwd_w(x: torch.Tensor, dy: torch.Tensor, k: int
     if x.device.type == "cpu":
         return depthwise_bwd_w_plain(x, dy, k)
     b, t, c = x.shape
-    scratch = _check_and_scratch("depthwise_bwd_w", x, dy, k)
+    scratch = _check_and_scratch("depthwise_bwd_w", x, dy, k, False)
     dw = torch.empty((c, 1, k), dtype=torch.float32, device=x.device)
     db = torch.empty(c, dtype=torch.float32, device=x.device)
     err = _build.library().sep_depthwise_bwd_w_f32(
@@ -159,6 +166,18 @@ def depthwise_bwd_w(x: torch.Tensor, dy: torch.Tensor, k: int
     _build.check_launch("sep_depthwise_bwd_w_f32", err)
     depthwise_bwd_w.launches += 1
     return dw, db
+
+
+def occupancy(k: int) -> Dict[str, Dict[str, int]]:
+    """K5's and K6's launch at ``k`` taps on the current card: blocks per
+    SM, registers, local (spill) bytes and warps per block."""
+    out = (ctypes.c_int * 8)()
+    _build.check_launch("sep_depthwise_bwd_occupancy",
+                        _build.library().sep_depthwise_bwd_occupancy(
+                            k, ctypes.addressof(out)))
+    keys = ("blocks_per_sm", "registers", "local_bytes", "warps")
+    return {name: dict(zip(keys, out[4 * i:4 * i + 4]))
+            for i, name in enumerate(("K5", "K6"))}
 
 
 depthwise_fwd.launches = 0

@@ -125,9 +125,17 @@ def test_softmax_pv_kernel_matches_plain(cuda_device, d, lp, length):
                                **CARD_TOL)
 
 
+# K5 and K6 tile time by 130 rows at k 65 (168 at k 81, 72 at k 9, 8 at
+# k 1): T = 1, T = 40 (under K - 1), T = 261 (one row past two tiles),
+# T = 169 at k 81 (one row past a tile), k 1, and C = 6 (4-byte copies,
+# one partial channel group) beside the train path's shapes.
+DEPTHWISE_BWD_SHAPES = [(4, 8000, 128, 65), (2, 500, 128, 65), (3, 77, 40, 9),
+                        (2, 1, 128, 65), (2, 40, 128, 65), (2, 261, 128, 65),
+                        (2, 169, 40, 81), (2, 300, 128, 1), (3, 500, 6, 65)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,c,k", [(4, 8000, 128, 65), (2, 500, 128, 65),
-                                     (3, 77, 40, 9)])
+@pytest.mark.parametrize("b,t,c,k", DEPTHWISE_BWD_SHAPES)
 def test_depthwise_bwd_kernel_matches_plain(cuda_device, b, t, c, k):
     gen = torch.Generator().manual_seed(6)
     x = torch.randn(b, t, c, generator=gen).to(cuda_device)
@@ -548,8 +556,7 @@ def test_flash_kernel_gradient_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,c,k", [(4, 8000, 128, 65), (2, 500, 128, 65),
-                                     (3, 77, 40, 9)])
+@pytest.mark.parametrize("b,t,c,k", DEPTHWISE_BWD_SHAPES)
 def test_depthwise_bwd_w_kernel_matches_plain(cuda_device, b, t, c, k):
     gen = torch.Generator().manual_seed(16)
     x = torch.randn(b, t, c, generator=gen).to(cuda_device)
