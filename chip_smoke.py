@@ -20,18 +20,22 @@ Phases, each of which fails the run:
                two-tensor forms K3b (beside K3's shape) and K9b/K10b
                (beside K9's and K10's); times of the kernel, the plain
                version, a library call where one exists, and the least
-               time the card could take (for K1, K7, K8, K12, K14, K15
-               and K16, which take their products on the tensor cores as
-               3xTF32, with those products and their exponentials at the
-               tensor cores' and the SFUs' rates, and the CUDA-core bound
-               of earlier readings on a line before; K1's products
-               counted on the rows its lengths need), K5's, K6's,
-               K8's, K14's and K15's times by launch, K5's, K6's, K10's,
-               K15's and K16's blocks per SM and five timings with their
-               median (K5's and K6's registers and spills too), K1's,
-               K5's, K6's, K7's, K8's, K10's, K12's, K14's, K15's and
-               K16's bits on a repeat call, K7's and its plain version's
-               distance from a float64 run; and the port's
+               time the card could take (for K1, K3, K3b, K7, K8, K9,
+               K9b, K12, K14, K15 and K16, which take their products on
+               the tensor cores as 3xTF32, with those products and their
+               exponentials at the tensor cores' and the SFUs' rates, and
+               the CUDA-core bound of earlier readings on a line before;
+               K1's products counted on the rows its lengths need), K5's,
+               K6's, K8's, K14's and K15's times by launch, K3's, K3b's,
+               K5's, K6's, K9's, K9b's, K10's, K15's and K16's blocks per
+               SM and five timings with their median (K3's, K3b's, K5's,
+               K6's, K9's and K9b's warps, registers and spills too),
+               K1's, K3's, K5's, K6's, K7's, K8's, K9's, K10's, K12's,
+               K14's, K15's and K16's bits on a repeat call, K7's and its
+               plain version's distance from a float64 run, K3's and K9's
+               five timings also with the calls taken in turn over copies
+               of their scores whose total exceeds twice the L2, so each
+               call reads its scores from memory; and the port's
                scores producer followed by K3 against a two-tensor
                producer (no add pass) followed by K3b, at K3's shape.
 3. serve     - Base at full width, seeded weights: three requests through
@@ -265,6 +269,34 @@ def launch_split(torch, fn, symbol, labels, iters=20, attempts=3):
     return ms
 
 
+def past_l2_timings(torch, device_ms, run, tensor, symbol, bound,
+                    timings=5):
+    """Timings of ``run(tensor)`` as ``record`` takes them, but with the
+    calls taken in turn over copies of ``tensor`` whose total exceeds
+    twice the card's L2: back-to-back calls on one tensor find part of it
+    in L2, these read it from memory.  Prints them beside the byte bound
+    ``bound`` and returns their median."""
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    nbytes = tensor.numel() * tensor.element_size()
+    copies = [tensor] + [tensor.clone() for _ in range(2 * l2 // nbytes + 1)]
+    turn = [0]
+
+    def call():
+        turn[0] += 1
+        return run(copies[turn[0] % len(copies)])
+
+    times = [device_ms(call, kernel=symbol) for _ in range(timings)]
+    median = statistics.median(times)
+    print(f"[kernels] {symbol}: over {len(copies)} score tensors in turn "
+          f"({len(copies) * nbytes / 1e6:.0f} MB, L2 {l2 / 1e6:.0f} MB): "
+          f"{timings} timings " + ", ".join(f"{ms:.4f}" for ms in times)
+          + f" ms, median {median:.4f}, {median / bound:.2f}x the byte bound "
+          f"{bound:.4f} ms")
+    del copies
+    torch.cuda.empty_cache()
+    return median
+
+
 def relpos_pairs(length, klens, maxlen):
     """(query, valid key) pairs of one head over the rows ``klens``, and
     (query, distinct clamped table row its valid keys reach) pairs."""
@@ -303,9 +335,19 @@ def kernel_phase(torch, K, device_ms):
     from sepreformer_torch.ops.kernels.depthwise import (
         occupancy as depthwise_occupancy,
     )
+    from sepreformer_torch.ops.kernels.softmax_pv import (
+        occupancy as softmax_pv_occupancy,
+    )
     from sepreformer_torch.ops.kernels.softmax_pv_train import (
         bwd_blocks_per_sm,
+        fwd_occupancy,
     )
+
+    def print_occupancy(occupancy):
+        for name, occ in occupancy.items():
+            print(f"[kernels] {name}: {occ['warps']} warps, "
+                  f"{occ['blocks_per_sm']} blocks per SM, {occ['registers']} "
+                  f"registers, {occ['local_bytes']} local (spill) bytes")
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -423,18 +465,28 @@ def kernel_phase(torch, K, device_ms):
     masked = torch.where(kmask[:, None, None, :], scores,
                          torch.tensor(-1e30, device=dev))
     vh = v.reshape(b, lp, heads, d).permute(0, 2, 1, 3).contiguous()
+    bit_equal("softmax_pv", lambda: K.softmax_pv(scores, v, klens, length))
+    print_occupancy(softmax_pv_occupancy())
     keys = sum(klens.tolist())               # valid keys over the batch
+    pairs = heads * lp * keys                # (query, valid key) pairs
     record(K.softmax_pv, lambda: K.softmax_pv(scores, v, klens, length),
            lambda: K.softmax_pv_plain(scores, v, klens, length),
            lambda: torch.matmul(torch.softmax(masked, dim=-1), vh),
            (got - ref).abs().max().item(),
            4 * (heads * lp * keys + keys * f + b * lp * f + b),
-           heads * lp * keys * (2 * d + 4),
+           # the online softmax's max, exponent argument and sum per pair
+           3 * pairs,
            source="sepreformer_torch/csrc/softmax_pv.cu",
            replaces="sepreformer_tpu/ops/pallas/softmax_pv.py:342",
            shape=(f"scores [{b}, {heads}, {lp}, {lp}], v [{b}, {lp}, {f}], "
                   f"lens {klens.tolist()}, length {length}"),
-           tolerance="rtol 1e-4, atol 1e-5 (float32)")
+           tolerance="rtol 1e-4, atol 1e-5 (float32)",
+           # P·V on the tensor cores; one exponential per pair
+           tc_flops=2 * d * pairs, exps=pairs,
+           cuda_core_flops=pairs * (2 * d + 4), timings=5)
+    past_l2_timings(torch, device_ms,
+                    lambda s: K.softmax_pv(s, v, klens, length), scores,
+                    KERNEL_SYMBOLS["softmax_pv"], results[-1]["bound_ms"])
 
     # K5: the widest k65 conv of a B=2 x 4 s train batch, in a decoder
     # stage (B*spks = 4 rows of 8000 frames)
@@ -450,10 +502,8 @@ def kernel_phase(torch, K, device_ms):
         a.flatten() for a in K.depthwise_bwd(x, w, dy)]))
     bit_equal("depthwise_bwd_w", lambda: torch.cat([
         a.flatten() for a in K.depthwise_bwd_w(x, dy, k)]))
-    for name, occ in depthwise_occupancy(k).items():
-        print(f"[kernels] depthwise {name} at k {k}: {occ['warps']} warps, "
-              f"{occ['blocks_per_sm']} blocks per SM, {occ['registers']} "
-              f"registers, {occ['local_bytes']} local (spill) bytes")
+    print_occupancy({f"depthwise {name} at k {k}": occ for name, occ in
+                     depthwise_occupancy(k).items()})
     xp = torch.nn.functional.pad(x.transpose(1, 2), (k // 2, k // 2))
     dy_ncw = dy.transpose(1, 2).contiguous()
     record(K.depthwise_bwd, lambda: K.depthwise_bwd(x, w, dy),
@@ -582,7 +632,12 @@ def kernel_phase(torch, K, device_ms):
     p = 0.05
     out, row_max, row_sum = K.softmax_pv_train_fwd(scores, v, seed, key_len,
                                                    length, p)
+    bit_equal("softmax_pv_train_fwd", lambda: torch.cat([
+        a.flatten() for a in K.softmax_pv_train_fwd(scores, v, seed, key_len,
+                                                    length, p)]))
+    print_occupancy(fwd_occupancy())
     keys = b * length
+    pairs = heads * lp * keys
     record(K.softmax_pv_train_fwd,
            lambda: K.softmax_pv_train_fwd(scores, v, seed, key_len, length,
                                           p),
@@ -592,12 +647,21 @@ def kernel_phase(torch, K, device_ms):
            # the function's own bytes: scores and V of the valid keys in,
            # out written; the row stats are this design's residuals
            4 * (heads * lp * keys + keys * f + b * lp * f),
-           heads * lp * keys * (2 * d + 4),
+           # the online softmax's three operations and the hash's fifteen
+           # integer ones per pair
+           18 * pairs,
            source="sepreformer_torch/csrc/softmax_pv_train.cu",
            replaces="sepreformer_tpu/ops/pallas/softmax_pv_train.py:221",
            shape=(f"scores [{b}, {heads}, {lp}, {lp}], v [{b}, {lp}, {f}], "
                   f"length {length}, p 0.05 and 0"),
-           tolerance="rtol 1e-4, atol 1e-5 (float32)")
+           tolerance="rtol 1e-4, atol 1e-5 (float32)",
+           tc_flops=2 * d * pairs, exps=pairs,
+           cuda_core_flops=pairs * (2 * d + 4), timings=5)
+    past_l2_timings(torch, device_ms,
+                    lambda s: K.softmax_pv_train_fwd(s, v, seed, key_len,
+                                                     length, p),
+                    scores, KERNEL_SYMBOLS["softmax_pv_train_fwd"],
+                    results[-1]["bound_ms"])
     ds, dv = K.softmax_pv_train_bwd(scores, v, out, dout, row_max, row_sum,
                                     seed, key_len, length, p)
     ds_ref, dv_ref = K.softmax_pv_dropout_bwd_plain(scores, v, seed, None,
@@ -692,12 +756,15 @@ def bias_kernel_rows(torch, K, device_ms, randn, record):
            library, (got - ref).abs().max().item(),
            # both score tensors and V of the valid keys in, out written
            4 * (2 * heads * lp * keys + keys * f + b * lp * f + b),
-           heads * lp * keys * (2 * d + 5),
+           # the add and the online softmax's three operations per pair
+           4 * heads * lp * keys,
            source="sepreformer_torch/csrc/softmax_pv.cu",
            replaces="sepreformer_tpu/ops/pallas/softmax_pv.py:288",
            shape=(f"scores, bias [{b}, {heads}, {lp}, {lp}], v [{b}, {lp}, "
                   f"{f}], lens {klens.tolist()}, length {length}"),
-           tolerance="rtol 1e-4, atol 1e-5 (float32)")
+           tolerance="rtol 1e-4, atol 1e-5 (float32)",
+           tc_flops=2 * d * heads * lp * keys, exps=heads * lp * keys,
+           cuda_core_flops=heads * lp * keys * (2 * d + 5), timings=5)
 
     # the producers at the same shape: q, k [8, 500, 8, 16], Base's table
     maxlen = 2000
@@ -743,12 +810,15 @@ def bias_kernel_rows(torch, K, device_ms, randn, record):
                                               p, bias),
            None, (out - ref).abs().max().item(),
            4 * (2 * heads * lp * keys + keys * f + b * lp * f),
-           heads * lp * keys * (2 * d + 5),
+           # the add, the softmax's three and the hash's fifteen per pair
+           19 * heads * lp * keys,
            source="sepreformer_torch/csrc/softmax_pv_train.cu",
            replaces="sepreformer_tpu/ops/pallas/softmax_pv_train.py:221",
            shape=(f"scores, bias [{b}, {heads}, {lp}, {lp}], v [{b}, {lp}, "
                   f"{f}], length {length}, p {p}"),
-           tolerance="rtol 1e-4, atol 1e-5 (float32)")
+           tolerance="rtol 1e-4, atol 1e-5 (float32)",
+           tc_flops=2 * d * heads * lp * keys, exps=heads * lp * keys,
+           cuda_core_flops=heads * lp * keys * (2 * d + 5), timings=5)
     ds, dv = K.softmax_pv_train_bwd_bias(scores, bias, v, out, dout, row_max,
                                          row_sum, seed, key_len, length, p)
     ds_ref, dv_ref = K.softmax_pv_dropout_bwd_plain(scores, v, seed, None,

@@ -21,8 +21,8 @@ from dataclasses import replace
 from typing import Optional
 
 NOT_PORTED = {
-    "--data-parallel": "ROADMAP.md queue A, item 9 (parallel/)",
-    "--model-parallel": "ROADMAP.md queue A, item 9 (parallel/)",
+    "--data-parallel": "ROADMAP.md queue A, parallel/",
+    "--model-parallel": "ROADMAP.md queue A, parallel/",
 }
 
 

@@ -226,7 +226,8 @@ def from_reference_yaml(path: str | pathlib.Path,
     sep = m["module_separator"]
     rel = sep["relative_positional_encoding"]
     if rel.get("embed_v", False):
-        raise ValueError("embed_v is not ported (ROADMAP A.7)")
+        raise ValueError(
+            "embed_v is not ported (ROADMAP.md queue A, the other variants)")
     model = ModelConfig(
         num_stages=m["num_stages"],
         num_spks=m["num_spks"],

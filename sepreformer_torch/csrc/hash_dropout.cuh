@@ -24,6 +24,35 @@ static __device__ __forceinline__ bool sep_keep(uint32_t seed_word,
   return (h >> 8) >= threshold;
 }
 
+// sep_keep split in halves, for a kernel that tests many (row, col) pairs
+// of a few rows and columns (K9's tile): the hash's first step xors the
+// row's and the column's words, and its first xor-shift distributes over
+// that xor, so h ^ (h >> 15) = sep_row_half(seed_word, row) ^
+// sep_col_half(col).  sep_keep_halves(row half, col half, threshold << 8)
+// is sep_keep(seed_word, row, col, threshold) bit for bit, for threshold
+// < 2^24 ((h >> 8) >= threshold is h >= threshold << 8 there).
+static __device__ __forceinline__ uint32_t sep_row_half(uint32_t seed_word,
+                                                        uint32_t row) {
+  const uint32_t h = (row * 0x9E3779B1u) ^ seed_word;
+  return h ^ (h >> 15);
+}
+
+static __device__ __forceinline__ uint32_t sep_col_half(uint32_t col) {
+  const uint32_t h = col * 0x85EBCA77u;
+  return h ^ (h >> 15);
+}
+
+static __device__ __forceinline__ bool sep_keep_halves(uint32_t row_half,
+                                                       uint32_t col_half,
+                                                       uint32_t threshold8) {
+  uint32_t h = row_half ^ col_half;
+  h *= 0x2C1B3C6Du;
+  h ^= h >> 12;
+  h *= 0x297A2D39u;
+  h ^= h >> 15;
+  return h >= threshold8;
+}
+
 // The two sites of the GCFN's train kernels (K7, K8): g after the GLU at
 // site 0, the down-projection at site 1.
 struct GcfnDrop {

@@ -30,11 +30,9 @@
 // do a few tens of operations per score, so both are bound by bytes.  The
 // two-tensor forms read the bias's bytes too.
 //
-// Design.  K9 is K3's kernel (csrc/softmax_pv.cu) with the mask applied to
-// the numerator only: one block per (64 query rows, head, batch) streams
-// the keys in chunks of V staged in shared memory, one warp per row, with
-// an online softmax across chunks; it also writes each row's max and sum,
-// which the backward reuses.
+// Design.  K9 (and K9b) is the tile of csrc/softmax_pv_tile.cuh, K3's
+// too, with the mask applied to the numerator only and each row's max
+// and sum written out, which the backward reuses.
 //
 // K10's sum over query rows for dV is the part the TPU did in one grid
 // step per (b, h): here one block takes 64 keys of one (b, h) and walks
@@ -63,162 +61,22 @@
 
 #include "hash_dropout.cuh"
 #include "mma_tf32x3.cuh"  // cp_async16, cp_async4 and their group helpers
+#include "softmax_pv_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;            // K10
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 64;               // K9: query rows per block
-constexpr int kSmemBytes = 48 * 1024;   // the default dynamic smem limit
 constexpr int kKeyTile = 64;            // K10: keys per block
 constexpr int kStageRows = 32;          // K10: query rows per stage
 constexpr int kStages = 4;              // K10: stages in the ring
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-template <int D>
-struct FwdShape {
-  static constexpr int RS = D / 4 + 1;  // staged V row stride in float4
-  static constexpr int kStateBytes = sizeof(float) * kRows * (D + 2);
-  static constexpr int KC = ((kSmemBytes - kStateBytes) / (RS * 16)) / 32 * 32;
-  static constexpr size_t smem_bytes =
-      sizeof(float4) * (size_t)KC * RS + kStateBytes;
-};
-
-template <int D, bool HAS_BIAS>
-__global__ void __launch_bounds__(kThreads)
-softmax_pv_train_fwd_kernel(const float* __restrict__ scores,
-                            const float* __restrict__ bias,
-                            const float* __restrict__ v,
-                            const int* __restrict__ lens,
-                            float* __restrict__ out,
-                            float* __restrict__ row_max_out,
-                            float* __restrict__ row_sum_out, int H, int Lp,
-                            int F, int length, uint32_t seed_word,
-                            uint32_t threshold, float keep_scale) {
-  using S = FwdShape<D>;
-  constexpr int RS = S::RS, KC = S::KC, NPL = KC / 32;
-  extern __shared__ __align__(16) float4 smem4[];
-  float4* vs = smem4;                                       // [KC][RS]
-  float* row_m = reinterpret_cast<float*>(smem4 + KC * RS);  // [kRows]
-  float* row_l = row_m + kRows;                             // [kRows]
-  float* row_acc = row_l + kRows;                           // [kRows][D]
-
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int i0 = blockIdx.x * kRows;
-  const int rows = min(kRows, Lp - i0);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int lim = min(min(length, lens[b]), Lp);
-  const uint32_t row_base = (uint32_t)((b * H + h) * Lp + i0);
-
-  for (int r = threadIdx.x; r < kRows; r += kThreads) {
-    row_m[r] = -INFINITY;
-    row_l[r] = 0.f;
-  }
-  for (int e = threadIdx.x; e < kRows * D; e += kThreads) row_acc[e] = 0.f;
-
-  const float* vb = v + (size_t)b * Lp * F + h * D;
-  const float* sb = scores + ((size_t)b * H + h) * Lp * Lp;
-
-  for (int k0 = 0; k0 < lim; k0 += KC) {
-    const int kc = min(KC, lim - k0);
-    __syncthreads();  // previous chunk fully consumed (and state zeroed)
-    for (int e = threadIdx.x; e < kc * (D / 4); e += kThreads) {
-      const int j = e / (D / 4), q = e - j * (D / 4);
-      vs[j * RS + q] =
-          reinterpret_cast<const float4*>(vb + (size_t)(k0 + j) * F)[q];
-    }
-    __syncthreads();
-
-    for (int r = warp; r < rows; r += kWarps) {
-      const size_t row_off = (size_t)(i0 + r) * Lp + k0;
-      const float* srow = sb + row_off;
-      float sv[NPL];
-#pragma unroll
-      for (int q = 0; q < NPL; ++q) {
-        const int j = lane + 32 * q;
-        sv[q] = j < kc ? srow[j] : -INFINITY;
-      }
-      if constexpr (HAS_BIAS) {
-        const float* brow = bias + ((size_t)b * H + h) * Lp * Lp + row_off;
-#pragma unroll
-        for (int q = 0; q < NPL; ++q) {
-          const int j = lane + 32 * q;
-          if (j < kc) sv[q] += brow[j];
-        }
-      }
-      float m = -INFINITY;
-#pragma unroll
-      for (int q = 0; q < NPL; ++q) m = fmaxf(m, sv[q]);
-      const float m_chunk = warp_max(m);
-      float l = 0.f;
-      float acc[D];
-#pragma unroll
-      for (int c = 0; c < D; ++c) acc[c] = 0.f;
-#pragma unroll
-      for (int q = 0; q < NPL; ++q) {
-        const int j = lane + 32 * q;
-        if (j < kc) {
-          const float p = expf(sv[q] - m_chunk);
-          l += p;
-          float pd = p;
-          if (threshold)
-            pd = sep_keep(seed_word, row_base + r, (uint32_t)(k0 + j),
-                          threshold)
-                     ? p * keep_scale
-                     : 0.f;
-#pragma unroll
-          for (int c4 = 0; c4 < D / 4; ++c4) {
-            const float4 vv = vs[j * RS + c4];
-            acc[4 * c4 + 0] += pd * vv.x;
-            acc[4 * c4 + 1] += pd * vv.y;
-            acc[4 * c4 + 2] += pd * vv.z;
-            acc[4 * c4 + 3] += pd * vv.w;
-          }
-        }
-      }
-      const float l_chunk = warp_sum(l);
-      const float m_old = row_m[r];
-      const float m_new = fmaxf(m_old, m_chunk);
-      const float c_old = (m_old == -INFINITY) ? 0.f : expf(m_old - m_new);
-      const float c_chunk = expf(m_chunk - m_new);
-      float mine = 0.f;
-#pragma unroll
-      for (int c = 0; c < D; ++c) {
-        const float a = warp_sum(acc[c]);
-        if (lane == c) mine = a;
-      }
-      if (lane < D)
-        row_acc[r * D + lane] = row_acc[r * D + lane] * c_old + mine * c_chunk;
-      __syncwarp();
-      if (lane == 0) {
-        row_l[r] = row_l[r] * c_old + l_chunk * c_chunk;
-        row_m[r] = m_new;
-      }
-    }
-  }
-  __syncthreads();
-
-  for (int e = threadIdx.x; e < rows * D; e += kThreads) {
-    const int r = e / D, c = e - r * D;
-    out[((size_t)b * Lp + i0 + r) * F + h * D + c] = row_acc[e] / row_l[r];
-  }
-  const size_t stat = ((size_t)b * H + h) * Lp + i0;
-  for (int r = threadIdx.x; r < rows; r += kThreads) {
-    row_max_out[stat + r] = row_m[r];
-    row_sum_out[stat + r] = row_l[r];
-  }
+template <int SPLIT, bool HAS_BIAS>
+__global__ void __launch_bounds__(softmax_pv_tile::kThreads,
+                                  HAS_BIAS ? softmax_pv_tile::kMinBlocksBias
+                                           : softmax_pv_tile::kMinBlocks)
+softmax_pv_train_fwd_kernel(softmax_pv_tile::Args a) {
+  softmax_pv_tile::run<SPLIT, HAS_BIAS, true>(a);
 }
 
 // K10's stage of the ring: kStageRows query rows of one (b, h) against the
@@ -475,20 +333,6 @@ softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
 }
 
 template <int D, bool HAS_BIAS>
-int launch_fwd(const float* scores, const float* bias, const float* v,
-               const int* lens, float* out, float* row_max, float* row_sum,
-               int B, int H, int Lp, int F, int length, uint32_t seed_word,
-               uint32_t threshold, float keep_scale, cudaStream_t stream) {
-  constexpr size_t smem = FwdShape<D>::smem_bytes;
-  static_assert(smem <= kSmemBytes, "fits the default smem limit");
-  dim3 grid((Lp + kRows - 1) / kRows, H, B);
-  softmax_pv_train_fwd_kernel<D, HAS_BIAS><<<grid, kThreads, smem, stream>>>(
-      scores, bias, v, lens, out, row_max, row_sum, H, Lp, F, length,
-      seed_word, threshold, keep_scale);
-  return (int)cudaGetLastError();
-}
-
-template <int D, bool HAS_BIAS>
 cudaError_t set_bwd_attributes() {
   return cudaFuncSetAttribute(softmax_pv_train_bwd_kernel<D, HAS_BIAS>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -512,14 +356,6 @@ int launch_bwd(const float* scores, const float* bias, const float* v,
   return (int)cudaGetLastError();
 }
 
-int check(int B, int H, int Lp, int F, int length) {
-  if (H <= 0 || F % H != 0 || length < 1 || length > Lp || B > 65535 ||
-      H > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (F / H != 16) return (int)cudaErrorInvalidValue;
-  return 0;
-}
-
 }  // namespace
 
 // scores: device float32 [B, H, Lp, Lp]; v, out: [B, Lp, F] with F = H*D
@@ -532,14 +368,11 @@ extern "C" int sep_softmax_pv_train_fwd_f32(
     void* row_max, void* row_sum, int B, int H, int Lp, int F, int length,
     unsigned int seed_word, unsigned int threshold, float keep_scale,
     void* stream) {
-  if (B <= 0 || Lp <= 0) return 0;
-  if (int err = check(B, H, Lp, F, length)) return err;
-  return launch_fwd<16, false>(
-      static_cast<const float*>(scores), nullptr,
-      static_cast<const float*>(v), static_cast<const int*>(lens),
-      static_cast<float*>(out), static_cast<float*>(row_max),
-      static_cast<float*>(row_sum), B, H, Lp, F, length, seed_word,
-      threshold, keep_scale, static_cast<cudaStream_t>(stream));
+  return softmax_pv_tile::launch(softmax_pv_train_fwd_kernel<1, false>,
+                                 softmax_pv_train_fwd_kernel<2, false>,
+                                 scores, nullptr, v, lens, out, row_max,
+                                 row_sum, B, H, Lp, F, length, seed_word,
+                                 threshold, keep_scale, stream);
 }
 
 // K9b: the same on scores + bias, bias a second [B, H, Lp, Lp] tensor.
@@ -548,14 +381,11 @@ extern "C" int sep_softmax_pv_train_fwd_bias_f32(
     void* out, void* row_max, void* row_sum, int B, int H, int Lp, int F,
     int length, unsigned int seed_word, unsigned int threshold,
     float keep_scale, void* stream) {
-  if (B <= 0 || Lp <= 0) return 0;
-  if (int err = check(B, H, Lp, F, length)) return err;
-  return launch_fwd<16, true>(
-      static_cast<const float*>(scores), static_cast<const float*>(bias),
-      static_cast<const float*>(v), static_cast<const int*>(lens),
-      static_cast<float*>(out), static_cast<float*>(row_max),
-      static_cast<float*>(row_sum), B, H, Lp, F, length, seed_word,
-      threshold, keep_scale, static_cast<cudaStream_t>(stream));
+  return softmax_pv_tile::launch(softmax_pv_train_fwd_kernel<1, true>,
+                                 softmax_pv_train_fwd_kernel<2, true>, scores,
+                                 bias, v, lens, out, row_max, row_sum, B, H,
+                                 Lp, F, length, seed_word, threshold,
+                                 keep_scale, stream);
 }
 
 // The forward's inputs, its out, row_max and row_sum, and dout [B, Lp, F];
@@ -567,7 +397,7 @@ extern "C" int sep_softmax_pv_train_bwd_f32(
     unsigned int seed_word, unsigned int threshold, float keep_scale,
     void* stream) {
   if (B <= 0 || Lp <= 0) return 0;
-  if (int err = check(B, H, Lp, F, length)) return err;
+  if (int err = softmax_pv_tile::check(B, H, Lp, F, length)) return err;
   return launch_bwd<16, false>(
       static_cast<const float*>(scores), nullptr,
       static_cast<const float*>(v), static_cast<const float*>(out),
@@ -586,7 +416,7 @@ extern "C" int sep_softmax_pv_train_bwd_bias_f32(
     int length, unsigned int seed_word, unsigned int threshold,
     float keep_scale, void* stream) {
   if (B <= 0 || Lp <= 0) return 0;
-  if (int err = check(B, H, Lp, F, length)) return err;
+  if (int err = softmax_pv_tile::check(B, H, Lp, F, length)) return err;
   return launch_bwd<16, true>(
       static_cast<const float*>(scores), static_cast<const float*>(bias),
       static_cast<const float*>(v), static_cast<const float*>(out),
@@ -611,5 +441,23 @@ extern "C" int sep_softmax_pv_train_bwd_blocks_per_sm(void* blocks) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         n + 1, softmax_pv_train_bwd_kernel<16, true>, kThreads,
         BwdStage<true>::smem_bytes);
+  return (int)err;
+}
+
+// The occupancy (softmax_pv_tile::occupancy) of K9 at SPLIT 1 and 2, then
+// of K9b at SPLIT 1 and 2, into out[0 .. 15].
+extern "C" int sep_softmax_pv_train_fwd_occupancy(void* out) {
+  int* o = static_cast<int*>(out);
+  cudaError_t err =
+      softmax_pv_tile::occupancy(softmax_pv_train_fwd_kernel<1, false>, o);
+  if (err == cudaSuccess)
+    err = softmax_pv_tile::occupancy(softmax_pv_train_fwd_kernel<2, false>,
+                                     o + 4);
+  if (err == cudaSuccess)
+    err = softmax_pv_tile::occupancy(softmax_pv_train_fwd_kernel<1, true>,
+                                     o + 8);
+  if (err == cudaSuccess)
+    err = softmax_pv_tile::occupancy(softmax_pv_train_fwd_kernel<2, true>,
+                                     o + 12);
   return (int)err;
 }

@@ -93,6 +93,10 @@ SIGNATURES = {
     "sep_cla_blocks_per_sm": [_P],
     # int* blocks -> K10's (and K10b's) blocks per SM
     "sep_softmax_pv_train_bwd_blocks_per_sm": [_P],
+    # int out[16] -> K3's and K3b's (K9's and K9b's) blocks per SM,
+    # registers, local bytes, warps, at SPLIT 1 and 2
+    "sep_softmax_pv_occupancy": [_P],
+    "sep_softmax_pv_train_fwd_occupancy": [_P],
     # B, T, C, K, with_dx -> floats of K5's (K6's) scratch
     "sep_depthwise_bwd_partial_floats": [_I] * 5,
     # K, int out[8] -> K5's and K6's blocks per SM, registers, local

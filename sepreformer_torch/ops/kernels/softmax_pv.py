@@ -10,7 +10,8 @@ package's ``custom_vjp`` recomputes its reference.
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Dict, Optional
 
 import torch
 
@@ -122,6 +123,25 @@ def softmax_pv(scores: torch.Tensor, v: torch.Tensor,
     if lens is not None:
         torch._assert_async(key_len.min() >= 1)  # no host sync
     return _with_grad(_launch, scores, v, key_len, length, bias)
+
+
+def tile_occupancy(entry: str, form: str) -> Dict[str, Dict[str, int]]:
+    """Blocks per SM, registers, local (spill) bytes and warps per block of
+    the four kernels that ``entry`` reports (csrc/softmax_pv_tile.cuh's
+    ``occupancy``: ``form`` at SPLIT 1 and 2, then its bias form), on the
+    current card."""
+    out = (ctypes.c_int * 16)()
+    _build.check_launch(entry, getattr(_build.library(), entry)(
+        ctypes.addressof(out)))
+    keys = ("blocks_per_sm", "registers", "local_bytes", "warps")
+    names = [f"{form}{b} split {s}" for b in ("", "b") for s in (1, 2)]
+    return {name: dict(zip(keys, out[4 * i:4 * i + 4]))
+            for i, name in enumerate(names)}
+
+
+def occupancy() -> Dict[str, Dict[str, int]]:
+    """K3's and K3b's launches on the current card."""
+    return tile_occupancy("sep_softmax_pv_occupancy", "K3")
 
 
 softmax_pv.launches = 0

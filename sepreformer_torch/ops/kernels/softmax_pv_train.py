@@ -29,6 +29,7 @@ from sepreformer_torch.ops.kernels.softmax_pv import (
     NEG_INF,
     SUPPORTED_HEAD_DIMS,
     _key_lens,
+    tile_occupancy,
 )
 
 MAX_LENGTH = 512   # the JAX package's train kernel's padded-length limit
@@ -206,6 +207,11 @@ def bwd_blocks_per_sm() -> Tuple[int, int]:
                         _build.library().sep_softmax_pv_train_bwd_blocks_per_sm(
                             ctypes.addressof(blocks)))
     return blocks[0], blocks[1]
+
+
+def fwd_occupancy():
+    """K9's and K9b's launches on the current card (``tile_occupancy``)."""
+    return tile_occupancy("sep_softmax_pv_train_fwd_occupancy", "K9")
 
 
 softmax_pv_train_fwd.launches = 0

@@ -38,7 +38,7 @@ def busy_us(events: List[Tuple[str, float, float]]) -> float:
 
 
 def device_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3,
-              kernel: Optional[str] = None, attempts: int = 3) -> float:
+              kernel: Optional[str] = None, attempts: int = 5) -> float:
     """Device time of one call of ``fn`` in ms: the summed durations of
     the kernels that ``iters`` calls ran (only those whose name contains
     ``kernel``, when given), over ``iters``.  Every call runs the same
@@ -46,7 +46,7 @@ def device_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3,
     ``iters`` has dropped records (the profiler can drop some of a
     window's kernel records, and did on an H100: a kernel read at 30 % of
     its time).  Such a trace, or one with none of them, is taken again,
-    up to ``attempts`` times, and then raises."""
+    up to ``attempts`` times, and then raises with the counts it saw."""
     import torch
 
     for _ in range(warmup):
@@ -54,6 +54,7 @@ def device_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3,
     torch.cuda.synchronize()
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
+    counts = []
     for _ in range(attempts):
         with torch.profiler.profile(activities=activities) as prof:
             for _ in range(iters):
@@ -63,5 +64,7 @@ def device_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3,
                      if kernel is None or kernel in name]
         if durations and len(durations) % iters == 0:
             return sum(durations) / iters / 1e3
+        counts.append(len(durations))
     raise RuntimeError(f"device_ms: no whole trace of kernel "
-                       f"{kernel or ''} in {attempts} traces")
+                       f"{kernel or ''} in {attempts} traces of {iters} "
+                       f"calls (kernels counted: {counts})")

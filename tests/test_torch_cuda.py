@@ -110,19 +110,45 @@ def test_relpos_kernel_matches_plain(cuda_device):
     assert torch.equal(got, materialize_pos_kt_plain(table, 512, 2000))
 
 
+# K3's and K3b's tile walks 64 keys at a time, 16 query rows a warp, 64
+# a block: b, h, Lp, length and lens (None: length, length // 2, 1).
+# Lp 2048 and 8192 take many key tiles (8192 is the longest bottleneck
+# length the eval route gives K3); Lp 77 is odd (4-byte loads) and ends
+# inside a block; Lp 17 leaves most of a block's rows past Lp; Lp 136
+# with lens 65 has lim one key into a tile; every case but 8192's holds
+# a row with one valid key.  The launcher splits a row tile's keys over
+# two warps where blocks of 128 rows would give no SM a second block
+# (every case here but Lp 2048 and the last two, which walk them whole).
+SOFTMAX_PV_SHAPES = [(3, 4, 512, 500, None), (3, 4, 2048, 1900, None),
+                     (3, 4, 128, 77, None), (1, 2, 8192, 8192, (8000,)),
+                     (3, 4, 17, 17, (17, 9, 1)), (3, 4, 77, 77, (1, 77, 40)),
+                     (2, 4, 136, 130, (65, 1)),
+                     (16, 9, 136, 130, (65, 1, 130, 129) * 4),
+                     (24, 8, 77, 77, (77, 1, 40) * 8)]
+
+
+def softmax_pv_case(device, b, h, lp, length, lens, seed):
+    gen = torch.Generator().manual_seed(seed)
+    scores = (torch.randn(b, h, lp, lp, generator=gen) * 3).to(device)
+    bias = (torch.randn(b, h, lp, lp, generator=gen) * 2).to(device)
+    v = torch.randn(b, lp, h * 16, generator=gen).to(device)
+    lens = torch.tensor([length, length // 2, 1] if lens is None else lens,
+                        device=device)
+    return scores, bias, v, lens
+
+
 @pytest.mark.cuda
-# lp=2048 takes several key chunks: the online softmax across chunks
-@pytest.mark.parametrize("d,lp,length", [(16, 512, 500), (16, 2048, 1900),
-                                         (16, 128, 77)])
-def test_softmax_pv_kernel_matches_plain(cuda_device, d, lp, length):
-    b, h = 3, 4
-    scores = torch.randn(b, h, lp, lp, device=cuda_device) * 3
-    v = torch.randn(b, lp, h * d, device=cuda_device)
-    lens = torch.tensor([length, length // 2, 1], device=cuda_device)
+@pytest.mark.parametrize("b,h,lp,length,lens", SOFTMAX_PV_SHAPES)
+def test_softmax_pv_kernel_matches_plain(cuda_device, b, h, lp, length,
+                                         lens):
+    scores, _, v, lens = softmax_pv_case(cuda_device, b, h, lp, length,
+                                         lens, seed=3)
     got = softmax_pv(scores, v, lens, length)
+    again = softmax_pv(scores, v, lens, length)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, softmax_pv_plain(scores, v, lens, length),
                                **CARD_TOL)
+    assert torch.equal(got, again)    # no atomics: the same bits every run
 
 
 # K5 and K6 tile time by 130 rows at k 65 (168 at k 81, 72 at k 9, 8 at
@@ -158,9 +184,13 @@ def test_depthwise_bwd_kernel_matches_plain(cuda_device, b, t, c, k):
 # with length 500 is the train path's shape; Lp 136 with length 130 ends
 # a row stage 8 rows in and a key block 2 keys past lim (keys 130..135
 # are padding, dS 0); Lp 77 (odd) takes the 4-byte copies and scalar dS
-# stores.  The ragged lens hold 1: a single valid key.
+# stores.  The ragged lens hold 1: a single valid key.  K9's and K9b's
+# tile (K3's) meets lim one key into a tile at lens 65 and 129, at Lp 17
+# a block that is mostly rows past Lp, and at Lp 640 (more blocks of 128
+# rows than SMs) walks each row tile's keys in one warp.
 K10_SHAPES = [(512, 500, (500, 313, 438, 1)), (136, 130, (130, 67, 1, 129)),
-              (77, 77, (77, 1, 40, 65))]
+              (77, 77, (77, 1, 40, 65)), (17, 17, (17, 1, 9, 16)),
+              (640, 600, (600, 1, 577, 65))]
 
 
 def softmax_pv_train_case(gen, device, lp, length, lens, ragged, bias):
@@ -187,6 +217,7 @@ def test_softmax_pv_train_kernels_match_plain(cuda_device, p, ragged, lp,
         gen, cuda_device, lp, length, lens, ragged, bias=False)
     out, row_max, row_sum = softmax_pv_train_fwd(scores, v, 1234, key_len,
                                                  length, p)
+    fwd_again = softmax_pv_train_fwd(scores, v, 1234, key_len, length, p)
     ds, dv = softmax_pv_train_bwd(scores, v, out, dout, row_max, row_sum,
                                   1234, key_len, length, p)
     again = softmax_pv_train_bwd(scores, v, out, dout, row_max, row_sum,
@@ -201,18 +232,17 @@ def test_softmax_pv_train_kernels_match_plain(cuda_device, p, ragged, lp,
     torch.testing.assert_close(dv, dv_ref, rtol=1e-4, atol=1e-4)
     # no atomics: the same bits every run
     assert torch.equal(ds, again[0]) and torch.equal(dv, again[1])
+    assert all(torch.equal(a, b) for a, b in zip((out, row_max, row_sum),
+                                                 fwd_again))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,lp,length", [(16, 512, 500), (16, 2048, 1900),
-                                         (16, 128, 77)])
-def test_softmax_pv_bias_kernel_matches_plain(cuda_device, d, lp, length):
+@pytest.mark.parametrize("b,h,lp,length,lens", SOFTMAX_PV_SHAPES)
+def test_softmax_pv_bias_kernel_matches_plain(cuda_device, b, h, lp, length,
+                                              lens):
     """K3b: the softmax of scores + bias, the two summed in float32."""
-    b, h = 3, 4
-    scores = torch.randn(b, h, lp, lp, device=cuda_device) * 3
-    bias = torch.randn(b, h, lp, lp, device=cuda_device) * 2
-    v = torch.randn(b, lp, h * d, device=cuda_device)
-    lens = torch.tensor([length, length // 2, 1], device=cuda_device)
+    scores, bias, v, lens = softmax_pv_case(cuda_device, b, h, lp, length,
+                                            lens, seed=4)
     before = softmax_pv_bias.launches, softmax_pv.launches
     got = softmax_pv(scores, v, lens, length, bias=bias)
     torch.cuda.synchronize()
@@ -220,6 +250,7 @@ def test_softmax_pv_bias_kernel_matches_plain(cuda_device, d, lp, length):
         before[0] + 1, before[1])
     torch.testing.assert_close(
         got, softmax_pv_plain(scores, v, lens, length, bias), **CARD_TOL)
+    assert torch.equal(got, softmax_pv(scores, v, lens, length, bias=bias))
     with pytest.raises(ValueError, match="bias"):
         softmax_pv(scores, v, lens, length, bias=bias[:, :1])
 
@@ -236,6 +267,8 @@ def test_softmax_pv_train_bias_kernels_match_plain(cuda_device, p, ragged, lp,
         gen, cuda_device, lp, length, lens, ragged, bias=True)
     out, row_max, row_sum = softmax_pv_train_fwd_bias(
         scores, bias, v, 1234, key_len, length, p)
+    fwd_again = softmax_pv_train_fwd_bias(scores, bias, v, 1234, key_len,
+                                          length, p)
     ds, dv = softmax_pv_train_bwd_bias(scores, bias, v, out, dout, row_max,
                                        row_sum, 1234, key_len, length, p)
     again = softmax_pv_train_bwd_bias(scores, bias, v, out, dout, row_max,
@@ -249,6 +282,41 @@ def test_softmax_pv_train_bias_kernels_match_plain(cuda_device, p, ragged, lp,
     torch.testing.assert_close(ds, ds_ref, **CARD_TOL)
     torch.testing.assert_close(dv, dv_ref, rtol=1e-4, atol=1e-4)
     assert torch.equal(ds, again[0]) and torch.equal(dv, again[1])
+    assert all(torch.equal(a, b) for a, b in zip((out, row_max, row_sum),
+                                                 fwd_again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True])
+def test_softmax_pv_train_fwd_at_long_length(cuda_device, bias):
+    """K9 and K9b walk 128 key tiles at Lp 8192 (a small B x H): the
+    output against the plain version, and the row statistics that K10
+    reads, the max over the valid keys and the sum of exp(s - max)."""
+    b, h, lp, length, p = 1, 2, 8192, 8000, 0.05
+    scores, extra, v, _ = softmax_pv_case(cuda_device, b, h, lp, length,
+                                          (length,), seed=5)
+    extra = extra if bias else None
+    key_len = torch.tensor([7999], dtype=torch.int32, device=cuda_device)
+
+    def run():
+        if extra is None:
+            return softmax_pv_train_fwd(scores, v, 77, key_len, length, p)
+        return softmax_pv_train_fwd_bias(scores, extra, v, 77, key_len,
+                                         length, p)
+
+    out, row_max, row_sum = run()
+    again = run()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out, softmax_pv_dropout_plain(scores, v, 77, key_len, length, p,
+                                      extra), **CARD_TOL)
+    s = (scores if extra is None else scores + extra)[..., :7999]
+    torch.testing.assert_close(row_max, s.amax(-1), rtol=0, atol=0)
+    torch.testing.assert_close(
+        row_sum, torch.exp(s - row_max[..., None]).sum(-1), rtol=1e-5,
+        atol=0)
+    assert all(torch.equal(a, b) for a, b in zip((out, row_max, row_sum),
+                                                 again))
 
 
 @pytest.mark.cuda

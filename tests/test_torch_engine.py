@@ -26,6 +26,7 @@ from sepreformer_torch.config import (
     ModelConfig,
     VariantConfig,
     apply_override,
+    from_reference_yaml,
     get_variant,
 )
 from sepreformer_torch.data.synth import generate_corpus
@@ -299,8 +300,19 @@ def test_cli_refuses_what_is_not_ported(flag, capsys):
     assert exc.value.code == 2
     # infer_sample is ported: without --sample-file it is refused, as in JAX
     expected = ("--sample-file" if "infer_sample" in flag
-                else "ROADMAP.md queue A")
+                else "ROADMAP.md queue A, parallel/")
     assert expected in capsys.readouterr().err
+
+
+def test_reference_yaml_refuses_embed_v(tmp_path):
+    """embed_v is queued with the other variants: the refusal names the
+    ROADMAP item by its title."""
+    path = tmp_path / "configs.yaml"
+    path.write_text("config:\n  model:\n    module_separator:\n"
+                    "      relative_positional_encoding:\n"
+                    "        embed_v: true\n")
+    with pytest.raises(ValueError, match="queue A, the other variants"):
+        from_reference_yaml(str(path))
 
 
 @pytest.fixture(scope="module")

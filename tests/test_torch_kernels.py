@@ -154,7 +154,8 @@ def test_build_names_library_by_source_hash():
                     "softmax_pv_train.cu"]
     assert [p.name for p in _build.headers()] == ["gcfn_tile_mma.cuh",
                                                   "hash_dropout.cuh",
-                                                  "mma_tf32x3.cuh"]
+                                                  "mma_tf32x3.cuh",
+                                                  "softmax_pv_tile.cuh"]
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libsepkernels-") and path.suffix == ".so"
