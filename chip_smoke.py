@@ -21,17 +21,28 @@ Phases, each of which fails the run:
                (beside K9's and K10's); times of the kernel, the plain
                version, a library call where one exists, and the least
                time the card could take (for K1, K3, K3b, K7, K8, K9,
-               K9b, K12, K14, K15 and K16, which take their products on
-               the tensor cores as 3xTF32, with those products and their
-               exponentials at the tensor cores' and the SFUs' rates, and
-               the CUDA-core bound of earlier readings on a line before;
-               K1's products counted on the rows its lengths need), K5's,
-               K6's, K8's, K14's and K15's times by launch, K3's, K3b's,
-               K5's, K6's, K9's, K9b's, K10's, K15's and K16's blocks per
-               SM and five timings with their median (K3's, K3b's, K5's,
-               K6's, K9's and K9b's warps, registers and spills too),
-               K1's, K3's, K5's, K6's, K7's, K8's, K9's, K10's, K12's,
-               K14's, K15's and K16's bits on a repeat call, K7's and its
+               K9b, K12, K13, K14, K15 and K16, which take their products
+               on the tensor cores as 3xTF32, with those products and
+               their exponentials at the tensor cores' and the SFUs'
+               rates, and the CUDA-core bound of earlier readings on a
+               line before; K1's products counted on the rows its lengths
+               need), K5's, K6's, K8's, K14's and K15's times by launch,
+               K3's, K3b's, K5's, K6's, K9's, K9b's, K10's, K11's, K13's,
+               K15's and K16's blocks per SM (K11's cluster) and five
+               timings with their median (K3's, K3b's, K5's, K6's, K9's,
+               K9b's, K11's and K13's registers and spills too, and the
+               warps per row tile K13 takes), an empty launch of K11's
+               grid, cluster and shared memory timed beside it (K11's
+               floor), a SHA-1 of K12's output bytes on fixed-seed inputs
+               (to compare trees bit for bit), K1's, K3's, K5's, K6's,
+               K7's, K8's, K9's, K10's, K11's, K12's, K13's (with its row
+               statistics), K14's, K15's and K16's bits on a repeat call,
+               K13 also at the routes' other shapes, each with its split
+               ([2, 8, 500] at p 0.05, the "pallas" step's encoder; [8,
+               8, 500] at p 0 with key lengths, the "single" serve's
+               decoder): against its plain version, bits on a repeat
+               call, K14 on its row statistics, five timings,
+               K7's and its
                plain version's distance from a float64 run, K3's and K9's
                five timings also with the calls taken in turn over copies
                of their scores whose total exceeds twice the L2, so each
@@ -107,9 +118,11 @@ Phases, each of which fails the run:
                allowed, K13/K14 without the rel-pos bias); a ragged
                B=4 x 4 s batch served on ``attention_impl="single"`` (K13
                in all 22 attentions, no K2 or K3) against the default
-               route within phase 5's limit; one epoch through
-               ``cli.main`` with ``--set model.attention_train_impl=
-               pallas`` on phase 8's synthetic corpus.
+               route within phase 5's limit, and one such batch traced
+               (both traces with K13's launches by B*H, row tiles and
+               split); one epoch through ``cli.main`` with ``--set
+               model.attention_train_impl=pallas`` on phase 8's synthetic
+               corpus.
 11. fused    - the fused eval blocks, Base at full width, seeded weights,
                every LayerScale at 0.5 and seeded BatchNorm statistics:
                ``fused_local="on"`` and ``fused_pair="on"`` (K15 in the
@@ -335,6 +348,10 @@ def kernel_phase(torch, K, device_ms):
     from sepreformer_torch.ops.kernels.depthwise import (
         occupancy as depthwise_occupancy,
     )
+    from sepreformer_torch.ops.kernels.pit import (
+        empty_launch as pit_empty_launch,
+    )
+    from sepreformer_torch.ops.kernels.pit import occupancy as pit_occupancy
     from sepreformer_torch.ops.kernels.softmax_pv import (
         occupancy as softmax_pv_occupancy,
     )
@@ -701,6 +718,21 @@ def kernel_phase(torch, K, device_ms):
     ref = K.sisnr_pairwise_neg(est, src)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    bit_equal("sisnr_pairwise_neg_fused",
+              lambda: K.sisnr_pairwise_neg_fused(est, src))
+    occ = pit_occupancy(spk, t)
+    print(f"[kernels] sisnr_pairwise_neg_fused: a cluster of "
+          f"{occ['cluster_blocks']} blocks per batch entry, "
+          f"{occ['held_samples']} samples per row held in "
+          f"{occ['smem_bytes']} bytes of shared memory per block, "
+          f"{occ['registers']} registers, {occ['local_bytes']} local (spill) "
+          f"bytes, {occ['clusters_at_once']} clusters at once")
+    empty = [device_ms(lambda: pit_empty_launch(est), kernel="pit_empty")
+             for _ in range(5)]
+    print(f"[kernels] sisnr_pairwise_neg_fused: an empty launch of the same "
+          f"grid, cluster and shared memory: 5 timings " + ", ".join(
+              f"{ms:.4f}" for ms in empty)
+          + f" ms, median {statistics.median(empty):.4f}")
     record(K.sisnr_pairwise_neg_fused,
            lambda: K.sisnr_pairwise_neg_fused(est, src),
            lambda: K.sisnr_pairwise_neg(est, src), None,
@@ -710,7 +742,7 @@ def kernel_phase(torch, K, device_ms):
            source="sepreformer_torch/csrc/pit.cu",
            replaces="sepreformer_tpu/ops/pallas/pit.py:70",
            shape=f"est, src [{spk}, {b}, {t}]",
-           tolerance="rtol 1e-4, atol 1e-4 (dB, float32)")
+           tolerance="rtol 1e-4, atol 1e-4 (dB, float32)", timings=5)
     flash_kernel_row(torch, K, device_ms, randn, record)
     attention_train_rows(torch, K, device_ms, randn, record)
     fused_kernel_rows(torch, K, device_ms, randn, record)
@@ -951,10 +983,15 @@ def fused_kernel_rows(torch, K, device_ms, randn, record):
 def attention_train_rows(torch, K, device_ms, randn, record):
     """K13 and K14 at the decoder attention of a B=2 x 4 s train batch
     (B*spks = 4 rows, 8 heads, L = 500, maxlen 2000, p 0.05), against
-    their plain versions: the forward at atol 1e-5, each gradient within
-    phase 7's limit of its largest value.  K13's library yardstick is
+    their plain versions: the forward at atol 1e-5 and bit-equal on a
+    repeat call, each gradient (from K13's row statistics) within phase
+    7's limit of its largest value.  K13's library yardstick is
     SDPA with the rel-pos bias as a float mask (at p 0: SDPA's dropout is
     not the hash mask); no library call computes K14's four gradients."""
+    from sepreformer_torch.ops.kernels.attention_train import (
+        fwd_occupancy as attention_train_fwd_occupancy,
+    )
+
     dev = torch.device("cuda")
     b, heads, length, maxlen, d, p, seed = 4, 8, 500, 2000, 16, 0.05, 4321
     q, k, v, dout = (randn(b, heads, length, d) for _ in range(4))
@@ -984,20 +1021,45 @@ def attention_train_rows(torch, K, device_ms, randn, record):
                                                    seed, 0.0)).abs().max()
     print(f"[kernels] SDPA with the bias as a float mask, p 0: max |sdpa - "
           f"plain| {lib_err.item():.3e}")
+    again = K.attention_train_fwd(q, k, v, table, maxlen, seed, p, key_len)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip((out, row_max, row_sum),
+                                                  again))
+    print(f"[kernels] attention_train_fwd: bit-equal on a repeat call "
+          f"(out, row max, row sum): {same}")
+    assert same, "K13 is not bit-equal on repeat"
+    del again
+    split, occupancy = attention_train_fwd_occupancy(b * heads, length)
+    print(f"[kernels] attention_train_fwd: {split} warps per row tile at "
+          f"this shape")
+    for name, occ in occupancy.items():
+        print(f"[kernels] {name}: {occ['warps']} warps, "
+              f"{occ['blocks_per_sm']} blocks per SM, {occ['registers']} "
+              f"registers, {occ['local_bytes']} local (spill) bytes")
     keys = b * length
+    pairs = heads * relpos_pairs(length, klens, maxlen)[0]
     record(K.attention_train_fwd,
            lambda: K.attention_train_fwd(q, k, v, table, maxlen, seed, p,
                                          key_len),
            lambda: K.attention_train_plain(q, k, v, table, maxlen, seed, p),
            library, (out - ref).abs().max().item(),
-           # q in and out written, k and v of the valid keys, the table
-           4 * (2 * q.numel() + 2 * keys * heads * d + table.numel() + b),
-           flash_relpos_ops(length, klens, maxlen, heads, d),
+           # q in and out written, k and v of the valid keys, the table,
+           # the row statistics written
+           4 * (2 * q.numel() + 2 * keys * heads * d + table.numel() + b
+                + 2 * b * heads * length),
+           # the online softmax's max, subtraction and sum per pair
+           3 * pairs,
            source="sepreformer_torch/csrc/attention_train.cu",
            replaces="sepreformer_tpu/ops/pallas/attention_train.py:202",
            shape=(f"q, k, v [{b}, {heads}, {length}, {d}], table "
                   f"[{2 * maxlen}, {d}], p {p}"),
-           tolerance="rtol 1e-4, atol 1e-5 (float32)")
+           tolerance="rtol 1e-4, atol 1e-5 (float32)",
+           # QKᵀ, P·V and q·tableᵀ on the tensor cores (the tile K12
+           # runs); one exponential per pair
+           tc_flops=flash_relpos_ops(length, klens, maxlen, heads, d),
+           exps=pairs,
+           cuda_core_flops=flash_relpos_ops(length, klens, maxlen, heads, d),
+           timings=5)
     grads = K.attention_train_bwd(q, k, v, table, maxlen, seed, p, key_len,
                                   out, dout, row_max, row_sum)
     refs = K.attention_train_bwd_plain(q, k, v, table, maxlen, seed, p, None,
@@ -1042,6 +1104,81 @@ def attention_train_rows(torch, K, device_ms, randn, record):
         q, k, v, table, maxlen, seed, p, key_len, out, dout, row_max,
         row_sum), "attn_train_bwd", ("dq", "dk/dv", "table"))
     del storage, bias
+    # K13's other splits at the shapes the routes launch it at: the
+    # "pallas" step's encoder ([2, 8, 500], p 0.05) and the "single"
+    # serve's decoder ([8, 8, 500], p 0, key lengths of 4 s down to 2.5 s)
+    for rows, p_case, klens in ((2, p, [length] * 2),
+                                (8, 0.0, [500, 438, 375, 313] * 2)):
+        attention_train_case(torch, K, device_ms, randn, rows, heads, length,
+                             maxlen, d, p_case, seed, klens, table)
+
+
+def attention_train_case(torch, K, device_ms, randn, rows, heads, length,
+                         maxlen, d, p, seed, klens, table):
+    """K13 at [rows, heads, length, d] against its plain version (rtol
+    1e-4, atol 1e-5), bit-equal on a repeat call, K14 on its row
+    statistics within phase 7's limit; prints its split and five
+    timings beside the plain version's."""
+    from sepreformer_torch.ops.kernels.attention_train import (
+        fwd_occupancy as attention_train_fwd_occupancy,
+    )
+
+    q, k, v, dout = (randn(rows, heads, length, d) for _ in range(4))
+    key_len = torch.tensor(klens, dtype=torch.int32, device=q.device)
+
+    def run():
+        return K.attention_train_fwd(q, k, v, table, maxlen, seed, p,
+                                     key_len)
+
+    out, row_max, row_sum = run()
+    ref = K.attention_train_plain(q, k, v, table, maxlen, seed, p, key_len)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    again = run()
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip((out, row_max, row_sum),
+                                                  again))
+    assert same, f"K13 at [{rows}, {heads}, {length}] is not bit-equal"
+    grads = K.attention_train_bwd(q, k, v, table, maxlen, seed, p, key_len,
+                                  out, dout, row_max, row_sum)
+    refs = K.attention_train_bwd_plain(q, k, v, table, maxlen, seed, p,
+                                       key_len, dout)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("dq", "dk", "dv", "dtable"), grads, refs):
+        e = (g - r).abs().max().item()
+        assert e <= TRAIN_CPU_REL_LIMIT * r.abs().max().item(), (rows, name, e)
+    split = attention_train_fwd_occupancy(rows * heads, length)[0]
+    times = [device_ms(run, kernel=KERNEL_SYMBOLS["attention_train_fwd"])
+             for _ in range(5)]
+    plain = device_ms(lambda: K.attention_train_plain(
+        q, k, v, table, maxlen, seed, p, key_len))
+    print(f"[kernels] attention_train_fwd at [{rows}, {heads}, {length}, "
+          f"{d}], p {p}, key lengths {sorted(set(klens), reverse=True)}: "
+          f"split {split}; max |kernel - plain| "
+          f"{(out - ref).abs().max().item():.3e} (rtol 1e-4, atol 1e-5); "
+          f"bit-equal on a repeat call (out, row max, row sum): {same}; K14 "
+          f"on its row statistics within {TRAIN_CPU_REL_LIMIT:.0e} x "
+          f"max|plain|; 5 timings " + ", ".join(f"{t:.4f}" for t in times)
+          + f" ms, median {statistics.median(times):.4f}, plain "
+          f"{plain:.4f}")
+
+
+def k12_checksum(torch, K):
+    """SHA-1 of K12's output bytes at phase 2's shape ([2, 8750, 128],
+    lens (8750, 7000), maxlen 2000) on inputs drawn from a fixed seed, so
+    that two trees' runs on one card compare bit for bit."""
+    import hashlib
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1217)
+    b, length, maxlen, f, d = 2, 8750, 2000, 128, 16
+    q, k, v = (torch.randn(b, length, f, generator=gen, device=dev)
+               for _ in range(3))
+    table = torch.randn(2 * maxlen, d, generator=gen, device=dev)
+    lens = torch.tensor([8750, 7000], device=dev)
+    with torch.no_grad():
+        out = K.flash_relpos_attention(q, k, v, table, maxlen, lens)
+    return hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest()
 
 
 def flash_kernel_row(torch, K, device_ms, randn, record):
@@ -1110,6 +1247,8 @@ def flash_kernel_row(torch, K, device_ms, randn, record):
                                                        maxlen, klens)), (
         "K12 is not bit-equal on repeat")
     del again
+    print(f"[kernels] flash_relpos_attention: SHA-1 of the output bytes on "
+          f"the fixed-seed inputs: {k12_checksum(torch, K)}")
     pairs = heads * relpos_pairs(length, klens.tolist(), maxlen)[0]
     record(K.flash_relpos_attention,
            lambda: K.flash_relpos_attention(q, k, v, table, maxlen, klens),
@@ -1408,6 +1547,34 @@ def print_trace(tag, kernels, busy, window_us, ours, what):
     for name in sorted(by_name, key=lambda n: -by_name[n])[:10]:
         print(f"[{tag}] kernel {by_name[name] / 1e3:.3f} ms "
               f"x{count[name]}: {name}")
+
+
+def traced_kernels(prof):
+    """``kernel_events(prof)`` (a trace is exported once), and K13's
+    launches in it by (B*H, row tiles of 64, split): its grid is (row
+    tiles, B*H) and its split the kernel's template argument."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = [e for e in json.load(fh).get("traceEvents", [])
+                      if e.get("cat") == "kernel" and "dur" in e]
+    shapes = defaultdict(int)
+    for e in events:
+        if "attn_train_fwd" in e["name"]:
+            grid = e.get("args", {}).get("grid") or [None, None]
+            split = re.search(r"attn_train_fwd_kernel<(\d+)>", e["name"])
+            shapes[(grid[1], grid[0],
+                    int(split.group(1)) if split else None)] += 1
+    return [(e["name"], e["ts"], e["dur"]) for e in events], dict(shapes)
+
+
+def print_k13_grids(tag, shapes, what):
+    print(f"[{tag}] K13 launches in the {what} by (B*H, row tiles of 64, "
+          f"split): " + ", ".join(f"{key} x{n}" for key, n in
+                                   sorted(shapes.items(), key=str)))
 
 
 def train_phase(torch, np, sep_torch, K, busy_us, kernel_events, steps=6):
@@ -1992,7 +2159,7 @@ def k13_without_bias(torch):
         blocks.flash_relpos_attention_train = route
 
 
-def routes_phase(torch, np, sep_torch, K, busy_us, kernel_events, steps=6):
+def routes_phase(torch, np, sep_torch, K, busy_us, steps=6):
     """The JAX package's other routes at Base width: training on
     ``attention_train_impl="pallas"`` and ``BWD_MODE = "conv"`` (K13, K14,
     K6), ``steps`` pairs of steps in turns with the default route, card
@@ -2098,9 +2265,10 @@ def routes_phase(torch, np, sep_torch, K, busy_us, kernel_events, steps=6):
             window_us = (time.perf_counter() - t0) * 1e6
     for name, n in K.launch_counts().items():
         total[name] += n
-    kernels = kernel_events(prof)
+    kernels, shapes = traced_kernels(prof)
     print_trace("routes", kernels, busy_us(kernels), window_us,
                 K.launch_counts(), "pallas/conv train step")
+    print_k13_grids("routes", shapes, "pallas/conv train step")
     del states, model, batch
     torch.cuda.empty_cache()
 
@@ -2154,6 +2322,19 @@ def routes_phase(torch, np, sep_torch, K, busy_us, kernel_events, steps=6):
     print(f"[routes] single against the default route: max |d| / max|out| "
           f"{err:.3e} (max|out| {scale:.3f}), limit {CPU_REL_LIMIT:.1e}")
     assert err <= CPU_REL_LIMIT, "the single route disagrees"
+    K.reset_launches()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        seps["single"].separate(batch, lengths)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    for name, n in K.launch_counts().items():
+        total[name] += n
+    kernels, shapes = traced_kernels(prof)
+    print_trace("routes", kernels, busy_us(kernels), window_us,
+                K.launch_counts(), "single served batch")
+    print_k13_grids("routes", shapes, "single served batch")
     del seps
     torch.cuda.empty_cache()
 
@@ -2577,7 +2758,7 @@ def main() -> int:
     long_counts = run("long", long_phase, torch, np, sep_torch, K, busy_us,
                       kernel_events) or {}
     route_counts = run("routes", routes_phase, torch, np, sep_torch, K,
-                       busy_us, kernel_events) or {}
+                       busy_us) or {}
     fused_counts = run("fused", fused_phase, torch, np, sep_torch, K,
                        busy_us, kernel_events) or {}
 

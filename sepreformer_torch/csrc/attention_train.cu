@@ -18,23 +18,26 @@
 //           kernel's padded length pick_block(L) (128, 256 or 512): the
 //           mask is the JAX kernel's, bit for bit.
 //
-// What bounds it on the H100: per head, the forward needs 4*D float32
-// operations per (query, valid key) pair (QKᵀ, P·V) plus 2*D per query
-// row and distinct clamped table row its keys reach (Q·tableᵀ); the
-// backward 10*D per pair (QKᵀ, dO·Vᵀ, dV, dQ, dK) plus 6*D per row and
-// table row (Q·tableᵀ, its adjoints to dQ and to the table), and one
+// What bounds it on the H100: per head, the forward needs 4*D operations
+// per (query, valid key) pair (QKᵀ, P·V) plus 2*D per query row and
+// distinct clamped table row its keys reach (Q·tableᵀ); the backward 10*D
+// per pair (QKᵀ, dO·Vᵀ, dV, dQ, dK) plus 6*D per row and table row
+// (Q·tableᵀ, its adjoints to dQ and to the table), and both one
 // exponential per pair.  q, k, v and out are a few MB, so both are bound
-// by their products: K13's at the 67 TFLOP/s of the CUDA cores, K14's at
-// the 3xTF32 rate of the tensor cores (495/3 TFLOP/s), 0.012 ms at
-// [4, 8, 500, 16] (chip_smoke.py counts each from its inputs).
+// by their products, taken on the tensor cores at float32 accuracy
+// (3xTF32, mma_tf32x3.cuh: 495/3 TFLOP/s): 0.0047 ms for K13 and 0.012 ms
+// for K14 at [4, 8, 500, 16] (chip_smoke.py counts each from its inputs).
 //
 // Design.  The TPU kernel holds a whole [block, block] score tile per bh
 // in VMEM (1 MB at 512); a Hopper block has 227 KB of shared memory.  So
-// K13 streams key tiles of 64 with an online softmax, as K12
-// (flash_relpos.cu) does, and saves each row's max and sum; the dropout
-// scales the probabilities that P·V accumulates, never the sum.  K13
-// stays on the CUDA cores: it is a sixth of K14's work, and its scores
-// fix the row statistics that K14's P is measured against.
+// K13 is the flash rel-pos tile that K12 runs (flash_relpos_tile.cuh):
+// key tiles of 64 with an online softmax, every product on the tensor
+// cores, here on [B*H, L, D] rows, with the hash dropout on the numerator
+// (after the row sum) and each row's max and sum saved for K14.  Its
+// grids are short (256 blocks of 64 rows at [4, 8, 500, 16], 16 to 128 at
+// the shorter stages), so split_for gives each row tile 2 or 4 warps that
+// walk alternate key tiles and merge at the end, where the grid would
+// leave the card's warp slots empty and the rows have the key tiles.
 //
 // K14 recomputes P tile by tile from those row statistics, every product
 // on the tensor cores as 3xTF32 (mma_tf32x3.cuh, each from zeroed
@@ -42,9 +45,9 @@
 // query rows (or keys) whose Q and dO (or K and V) fragments are split
 // once and kept in registers, the other side's tile of 64 rows and the
 // band of 128 clamped table rows staged by cp.async.  Its scores are
-// q·k + q·pe on the tensor cores, which round otherwise than K13's in the
-// last bits, so its P sums to 1 only within float32 rounding.  Three
-// launches:
+// q·k + q·pe, scaled after the sum, where K13's Q carries the scale:
+// the two round otherwise in the last bits, so its P sums to 1 only
+// within float32 rounding.  Three launches:
 //  1. dq (grid: query tile x bh, two blocks per SM; 191 registers, no
 //     spill): delta_i = dO_i·out_i (which equals sum_j P_ij dP_ij with
 //     dropout too); per key tile the bias Q·bandᵀ over the warp's 80 band
@@ -80,6 +83,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_relpos_tile.cuh"
 #include "hash_dropout.cuh"
 #include "mma_tf32x3.cuh"
 
@@ -87,10 +91,7 @@ namespace {
 
 constexpr int D = 16;                  // head width (Base: 128 / 8 heads)
 constexpr int kTile = 64;              // query rows / keys per tile
-constexpr int kThreads = 256;          // 16 x 16: 4 rows x 4 keys each
 constexpr int kBand = 2 * kTile;       // band rows staged (127 used)
-constexpr int kTS = kTile + 4;         // padded strides, in floats; keep
-constexpr int kBS = kBand + 4;         // every row 16-byte aligned
 
 struct Drop {
   uint32_t seed_word, threshold;
@@ -104,204 +105,15 @@ struct Drop {
   }
 };
 
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// rows r0 .. r0 + 3 of a [*, D] array into registers (zeros past L)
-__device__ __forceinline__ void load_rows(const float* __restrict__ a,
-                                          int r0, int L, float (&out)[4][D]) {
-#pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    const int r = r0 + x;
-#pragma unroll
-    for (int c4 = 0; c4 < D / 4; ++c4) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r < L) v = reinterpret_cast<const float4*>(a + (size_t)r * D)[c4];
-      out[x][4 * c4 + 0] = v.x;
-      out[x][4 * c4 + 1] = v.y;
-      out[x][4 * c4 + 2] = v.z;
-      out[x][4 * c4 + 3] = v.w;
-    }
-  }
-}
-
-// the 128 clamped table rows of band rel0 .. rel0 + 127, transposed:
-// pt[c * kBS + rr]
-__device__ __forceinline__ void stage_band(const float* __restrict__ table,
-                                           int rel0, int maxlen, float* pt) {
-  for (int e = threadIdx.x; e < kBand * D; e += kThreads) {
-    const int rr = e / D, c = e - rr * D;
-    const int row = min(max(rel0 + rr, -maxlen), maxlen - 1) + maxlen;
-    pt[c * kBS + rr] = table[(size_t)row * D + c];
-  }
-}
-
-// a [64, D] tile (rows r0 .., zeros at or past lim) transposed into
-// t[c * kTS + rr]
-__device__ __forceinline__ void stage_tile(const float* __restrict__ a,
-                                           int r0, int lim, float* t) {
-  const int rr = threadIdx.x >> 2, c4 = (threadIdx.x & 3) * 4;
-  const int row = r0 + rr;
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (row < lim) v = *reinterpret_cast<const float4*>(a + (size_t)row * D + c4);
-  t[(c4 + 0) * kTS + rr] = v.x;
-  t[(c4 + 1) * kTS + rr] = v.y;
-  t[(c4 + 2) * kTS + rr] = v.z;
-  t[(c4 + 3) * kTS + rr] = v.w;
-}
-
-// s[a][bb] = sum_c q·(k + pe) over the D columns: the unscaled score of
-// query row a (registers) against key 4tx + bb (cols_t[c][...], a
-// transposed tile) with the rel-pos bias of the pair read from the band
-// pt[c][...] at band index band0 + 3 + a - bb.  K14 recomputes the scores
-// on the tensor cores as q·k + q·pe (3xTF32), which round otherwise in
-// the last bits: its P against these row statistics sums to 1 only
-// within float32 rounding.
-__device__ __forceinline__ void scores(const float (&rows)[4][D],
-                                       const float* cols_t, const float* pt,
-                                       int tx, int band0, float (&s)[4][4]) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int bb = 0; bb < 4; ++bb) s[a][bb] = 0.f;
-#pragma unroll
-  for (int c = 0; c < D; ++c) {
-    const float* pc = pt + c * kBS + band0;
-    const float4 kk = *reinterpret_cast<const float4*>(cols_t + c * kTS + 4 * tx);
-    const float4 p0 = *reinterpret_cast<const float4*>(pc);
-    const float4 p1 = *reinterpret_cast<const float4*>(pc + 4);
-    const float kv[4] = {kk.x, kk.y, kk.z, kk.w};
-    const float pv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb)
-        s[a][bb] = fmaf(rows[a][c], kv[bb] + pv[3 + a - bb], s[a][bb]);
-  }
-}
-
 // ---------------------------------------------------------------- K13
 
-__global__ void __launch_bounds__(kThreads)
-attn_train_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ table,
-                      const int* __restrict__ lens, float* __restrict__ out,
-                      float* __restrict__ row_max, float* __restrict__ row_sum,
-                      int L, int H, int maxlen, float scale, Drop drop) {
-  __shared__ __align__(16) float kt[D * kTS];     // kt[c][jj]: K transposed
-  __shared__ __align__(16) float vs[kTile * D];   // vs[jj][c]
-  __shared__ __align__(16) float pt[D * kBS];     // pt[c][rr]: band rows
-  __shared__ __align__(16) float ps[kTile * kTS]; // ps[ii][jj]: P * z
-  __shared__ float row_alpha[kTile];              // exp(m_old - m_new)
-  __shared__ float row_l[kTile];
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;   // keys 4tx..4tx+3 of a tile
-  const int ty = tid >> 4;   // rows 4ty..4ty+3; a warp holds two ty, and
-                             // the 16 lanes of one ty reduce by shuffles
-  const int bh = blockIdx.y;
-  const int i0 = blockIdx.x * kTile;
-  const int lim = min(L, lens[bh / H]);
-  const size_t head = (size_t)bh * L * D;
-
-  float qr[4][D];
-  load_rows(q + head, i0 + 4 * ty, L, qr);
-  float m_run[4], l_run[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m_run[a] = -INFINITY;
-    l_run[a] = 0.f;
-  }
-  // P·V: this thread's row and 4 output columns
-  const int orow = tid >> 2, oc = (tid & 3) * 4;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  // band index of (row 4ty + a, key 4tx + bb) is band0 + 3 + a - bb
-  const int band0 = 4 * (ty - tx) + kTile - 4;
-
-  for (int j0 = 0; j0 < lim; j0 += kTile) {
-    __syncthreads();  // the previous tile's shared arrays are consumed
-    stage_tile(k + head, j0, lim, kt);
-    {
-      const int jj = tid >> 2, c4 = (tid & 3) * 4, j = j0 + jj;
-      float4 vv = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (j < lim) vv = *reinterpret_cast<const float4*>(v + head + (size_t)j * D + c4);
-      *reinterpret_cast<float4*>(vs + jj * D + c4) = vv;
-    }
-    stage_band(table, i0 - j0 - (kTile - 1), maxlen, pt);
-    __syncthreads();
-
-    float s[4][4];
-    scores(qr, kt, pt, tx, band0, s);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb) {
-        const int j = j0 + 4 * tx + bb;
-        s[a][bb] = j < lim ? s[a][bb] * scale : -INFINITY;
-        mx = fmaxf(mx, s[a][bb]);
-      }
-      const float m_new = fmaxf(m_run[a], half_warp_max(mx));
-      const float alpha = expf(m_run[a] - m_new);  // 0 at the first tile
-      float sum = 0.f;
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb) {
-        s[a][bb] = expf(s[a][bb] - m_new);
-        sum += s[a][bb];
-        s[a][bb] *= drop.z(bh, i0 + 4 * ty + a, j0 + 4 * tx + bb);
-      }
-      l_run[a] = l_run[a] * alpha + half_warp_sum(sum);
-      m_run[a] = m_new;
-      if (tx == 0) row_alpha[4 * ty + a] = alpha;
-      *reinterpret_cast<float4*>(ps + (4 * ty + a) * kTS + 4 * tx) =
-          make_float4(s[a][0], s[a][1], s[a][2], s[a][3]);
-    }
-    __syncthreads();
-
-    const float alpha = row_alpha[orow];
-#pragma unroll
-    for (int x = 0; x < 4; ++x) acc[x] *= alpha;
-    const float* prow = ps + orow * kTS;
-#pragma unroll 8
-    for (int jj = 0; jj < kTile; ++jj) {
-      const float p = prow[jj];
-      const float4 vv = *reinterpret_cast<const float4*>(vs + jj * D + oc);
-      acc[0] = fmaf(p, vv.x, acc[0]);
-      acc[1] = fmaf(p, vv.y, acc[1]);
-      acc[2] = fmaf(p, vv.z, acc[2]);
-      acc[3] = fmaf(p, vv.w, acc[3]);
-    }
-  }
-
-  if (tx == 0) {
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      row_l[4 * ty + a] = l_run[a];
-      const int i = i0 + 4 * ty + a;
-      if (i < L) {
-        row_max[(size_t)bh * L + i] = m_run[a];
-        row_sum[(size_t)bh * L + i] = l_run[a];
-      }
-    }
-  }
-  __syncthreads();
-  const int i = i0 + orow;
-  if (i < L) {
-    const float l = fmaxf(row_l[orow], 1e-30f);
-    *reinterpret_cast<float4*>(out + head + (size_t)i * D + oc) =
-        make_float4(acc[0] / l, acc[1] / l, acc[2] / l, acc[3] / l);
-  }
+// The flash rel-pos tile on [B*H, L, D] rows, with the hash dropout and
+// the row statistics, at SPLIT warps per row tile of 16 rows.
+template <int SPLIT>
+__global__ void __launch_bounds__(relpos_flash::Shape<SPLIT>::kThreads,
+                                  relpos_flash::Shape<SPLIT>::kMinBlocks)
+attn_train_fwd_kernel(relpos_flash::Args a) {
+  relpos_flash::run<SPLIT, true, true, true>(a);
 }
 
 // ---------------------------------------------------------------- K14
@@ -1016,6 +828,67 @@ bool bad_args(int BH, int L, int H, int maxlen, int block) {
          block < L;
 }
 
+// K13's launch: SPLIT warps per row tile, on the grid (L / 64, B*H).
+template <int SPLIT>
+cudaError_t launch_fwd(const relpos_flash::Args& a, int BH,
+                       cudaStream_t stream) {
+  using S = relpos_flash::Shape<SPLIT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_train_fwd_kernel<SPLIT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kSmemBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_train_fwd_kernel<SPLIT>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.L + relpos_flash::kRows - 1) / relpos_flash::kRows, BH);
+  attn_train_fwd_kernel<SPLIT><<<grid, S::kThreads, S::kSmemBytes, stream>>>(
+      a);
+  return cudaGetLastError();
+}
+
+// The warps per row tile K13 takes: every SPLIT holds 16 warps per SM
+// (4 / SPLIT blocks), so the largest SPLIT whose grid still fits the card
+// in one wave puts the most warps in flight: 4 where the grid has at most
+// one block per SM, 2 where it has at most two ([4, 8, 500, 16]: 256
+// blocks), else 1; and no more than the rows' key tiles, so that no warp
+// idles (2 at L 125, 1 at L 63).  PERF.md §6 holds the timings.
+int split_for(int BH, int L) {
+  static int sms = 0;  // the card's SMs, read at the first launch (a
+                       // failed query shows in the launch's error)
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const long long blocks =
+      (long long)(L + relpos_flash::kRows - 1) / relpos_flash::kRows * BH;
+  const int tiles = (L + relpos_flash::kKeys - 1) / relpos_flash::kKeys;
+  const int fit = blocks <= sms ? 4 : blocks <= 2LL * sms ? 2 : 1;
+  return min(fit, tiles >= 4 ? 4 : tiles >= 2 ? 2 : 1);
+}
+
+template <int SPLIT>
+cudaError_t fwd_occupancy(int* o) {
+  using S = relpos_flash::Shape<SPLIT>;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_train_fwd_kernel<SPLIT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kSmemBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_train_fwd_kernel<SPLIT>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&attr, attn_train_fwd_kernel<SPLIT>);
+  if (err != cudaSuccess) return err;
+  o[1] = attr.numRegs;
+  o[2] = (int)attr.localSizeBytes;
+  o[3] = S::kWarps;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      o, attn_train_fwd_kernel<SPLIT>, S::kThreads, S::kSmemBytes);
+}
+
 }  // namespace
 
 // K13.  q, k, v, out: device float32 [B*H, L, 16] (16-byte aligned);
@@ -1031,16 +904,40 @@ extern "C" int sep_attn_train_fwd_f32(const void* q, const void* k,
                                       float keep_scale, void* stream) {
   if (BH <= 0 || L <= 0) return 0;
   if (bad_args(BH, L, H, maxlen, block)) return (int)cudaErrorInvalidValue;
-  dim3 grid((L + kTile - 1) / kTile, BH);
-  attn_train_fwd_kernel<<<grid, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(table),
-      static_cast<const int*>(lens), static_cast<float*>(out),
-      static_cast<float*>(row_max), static_cast<float*>(row_sum), L, H,
-      maxlen, 1.0f / sqrtf((float)D),
-      make_drop(seed_word, threshold, keep_scale, block));
-  return (int)cudaGetLastError();
+  relpos_flash::Args a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.table = static_cast<const float*>(table);
+  a.lens = static_cast<const int*>(lens);
+  a.out = static_cast<float*>(out);
+  a.row_max = static_cast<float*>(row_max);
+  a.row_sum = static_cast<float*>(row_sum);
+  a.L = L;
+  a.H = H;
+  a.maxlen = maxlen;
+  a.scale_log2 = 1.4426950408889634f / sqrtf((float)D);
+  a.seed_word = seed_word;
+  a.threshold8 = threshold << 8;       // threshold < 2^24
+  a.keep_scale = keep_scale;
+  a.block = block;
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (split_for(BH, L)) {
+    case 4: return (int)launch_fwd<4>(a, BH, st);
+    case 2: return (int)launch_fwd<2>(a, BH, st);
+    default: return (int)launch_fwd<1>(a, BH, st);
+  }
+}
+
+// K13's split at (BH, L) into o[0], then its blocks per SM, registers,
+// local (spill) bytes and warps per block at SPLIT 1, 2 and 4 into
+// o[1 .. 12].
+extern "C" int sep_attn_train_fwd_occupancy(int BH, int L, int* o) {
+  o[0] = split_for(BH, L);
+  cudaError_t err = fwd_occupancy<1>(o + 1);
+  if (err == cudaSuccess) err = fwd_occupancy<2>(o + 5);
+  if (err == cudaSuccess) err = fwd_occupancy<4>(o + 9);
+  return (int)err;
 }
 
 // floats of K14's scratch (bwd::Scratch): delta [B*H, L], the dk/dv

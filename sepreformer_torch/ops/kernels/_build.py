@@ -57,6 +57,11 @@ SIGNATURES = {
                                                                 _P],
     # est, src, out, S, B, T, scale_inv, eps, clamp_db, has_clamp, stream
     "sep_pit_sisnr_f32": [_P] * 3 + [_I] * 4 + [_F, _F, _I, _P],
+    # S, B, T, stream: an empty launch of K11's shape
+    "sep_pit_empty": [_I] * 3 + [_P],
+    # S, T, int out[6] -> K11's cluster, held samples, shared memory,
+    # registers, local bytes, clusters at once
+    "sep_pit_occupancy": [_I, _I, _P],
     # x, lns, lnb, win, bin, wdw, bdw, wout, bout, ls, out, B, T, F, eps,
     # seed0, seed1, threshold, scale, stream
     "sep_gcfn_train_fwd_f32": [_P] * 11 + [_I] * 3 + [_F, _U, _U, _U, _F,
@@ -74,6 +79,9 @@ SIGNATURES = {
     # q, k, v, table, lens, out, row_max, row_sum, BH, L, H, maxlen, block,
     # seed_word, threshold, keep_scale, stream
     "sep_attn_train_fwd_f32": [_P] * 8 + [_I] * 5 + [_U, _U, _F, _P],
+    # BH, L, int out[13] -> K13's split, then its blocks per SM,
+    # registers, local bytes, warps at SPLIT 1, 2 and 4
+    "sep_attn_train_fwd_occupancy": [_I, _I, _P],
     # BH, L -> floats of K14's scratch
     "sep_attn_train_bwd_scratch_floats": [_I, _I],
     # q, k, v, table, lens, out, dout, row_max, row_sum, dq, dk, dv,

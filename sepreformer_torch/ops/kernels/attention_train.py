@@ -18,8 +18,9 @@ for the same seed.
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -197,6 +198,23 @@ def attention_train_bwd(q, k, v, table, maxlen, seed, p, key_len, out,
     _build.check_launch("sep_attn_train_bwd_f32", err)
     attention_train_bwd.launches += 1
     return dq, dk, dv, dtable
+
+
+Occupancy = Dict[str, Dict[str, int]]
+
+
+def fwd_occupancy(bh: int, length: int) -> Tuple[int, Occupancy]:
+    """K13's launch on the current card: the warps per row tile it takes
+    at ``bh`` heads of ``length`` rows, and at each split (1, 2 and 4) its
+    blocks per SM, registers, local (spill) bytes and warps per block."""
+    out = (ctypes.c_int * 13)()
+    _build.check_launch("sep_attn_train_fwd_occupancy",
+                        _build.library().sep_attn_train_fwd_occupancy(
+                            bh, length, ctypes.addressof(out)))
+    keys = ("blocks_per_sm", "registers", "local_bytes", "warps")
+    per_split = {f"K13 split {s}": dict(zip(keys, out[1 + 4 * i:5 + 4 * i]))
+                 for i, s in enumerate((1, 2, 4))}
+    return out[0], per_split
 
 
 attention_train_fwd.launches = 0

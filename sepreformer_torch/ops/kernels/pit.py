@@ -1,7 +1,8 @@
 """K11: the uPIT negative SI-SNR table.
 
 Replaces ``sepreformer_tpu/ops/pallas/pit.py::sisnr_pairwise_neg_fused``.
-The CUDA kernel is ``sepreformer_torch/csrc/pit.cu``;
+The CUDA kernel is ``sepreformer_torch/csrc/pit.cu`` (a thread-block
+cluster per batch entry, which reads its rows once);
 ``sisnr_pairwise_neg`` is the same math in PyTorch (the JAX package's
 ``losses.sisnr_pairwise_neg``).  The kernel's gradient is that plain
 version's autograd, recomputed in the backward, as the JAX package's
@@ -10,7 +11,8 @@ custom_vjp does.
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Dict, Optional
 
 import torch
 
@@ -43,6 +45,8 @@ def sisnr_pairwise_neg(est: torch.Tensor, src: torch.Tensor,
 
 
 def _launch(est, src, scale_inv, eps, clamp_db) -> torch.Tensor:
+    """The kernel on CUDA tensors; it takes up to 16 speakers (its
+    partials hold 16 x 16 pairs) and fails the launch past that."""
     s, b, t = est.shape
     _build.check_tensor(est, "pit est", (s, b, t), est.device)
     _build.check_tensor(src, "pit src", (s, b, t), est.device)
@@ -89,6 +93,26 @@ def sisnr_pairwise_neg_fused(est: torch.Tensor, src: torch.Tensor,
     if est.device.type == "cpu":
         return sisnr_pairwise_neg(est, src, scale_inv, eps, clamp_db)
     return _PitTable.apply(est, src, scale_inv, eps, clamp_db)
+
+
+def empty_launch(est: torch.Tensor) -> None:
+    """An empty kernel launched as K11 would be on ``est`` [S, B, T] (the
+    same grid, cluster and shared memory): K11's floor on the card."""
+    s, b, t = est.shape
+    _build.check_launch("sep_pit_empty", _build.library().sep_pit_empty(
+        s, b, t, _build.stream_handle(est.device)))
+
+
+def occupancy(speakers: int, samples: int) -> Dict[str, int]:
+    """K11's launch at ``speakers`` rows of ``samples`` on the current
+    card."""
+    out = (ctypes.c_int * 6)()
+    _build.check_launch("sep_pit_occupancy",
+                        _build.library().sep_pit_occupancy(
+                            speakers, samples, ctypes.addressof(out)))
+    keys = ("cluster_blocks", "held_samples", "smem_bytes", "registers",
+            "local_bytes", "clusters_at_once")
+    return dict(zip(keys, out))
 
 
 sisnr_pairwise_neg_fused.launches = 0

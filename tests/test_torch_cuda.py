@@ -363,22 +363,37 @@ def test_softmax_pv_dropout_gradient_on_the_card(cuda_device):
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
 
 
+# [2, 2, 32000]: the 4 s train crop; S 3; T 1000 (a chunk of 128 a
+# block, the last one short); T 480000 (60 s of validation: past what a
+# cluster holds in shared memory, so each block reads the rest of its
+# chunk from memory); T 4003 (not a multiple of 4: 4-byte copies); and a
+# pair at about 60 dB (unclamped), where the residual's explicit sum
+# matters
 @pytest.mark.cuda
-def test_pit_kernel_and_gradient_match_plain(cuda_device):
+@pytest.mark.parametrize("s,b,t,noise,clamp", [
+    (2, 2, 32000, 0.02, -30.0), (3, 2, 32000, 0.02, -30.0),
+    (2, 3, 1000, 0.02, -30.0), (2, 2, 480000, 0.02, -30.0),
+    (2, 1, 4003, 0.02, -30.0), (2, 2, 32000, 1e-4, None)])
+def test_pit_kernel_and_gradient_match_plain(cuda_device, s, b, t, noise,
+                                             clamp):
     gen = torch.Generator().manual_seed(9)
-    src = (torch.randn(2, 2, 32000, generator=gen) * 0.1).to(cuda_device)
-    est = src.flip(0) + 0.02 * torch.randn(2, 2, 32000,
-                                           generator=gen).to(cuda_device)
+    src = (torch.randn(s, b, t, generator=gen) * 0.1).to(cuda_device)
+    est = src.flip(0) + noise * torch.randn(s, b, t,
+                                            generator=gen).to(cuda_device)
     results = []
     for fn in (sisnr_pairwise_neg_fused, sisnr_pairwise_neg):
         e = est.clone().requires_grad_()
-        table = fn(e, src)
+        table = fn(e, src, clamp_db=clamp)
         table.sum().backward()
         results.append((table.detach(), e.grad))
     torch.testing.assert_close(results[0][0], results[1][0], rtol=1e-4,
                                atol=1e-4)
     torch.testing.assert_close(results[0][1], results[1][1], rtol=1e-4,
                                atol=1e-6)
+    # the cluster's sums run in a fixed order: the same bits every run
+    with torch.no_grad():
+        assert torch.equal(sisnr_pairwise_neg_fused(est, src, clamp_db=clamp),
+                           sisnr_pairwise_neg_fused(est, src, clamp_db=clamp))
 
 
 @pytest.mark.cuda
@@ -655,13 +670,17 @@ def attention_train_case(b, h, length, maxlen, device, seed):
 # offsets, and a row stride of 512 where K9's would be 384; L 500, maxlen
 # 2000: the decoder batch of a B=2 x 4 s train batch; L 64, maxlen 2000:
 # one whole tile, no offset clamped; L 129 with lengths 129 and 65: a
-# third query tile of one row, and a last key tile of one key
+# third query tile of one row, and a last key tile of one key; L 512 at
+# B*H 72: the longest length, and a grid past two blocks per SM (K13 at
+# one warp per row tile; the others take 2 or 4); L 16 with a row of one
+# valid key
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,length,maxlen,lens,p", [
     (2, 77, 64, (77, 30), 0.0), (2, 77, 64, None, 0.1),
     (2, 300, 64, None, 0.1), (2, 300, 64, (300, 131), 0.0),
     (4, 500, 2000, None, 0.05), (1, 64, 2000, None, 0.05),
-    (2, 129, 64, (129, 65), 0.1)])
+    (2, 129, 64, (129, 65), 0.1), (9, 512, 2000, None, 0.05),
+    (2, 16, 64, (16, 1), 0.1)])
 def test_attention_train_kernels_match_plain(cuda_device, b, length, maxlen,
                                              lens, p):
     h, seed = 8, 4321
@@ -682,6 +701,24 @@ def test_attention_train_kernels_match_plain(cuda_device, b, length, maxlen,
     torch.testing.assert_close(
         out, attention_train_plain(q, k, v, table, maxlen, seed, p, tl),
         **CARD_TOL)
+    # the row statistics K14 reads: the max of the scaled scores over the
+    # valid keys, and the sum of exp(s - max) before the drop
+    pos = torch.arange(length, device=cuda_device)
+    rel = torch.clamp(pos[:, None] - pos[None], -maxlen, maxlen - 1) + maxlen
+    s = (torch.einsum("bhid,bhjd->bhij", q.double(), k.double())
+         + torch.einsum("bhid,ijd->bhij", q.double(), table.double()[rel]))
+    s = s / 4.0
+    valid = pos[None] < key_len[:, None]
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    mx = s.amax(-1)
+    torch.testing.assert_close(row_max.double(), mx, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(row_sum.double(),
+                               torch.exp(s - mx[..., None]).sum(-1),
+                               rtol=1e-5, atol=0)
+    # no atomics, a fixed order of sums: the same bits every run
+    again = attention_train_fwd(q, k, v, table, maxlen, seed, p, key_len)
+    for x, y in zip((out, row_max, row_sum), again):
+        assert torch.equal(x, y)
     ref = attention_train_bwd_plain(q, k, v, table, maxlen, seed, p, tl, dout)
     for name, g, r in zip(("dq", "dk", "dv", "dtable"), grads, ref):
         # dtable sums B*H*L pairs per row in another order than cuBLAS's

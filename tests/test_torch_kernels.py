@@ -152,7 +152,8 @@ def test_build_names_library_by_source_hash():
                     "ega_gcfn.cu", "flash_relpos.cu", "gcfn.cu",
                     "gcfn_train.cu", "pit.cu", "relpos.cu", "softmax_pv.cu",
                     "softmax_pv_train.cu"]
-    assert [p.name for p in _build.headers()] == ["gcfn_tile_mma.cuh",
+    assert [p.name for p in _build.headers()] == ["flash_relpos_tile.cuh",
+                                                  "gcfn_tile_mma.cuh",
                                                   "hash_dropout.cuh",
                                                   "mma_tf32x3.cuh",
                                                   "softmax_pv_tile.cuh"]
