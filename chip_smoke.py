@@ -27,11 +27,13 @@ Phases, each of which fails the run:
                rates, and the CUDA-core bound of earlier readings on a
                line before; K1's products counted on the rows its lengths
                need), K5's, K6's, K8's, K14's and K15's times by launch,
-               K3's, K3b's, K5's, K6's, K9's, K9b's, K10's, K11's, K13's,
-               K15's and K16's blocks per SM (K11's cluster) and five
-               timings with their median (K3's, K3b's, K5's, K6's, K9's,
-               K9b's, K11's and K13's registers and spills too, and the
-               warps per row tile K13 takes), an empty launch of K11's
+               K2's, K3's, K3b's, K4's, K5's, K6's, K9's, K9b's, K10's,
+               K11's, K13's, K15's and K16's blocks per SM (K11's cluster)
+               and five timings with their median (K2's, K3's, K3b's,
+               K4's, K5's, K6's, K9's, K9b's, K11's and K13's registers
+               and spills too, K2's grid and tiles, and the warps per row
+               tile K13 takes), K2 also at [1024, 16, 1024] (the 8 s
+               chunks), bit-equal to plain at both, an empty launch of K11's
                grid, cluster and shared memory timed beside it (K11's
                floor), a SHA-1 of K12's output bytes on fixed-seed inputs
                (to compare trees bit for bit), K1's, K3's, K5's, K6's,
@@ -43,10 +45,12 @@ Phases, each of which fails the run:
                decoder): against its plain version, bits on a repeat
                call, K14 on its row statistics, five timings,
                K7's and its
-               plain version's distance from a float64 run, K3's and K9's
-               five timings also with the calls taken in turn over copies
-               of their scores whose total exceeds twice the L2, so each
-               call reads its scores from memory; and the port's
+               plain version's distance from a float64 run, K2's, K3's,
+               K4's and K9's five timings also with the calls taken in
+               turn over copies of their inputs whose total exceeds twice
+               the L2, so each call reads them from memory (K2's and
+               K4's outputs held, so each call also writes to memory the
+               calls before it did not); and the port's
                scores producer followed by K3 against a two-tensor
                producer (no add pass) followed by K3b, at K3's shape.
 3. serve     - Base at full width, seeded weights: three requests through
@@ -283,29 +287,38 @@ def launch_split(torch, fn, symbol, labels, iters=20, attempts=3):
 
 
 def past_l2_timings(torch, device_ms, run, tensor, symbol, bound,
-                    timings=5):
+                    timings=5, out_bytes=0):
     """Timings of ``run(tensor)`` as ``record`` takes them, but with the
     calls taken in turn over copies of ``tensor`` whose total exceeds
     twice the card's L2: back-to-back calls on one tensor find part of it
-    in L2, these read it from memory.  Prints them beside the byte bound
+    in L2, these read it from memory.  With ``out_bytes`` (the bytes of
+    one call's output) the copies count those bytes too, and the outputs
+    of the last calls are held, so that each call writes to memory that
+    the calls before it did not.  Prints them beside the byte bound
     ``bound`` and returns their median."""
+    from collections import deque
+
     l2 = torch.cuda.get_device_properties(0).L2_cache_size
     nbytes = tensor.numel() * tensor.element_size()
-    copies = [tensor] + [tensor.clone() for _ in range(2 * l2 // nbytes + 1)]
+    copies = [tensor] + [tensor.clone()
+                         for _ in range(2 * l2 // (nbytes + out_bytes) + 1)]
+    held = deque(maxlen=len(copies) if out_bytes else 0)
     turn = [0]
 
     def call():
         turn[0] += 1
-        return run(copies[turn[0] % len(copies)])
+        held.append(run(copies[turn[0] % len(copies)]))
 
     times = [device_ms(call, kernel=symbol) for _ in range(timings)]
     median = statistics.median(times)
-    print(f"[kernels] {symbol}: over {len(copies)} score tensors in turn "
-          f"({len(copies) * nbytes / 1e6:.0f} MB, L2 {l2 / 1e6:.0f} MB): "
+    total = len(copies) * (nbytes + out_bytes)
+    print(f"[kernels] {symbol}: over {len(copies)} input tensors in turn"
+          + (", each output held" if out_bytes else "") +
+          f" ({total / 1e6:.0f} MB, L2 {l2 / 1e6:.0f} MB): "
           f"{timings} timings " + ", ".join(f"{ms:.4f}" for ms in times)
           + f" ms, median {median:.4f}, {median / bound:.2f}x the byte bound "
           f"{bound:.4f} ms")
-    del copies
+    del copies, held
     torch.cuda.empty_cache()
     return median
 
@@ -374,6 +387,17 @@ def kernel_phase(torch, K, device_ms):
 
     results = []
 
+    def timed(label, kernel, name, timings):
+        """The median of ``timings`` device timings of wrapper ``name``'s
+        kernel in ``kernel()``, each printed where there are several."""
+        times = [device_ms(kernel, kernel=KERNEL_SYMBOLS[name])
+                 for _ in range(timings)]
+        median = statistics.median(times)
+        if timings > 1:
+            print(f"[kernels] {label}: {timings} timings " + ", ".join(
+                f"{ms:.4f}" for ms in times) + f" ms, median {median:.4f}")
+        return median
+
     def record(wrapper, kernel, plain, library, err, nbytes, flops, source,
                replaces, shape, tolerance, tc_flops=0.0, exps=0.0,
                cuda_core_flops=None, timings=1):
@@ -384,16 +408,9 @@ def kernel_phase(torch, K, device_ms):
             print(f"[kernels] {name}: bound with every operation on the CUDA "
                   f"cores (the earlier CUDA-core design's count) {old:.4f} ms "
                   f"({old_by})")
-        # the kernel's time: the median of ``timings`` device timings
-        times = [device_ms(kernel, kernel=KERNEL_SYMBOLS[name])
-                 for _ in range(timings)]
-        if timings > 1:
-            print(f"[kernels] {name}: {timings} timings " + ", ".join(
-                f"{ms:.4f}" for ms in times) + f" ms, median "
-                f"{statistics.median(times):.4f}")
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
                    launches=0, max_abs_err=err,
-                   ms=statistics.median(times),
+                   ms=timed(name, kernel, name, timings),
                    plain_ms=device_ms(plain), bound_ms=bound,
                    bound_by=bound_by,
                    library_ms=None if library is None else device_ms(library))
@@ -449,24 +466,54 @@ def kernel_phase(torch, K, device_ms):
            tc_flops=tc_flops, exps=g_rows * (h // 2),
            cuda_core_flops=b * t * (products + rest))
 
-    # K2: pos_kt at the padded bottleneck length 512 from a [4000, 16] table
+    # K2: pos_kt at the padded bottleneck length 512 from a [4000, 16]
+    # table (a 4 s forward), then at 1024 (the 8 s chunks of long-form
+    # serving), each bit-equal to the plain version (an exact copy)
     lp, maxlen, d = 512, 2000, 16
     table = randn(2 * maxlen, d)
-    got = K.materialize_pos_kt(table, lp, maxlen)
-    ref = K.materialize_pos_kt_plain(table, lp, maxlen)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
-    idx = torch.from_numpy(K.relpos.relpos_index(lp, maxlen)).to(dev)
-    flat = idx[:, None, :] * d + torch.arange(d, device=dev)[None, :, None]
-    record(K.materialize_pos_kt,
-           lambda: K.materialize_pos_kt(table, lp, maxlen),
-           lambda: K.materialize_pos_kt_plain(table, lp, maxlen),
-           lambda: torch.take(table, flat), (got - ref).abs().max().item(),
-           4 * (got.numel() + table.numel()), 0,
-           source="sepreformer_torch/csrc/relpos.cu",
-           replaces="sepreformer_tpu/ops/pallas/relpos.py:106",
-           shape=f"table [{2 * maxlen}, {d}] -> [{lp}, {d}, {lp}]",
-           tolerance="rtol 1e-4, atol 1e-5 (an exact copy)")
+    for length in (lp, 1024):
+        got = K.materialize_pos_kt(table, length, maxlen)
+        ref = K.materialize_pos_kt_plain(table, length, maxlen)
+        torch.cuda.synchronize()
+        same = torch.equal(got, ref)
+        occ = K.relpos.occupancy(length, d)
+        print(f"[kernels] materialize_pos_kt at [{length}, {d}, {length}]: "
+              f"bit-equal to plain: {same}; {occ['blocks']} blocks over "
+              f"{occ['tiles']} tiles, {occ['blocks_per_sm']} blocks per SM, "
+              f"{occ['registers']} registers, {occ['local_bytes']} local "
+              f"(spill) bytes")
+        assert same, f"K2 is not bit-equal to plain at t {length}"
+        bit_equal("materialize_pos_kt",
+                  lambda: K.materialize_pos_kt(table, length, maxlen))
+        # the bytes it must move: the output, and the table rows of the
+        # offsets i - j in [-(t - 1), t - 1] after the clip
+        nbytes = 4 * (got.numel() + min(2 * length - 1, 2 * maxlen) * d)
+        if length == lp:
+            idx = torch.from_numpy(K.relpos.relpos_index(lp, maxlen)).to(dev)
+            flat = (idx[:, None, :] * d
+                    + torch.arange(d, device=dev)[None, :, None])
+            record(K.materialize_pos_kt,
+                   lambda: K.materialize_pos_kt(table, lp, maxlen),
+                   lambda: K.materialize_pos_kt_plain(table, lp, maxlen),
+                   lambda: torch.take(table, flat),
+                   (got - ref).abs().max().item(), nbytes, 0,
+                   source="sepreformer_torch/csrc/relpos.cu",
+                   replaces="sepreformer_tpu/ops/pallas/relpos.py:106",
+                   shape=f"table [{2 * maxlen}, {d}] -> [{lp}, {d}, {lp}]",
+                   tolerance="bit-equal (an exact copy)", timings=5)
+            bound = results[-1]["bound_ms"]
+        else:
+            bound = bound_ms(nbytes, 0)[0]
+            ms = timed(f"materialize_pos_kt at [{length}, {d}, {length}]",
+                       lambda: K.materialize_pos_kt(table, length, maxlen),
+                       "materialize_pos_kt", 5)
+            print(f"[kernels] materialize_pos_kt at [{length}, {d}, "
+                  f"{length}]: ms {ms:.4f}, bound {bound:.4f} (bytes)")
+        past_l2_timings(torch, device_ms,
+                        lambda tab: K.materialize_pos_kt(tab, length, maxlen),
+                        table, KERNEL_SYMBOLS["materialize_pos_kt"], bound,
+                        out_bytes=4 * got.numel())
+        del got, ref
 
     # K3: decoder attention, B*spks=8 rows, 8 heads, L=500 padded to 512
     b, heads, f, length = 8, 8, 128, 500
@@ -520,7 +567,7 @@ def kernel_phase(torch, K, device_ms):
     bit_equal("depthwise_bwd_w", lambda: torch.cat([
         a.flatten() for a in K.depthwise_bwd_w(x, dy, k)]))
     print_occupancy({f"depthwise {name} at k {k}": occ for name, occ in
-                     depthwise_occupancy(k).items()})
+                     depthwise_occupancy(k).items() if name != "K4"})
     xp = torch.nn.functional.pad(x.transpose(1, 2), (k // 2, k // 2))
     dy_ncw = dy.transpose(1, 2).contiguous()
     record(K.depthwise_bwd, lambda: K.depthwise_bwd(x, w, dy),
@@ -888,6 +935,9 @@ def fused_kernel_rows(torch, K, device_ms, randn, record):
         blocks_per_sm as cla_blocks_per_sm,
     )
     from sepreformer_torch.ops.kernels.depthwise import depthwise_forward
+    from sepreformer_torch.ops.kernels.depthwise import (
+        occupancy as depthwise_occupancy,
+    )
     from sepreformer_torch.ops.kernels.ega_gcfn import blocks_per_sm
 
     b, t, f, k, length = 4, 8000, 128, 65, 500
@@ -969,15 +1019,27 @@ def fused_kernel_rows(torch, K, device_ms, randn, record):
     ref = K.depthwise_fwd_plain(x, w, bias)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+    same = torch.equal(got, K.depthwise_fwd(x, w, bias))
+    print(f"[kernels] depthwise_fwd: bit-equal on a repeat call: {same}")
+    assert same, "K4 is not bit-equal on repeat"
+    occ = depthwise_occupancy(k)["K4"]
+    print(f"[kernels] depthwise K4 at k {k}: {occ['warps']} warps, "
+          f"{occ['blocks_per_sm']} blocks per SM, {occ['registers']} "
+          f"registers, {occ['local_bytes']} local (spill) bytes")
+    nbytes = 4 * (2 * x.numel() + w.numel() + f)
     record(K.depthwise_fwd, lambda: K.depthwise_fwd(x, w, bias),
            lambda: K.depthwise_fwd_plain(x, w, bias),
            lambda: depthwise_forward(x, w, bias),
-           (got - ref).abs().max().item(),
-           4 * (2 * x.numel() + w.numel() + f), x.numel() * (2 * k + 1),
+           (got - ref).abs().max().item(), nbytes, x.numel() * (2 * k + 1),
            source="sepreformer_torch/csrc/depthwise.cu",
            replaces="sepreformer_tpu/ops/pallas/depthwise.py:117",
            shape=f"x [{b}, {t}, {f}], w [{f}, 1, {k}]",
-           tolerance="rtol 1e-4, atol 1e-5 (float32)")
+           tolerance="rtol 1e-4, atol 1e-5 (float32)", timings=5)
+    past_l2_timings(torch, device_ms,
+                    lambda xx: K.depthwise_fwd(xx, w, bias), x,
+                    KERNEL_SYMBOLS["depthwise_fwd"],
+                    bound_ms(nbytes, x.numel() * (2 * k + 1))[0],
+                    out_bytes=4 * x.numel())
 
 
 def attention_train_rows(torch, K, device_ms, randn, record):

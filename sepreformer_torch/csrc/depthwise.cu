@@ -29,11 +29,11 @@
 // give about the same bound, ~0.016 ms.  K6 reads x and dy once (33 MB,
 // 0.0098 ms) and does K FMAs per element (0.008 ms): bound by the bytes.
 // A depthwise conv is a per-channel Toeplitz product (a matrix-vector
-// product per channel), so K5 and K6 run on the CUDA cores, whose FMA
+// product per channel), so all three run on the CUDA cores, whose FMA
 // rate an SM reaches only if its shared memory feeds it: 128 bytes a
 // clock against 128 FMAs, so at least 4 FMAs per float loaded.
 //
-// Design of K5 and K6 (namespace bwd).  The TPU summed dw and db across
+// Design of K5 and K6 (namespace tiled).  The TPU summed dw and db across
 // a sequential grid in VMEM.  Here blocks run in parallel and in no
 // order, so each block writes its own partial sums [K + 1, C] (the last
 // row is db) and a second launch adds the partials in a fixed order: the
@@ -63,106 +63,42 @@
 // the card the FMA loops set the pace, at about half the CUDA cores'
 // rate with or without their shared loads (PERF.md has the ablations).
 //
-// K4 takes a block of 32 channels and 256 rows, in tiles of 64 rows that
-// it stages with their halo, and the weight, in shared memory by plain
-// loads; each warp runs the tap loop (tap_rows) over its 8 rows.
+// K4 (depthwise_fwd_kernel) is K5's dx with the weight unflipped: the
+// same geometry, chunk plan, ring (Stager, of x rows alone) and register
+// window (dx_rows), the weight staged as it is, the bias as the sums'
+// start, and no dy, dw or partials, so one launch a call.  Every warp
+// computes kFwdWindows windows of Q rows of a tile over all KP taps.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_tf32x3.cuh"  // cp_async16, cp_async4 and their group helpers
 
 namespace {
-
-constexpr int kCW = 32;          // channels per block (one per lane)
-constexpr int kTT = 64;          // rows per tile
-constexpr int kTiles = 4;        // tiles per block: 256 rows
-constexpr int kThreads = 256;    // 8 warps
-constexpr int kGroups = kThreads / 32;
-constexpr int kRowsPerWarp = kTT / kGroups;
-constexpr int kMaxK = 81;        // the shared memory below stays <= 48 KB
-
-// K4's tiles: x [kTT + K - 1][kCW] and the weight [K][kCW]
-size_t smem_bytes(int K) {
-  return sizeof(float) * ((size_t)(kTT + K - 1) * kCW + (size_t)K * kCW);
-}
-
-// The "same" conv's tap loop for one channel of R consecutive output rows:
-//   acc[r] += sum_tap w[tap] * v[r + tap],  r < R,
-// where v is a window in shared memory whose row 0 lies K / 2 rows before
-// the first output row (zero rows stand for the padding outside [0, T)).
-// The caller sets acc to the bias first.  Strides are in floats: the
-// window's rows and the staged weight's taps; lanes of a warp take
-// neighbouring channels, so every shared access is free of bank conflicts.
-template <int R>
-__device__ __forceinline__ void tap_rows(const float* v, int v_stride,
-                                         const float* w, int w_stride, int K,
-                                         float (&acc)[R]) {
-  for (int tap = 0; tap < K; ++tap) {
-    const float wv = w[tap * w_stride];
-    const float* row = v + tap * v_stride;
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] += wv * row[r * v_stride];
-  }
-}
-
-// K4: y = the "same" conv of x, one tile of kTT rows at a time.
-__global__ void __launch_bounds__(kThreads)
-depthwise_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ bias, float* __restrict__ y,
-                     int T, int C, int K) {
-  extern __shared__ float smem[];
-  const int halo = (K - 1) / 2, rows = kTT + K - 1;
-  float* xs = smem;                 // [rows][kCW]
-  float* ws = xs + rows * kCW;      // [K][kCW]
-  const int c0 = blockIdx.x * kCW, chunk = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, grp = threadIdx.x >> 5;
-  const int c = c0 + lane;
-  const bool c_ok = c < C;
-  for (int e = threadIdx.x; e < K * kCW; e += kThreads) {
-    const int tap = e / kCW, cc = c0 + e % kCW;
-    ws[e] = cc < C ? w[(size_t)cc * K + tap] : 0.f;
-  }
-  const float bv = c_ok ? bias[c] : 0.f;
-  const size_t base = (size_t)b * T * C;
-  for (int tile = 0; tile < kTiles; ++tile) {
-    const int t0 = (chunk * kTiles + tile) * kTT;
-    if (t0 >= T) break;  // the same for every thread of the block
-    __syncthreads();     // the previous tile is consumed
-    for (int e = threadIdx.x; e < rows * kCW; e += kThreads) {
-      const int r = e / kCW, cc = c0 + e % kCW, t = t0 - halo + r;
-      xs[e] = t >= 0 && t < T && cc < C ? x[base + (size_t)t * C + cc] : 0.f;
-    }
-    __syncthreads();
-    const int i0 = grp * kRowsPerWarp;
-    float acc[kRowsPerWarp];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) acc[r] = bv;
-    tap_rows<kRowsPerWarp>(xs + i0 * kCW + lane, kCW, ws + lane, kCW, K,
-                           acc);
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int t = t0 + i0 + r;
-      if (t < T && c_ok) y[base + (size_t)t * C + c] = acc[r];
-    }
-  }
-}
-
-// ---- K5 and K6 ----
-namespace bwd {
+namespace tiled {
 
 constexpr int kLanes = 32;         // channels per block, one per lane
+constexpr int kMaxK = 81;          // the widest kernel (taps)
 constexpr int kMaxQ = 16;          // the widest register window
 constexpr int kMinWarps = 8;       // row splits fill a block to this
 constexpr int kMaxThreads = 384;   // 12 warps at K 81 (G 6, S 2)
 constexpr int kSlices = 8;         // the reduction's partial slices
+constexpr int kFwdWindows = 2;     // K4's register windows a warp
 
 // The tiling for K taps: G groups of Q taps (KP = G * Q >= K), S row
 // splits, G * S warps and tiles of TT = G * S * Q rows.  A tile stages
 // SR = TT + KP rows from K / 2 rows before its first: the windows read
 // rows up to TT + KP - 2, and their last slide loads row TT + KP - 1.
+// K4's tiles are kFwdWindows times as tall (a warp runs that many
+// windows of Q rows), and stage their rows the same way.
 struct Geometry {
   int G, Q, S, warps, TT, KP, SR;
 };
+
+inline __host__ __device__ Geometry fwd_geometry(Geometry g) {
+  g.TT *= kFwdWindows;
+  g.SR = g.TT + g.KP;
+  return g;
+}
 
 inline __host__ __device__ Geometry geometry(int K) {
   Geometry g;
@@ -176,33 +112,51 @@ inline __host__ __device__ Geometry geometry(int K) {
   return g;
 }
 
-// two buffers of x and dy rows [SR][kLanes], then the flipped weight
-// [KP][kLanes] for dx
-size_t smem_bytes(const Geometry& g, bool kDx) {
+// K4 (the forward), K5 (dx, dw, db) or K6 (dw, db)
+enum class Kind { kFwd, kBwd, kDw };
+
+// two buffers of x rows [SR][kLanes] (and of dy rows, in the backward),
+// then the weight [KP][kLanes] (flipped for K5's dx; none for K6); g is
+// the kind's own geometry
+size_t smem_bytes(const Geometry& g, Kind kind) {
+  const size_t rows = (size_t)(kind == Kind::kFwd ? 2 : 4) * g.SR * kLanes;
   return sizeof(float) *
-         ((size_t)4 * g.SR * kLanes + (kDx ? (size_t)g.KP * kLanes : 0));
+         (rows + (kind == Kind::kDw ? 0 : (size_t)g.KP * kLanes));
 }
 
-// dx of Q consecutive rows of one channel: acc[r] = sum_{j < KP} wf[j] *
-// col[r + j] (rows of kLanes floats), wf the weight flipped along its
-// taps.  Window slot (j + r) % Q holds row r + j: each tap takes one
-// weight and one new row into the slot of the row it no longer needs.
-template <int Q>
+// N windows of Q consecutive rows of one channel's correlation, window n
+// from row n * Q: acc[n][r] = start + sum_{j < KP} wf[j] * col[n Q + r +
+// j] (rows of kLanes floats): K5's dx with wf the weight flipped along
+// its taps (N = 1), K4's y with the weight as it is (N = kFwdWindows).
+// Window slot (j + r) % Q holds row r + j: each tap takes one weight for
+// all N windows and one new row for each into the slot of the row it no
+// longer needs.
+template <int Q, int N>
 __device__ __forceinline__ void dx_rows(const float* col, const float* wf,
-                                        int KP, float (&acc)[Q]) {
-  float win[Q];
+                                        int KP, float start,
+                                        float (&acc)[N][Q]) {
+  float win[N][Q];
 #pragma unroll
   for (int q = 0; q < Q; ++q) {
-    acc[q] = 0.f;
-    win[q] = col[q * kLanes];
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      acc[n][q] = start;
+      win[n][q] = col[(n * Q + q) * kLanes];
+    }
   }
   for (int jb = 0; jb < KP; jb += Q) {
 #pragma unroll
     for (int jj = 0; jj < Q; ++jj) {
       const float wv = wf[(jb + jj) * kLanes];
 #pragma unroll
-      for (int r = 0; r < Q; ++r) acc[r] = fmaf(wv, win[(jj + r) % Q], acc[r]);
-      win[jj] = col[(jb + jj + Q) * kLanes];
+      for (int r = 0; r < Q; ++r) {
+#pragma unroll
+        for (int n = 0; n < N; ++n)
+          acc[n][r] = fmaf(wv, win[n][(jj + r) % Q], acc[n][r]);
+      }
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+        win[n][jj] = col[(n * Q + jb + jj + Q) * kLanes];
     }
   }
 }
@@ -229,6 +183,48 @@ __device__ __forceinline__ void dw_rows(const float* xcol, const float* dcol,
   }
 }
 
+// The ring's staging of row b, channels c0 .. c0 + 31: tile -> the rows
+// [tile * TT - h, tile * TT - h + SR) of each of kN tensors into
+// dst + i * buf (tensor i), zeros outside [0, T) and past C, by cp.async
+// (16-byte copies along channels where vec, else 4-byte ones), one
+// commit group a tile.  A thread copies columns jc .. jc + width - 1 of
+// every step-th row.  K5 and K6 stage x and dy, K4 x alone.
+struct Stager {
+  int TT, SR, h, T, C, c0, per_row, jc, step, vec;
+  size_t base;
+  bool jc_ok;
+  __device__ Stager(const Geometry& geo, int h_, int T_, int C_,
+                    size_t base_, int c0_, int vec_, int nthreads)
+      : TT(geo.TT), SR(geo.SR), h(h_), T(T_), C(C_), c0(c0_),
+        per_row(kLanes / (vec_ ? 4 : 1)),
+        jc((vec_ ? 4 : 1) * (threadIdx.x % per_row)),
+        step(nthreads / per_row), vec(vec_), base(base_),
+        jc_ok(c0 + jc < C) {}
+
+  template <int kN>
+  __device__ __forceinline__ void operator()(const float* const (&src)[kN],
+                                             float* dst, size_t buf,
+                                             int tile) const {
+    dst += jc;
+    const int t_lo = tile * TT - h;
+    for (int r = threadIdx.x / per_row; r < SR; r += step) {
+      const int t = t_lo + r;
+      const bool ok = jc_ok && t >= 0 && t < T;
+      const size_t off = ok ? base + (size_t)t * C + c0 + jc : 0;
+      if (vec) {
+#pragma unroll
+        for (int i = 0; i < kN; ++i)
+          tf32x3::cp_async16(dst + i * buf + r * kLanes, src[i] + off, ok);
+      } else {
+#pragma unroll
+        for (int i = 0; i < kN; ++i)
+          tf32x3::cp_async4(dst + i * buf + r * kLanes, src[i] + off, ok);
+      }
+    }
+    tf32x3::cp_async_commit();
+  }
+};
+
 // kDx: K5 (dx, and the partial dw and db); else K6 (the partials only).
 // Block (channel group, chunk, b) walks tiles [chunk * tiles_per_block,
 // ...) of row b; vec: 16-byte copies (C % 4 == 0, x and dy aligned).
@@ -252,28 +248,11 @@ __device__ __forceinline__ void bwd_body(
   const int first = chunk * tiles_per_block;
   const int n = min(tiles_per_block, (T + geo.TT - 1) / geo.TT - first);
 
-  // tile -> buffer `slot` (x rows, then dy rows), zeros outside [0, T):
-  // a thread copies columns jc .. jc + width - 1 of every step-th row
-  const int width = vec ? 4 : 1, per_row = kLanes / width;
-  const int jc = width * (threadIdx.x % per_row), step = nthreads / per_row;
-  const bool jc_ok = c0 + jc < C;
+  // tile -> buffer `slot`: x rows, then dy rows
+  const Stager stager(geo, h, T, C, base, c0, vec, nthreads);
+  const float* const srcs[2] = {x, dy};
   auto stage = [&](int tile, int slot) {
-    float* xs = smem + 2 * slot * buf + jc;
-    float* ds = xs + buf;
-    const int t_lo = tile * geo.TT - h;
-    for (int r = threadIdx.x / per_row; r < geo.SR; r += step) {
-      const int t = t_lo + r;
-      const bool ok = jc_ok && t >= 0 && t < T;
-      const size_t off = ok ? base + (size_t)t * C + c0 + jc : 0;
-      if (vec) {
-        tf32x3::cp_async16(xs + r * kLanes, x + off, ok);
-        tf32x3::cp_async16(ds + r * kLanes, dy + off, ok);
-      } else {
-        tf32x3::cp_async4(xs + r * kLanes, x + off, ok);
-        tf32x3::cp_async4(ds + r * kLanes, dy + off, ok);
-      }
-    }
-    tf32x3::cp_async_commit();
+    stager(srcs, smem + 2 * slot * buf, buf, tile);
   };
 
   stage(first, 0);
@@ -301,12 +280,12 @@ __device__ __forceinline__ void bwd_body(
     if (kDx) {
       // rows r0 .. r0 + Q - 1: dx[t] = sum_j wf[j] dy-row r0 + r + j
       const int r0 = warp * Q, t0 = (first + k) * geo.TT + r0;
-      float acc[Q];
-      dx_rows<Q>(ds + r0 * kLanes + lane, ws + lane, geo.KP, acc);
+      float acc[1][Q];
+      dx_rows<Q, 1>(ds + r0 * kLanes + lane, ws + lane, geo.KP, 0.f, acc);
       if (c < C) {
 #pragma unroll
         for (int r = 0; r < Q; ++r)
-          if (t0 + r < T) dx[base + (size_t)(t0 + r) * C + c] = acc[r];
+          if (t0 + r < T) dx[base + (size_t)(t0 + r) * C + c] = acc[0][r];
       }
     }
     // taps g*Q .. over rows i0 .. i0 + KP - 1: dw[tap] += x-row i + tap *
@@ -361,6 +340,69 @@ depthwise_dw_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   bwd_body<Q, false>(x, dy, w, dx, partial, T, C, K, tiles_per_block, vec);
 }
 
+// K4: y = the "same" conv of x plus the bias.  Block (channel group,
+// chunk, b) walks tiles [chunk * tiles_per_block, ...) of row b through
+// the ring of x rows; warp w computes rows w * N Q .. (w + 1) N Q - 1 of
+// each tile (N = kFwdWindows) from the weight staged as it is (zero past
+// K).
+template <int Q>
+__global__ void __launch_bounds__(kMaxThreads)
+depthwise_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ bias, float* __restrict__ y,
+                     int T, int C, int K, int tiles_per_block, int vec) {
+  extern __shared__ __align__(16) float fwd_smem[];
+  float* smem = fwd_smem;
+  const Geometry geo = fwd_geometry(geometry(K));
+  const int h = (K - 1) / 2, nthreads = geo.warps * 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c0 = blockIdx.x * kLanes, chunk = blockIdx.y, b = blockIdx.z;
+  const int c = c0 + lane;
+  const size_t buf = (size_t)geo.SR * kLanes;  // floats of one staged tile
+  float* ws = smem + 2 * buf;
+  const size_t base = (size_t)b * T * C;
+  const int first = chunk * tiles_per_block;
+  const int n = min(tiles_per_block, (T + geo.TT - 1) / geo.TT - first);
+
+  // tile -> buffer `slot`: x rows
+  const Stager stager(geo, h, T, C, base, c0, vec, nthreads);
+  const float* const srcs[1] = {x};
+  auto stage = [&](int tile, int slot) {
+    stager(srcs, smem + slot * buf, buf, tile);
+  };
+
+  stage(first, 0);
+  for (int e = threadIdx.x; e < geo.KP * kLanes; e += nthreads) {
+    const int j = e / kLanes, cc = c0 + e % kLanes;
+    ws[e] = j < K && cc < C ? w[(size_t)cc * K + j] : 0.f;
+  }
+  const float start = c < C ? bias[c] : 0.f;
+  for (int k = 0; k < n; ++k) {
+    if (k + 1 < n) {
+      stage(first + k + 1, (k + 1) & 1);
+      tf32x3::cp_async_wait<1>();
+    } else {
+      tf32x3::cp_async_wait<0>();
+    }
+    __syncthreads();  // tile k (and the weight) in place
+    constexpr int N = kFwdWindows;
+    const int r0 = warp * N * Q, t0 = (first + k) * geo.TT + r0;
+    float acc[N][Q];
+    dx_rows<Q, N>(smem + (k & 1) * buf + r0 * kLanes + lane, ws + lane,
+                  geo.KP, start, acc);
+    if (c < C) {
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+#pragma unroll
+        for (int r = 0; r < Q; ++r) {
+          const int t = t0 + n * Q + r;
+          if (t < T) y[base + (size_t)t * C + c] = acc[n][r];
+        }
+      }
+    }
+    __syncthreads();  // the buffer is read before it is staged again
+  }
+}
+
 // dw[c, tap] and db[c]: the parts' partials, one output a lane; slice j
 // of a block adds parts j, j + kSlices, ... in order, then lane's
 // slices are added in order.
@@ -405,39 +447,47 @@ depthwise_dw_reduce_kernel(const float* __restrict__ partial,
   reduce_partials(partial, dw, db, parts, C, K);
 }
 
-using Kernel = void (*)(const float*, const float*, const float*, float*,
-                        float*, int, int, int, int, int);
+using BwdKernel = void (*)(const float*, const float*, const float*, float*,
+                           float*, int, int, int, int, int);
+using FwdKernel = void (*)(const float*, const float*, const float*, float*,
+                           int, int, int, int, int);
 
 template <int Q>
-Kernel pick(bool kDx) {
-  return kDx ? &depthwise_bwd_kernel<Q> : &depthwise_dw_kernel<Q>;
+const void* pick(Kind kind) {
+  switch (kind) {
+    case Kind::kFwd: return (const void*)&depthwise_fwd_kernel<Q>;
+    case Kind::kBwd: return (const void*)&depthwise_bwd_kernel<Q>;
+    case Kind::kDw: return (const void*)&depthwise_dw_kernel<Q>;
+  }
+  return nullptr;
 }
 
 // every Q that geometry gives an odd K <= kMaxK: K itself below 17,
 // else 9 .. 16
-Kernel kernel_for(int Q, bool kDx) {
+const void* kernel_for(int Q, Kind kind) {
   switch (Q) {
-    case 1: return pick<1>(kDx);
-    case 3: return pick<3>(kDx);
-    case 5: return pick<5>(kDx);
-    case 7: return pick<7>(kDx);
-    case 9: return pick<9>(kDx);
-    case 10: return pick<10>(kDx);
-    case 11: return pick<11>(kDx);
-    case 12: return pick<12>(kDx);
-    case 13: return pick<13>(kDx);
-    case 14: return pick<14>(kDx);
-    case 15: return pick<15>(kDx);
-    case 16: return pick<16>(kDx);
+    case 1: return pick<1>(kind);
+    case 3: return pick<3>(kind);
+    case 5: return pick<5>(kind);
+    case 7: return pick<7>(kind);
+    case 9: return pick<9>(kind);
+    case 10: return pick<10>(kind);
+    case 11: return pick<11>(kind);
+    case 12: return pick<12>(kind);
+    case 13: return pick<13>(kind);
+    case 14: return pick<14>(kind);
+    case 15: return pick<15>(kind);
+    case 16: return pick<16>(kind);
   }
   return nullptr;
 }
 
 // The launch: the kernel for K's window, its shared memory, and chunks of
 // tiles_per_block tiles sized so that the blocks fill every SM's slots
-// about once (fewer partials than blocks of one tile each).
+// about once (in the backward, fewer partials than blocks of one tile
+// each).
 struct Plan {
-  Kernel kernel;
+  const void* kernel;
   Geometry geo;
   size_t smem;
   int blocks_per_sm, tiles_per_block, chunks;
@@ -445,14 +495,13 @@ struct Plan {
 
 bool bad_k(int K) { return K < 1 || K % 2 == 0 || K > kMaxK; }
 
-cudaError_t make_plan(int B, int T, int C, int K, bool kDx, Plan* p) {
-  p->geo = geometry(K);
-  p->kernel = kernel_for(p->geo.Q, kDx);
+cudaError_t make_plan(int B, int T, int C, int K, Kind kind, Plan* p) {
+  p->geo = kind == Kind::kFwd ? fwd_geometry(geometry(K)) : geometry(K);
+  p->kernel = kernel_for(p->geo.Q, kind);
   if (p->kernel == nullptr) return cudaErrorInvalidValue;
-  p->smem = smem_bytes(p->geo, kDx);
+  p->smem = smem_bytes(p->geo, kind);
   cudaError_t err = cudaFuncSetAttribute(
-      (const void*)p->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)p->smem);
+      p->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p->smem);
   int dev = 0, sms = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -480,7 +529,8 @@ int launch(const void* x, const void* dy, const void* w, void* dx, void* dw,
   if (B <= 0 || T <= 0 || C <= 0) return 0;
   if (bad_k(K) || B > 65535) return (int)cudaErrorInvalidValue;
   Plan p;
-  const cudaError_t err = make_plan(B, T, C, K, kDx, &p);
+  const cudaError_t err =
+      make_plan(B, T, C, K, kDx ? Kind::kBwd : Kind::kDw, &p);
   if (err != cudaSuccess) return (int)err;
   if (p.chunks > 65535 || partial_floats < partial_floats_needed(B, C, K, p))
     return (int)cudaErrorInvalidValue;
@@ -488,7 +538,7 @@ int launch(const void* x, const void* dy, const void* w, void* dx, void* dw,
       C % 4 == 0 && ((uintptr_t)x | (uintptr_t)dy) % 16 == 0 ? 1 : 0;
   auto st = static_cast<cudaStream_t>(stream);
   dim3 grid((C + kLanes - 1) / kLanes, p.chunks, B);
-  const Kernel kernel = p.kernel;
+  const auto kernel = reinterpret_cast<BwdKernel>(p.kernel);
   kernel<<<grid, p.geo.warps * 32, p.smem, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(dy),
       static_cast<const float*>(w), static_cast<float*>(dx),
@@ -504,8 +554,34 @@ int launch(const void* x, const void* dy, const void* w, void* dx, void* dw,
   return (int)cudaGetLastError();
 }
 
-}  // namespace bwd
+int launch_fwd(const void* x, const void* w, const void* bias, void* y,
+               int B, int T, int C, int K, void* stream) {
+  if (B <= 0 || T <= 0 || C <= 0) return 0;
+  if (bad_k(K) || B > 65535) return (int)cudaErrorInvalidValue;
+  Plan p;
+  const cudaError_t err = make_plan(B, T, C, K, Kind::kFwd, &p);
+  if (err != cudaSuccess) return (int)err;
+  if (p.chunks > 65535) return (int)cudaErrorInvalidValue;
+  const int vec = C % 4 == 0 && (uintptr_t)x % 16 == 0 ? 1 : 0;
+  dim3 grid((C + kLanes - 1) / kLanes, p.chunks, B);
+  const auto kernel = reinterpret_cast<FwdKernel>(p.kernel);
+  kernel<<<grid, p.geo.warps * 32, p.smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<float*>(y), T, C, K,
+      p.tiles_per_block, vec);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tiled
 }  // namespace
+
+// K4: x, y device float32 [B, T, C]; w [C, 1, K]; bias [C].
+extern "C" int sep_depthwise_fwd_f32(const void* x, const void* w,
+                                     const void* bias, void* y, int B, int T,
+                                     int C, int K, void* stream) {
+  return tiled::launch_fwd(x, w, bias, y, B, T, C, K, stream);
+}
 
 // K5: x, dy, dx device float32 [B, T, C]; w, dw: [C, 1, K]; db: [C];
 // partial: device float32 scratch of partial_floats floats, at least
@@ -515,8 +591,8 @@ extern "C" int sep_depthwise_bwd_f32(const void* x, const void* dy,
                                      void* db, void* partial,
                                      long long partial_floats, int B, int T,
                                      int C, int K, void* stream) {
-  return bwd::launch(x, dy, w, dx, dw, db, partial, partial_floats, B, T, C,
-                     K, true, stream);
+  return tiled::launch(x, dy, w, dx, dw, db, partial, partial_floats, B, T,
+                       C, K, true, stream);
 }
 
 // K6: dw and db only, as sep_depthwise_bwd_f32 without w and dx (the
@@ -525,8 +601,8 @@ extern "C" int sep_depthwise_bwd_w_f32(const void* x, const void* dy,
                                        void* dw, void* db, void* partial,
                                        long long partial_floats, int B,
                                        int T, int C, int K, void* stream) {
-  return bwd::launch(x, dy, nullptr, nullptr, dw, db, partial,
-                     partial_floats, B, T, C, K, false, stream);
+  return tiled::launch(x, dy, nullptr, nullptr, dw, db, partial,
+                       partial_floats, B, T, C, K, false, stream);
 }
 
 // Floats of K5's (with_dx) or K6's scratch of block partials for these
@@ -535,24 +611,27 @@ extern "C" int sep_depthwise_bwd_w_f32(const void* x, const void* dy,
 extern "C" long long sep_depthwise_bwd_partial_floats(int B, int T, int C,
                                                       int K, int with_dx) {
   if (B <= 0 || T <= 0 || C <= 0) return 0;
-  bwd::Plan p;
-  if (bwd::bad_k(K) ||
-      bwd::make_plan(B, T, C, K, with_dx != 0, &p) != cudaSuccess)
+  tiled::Plan p;
+  if (tiled::bad_k(K) ||
+      tiled::make_plan(B, T, C, K,
+                       with_dx ? tiled::Kind::kBwd : tiled::Kind::kDw,
+                       &p) != cudaSuccess)
     return -1;
-  return bwd::partial_floats_needed(B, C, K, p);
+  return tiled::partial_floats_needed(B, C, K, p);
 }
 
-// out: int[8] = K5's blocks per SM, registers, local (spill) bytes and
-// warps per block at K taps, then K6's.
-extern "C" int sep_depthwise_bwd_occupancy(int K, void* out) {
-  if (bwd::bad_k(K)) return (int)cudaErrorInvalidValue;
+// out: int[12] = K4's blocks per SM, registers, local (spill) bytes and
+// warps per block at K taps, then K5's, then K6's.
+extern "C" int sep_depthwise_occupancy(int K, void* out) {
+  if (tiled::bad_k(K)) return (int)cudaErrorInvalidValue;
   int* o = static_cast<int*>(out);
-  for (int i = 0; i < 2; ++i) {
-    bwd::Plan p;
-    cudaError_t err = bwd::make_plan(1, 1, 1, K, i == 0, &p);
+  const tiled::Kind kinds[3] = {tiled::Kind::kFwd, tiled::Kind::kBwd,
+                                tiled::Kind::kDw};
+  for (int i = 0; i < 3; ++i) {
+    tiled::Plan p;
+    cudaError_t err = tiled::make_plan(1, 1, 1, K, kinds[i], &p);
     cudaFuncAttributes a;
-    if (err == cudaSuccess)
-      err = cudaFuncGetAttributes(&a, (const void*)p.kernel);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, p.kernel);
     if (err != cudaSuccess) return (int)err;
     o[4 * i] = p.blocks_per_sm;
     o[4 * i + 1] = a.numRegs;
@@ -560,20 +639,4 @@ extern "C" int sep_depthwise_bwd_occupancy(int K, void* out) {
     o[4 * i + 3] = p.geo.warps;
   }
   return 0;
-}
-
-// K4: x, y device float32 [B, T, C]; w [C, 1, K]; bias [C].
-extern "C" int sep_depthwise_fwd_f32(const void* x, const void* w,
-                                     const void* bias, void* y, int B, int T,
-                                     int C, int K, void* stream) {
-  if (B <= 0 || T <= 0 || C <= 0) return 0;
-  if (K < 1 || K % 2 == 0 || K > kMaxK || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  const int chunks = (T + kTT * kTiles - 1) / (kTT * kTiles);
-  dim3 grid((C + kCW - 1) / kCW, chunks, B);
-  depthwise_fwd_kernel<<<grid, kThreads, smem_bytes(K),
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<float*>(y), T, C, K);
-  return (int)cudaGetLastError();
 }

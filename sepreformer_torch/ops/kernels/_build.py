@@ -38,6 +38,9 @@ SIGNATURES = {
     "sep_gcfn_f32": [_P] * 12 + [_I, _I, _I, _F, _P],
     # table, out, t, d, maxlen, stream
     "sep_relpos_f32": [_P, _P, _I, _I, _I, _P],
+    # t, d, int out[5] -> K2's blocks, tiles, blocks per SM, registers,
+    # local bytes
+    "sep_relpos_occupancy": [_I, _I, _P],
     # scores, v, lens, out, B, H, Lp, F, length, stream
     "sep_softmax_pv_f32": [_P] * 4 + [_I] * 5 + [_P],
     # scores, bias, v, lens, out, B, H, Lp, F, length, stream
@@ -107,9 +110,9 @@ SIGNATURES = {
     "sep_softmax_pv_train_fwd_occupancy": [_P],
     # B, T, C, K, with_dx -> floats of K5's (K6's) scratch
     "sep_depthwise_bwd_partial_floats": [_I] * 5,
-    # K, int out[8] -> K5's and K6's blocks per SM, registers, local
-    # bytes, warps
-    "sep_depthwise_bwd_occupancy": [_I, _P],
+    # K, int out[12] -> K4's, K5's and K6's blocks per SM, registers,
+    # local bytes, warps
+    "sep_depthwise_occupancy": [_I, _P],
 }
 # launchers that return something else than a cudaError_t
 RESTYPES = {"sep_gcfn_train_bwd_scratch_floats": _L,

@@ -11,10 +11,11 @@ library convolution of dy with the time-flipped kernel, as the JAX
 package takes it from XLA, and dw and db from K6 (``_impl_bwd_w``).  K4
 (``depthwise_fwd``) is the JAX package's Pallas forward (``_impl_fwd``),
 which no route of either package takes.  The CUDA kernels are
-``sepreformer_torch/csrc/depthwise.cu``: K5 and K6 launch twice each,
-the tiles (register windows over cp.async-staged rows, one partial sum
-of dw and db per block) and then the partials' sum in a fixed order;
-``occupancy`` reports their launch on the card.  ``depthwise_fwd_plain``,
+``sepreformer_torch/csrc/depthwise.cu``: all three walk tiles of rows
+staged by cp.async through register windows; K4 launches once, K5 and
+K6 twice each (the tiles, with one partial sum of dw and db per block,
+and then the partials' sum in a fixed order); ``occupancy`` reports
+their launch on the card.  ``depthwise_fwd_plain``,
 ``depthwise_bwd_plain`` and ``depthwise_bwd_w_plain`` are the same
 functions in PyTorch, which CPU tensors run.  Tensors are channels-last
 [B, T, C]; the weight is the Conv1d weight [C, 1, K] (odd K), read and
@@ -169,15 +170,15 @@ def depthwise_bwd_w(x: torch.Tensor, dy: torch.Tensor, k: int
 
 
 def occupancy(k: int) -> Dict[str, Dict[str, int]]:
-    """K5's and K6's launch at ``k`` taps on the current card: blocks per
-    SM, registers, local (spill) bytes and warps per block."""
-    out = (ctypes.c_int * 8)()
-    _build.check_launch("sep_depthwise_bwd_occupancy",
-                        _build.library().sep_depthwise_bwd_occupancy(
+    """K4's, K5's and K6's launch at ``k`` taps on the current card:
+    blocks per SM, registers, local (spill) bytes and warps per block."""
+    out = (ctypes.c_int * 12)()
+    _build.check_launch("sep_depthwise_occupancy",
+                        _build.library().sep_depthwise_occupancy(
                             k, ctypes.addressof(out)))
     keys = ("blocks_per_sm", "registers", "local_bytes", "warps")
     return {name: dict(zip(keys, out[4 * i:4 * i + 4]))
-            for i, name in enumerate(("K5", "K6"))}
+            for i, name in enumerate(("K4", "K5", "K6"))}
 
 
 depthwise_fwd.launches = 0

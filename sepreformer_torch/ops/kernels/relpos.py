@@ -10,6 +10,9 @@ plain PyTorch as the JAX package's custom_vjp leaves it to XLA.
 
 from __future__ import annotations
 
+import ctypes
+from typing import Dict
+
 import numpy as np
 import torch
 
@@ -53,6 +56,17 @@ def materialize_pos_kt(table: torch.Tensor, t: int,
 
 
 materialize_pos_kt.launches = 0
+
+
+def occupancy(t: int, d: int) -> Dict[str, int]:
+    """K2's launch at ``pos_kt [t, d, t]`` on the current card: blocks,
+    tiles, blocks per SM, registers and local (spill) bytes."""
+    out = (ctypes.c_int * 5)()
+    _build.check_launch("sep_relpos_occupancy",
+                        _build.library().sep_relpos_occupancy(
+                            t, d, ctypes.addressof(out)))
+    keys = ("blocks", "tiles", "blocks_per_sm", "registers", "local_bytes")
+    return dict(zip(keys, out))
 
 
 class _PosKt(torch.autograd.Function):

@@ -110,6 +110,26 @@ def test_relpos_kernel_matches_plain(cuda_device):
     assert torch.equal(got, materialize_pos_kt_plain(table, 512, 2000))
 
 
+# K2's tiles are 32 rows by 32 columns: t 37 (t % 4 == 1, 4-byte stores)
+# ends five rows into a second tile, 500 and 512 are the route's lengths
+# before and after its padding, 1024 that of the 8 s chunks; maxlen 200
+# makes both clips act; d 20 spans two table-column slices
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,maxlen,d", [(37, 10, 16), (500, 200, 16),
+                                        (512, 200, 16), (1024, 200, 16),
+                                        (512, 200, 20)])
+def test_relpos_kernel_tilings_match_plain(cuda_device, t, maxlen, d):
+    gen = torch.Generator().manual_seed(t + d)
+    table = torch.randn(2 * maxlen, d, generator=gen).to(cuda_device)
+    before = materialize_pos_kt.launches
+    got = materialize_pos_kt(table, t, maxlen)
+    again = materialize_pos_kt(table, t, maxlen)
+    torch.cuda.synchronize()
+    assert materialize_pos_kt.launches == before + 2
+    assert torch.equal(got, materialize_pos_kt_plain(table, t, maxlen))
+    assert torch.equal(got, again)
+
+
 # K3's and K3b's tile walks 64 keys at a time, 16 query rows a warp, 64
 # a block: b, h, Lp, length and lens (None: length, length // 2, 1).
 # Lp 2048 and 8192 take many key tiles (8192 is the longest bottleneck
@@ -822,18 +842,34 @@ def test_pair_kernel_matches_plain(cuda_device, b, t, length):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,c,k", [(4, 8000, 128, 65), (3, 77, 40, 9)])
-def test_depthwise_fwd_kernel_matches_plain(cuda_device, b, t, c, k):
+# K4's tiles (K5's geometry) are 130 rows at k 65, 168 at k 81, 24 at k 3:
+# [2, 1000, 96] has three channel groups and ends inside a tile, T 100 is
+# under one tile at k 65 and k 81, C 33 leaves one channel in its last
+# group and takes 4-byte copies; ``offset`` 1 starts x one float past an
+# aligned address, which takes the 4-byte copies at C 128
+@pytest.mark.parametrize("b,t,c,k,offset", [(4, 8000, 128, 65, 0),
+                                            (3, 77, 40, 9, 0),
+                                            (2, 1000, 96, 65, 0),
+                                            (2, 1000, 128, 3, 0),
+                                            (2, 1000, 128, 81, 0),
+                                            (2, 100, 128, 65, 0),
+                                            (3, 100, 33, 81, 0),
+                                            (2, 1000, 128, 65, 1)])
+def test_depthwise_fwd_kernel_matches_plain(cuda_device, b, t, c, k,
+                                            offset):
     gen = torch.Generator().manual_seed(33)
-    x = torch.randn(b, t, c, generator=gen).to(cuda_device)
+    flat = torch.randn(b * t * c + offset, generator=gen).to(cuda_device)
+    x = flat[offset:].view(b, t, c)
     w = (torch.randn(c, 1, k, generator=gen) * 0.1).to(cuda_device)
     bias = torch.randn(c, generator=gen).to(cuda_device)
     before = depthwise_fwd.launches
     got = depthwise_fwd(x, w, bias)
+    again = depthwise_fwd(x, w, bias)
     torch.cuda.synchronize()
-    assert depthwise_fwd.launches == before + 1
+    assert depthwise_fwd.launches == before + 2
     torch.testing.assert_close(got, depthwise_fwd_plain(x, w, bias),
                                **CARD_TOL)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
