@@ -53,13 +53,22 @@ Phases, each of which fails the run:
                calls before it did not); and the port's
                scores producer followed by K3 against a two-tensor
                producer (no add pass) followed by K3b, at K3's shape.
+               Then the instances at Large's widths, at the shapes Large's
+               serving path gives them, each against its plain version
+               and bit-equal on a repeat call, with its times and bound:
+               K1 at [4, 8000, 256], K2 at [512, 32, 512] from a [4000,
+               32] table (its grid and blocks per SM), K3 at [8, 8, 512,
+               512] with head width 32 (ragged), K12 at [2, 8750, 256]
+               with head width 32.
 3. serve     - Base at full width, seeded weights: three requests through
                ``Separator.__call__`` and one batched B=4 x 4 s forward
                with ragged lengths; every eval kernel's count must rise.
 4. profile   - the same model: repeated requests and batched forwards on
-               the host clock, then one batched forward traced with
-               ``torch.profiler``: the card's idle share, kernel time by
-               group, and each kernel's launches per forward.
+               the host clock (the batch with the audio-only serving
+               forward and with the aux heads, in turns), then one batched
+               forward of each traced with ``torch.profiler``: the card's
+               idle share, kernel time by group, and each kernel's
+               launches per forward.
 5. cpu       - the same weights on the CPU (plain versions) against the
                card on a 1 s utterance, with the branches' LayerScale at
                0.5 so they carry signal; a control run on the card with
@@ -107,8 +116,10 @@ Phases, each of which fails the run:
                control runs exceed (TF32 allowed; K12 on bfloat16 inputs;
                K12 without the rel-pos bias); a 300 s request in
                full context (L 37500, which only K12 can hold) with one
-               traced forward; the same 300 s in 8 s chunks
-               (``chunk_seconds``: K2 and K3, no K12); and the 70 s
+               traced forward; the model's 300 s forward audio alone
+               against the forward with the aux heads (the same audio
+               bits; wall and peak memory of each); the same 300 s in 8 s
+               chunks (``chunk_seconds``: K2 and K3, no K12); and the 70 s
                request as a wav through ``cli.main``'s ``infer_sample``.
                Wall times, audio-s/s and peak memory of each.
 10. routes   - the JAX package's other routes, Base at full width, seeded
@@ -143,6 +154,21 @@ Phases, each of which fails the run:
                and four steps of each in turns;
                ``infer_sample`` of a 70 s wav through ``cli.main`` with
                ``--set model.fused_local=on --set model.fused_pair=on``.
+12. large    - ``SepReformer_Large_DM_WSJ0`` at full width (F 256, 8
+               heads of 32, 4 stages), seeded weights, every LayerScale at
+               0.5: a 1 s request card against CPU (phase 5's limit, with
+               a TF32 control); a ragged B=4 x 4 s batch through
+               ``Separator.separate`` (wall times, one traced forward with
+               56 K1, 1 K2 and 22 K3 launches, peak memory); 70 s in full
+               context (22 K12 launches at head width 32, no K2 or K3)
+               against the dense route with the switch raised (phase 5's
+               limit; controls: TF32 allowed, K12 without the bias); 300
+               s in 8 s chunks; one ``SepReformer_Large_DM_WHAM`` request
+               (a speaker-split block per stage) card against CPU;
+               ``infer_sample`` of the 70 s wav through ``cli.main --model
+               SepReformer_Large_DM_WSJ0``; a Large train step, which must
+               raise naming the ROADMAP item "Large training" before any
+               train kernel launches.
 
 Prints one JSON line of kernel results, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -400,9 +426,12 @@ def kernel_phase(torch, K, device_ms):
 
     def record(wrapper, kernel, plain, library, err, nbytes, flops, source,
                replaces, shape, tolerance, tc_flops=0.0, exps=0.0,
-               cuda_core_flops=None, timings=1):
+               cuda_core_flops=None, timings=1, instance=None):
+        """A row of the kernels line; ``instance`` names a width instance
+        of the wrapper's kernel (its row is "<wrapper> <instance>")."""
         bound, bound_by, term = bound_ms(nbytes, flops, tc_flops, exps)
-        name = wrapper.__name__
+        symbol_of = wrapper.__name__
+        name = symbol_of + (f" {instance}" if instance else "")
         if cuda_core_flops is not None:
             old, old_by, _ = bound_ms(nbytes, cuda_core_flops)
             print(f"[kernels] {name}: bound with every operation on the CUDA "
@@ -410,7 +439,7 @@ def kernel_phase(torch, K, device_ms):
                   f"({old_by})")
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
                    launches=0, max_abs_err=err,
-                   ms=timed(name, kernel, name, timings),
+                   ms=timed(name, kernel, symbol_of, timings),
                    plain_ms=device_ms(plain), bound_ms=bound,
                    bound_by=bound_by,
                    library_ms=None if library is None else device_ms(library))
@@ -428,129 +457,164 @@ def kernel_phase(torch, K, device_ms):
         print(f"[kernels] {name}: bit-equal on a repeat call: {same}")
         assert same, f"{name} is not bit-equal on repeat"
 
-    # K1: the widest GCFN of the path, [B=4, T=8000, F=128], ragged lengths
-    b, t, f = 4, 8000, 128
-    h = 6 * f
-    x = randn(b, t, f)
-    params = [randn(f), randn(f), randn(f, h, scale=0.1), randn(h, scale=0.1),
-              randn(h, 3, scale=0.3), randn(h, scale=0.1),
-              randn(h // 2, f, scale=0.1), randn(f, scale=0.1),
-              randn(f, scale=0.5)]
-    lens = torch.tensor([8000, 7008, 6000, 5008], device=dev)
-    err = 0.0
-    for ln in (lens, None):
-        got = K.fused_gcfn(x, params, 1e-5, ln)
-        ref = K.gcfn_plain(x, params, 1e-5, ln)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
-        err = max(err, (got - ref).abs().max().item())
-    bit_equal("fused_gcfn", lambda: K.fused_gcfn(x, params, 1e-5, lens))
-    products = 2 * f * h + 2 * (h // 2) * f         # flops per row
-    rest = 8 * f + 7 * h + 5 * (h // 2) + 3 * f     # LN, dw3, GLU per row
-    # What these lengths need: u rows past a length are zero, so the F->6F
-    # product runs on the valid rows only; from two rows past a length the
-    # conv sees zeros alone and g is one row of constants, so the GLU and
-    # the 3F->F product run on the valid rows, one more and that row.
-    valid = [min(n, t) for n in lens.tolist()]
-    g_rows = sum(min(n + 1, t) + (n + 1 < t) for n in valid)
-    tc_flops = sum(valid) * 2 * f * h + g_rows * 2 * (h // 2) * f
-    record(K.fused_gcfn, lambda: K.fused_gcfn(x, params, 1e-5, lens),
-           lambda: K.gcfn_plain(x, params, 1e-5, lens), None, err,
-           4 * (2 * x.numel() + sum(p.numel() for p in params) + b),
-           b * t * rest,
-           source="sepreformer_torch/csrc/gcfn.cu",
-           replaces="sepreformer_tpu/ops/pallas/gcfn.py:394",
-           shape=f"x [{b}, {t}, {f}], hidden {h}, lens {lens.tolist()}",
-           tolerance="rtol 1e-4, atol 1e-4 (float32)",
-           # the two products on the tensor cores; a sigmoid per GLU pair
-           tc_flops=tc_flops, exps=g_rows * (h // 2),
-           cuda_core_flops=b * t * (products + rest))
-
-    # K2: pos_kt at the padded bottleneck length 512 from a [4000, 16]
-    # table (a 4 s forward), then at 1024 (the 8 s chunks of long-form
-    # serving), each bit-equal to the plain version (an exact copy)
-    lp, maxlen, d = 512, 2000, 16
-    table = randn(2 * maxlen, d)
-    for length in (lp, 1024):
-        got = K.materialize_pos_kt(table, length, maxlen)
-        ref = K.materialize_pos_kt_plain(table, length, maxlen)
-        torch.cuda.synchronize()
-        same = torch.equal(got, ref)
-        occ = K.relpos.occupancy(length, d)
-        print(f"[kernels] materialize_pos_kt at [{length}, {d}, {length}]: "
-              f"bit-equal to plain: {same}; {occ['blocks']} blocks over "
-              f"{occ['tiles']} tiles, {occ['blocks_per_sm']} blocks per SM, "
-              f"{occ['registers']} registers, {occ['local_bytes']} local "
-              f"(spill) bytes")
-        assert same, f"K2 is not bit-equal to plain at t {length}"
-        bit_equal("materialize_pos_kt",
-                  lambda: K.materialize_pos_kt(table, length, maxlen))
-        # the bytes it must move: the output, and the table rows of the
-        # offsets i - j in [-(t - 1), t - 1] after the clip
-        nbytes = 4 * (got.numel() + min(2 * length - 1, 2 * maxlen) * d)
-        if length == lp:
-            idx = torch.from_numpy(K.relpos.relpos_index(lp, maxlen)).to(dev)
-            flat = (idx[:, None, :] * d
-                    + torch.arange(d, device=dev)[None, :, None])
-            record(K.materialize_pos_kt,
-                   lambda: K.materialize_pos_kt(table, lp, maxlen),
-                   lambda: K.materialize_pos_kt_plain(table, lp, maxlen),
-                   lambda: torch.take(table, flat),
-                   (got - ref).abs().max().item(), nbytes, 0,
-                   source="sepreformer_torch/csrc/relpos.cu",
-                   replaces="sepreformer_tpu/ops/pallas/relpos.py:106",
-                   shape=f"table [{2 * maxlen}, {d}] -> [{lp}, {d}, {lp}]",
-                   tolerance="bit-equal (an exact copy)", timings=5)
-            bound = results[-1]["bound_ms"]
-        else:
-            bound = bound_ms(nbytes, 0)[0]
-            ms = timed(f"materialize_pos_kt at [{length}, {d}, {length}]",
-                       lambda: K.materialize_pos_kt(table, length, maxlen),
-                       "materialize_pos_kt", 5)
-            print(f"[kernels] materialize_pos_kt at [{length}, {d}, "
-                  f"{length}]: ms {ms:.4f}, bound {bound:.4f} (bytes)")
-        past_l2_timings(torch, device_ms,
-                        lambda tab: K.materialize_pos_kt(tab, length, maxlen),
-                        table, KERNEL_SYMBOLS["materialize_pos_kt"], bound,
-                        out_bytes=4 * got.numel())
+    def gcfn_row(f, instance=None):
+        """K1 at the widest GCFN of the path, [B=4, T=8000, F], ragged
+        lengths: Base's F = 128, Large's F = 256."""
+        b, t = 4, 8000
+        h = 6 * f
+        x = randn(b, t, f)
+        params = [randn(f), randn(f), randn(f, h, scale=0.1),
+                  randn(h, scale=0.1), randn(h, 3, scale=0.3),
+                  randn(h, scale=0.1), randn(h // 2, f, scale=0.1),
+                  randn(f, scale=0.1), randn(f, scale=0.5)]
+        lens = torch.tensor([8000, 7008, 6000, 5008], device=dev)
+        err = 0.0
+        for ln in (lens, None):
+            got = K.fused_gcfn(x, params, 1e-5, ln)
+            ref = K.gcfn_plain(x, params, 1e-5, ln)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+            err = max(err, (got - ref).abs().max().item())
         del got, ref
+        bit_equal(f"fused_gcfn at F {f}",
+                  lambda: K.fused_gcfn(x, params, 1e-5, lens))
+        products = 2 * f * h + 2 * (h // 2) * f         # flops per row
+        rest = 8 * f + 7 * h + 5 * (h // 2) + 3 * f     # LN, dw3, GLU
+        # What these lengths need: u rows past a length are zero, so the
+        # F->6F product runs on the valid rows only; from two rows past a
+        # length the conv sees zeros alone and g is one row of constants,
+        # so the GLU and the 3F->F product run on the valid rows, one more
+        # and that row.
+        valid = [min(n, t) for n in lens.tolist()]
+        g_rows = sum(min(n + 1, t) + (n + 1 < t) for n in valid)
+        tc_flops = sum(valid) * 2 * f * h + g_rows * 2 * (h // 2) * f
+        record(K.fused_gcfn, lambda: K.fused_gcfn(x, params, 1e-5, lens),
+               lambda: K.gcfn_plain(x, params, 1e-5, lens), None, err,
+               4 * (2 * x.numel() + sum(p.numel() for p in params) + b),
+               b * t * rest,
+               source="sepreformer_torch/csrc/gcfn.cu",
+               replaces="sepreformer_tpu/ops/pallas/gcfn.py:394",
+               shape=f"x [{b}, {t}, {f}], hidden {h}, lens {lens.tolist()}",
+               tolerance="rtol 1e-4, atol 1e-4 (float32)",
+               # the two products on the tensor cores; a sigmoid per GLU
+               # pair
+               tc_flops=tc_flops, exps=g_rows * (h // 2),
+               cuda_core_flops=b * t * (products + rest), instance=instance)
+        del x, params
+        torch.cuda.empty_cache()
 
-    # K3: decoder attention, B*spks=8 rows, 8 heads, L=500 padded to 512
-    b, heads, f, length = 8, 8, 128, 500
-    d = f // heads
-    scores = randn(b, heads, lp, lp, scale=3.0)
-    v = randn(b, lp, f)
-    klens = torch.tensor([500, 500, 438, 438, 376, 376, 313, 313], device=dev)
-    got = K.softmax_pv(scores, v, klens, length)
-    ref = K.softmax_pv_plain(scores, v, klens, length)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
-    kmask = torch.arange(lp, device=dev)[None] < klens[:, None]
-    masked = torch.where(kmask[:, None, None, :], scores,
-                         torch.tensor(-1e30, device=dev))
-    vh = v.reshape(b, lp, heads, d).permute(0, 2, 1, 3).contiguous()
-    bit_equal("softmax_pv", lambda: K.softmax_pv(scores, v, klens, length))
+    gcfn_row(128)
+
+    def relpos_rows(d, lengths, instance=None):
+        """K2: pos_kt at the padded bottleneck length 512 from a [4000, d]
+        table (a 4 s forward; Base's d 16, Large's 32), at d 16 then at
+        1024 (the 8 s chunks of long-form serving), each bit-equal to the
+        plain version (an exact copy), with its grid and blocks per SM;
+        Base's also past L2."""
+        lp, maxlen = 512, 2000
+        table = randn(2 * maxlen, d)
+        for length in lengths:
+            got = K.materialize_pos_kt(table, length, maxlen)
+            ref = K.materialize_pos_kt_plain(table, length, maxlen)
+            torch.cuda.synchronize()
+            same = torch.equal(got, ref)
+            occ = K.relpos.occupancy(length, d)
+            print(f"[kernels] materialize_pos_kt at [{length}, {d}, "
+                  f"{length}]: bit-equal to plain: {same}; {occ['blocks']} "
+                  f"blocks over {occ['tiles']} tiles, {occ['blocks_per_sm']} "
+                  f"blocks per SM, {occ['registers']} registers, "
+                  f"{occ['local_bytes']} local (spill) bytes")
+            assert same, f"K2 is not bit-equal to plain at [{length}, {d}]"
+            bit_equal("materialize_pos_kt",
+                      lambda: K.materialize_pos_kt(table, length, maxlen))
+            # the bytes it must move: the output, and the table rows of the
+            # offsets i - j in [-(t - 1), t - 1] after the clip
+            nbytes = 4 * (got.numel() + min(2 * length - 1, 2 * maxlen) * d)
+            if length == lp:
+                idx = torch.from_numpy(
+                    K.relpos.relpos_index(lp, maxlen)).to(dev)
+                flat = (idx[:, None, :] * d
+                        + torch.arange(d, device=dev)[None, :, None])
+                record(K.materialize_pos_kt,
+                       lambda: K.materialize_pos_kt(table, lp, maxlen),
+                       lambda: K.materialize_pos_kt_plain(table, lp, maxlen),
+                       lambda: torch.take(table, flat),
+                       (got - ref).abs().max().item(), nbytes, 0,
+                       source="sepreformer_torch/csrc/relpos.cu",
+                       replaces="sepreformer_tpu/ops/pallas/relpos.py:106",
+                       shape=f"table [{2 * maxlen}, {d}] -> [{lp}, {d}, "
+                             f"{lp}]",
+                       tolerance="bit-equal (an exact copy)", timings=5,
+                       instance=instance)
+                bound = results[-1]["bound_ms"]
+            else:
+                bound = bound_ms(nbytes, 0)[0]
+                ms = timed(f"materialize_pos_kt at [{length}, {d}, "
+                           f"{length}]",
+                           lambda: K.materialize_pos_kt(table, length,
+                                                        maxlen),
+                           "materialize_pos_kt", 5)
+                print(f"[kernels] materialize_pos_kt at [{length}, {d}, "
+                      f"{length}]: ms {ms:.4f}, bound {bound:.4f} (bytes)")
+            if instance is None:
+                past_l2_timings(
+                    torch, device_ms,
+                    lambda tab: K.materialize_pos_kt(tab, length, maxlen),
+                    table, KERNEL_SYMBOLS["materialize_pos_kt"], bound,
+                    out_bytes=4 * got.numel())
+            del got, ref
+
+    relpos_rows(16, (512, 1024))
+    lp = 512
+
+    def softmax_pv_row(d, instance=None):
+        """K3 at the decoder attention, B*spks=8 rows, 8 heads, L=500
+        padded to 512: Base's head width 16, Large's 32."""
+        b, heads, length = 8, 8, 500
+        f = heads * d
+        scores = randn(b, heads, lp, lp, scale=3.0)
+        v = randn(b, lp, f)
+        klens = torch.tensor([500, 500, 438, 438, 376, 376, 313, 313],
+                             device=dev)
+        got = K.softmax_pv(scores, v, klens, length)
+        ref = K.softmax_pv_plain(scores, v, klens, length)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+        kmask = torch.arange(lp, device=dev)[None] < klens[:, None]
+        masked = torch.where(kmask[:, None, None, :], scores,
+                             torch.tensor(-1e30, device=dev))
+        vh = v.reshape(b, lp, heads, d).permute(0, 2, 1, 3).contiguous()
+        bit_equal(f"softmax_pv at head width {d}",
+                  lambda: K.softmax_pv(scores, v, klens, length))
+        keys = sum(klens.tolist())           # valid keys over the batch
+        pairs = heads * lp * keys            # (query, valid key) pairs
+        record(K.softmax_pv, lambda: K.softmax_pv(scores, v, klens, length),
+               lambda: K.softmax_pv_plain(scores, v, klens, length),
+               lambda: torch.matmul(torch.softmax(masked, dim=-1), vh),
+               (got - ref).abs().max().item(),
+               4 * (heads * lp * keys + keys * f + b * lp * f + b),
+               # the online softmax's max, exponent argument and sum per
+               # pair
+               3 * pairs,
+               source="sepreformer_torch/csrc/softmax_pv.cu",
+               replaces="sepreformer_tpu/ops/pallas/softmax_pv.py:342",
+               shape=(f"scores [{b}, {heads}, {lp}, {lp}], v [{b}, {lp}, "
+                      f"{f}], lens {klens.tolist()}, length {length}"),
+               tolerance="rtol 1e-4, atol 1e-5 (float32)",
+               # P·V on the tensor cores; one exponential per pair
+               tc_flops=2 * d * pairs, exps=pairs,
+               cuda_core_flops=pairs * (2 * d + 4), timings=5,
+               instance=instance)
+        if instance is None:
+            past_l2_timings(torch, device_ms,
+                            lambda s: K.softmax_pv(s, v, klens, length),
+                            scores, KERNEL_SYMBOLS["softmax_pv"],
+                            results[-1]["bound_ms"])
+        return scores, v
+
+    scores, v = softmax_pv_row(16)
     print_occupancy(softmax_pv_occupancy())
-    keys = sum(klens.tolist())               # valid keys over the batch
-    pairs = heads * lp * keys                # (query, valid key) pairs
-    record(K.softmax_pv, lambda: K.softmax_pv(scores, v, klens, length),
-           lambda: K.softmax_pv_plain(scores, v, klens, length),
-           lambda: torch.matmul(torch.softmax(masked, dim=-1), vh),
-           (got - ref).abs().max().item(),
-           4 * (heads * lp * keys + keys * f + b * lp * f + b),
-           # the online softmax's max, exponent argument and sum per pair
-           3 * pairs,
-           source="sepreformer_torch/csrc/softmax_pv.cu",
-           replaces="sepreformer_tpu/ops/pallas/softmax_pv.py:342",
-           shape=(f"scores [{b}, {heads}, {lp}, {lp}], v [{b}, {lp}, {f}], "
-                  f"lens {klens.tolist()}, length {length}"),
-           tolerance="rtol 1e-4, atol 1e-5 (float32)",
-           # P·V on the tensor cores; one exponential per pair
-           tc_flops=2 * d * pairs, exps=pairs,
-           cuda_core_flops=pairs * (2 * d + 4), timings=5)
-    past_l2_timings(torch, device_ms,
-                    lambda s: K.softmax_pv(s, v, klens, length), scores,
-                    KERNEL_SYMBOLS["softmax_pv"], results[-1]["bound_ms"])
+    heads, d = 8, 16
 
     # K5: the widest k65 conv of a B=2 x 4 s train batch, in a decoder
     # stage (B*spks = 4 rows of 8000 frames)
@@ -794,6 +858,15 @@ def kernel_phase(torch, K, device_ms):
     attention_train_rows(torch, K, device_ms, randn, record)
     fused_kernel_rows(torch, K, device_ms, randn, record)
     bias_kernel_rows(torch, K, device_ms, randn, record)
+
+    # The instances at Large's widths (SepReformer_Large_DM_WSJ0: F 256,
+    # 8 heads of 32), at the shapes Large's serving path gives them
+    del scores, v
+    torch.cuda.empty_cache()
+    gcfn_row(256, instance="F=256")
+    relpos_rows(32, (512,), instance="d=32")
+    softmax_pv_row(32, instance="d=32")
+    flash_kernel_row(torch, K, device_ms, randn, record, d=32)
     return results
 
 
@@ -1243,17 +1316,18 @@ def k12_checksum(torch, K):
     return hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest()
 
 
-def flash_kernel_row(torch, K, device_ms, randn, record):
+def flash_kernel_row(torch, K, device_ms, randn, record, d=16):
     """K12 at the decoder batch of a 70 s request in full context (B*spks
-    = 2 rows, 8 heads, L = 8750 > 8192, maxlen 2000, ragged key lengths),
-    against its plain version; the library yardstick is PyTorch's SDPA
-    with the rel-pos bias and the key mask as a float mask built outside
-    the timed call; today's dense route at the same shape (K2, the score
-    products, K3) is timed beside it.  ``record`` adds the row."""
+    = 2 rows, 8 heads of ``d``: Base's 16, Large's 32; L = 8750 > 8192,
+    maxlen 2000, ragged key lengths), against its plain version; the
+    library yardstick is PyTorch's SDPA with the rel-pos bias and the key
+    mask as a float mask built outside the timed call; today's dense route
+    at the same shape (K2, the score products, K3) is timed beside it.
+    ``record`` adds the row."""
     from sepreformer_torch.models.blocks import fused_pv_scores, pad_time
 
     dev = torch.device("cuda")
-    b, length, maxlen, heads, d = 2, 8750, 2000, 8, 16
+    b, length, maxlen, heads = 2, 8750, 2000, 8
     f = heads * d
     q, k, v = randn(b, length, f), randn(b, length, f), randn(b, length, f)
     table = randn(2 * maxlen, d)
@@ -1307,10 +1381,11 @@ def flash_kernel_row(torch, K, device_ms, randn, record):
     again = K.flash_relpos_attention(q, k, v, table, maxlen, klens)
     assert torch.equal(again, K.flash_relpos_attention(q, k, v, table,
                                                        maxlen, klens)), (
-        "K12 is not bit-equal on repeat")
+        f"K12 is not bit-equal on repeat at head width {d}")
     del again
-    print(f"[kernels] flash_relpos_attention: SHA-1 of the output bytes on "
-          f"the fixed-seed inputs: {k12_checksum(torch, K)}")
+    if d == 16:
+        print(f"[kernels] flash_relpos_attention: SHA-1 of the output bytes "
+              f"on the fixed-seed inputs: {k12_checksum(torch, K)}")
     pairs = heads * relpos_pairs(length, klens.tolist(), maxlen)[0]
     record(K.flash_relpos_attention,
            lambda: K.flash_relpos_attention(q, k, v, table, maxlen, klens),
@@ -1332,7 +1407,8 @@ def flash_kernel_row(torch, K, device_ms, randn, record):
                                      d),
            exps=pairs,
            cuda_core_flops=flash_relpos_ops(length, klens.tolist(), maxlen,
-                                            heads, d))
+                                            heads, d),
+           instance=None if d == 16 else f"d={d}")
     del storage, bias
     torch.cuda.empty_cache()
     print(f"[kernels] the same shape through the dense route (K2 pos_kt "
@@ -1406,69 +1482,89 @@ def profile_phase(torch, np, sep, K, busy_us, kernel_events, iters=5):
     x = torch.from_numpy(batch).to(sep.device)
     lens = torch.tensor(lengths, device=sep.device)
 
-    def forward():
+    def forward(aux=False):
         with torch.inference_mode():
-            return sep.model(x, lengths=lens)
+            return sep.model(x, lengths=lens, aux=aux)
 
-    forward()
+    # the serving forward (audio alone, as Separator.separate runs it),
+    # then the forward with the aux heads, which training and validation
+    # run, in turns
+    for aux in (False, True):
+        forward(aux)
     torch.cuda.synchronize()
-    walls = []
+    walls = {False: [], True: []}
     for _ in range(iters):
-        t0 = time.perf_counter()
-        forward()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    median = statistics.median(walls)
-    print(f"[profile] batch B=4 x 4 s over {iters} forwards, ms: "
-          f"{[round(t, 2) for t in walls]}; "
-          f"{sum(lengths) / SAMPLE_RATE / (median / 1e3):.2f} audio-s/s at "
-          f"the median")
+        for aux in (False, True):
+            t0 = time.perf_counter()
+            forward(aux)
+            torch.cuda.synchronize()
+            walls[aux].append((time.perf_counter() - t0) * 1e3)
+    for aux, what in ((False, "audio alone"), (True, "with the aux heads")):
+        median = statistics.median(walls[aux])
+        print(f"[profile] batch B=4 x 4 s over {iters} forwards, {what}, "
+              f"ms: {[round(t, 2) for t in walls[aux]]}; "
+              f"{sum(lengths) / SAMPLE_RATE / (median / 1e3):.2f} audio-s/s "
+              f"at the median")
 
-    K.reset_launches()
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        forward()
-        torch.cuda.synchronize()
-        window_us = (time.perf_counter() - t0) * 1e6
-    kernels = kernel_events(prof)
-    print_trace("profile", kernels, busy_us(kernels), window_us,
-                K.launch_counts(), "forward")
+    for aux, what in ((False, "forward"), (True, "forward with aux heads")):
+        K.reset_launches()
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            forward(aux)
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+        kernels = kernel_events(prof)
+        print_trace("profile", kernels, busy_us(kernels), window_us,
+                    K.launch_counts(), what)
 
 
-def cpu_phase(torch, np, sep_torch, sep):
-    """The card's output against the CPU's plain path on the same weights,
-    with every LayerScale at 0.5 (at the init's 1e-5 the branches are too
-    small to show an error).  A control run on the card with TF32 allowed
-    shows that the limit is tight enough to catch it."""
-    rng = np.random.default_rng(1)
-    wav = (rng.normal(size=SAMPLE_RATE) * 0.1).astype(np.float32)
-    model = copy.deepcopy(sep.model)
+def layer_scales_at(torch, model, value=0.5):
+    """Every LayerScale of ``model`` at ``value`` (at the init's 1e-5 the
+    branches are too small to show an error)."""
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith("layer_scale"):
-                p.fill_(0.5)
+                p.fill_(value)
+    return model
+
+
+def card_against_cpu(torch, np, sep_torch, variant, model, wav, tag):
+    """``Separator(variant, model)(wav)`` on the card against the same
+    weights on the CPU's plain path, within ``CPU_REL_LIMIT`` of max|out|;
+    a control run on the card with TF32 allowed must exceed the limit, so
+    that the check can see a product that lost float32 accuracy."""
     cpu = np.stack(sep_torch.Separator(
-        sep.variant, copy.deepcopy(model).to("cpu"))(wav))
+        variant, copy.deepcopy(model).to("cpu"))(wav))
     scale = float(np.abs(cpu).max())
     errs = {}
     for label, tf32 in (("float32", False), ("control, TF32 allowed", True)):
         torch.backends.cuda.matmul.allow_tf32 = tf32
         torch.backends.cudnn.allow_tf32 = tf32
         try:
-            gpu = np.stack(sep_torch.Separator(sep.variant, model)(wav))
+            gpu = np.stack(sep_torch.Separator(variant, model)(wav))
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         assert np.isfinite(gpu).all(), label
         errs[label] = float(np.abs(gpu - cpu).max()) / scale
-        print(f"[cpu] {label}: max |card - cpu| / max|out| "
+        print(f"[{tag}] {label}: max |card - cpu| / max|out| "
               f"{errs[label]:.3e} (max|out| {scale:.3f}), limit "
               f"{CPU_REL_LIMIT:.1e}")
     assert errs["float32"] <= CPU_REL_LIMIT, "card disagrees with the CPU"
     assert errs["control, TF32 allowed"] > CPU_REL_LIMIT, (
         "the limit does not catch TF32 products")
+
+
+def cpu_phase(torch, np, sep_torch, sep):
+    """Base's output on the card against the CPU's plain path on the same
+    weights, every LayerScale at 0.5, on a 1 s utterance, with a TF32
+    control (``card_against_cpu``)."""
+    rng = np.random.default_rng(1)
+    wav = (rng.normal(size=SAMPLE_RATE) * 0.1).astype(np.float32)
+    model = layer_scales_at(torch, copy.deepcopy(sep.model))
+    card_against_cpu(torch, np, sep_torch, sep.variant, model, wav, "cpu")
 
 
 def eval_grad_phase(torch, np, sep_torch, K):
@@ -2142,6 +2238,28 @@ def long_phase(torch, np, sep_torch, K, busy_us, kernel_events):
                     LONGEST_SECONDS)
     assert counts["flash_relpos_attention"] == global_attentions
     assert counts["materialize_pos_kt"] == counts["softmax_pv"] == 0
+    # the model's forward at 300 s with lengths, audio alone (what
+    # Separator runs) and with the aux heads (what training and validation
+    # run): the same audio bits, and each one's wall and peak
+    x300 = torch.from_numpy(wav300[None]).to("cuda")
+    lens300 = torch.tensor([n300], device="cuda")
+
+    def forward300(aux):
+        with torch.inference_mode():
+            out = model(x300, lengths=lens300, aux=aux)
+        return out[0] if aux else out
+
+    alone, _ = run("300 s full context, the forward, audio alone",
+                   lambda: forward300(False), LONGEST_SECONDS,
+                   main_path=False)
+    with_aux, _ = run("300 s full context, the forward with the aux heads",
+                      lambda: forward300(True), LONGEST_SECONDS,
+                      main_path=False)
+    same = torch.equal(alone, with_aux)
+    print(f"[long] 300 s: audio of the forward alone bit-identical to the "
+          f"aux-on forward's: {same}")
+    assert same, "the audio-only forward changed the audio"
+    del alone, with_aux, x300
     size_checks(torch, K, n300 // variant.model.enc_stride)
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
@@ -2736,6 +2854,251 @@ def fused_phase(torch, np, sep_torch, K, busy_us, kernel_events, iters=10):
     return total
 
 
+LARGE = "SepReformer_Large_DM_WSJ0"
+
+
+def large_phase(torch, np, sep_torch, K, busy_us, kernel_events):
+    """Phase 12: the Large family served at full width (F 256, 8 heads of
+    32, 4 stages, enc_dim 256), seeded weights, every LayerScale at 0.5,
+    through the entry points: card against CPU on 1 s; a ragged B=4 x 4 s
+    batch through ``Separator.separate`` (wall times, one traced forward,
+    launches, peak memory); 70 s in full context (K12 at head width 32)
+    against the dense K2/K3 route with two controls; 300 s in 8 s chunks;
+    one ``Large_DM_WHAM`` request (a speaker-split block per stage) card
+    against CPU; ``infer_sample`` of the 70 s wav through ``cli.main
+    --model SepReformer_Large_DM_WSJ0``; and a Large train step, which must
+    raise naming the ROADMAP item that builds its kernels.  Returns the
+    kernels' launches over the runs of the main path."""
+    import tempfile
+
+    from sepreformer_torch import cli
+    from sepreformer_torch.data.audio import read_wav, write_wav
+    from sepreformer_torch.engine import create_train_state, train_step
+    from sepreformer_torch.models import blocks
+    from sepreformer_torch.ops.kernels._build import LARGE_TRAINING
+
+    t0 = time.perf_counter()
+    sep = sep_torch.load_separator(LARGE, device="cuda", seed=0)
+    model, variant = layer_scales_at(torch, sep.model), sep.variant
+    cfg = variant.model
+    assert (cfg.feat_dim, cfg.num_heads, cfg.head_dim, cfg.num_stages,
+            cfg.enc_dim) == (256, 8, 32, 4, 256)
+    print(f"[large] {LARGE} built in {time.perf_counter() - t0:.2f} s, "
+          f"{sum(p.numel() for p in model.parameters())} parameters: F "
+          f"{cfg.feat_dim}, {cfg.num_heads} heads of {cfg.head_dim}, "
+          f"{cfg.num_stages} stages, enc_dim {cfg.enc_dim}")
+    gcfns = sum(type(m).__name__ == "GCFN" for m in model.modules())
+    attentions = sum(type(m).__name__ == "EGA" for m in model.modules())
+    rng = np.random.default_rng(12)
+    total = defaultdict(int)
+
+    def run(label, fn, seconds, main_path=True):
+        """``fn()`` with every count at 0 just before and read just after,
+        on the host clock, with the peak memory of the call."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = K.launch_counts()
+        if main_path:
+            for name, n in counts.items():
+                total[name] += n
+        ours = {n: c for n, c in counts.items() if c}
+        print(f"[large] {label}: {dt:.3f} s wall, {seconds / dt:.2f} "
+              f"audio-s/s, max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+              f"launches {ours}")
+        return out, counts
+
+    def separated(separator, wav):
+        out = np.stack(separator(wav))
+        assert out.shape == (2, len(wav)), out.shape
+        assert np.isfinite(out).all(), "non-finite audio"
+        return out
+
+    # a. a 1 s request on the card against the CPU, with a TF32 control
+    wav1 = (rng.normal(size=SAMPLE_RATE) * 0.1).astype(np.float32)
+    card_against_cpu(torch, np, sep_torch, variant, model, wav1, "large")
+
+    # b. a ragged B=4 x 4 s batch through Separator.separate: K1 in every
+    #    GCFN, K2 once, K3 in every global attention
+    lengths = [32000, 28000, 24000, 20000]
+    batch = np.zeros((4, 32000), np.float32)
+    for i, n in enumerate(lengths):
+        batch[i, :n] = rng.normal(size=n) * 0.1
+    seconds = sum(lengths) / SAMPLE_RATE
+    sep.separate(batch, lengths)
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        sep.separate(batch, lengths)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"[large] batch B=4 x 4 s (lengths {lengths}) over 5 forwards, ms: "
+          f"{[round(t, 2) for t in walls]}; "
+          f"{seconds / (statistics.median(walls) / 1e3):.2f} audio-s/s at "
+          f"the median")
+    audio, counts = run("batch B=4 x 4 s", lambda: sep.separate(batch,
+                                                                  lengths),
+                        seconds)
+    assert tuple(audio.shape) == (2, 4, 32000), tuple(audio.shape)
+    assert torch.isfinite(audio).all().item(), "non-finite batched audio"
+    assert counts["fused_gcfn"] == gcfns == 56, (counts, gcfns)
+    assert counts["materialize_pos_kt"] == 1
+    assert counts["softmax_pv"] == attentions == 22
+    assert counts["flash_relpos_attention"] == 0
+    del audio
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    K.reset_launches()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        sep.separate(batch, lengths)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    for name, n in K.launch_counts().items():
+        total[name] += n
+    kernels = kernel_events(prof)
+    print_trace("large", kernels, busy_us(kernels), window_us,
+                K.launch_counts(), "B=4 x 4 s forward")
+
+    # c. 70 s in full context: K12 at head width 32 in every global
+    #    attention, no pos_kt; against the dense K2/K3 route (switch
+    #    raised), with controls that the limit must catch: TF32 allowed
+    #    (the cuBLAS and cuDNN products), and K12 without the rel-pos bias
+    n70 = int(LONG_SECONDS * SAMPLE_RATE)
+    wav70 = (rng.normal(size=n70) * 0.1).astype(np.float32)
+    for label in ("70 s full context, K12 route (first call)",
+                  "70 s full context, K12 route"):
+        flash, counts = run(label, lambda: separated(sep, wav70),
+                            LONG_SECONDS)
+        assert counts["flash_relpos_attention"] == attentions
+        assert counts["materialize_pos_kt"] == counts["softmax_pv"] == 0
+    saved = blocks.FUSED_PV_MAX_LENGTH
+    blocks.FUSED_PV_MAX_LENGTH = 10 ** 9
+    try:
+        dense, counts = run("70 s full context, dense K2/K3 route (switch "
+                            "raised)", lambda: separated(sep, wav70),
+                            LONG_SECONDS, main_path=False)
+    finally:
+        blocks.FUSED_PV_MAX_LENGTH = saved
+    assert counts["flash_relpos_attention"] == 0
+    assert counts["materialize_pos_kt"] == 1
+    assert counts["softmax_pv"] == attentions
+    scale = float(np.abs(dense).max())
+    errs = {"float32": float(np.abs(flash - dense).max()) / scale}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        control, _ = run("70 s full context, K12 route, TF32 allowed",
+                         lambda: separated(sep, wav70), LONG_SECONDS,
+                         main_path=False)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    errs["control, TF32 allowed"] = float(
+        np.abs(control - dense).max()) / scale
+    k12_route = blocks.flash_relpos_attention
+    blocks.flash_relpos_attention = (
+        lambda q, k, v, table, maxlen, lens: K.flash_relpos_attention(
+            q, k, v, torch.zeros_like(table), maxlen, lens))
+    try:
+        control, counts = run("70 s full context, control, K12 without the "
+                              "bias", lambda: separated(sep, wav70),
+                              LONG_SECONDS, main_path=False)
+    finally:
+        blocks.flash_relpos_attention = k12_route
+    assert counts["flash_relpos_attention"] == attentions
+    errs["control, K12 without the bias"] = float(
+        np.abs(control - dense).max()) / scale
+    for label, e in errs.items():
+        print(f"[large] K12 route against the dense route, {label}: max |d| "
+              f"/ max|out| {e:.3e} (max|out| {scale:.3f}), limit "
+              f"{CPU_REL_LIMIT:.1e}")
+    assert errs["float32"] <= CPU_REL_LIMIT, "K12 route disagrees"
+    for label, e in errs.items():
+        assert label == "float32" or e > CPU_REL_LIMIT, (
+            f"the limit does not catch the {label}")
+    del flash, dense, control
+
+    # d. 300 s in 8 s chunks: K1, K2 and K3, no K12
+    n300 = int(LONGEST_SECONDS * SAMPLE_RATE)
+    wav300 = (rng.normal(size=n300) * 0.1).astype(np.float32)
+    chunked = sep_torch.Separator(variant, model, chunk_seconds=CHUNK_SECONDS)
+    _, counts = run(f"300 s in {CHUNK_SECONDS:.0f} s chunks",
+                    lambda: separated(chunked, wav300), LONGEST_SECONDS)
+    assert counts["flash_relpos_attention"] == 0
+    assert min(counts["fused_gcfn"], counts["materialize_pos_kt"],
+               counts["softmax_pv"]) > 0
+    del sep, chunked, model
+    torch.cuda.empty_cache()
+
+    # e. Large_DM_WHAM: one speaker-split block per stage, card against CPU
+    wham = sep_torch.load_separator("SepReformer_Large_DM_WHAM",
+                                    device="cuda", seed=1)
+    splits = wham.model.separator.spk_split_block
+    assert wham.variant.model.per_stage_spk_split
+    assert len(splits) == wham.variant.model.num_stages + 1
+    print(f"[large] SepReformer_Large_DM_WHAM: {len(splits)} speaker-split "
+          f"blocks, {sum(p.numel() for p in wham.model.parameters())} "
+          f"parameters")
+    _, counts = run("SepReformer_Large_DM_WHAM, one 1 s request",
+                    lambda: separated(wham, wav1), 1.0)
+    assert min(counts["fused_gcfn"], counts["materialize_pos_kt"],
+               counts["softmax_pv"]) > 0
+    card_against_cpu(torch, np, sep_torch, wham.variant,
+                     layer_scales_at(torch, wham.model), wav1, "large WHAM")
+    del wham
+    torch.cuda.empty_cache()
+
+    # f. the 70 s request as a wav through the CLI, in full context
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "long70.wav")
+        write_wav(path, wav70, SAMPLE_RATE)
+        out_dir = os.path.join(tmp, "out")
+        args = ["--model", LARGE, "--engine-mode", "infer_sample",
+                "--sample-file", path, "--workdir",
+                os.path.join(tmp, "work"), "--out-wav-dir", out_dir]
+        status, counts = run("cli infer_sample, 70 s wav (with the model's "
+                             "set-up)", lambda: cli.main(args), LONG_SECONDS)
+        assert status == 0
+        assert counts["flash_relpos_attention"] == attentions
+        for i in range(2):
+            x, rate = read_wav(os.path.join(out_dir, f"long70_out_{i}.wav"))
+            assert rate == SAMPLE_RATE and x.shape == (n70,), x.shape
+            assert np.isfinite(x).all() and np.abs(x).max() > 0.5
+
+    # g. a Large train step: its kernels (K7/K8 at F 256, K9/K10 and
+    #    K13/K14 at head width 32) are not built, so it raises, naming the
+    #    ROADMAP item, before any train kernel or plain stand-in runs
+    state = create_train_state(variant, device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+    mix, src = synthetic_batch(torch, np, rng, 1, SAMPLE_RATE)
+    K.reset_launches()
+    try:
+        train_step(state, mix.cuda(), src.cuda(), 2e-4, 0.4,
+                   torch.Generator().manual_seed(0))
+    except ValueError as exc:
+        message = str(exc)
+    else:
+        raise AssertionError("a Large train step ran")
+    torch.cuda.synchronize()
+    trained = {n: c for n, c in K.launch_counts().items()
+               if n in TRAIN_KERNELS and n != "materialize_pos_kt" and c}
+    print(f"[large] a Large train step raises: {message}; train kernels "
+          f"launched: {trained}")
+    assert LARGE_TRAINING in message and not trained
+    del state
+    torch.cuda.empty_cache()
+    print(f"[large] launches over the phase's main-path runs: {dict(total)}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2823,17 +3186,21 @@ def main() -> int:
                        busy_us) or {}
     fused_counts = run("fused", fused_phase, torch, np, sep_torch, K,
                        busy_us, kernel_events) or {}
+    large_counts = run("large", large_phase, torch, np, sep_torch, K,
+                       busy_us, kernel_events) or {}
 
     # each kernel's launches on the main path of its slice: the eval
     # kernels' in serving, the train kernels' in training, K12's in
     # long-form serving, K6's, K13's and K14's on the routes, K15's and
-    # K16's on the fused routes; K4, on no path, its launches summed over
-    # every phase's main-path runs, which must be 0
+    # K16's on the fused routes, the instances at Large's widths in Large's
+    # serving; K4, on no path, its launches summed over every phase's
+    # main-path runs, which must be 0
     main_paths = (counts, train_counts, long_counts, route_counts,
-                  fused_counts)
+                  fused_counts, large_counts)
     for row in kernels:
-        name = row["name"]
-        row["launches"] = (counts.get(name, 0) if name in EVAL_KERNELS
+        name, _, instance = row["name"].partition(" ")
+        row["launches"] = (large_counts.get(name, 0) if instance
+                           else counts.get(name, 0) if name in EVAL_KERNELS
                            else long_counts.get(name, 0)
                            if name in LONG_KERNELS
                            else route_counts.get(name, 0)

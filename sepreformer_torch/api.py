@@ -66,8 +66,7 @@ class Separator:
         x = torch.as_tensor(batch, dtype=torch.float32).to(self.device)
         lens = (None if lengths is None else
                 torch.as_tensor(lengths, dtype=torch.int64).to(self.device))
-        audio, _ = self.model(x, lengths=lens)
-        return audio
+        return self.model(x, lengths=lens, aux=False)
 
     def __call__(self, mixture: Union[str, os.PathLike, np.ndarray]
                  ) -> List[np.ndarray]:

@@ -10,13 +10,16 @@ implementation selectors the port keeps the two attention routes,
 blocks, ``fused_local`` (the CLA through K15) and ``fused_pair`` (the
 EGA tail and the GCFN through K16), with their names and defaults;
 every other module has one path, the JAX package's default one (in
-training the GCFN takes the hash-dropout kernels K7/K8).  The
-Large variants (F=256, one
-speaker-split block per stage) are not ported yet, nor
-``OptimConfig.flat_opt_state`` (a TPU lever the JAX package measured
-neutral), ``EngineConfig.steps_per_dispatch`` (ROADMAP A.4),
-``EngineConfig.dummy_len`` (the startup summary, A.10) and the sharding
-settings (A.9).
+training the GCFN takes the hash-dropout kernels K7/K8).  The presets
+are the JAX package's Base and Large families (``_large``: F=256, head
+width 32, dropout 0.1, lr 2e-4, dynamic mixing; ``Large_DM_WHAM`` with
+one speaker-split block per stage, ``per_stage_spk_split``); the Large
+family serves on the card, and its train kernels are the ROADMAP item
+"Large training".  Not ported: the T, S and M presets (head widths 8,
+12 and 20; ROADMAP "T/S/M"), ``OptimConfig.flat_opt_state`` (a TPU
+lever the JAX package measured neutral),
+``EngineConfig.steps_per_dispatch``, ``EngineConfig.dummy_len`` (the
+startup summary) and the sharding settings (``parallel/``).
 """
 
 from __future__ import annotations
@@ -73,6 +76,9 @@ class ModelConfig:
     # "on" takes it without lengths, in eval or at dropout 0, where
     # pick_block(T) > 0; "auto" and "off" keep EGA, then GCFN
     fused_pair: str = "auto"
+    # Large_DM_WHAM: num_stages + 1 independent speaker-split blocks (one
+    # per encoder stage and the bottleneck) instead of one shared block
+    per_stage_spk_split: bool = False
 
     def __post_init__(self):
         for name, allowed in (("attention_impl", ATTENTION_IMPLS),
@@ -191,8 +197,42 @@ class VariantConfig:
     engine: EngineConfig = field(default_factory=EngineConfig)
 
 
+def _large(name: str, model: Optional[ModelConfig] = None,
+           optim: Optional[OptimConfig] = None, **data_kw) -> VariantConfig:
+    """The Large-DM family as the JAX package's ``_large`` builds it:
+    F=256 (8 heads of 32), dropout 0.1, lr 2e-4, dynamic mixing on
+    (reference SepReformer_Large_DM_WSJ0/configs.yaml:37,54,109,10)."""
+    return VariantConfig(
+        name,
+        model=model or ModelConfig(feat_dim=256, dropout=0.1),
+        optim=optim or OptimConfig(lr=2.0e-4),
+        dataset=DatasetConfig(dynamic_mixing=True, **data_kw))
+
+
 _PRESETS: Dict[str, VariantConfig] = {
     "SepReformer_Base_WSJ0": VariantConfig("SepReformer_Base_WSJ0"),
+    "SepReformer_Large_DM_WSJ0": _large("SepReformer_Large_DM_WSJ0",
+                                        dm_flavor="wsj0"),
+    # its reference checkpoint has one speaker-split block per stage
+    "SepReformer_Large_DM_WHAM": _large(
+        "SepReformer_Large_DM_WHAM",
+        model=ModelConfig(feat_dim=256, dropout=0.1,
+                          per_stage_spk_split=True),
+        optim=OptimConfig(lr=2.0e-4, plateau_patience=3),
+        dm_flavor="wham", train_noise="tr_n.scp",
+        scp_dir="data/scp_ss_8k_wham"),
+    "SepReformer_Large_DM_WHAMR": _large(
+        "SepReformer_Large_DM_WHAMR", dm_flavor="whamr",
+        train_noise="tr_n.scp",
+        train_reverb_sources=("tr_s1_reverb.scp", "tr_s2_reverb.scp"),
+        scp_dir="data/scp_ss_8k_whamr"),
+    # the paper's L: the Large model (the JAX package's SepReformer_L)
+    "SepReformer_L": _large("SepReformer_L"),
+    # Base evaluated on Libri2Mix's manifests (the reference ships cv/tt
+    # scps for it and no configs.yaml)
+    "SepReformer_Base_Libri2Mix": VariantConfig(
+        "SepReformer_Base_Libri2Mix",
+        dataset=DatasetConfig(scp_dir="data/scp_ss_8k_libri")),
     # the Base block structure at a width and depth the CPU tests afford
     "tiny": VariantConfig("tiny", model=ModelConfig(
         num_stages=2, enc_dim=16, feat_dim=16, num_heads=2, pos_maxlen=64,

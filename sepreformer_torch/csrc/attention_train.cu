@@ -110,10 +110,10 @@ struct Drop {
 // The flash rel-pos tile on [B*H, L, D] rows, with the hash dropout and
 // the row statistics, at SPLIT warps per row tile of 16 rows.
 template <int SPLIT>
-__global__ void __launch_bounds__(relpos_flash::Shape<SPLIT>::kThreads,
-                                  relpos_flash::Shape<SPLIT>::kMinBlocks)
+__global__ void __launch_bounds__(relpos_flash::Shape<SPLIT, D>::kThreads,
+                                  relpos_flash::Shape<SPLIT, D>::kMinBlocks)
 attn_train_fwd_kernel(relpos_flash::Args a) {
-  relpos_flash::run<SPLIT, true, true, true>(a);
+  relpos_flash::run<D, SPLIT, true, true, true>(a);
 }
 
 // ---------------------------------------------------------------- K14
@@ -832,7 +832,7 @@ bool bad_args(int BH, int L, int H, int maxlen, int block) {
 template <int SPLIT>
 cudaError_t launch_fwd(const relpos_flash::Args& a, int BH,
                        cudaStream_t stream) {
-  using S = relpos_flash::Shape<SPLIT>;
+  using S = relpos_flash::Shape<SPLIT, D>;
   cudaError_t err = cudaFuncSetAttribute(
       attn_train_fwd_kernel<SPLIT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kSmemBytes);
@@ -870,7 +870,7 @@ int split_for(int BH, int L) {
 
 template <int SPLIT>
 cudaError_t fwd_occupancy(int* o) {
-  using S = relpos_flash::Shape<SPLIT>;
+  using S = relpos_flash::Shape<SPLIT, D>;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncSetAttribute(
       attn_train_fwd_kernel<SPLIT>,

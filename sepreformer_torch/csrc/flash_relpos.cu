@@ -21,9 +21,12 @@
 // exponentials about 0.26 ms of the SFUs; the bytes 0.01 ms.
 //
 // Design: the flash rel-pos tile (flash_relpos_tile.cuh) at one warp per
-// row tile (SPLIT 1: blocks of 4 warps and 64 query rows, four blocks per
-// SM), on channels-last rows, without dropout or row statistics.  The
-// header holds the tile's design and what holds it above its bound.
+// row tile (SPLIT 1: blocks of 4 warps and 64 query rows), on
+// channels-last rows, without dropout or row statistics, in two
+// instances of the head width: Base's 16 (four blocks per SM) and
+// Large's 32 (92 KB of shared memory a block: two per SM; its products
+// per pair double, so its bound is about twice Base's).  The header holds
+// the tile's design and what holds it above its bound.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -31,29 +34,47 @@
 
 namespace {
 
-using Tile = relpos_flash::Shape<1>;
+template <int D>
+using Tile = relpos_flash::Shape<1, D>;
 
-__global__ void __launch_bounds__(Tile::kThreads, Tile::kMinBlocks)
+template <int D>
+__global__ void __launch_bounds__(Tile<D>::kThreads, Tile<D>::kMinBlocks)
 flash_relpos_kernel(relpos_flash::Args a) {
-  relpos_flash::run<1, false, false, false>(a);
+  relpos_flash::run<D, 1, false, false, false>(a);
+}
+
+template <int D>
+int launch(relpos_flash::Args a, int B, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_relpos_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Tile<D>::kSmemBytes);
+  if (err == cudaSuccess && Tile<D>::kMinBlocks < 4)  // room for them
+    err = cudaFuncSetAttribute(flash_relpos_kernel<D>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  // 1 / sqrt(D) and log2(e): exp(x / sqrt(D)) = exp2(x log2(e) / sqrt(D))
+  a.scale_log2 = 1.4426950408889634f / sqrtf((float)D);
+  dim3 grid((a.L + relpos_flash::kRows - 1) / relpos_flash::kRows, B * a.H);
+  flash_relpos_kernel<D><<<grid, Tile<D>::kThreads, Tile<D>::kSmemBytes,
+                           stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, out: device float32 [B, L, H*16] (16-byte aligned); table:
-// device float32 [2*maxlen, 16]; lens: device int32 [B], each >= 1 (the
-// wrapper clamps them to L).  Built for Base's head width 16.
+// q, k, v, out: device float32 [B, L, H*D] (16-byte aligned); table:
+// device float32 [2*maxlen, D]; lens: device int32 [B], each >= 1 (the
+// wrapper clamps them to L).  Built for Base's head width D = 16 and
+// Large's D = 32.
 extern "C" int sep_flash_relpos_f32(const void* q, const void* k,
                                     const void* v, const void* table,
                                     const void* lens, void* out, int B, int L,
-                                    int H, int maxlen, void* stream) {
+                                    int H, int D, int maxlen, void* stream) {
   if (B <= 0 || L <= 0) return 0;
-  if (H <= 0 || maxlen <= 0 || (long long)B * H > 65535)
+  if (H <= 0 || maxlen <= 0 || (long long)B * H > 65535 ||
+      (D != 16 && D != 32))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_relpos_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)Tile::kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
   relpos_flash::Args a{};
   a.q = static_cast<const float*>(q);
   a.k = static_cast<const float*>(k);
@@ -64,10 +85,6 @@ extern "C" int sep_flash_relpos_f32(const void* q, const void* k,
   a.L = L;
   a.H = H;
   a.maxlen = maxlen;
-  // 1 / sqrt(D) and log2(e): exp(x / 4) = exp2(x * log2(e) / 4)
-  a.scale_log2 = 1.4426950408889634f / sqrtf((float)relpos_flash::D);
-  dim3 grid((L + relpos_flash::kRows - 1) / relpos_flash::kRows, B * H);
-  flash_relpos_kernel<<<grid, Tile::kThreads, Tile::kSmemBytes,
-                        static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  auto st = static_cast<cudaStream_t>(stream);
+  return D == 16 ? launch<16>(a, B, st) : launch<32>(a, B, st);
 }

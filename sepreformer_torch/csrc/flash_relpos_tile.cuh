@@ -47,6 +47,16 @@
 //    serve as the A fragment's k slots t and t+4, and V's rows are read
 //    in that order; each tile's P·V starts from zeroed fragments and is
 //    added to the running output in float32 registers.
+// The head width D is a template parameter: Base's 16 (K12, K13) and
+// Large's 32 (K12).  A lane holds D / 4 columns of each row of Q, K and
+// the band, (D / 4) t .. (D / 4) t + D / 4 - 1, as D / 16 16-byte loads;
+// k-step kk takes its columns 2 kk and 2 kk + 1.  K and the band are
+// staged at stride 16 for D = 16 and 36 for D = 32 (a quarter-warp's
+// 16-byte loads cover two rows: at stride 32 both would fall on the same
+// banks); V at D + 4.  At D = 32 a block takes 92 KB of shared memory,
+// so two blocks share an SM (Shape::kMinBlocks), and P·V runs one chain
+// of fresh accumulators over its four output n-fragments.
+//
 // With SPLIT > 1 the row tile's warps meet at the end over the stage
 // buffers: warp 0 merges the others' (max, sums, output) in the order of
 // ks (the larger max, each side scaled by 2^(m_side - m)) and writes the
@@ -79,21 +89,28 @@ using tf32x3::cp_async16;
 using tf32x3::cp_async_commit;
 using tf32x3::cp_async_wait;
 
-constexpr int D = 16;                   // head width (Base: 128 / 8 heads)
+constexpr int kBaseD = 16;              // Base's head width (128 / 8
+                                        // heads): K12's and K13's D
 constexpr int kRowTiles = 4;            // warp tiles of 16 rows per block
 constexpr int kRows = 16 * kRowTiles;   // query rows per block
 constexpr int kKeys = 64;               // keys per tile
 constexpr int kWarpBand = 80;           // a warp's band columns (79 used)
-// Row strides in floats.  K and the band are read as one 16-byte
-// fragment load per row and lane (columns 4t .. 4t+3), conflict-free at
-// stride D; V as scalars (rows 2t, 2t+1), conflict-free at D + 4.
-constexpr int kKS = D, kVS = D + 4;
 constexpr int kBS = kWarpBand;          // a warp's bias rows
 constexpr float kLn2 = 0.6931471805599453f;
 
-// A block's shape for SPLIT warps per row tile.
-template <int SPLIT>
+// A block's shape for SPLIT warps per row tile, at head width D.
+template <int SPLIT, int D>
 struct Shape {
+  static_assert(D == 16 || D == 32, "head widths 16 and 32");
+  static constexpr int kPerLane = D / 4;   // a lane's columns of a row
+  static constexpr int kLaneShift = D == 16 ? 2 : 3;  // log2(kPerLane)
+  static constexpr int kNN = D / 8;        // output n-fragments
+  static constexpr int kChains = D == 16 ? 2 : 1;  // P·V chains a tile
+  // Row strides in floats.  K and the band are read as D / 16 16-byte
+  // fragment loads per row and lane, conflict-free at stride 16 (D 16)
+  // and 36 (D 32: columns 8t .. 8t+3 of two rows 4 banks apart); V as
+  // scalars (rows 2t, 2t+1), conflict-free at D + 4.
+  static constexpr int kKS = D == 16 ? D : D + 4, kVS = D + 4;
   static constexpr int kWarps = kRowTiles * SPLIT;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kStepKeys = kKeys * SPLIT;   // keys staged a step
@@ -103,12 +120,20 @@ struct Shape {
   static constexpr int kStage = kStepKeys * (kKS + kVS) + kBand * kKS;
   static constexpr size_t kSmemBytes =
       sizeof(float) * (2 * (size_t)kStage + (size_t)kWarps * 16 * kBS);
-  // 16 warps per SM: 54 KB of shared memory a block at SPLIT 1, 100 KB at
-  // 2, 196 KB at 4
-  static constexpr int kMinBlocks = 4 / SPLIT;
-  static_assert(kStepKeys % (kThreads / 4) == 0,
-                "each thread stages 16 bytes of every (kThreads / 4)th key");
-  static_assert((SPLIT - 1) * kRowTiles * 32 * 12 <= 2 * kStage,
+  // 16 warps per SM where the shared memory allows (54 KB a block at
+  // SPLIT 1, 100 KB at 2, 196 KB at 4 for D 16), else as many blocks as
+  // fit the SM's 228 KB, 1 KB reserved per block (92 KB at D 32 and
+  // SPLIT 1: two)
+  static constexpr int kFit = (int)(228 * 1024 / (kSmemBytes + 1024));
+  static constexpr int kMinBlocks = 4 / SPLIT < kFit ? 4 / SPLIT : kFit;
+  static_assert(kMinBlocks >= 1 && kSmemBytes <= 227 * 1024,
+                "a block fits an SM");
+  static constexpr int kRowStep = kThreads / kPerLane;  // rows a copy pass
+  static_assert(kStepKeys % kRowStep == 0,
+                "each thread stages 16 bytes of every kRowStep-th key");
+  // a split warp's state per lane: two maxes, two sums, its output
+  static constexpr int kXch = 4 + 4 * kNN;
+  static_assert((SPLIT - 1) * kRowTiles * 32 * kXch <= 2 * kStage,
                 "the split warps' states fit over the stages");
 };
 
@@ -146,13 +171,16 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// The tile's body: a kernel of Shape<SPLIT>::kThreads threads on the grid
-// (ceil(L / kRows), B*H) with Shape<SPLIT>::kSmemBytes of dynamic shared
-// memory.  kHeadMajor: [B*H, L, D] rows, else channels-last; kDrop: the
-// hash dropout on the numerator; kStats: the rows' max and sum written.
-template <int SPLIT, bool kHeadMajor, bool kDrop, bool kStats>
+// The tile's body: a kernel of Shape<SPLIT, D>::kThreads threads on the
+// grid (ceil(L / kRows), B*H) with Shape<SPLIT, D>::kSmemBytes of dynamic
+// shared memory.  kHeadMajor: [B*H, L, D] rows, else channels-last;
+// kDrop: the hash dropout on the numerator; kStats: the rows' max and sum
+// written.
+template <int D, int SPLIT, bool kHeadMajor, bool kDrop, bool kStats>
 __device__ __forceinline__ void run(const Args& a) {
-  using S = Shape<SPLIT>;
+  using S = Shape<SPLIT, D>;
+  constexpr int kKS = S::kKS, kVS = S::kVS, kPerLane = S::kPerLane,
+                kNN = S::kNN, kChains = S::kChains;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -174,39 +202,44 @@ __device__ __forceinline__ void run(const Args& a) {
   // Q fragments of rows iw+g and iw+g+8 (zero past L), scaled by
   // log2(e) / sqrt(D) and split once; the rows' clamped-bias constants
   // q·table[2m-1] and q·table[0] of the scaled rows.
-  // The head width is the products' k: k-step kk puts column 4t + 2kk in
-  // slot t and 4t + 2kk + 1 in slot t + 4, so a lane's four columns of a
-  // row of Q, K or the band are one 16-byte load.
-  uint32_t qb[2][4], qs[2][4];
+  // The head width is the products' k: k-step kk puts the lane's column
+  // 2kk (of (D/4) t .. (D/4) t + D/4 - 1) in slot t and 2kk + 1 in slot
+  // t + 4, so a lane's columns of a row of Q, K or the band are D / 16
+  // 16-byte loads.
+  const int c0 = kPerLane * t;  // the lane's first column
+  uint32_t qb[kNN][4], qs[kNN][4];
   float hi[2], lo[2];
   {
-    float qv[2][4];  // [row g, g+8][column 4t .. 4t+3]
+    float qv[2][kPerLane];  // [row g, g+8][column c0 ..]
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int i = iw + g + 8 * r;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (i < L)
-        x = *reinterpret_cast<const float4*>(a.q + head + (size_t)i * F +
-                                             4 * t);
-      qv[r][0] = x.x * a.scale_log2;
-      qv[r][1] = x.y * a.scale_log2;
-      qv[r][2] = x.z * a.scale_log2;
-      qv[r][3] = x.w * a.scale_log2;
+#pragma unroll
+      for (int q4 = 0; q4 < kPerLane / 4; ++q4) {
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (i < L)
+          x = *reinterpret_cast<const float4*>(a.q + head + (size_t)i * F +
+                                               c0 + 4 * q4);
+        qv[r][4 * q4] = x.x * a.scale_log2;
+        qv[r][4 * q4 + 1] = x.y * a.scale_log2;
+        qv[r][4 * q4 + 2] = x.z * a.scale_log2;
+        qv[r][4 * q4 + 3] = x.w * a.scale_log2;
+      }
     }
     const float* top = a.table + (size_t)(2 * maxlen - 1) * D;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float sh = 0.f, sl = 0.f;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        sh = fmaf(qv[r][c], top[4 * t + c], sh);
-        sl = fmaf(qv[r][c], a.table[4 * t + c], sl);
+      for (int c = 0; c < kPerLane; ++c) {
+        sh = fmaf(qv[r][c], top[c0 + c], sh);
+        sl = fmaf(qv[r][c], a.table[c0 + c], sl);
       }
       hi[r] = quad_sum(sh);
       lo[r] = quad_sum(sl);
     }
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
+    for (int kk = 0; kk < kNN; ++kk) {
       const float x[4] = {qv[0][2 * kk], qv[1][2 * kk], qv[0][2 * kk + 1],
                           qv[1][2 * kk + 1]};
       tf32x3::split(x, qb[kk], qs[kk]);
@@ -216,9 +249,9 @@ __device__ __forceinline__ void run(const Args& a) {
   // stage a step: K and V rows j0 .. j0 + kStepKeys - 1 (zero at or past
   // lim) and, unless every pair of the block clamps, the band rows.
   // Thread tid copies 16 bytes (columns c4 .. c4+3) of rows
-  // tid/4 + kThreads/4 it.
-  const int r0 = tid >> 2, c4 = (tid & 3) * 4;
-  constexpr int kRowStep = S::kThreads / 4;
+  // tid/(D/4) + kRowStep it.
+  const int r0 = tid >> S::kLaneShift, c4 = (tid & (kPerLane - 1)) * 4;
+  constexpr int kRowStep = S::kRowStep;
   auto stage = [&](int buf, int j0) {
     float* ks_ = smem + buf * S::kStage;
     float* vs_ = ks_ + S::kStepKeys * kKS;
@@ -253,9 +286,9 @@ __device__ __forceinline__ void run(const Args& a) {
         sep_row_half(a.seed_word, (uint32_t)(bh * a.block + iw + g + 8));
   }
 
-  float o[2][4];
+  float o[kNN][4];
 #pragma unroll
-  for (int n = 0; n < 2; ++n)
+  for (int n = 0; n < kNN; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
@@ -287,10 +320,13 @@ __device__ __forceinline__ void run(const Args& a) {
       for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-        const float4 kk =
-            *reinterpret_cast<const float4*>(ks_ + (8 * nt + g) * kKS + 4 * t);
-        tf32x3::mma3(s[nt], qb[0], qs[0], kk.x, kk.y);
-        tf32x3::mma3(s[nt], qb[1], qs[1], kk.z, kk.w);
+#pragma unroll
+        for (int q4 = 0; q4 < kPerLane / 4; ++q4) {
+          const float4 kk = *reinterpret_cast<const float4*>(
+              ks_ + (8 * nt + g) * kKS + c0 + 4 * q4);
+          tf32x3::mma3(s[nt], qb[2 * q4], qs[2 * q4], kk.x, kk.y);
+          tf32x3::mma3(s[nt], qb[2 * q4 + 1], qs[2 * q4 + 1], kk.z, kk.w);
+        }
       }
 
       // the bias, by the warp tile's class: a clamped tile's per-row
@@ -308,10 +344,13 @@ __device__ __forceinline__ void run(const Args& a) {
 #pragma unroll
         for (int m = 0; m < kWarpBand / 8; ++m) {
           float c[4] = {0.f, 0.f, 0.f, 0.f};
-          const float4 bb = *reinterpret_cast<const float4*>(
-              band + (8 * m + g) * kKS + 4 * t);
-          tf32x3::mma3(c, qb[0], qs[0], bb.x, bb.y);
-          tf32x3::mma3(c, qb[1], qs[1], bb.z, bb.w);
+#pragma unroll
+          for (int q4 = 0; q4 < kPerLane / 4; ++q4) {
+            const float4 bb = *reinterpret_cast<const float4*>(
+                band + (8 * m + g) * kKS + c0 + 4 * q4);
+            tf32x3::mma3(c, qb[2 * q4], qs[2 * q4], bb.x, bb.y);
+            tf32x3::mma3(c, qb[2 * q4 + 1], qs[2 * q4 + 1], bb.z, bb.w);
+          }
           *reinterpret_cast<float2*>(wbias + g * kBS + 8 * m + 2 * t) =
               make_float2(c[0], c[1]);
           *reinterpret_cast<float2*>(wbias + (g + 8) * kBS + 8 * m + 2 * t) =
@@ -379,10 +418,10 @@ __device__ __forceinline__ void run(const Args& a) {
       }
 
       // P V: slot t of k-step nt is key 8nt + 2t, slot t+4 key 8nt+2t+1.
-      // Two chains of fresh accumulators (k-steps nt mod 2), summed and
-      // added to O in float32 (mma_tf32x3.cuh: the tensor cores' own
-      // accumulation drifts over many tiles).
-      float pv[2][2][4] = {};
+      // kChains chains of fresh accumulators (k-steps nt mod kChains),
+      // summed and added to O in float32 (mma_tf32x3.cuh: the tensor
+      // cores' own accumulation drifts over many tiles).
+      float pv[kChains][kNN][4] = {};
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         const float p4[4] = {s[nt][0], s[nt][2], s[nt][1], s[nt][3]};
@@ -390,14 +429,19 @@ __device__ __forceinline__ void run(const Args& a) {
         tf32x3::split(p4, pb, ps);
         const float* vp = vs_ + (8 * nt + 2 * t) * kVS + g;
 #pragma unroll
-        for (int nn = 0; nn < 2; ++nn)
-          tf32x3::mma3(pv[nt & 1][nn], pb, ps, vp[8 * nn], vp[kVS + 8 * nn]);
+        for (int nn = 0; nn < kNN; ++nn)
+          tf32x3::mma3(pv[nt % kChains][nn], pb, ps, vp[8 * nn],
+                       vp[kVS + 8 * nn]);
       }
 #pragma unroll
-      for (int nn = 0; nn < 2; ++nn)
+      for (int nn = 0; nn < kNN; ++nn)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          o[nn][e] = o[nn][e] * alpha[e >> 1] + (pv[0][nn][e] + pv[1][nn][e]);
+        for (int e = 0; e < 4; ++e) {
+          float sum = pv[0][nn][e];
+#pragma unroll
+          for (int ch = 1; ch < kChains; ++ch) sum += pv[ch][nn][e];
+          o[nn][e] = o[nn][e] * alpha[e >> 1] + sum;
+        }
     }
     __syncthreads();  // this stage's buffers are consumed
   }
@@ -406,8 +450,8 @@ __device__ __forceinline__ void run(const Args& a) {
     // the row tile's warps meet over the stages: warps ks > 0 leave their
     // max, sums and output fragments, warp 0 merges them in the order of
     // ks (m the larger max, each side scaled by 2^(m_side - m))
-    float* xch = smem + (rt * 32 + lane) * 12;
-    constexpr int kXch = kRowTiles * 32 * 12;  // floats per split warp
+    float* xch = smem + (rt * 32 + lane) * S::kXch;
+    constexpr int kXch = kRowTiles * 32 * S::kXch;  // floats per split warp
     if (ks > 0) {
       float* mine = xch + (ks - 1) * kXch;
 #pragma unroll
@@ -416,7 +460,7 @@ __device__ __forceinline__ void run(const Args& a) {
         mine[2 + r] = l_run[r];
       }
 #pragma unroll
-      for (int nn = 0; nn < 2; ++nn)
+      for (int nn = 0; nn < kNN; ++nn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) mine[4 + 4 * nn + e] = o[nn][e];
     }
@@ -425,21 +469,21 @@ __device__ __forceinline__ void run(const Args& a) {
 #pragma unroll
     for (int w = 0; w < SPLIT - 1; ++w) {
       const float* other = xch + w * kXch;
-      float c0[2], c1[2];
+      float w0[2], w1[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const float m1 = other[r], m = fmaxf(m_run[r], m1);
-        c0[r] = ex2(m_run[r] - m);
-        c1[r] = ex2(m1 - m);  // 0 if that warp had no tile
+        w0[r] = ex2(m_run[r] - m);
+        w1[r] = ex2(m1 - m);  // 0 if that warp had no tile
         m_run[r] = m;
-        l_run[r] = l_run[r] * c0[r] + other[2 + r] * c1[r];
+        l_run[r] = l_run[r] * w0[r] + other[2 + r] * w1[r];
       }
 #pragma unroll
-      for (int nn = 0; nn < 2; ++nn)
+      for (int nn = 0; nn < kNN; ++nn)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           o[nn][e] =
-              o[nn][e] * c0[e >> 1] + other[4 + 4 * nn + e] * c1[e >> 1];
+              o[nn][e] * w0[e >> 1] + other[4 + 4 * nn + e] * w1[e >> 1];
     }
   }
 
@@ -451,7 +495,7 @@ __device__ __forceinline__ void run(const Args& a) {
         (kDrop && a.threshold8 ? a.keep_scale : 1.f) / fmaxf(l, 1e-30f);
     if (i < L) {
 #pragma unroll
-      for (int nn = 0; nn < 2; ++nn)
+      for (int nn = 0; nn < kNN; ++nn)
         *reinterpret_cast<float2*>(a.out + head + (size_t)i * F + 8 * nn +
                                    2 * t) =
             make_float2(o[nn][2 * r] * inv, o[nn][2 * r + 1] * inv);

@@ -6,15 +6,19 @@
 //           (_gcfn_pipe_kernel[_masked], _gcfn_kernel[_masked]).
 //
 // What bounds it on the H100: the two products are 2*F*6F + 2*3F*F
-// flops per row (295 kflop at F=128) against 2*F*4 bytes of row traffic,
-// ~290 flop per byte: bound by the products.  On the tensor cores at
-// float32 accuracy (3xTF32, 495/3 TFLOP/s) that is 0.057 ms at
-// [4, 8000, 128]; the LayerNorm, conv and GLU on the CUDA cores and the
-// sigmoids on the SFUs take under a tenth of that.
+// flops per row (295 kflop at F=128, 1180 at F=256) against 2*F*4 bytes
+// of row traffic, ~290 (580) flop per byte: bound by the products.  On
+// the tensor cores at float32 accuracy (3xTF32, 495/3 TFLOP/s) that is
+// 0.057 ms at [4, 8000, 128] and 0.229 ms at [4, 8000, 256]; the
+// LayerNorm, conv and GLU on the CUDA cores and the sigmoids on the SFUs
+// take under a tenth of that.
 //
 // Design: gcfn_tile_mma.cuh (shared with K7, the train forward): tiles of
 // 62 rows, the hidden width in chunks whose weights are staged in shared
-// memory, both products as 3xTF32 mma.sync.
+// memory, both products as 3xTF32 mma.sync.  Two instances: Base's
+// F = 128 at two blocks per SM, and Large's F = 256 at one (its tile
+// takes 199 KB of shared memory, so the SM's eight warps are the block's
+// own and the GLU no longer overlaps another block's products).
 #include <cuda_runtime.h>
 
 #include "gcfn_tile_mma.cuh"
@@ -24,7 +28,8 @@ namespace {
 using gcfn_mma::kThreads;
 
 template <int F>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads,
+                                  gcfn_mma::Shape<F>::blocks_per_sm)
 gcfn_kernel(const float* __restrict__ x, const int* __restrict__ lens,
             const float* __restrict__ lns, const float* __restrict__ lnb,
             const float* __restrict__ win, const float* __restrict__ bin,
@@ -48,7 +53,7 @@ int launch(const float* x, const int* lens, const float* lns,
   cudaError_t err = cudaFuncSetAttribute(
       gcfn_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
-  if (err == cudaSuccess)  // room for two blocks per SM
+  if (err == cudaSuccess)  // room for Shape<F>::blocks_per_sm blocks
     err = cudaFuncSetAttribute(gcfn_kernel<F>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
@@ -63,7 +68,8 @@ int launch(const float* x, const int* lens, const float* lns,
 
 // Pointers are device pointers to contiguous float32 (lens: int32 [B] or
 // null).  win [F, 6F] and wout [3F, F] are [in, out]; wdw [6F, 3] is the
-// Conv1d weight [6F, 1, 3].  Built for Base's F = 128.
+// Conv1d weight [6F, 1, 3].  Built for Base's F = 128 and Large's
+// F = 256.
 extern "C" int sep_gcfn_f32(const void* x, const void* lens, const void* lns,
                             const void* lnb, const void* win, const void* bin,
                             const void* wdw, const void* bdw, const void* wout,
@@ -74,7 +80,11 @@ extern "C" int sep_gcfn_f32(const void* x, const void* lens, const void* lns,
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T <= 0) return 0;
-  if (F != 128) return (int)cudaErrorInvalidValue;
-  return launch<128>(f(x), l, f(lns), f(lnb), f(win), f(bin), f(wdw),
-                     f(bdw), f(wout), f(bout), f(ls), o, B, T, eps, s);
+  if (F == 128)
+    return launch<128>(f(x), l, f(lns), f(lnb), f(win), f(bin), f(wdw),
+                       f(bdw), f(wout), f(bout), f(ls), o, B, T, eps, s);
+  if (F == 256)
+    return launch<256>(f(x), l, f(lns), f(lnb), f(win), f(bin), f(wdw),
+                       f(bdw), f(wout), f(bout), f(ls), o, B, T, eps, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -7,7 +7,8 @@
 // (3xTF32, mma_tf32x3.cuh) and the rest in float32 on the CUDA cores.
 //
 // Design: one block of 256 threads per (batch row, tile of TT = 62
-// frames), two blocks per SM.  The block recomputes LayerNorm and the
+// frames), two blocks per SM at F = 128 (one at F = 256, whose tile
+// takes 199 KB of shared memory: Shape::blocks_per_sm).  The block recomputes LayerNorm and the
 // F->6F product for one halo row on each side, so tiles are independent:
 // R = TT + 2 = 64 u rows, four m16 fragments.  It walks the hidden width
 // in chunks of CH = 32 GLU pairs (columns c and c + 3F together, since
@@ -99,15 +100,20 @@ struct Shape {
                        u = wo + CH * LO, g = u + R * LU,
                        floats = g + R * LG;
   static constexpr size_t smem_bytes = sizeof(float) * (size_t)floats;
-  // of an SM's 228 KB, 1 KB is reserved per block
-  static_assert(R == 16 * UMT * WM && smem_bytes <= 113 * 1024,
-                "four m16 fragments of rows; two blocks per SM");
+  // Blocks per SM, of an SM's 228 KB with 1 KB reserved per block: two
+  // at F = 128 (113 KB); one at F = 256, where xn alone is 64 x 264
+  // floats and the tile takes 199 KB.  The kernels' __launch_bounds__
+  // take it, so the F = 256 instance may hold o (64 floats a thread)
+  // in up to 255 registers.
+  static constexpr int blocks_per_sm = smem_bytes <= 113 * 1024 ? 2 : 1;
+  static_assert(R == 16 * UMT * WM && smem_bytes <= 227 * 1024,
+                "four m16 fragments of rows; at least one block per SM");
   // K16's prologue: the EGA tail's output y [R][LY] over wo and u, which
   // the chunk loop fills only after it; wg's two halves of NC columns
-  // pass through wi as win's chunks do
+  // pass through wi as win's chunks do (tile() asserts that it fits,
+  // for K16's instance alone)
   static constexpr int LY = F + 8, y = wo;
-  static_assert(y + R * LY <= g && 2 * NC == F,
-                "y overlays wo and u; wg is two chunks of wi");
+  static constexpr bool pair_fits = y + R * LY <= g && 2 * NC == F;
 };
 
 // The EGA tail's inputs (K16).
@@ -181,6 +187,8 @@ __device__ __forceinline__ void tile(
     GcfnDrop drop, Pair pair = Pair{}) {
   static_assert(!(kDrop && kPair), "K16 runs at dropout 0");
   using S = Shape<F>;
+  static_assert(!kPair || S::pair_fits,
+                "K16: y overlays wo and u; wg is two chunks of wi");
   using tf32x3::frag_col;
   using tf32x3::frag_row;
   constexpr int TT = S::TT, CH = S::CH, H6 = S::H6, H3 = S::H3, R = S::R,

@@ -22,6 +22,9 @@
 // Design: the tile of csrc/softmax_pv_tile.cuh (K9's too): 16 query rows
 // a warp tile, scores loaded straight into registers a tile ahead, an
 // online softmax per quad of lanes, P·V on the tensor cores (3xTF32).
+// K3 has two instances of the tile's head width, Base's 16 and Large's
+// 32 (the scores' bytes are the same at both; V's double); K3b has
+// Base's.
 #include <cuda_runtime.h>
 
 #include "softmax_pv_tile.cuh"
@@ -30,50 +33,68 @@ namespace {
 
 using softmax_pv_tile::Args;
 
-template <int SPLIT, bool HAS_BIAS>
+using softmax_pv_tile::kBaseD;
+
+template <int D, int SPLIT, bool HAS_BIAS>
 __global__ void __launch_bounds__(softmax_pv_tile::kThreads,
                                   HAS_BIAS ? softmax_pv_tile::kMinBlocksBias
                                            : softmax_pv_tile::kMinBlocks)
 softmax_pv_kernel(Args a) {
-  softmax_pv_tile::run<SPLIT, HAS_BIAS, false>(a);
+  softmax_pv_tile::run<D, SPLIT, HAS_BIAS, false>(a);
 }
 
 }  // namespace
 
 // scores: device float32 [B, H, Lp, Lp]; v, out: [B, Lp, F] with F = H*D;
 // lens: device int32 [B], each >= 1; length: true length <= Lp.
-// Built for Base's head width D = 16.
+// Built for Base's head width D = 16 and Large's D = 32.
 extern "C" int sep_softmax_pv_f32(const void* scores, const void* v,
                                   const void* lens, void* out, int B, int H,
                                   int Lp, int F, int length, void* stream) {
-  return softmax_pv_tile::launch(softmax_pv_kernel<1, false>,
-                                 softmax_pv_kernel<2, false>, scores, nullptr,
-                                 v, lens, out, nullptr, nullptr, B, H, Lp, F,
-                                 length, 0u, 0u, 1.f, stream);
+  if (H > 0 && F == 32 * H)
+    return softmax_pv_tile::launch<32>(
+        softmax_pv_kernel<32, 1, false>, softmax_pv_kernel<32, 2, false>,
+        scores, nullptr, v, lens, out, nullptr, nullptr, B, H, Lp, F,
+        length, 0u, 0u, 1.f, stream);
+  return softmax_pv_tile::launch<kBaseD>(
+      softmax_pv_kernel<kBaseD, 1, false>,
+      softmax_pv_kernel<kBaseD, 2, false>, scores, nullptr, v, lens, out,
+      nullptr, nullptr, B, H, Lp, F, length, 0u, 0u, 1.f, stream);
 }
 
 // K3b: the same on scores + bias, bias a second device float32
-// [B, H, Lp, Lp] tensor.
+// [B, H, Lp, Lp] tensor.  Built for Base's head width D = 16.
 extern "C" int sep_softmax_pv_bias_f32(const void* scores, const void* bias,
                                        const void* v, const void* lens,
                                        void* out, int B, int H, int Lp,
                                        int F, int length, void* stream) {
-  return softmax_pv_tile::launch(softmax_pv_kernel<1, true>,
-                                 softmax_pv_kernel<2, true>, scores, bias, v,
-                                 lens, out, nullptr, nullptr, B, H, Lp, F,
-                                 length, 0u, 0u, 1.f, stream);
+  return softmax_pv_tile::launch<kBaseD>(
+      softmax_pv_kernel<kBaseD, 1, true>, softmax_pv_kernel<kBaseD, 2, true>,
+      scores, bias, v, lens, out, nullptr, nullptr, B, H, Lp, F, length, 0u,
+      0u, 1.f, stream);
 }
 
 // The occupancy (softmax_pv_tile::occupancy) of K3 at SPLIT 1 and 2, then
-// of K3b at SPLIT 1 and 2, into out[0 .. 15].
+// of K3b at SPLIT 1 and 2, then of K3 at D = 32, SPLIT 1 and 2, into
+// out[0 .. 23].
 extern "C" int sep_softmax_pv_occupancy(void* out) {
   int* o = static_cast<int*>(out);
-  cudaError_t err = softmax_pv_tile::occupancy(softmax_pv_kernel<1, false>, o);
+  cudaError_t err =
+      softmax_pv_tile::occupancy(softmax_pv_kernel<kBaseD, 1, false>, o);
   if (err == cudaSuccess)
-    err = softmax_pv_tile::occupancy(softmax_pv_kernel<2, false>, o + 4);
+    err = softmax_pv_tile::occupancy(softmax_pv_kernel<kBaseD, 2, false>,
+                                     o + 4);
   if (err == cudaSuccess)
-    err = softmax_pv_tile::occupancy(softmax_pv_kernel<1, true>, o + 8);
+    err = softmax_pv_tile::occupancy(softmax_pv_kernel<kBaseD, 1, true>,
+                                     o + 8);
   if (err == cudaSuccess)
-    err = softmax_pv_tile::occupancy(softmax_pv_kernel<2, true>, o + 12);
+    err = softmax_pv_tile::occupancy(softmax_pv_kernel<kBaseD, 2, true>,
+                                     o + 12);
+  if (err == cudaSuccess)
+    err = softmax_pv_tile::occupancy(softmax_pv_kernel<32, 1, false>,
+                                     o + 16);
+  if (err == cudaSuccess)
+    err = softmax_pv_tile::occupancy(softmax_pv_kernel<32, 2, false>,
+                                     o + 20);
   return (int)err;
 }

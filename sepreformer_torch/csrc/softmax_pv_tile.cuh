@@ -38,6 +38,14 @@
 // (hash_dropout.cuh), and the kept weights' 1 / (1 - p) with 1 / l at the
 // end.
 //
+// The head width D is a template parameter: Base's 16 (K3, K3b, K9,
+// K9b) and Large's 32 (K3).  At D = 32 a lane holds four n-fragments of
+// the output and P·V runs one chain of fresh accumulators a tile (four
+// independent fragments, as D = 16's two chains of two), V's rows are
+// staged at stride 36 with the same XOR 8 (the B fragments' reads still
+// fall in 32 distinct banks: rows 4t + c sit 16 t banks apart), and a
+// thread stages 16 bytes of every 32nd row instead of every 64th.
+//
 // SPLIT warps per row tile: with 1, a block holds 8 row tiles (128 rows),
 // each walked by one warp; with 2, 4 row tiles (64 rows), each walked by
 // two warps taking alternate key tiles, whose states merge at the end
@@ -58,27 +66,35 @@
 
 namespace softmax_pv_tile {
 
-constexpr int D = 16;                  // head width (Base: 128 / 8 heads)
+constexpr int kBaseD = 16;             // Base's head width (128 / 8 heads):
+                                       // K3's, K3b's, K9's and K9b's D
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kKeys = 64;              // keys per tile
-constexpr int kVS = D + 4;             // staged V row stride in floats
 // blocks an SM holds: two (16 warps at up to 128 registers a thread); the
 // bias forms hold twice the scores in registers, up to 255, so one
 constexpr int kMinBlocks = 2, kMinBlocksBias = 1;
 
 // A block's shape for SPLIT warps per row tile of 16 rows (the row tile's
-// key tiles n with n % SPLIT == the warp's).
-template <int SPLIT>
+// key tiles n with n % SPLIT == the warp's), at head width D.
+template <int SPLIT, int D>
 struct Shape {
+  static_assert(D == 16 || D == 32, "head widths 16 and 32");
+  static constexpr int kNN = D / 8;                   // output n-fragments
+  static constexpr int kChains = D == 16 ? 2 : 1;     // P·V chains a tile
+  static constexpr int kVS = D + 4;     // staged V row stride in floats
   static constexpr int kRowTiles = kWarps / SPLIT;
   static constexpr int kRows = 16 * kRowTiles;        // query rows a block
   static constexpr int kStepKeys = kKeys * SPLIT;     // keys staged a step
   static constexpr int kStage = kStepKeys * kVS;      // floats a V stage
+  static constexpr int kPerRow = D / 4;               // 16-byte pieces a row
+  static constexpr int kRowShift = D == 16 ? 2 : 3;   // log2(kPerRow)
   static constexpr int kPieces = kStepKeys * D / 4 / kThreads;  // copies
   static_assert(kPieces * kThreads * 4 == kStepKeys * D,
                 "the threads stage a V stage in 16-byte pieces");
-  static_assert((SPLIT - 1) * kRowTiles * 32 * 12 <= 2 * kStage,
+  // a split warp's state per lane: two maxes, two sums, its output
+  static constexpr int kXch = 4 + 4 * kNN;
+  static_assert((SPLIT - 1) * kRowTiles * 32 * kXch <= 2 * kStage,
                 "the split warps' states fit over the V stages");
 };
 
@@ -158,10 +174,11 @@ __device__ __forceinline__ void load_tile(float (&x)[8][4], const float* lo,
   }
 }
 
-template <int SPLIT, bool HAS_BIAS, bool TRAIN>
+template <int D, int SPLIT, bool HAS_BIAS, bool TRAIN>
 __device__ __forceinline__ void run(const Args& a) {
-  using S = Shape<SPLIT>;
+  using S = Shape<SPLIT, D>;
   constexpr int kRowTiles = S::kRowTiles, kStepKeys = S::kStepKeys;
+  constexpr int kVS = S::kVS, kNN = S::kNN, kChains = S::kChains;
   __shared__ __align__(16) float vs[2][S::kStage];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -184,14 +201,14 @@ __device__ __forceinline__ void run(const Args& a) {
 
   // V rows j0 .. j0 + kStepKeys - 1 of the head into stage buf (zero at or
   // past lim): thread tid copies 16 bytes (columns c4 .. c4+3) of rows
-  // tid/4 + kThreads/4 * it, as one cp.async group.  Row r's columns are
-  // stored XOR 8 when bit 3 of r is set, so the B fragments' reads (rows
-  // 4t + const, column g + 8nn) fall in 32 distinct banks.
-  const int r0 = tid >> 2, c4 = (tid & 3) * 4;
+  // tid/(D/4) + kThreads/(D/4) * it, as one cp.async group.  Row r's
+  // columns are stored XOR 8 when bit 3 of r is set, so the B fragments'
+  // reads (rows 4t + const, column g + 8nn) fall in 32 distinct banks.
+  const int r0 = tid >> S::kRowShift, c4 = (tid & (S::kPerRow - 1)) * 4;
   auto stage = [&](int buf, int j0) {
 #pragma unroll
     for (int it = 0; it < S::kPieces; ++it) {
-      const int r = r0 + kThreads / 4 * it, j = j0 + r;
+      const int r = r0 + kThreads / S::kPerRow * it, j = j0 + r;
       const bool ok = j < lim;
       tf32x3::cp_async16(&vs[buf][r * kVS + (c4 ^ (r & 8))],
                          vb + (size_t)(ok ? j : 0) * F + c4, ok);
@@ -205,7 +222,7 @@ __device__ __forceinline__ void run(const Args& a) {
       sep_row_half(a.seed_word, (uint32_t)(bh * Lp + iw + g + 8))};
   const uint32_t threshold8 = a.threshold << 8;
   constexpr float kLog2e = 1.4426950408889634f;
-  float o[2][4] = {};
+  float o[kNN][4] = {};
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 
   // the tile's softmax and P·V, on its scores in cur, V's rows in vt
@@ -259,9 +276,10 @@ __device__ __forceinline__ void run(const Args& a) {
 
     // P V: k-step nt takes the keys key_of(nt, 0, t) (slot t) and
     // key_of(nt, 1, t) (slot t+4); a lane reads V's column g + 8nn of
-    // those rows, stored at g + 8 (nn ^ t/2).  Two chains of fresh
-    // accumulators (k-steps nt mod 2), summed and added to O in float32.
-    float pv[2][2][4] = {};
+    // those rows, stored at g + 8 (nn ^ t/2).  kChains chains of fresh
+    // accumulators (k-steps nt mod kChains), summed and added to O in
+    // float32.
+    float pv[kChains][kNN][4] = {};
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       const float p4[4] = {cur[nt][0], cur[nt][2], cur[nt][1], cur[nt][3]};
@@ -269,16 +287,20 @@ __device__ __forceinline__ void run(const Args& a) {
       tf32x3::split(p4, pb, ps);
       const float* vp = vt + key_of(nt, 0, t) * kVS + g;
 #pragma unroll
-      for (int nn = 0; nn < 2; ++nn) {
+      for (int nn = 0; nn < kNN; ++nn) {
         const int c = 8 * (nn ^ (t >> 1));
-        tf32x3::mma3(pv[nt & 1][nn], pb, ps, vp[c], vp[kVS + c]);
+        tf32x3::mma3(pv[nt % kChains][nn], pb, ps, vp[c], vp[kVS + c]);
       }
     }
 #pragma unroll
-    for (int nn = 0; nn < 2; ++nn)
+    for (int nn = 0; nn < kNN; ++nn)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        o[nn][e] = o[nn][e] * alpha[e >> 1] + (pv[0][nn][e] + pv[1][nn][e]);
+      for (int e = 0; e < 4; ++e) {
+        float sum = pv[0][nn][e];
+#pragma unroll
+        for (int ch = 1; ch < kChains; ++ch) sum += pv[ch][nn][e];
+        o[nn][e] = o[nn][e] * alpha[e >> 1] + sum;
+      }
   };
 
   // step k of the walk: the block's key tiles 2k and 2k + 1, the warp's
@@ -329,8 +351,8 @@ __device__ __forceinline__ void run(const Args& a) {
   // their max, sums and output fragments, warp 0 of the row tile merges
   // them into its own in the order of ks (m the larger max, each side
   // scaled by exp(m_side - m)) and writes the rows
-  float* xch = &vs[0][0] + (rt * 32 + lane) * 12;
-  constexpr int kXch = kRowTiles * 32 * 12;  // floats per split warp
+  float* xch = &vs[0][0] + (rt * 32 + lane) * S::kXch;
+  constexpr int kXch = kRowTiles * 32 * S::kXch;  // floats per split warp
   if (ks > 0) {
     float* mine = xch + (ks - 1) * kXch;
 #pragma unroll
@@ -339,7 +361,7 @@ __device__ __forceinline__ void run(const Args& a) {
       mine[2 + r] = l_run[r];
     }
 #pragma unroll
-    for (int nn = 0; nn < 2; ++nn)
+    for (int nn = 0; nn < kNN; ++nn)
 #pragma unroll
       for (int e = 0; e < 4; ++e) mine[4 + 4 * nn + e] = o[nn][e];
   }
@@ -358,7 +380,7 @@ __device__ __forceinline__ void run(const Args& a) {
       l_run[r] = l_run[r] * c0[r] + other[2 + r] * c1[r];
     }
 #pragma unroll
-    for (int nn = 0; nn < 2; ++nn)
+    for (int nn = 0; nn < kNN; ++nn)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         o[nn][e] = o[nn][e] * c0[e >> 1] + other[4 + 4 * nn + e] * c1[e >> 1];
@@ -372,7 +394,7 @@ __device__ __forceinline__ void run(const Args& a) {
     if (i < Lp) {
       float* dst = a.out + ((size_t)b * Lp + i) * F + h * D + 2 * t;
 #pragma unroll
-      for (int nn = 0; nn < 2; ++nn)
+      for (int nn = 0; nn < kNN; ++nn)
         *reinterpret_cast<float2*>(dst + 8 * nn) =
             make_float2(o[nn][2 * r] * inv, o[nn][2 * r + 1] * inv);
       if (TRAIN && t == 0) {
@@ -412,13 +434,18 @@ inline int split_for(int B, int H, int Lp, int per_sm) {
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
+  // (a block's rows do not depend on the head width)
+  using One = Shape<1, kBaseD>;
+  using Two = Shape<2, kBaseD>;
   const long long bh = (long long)H * B;
-  const long long one = (Lp + Shape<1>::kRows - 1) / Shape<1>::kRows * bh;
-  const long long two = (Lp + Shape<2>::kRows - 1) / Shape<2>::kRows * bh;
+  const long long one = (Lp + One::kRows - 1) / One::kRows * bh;
+  const long long two = (Lp + Two::kRows - 1) / Two::kRows * bh;
   return one <= sms && two <= (long long)per_sm * sms ? 2 : 1;
 }
 
-// The C entries' checks: Base's head width, and a grid that fits.
+// The C entries' checks: the instance's head width D, and a grid that
+// fits.
+template <int D>
 inline int check(int B, int H, int Lp, int F, int length) {
   if (H <= 0 || F % H != 0 || length < 1 || length > Lp || B > 65535 ||
       H > 65535)
@@ -427,17 +454,17 @@ inline int check(int B, int H, int Lp, int F, int length) {
   return 0;
 }
 
-// The C entries' launch: one or two (a kernel's SPLIT 1 and 2 instances)
-// as split_for picks, on its grid of (row blocks, H, B), with the
-// arguments of Args; row_max and row_sum null in eval.
-template <class Kernel>
+// The C entries' launch: one or two (a kernel's SPLIT 1 and 2 instances
+// at head width D) as split_for picks, on its grid of (row blocks, H, B),
+// with the arguments of Args; row_max and row_sum null in eval.
+template <int D, class Kernel>
 inline int launch(Kernel one, Kernel two, const void* scores,
                   const void* bias, const void* v, const void* lens,
                   void* out, void* row_max, void* row_sum, int B, int H,
                   int Lp, int F, int length, uint32_t seed_word,
                   uint32_t threshold, float keep_scale, void* stream) {
   if (B <= 0 || Lp <= 0) return 0;
-  if (int err = check(B, H, Lp, F, length)) return err;
+  if (int err = check<D>(B, H, Lp, F, length)) return err;
   const Args a{static_cast<const float*>(scores),
                static_cast<const float*>(bias), static_cast<const float*>(v),
                static_cast<const int*>(lens), static_cast<float*>(out),
@@ -445,7 +472,7 @@ inline int launch(Kernel one, Kernel two, const void* scores,
                H, Lp, F, length, seed_word, threshold, keep_scale};
   const int split =
       split_for(B, H, Lp, bias ? kMinBlocksBias : kMinBlocks);
-  const int rows = split == 2 ? Shape<2>::kRows : Shape<1>::kRows;
+  const int rows = split == 2 ? Shape<2, D>::kRows : Shape<1, D>::kRows;
   dim3 grid((Lp + rows - 1) / rows, H, B);
   const Kernel kernel = split == 2 ? two : one;
   kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);

@@ -63,6 +63,8 @@
 #include "mma_tf32x3.cuh"  // cp_async16, cp_async4 and their group helpers
 #include "softmax_pv_tile.cuh"
 
+using softmax_pv_tile::kBaseD;  // K9 and K9b: Base's head width
+
 namespace {
 
 constexpr int kThreads = 256;            // K10
@@ -76,7 +78,7 @@ __global__ void __launch_bounds__(softmax_pv_tile::kThreads,
                                   HAS_BIAS ? softmax_pv_tile::kMinBlocksBias
                                            : softmax_pv_tile::kMinBlocks)
 softmax_pv_train_fwd_kernel(softmax_pv_tile::Args a) {
-  softmax_pv_tile::run<SPLIT, HAS_BIAS, true>(a);
+  softmax_pv_tile::run<kBaseD, SPLIT, HAS_BIAS, true>(a);
 }
 
 // K10's stage of the ring: kStageRows query rows of one (b, h) against the
@@ -368,11 +370,11 @@ extern "C" int sep_softmax_pv_train_fwd_f32(
     void* row_max, void* row_sum, int B, int H, int Lp, int F, int length,
     unsigned int seed_word, unsigned int threshold, float keep_scale,
     void* stream) {
-  return softmax_pv_tile::launch(softmax_pv_train_fwd_kernel<1, false>,
-                                 softmax_pv_train_fwd_kernel<2, false>,
-                                 scores, nullptr, v, lens, out, row_max,
-                                 row_sum, B, H, Lp, F, length, seed_word,
-                                 threshold, keep_scale, stream);
+  return softmax_pv_tile::launch<kBaseD>(
+      softmax_pv_train_fwd_kernel<1, false>,
+      softmax_pv_train_fwd_kernel<2, false>, scores, nullptr, v, lens, out,
+      row_max, row_sum, B, H, Lp, F, length, seed_word, threshold,
+      keep_scale, stream);
 }
 
 // K9b: the same on scores + bias, bias a second [B, H, Lp, Lp] tensor.
@@ -381,11 +383,11 @@ extern "C" int sep_softmax_pv_train_fwd_bias_f32(
     void* out, void* row_max, void* row_sum, int B, int H, int Lp, int F,
     int length, unsigned int seed_word, unsigned int threshold,
     float keep_scale, void* stream) {
-  return softmax_pv_tile::launch(softmax_pv_train_fwd_kernel<1, true>,
-                                 softmax_pv_train_fwd_kernel<2, true>, scores,
-                                 bias, v, lens, out, row_max, row_sum, B, H,
-                                 Lp, F, length, seed_word, threshold,
-                                 keep_scale, stream);
+  return softmax_pv_tile::launch<kBaseD>(
+      softmax_pv_train_fwd_kernel<1, true>,
+      softmax_pv_train_fwd_kernel<2, true>, scores, bias, v, lens, out,
+      row_max, row_sum, B, H, Lp, F, length, seed_word, threshold,
+      keep_scale, stream);
 }
 
 // The forward's inputs, its out, row_max and row_sum, and dout [B, Lp, F];
@@ -397,7 +399,8 @@ extern "C" int sep_softmax_pv_train_bwd_f32(
     unsigned int seed_word, unsigned int threshold, float keep_scale,
     void* stream) {
   if (B <= 0 || Lp <= 0) return 0;
-  if (int err = softmax_pv_tile::check(B, H, Lp, F, length)) return err;
+  if (int err = softmax_pv_tile::check<kBaseD>(B, H, Lp, F, length))
+    return err;
   return launch_bwd<16, false>(
       static_cast<const float*>(scores), nullptr,
       static_cast<const float*>(v), static_cast<const float*>(out),
@@ -416,7 +419,8 @@ extern "C" int sep_softmax_pv_train_bwd_bias_f32(
     int length, unsigned int seed_word, unsigned int threshold,
     float keep_scale, void* stream) {
   if (B <= 0 || Lp <= 0) return 0;
-  if (int err = softmax_pv_tile::check(B, H, Lp, F, length)) return err;
+  if (int err = softmax_pv_tile::check<kBaseD>(B, H, Lp, F, length))
+    return err;
   return launch_bwd<16, true>(
       static_cast<const float*>(scores), static_cast<const float*>(bias),
       static_cast<const float*>(v), static_cast<const float*>(out),

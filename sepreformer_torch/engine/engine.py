@@ -177,10 +177,10 @@ class Engine:
             if self.cfg.engine.mvn:
                 mix = apply_cmvn(mix, batch.input_sizes)
             with torch.inference_mode():
-                audio, _ = model(
+                audio = model(
                     torch.from_numpy(mix).to(self.device),
                     lengths=torch.as_tensor(np.asarray(batch.input_sizes),
-                                            device=self.device))
+                                            device=self.device), aux=False)
             audio = audio.cpu().numpy()
             for j in range(batch.batch_size):
                 t = int(batch.input_sizes[j])
@@ -239,8 +239,8 @@ class Engine:
 
         def forward(batch: np.ndarray) -> np.ndarray:   # -> [spks, N, T]
             with torch.inference_mode():
-                audio, _ = self.state.model(
-                    torch.from_numpy(batch).to(self.device))
+                audio = self.state.model(
+                    torch.from_numpy(batch).to(self.device), aux=False)
             return audio.cpu().numpy()
 
         def full_context(wav: np.ndarray) -> np.ndarray:

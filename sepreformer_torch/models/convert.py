@@ -167,7 +167,13 @@ def mapping_entries(cfg: ModelConfig) -> List[Entry]:
                    down=True)
     _enc_stage(out, sep + ("bottleneck",), "separator.bottleneck_G",
                down=False)
-    _spk_split(out, sep + ("spk_split",), "separator.spk_split_block")
+    if cfg.per_stage_spk_split:
+        # Large_DM_WHAM: num_stages + 1 independent blocks
+        for s in range(cfg.num_stages + 1):
+            _spk_split(out, sep + (f"spk_split_{s}",),
+                       f"separator.spk_split_block.{s}")
+    else:
+        _spk_split(out, sep + ("spk_split",), "separator.spk_split_block")
     for s in range(cfg.num_stages):
         _conv1x1(out, sep + (f"fusion_{s}",), f"separator.simple_fusion.{s}")
         _dec_stage(out, sep + (f"dec_{s}",), f"separator.dec_stages.{s}")

@@ -19,7 +19,7 @@ true length.  Module names follow the reference state_dict.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -177,9 +177,17 @@ class Separator(nn.Module):
         self.enc_stages = nn.ModuleList(
             [SepEncStage(cfg, down_conv=True) for _ in range(r)])
         self.bottleneck_G = SepEncStage(cfg, down_conv=False)
-        # one split block, shared by every stage
-        self.spk_split_block = SpkSplitStage(cfg.feat_dim, cfg.num_spks,
-                                             cfg.group_norm_eps)
+
+        def spk_split():
+            return SpkSplitStage(cfg.feat_dim, cfg.num_spks,
+                                 cfg.group_norm_eps)
+
+        # one split block shared by every stage, or (Large_DM_WHAM's
+        # reference, its module.py:181-184) one per encoder stage and one
+        # for the bottleneck
+        self.spk_split_block = (
+            nn.ModuleList([spk_split() for _ in range(r + 1)])
+            if cfg.per_stage_spk_split else spk_split())
         self.simple_fusion = nn.ModuleList(
             [Conv1x1(2 * cfg.feat_dim, cfg.feat_dim) for _ in range(r)])
         self.dec_stages = nn.ModuleList([SepDecStage(cfg) for _ in range(r)])
@@ -203,12 +211,16 @@ class Separator(nn.Module):
             lens = t1 // 2 ** scale
             return torch.repeat_interleave(lens, cfg.num_spks) if spk else lens
 
+        def split(s: int):
+            return (self.spk_split_block[s] if cfg.per_stage_spk_split
+                    else self.spk_split_block)
+
         skips = []
         for s in range(r):
             x, skip = self.enc_stages[s](x, pos, lens_at(s), train)
-            skips.append(self.spk_split_block(skip, lens_at(s)))
+            skips.append(split(s)(skip, lens_at(s)))
         x, _ = self.bottleneck_G(x, pos, lens_at(r), train)
-        x = self.spk_split_block(x, lens_at(r))
+        x = split(r)(x, lens_at(r))
 
         stage_outputs = []
         for s in range(r):
@@ -262,13 +274,16 @@ class AudioDecoder(nn.Module):
 class SepReformer(nn.Module):
     """Full model with per-stage aux heads (reference model.py:13-52).
 
-    ``forward(x, lengths=None, train=None)`` with x [B, T] (T %
+    ``forward(x, lengths=None, train=None, aux=True)`` with x [B, T] (T %
     enc_stride == 0) returns (audio [spks, B, T], aux [num_stages, spks,
     B, T]), coarsest stage first.  The aux heads are not length-masked:
-    they feed only the training losses.  ``train``, a ``TrainMode``,
-    makes it the train forward (the JAX package's ``train=True``):
-    dropout, and BatchNorm on batch statistics with a running update.
-    ``nn.Module.train()`` does not select it.
+    they feed only the training losses.  With ``aux=False`` it returns
+    ``audio`` alone and runs no aux head (the serving forward, as the JAX
+    package's ``make_forward_fn`` lets XLA drop them); ``audio`` is the
+    same bits either way.  ``train``, a ``TrainMode``, makes it the train
+    forward (the JAX package's ``train=True``): dropout, and BatchNorm on
+    batch statistics with a running update.  ``nn.Module.train()`` does
+    not select it.
     """
 
     def __init__(self, cfg: ModelConfig):
@@ -285,8 +300,8 @@ class SepReformer(nn.Module):
         self.decoder_bn = nn.ModuleList([AudioDecoder(cfg) for _ in range(r)])
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
-                train: Optional[TrainMode] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                train: Optional[TrainMode] = None, aux: bool = True
+                ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         cfg = self.cfg
         t_samples = x.shape[-1]
         enc = self.audio_encoder(x.float())
@@ -308,14 +323,16 @@ class SepReformer(nn.Module):
             out = out * enc_mask[None]
         audio = torch.stack([self.audio_decoder(out[i])[..., :t_samples]
                              for i in range(cfg.num_spks)])
+        if not aux:
+            return audio
         t_enc = enc.shape[1]
-        aux: List[torch.Tensor] = []
+        heads: List[torch.Tensor] = []
         for idx, so in enumerate(stage_outs):
             o = self.out_layer_bn[idx](nearest_upsample_time(so, t_enc), enc)
-            aux.append(torch.stack(
+            heads.append(torch.stack(
                 [self.decoder_bn[idx](o[j])[..., :t_samples]
                  for j in range(cfg.num_spks)]))
-        return audio, torch.stack(aux)
+        return audio, torch.stack(heads)
 
 
 def init_weights(model: SepReformer, generator: torch.Generator) -> None:

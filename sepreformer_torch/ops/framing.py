@@ -31,11 +31,19 @@ def encoder_conv(x: torch.Tensor, weight: torch.Tensor,
 def decoder_overlap_add(h: torch.Tensor, weight: torch.Tensor,
                         stride: int) -> torch.Tensor:
     """h [B, T', N], weight [N, K] -> [B, (T'-1)*stride + K], identical to
-    ConvTranspose1d(N, 1, K, stride, bias=False)."""
+    ConvTranspose1d(N, 1, K, stride, bias=False), as the JAX package's
+    ``decoder_overlap_add`` computes it: one product to the frames, then
+    their overlap-add (``F.fold``, which sums each output sample's K /
+    stride frames in a fixed order).  On the card it gives the same bits
+    on every call; cuDNN's transposed convolution did not (two calls of a
+    Base forward differed in the last bit of the audio)."""
     kernel = weight.shape[1]
     if kernel % stride != 0:
         raise ValueError(
             f"kernel {kernel} must be a multiple of stride {stride}")
-    out = F.conv_transpose1d(h.transpose(1, 2), weight[:, None, :],
-                             stride=stride)
-    return out[:, 0]
+    b, t_frames, _ = h.shape
+    frames = torch.matmul(h, weight)                    # [B, T', K]
+    out = F.fold(frames.transpose(1, 2),
+                 output_size=(1, (t_frames - 1) * stride + kernel),
+                 kernel_size=(1, kernel), stride=(1, stride))
+    return out[:, 0, 0]

@@ -75,8 +75,8 @@ SIGNATURES = {
                                                              _F, _P],
     # B, T, F -> floats of K8's scratch
     "sep_gcfn_train_bwd_scratch_floats": [_I, _I, _I],
-    # q, k, v, table, lens, out, B, L, H, maxlen, stream
-    "sep_flash_relpos_f32": [_P] * 6 + [_I] * 4 + [_P],
+    # q, k, v, table, lens, out, B, L, H, D, maxlen, stream
+    "sep_flash_relpos_f32": [_P] * 6 + [_I] * 5 + [_P],
     # x, dy, dw, db, partial, partial_floats, B, T, C, K, stream
     "sep_depthwise_bwd_w_f32": [_P] * 5 + [_L] + [_I] * 4 + [_P],
     # q, k, v, table, lens, out, row_max, row_sum, BH, L, H, maxlen, block,
@@ -104,9 +104,10 @@ SIGNATURES = {
     "sep_cla_blocks_per_sm": [_P],
     # int* blocks -> K10's (and K10b's) blocks per SM
     "sep_softmax_pv_train_bwd_blocks_per_sm": [_P],
-    # int out[16] -> K3's and K3b's (K9's and K9b's) blocks per SM,
-    # registers, local bytes, warps, at SPLIT 1 and 2
+    # int out[24] -> K3's and K3b's blocks per SM, registers, local bytes,
+    # warps, at SPLIT 1 and 2, then K3's at head width 32
     "sep_softmax_pv_occupancy": [_P],
+    # int out[16] -> the same of K9 and K9b
     "sep_softmax_pv_train_fwd_occupancy": [_P],
     # B, T, C, K, with_dx -> floats of K5's (K6's) scratch
     "sep_depthwise_bwd_partial_floats": [_I] * 5,
@@ -181,6 +182,29 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib
+
+
+# The ROADMAP items, by title, that build the widths a kernel is not built
+# for: Large's (F 256, head width 32) train kernels, the T/S/M presets'
+# widths (F 64, 96, 160; head widths 8, 12, 20), and the fused eval
+# blocks at Large's width.
+LARGE_TRAINING = "ROADMAP.md queue A, Large training"
+OTHER_PRESETS = "ROADMAP.md queue A, T/S/M"
+FUSED_WIDTHS = "ROADMAP.md queue B, other widths"
+
+
+def train_todo(value: int, large: int) -> str:
+    """The ROADMAP item that builds a train kernel at width ``value``:
+    "Large training" for Large's width ``large``, else the T/S/M item."""
+    return LARGE_TRAINING if value == large else OTHER_PRESETS
+
+
+def check_width(name: str, what: str, value: int, built, todo: str) -> None:
+    """Raise unless ``value`` (a width or head width) is one the kernel is
+    built for; the error names the ROADMAP item ``todo`` that builds it."""
+    if value not in built:
+        raise ValueError(f"{name}: {what} {value} not in {tuple(built)} "
+                         f"(not built yet: {todo})")
 
 
 def check_launch(name: str, err: int) -> None:

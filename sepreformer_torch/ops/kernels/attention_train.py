@@ -31,11 +31,8 @@ from sepreformer_torch.ops.kernels.hash_dropout import (
     seed_word,
     threshold,
 )
-from sepreformer_torch.ops.kernels.softmax_pv import (
-    NEG_INF,
-    SUPPORTED_HEAD_DIMS,
-    _key_lens,
-)
+from sepreformer_torch.ops.kernels.softmax_pv import NEG_INF, _key_lens
+from sepreformer_torch.ops.kernels.softmax_pv_train import TRAIN_HEAD_DIMS
 
 MAX_LENGTH = 512   # the JAX kernel is single-block: one [L, L] tile
 BLOCK = 128
@@ -132,9 +129,8 @@ def attention_train_bwd_plain(q, k, v, table, maxlen, seed, p, lens, dout
 
 def _check(q, k, v, table, maxlen):
     b, h, length, d = q.shape
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash_relpos_attention_train: head dim {d} not "
-                         f"in {SUPPORTED_HEAD_DIMS}")
+    _build.check_width("flash_relpos_attention_train", "head dim", d,
+                       TRAIN_HEAD_DIMS, _build.train_todo(d, 32))
     if table.shape != (2 * maxlen, d):
         raise ValueError(f"flash_relpos_attention_train: table "
                          f"{tuple(table.shape)} != ({2 * maxlen}, {d})")

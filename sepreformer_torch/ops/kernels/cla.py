@@ -60,8 +60,8 @@ def check_params(name: str, x: torch.Tensor,
     ``weight[:, 0, :].t()`` is); the three products' weights 16-byte
     aligned, since the kernel stages them in 16-byte copies."""
     b, t, f = x.shape
-    if f not in SUPPORTED_WIDTHS:
-        raise ValueError(f"{name}: width {f} not in {SUPPORTED_WIDTHS}")
+    _build.check_width(name, "width", f, SUPPORTED_WIDTHS,
+                       _build.FUSED_WIDTHS)
     k = params[4].shape[0]
     if k != KERNEL_SIZE:
         raise ValueError(f"{name}: depthwise kernel {k}, the kernel is "

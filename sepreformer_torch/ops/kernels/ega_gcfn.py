@@ -23,6 +23,9 @@ from sepreformer_torch.ops.kernels._autograd import with_plain_grad
 from sepreformer_torch.ops.kernels.gcfn import check_params, gcfn_plain
 from sepreformer_torch.ops.resample import nearest_upsample_time
 
+# K16's instance: Base's F = 128
+PAIR_WIDTHS = (128,)
+
 
 def ega_tail_gcfn_plain(x: torch.Tensor, x_down: torch.Tensor,
                         gate_params: Sequence[torch.Tensor],
@@ -52,7 +55,7 @@ def pair_kernel(x: torch.Tensor, x_down: torch.Tensor,
     if t % length:
         raise ValueError(f"{name}: T {t} is not a multiple of the "
                          f"bottleneck length {length}")
-    check_params(name, x, gcfn_params)
+    check_params(name, x, gcfn_params, PAIR_WIDTHS, _build.FUSED_WIDTHS)
     _build.check_tensor(x_down, f"{name} x_down", (b, length, f), x.device)
     for pname, a, shape in zip(("gns", "gnb", "wg", "bg"), gate_params,
                                ((f,), (f,), (f, f), (f,))):

@@ -23,7 +23,8 @@ from sepreformer_torch.ops.kernels import _build
 from sepreformer_torch.ops.kernels._autograd import with_plain_grad
 from sepreformer_torch.ops.kernels.softmax_pv import NEG_INF, _key_lens
 
-SUPPORTED_HEAD_DIMS = (16,)
+# K12's instances: Base's head width 16 and Large's 32
+SUPPORTED_HEAD_DIMS = (16, 32)
 PLAIN_QUERY_BLOCK = 1024
 
 
@@ -74,7 +75,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = _build.library().sep_flash_relpos_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
         key_len.data_ptr(), out.data_ptr(), b, length, f // table.shape[1],
-        maxlen, _build.stream_handle(q.device))
+        table.shape[1], maxlen, _build.stream_handle(q.device))
     _build.check_launch("sep_flash_relpos_f32", err)
     flash_relpos_attention.launches += 1
     return out
@@ -103,9 +104,11 @@ def flash_relpos_attention(q: torch.Tensor, k: torch.Tensor,
         return flash_relpos_attention_plain(q, k, v, table, maxlen, lens)
     b, length, f = q.shape
     n, d = table.shape
-    if d not in SUPPORTED_HEAD_DIMS or f % d:
-        raise ValueError(f"flash_relpos_attention: head dim {d} of width "
-                         f"{f} not in {SUPPORTED_HEAD_DIMS}")
+    if f % d:
+        raise ValueError(f"flash_relpos_attention: width {f} is not a "
+                         f"multiple of the head dim {d}")
+    _build.check_width("flash_relpos_attention", "head dim", d,
+                       SUPPORTED_HEAD_DIMS, _build.OTHER_PRESETS)
     if n != 2 * maxlen:
         raise ValueError(
             f"flash_relpos_attention: table rows {n} != 2*{maxlen}")

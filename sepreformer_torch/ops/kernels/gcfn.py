@@ -16,7 +16,8 @@ import torch
 from sepreformer_torch.ops.kernels import _build
 from sepreformer_torch.ops.kernels._autograd import with_plain_grad
 
-SUPPORTED_WIDTHS = (128,)
+# K1's instances: Base's F = 128 and Large's F = 256
+SUPPORTED_WIDTHS = (128, 256)
 MAX_BLOCK = 512
 MIN_BLOCK = 64
 
@@ -74,13 +75,16 @@ def gcfn_plain(x: torch.Tensor, params: Sequence[torch.Tensor], eps: float,
 
 
 def check_params(name: str, x: torch.Tensor,
-                 params: Sequence[torch.Tensor]) -> None:
+                 params: Sequence[torch.Tensor],
+                 widths: Sequence[int] = SUPPORTED_WIDTHS,
+                 todo: str = _build.OTHER_PRESETS) -> None:
     """Raise unless x [B, T, F] and ``params`` (``gcfn_plain``'s) are
-    contiguous float32 CUDA tensors at a width the kernels are built for."""
+    contiguous float32 CUDA tensors at a width in ``widths``, the widths
+    the calling kernel is built for (K1's by default); the width error
+    names the ROADMAP item ``todo``."""
     b, t, f = x.shape
     hidden = 6 * f
-    if f not in SUPPORTED_WIDTHS:
-        raise ValueError(f"{name}: width {f} not in {SUPPORTED_WIDTHS}")
+    _build.check_width(name, "width", f, widths, todo)
     shapes = [(f,), (f,), (f, hidden), (hidden,), (hidden, 3), (hidden,),
               (hidden // 2, f), (f,), (f,)]
     _build.check_tensor(x, f"{name} x", (b, t, f), x.device)

@@ -61,6 +61,11 @@ def gcfn_train_bwd_plain(x, params, eps, seed, p, dout
     return grads[0], tuple(grads[1:])
 
 
+# K7's and K8's instance: Base's F = 128 (Large's 256 is the ROADMAP item
+# "Large training")
+TRAIN_WIDTHS = (128,)
+
+
 def _hash_args(seed, p):
     return (seed_word(seed, 0), seed_word(seed, 1),
             threshold(p) if p > 0.0 else 0, 1.0 / (1.0 - p))
@@ -68,7 +73,8 @@ def _hash_args(seed, p):
 
 def gcfn_train_fwd(x, params, eps, seed, p) -> torch.Tensor:
     """K7 on CUDA tensors: ``gcfn_train_plain``'s output."""
-    check_params("gcfn_train_fwd", x, params)
+    check_params("gcfn_train_fwd", x, params, TRAIN_WIDTHS,
+                 _build.train_todo(x.shape[-1], 256))
     b, t, f = x.shape
     out = torch.empty_like(x)
     err = _build.library().sep_gcfn_train_fwd_f32(
@@ -84,7 +90,8 @@ def gcfn_train_bwd(x, params, eps, seed, p, dout
     """K8 on CUDA tensors: (dx, the nine parameter gradients in the shapes
     of ``params``), deterministic: the row pass, the weight products and
     the ordered reductions of their partials, with no atomics."""
-    check_params("gcfn_train_bwd", x, params)
+    check_params("gcfn_train_bwd", x, params, TRAIN_WIDTHS,
+                 _build.train_todo(x.shape[-1], 256))
     b, t, f = x.shape
     _build.check_tensor(dout, "gcfn_train_bwd dout", (b, t, f), x.device)
     h6, h3 = 6 * f, 3 * f
@@ -132,7 +139,8 @@ def fused_gcfn_train(x: torch.Tensor, params: Sequence[torch.Tensor],
     """The train GCFN with a gradient: x [B, T, F] float32, ``params`` as
     ``gcfn_plain``'s, the int hash ``seed``, the drop rate ``p``.  CPU
     tensors take ``gcfn_train_plain`` and its autograd; CUDA tensors
-    launch K7, and K8 in the backward (F=128 only; other widths raise)."""
+    launch K7, and K8 in the backward (F=128 only; other widths raise,
+    naming the ROADMAP item that builds them)."""
     if x.device.type == "cpu":
         return gcfn_train_plain(x, params, eps, seed, p)
     return _GcfnTrain.apply(x, float(eps), int(seed), float(p), *params)

@@ -19,7 +19,9 @@ from sepreformer_torch.ops.kernels import _build
 from sepreformer_torch.ops.kernels._autograd import with_plain_grad
 
 NEG_INF = -1.0e30
-SUPPORTED_HEAD_DIMS = (16,)
+# K3's instances: Base's head width 16 and Large's 32 (K3b: Base's)
+SUPPORTED_HEAD_DIMS = (16, 32)
+BIAS_HEAD_DIMS = (16,)
 
 
 def _key_lens(b: int, length: int, lens: Optional[torch.Tensor],
@@ -108,9 +110,15 @@ def softmax_pv(scores: torch.Tensor, v: torch.Tensor,
     b, h, lp, _ = scores.shape
     f = v.shape[-1]
     length = lp if length is None else int(length)
-    if f % h or f // h not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(
-            f"softmax_pv: head dim {f}/{h} not in {SUPPORTED_HEAD_DIMS}")
+    if f % h:
+        raise ValueError(f"softmax_pv: width {f} is not a multiple of the "
+                         f"{h} heads")
+    if bias is None:
+        _build.check_width("softmax_pv", "head dim", f // h,
+                           SUPPORTED_HEAD_DIMS, _build.OTHER_PRESETS)
+    else:
+        _build.check_width("softmax_pv (bias=)", "head dim", f // h,
+                           BIAS_HEAD_DIMS, _build.FUSED_WIDTHS)
     if not 1 <= length <= lp:
         raise ValueError(f"softmax_pv: length {length} outside [1, {lp}]")
     _build.check_tensor(scores, "softmax_pv scores", (b, h, lp, lp),
@@ -125,23 +133,27 @@ def softmax_pv(scores: torch.Tensor, v: torch.Tensor,
     return _with_grad(_launch, scores, v, key_len, length, bias)
 
 
-def tile_occupancy(entry: str, form: str) -> Dict[str, Dict[str, int]]:
+def tile_occupancy(entry: str, form: str, wide: bool = False
+                   ) -> Dict[str, Dict[str, int]]:
     """Blocks per SM, registers, local (spill) bytes and warps per block of
-    the four kernels that ``entry`` reports (csrc/softmax_pv_tile.cuh's
-    ``occupancy``: ``form`` at SPLIT 1 and 2, then its bias form), on the
-    current card."""
-    out = (ctypes.c_int * 16)()
+    the kernels that ``entry`` reports (csrc/softmax_pv_tile.cuh's
+    ``occupancy``: ``form`` at SPLIT 1 and 2, then its bias form, and with
+    ``wide`` then ``form`` at head width 32), on the current card."""
+    names = [f"{form}{b} split {s}" for b in ("", "b") for s in (1, 2)]
+    if wide:
+        names += [f"{form} d=32 split {s}" for s in (1, 2)]
+    out = (ctypes.c_int * (4 * len(names)))()
     _build.check_launch(entry, getattr(_build.library(), entry)(
         ctypes.addressof(out)))
     keys = ("blocks_per_sm", "registers", "local_bytes", "warps")
-    names = [f"{form}{b} split {s}" for b in ("", "b") for s in (1, 2)]
     return {name: dict(zip(keys, out[4 * i:4 * i + 4]))
             for i, name in enumerate(names)}
 
 
 def occupancy() -> Dict[str, Dict[str, int]]:
-    """K3's and K3b's launches on the current card."""
-    return tile_occupancy("sep_softmax_pv_occupancy", "K3")
+    """K3's (at head widths 16 and 32) and K3b's launches on the current
+    card."""
+    return tile_occupancy("sep_softmax_pv_occupancy", "K3", wide=True)
 
 
 softmax_pv.launches = 0

@@ -27,12 +27,14 @@ from sepreformer_torch.ops.kernels.hash_dropout import (
 )
 from sepreformer_torch.ops.kernels.softmax_pv import (
     NEG_INF,
-    SUPPORTED_HEAD_DIMS,
     _key_lens,
     tile_occupancy,
 )
 
 MAX_LENGTH = 512   # the JAX package's train kernel's padded-length limit
+# the train attention kernels' instance (K9/K10 and K13/K14): Base's head
+# width 16 (Large's 32 is the ROADMAP item "Large training")
+TRAIN_HEAD_DIMS = (16,)
 
 
 def _drop_scale(seed: int, b: int, h: int, lp: int, p: float,
@@ -106,9 +108,11 @@ def softmax_pv_dropout_bwd_plain(scores, v, seed, lens, length, p, dout,
 def _check(scores, v, length, bias=None):
     b, h, lp, _ = scores.shape
     f = v.shape[-1]
-    if f % h or f // h not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"softmax_pv_dropout: head dim {f}/{h} not in "
-                         f"{SUPPORTED_HEAD_DIMS}")
+    if f % h:
+        raise ValueError(f"softmax_pv_dropout: width {f} is not a multiple "
+                         f"of the {h} heads")
+    _build.check_width("softmax_pv_dropout", "head dim", f // h,
+                       TRAIN_HEAD_DIMS, _build.train_todo(f // h, 32))
     if not 1 <= length <= lp:
         raise ValueError(f"softmax_pv_dropout: length {length} outside "
                          f"[1, {lp}]")

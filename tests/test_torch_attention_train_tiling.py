@@ -58,7 +58,7 @@ def constant(source, name):
     return int(re.search(rf"constexpr int {name} = (\d+)", source).group(1))
 
 
-D, ROW_TILES = constant(TILE, "D"), constant(TILE, "kRowTiles")
+D, ROW_TILES = constant(TILE, "kBaseD"), constant(TILE, "kRowTiles")
 KEYS, WARP_BAND = constant(TILE, "kKeys"), constant(TILE, "kWarpBand")
 LOG2E = np.float32(1.4426950408889634)
 LN2 = np.float32(0.6931471805599453)

@@ -113,11 +113,13 @@ def test_relpos_kernel_matches_plain(cuda_device):
 # K2's tiles are 32 rows by 32 columns: t 37 (t % 4 == 1, 4-byte stores)
 # ends five rows into a second tile, 500 and 512 are the route's lengths
 # before and after its padding, 1024 that of the 8 s chunks; maxlen 200
-# makes both clips act; d 20 spans two table-column slices
+# makes both clips act; d 20 spans two table-column slices, d 32 (Large's
+# head width, [512, 32, 512] from a [4000, 32] table) two whole ones
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,maxlen,d", [(37, 10, 16), (500, 200, 16),
                                         (512, 200, 16), (1024, 200, 16),
-                                        (512, 200, 20)])
+                                        (512, 200, 20), (512, 2000, 32),
+                                        (37, 10, 32)])
 def test_relpos_kernel_tilings_match_plain(cuda_device, t, maxlen, d):
     gen = torch.Generator().manual_seed(t + d)
     table = torch.randn(2 * maxlen, d, generator=gen).to(cuda_device)
@@ -902,3 +904,134 @@ def test_fused_block_gradients_on_the_card(cuda_device):
             grads.append([a.grad for a in leaves])
         for g, r in zip(*grads):
             assert (g - r).abs().max() <= 1e-4 * r.abs().max(), name
+
+
+# ---------------------------------------------------------------- Large
+# The instances at Large's widths: K1 at F 256 (one block per SM), K3 and
+# K12 at head width 32, each against its plain version and bit-equal on a
+# repeat call; and the Base instances of K1, K3, K9, K12 and K13 against
+# the SHA-1 of their outputs on fixed-seed inputs, as the tree before the
+# Large instances gave them on an H100 (``base_digests``).
+
+@pytest.mark.cuda
+# the shapes of test_gcfn_kernel_matches_plain, and Large's widest GCFN of
+# a B=4 x 4 s batch
+@pytest.mark.parametrize("b,t,masked", [(2, 500, True), (3, 77, False),
+                                        (4, 8000, True), (2, 63, False),
+                                        (2, 125, True), (1, 20, (13,)),
+                                        (4, 200, (93, 62, 124, 63))])
+def test_gcfn_kernel_f256_matches_plain(cuda_device, b, t, masked):
+    gen = torch.Generator().manual_seed(t + 256)
+    x = torch.randn(b, t, 256, generator=gen).to(cuda_device)
+    params = gcfn_params(gen, 256, cuda_device)
+    lens = None
+    if masked is True:
+        lens = torch.tensor([t, max(1, t // 3)] + [t] * (b - 2),
+                            device=cuda_device)
+    elif masked:
+        lens = torch.tensor(masked, device=cuda_device)
+    before = fused_gcfn.launches
+    got = fused_gcfn(x, params, 1e-5, lens)
+    again = fused_gcfn(x, params, 1e-5, lens)
+    torch.cuda.synchronize()
+    assert fused_gcfn.launches == before + 2
+    torch.testing.assert_close(got, gcfn_plain(x, params, 1e-5, lens),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,lp,length,lens", SOFTMAX_PV_SHAPES)
+def test_softmax_pv_kernel_d32_matches_plain(cuda_device, b, h, lp, length,
+                                             lens):
+    scores, _, _, lens = softmax_pv_case(cuda_device, b, h, lp, length,
+                                         lens, seed=32)
+    gen = torch.Generator().manual_seed(lp)
+    v = torch.randn(b, lp, h * 32, generator=gen).to(cuda_device)
+    before = softmax_pv.launches
+    got = softmax_pv(scores, v, lens, length)
+    again = softmax_pv(scores, v, lens, length)
+    torch.cuda.synchronize()
+    assert softmax_pv.launches == before + 2
+    torch.testing.assert_close(got, softmax_pv_plain(scores, v, lens, length),
+                               **CARD_TOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+# the cases of test_flash_kernel_matches_plain at head width 32
+@pytest.mark.parametrize("b,length,maxlen,lens", [
+    (3, 77, 64, (77, 30, 1)), (2, 300, 64, None), (2, 300, 64, (300, 131)),
+    (2, 8750, 2000, (8750, 7000)), (2, 300, 512, (300, 200)),
+    (2, 1000, 100, (1000, 517)), (3, 300, 64, (256, 257, 64)),
+    (2, 129, 2000, (128, 129))])
+def test_flash_kernel_d32_matches_plain(cuda_device, b, length, maxlen,
+                                        lens):
+    h, d = 8, 32
+    gen = torch.Generator().manual_seed(length + d)
+    q, k, v = (torch.randn(b, length, h * d, generator=gen).to(cuda_device)
+               for _ in range(3))
+    table = torch.randn(2 * maxlen, d, generator=gen).to(cuda_device)
+    tl = None if lens is None else torch.tensor(lens, device=cuda_device)
+    ref = flash_relpos_attention_plain(q, k, v, table, maxlen, tl)
+    before = flash_relpos_attention.launches
+    got = flash_relpos_attention(q, k, v, table, maxlen, tl)
+    again = flash_relpos_attention(q, k, v, table, maxlen, tl)
+    torch.cuda.synchronize()
+    assert flash_relpos_attention.launches == before + 2
+    torch.testing.assert_close(got, ref, **CARD_TOL)
+    assert torch.equal(got, again)
+
+
+def base_digests(device):
+    """SHA-1 of the outputs of the Base instances of K1, K3, K9, K12 and
+    K13 on inputs drawn from fixed CPU seeds."""
+    import hashlib
+
+    def sha(t):
+        torch.cuda.synchronize()
+        return hashlib.sha1(t.cpu().numpy().tobytes()).hexdigest()
+
+    gen = torch.Generator().manual_seed(2024)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(device)
+
+    x = randn(2, 500, 128)
+    params = gcfn_params(gen, 128, device)
+    scores, v = randn(4, 8, 512, 512, scale=3.0), randn(4, 512, 128)
+    lens = torch.tensor([500, 438, 313, 1], device=device)
+    full = torch.full((4,), 500, dtype=torch.int32, device=device)
+    q, k, vv = randn(2, 2000, 128), randn(2, 2000, 128), randn(2, 2000, 128)
+    table = randn(4000, 16)
+    qh, kh, vh = randn(4, 8, 500, 16), randn(4, 8, 500, 16), randn(4, 8, 500,
+                                                                  16)
+    with torch.no_grad():
+        return {
+            "K1": sha(fused_gcfn(x, params, 1e-5,
+                                 torch.tensor([500, 321], device=device))),
+            "K3": sha(softmax_pv(scores, v, lens, 500)),
+            "K9": sha(torch.cat([a.flatten() for a in softmax_pv_train_fwd(
+                scores, v, 1234, full, 500, 0.05)])),
+            "K12": sha(flash_relpos_attention(
+                q, k, vv, table, 2000, torch.tensor([2000, 1500],
+                                                    device=device))),
+            "K13": sha(torch.cat([a.flatten() for a in attention_train_fwd(
+                qh, kh, vh, table, 2000, 4321, 0.05, full)])),
+        }
+
+
+# base_digests on an H100 80GB HBM3 with the kernels of the tree before
+# the Large instances (5a5dd13)
+BASE_DIGESTS = {
+    "K1": "e21e7e336d1ac95e22863f016c23a600d9edfdd4",
+    "K3": "db2d328a28c02de0b04b0d146050158f76028b30",
+    "K9": "55387d40c5cd50b24d2add365b24df22fb73c6f5",
+    "K12": "fbc42492ea022fe8e9647013609dcfaca0c51055",
+    "K13": "4a44c20dcf55254a7bc1ec83ea067b410b15c16c",
+}
+
+
+@pytest.mark.cuda
+def test_base_instances_keep_their_bits(cuda_device):
+    assert base_digests(cuda_device) == BASE_DIGESTS

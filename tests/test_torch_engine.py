@@ -287,8 +287,10 @@ def test_apply_override_matches_jax():
 
 def test_list_models(capsys):
     assert cli.main(["--list-models"]) == 0
-    assert capsys.readouterr().out.split() == ["SepReformer_Base_WSJ0",
-                                               "tiny"]
+    assert capsys.readouterr().out.split() == [
+        "SepReformer_Base_Libri2Mix", "SepReformer_Base_WSJ0",
+        "SepReformer_L", "SepReformer_Large_DM_WHAM",
+        "SepReformer_Large_DM_WHAMR", "SepReformer_Large_DM_WSJ0", "tiny"]
 
 
 @pytest.mark.parametrize("flag", [["--engine-mode", "infer_sample"],

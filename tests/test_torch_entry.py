@@ -67,7 +67,10 @@ def test_cli_runs_without_jax():
         [sys.executable, "-m", "sepreformer_torch.cli", "--list-models"],
         cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split() == ["SepReformer_Base_WSJ0", "tiny"]
+    assert proc.stdout.split() == [
+        "SepReformer_Base_Libri2Mix", "SepReformer_Base_WSJ0",
+        "SepReformer_L", "SepReformer_Large_DM_WHAM",
+        "SepReformer_Large_DM_WHAMR", "SepReformer_Large_DM_WSJ0", "tiny"]
     code = (
         "import sys\n"
         "from sepreformer_torch import cli\n"

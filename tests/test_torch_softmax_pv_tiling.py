@@ -50,7 +50,7 @@ def constant(name):
     return int(re.search(rf"constexpr int {name} = (\d+);", SOURCE).group(1))
 
 
-D, KEYS, WARPS = constant("D"), constant("kKeys"), constant("kWarps")
+D, KEYS, WARPS = constant("kBaseD"), constant("kKeys"), constant("kWarps")
 LOG2E = np.float32(1.4426950408889634)
 SEED = 1234
 
