@@ -59,7 +59,13 @@ Phases, each of which fails the run:
                K1 at [4, 8000, 256], K2 at [512, 32, 512] from a [4000,
                32] table (its grid and blocks per SM), K3 at [8, 8, 512,
                512] with head width 32 (ragged), K12 at [2, 8750, 256]
-               with head width 32.
+               with head width 32; and at the shapes Large's train step
+               gives them (dropout 0.1): K5 at [2, 8000, 256], K7 and K8
+               at [4, 8000, 256] (their blocks per SM, registers and
+               spills, K8 by launch, K7 against float64), K9 and K10 at
+               [4, 8, 512, 512] with head width 32 (length 500), K9b and
+               K10b beside them; K9's and K10's blocks per SM at both
+               head widths.
 3. serve     - Base at full width, seeded weights: three requests through
                ``Separator.__call__`` and one batched B=4 x 4 s forward
                with ragged lengths; every eval kernel's count must rise.
@@ -166,9 +172,23 @@ Phases, each of which fails the run:
                s in 8 s chunks; one ``SepReformer_Large_DM_WHAM`` request
                (a speaker-split block per stage) card against CPU;
                ``infer_sample`` of the 70 s wav through ``cli.main --model
-               SepReformer_Large_DM_WSJ0``; a Large train step, which must
-               raise naming the ROADMAP item "Large training" before any
-               train kernel launches.
+               SepReformer_Large_DM_WSJ0``.  Then Large trains: six
+               ``train_step``s on seeded B=2 x 4 s batches at dropout 0.1
+               (finite losses, parameters and BatchNorm statistics moving,
+               each step one K7 and one K8 per GCFN (56), one K9 and one
+               K10 per global attention (22), one K5 per CLA (22), one K2
+               and one K11, no eval kernel; host-clock step times, peak
+               memory); one traced step (idle share, kernel time by group,
+               K8's share); one step card against CPU at dropout 0 on a 1
+               s crop (phase 7's limit, a TF32 control); one F=256 GCFN
+               in train mode at dropout 0.1, card against CPU; one
+               ``SepReformer_Large_DM_WHAM`` step (its speaker-split
+               blocks' gradients finite); two epochs of ``cli.main --model
+               SepReformer_Large_DM_WSJ0`` on phase 8's corpus (dynamic
+               mixing), a resumed third and a test; and a step on
+               ``attention_train_impl="pallas"``, which must raise naming
+               the ROADMAP item "Large training on the "pallas" route"
+               before K13 launches.
 
 Prints one JSON line of kernel results, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -616,38 +636,46 @@ def kernel_phase(torch, K, device_ms):
     print_occupancy(softmax_pv_occupancy())
     heads, d = 8, 16
 
-    # K5: the widest k65 conv of a B=2 x 4 s train batch, in a decoder
-    # stage (B*spks = 4 rows of 8000 frames)
+    def depthwise_bwd_row(c, b, instance=None):
+        """K5 at the widest k65 conv of a B=2 x 4 s train batch: Base's in
+        a decoder stage (B*spks = 4 rows of 8000 frames, 128 channels),
+        Large's at its first encoder stage ([2, 8000, 256]).  Returns its
+        inputs for K6's row."""
+        t, k = 8000, 65
+        x, dy = randn(b, t, c), randn(b, t, c)
+        w = randn(c, 1, k, scale=0.1)
+        got, ref = K.depthwise_bwd(x, w, dy), K.depthwise_bwd_plain(x, w, dy)
+        torch.cuda.synchronize()
+        # dw and db sum B*T products each: float32 sums in another order
+        for g, r, atol in zip(got, ref, (1e-5, 1e-3, 1e-3)):
+            torch.testing.assert_close(g, r, rtol=1e-4, atol=atol)
+        bit_equal(f"depthwise_bwd at C {c}", lambda: torch.cat([
+            a.flatten() for a in K.depthwise_bwd(x, w, dy)]))
+        xp = torch.nn.functional.pad(x.transpose(1, 2), (k // 2, k // 2))
+        dy_ncw = dy.transpose(1, 2).contiguous()
+        record(K.depthwise_bwd, lambda: K.depthwise_bwd(x, w, dy),
+               lambda: K.depthwise_bwd_plain(x, w, dy),
+               lambda: torch.ops.aten.convolution_backward(
+                   dy_ncw, xp, w, [c], [1], [0], [1], False, [0], c,
+                   [True, True, True]),
+               max((g - r).abs().max().item() for g, r in zip(got, ref)),
+               4 * (3 * x.numel() + 2 * w.numel() + c),
+               x.numel() * (4 * k + 1),
+               source="sepreformer_torch/csrc/depthwise.cu",
+               replaces="sepreformer_tpu/ops/pallas/depthwise.py:147",
+               shape=f"x, dy [{b}, {t}, {c}], w [{c}, 1, {k}]",
+               tolerance="rtol 1e-4; atol 1e-5 dx, 1e-3 dw and db",
+               timings=5, instance=instance)
+        launch_split(torch, lambda: K.depthwise_bwd(x, w, dy),
+                     "depthwise_bwd", ("tiles", "reduce"))
+        return x, dy, w, xp, dy_ncw
+
     b, t, c, k = 4, 8000, 128, 65
-    x, dy = randn(b, t, c), randn(b, t, c)
-    w = randn(c, 1, k, scale=0.1)
-    got, ref = K.depthwise_bwd(x, w, dy), K.depthwise_bwd_plain(x, w, dy)
-    torch.cuda.synchronize()
-    # dw and db sum B*T products each: float32 sums in another order
-    for g, r, atol in zip(got, ref, (1e-5, 1e-3, 1e-3)):
-        torch.testing.assert_close(g, r, rtol=1e-4, atol=atol)
-    bit_equal("depthwise_bwd", lambda: torch.cat([
-        a.flatten() for a in K.depthwise_bwd(x, w, dy)]))
+    x, dy, w, xp, dy_ncw = depthwise_bwd_row(c, b)
     bit_equal("depthwise_bwd_w", lambda: torch.cat([
         a.flatten() for a in K.depthwise_bwd_w(x, dy, k)]))
     print_occupancy({f"depthwise {name} at k {k}": occ for name, occ in
                      depthwise_occupancy(k).items() if name != "K4"})
-    xp = torch.nn.functional.pad(x.transpose(1, 2), (k // 2, k // 2))
-    dy_ncw = dy.transpose(1, 2).contiguous()
-    record(K.depthwise_bwd, lambda: K.depthwise_bwd(x, w, dy),
-           lambda: K.depthwise_bwd_plain(x, w, dy),
-           lambda: torch.ops.aten.convolution_backward(
-               dy_ncw, xp, w, [c], [1], [0], [1], False, [0], c,
-               [True, True, True]),
-           max((g - r).abs().max().item() for g, r in zip(got, ref)),
-           4 * (3 * x.numel() + 2 * w.numel() + c),
-           x.numel() * (4 * k + 1),
-           source="sepreformer_torch/csrc/depthwise.cu",
-           replaces="sepreformer_tpu/ops/pallas/depthwise.py:147",
-           shape=f"x, dy [{b}, {t}, {c}], w [{c}, 1, {k}]",
-           tolerance="rtol 1e-4; atol 1e-5 dx, 1e-3 dw and db", timings=5)
-    launch_split(torch, lambda: K.depthwise_bwd(x, w, dy), "depthwise_bwd",
-                 ("tiles", "reduce"))
 
     # K6: the same conv's dw and db alone (BWD_MODE "conv")
     got, ref = K.depthwise_bwd_w(x, dy, k), K.depthwise_bwd_w_plain(x, dy, k)
@@ -669,157 +697,187 @@ def kernel_phase(torch, K, device_ms):
     launch_split(torch, lambda: K.depthwise_bwd_w(x, dy, k), "depthwise_dw",
                  ("tiles", "reduce"))
 
-    # K7 and K8: the widest GCFN of a B=2 x 4 s train batch, in a decoder
-    # stage (B*spks = 4 rows of 8000 frames), p 0.05
-    b, t, f, p, seed = 4, 8000, 128, 0.05, 4321
-    h = 6 * f
-    x, dout = randn(b, t, f), randn(b, t, f)
-    params = [randn(f), randn(f), randn(f, h, scale=0.1), randn(h, scale=0.1),
-              randn(h, 3, scale=0.3), randn(h, scale=0.1),
-              randn(h // 2, f, scale=0.1), randn(f, scale=0.1),
-              randn(f, scale=0.5)]
-    got = K.gcfn_train_fwd(x, params, 1e-5, seed, p)
-    ref = K.gcfn_train_plain(x, params, 1e-5, seed, p)
-    torch.cuda.synchronize()
-    # a wrong dropout mask errs by O(1) at p = 0.05
-    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
-    bit_equal("gcfn_train_fwd",
-              lambda: K.gcfn_train_fwd(x, params, 1e-5, seed, p))
-    # how far the kernel and the plain version each lie from float64
-    exact = K.gcfn_train_plain(x.double(), [q.double() for q in params],
-                               1e-5, seed, p)
-    print(f"[kernels] gcfn_train_fwd: max |result - float64 plain| "
-          f"{(got - exact).abs().max().item():.3e}, the float32 plain "
-          f"version's {(ref - exact).abs().max().item():.3e}")
-    del exact
-    products = 2 * f * h + 2 * (h // 2) * f         # flops per row
-    rest = 8 * f + 7 * h + 6 * (h // 2) + 4 * f     # LN, dw3, GLU, dropout
-    record(K.gcfn_train_fwd,
-           lambda: K.gcfn_train_fwd(x, params, 1e-5, seed, p),
-           lambda: K.gcfn_train_plain(x, params, 1e-5, seed, p), None,
-           (got - ref).abs().max().item(),
-           4 * (2 * x.numel() + sum(q.numel() for q in params)),
-           b * t * rest,
-           source="sepreformer_torch/csrc/gcfn_train.cu",
-           replaces="sepreformer_tpu/ops/pallas/gcfn_train.py:549",
-           shape=f"x [{b}, {t}, {f}], hidden {h}, p {p}",
-           tolerance="rtol 1e-4, atol 1e-4 (float32)",
-           tc_flops=b * t * products, exps=b * t * (h // 2),
-           cuda_core_flops=b * t * (products + rest))
-    dx, dparams = K.gcfn_train_bwd(x, params, 1e-5, seed, p, dout)
-    ref_dx, ref_dparams = K.gcfn_train_bwd_plain(x, params, 1e-5, seed, p,
-                                                 dout)
-    torch.cuda.synchronize()
-    err = 0.0
-    # dx, then the nine parameter gradients: each sums B*T rows in another
-    # order than the plain version's cuBLAS products
-    for g, r in zip((dx, *dparams), (ref_dx, *ref_dparams)):
-        torch.testing.assert_close(g, r, rtol=1e-4,
-                                   atol=1e-5 * r.abs().max().item() + 1e-6)
-        err = max(err, (g - r).abs().max().item())
-    again = K.gcfn_train_bwd(x, params, 1e-5, seed, p, dout)
-    torch.cuda.synchronize()
-    assert all(torch.equal(g, a) for g, a in zip((dx, *dparams),
-                                                 (again[0], *again[1]))), (
-        "K8 is not bit-equal on repeat")
-    record(K.gcfn_train_bwd,
-           lambda: K.gcfn_train_bwd(x, params, 1e-5, seed, p, dout),
-           lambda: K.gcfn_train_bwd_plain(x, params, 1e-5, seed, p, dout),
-           None, err,
-           4 * (3 * x.numel() + 2 * sum(q.numel() for q in params)),
-           # the LN, conv, GLU, dropout and LN-backward work per row
-           b * t * (40 * f + 20 * h),
-           source="sepreformer_torch/csrc/gcfn_train.cu",
-           replaces="sepreformer_tpu/ops/pallas/gcfn_train.py:599",
-           shape=f"x, dout [{b}, {t}, {f}], hidden {h}, p {p}",
-           tolerance="rtol 1e-4; atol 1e-5 x max|plain| + 1e-6, ten outputs",
-           # the forward's products again, then dg, dWout, dWin and dxn, on
-           # the tensor cores; one exponential per gate (its sigmoid)
-           tc_flops=b * t * 3 * products, exps=b * t * (h // 2),
-           cuda_core_flops=b * t * (3 * products + 40 * f + 20 * h))
-    launch_split(torch, lambda: K.gcfn_train_bwd(x, params, 1e-5, seed, p,
-                                                 dout),
-                 "gcfn_train_bwd", ("rows", "atb dWin", "atb dWout",
-                                    "reduce dWin, dWout", "reduce small"))
-
-    # K9 and K10: decoder attention of a B=2 x 4 s train batch (B*spks=4
-    # rows, 8 heads, L=500 padded to 512), no key lengths, as in training
-    b, f, length, seed = 4, 128, 500, 1234
-    scores = randn(b, heads, lp, lp, scale=3.0)
-    v, dout = randn(b, lp, f), randn(b, lp, f)
-    key_len = torch.full((b,), length, dtype=torch.int32, device=dev)
-    err = 0.0
-    for p in (0.05, 0.0):
-        out, row_max, row_sum = K.softmax_pv_train_fwd(scores, v, seed,
-                                                       key_len, length, p)
-        ref = K.softmax_pv_dropout_plain(scores, v, seed, None, length, p)
+    def gcfn_train_rows(f, p, instance=None):
+        """K7 and K8 at the widest GCFN of a B=2 x 4 s train batch, in a
+        decoder stage (B*spks = 4 rows of 8000 frames): Base's F = 128 at
+        its dropout 0.05, Large's F = 256 at its 0.1."""
+        b, t, seed = 4, 8000, 4321
+        h = 6 * f
+        x, dout = randn(b, t, f), randn(b, t, f)
+        params = [randn(f), randn(f), randn(f, h, scale=0.1),
+                  randn(h, scale=0.1), randn(h, 3, scale=0.3),
+                  randn(h, scale=0.1), randn(h // 2, f, scale=0.1),
+                  randn(f, scale=0.1), randn(f, scale=0.5)]
+        got = K.gcfn_train_fwd(x, params, 1e-5, seed, p)
+        ref = K.gcfn_train_plain(x, params, 1e-5, seed, p)
         torch.cuda.synchronize()
         # a wrong dropout mask errs by O(1) at p = 0.05
-        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
-        err = max(err, (out - ref).abs().max().item())
-    p = 0.05
-    out, row_max, row_sum = K.softmax_pv_train_fwd(scores, v, seed, key_len,
-                                                   length, p)
-    bit_equal("softmax_pv_train_fwd", lambda: torch.cat([
-        a.flatten() for a in K.softmax_pv_train_fwd(scores, v, seed, key_len,
-                                                    length, p)]))
-    print_occupancy(fwd_occupancy())
-    keys = b * length
-    pairs = heads * lp * keys
-    record(K.softmax_pv_train_fwd,
-           lambda: K.softmax_pv_train_fwd(scores, v, seed, key_len, length,
-                                          p),
-           lambda: K.softmax_pv_dropout_plain(scores, v, seed, None, length,
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+        bit_equal(f"gcfn_train_fwd at F {f}",
+                  lambda: K.gcfn_train_fwd(x, params, 1e-5, seed, p))
+        # how far the kernel and the plain version each lie from float64
+        exact = K.gcfn_train_plain(x.double(), [q.double() for q in params],
+                                   1e-5, seed, p)
+        print(f"[kernels] gcfn_train_fwd at F {f}: max |result - float64 "
+              f"plain| {(got - exact).abs().max().item():.3e}, the float32 "
+              f"plain version's {(ref - exact).abs().max().item():.3e}")
+        del exact
+        print_occupancy(K.gcfn_train.occupancy(f))
+        products = 2 * f * h + 2 * (h // 2) * f         # flops per row
+        rest = 8 * f + 7 * h + 6 * (h // 2) + 4 * f     # LN, dw3, GLU, drop
+        record(K.gcfn_train_fwd,
+               lambda: K.gcfn_train_fwd(x, params, 1e-5, seed, p),
+               lambda: K.gcfn_train_plain(x, params, 1e-5, seed, p), None,
+               (got - ref).abs().max().item(),
+               4 * (2 * x.numel() + sum(q.numel() for q in params)),
+               b * t * rest,
+               source="sepreformer_torch/csrc/gcfn_train.cu",
+               replaces="sepreformer_tpu/ops/pallas/gcfn_train.py:549",
+               shape=f"x [{b}, {t}, {f}], hidden {h}, p {p}",
+               tolerance="rtol 1e-4, atol 1e-4 (float32)",
+               tc_flops=b * t * products, exps=b * t * (h // 2),
+               cuda_core_flops=b * t * (products + rest), instance=instance)
+        del got, ref
+        dx, dparams = K.gcfn_train_bwd(x, params, 1e-5, seed, p, dout)
+        ref_dx, ref_dparams = K.gcfn_train_bwd_plain(x, params, 1e-5, seed,
+                                                     p, dout)
+        torch.cuda.synchronize()
+        err = 0.0
+        # dx, then the nine parameter gradients: each sums B*T rows in
+        # another order than the plain version's cuBLAS products
+        for g, r in zip((dx, *dparams), (ref_dx, *ref_dparams)):
+            torch.testing.assert_close(g, r, rtol=1e-4,
+                                       atol=1e-5 * r.abs().max().item()
+                                       + 1e-6)
+            err = max(err, (g - r).abs().max().item())
+        again = K.gcfn_train_bwd(x, params, 1e-5, seed, p, dout)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, a) for g, a in zip((dx, *dparams),
+                                                     (again[0], *again[1])))
+        print(f"[kernels] gcfn_train_bwd at F {f}: bit-equal on a repeat "
+              f"call: {same}")
+        assert same, f"K8 is not bit-equal on repeat at F {f}"
+        del dx, dparams, ref_dx, ref_dparams, again
+        record(K.gcfn_train_bwd,
+               lambda: K.gcfn_train_bwd(x, params, 1e-5, seed, p, dout),
+               lambda: K.gcfn_train_bwd_plain(x, params, 1e-5, seed, p,
+                                              dout),
+               None, err,
+               4 * (3 * x.numel() + 2 * sum(q.numel() for q in params)),
+               # the LN, conv, GLU, dropout and LN-backward work per row
+               b * t * (40 * f + 20 * h),
+               source="sepreformer_torch/csrc/gcfn_train.cu",
+               replaces="sepreformer_tpu/ops/pallas/gcfn_train.py:599",
+               shape=f"x, dout [{b}, {t}, {f}], hidden {h}, p {p}",
+               tolerance="rtol 1e-4; atol 1e-5 x max|plain| + 1e-6, ten "
+                         "outputs",
+               # the forward's products again, then dg, dWout, dWin and
+               # dxn, on the tensor cores; one exponential per gate
+               tc_flops=b * t * 3 * products, exps=b * t * (h // 2),
+               cuda_core_flops=b * t * (3 * products + 40 * f + 20 * h),
+               instance=instance)
+        launch_split(torch, lambda: K.gcfn_train_bwd(x, params, 1e-5, seed,
+                                                     p, dout),
+                     "gcfn_train_bwd", ("rows", "atb dWin", "atb dWout",
+                                        "reduce dWin, dWout",
+                                        "reduce small"))
+        del x, dout, params
+        torch.cuda.empty_cache()
+
+    gcfn_train_rows(128, 0.05)
+
+    def softmax_pv_train_rows(d, p, instance=None):
+        """K9 and K10 at the decoder attention of a B=2 x 4 s train batch
+        (B*spks=4 rows, 8 heads, L=500 padded to 512), no key lengths, as
+        in training: Base's head width 16 at dropout 0.05, Large's 32 at
+        0.1; Base's K9 also past L2."""
+        b, length, seed = 4, 500, 1234
+        f = heads * d
+        scores = randn(b, heads, lp, lp, scale=3.0)
+        v, dout = randn(b, lp, f), randn(b, lp, f)
+        key_len = torch.full((b,), length, dtype=torch.int32, device=dev)
+        err = 0.0
+        for rate in (p, 0.0):
+            out, row_max, row_sum = K.softmax_pv_train_fwd(
+                scores, v, seed, key_len, length, rate)
+            ref = K.softmax_pv_dropout_plain(scores, v, seed, None, length,
+                                             rate)
+            torch.cuda.synchronize()
+            # a wrong dropout mask errs by O(1) at p = 0.05
+            torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+            err = max(err, (out - ref).abs().max().item())
+        out, row_max, row_sum = K.softmax_pv_train_fwd(scores, v, seed,
+                                                       key_len, length, p)
+        bit_equal(f"softmax_pv_train_fwd at head width {d}",
+                  lambda: torch.cat([
+                      a.flatten() for a in K.softmax_pv_train_fwd(
+                          scores, v, seed, key_len, length, p)]))
+        keys = b * length
+        pairs = heads * lp * keys
+        record(K.softmax_pv_train_fwd,
+               lambda: K.softmax_pv_train_fwd(scores, v, seed, key_len,
+                                              length, p),
+               lambda: K.softmax_pv_dropout_plain(scores, v, seed, None,
+                                                  length, p),
+               None, err,
+               # the function's own bytes: scores and V of the valid keys
+               # in, out written; the row stats are this design's residuals
+               4 * (heads * lp * keys + keys * f + b * lp * f),
+               # the online softmax's three operations and the hash's
+               # fifteen integer ones per pair
+               18 * pairs,
+               source="sepreformer_torch/csrc/softmax_pv_train.cu",
+               replaces="sepreformer_tpu/ops/pallas/softmax_pv_train.py:221",
+               shape=(f"scores [{b}, {heads}, {lp}, {lp}], v [{b}, {lp}, "
+                      f"{f}], length {length}, p {p} and 0"),
+               tolerance="rtol 1e-4, atol 1e-5 (float32)",
+               tc_flops=2 * d * pairs, exps=pairs,
+               cuda_core_flops=pairs * (2 * d + 4), timings=5,
+               instance=instance)
+        if instance is None:
+            past_l2_timings(torch, device_ms,
+                            lambda s: K.softmax_pv_train_fwd(
+                                s, v, seed, key_len, length, p),
+                            scores, KERNEL_SYMBOLS["softmax_pv_train_fwd"],
+                            results[-1]["bound_ms"])
+        ds, dv = K.softmax_pv_train_bwd(scores, v, out, dout, row_max,
+                                        row_sum, seed, key_len, length, p)
+        ds_ref, dv_ref = K.softmax_pv_dropout_bwd_plain(
+            scores, v, seed, None, length, p, dout)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(ds, ds_ref, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(dv, dv_ref, rtol=1e-4, atol=1e-4)
+        bit_equal(f"softmax_pv_train_bwd at head width {d}",
+                  lambda: torch.cat([
+                      a.flatten() for a in K.softmax_pv_train_bwd(
+                          scores, v, out, dout, row_max, row_sum, seed,
+                          key_len, length, p)]))
+        record(K.softmax_pv_train_bwd,
+               lambda: K.softmax_pv_train_bwd(scores, v, out, dout, row_max,
+                                              row_sum, seed, key_len, length,
                                               p),
-           None, err,
-           # the function's own bytes: scores and V of the valid keys in,
-           # out written; the row stats are this design's residuals
-           4 * (heads * lp * keys + keys * f + b * lp * f),
-           # the online softmax's three operations and the hash's fifteen
-           # integer ones per pair
-           18 * pairs,
-           source="sepreformer_torch/csrc/softmax_pv_train.cu",
-           replaces="sepreformer_tpu/ops/pallas/softmax_pv_train.py:221",
-           shape=(f"scores [{b}, {heads}, {lp}, {lp}], v [{b}, {lp}, {f}], "
-                  f"length {length}, p 0.05 and 0"),
-           tolerance="rtol 1e-4, atol 1e-5 (float32)",
-           tc_flops=2 * d * pairs, exps=pairs,
-           cuda_core_flops=pairs * (2 * d + 4), timings=5)
-    past_l2_timings(torch, device_ms,
-                    lambda s: K.softmax_pv_train_fwd(s, v, seed, key_len,
-                                                     length, p),
-                    scores, KERNEL_SYMBOLS["softmax_pv_train_fwd"],
-                    results[-1]["bound_ms"])
-    ds, dv = K.softmax_pv_train_bwd(scores, v, out, dout, row_max, row_sum,
-                                    seed, key_len, length, p)
-    ds_ref, dv_ref = K.softmax_pv_dropout_bwd_plain(scores, v, seed, None,
-                                                    length, p, dout)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(ds, ds_ref, rtol=1e-4, atol=1e-5)
-    torch.testing.assert_close(dv, dv_ref, rtol=1e-4, atol=1e-4)
-    bit_equal("softmax_pv_train_bwd", lambda: torch.cat([
-        a.flatten() for a in K.softmax_pv_train_bwd(
-            scores, v, out, dout, row_max, row_sum, seed, key_len, length,
-            p)]))
-    print(f"[kernels] softmax_pv_train_bwd: blocks per SM (K10, K10b) "
+               lambda: K.softmax_pv_dropout_bwd_plain(scores, v, seed, None,
+                                                      length, p, dout),
+               None, max((ds - ds_ref).abs().max().item(),
+                         (dv - dv_ref).abs().max().item()),
+               # JAX's K10 reads scores, v and dout: scores and V of the
+               # valid keys and dout in, the full dScores and dV written
+               4 * (heads * lp * keys + scores.numel() + keys * f
+                    + 2 * b * lp * f),
+               heads * lp * keys * (4 * d + 8),
+               source="sepreformer_torch/csrc/softmax_pv_train.cu",
+               replaces="sepreformer_tpu/ops/pallas/softmax_pv_train.py:249",
+               shape=(f"scores [{b}, {heads}, {lp}, {lp}], v, out, dout "
+                      f"[{b}, {lp}, {f}], length {length}, p {p}"),
+               tolerance="rtol 1e-4; atol 1e-5 dScores, 1e-4 dV", timings=5,
+               instance=instance)
+        del scores, v, dout, out, ds, dv, ds_ref, dv_ref
+        torch.cuda.empty_cache()
+
+    softmax_pv_train_rows(16, 0.05)
+    print_occupancy(fwd_occupancy())
+    print(f"[kernels] softmax_pv_train_bwd: blocks per SM "
           f"{bwd_blocks_per_sm()}")
-    record(K.softmax_pv_train_bwd,
-           lambda: K.softmax_pv_train_bwd(scores, v, out, dout, row_max,
-                                          row_sum, seed, key_len, length, p),
-           lambda: K.softmax_pv_dropout_bwd_plain(scores, v, seed, None,
-                                                  length, p, dout),
-           None, max((ds - ds_ref).abs().max().item(),
-                     (dv - dv_ref).abs().max().item()),
-           # JAX's K10 reads scores, v and dout: scores and V of the valid
-           # keys and dout in, the full dScores and dV written
-           4 * (heads * lp * keys + scores.numel() + keys * f
-                + 2 * b * lp * f),
-           heads * lp * keys * (4 * d + 8),
-           source="sepreformer_torch/csrc/softmax_pv_train.cu",
-           replaces="sepreformer_tpu/ops/pallas/softmax_pv_train.py:249",
-           shape=(f"scores [{b}, {heads}, {lp}, {lp}], v, out, dout "
-                  f"[{b}, {lp}, {f}], length {length}, p 0.05"),
-           tolerance="rtol 1e-4; atol 1e-5 dScores, 1e-4 dV", timings=5)
 
     # K11: the time-loss table of a B=2 x 4 s batch, two speakers
     spk, b, t = 2, 2, 32000
@@ -867,6 +925,15 @@ def kernel_phase(torch, K, device_ms):
     relpos_rows(32, (512,), instance="d=32")
     softmax_pv_row(32, instance="d=32")
     flash_kernel_row(torch, K, device_ms, randn, record, d=32)
+    # and at the shapes Large's train step gives them (B=2 x 4 s, dropout
+    # 0.1): K5 at its first encoder stage, K7/K8 and K9/K10 as Base's rows
+    # take them, K9b/K10b beside K9's and K10's
+    del x, dy, w, xp, dy_ncw
+    torch.cuda.empty_cache()
+    depthwise_bwd_row(256, 2, instance="C=256")
+    gcfn_train_rows(256, 0.1, instance="F=256")
+    softmax_pv_train_rows(32, 0.1, instance="d=32")
+    bias_train_rows(torch, K, randn, record, d=32, p=0.1, instance="d=32")
     return results
 
 
@@ -945,7 +1012,16 @@ def bias_kernel_rows(torch, K, device_ms, randn, record):
           f"{diff:.3e}")
     assert diff <= 1e-4, "the two producers disagree"
 
-    b, length, p, seed = 4, 500, 0.05, 1234
+    bias_train_rows(torch, K, randn, record)
+
+
+def bias_train_rows(torch, K, randn, record, d=16, p=0.05, instance=None):
+    """K9b and K10b at K9's and K10's shape ([4, 8, 512, 512], length 500)
+    and head width ``d``, each against its plain version: Base's 16 at
+    dropout 0.05, Large's 32 at 0.1."""
+    dev = torch.device("cuda")
+    b, heads, lp, length, seed = 4, 8, 512, 500, 1234
+    f = heads * d
     scores, bias = randn(b, heads, lp, lp, scale=3.0), randn(b, heads, lp, lp)
     v, dout = randn(b, lp, f), randn(b, lp, f)
     key_len = torch.full((b,), length, dtype=torch.int32, device=dev)
@@ -970,7 +1046,8 @@ def bias_kernel_rows(torch, K, device_ms, randn, record):
                   f"{f}], length {length}, p {p}"),
            tolerance="rtol 1e-4, atol 1e-5 (float32)",
            tc_flops=2 * d * heads * lp * keys, exps=heads * lp * keys,
-           cuda_core_flops=heads * lp * keys * (2 * d + 5), timings=5)
+           cuda_core_flops=heads * lp * keys * (2 * d + 5), timings=5,
+           instance=instance)
     ds, dv = K.softmax_pv_train_bwd_bias(scores, bias, v, out, dout, row_max,
                                          row_sum, seed, key_len, length, p)
     ds_ref, dv_ref = K.softmax_pv_dropout_bwd_plain(scores, v, seed, None,
@@ -978,6 +1055,21 @@ def bias_kernel_rows(torch, K, device_ms, randn, record):
     torch.cuda.synchronize()
     torch.testing.assert_close(ds, ds_ref, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(dv, dv_ref, rtol=1e-4, atol=1e-4)
+    if instance is not None:
+        for name, run in (
+                ("softmax_pv_train_fwd_bias", lambda: torch.cat([
+                    a.flatten() for a in K.softmax_pv_train_fwd_bias(
+                        scores, bias, v, seed, key_len, length, p)])),
+                ("softmax_pv_train_bwd_bias", lambda: torch.cat([
+                    a.flatten() for a in K.softmax_pv_train_bwd_bias(
+                        scores, bias, v, out, dout, row_max, row_sum, seed,
+                        key_len, length, p)]))):
+            first, again = run(), run()
+            torch.cuda.synchronize()
+            same = torch.equal(first, again)
+            print(f"[kernels] {name} at head width {d}: bit-equal on a "
+                  f"repeat call: {same}")
+            assert same, f"{name} is not bit-equal on repeat at d {d}"
     record(K.softmax_pv_train_bwd_bias,
            lambda: K.softmax_pv_train_bwd_bias(scores, bias, v, out, dout,
                                                row_max, row_sum, seed,
@@ -994,7 +1086,10 @@ def bias_kernel_rows(torch, K, device_ms, randn, record):
            replaces="sepreformer_tpu/ops/pallas/softmax_pv_train.py:249",
            shape=(f"scores, bias [{b}, {heads}, {lp}, {lp}], v, out, dout "
                   f"[{b}, {lp}, {f}], length {length}, p {p}"),
-           tolerance="rtol 1e-4; atol 1e-5 dScores, 1e-4 dV")
+           tolerance="rtol 1e-4; atol 1e-5 dScores, 1e-4 dV",
+           instance=instance)
+    del scores, bias, v, dout, out, ds, dv, ds_ref, dv_ref
+    torch.cuda.empty_cache()
 
 
 def fused_kernel_rows(torch, K, device_ms, randn, record):
@@ -1928,26 +2023,26 @@ def train_cpu_phase(torch, np, sep_torch):
     gcfn_train_cpu(torch, np)
 
 
-def gcfn_train_cpu(torch, np):
-    """One Base-width GCFN in train mode at dropout 0.05 on the card (K7,
-    K8) and on the CPU (plain, the same hash masks): the output and the
-    ten gradients (x and nine parameters) within the phase's limit, each
+def gcfn_train_cpu(torch, np, f=128, p=0.05, tag="train_cpu"):
+    """One GCFN of width ``f`` in train mode at dropout ``p`` on the card
+    (K7, K8) and on the CPU (plain, the same hash masks): the output and
+    the ten gradients (x and nine parameters) within phase 7's limit, each
     over its largest CPU value."""
     from sepreformer_torch.models.blocks import GCFN, TrainMode
 
     gen = torch.Generator().manual_seed(7)
-    gcfn = GCFN(128)
+    gcfn = GCFN(f)
     with torch.no_grad():
         for prm in gcfn.parameters():
             prm.copy_(torch.randn(prm.shape, generator=gen) * 0.2)
         gcfn.Layer_scale.layer_scale.fill_(0.5)
-    x = torch.randn(2, 2000, 128, generator=gen)
-    w = torch.randn(2, 2000, 128, generator=gen)
+    x = torch.randn(2, 2000, f, generator=gen)
+    w = torch.randn(2, 2000, f, generator=gen)
 
     def run(device):
         module = copy.deepcopy(gcfn).to(device)
         xd = x.to(device).detach().requires_grad_()
-        train = TrainMode(0.05, torch.Generator(device=device),
+        train = TrainMode(p, torch.Generator(device=device),
                           torch.Generator().manual_seed(8))
         out = module(xd, None, train)
         (out * w.to(device)).sum().backward()
@@ -1958,15 +2053,15 @@ def gcfn_train_cpu(torch, np):
     names = ["out", "dx"] + [n for n, _ in gcfn.named_parameters()]
     worst = max(((c - g).abs().max().item() / g.abs().max().item(), n)
                 for n, c, g in zip(names, card, cpu))
-    print(f"[train_cpu] GCFN [2, 2000, 128], p 0.05: max |card - cpu| / "
+    print(f"[{tag}] GCFN [2, 2000, {f}], p {p}: max |card - cpu| / "
           f"max|cpu| over the output and ten gradients {worst[0]:.3e} "
           f"(worst {worst[1]}), limit {TRAIN_CPU_REL_LIMIT:.1e}")
     assert worst[0] <= TRAIN_CPU_REL_LIMIT, "the train GCFN disagrees"
 
 
-def engine_phase(torch, np, K):
-    """Train Base from ``sepreformer_torch.cli.main`` on a seeded synthetic
-    corpus: 2 epochs, a resumed third, then test."""
+def engine_phase(torch, np, K, model="SepReformer_Base_WSJ0", tag="engine"):
+    """Train ``model`` from ``sepreformer_torch.cli.main`` on a seeded
+    synthetic corpus: 2 epochs, a resumed third, then test."""
     import csv
     import logging
     import tempfile
@@ -1982,46 +2077,51 @@ def engine_phase(torch, np, K):
 
     logger = logging.getLogger("sepreformer_torch")
     logger.setLevel(logging.INFO)
-    logger.addHandler(Collect())
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        generate_corpus(os.path.join(tmp, "corpus"), n_train=16, n_valid=4,
-                        n_test=4, seed=0)
-        print(f"[engine] corpus 16/4/4 utterances of 3-6 s in "
-              f"{time.perf_counter() - t0:.2f} s")
-        work = os.path.join(tmp, "work")
-        args = ["--model", "SepReformer_Base_WSJ0", "--scp-root",
-                os.path.join(tmp, "corpus"), "--scp-dir", "scp",
-                "--workdir", work, "--batch-size", "2",
-                "--set", "engine.test_epochs="]
-        K.reset_launches()
-        for mode, extra in (("train", ["--max-epoch", "3"]),
-                            ("resume", ["--max-epoch", "4"]),
-                            ("test", ["--engine-mode", "test"])):
+    handler = Collect()
+    logger.addHandler(handler)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
-            assert cli.main(args + extra) == 0, mode
-            print(f"[engine] {mode}: {time.perf_counter() - t0:.2f} s")
-        counts = K.launch_counts()
-        for line in lines:
-            print(f"[engine] log: {line}")
-        epochs = [ln for ln in lines if ln.startswith("epoch ")]
-        assert len(epochs) == 3, epochs
-        assert any(ln.startswith("resumed from epoch") for ln in lines)
-        for ln in epochs:
-            losses = [float(v) for v in ln.split()[3:6:2]]   # train, valid
-            assert all(np.isfinite(v) for v in losses), ln
-        ckpt = os.path.join(work, "log", "scratch_weights", "epoch.0003.pth")
-        assert os.path.exists(ckpt), "no checkpoint of the resumed epoch"
-        means = {}
-        for name in ("SISNRi", "SDRi"):
-            with open(os.path.join(work, f"test_{name}_value.csv")) as f:
-                rows = list(csv.reader(f))
-            assert len(rows) == 4, rows
-            means[name] = float(np.mean([float(r[1]) for r in rows]))
-        print(f"[engine] test over 4 utterances: SI-SNRi {means['SISNRi']:.4f}"
-              f" dB, SDRi {means['SDRi']:.4f} dB")
-        assert all(np.isfinite(v) for v in means.values()), means
-    print(f"[engine] launches over the three runs: {counts}")
+            generate_corpus(os.path.join(tmp, "corpus"), n_train=16,
+                            n_valid=4, n_test=4, seed=0)
+            print(f"[{tag}] corpus 16/4/4 utterances of 3-6 s in "
+                  f"{time.perf_counter() - t0:.2f} s")
+            work = os.path.join(tmp, "work")
+            args = ["--model", model, "--scp-root",
+                    os.path.join(tmp, "corpus"), "--scp-dir", "scp",
+                    "--workdir", work, "--batch-size", "2",
+                    "--set", "engine.test_epochs="]
+            K.reset_launches()
+            for mode, extra in (("train", ["--max-epoch", "3"]),
+                                ("resume", ["--max-epoch", "4"]),
+                                ("test", ["--engine-mode", "test"])):
+                t0 = time.perf_counter()
+                assert cli.main(args + extra) == 0, mode
+                print(f"[{tag}] {mode}: {time.perf_counter() - t0:.2f} s")
+            counts = K.launch_counts()
+            for line in lines:
+                print(f"[{tag}] log: {line}")
+            epochs = [ln for ln in lines if ln.startswith("epoch ")]
+            assert len(epochs) == 3, epochs
+            assert any(ln.startswith("resumed from epoch") for ln in lines)
+            for ln in epochs:
+                losses = [float(v) for v in ln.split()[3:6:2]]  # train, valid
+                assert all(np.isfinite(v) for v in losses), ln
+            ckpt = os.path.join(work, "log", "scratch_weights",
+                                "epoch.0003.pth")
+            assert os.path.exists(ckpt), "no checkpoint of the resumed epoch"
+            means = {}
+            for name in ("SISNRi", "SDRi"):
+                with open(os.path.join(work, f"test_{name}_value.csv")) as f:
+                    rows = list(csv.reader(f))
+                assert len(rows) == 4, rows
+                means[name] = float(np.mean([float(r[1]) for r in rows]))
+            print(f"[{tag}] test over 4 utterances: SI-SNRi "
+                  f"{means['SISNRi']:.4f} dB, SDRi {means['SDRi']:.4f} dB")
+            assert all(np.isfinite(v) for v in means.values()), means
+    finally:
+        logger.removeHandler(handler)
+    print(f"[{tag}] launches over the three runs: {counts}")
     missing = [n for n in TRAIN_KERNELS + EVAL_KERNELS if counts[n] == 0]
     assert not missing, f"kernels never launched by the CLI: {missing}"
     return counts
@@ -2866,16 +2966,14 @@ def large_phase(torch, np, sep_torch, K, busy_us, kernel_events):
     against the dense K2/K3 route with two controls; 300 s in 8 s chunks;
     one ``Large_DM_WHAM`` request (a speaker-split block per stage) card
     against CPU; ``infer_sample`` of the 70 s wav through ``cli.main
-    --model SepReformer_Large_DM_WSJ0``; and a Large train step, which must
-    raise naming the ROADMAP item that builds its kernels.  Returns the
-    kernels' launches over the runs of the main path."""
+    --model SepReformer_Large_DM_WSJ0``; then Large trained
+    (``large_train``).  Returns the kernels' launches over the runs of the
+    main path."""
     import tempfile
 
     from sepreformer_torch import cli
     from sepreformer_torch.data.audio import read_wav, write_wav
-    from sepreformer_torch.engine import create_train_state, train_step
     from sepreformer_torch.models import blocks
-    from sepreformer_torch.ops.kernels._build import LARGE_TRAINING
 
     t0 = time.perf_counter()
     sep = sep_torch.load_separator(LARGE, device="cuda", seed=0)
@@ -3073,30 +3171,181 @@ def large_phase(torch, np, sep_torch, K, busy_us, kernel_events):
             assert rate == SAMPLE_RATE and x.shape == (n70,), x.shape
             assert np.isfinite(x).all() and np.abs(x).max() > 0.5
 
-    # g. a Large train step: its kernels (K7/K8 at F 256, K9/K10 and
-    #    K13/K14 at head width 32) are not built, so it raises, naming the
-    #    ROADMAP item, before any train kernel or plain stand-in runs
-    state = create_train_state(variant, device="cuda",
-                               generator=torch.Generator().manual_seed(0))
-    mix, src = synthetic_batch(torch, np, rng, 1, SAMPLE_RATE)
-    K.reset_launches()
-    try:
-        train_step(state, mix.cuda(), src.cuda(), 2e-4, 0.4,
-                   torch.Generator().manual_seed(0))
-    except ValueError as exc:
-        message = str(exc)
-    else:
-        raise AssertionError("a Large train step ran")
-    torch.cuda.synchronize()
-    trained = {n: c for n, c in K.launch_counts().items()
-               if n in TRAIN_KERNELS and n != "materialize_pos_kt" and c}
-    print(f"[large] a Large train step raises: {message}; train kernels "
-          f"launched: {trained}")
-    assert LARGE_TRAINING in message and not trained
-    del state
+    # g. Large training on the default route, through the entry points
+    large_train(torch, np, sep_torch, K, variant, busy_us, kernel_events,
+                run, total, gcfns, attentions)
     torch.cuda.empty_cache()
     print(f"[large] launches over the phase's main-path runs: {dict(total)}")
     return total
+
+
+def large_train(torch, np, sep_torch, K, variant, busy_us, kernel_events,
+                run, total, gcfns, attentions, steps=6):
+    """Phase 12's training: ``steps`` Large train steps on seeded B=2 x 4 s
+    batches (the launches of every step: one K7 and one K8 a GCFN, one K9
+    and one K10 a global attention, one K5 a CLA, K2 and K11 once, no eval
+    kernel; the losses finite, the parameters and the BatchNorm statistics
+    moving), one traced step, one step card against CPU (phase 7's limit,
+    a TF32 control), one train-mode GCFN of F 256 at dropout 0.1 card
+    against CPU, one ``SepReformer_Large_DM_WHAM`` step (a speaker-split
+    block per stage), two CLI epochs of ``LARGE`` on phase 8's corpus with
+    a resumed third and a test, and a step on the "pallas" route, which
+    raises naming its ROADMAP item before K13 launches.  ``run`` and
+    ``total`` are the phase's: counts at 0 before each run, main-path
+    launches summed."""
+    import dataclasses
+
+    from sepreformer_torch.config import apply_override
+    from sepreformer_torch.engine import (
+        LRController,
+        create_train_state,
+        train_step,
+    )
+    from sepreformer_torch.ops.kernels._build import LARGE_TRAINING
+
+    t0 = time.perf_counter()
+    state = create_train_state(variant, device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+    model, o = state.model, variant.optim
+    clas = sum(type(m).__name__ == "CLA" for m in model.modules())
+    print(f"[large] train state built in {time.perf_counter() - t0:.2f} s; "
+          f"batch {variant.dataset.batch_size} x {variant.dataset.max_len} "
+          f"samples, dropout {variant.model.dropout}, lr {o.lr}, dynamic "
+          f"mixing {variant.dataset.dynamic_mixing}; {gcfns} GCFNs, "
+          f"{attentions} global attentions, {clas} CLAs")
+    lrc = LRController(o.lr, o.warmup_steps, o.plateau_factor,
+                       o.plateau_patience, o.plateau_min_lr)
+    rng = np.random.default_rng(20)
+    batches = [tuple(a.cuda() for a in synthetic_batch(
+        torch, np, rng, variant.dataset.batch_size, variant.dataset.max_len))
+        for _ in range(steps + 1)]
+    watched = {name: p.detach().clone() for name, p in
+               model.named_parameters() if name.endswith(
+                   ("pe_k.weight", "dw_conv_1d.weight", "linear_q.weight",
+                    "net1.1.weight"))}
+    watched.update({name: b.clone() for name, b in model.named_buffers()
+                    if name.endswith(("running_mean", "running_var"))})
+    gen = torch.Generator().manual_seed(1)
+    expected = {"gcfn_train_fwd": gcfns, "gcfn_train_bwd": gcfns,
+                "softmax_pv_train_fwd": attentions,
+                "softmax_pv_train_bwd": attentions, "depthwise_bwd": clas,
+                "materialize_pos_kt": 1, "sisnr_pairwise_neg_fused": 1}
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    for step in range(steps):
+        lrc.warmup_step()
+        mix, src = batches[step]
+        K.reset_launches()
+        t0 = time.perf_counter()
+        metrics = {k: float(v) for k, v in train_step(     # waits
+            state, mix, src, lrc.lr, 0.4, gen).items()}
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = K.launch_counts()
+        for name, n in counts.items():
+            total[name] += n
+        print(f"[large] step {step}: {times[-1]:.2f} ms, lr {lrc.lr:.2e}, "
+              + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+        assert all(np.isfinite(v) for v in metrics.values()), metrics
+        got = {n: counts[n] for n in expected}
+        assert got == expected, (got, expected)
+        stray = [n for n in EVAL_ONLY_KERNELS if counts[n]]
+        assert not stray, f"eval-only kernels on the train path: {stray}"
+    now = dict(model.named_parameters())
+    now.update(model.named_buffers())
+    frozen = [n for n, before in watched.items()
+              if torch.equal(before, now[n].detach())]
+    assert not frozen, f"unchanged by training: {frozen}"
+    median = statistics.median(times[1:])
+    batch_s = variant.dataset.batch_size * TRAIN_SECONDS
+    print(f"[large] train step ms after the first: "
+          f"{[round(t, 2) for t in times[1:]]}; median {median:.2f} ms, "
+          f"{batch_s / (median / 1e3):.2f} training audio-s/s; "
+          f"max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
+          f"per step {expected}")
+
+    mix, src = batches[steps]
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        train_step(state, mix, src, lrc.lr, 0.4, gen)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    for name, n in K.launch_counts().items():
+        total[name] += n
+    kernels = kernel_events(prof)
+    print_trace("large", kernels, busy_us(kernels), window_us,
+                K.launch_counts(), "Large train step")
+    by_group = group_kernels(kernels)[0]
+    print(f"[large] traced train step: peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; K8's share "
+          f"of busy time {by_group['K8 gcfn_train_bwd'] / busy_us(kernels):.3f}")
+    del state, model, batches, watched, now, prof
+    torch.cuda.empty_cache()
+
+    # the step card against CPU at dropout 0, and a GCFN of F 256 at 0.1
+    cfg = dataclasses.replace(variant, model=dataclasses.replace(
+        variant.model, dropout=0.0))
+    train_against_cpu(torch, np, sep_torch, "large", cfg, {
+        "control, TF32 allowed": lambda: tf32_allowed(torch)})
+    gcfn_train_cpu(torch, np, f=256, p=variant.model.dropout, tag="large")
+
+    # one Large_DM_WHAM step: a speaker-split block per stage
+    wham = sep_torch.get_variant("SepReformer_Large_DM_WHAM")
+    state = create_train_state(wham, device="cuda",
+                               generator=torch.Generator().manual_seed(2))
+    splits = len(state.model.separator.spk_split_block)
+    mix, src = (a.cuda() for a in synthetic_batch(
+        torch, np, rng, wham.dataset.batch_size, wham.dataset.max_len))
+    metrics, counts = run(
+        "SepReformer_Large_DM_WHAM train step", lambda: {
+            k: float(v) for k, v in train_step(
+                state, mix, src, wham.optim.lr, 0.4, gen).items()},
+        TRAIN_SECONDS * wham.dataset.batch_size)
+    print(f"[large] SepReformer_Large_DM_WHAM step ({splits} speaker-split "
+          f"blocks): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                   metrics.items()))
+    assert splits == wham.model.num_stages + 1
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    got = {n: counts[n] for n in expected}
+    assert got == expected, (got, expected)
+    split_grads = [p.grad for n, p in state.model.named_parameters()
+                   if n.startswith("separator.spk_split_block.")]
+    assert all(g is not None and torch.isfinite(g).all() for g in
+               split_grads), "a split block without a finite gradient"
+    del state
+    torch.cuda.empty_cache()
+
+    # the CLI: two epochs, a resumed third, a test, on phase 8's corpus
+    counts = engine_phase(torch, np, K, model=LARGE, tag="large cli")
+    for name, n in counts.items():
+        total[name] += n
+
+    # the "pallas" train route: K13/K14 are not built at head width 32
+    cfg = apply_override(variant, "model.attention_train_impl", "pallas")
+    state = create_train_state(cfg, device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+    mix, src = (a.cuda() for a in synthetic_batch(torch, np, rng, 1,
+                                                  SAMPLE_RATE))
+    K.reset_launches()
+    try:
+        train_step(state, mix, src, o.lr, 0.4, gen)
+    except ValueError as exc:
+        message = str(exc)
+    else:
+        raise AssertionError("a Large step on the \"pallas\" route ran")
+    torch.cuda.synchronize()
+    launched = {n: c for n, c in K.launch_counts().items() if c}
+    print(f"[large] a Large step on the \"pallas\" route raises: {message}; "
+          f"launched before it: {launched}")
+    assert LARGE_TRAINING in message
+    assert launched.get("attention_train_fwd", 0) == 0
+    del state
 
 
 def main() -> int:
@@ -3193,8 +3442,8 @@ def main() -> int:
     # kernels' in serving, the train kernels' in training, K12's in
     # long-form serving, K6's, K13's and K14's on the routes, K15's and
     # K16's on the fused routes, the instances at Large's widths in Large's
-    # serving; K4, on no path, its launches summed over every phase's
-    # main-path runs, which must be 0
+    # serving and training; K4, on no path, its launches summed over every
+    # phase's main-path runs, which must be 0
     main_paths = (counts, train_counts, long_counts, route_counts,
                   fused_counts, large_counts)
     for row in kernels:

@@ -15,20 +15,26 @@
 // dxn = du win^T): 885 kflop.  Both run their products on the tensor cores
 // at float32 accuracy (3xTF32, mma_tf32x3.cuh): K7 9.4e9 operations at
 // 165 TFLOP/s, 0.057 ms at [4, 8000, 128]; K8 2.8e10, 0.17 ms, against
-// 66 MB of traffic and the scratch round trip below.
+// 66 MB of traffic and the scratch round trip below.  At Large's F=256
+// the products per row grow fourfold (0.229 and 0.686 ms at
+// [4, 8000, 256]) and the bytes twofold.
 //
 // K7 is K1's tile (gcfn_tile_mma.cuh: 62-row tiles, the hidden width in
 // chunks of staged weights) with no length mask and the two dropout
-// sites.
+// sites; two instances, F=128 at two blocks per SM and F=256 at one, as
+// K1's.
 //
 // K8 keeps what JAX's backward keeps (x, the parameters, the seed) and
 // recomputes the rest, in three hand-written kernels:
-//  1. rows: one block walks a fixed run of tiles of TT = 28 rows.  Per
+//  1. rows: one block of F/16 warps (8 at F=128, 16 at F=256; each warp
+//     owns 16 columns of F and 8 of a chunk's GLU pairs, so a thread's
+//     accumulators and its 128 registers are the same at both widths)
+//     walks a fixed run of tiles of TT = 28 rows.  Per
 //     tile it recomputes LN for the rows t0-2 .. t0+TT+1 (the transpose
 //     conv needs dy one row past each side, and dy there needs y, which
 //     needs u one row further: 32 rows, two m16 fragments) and do0 for
 //     t0-1 .. t0+TT, then walks the 6F hidden columns in six chunks of
-//     64 GLU pairs (columns c and c + 3F together, since the k3 conv and
+//     F/2 GLU pairs (columns c and c + 3F together, since the k3 conv and
 //     the GLU are per column): u, y and the dropout masks, g, dg, dy, du
 //     and the chunk's small gradients, with the chunk's four products on
 //     the tensor cores (u = xn win_c, o0 += g_c wout_c, dg_c = do0 wout_c^T,
@@ -45,11 +51,12 @@
 //     double-buffered with cp.async, each split's partial written apart.
 //  3. reduce: the partials of each split (or block) added in a fixed order.
 // No atomics: two runs give the same bits.  The launcher picks the
-// partition from B and T (BwdPartition): at most kRowGroups blocks of
-// pass 1 (two per SM) and kMaxSplits row splits, so the partial buffers,
+// partition from B and T (BwdPartition): at most one wave of blocks of
+// pass 1 (two per SM at F=128, 105 KB each; one at F=256, whose 16 warps
+// take 205 KB) and kMaxSplits row splits, so the partial buffers,
 // [blocks, 34F] and [splits, 9F^2] floats, stay at 5 MB and 19 MB at
-// [4, 8000, 128].  The caller sizes its one scratch buffer with
-// sep_gcfn_train_bwd_scratch_floats.
+// [4, 8000, 128] (4 and 75 MB at F=256).  The caller sizes its one
+// scratch buffer with sep_gcfn_train_bwd_scratch_floats.
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -60,15 +67,15 @@
 
 namespace {
 
-constexpr int kThreads = 256;    // K8's blocks
+constexpr int kReduceThreads = 256;  // K8's reduce blocks
 constexpr int kBwdTT = 28;       // K8 rows per tile: TT + 4 = 32 u rows
-constexpr int kCH = 64;          // K8 GLU pairs per hidden chunk
-constexpr int kRowGroups = 264;  // K8: at most this many blocks walk tiles
+constexpr int kSMs = 132;        // H100 SXM: K8's row pass fills one wave
 constexpr int kMaxSplits = 32;   // K8: at most this many row splits of the
                                  // weight products
 
 template <int F>
-__global__ void __launch_bounds__(gcfn_mma::kThreads, 2)
+__global__ void __launch_bounds__(gcfn_mma::kThreads,
+                                  gcfn_mma::Shape<F>::blocks_per_sm)
 gcfn_train_fwd_kernel(const float* __restrict__ x,
                       const float* __restrict__ lns,
                       const float* __restrict__ lnb,
@@ -102,12 +109,14 @@ struct Small {
                        ls = 3 * F + 5 * H6, size = 4 * F + 5 * H6;
 };
 
-// K8's row tile: TT rows, a hidden chunk of NC = 2 CH columns (CH GLU
-// pairs), and the shared-memory layout in floats.
+// K8's row tile: TT rows, a block of F/16 warps, a hidden chunk of
+// NC = 2 CH = F columns (CH GLU pairs), and the shared-memory layout in
+// floats.
 template <int F>
 struct BwdShape {
+  static constexpr int kWarps = F / 16, kThreads = 32 * kWarps;
   static constexpr int TT = kBwdTT, R4 = TT + 4, R2 = TT + 2;
-  static constexpr int H6 = 6 * F, H3 = 3 * F, CH = kCH, NC = 2 * CH;
+  static constexpr int H6 = 6 * F, H3 = 3 * F, CH = 8 * kWarps, NC = 2 * CH;
   static constexpr int chunks = H3 / CH;
   // row strides = 8 mod 32 floats (conflict-free A fragment loads)
   static constexpr int LX = F + 8, LU = NC + 8, LG = CH + 8;
@@ -116,10 +125,15 @@ struct BwdShape {
                        dgc = gc + 32 * LG, small = dgc + 32 * LG,
                        floats = small + Small<F>::size;
   static constexpr size_t smem_bytes = sizeof(float) * (size_t)floats;
-  static_assert(R4 == 32 && H3 % CH == 0 && F == 16 * (kThreads / 32) &&
-                    CH == 8 * (kThreads / 32),
+  // Blocks per SM, of an SM's 228 KB with 1 KB reserved per block: two at
+  // F = 128 (105 KB), one at F = 256 (205 KB); at most one wave of them.
+  static constexpr int blocks_per_sm = smem_bytes <= 113 * 1024 ? 2 : 1;
+  static constexpr int row_groups = kSMs * blocks_per_sm;
+  static_assert(R4 == 32 && H3 % CH == 0 && NC == F && kThreads == 2 * F,
                 "two m16 fragments of rows; a warp owns 16 columns of F "
-                "and 8 of a chunk's GLU pairs");
+                "and 8 of a chunk's GLU pairs; a thread per column of the "
+                "two small sums of steps 4 and 5");
+  static_assert(smem_bytes <= 227 * 1024, "at least one block per SM");
   static_assert(TT <= R2, "o0 and dxn of the tile rows fit u and y");
 };
 
@@ -127,11 +141,13 @@ struct BwdShape {
 // c*CH + j, the next CH their gates 3F + c*CH + j - CH.
 template <int F>
 __device__ __forceinline__ int hidden_col(int c, int j) {
-  return c * kCH + j + (j < kCH ? 0 : 3 * F - kCH);
+  constexpr int CH = BwdShape<F>::CH;
+  return c * CH + j + (j < CH ? 0 : 3 * F - CH);
 }
 
 template <int F>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(BwdShape<F>::kThreads,
+                                  BwdShape<F>::blocks_per_sm)
 gcfn_train_bwd_rows_kernel(
     const float* __restrict__ x, const float* __restrict__ dout,
     const float* __restrict__ lns, const float* __restrict__ lnb,
@@ -146,7 +162,7 @@ gcfn_train_bwd_rows_kernel(
   using P = Small<F>;
   constexpr int TT = S::TT, R4 = S::R4, R2 = S::R2, H6 = S::H6, H3 = S::H3,
                 CH = S::CH, NC = S::NC, LX = S::LX, LU = S::LU, LG = S::LG;
-  constexpr int kWarps = kThreads / 32;
+  constexpr int kThreads = S::kThreads, kWarps = S::kWarps;
   extern __shared__ __align__(16) float smem[];
   float* xn = smem + S::xn;    // [R4][LX] LN rows t0-2 .. t0+TT+1
   float* d0 = smem + S::d0;    // [32][LX] do0 rows t0-1 .. t0+TT, rows R2..
@@ -560,11 +576,11 @@ gcfn_train_bwd_atb_kernel(const float* __restrict__ A,
 }
 
 // out[l] = sum over s = 0, 1, ... of partial[s][l], in that order.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kReduceThreads)
 gcfn_train_bwd_reduce_kernel(const float* __restrict__ partial,
                              float* __restrict__ out, int splits,
                              long long len) {
-  const long long l = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long l = (long long)blockIdx.x * kReduceThreads + threadIdx.x;
   if (l >= len) return;
   float s = 0.f;
   for (int i = 0; i < splits; ++i) s += partial[(size_t)i * len + l];
@@ -573,44 +589,143 @@ gcfn_train_bwd_reduce_kernel(const float* __restrict__ partial,
 
 int reduce(const float* partial, float* out, int splits, long long len,
            cudaStream_t stream) {
-  const int blocks = (int)((len + kThreads - 1) / kThreads);
-  gcfn_train_bwd_reduce_kernel<<<blocks, kThreads, 0, stream>>>(
+  const int blocks = (int)((len + kReduceThreads - 1) / kReduceThreads);
+  gcfn_train_bwd_reduce_kernel<<<blocks, kReduceThreads, 0, stream>>>(
       partial, out, splits, len);
   return (int)cudaGetLastError();
 }
 
-// K8's partition of B x T rows at F = 128, and the floats of scratch it
+// K8's partition of B x T rows at width F, and the floats of scratch it
 // needs: xn, du, g and do0 of every row, then the partials of the row
 // pass's blocks and of the weight products' splits.
+template <int F>
 struct BwdPartition {
-  static constexpr int kF = 128;
   long long rows;
   int groups, splits;
   BwdPartition(int B, int T)
       : rows((long long)B * T),
         groups((int)std::min<long long>(
-            (long long)B * ((T + kBwdTT - 1) / kBwdTT), kRowGroups)),
+            (long long)B * ((T + kBwdTT - 1) / kBwdTT),
+            BwdShape<F>::row_groups)),
         splits((int)std::max<long long>(
             1, std::min<long long>(kMaxSplits, rows / 1024))) {}
   long long xn() const { return 0; }
-  long long du() const { return xn() + rows * kF; }
-  long long g() const { return du() + rows * 6 * kF; }
-  long long do0() const { return g() + rows * 3 * kF; }
-  long long small_partial() const { return do0() + rows * kF; }
+  long long du() const { return xn() + rows * F; }
+  long long g() const { return du() + rows * 6 * F; }
+  long long do0() const { return g() + rows * 3 * F; }
+  long long small_partial() const { return do0() + rows * F; }
   long long big_partial() const {
-    return small_partial() + (long long)groups * Small<kF>::size;
+    return small_partial() + (long long)groups * Small<F>::size;
   }
   long long floats() const {
-    return big_partial() + (long long)splits * 9 * kF * kF;
+    return big_partial() + (long long)splits * 9 * F * F;
   }
 };
+
+template <int F>
+int launch_fwd(const float* x, const float* lns, const float* lnb,
+               const float* win, const float* bin, const float* wdw,
+               const float* bdw, const float* wout, const float* bout,
+               const float* ls, float* out, int B, int T, float eps,
+               GcfnDrop drop, cudaStream_t s) {
+  constexpr int TT = gcfn_mma::kTT;
+  constexpr size_t smem = gcfn_mma::Shape<F>::smem_bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      gcfn_train_fwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err == cudaSuccess)  // room for Shape<F>::blocks_per_sm blocks
+    err = cudaFuncSetAttribute(gcfn_train_fwd_kernel<F>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((T + TT - 1) / TT, B);
+  gcfn_train_fwd_kernel<F><<<grid, gcfn_mma::kThreads, smem, s>>>(
+      x, lns, lnb, win, bin, wdw, bdw, wout, bout, ls, out, T, eps, drop);
+  return (int)cudaGetLastError();
+}
+
+template <int F>
+cudaError_t set_rows_attributes() {
+  return cudaFuncSetAttribute(gcfn_train_bwd_rows_kernel<F>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)BwdShape<F>::smem_bytes);
+}
+
+template <int F>
+int launch_bwd(const float* x, const float* dout, const float* lns,
+               const float* lnb, const float* win, const float* bin,
+               const float* wdw, const float* bdw, const float* wout,
+               const float* bout, const float* ls, float* dx,
+               float* grads_small, float* grads_big, float* scratch,
+               long long scratch_floats, int B, int T, float eps,
+               GcfnDrop drop, cudaStream_t s) {
+  constexpr int H6 = 6 * F, H3 = 3 * F;
+  const BwdPartition<F> part(B, T);
+  if (scratch_floats < part.floats()) return (int)cudaErrorInvalidValue;
+  float *xn = scratch + part.xn(), *du = scratch + part.du(),
+        *g = scratch + part.g(), *do0 = scratch + part.do0(),
+        *small_partial = scratch + part.small_partial(),
+        *big_partial = scratch + part.big_partial();
+  cudaError_t err = set_rows_attributes<F>();
+  if (err != cudaSuccess) return (int)err;
+  gcfn_train_bwd_rows_kernel<F>
+      <<<part.groups, BwdShape<F>::kThreads, BwdShape<F>::smem_bytes, s>>>(
+          x, dout, lns, lnb, win, bin, wdw, bdw, wout, bout, ls, dx, xn, du,
+          g, do0, small_partial, B, T, eps, drop);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  const int rows = B * T;
+  const int per_split = (rows + part.splits - 1) / part.splits;
+  const long long big = (long long)F * H6 + (long long)H3 * F;
+  gcfn_train_bwd_atb_kernel<<<dim3(H6 / kTN, F / kTM, part.splits),
+                              kAtbThreads, 0, s>>>(
+      xn, du, big_partial, rows, F, H6, per_split, big);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  gcfn_train_bwd_atb_kernel<<<dim3(F / kTN, H3 / kTM, part.splits),
+                              kAtbThreads, 0, s>>>(
+      g, do0, big_partial + (size_t)F * H6, rows, H3, F, per_split, big);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  int e = reduce(big_partial, grads_big, part.splits, big, s);
+  if (e) return e;
+  return reduce(small_partial, grads_small, part.groups, Small<F>::size, s);
+}
+
+// K7's and K8's row pass's blocks per SM, registers, local (spill) bytes
+// and warps per block at width F, into o[0 .. 3] and o[4 .. 7].
+template <int F>
+cudaError_t occupancy(int* o) {
+  constexpr int kSmem[2] = {(int)gcfn_mma::Shape<F>::smem_bytes,
+                            (int)BwdShape<F>::smem_bytes};
+  constexpr int kBlock[2] = {gcfn_mma::kThreads, BwdShape<F>::kThreads};
+  const void* kernels[2] = {(const void*)gcfn_train_fwd_kernel<F>,
+                            (const void*)gcfn_train_bwd_rows_kernel<F>};
+  cudaError_t err = cudaFuncSetAttribute(
+      gcfn_train_fwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem[0]);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(gcfn_train_fwd_kernel<F>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) err = set_rows_attributes<F>();
+  for (int k = 0; k < 2 && err == cudaSuccess; ++k) {
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernels[k]);
+    if (err != cudaSuccess) break;
+    o[4 * k + 1] = attr.numRegs;
+    o[4 * k + 2] = (int)attr.localSizeBytes;
+    o[4 * k + 3] = kBlock[k] / 32;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        o + 4 * k, kernels[k], kBlock[k], kSmem[k]);
+  }
+  return err;
+}
 
 }  // namespace
 
 // K7.  Pointers are device pointers to contiguous float32; win [F, 6F] and
 // wout [3F, F] are [in, out], wdw [6F, 3].  seed0 and seed1 are the seed
 // words of sites 0 and 1, threshold int(p * 2^24), scale 1 / (1 - p).
-// Built for Base's F = 128.
+// Built for Base's F = 128 and Large's F = 256.
 extern "C" int sep_gcfn_train_fwd_f32(
     const void* x, const void* lns, const void* lnb, const void* win,
     const void* bin, const void* wdw, const void* bdw, const void* wout,
@@ -619,38 +734,35 @@ extern "C" int sep_gcfn_train_fwd_f32(
     float scale, void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const GcfnDrop drop{seed0, seed1, threshold, scale};
+  float* o = static_cast<float*>(out);
   if (B <= 0 || T <= 0) return 0;
-  if (F != 128) return (int)cudaErrorInvalidValue;
-  constexpr int TT = gcfn_mma::kTT;
-  constexpr size_t smem = gcfn_mma::Shape<128>::smem_bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      gcfn_train_fwd_kernel<128>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess)  // room for two blocks per SM
-    err = cudaFuncSetAttribute(gcfn_train_fwd_kernel<128>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + TT - 1) / TT, B);
-  gcfn_train_fwd_kernel<128><<<grid, gcfn_mma::kThreads, smem, s>>>(
-      f(x), f(lns), f(lnb), f(win), f(bin), f(wdw), f(bdw), f(wout),
-      f(bout), f(ls), static_cast<float*>(out), T, eps,
-      GcfnDrop{seed0, seed1, threshold, scale});
-  return (int)cudaGetLastError();
+  if (F == 128)
+    return launch_fwd<128>(f(x), f(lns), f(lnb), f(win), f(bin), f(wdw),
+                           f(bdw), f(wout), f(bout), f(ls), o, B, T, eps,
+                           drop, s);
+  if (F == 256)
+    return launch_fwd<256>(f(x), f(lns), f(lnb), f(win), f(bin), f(wdw),
+                           f(bdw), f(wout), f(bout), f(ls), o, B, T, eps,
+                           drop, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The floats of scratch that sep_gcfn_train_bwd_f32 needs at B x T
-// (F = 128; 0 for other widths).
+// (F = 128 or 256; 0 for other widths).
 extern "C" long long sep_gcfn_train_bwd_scratch_floats(int B, int T, int F) {
-  if (B <= 0 || T <= 0 || F != 128) return 0;
-  return BwdPartition(B, T).floats();
+  if (B <= 0 || T <= 0) return 0;
+  if (F == 128) return BwdPartition<128>(B, T).floats();
+  if (F == 256) return BwdPartition<256>(B, T).floats();
+  return 0;
 }
 
 // K8.  Inputs as K7's plus dout [B, T, F].  Outputs: dx [B, T, F];
 // grads_small [34F] = dlns [F], dlnb [F], dbin [6F], dwdw [6F][3],
 // dbdw [6F], dbout [F], dls [F]; grads_big [F*6F + 3F*F] = dWin [F][6F],
 // dWout [3F][F].  scratch: scratch_floats >=
-// sep_gcfn_train_bwd_scratch_floats(B, T, F) floats.
+// sep_gcfn_train_bwd_scratch_floats(B, T, F) floats.  Built for F = 128
+// and 256.
 extern "C" int sep_gcfn_train_bwd_f32(
     const void* x, const void* dout, const void* lns, const void* lnb,
     const void* win, const void* bin, const void* wdw, const void* bdw,
@@ -662,39 +774,27 @@ extern "C" int sep_gcfn_train_bwd_f32(
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto w = [](void* p) { return static_cast<float*>(p); };
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const GcfnDrop drop{seed0, seed1, threshold, scale};
   if (B <= 0 || T <= 0) return 0;
-  const BwdPartition part(B, T);
-  if (F != 128 || scratch_floats < part.floats())
-    return (int)cudaErrorInvalidValue;
-  constexpr int kF = 128, H6 = 6 * kF, H3 = 3 * kF;
-  float* base = w(scratch);
-  float *xn = base + part.xn(), *du = base + part.du(), *g = base + part.g(),
-        *do0 = base + part.do0(), *small_partial = base + part.small_partial(),
-        *big_partial = base + part.big_partial();
-  constexpr size_t smem = BwdShape<kF>::smem_bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      gcfn_train_bwd_rows_kernel<kF>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  gcfn_train_bwd_rows_kernel<kF><<<part.groups, kThreads, smem, s>>>(
-      f(x), f(dout), f(lns), f(lnb), f(win), f(bin), f(wdw), f(bdw),
-      f(wout), f(bout), f(ls), w(dx), xn, du, g, do0, small_partial, B, T,
-      eps, GcfnDrop{seed0, seed1, threshold, scale});
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (F == 128)
+    return launch_bwd<128>(f(x), f(dout), f(lns), f(lnb), f(win), f(bin),
+                           f(wdw), f(bdw), f(wout), f(bout), f(ls), w(dx),
+                           w(grads_small), w(grads_big), w(scratch),
+                           scratch_floats, B, T, eps, drop, s);
+  if (F == 256)
+    return launch_bwd<256>(f(x), f(dout), f(lns), f(lnb), f(win), f(bin),
+                           f(wdw), f(bdw), f(wout), f(bout), f(ls), w(dx),
+                           w(grads_small), w(grads_big), w(scratch),
+                           scratch_floats, B, T, eps, drop, s);
+  return (int)cudaErrorInvalidValue;
+}
 
-  const int rows = B * T;
-  const int per_split = (rows + part.splits - 1) / part.splits;
-  const long long big = (long long)kF * H6 + (long long)H3 * kF;
-  gcfn_train_bwd_atb_kernel<<<dim3(H6 / kTN, kF / kTM, part.splits),
-                              kAtbThreads, 0, s>>>(
-      xn, du, big_partial, rows, kF, H6, per_split, big);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  gcfn_train_bwd_atb_kernel<<<dim3(kF / kTN, H3 / kTM, part.splits),
-                              kAtbThreads, 0, s>>>(
-      g, do0, big_partial + (size_t)kF * H6, rows, H3, kF, per_split, big);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  int e = reduce(big_partial, w(grads_big), part.splits, big, s);
-  if (e) return e;
-  return reduce(small_partial, w(grads_small), part.groups, Small<kF>::size,
-                s);
+// K7's then K8's row pass's blocks per SM, registers, local (spill) bytes
+// and warps per block at width F (128 or 256), with the launches'
+// attributes set, into out[0 .. 7].
+extern "C" int sep_gcfn_train_occupancy(int F, void* out) {
+  int* o = static_cast<int*>(out);
+  if (F == 128) return (int)occupancy<128>(o);
+  if (F == 256) return (int)occupancy<256>(o);
+  return (int)cudaErrorInvalidValue;
 }

@@ -55,6 +55,17 @@
 // A block whose keys all lie past lim writes zeros and reads nothing.
 // The products (dP of depth 16, dV) stay on the CUDA cores: about 8 us of
 // FMAs at [4, 8, 512, 512], under the 21 us of bytes.
+//
+// Two instances of each, by head width D: Base's 16 and Large's 32.  K9
+// at D = 32 is the tile's D = 32 instance (K3's).  K10 at D = 32 keeps
+// the design: a lane's two keys' V rows and dV partials and a dOut row
+// are 160 floats, so its block runs alone on its SM, at up to 255
+// registers, where D = 16's 80 floats let two blocks share one at 128.
+// To keep the bytes in flight that the second block gave, its ring has
+// twice the stages (8, 133 KB; 199 KB in K10b), filled kStages - 1 ahead;
+// a stage's dOut and out rows are D floats, the dV partials' rows D + 4,
+// their sum two float4s a thread.  Its FMAs double (16 us at [4, 8, 512,
+// 512]), still under the bytes' 21 us.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -63,7 +74,7 @@
 #include "mma_tf32x3.cuh"  // cp_async16, cp_async4 and their group helpers
 #include "softmax_pv_tile.cuh"
 
-using softmax_pv_tile::kBaseD;  // K9 and K9b: Base's head width
+using softmax_pv_tile::kBaseD;  // Base's head width (K9, K10 also take 32)
 
 namespace {
 
@@ -71,37 +82,41 @@ constexpr int kThreads = 256;            // K10
 constexpr int kWarps = kThreads / 32;
 constexpr int kKeyTile = 64;            // K10: keys per block
 constexpr int kStageRows = 32;          // K10: query rows per stage
-constexpr int kStages = 4;              // K10: stages in the ring
 
-template <int SPLIT, bool HAS_BIAS>
+template <int D, int SPLIT, bool HAS_BIAS>
 __global__ void __launch_bounds__(softmax_pv_tile::kThreads,
                                   HAS_BIAS ? softmax_pv_tile::kMinBlocksBias
                                            : softmax_pv_tile::kMinBlocks)
 softmax_pv_train_fwd_kernel(softmax_pv_tile::Args a) {
-  softmax_pv_tile::run<kBaseD, SPLIT, HAS_BIAS, true>(a);
+  softmax_pv_tile::run<D, SPLIT, HAS_BIAS, true>(a);
 }
 
-// K10's stage of the ring: kStageRows query rows of one (b, h) against the
-// block's kKeyTile keys, and what those rows need besides.
-template <bool HAS_BIAS>
+// K10's ring at head width D: kStages stages, each kStageRows query rows
+// of one (b, h) against the block's kKeyTile keys and what those rows
+// need besides; the blocks an SM holds (two at D = 16, one at D = 32,
+// whose lanes hold twice the floats).
+template <int D, bool HAS_BIAS>
 struct BwdStage {
+  static constexpr int kStages = D == 16 ? 4 : 8;
+  static constexpr int kBlocks = D == 16 ? 2 : 1;
   static constexpr int s = 0;                             // [rows][keys]
   static constexpr int bias = s + kStageRows * kKeyTile;  // the same, bias
   static constexpr int dout = bias + (HAS_BIAS ? kStageRows * kKeyTile : 0);
-  static constexpr int out = dout + kStageRows * 16;      // [rows][D]
-  static constexpr int m = out + kStageRows * 16;         // [rows] row max
+  static constexpr int out = dout + kStageRows * D;       // [rows][D]
+  static constexpr int m = out + kStageRows * D;          // [rows] row max
   static constexpr int l = m + kStageRows;                // [rows] row sum
   static constexpr int floats = l + kStageRows;
-  static constexpr int red_stride = 16 + 4;  // dV partial rows, 16-B aligned
+  static constexpr int red_stride = D + 4;  // dV partial rows, 16-B aligned
   static constexpr size_t smem_bytes =
       sizeof(float) * (size_t)kStages * floats;
   static_assert(kWarps * kKeyTile * red_stride <= kStages * floats,
                 "the dV partials fit over the ring");
   static_assert(floats % 4 == 0, "stages stay 16-byte aligned");
+  static_assert(smem_bytes <= 227 * 1024, "the ring fits one block");
 };
 
 template <int D, bool HAS_BIAS>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, (BwdStage<D, HAS_BIAS>::kBlocks))
 softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
                             const float* __restrict__ bias,
                             const float* __restrict__ v,
@@ -114,10 +129,12 @@ softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
                             float* __restrict__ dv, int H, int Lp, int F,
                             int length, uint32_t seed_word,
                             uint32_t threshold, float keep_scale) {
-  static_assert(D == 16, "a stage's dOut and out rows are 16 floats");
-  using S = BwdStage<HAS_BIAS>;
+  static_assert(D == 16 || D == 32, "head widths 16 and 32");
+  using S = BwdStage<D, HAS_BIAS>;
+  constexpr int kStages = S::kStages;
   constexpr int RW = kStageRows / kWarps;  // rows of a stage per warp
-  static_assert(RW <= 4, "a row's stats in a group of four lanes");
+  constexpr int PR = D / 4;                // float4s of a dOut or out row
+  static_assert(RW * PR <= 32, "a row's stats in a group of D/4 lanes");
   extern __shared__ __align__(16) float smem[];
 
   const int h = blockIdx.y, b = blockIdx.z;
@@ -180,12 +197,16 @@ softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
             tf32x3::cp_async4(st + S::bias + r * kKeyTile + j, bb + off, in);
         }
       }
-      {  // dOut rows (threads 0..127), then out rows
-        static_assert(2 * kStageRows * D / 4 == kThreads,
-                      "a 16-byte copy of dOut or out a thread");
-        const bool second = tid >= kStageRows * D / 4;
-        const int e = tid - (second ? kStageRows * D / 4 : 0);
-        const int r = e / (D / 4), c = 4 * (e % (D / 4));
+      // dOut rows (the first kStageRows * D / 4 copies), then out rows
+      static_assert(2 * kStageRows * PR % kThreads == 0,
+                    "16-byte copies of dOut and out, the same count a "
+                    "thread");
+#pragma unroll
+      for (int q = 0; q < 2 * kStageRows * PR / kThreads; ++q) {
+        const int e0 = tid + q * kThreads;
+        const bool second = e0 >= kStageRows * PR;
+        const int e = e0 - (second ? kStageRows * PR : 0);
+        const int r = e / PR, c = 4 * (e % PR);
         const bool in = i0 + r < Lp;
         const float* src = (second ? out : dout) +
                            ((size_t)b * Lp + (in ? i0 + r : 0)) * F + h * D +
@@ -234,19 +255,20 @@ softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
     const float* st = smem + (k % kStages) * S::floats;
     const int i0 = k * kStageRows;
 
-    // the warp's rows warp + kWarps * rr: lanes 4 rr .. 4 rr + 3 (and
-    // 16 later) take row rr's max, 1 / sum and dOut . out, a float4 of
-    // the dot each, and shuffle them to the warp per row
+    // the warp's rows warp + kWarps * rr: lanes PR rr .. PR rr + PR - 1
+    // (and at D = 16 again 16 later) take row rr's max, 1 / sum and
+    // dOut . out, a float4 of the dot each, and shuffle them to the warp
+    // per row
     float m_r, linv_r, dot_r;
     {
-      const int rr = (lane & 15) >> 2, c4 = lane & 3;
+      const int rr = (lane % (RW * PR)) / PR, c4 = lane % PR;
       const int r = warp + kWarps * rr;
       const float4 g =
           reinterpret_cast<const float4*>(st + S::dout + r * D)[c4];
       const float4 o = reinterpret_cast<const float4*>(st + S::out + r * D)[c4];
       float d = g.x * o.x + g.y * o.y + g.z * o.z + g.w * o.w;
-      d += __shfl_xor_sync(0xffffffffu, d, 1);
-      d += __shfl_xor_sync(0xffffffffu, d, 2);
+#pragma unroll
+      for (int x = 1; x < PR; x <<= 1) d += __shfl_xor_sync(0xffffffffu, d, x);
       dot_r = d;
       m_r = st[S::m + r];
       linv_r = 1.f / st[S::l + r];
@@ -255,9 +277,9 @@ softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
     for (int rr = 0; rr < RW; ++rr) {
       const int r = warp + kWarps * rr, i = i0 + r;
       if (i >= Lp) break;
-      const float m = __shfl_sync(0xffffffffu, m_r, 4 * rr);
-      const float linv = __shfl_sync(0xffffffffu, linv_r, 4 * rr);
-      const float rowdot = __shfl_sync(0xffffffffu, dot_r, 4 * rr);
+      const float m = __shfl_sync(0xffffffffu, m_r, PR * rr);
+      const float linv = __shfl_sync(0xffffffffu, linv_r, PR * rr);
+      const float rowdot = __shfl_sync(0xffffffffu, dot_r, PR * rr);
       float g[D];
 #pragma unroll
       for (int c4 = 0; c4 < D / 4; ++c4) {
@@ -317,64 +339,118 @@ softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
           make_float4(dvj[q][4 * c4], dvj[q][4 * c4 + 1], dvj[q][4 * c4 + 2],
                       dvj[q][4 * c4 + 3]);
   __syncthreads();
-  static_assert(kKeyTile * D / 4 == kThreads, "a float4 of dV a thread");
-  const int k = tid / (D / 4), c4 = tid % (D / 4);
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  static_assert(kKeyTile * PR % kThreads == 0,
+                "float4s of dV, the same count a thread");
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    const float4 t = *reinterpret_cast<const float4*>(
-        red + (w * kKeyTile + k) * S::red_stride + 4 * c4);
-    acc.x += t.x;
-    acc.y += t.y;
-    acc.z += t.z;
-    acc.w += t.w;
+  for (int q = 0; q < kKeyTile * PR / kThreads; ++q) {
+    const int e = tid + q * kThreads;
+    const int k = e / PR, c4 = e % PR;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float4 t = *reinterpret_cast<const float4*>(
+          red + (w * kKeyTile + k) * S::red_stride + 4 * c4);
+      acc.x += t.x;
+      acc.y += t.y;
+      acc.z += t.z;
+      acc.w += t.w;
+    }
+    if (j0 + k < Lp)
+      *reinterpret_cast<float4*>(dv + ((size_t)b * Lp + j0 + k) * F + h * D +
+                                 4 * c4) = acc;
   }
-  if (j0 + k < Lp)
-    *reinterpret_cast<float4*>(dv + ((size_t)b * Lp + j0 + k) * F + h * D +
-                               4 * c4) = acc;
 }
 
 template <int D, bool HAS_BIAS>
 cudaError_t set_bwd_attributes() {
   return cudaFuncSetAttribute(softmax_pv_train_bwd_kernel<D, HAS_BIAS>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)BwdStage<HAS_BIAS>::smem_bytes);
+                              (int)BwdStage<D, HAS_BIAS>::smem_bytes);
 }
 
 template <int D, bool HAS_BIAS>
-int launch_bwd(const float* scores, const float* bias, const float* v,
-               const float* out, const float* dout, const float* row_max,
-               const float* row_sum, const int* lens, float* dscores,
-               float* dv, int B, int H, int Lp, int F, int length,
+int launch_bwd(const void* scores, const void* bias, const void* v,
+               const void* out, const void* dout, const void* row_max,
+               const void* row_sum, const void* lens, void* dscores,
+               void* dv, int B, int H, int Lp, int F, int length,
                uint32_t seed_word, uint32_t threshold, float keep_scale,
-               cudaStream_t stream) {
+               void* stream) {
+  if (int err = softmax_pv_tile::check<D>(B, H, Lp, F, length)) return err;
   const cudaError_t err = set_bwd_attributes<D, HAS_BIAS>();
   if (err != cudaSuccess) return (int)err;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
   dim3 grid((Lp + kKeyTile - 1) / kKeyTile, H, B);
   softmax_pv_train_bwd_kernel<D, HAS_BIAS>
-      <<<grid, kThreads, BwdStage<HAS_BIAS>::smem_bytes, stream>>>(
-          scores, bias, v, out, dout, row_max, row_sum, lens, dscores, dv, H,
-          Lp, F, length, seed_word, threshold, keep_scale);
+      <<<grid, kThreads, BwdStage<D, HAS_BIAS>::smem_bytes,
+         static_cast<cudaStream_t>(stream)>>>(
+          f(scores), f(bias), f(v), f(out), f(dout), f(row_max), f(row_sum),
+          static_cast<const int*>(lens), static_cast<float*>(dscores),
+          static_cast<float*>(dv), H, Lp, F, length, seed_word, threshold,
+          keep_scale);
   return (int)cudaGetLastError();
+}
+
+// K9 (or K9b with a bias) at the head width D = F / H: Base's 16 or
+// Large's 32.
+template <bool HAS_BIAS>
+int launch_fwd(const void* scores, const void* bias, const void* v,
+               const void* lens, void* out, void* row_max, void* row_sum,
+               int B, int H, int Lp, int F, int length, uint32_t seed_word,
+               uint32_t threshold, float keep_scale, void* stream) {
+  if (H > 0 && F == 32 * H)
+    return softmax_pv_tile::launch<32>(
+        softmax_pv_train_fwd_kernel<32, 1, HAS_BIAS>,
+        softmax_pv_train_fwd_kernel<32, 2, HAS_BIAS>, scores, bias, v, lens,
+        out, row_max, row_sum, B, H, Lp, F, length, seed_word, threshold,
+        keep_scale, stream);
+  return softmax_pv_tile::launch<kBaseD>(
+      softmax_pv_train_fwd_kernel<kBaseD, 1, HAS_BIAS>,
+      softmax_pv_train_fwd_kernel<kBaseD, 2, HAS_BIAS>, scores, bias, v,
+      lens, out, row_max, row_sum, B, H, Lp, F, length, seed_word, threshold,
+      keep_scale, stream);
+}
+
+// K10 (or K10b) at the head width D = F / H.
+template <bool HAS_BIAS>
+int launch_bwd_any(const void* scores, const void* bias, const void* v,
+                   const void* out, const void* dout, const void* row_max,
+                   const void* row_sum, const void* lens, void* dscores,
+                   void* dv, int B, int H, int Lp, int F, int length,
+                   uint32_t seed_word, uint32_t threshold, float keep_scale,
+                   void* stream) {
+  if (B <= 0 || Lp <= 0) return 0;
+  const bool wide = H > 0 && F == 32 * H;
+  return (wide ? &launch_bwd<32, HAS_BIAS>
+               : &launch_bwd<kBaseD, HAS_BIAS>)(
+      scores, bias, v, out, dout, row_max, row_sum, lens, dscores, dv, B, H,
+      Lp, F, length, seed_word, threshold, keep_scale, stream);
+}
+
+template <int D, bool HAS_BIAS>
+cudaError_t bwd_blocks(int* n) {
+  cudaError_t err = set_bwd_attributes<D, HAS_BIAS>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n, softmax_pv_train_bwd_kernel<D, HAS_BIAS>, kThreads,
+        BwdStage<D, HAS_BIAS>::smem_bytes);
+  return err;
 }
 
 }  // namespace
 
 // scores: device float32 [B, H, Lp, Lp]; v, out: [B, Lp, F] with F = H*D
-// (D = 16, Base's head width); lens: device int32 [B], each >= 1;
-// row_max, row_sum: [B, H, Lp] outputs for the backward.  seed_word is
-// seed + 0 * 0x27D4EB2F (site 0), threshold int(p * 2^24), keep_scale
-// 1 / (1 - p); threshold 0 runs without dropout.
+// (D = 16, Base's head width, or 32, Large's); lens: device int32 [B],
+// each >= 1; row_max, row_sum: [B, H, Lp] outputs for the backward.
+// seed_word is seed + 0 * 0x27D4EB2F (site 0), threshold int(p * 2^24),
+// keep_scale 1 / (1 - p); threshold 0 runs without dropout.
 extern "C" int sep_softmax_pv_train_fwd_f32(
     const void* scores, const void* v, const void* lens, void* out,
     void* row_max, void* row_sum, int B, int H, int Lp, int F, int length,
     unsigned int seed_word, unsigned int threshold, float keep_scale,
     void* stream) {
-  return softmax_pv_tile::launch<kBaseD>(
-      softmax_pv_train_fwd_kernel<1, false>,
-      softmax_pv_train_fwd_kernel<2, false>, scores, nullptr, v, lens, out,
-      row_max, row_sum, B, H, Lp, F, length, seed_word, threshold,
-      keep_scale, stream);
+  return launch_fwd<false>(scores, nullptr, v, lens, out, row_max, row_sum,
+                           B, H, Lp, F, length, seed_word, threshold,
+                           keep_scale, stream);
 }
 
 // K9b: the same on scores + bias, bias a second [B, H, Lp, Lp] tensor.
@@ -383,11 +459,9 @@ extern "C" int sep_softmax_pv_train_fwd_bias_f32(
     void* out, void* row_max, void* row_sum, int B, int H, int Lp, int F,
     int length, unsigned int seed_word, unsigned int threshold,
     float keep_scale, void* stream) {
-  return softmax_pv_tile::launch<kBaseD>(
-      softmax_pv_train_fwd_kernel<1, true>,
-      softmax_pv_train_fwd_kernel<2, true>, scores, bias, v, lens, out,
-      row_max, row_sum, B, H, Lp, F, length, seed_word, threshold,
-      keep_scale, stream);
+  return launch_fwd<true>(scores, bias, v, lens, out, row_max, row_sum, B,
+                          H, Lp, F, length, seed_word, threshold, keep_scale,
+                          stream);
 }
 
 // The forward's inputs, its out, row_max and row_sum, and dout [B, Lp, F];
@@ -398,17 +472,10 @@ extern "C" int sep_softmax_pv_train_bwd_f32(
     void* dscores, void* dv, int B, int H, int Lp, int F, int length,
     unsigned int seed_word, unsigned int threshold, float keep_scale,
     void* stream) {
-  if (B <= 0 || Lp <= 0) return 0;
-  if (int err = softmax_pv_tile::check<kBaseD>(B, H, Lp, F, length))
-    return err;
-  return launch_bwd<16, false>(
-      static_cast<const float*>(scores), nullptr,
-      static_cast<const float*>(v), static_cast<const float*>(out),
-      static_cast<const float*>(dout), static_cast<const float*>(row_max),
-      static_cast<const float*>(row_sum), static_cast<const int*>(lens),
-      static_cast<float*>(dscores), static_cast<float*>(dv), B, H, Lp, F,
-      length, seed_word, threshold, keep_scale,
-      static_cast<cudaStream_t>(stream));
+  return launch_bwd_any<false>(scores, nullptr, v, out, dout, row_max,
+                               row_sum, lens, dscores, dv, B, H, Lp, F,
+                               length, seed_word, threshold, keep_scale,
+                               stream);
 }
 
 // K10b: the same with K9b's bias; dscores is also the bias's cotangent.
@@ -418,50 +485,43 @@ extern "C" int sep_softmax_pv_train_bwd_bias_f32(
     const void* lens, void* dscores, void* dv, int B, int H, int Lp, int F,
     int length, unsigned int seed_word, unsigned int threshold,
     float keep_scale, void* stream) {
-  if (B <= 0 || Lp <= 0) return 0;
-  if (int err = softmax_pv_tile::check<kBaseD>(B, H, Lp, F, length))
-    return err;
-  return launch_bwd<16, true>(
-      static_cast<const float*>(scores), static_cast<const float*>(bias),
-      static_cast<const float*>(v), static_cast<const float*>(out),
-      static_cast<const float*>(dout), static_cast<const float*>(row_max),
-      static_cast<const float*>(row_sum), static_cast<const int*>(lens),
-      static_cast<float*>(dscores), static_cast<float*>(dv), B, H, Lp, F,
-      length, seed_word, threshold, keep_scale,
-      static_cast<cudaStream_t>(stream));
+  return launch_bwd_any<true>(scores, bias, v, out, dout, row_max, row_sum,
+                              lens, dscores, dv, B, H, Lp, F, length,
+                              seed_word, threshold, keep_scale, stream);
 }
 
-// Blocks of K10 (the one-tensor form) that one SM holds at once, with the
-// launch's attributes set, into *blocks; K10b's into blocks[1].
+// Blocks that one SM holds at once, with the launch's attributes set, of
+// K10, K10b, K10 at D = 32 and K10b at D = 32, into blocks[0 .. 3].
 extern "C" int sep_softmax_pv_train_bwd_blocks_per_sm(void* blocks) {
   int* n = static_cast<int*>(blocks);
-  cudaError_t err = set_bwd_attributes<16, false>();
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        n, softmax_pv_train_bwd_kernel<16, false>, kThreads,
-        BwdStage<false>::smem_bytes);
-  if (err == cudaSuccess) err = set_bwd_attributes<16, true>();
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        n + 1, softmax_pv_train_bwd_kernel<16, true>, kThreads,
-        BwdStage<true>::smem_bytes);
+  cudaError_t err = bwd_blocks<kBaseD, false>(n);
+  if (err == cudaSuccess) err = bwd_blocks<kBaseD, true>(n + 1);
+  if (err == cudaSuccess) err = bwd_blocks<32, false>(n + 2);
+  if (err == cudaSuccess) err = bwd_blocks<32, true>(n + 3);
   return (int)err;
 }
 
 // The occupancy (softmax_pv_tile::occupancy) of K9 at SPLIT 1 and 2, then
-// of K9b at SPLIT 1 and 2, into out[0 .. 15].
+// of K9b at SPLIT 1 and 2, then the same four at D = 32, into
+// out[0 .. 31].
 extern "C" int sep_softmax_pv_train_fwd_occupancy(void* out) {
   int* o = static_cast<int*>(out);
-  cudaError_t err =
-      softmax_pv_tile::occupancy(softmax_pv_train_fwd_kernel<1, false>, o);
+  using softmax_pv_tile::occupancy;
+  cudaError_t err = occupancy(softmax_pv_train_fwd_kernel<kBaseD, 1, false>,
+                              o);
   if (err == cudaSuccess)
-    err = softmax_pv_tile::occupancy(softmax_pv_train_fwd_kernel<2, false>,
-                                     o + 4);
+    err = occupancy(softmax_pv_train_fwd_kernel<kBaseD, 2, false>, o + 4);
   if (err == cudaSuccess)
-    err = softmax_pv_tile::occupancy(softmax_pv_train_fwd_kernel<1, true>,
-                                     o + 8);
+    err = occupancy(softmax_pv_train_fwd_kernel<kBaseD, 1, true>, o + 8);
   if (err == cudaSuccess)
-    err = softmax_pv_tile::occupancy(softmax_pv_train_fwd_kernel<2, true>,
-                                     o + 12);
+    err = occupancy(softmax_pv_train_fwd_kernel<kBaseD, 2, true>, o + 12);
+  if (err == cudaSuccess)
+    err = occupancy(softmax_pv_train_fwd_kernel<32, 1, false>, o + 16);
+  if (err == cudaSuccess)
+    err = occupancy(softmax_pv_train_fwd_kernel<32, 2, false>, o + 20);
+  if (err == cudaSuccess)
+    err = occupancy(softmax_pv_train_fwd_kernel<32, 1, true>, o + 24);
+  if (err == cudaSuccess)
+    err = occupancy(softmax_pv_train_fwd_kernel<32, 2, true>, o + 28);
   return (int)err;
 }

@@ -75,6 +75,9 @@ SIGNATURES = {
                                                              _F, _P],
     # B, T, F -> floats of K8's scratch
     "sep_gcfn_train_bwd_scratch_floats": [_I, _I, _I],
+    # F, int out[8] -> K7's, then K8's row pass's, blocks per SM,
+    # registers, local bytes, warps
+    "sep_gcfn_train_occupancy": [_I, _P],
     # q, k, v, table, lens, out, B, L, H, D, maxlen, stream
     "sep_flash_relpos_f32": [_P] * 6 + [_I] * 5 + [_P],
     # x, dy, dw, db, partial, partial_floats, B, T, C, K, stream
@@ -102,12 +105,13 @@ SIGNATURES = {
     "sep_ega_gcfn_blocks_per_sm": [_P],
     # int blocks[2] -> K15's blocks per SM, the GLU launch and the tail
     "sep_cla_blocks_per_sm": [_P],
-    # int* blocks -> K10's (and K10b's) blocks per SM
+    # int blocks[4] -> K10's and K10b's blocks per SM, at head widths 16
+    # and 32
     "sep_softmax_pv_train_bwd_blocks_per_sm": [_P],
     # int out[24] -> K3's and K3b's blocks per SM, registers, local bytes,
     # warps, at SPLIT 1 and 2, then K3's at head width 32
     "sep_softmax_pv_occupancy": [_P],
-    # int out[16] -> the same of K9 and K9b
+    # int out[32] -> the same of K9 and K9b, at head widths 16 and 32
     "sep_softmax_pv_train_fwd_occupancy": [_P],
     # B, T, C, K, with_dx -> floats of K5's (K6's) scratch
     "sep_depthwise_bwd_partial_floats": [_I] * 5,
@@ -185,17 +189,18 @@ def library() -> ctypes.CDLL:
 
 
 # The ROADMAP items, by title, that build the widths a kernel is not built
-# for: Large's (F 256, head width 32) train kernels, the T/S/M presets'
-# widths (F 64, 96, 160; head widths 8, 12, 20), and the fused eval
-# blocks at Large's width.
-LARGE_TRAINING = "ROADMAP.md queue A, Large training"
+# for: the "pallas" train route's kernels (K13/K14) at Large's head width
+# 32, the T/S/M presets' widths (F 64, 96, 160; head widths 8, 12, 20),
+# and the fused eval blocks at Large's width.
+LARGE_TRAINING = 'ROADMAP.md queue A, Large training on the "pallas" route'
 OTHER_PRESETS = "ROADMAP.md queue A, T/S/M"
 FUSED_WIDTHS = "ROADMAP.md queue B, other widths"
 
 
 def train_todo(value: int, large: int) -> str:
-    """The ROADMAP item that builds a train kernel at width ``value``:
-    "Large training" for Large's width ``large``, else the T/S/M item."""
+    """The ROADMAP item that builds a "pallas"-route train kernel at
+    width ``value``: "Large training on the "pallas" route" for Large's
+    width ``large``, else the T/S/M item."""
     return LARGE_TRAINING if value == large else OTHER_PRESETS
 
 

@@ -32,10 +32,12 @@ from sepreformer_torch.ops.kernels.hash_dropout import (
     threshold,
 )
 from sepreformer_torch.ops.kernels.softmax_pv import NEG_INF, _key_lens
-from sepreformer_torch.ops.kernels.softmax_pv_train import TRAIN_HEAD_DIMS
 
 MAX_LENGTH = 512   # the JAX kernel is single-block: one [L, L] tile
 BLOCK = 128
+# K13's and K14's instance: Base's head width 16 (Large's 32 is the
+# ROADMAP item "Large training on the "pallas" route")
+TRAIN_HEAD_DIMS = (16,)
 
 
 def supported_length(length: int) -> bool:

@@ -19,7 +19,8 @@ them at every dropout rate.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import ctypes
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -61,9 +62,8 @@ def gcfn_train_bwd_plain(x, params, eps, seed, p, dout
     return grads[0], tuple(grads[1:])
 
 
-# K7's and K8's instance: Base's F = 128 (Large's 256 is the ROADMAP item
-# "Large training")
-TRAIN_WIDTHS = (128,)
+# K7's and K8's instances: Base's F = 128 and Large's 256
+TRAIN_WIDTHS = (128, 256)
 
 
 def _hash_args(seed, p):
@@ -74,7 +74,7 @@ def _hash_args(seed, p):
 def gcfn_train_fwd(x, params, eps, seed, p) -> torch.Tensor:
     """K7 on CUDA tensors: ``gcfn_train_plain``'s output."""
     check_params("gcfn_train_fwd", x, params, TRAIN_WIDTHS,
-                 _build.train_todo(x.shape[-1], 256))
+                 _build.OTHER_PRESETS)
     b, t, f = x.shape
     out = torch.empty_like(x)
     err = _build.library().sep_gcfn_train_fwd_f32(
@@ -91,7 +91,7 @@ def gcfn_train_bwd(x, params, eps, seed, p, dout
     of ``params``), deterministic: the row pass, the weight products and
     the ordered reductions of their partials, with no atomics."""
     check_params("gcfn_train_bwd", x, params, TRAIN_WIDTHS,
-                 _build.train_todo(x.shape[-1], 256))
+                 _build.OTHER_PRESETS)
     b, t, f = x.shape
     _build.check_tensor(dout, "gcfn_train_bwd dout", (b, t, f), x.device)
     h6, h3 = 6 * f, 3 * f
@@ -114,6 +114,18 @@ def gcfn_train_bwd(x, params, eps, seed, p, dout
     dwin, dwout = torch.split(big, [f * h6, h3 * f])
     return dx, (dlns, dlnb, dwin.view(f, h6), dbin, dwdw.view(h6, 3), dbdw,
                 dwout.view(h3, f), dbout, dls)
+
+
+def occupancy(f: int) -> Dict[str, Dict[str, int]]:
+    """K7's and K8's row pass's blocks per SM, registers, local (spill)
+    bytes and warps per block at width ``f`` on the current card."""
+    out = (ctypes.c_int * 8)()
+    _build.check_launch("sep_gcfn_train_occupancy",
+                        _build.library().sep_gcfn_train_occupancy(
+                            f, ctypes.addressof(out)))
+    keys = ("blocks_per_sm", "registers", "local_bytes", "warps")
+    return {name: dict(zip(keys, out[4 * i:4 * i + 4]))
+            for i, name in enumerate((f"K7 F={f}", f"K8 rows F={f}"))}
 
 
 gcfn_train_fwd.launches = 0
@@ -139,8 +151,8 @@ def fused_gcfn_train(x: torch.Tensor, params: Sequence[torch.Tensor],
     """The train GCFN with a gradient: x [B, T, F] float32, ``params`` as
     ``gcfn_plain``'s, the int hash ``seed``, the drop rate ``p``.  CPU
     tensors take ``gcfn_train_plain`` and its autograd; CUDA tensors
-    launch K7, and K8 in the backward (F=128 only; other widths raise,
-    naming the ROADMAP item that builds them)."""
+    launch K7, and K8 in the backward (F 128 and 256; other widths
+    raise, naming the ROADMAP item that builds them)."""
     if x.device.type == "cpu":
         return gcfn_train_plain(x, params, eps, seed, p)
     return _GcfnTrain.apply(x, float(eps), int(seed), float(p), *params)

@@ -11,7 +11,7 @@ package's ``custom_vjp`` recomputes its reference.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -133,15 +133,15 @@ def softmax_pv(scores: torch.Tensor, v: torch.Tensor,
     return _with_grad(_launch, scores, v, key_len, length, bias)
 
 
-def tile_occupancy(entry: str, form: str, wide: bool = False
+def tile_occupancy(entry: str, form: str, wide: Tuple[str, ...] = ()
                    ) -> Dict[str, Dict[str, int]]:
     """Blocks per SM, registers, local (spill) bytes and warps per block of
     the kernels that ``entry`` reports (csrc/softmax_pv_tile.cuh's
-    ``occupancy``: ``form`` at SPLIT 1 and 2, then its bias form, and with
-    ``wide`` then ``form`` at head width 32), on the current card."""
+    ``occupancy``: ``form`` at SPLIT 1 and 2, then its bias form, then
+    each form of ``wide`` ("" the one-tensor form, "b" the bias form) at
+    head width 32), on the current card."""
     names = [f"{form}{b} split {s}" for b in ("", "b") for s in (1, 2)]
-    if wide:
-        names += [f"{form} d=32 split {s}" for s in (1, 2)]
+    names += [f"{form}{b} d=32 split {s}" for b in wide for s in (1, 2)]
     out = (ctypes.c_int * (4 * len(names)))()
     _build.check_launch(entry, getattr(_build.library(), entry)(
         ctypes.addressof(out)))
@@ -153,7 +153,7 @@ def tile_occupancy(entry: str, form: str, wide: bool = False
 def occupancy() -> Dict[str, Dict[str, int]]:
     """K3's (at head widths 16 and 32) and K3b's launches on the current
     card."""
-    return tile_occupancy("sep_softmax_pv_occupancy", "K3", wide=True)
+    return tile_occupancy("sep_softmax_pv_occupancy", "K3", wide=("",))
 
 
 softmax_pv.launches = 0

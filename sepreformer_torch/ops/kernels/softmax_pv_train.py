@@ -15,7 +15,7 @@ the same probabilities for the same seed.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -32,9 +32,8 @@ from sepreformer_torch.ops.kernels.softmax_pv import (
 )
 
 MAX_LENGTH = 512   # the JAX package's train kernel's padded-length limit
-# the train attention kernels' instance (K9/K10 and K13/K14): Base's head
-# width 16 (Large's 32 is the ROADMAP item "Large training")
-TRAIN_HEAD_DIMS = (16,)
+# K9/K10's (and K9b/K10b's) instances: Base's head width 16 and Large's 32
+TRAIN_HEAD_DIMS = (16, 32)
 
 
 def _drop_scale(seed: int, b: int, h: int, lp: int, p: float,
@@ -112,7 +111,7 @@ def _check(scores, v, length, bias=None):
         raise ValueError(f"softmax_pv_dropout: width {f} is not a multiple "
                          f"of the {h} heads")
     _build.check_width("softmax_pv_dropout", "head dim", f // h,
-                       TRAIN_HEAD_DIMS, _build.train_todo(f // h, 32))
+                       TRAIN_HEAD_DIMS, _build.OTHER_PRESETS)
     if not 1 <= length <= lp:
         raise ValueError(f"softmax_pv_dropout: length {length} outside "
                          f"[1, {lp}]")
@@ -203,19 +202,22 @@ def softmax_pv_train_bwd_bias(scores, bias, v, out, dout, row_max, row_sum,
     return res
 
 
-def bwd_blocks_per_sm() -> Tuple[int, int]:
-    """How many blocks of K10 and of K10b one SM of the current card holds
-    at once, with the launches' shared-memory attributes set."""
-    blocks = (ctypes.c_int * 2)()
+def bwd_blocks_per_sm() -> Dict[str, int]:
+    """How many blocks of K10 and of K10b, at head widths 16 and 32, one
+    SM of the current card holds at once, with the launches' shared-memory
+    attributes set."""
+    blocks = (ctypes.c_int * 4)()
     _build.check_launch("sep_softmax_pv_train_bwd_blocks_per_sm",
                         _build.library().sep_softmax_pv_train_bwd_blocks_per_sm(
                             ctypes.addressof(blocks)))
-    return blocks[0], blocks[1]
+    return dict(zip(("K10", "K10b", "K10 d=32", "K10b d=32"), blocks))
 
 
 def fwd_occupancy():
-    """K9's and K9b's launches on the current card (``tile_occupancy``)."""
-    return tile_occupancy("sep_softmax_pv_train_fwd_occupancy", "K9")
+    """K9's and K9b's launches on the current card, at head widths 16 and
+    32 (``tile_occupancy``)."""
+    return tile_occupancy("sep_softmax_pv_train_fwd_occupancy", "K9",
+                          wide=("", "b"))
 
 
 softmax_pv_train_fwd.launches = 0

@@ -215,8 +215,9 @@ K10_SHAPES = [(512, 500, (500, 313, 438, 1)), (136, 130, (130, 67, 1, 129)),
               (640, 600, (600, 1, 577, 65))]
 
 
-def softmax_pv_train_case(gen, device, lp, length, lens, ragged, bias):
-    b, h, d = 4, 8, 16
+def softmax_pv_train_case(gen, device, lp, length, lens, ragged, bias,
+                          d=16):
+    b, h = 4, 8
     scores = (torch.randn(b, h, lp, lp, generator=gen) * 3).to(device)
     extra = ((torch.randn(b, h, lp, lp, generator=gen) * 2).to(device)
              if bias else None)
@@ -908,9 +909,10 @@ def test_fused_block_gradients_on_the_card(cuda_device):
 
 # ---------------------------------------------------------------- Large
 # The instances at Large's widths: K1 at F 256 (one block per SM), K3 and
-# K12 at head width 32, each against its plain version and bit-equal on a
-# repeat call; and the Base instances of K1, K3, K9, K12 and K13 against
-# the SHA-1 of their outputs on fixed-seed inputs, as the tree before the
+# K12 at head width 32, K7/K8 at F 256, K9/K10 and K9b/K10b at head width
+# 32, each against its plain version and bit-equal on a repeat call; and
+# the Base instances of K1, K3, K7, K8, K9, K10, K12 and K13 against the
+# SHA-1 of their outputs on fixed-seed inputs, as the trees before the
 # Large instances gave them on an H100 (``base_digests``).
 
 @pytest.mark.cuda
@@ -983,9 +985,115 @@ def test_flash_kernel_d32_matches_plain(cuda_device, b, length, maxlen,
     assert torch.equal(got, again)
 
 
+@pytest.mark.cuda
+# K8's row tile is 28 rows and K7's 62: T 20 is under one tile, 65 and
+# 129 end a few rows into one, 77 and 125 end in a partial tile of both;
+# 8000 is Large's widest GCFN of a B=2 x 4 s train batch (B*spks = 4 rows
+# at the decoder's first stage), p 0.1 its dropout
+@pytest.mark.parametrize("b,t,p", [(1, 20, 0.0), (1, 20, 0.1), (2, 65, 0.1),
+                                   (3, 77, 0.0), (3, 77, 0.1), (2, 125, 0.1),
+                                   (3, 129, 0.0), (2, 8000, 0.1)])
+def test_gcfn_train_kernels_f256_match_plain(cuda_device, b, t, p):
+    x, params, dout = gcfn_train_case(cuda_device, b, t, 256, seed=t + 256)
+    before = (gcfn_train_fwd.launches, gcfn_train_bwd.launches)
+    out = gcfn_train_fwd(x, params, 1e-5, 4321, p)
+    out_again = gcfn_train_fwd(x, params, 1e-5, 4321, p)
+    dx, dparams = gcfn_train_bwd(x, params, 1e-5, 4321, p, dout)
+    again = gcfn_train_bwd(x, params, 1e-5, 4321, p, dout)
+    torch.cuda.synchronize()
+    assert (gcfn_train_fwd.launches, gcfn_train_bwd.launches) == (
+        before[0] + 2, before[1] + 2)
+    torch.testing.assert_close(out, gcfn_train_plain(x, params, 1e-5, 4321,
+                                                     p), rtol=1e-4, atol=1e-4)
+    ref_dx, ref_dparams = gcfn_train_bwd_plain(x, params, 1e-5, 4321, p,
+                                               dout)
+    assert_grads_close((dx, *dparams), (ref_dx, *ref_dparams))
+    # no atomics: the same bits every run
+    assert torch.equal(out, out_again)
+    assert all(torch.equal(g, a) for g, a in zip((dx, *dparams),
+                                                 (again[0], *again[1])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lp,length,lens", K10_SHAPES)
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("bias", [False, True])
+def test_softmax_pv_train_kernels_d32_match_plain(cuda_device, p, ragged,
+                                                  lp, length, lens, bias):
+    """K9/K10 (K9b/K10b with ``bias``) at head width 32 on K10's shapes:
+    against the plain versions, bit-equal on a repeat call."""
+    gen = torch.Generator().manual_seed(lp + 32)
+    scores, extra, v, dout, lens, key_len = softmax_pv_train_case(
+        gen, cuda_device, lp, length, lens, ragged, bias, d=32)
+    if bias:
+        fwd = lambda: softmax_pv_train_fwd_bias(  # noqa: E731
+            scores, extra, v, 1234, key_len, length, p)
+        bwd = lambda o, r, s: softmax_pv_train_bwd_bias(  # noqa: E731
+            scores, extra, v, o, dout, r, s, 1234, key_len, length, p)
+    else:
+        fwd = lambda: softmax_pv_train_fwd(  # noqa: E731
+            scores, v, 1234, key_len, length, p)
+        bwd = lambda o, r, s: softmax_pv_train_bwd(  # noqa: E731
+            scores, v, o, dout, r, s, 1234, key_len, length, p)
+    out, row_max, row_sum = fwd()
+    fwd_again = fwd()
+    ds, dv = bwd(out, row_max, row_sum)
+    again = bwd(out, row_max, row_sum)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out, softmax_pv_dropout_plain(scores, v, 1234, lens, length, p,
+                                      extra), **CARD_TOL)
+    ds_ref, dv_ref = softmax_pv_dropout_bwd_plain(scores, v, 1234, lens,
+                                                  length, p, dout, extra)
+    torch.testing.assert_close(ds, ds_ref, **CARD_TOL)
+    torch.testing.assert_close(dv, dv_ref, rtol=1e-4, atol=1e-4)
+    assert torch.equal(ds, again[0]) and torch.equal(dv, again[1])
+    assert all(torch.equal(a, b) for a, b in zip((out, row_max, row_sum),
+                                                 fwd_again))
+
+
+@pytest.mark.cuda
+def test_large_train_kernels_gradient_on_the_card(cuda_device):
+    """The autograd functions at Large's widths: a GCFN of F 256 (K7, K8)
+    and softmax_pv_dropout at head width 32 (K9, K10; K9b, K10b with a
+    bias), each gradient against the plain version's autograd."""
+    from sepreformer_torch.models.blocks import GCFN
+
+    gen = torch.Generator().manual_seed(256)
+    gcfn = GCFN(256).to(cuda_device)
+    with torch.no_grad():
+        for prm in gcfn.parameters():
+            prm.copy_(torch.randn(prm.shape, generator=gen) * 0.2)
+    x = torch.randn(2, 300, 256, generator=gen).to(cuda_device)
+    grads = []
+    for fn in (fused_gcfn_train, gcfn_train_plain):
+        gcfn.zero_grad()
+        fn(x, gcfn.params(), 1e-5, 99, 0.1).square().sum().backward()
+        grads.append([prm.grad.clone() for prm in gcfn.parameters()])
+    for g, r in zip(*grads):
+        torch.testing.assert_close(g, r, rtol=1e-4,
+                                   atol=1e-5 * r.abs().max().item())
+    b, h, lp, d, length = 2, 8, 128, 32, 100
+    scores, extra = (torch.randn(b, h, lp, lp, generator=gen).to(cuda_device)
+                     for _ in range(2))
+    v = torch.randn(b, lp, h * d, generator=gen).to(cuda_device)
+    g = torch.randn(b, length, h * d, generator=gen).to(cuda_device)
+    for bias in (None, extra):
+        grads = []
+        for fn in (softmax_pv_dropout, softmax_pv_dropout_plain):
+            leaves = [a.clone().requires_grad_() for a in (scores, v)]
+            kw = {} if bias is None else {"bias": bias}
+            out = fn(leaves[0], leaves[1], 9, None, length, 0.1, **kw)
+            (out[:, :length] * g).sum().backward()
+            grads.append([a.grad for a in leaves])
+        for got, ref in zip(*grads):
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+
+
 def base_digests(device):
-    """SHA-1 of the outputs of the Base instances of K1, K3, K9, K12 and
-    K13 on inputs drawn from fixed CPU seeds."""
+    """SHA-1 of the outputs of the Base instances of K1, K3, K7, K8, K9,
+    K10, K12 and K13 on inputs drawn from fixed CPU seeds."""
     import hashlib
 
     def sha(t):
@@ -1006,7 +1114,11 @@ def base_digests(device):
     table = randn(4000, 16)
     qh, kh, vh = randn(4, 8, 500, 16), randn(4, 8, 500, 16), randn(4, 8, 500,
                                                                   16)
+    dout, dout_a = randn(2, 500, 128), randn(4, 512, 128)
+    flat = lambda ts: torch.cat([a.flatten() for a in ts])  # noqa: E731
     with torch.no_grad():
+        stats = softmax_pv_train_fwd(scores, v, 1234, full, 500, 0.05)
+        dx, dparams = gcfn_train_bwd(x, params, 1e-5, 4321, 0.05, dout)
         return {
             "K1": sha(fused_gcfn(x, params, 1e-5,
                                  torch.tensor([500, 321], device=device))),
@@ -1018,17 +1130,26 @@ def base_digests(device):
                                                     device=device))),
             "K13": sha(torch.cat([a.flatten() for a in attention_train_fwd(
                 qh, kh, vh, table, 2000, 4321, 0.05, full)])),
+            "K7": sha(gcfn_train_fwd(x, params, 1e-5, 4321, 0.05)),
+            "K8": sha(flat((dx, *dparams))),
+            "K10": sha(flat(softmax_pv_train_bwd(
+                scores, v, stats[0], dout_a, stats[1], stats[2], 1234, full,
+                500, 0.05))),
         }
 
 
-# base_digests on an H100 80GB HBM3 with the kernels of the tree before
-# the Large instances (5a5dd13)
+# base_digests on an H100 80GB HBM3 with the kernels of the trees before
+# the Large instances: K1, K3, K9, K12 and K13 before the eval instances
+# (5a5dd13), K7, K8 and K10 before the train instances (31c48ab)
 BASE_DIGESTS = {
     "K1": "e21e7e336d1ac95e22863f016c23a600d9edfdd4",
     "K3": "db2d328a28c02de0b04b0d146050158f76028b30",
     "K9": "55387d40c5cd50b24d2add365b24df22fb73c6f5",
     "K12": "fbc42492ea022fe8e9647013609dcfaca0c51055",
     "K13": "4a44c20dcf55254a7bc1ec83ea067b410b15c16c",
+    "K7": "c9f81e0a370934174fcac7aee4cec0395444de18",
+    "K8": "adfea2ece94702516359d4301ab5c543d08b9208",
+    "K10": "d28b1f1b3b6c13fb6dd463ab74e492ca6df827ca",
 }
 
 

@@ -15,10 +15,12 @@ the CPU (no JAX).
 - A wrapper asked for a width its kernel is not built for raises before
   anything launches, naming the ROADMAP item that builds it (meta
   tensors stand for the card's: a wrapper takes its plain version only
-  for CPU tensors): a Large train step's kernels (K7/K8 at F 256, K9/K10
-  and K13/K14 at head width 32) name "Large training", K15/K16 at F 256
-  and K3b at 32 "other widths", K1, K3 and K12 at the T/S/M widths
-  "T/S/M"; K1 at 256 and K3 and K12 at 32 pass the width check.
+  for CPU tensors): the "pallas" train route's K13/K14 at head width 32
+  name "Large training on the "pallas" route", K15/K16 at F 256 and K3b
+  at 32 "other widths", K1, K3 and K12 at the T/S/M widths "T/S/M".  K1
+  at 256 and K3 and K12 at 32 pass the width check, and so do a Large
+  train step's kernels on the default route: K7/K8 at F 256, K9/K10 and
+  K9b/K10b at head width 32.
 """
 
 import dataclasses
@@ -191,6 +193,9 @@ def cla_args(f):
 
 
 def large_train_calls():
+    """A Large train step's kernels at Large's widths, on meta tensors:
+    the default route's, which are built, and the "pallas" route's
+    K13/K14, which are not."""
     x, params = gcfn_args(256)
     scores, v = meta(1, 8, 128, 128), meta(1, 128, 256)
     q, table = meta(1, 8, 64, 32), meta(64, 32)
@@ -200,16 +205,30 @@ def large_train_calls():
         "K7/K8 autograd": lambda: K.fused_gcfn_train(x, params, 1e-5, 1,
                                                      0.1),
         "K9/K10": lambda: K.softmax_pv_dropout(scores, v, 1, None, 100, 0.1),
+        "K9b/K10b": lambda: K.softmax_pv_dropout(scores, v, 1, None, 100,
+                                                 0.1, bias=scores),
         "K13/K14": lambda: K.flash_relpos_attention_train(q, q, q, table, 1,
                                                           32, 0.1),
     }
 
 
-@pytest.mark.parametrize("kernel", list(large_train_calls()))
+LARGE_TRAIN_BUILT = ("K7", "K8", "K7/K8 autograd", "K9/K10", "K9b/K10b")
+
+
+@pytest.mark.parametrize("kernel", ["K13/K14"])
 def test_large_train_kernels_name_their_roadmap_item(kernel):
     with pytest.raises(ValueError,
-                       match="not built yet: ROADMAP.md queue A, Large "
-                             "training"):
+                       match='head dim 32 .*not built yet: ROADMAP.md queue '
+                             'A, Large training on the "pallas" route'):
+        large_train_calls()[kernel]()
+
+
+@pytest.mark.parametrize("kernel", LARGE_TRAIN_BUILT)
+def test_large_train_kernels_pass_the_width_check(kernel):
+    """K7/K8 at F 256 and K9/K10 and K9b/K10b at head width 32 are built:
+    their wrappers refuse the meta tensors only for not lying on a
+    card."""
+    with pytest.raises(ValueError, match="expected meta .*CUDA"):
         large_train_calls()[kernel]()
 
 
