@@ -57,15 +57,19 @@ Phases, each of which fails the run:
                serving path gives them, each against its plain version
                and bit-equal on a repeat call, with its times and bound:
                K1 at [4, 8000, 256], K2 at [512, 32, 512] from a [4000,
-               32] table (its grid and blocks per SM), K3 at [8, 8, 512,
-               512] with head width 32 (ragged), K12 at [2, 8750, 256]
-               with head width 32; and at the shapes Large's train step
-               gives them (dropout 0.1): K5 at [2, 8000, 256], K7 and K8
-               at [4, 8000, 256] (their blocks per SM, registers and
-               spills, K8 by launch, K7 against float64), K9 and K10 at
-               [4, 8, 512, 512] with head width 32 (length 500), K9b and
-               K10b beside them; K9's and K10's blocks per SM at both
-               head widths.
+               32] table (its grid and blocks per SM), K3 and K3b at [8,
+               8, 512, 512] with head width 32 (ragged), K12 at [2, 8750,
+               256] with head width 32; and at the shapes Large's train
+               step gives them (dropout 0.1): K5 at [2, 8000, 256], K7
+               and K8 at [4, 8000, 256] (their blocks per SM, registers
+               and spills, K8 by launch, K7 against float64), K9 and K10
+               at [4, 8, 512, 512] with head width 32 (length 500), K9b
+               and K10b beside them; K9's and K10's blocks per SM at both
+               head widths; K13 and K14 at [4, 8, 500, 32] (K14 by
+               launch, K13's split and occupancy at head width 32), K13
+               at each split at [2, 8, 500, 32] and [4, 8, 500, 32] (the
+               split rule's choice), and at the "pallas" step's encoder
+               [2, 8, 500, 32] and the "single" serve's [8, 8, 500, 32].
 3. serve     - Base at full width, seeded weights: three requests through
                ``Separator.__call__`` and one batched B=4 x 4 s forward
                with ragged lengths; every eval kernel's count must rise.
@@ -143,7 +147,7 @@ Phases, each of which fails the run:
                (both traces with K13's launches by B*H, row tiles and
                split); one epoch through ``cli.main`` with ``--set
                model.attention_train_impl=pallas`` on phase 8's synthetic
-               corpus.
+               corpus (finite losses).
 11. fused    - the fused eval blocks, Base at full width, seeded weights,
                every LayerScale at 0.5 and seeded BatchNorm statistics:
                ``fused_local="on"`` and ``fused_pair="on"`` (K15 in the
@@ -185,10 +189,19 @@ Phases, each of which fails the run:
                ``SepReformer_Large_DM_WHAM`` step (its speaker-split
                blocks' gradients finite); two epochs of ``cli.main --model
                SepReformer_Large_DM_WSJ0`` on phase 8's corpus (dynamic
-               mixing), a resumed third and a test; and a step on
-               ``attention_train_impl="pallas"``, which must raise naming
-               the ROADMAP item "Large training on the "pallas" route"
-               before K13 launches.
+               mixing), a resumed third and a test.  Then the "pallas"
+               and "single" routes at head width 32: four Large B=2 x 4 s
+               steps on ``attention_train_impl="pallas"`` (each one K13
+               and one K14 per global attention (22), no K2, K9 or K10;
+               host-clock step times, peak memory), one traced step, one
+               step card against CPU at dropout 0 (phase 7's limit;
+               controls: TF32 allowed, K13/K14 without the bias), one
+               ``cli.main`` epoch with ``--set
+               model.attention_train_impl=pallas`` on phase 8's corpus
+               (finite losses), and a ragged B=4 x 4 s batch served on
+               ``attention_impl="single"`` (22 K13 launches, no K2 or K3)
+               against the default route within phase 5's limit, with
+               one traced.
 
 Prints one JSON line of kernel results, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -924,6 +937,8 @@ def kernel_phase(torch, K, device_ms):
     gcfn_row(256, instance="F=256")
     relpos_rows(32, (512,), instance="d=32")
     softmax_pv_row(32, instance="d=32")
+    bias_kernel_rows(torch, K, device_ms, randn, record, d=32,
+                     instance="d=32")
     flash_kernel_row(torch, K, device_ms, randn, record, d=32)
     # and at the shapes Large's train step gives them (B=2 x 4 s, dropout
     # 0.1): K5 at its first encoder stage, K7/K8 and K9/K10 as Base's rows
@@ -934,15 +949,21 @@ def kernel_phase(torch, K, device_ms):
     gcfn_train_rows(256, 0.1, instance="F=256")
     softmax_pv_train_rows(32, 0.1, instance="d=32")
     bias_train_rows(torch, K, randn, record, d=32, p=0.1, instance="d=32")
+    # and the "pallas" train step's K13/K14 at Large's head width
+    attention_train_rows(torch, K, device_ms, randn, record, d=32, p=0.1,
+                         instance="d=32")
     return results
 
 
-def bias_kernel_rows(torch, K, device_ms, randn, record):
+def bias_kernel_rows(torch, K, device_ms, randn, record, d=16,
+                     instance=None):
     """The two-tensor forms, which no route takes: K3b at K3's shape
     (decoder attention of a B=4 x 4 s forward, [8, 8, 512, 512], ragged)
-    and K9b/K10b at K9's and K10's ([4, 8, 512, 512], length 500, p
-    0.05), each against its plain version; the library yardstick of K3b
-    is softmax(scores + bias) · V.  Then the port's scores producer
+    at head width ``d`` (bit-equal on a repeat call), and at Base's 16
+    K9b/K10b at K9's and K10's ([4, 8, 512, 512], length 500, p 0.05),
+    each against its plain version; the library yardstick of K3b is
+    softmax(scores + bias) · V.  Then, at Base's 16, the port's scores
+    producer
     (``blocks.fused_pv_scores``: the two products, an add pass and a
     scale pass) followed by K3, against a two-tensor producer (q scaled
     first, so both products come scaled; the bias product's layout copy
@@ -951,8 +972,8 @@ def bias_kernel_rows(torch, K, device_ms, randn, record):
     from sepreformer_torch.models.blocks import fused_pv_scores, pad_time
 
     dev = torch.device("cuda")
-    b, heads, lp, length, f = 8, 8, 512, 500, 128
-    d = f // heads
+    b, heads, lp, length = 8, 8, 512, 500
+    f = heads * d
     scores, bias = randn(b, heads, lp, lp, scale=3.0), randn(b, heads, lp, lp)
     v = randn(b, lp, f)
     klens = torch.tensor([500, 500, 438, 438, 376, 376, 313, 313], device=dev)
@@ -960,6 +981,13 @@ def bias_kernel_rows(torch, K, device_ms, randn, record):
     ref = K.softmax_pv_plain(scores, v, klens, length, bias)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+    again = K.softmax_pv(scores, v, klens, length, bias=bias)
+    torch.cuda.synchronize()
+    same = torch.equal(got, again)
+    print(f"[kernels] softmax_pv_bias at head width {d}: bit-equal on a "
+          f"repeat call: {same}")
+    assert same, f"K3b is not bit-equal on repeat at d {d}"
+    del again
     kmask = torch.arange(lp, device=dev)[None] < klens[:, None]
     vh = v.reshape(b, lp, heads, d).permute(0, 2, 1, 3).contiguous()
 
@@ -983,7 +1011,10 @@ def bias_kernel_rows(torch, K, device_ms, randn, record):
                   f"{f}], lens {klens.tolist()}, length {length}"),
            tolerance="rtol 1e-4, atol 1e-5 (float32)",
            tc_flops=2 * d * heads * lp * keys, exps=heads * lp * keys,
-           cuda_core_flops=heads * lp * keys * (2 * d + 5), timings=5)
+           cuda_core_flops=heads * lp * keys * (2 * d + 5), timings=5,
+           instance=instance)
+    if instance is not None:
+        return
 
     # the producers at the same shape: q, k [8, 500, 8, 16], Base's table
     maxlen = 2000
@@ -1210,20 +1241,24 @@ def fused_kernel_rows(torch, K, device_ms, randn, record):
                     out_bytes=4 * x.numel())
 
 
-def attention_train_rows(torch, K, device_ms, randn, record):
+def attention_train_rows(torch, K, device_ms, randn, record, d=16, p=0.05,
+                         instance=None):
     """K13 and K14 at the decoder attention of a B=2 x 4 s train batch
-    (B*spks = 4 rows, 8 heads, L = 500, maxlen 2000, p 0.05), against
+    (B*spks = 4 rows, 8 heads, L = 500, maxlen 2000) at head width ``d``
+    and dropout ``p`` (Base's 16 at 0.05, Large's 32 at 0.1), against
     their plain versions: the forward at atol 1e-5 and bit-equal on a
     repeat call, each gradient (from K13's row statistics) within phase
-    7's limit of its largest value.  K13's library yardstick is
-    SDPA with the rel-pos bias as a float mask (at p 0: SDPA's dropout is
-    not the hash mask); no library call computes K14's four gradients."""
+    7's limit of its largest value and bit-equal on a repeat call.  K13's
+    library yardstick is SDPA with the rel-pos bias as a float mask (at
+    p 0: SDPA's dropout is not the hash mask); no library call computes
+    K14's four gradients.  At d 32 also K13 at each split at [2, 8, 500]
+    and [4, 8, 500], the choice of its split rule."""
     from sepreformer_torch.ops.kernels.attention_train import (
         fwd_occupancy as attention_train_fwd_occupancy,
     )
 
     dev = torch.device("cuda")
-    b, heads, length, maxlen, d, p, seed = 4, 8, 500, 2000, 16, 0.05, 4321
+    b, heads, length, maxlen, seed = 4, 8, 500, 2000, 4321
     q, k, v, dout = (randn(b, heads, length, d) for _ in range(4))
     table = randn(2 * maxlen, d)
     key_len = torch.full((b,), length, dtype=torch.int32, device=dev)
@@ -1232,7 +1267,7 @@ def attention_train_rows(torch, K, device_ms, randn, record):
                                                   seed, p, key_len)
     ref = K.attention_train_plain(q, k, v, table, maxlen, seed, p)
     torch.cuda.synchronize()
-    # a wrong dropout mask or hash row errs by O(1) at p = 0.05
+    # a wrong dropout mask or hash row errs by O(1) at p > 0
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
     pos = torch.arange(length, device=dev)
     idx = torch.clamp(pos[:, None] - pos[None], -maxlen, maxlen - 1) + maxlen
@@ -1255,13 +1290,13 @@ def attention_train_rows(torch, K, device_ms, randn, record):
     torch.cuda.synchronize()
     same = all(torch.equal(x, y) for x, y in zip((out, row_max, row_sum),
                                                   again))
-    print(f"[kernels] attention_train_fwd: bit-equal on a repeat call "
-          f"(out, row max, row sum): {same}")
-    assert same, "K13 is not bit-equal on repeat"
+    print(f"[kernels] attention_train_fwd at head width {d}: bit-equal on a "
+          f"repeat call (out, row max, row sum): {same}")
+    assert same, f"K13 is not bit-equal on repeat at d {d}"
     del again
-    split, occupancy = attention_train_fwd_occupancy(b * heads, length)
-    print(f"[kernels] attention_train_fwd: {split} warps per row tile at "
-          f"this shape")
+    split, occupancy = attention_train_fwd_occupancy(b * heads, length, d)
+    print(f"[kernels] attention_train_fwd at head width {d}: {split} warps "
+          f"per row tile at this shape")
     for name, occ in occupancy.items():
         print(f"[kernels] {name}: {occ['warps']} warps, "
               f"{occ['blocks_per_sm']} blocks per SM, {occ['registers']} "
@@ -1289,7 +1324,7 @@ def attention_train_rows(torch, K, device_ms, randn, record):
            tc_flops=flash_relpos_ops(length, klens, maxlen, heads, d),
            exps=pairs,
            cuda_core_flops=flash_relpos_ops(length, klens, maxlen, heads, d),
-           timings=5)
+           timings=5, instance=instance)
     grads = K.attention_train_bwd(q, k, v, table, maxlen, seed, p, key_len,
                                   out, dout, row_max, row_sum)
     refs = K.attention_train_bwd_plain(q, k, v, table, maxlen, seed, p, None,
@@ -1304,9 +1339,9 @@ def attention_train_rows(torch, K, device_ms, randn, record):
                                   out, dout, row_max, row_sum)
     torch.cuda.synchronize()
     same = all(torch.equal(g, a) for g, a in zip(grads, again))
-    print(f"[kernels] attention_train_bwd: bit-equal on a repeat call: "
-          f"{same}")
-    assert same, "K14 is not bit-equal on repeat"
+    print(f"[kernels] attention_train_bwd at head width {d}: bit-equal on a "
+          f"repeat call: {same}")
+    assert same, f"K14 is not bit-equal on repeat at d {d}"
     pairs = heads * relpos_pairs(length, klens, maxlen)[0]
     products = attention_train_bwd_ops(length, klens, maxlen, heads, d)
     record(K.attention_train_bwd,
@@ -1329,11 +1364,37 @@ def attention_train_rows(torch, K, device_ms, randn, record):
                      f"max|plain| per gradient",
            # QKᵀ, dO·Vᵀ, dV, dQ, dK, q·bandᵀ and both band adjoints on the
            # tensor cores; one exponential per pair
-           tc_flops=products, exps=pairs, cuda_core_flops=products)
+           tc_flops=products, exps=pairs, cuda_core_flops=products,
+           timings=5 if instance else 1, instance=instance)
     launch_split(torch, lambda: K.attention_train_bwd(
         q, k, v, table, maxlen, seed, p, key_len, out, dout, row_max,
-        row_sum), "attn_train_bwd", ("dq", "dk/dv", "table"))
+        row_sum), "attn_train_bwd", (f"dq d={d}", f"dk/dv d={d}",
+                                     f"table d={d}"))
     del storage, bias
+    if d == 32:
+        # the split rule's choice at Large's two train shapes: the
+        # encoder's [2, 8, 500] (128 blocks) and the decoder's [4, 8, 500]
+        for rows in (2, 4):
+            x = [randn(rows, heads, length, d) for _ in range(3)]
+            kl = torch.full((rows,), length, dtype=torch.int32, device=dev)
+            ref = K.attention_train_plain(*x, table, maxlen, seed, p)
+            times = {}
+            for sp in (1, 2, 4):
+                def run(sp=sp):
+                    return K.attention_train_fwd(*x, table, maxlen, seed, p,
+                                                 kl, split=sp)
+                got = run()
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got[0], ref, rtol=1e-4, atol=1e-5)
+                times[sp] = statistics.median(
+                    device_ms(run, kernel=KERNEL_SYMBOLS[
+                        "attention_train_fwd"]) for _ in range(5))
+            rule = attention_train_fwd_occupancy(rows * heads, length, d)[0]
+            print(f"[kernels] attention_train_fwd at [{rows}, {heads}, "
+                  f"{length}, {d}], p {p}, by split (median of 5): " +
+                  ", ".join(f"{sp}: {t:.4f} ms" for sp, t in times.items())
+                  + f"; the rule takes {rule}")
+            del x, ref
     # K13's other splits at the shapes the routes launch it at: the
     # "pallas" step's encoder ([2, 8, 500], p 0.05) and the "single"
     # serve's decoder ([8, 8, 500], p 0, key lengths of 4 s down to 2.5 s)
@@ -1377,7 +1438,7 @@ def attention_train_case(torch, K, device_ms, randn, rows, heads, length,
     for name, g, r in zip(("dq", "dk", "dv", "dtable"), grads, refs):
         e = (g - r).abs().max().item()
         assert e <= TRAIN_CPU_REL_LIMIT * r.abs().max().item(), (rows, name, e)
-    split = attention_train_fwd_occupancy(rows * heads, length)[0]
+    split = attention_train_fwd_occupancy(rows * heads, length, d)[0]
     times = [device_ms(run, kernel=KERNEL_SYMBOLS["attention_train_fwd"])
              for _ in range(5)]
     plain = device_ms(lambda: K.attention_train_plain(
@@ -1804,8 +1865,9 @@ def print_trace(tag, kernels, busy, window_us, ours, what):
 
 def traced_kernels(prof):
     """``kernel_events(prof)`` (a trace is exported once), and K13's
-    launches in it by (B*H, row tiles of 64, split): its grid is (row
-    tiles, B*H) and its split the kernel's template argument."""
+    launches in it by (B*H, row tiles of 64, head width, split): its grid
+    is (row tiles, B*H), its head width and split the kernel's template
+    arguments."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1818,15 +1880,16 @@ def traced_kernels(prof):
     for e in events:
         if "attn_train_fwd" in e["name"]:
             grid = e.get("args", {}).get("grid") or [None, None]
-            split = re.search(r"attn_train_fwd_kernel<(\d+)>", e["name"])
-            shapes[(grid[1], grid[0],
-                    int(split.group(1)) if split else None)] += 1
+            args = re.search(r"attn_train_fwd_kernel<(\d+), (\d+)>",
+                             e["name"])
+            shapes[(grid[1], grid[0]) + (tuple(map(int, args.groups()))
+                                         if args else (None, None))] += 1
     return [(e["name"], e["ts"], e["dur"]) for e in events], dict(shapes)
 
 
 def print_k13_grids(tag, shapes, what):
     print(f"[{tag}] K13 launches in the {what} by (B*H, row tiles of 64, "
-          f"split): " + ", ".join(f"{key} x{n}" for key, n in
+          f"head width, split): " + ", ".join(f"{key} x{n}" for key, n in
                                    sorted(shapes.items(), key=str)))
 
 
@@ -2059,15 +2122,11 @@ def gcfn_train_cpu(torch, np, f=128, p=0.05, tag="train_cpu"):
     assert worst[0] <= TRAIN_CPU_REL_LIMIT, "the train GCFN disagrees"
 
 
-def engine_phase(torch, np, K, model="SepReformer_Base_WSJ0", tag="engine"):
-    """Train ``model`` from ``sepreformer_torch.cli.main`` on a seeded
-    synthetic corpus: 2 epochs, a resumed third, then test."""
-    import csv
+@contextlib.contextmanager
+def engine_log():
+    """The messages of the port's logger while the context runs, in a
+    list."""
     import logging
-    import tempfile
-
-    from sepreformer_torch import cli
-    from sepreformer_torch.data.synth import generate_corpus
 
     lines = []
 
@@ -2080,6 +2139,26 @@ def engine_phase(torch, np, K, model="SepReformer_Base_WSJ0", tag="engine"):
     handler = Collect()
     logger.addHandler(handler)
     try:
+        yield lines
+    finally:
+        logger.removeHandler(handler)
+
+
+def epoch_losses(line):
+    """(train, valid) loss of the engine's "epoch ..." log line."""
+    return [float(v) for v in line.split()[3:6:2]]
+
+
+def engine_phase(torch, np, K, model="SepReformer_Base_WSJ0", tag="engine"):
+    """Train ``model`` from ``sepreformer_torch.cli.main`` on a seeded
+    synthetic corpus: 2 epochs, a resumed third, then test."""
+    import csv
+    import tempfile
+
+    from sepreformer_torch import cli
+    from sepreformer_torch.data.synth import generate_corpus
+
+    with engine_log() as lines:
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
             generate_corpus(os.path.join(tmp, "corpus"), n_train=16,
@@ -2105,8 +2184,7 @@ def engine_phase(torch, np, K, model="SepReformer_Base_WSJ0", tag="engine"):
             assert len(epochs) == 3, epochs
             assert any(ln.startswith("resumed from epoch") for ln in lines)
             for ln in epochs:
-                losses = [float(v) for v in ln.split()[3:6:2]]  # train, valid
-                assert all(np.isfinite(v) for v in losses), ln
+                assert all(np.isfinite(epoch_losses(ln))), ln
             ckpt = os.path.join(work, "log", "scratch_weights",
                                 "epoch.0003.pth")
             assert os.path.exists(ckpt), "no checkpoint of the resumed epoch"
@@ -2119,8 +2197,6 @@ def engine_phase(torch, np, K, model="SepReformer_Base_WSJ0", tag="engine"):
             print(f"[{tag}] test over 4 utterances: SI-SNRi "
                   f"{means['SISNRi']:.4f} dB, SDRi {means['SDRi']:.4f} dB")
             assert all(np.isfinite(v) for v in means.values()), means
-    finally:
-        logger.removeHandler(handler)
     print(f"[{tag}] launches over the three runs: {counts}")
     missing = [n for n in TRAIN_KERNELS + EVAL_KERNELS if counts[n] == 0]
     assert not missing, f"kernels never launched by the CLI: {missing}"
@@ -2447,11 +2523,8 @@ def routes_phase(torch, np, sep_torch, K, busy_us, steps=6):
     and one epoch through ``cli.main`` with ``--set``.  Returns the
     kernels' launches over the main-path runs."""
     import dataclasses
-    import tempfile
 
-    from sepreformer_torch import cli
     from sepreformer_torch.config import apply_override
-    from sepreformer_torch.data.synth import generate_corpus
     from sepreformer_torch.engine import (
         LRController,
         create_train_state,
@@ -2563,6 +2636,27 @@ def routes_phase(torch, np, sep_torch, K, busy_us, steps=6):
                  lambda: k13_without_bias(torch)})
 
     # c. a ragged batch served on "single" against the default route
+    single_against_default(torch, np, sep_torch, K, busy_us, base, rng,
+                           "routes", attentions, total)
+
+    # d. one epoch through the CLI with --set, on phase 8's corpus
+    for name, n in cli_pallas_epoch(torch, np, K, "SepReformer_Base_WSJ0",
+                                    "routes").items():
+        total[name] += n
+    print(f"[routes] launches over the phase's main-path runs: {dict(total)}")
+    return total
+
+
+def single_against_default(torch, np, sep_torch, K, busy_us, base, rng, tag,
+                           attentions, total):
+    """A ragged B=4 x 4 s batch served on ``attention_impl="single"`` (K13
+    in all ``attentions`` global attentions, no K2 or K3) and on ``base``'s
+    default route, from the same seeded weights (every LayerScale at
+    0.5): they must agree within phase 5's limit.  Then one such batch
+    traced, with K13's launches by grid, head width and split.  The
+    single route's launches are added to ``total``."""
+    from sepreformer_torch.config import apply_override
+
     single = apply_override(base, "model.attention_impl", "single")
     seps = {}
     for label, variant in (("single", single), ("default", base)):
@@ -2585,7 +2679,7 @@ def routes_phase(torch, np, sep_torch, K, busy_us, steps=6):
         outs[label] = seps[label].separate(batch, lengths).cpu().numpy()
         dt = time.perf_counter() - t0
         counts = K.launch_counts()
-        print(f"[routes] batch B=4 x 4 s on the {label} route: "
+        print(f"[{tag}] batch B=4 x 4 s on the {label} route: "
               f"{dt * 1e3:.2f} ms; launches "
               f"{ {n: c for n, c in counts.items() if c} }")
         if label == "single":
@@ -2599,9 +2693,11 @@ def routes_phase(torch, np, sep_torch, K, busy_us, steps=6):
     err = max(float(np.abs(outs["single"][:, i, :n]
                            - outs["default"][:, i, :n]).max())
               for i, n in enumerate(lengths)) / scale
-    print(f"[routes] single against the default route: max |d| / max|out| "
+    print(f"[{tag}] single against the default route: max |d| / max|out| "
           f"{err:.3e} (max|out| {scale:.3f}), limit {CPU_REL_LIMIT:.1e}")
     assert err <= CPU_REL_LIMIT, "the single route disagrees"
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
     K.reset_launches()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=activities) as prof:
@@ -2612,17 +2708,27 @@ def routes_phase(torch, np, sep_torch, K, busy_us, steps=6):
     for name, n in K.launch_counts().items():
         total[name] += n
     kernels, shapes = traced_kernels(prof)
-    print_trace("routes", kernels, busy_us(kernels), window_us,
+    print_trace(tag, kernels, busy_us(kernels), window_us,
                 K.launch_counts(), "single served batch")
-    print_k13_grids("routes", shapes, "single served batch")
+    print_k13_grids(tag, shapes, "single served batch")
     del seps
     torch.cuda.empty_cache()
 
-    # d. one epoch through the CLI with --set, on phase 8's corpus
-    with tempfile.TemporaryDirectory() as tmp:
+
+def cli_pallas_epoch(torch, np, K, model, tag):
+    """One epoch of ``model`` through ``cli.main`` with ``--set
+    model.attention_train_impl=pallas`` on phase 8's synthetic corpus:
+    the train and valid losses finite, K13 and K14 launched and K9 not.
+    Returns the launches."""
+    import tempfile
+
+    from sepreformer_torch import cli
+    from sepreformer_torch.data.synth import generate_corpus
+
+    with tempfile.TemporaryDirectory() as tmp, engine_log() as lines:
         generate_corpus(os.path.join(tmp, "corpus"), n_train=16, n_valid=4,
                         n_test=4, seed=0)
-        args = ["--model", "SepReformer_Base_WSJ0", "--scp-root",
+        args = ["--model", model, "--scp-root",
                 os.path.join(tmp, "corpus"), "--scp-dir", "scp",
                 "--workdir", os.path.join(tmp, "work"), "--batch-size", "2",
                 "--max-epoch", "2", "--set", "engine.test_epochs=",
@@ -2631,14 +2737,15 @@ def routes_phase(torch, np, sep_torch, K, busy_us, steps=6):
         t0 = time.perf_counter()
         assert cli.main(args) == 0
         counts = K.launch_counts()
-        print(f"[routes] cli.main, one epoch on the pallas route: "
-              f"{time.perf_counter() - t0:.2f} s; launches {counts}")
-    for name, n in counts.items():
-        total[name] += n
+        print(f"[{tag}] cli.main --model {model}, one epoch on the pallas "
+              f"route: {time.perf_counter() - t0:.2f} s; launches {counts}")
+    epochs = [ln for ln in lines if ln.startswith("epoch ")]
+    assert len(epochs) == 1, epochs
+    print(f"[{tag}] log: {epochs[0]}")
+    assert all(np.isfinite(epoch_losses(epochs[0]))), epochs[0]
     assert counts["attention_train_fwd"] == counts["attention_train_bwd"] > 0
     assert counts["softmax_pv_train_fwd"] == 0
-    print(f"[routes] launches over the phase's main-path runs: {dict(total)}")
-    return total
+    return counts
 
 
 def seeded_model(torch, sep_torch, variant, seed=0, device="cuda"):
@@ -3189,19 +3296,16 @@ def large_train(torch, np, sep_torch, K, variant, busy_us, kernel_events,
     a TF32 control), one train-mode GCFN of F 256 at dropout 0.1 card
     against CPU, one ``SepReformer_Large_DM_WHAM`` step (a speaker-split
     block per stage), two CLI epochs of ``LARGE`` on phase 8's corpus with
-    a resumed third and a test, and a step on the "pallas" route, which
-    raises naming its ROADMAP item before K13 launches.  ``run`` and
-    ``total`` are the phase's: counts at 0 before each run, main-path
-    launches summed."""
+    a resumed third and a test, and then the "pallas" and "single" routes
+    (``large_pallas``).  ``run`` and ``total`` are the phase's: counts at
+    0 before each run, main-path launches summed."""
     import dataclasses
 
-    from sepreformer_torch.config import apply_override
     from sepreformer_torch.engine import (
         LRController,
         create_train_state,
         train_step,
     )
-    from sepreformer_torch.ops.kernels._build import LARGE_TRAINING
 
     t0 = time.perf_counter()
     state = create_train_state(variant, device="cuda",
@@ -3230,27 +3334,9 @@ def large_train(torch, np, sep_torch, K, variant, busy_us, kernel_events,
                 "softmax_pv_train_fwd": attentions,
                 "softmax_pv_train_bwd": attentions, "depthwise_bwd": clas,
                 "materialize_pos_kt": 1, "sisnr_pairwise_neg_fused": 1}
-    times = []
     torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    for step in range(steps):
-        lrc.warmup_step()
-        mix, src = batches[step]
-        K.reset_launches()
-        t0 = time.perf_counter()
-        metrics = {k: float(v) for k, v in train_step(     # waits
-            state, mix, src, lrc.lr, 0.4, gen).items()}
-        times.append((time.perf_counter() - t0) * 1e3)
-        counts = K.launch_counts()
-        for name, n in counts.items():
-            total[name] += n
-        print(f"[large] step {step}: {times[-1]:.2f} ms, lr {lrc.lr:.2e}, "
-              + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
-        assert all(np.isfinite(v) for v in metrics.values()), metrics
-        got = {n: counts[n] for n in expected}
-        assert got == expected, (got, expected)
-        stray = [n for n in EVAL_ONLY_KERNELS if counts[n]]
-        assert not stray, f"eval-only kernels on the train path: {stray}"
+    times = timed_train_steps(torch, np, K, state, lrc, batches[:steps], gen,
+                              expected, total, "large")
     now = dict(model.named_parameters())
     now.update(model.named_buffers())
     frozen = [n for n, before in watched.items()
@@ -3326,26 +3412,122 @@ def large_train(torch, np, sep_torch, K, variant, busy_us, kernel_events,
     for name, n in counts.items():
         total[name] += n
 
-    # the "pallas" train route: K13/K14 are not built at head width 32
+    # the "pallas" and "single" routes at head width 32
+    large_pallas(torch, np, sep_torch, K, variant, busy_us, total, gcfns,
+                 attentions, clas)
+
+
+def timed_train_steps(torch, np, K, state, lrc, batches, gen, expected,
+                      total, tag):
+    """A train step on each of ``batches`` (the lr from ``lrc``'s warmup,
+    alpha 0.4) on the host clock, the counts at 0 just before each and
+    read just after and added to ``total``: the losses finite, each
+    step's launches of the kernels in ``expected`` as it says, no eval
+    kernel.  Returns the step times in ms."""
+    from sepreformer_torch.engine import train_step
+
+    times = []
+    torch.cuda.synchronize()
+    for step, (mix, src) in enumerate(batches):
+        lrc.warmup_step()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        metrics = {k: float(v) for k, v in train_step(     # waits
+            state, mix, src, lrc.lr, 0.4, gen).items()}
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = K.launch_counts()
+        for name, n in counts.items():
+            total[name] += n
+        print(f"[{tag}] step {step}: {times[-1]:.2f} ms, lr {lrc.lr:.2e}, "
+              + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+        assert all(np.isfinite(v) for v in metrics.values()), metrics
+        got = {n: counts[n] for n in expected}
+        assert got == expected, (got, expected)
+        stray = [n for n in EVAL_ONLY_KERNELS if counts[n]]
+        assert not stray, f"eval-only kernels on the train path: {stray}"
+    return times
+
+
+def large_pallas(torch, np, sep_torch, K, variant, busy_us, total, gcfns,
+                 attentions, clas, steps=4):
+    """Phase 12's "pallas" and "single" routes at Large's head width 32:
+    ``steps`` Large train steps on seeded B=2 x 4 s batches at dropout 0.1
+    on ``attention_train_impl="pallas"`` (each step one K13 and one K14 a
+    global attention (22), one K7 and one K8 a GCFN, one K5 a CLA, one
+    K11, and no K2, K9, K10 or eval kernel; host-clock step times, peak
+    memory), one traced step (idle share, kernel time by group, K13's
+    launches by grid, head width and split), one step card against CPU at
+    dropout 0 (phase 7's limit; controls: TF32 allowed, K13/K14 without
+    the rel-pos bias), one epoch of ``cli.main --model LARGE --set
+    model.attention_train_impl=pallas`` on phase 8's corpus, and a ragged
+    B=4 x 4 s batch served on ``attention_impl="single"`` against the
+    default route (phase 5's limit).  The launches of the main-path runs
+    are added to ``total``."""
+    import dataclasses
+
+    from sepreformer_torch.config import apply_override
+    from sepreformer_torch.engine import (
+        LRController,
+        create_train_state,
+        train_step,
+    )
+
     cfg = apply_override(variant, "model.attention_train_impl", "pallas")
     state = create_train_state(cfg, device="cuda",
                                generator=torch.Generator().manual_seed(0))
-    mix, src = (a.cuda() for a in synthetic_batch(torch, np, rng, 1,
-                                                  SAMPLE_RATE))
+    o = cfg.optim
+    lrc = LRController(o.lr, o.warmup_steps, o.plateau_factor,
+                       o.plateau_patience, o.plateau_min_lr)
+    rng = np.random.default_rng(21)
+    batches = [tuple(a.cuda() for a in synthetic_batch(
+        torch, np, rng, cfg.dataset.batch_size, cfg.dataset.max_len))
+        for _ in range(steps + 1)]
+    gen = torch.Generator().manual_seed(3)
+    expected = {"attention_train_fwd": attentions,
+                "attention_train_bwd": attentions, "gcfn_train_fwd": gcfns,
+                "gcfn_train_bwd": gcfns, "depthwise_bwd": clas,
+                "sisnr_pairwise_neg_fused": 1, "materialize_pos_kt": 0,
+                "softmax_pv_train_fwd": 0, "softmax_pv_train_bwd": 0}
+    torch.cuda.reset_peak_memory_stats()
+    times = timed_train_steps(torch, np, K, state, lrc, batches[:steps], gen,
+                              expected, total, "large pallas")
+    median = statistics.median(times[1:])
+    print(f"[large pallas] train step ms after the first: "
+          f"{[round(t, 2) for t in times[1:]]}; median {median:.2f} ms, "
+          f"{cfg.dataset.batch_size * TRAIN_SECONDS / (median / 1e3):.2f} "
+          f"training audio-s/s; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
+          f"per step {expected}")
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
     K.reset_launches()
-    try:
-        train_step(state, mix, src, o.lr, 0.4, gen)
-    except ValueError as exc:
-        message = str(exc)
-    else:
-        raise AssertionError("a Large step on the \"pallas\" route ran")
     torch.cuda.synchronize()
-    launched = {n: c for n, c in K.launch_counts().items() if c}
-    print(f"[large] a Large step on the \"pallas\" route raises: {message}; "
-          f"launched before it: {launched}")
-    assert LARGE_TRAINING in message
-    assert launched.get("attention_train_fwd", 0) == 0
-    del state
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        train_step(state, *batches[steps], lrc.lr, 0.4, gen)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    for name, n in K.launch_counts().items():
+        total[name] += n
+    kernels, shapes = traced_kernels(prof)
+    print_trace("large pallas", kernels, busy_us(kernels), window_us,
+                K.launch_counts(), "Large pallas train step")
+    print_k13_grids("large pallas", shapes, "Large pallas train step")
+    del state, batches, prof
+    torch.cuda.empty_cache()
+
+    train_against_cpu(
+        torch, np, sep_torch, "large pallas",
+        dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                           dropout=0.0)),
+        {"control, TF32 allowed": lambda: tf32_allowed(torch),
+         "control, K13/K14 without the rel-pos bias":
+             lambda: k13_without_bias(torch)})
+    for name, n in cli_pallas_epoch(torch, np, K, LARGE,
+                                    "large pallas cli").items():
+        total[name] += n
+    single_against_default(torch, np, sep_torch, K, busy_us, variant, rng,
+                           "large single", attentions, total)
 
 
 def main() -> int:
@@ -3409,10 +3591,13 @@ def main() -> int:
         name = "?"
         for line in log.read_text().splitlines():
             if "Function properties for" in line:  # a kernel's report follows
-                found = re.search(r"\d+([A-Za-z_]+kernel)(?:ILi(\d+)E)?",
+                # the mangled name's kernel and its template arguments
+                found = re.search(r"\d+([A-Za-z_]+kernel)((?:I?L[ib]\d+E)*)",
                                   line)
-                name = (found.group(1) + (f"<{found.group(2)}>"
-                                          if found.group(2) else "")
+                args = re.findall(r"L[ib](\d+)E", found.group(2) if found
+                                  else "")
+                name = (found.group(1) + (f"<{', '.join(args)}>" if args
+                                          else "")
                         if found else line.split()[-1])
             elif "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")

@@ -14,13 +14,12 @@ training the GCFN takes the hash-dropout kernels K7/K8).  The presets
 are the JAX package's Base and Large families (``_large``: F=256, head
 width 32, dropout 0.1, lr 2e-4, dynamic mixing; ``Large_DM_WHAM`` with
 one speaker-split block per stage, ``per_stage_spk_split``); the Large
-family serves and trains on the card on the default route, and its
-"pallas" train route's kernels (K13/K14 at head width 32) are the
-ROADMAP item "Large training on the "pallas" route".  Not ported: the T, S and M presets (head widths 8,
-12 and 20; ROADMAP "T/S/M"), ``OptimConfig.flat_opt_state`` (a TPU
-lever the JAX package measured neutral),
-``EngineConfig.steps_per_dispatch``, ``EngineConfig.dummy_len`` (the
-startup summary) and the sharding settings (``parallel/``).
+family serves and trains on the card on every attention route (K13/K14
+at head width 32 on "pallas" and "single").  Not ported: the T, S and M
+presets (head widths 8, 12 and 20; ROADMAP "T/S/M"),
+``OptimConfig.flat_opt_state`` (a TPU lever the JAX package measured
+neutral), ``EngineConfig.steps_per_dispatch``, ``EngineConfig.dummy_len``
+(the startup summary) and the sharding settings (``parallel/``).
 """
 
 from __future__ import annotations

@@ -26,7 +26,8 @@
 // exponential per pair.  q, k, v and out are a few MB, so both are bound
 // by their products, taken on the tensor cores at float32 accuracy
 // (3xTF32, mma_tf32x3.cuh: 495/3 TFLOP/s): 0.0047 ms for K13 and 0.012 ms
-// for K14 at [4, 8, 500, 16] (chip_smoke.py counts each from its inputs).
+// for K14 at [4, 8, 500, 16], twice that at Large's head width 32
+// (chip_smoke.py counts each from its inputs).
 //
 // Design.  The TPU kernel holds a whole [block, block] score tile per bh
 // in VMEM (1 MB at 512); a Hopper block has 227 KB of shared memory.  So
@@ -38,18 +39,23 @@
 // the shorter stages), so split_for gives each row tile 2 or 4 warps that
 // walk alternate key tiles and merge at the end, where the grid would
 // leave the card's warp slots empty and the rows have the key tiles.
+// The head width D is a template parameter of both kernels: Base's 16 and
+// Large's 32 (the tile's D = 32 instance; its SPLIT 4 block stages one
+// step at a time, since two stages would take 314 KB).
 //
 // K14 recomputes P tile by tile from those row statistics, every product
 // on the tensor cores as 3xTF32 (mma_tf32x3.cuh, each from zeroed
 // fragments added to float32 sums): blocks of 4 warps, a warp per 16
 // query rows (or keys) whose Q and dO (or K and V) fragments are split
-// once and kept in registers, the other side's tile of 64 rows and the
-// band of 128 clamped table rows staged by cp.async.  Its scores are
+// once and kept in registers (D / 8 k-steps of them; every accumulator
+// D / 8 n-tiles), the other side's tile of 64 rows and the band of 128
+// clamped table rows staged by cp.async at stride D + 4.  Its scores are
 // q·k + q·pe, scaled after the sum, where K13's Q carries the scale:
 // the two round otherwise in the last bits, so its P sums to 1 only
 // within float32 rounding.  Three launches:
-//  1. dq (grid: query tile x bh, two blocks per SM; 191 registers, no
-//     spill): delta_i = dO_i·out_i (which equals sum_j P_ij dP_ij with
+//  1. dq (grid: query tile x bh, two blocks per SM at D 16, 191
+//     registers; one at D 32, its 116 KB of shared memory, 252 registers;
+//     no spill): delta_i = dO_i·out_i (which equals sum_j P_ij dP_ij with
 //     dropout too); per key tile the bias Q·bandᵀ over the warp's 80 band
 //     rows into its rows of a [64][128] buffer, then by halves of 32 keys
 //     S = Q Kᵀ plus the bias read at i - j + 63, dP = dO Vᵀ and
@@ -62,9 +68,10 @@
 //     m-tile is complete after two key tiles, so a warp carries one in
 //     registers and stores it once;
 //  2. dk, dv (grid: key tile x bh x half of the query tiles, split by grid
-//     z so that four blocks of 128 registers share an SM, at a 24-byte
-//     spill): the bias table of the query tile (a [64][128] buffer, each
-//     warp its 16 query rows), then by halves of 32 queries Sᵀ = K Qᵀ
+//     z so that four blocks of 128 registers share an SM at D 16, at a
+//     24-byte spill; two at D 32, Dims::kKvBlocks): the bias table of the
+//     query tile (a [64][128] buffer, each warp its 16 query rows), then
+//     by halves of 32 queries Sᵀ = K Qᵀ
 //     plus the bias, dPᵀ = V dOᵀ, P z and G, dv += (P z)ᵀ dO and
 //     dk += Gᵀ Q; the first half writes dk and dv, the second half its
 //     own scratch copies;
@@ -89,7 +96,6 @@
 
 namespace {
 
-constexpr int D = 16;                  // head width (Base: 128 / 8 heads)
 constexpr int kTile = 64;              // query rows / keys per tile
 constexpr int kBand = 2 * kTile;       // band rows staged (127 used)
 
@@ -109,7 +115,7 @@ struct Drop {
 
 // The flash rel-pos tile on [B*H, L, D] rows, with the hash dropout and
 // the row statistics, at SPLIT warps per row tile of 16 rows.
-template <int SPLIT>
+template <int D, int SPLIT>
 __global__ void __launch_bounds__(relpos_flash::Shape<SPLIT, D>::kThreads,
                                   relpos_flash::Shape<SPLIT, D>::kMinBlocks)
 attn_train_fwd_kernel(relpos_flash::Args a) {
@@ -129,19 +135,49 @@ using tf32x3::cp_async_wait;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kS = D + 4;              // row stride of the staged K, V,
-                                       // Q, dO and band rows: a lane's
-                                       // loads of rows g (or 2t) and
-                                       // columns t (or g) miss no bank
 constexpr int kGS = kBand + 8;         // G_skew's row stride (8 mod 32:
                                        // 8-byte fragment loads)
 constexpr int kQB = kBand + 3;         // the dk/dv bias table's: (row ii,
                                        // column ii - jj + 63) misses no
                                        // bank
 constexpr float kLog2e = 1.4426950408889634f;
-static_assert(kTile == 16 * kWarps && kThreads == 128,
-              "a warp per 16 rows of a tile; a thread stages 16 bytes of "
-              "every 32nd row");
+static_assert(kTile == 16 * kWarps, "a warp per 16 rows of a tile");
+
+// The launches' shape at head width D (16 or 32).  Row strides in
+// floats: kS of the staged K, V, Q, dO and band rows (a lane's loads of
+// rows g (or 2t) and columns t (or g) miss no bank at D + 4), kQ of the
+// dq launch's query tile (its band sums' loads of rows t and t + 4 at
+// column g miss no bank at D + 8).
+template <int D>
+struct Dims {
+  static_assert(D == 16 || D == 32, "head widths 16 and 32");
+  static constexpr int kK = D / 8;       // k-steps over d, n-tiles of d
+  static constexpr int kS = D + 4;
+  static constexpr int kQ = D + 8;
+  static constexpr int kPerRow = D / 4;  // 16-byte pieces of a row
+  static constexpr int kRowStep = kThreads / kPerRow;  // rows a copy pass
+  // floats of the dq launch's dynamic shared memory: two stages of K, V
+  // and the band, G_skew, the query tile
+  static constexpr int kStageDq = 2 * kTile * kS + kBand * kS;
+  static constexpr int kDqFloats = 2 * kStageDq + kTile * kGS + kTile * kQ;
+  // the dk/dv launch's: Q, dO, the band and the query rows' statistics
+  // (max in log2 units, 1 / l, delta) of a query tile, then the bias
+  // table
+  static constexpr int kStageKv = 2 * kTile * kS + kBand * kS + 3 * kTile;
+  static constexpr int kKvFloats = kStageKv + kTile * kQB;
+  // blocks an SM holds: dq as many as the shared memory allows (228 KB,
+  // 1 KB reserved a block): two at D 16 (80 KB), one at D 32 (116 KB);
+  // dk/dv four at D 16 (53.5 KB), and two at D 32 (69.5 KB): three would
+  // fit, but at their 168 registers the D = 32 accumulators spill 552
+  // bytes, and the launch ran 18 % slower than at two blocks of up to 255
+  // registers, which spill none (PERF.md §6)
+  static constexpr int kDqBlocks =
+      (int)(228 * 1024 / (sizeof(float) * kDqFloats + 1024));
+  static constexpr int kKvBlocks = D == 16 ? 4 : 2;
+  static_assert(kDqBlocks >= 1 && kKvBlocks * (sizeof(float) * kKvFloats +
+                                               1024) <= 228 * 1024,
+                "the blocks fit an SM");
+};
 
 // 2^x on the SFU (relative error about 2^-22; 2^-inf = 0).
 __device__ __forceinline__ float ex2(float x) {
@@ -155,36 +191,42 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// rows r0 .. r0 + n - 1 of a [*, D] array into s[rr * kS + c] by cp.async,
-// zero at or past lim
+// rows r0 .. r0 + n - 1 of a [*, D] array into s[rr * LD + c] by
+// cp.async, zero at or past lim: thread tid copies 16 bytes of every
+// kRowStep-th row
+template <int D, int LD = Dims<D>::kS>
 __device__ __forceinline__ void stage_rows(float* s, const float* a, int r0,
                                            int lim, int n) {
-  const int c4 = (threadIdx.x & 3) * 4;
-  for (int rr = threadIdx.x >> 2; rr < n; rr += kThreads / 4) {
+  using M = Dims<D>;
+  const int c4 = (threadIdx.x % M::kPerRow) * 4;
+  for (int rr = threadIdx.x / M::kPerRow; rr < n; rr += M::kRowStep) {
     const bool ok = r0 + rr < lim;
-    cp_async16(s + rr * kS + c4, a + (size_t)(ok ? r0 + rr : 0) * D + c4,
+    cp_async16(s + rr * LD + c4, a + (size_t)(ok ? r0 + rr : 0) * D + c4,
                ok);
   }
 }
 
 // the kBand clamped table rows of offsets rel0 .. rel0 + kBand - 1
+template <int D>
 __device__ __forceinline__ void stage_band(float* s, const float* table,
                                            int rel0, int maxlen) {
-  const int c4 = (threadIdx.x & 3) * 4;
-  for (int rr = threadIdx.x >> 2; rr < kBand; rr += kThreads / 4) {
+  using M = Dims<D>;
+  const int c4 = (threadIdx.x % M::kPerRow) * 4;
+  for (int rr = threadIdx.x / M::kPerRow; rr < kBand; rr += M::kRowStep) {
     const int row = min(max(rel0 + rr, -maxlen), maxlen - 1) + maxlen;
-    cp_async16(s + rr * kS + c4, table + (size_t)row * D + c4, true);
+    cp_async16(s + rr * M::kS + c4, table + (size_t)row * D + c4, true);
   }
 }
 
 // A fragments (standard k order: slots t, t+4 = columns 8 ks + t, + 4) of
 // rows r and r + 8 of a [*, D] array (zero past n), split once
+template <int D>
 __device__ __forceinline__ void rows_split(const float* a, int r, int n,
-                                           uint32_t (&big)[2][4],
-                                           uint32_t (&small)[2][4]) {
+                                           uint32_t (&big)[D / 8][4],
+                                           uint32_t (&small)[D / 8][4]) {
   const int t = threadIdx.x & 3;
 #pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
+  for (int ks = 0; ks < D / 8; ++ks) {
     float v[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -195,22 +237,22 @@ __device__ __forceinline__ void rows_split(const float* a, int r, int n,
   }
 }
 
-// c[nt] = A B(., nt) over D (two k-steps) from zeroed fragments: A the
-// warp's register fragments, split once; bfrag(ks, nt) gives B[8 ks + t]
-// and B[8 ks + t + 4] of the lane's column g of n-tile nt.  Each term is
-// issued over all NT fragments before the next, so that independent
-// products sit between dependent ones.
-template <int NT, class BFrag>
+// c[nt] = A B(., nt) over D (KK = D / 8 k-steps) from zeroed fragments:
+// A the warp's register fragments, split once; bfrag(ks, nt) gives
+// B[8 ks + t] and B[8 ks + t + 4] of the lane's column g of n-tile nt.
+// Each term is issued over all NT fragments before the next, so that
+// independent products sit between dependent ones.
+template <int NT, int KK, class BFrag>
 __device__ __forceinline__ void regs_product(float (&c)[NT][4],
-                                             const uint32_t (&ab)[2][4],
-                                             const uint32_t (&as)[2][4],
+                                             const uint32_t (&ab)[KK][4],
+                                             const uint32_t (&as)[KK][4],
                                              BFrag bfrag) {
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) c[nt][e] = 0.f;
 #pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
+  for (int ks = 0; ks < KK; ++ks) {
     uint32_t bb[NT][2], bs[NT][2];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
@@ -227,40 +269,27 @@ __device__ __forceinline__ void regs_product(float (&c)[NT][4],
   }
 }
 
-// c[nt] = A Bᵀ for the 8 n-tiles of 8 rows of a staged tile b (stride
-// kS): the warp's 16 rows against 64 columns
-__device__ __forceinline__ void rows_by_tile(float (&c)[8][4],
-                                             const uint32_t (&ab)[2][4],
-                                             const uint32_t (&as)[2][4],
-                                             const float* b) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  regs_product<8>(c, ab, as, [&](int ks, int nt) {
-    const float* br = b + (8 * nt + g) * kS + 8 * ks + t;
-    return make_float2(br[0], br[4]);
-  });
-}
-
-// acc[nn] += A B over KS k-steps and two n-tiles: afrag(ks, a) fills A's
-// fragment of k-step ks (slots t and t + 4 hold k = 8 ks + 2t and + 1),
-// bfrag(ks, nn) gives B[8 ks + 2t] and B[8 ks + 2t + 1] of the lane's
-// column g of n-tile nn.  The k-steps of either parity sum into their own
-// zeroed fragments (four independent products per term), added to acc in
-// float32 at the end.
-template <int KS, class AFrag, class BFrag>
-__device__ __forceinline__ void pair_product(float (&acc)[2][4], AFrag afrag,
+// acc[nn] += A B over KS k-steps and NN n-tiles (NN = D / 8: the head
+// width's columns): afrag(ks, a) fills A's fragment of k-step ks (slots t
+// and t + 4 hold k = 8 ks + 2t and + 1), bfrag(ks, nn) gives B[8 ks + 2t]
+// and B[8 ks + 2t + 1] of the lane's column g of n-tile nn.  The k-steps
+// of either parity sum into their own zeroed fragments (2 NN independent
+// products per term), added to acc in float32 at the end.
+template <int KS, int NN, class AFrag, class BFrag>
+__device__ __forceinline__ void pair_product(float (&acc)[NN][4], AFrag afrag,
                                              BFrag bfrag) {
   static_assert(KS % 2 == 0, "k-steps in pairs");
-  float sum[2][2][4] = {};
+  float sum[2][NN][4] = {};
 #pragma unroll
   for (int k2 = 0; k2 < KS; k2 += 2) {
-    uint32_t ab[2][4], as[2][4], bb[2][2][2], bs[2][2][2];
+    uint32_t ab[2][4], as[2][4], bb[2][NN][2], bs[2][NN][2];
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
       float a[4];
       afrag(k2 + x, a);
       tf32x3::split(a, ab[x], as[x]);
 #pragma unroll
-      for (int nn = 0; nn < 2; ++nn) {
+      for (int nn = 0; nn < NN; ++nn) {
         const float2 b = bfrag(k2 + x, nn);
         const float v[2] = {b.x, b.y};
         tf32x3::split(v, bb[x][nn], bs[x][nn]);
@@ -269,57 +298,38 @@ __device__ __forceinline__ void pair_product(float (&acc)[2][4], AFrag afrag,
 #pragma unroll
     for (int x = 0; x < 2; ++x)
 #pragma unroll
-      for (int nn = 0; nn < 2; ++nn)
+      for (int nn = 0; nn < NN; ++nn)
         tf32x3::mma(sum[x][nn], as[x], bb[x][nn]);
 #pragma unroll
     for (int x = 0; x < 2; ++x)
 #pragma unroll
-      for (int nn = 0; nn < 2; ++nn)
+      for (int nn = 0; nn < NN; ++nn)
         tf32x3::mma(sum[x][nn], ab[x], bs[x][nn]);
 #pragma unroll
     for (int x = 0; x < 2; ++x)
 #pragma unroll
-      for (int nn = 0; nn < 2; ++nn)
+      for (int nn = 0; nn < NN; ++nn)
         tf32x3::mma(sum[x][nn], ab[x], bb[x][nn]);
   }
 #pragma unroll
-  for (int nn = 0; nn < 2; ++nn)
+  for (int nn = 0; nn < NN; ++nn)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nn][e] += sum[0][nn][e] + sum[1][nn][e];
 }
 
-// acc += C B over the 64 columns of c: the C fragments as A fragments
-// (columns 8 nt + 2t, + 1 in slots t, t + 4), B a staged [64][kS] tile
-__device__ __forceinline__ void frags_by_tile(float (&acc)[2][4],
-                                              const float (&c)[8][4],
-                                              const float* b) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  pair_product<8>(
-      acc,
-      [&](int nt, float(&a)[4]) {
-        a[0] = c[nt][0];
-        a[1] = c[nt][2];
-        a[2] = c[nt][1];
-        a[3] = c[nt][3];
-      },
-      [&](int nt, int nn) {
-        const float* br = b + (8 * nt + 2 * t) * kS + 8 * nn + g;
-        return make_float2(br[0], br[kS]);
-      });
-}
-
 // bias[r][cc] = sum_c A[r][c] band[cc][c] for the warp's 16 rows and 80
-// band rows, written to out[r * LD + cc] (in pairs where LD is even)
-template <int LD>
-__device__ __forceinline__ void band_bias(const uint32_t (&ab)[2][4],
-                                          const uint32_t (&as)[2][4],
+// band rows (stride KS), written to out[r * LD + cc] (in pairs where LD
+// is even)
+template <int LD, int KS, int KK>
+__device__ __forceinline__ void band_bias(const uint32_t (&ab)[KK][4],
+                                          const uint32_t (&as)[KK][4],
                                           const float* band, float* out) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     float c[5][4];
     regs_product<5>(c, ab, as, [&](int ks, int nt) {
-      const float* br = band + (8 * (5 * half + nt) + g) * kS + 8 * ks + t;
+      const float* br = band + (8 * (5 * half + nt) + g) * KS + 8 * ks + t;
       return make_float2(br[0], br[4]);
     });
 #pragma unroll
@@ -353,15 +363,9 @@ __host__ __device__ inline int frame_rows(int L) {
   return ((L + kTile - 1) / kTile) * kTile + kTile;
 }
 
-// floats of the dq launch's dynamic shared memory: two stages of K, V and
-// the band, G_skew, the query tile (row stride kQ = 24: the band sums'
-// loads of rows t and t + 4 at column g miss no bank)
-constexpr int kQ = D + 8;
-constexpr int kStageDq = 2 * kTile * kS + kBand * kS;
-constexpr int kDqFloats = 2 * kStageDq + kTile * kGS + kTile * kQ;
-
 // Launch 1, dq: a block per (query tile, bh).
-__global__ void __launch_bounds__(kThreads, 2)
+template <int D>
+__global__ void __launch_bounds__(kThreads, Dims<D>::kDqBlocks)
 attn_train_bwd_dq_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
@@ -373,8 +377,10 @@ attn_train_bwd_dq_kernel(const float* __restrict__ q,
                          const float* __restrict__ row_sum,
                          float* __restrict__ dq, Scratch scratch, int L,
                          int H, int maxlen, float scale, Drop drop) {
+  using M = Dims<D>;
+  constexpr int kS = M::kS, kQ = M::kQ, kK = M::kK;
   extern __shared__ __align__(16) float smem[];
-  float* gsk = smem + 2 * kStageDq;      // [kTile][kGS] G_skew
+  float* gsk = smem + 2 * M::kStageDq;   // [kTile][kGS] G_skew
   float* qsm = gsk + kTile * kGS;        // [kTile][kQ] the query tile
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -391,19 +397,13 @@ attn_train_bwd_dq_kernel(const float* __restrict__ q,
   float* wg = gsk + 16 * warp * kGS + 16 * warp;
 
   for (int e = tid; e < kTile * kGS; e += kThreads) gsk[e] = 0.f;
-  {
-    const int c4 = (tid & 3) * 4;
-    for (int rr = tid >> 2; rr < kTile; rr += kThreads / 4) {
-      const bool ok = i0 + rr < L;
-      cp_async16(qsm + rr * kQ + c4,
-                 q + head + (size_t)(ok ? i0 + rr : 0) * D + c4, ok);
-    }
-  }
+  stage_rows<D, kQ>(qsm, q + head, i0, L, kTile);
   auto stage = [&](int buf, int j0) {
-    float* st = smem + buf * kStageDq;
-    stage_rows(st, k + head, j0, lim, kTile);
-    stage_rows(st + kTile * kS, v + head, j0, lim, kTile);
-    stage_band(st + 2 * kTile * kS, table, i0 - j0 - (kTile - 1), maxlen);
+    float* st = smem + buf * M::kStageDq;
+    stage_rows<D>(st, k + head, j0, lim, kTile);
+    stage_rows<D>(st + kTile * kS, v + head, j0, lim, kTile);
+    stage_band<D>(st + 2 * kTile * kS, table, i0 - j0 - (kTile - 1),
+                  maxlen);
     cp_async_commit();
   };
   const int nkt = (lim + kTile - 1) / kTile;
@@ -412,9 +412,9 @@ attn_train_bwd_dq_kernel(const float* __restrict__ q,
   // rows iw + g and iw + g + 8: Q and dO as A fragments, split once; the
   // row statistics (rows past L: 1 / l = 0, so P and G are 0 there) and
   // delta_i = dO_i·out_i (= sum_j P_ij dP_ij, with dropout too)
-  uint32_t qb[2][4], qs[2][4], ob[2][4], os[2][4];
-  rows_split(q + head, iw + g, L, qb, qs);
-  rows_split(dout + head, iw + g, L, ob, os);
+  uint32_t qb[kK][4], qs[kK][4], ob[kK][4], os[kK][4];
+  rows_split<D>(q + head, iw + g, L, qb, qs);
+  rows_split<D>(dout + head, iw + g, L, ob, os);
   float ml2[2], linv[2], dl[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -431,10 +431,10 @@ attn_train_bwd_dq_kernel(const float* __restrict__ q,
     if (in && t == 0) scratch.delta[(size_t)bh * L + i] = dl[h];
   }
 
-  float dqa[2][4] = {};
+  float dqa[kK][4] = {};
   // the frame rows of band m-tile `warp` of the last key tile, which this
   // tile's band m-tile warp + 4 completes (see below)
-  float carry[2][4] = {};
+  float carry[kK][4] = {};
   for (int n = 0; n < nkt; ++n) {
     const int j0 = n * kTile;
     cp_async_wait<0>();
@@ -442,13 +442,13 @@ attn_train_bwd_dq_kernel(const float* __restrict__ q,
     // stage and G_skew
     __syncthreads();
     if (n + 1 < nkt) stage((n + 1) & 1, j0 + kTile);
-    const float* ks_ = smem + (n & 1) * kStageDq;
+    const float* ks_ = smem + (n & 1) * M::kStageDq;
     const float* vs_ = ks_ + kTile * kS;
     const float* band = vs_ + kTile * kS;
 
     // the bias Q·bandᵀ over the warp's 80 band rows, written to its rows
     // of G_skew: pair (row r, key jj) reads column r - jj + 63
-    band_bias<kGS>(qb, qs, band + 16 * warp * kS, wg);
+    band_bias<kGS, kS>(qb, qs, band + 16 * warp * kS, wg);
     __syncwarp();
     // by halves of 32 keys: S = Q Kᵀ plus the bias, dP = dO Vᵀ, then
     // G = c P (z dP - delta) (keys past lim: 0), written skewed over the
@@ -482,7 +482,7 @@ attn_train_bwd_dq_kernel(const float* __restrict__ q,
           s[nt][e] = gv;
           *cell = gv;
         }
-      pair_product<4>(
+      pair_product<4, kK>(
           dqa,
           [&](int nt, float(&a)[4]) {
             a[0] = s[nt][0];
@@ -504,7 +504,7 @@ attn_train_bwd_dq_kernel(const float* __restrict__ q,
     __syncwarp();
     // dq += G_skew band: the rel-pos adjoint, pe_{i-j} of every pair,
     // over the warp's 80 band rows
-    pair_product<10>(
+    pair_product<10, kK>(
         dqa,
         [&](int ks, float(&a)[4]) {
           const float* a0 = wg + g * kGS + 8 * ks + 2 * t;
@@ -530,13 +530,13 @@ attn_train_bwd_dq_kernel(const float* __restrict__ q,
     // (f = (lk - 64 - j0) / 16) takes the last key tile's m-tile `warp`
     // and this one's m-tile warp + 4 and is then complete; this tile's
     // m-tile `warp` waits for the next key tile.
-    float sums[2][2][4] = {};
+    float sums[2][kK][4] = {};
     {
       const int n0 = 2 * warp + 2, lo1 = 2 * warp, n1 = kTile / 8 - lo1;
 #pragma unroll
       for (int step = 0; step < kTile / 8; ++step) {
         const bool on[2] = {step < n0, step < n1};
-        uint32_t ab[2][4], as[2][4], bb[2][2][2], bs[2][2][2];
+        uint32_t ab[2][4], as[2][4], bb[2][kK][2], bs[2][kK][2];
 #pragma unroll
         for (int x = 0; x < 2; ++x) {
           // A = G_skewᵀ: band rows 16 m + g (+ 8), query rows 8 ks + t
@@ -548,7 +548,7 @@ attn_train_bwd_dq_kernel(const float* __restrict__ q,
           tf32x3::split(a, ab[x], as[x]);
           const float* br = qsm + (8 * ks + t) * kQ + g;
 #pragma unroll
-          for (int nn = 0; nn < 2; ++nn) {
+          for (int nn = 0; nn < kK; ++nn) {
             const float v2[2] = {br[8 * nn], br[4 * kQ + 8 * nn]};
             tf32x3::split(v2, bb[x][nn], bs[x][nn]);
           }
@@ -556,23 +556,23 @@ attn_train_bwd_dq_kernel(const float* __restrict__ q,
 #pragma unroll
         for (int x = 0; x < 2; ++x)
 #pragma unroll
-          for (int nn = 0; nn < 2; ++nn)
+          for (int nn = 0; nn < kK; ++nn)
             if (on[x]) tf32x3::mma(sums[x][nn], as[x], bb[x][nn]);
 #pragma unroll
         for (int x = 0; x < 2; ++x)
 #pragma unroll
-          for (int nn = 0; nn < 2; ++nn)
+          for (int nn = 0; nn < kK; ++nn)
             if (on[x]) tf32x3::mma(sums[x][nn], ab[x], bs[x][nn]);
 #pragma unroll
         for (int x = 0; x < 2; ++x)
 #pragma unroll
-          for (int nn = 0; nn < 2; ++nn)
+          for (int nn = 0; nn < kK; ++nn)
             if (on[x]) tf32x3::mma(sums[x][nn], ab[x], bb[x][nn]);
       }
     }
     const int f = (lk - kTile - j0) / 16;
 #pragma unroll
-    for (int nn = 0; nn < 2; ++nn)
+    for (int nn = 0; nn < kK; ++nn)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = 16 * (f + warp + 4) + g + 8 * h;
@@ -588,7 +588,7 @@ attn_train_bwd_dq_kernel(const float* __restrict__ q,
   // it that no key tile reaches (keys past lim)
   const int f = (lk - nkt * kTile) / 16;
 #pragma unroll
-  for (int nn = 0; nn < 2; ++nn)
+  for (int nn = 0; nn < kK; ++nn)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = 16 * (f + warp) + g + 8 * h;
@@ -602,22 +602,17 @@ attn_train_bwd_dq_kernel(const float* __restrict__ q,
     const int i = iw + g + 8 * h;
     if (i < L)
 #pragma unroll
-      for (int nn = 0; nn < 2; ++nn)
+      for (int nn = 0; nn < kK; ++nn)
         *reinterpret_cast<float2*>(dq + head + (size_t)i * D + 8 * nn +
                                    2 * t) =
             make_float2(dqa[nn][2 * h], dqa[nn][2 * h + 1]);
   }
 }
 
-// floats of the dk/dv launch's dynamic shared memory: Q, dO, the band and
-// the query rows' statistics (max in log2 units, 1 / l, delta) of a query
-// tile, then the bias table
-constexpr int kStageKv = 2 * kTile * kS + kBand * kS + 3 * kTile;
-constexpr int kKvFloats = kStageKv + kTile * kQB;
-
 // Launch 2, dk and dv: block (key tile, bh, z) takes the query tiles of
-// half z (four blocks share an SM).
-__global__ void __launch_bounds__(kThreads, 4)
+// half z (four blocks share an SM at D 16, two at D 32).
+template <int D>
+__global__ void __launch_bounds__(kThreads, Dims<D>::kKvBlocks)
 attn_train_bwd_dkv_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
@@ -629,6 +624,8 @@ attn_train_bwd_dkv_kernel(const float* __restrict__ q,
                           float* __restrict__ dk, float* __restrict__ dv,
                           Scratch scratch, int L,
                           int H, int maxlen, float scale, Drop drop) {
+  using M = Dims<D>;
+  constexpr int kS = M::kS, kK = M::kK;
   extern __shared__ __align__(16) float smem[];
   float* qs_ = smem;                     // [kTile][kS] Q
   float* os_ = qs_ + kTile * kS;         // [kTile][kS] dO
@@ -636,7 +633,7 @@ attn_train_bwd_dkv_kernel(const float* __restrict__ q,
   float* ms = band + kBand * kS;         // [kTile] max * log2(e)
   float* ls = ms + kTile;                // [kTile] 1 / l
   float* ds = ls + kTile;                // [kTile] delta
-  float* qbias = smem + kStageKv;        // [kTile][kQB]
+  float* qbias = smem + M::kStageKv;     // [kTile][kQB]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, z = blockIdx.z;
@@ -645,21 +642,21 @@ attn_train_bwd_dkv_kernel(const float* __restrict__ q,
   const size_t head = (size_t)bh * L * D;
   const float cl2 = scale * kLog2e;
 
-  float dka[2][4] = {}, dva[2][4] = {};
+  float dka[kK][4] = {}, dva[kK][4] = {};
   const int nqt = (L + kTile - 1) / kTile, half = (nqt + 1) / 2;
   const int qt0 = z ? half : 0, qt1 = z ? nqt : half;
   if (j0 < lim) {
     // keys jw + g and jw + g + 8 (zero at or past lim): K and V as A
     // fragments, split once
-    uint32_t kb[2][4], ksm[2][4], vb[2][4], vsm[2][4];
-    rows_split(k + head, jw + g, lim, kb, ksm);
-    rows_split(v + head, jw + g, lim, vb, vsm);
+    uint32_t kb[kK][4], ksm[kK][4], vb[kK][4], vsm[kK][4];
+    rows_split<D>(k + head, jw + g, lim, kb, ksm);
+    rows_split<D>(v + head, jw + g, lim, vb, vsm);
     for (int n = qt0; n < qt1; ++n) {
       const int i0 = n * kTile;
       __syncthreads();  // every warp is done with the last tile
-      stage_rows(qs_, q + head, i0, L, kTile);
-      stage_rows(os_, dout + head, i0, L, kTile);
-      stage_band(band, table, i0 - j0 - (kTile - 1), maxlen);
+      stage_rows<D>(qs_, q + head, i0, L, kTile);
+      stage_rows<D>(os_, dout + head, i0, L, kTile);
+      stage_band<D>(band, table, i0 - j0 - (kTile - 1), maxlen);
       cp_async_commit();
       if (tid < kTile) {
         const int i = i0 + tid;
@@ -676,14 +673,14 @@ attn_train_bwd_dkv_kernel(const float* __restrict__ q,
       // from the tile) against their 80 band rows; (key jj, query ii)
       // reads qbias[ii][ii - jj + 63]
       {
-        uint32_t ab[2][4], as[2][4];
+        uint32_t ab[kK][4], as[kK][4];
 #pragma unroll
-        for (int ks = 0; ks < 2; ++ks) {
+        for (int ks = 0; ks < kK; ++ks) {
           const float* a0 = qs_ + (16 * warp + g) * kS + 8 * ks + t;
           const float a[4] = {a0[0], a0[8 * kS], a0[4], a0[8 * kS + 4]};
           tf32x3::split(a, ab[ks], as[ks]);
         }
-        band_bias<kQB>(ab, as, band + 16 * warp * kS,
+        band_bias<kQB, kS>(ab, as, band + 16 * warp * kS,
                        qbias + 16 * warp * kQB + 16 * warp);
       }
       __syncthreads();  // the bias table is whole
@@ -720,7 +717,7 @@ attn_train_bwd_dkv_kernel(const float* __restrict__ q,
             st[nt][e] = pz;
             dpt[nt][e] = gv;
           }
-        pair_product<4>(
+        pair_product<4, kK>(
             dva,
             [&](int nt, float(&a)[4]) {
               a[0] = st[nt][0];
@@ -733,7 +730,7 @@ attn_train_bwd_dkv_kernel(const float* __restrict__ q,
                   os_ + (32 * qh + 8 * nt + 2 * t) * kS + 8 * nn + g;
               return make_float2(br[0], br[kS]);
             });
-        pair_product<4>(
+        pair_product<4, kK>(
             dka,
             [&](int nt, float(&a)[4]) {
               a[0] = dpt[nt][0];
@@ -756,7 +753,7 @@ attn_train_bwd_dkv_kernel(const float* __restrict__ q,
     const int j = jw + g + 8 * h;
     if (j < L)
 #pragma unroll
-      for (int nn = 0; nn < 2; ++nn) {
+      for (int nn = 0; nn < kK; ++nn) {
         const size_t off = head + (size_t)j * D + 8 * nn + 2 * t;
         *reinterpret_cast<float2*>(dkz + off) =
             make_float2(dka[nn][2 * h], dka[nn][2 * h + 1]);
@@ -772,6 +769,7 @@ attn_train_bwd_dkv_kernel(const float* __restrict__ q,
 // bh = part, part + kParts, ..., and the parts are added in their order.
 // The blocks also complete dk and dv (their two halves, in order).
 constexpr int kParts = 16;
+template <int D>
 __global__ void __launch_bounds__(kParts * D)
 attn_train_bwd_table_kernel(Scratch scratch, float* __restrict__ dtable,
                             float* __restrict__ dk, float* __restrict__ dv,
@@ -823,36 +821,49 @@ Drop make_drop(unsigned seed_word, unsigned threshold, float keep_scale,
   return d;
 }
 
-bool bad_args(int BH, int L, int H, int maxlen, int block) {
+bool bad_args(int BH, int L, int H, int D, int maxlen, int block) {
   return H <= 0 || BH % H || BH > 65535 || L > 512 || maxlen <= 0 ||
-         block < L;
+         block < L || (D != 16 && D != 32);
+}
+
+// a kernel's dynamic shared memory up to `bytes`, with the SM's whole
+// carveout as shared memory
+template <class Kernel>
+cudaError_t set_smem(Kernel kernel, size_t bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
 }
 
 // K13's launch: SPLIT warps per row tile, on the grid (L / 64, B*H).
-template <int SPLIT>
+template <int D, int SPLIT>
 cudaError_t launch_fwd(const relpos_flash::Args& a, int BH,
                        cudaStream_t stream) {
   using S = relpos_flash::Shape<SPLIT, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_train_fwd_kernel<SPLIT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kSmemBytes);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(attn_train_fwd_kernel<SPLIT>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
+  const cudaError_t err =
+      set_smem(attn_train_fwd_kernel<D, SPLIT>, S::kSmemBytes);
   if (err != cudaSuccess) return err;
   dim3 grid((a.L + relpos_flash::kRows - 1) / relpos_flash::kRows, BH);
-  attn_train_fwd_kernel<SPLIT><<<grid, S::kThreads, S::kSmemBytes, stream>>>(
-      a);
+  attn_train_fwd_kernel<D, SPLIT>
+      <<<grid, S::kThreads, S::kSmemBytes, stream>>>(a);
   return cudaGetLastError();
 }
 
-// The warps per row tile K13 takes: every SPLIT holds 16 warps per SM
-// (4 / SPLIT blocks), so the largest SPLIT whose grid still fits the card
-// in one wave puts the most warps in flight: 4 where the grid has at most
-// one block per SM, 2 where it has at most two ([4, 8, 500, 16]: 256
-// blocks), else 1; and no more than the rows' key tiles, so that no warp
-// idles (2 at L 125, 1 at L 63).  PERF.md §6 holds the timings.
+// The warps per row tile K13 takes at head width D: the largest SPLIT
+// whose grid fits the card in one wave at the blocks per SM its shared
+// memory allows, and no more than the rows' key tiles, so that no warp
+// idles (2 at L 125, 1 at L 63).  At D 16 every SPLIT holds 16 warps per
+// SM (4 / SPLIT blocks), so this puts the most warps in flight: 4 where
+// the grid has at most one block per SM, 2 where it has at most two
+// ([4, 8, 500, 16]: 256 blocks), else 1.  At D 32 SPLIT 2 and 4 hold one
+// block per SM and SPLIT 1 two: 4 where the grid has at most one block
+// per SM ([2, 8, 500, 32]: 128 blocks), else 1.  PERF.md §6 holds the
+// timings.
+template <int D>
 int split_for(int BH, int L) {
   static int sms = 0;  // the card's SMs, read at the first launch (a
                        // failed query shows in the launch's error)
@@ -864,46 +875,103 @@ int split_for(int BH, int L) {
   const long long blocks =
       (long long)(L + relpos_flash::kRows - 1) / relpos_flash::kRows * BH;
   const int tiles = (L + relpos_flash::kKeys - 1) / relpos_flash::kKeys;
-  const int fit = blocks <= sms ? 4 : blocks <= 2LL * sms ? 2 : 1;
+  const long long per4 = relpos_flash::Shape<4, D>::kMinBlocks,
+                  per2 = relpos_flash::Shape<2, D>::kMinBlocks;
+  const int fit = blocks <= per4 * sms ? 4 : blocks <= per2 * sms ? 2 : 1;
   return min(fit, tiles >= 4 ? 4 : tiles >= 2 ? 2 : 1);
 }
 
-template <int SPLIT>
+// K13 at head width D and `split` warps per row tile (0: split_for's)
+template <int D>
+cudaError_t launch_fwd_at(const relpos_flash::Args& a, int BH, int split,
+                          cudaStream_t stream) {
+  switch (split ? split : split_for<D>(BH, a.L)) {
+    case 4: return launch_fwd<D, 4>(a, BH, stream);
+    case 2: return launch_fwd<D, 2>(a, BH, stream);
+    default: return launch_fwd<D, 1>(a, BH, stream);
+  }
+}
+
+template <int D, int SPLIT>
 cudaError_t fwd_occupancy(int* o) {
   using S = relpos_flash::Shape<SPLIT, D>;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_train_fwd_kernel<SPLIT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kSmemBytes);
+  cudaError_t err = set_smem(attn_train_fwd_kernel<D, SPLIT>, S::kSmemBytes);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(attn_train_fwd_kernel<SPLIT>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess)
-    err = cudaFuncGetAttributes(&attr, attn_train_fwd_kernel<SPLIT>);
+    err = cudaFuncGetAttributes(&attr, attn_train_fwd_kernel<D, SPLIT>);
   if (err != cudaSuccess) return err;
   o[1] = attr.numRegs;
   o[2] = (int)attr.localSizeBytes;
   o[3] = S::kWarps;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      o, attn_train_fwd_kernel<SPLIT>, S::kThreads, S::kSmemBytes);
+      o, attn_train_fwd_kernel<D, SPLIT>, S::kThreads, S::kSmemBytes);
+}
+
+template <int D>
+cudaError_t fwd_occupancy_all(int BH, int L, int* o) {
+  o[0] = split_for<D>(BH, L);
+  cudaError_t err = fwd_occupancy<D, 1>(o + 1);
+  if (err == cudaSuccess) err = fwd_occupancy<D, 2>(o + 5);
+  if (err == cudaSuccess) err = fwd_occupancy<D, 4>(o + 9);
+  return err;
+}
+
+// K14's three launches at head width D
+template <int D>
+cudaError_t launch_bwd(const float* q, const float* k, const float* v,
+                       const float* table, const int* lens, const float* out,
+                       const float* dout, const float* row_max,
+                       const float* row_sum, float* dq, float* dk, float* dv,
+                       float* dtable, bwd::Scratch sc, int BH, int L, int H,
+                       int maxlen, float scale, Drop drop,
+                       cudaStream_t st) {
+  using M = bwd::Dims<D>;
+  const int nt = (L + kTile - 1) / kTile;
+  const size_t dq_smem = sizeof(float) * (size_t)M::kDqFloats;
+  cudaError_t err = set_smem(bwd::attn_train_bwd_dq_kernel<D>, dq_smem);
+  if (err != cudaSuccess) return err;
+  bwd::attn_train_bwd_dq_kernel<D>
+      <<<dim3(nt, BH), bwd::kThreads, dq_smem, st>>>(
+          q, k, v, table, lens, out, dout, row_max, row_sum, dq, sc, L, H,
+          maxlen, scale, drop);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const size_t dkv_smem = sizeof(float) * (size_t)M::kKvFloats;
+  err = set_smem(bwd::attn_train_bwd_dkv_kernel<D>, dkv_smem);
+  if (err != cudaSuccess) return err;
+  bwd::attn_train_bwd_dkv_kernel<D>
+      <<<dim3(nt, BH, 2), bwd::kThreads, dkv_smem, st>>>(
+          q, k, v, table, lens, dout, row_max, row_sum, dk, dv, sc, L, H,
+          maxlen, scale, drop);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  bwd::attn_train_bwd_table_kernel<D>
+      <<<2 * maxlen, bwd::kParts * D, 0, st>>>(sc, dtable, dk, dv, BH, L,
+                                               maxlen);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// K13.  q, k, v, out: device float32 [B*H, L, 16] (16-byte aligned);
-// table [2*maxlen, 16]; lens: device int32 [B], each in [1, L]; row_max,
-// row_sum: [B*H, L].  block: the hash row stride (pick_block(L));
-// threshold 0 turns the dropout off.
+// K13.  q, k, v, out: device float32 [B*H, L, D] (16-byte aligned), D the
+// head width, 16 or 32; table [2*maxlen, D]; lens: device int32 [B], each
+// in [1, L]; row_max, row_sum: [B*H, L].  block: the hash row stride
+// (pick_block(L)); threshold 0 turns the dropout off.  split: the warps
+// per row tile (1, 2 or 4), or 0 for split_for's.
 extern "C" int sep_attn_train_fwd_f32(const void* q, const void* k,
                                       const void* v, const void* table,
                                       const void* lens, void* out,
                                       void* row_max, void* row_sum, int BH,
-                                      int L, int H, int maxlen, int block,
-                                      unsigned seed_word, unsigned threshold,
-                                      float keep_scale, void* stream) {
+                                      int L, int H, int D, int maxlen,
+                                      int block, unsigned seed_word,
+                                      unsigned threshold, float keep_scale,
+                                      int split, void* stream) {
   if (BH <= 0 || L <= 0) return 0;
-  if (bad_args(BH, L, H, maxlen, block)) return (int)cudaErrorInvalidValue;
+  if (bad_args(BH, L, H, D, maxlen, block) ||
+      (split != 0 && split != 1 && split != 2 && split != 4))
+    return (int)cudaErrorInvalidValue;
   relpos_flash::Args a{};
   a.q = static_cast<const float*>(q);
   a.k = static_cast<const float*>(k);
@@ -922,47 +990,43 @@ extern "C" int sep_attn_train_fwd_f32(const void* q, const void* k,
   a.keep_scale = keep_scale;
   a.block = block;
   auto st = static_cast<cudaStream_t>(stream);
-  switch (split_for(BH, L)) {
-    case 4: return (int)launch_fwd<4>(a, BH, st);
-    case 2: return (int)launch_fwd<2>(a, BH, st);
-    default: return (int)launch_fwd<1>(a, BH, st);
-  }
+  return (int)(D == 32 ? launch_fwd_at<32>(a, BH, split, st)
+                       : launch_fwd_at<16>(a, BH, split, st));
 }
 
-// K13's split at (BH, L) into o[0], then its blocks per SM, registers,
-// local (spill) bytes and warps per block at SPLIT 1, 2 and 4 into
-// o[1 .. 12].
-extern "C" int sep_attn_train_fwd_occupancy(int BH, int L, int* o) {
-  o[0] = split_for(BH, L);
-  cudaError_t err = fwd_occupancy<1>(o + 1);
-  if (err == cudaSuccess) err = fwd_occupancy<2>(o + 5);
-  if (err == cudaSuccess) err = fwd_occupancy<4>(o + 9);
-  return (int)err;
+// K13's split at (BH, L) and head width D into o[0], then its blocks per
+// SM, registers, local (spill) bytes and warps per block at SPLIT 1, 2
+// and 4 into o[1 .. 12].
+extern "C" int sep_attn_train_fwd_occupancy(int BH, int L, int D, int* o) {
+  if (D != 16 && D != 32) return (int)cudaErrorInvalidValue;
+  return (int)(D == 32 ? fwd_occupancy_all<32>(BH, L, o)
+                       : fwd_occupancy_all<16>(BH, L, o));
 }
 
-// floats of K14's scratch (bwd::Scratch): delta [B*H, L], the dk/dv
-// launch's second halves of dk and dv, the dq launch's frames of band sums
-extern "C" long long sep_attn_train_bwd_scratch_floats(int BH, int L) {
+// floats of K14's scratch (bwd::Scratch) at head width D: delta [B*H, L],
+// the dk/dv launch's second halves of dk and dv, the dq launch's frames of
+// band sums
+extern "C" long long sep_attn_train_bwd_scratch_floats(int BH, int L,
+                                                       int D) {
   const long long nqt = (L + kTile - 1) / kTile, rows = (long long)BH * L;
   return rows + 2 * rows * D + BH * nqt * bwd::frame_rows(L) * D;
 }
 
-// K14.  As K13, plus out and dout [B*H, L, 16]; dq, dk, dv [B*H, L, 16];
-// dtable [2*maxlen, 16]; scratch of sep_attn_train_bwd_scratch_floats.
+// K14.  As K13, plus out and dout [B*H, L, D]; dq, dk, dv [B*H, L, D];
+// dtable [2*maxlen, D]; scratch of sep_attn_train_bwd_scratch_floats.
 extern "C" int sep_attn_train_bwd_f32(
     const void* q, const void* k, const void* v, const void* table,
     const void* lens, const void* out, const void* dout, const void* row_max,
     const void* row_sum, void* dq, void* dk, void* dv, void* dtable,
-    void* scratch, long long scratch_floats, int BH, int L, int H,
+    void* scratch, long long scratch_floats, int BH, int L, int H, int D,
     int maxlen, int block, unsigned seed_word, unsigned threshold,
     float keep_scale, void* stream) {
-  if (bad_args(BH, L, H, maxlen, block) || BH <= 0 || L <= 0 ||
-      scratch_floats < sep_attn_train_bwd_scratch_floats(BH, L))
+  if (bad_args(BH, L, H, D, maxlen, block) || BH <= 0 || L <= 0 ||
+      scratch_floats < sep_attn_train_bwd_scratch_floats(BH, L, D))
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const Drop drop = make_drop(seed_word, threshold, keep_scale, block);
   const float scale = 1.0f / sqrtf((float)D);
-  const int nt = (L + kTile - 1) / kTile;
   const size_t rows = (size_t)BH * L;
   bwd::Scratch sc;
   sc.delta = static_cast<float*>(scratch);
@@ -971,38 +1035,14 @@ extern "C" int sep_attn_train_bwd_f32(
   sc.frames = sc.dv1 + rows * D;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto o = [](void* p) { return static_cast<float*>(p); };
-
-  // two (dq) or four (dk, dv) blocks share an SM: the most shared memory
-  auto set_smem = [](auto kernel, size_t bytes) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    return e;
-  };
-  const size_t dq_smem = sizeof(float) * (size_t)bwd::kDqFloats;
-  cudaError_t err = set_smem(bwd::attn_train_bwd_dq_kernel, dq_smem);
-  if (err != cudaSuccess) return (int)err;
-  bwd::attn_train_bwd_dq_kernel<<<dim3(nt, BH), bwd::kThreads, dq_smem,
-                                  st>>>(
-      f(q), f(k), f(v), f(table), static_cast<const int*>(lens), f(out),
-      f(dout), f(row_max), f(row_sum), o(dq), sc, L, H, maxlen, scale, drop);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const size_t dkv_smem = sizeof(float) * (size_t)bwd::kKvFloats;
-  err = set_smem(bwd::attn_train_bwd_dkv_kernel, dkv_smem);
-  if (err != cudaSuccess) return (int)err;
-  bwd::attn_train_bwd_dkv_kernel<<<dim3(nt, BH, 2), bwd::kThreads, dkv_smem,
-                                   st>>>(
-      f(q), f(k), f(v), f(table), static_cast<const int*>(lens), f(dout),
-      f(row_max), f(row_sum), o(dk), o(dv), sc, L, H, maxlen, scale, drop);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  bwd::attn_train_bwd_table_kernel<<<2 * maxlen, bwd::kParts * D, 0, st>>>(
-      sc, o(dtable), o(dk), o(dv), BH, L, maxlen);
-  return (int)cudaGetLastError();
+  const int* kl = static_cast<const int*>(lens);
+  return (int)(D == 32
+                   ? launch_bwd<32>(f(q), f(k), f(v), f(table), kl, f(out),
+                                    f(dout), f(row_max), f(row_sum), o(dq),
+                                    o(dk), o(dv), o(dtable), sc, BH, L, H,
+                                    maxlen, scale, drop, st)
+                   : launch_bwd<16>(f(q), f(k), f(v), f(table), kl, f(out),
+                                    f(dout), f(row_max), f(row_sum), o(dq),
+                                    o(dk), o(dv), o(dtable), sc, BH, L, H,
+                                    maxlen, scale, drop, st));
 }

@@ -31,7 +31,8 @@
 // key tiles' K and V and the band of 64 + 64 SPLIT clamped table rows
 // (rel = i - j from i0 - j0 - 64 SPLIT + 1 on) in shared memory with
 // cp.async, double-buffered, so the next step's loads overlap this
-// step's products.  Per (warp, tile):
+// step's products (one buffer where two would not fit a block: D = 32
+// at SPLIT 4).  Per (warp, tile):
 //  - S = Q Kᵀ by 3xTF32 m16n8k8 products (16 x 64 in C fragments);
 //  - the bias by the tile's class: where every pair has i - j >= maxlen - 1
 //    (or every pair <= -maxlen) it is the per-row constant q_i·table[2m-1]
@@ -47,14 +48,15 @@
 //    serve as the A fragment's k slots t and t+4, and V's rows are read
 //    in that order; each tile's P·V starts from zeroed fragments and is
 //    added to the running output in float32 registers.
-// The head width D is a template parameter: Base's 16 (K12, K13) and
-// Large's 32 (K12).  A lane holds D / 4 columns of each row of Q, K and
+// The head width D is a template parameter: Base's 16 and Large's 32
+// (K12 and K13 at both).  A lane holds D / 4 columns of each row of Q, K and
 // the band, (D / 4) t .. (D / 4) t + D / 4 - 1, as D / 16 16-byte loads;
 // k-step kk takes its columns 2 kk and 2 kk + 1.  K and the band are
 // staged at stride 16 for D = 16 and 36 for D = 32 (a quarter-warp's
 // 16-byte loads cover two rows: at stride 32 both would fall on the same
-// banks); V at D + 4.  At D = 32 a block takes 92 KB of shared memory,
-// so two blocks share an SM (Shape::kMinBlocks), and P·V runs one chain
+// banks); V at D + 4.  At D = 32 a block takes 92 KB of shared memory
+// at SPLIT 1, so two blocks share an SM (Shape::kMinBlocks), 166 KB at
+// SPLIT 2 and 197 KB (one stage) at SPLIT 4, one, and P·V runs one chain
 // of fresh accumulators over its four output n-fragments.
 //
 // With SPLIT > 1 the row tile's warps meet at the end over the stage
@@ -118,12 +120,18 @@ struct Shape {
   // that every warp reads 80
   static constexpr int kBand = kRows + kStepKeys;
   static constexpr int kStage = kStepKeys * (kKS + kVS) + kBand * kKS;
+  static constexpr size_t kBiasBytes = sizeof(float) * kWarps * 16 * kBS;
+  // two stages (the next step's loads overlap this step's products) where
+  // they fit a block's 227 KB, else one: D 32 at SPLIT 4 (314 KB with
+  // two, 197 KB with one)
+  static constexpr int kStages =
+      sizeof(float) * 2 * (size_t)kStage + kBiasBytes <= 227 * 1024 ? 2 : 1;
   static constexpr size_t kSmemBytes =
-      sizeof(float) * (2 * (size_t)kStage + (size_t)kWarps * 16 * kBS);
+      sizeof(float) * kStages * (size_t)kStage + kBiasBytes;
   // 16 warps per SM where the shared memory allows (54 KB a block at
   // SPLIT 1, 100 KB at 2, 196 KB at 4 for D 16), else as many blocks as
-  // fit the SM's 228 KB, 1 KB reserved per block (92 KB at D 32 and
-  // SPLIT 1: two)
+  // fit the SM's 228 KB, 1 KB reserved per block (D 32: 92 KB at SPLIT 1,
+  // two; 166 KB at 2 and 197 KB at 4, one)
   static constexpr int kFit = (int)(228 * 1024 / (kSmemBytes + 1024));
   static constexpr int kMinBlocks = 4 / SPLIT < kFit ? 4 / SPLIT : kFit;
   static_assert(kMinBlocks >= 1 && kSmemBytes <= 227 * 1024,
@@ -133,7 +141,7 @@ struct Shape {
                 "each thread stages 16 bytes of every kRowStep-th key");
   // a split warp's state per lane: two maxes, two sums, its output
   static constexpr int kXch = 4 + 4 * kNN;
-  static_assert((SPLIT - 1) * kRowTiles * 32 * kXch <= 2 * kStage,
+  static_assert((SPLIT - 1) * kRowTiles * 32 * kXch <= kStages * kStage,
                 "the split warps' states fit over the stages");
 };
 
@@ -197,7 +205,7 @@ __device__ __forceinline__ void run(const Args& a) {
   const int lim = min(L, a.lens[b]);
   const size_t head = kHeadMajor ? (size_t)bh * L * D
                                  : (size_t)b * L * F + (size_t)h * D;
-  float* wbias = smem + 2 * S::kStage + warp * 16 * kBS;
+  float* wbias = smem + S::kStages * S::kStage + warp * 16 * kBS;
 
   // Q fragments of rows iw+g and iw+g+8 (zero past L), scaled by
   // log2(e) / sqrt(D) and split once; the rows' clamped-bias constants
@@ -297,7 +305,7 @@ __device__ __forceinline__ void run(const Args& a) {
   const int steps = (tiles + SPLIT - 1) / SPLIT;
   stage(0, 0);
   for (int step = 0; step < steps; ++step) {
-    if (step + 1 < steps) {
+    if (S::kStages == 2 && step + 1 < steps) {
       stage((step + 1) & 1, (step + 1) * S::kStepKeys);
       cp_async_wait<1>();
     } else {
@@ -307,7 +315,8 @@ __device__ __forceinline__ void run(const Args& a) {
     const int n = SPLIT * step + ks;       // this warp's key tile
     if (SPLIT == 1 || n < tiles) {  // SPLIT 1: every step is a tile
       const int j0 = n * kKeys;
-      const float* stage_ = smem + (step & 1) * S::kStage;
+      const float* stage_ =
+          smem + (S::kStages == 2 ? step & 1 : 0) * S::kStage;
       const float* ks_ = stage_ + ks * kKeys * kKS;
       const float* vs_ = stage_ + S::kStepKeys * kKS + ks * kKeys * kVS;
       // the warp's band rows: its column 0 is rel iw - j0 - 63
@@ -444,6 +453,9 @@ __device__ __forceinline__ void run(const Args& a) {
         }
     }
     __syncthreads();  // this stage's buffers are consumed
+    // one stage: the next step's loads wait for this step's products
+    if (S::kStages == 1 && step + 1 < steps)
+      stage(0, (step + 1) * S::kStepKeys);
   }
 
   if constexpr (SPLIT > 1) {

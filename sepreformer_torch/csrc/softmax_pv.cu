@@ -22,9 +22,8 @@
 // Design: the tile of csrc/softmax_pv_tile.cuh (K9's too): 16 query rows
 // a warp tile, scores loaded straight into registers a tile ahead, an
 // online softmax per quad of lanes, P·V on the tensor cores (3xTF32).
-// K3 has two instances of the tile's head width, Base's 16 and Large's
-// 32 (the scores' bytes are the same at both; V's double); K3b has
-// Base's.
+// K3 and K3b have two instances of the tile's head width each, Base's 16
+// and Large's 32 (the scores' bytes are the same at both; V's double).
 #include <cuda_runtime.h>
 
 #include "softmax_pv_tile.cuh"
@@ -63,11 +62,16 @@ extern "C" int sep_softmax_pv_f32(const void* scores, const void* v,
 }
 
 // K3b: the same on scores + bias, bias a second device float32
-// [B, H, Lp, Lp] tensor.  Built for Base's head width D = 16.
+// [B, H, Lp, Lp] tensor.  Built for D = 16 and 32, as K3.
 extern "C" int sep_softmax_pv_bias_f32(const void* scores, const void* bias,
                                        const void* v, const void* lens,
                                        void* out, int B, int H, int Lp,
                                        int F, int length, void* stream) {
+  if (H > 0 && F == 32 * H)
+    return softmax_pv_tile::launch<32>(
+        softmax_pv_kernel<32, 1, true>, softmax_pv_kernel<32, 2, true>,
+        scores, bias, v, lens, out, nullptr, nullptr, B, H, Lp, F, length,
+        0u, 0u, 1.f, stream);
   return softmax_pv_tile::launch<kBaseD>(
       softmax_pv_kernel<kBaseD, 1, true>, softmax_pv_kernel<kBaseD, 2, true>,
       scores, bias, v, lens, out, nullptr, nullptr, B, H, Lp, F, length, 0u,
@@ -75,8 +79,8 @@ extern "C" int sep_softmax_pv_bias_f32(const void* scores, const void* bias,
 }
 
 // The occupancy (softmax_pv_tile::occupancy) of K3 at SPLIT 1 and 2, then
-// of K3b at SPLIT 1 and 2, then of K3 at D = 32, SPLIT 1 and 2, into
-// out[0 .. 23].
+// of K3b at SPLIT 1 and 2, then of K3 and K3b at D = 32, SPLIT 1 and 2,
+// into out[0 .. 31].
 extern "C" int sep_softmax_pv_occupancy(void* out) {
   int* o = static_cast<int*>(out);
   cudaError_t err =
@@ -96,5 +100,11 @@ extern "C" int sep_softmax_pv_occupancy(void* out) {
   if (err == cudaSuccess)
     err = softmax_pv_tile::occupancy(softmax_pv_kernel<32, 2, false>,
                                      o + 20);
+  if (err == cudaSuccess)
+    err = softmax_pv_tile::occupancy(softmax_pv_kernel<32, 1, true>,
+                                     o + 24);
+  if (err == cudaSuccess)
+    err = softmax_pv_tile::occupancy(softmax_pv_kernel<32, 2, true>,
+                                     o + 28);
   return (int)err;
 }

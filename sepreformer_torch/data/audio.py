@@ -1,6 +1,6 @@
 """Host-side audio I/O, the port's copy of the JAX package's
 ``data/audio.py`` (scipy; the optional native reader is not ported,
-ROADMAP A.1).
+ROADMAP.md queue A, "``native/``").
 
 Matches the conventions the reference gets from ``librosa.load(sr=fs)`` /
 ``sf.write`` (dataset.py:141-147, engine.py:155,169-172): float32 waveforms

@@ -17,9 +17,10 @@ behaviour, models/<VARIANT>/engine.py) on the port's train and eval steps:
 - ``infer_sample`` separates one wav file in full context or in chunks
   (engine.py:152-172).
 
-One process on one device.  The mesh and multi-host paths, grouped
-dispatch (``steps_per_dispatch``) and TensorBoard are not ported
-(ROADMAP A.4, A.9).
+One process on one device.  Not ported: grouped dispatch
+(``steps_per_dispatch``; ROADMAP.md queue A, "One dispatch per step: CUDA
+graphs"), the mesh and multi-host paths (queue A, "``parallel/``") and
+TensorBoard (queue A, "Run-time utilities").
 """
 
 from __future__ import annotations

@@ -82,18 +82,18 @@ SIGNATURES = {
     "sep_flash_relpos_f32": [_P] * 6 + [_I] * 5 + [_P],
     # x, dy, dw, db, partial, partial_floats, B, T, C, K, stream
     "sep_depthwise_bwd_w_f32": [_P] * 5 + [_L] + [_I] * 4 + [_P],
-    # q, k, v, table, lens, out, row_max, row_sum, BH, L, H, maxlen, block,
-    # seed_word, threshold, keep_scale, stream
-    "sep_attn_train_fwd_f32": [_P] * 8 + [_I] * 5 + [_U, _U, _F, _P],
-    # BH, L, int out[13] -> K13's split, then its blocks per SM,
+    # q, k, v, table, lens, out, row_max, row_sum, BH, L, H, D, maxlen,
+    # block, seed_word, threshold, keep_scale, split, stream
+    "sep_attn_train_fwd_f32": [_P] * 8 + [_I] * 6 + [_U, _U, _F, _I, _P],
+    # BH, L, D, int out[13] -> K13's split, then its blocks per SM,
     # registers, local bytes, warps at SPLIT 1, 2 and 4
-    "sep_attn_train_fwd_occupancy": [_I, _I, _P],
-    # BH, L -> floats of K14's scratch
-    "sep_attn_train_bwd_scratch_floats": [_I, _I],
+    "sep_attn_train_fwd_occupancy": [_I, _I, _I, _P],
+    # BH, L, D -> floats of K14's scratch
+    "sep_attn_train_bwd_scratch_floats": [_I, _I, _I],
     # q, k, v, table, lens, out, dout, row_max, row_sum, dq, dk, dv,
-    # dtable, scratch, scratch_floats, BH, L, H, maxlen, block, seed_word,
-    # threshold, keep_scale, stream
-    "sep_attn_train_bwd_f32": [_P] * 14 + [_L] + [_I] * 5 + [_U, _U, _F,
+    # dtable, scratch, scratch_floats, BH, L, H, D, maxlen, block,
+    # seed_word, threshold, keep_scale, stream
+    "sep_attn_train_bwd_f32": [_P] * 14 + [_L] + [_I] * 6 + [_U, _U, _F,
                                                              _P],
     # x, w, bias, y, B, T, C, K, stream
     "sep_depthwise_fwd_f32": [_P] * 4 + [_I] * 4 + [_P],
@@ -108,8 +108,8 @@ SIGNATURES = {
     # int blocks[4] -> K10's and K10b's blocks per SM, at head widths 16
     # and 32
     "sep_softmax_pv_train_bwd_blocks_per_sm": [_P],
-    # int out[24] -> K3's and K3b's blocks per SM, registers, local bytes,
-    # warps, at SPLIT 1 and 2, then K3's at head width 32
+    # int out[32] -> K3's and K3b's blocks per SM, registers, local bytes,
+    # warps, at SPLIT 1 and 2, then the same at head width 32
     "sep_softmax_pv_occupancy": [_P],
     # int out[32] -> the same of K9 and K9b, at head widths 16 and 32
     "sep_softmax_pv_train_fwd_occupancy": [_P],
@@ -189,19 +189,10 @@ def library() -> ctypes.CDLL:
 
 
 # The ROADMAP items, by title, that build the widths a kernel is not built
-# for: the "pallas" train route's kernels (K13/K14) at Large's head width
-# 32, the T/S/M presets' widths (F 64, 96, 160; head widths 8, 12, 20),
-# and the fused eval blocks at Large's width.
-LARGE_TRAINING = 'ROADMAP.md queue A, Large training on the "pallas" route'
+# for: the T/S/M presets' widths (F 64, 96, 160; head widths 8, 12, 20),
+# and the fused eval blocks (K15, K16) at Large's width.
 OTHER_PRESETS = "ROADMAP.md queue A, T/S/M"
 FUSED_WIDTHS = "ROADMAP.md queue B, other widths"
-
-
-def train_todo(value: int, large: int) -> str:
-    """The ROADMAP item that builds a "pallas"-route train kernel at
-    width ``value``: "Large training on the "pallas" route" for Large's
-    width ``large``, else the T/S/M item."""
-    return LARGE_TRAINING if value == large else OTHER_PRESETS
 
 
 def check_width(name: str, what: str, value: int, built, todo: str) -> None:

@@ -35,9 +35,8 @@ from sepreformer_torch.ops.kernels.softmax_pv import NEG_INF, _key_lens
 
 MAX_LENGTH = 512   # the JAX kernel is single-block: one [L, L] tile
 BLOCK = 128
-# K13's and K14's instance: Base's head width 16 (Large's 32 is the
-# ROADMAP item "Large training on the "pallas" route")
-TRAIN_HEAD_DIMS = (16,)
+# K13's and K14's instances: Base's head width 16 and Large's 32
+TRAIN_HEAD_DIMS = (16, 32)
 
 
 def supported_length(length: int) -> bool:
@@ -132,7 +131,7 @@ def attention_train_bwd_plain(q, k, v, table, maxlen, seed, p, lens, dout
 def _check(q, k, v, table, maxlen):
     b, h, length, d = q.shape
     _build.check_width("flash_relpos_attention_train", "head dim", d,
-                       TRAIN_HEAD_DIMS, _build.train_todo(d, 32))
+                       TRAIN_HEAD_DIMS, _build.OTHER_PRESETS)
     if table.shape != (2 * maxlen, d):
         raise ValueError(f"flash_relpos_attention_train: table "
                          f"{tuple(table.shape)} != ({2 * maxlen}, {d})")
@@ -141,19 +140,21 @@ def _check(q, k, v, table, maxlen):
                             (b, h, length, d), q.device)
     _build.check_tensor(table, "flash_relpos_attention_train table",
                         (2 * maxlen, d), q.device)
-    return b, h, length
+    return b, h, length, d
 
 
-def _kernel_args(b, h, length, maxlen, seed, p):
-    return (b * h, length, h, maxlen, pick_block(length), seed_word(seed, 0),
-            threshold(p) if p > 0.0 else 0, 1.0 / (1.0 - p))
+def _kernel_args(b, h, length, d, maxlen, seed, p):
+    return (b * h, length, h, d, maxlen, pick_block(length),
+            seed_word(seed, 0), threshold(p) if p > 0.0 else 0,
+            1.0 / (1.0 - p))
 
 
-def attention_train_fwd(q, k, v, table, maxlen, seed, p, key_len):
+def attention_train_fwd(q, k, v, table, maxlen, seed, p, key_len, split=0):
     """K13 on CUDA tensors: (out [B, H, L, d], row max and row sum
     [B, H, L] of the scaled scores); ``key_len`` int32 [B], each in
-    [1, L]."""
-    b, h, length = _check(q, k, v, table, maxlen)
+    [1, L].  ``split``: the warps per row tile (1, 2 or 4), or 0 for the
+    launcher's rule (``fwd_occupancy`` reports it)."""
+    b, h, length, d = _check(q, k, v, table, maxlen)
     out = torch.empty_like(q)
     row_max = torch.empty((b, h, length), dtype=torch.float32,
                           device=q.device)
@@ -161,8 +162,8 @@ def attention_train_fwd(q, k, v, table, maxlen, seed, p, key_len):
     err = _build.library().sep_attn_train_fwd_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
         key_len.data_ptr(), out.data_ptr(), row_max.data_ptr(),
-        row_sum.data_ptr(), *_kernel_args(b, h, length, maxlen, seed, p),
-        _build.stream_handle(q.device))
+        row_sum.data_ptr(), *_kernel_args(b, h, length, d, maxlen, seed, p),
+        split, _build.stream_handle(q.device))
     _build.check_launch("sep_attn_train_fwd_f32", err)
     attention_train_fwd.launches += 1
     return out, row_max, row_sum
@@ -174,16 +175,17 @@ def attention_train_bwd(q, k, v, table, maxlen, seed, p, key_len, out,
     d]) from K13's inputs and outputs and the output cotangent ``dout``
     (three launches: dq and the table's partials, dk and dv, the
     table's fixed-order sum)."""
-    b, h, length = _check(q, k, v, table, maxlen)
+    b, h, length, d = _check(q, k, v, table, maxlen)
     for name, a in (("out", out), ("dout", dout)):
         _build.check_tensor(a, f"flash_relpos_attention_train {name}",
-                            (b, h, length, q.shape[-1]), q.device)
+                            (b, h, length, d), q.device)
     for name, a in (("row_max", row_max), ("row_sum", row_sum)):
         _build.check_tensor(a, f"flash_relpos_attention_train {name}",
                             (b, h, length), q.device)
     lib = _build.library()
-    scratch = torch.empty(lib.sep_attn_train_bwd_scratch_floats(b * h, length),
-                          dtype=torch.float32, device=q.device)
+    scratch = torch.empty(
+        lib.sep_attn_train_bwd_scratch_floats(b * h, length, d),
+        dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dtable = torch.empty_like(table)
     err = lib.sep_attn_train_bwd_f32(
@@ -191,7 +193,7 @@ def attention_train_bwd(q, k, v, table, maxlen, seed, p, key_len, out,
         key_len.data_ptr(), out.data_ptr(), dout.data_ptr(),
         row_max.data_ptr(), row_sum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), dtable.data_ptr(), scratch.data_ptr(), scratch.numel(),
-        *_kernel_args(b, h, length, maxlen, seed, p),
+        *_kernel_args(b, h, length, d, maxlen, seed, p),
         _build.stream_handle(q.device))
     _build.check_launch("sep_attn_train_bwd_f32", err)
     attention_train_bwd.launches += 1
@@ -201,16 +203,19 @@ def attention_train_bwd(q, k, v, table, maxlen, seed, p, key_len, out,
 Occupancy = Dict[str, Dict[str, int]]
 
 
-def fwd_occupancy(bh: int, length: int) -> Tuple[int, Occupancy]:
-    """K13's launch on the current card: the warps per row tile it takes
-    at ``bh`` heads of ``length`` rows, and at each split (1, 2 and 4) its
-    blocks per SM, registers, local (spill) bytes and warps per block."""
+def fwd_occupancy(bh: int, length: int, d: int = 16
+                  ) -> Tuple[int, Occupancy]:
+    """K13's launch on the current card at head width ``d``: the warps
+    per row tile it takes at ``bh`` heads of ``length`` rows, and at each
+    split (1, 2 and 4) its blocks per SM, registers, local (spill) bytes
+    and warps per block."""
     out = (ctypes.c_int * 13)()
     _build.check_launch("sep_attn_train_fwd_occupancy",
                         _build.library().sep_attn_train_fwd_occupancy(
-                            bh, length, ctypes.addressof(out)))
+                            bh, length, d, ctypes.addressof(out)))
     keys = ("blocks_per_sm", "registers", "local_bytes", "warps")
-    per_split = {f"K13 split {s}": dict(zip(keys, out[1 + 4 * i:5 + 4 * i]))
+    name = "K13" if d == 16 else f"K13 d={d}"
+    per_split = {f"{name} split {s}": dict(zip(keys, out[1 + 4 * i:5 + 4 * i]))
                  for i, s in enumerate((1, 2, 4))}
     return out[0], per_split
 

@@ -19,9 +19,9 @@ from sepreformer_torch.ops.kernels import _build
 from sepreformer_torch.ops.kernels._autograd import with_plain_grad
 
 NEG_INF = -1.0e30
-# K3's instances: Base's head width 16 and Large's 32 (K3b: Base's)
+# K3's and K3b's instances: Base's head width 16 and Large's 32
 SUPPORTED_HEAD_DIMS = (16, 32)
-BIAS_HEAD_DIMS = (16,)
+BIAS_HEAD_DIMS = (16, 32)
 
 
 def _key_lens(b: int, length: int, lens: Optional[torch.Tensor],
@@ -118,7 +118,7 @@ def softmax_pv(scores: torch.Tensor, v: torch.Tensor,
                            SUPPORTED_HEAD_DIMS, _build.OTHER_PRESETS)
     else:
         _build.check_width("softmax_pv (bias=)", "head dim", f // h,
-                           BIAS_HEAD_DIMS, _build.FUSED_WIDTHS)
+                           BIAS_HEAD_DIMS, _build.OTHER_PRESETS)
     if not 1 <= length <= lp:
         raise ValueError(f"softmax_pv: length {length} outside [1, {lp}]")
     _build.check_tensor(scores, "softmax_pv scores", (b, h, lp, lp),
@@ -151,9 +151,9 @@ def tile_occupancy(entry: str, form: str, wide: Tuple[str, ...] = ()
 
 
 def occupancy() -> Dict[str, Dict[str, int]]:
-    """K3's (at head widths 16 and 32) and K3b's launches on the current
+    """K3's and K3b's launches, at head widths 16 and 32, on the current
     card."""
-    return tile_occupancy("sep_softmax_pv_occupancy", "K3", wide=("",))
+    return tile_occupancy("sep_softmax_pv_occupancy", "K3", wide=("", "b"))
 
 
 softmax_pv.launches = 0

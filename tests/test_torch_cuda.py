@@ -680,11 +680,11 @@ def test_depthwise_bwd_w_kernel_matches_plain(cuda_device, b, t, c, k):
         assert torch.equal(g, a)      # no atomics: the same bits every run
 
 
-def attention_train_case(b, h, length, maxlen, device, seed):
+def attention_train_case(b, h, length, maxlen, device, seed, d=16):
     gen = torch.Generator().manual_seed(seed)
-    q, k, v, dout = (torch.randn(b, h, length, 16, generator=gen).to(device)
+    q, k, v, dout = (torch.randn(b, h, length, d, generator=gen).to(device)
                      for _ in range(4))
-    table = torch.randn(2 * maxlen, 16, generator=gen).to(device)
+    table = torch.randn(2 * maxlen, d, generator=gen).to(device)
     return q, k, v, table, dout
 
 
@@ -706,15 +706,24 @@ def attention_train_case(b, h, length, maxlen, device, seed):
     (2, 16, 64, (16, 1), 0.1)])
 def test_attention_train_kernels_match_plain(cuda_device, b, length, maxlen,
                                              lens, p):
+    check_attention_train_kernels(cuda_device, b, length, maxlen, lens, p,
+                                  d=16)
+
+
+def check_attention_train_kernels(cuda_device, b, length, maxlen, lens, p,
+                                  d, split=0):
+    """K13 (at ``split`` warps per row tile, 0: its rule's) and K14 at
+    [b, 8, length, d] against their plain versions, K13's row statistics
+    against float64, both bit-equal on a repeat call."""
     h, seed = 8, 4321
     q, k, v, table, dout = attention_train_case(b, h, length, maxlen,
-                                                cuda_device, length)
+                                                cuda_device, length, d)
     tl = None if lens is None else torch.tensor(lens, device=cuda_device)
     key_len = (torch.full((b,), length, dtype=torch.int32, device=cuda_device)
                if tl is None else tl.to(torch.int32))
     fwd, bwd = attention_train_fwd.launches, attention_train_bwd.launches
     out, row_max, row_sum = attention_train_fwd(q, k, v, table, maxlen, seed,
-                                                p, key_len)
+                                                p, key_len, split)
     grads = attention_train_bwd(q, k, v, table, maxlen, seed, p, key_len,
                                 out, dout, row_max, row_sum)
     torch.cuda.synchronize()
@@ -730,7 +739,7 @@ def test_attention_train_kernels_match_plain(cuda_device, b, length, maxlen,
     rel = torch.clamp(pos[:, None] - pos[None], -maxlen, maxlen - 1) + maxlen
     s = (torch.einsum("bhid,bhjd->bhij", q.double(), k.double())
          + torch.einsum("bhid,ijd->bhij", q.double(), table.double()[rel]))
-    s = s / 4.0
+    s = s / d ** 0.5
     valid = pos[None] < key_len[:, None]
     s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
     mx = s.amax(-1)
@@ -739,7 +748,8 @@ def test_attention_train_kernels_match_plain(cuda_device, b, length, maxlen,
                                torch.exp(s - mx[..., None]).sum(-1),
                                rtol=1e-5, atol=0)
     # no atomics, a fixed order of sums: the same bits every run
-    again = attention_train_fwd(q, k, v, table, maxlen, seed, p, key_len)
+    again = attention_train_fwd(q, k, v, table, maxlen, seed, p, key_len,
+                                split)
     for x, y in zip((out, row_max, row_sum), again):
         assert torch.equal(x, y)
     ref = attention_train_bwd_plain(q, k, v, table, maxlen, seed, p, tl, dout)
@@ -754,12 +764,51 @@ def test_attention_train_kernels_match_plain(cuda_device, b, length, maxlen,
         assert torch.equal(g, a)      # no atomics: the same bits every run
 
 
+# test_attention_train_kernels_match_plain's cases at head width 32, and
+# Large's train shapes: [2, 8, 500] (the encoder, K13 at split 4), [4, 8,
+# 500] (the decoder, split 1) and the "single" serve's [8, 8, 500] with
+# key lengths
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,length,maxlen,lens,p", [
+    (2, 77, 64, (77, 30), 0.0), (2, 77, 64, None, 0.1),
+    (2, 300, 64, None, 0.1), (2, 300, 64, (300, 131), 0.0),
+    (4, 500, 2000, None, 0.1), (2, 500, 2000, None, 0.1),
+    (8, 500, 2000, (500, 438, 375, 313) * 2, 0.0), (1, 64, 2000, None, 0.1),
+    (2, 129, 64, (129, 65), 0.1), (9, 512, 2000, None, 0.05),
+    (2, 16, 64, (16, 1), 0.1)])
+def test_attention_train_kernels_d32_match_plain(cuda_device, b, length,
+                                                 maxlen, lens, p):
+    check_attention_train_kernels(cuda_device, b, length, maxlen, lens, p,
+                                  d=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("split", [1, 2, 4])
+@pytest.mark.parametrize("b,lens", [(2, None), (3, (500, 300, 1))])
+def test_attention_train_fwd_every_split_matches_plain(cuda_device, d, split,
+                                                       b, lens):
+    """K13 at each split, whatever the rule takes (D 32's SPLIT 4 runs
+    one stage), against the plain version."""
+    check_attention_train_kernels(cuda_device, b, 500, 2000, lens, 0.1, d,
+                                  split)
+
+
 @pytest.mark.cuda
 def test_flash_relpos_attention_train_gradient_on_the_card(cuda_device):
     """The autograd function (K13, then K14) against the CPU's plain
     version and its autograd, the table's gradient included."""
+    check_attention_train_gradient(cuda_device, 16)
+
+
+@pytest.mark.cuda
+def test_flash_relpos_attention_train_d32_gradient_on_the_card(cuda_device):
+    check_attention_train_gradient(cuda_device, 32)
+
+
+def check_attention_train_gradient(cuda_device, d):
     b, h, length, maxlen, p, seed = 2, 8, 300, 64, 0.1, 99
-    cpu = attention_train_case(b, h, length, maxlen, "cpu", 5)
+    cpu = attention_train_case(b, h, length, maxlen, "cpu", 5, d)
 
     def run(device):
         q, k, v, table = (a.to(device).requires_grad_() for a in cpu[:4])
@@ -961,6 +1010,27 @@ def test_softmax_pv_kernel_d32_matches_plain(cuda_device, b, h, lp, length,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,lp,length,lens", SOFTMAX_PV_SHAPES)
+def test_softmax_pv_bias_kernel_d32_matches_plain(cuda_device, b, h, lp,
+                                                  length, lens):
+    """K3b at head width 32: the softmax of scores + bias, bit-equal on
+    a repeat call."""
+    scores, bias, _, lens = softmax_pv_case(cuda_device, b, h, lp, length,
+                                            lens, seed=33)
+    gen = torch.Generator().manual_seed(lp + 1)
+    v = torch.randn(b, lp, h * 32, generator=gen).to(cuda_device)
+    before = softmax_pv_bias.launches, softmax_pv.launches
+    got = softmax_pv(scores, v, lens, length, bias=bias)
+    again = softmax_pv(scores, v, lens, length, bias=bias)
+    torch.cuda.synchronize()
+    assert (softmax_pv_bias.launches, softmax_pv.launches) == (
+        before[0] + 2, before[1])
+    torch.testing.assert_close(
+        got, softmax_pv_plain(scores, v, lens, length, bias), **CARD_TOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
 # the cases of test_flash_kernel_matches_plain at head width 32
 @pytest.mark.parametrize("b,length,maxlen,lens", [
     (3, 77, 64, (77, 30, 1)), (2, 300, 64, None), (2, 300, 64, (300, 131)),
@@ -1093,7 +1163,7 @@ def test_large_train_kernels_gradient_on_the_card(cuda_device):
 
 def base_digests(device):
     """SHA-1 of the outputs of the Base instances of K1, K3, K7, K8, K9,
-    K10, K12 and K13 on inputs drawn from fixed CPU seeds."""
+    K10, K12, K13 and K14 on inputs drawn from fixed CPU seeds."""
     import hashlib
 
     def sha(t):
@@ -1115,9 +1185,11 @@ def base_digests(device):
     qh, kh, vh = randn(4, 8, 500, 16), randn(4, 8, 500, 16), randn(4, 8, 500,
                                                                   16)
     dout, dout_a = randn(2, 500, 128), randn(4, 512, 128)
+    dout_h = randn(4, 8, 500, 16)
     flat = lambda ts: torch.cat([a.flatten() for a in ts])  # noqa: E731
     with torch.no_grad():
         stats = softmax_pv_train_fwd(scores, v, 1234, full, 500, 0.05)
+        k13 = attention_train_fwd(qh, kh, vh, table, 2000, 4321, 0.05, full)
         dx, dparams = gcfn_train_bwd(x, params, 1e-5, 4321, 0.05, dout)
         return {
             "K1": sha(fused_gcfn(x, params, 1e-5,
@@ -1128,8 +1200,10 @@ def base_digests(device):
             "K12": sha(flash_relpos_attention(
                 q, k, vv, table, 2000, torch.tensor([2000, 1500],
                                                     device=device))),
-            "K13": sha(torch.cat([a.flatten() for a in attention_train_fwd(
-                qh, kh, vh, table, 2000, 4321, 0.05, full)])),
+            "K13": sha(flat(k13)),
+            "K14": sha(flat(attention_train_bwd(
+                qh, kh, vh, table, 2000, 4321, 0.05, full, k13[0], dout_h,
+                k13[1], k13[2]))),
             "K7": sha(gcfn_train_fwd(x, params, 1e-5, 4321, 0.05)),
             "K8": sha(flat((dx, *dparams))),
             "K10": sha(flat(softmax_pv_train_bwd(
@@ -1140,7 +1214,8 @@ def base_digests(device):
 
 # base_digests on an H100 80GB HBM3 with the kernels of the trees before
 # the Large instances: K1, K3, K9, K12 and K13 before the eval instances
-# (5a5dd13), K7, K8 and K10 before the train instances (31c48ab)
+# (5a5dd13), K7, K8 and K10 before the train instances (31c48ab), K14
+# before its head-width-32 instance (f41302c)
 BASE_DIGESTS = {
     "K1": "e21e7e336d1ac95e22863f016c23a600d9edfdd4",
     "K3": "db2d328a28c02de0b04b0d146050158f76028b30",
@@ -1150,6 +1225,7 @@ BASE_DIGESTS = {
     "K7": "c9f81e0a370934174fcac7aee4cec0395444de18",
     "K8": "adfea2ece94702516359d4301ab5c543d08b9208",
     "K10": "d28b1f1b3b6c13fb6dd463ab74e492ca6df827ca",
+    "K14": "54260ebc9282ef1ca8cac7cd3997a227144c2cc7",
 }
 
 

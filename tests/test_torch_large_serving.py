@@ -194,8 +194,7 @@ def cla_args(f):
 
 def large_train_calls():
     """A Large train step's kernels at Large's widths, on meta tensors:
-    the default route's, which are built, and the "pallas" route's
-    K13/K14, which are not."""
+    the default route's and the "pallas" route's K13/K14."""
     x, params = gcfn_args(256)
     scores, v = meta(1, 8, 128, 128), meta(1, 128, 256)
     q, table = meta(1, 8, 64, 32), meta(64, 32)
@@ -212,22 +211,15 @@ def large_train_calls():
     }
 
 
-LARGE_TRAIN_BUILT = ("K7", "K8", "K7/K8 autograd", "K9/K10", "K9b/K10b")
-
-
-@pytest.mark.parametrize("kernel", ["K13/K14"])
-def test_large_train_kernels_name_their_roadmap_item(kernel):
-    with pytest.raises(ValueError,
-                       match='head dim 32 .*not built yet: ROADMAP.md queue '
-                             'A, Large training on the "pallas" route'):
-        large_train_calls()[kernel]()
+LARGE_TRAIN_BUILT = ("K7", "K8", "K7/K8 autograd", "K9/K10", "K9b/K10b",
+                     "K13/K14")
 
 
 @pytest.mark.parametrize("kernel", LARGE_TRAIN_BUILT)
 def test_large_train_kernels_pass_the_width_check(kernel):
-    """K7/K8 at F 256 and K9/K10 and K9b/K10b at head width 32 are built:
-    their wrappers refuse the meta tensors only for not lying on a
-    card."""
+    """K7/K8 at F 256 and K9/K10, K9b/K10b and K13/K14 at head width 32
+    are built: their wrappers refuse the meta tensors only for not lying
+    on a card."""
     with pytest.raises(ValueError, match="expected meta .*CUDA"):
         large_train_calls()[kernel]()
 
@@ -242,26 +234,32 @@ def test_unbuilt_widths_name_their_roadmap_items():
     with pytest.raises(ValueError, match=other):
         K.fused_cla(*cla_args(256), 1e-5)
     scores = meta(1, 8, 128, 128)
-    with pytest.raises(ValueError, match=other):
-        K.softmax_pv(scores, meta(1, 128, 256), None, 100, bias=scores)
     tsm = "not built yet: ROADMAP.md queue A, T/S/M"
     with pytest.raises(ValueError, match="width 64 .*" + tsm):
         K.fused_gcfn(*gcfn_args(64), 1e-5)
     with pytest.raises(ValueError, match="head dim 8 .*" + tsm):
         K.softmax_pv(scores, meta(1, 128, 64), None, 100)
+    with pytest.raises(ValueError, match="head dim 8 .*" + tsm):
+        K.softmax_pv(scores, meta(1, 128, 64), None, 100, bias=scores)
     q = meta(1, 64, 64)
     with pytest.raises(ValueError, match="head dim 8 .*" + tsm):
         K.flash_relpos_attention(q, q, q, meta(64, 8), 32)
+    qh = meta(1, 8, 64, 8)
+    with pytest.raises(ValueError, match="head dim 8 .*" + tsm):
+        K.flash_relpos_attention_train(qh, qh, qh, meta(64, 8), 1, 32, 0.1)
 
 
 def test_large_serving_widths_pass_the_width_check():
-    """K1 at F 256 and K3 and K12 at head width 32 are built: their
+    """K1 at F 256 and K3, K3b and K12 at head width 32 are built: their
     wrappers refuse the meta tensors only for not lying on a card."""
     on_card = "expected meta .*CUDA|expected .*\\(CUDA\\)"
     with pytest.raises(ValueError, match=on_card):
         K.fused_gcfn(*gcfn_args(256), 1e-5)
+    scores = meta(1, 8, 128, 128)
     with pytest.raises(ValueError, match=on_card):
-        K.softmax_pv(meta(1, 8, 128, 128), meta(1, 128, 256), None, 100)
+        K.softmax_pv(scores, meta(1, 128, 256), None, 100)
+    with pytest.raises(ValueError, match=on_card):
+        K.softmax_pv(scores, meta(1, 128, 256), None, 100, bias=scores)
     q = meta(1, 64, 256)
     with pytest.raises(ValueError, match=on_card):
         K.flash_relpos_attention(q, q, q, meta(64, 32), 32)
