@@ -8,14 +8,16 @@
 //           body _cla_kernel).
 //
 // What bounds it on the H100: three products of 2*F*2F flops per row
-// (65.5 kflop each at F = 128), at the 3xTF32 rate (495 / 3 TFLOP/s)
-// 0.038 ms at [4, 8000, 128]; the conv's 2*65*F and the elementwise work
-// (~0.68 GFLOP, ~0.010 ms on the CUDA cores) and the bytes (x and out,
-// ~0.010 ms at 3.35 TB/s; ~0.020 ms with v's round trip) lie under it.
-// On the CUDA cores alone the products would take 0.104 ms.
+// (65.5 kflop each at F = 128, 262 at F = 256), at the 3xTF32 rate
+// (495 / 3 TFLOP/s) 0.038 ms at [4, 8000, 128] and 0.153 ms at
+// [4, 8000, 256]; the conv's 2*65*F and the elementwise work (~0.68
+// GFLOP at F = 128, ~0.010 ms on the CUDA cores) and the bytes (x and
+// out, ~0.010 ms at 3.35 TB/s at F = 128; ~0.020 ms with v's round trip)
+// lie under it.  On the CUDA cores alone the products would take 0.104
+// ms at F = 128.
 //
-// Design: two launches of 256 threads per tile of TT = 64 rows, two
-// blocks per SM.  The k65 conv reads 32 v rows past each edge of a tile,
+// Design: two launches of 256 threads per tile of TT = 64 rows.  The k65
+// conv reads 32 v rows past each edge of a tile,
 // and v = GLU(LN(x) W_in + b_in) must be zero outside [0, T) (the conv
 // pads its input, v, not x: GLU of a zero x row is not zero).  One launch
 // that recomputed LN and the first product on the halo would do that
@@ -24,15 +26,16 @@
 // stages each tile's window of v rows with zeros outside [0, T): the halo
 // is right by construction.
 //   - cla_glu_kernel: LayerNorm of the tile into xn [TT][F + 8], then
-//     W_in in four chunks of 32 GLU pairs (value column c and its gate
+//     W_in in F / 32 chunks of 32 GLU pairs (value column c and its gate
 //     c + F side by side), double-buffered by cp.async.  Each warp's two
 //     n-tiles are the value and the gate columns of the same 8 pairs, so
 //     the GLU runs on the fragments and v leaves from registers.
 //   - cla_tail_kernel: the window of TT + 64 v rows and the conv weight
-//     staged, the conv as a sliding window of 32 rows in registers per
-//     (channel, half tile), one shared load per tap and row instead of
-//     one per tap and output row; its output y [TT][F + 8] overlays the
-//     dead window.  Then the hidden width in eight chunks of 32 columns:
+//     staged, the conv as a sliding window of R rows in registers per
+//     (channel, R-row part of the tile), one shared load per tap and row
+//     instead of one per tap and output row; its output y [TT][F + 8]
+//     overlays the dead window.  Then the hidden width in 2F / 32 chunks
+//     of 32 columns:
 //     z_c = GELU((y W_mid[:, c] + b_mid) s + t) on the fragments into
 //     shared memory, o += z_c W_out[c rows, :] in float32 fragments that
 //     stay in registers across the chunks.  W_mid's and W_out's chunks
@@ -45,6 +48,24 @@
 // fragments and are added to float32 sums (mma_tf32x3.cuh says why).
 // GELU is exact (erff): the TPU kernel approximated erf only because
 // Mosaic had no erf lowering.  No atomics: the same bits on every call.
+//
+// Two instances, one code: the shapes below give each launch its blocks
+// per SM (blocks_for), and __launch_bounds__ takes it.
+//   - Base's F = 128: the GLU launch 102 KB, the tail 98.5 KB, two
+//     blocks per SM each (a thread at most 128 registers); the conv's
+//     R = 32 rows a thread, two threads a channel.
+//   - Large's F = 256: the GLU launch 202 KB (xn 64 x 264 floats and two
+//     W_in buffers of 256 x 68), the tail 196.5 KB (the 128-row window of
+//     v, then the weights), one block per SM each, as K1, K7 and K8 at
+//     F = 256.  The SM's eight warps are then the block's own, and a
+//     thread may take 255 registers: the conv keeps R = 64 rows of one
+//     channel (acc[64] and win[64], 128 registers, which would spill
+//     under two blocks' 128), the o product 64 accumulators a thread
+//     (OMT 2 x ONT 8 fragments).  Smaller tiles that kept two blocks
+//     (32 rows, or the conv in two 32-row halves) would read every weight
+//     twice as often and stage a 64-row halo for 32 rows of output.
+// Each shape asserts its budget; tests/test_torch_large_fused_tiling.py
+// reads the numbers back from this file.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,7 +79,12 @@ constexpr int kK = 65;              // the CLA's depthwise kernel
 constexpr int kHalo = (kK - 1) / 2;
 constexpr int kTT = 64;             // rows per tile, both launches
 constexpr int kCH = 32;             // GLU pairs, or hidden columns, a chunk
-constexpr int kMaxSmem = 113 * 1024;  // of an SM's 228 KB: two blocks
+// Of an SM's 228 KB, with 1 KB reserved per block: two blocks of at most
+// 113 KB, or one of at most 227 KB.
+constexpr size_t kTwoBlocks = 113 * 1024, kOneBlock = 227 * 1024;
+
+// Blocks per SM of a launch whose block takes `bytes` of shared memory.
+constexpr int blocks_for(size_t bytes) { return bytes <= kTwoBlocks ? 2 : 1; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -79,8 +105,10 @@ struct GluShape {
   static constexpr int LX = F + 8, LW = NC + 4;
   static constexpr int xn = 0, wi = xn + kTT * LX, floats = wi + 2 * F * LW;
   static constexpr size_t smem_bytes = sizeof(float) * (size_t)floats;
+  static constexpr int blocks_per_sm = blocks_for(smem_bytes);
   static_assert(kCH == 8 * WN && kTT == 16 * MT * WM, "warp tiling");
-  static_assert(smem_bytes <= kMaxSmem, "two blocks per SM");
+  static_assert(smem_bytes <= kOneBlock, "at least one block per SM");
+  static_assert(F != 128 || blocks_per_sm == 2, "Base: two blocks per SM");
 };
 
 // LayerNorm of rows t0 .. t0+kTT-1 of xb into xn [kTT][LX], zero past T;
@@ -124,7 +152,7 @@ __device__ __forceinline__ void layer_norm_tile(
 
 // Launch 1: v[b, t] = GLU(LN(x[b, t]) W_in + b_in) for kTT rows a block.
 template <int F>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, GluShape<F>::blocks_per_sm)
 cla_glu_kernel(const float* __restrict__ x, const float* __restrict__ lns,
                const float* __restrict__ lnb, const float* __restrict__ w_in,
                const float* __restrict__ b_in, float* __restrict__ v, int T,
@@ -216,18 +244,24 @@ struct TailShape {
                                      : F * kK;
   static constexpr int floats = ws + weights;
   static constexpr size_t smem_bytes = sizeof(float) * (size_t)floats;
+  static constexpr int blocks_per_sm = blocks_for(smem_bytes);
   static_assert(z + kTT * LZ <= ws, "y and z fit over the window");
   static_assert(kTT == 16 * ZMT * ZWM && kTT == 16 * OMT * OWM,
                 "warp tiling");
   static_assert(kThreads % F == 0 && R * (kThreads / F) == kTT,
                 "conv: a thread per (channel, R rows)");
-  static_assert(smem_bytes <= kMaxSmem, "two blocks per SM");
+  static_assert(smem_bytes <= kOneBlock, "at least one block per SM");
+  static_assert(F != 128 || blocks_per_sm == 2, "Base: two blocks per SM");
+  // the conv's acc[R] and win[R] within a thread's registers: 255 at one
+  // block per SM, 128 at two
+  static_assert(2 * R <= (blocks_per_sm == 1 ? 128 : 64),
+                "conv registers");
 };
 
 // Launch 2: out = x + ls * (GELU((conv(v) W_mid + b_mid) * s + t) W_out +
 // b_out) for kTT rows a block.
 template <int F>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, TailShape<F>::blocks_per_sm)
 cla_tail_kernel(const float* __restrict__ x, const float* __restrict__ v,
                 const float* __restrict__ wdw, const float* __restrict__ bdw,
                 const float* __restrict__ w_mid,
@@ -397,7 +431,7 @@ cla_tail_kernel(const float* __restrict__ x, const float* __restrict__ v,
 }
 
 // Both kernels' dynamic shared memory, and the carveout at its most shared
-// memory, so that two blocks share an SM.
+// memory, so that two blocks share an SM at F = 128 and one fits at 256.
 template <int F>
 cudaError_t set_attributes() {
   cudaError_t err = cudaFuncSetAttribute(
@@ -437,13 +471,25 @@ int launch(const float* x, const float* lns, const float* lnb,
   return (int)cudaGetLastError();
 }
 
+template <int F>
+cudaError_t blocks_per_sm(int* n) {
+  cudaError_t err = set_attributes<F>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n, cla_glu_kernel<F>, kThreads, GluShape<F>::smem_bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        n + 1, cla_tail_kernel<F>, kThreads, TailShape<F>::smem_bytes);
+  return err;
+}
+
 }  // namespace
 
 // Pointers are device pointers to float32, x, v and out 16-byte aligned.
 // w_in, w_mid [F, 2F] and w_out [2F, F] are [in, out], contiguous and
 // 16-byte aligned; wdw is the Conv1d weight [F, 1, 65]; bn_s, bn_t [2F]
 // the folded BatchNorm; v [B, T, F] is scratch.  Built for Base's
-// F = 128.
+// F = 128 and Large's F = 256.
 extern "C" int sep_cla_f32(const void* x, const void* lns, const void* lnb,
                            const void* w_in, const void* b_in,
                            const void* wdw, const void* bdw,
@@ -454,25 +500,24 @@ extern "C" int sep_cla_f32(const void* x, const void* lns, const void* lnb,
                            int F, float eps, void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   if (B <= 0 || T <= 0) return 0;
-  if (F != 128 || B > 65535) return (int)cudaErrorInvalidValue;
-  return launch<128>(f(x), f(lns), f(lnb), f(w_in), f(b_in), f(wdw), f(bdw),
-                     f(w_mid), f(b_mid), f(bn_s), f(bn_t), f(w_out),
-                     f(b_out), f(ls), static_cast<float*>(v),
-                     static_cast<float*>(out), B, T, eps,
-                     static_cast<cudaStream_t>(stream));
+  if (B > 65535) return (int)cudaErrorInvalidValue;
+  auto run = [&](auto launcher) {
+    return launcher(f(x), f(lns), f(lnb), f(w_in), f(b_in), f(wdw), f(bdw),
+                    f(w_mid), f(b_mid), f(bn_s), f(bn_t), f(w_out), f(b_out),
+                    f(ls), static_cast<float*>(v), static_cast<float*>(out),
+                    B, T, eps, static_cast<cudaStream_t>(stream));
+  };
+  if (F == 128) return run(launch<128>);
+  if (F == 256) return run(launch<256>);
+  return (int)cudaErrorInvalidValue;
 }
 
-// Blocks of each K15 launch that one SM holds at once, with the launch's
-// attributes set (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into
-// blocks[0] (the GLU launch) and blocks[1] (the tail).
-extern "C" int sep_cla_blocks_per_sm(void* blocks) {
+// Blocks of each K15 launch at width F that one SM holds at once, with the
+// launch's attributes set (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// into blocks[0] (the GLU launch) and blocks[1] (the tail).
+extern "C" int sep_cla_blocks_per_sm(int F, void* blocks) {
   int* n = static_cast<int*>(blocks);
-  cudaError_t err = set_attributes<128>();
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        n, cla_glu_kernel<128>, kThreads, GluShape<128>::smem_bytes);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        n + 1, cla_tail_kernel<128>, kThreads, TailShape<128>::smem_bytes);
-  return (int)err;
+  if (F == 128) return (int)blocks_per_sm<128>(n);
+  if (F == 256) return (int)blocks_per_sm<256>(n);
+  return (int)cudaErrorInvalidValue;
 }

@@ -8,21 +8,25 @@
 //           (_impl, body _kernel).
 //
 // What bounds it on the H100: K1's two products (295 kflop per row at
-// F = 128) plus the gate's F x F product (33 kflop), 328 kflop per row
-// against 2*F*4 bytes of row traffic (x_down is 1/r of that): bound by
-// the products.  On the tensor cores at float32 accuracy (3xTF32, 495/3
-// TFLOP/s) that is 0.064 ms at [4, 8000, 128]; the two LayerNorms, the
-// conv, the GLU and the gate on the CUDA cores and the sigmoids on the
-// SFUs take well under that.
+// F = 128, 1180 at F = 256) plus the gate's F x F product (33 kflop, 131),
+// 20 F^2 flops per row against 2*F*4 bytes of row traffic (x_down is 1/r
+// of that): bound by the products.  On the tensor cores at float32
+// accuracy (3xTF32, 495/3 TFLOP/s) that is 0.064 ms at [4, 8000, 128]
+// and 0.254 ms at [4, 8000, 256]; the two LayerNorms, the conv, the GLU
+// and the gate on the CUDA cores and the sigmoids on the SFUs take well
+// under that.
 //
 // Design: K1's tile (gcfn_tile_mma.cuh, kPair) with the tail as a
 // prologue over its R = 64 rows, halo rows included, so the GCFN's k3
 // conv sees the tail's output on both sides of the tile: LN_g(x) into
-// xn, the gate product as two 3xTF32 warp products of 64 columns each
+// xn, the gate product as F / 64 3xTF32 warp products of 64 columns each
 // (wg staged through the tile's win buffer by cp.async), the gated
-// residual in the fragments, y into shared memory over the buffers that
-// the chunk loop fills later, so the block keeps K1's 113 KB and two
-// blocks share an SM.  The TPU kernel took the upsampled attention output
+// residual in the fragments, y into shared memory over buffers that the
+// chunk loop fills later.  Two instances, as K1's: Base's F = 128 keeps
+// K1's 113 KB and two blocks per SM (y over wo and u); Large's F = 256
+// takes K1's 199 KB and one block per SM, y over wi, held in registers
+// until the gate's last part is read (the header says why).  The TPU
+// kernel took the upsampled attention output
 // as a second [B, T, F] input, because a row gather cost it a one-hot
 // product; here each row reads x_down[t / r] directly (r = T / L is exact
 // in every GlobalBlock: the stage length is the bottleneck length times a
@@ -42,7 +46,8 @@ namespace {
 using gcfn_mma::kThreads;
 
 template <int F>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads,
+                                  gcfn_mma::Shape<F>::blocks_per_sm)
 ega_gcfn_kernel(const float* __restrict__ x, gcfn_mma::Pair pair,
                 const float* __restrict__ lns, const float* __restrict__ lnb,
                 const float* __restrict__ win, const float* __restrict__ bin,
@@ -56,8 +61,8 @@ ega_gcfn_kernel(const float* __restrict__ x, gcfn_mma::Pair pair,
                                  GcfnDrop{}, pair);
 }
 
-// the launch's attributes: its dynamic shared memory, and room for two
-// blocks per SM
+// the launch's attributes: its dynamic shared memory, and room for
+// Shape<F>::blocks_per_sm blocks per SM
 template <int F>
 cudaError_t set_attributes() {
   cudaError_t err = cudaFuncSetAttribute(
@@ -86,12 +91,23 @@ int launch(const float* x, gcfn_mma::Pair pair, const float* lns,
   return (int)cudaGetLastError();
 }
 
+template <int F>
+cudaError_t blocks_per_sm(int* blocks) {
+  cudaError_t err = set_attributes<F>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, ega_gcfn_kernel<F>, kThreads,
+        gcfn_mma::Shape<F>::smem_bytes);
+  return err;
+}
+
 }  // namespace
 
 // Pointers are device pointers to contiguous float32.  x, out [B, T, F],
 // apart (out is written before x is read for the last time); x_down
 // [B, L, F] with T % L == 0; gns, gnb, bg [F]; wg [F, F] is [in, out];
-// the GCFN's parameters as sep_gcfn_f32's.  Built for Base's F = 128.
+// the GCFN's parameters as sep_gcfn_f32's.  Built for Base's F = 128 and
+// Large's F = 256.
 extern "C" int sep_ega_gcfn_f32(const void* x, const void* x_down,
                                 const void* gns, const void* gnb,
                                 const void* wg, const void* bg,
@@ -103,22 +119,24 @@ extern "C" int sep_ega_gcfn_f32(const void* x, const void* x_down,
                                 int L, int F, float eps, void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   if (B <= 0 || T <= 0) return 0;
-  if (F != 128 || L <= 0 || T % L != 0 || B > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (L <= 0 || T % L != 0 || B > 65535) return (int)cudaErrorInvalidValue;
   const gcfn_mma::Pair pair{f(x_down), L, f(gns), f(gnb), f(wg), f(bg)};
-  return launch<128>(f(x), pair, f(lns), f(lnb), f(win), f(bin), f(wdw),
-                     f(bdw), f(wout), f(bout), f(ls),
-                     static_cast<float*>(out), B, T, eps,
-                     static_cast<cudaStream_t>(stream));
+  auto run = [&](auto launcher) {
+    return launcher(f(x), pair, f(lns), f(lnb), f(win), f(bin), f(wdw),
+                    f(bdw), f(wout), f(bout), f(ls), static_cast<float*>(out),
+                    B, T, eps, static_cast<cudaStream_t>(stream));
+  };
+  if (F == 128) return run(launch<128>);
+  if (F == 256) return run(launch<256>);
+  return (int)cudaErrorInvalidValue;
 }
 
-// Blocks of K16 that one SM holds at once, with the launch's attributes
-// set (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks.
-extern "C" int sep_ega_gcfn_blocks_per_sm(void* blocks) {
-  cudaError_t err = set_attributes<128>();
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        static_cast<int*>(blocks), ega_gcfn_kernel<128>, kThreads,
-        gcfn_mma::Shape<128>::smem_bytes);
-  return (int)err;
+// Blocks of K16 at width F that one SM holds at once, with the launch's
+// attributes set (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into
+// *blocks.
+extern "C" int sep_ega_gcfn_blocks_per_sm(int F, void* blocks) {
+  int* n = static_cast<int*>(blocks);
+  if (F == 128) return (int)blocks_per_sm<128>(n);
+  if (F == 256) return (int)blocks_per_sm<256>(n);
+  return (int)cudaErrorInvalidValue;
 }

@@ -50,13 +50,23 @@
 //
 // With kPair (K16) a prologue first runs the EGA tail over the R rows,
 // y = x + sigmoid(LN_g(x) wg + bg) * x_down[t / r] (zero outside
-// [0, T)): LN_g(x) into xn, the gate product as two warp products of NC
-// columns each, the u product's call, with wg's halves staged through wi
-// by cp.async, and the gated residual in the fragments.  y [R][F + 8]
-// (34 KB) overlays wo and u, which the chunk loop fills only after it,
-// so the block keeps its 113 KB; its tile rows also go to out, where the
-// epilogue reads its residual.  LayerNorm of y then fills xn, and the
-// chunk loop runs as K1's.
+// [0, T)): LN_g(x) into xn, the gate product as F / NC warp products of
+// NC columns each (wg's parts), the u product's call, with the parts
+// staged through wi by cp.async, and the gated residual in the
+// fragments.  Its tile rows also go to out, where the epilogue reads
+// its residual.  Where y [R][F + 8] lies (Shape's y_over_wo):
+//   - F = 128: two parts; y (34 KB) overlays wo and u, which the chunk
+//     loop fills only after it, so the block keeps its 113 KB and two
+//     blocks per SM; each part's y is stored as it comes, and win's
+//     first chunk is staged during the second part's epilogue.
+//   - F = 256: four parts; y (66 KB) is larger than wo and u (50.5 KB)
+//     and the tile (199 KB, one block per SM) has no 66 KB to spare, so
+//     y overlays wi, which holds it (64 x 264 <= 256 x 68 floats) once
+//     the last part is read.  Until then each part's y waits in
+//     registers: 16 floats a part, 64 in all, within the 255 registers
+//     a thread has at one block per SM.  win's first chunk is staged
+//     after LayerNorm of y has read wi.
+// LayerNorm of y then fills xn, and the chunk loop runs as K1's.
 //
 // With kDrop the tile drops g at site 0 (columns 0..3F-1) and o at site
 // 1 (columns 0..F-1) by the hash of hash_dropout.cuh at the global row
@@ -108,12 +118,18 @@ struct Shape {
   static constexpr int blocks_per_sm = smem_bytes <= 113 * 1024 ? 2 : 1;
   static_assert(R == 16 * UMT * WM && smem_bytes <= 227 * 1024,
                 "four m16 fragments of rows; at least one block per SM");
-  // K16's prologue: the EGA tail's output y [R][LY] over wo and u, which
-  // the chunk loop fills only after it; wg's two halves of NC columns
-  // pass through wi as win's chunks do (tile() asserts that it fits,
-  // for K16's instance alone)
-  static constexpr int LY = F + 8, y = wo;
-  static constexpr bool pair_fits = y + R * LY <= g && 2 * NC == F;
+  // K16's prologue: wg's gate_parts parts of NC columns pass through wi
+  // as win's chunks do; the EGA tail's output y [R][LY] lies over wo and
+  // u where they hold it (the chunk loop fills them only after it), else
+  // over wi, with y held in registers until the last part is read, which
+  // needs one block per SM (tile() asserts that it fits, for K16's
+  // instances alone)
+  static constexpr int LY = F + 8, gate_parts = F / NC;
+  static constexpr bool y_over_wo = wo + R * LY <= g;
+  static constexpr int y = y_over_wo ? wo : wi;
+  static constexpr bool pair_fits =
+      F % NC == 0 &&
+      (y_over_wo || (R * LY <= F * LW && blocks_per_sm == 1));
 };
 
 // The EGA tail's inputs (K16).
@@ -188,7 +204,7 @@ __device__ __forceinline__ void tile(
   static_assert(!(kDrop && kPair), "K16 runs at dropout 0");
   using S = Shape<F>;
   static_assert(!kPair || S::pair_fits,
-                "K16: y overlays wo and u; wg is two chunks of wi");
+                "K16: y overlays wo and u, or wi at one block per SM");
   using tf32x3::frag_col;
   using tf32x3::frag_row;
   constexpr int TT = S::TT, CH = S::CH, H6 = S::H6, H3 = S::H3, R = S::R,
@@ -239,13 +255,17 @@ __device__ __forceinline__ void tile(
   if (kPair) {
     // K16's prologue, the EGA tail over the R rows:
     //   y = x + sigmoid(LN_g(x) wg + bg) * x_down[t / r],  r = T / L,
-    // zero outside [0, T).  y lands in shared memory over wo and u, which
-    // the chunk loop fills only after it, and its tile rows also in out,
-    // where the epilogue reads its residual (only this block writes those
-    // rows, and the barriers between make them visible to it).  wg's two
-    // halves of NC columns pass through wi as win's chunks do, and the
-    // gate product is the u product's call.
+    // zero outside [0, T).  y lands in shared memory (Shape's y), and its
+    // tile rows also in out, where the epilogue reads its residual (only
+    // this block writes those rows, and the barriers between make them
+    // visible to it).  wg's parts of NC columns pass through wi as win's
+    // chunks do, and the gate product is the u product's call.  Where y
+    // overlays wi (kHold), each part's y waits in registers until every
+    // warp has read the last part.
+    constexpr int P = S::gate_parts;
+    constexpr bool kHold = !S::y_over_wo;
     float* y = smem + S::y;
+    float held[kHold ? P : 1][UMT][UNT][4];
     auto stage_gate = [&](int h) {
 #pragma unroll
       for (int q = 0; q < F * NC / 4 / kThreads; ++q) {
@@ -260,10 +280,11 @@ __device__ __forceinline__ void tile(
     layer_norm_rows<F>(xn, x_row, pair.gns, pair.gnb, t0, T, eps);
     const int ratio = T / pair.L;
     const float* xd = pair.x_down + (size_t)b * pair.L * F;
-#pragma unroll 1
-    for (int h = 0; h < 2; ++h) {
+    // unrolled where held[h] must be a register
+#pragma unroll (kHold ? P : 1)
+    for (int h = 0; h < P; ++h) {
       tf32x3::cp_async_wait<0>();
-      __syncthreads();  // wg's half h (and LN_g(x)) are in place
+      __syncthreads();  // wg's part h (and LN_g(x)) are in place
       float a[UMT][UNT][4] = {};
       tf32x3::warp_product<UMT, UNT, F / 8>(
           a, xn + 16 * UMT * wm * LX, LX, [&](int ks, int nt) {
@@ -272,9 +293,9 @@ __device__ __forceinline__ void tile(
             return make_float2(w[0], w[LW]);
           });
       __syncthreads();  // every warp has read wi
-      if (h == 0)
-        stage_gate(1);
-      else
+      if (h + 1 < P)
+        stage_gate(h + 1);
+      else if (!kHold)
         stage_in(0);  // lands during the epilogue and LN(y)
 #pragma unroll
       for (int mt = 0; mt < UMT; ++mt)
@@ -300,14 +321,39 @@ __device__ __forceinline__ void tile(
                 *reinterpret_cast<float2*>(out + off) =
                     make_float2(yv[0], yv[1]);
             }
-            *reinterpret_cast<float2*>(y + r * S::LY + col) =
-                make_float2(yv[0], yv[1]);
+            if (kHold) {
+              held[kHold ? h : 0][mt][nt][2 * hr] = yv[0];
+              held[kHold ? h : 0][mt][nt][2 * hr + 1] = yv[1];
+            } else {
+              *reinterpret_cast<float2*>(y + r * S::LY + col) =
+                  make_float2(yv[0], yv[1]);
+            }
           }
+    }
+    if (kHold) {  // every warp has read wi's last part: y goes over it
+#pragma unroll
+      for (int h = 0; h < P; ++h)
+#pragma unroll
+        for (int mt = 0; mt < UMT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < UNT; ++nt)
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+              const int r = 16 * (UMT * wm + mt) + g8 + 8 * hr;
+              const int col = h * NC + 8 * (UNT * wn + nt) + 2 * t4;
+              *reinterpret_cast<float2*>(y + r * S::LY + col) = make_float2(
+                  held[kHold ? h : 0][mt][nt][2 * hr],
+                  held[kHold ? h : 0][mt][nt][2 * hr + 1]);
+            }
     }
     __syncthreads();  // y is whole and LN_g(x) read
     layer_norm_rows<F>(
         xn, [&](int r, int) { return (const float*)(y + r * S::LY); }, lns,
         lnb, t0, T, eps);
+    if (kHold) {
+      __syncthreads();  // every warp has read y out of wi
+      stage_in(0);
+    }
   } else {
     layer_norm_rows<F>(xn, x_row, lns, lnb, t0, T, eps);
   }

@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernel library.
 
 All sources under ``sepreformer_torch/csrc/*.cu`` (with the headers
-``*.cuh`` they include) are compiled by one plain ``nvcc`` call for
-``sm_90a`` into a shared library with a C interface, which is loaded
-with ``ctypes``.  No PyTorch header is included, so the build takes
-seconds, not minutes.  The library lands in ``build/sepreformer_torch/``
-at the root of the checkout, named by a hash of the sources and headers:
-an edited file gets a fresh build, an unchanged one is loaded as it is.
+``*.cuh`` they include) are compiled for ``sm_90a`` by plain ``nvcc``
+calls, one per source, all started together, and linked into a shared
+library with a C interface, which is loaded with ``ctypes``.  No PyTorch
+header is included, so the build takes seconds, not minutes, and the
+longest source sets its length.  The library lands in
+``build/sepreformer_torch/`` at the root of the checkout, named by a hash
+of the sources and headers: an edited file gets a fresh build, an
+unchanged one is loaded as it is.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "sepreformer_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -101,10 +103,10 @@ SIGNATURES = {
     "sep_cla_f32": [_P] * 16 + [_I] * 3 + [_F, _P],
     # x, x_down, 4 gate params, 9 GCFN params, out, B, T, L, F, eps, stream
     "sep_ega_gcfn_f32": [_P] * 16 + [_I] * 4 + [_F, _P],
-    # int* blocks -> K16's blocks per SM
-    "sep_ega_gcfn_blocks_per_sm": [_P],
-    # int blocks[2] -> K15's blocks per SM, the GLU launch and the tail
-    "sep_cla_blocks_per_sm": [_P],
+    # F, int* blocks -> K16's blocks per SM
+    "sep_ega_gcfn_blocks_per_sm": [_I, _P],
+    # F, int blocks[2] -> K15's blocks per SM, the GLU launch and the tail
+    "sep_cla_blocks_per_sm": [_I, _P],
     # int blocks[4] -> K10's and K10b's blocks per SM, at head widths 16
     # and 32
     "sep_softmax_pv_train_bwd_blocks_per_sm": [_P],
@@ -154,26 +156,49 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the library unless this version of the sources is built.
-    Prints the build seconds and the ptxas resource report to stderr."""
+    """Compile the library unless this version of the sources is built:
+    one ``nvcc -c`` per source, all at once, then one link.  Writes each
+    source's compiler output (the ptxas resource report) to
+    ``build.log`` in source order, and prints the build seconds to
+    stderr."""
     out = library_path()
     if out.exists():
         return out
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objs = BUILD_DIR / f"obj.tmp{os.getpid()}"
+    objs.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    (BUILD_DIR / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    try:
+        procs = [(src, objs / f"{src.stem}.o") for src in sources()]
+        procs = [(src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for src, obj in procs]
+        logs, failed = [], []
+        for src, _, proc in procs:
+            text, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if not failed:
+            link = subprocess.run(
+                [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
+                 *(str(obj) for _, obj, _ in procs)],
+                capture_output=True, text=True)
+            logs.append(f"== link\n{link.stdout}{link.stderr}")
+            if link.returncode != 0:
+                failed.append("the link")
+        log = "".join(logs)
+        (BUILD_DIR / "build.log").write_text(log)
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+    finally:
+        shutil.rmtree(objs, ignore_errors=True)
     os.replace(tmp, out)
-    print(f"[sepreformer_torch] built {out.name} in {secs:.1f} s",
-          file=sys.stderr)
+    print(f"[sepreformer_torch] built {out.name} in "
+          f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
     return out
 
 
@@ -188,11 +213,9 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-# The ROADMAP items, by title, that build the widths a kernel is not built
-# for: the T/S/M presets' widths (F 64, 96, 160; head widths 8, 12, 20),
-# and the fused eval blocks (K15, K16) at Large's width.
+# The ROADMAP item, by title, that builds the widths a kernel is not built
+# for: the T/S/M presets' widths (F 64, 96, 160; head widths 8, 12, 20).
 OTHER_PRESETS = "ROADMAP.md queue A, T/S/M"
-FUSED_WIDTHS = "ROADMAP.md queue B, other widths"
 
 
 def check_width(name: str, what: str, value: int, built, todo: str) -> None:

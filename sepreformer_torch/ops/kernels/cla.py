@@ -21,7 +21,8 @@ import torch.nn.functional as F
 from sepreformer_torch.ops.kernels import _build
 from sepreformer_torch.ops.kernels._autograd import with_plain_grad
 
-SUPPORTED_WIDTHS = (128,)
+# K15's instances: Base's F = 128 and Large's F = 256
+SUPPORTED_WIDTHS = (128, 256)
 KERNEL_SIZE = 65
 PARAM_NAMES = ("lns", "lnb", "w_in", "b_in", "wdw", "bdw", "w_mid", "b_mid",
                "bn_s", "bn_t", "w_out", "b_out", "ls")
@@ -61,7 +62,7 @@ def check_params(name: str, x: torch.Tensor,
     aligned, since the kernel stages them in 16-byte copies."""
     b, t, f = x.shape
     _build.check_width(name, "width", f, SUPPORTED_WIDTHS,
-                       _build.FUSED_WIDTHS)
+                       _build.OTHER_PRESETS)
     k = params[4].shape[0]
     if k != KERNEL_SIZE:
         raise ValueError(f"{name}: depthwise kernel {k}, the kernel is "
@@ -95,14 +96,16 @@ def cla_kernel(x: torch.Tensor, params: Sequence[torch.Tensor],
     return out
 
 
-def blocks_per_sm() -> Tuple[int, int]:
+def blocks_per_sm(f: int) -> Tuple[int, int]:
     """How many blocks of K15's two launches (the GLU launch, the tail)
-    one SM of the current card holds at once, with the launches'
-    shared-memory attributes set."""
+    at width ``f`` one SM of the current card holds at once, with the
+    launches' shared-memory attributes set."""
+    _build.check_width("fused_cla", "width", f, SUPPORTED_WIDTHS,
+                       _build.OTHER_PRESETS)
     blocks = (ctypes.c_int * 2)()
     _build.check_launch("sep_cla_blocks_per_sm",
                         _build.library().sep_cla_blocks_per_sm(
-                            ctypes.addressof(blocks)))
+                            f, ctypes.addressof(blocks)))
     return blocks[0], blocks[1]
 
 

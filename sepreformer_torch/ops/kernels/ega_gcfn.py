@@ -23,8 +23,8 @@ from sepreformer_torch.ops.kernels._autograd import with_plain_grad
 from sepreformer_torch.ops.kernels.gcfn import check_params, gcfn_plain
 from sepreformer_torch.ops.resample import nearest_upsample_time
 
-# K16's instance: Base's F = 128
-PAIR_WIDTHS = (128,)
+# K16's instances: Base's F = 128 and Large's F = 256
+PAIR_WIDTHS = (128, 256)
 
 
 def ega_tail_gcfn_plain(x: torch.Tensor, x_down: torch.Tensor,
@@ -55,7 +55,7 @@ def pair_kernel(x: torch.Tensor, x_down: torch.Tensor,
     if t % length:
         raise ValueError(f"{name}: T {t} is not a multiple of the "
                          f"bottleneck length {length}")
-    check_params(name, x, gcfn_params, PAIR_WIDTHS, _build.FUSED_WIDTHS)
+    check_params(name, x, gcfn_params, PAIR_WIDTHS)
     _build.check_tensor(x_down, f"{name} x_down", (b, length, f), x.device)
     for pname, a, shape in zip(("gns", "gnb", "wg", "bg"), gate_params,
                                ((f,), (f,), (f, f), (f,))):
@@ -71,13 +71,15 @@ def pair_kernel(x: torch.Tensor, x_down: torch.Tensor,
     return out
 
 
-def blocks_per_sm() -> int:
-    """How many K16 blocks one SM of the current card holds at once, with
-    the launch's shared-memory attributes set."""
+def blocks_per_sm(f: int) -> int:
+    """How many K16 blocks at width ``f`` one SM of the current card holds
+    at once, with the launch's shared-memory attributes set."""
+    _build.check_width("fused_ega_tail_gcfn", "width", f, PAIR_WIDTHS,
+                       _build.OTHER_PRESETS)
     blocks = ctypes.c_int(0)
     _build.check_launch("sep_ega_gcfn_blocks_per_sm",
                         _build.library().sep_ega_gcfn_blocks_per_sm(
-                            ctypes.addressof(blocks)))
+                            f, ctypes.addressof(blocks)))
     return blocks.value
 
 

@@ -50,10 +50,12 @@ def as32(arrays):
 
 
 # the JAX package's kernel tests' shapes: multi-block cases cross the
-# halo at block edges, every case reaches both sequence ends
+# halo at block edges, every case reaches both sequence ends; Large's
+# F = 256 in one block and in five (t 640: blocks of 128)
 @pytest.mark.parametrize("b,t,f,k", [(2, 256, 128, 65), (1, 500, 128, 65),
                                      (2, 768, 64, 65), (1, 1024, 64, 65),
-                                     (1, 320, 64, 5)])
+                                     (1, 320, 64, 5), (1, 200, 256, 65),
+                                     (1, 640, 256, 65)])
 def test_cla_plain_matches_jax(b, t, f, k):
     rng = np.random.default_rng(t + k)
     x = rng.normal(size=(b, t, f)).astype(np.float32)

@@ -959,10 +959,11 @@ def test_fused_block_gradients_on_the_card(cuda_device):
 # ---------------------------------------------------------------- Large
 # The instances at Large's widths: K1 at F 256 (one block per SM), K3 and
 # K12 at head width 32, K7/K8 at F 256, K9/K10 and K9b/K10b at head width
-# 32, each against its plain version and bit-equal on a repeat call; and
-# the Base instances of K1, K3, K7, K8, K9, K10, K12 and K13 against the
-# SHA-1 of their outputs on fixed-seed inputs, as the trees before the
-# Large instances gave them on an H100 (``base_digests``).
+# 32, K15 and K16 at F 256, each against its plain version and bit-equal
+# on a repeat call; and the Base instances of K1, K3, K7, K8, K9, K10,
+# K12, K13, K14, K15 and K16 against the SHA-1 of their outputs on
+# fixed-seed inputs, as the trees before the Large instances gave them on
+# an H100 (``base_digests``).
 
 @pytest.mark.cuda
 # the shapes of test_gcfn_kernel_matches_plain, and Large's widest GCFN of
@@ -988,6 +989,49 @@ def test_gcfn_kernel_f256_matches_plain(cuda_device, b, t, masked):
     assert fused_gcfn.launches == before + 2
     torch.testing.assert_close(got, gcfn_plain(x, params, 1e-5, lens),
                                rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+# Base's K15 shapes at Large's width: many tiles, a partial tile whose
+# halo reaches both ends, T one row into a second 64-row tile, T on a
+# tile edge, T under one tile
+@pytest.mark.parametrize("b,t", [(4, 8000), (3, 77), (3, 65), (1, 128),
+                                 (3, 10)])
+def test_cla_kernel_f256_matches_plain(cuda_device, b, t):
+    gen = torch.Generator().manual_seed(t + 256)
+    x = torch.randn(b, t, 256, generator=gen).to(cuda_device)
+    params = cla_params(gen, 256, 65, cuda_device)
+    before = fused_cla.launches
+    with torch.no_grad():
+        got = fused_cla(x, params, 1e-5)
+        again = fused_cla(x, params, 1e-5)
+    torch.cuda.synchronize()
+    assert fused_cla.launches == before + 2
+    torch.testing.assert_close(got, cla_plain(x, params, 1e-5), rtol=1e-4,
+                               atol=1e-4)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+# Base's K16 shapes at Large's width (62-row tiles; r = 16, 1, 2)
+@pytest.mark.parametrize("b,t,length", [(4, 8000, 500), (2, 77, 77),
+                                        (2, 63, 63), (2, 124, 62),
+                                        (3, 125, 125), (1, 10, 5)])
+def test_pair_kernel_f256_matches_plain(cuda_device, b, t, length):
+    gen = torch.Generator().manual_seed(t + length + 256)
+    x = torch.randn(b, t, 256, generator=gen).to(cuda_device)
+    xd = torch.randn(b, length, 256, generator=gen).to(cuda_device)
+    gate, gcfn = pair_params(gen, 256, cuda_device)
+    before = fused_ega_tail_gcfn.launches
+    with torch.no_grad():
+        got = fused_ega_tail_gcfn(x, xd, gate, gcfn, 1e-5)
+        again = fused_ega_tail_gcfn(x, xd, gate, gcfn, 1e-5)
+    torch.cuda.synchronize()
+    assert fused_ega_tail_gcfn.launches == before + 2
+    torch.testing.assert_close(
+        got, ega_tail_gcfn_plain(x, xd, gate, gcfn, 1e-5), rtol=1e-4,
+        atol=1e-4)
     assert torch.equal(got, again)
 
 
@@ -1163,7 +1207,8 @@ def test_large_train_kernels_gradient_on_the_card(cuda_device):
 
 def base_digests(device):
     """SHA-1 of the outputs of the Base instances of K1, K3, K7, K8, K9,
-    K10, K12, K13 and K14 on inputs drawn from fixed CPU seeds."""
+    K10, K12, K13, K14, K15 and K16 on inputs drawn from fixed CPU
+    seeds."""
     import hashlib
 
     def sha(t):
@@ -1186,6 +1231,11 @@ def base_digests(device):
                                                                   16)
     dout, dout_a = randn(2, 500, 128), randn(4, 512, 128)
     dout_h = randn(4, 8, 500, 16)
+    # K15's and K16's inputs, drawn after the others so that their
+    # digests stay as they were
+    xc, xd = randn(2, 500, 128), randn(2, 125, 128)
+    cla = cla_params(gen, 128, 65, device)
+    gate, pair_gcfn = pair_params(gen, 128, device)
     flat = lambda ts: torch.cat([a.flatten() for a in ts])  # noqa: E731
     with torch.no_grad():
         stats = softmax_pv_train_fwd(scores, v, 1234, full, 500, 0.05)
@@ -1209,13 +1259,16 @@ def base_digests(device):
             "K10": sha(flat(softmax_pv_train_bwd(
                 scores, v, stats[0], dout_a, stats[1], stats[2], 1234, full,
                 500, 0.05))),
+            "K15": sha(fused_cla(xc, cla, 1e-5)),
+            "K16": sha(fused_ega_tail_gcfn(xc, xd, gate, pair_gcfn, 1e-5)),
         }
 
 
 # base_digests on an H100 80GB HBM3 with the kernels of the trees before
 # the Large instances: K1, K3, K9, K12 and K13 before the eval instances
 # (5a5dd13), K7, K8 and K10 before the train instances (31c48ab), K14
-# before its head-width-32 instance (f41302c)
+# before its head-width-32 instance (f41302c), K15 and K16 before their
+# F-256 instances (013b131)
 BASE_DIGESTS = {
     "K1": "e21e7e336d1ac95e22863f016c23a600d9edfdd4",
     "K3": "db2d328a28c02de0b04b0d146050158f76028b30",
@@ -1226,6 +1279,8 @@ BASE_DIGESTS = {
     "K8": "adfea2ece94702516359d4301ab5c543d08b9208",
     "K10": "d28b1f1b3b6c13fb6dd463ab74e492ca6df827ca",
     "K14": "54260ebc9282ef1ca8cac7cd3997a227144c2cc7",
+    "K15": "9e31874ecb4c5458e7cff36d2e57bccd7e9eb63e",
+    "K16": "8c20ab8f336dee6d92afa077d125fed4c76f8bf8",
 }
 
 

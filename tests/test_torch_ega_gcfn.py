@@ -69,12 +69,15 @@ def to_port(gcfn):
 
 # the JAX package's kernel tests' shapes: r = 1, 2, 8 (one block and a
 # multi-block t > 512) and a non-integral upsample (the JAX kernel's
-# pick_block is 0 there, so it takes its reference)
+# pick_block is 0 there, so it takes its reference); Large's F = 256 at
+# r = 8 in one block and in five (t 640: blocks of 128)
 @pytest.mark.parametrize("b,t,length,f", [(2, 256, 256, 64),
                                           (2, 512, 256, 64),
                                           (1, 512, 64, 128),
                                           (1, 1024, 128, 64),
-                                          (1, 1150, 500, 64)])
+                                          (1, 1150, 500, 64),
+                                          (1, 256, 32, 256),
+                                          (1, 640, 80, 256)])
 def test_pair_plain_matches_jax(b, t, length, f):
     x, xd, gate, gcfn = inputs(t + length, b, t, length, f)
     j = [jnp.asarray(a) for a in (x, xd)]

@@ -189,7 +189,12 @@ def cla_args(f):
     h = 2 * f
     return meta(1, 8, f), [meta(*s) for s in [
         (f,), (f,), (f, h), (h,), (65, f), (f,), (f, h), (h,), (h,), (h,),
-        (h,), (h,), (h, f), (f,), (f,)]]
+        (h, f), (f,), (f,)]]
+
+
+def pair_args(f):
+    x, params = gcfn_args(f)
+    return x, meta(1, 4, f), [meta(f), meta(f), meta(f, f), meta(f)], params
 
 
 def large_train_calls():
@@ -225,16 +230,12 @@ def test_large_train_kernels_pass_the_width_check(kernel):
 
 
 def test_unbuilt_widths_name_their_roadmap_items():
-    x, params = gcfn_args(256)
-    xd, gate = meta(1, 4, 256), [meta(256), meta(256), meta(256, 256),
-                                 meta(256)]
-    other = "not built yet: ROADMAP.md queue B, other widths"
-    with pytest.raises(ValueError, match=other):
-        K.fused_ega_tail_gcfn(x, xd, gate, params, 1e-5)
-    with pytest.raises(ValueError, match=other):
-        K.fused_cla(*cla_args(256), 1e-5)
     scores = meta(1, 8, 128, 128)
     tsm = "not built yet: ROADMAP.md queue A, T/S/M"
+    with pytest.raises(ValueError, match="width 64 .*" + tsm):
+        K.fused_ega_tail_gcfn(*pair_args(64), 1e-5)
+    with pytest.raises(ValueError, match="width 64 .*" + tsm):
+        K.fused_cla(*cla_args(64), 1e-5)
     with pytest.raises(ValueError, match="width 64 .*" + tsm):
         K.fused_gcfn(*gcfn_args(64), 1e-5)
     with pytest.raises(ValueError, match="head dim 8 .*" + tsm):
@@ -250,11 +251,16 @@ def test_unbuilt_widths_name_their_roadmap_items():
 
 
 def test_large_serving_widths_pass_the_width_check():
-    """K1 at F 256 and K3, K3b and K12 at head width 32 are built: their
-    wrappers refuse the meta tensors only for not lying on a card."""
+    """K1, K15 and K16 at F 256 and K3, K3b and K12 at head width 32 are
+    built: their wrappers refuse the meta tensors only for not lying on a
+    card."""
     on_card = "expected meta .*CUDA|expected .*\\(CUDA\\)"
     with pytest.raises(ValueError, match=on_card):
         K.fused_gcfn(*gcfn_args(256), 1e-5)
+    with pytest.raises(ValueError, match=on_card):
+        K.fused_cla(*cla_args(256), 1e-5)
+    with pytest.raises(ValueError, match=on_card):
+        K.fused_ega_tail_gcfn(*pair_args(256), 1e-5)
     scores = meta(1, 8, 128, 128)
     with pytest.raises(ValueError, match=on_card):
         K.softmax_pv(scores, meta(1, 128, 256), None, 100)
