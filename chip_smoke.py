@@ -221,6 +221,31 @@ Phases, each of which fails the run:
                with no K15 or K16, and ``infer_sample`` of a 70 s wav
                through ``cli.main --model SepReformer_Large_DM_WSJ0 --set
                model.fused_local=on --set model.fused_pair=on``.
+13. bf16     - serving in bfloat16 (``model.compute_dtype="bfloat16"``),
+               seeded weights, every LayerScale at 0.5: Base's ragged
+               B=4 x 4 s batch through ``Separator.separate`` (56 K1 and
+               22 K3 launches of their bfloat16 instances, none of the
+               float32 ones; wall times in turns with float32), card
+               against the port on the CPU in bfloat16 and against
+               float32 on the card, one traced forward of each dtype;
+               the batch with ``scores_dtype="bfloat16"`` (K3 on bfloat16
+               scores) and with bfloat16 scores under float32 compute;
+               70 s in full context (22 launches of K12's bfloat16
+               instance) against float32; 300 s in 8 s chunks; 300 s in
+               full context, traced, with its peak memory;
+               ``infer_sample`` through ``cli.main`` with ``--set
+               model.compute_dtype=bfloat16``; Large's batch against
+               float32, traced, and its 70 s in full context; then
+               ``train_step`` in bfloat16 and a bfloat16 tensor into
+               K13, K15 and K16, each refused naming its ROADMAP item.
+               Phase 2 also holds the bfloat16 instances against their
+               plain versions at its shapes (K1 at F 128 and 256, K3 on
+               float32 or bfloat16 scores with a bfloat16 V at head
+               width 16, float32 scores at 32, bfloat16 scores with a
+               float32 V; K12 at head widths 16 and 32), bit-equal on
+               repeat, with their times, bounds (bytes at the bfloat16
+               sizes, bfloat16 products at 989 TFLOP/s) and library
+               calls (a bfloat16 softmax and matmul; bfloat16 SDPA).
 
 Prints one JSON line of kernel results, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -246,6 +271,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 TF32X3_FLOPS = 495e12 / 3      # H100 SXM TF32 tensor cores, three TF32
                                # products per float32-accurate product
+BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense (the
+                               # data sheet's, for wgmma; not measured for
+                               # the mma.sync the kernels use)
 SFU_EXP_PER_S = 132 * 16 * 1.98e9  # H100 SXM: 16 SFU results per SM and
                                    # clock, 132 SMs, 1.98 GHz
 SAMPLE_RATE = 8000
@@ -273,6 +301,30 @@ KERNEL_SYMBOLS = {"fused_gcfn": "gcfn_kernel",
                   "depthwise_fwd": "depthwise_fwd_kernel",
                   "fused_cla": "cla_",       # cla_glu_ and cla_tail_kernel
                   "fused_ega_tail_gcfn": "ega_gcfn_kernel"}
+# the bfloat16 instances' kernels, as named in a trace
+BF16_SYMBOLS = {"fused_gcfn": "gcfn_bf16_kernel",
+                "softmax_pv": "softmax_pv_bf16_kernel",
+                "flash_relpos_attention": "flash_relpos_bf16_kernel"}
+# max |kernel - plain| over max|out| allowed for the bfloat16 instances
+# (tests/test_torch_cuda.py's limits), two bfloat16 ulps, and the mean
+# (PERF.md section 2).  Where the kernel and its plain version round the
+# probabilities against the same max (K1, which has none; K3 and K12 on
+# scores whose row max lies in the first key tile of each warp that walks
+# the row), the mean is held to BF16_MEAN, and the plain version with the
+# rounding steps left out must exceed it: the limit sees them.  On other
+# scores K3 and K12 round against each key tile's running max, the plain
+# versions against the row's, which moves the mean as far as leaving the
+# rounding out does (up to 5.6e-5 on an H100): BF16_TILE_MEAN, just above
+# those readings, holds agreement only.
+BF16_MAX = 2 * 2.0 ** -7
+BF16_MEAN = 1e-5
+BF16_TILE_MEAN = 6e-5
+# max |a - b| over max|out| between two bfloat16 forwards that round at
+# other places (the port on the card and on the CPU; scores stored in
+# bfloat16 or float32), the CPU tests' port-against-JAX limit; bfloat16
+# against float32, the JAX package's own bar (tests/test_bf16.py)
+BF16_FORWARD_LIMIT = 2e-2
+BF16_F32_LIMIT = 0.1
 EVAL_KERNELS = ("fused_gcfn", "materialize_pos_kt", "softmax_pv")
 LONG_KERNELS = ("flash_relpos_attention",)
 ROUTE_KERNELS = ("depthwise_bwd_w", "attention_train_fwd",
@@ -300,14 +352,14 @@ KERNEL_GROUPS = (  # profile groups of the card's kernels, first match wins
     ("K16 ega_gcfn", ("ega_gcfn_kernel",)),
     ("K15 cla", ("cla_glu_kernel", "cla_tail_kernel")),
     ("K4 depthwise_fwd", ("depthwise_fwd_kernel",)),
-    ("K1 gcfn", ("gcfn_kernel",)),
+    ("K1 gcfn", ("gcfn_kernel", "gcfn_bf16_kernel")),
     ("K12 flash_relpos", ("flash_relpos",)),
     ("K13 attn_train_fwd", ("attn_train_fwd",)),
     ("K14 attn_train_bwd", ("attn_train_bwd",)),
     ("K2 relpos", ("relpos_kernel",)),
     ("K9 softmax_pv_train_fwd", ("softmax_pv_train_fwd",)),
     ("K10 softmax_pv_train_bwd", ("softmax_pv_train_bwd",)),
-    ("K3 softmax_pv", ("softmax_pv_kernel",)),
+    ("K3 softmax_pv", ("softmax_pv_kernel", "softmax_pv_bf16_kernel")),
     ("K6 depthwise_dw", ("depthwise_dw",)),
     ("K5 depthwise_bwd", ("depthwise_bwd",)),
     ("K11 pit", ("pit_sisnr",)),
@@ -322,15 +374,17 @@ KERNEL_GROUPS = (  # profile groups of the card's kernels, first match wins
 
 
 def bound_ms(nbytes: float, flops: float, tc_flops: float = 0.0,
-             exps: float = 0.0):
+             exps: float = 0.0, bf16_flops: float = 0.0):
     """The least time the card could take: the longest of the bytes at the
     memory rate, the float32 operations at the CUDA cores' rate and, for a
     kernel that takes its products on the tensor cores at float32
-    accuracy (3xTF32), those products at that rate and its exponentials at
-    the SFUs' rate.  Returns (ms, "bytes" or "operations", the term)."""
+    accuracy (3xTF32), those products at that rate, its bfloat16 products
+    at the bf16 rate, and its exponentials at the SFUs' rate.  Returns
+    (ms, "bytes" or "operations", the term)."""
     terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
              "CUDA-core operations": flops / F32_FLOPS * 1e3,
              "3xTF32 products": tc_flops / TF32X3_FLOPS * 1e3,
+             "bf16 products": bf16_flops / BF16_FLOPS * 1e3,
              "exponentials": exps / SFU_EXP_PER_S * 1e3}
     term = max(terms, key=terms.get)
     return (terms[term], "bytes" if term == "bytes" else "operations", term)
@@ -465,11 +519,12 @@ def kernel_phase(torch, K, device_ms):
 
     results = []
 
-    def timed(label, kernel, name, timings):
+    def timed(label, kernel, name, timings, symbol=None):
         """The median of ``timings`` device timings of wrapper ``name``'s
-        kernel in ``kernel()``, each printed where there are several."""
-        times = [device_ms(kernel, kernel=KERNEL_SYMBOLS[name])
-                 for _ in range(timings)]
+        kernel (or of the kernels named ``symbol``) in ``kernel()``, each
+        printed where there are several."""
+        symbol = symbol or KERNEL_SYMBOLS[name]
+        times = [device_ms(kernel, kernel=symbol) for _ in range(timings)]
         median = statistics.median(times)
         if timings > 1:
             print(f"[kernels] {label}: {timings} timings " + ", ".join(
@@ -478,10 +533,14 @@ def kernel_phase(torch, K, device_ms):
 
     def record(wrapper, kernel, plain, library, err, nbytes, flops, source,
                replaces, shape, tolerance, tc_flops=0.0, exps=0.0,
-               cuda_core_flops=None, timings=1, instance=None):
-        """A row of the kernels line; ``instance`` names a width instance
-        of the wrapper's kernel (its row is "<wrapper> <instance>")."""
-        bound, bound_by, term = bound_ms(nbytes, flops, tc_flops, exps)
+               cuda_core_flops=None, timings=1, instance=None, symbol=None,
+               bf16_flops=0.0):
+        """A row of the kernels line; ``instance`` names a width (or
+        dtype) instance of the wrapper's kernel (its row is "<wrapper>
+        <instance>"), ``symbol`` its kernel's name in a trace where that
+        is not ``KERNEL_SYMBOLS``'s."""
+        bound, bound_by, term = bound_ms(nbytes, flops, tc_flops, exps,
+                                         bf16_flops)
         symbol_of = wrapper.__name__
         name = symbol_of + (f" {instance}" if instance else "")
         if cuda_core_flops is not None:
@@ -491,7 +550,7 @@ def kernel_phase(torch, K, device_ms):
                   f"({old_by})")
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
                    launches=0, max_abs_err=err,
-                   ms=timed(name, kernel, symbol_of, timings),
+                   ms=timed(name, kernel, symbol_of, timings, symbol),
                    plain_ms=device_ms(plain), bound_ms=bound,
                    bound_by=bound_by,
                    library_ms=None if library is None else device_ms(library))
@@ -973,6 +1032,9 @@ def kernel_phase(torch, K, device_ms):
     # and the "pallas" train step's K13/K14 at Large's head width
     attention_train_rows(torch, K, device_ms, randn, record, d=32, p=0.1,
                          instance="d=32")
+    # the bfloat16 instances of K1, K3 and K12 at the shapes above
+    torch.cuda.empty_cache()
+    bf16_kernel_rows(torch, K, device_ms, randn, record)
     return results
 
 
@@ -1632,6 +1694,256 @@ def flash_kernel_row(torch, K, device_ms, randn, record, d=16):
           f"[{lp}, {d}, {lp}], the score products, K3): "
           f"{device_ms(dense):.4f} ms")
     torch.cuda.empty_cache()
+
+
+def bf16_errors(got, ref):
+    """(max, mean) |got - ref| over max|ref|, in float32."""
+    d = (got.float() - ref.float()).abs()
+    scale = ref.float().abs().max()
+    return (d.max() / scale).item(), (d.mean() / scale).item()
+
+
+def max_in_first_tiles(torch, scores, klens):
+    """``scores`` [B, H, lp, lp] with each row's max over its valid keys
+    (``klens[b]``) copied to keys 0, 64, 128 and 192: the first key tile of
+    each of up to four warps that share a row in K3 (tiles of 64 keys,
+    warp w taking the tiles n with n % SPLIT == w), whose running max is
+    then the row's from its first tile on."""
+    lp = scores.shape[-1]
+    valid = torch.arange(lp, device=scores.device)[None] < klens[:, None]
+    row_max = scores.float().masked_fill(
+        ~valid[:, None, None, :], float("-inf")).amax(dim=-1)
+    out = scores.clone()
+    for j in range(0, min(lp, 256), 64):
+        out[..., j] = row_max.to(scores.dtype)
+    return out
+
+
+def max_at_key0(torch, gen, b, length, heads, d, maxlen, device):
+    """bfloat16 q, k, v [B, L, H*d] and a [2*maxlen, d] table on which every
+    query's largest score is at key 0, so that K12's running max is the
+    row's from its first key tile on: per head the keys are multiples
+    lambda_j < 0.9 of one vector w (lambda_0 = 1), each query is w plus
+    noise (q.w > 0), and a table of one repeated row adds the same bias to
+    each of a query's keys."""
+    w = torch.randn(heads, d, generator=gen)
+    q = w + 0.3 * torch.randn(b, length, heads, d, generator=gen)
+    lam = torch.rand(b, length, generator=gen) * 1.9 - 1.0
+    lam[:, 0] = 1.0
+    k = lam[..., None, None] * w
+    v = torch.randn(b, length, heads, d, generator=gen)
+    table = (0.5 * torch.randn(1, d, generator=gen)).expand(2 * maxlen, d)
+    return [a.reshape(b, length, -1).to(device, torch.bfloat16).contiguous()
+            for a in (q, k, v)] + [table.to(device, torch.bfloat16)
+                                   .contiguous()]
+
+
+def bf16_kernel_rows(torch, K, device_ms, randn, record):
+    """The bfloat16 instances of K1, K3 and K12 at the shapes of their
+    float32 rows: each against its plain bfloat16 version on the card
+    (max and mean |kernel - plain| over max|out| within ``BF16_MAX`` and
+    ``BF16_MEAN``, which the plain version without its rounding steps must
+    exceed; K3 and K12 within ``BF16_TILE_MEAN``, and within ``BF16_MEAN``
+    on scores whose row max is in the first key tiles; K3 on bfloat16
+    scores and a float32 V, whose output is float32, at float32's bar),
+    bit-equal on a repeat call, with its time,
+    its bound (bytes at the bfloat16 sizes, bfloat16 products at
+    ``BF16_FLOPS``) and a library call where one computes it: K3's a
+    bfloat16 softmax and matmul, K12's bfloat16 SDPA with the rel-pos bias
+    and the key mask as a bfloat16 float mask."""
+    from sepreformer_torch.ops.kernels.softmax_pv import dtype_instance
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+
+    tolerance = (f"max {BF16_MAX:.4f}, mean {BF16_MEAN:.0e} of max|out|, "
+                 f"{BF16_TILE_MEAN:.0e} where p rounds against a tile's "
+                 f"running max (bfloat16)")
+
+    def check(name, run, plain, control=None, limit=BF16_MEAN):
+        """Fail unless ``run()`` agrees with ``plain()`` (a bfloat16 output
+        within ``BF16_MAX`` and a mean within ``limit``) and two calls give
+        the same bits, and unless ``control()``, where given, the plain
+        version without its rounding steps, exceeds the mean limit;
+        returns max |kernel - plain|."""
+        got, again, ref = run(), run(), plain()
+        torch.cuda.synchronize()
+        same = torch.equal(got, again)
+        err_max, err_mean = bf16_errors(got, ref)
+        ctl_mean = None if control is None else bf16_errors(control(), ref)[1]
+        print(f"[kernels] {name}: max |kernel - plain| / max|out| "
+              f"{err_max:.3e}, mean {err_mean:.3e}" + (
+                  "" if got.dtype != bf else f" (limit {limit:.0e})") + (
+                  "" if ctl_mean is None else
+                  f"; the plain version without its rounding steps "
+                  f"{ctl_mean:.3e}") + f"; bit-equal on a repeat call: {same}")
+        if got.dtype != bf:
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+        else:
+            assert ref.dtype == bf, ref.dtype
+            assert err_max <= BF16_MAX and err_mean <= limit, (
+                f"{name}: {err_max:.3e}, {err_mean:.3e}")
+        if ctl_mean is not None:
+            assert ctl_mean > limit, (
+                f"{name}: the mean limit does not see the rounding steps")
+        assert same, f"{name} is not bit-equal on repeat"
+        return (got.float() - ref.float()).abs().max().item()
+
+    # K1 at [4, 8000, F], ragged, x and out bfloat16
+    b, t = 4, 8000
+    lens = torch.tensor([8000, 7008, 6000, 5008], device=dev)
+    for f, instance in ((128, "bf16"), (256, "F=256 bf16")):
+        h = 6 * f
+        x = randn(b, t, f).to(bf)
+        params = [randn(f), randn(f), randn(f, h, scale=0.1),
+                  randn(h, scale=0.1), randn(h, 3, scale=0.3),
+                  randn(h, scale=0.1), randn(h // 2, f, scale=0.1),
+                  randn(f, scale=0.1), randn(f, scale=0.5)]
+        err = check(f"fused_gcfn {instance}",
+                    lambda: K.fused_gcfn(x, params, 1e-5, lens),
+                    lambda: K.gcfn_plain(x, params, 1e-5, lens),
+                    lambda: K.gcfn_plain(x.float(), params, 1e-5,
+                                         lens).to(bf))
+        rest = 8 * f + 7 * h + 5 * (h // 2) + 3 * f     # LN, dw3, GLU
+        valid = [min(n, t) for n in lens.tolist()]
+        g_rows = sum(min(n + 1, t) + (n + 1 < t) for n in valid)
+        record(K.fused_gcfn, lambda: K.fused_gcfn(x, params, 1e-5, lens),
+               lambda: K.gcfn_plain(x, params, 1e-5, lens), None, err,
+               2 * 2 * x.numel() + 4 * (sum(p.numel() for p in params) + b),
+               b * t * rest, source="sepreformer_torch/csrc/gcfn.cu",
+               replaces="sepreformer_tpu/ops/pallas/gcfn.py:394",
+               shape=f"x [{b}, {t}, {f}] bfloat16, hidden {h}, lens "
+                     f"{lens.tolist()}",
+               tolerance=tolerance, exps=g_rows * (h // 2),
+               bf16_flops=(sum(valid) * 2 * f * h
+                           + g_rows * 2 * (h // 2) * f),
+               timings=3, instance=instance,
+               symbol=BF16_SYMBOLS["fused_gcfn"])
+        del x, params
+    torch.cuda.empty_cache()
+
+    # K3 at [8, 8, 512, 512], length 500, ragged: V bfloat16 with float32
+    # and bfloat16 scores at head width 16, float32 scores at 32; bfloat16
+    # scores with a float32 V at 16
+    b, heads, lp, length = 8, 8, 512, 500
+    klens = torch.tensor([500, 500, 438, 438, 376, 376, 313, 313],
+                         device=dev)
+    keys = sum(klens.tolist())
+    pairs = heads * lp * keys
+    kmask = torch.arange(lp, device=dev)[None] < klens[:, None]
+    for d, s_dtype, v_dtype in ((16, torch.float32, bf), (16, bf, bf),
+                                (32, torch.float32, bf),
+                                (16, bf, torch.float32)):
+        f = heads * d
+        scores = randn(b, heads, lp, lp, scale=3.0).to(s_dtype)
+        v = randn(b, lp, f).to(v_dtype)
+        instance = dtype_instance(s_dtype, v_dtype)
+        instance = instance if d == 16 else f"d={d} {instance}"
+        f32_out = v_dtype == torch.float32
+        err = check(f"softmax_pv {instance}",
+                    lambda: K.softmax_pv(scores, v, klens, length),
+                    lambda: K.softmax_pv_plain(scores, v, klens, length),
+                    limit=BF16_TILE_MEAN)
+        if not f32_out:
+            first = max_in_first_tiles(torch, scores, klens)
+            check(f"softmax_pv {instance}, the row max in the first tiles",
+                  lambda: K.softmax_pv(first, v, klens, length),
+                  lambda: K.softmax_pv_plain(first, v, klens, length),
+                  lambda: K.softmax_pv_plain(first.float(), v.float(), klens,
+                                             length).to(bf))
+            del first
+        masked = torch.where(kmask[:, None, None, :], scores,
+                             torch.tensor(-1e30, device=dev, dtype=s_dtype))
+        vh = v.reshape(b, lp, heads, d).permute(0, 2, 1, 3).contiguous()
+        ss, vs = scores.element_size(), v.element_size()
+        products = 2 * d * pairs
+        record(K.softmax_pv, lambda: K.softmax_pv(scores, v, klens, length),
+               lambda: K.softmax_pv_plain(scores, v, klens, length),
+               lambda: torch.matmul(
+                   torch.softmax(masked, dim=-1).to(v_dtype), vh),
+               err, ss * heads * lp * keys + vs * (keys * f + b * lp * f)
+               + 4 * b, 3 * pairs,
+               source="sepreformer_torch/csrc/softmax_pv.cu",
+               replaces="sepreformer_tpu/ops/pallas/softmax_pv.py:342",
+               shape=(f"scores [{b}, {heads}, {lp}, {lp}] {s_dtype}, v "
+                      f"[{b}, {lp}, {f}] {v_dtype}, lens {klens.tolist()}, "
+                      f"length {length}"),
+               tolerance="rtol 1e-4, atol 1e-5 (float32 out)" if f32_out
+               else tolerance, exps=pairs,
+               tc_flops=products if f32_out else 0.0,
+               bf16_flops=0.0 if f32_out else products, timings=5,
+               instance=instance, symbol=BF16_SYMBOLS["softmax_pv"])
+        del scores, v, masked, vh
+    torch.cuda.empty_cache()
+
+    # K12 at the decoder batch of a 70 s request, q, k, v and the table
+    # bfloat16
+    b, length, maxlen = 2, 8750, 2000
+    klens = torch.tensor([8750, 7000], device=dev)
+    keys = sum(klens.tolist())
+    pos = torch.arange(length, device=dev)
+    for d in (16, 32):
+        f = heads * d
+        q, k, v = (randn(b, length, f).to(bf) for _ in range(3))
+        table = randn(2 * maxlen, d).to(bf)
+        instance = "bf16" if d == 16 else f"d={d} bf16"
+        err = check(f"flash_relpos_attention {instance}",
+                    lambda: K.flash_relpos_attention(q, k, v, table, maxlen,
+                                                     klens),
+                    lambda: K.flash_relpos_attention_plain(
+                        q, k, v, table, maxlen, klens),
+                    limit=BF16_TILE_MEAN)
+        first = max_at_key0(torch, torch.Generator().manual_seed(d), b,
+                            length, heads, d, maxlen, dev)
+        check(f"flash_relpos_attention {instance}, the row max at key 0",
+              lambda: K.flash_relpos_attention(*first, maxlen, klens),
+              lambda: K.flash_relpos_attention_plain(*first, maxlen, klens),
+              lambda: K.flash_relpos_attention_plain(
+                  *(a.float() for a in first), maxlen, klens).to(bf))
+        del first
+
+        def split(a):                                   # [B, H, L, d]
+            return a.reshape(b, length, heads, d).transpose(1, 2).contiguous()
+
+        qh, kh, vh = split(q), split(k), split(v)
+        storage = torch.empty(b, heads, length, -(-length // 16) * 16,
+                              device=dev, dtype=bf)
+        bias = storage[..., :length]
+        with torch.no_grad():
+            for i0 in range(0, length, 1024):
+                by_row = torch.matmul(qh[:, :, i0:i0 + 1024].float(),
+                                      table.float().t())
+                idx = torch.clamp(pos[i0:i0 + 1024, None] - pos[None],
+                                  -maxlen, maxlen - 1) + maxlen
+                bias[:, :, i0:i0 + 1024] = (torch.gather(
+                    by_row, 3, idx.expand(b, heads, *idx.shape))
+                    / math.sqrt(d)).to(bf)
+            bias.masked_fill_(~(pos[None] < klens[:, None])[:, None, None, :],
+                              float("-inf"))
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=bias)
+
+        pairs = heads * relpos_pairs(length, klens.tolist(), maxlen)[0]
+        record(K.flash_relpos_attention,
+               lambda: K.flash_relpos_attention(q, k, v, table, maxlen,
+                                                klens),
+               lambda: K.flash_relpos_attention_plain(q, k, v, table, maxlen,
+                                                      klens),
+               library, err,
+               2 * (2 * q.numel() + 2 * keys * f + table.numel()) + 4 * b,
+               3 * pairs, source="sepreformer_torch/csrc/flash_relpos.cu",
+               replaces="sepreformer_tpu/ops/pallas/attention.py:237",
+               shape=(f"q, k, v [{b}, {length}, {f}] bfloat16, table "
+                      f"[{2 * maxlen}, {d}], lens {klens.tolist()}"),
+               tolerance=tolerance, exps=pairs,
+               bf16_flops=flash_relpos_ops(length, klens.tolist(), maxlen,
+                                           heads, d),
+               timings=3, instance=instance,
+               symbol=BF16_SYMBOLS["flash_relpos_attention"])
+        del q, k, v, qh, kh, vh, storage, bias
+        torch.cuda.empty_cache()
 
 
 def serve_phase(torch, np, sep_torch, K):
@@ -3665,6 +3977,362 @@ def large_pallas(torch, np, sep_torch, K, variant, busy_us, total, gcfns,
                            "large single", attentions, total)
 
 
+BASE = "SepReformer_Base_WSJ0"
+# the bfloat16 rows of phase 2, by the model that launches them
+BF16_ROWS = {BASE: {"fused_gcfn": "fused_gcfn", "softmax_pv": "softmax_pv",
+                    "flash_relpos_attention": "flash_relpos_attention"},
+             LARGE: {"fused_gcfn": "fused_gcfn F=256",
+                     "softmax_pv": "softmax_pv d=32",
+                     "flash_relpos_attention": "flash_relpos_attention d=32"}}
+
+
+def bf16_phase(torch, np, sep_torch, K, busy_us, kernel_events):
+    """Phase 13: serving in bfloat16 (``model.compute_dtype="bfloat16"``),
+    seeded weights, every LayerScale at 0.5, through the entry points.
+    Base: a ragged B=4 x 4 s batch through ``Separator.separate`` (K1's
+    and K3's bfloat16 instances in every GCFN and global attention, no
+    float32 instance of either; forward hooks find every module's output
+    bfloat16 but the rel-pos table's), card against the port on the CPU in
+    bfloat16 and against float32 on the card, one traced forward of each
+    dtype (busy, launches, kernel groups, peak memory); the batch with
+    ``scores_dtype="bfloat16"``, and with bfloat16 scores under float32
+    compute; 70 s in full context (K12's bfloat16 instance) against
+    float32; 300 s in 8 s chunks; 300 s in full context, traced, with its
+    peak memory; ``cli.main``'s ``infer_sample`` with ``--set
+    model.compute_dtype=bfloat16``.  Large: the ragged batch (F 256,
+    heads of 32) against float32, its modules' dtypes, traced, and 70 s
+    in full context.  Then
+    the refusals: ``train_step`` in bfloat16, and a bfloat16 tensor into
+    K13, K15 and K16.  Returns the bfloat16 instances' launches over the
+    main-path runs, by their phase-2 row names."""
+    import tempfile
+
+    from sepreformer_torch import cli
+    from sepreformer_torch.config import apply_override
+    from sepreformer_torch.data.audio import read_wav, write_wav
+    from sepreformer_torch.engine import create_train_state, train_step
+
+    rows = defaultdict(int)
+    rng = np.random.default_rng(13)
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+
+    def variant_of(name, **fields):
+        variant = sep_torch.get_variant(name)
+        for key, value in fields.items():
+            variant = apply_override(variant, f"model.{key}", value)
+        return variant
+
+    def seeded(variant):
+        return layer_scales_at(torch, sep_torch.build_model(
+            variant.model, device="cuda",
+            generator=torch.Generator().manual_seed(0)))
+
+    def run(label, fn, seconds, model_name=None):
+        """``fn()`` with every count at 0 just before and read just after,
+        on the host clock, with the peak memory of the call; with
+        ``model_name`` a main-path run, whose bfloat16 launches count for
+        that model's rows."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = K.launch_counts()
+        if model_name:
+            for name, n in counts.items():
+                wrapper, _, instance = name.partition(" ")
+                if instance:
+                    rows[f"{BF16_ROWS[model_name][wrapper]} {instance}"] += n
+        ours = {n: c for n, c in counts.items() if c}
+        print(f"[bf16] {label}: {dt:.3f} s wall, {seconds / dt:.2f} "
+              f"audio-s/s, max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+              f"launches {ours}")
+        return out, counts
+
+    def traced(label, fn, model_name=None):
+        K.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+        counts = K.launch_counts()
+        if model_name:
+            for name, n in counts.items():
+                wrapper, _, instance = name.partition(" ")
+                if instance:
+                    rows[f"{BF16_ROWS[model_name][wrapper]} {instance}"] += n
+        kernels = kernel_events(prof)
+        print_trace("bf16", kernels, busy_us(kernels), window_us,
+                    {n: c for n, c in counts.items() if c}, label)
+        print(f"[bf16] traced {label}: max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+    def rel(a, b):
+        a, b = torch.as_tensor(a).float(), torch.as_tensor(b).float()
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    def agree(label, a, b, limit):
+        err = rel(a, b)
+        print(f"[bf16] {label}: max |d| / max|out| {err:.3e}, limit "
+              f"{limit:.1e}")
+        assert 0 < err <= limit, f"{label}: {err:.3e}"
+
+    def separated(separator, wav):
+        out = np.stack(separator(wav))
+        assert out.shape == (2, len(wav)), out.shape
+        assert np.isfinite(out).all(), "non-finite audio"
+        return out
+
+    lengths = [32000, 28000, 24000, 20000]
+    batch = np.zeros((4, 32000), np.float32)
+    for i, n in enumerate(lengths):
+        batch[i, :n] = rng.normal(size=n) * 0.1
+    seconds = sum(lengths) / SAMPLE_RATE
+
+    def check_batch(counts, dtypes, attentions=22, gcfns=56):
+        """The batch's launches: K1 in every GCFN and K3 in every global
+        attention in the instances ``dtypes`` names, no other instance of
+        either, K2 once."""
+        k1, k3 = dtypes
+        for name, want in (("fused_gcfn", gcfns), ("softmax_pv", attentions)):
+            inst = k1 if name == "fused_gcfn" else k3
+            for key in [n for n in counts if n.partition(" ")[0] == name]:
+                expect = want if key == f"{name} {inst}".strip() else 0
+                assert counts[key] == expect, (key, counts[key], expect)
+            assert counts.get(f"{name} {inst}".strip(), 0) == want, (
+                name, inst, counts)
+        assert counts["materialize_pos_kt"] == 1
+        assert counts["flash_relpos_attention"] == 0
+
+    def left_in_float32(model, fn):
+        """The modules of ``model`` that return a floating tensor other
+        than bfloat16 in ``fn()``, the model itself left out."""
+        seen = set()
+
+        def hook(name):
+            def record(module, args, out):
+                outs = out if isinstance(out, tuple) else (out,)
+                if any(isinstance(o, torch.Tensor) and o.is_floating_point()
+                       and o.dtype != torch.bfloat16 for o in outs):
+                    seen.add(name)
+            return record
+
+        handles = [mod.register_forward_hook(hook(name))
+                   for name, mod in model.named_modules() if name]
+        try:
+            fn()
+        finally:
+            for handle in handles:
+                handle.remove()
+        return seen
+
+    def stream_is_bf16(label, model, fn):
+        """Every module returns bfloat16 but the rel-pos encoding (its
+        float32 table and pos_kt, as the JAX package keeps them)."""
+        odd = left_in_float32(model, fn)
+        print(f"[bf16] {label}: modules that return float32: {sorted(odd)}")
+        assert odd == {"separator.pos_emb"}, odd
+
+    # a. Base's ragged batch in bfloat16, against float32 and the CPU
+    base16, base32 = variant_of(BASE, compute_dtype="bfloat16"), \
+        variant_of(BASE)
+    model16, model32 = seeded(base16), seeded(base32)
+    sep16 = sep_torch.Separator(base16, model16)
+    sep32 = sep_torch.Separator(base32, model32)
+    sep16.separate(batch, lengths)
+    sep32.separate(batch, lengths)
+    walls = {"bfloat16": [], "float32": []}
+    for _ in range(5):
+        for label, sep in (("bfloat16", sep16), ("float32", sep32)):
+            t0 = time.perf_counter()
+            sep.separate(batch, lengths)
+            torch.cuda.synchronize()
+            walls[label].append((time.perf_counter() - t0) * 1e3)
+    for label, ms in walls.items():
+        print(f"[bf16] Base batch B=4 x 4 s, {label}, 5 forwards in turns, "
+              f"ms: {[round(t, 2) for t in ms]}; median "
+              f"{statistics.median(ms):.2f}")
+    audio16, counts = run("Base batch B=4 x 4 s, bfloat16",
+                          lambda: sep16.separate(batch, lengths), seconds,
+                          BASE)
+    assert audio16.dtype == torch.float32 and tuple(audio16.shape) == (
+        2, 4, 32000)
+    assert torch.isfinite(audio16).all().item(), "non-finite audio"
+    check_batch(counts, ("bf16", "bf16"))
+    stream_is_bf16("Base batch, bfloat16", model16,
+                   lambda: sep16.separate(batch, lengths))
+    audio32, _ = run("Base batch B=4 x 4 s, float32",
+                     lambda: sep32.separate(batch, lengths), seconds)
+    agree("Base batch, bfloat16 against float32 on the card", audio16,
+          audio32, BF16_F32_LIMIT)
+    t0 = time.perf_counter()
+    cpu16 = sep_torch.Separator(base16, copy.deepcopy(model16).to("cpu"))
+    cpu = cpu16.separate(batch, lengths)
+    print(f"[bf16] Base batch on the CPU in bfloat16 (plain versions): "
+          f"{time.perf_counter() - t0:.2f} s")
+    agree("Base batch, bfloat16, card against the CPU", audio16.cpu(), cpu,
+          BF16_FORWARD_LIMIT)
+    del cpu16, cpu
+    traced("Base B=4 x 4 s forward, bfloat16",
+           lambda: sep16.separate(batch, lengths), BASE)
+    traced("Base B=4 x 4 s forward, float32",
+           lambda: sep32.separate(batch, lengths))
+
+    # b. the batch with its scores stored in bfloat16: under bfloat16
+    #    compute, and under float32 compute
+    for label, fields, dtypes, ref in (
+            ("bfloat16, scores bfloat16",
+             dict(compute_dtype="bfloat16", scores_dtype="bfloat16"),
+             ("bf16", "bf16 scores"), audio16),
+            ("float32, scores bfloat16", dict(scores_dtype="bfloat16"),
+             ("", "bf16 scores f32 v"), audio32)):
+        sep = sep_torch.Separator(variant_of(BASE, **fields),
+                                  seeded(variant_of(BASE, **fields)))
+        sep.separate(batch, lengths)
+        audio, counts = run(f"Base batch B=4 x 4 s, {label}",
+                            lambda: sep.separate(batch, lengths), seconds,
+                            BASE)
+        check_batch(counts, dtypes)
+        agree(f"Base batch, {label}, against the scores in float32", audio,
+              ref, BF16_FORWARD_LIMIT)
+        del sep, audio
+    del audio16, audio32
+
+    # c. 70 s in full context: K12's bfloat16 instance in every global
+    #    attention, against float32
+    n70 = int(LONG_SECONDS * SAMPLE_RATE)
+    wav70 = (rng.normal(size=n70) * 0.1).astype(np.float32)
+    for label in ("Base 70 s full context, bfloat16 (first call)",
+                  "Base 70 s full context, bfloat16"):
+        long16, counts = run(label, lambda: separated(sep16, wav70),
+                             LONG_SECONDS, BASE)
+        assert counts["flash_relpos_attention bf16"] == 22, counts
+        assert counts["flash_relpos_attention"] == counts["softmax_pv"] == 0
+    long32, _ = run("Base 70 s full context, float32",
+                    lambda: separated(sep32, wav70), LONG_SECONDS)
+    agree("Base 70 s, bfloat16 against float32", long16, long32,
+          BF16_F32_LIMIT)
+    del long16, long32, sep32, model32
+
+    # d. 300 s in 8 s chunks, then in full context, traced
+    n300 = int(LONGEST_SECONDS * SAMPLE_RATE)
+    wav300 = (rng.normal(size=n300) * 0.1).astype(np.float32)
+    chunked = sep_torch.Separator(base16, model16,
+                                  chunk_seconds=CHUNK_SECONDS)
+    _, counts = run(f"Base 300 s in {CHUNK_SECONDS:.0f} s chunks, bfloat16",
+                    lambda: separated(chunked, wav300), LONGEST_SECONDS,
+                    BASE)
+    assert counts["fused_gcfn bf16"] > 0 and counts["softmax_pv bf16"] > 0
+    assert counts.get("flash_relpos_attention bf16", 0) == 0
+    _, counts = run("Base 300 s full context, bfloat16",
+                    lambda: separated(sep16, wav300), LONGEST_SECONDS, BASE)
+    assert counts["flash_relpos_attention bf16"] == 22
+    traced("Base 300 s forward, bfloat16",
+           lambda: sep16.separate(wav300[None], [n300]), BASE)
+    del chunked
+
+    # e. infer_sample through the CLI with --set model.compute_dtype
+    with tempfile.TemporaryDirectory() as tmp:
+        n10 = 10 * SAMPLE_RATE
+        path = os.path.join(tmp, "mix10.wav")
+        write_wav(path, (rng.normal(size=n10) * 0.1).astype(np.float32),
+                  SAMPLE_RATE)
+        out_dir = os.path.join(tmp, "out")
+        args = ["--model", BASE, "--engine-mode", "infer_sample",
+                "--sample-file", path, "--workdir", os.path.join(tmp, "w"),
+                "--out-wav-dir", out_dir, "--set",
+                "model.compute_dtype=bfloat16"]
+        status, counts = run("cli infer_sample, 10 s wav, --set "
+                             "model.compute_dtype=bfloat16 (with the model's "
+                             "set-up)", lambda: cli.main(args), 10.0, BASE)
+        assert status == 0 and counts["fused_gcfn bf16"] == 56, counts
+        assert counts["fused_gcfn"] == 0
+        for i in range(2):
+            x, rate = read_wav(os.path.join(out_dir, f"mix10_out_{i}.wav"))
+            assert rate == SAMPLE_RATE and x.shape == (n10,), x.shape
+            assert np.isfinite(x).all() and np.abs(x).max() > 0.5
+    del sep16, model16
+    torch.cuda.empty_cache()
+
+    # f. Large: the ragged batch against float32, traced; 70 s
+    large16 = variant_of(LARGE, compute_dtype="bfloat16")
+    model16 = seeded(large16)
+    sep16 = sep_torch.Separator(large16, model16)
+    sep32 = sep_torch.Separator(variant_of(LARGE),
+                                seeded(variant_of(LARGE)))
+    sep16.separate(batch, lengths)
+    audio16, counts = run("Large batch B=4 x 4 s, bfloat16",
+                          lambda: sep16.separate(batch, lengths), seconds,
+                          LARGE)
+    check_batch(counts, ("bf16", "bf16"))
+    stream_is_bf16("Large batch, bfloat16", model16,
+                   lambda: sep16.separate(batch, lengths))
+    audio32, _ = run("Large batch B=4 x 4 s, float32",
+                     lambda: sep32.separate(batch, lengths), seconds)
+    agree("Large batch, bfloat16 against float32 on the card", audio16,
+          audio32, BF16_F32_LIMIT)
+    traced("Large B=4 x 4 s forward, bfloat16",
+           lambda: sep16.separate(batch, lengths), LARGE)
+    traced("Large B=4 x 4 s forward, float32",
+           lambda: sep32.separate(batch, lengths))
+    del sep32, audio16, audio32
+    torch.cuda.empty_cache()
+    for label in ("Large 70 s full context, bfloat16 (first call)",
+                  "Large 70 s full context, bfloat16"):
+        _, counts = run(label, lambda: separated(sep16, wav70),
+                        LONG_SECONDS, LARGE)
+        assert counts["flash_relpos_attention bf16"] == 22, counts
+    del sep16, model16
+    torch.cuda.empty_cache()
+
+    # g. the refusals: nothing trains in bfloat16, nothing falls back
+    state = create_train_state(base16, device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+    mix, src = synthetic_batch(torch, np, rng, 2, SAMPLE_RATE)
+    try:
+        train_step(state, mix, src, 1e-3, 0.4, torch.Generator())
+    except NotImplementedError as exc:
+        assert "queue A, bf16 training" in str(exc), exc
+        print(f"[bf16] train_step in bfloat16 refused: {exc}")
+    else:
+        raise AssertionError("train_step trained in bfloat16")
+    del state
+    x = torch.zeros(1, 64, 128, device="cuda", dtype=torch.bfloat16)
+    q = torch.zeros(1, 2, 64, 16, device="cuda", dtype=torch.bfloat16)
+    K.reset_launches()
+    for name, call in (
+            ("K15", lambda: K.fused_cla(x, [], 1e-5)),
+            ("K16", lambda: K.fused_ega_tail_gcfn(
+                x, x[:, :8].contiguous(), [], [], 1e-5)),
+            ("K13", lambda: K.flash_relpos_attention_train(
+                q, q, q, q[0, 0], 1, 64, 0.0))):
+        try:
+            call()
+        except ValueError as exc:
+            assert "queue B, bfloat16 streams" in str(exc), exc
+            print(f"[bf16] {name} refused a bfloat16 tensor: {exc}")
+        else:
+            raise AssertionError(f"{name} took a bfloat16 tensor")
+    assert not any(K.launch_counts().values()), "a refusal launched"
+    missing = [name for name in (
+        "fused_gcfn bf16", "fused_gcfn F=256 bf16", "softmax_pv bf16",
+        "softmax_pv bf16 scores", "softmax_pv bf16 scores f32 v",
+        "softmax_pv d=32 bf16", "flash_relpos_attention bf16",
+        "flash_relpos_attention d=32 bf16") if not rows[name]]
+    assert not missing, f"bfloat16 instances never launched: {missing}"
+    print(f"[bf16] launches of the bfloat16 instances over the phase's "
+          f"main-path runs: {dict(rows)}")
+    return dict(rows)
+
+
 def main() -> int:
     import torch
 
@@ -3745,18 +4413,23 @@ def main() -> int:
                        busy_us, kernel_events) or {}
     large_counts = run("large", large_phase, torch, np, sep_torch, K,
                        busy_us, kernel_events) or {}
+    bf16_counts = run("bf16", bf16_phase, torch, np, sep_torch, K, busy_us,
+                      kernel_events) or {}
 
     # each kernel's launches on the main path of its slice: the eval
     # kernels' in serving, the train kernels' in training, K12's in
     # long-form serving, K6's, K13's and K14's on the routes, K15's and
     # K16's on the fused routes, the instances at Large's widths in Large's
-    # serving and training; K4, on no path, its launches summed over every
-    # phase's main-path runs, which must be 0
+    # serving and training, the bfloat16 instances in bfloat16 serving;
+    # K4, on no path, its launches summed over every phase's main-path
+    # runs, which must be 0
     main_paths = (counts, train_counts, long_counts, route_counts,
                   fused_counts, large_counts)
     for row in kernels:
         name, _, instance = row["name"].partition(" ")
-        row["launches"] = (large_counts.get(name, 0) if instance
+        row["launches"] = (bf16_counts.get(row["name"], 0)
+                           if "bf16" in instance
+                           else large_counts.get(name, 0) if instance
                            else counts.get(name, 0) if name in EVAL_KERNELS
                            else long_counts.get(name, 0)
                            if name in LONG_KERNELS

@@ -4,11 +4,13 @@ The port's own copy of the hyperparameters of SepReformer (the JAX
 package's ``config.py`` holds the same numbers; the port imports nothing
 from it), with its ``--set`` overrides (``apply_override``) and its
 reader of the reference's ``configs.yaml`` (``from_reference_yaml``).
-Only the knobs the port reads are kept.  Of the JAX package's
-implementation selectors the port keeps the two attention routes,
-``attention_impl`` and ``attention_train_impl``, and the two fused eval
-blocks, ``fused_local`` (the CLA through K15) and ``fused_pair`` (the
-EGA tail and the GCFN through K16), with their names and defaults;
+Only the knobs the port reads are kept, and the dtype policy
+(``ModelConfig.compute_dtype``, ``scores_dtype``; serving only).  Of the
+JAX package's implementation selectors the port keeps the two attention
+routes, ``attention_impl`` and ``attention_train_impl``, and the two
+fused eval blocks, ``fused_local`` (the CLA through K15) and
+``fused_pair`` (the EGA tail and the GCFN through K16), with their names
+and defaults;
 every other module has one path, the JAX package's default one (in
 training the GCFN takes the hash-dropout kernels K7/K8).  The presets
 are the JAX package's Base and Large families (``_large``: F=256, head
@@ -38,6 +40,9 @@ ATTENTION_TRAIN_IMPLS = ("auto", "fused_pv", "pallas", "xla")
 # the values of the two fused-block selectors: "auto" is off, as the JAX
 # package resolves it; "interpret" has no counterpart either
 FUSED_BLOCK_MODES = ("auto", "on", "off")
+# the activation dtypes, and the storage dtypes of the scores tensor
+COMPUTE_DTYPES = ("float32", "bfloat16")
+SCORES_DTYPES = ("auto", "float32", "bfloat16")
 
 
 @dataclass(frozen=True)
@@ -79,13 +84,27 @@ class ModelConfig:
     # Large_DM_WHAM: num_stages + 1 independent speaker-split blocks (one
     # per encoder stage and the bottleneck) instead of one shared block
     per_stage_spk_split: bool = False
+    # activations: "float32" or "bfloat16" (serving only; training in
+    # bf16 is ROADMAP.md queue A, bf16 training).  Parameters stay
+    # float32 and each module casts its weights to the stream's dtype;
+    # norms and softmaxes compute in float32 and cast back; the kernels
+    # K1, K3 and K12 take bf16 operands with float32 accumulation; the
+    # model returns float32 audio
+    compute_dtype: str = "float32"
+    # storage dtype of the scores tensor K3 reads: "auto" resolves to
+    # float32 (the JAX rule off a TPU; the card's own rule belongs to
+    # ROADMAP.md queue A, "The card's own "auto" rules"), "bfloat16"
+    # halves its bytes
+    scores_dtype: str = "auto"
 
     def __post_init__(self):
         for name, allowed in (("attention_impl", ATTENTION_IMPLS),
                               ("attention_train_impl",
                                ATTENTION_TRAIN_IMPLS),
                               ("fused_local", FUSED_BLOCK_MODES),
-                              ("fused_pair", FUSED_BLOCK_MODES)):
+                              ("fused_pair", FUSED_BLOCK_MODES),
+                              ("compute_dtype", COMPUTE_DTYPES),
+                              ("scores_dtype", SCORES_DTYPES)):
             value = getattr(self, name)
             if value not in allowed:
                 raise ValueError(f"model.{name} {value!r} is not one of "
@@ -94,6 +113,14 @@ class ModelConfig:
     @property
     def head_dim(self) -> int:
         return self.feat_dim // self.num_heads
+
+    def torch_dtype(self, which: str = "compute_dtype"):
+        """``compute_dtype`` (or ``scores_dtype``, "auto" as float32) as
+        a torch dtype."""
+        import torch
+
+        name = getattr(self, which)
+        return torch.bfloat16 if name == "bfloat16" else torch.float32
 
     def padded_frames(self, num_frames: int) -> int:
         """Frames zero-padded to a multiple of 2**num_stages (no pad when

@@ -27,6 +27,14 @@
 // Large's 32 (92 KB of shared memory a block: two per SM; its products
 // per pair double, so its bound is about twice Base's).  The header holds
 // the tile's design and what holds it above its bound.
+//
+// bfloat16 streams (flash_relpos_bf16_kernel, q, k, v, the table and out
+// bfloat16, at both head widths): the tile's T = __nv_bfloat16 form, the
+// JAX kernel's rounding steps with one TF32 product on exact values in
+// place of three (flash_relpos_tile.cuh), so its product bound is a third
+// of the float32 instance's; the same stages, shared memory and blocks
+// per SM.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -44,33 +52,33 @@ flash_relpos_kernel(relpos_flash::Args a) {
 }
 
 template <int D>
-int launch(relpos_flash::Args a, int B, cudaStream_t stream) {
+__global__ void __launch_bounds__(Tile<D>::kThreads, Tile<D>::kMinBlocks)
+flash_relpos_bf16_kernel(relpos_flash::Args a) {
+  relpos_flash::run<D, 1, false, false, false, __nv_bfloat16>(a);
+}
+
+template <int D, class Kernel>
+int launch(Kernel kernel, relpos_flash::Args a, int B, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_relpos_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)Tile<D>::kSmemBytes);
   if (err == cudaSuccess && Tile<D>::kMinBlocks < 4)  // room for them
-    err = cudaFuncSetAttribute(flash_relpos_kernel<D>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   // 1 / sqrt(D) and log2(e): exp(x / sqrt(D)) = exp2(x log2(e) / sqrt(D))
   a.scale_log2 = 1.4426950408889634f / sqrtf((float)D);
   dim3 grid((a.L + relpos_flash::kRows - 1) / relpos_flash::kRows, B * a.H);
-  flash_relpos_kernel<D><<<grid, Tile<D>::kThreads, Tile<D>::kSmemBytes,
-                           stream>>>(a);
+  kernel<<<grid, Tile<D>::kThreads, Tile<D>::kSmemBytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// q, k, v, out: device float32 [B, L, H*D] (16-byte aligned); table:
-// device float32 [2*maxlen, D]; lens: device int32 [B], each >= 1 (the
-// wrapper clamps them to L).  Built for Base's head width D = 16 and
-// Large's D = 32.
-extern "C" int sep_flash_relpos_f32(const void* q, const void* k,
-                                    const void* v, const void* table,
-                                    const void* lens, void* out, int B, int L,
-                                    int H, int D, int maxlen, void* stream) {
+// The C entries' arguments (pointers of either dtype, passed through Args'
+// float pointers) and checks.
+int entry(bool bf16, const void* q, const void* k, const void* v,
+          const void* table, const void* lens, void* out, int B, int L,
+          int H, int D, int maxlen, void* stream) {
   if (B <= 0 || L <= 0) return 0;
   if (H <= 0 || maxlen <= 0 || (long long)B * H > 65535 ||
       (D != 16 && D != 32))
@@ -86,5 +94,31 @@ extern "C" int sep_flash_relpos_f32(const void* q, const void* k,
   a.H = H;
   a.maxlen = maxlen;
   auto st = static_cast<cudaStream_t>(stream);
-  return D == 16 ? launch<16>(a, B, st) : launch<32>(a, B, st);
+  if (bf16)
+    return D == 16 ? launch<16>(flash_relpos_bf16_kernel<16>, a, B, st)
+                   : launch<32>(flash_relpos_bf16_kernel<32>, a, B, st);
+  return D == 16 ? launch<16>(flash_relpos_kernel<16>, a, B, st)
+                 : launch<32>(flash_relpos_kernel<32>, a, B, st);
+}
+
+}  // namespace
+
+// q, k, v, out: device float32 [B, L, H*D] (16-byte aligned); table:
+// device float32 [2*maxlen, D]; lens: device int32 [B], each >= 1 (the
+// wrapper clamps them to L).  Built for Base's head width D = 16 and
+// Large's D = 32.
+extern "C" int sep_flash_relpos_f32(const void* q, const void* k,
+                                    const void* v, const void* table,
+                                    const void* lens, void* out, int B, int L,
+                                    int H, int D, int maxlen, void* stream) {
+  return entry(false, q, k, v, table, lens, out, B, L, H, D, maxlen, stream);
+}
+
+// The same on bfloat16 q, k, v, table and out (16-byte aligned).
+extern "C" int sep_flash_relpos_bf16(const void* q, const void* k,
+                                     const void* v, const void* table,
+                                     const void* lens, void* out, int B,
+                                     int L, int H, int D, int maxlen,
+                                     void* stream) {
+  return entry(true, q, k, v, table, lens, out, B, L, H, D, maxlen, stream);
 }

@@ -76,11 +76,26 @@
 // mma and the softmax's float32 work); on K13's short grids the latency
 // of each warp's walk, which 16 warps per SM (at most 128 registers per
 // thread) hide only in part.
+//
+// With T = __nv_bfloat16 (K12's bfloat16 instances) q, k, v, the table and
+// out are bfloat16, with the JAX kernel's rounding steps
+// (attention.py:90-137): Q stays unscaled (a bfloat16 value, exact in
+// TF32) and QKᵀ and Q·bandᵀ are one TF32 mma.sync each on exact values
+// (mma_tf32x3.cuh), so their sums are float32; the scale (log2(e) /
+// sqrt(D)) multiplies the summed scores, the clamped rows' constants too;
+// the mask and the online softmax stay float32; p is rounded to bfloat16
+// after its sum and before ·V, one exact product; acc / l is stored
+// rounded.  K, V and the band are staged as bfloat16 rows at stride
+// D + 8 (16-byte aligned), within the float stages' room, so the shared
+// memory and blocks per SM are the float32 instance's.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hash_dropout.cuh"
 #include "mma_tf32x3.cuh"
@@ -184,11 +199,30 @@ __device__ __forceinline__ float quad_sum(float v) {
 // shared memory.  kHeadMajor: [B*H, L, D] rows, else channels-last;
 // kDrop: the hash dropout on the numerator; kStats: the rows' max and sum
 // written.
-template <int D, int SPLIT, bool kHeadMajor, bool kDrop, bool kStats>
+// Four consecutive bfloat16 values (8 bytes) as floats.
+__device__ __forceinline__ float4 load4_bf16(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+template <int D, int SPLIT, bool kHeadMajor, bool kDrop, bool kStats,
+          class T = float>
 __device__ __forceinline__ void run(const Args& a) {
   using S = Shape<SPLIT, D>;
   constexpr int kKS = S::kKS, kVS = S::kVS, kPerLane = S::kPerLane,
                 kNN = S::kNN, kChains = S::kChains;
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  static_assert(!kBf16 || (!kHeadMajor && !kDrop && !kStats && SPLIT == 1),
+                "bfloat16: K12's tile alone");
+  // bfloat16 rows of K, V and the band: stride D + 8 values (16-byte
+  // aligned), within the float rows' room
+  constexpr int kRS = D + 8;
+  static_assert(kRS <= 2 * kKS && kRS <= 2 * kVS, "bf16 rows fit");
+  using bf = __nv_bfloat16;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -217,7 +251,44 @@ __device__ __forceinline__ void run(const Args& a) {
   const int c0 = kPerLane * t;  // the lane's first column
   uint32_t qb[kNN][4], qs[kNN][4];
   float hi[2], lo[2];
-  {
+  if constexpr (kBf16) {
+    // unscaled bfloat16 Q (exact in TF32); the constants scaled after
+    const bf* qh = reinterpret_cast<const bf*>(a.q);
+    const bf* tab = reinterpret_cast<const bf*>(a.table);
+    float qv[2][kPerLane];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = iw + g + 8 * r;
+#pragma unroll
+      for (int q4 = 0; q4 < kPerLane / 4; ++q4) {
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (i < L) x = load4_bf16(qh + head + (size_t)i * F + c0 + 4 * q4);
+        qv[r][4 * q4] = x.x;
+        qv[r][4 * q4 + 1] = x.y;
+        qv[r][4 * q4 + 2] = x.z;
+        qv[r][4 * q4 + 3] = x.w;
+      }
+    }
+    const bf* top = tab + (size_t)(2 * maxlen - 1) * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sh = 0.f, sl = 0.f;
+#pragma unroll
+      for (int c = 0; c < kPerLane; ++c) {
+        sh = fmaf(qv[r][c], __bfloat162float(top[c0 + c]), sh);
+        sl = fmaf(qv[r][c], __bfloat162float(tab[c0 + c]), sl);
+      }
+      hi[r] = quad_sum(sh) * a.scale_log2;
+      lo[r] = quad_sum(sl) * a.scale_log2;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kNN; ++kk) {
+      qb[kk][0] = __float_as_uint(qv[0][2 * kk]);
+      qb[kk][1] = __float_as_uint(qv[1][2 * kk]);
+      qb[kk][2] = __float_as_uint(qv[0][2 * kk + 1]);
+      qb[kk][3] = __float_as_uint(qv[1][2 * kk + 1]);
+    }
+  } else {
     float qv[2][kPerLane];  // [row g, g+8][column c0 ..]
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -264,23 +335,52 @@ __device__ __forceinline__ void run(const Args& a) {
     float* ks_ = smem + buf * S::kStage;
     float* vs_ = ks_ + S::kStepKeys * kKS;
     float* band = vs_ + S::kStepKeys * kVS;
-#pragma unroll
-    for (int it = 0; it < S::kStepKeys / kRowStep; ++it) {
-      const int r = r0 + kRowStep * it, j = j0 + r;
-      const bool ok = j < lim;
-      const size_t off = head + (size_t)(ok ? j : 0) * F + c4;
-      cp_async16(ks_ + r * kKS + c4, a.k + off, ok);
-      cp_async16(vs_ + r * kVS + c4, a.v + off, ok);
-    }
     const int rel0 = i0 - j0 - (S::kStepKeys - 1);
-    if (rel0 < maxlen - 1 && rel0 + kRows + S::kStepKeys - 2 > -maxlen) {
+    const bool band_rows =
+        rel0 < maxlen - 1 && rel0 + kRows + S::kStepKeys - 2 > -maxlen;
+    if constexpr (kBf16) {
+      // 16-byte pieces of eight values, D / 8 a row
+      constexpr int kPer = D / 8;
+      const bf* kb = reinterpret_cast<const bf*>(a.k);
+      const bf* vb = reinterpret_cast<const bf*>(a.v);
+      const bf* tb = reinterpret_cast<const bf*>(a.table);
+      auto copy = [](bf* dst, const bf* src, bool ok) {
+        cp_async16(reinterpret_cast<float*>(dst),
+                   reinterpret_cast<const float*>(src), ok);
+      };
+      for (int e = tid; e < S::kStepKeys * kPer; e += S::kThreads) {
+        const int r = e / kPer, c8 = (e % kPer) * 8, j = j0 + r;
+        const bool ok = j < lim;
+        const size_t off = head + (size_t)(ok ? j : 0) * F + c8;
+        copy(reinterpret_cast<bf*>(ks_) + r * kRS + c8, kb + off, ok);
+        copy(reinterpret_cast<bf*>(vs_) + r * kRS + c8, vb + off, ok);
+      }
+      if (band_rows) {
+        for (int e = tid; e < S::kBand * kPer; e += S::kThreads) {
+          const int r = e / kPer, c8 = (e % kPer) * 8;
+          const int row = min(max(rel0 + r, -maxlen), maxlen - 1) + maxlen;
+          copy(reinterpret_cast<bf*>(band) + r * kRS + c8,
+               tb + (size_t)row * D + c8, true);
+        }
+      }
+    } else {
 #pragma unroll
-      for (int it = 0; it < (S::kBand + kRowStep - 1) / kRowStep; ++it) {
-        const int r = r0 + kRowStep * it;
-        const int row = min(max(rel0 + r, -maxlen), maxlen - 1) + maxlen;
-        if (r < S::kBand)
-          cp_async16(band + r * kKS + c4, a.table + (size_t)row * D + c4,
-                     true);
+      for (int it = 0; it < S::kStepKeys / kRowStep; ++it) {
+        const int r = r0 + kRowStep * it, j = j0 + r;
+        const bool ok = j < lim;
+        const size_t off = head + (size_t)(ok ? j : 0) * F + c4;
+        cp_async16(ks_ + r * kKS + c4, a.k + off, ok);
+        cp_async16(vs_ + r * kVS + c4, a.v + off, ok);
+      }
+      if (band_rows) {
+#pragma unroll
+        for (int it = 0; it < (S::kBand + kRowStep - 1) / kRowStep; ++it) {
+          const int r = r0 + kRowStep * it;
+          const int row = min(max(rel0 + r, -maxlen), maxlen - 1) + maxlen;
+          if (r < S::kBand)
+            cp_async16(band + r * kKS + c4, a.table + (size_t)row * D + c4,
+                       true);
+        }
       }
     }
     cp_async_commit();
@@ -317,11 +417,13 @@ __device__ __forceinline__ void run(const Args& a) {
       const int j0 = n * kKeys;
       const float* stage_ =
           smem + (S::kStages == 2 ? step & 1 : 0) * S::kStage;
-      const float* ks_ = stage_ + ks * kKeys * kKS;
-      const float* vs_ = stage_ + S::kStepKeys * kKS + ks * kKeys * kVS;
+      // (bfloat16: the same regions, rows at stride kRS values)
+      const int ksr = kBf16 ? kRS / 2 : kKS, vsr = kBf16 ? kRS / 2 : kVS;
+      const float* ks_ = stage_ + ks * kKeys * ksr;
+      const float* vs_ = stage_ + S::kStepKeys * kKS + ks * kKeys * vsr;
       // the warp's band rows: its column 0 is rel iw - j0 - 63
       const float* band = stage_ + S::kStepKeys * (kKS + kVS) +
-                          (16 * rt + kKeys * (SPLIT - 1 - ks)) * kKS;
+                          (16 * rt + kKeys * (SPLIT - 1 - ks)) * ksr;
 
       // S = Q Kᵀ: n-tile nt holds keys 8nt .. 8nt+7
       float s[8][4];
@@ -331,10 +433,21 @@ __device__ __forceinline__ void run(const Args& a) {
         for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
         for (int q4 = 0; q4 < kPerLane / 4; ++q4) {
-          const float4 kk = *reinterpret_cast<const float4*>(
-              ks_ + (8 * nt + g) * kKS + c0 + 4 * q4);
-          tf32x3::mma3(s[nt], qb[2 * q4], qs[2 * q4], kk.x, kk.y);
-          tf32x3::mma3(s[nt], qb[2 * q4 + 1], qs[2 * q4 + 1], kk.z, kk.w);
+          if constexpr (kBf16) {
+            const float4 kk = load4_bf16(reinterpret_cast<const bf*>(ks_) +
+                                         (8 * nt + g) * kRS + c0 + 4 * q4);
+            const uint32_t b0[2] = {__float_as_uint(kk.x),
+                                    __float_as_uint(kk.y)};
+            const uint32_t b1[2] = {__float_as_uint(kk.z),
+                                    __float_as_uint(kk.w)};
+            tf32x3::mma(s[nt], qb[2 * q4], b0);
+            tf32x3::mma(s[nt], qb[2 * q4 + 1], b1);
+          } else {
+            const float4 kk = *reinterpret_cast<const float4*>(
+                ks_ + (8 * nt + g) * kKS + c0 + 4 * q4);
+            tf32x3::mma3(s[nt], qb[2 * q4], qs[2 * q4], kk.x, kk.y);
+            tf32x3::mma3(s[nt], qb[2 * q4 + 1], qs[2 * q4 + 1], kk.z, kk.w);
+          }
         }
       }
 
@@ -355,10 +468,21 @@ __device__ __forceinline__ void run(const Args& a) {
           float c[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
           for (int q4 = 0; q4 < kPerLane / 4; ++q4) {
-            const float4 bb = *reinterpret_cast<const float4*>(
-                band + (8 * m + g) * kKS + c0 + 4 * q4);
-            tf32x3::mma3(c, qb[2 * q4], qs[2 * q4], bb.x, bb.y);
-            tf32x3::mma3(c, qb[2 * q4 + 1], qs[2 * q4 + 1], bb.z, bb.w);
+            if constexpr (kBf16) {
+              const float4 bb = load4_bf16(reinterpret_cast<const bf*>(band) +
+                                           (8 * m + g) * kRS + c0 + 4 * q4);
+              const uint32_t b0[2] = {__float_as_uint(bb.x),
+                                      __float_as_uint(bb.y)};
+              const uint32_t b1[2] = {__float_as_uint(bb.z),
+                                      __float_as_uint(bb.w)};
+              tf32x3::mma(c, qb[2 * q4], b0);
+              tf32x3::mma(c, qb[2 * q4 + 1], b1);
+            } else {
+              const float4 bb = *reinterpret_cast<const float4*>(
+                  band + (8 * m + g) * kKS + c0 + 4 * q4);
+              tf32x3::mma3(c, qb[2 * q4], qs[2 * q4], bb.x, bb.y);
+              tf32x3::mma3(c, qb[2 * q4 + 1], qs[2 * q4 + 1], bb.z, bb.w);
+            }
           }
           *reinterpret_cast<float2*>(wbias + g * kBS + 8 * m + 2 * t) =
               make_float2(c[0], c[1]);
@@ -378,6 +502,13 @@ __device__ __forceinline__ void run(const Args& a) {
         __syncwarp();
       }
 
+      // bfloat16: the summed scores to log2 units (float32 Q was scaled)
+      if constexpr (kBf16) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] *= a.scale_log2;
+      }
       // the key mask on the tile that crosses lim, and the online softmax
       // of rows g and g+8 (the scores are in log2 units)
       if (j0 + kKeys > lim) {
@@ -434,13 +565,30 @@ __device__ __forceinline__ void run(const Args& a) {
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         const float p4[4] = {s[nt][0], s[nt][2], s[nt][1], s[nt][3]};
-        uint32_t pb[4], ps[4];
-        tf32x3::split(p4, pb, ps);
-        const float* vp = vs_ + (8 * nt + 2 * t) * kVS + g;
+        if constexpr (kBf16) {
+          // p rounded to bfloat16 after its sum, one exact product
+          uint32_t pb[4];
 #pragma unroll
-        for (int nn = 0; nn < kNN; ++nn)
-          tf32x3::mma3(pv[nt % kChains][nn], pb, ps, vp[8 * nn],
-                       vp[kVS + 8 * nn]);
+          for (int i = 0; i < 4; ++i)
+            pb[i] = __float_as_uint(bf16s::rounded(p4[i]));
+          const bf* vp =
+              reinterpret_cast<const bf*>(vs_) + (8 * nt + 2 * t) * kRS + g;
+#pragma unroll
+          for (int nn = 0; nn < kNN; ++nn) {
+            const uint32_t vb2[2] = {
+                __float_as_uint(__bfloat162float(vp[8 * nn])),
+                __float_as_uint(__bfloat162float(vp[kRS + 8 * nn]))};
+            tf32x3::mma(pv[nt % kChains][nn], pb, vb2);
+          }
+        } else {
+          uint32_t pb[4], ps[4];
+          tf32x3::split(p4, pb, ps);
+          const float* vp = vs_ + (8 * nt + 2 * t) * kVS + g;
+#pragma unroll
+          for (int nn = 0; nn < kNN; ++nn)
+            tf32x3::mma3(pv[nt % kChains][nn], pb, ps, vp[8 * nn],
+                         vp[kVS + 8 * nn]);
+        }
       }
 #pragma unroll
       for (int nn = 0; nn < kNN; ++nn)
@@ -508,9 +656,9 @@ __device__ __forceinline__ void run(const Args& a) {
     if (i < L) {
 #pragma unroll
       for (int nn = 0; nn < kNN; ++nn)
-        *reinterpret_cast<float2*>(a.out + head + (size_t)i * F + 8 * nn +
-                                   2 * t) =
-            make_float2(o[nn][2 * r] * inv, o[nn][2 * r + 1] * inv);
+        bf16s::store2(reinterpret_cast<T*>(a.out) + head + (size_t)i * F +
+                          8 * nn + 2 * t,
+                      o[nn][2 * r] * inv, o[nn][2 * r + 1] * inv);
       if (kStats && t == 0) {
         a.row_max[(size_t)bh * L + i] = m_run[r] * kLn2;
         a.row_sum[(size_t)bh * L + i] = l;

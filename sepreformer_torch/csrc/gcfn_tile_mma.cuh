@@ -72,10 +72,25 @@
 // 1 (columns 0..F-1) by the hash of hash_dropout.cuh at the global row
 // b*T + t, and scales the kept values by 1 / (1 - p): the JAX package's
 // gcfn_train.py::_fwd_train_kernel.
+//
+// With In = __nv_bfloat16 (K1's bfloat16 instance) x and out are
+// bfloat16 and the tile takes the JAX kernel's rounding steps
+// (gcfn.py:162-211): x is upcast as it is read, the LayerNorm runs in
+// float32 and its rows are rounded to bfloat16 as they land in xn, g is
+// rounded as it lands in g, the weights are rounded as the products read
+// them, and each product is one TF32 mma.sync on those exact values
+// (mma_tf32x3.cuh) in place of three; u, the conv, the GLU and the
+// residual stay float32, and out is stored rounded.  The weights stay
+// float32 in memory and in the stages, so the shared-memory plan (and
+// the blocks per SM) is the float32 instance's; x's and out's bytes
+// halve.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hash_dropout.cuh"
 #include "mma_tf32x3.cuh"
@@ -144,9 +159,10 @@ struct Pair {
 
 // LayerNorm of frames t0-1 .. t0+TT into xn [R][LX], a warp taking every
 // (kThreads/32)th row, all its rows' loads in flight at once; rows outside
-// [0, T) are zero.  row(r, t) points at the F values of tile row r, frame
-// t (in [0, T)), in global or shared memory.
-template <int F, class Row>
+// [0, T) are zero.  row(r, t) points at the F values (float or bfloat16)
+// of tile row r, frame t (in [0, T)), in global or shared memory.  With
+// kRound the rows are rounded to bfloat16 as they are stored.
+template <int F, bool kRound = false, class Row>
 __device__ __forceinline__ void layer_norm_rows(
     float* xn, Row row, const float* __restrict__ lns,
     const float* __restrict__ lnb, int t0, int T, float eps) {
@@ -158,9 +174,9 @@ __device__ __forceinline__ void layer_norm_rows(
   for (int i = 0; i < RW; ++i) {
     const int r = warp + i * kWarps, t = t0 - 1 + r;
     const bool in = t >= 0 && t < T;
-    const float* src = row(r, in ? t : 0) + lane;
+    const auto* src = row(r, in ? t : 0) + lane;
 #pragma unroll
-    for (int q = 0; q < Q; ++q) v[i][q] = in ? src[32 * q] : 0.f;
+    for (int q = 0; q < Q; ++q) v[i][q] = in ? bf16s::to_f(src[32 * q]) : 0.f;
   }
 #pragma unroll
   for (int i = 0; i < RW; ++i) {
@@ -180,7 +196,11 @@ __device__ __forceinline__ void layer_norm_rows(
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
       const int k = lane + 32 * q;
-      xn[r * LX + k] = in ? v[i][q] * inv * lns[k] + lnb[k] : 0.f;
+      if (kRound)
+        xn[r * LX + k] =
+            in ? bf16s::rounded(v[i][q] * inv * lns[k] + lnb[k]) : 0.f;
+      else
+        xn[r * LX + k] = in ? v[i][q] * inv * lns[k] + lnb[k] : 0.f;
     }
   }
 }
@@ -192,16 +212,19 @@ __device__ __forceinline__ int hidden_col(int c, int j) {
   return c * CH + j + (j < CH ? 0 : H3 - CH);
 }
 
-template <int F, bool kDrop, bool kPair = false>
+template <int F, bool kDrop, bool kPair = false, class In = float>
 __device__ __forceinline__ void tile(
-    float* smem, const float* __restrict__ x, const int* __restrict__ lens,
+    float* smem, const In* __restrict__ x, const int* __restrict__ lens,
     const float* __restrict__ lns, const float* __restrict__ lnb,
     const float* __restrict__ win, const float* __restrict__ bin,
     const float* __restrict__ wdw, const float* __restrict__ bdw,
     const float* __restrict__ wout, const float* __restrict__ bout,
-    const float* __restrict__ ls, float* __restrict__ out, int T, float eps,
+    const float* __restrict__ ls, In* __restrict__ out, int T, float eps,
     GcfnDrop drop, Pair pair = Pair{}) {
   static_assert(!(kDrop && kPair), "K16 runs at dropout 0");
+  constexpr bool kBf16 = !std::is_same<In, float>::value;
+  static_assert(!kBf16 || (!kDrop && !kPair),
+                "bfloat16: K1's eval tile alone");
   using S = Shape<F>;
   static_assert(!kPair || S::pair_fits,
                 "K16: y overlays wo and u, or wi at one block per SM");
@@ -252,7 +275,7 @@ __device__ __forceinline__ void tile(
 
   for (int e = tid; e < (R - TT) * LG; e += kThreads) g[TT * LG + e] = 0.f;
   auto x_row = [&](int, int t) { return x + ((size_t)b * T + t) * F; };
-  if (kPair) {
+  if constexpr (kPair) {
     // K16's prologue, the EGA tail over the R rows:
     //   y = x + sigmoid(LN_g(x) wg + bg) * x_down[t / r],  r = T / L,
     // zero outside [0, T).  y lands in shared memory (Shape's y), and its
@@ -355,7 +378,7 @@ __device__ __forceinline__ void tile(
       stage_in(0);
     }
   } else {
-    layer_norm_rows<F>(xn, x_row, lns, lnb, t0, T, eps);
+    layer_norm_rows<F, kBf16>(xn, x_row, lns, lnb, t0, T, eps);
   }
 
   float o[OMT][ONT][4] = {};
@@ -372,13 +395,19 @@ __device__ __forceinline__ void tile(
     //    16 UMT wm .., local columns 8 UNT wn ..
     {
       float a[UMT][UNT][4] = {};
-      if (t0 - 1 < valid)
-        tf32x3::warp_product<UMT, UNT, F / 8>(
-            a, xn + 16 * UMT * wm * LX, LX, [&](int ks, int nt) {
-              const float* w =
-                  wi + (8 * ks + 2 * t4) * LW + 8 * (UNT * wn + nt) + g8;
-              return make_float2(w[0], w[LW]);
-            });
+      auto win_frag = [&](int ks, int nt) {
+        const float* w =
+            wi + (8 * ks + 2 * t4) * LW + 8 * (UNT * wn + nt) + g8;
+        return make_float2(w[0], w[LW]);
+      };
+      if (t0 - 1 < valid) {
+        if constexpr (kBf16)
+          bf16s::warp_product<UMT, UNT, F / 8>(
+              a, xn + 16 * UMT * wm * LX, LX, win_frag);
+        else
+          tf32x3::warp_product<UMT, UNT, F / 8>(
+              a, xn + 16 * UMT * wm * LX, LX, win_frag);
+      }
 #pragma unroll
       for (int mt = 0; mt < UMT; ++mt)
 #pragma unroll
@@ -424,7 +453,7 @@ __device__ __forceinline__ void tile(
           gv = sep_keep(drop.seed0, row0 + i, (uint32_t)ca, drop.threshold)
                    ? gv * drop.scale
                    : 0.f;
-        if (i < TT) g[i * LG + cl] = gv;
+        if (i < TT) g[i * LG + cl] = kBf16 ? bf16s::rounded(gv) : gv;
       }
     }
     if (c + 1 < S::chunks)
@@ -434,12 +463,16 @@ __device__ __forceinline__ void tile(
     __syncthreads();
 
     // c. o += g_c wout_c.  This warp: rows 16 OMT wm .., columns 8 ONT wn ..
-    tf32x3::warp_product<OMT, ONT, CH / 8>(
-        o, g + 16 * OMT * wm * LG, LG, [&](int ks, int nt) {
-          const float* w =
-              wo + (8 * ks + 2 * t4) * LO + 8 * (ONT * wn + nt) + g8;
-          return make_float2(w[0], w[LO]);
-        });
+    auto wout_frag = [&](int ks, int nt) {
+      const float* w = wo + (8 * ks + 2 * t4) * LO + 8 * (ONT * wn + nt) + g8;
+      return make_float2(w[0], w[LO]);
+    };
+    if constexpr (kBf16)
+      bf16s::warp_product<OMT, ONT, CH / 8>(o, g + 16 * OMT * wm * LG, LG,
+                                            wout_frag);
+    else
+      tf32x3::warp_product<OMT, ONT, CH / 8>(o, g + 16 * OMT * wm * LG, LG,
+                                             wout_frag);
   }
 
   // out = x + ls * (o + bout), o dropped at site 1 in training; tile rows
@@ -455,8 +488,7 @@ __device__ __forceinline__ void tile(
       for (int nt = 0; nt < ONT; ++nt) {
         const int col = 8 * (ONT * wn + nt) + 2 * t4;
         // the residual: x, or K16's y, which its prologue wrote to out
-        const float2 xv =
-            *reinterpret_cast<const float2*>((kPair ? out : x) + off + col);
+        const float2 xv = bf16s::load2((kPair ? out : x) + off + col);
         float v[2];
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
@@ -468,7 +500,7 @@ __device__ __forceinline__ void tile(
                      : 0.f;
           v[q] = (q ? xv.y : xv.x) + ls[col + q] * ov;
         }
-        *reinterpret_cast<float2*>(out + off + col) = make_float2(v[0], v[1]);
+        bf16s::store2(out + off + col, v[0], v[1]);
       }
     }
 }

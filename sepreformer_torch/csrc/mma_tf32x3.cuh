@@ -36,6 +36,7 @@
 // fragments.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace tf32x3 {
@@ -187,3 +188,90 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 }  // namespace tf32x3
+
+// bfloat16 streams on the tensor cores (namespace bf16s): the helpers of
+// the bfloat16 instances of K1 (gcfn_tile_mma.cuh), K3
+// (softmax_pv_tile.cuh) and K12 (flash_relpos_tile.cuh).
+//
+// The JAX kernels take a bfloat16 stream as bfloat16 operands with float32
+// sums (preferred_element_type=float32) and keep their statistics, softmax
+// and LayerNorm in float32.  Here the operands are rounded to bfloat16
+// (round to nearest even, as a cast rounds) and kept as floats: a bfloat16
+// value has 8 mantissa bits, TF32 keeps 10, so one TF32 mma.sync
+// (m16n8k8, the fragments above) takes it exactly, its products are
+// exact in float32 and its sums are float32, which is what the bf16
+// m16n8k16 form computes too, at a third of the 3xTF32 products' work and
+// with the fragment layouts, tiles and staging of the float32 instances.
+namespace bf16s {
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// v rounded to bfloat16, as a float (round to nearest even).
+__device__ __forceinline__ float rounded(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Two consecutive values of a row, as floats.
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// Two floats stored as two consecutive values (rounded to nearest even
+// into bfloat16).
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// acc[mt][nt] += A B by one warp, as tf32x3::warp_product lays out its
+// fragments, but with one TF32 product per fragment: A (row-major in
+// shared memory) holds values already rounded to bfloat16, and bfrag's
+// two B values are rounded here, so every product is exact.  The product
+// sums into zeroed fragments, added to acc in float32 at the end.
+template <int MT, int NT, int KS, class BFrag>
+__device__ __forceinline__ void warp_product(float (&acc)[MT][NT][4],
+                                             const float* A, int lda,
+                                             BFrag bfrag) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float c[MT][NT][4] = {};
+#pragma unroll 2
+  for (int ks = 0; ks < KS; ++ks) {
+    uint32_t a[MT][4], b[NT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const float* p = A + (16 * mt + g) * lda + 8 * ks + 2 * t;
+      const float2 lo = *reinterpret_cast<const float2*>(p);
+      const float2 hi = *reinterpret_cast<const float2*>(p + 8 * lda);
+      a[mt][0] = __float_as_uint(lo.x);
+      a[mt][1] = __float_as_uint(hi.x);
+      a[mt][2] = __float_as_uint(lo.y);
+      a[mt][3] = __float_as_uint(hi.y);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float2 w = bfrag(ks, nt);
+      b[nt][0] = __float_as_uint(rounded(w.x));
+      b[nt][1] = __float_as_uint(rounded(w.y));
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) tf32x3::mma(c[mt][nt], a[mt], b[nt]);
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] += c[mt][nt][e];
+}
+
+}  // namespace bf16s

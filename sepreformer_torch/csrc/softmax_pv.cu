@@ -24,6 +24,14 @@
 // online softmax per quad of lanes, P·V on the tensor cores (3xTF32).
 // K3 and K3b have two instances of the tile's head width each, Base's 16
 // and Large's 32 (the scores' bytes are the same at both; V's double).
+//
+// bfloat16 streams (softmax_pv_bf16_kernel, K3 alone): the scores in
+// float32 or bfloat16, V and the output in float32 or bfloat16, one
+// instance per pairing but float/float and head width, with the JAX
+// kernel's rounding steps (softmax_pv_tile.cuh, SC and VT).  bfloat16
+// scores halve the bytes that bound K3; a bfloat16 V takes its P·V as
+// one TF32 product on exact values (mma_tf32x3.cuh) in place of three.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "softmax_pv_tile.cuh"
@@ -40,6 +48,40 @@ __global__ void __launch_bounds__(softmax_pv_tile::kThreads,
                                            : softmax_pv_tile::kMinBlocks)
 softmax_pv_kernel(Args a) {
   softmax_pv_tile::run<D, SPLIT, HAS_BIAS, false>(a);
+}
+
+template <int D, int SPLIT, class SC, class VT>
+__global__ void __launch_bounds__(softmax_pv_tile::kThreads,
+                                  softmax_pv_tile::kMinBlocks)
+softmax_pv_bf16_kernel(Args a) {
+  softmax_pv_tile::run<D, SPLIT, false, false, SC, VT>(a);
+}
+
+template <int D, class SC, class VT>
+int launch_bf16(const void* scores, const void* v, const void* lens,
+                void* out, int B, int H, int Lp, int F, int length,
+                void* stream) {
+  return softmax_pv_tile::launch<D>(
+      softmax_pv_bf16_kernel<D, 1, SC, VT>,
+      softmax_pv_bf16_kernel<D, 2, SC, VT>, scores, nullptr, v, lens, out,
+      nullptr, nullptr, B, H, Lp, F, length, 0u, 0u, 1.f, stream);
+}
+
+template <int D>
+int launch_bf16(int scores_bf16, int v_bf16, const void* scores,
+                const void* v, const void* lens, void* out, int B, int H,
+                int Lp, int F, int length, void* stream) {
+  using bf = __nv_bfloat16;
+  if (scores_bf16 && v_bf16)
+    return launch_bf16<D, bf, bf>(scores, v, lens, out, B, H, Lp, F, length,
+                                  stream);
+  if (scores_bf16)
+    return launch_bf16<D, bf, float>(scores, v, lens, out, B, H, Lp, F,
+                                     length, stream);
+  if (v_bf16)
+    return launch_bf16<D, float, bf>(scores, v, lens, out, B, H, Lp, F,
+                                     length, stream);
+  return (int)cudaErrorInvalidValue;  // float32 alone: sep_softmax_pv_f32
 }
 
 }  // namespace
@@ -59,6 +101,20 @@ extern "C" int sep_softmax_pv_f32(const void* scores, const void* v,
       softmax_pv_kernel<kBaseD, 1, false>,
       softmax_pv_kernel<kBaseD, 2, false>, scores, nullptr, v, lens, out,
       nullptr, nullptr, B, H, Lp, F, length, 0u, 0u, 1.f, stream);
+}
+
+// K3 on a bfloat16 stream: scores bfloat16 if scores_bf16, else float32;
+// v and out bfloat16 if v_bf16, else float32 (one of the two at least).
+// Built for D = 16 and 32, as the float32 instance.
+extern "C" int sep_softmax_pv_bf16(const void* scores, const void* v,
+                                   const void* lens, void* out, int B, int H,
+                                   int Lp, int F, int length, int scores_bf16,
+                                   int v_bf16, void* stream) {
+  if (H > 0 && F == 32 * H)
+    return launch_bf16<32>(scores_bf16, v_bf16, scores, v, lens, out, B, H,
+                           Lp, F, length, stream);
+  return launch_bf16<kBaseD>(scores_bf16, v_bf16, scores, v, lens, out, B, H,
+                             Lp, F, length, stream);
 }
 
 // K3b: the same on scores + bias, bias a second device float32

@@ -55,11 +55,25 @@
 // fills the card.  Every sum has a fixed
 // order and there are no atomics: two runs give the same bits.  Query
 // rows past Lp load row Lp - 1 and are not written.
+//
+// The element types SC (the scores) and VT (V and the output) are float
+// or __nv_bfloat16 (K3's bfloat16 instances; the JAX kernel's rounding
+// steps, softmax_pv.py:94-103): the scores are read in their dtype and
+// upcast (8-byte loads of a lane's four keys for bfloat16), the mask, the
+// max, p = exp(s - m) and the sum l stay float32, and with a bfloat16 V,
+// p is rounded to bfloat16 after its sum and before ·V, which is one
+// TF32 mma.sync on those exact values (mma_tf32x3.cuh) in place of
+// three; V's tiles are staged as bfloat16 rows at stride D + 8 (no XOR),
+// and the output, divided by l in float32, is stored rounded.  With a
+// float32 V the P·V stays 3xTF32.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hash_dropout.cuh"
 #include "mma_tf32x3.cuh"
@@ -140,6 +154,57 @@ __device__ __forceinline__ int key_of(int nt, int e, int t) {
 // aligned (Lp % 4 == 0), so a lane's four keys are one load, taken when
 // the first is below lim; its others may lie at or past lim (the caller
 // masks them) but end below Lp.  Otherwise no key at or past lim is read.
+// Four consecutive values as floats: one 16-byte load of floats, one
+// 8-byte load of bfloat16 values.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// load_tile of bfloat16 scores: the same keys, upcast.
+__device__ __forceinline__ void load_tile(float (&x)[8][4],
+                                          const __nv_bfloat16* lo,
+                                          const __nv_bfloat16* hi, int j0,
+                                          int lim, bool vec) {
+  const int t = threadIdx.x & 3;
+  using bf16s::to_f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int j = j0 + 16 * q + 4 * t;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+    if (vec) {
+      if (j < lim) {
+        a = load4(lo + j);
+        b = load4(hi + j);
+      }
+    } else {
+      a.x = j < lim ? to_f(lo[j]) : 0.f;
+      a.y = j + 1 < lim ? to_f(lo[j + 1]) : 0.f;
+      a.z = j + 2 < lim ? to_f(lo[j + 2]) : 0.f;
+      a.w = j + 3 < lim ? to_f(lo[j + 3]) : 0.f;
+      b.x = j < lim ? to_f(hi[j]) : 0.f;
+      b.y = j + 1 < lim ? to_f(hi[j + 1]) : 0.f;
+      b.z = j + 2 < lim ? to_f(hi[j + 2]) : 0.f;
+      b.w = j + 3 < lim ? to_f(hi[j + 3]) : 0.f;
+    }
+    x[2 * q][0] = a.x;
+    x[2 * q][1] = a.y;
+    x[2 * q][2] = b.x;
+    x[2 * q][3] = b.y;
+    x[2 * q + 1][0] = a.z;
+    x[2 * q + 1][1] = a.w;
+    x[2 * q + 1][2] = b.z;
+    x[2 * q + 1][3] = b.w;
+  }
+}
+
 __device__ __forceinline__ void load_tile(float (&x)[8][4], const float* lo,
                                           const float* hi, int j0, int lim,
                                           bool vec) {
@@ -174,11 +239,20 @@ __device__ __forceinline__ void load_tile(float (&x)[8][4], const float* lo,
   }
 }
 
-template <int D, int SPLIT, bool HAS_BIAS, bool TRAIN>
+template <int D, int SPLIT, bool HAS_BIAS, bool TRAIN, class SC = float,
+          class VT = float>
 __device__ __forceinline__ void run(const Args& a) {
   using S = Shape<SPLIT, D>;
   constexpr int kRowTiles = S::kRowTiles, kStepKeys = S::kStepKeys;
   constexpr int kVS = S::kVS, kNN = S::kNN, kChains = S::kChains;
+  constexpr bool kBf16V = std::is_same<VT, __nv_bfloat16>::value;
+  static_assert(!(HAS_BIAS || TRAIN) ||
+                    (std::is_same<SC, float>::value && !kBf16V),
+                "bfloat16: K3's one-tensor eval form alone");
+  // a bfloat16 V stage: rows at stride D + 8 bfloat16 values (16-byte
+  // aligned), within the float stage's room
+  constexpr int kVSb = D + 8;
+  static_assert(kStepKeys * kVSb * 2 <= S::kStage * 4, "bf16 V stage fits");
   __shared__ __align__(16) float vs[2][S::kStage];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -193,11 +267,12 @@ __device__ __forceinline__ void run(const Args& a) {
   // the lane's rows iw + g and iw + g + 8 (loads clamped to row Lp - 1)
   const size_t off_lo = (bh * Lp + min(iw + g, Lp - 1)) * Lp;
   const size_t off_hi = (bh * Lp + min(iw + g + 8, Lp - 1)) * Lp;
-  const float* s_lo = a.scores + off_lo;
-  const float* s_hi = a.scores + off_hi;
+  const SC* s_lo = reinterpret_cast<const SC*>(a.scores) + off_lo;
+  const SC* s_hi = reinterpret_cast<const SC*>(a.scores) + off_hi;
   const float* b_lo = HAS_BIAS ? a.bias + off_lo : nullptr;
   const float* b_hi = HAS_BIAS ? a.bias + off_hi : nullptr;
-  const float* vb = a.v + (size_t)b * Lp * F + h * D;
+  const size_t v_off = (size_t)b * Lp * F + h * D;
+  const float* vb = a.v + v_off;
 
   // V rows j0 .. j0 + kStepKeys - 1 of the head into stage buf (zero at or
   // past lim): thread tid copies 16 bytes (columns c4 .. c4+3) of rows
@@ -206,12 +281,29 @@ __device__ __forceinline__ void run(const Args& a) {
   // reads (rows 4t + const, column g + 8nn) fall in 32 distinct banks.
   const int r0 = tid >> S::kRowShift, c4 = (tid & (S::kPerRow - 1)) * 4;
   auto stage = [&](int buf, int j0) {
+    if constexpr (kBf16V) {
+      // 16-byte pieces of eight bfloat16 values, D / 8 a row
+      constexpr int kPer = D / 8, kTotal = kStepKeys * kPer;
+      const __nv_bfloat16* vh =
+          reinterpret_cast<const __nv_bfloat16*>(a.v) + v_off;
+      __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(vs[buf]);
+      for (int e = tid; e < kTotal; e += kThreads) {
+        const int r = e / kPer, c8 = (e % kPer) * 8, j = j0 + r;
+        const bool ok = j < lim;
+        tf32x3::cp_async16(
+            reinterpret_cast<float*>(dst + r * kVSb + c8),
+            reinterpret_cast<const float*>(vh + (size_t)(ok ? j : 0) * F +
+                                           c8),
+            ok);
+      }
+    } else {
 #pragma unroll
-    for (int it = 0; it < S::kPieces; ++it) {
-      const int r = r0 + kThreads / S::kPerRow * it, j = j0 + r;
-      const bool ok = j < lim;
-      tf32x3::cp_async16(&vs[buf][r * kVS + (c4 ^ (r & 8))],
-                         vb + (size_t)(ok ? j : 0) * F + c4, ok);
+      for (int it = 0; it < S::kPieces; ++it) {
+        const int r = r0 + kThreads / S::kPerRow * it, j = j0 + r;
+        const bool ok = j < lim;
+        tf32x3::cp_async16(&vs[buf][r * kVS + (c4 ^ (r & 8))],
+                           vb + (size_t)(ok ? j : 0) * F + c4, ok);
+      }
     }
     tf32x3::cp_async_commit();
   };
@@ -226,7 +318,8 @@ __device__ __forceinline__ void run(const Args& a) {
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 
   // the tile's softmax and P·V, on its scores in cur, V's rows in vt
-  auto tile = [&](float (&cur)[8][4], const float* vt, int j0) {
+  // (floats, or bfloat16 values at stride kVSb)
+  auto tile = [&](float (&cur)[8][4], const auto* vt, int j0) {
     // the key mask on the tile that crosses lim; the rows' running max
     if (j0 + kKeys > lim) {
 #pragma unroll
@@ -283,13 +376,29 @@ __device__ __forceinline__ void run(const Args& a) {
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       const float p4[4] = {cur[nt][0], cur[nt][2], cur[nt][1], cur[nt][3]};
-      uint32_t pb[4], ps[4];
-      tf32x3::split(p4, pb, ps);
-      const float* vp = vt + key_of(nt, 0, t) * kVS + g;
+      if constexpr (kBf16V) {
+        // P rounded to V's dtype (after its sum), one exact TF32 product
+        uint32_t pb[4];
 #pragma unroll
-      for (int nn = 0; nn < kNN; ++nn) {
-        const int c = 8 * (nn ^ (t >> 1));
-        tf32x3::mma3(pv[nt % kChains][nn], pb, ps, vp[c], vp[kVS + c]);
+        for (int i = 0; i < 4; ++i)
+          pb[i] = __float_as_uint(bf16s::rounded(p4[i]));
+        const __nv_bfloat16* vp = vt + key_of(nt, 0, t) * kVSb + g;
+#pragma unroll
+        for (int nn = 0; nn < kNN; ++nn) {
+          const uint32_t vb2[2] = {
+              __float_as_uint(__bfloat162float(vp[8 * nn])),
+              __float_as_uint(__bfloat162float(vp[kVSb + 8 * nn]))};
+          tf32x3::mma(pv[nt % kChains][nn], pb, vb2);
+        }
+      } else {
+        uint32_t pb[4], ps[4];
+        tf32x3::split(p4, pb, ps);
+        const float* vp = vt + key_of(nt, 0, t) * kVS + g;
+#pragma unroll
+        for (int nn = 0; nn < kNN; ++nn) {
+          const int c = 8 * (nn ^ (t >> 1));
+          tf32x3::mma3(pv[nt % kChains][nn], pb, ps, vp[c], vp[kVS + c]);
+        }
       }
     }
 #pragma unroll
@@ -308,6 +417,14 @@ __device__ __forceinline__ void run(const Args& a) {
   // tile's go into nxt (and nb) before this one's math
   const int tiles = (lim + kKeys - 1) / kKeys;
   const int steps = (tiles + SPLIT - 1) / SPLIT;
+  // warp ks's keys of V's stage buf
+  auto v_tile = [&](int buf) {
+    if constexpr (kBf16V)
+      return reinterpret_cast<const __nv_bfloat16*>(vs[buf]) +
+             ks * kKeys * kVSb;
+    else
+      return (const float*)vs[buf] + ks * kKeys * kVS;
+  };
   auto step = [&](float (&cur)[8][4], float (&cb)[8][4], float (&nxt)[8][4],
                   float (&nb)[8][4], int k) {
     const int n = SPLIT * k + ks;
@@ -330,7 +447,7 @@ __device__ __forceinline__ void run(const Args& a) {
         if constexpr (HAS_BIAS)
           load_tile(nb, b_lo, b_hi, (n + SPLIT) * kKeys, lim, vec);
       }
-      tile(cur, vs[k & 1] + ks * kKeys * kVS, n * kKeys);
+      tile(cur, v_tile(k & 1), n * kKeys);
     }
     __syncthreads();  // every warp is done with V's stage k
   };
@@ -392,11 +509,12 @@ __device__ __forceinline__ void run(const Args& a) {
     const float l = quad_sum(l_run[r]);
     const float inv = (TRAIN && a.threshold ? a.keep_scale : 1.f) / l;
     if (i < Lp) {
-      float* dst = a.out + ((size_t)b * Lp + i) * F + h * D + 2 * t;
+      VT* dst = reinterpret_cast<VT*>(a.out) + ((size_t)b * Lp + i) * F +
+                h * D + 2 * t;
 #pragma unroll
       for (int nn = 0; nn < kNN; ++nn)
-        *reinterpret_cast<float2*>(dst + 8 * nn) =
-            make_float2(o[nn][2 * r] * inv, o[nn][2 * r + 1] * inv);
+        bf16s::store2(dst + 8 * nn, o[nn][2 * r] * inv,
+                      o[nn][2 * r + 1] * inv);
       if (TRAIN && t == 0) {
         a.row_max[bh * Lp + i] = m_run[r];
         a.row_sum[bh * Lp + i] = l;

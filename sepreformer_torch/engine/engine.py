@@ -45,6 +45,7 @@ from sepreformer_torch.engine.checkpoint import (
 )
 from sepreformer_torch.engine.factories import make_lr_controller
 from sepreformer_torch.engine.train import (
+    check_trainable,
     create_train_state,
     eval_step,
     train_step,
@@ -271,6 +272,7 @@ class Engine:
             return self._test(
                 wav_dir=(out_wav_dir or os.path.join(self.workdir, "wav_out"))
                 if engine_mode == "test_save" else None)
+        check_trainable(self.cfg)
         eng = self.cfg.engine
         history = []
         session_initial_valid = None

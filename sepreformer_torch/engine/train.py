@@ -161,6 +161,22 @@ def apply_gradients(state: TrainState, lr: float) -> torch.Tensor:
     return norm.detach()
 
 
+# The ROADMAP item that ports training in bfloat16 (K5, K7/K8 and K9/K10
+# in bfloat16, the train step, the CLI).
+BF16_TRAINING = "ROADMAP.md queue A, bf16 training"
+
+
+def check_trainable(cfg) -> None:
+    """Raise where the port cannot train ``cfg``: a bfloat16
+    ``model.compute_dtype`` serves but does not train yet (nothing falls
+    back to float32)."""
+    if cfg.model.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"training with model.compute_dtype={cfg.model.compute_dtype!r} "
+            f"is not ported (not built yet: {BF16_TRAINING}); serve in it, "
+            f"or train in float32")
+
+
 def train_step(state: TrainState, mixture: torch.Tensor,
                sources: torch.Tensor, lr: float, alpha: float,
                generator: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -173,6 +189,7 @@ def train_step(state: TrainState, mixture: torch.Tensor,
     metrics as 0-d tensors on the device: ``total_loss``, ``time_loss``,
     ``mag_loss_i``, ``mag_loss_mean``, ``grad_norm`` (before the clip)."""
     cfg = state.cfg
+    check_trainable(cfg)
     model = state.model
     device = next(model.parameters()).device
     if generator.device.type != "cpu":

@@ -31,6 +31,16 @@ the single-block attention with the bias and the dropout in the kernel.
 Its ``fused_local`` and ``fused_pair`` take the fused blocks where
 ``fused_route`` allows: the CLA through K15, and the EGA tail with the
 GCFN after it through K16.  Everything else is plain PyTorch.
+
+A bfloat16 stream (``ModelConfig.compute_dtype``) follows the JAX
+package's policy module by module: parameters stay float32 and each
+product, convolution and LayerScale casts its weights to the stream's
+dtype through ``stream_param``, once per weight in a serving forward
+(``Linear``, ``Conv1x1``, ``DepthwiseConv1d``, ``LayerScale``);
+the norms compute in float32 and cast back (``LayerNorm``,
+``BatchNorm``, ``MaskedGroupNorm``); the attention scores are float32
+products of the upcast q and k (stored in ``RelPos.scores_dtype`` for
+K3), and the softmaxes run in float32.
 """
 
 from __future__ import annotations
@@ -145,6 +155,47 @@ def store_in_out(*linears: nn.Linear) -> None:
             torch.empty(lin.in_features, lin.out_features).t())
 
 
+def stream_param(p: Optional[torch.Tensor],
+                 dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """Parameter ``p`` (or None) in the stream's ``dtype``; ``p`` itself
+    when the dtypes match.  Outside autograd (a forward under ``no_grad``
+    or ``inference_mode``, as the serving entries run) the cast is made
+    once and kept on ``p`` until ``p`` changes: a write in place
+    (``load_state_dict``, an optimizer step, an init) moves its version
+    counter, a move to another device its storage.  (A write through
+    ``p.data`` moves neither.)  With grad enabled it casts on every call,
+    so that the gradient reaches ``p``."""
+    if p is None or p.dtype == dtype:
+        return p
+    if torch.is_grad_enabled() or p.is_inference():
+        return p.to(dtype)
+    key = (dtype, p.data_ptr(), p._version)
+    held = getattr(p, "_stream_cast", None)
+    if held is None or held[0] != key:
+        held = p._stream_cast = (key, p.to(dtype))
+    return held[1]
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` whose float32 weight and bias are cast to the input's
+    dtype (the JAX package's ``TorchLinear``): parameters stay float32
+    under a bfloat16 stream."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, stream_param(self.weight, x.dtype),
+                        stream_param(self.bias, x.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with float32 statistics and a result in the
+    input's dtype (the JAX package's ``TorchLayerNorm``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float32:
+            return super().forward(x)
+        return super().forward(x.float()).to(x.dtype)
+
+
 class TrainMode:
     """What a train-mode forward draws at random.  Dropout masks come from
     ``generator``, a generator on the model's device, through
@@ -180,7 +231,8 @@ class RelPos(NamedTuple):
     the routes that read the raw table), the raw [2*maxlen, d] table K12
     and K13 read, and the config's two attention routes, from which
     every attention and the encoding that built this context take the
-    same ``attention_route``."""
+    same ``attention_route``; ``scores_dtype`` stores the scores that K3
+    reads."""
 
     length: int
     pos_kt: Optional[torch.Tensor]
@@ -188,6 +240,7 @@ class RelPos(NamedTuple):
     maxlen: int = 0
     impl: str = "auto"
     train_impl: str = "auto"
+    scores_dtype: torch.dtype = torch.float32
 
 
 def length_mask(seq_lens: torch.Tensor, t: int,
@@ -225,7 +278,8 @@ class Conv1x1(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight[:, :, 0], self.bias)
+        return F.linear(x, stream_param(self.weight, x.dtype)[:, :, 0],
+                        stream_param(self.bias, x.dtype))
 
 
 class DepthwiseConv1d(nn.Module):
@@ -255,12 +309,13 @@ class DepthwiseConv1d(nn.Module):
         return self.padding, self.padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = stream_param(self.weight, x.dtype)
+        b = stream_param(self.bias, x.dtype)
         if self.large:
-            return depthwise_large(x, self.weight, self.bias)
+            return depthwise_large(x, w, b)
         lo, hi = self._pads()
         xp = F.pad(x.transpose(1, 2), (lo, hi))
-        y = F.conv1d(xp, self.weight, self.bias, stride=self.stride,
-                     groups=x.shape[-1])
+        y = F.conv1d(xp, w, b, stride=self.stride, groups=x.shape[-1])
         return y.transpose(1, 2)
 
 
@@ -272,7 +327,7 @@ class LayerScale(nn.Module):
         self.layer_scale = nn.Parameter(torch.empty(1, 1, dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.layer_scale.reshape(-1)
+        return x * stream_param(self.layer_scale, x.dtype).reshape(-1)
 
 
 class BatchNorm(nn.Module):
@@ -282,7 +337,8 @@ class BatchNorm(nn.Module):
     also update the running ones: r = 0.9 r + 0.1 batch.  (PyTorch's
     ``BatchNorm1d`` would update ``running_var`` with the unbiased
     variance.)  A variance that roundoff takes below 0 counts as 0, as
-    flax's ``nn.BatchNorm`` has it."""
+    flax's ``nn.BatchNorm`` has it.  It computes in float32 and returns
+    the input's dtype."""
 
     momentum = 0.9
 
@@ -298,6 +354,7 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 train: Optional[TrainMode] = None) -> torch.Tensor:
+        dtype, x = x.dtype, x.float()
         if train is None:
             mean, var = self.running_mean, self.running_var
         else:
@@ -310,7 +367,7 @@ class BatchNorm(nn.Module):
                 self.running_var.mul_(m).add_(var, alpha=1.0 - m)
                 self.num_batches_tracked += 1
         return ((x - mean) * torch.rsqrt(var + self.eps) * self.weight
-                + self.bias)
+                + self.bias).to(dtype)
 
     def folded(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The eval normalisation as an affine x·s + t: s = γ·rsqrt(running
@@ -324,7 +381,8 @@ class BatchNorm(nn.Module):
 class MaskedGroupNorm(nn.Module):
     """GroupNorm(1, C) of channels-last [B, T, C] whose statistics span the
     first ``lens[b]`` frames of row b (all frames when ``lens`` is None);
-    the affine map applies to every frame."""
+    the affine map applies to every frame.  It computes in float32 and
+    returns the input's dtype."""
 
     def __init__(self, channels: int, eps: float):
         super().__init__()
@@ -334,6 +392,7 @@ class MaskedGroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dtype, x = x.dtype, x.float()
         if lens is None:
             mean = x.mean(dim=(1, 2), keepdim=True)
             var = ((x - mean) ** 2).mean(dim=(1, 2), keepdim=True)
@@ -345,7 +404,7 @@ class MaskedGroupNorm(nn.Module):
             var = (((x - mean) * m) ** 2).sum(dim=(1, 2), keepdim=True)
             var = var / count
         return ((x - mean) * torch.rsqrt(var + self.eps) * self.weight
-                + self.bias)
+                + self.bias).to(dtype)
 
 
 class GCFN(nn.Module):
@@ -360,11 +419,11 @@ class GCFN(nn.Module):
     def __init__(self, dim: int, norm_eps: float = 1.0e-5):
         super().__init__()
         self.norm_eps = norm_eps
-        self.net1 = nn.ModuleList([nn.LayerNorm(dim, eps=norm_eps),
-                                   nn.Linear(dim, 6 * dim)])
+        self.net1 = nn.ModuleList([LayerNorm(dim, eps=norm_eps),
+                                   Linear(dim, 6 * dim)])
         self.depthwise = DepthwiseConv1d(6 * dim, 3, padding=1)
         self.net2 = nn.ModuleList([nn.Identity(), nn.Identity(),
-                                   nn.Linear(3 * dim, dim), nn.Identity()])
+                                   Linear(3 * dim, dim), nn.Identity()])
         self.Layer_scale = LayerScale(dim)
         # K1, K7/K8 and K16 read the products' weights [in, out]
         store_in_out(self.net1[1], self.net2[2])
@@ -395,11 +454,16 @@ class GCFN(nn.Module):
         return fused_gcfn(x.contiguous(), params, self.norm_eps, seq_lens)
 
 
-def fused_pv_scores(q, k, pos_kt) -> torch.Tensor:
+def fused_pv_scores(q, k, pos_kt,
+                    scores_dtype: torch.dtype = torch.float32
+                    ) -> torch.Tensor:
     """scores [B, H, lp, lp] = (QKᵀ + Q·pos_kt) / sqrt(d) at pos_kt's
-    128-padded length lp (JAX ``blocks._fused_pv_scores``); q, k
-    [B, t, H, d]."""
+    128-padded length lp (JAX ``blocks._fused_pv_scores``), stored in
+    ``scores_dtype``; q, k [B, t, H, d].  The products take q and k
+    upcast to float32 (exact), as JAX's take their bfloat16 operands
+    with float32 results (``preferred_element_type``)."""
     b, _, h, d = q.shape
+    q, k = q.float(), k.float()
     lp = pos_kt.shape[0]
     qp = pad_time(q, lp).permute(0, 2, 1, 3)             # [B, H, lp, d]
     kp = pad_time(k, lp).permute(0, 2, 3, 1)             # [B, H, d, lp]
@@ -408,7 +472,7 @@ def fused_pv_scores(q, k, pos_kt) -> torch.Tensor:
     qi = qp.permute(2, 0, 1, 3).reshape(lp, b * h, d)
     bias = torch.matmul(qi, pos_kt)                       # [lp, B*H, lp]
     scores += bias.reshape(lp, b, h, lp).permute(1, 2, 0, 3)
-    return scores.div_(math.sqrt(d))
+    return scores.div_(math.sqrt(d)).to(scores_dtype)
 
 
 class MultiHeadAttention(nn.Module):
@@ -426,11 +490,11 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, norm_eps: float = 1.0e-5):
         super().__init__()
         self.dim, self.num_heads = dim, num_heads
-        self.layer_norm = nn.LayerNorm(dim, eps=norm_eps)
-        self.linear_q = nn.Linear(dim, dim)
-        self.linear_k = nn.Linear(dim, dim)
-        self.linear_v = nn.Linear(dim, dim)
-        self.linear_out = nn.Linear(dim, dim)
+        self.layer_norm = LayerNorm(dim, eps=norm_eps)
+        self.linear_q = Linear(dim, dim)
+        self.linear_k = Linear(dim, dim)
+        self.linear_v = Linear(dim, dim)
+        self.linear_out = Linear(dim, dim)
         self.Layer_scale = LayerScale(dim)
 
     def _project_out(self, out: torch.Tensor,
@@ -453,9 +517,10 @@ class MultiHeadAttention(nn.Module):
                                 None if train is None else train.p,
                                 key_lens is not None)
         if route == "flash":
+            # the table in the stream's dtype (JAX blocks.py:729)
             out = flash_relpos_attention(
                 self.linear_q(y), self.linear_k(y), self.linear_v(y),
-                pos.table, pos.maxlen, key_lens)
+                stream_param(pos.table, y.dtype), pos.maxlen, key_lens)
             return self._project_out(out, None)
         q = self.linear_q(y).reshape(b, t, h, d)
         k = self.linear_k(y).reshape(b, t, h, d)
@@ -469,7 +534,7 @@ class MultiHeadAttention(nn.Module):
                 pos.maxlen, p, key_lens)
             return self._project_out(out.transpose(1, 2).reshape(b, t, -1),
                                      train)
-        scores = fused_pv_scores(q, k, pos.pos_kt)
+        scores = fused_pv_scores(q, k, pos.pos_kt, pos.scores_dtype)
         v = pad_time(v, pos.pos_kt.shape[0]).contiguous()
         if route == "dense":
             out = self._dense_attention(scores, v, key_lens, t, train)
@@ -481,17 +546,17 @@ class MultiHeadAttention(nn.Module):
         return self._project_out(out[:, :t], train)
 
     def _dense_attention(self, scores, v, key_lens, t, train):
-        """The JAX package's "xla" attention (``blocks.py:755-792``), which
+        """The JAX package's "xla" attention (``blocks.py:755-795``), which
         its train path runs past the kernels' padded length of 512: the
         unpadded scores, keys at or past ``key_lens`` masked, a float32
-        softmax, in train ``TrainMode.dropout`` on the probabilities, then
-        ·V.  Returns [B, t, F]."""
+        softmax cast to V's dtype, in train ``TrainMode.dropout`` on the
+        probabilities, then ·V in V's dtype.  Returns [B, t, F]."""
         s = scores[:, :, :t, :t]
         if key_lens is not None:
             kmask = torch.arange(t, device=s.device)[None] < key_lens[:, None]
             s = torch.where(kmask[:, None, None, :], s,
                             torch.tensor(NEG_INF, device=s.device))
-        attn = torch.softmax(s, dim=-1)
+        attn = torch.softmax(s.float(), dim=-1).to(v.dtype)
         if train is not None:
             attn = train.dropout(attn)
         b, h = s.shape[:2]
@@ -502,7 +567,9 @@ class MultiHeadAttention(nn.Module):
                                 train: Optional[TrainMode]) -> torch.Tensor:
         """x [B, S, T, F]: attention over S at every (b, t).  For S == 2 the
         2-way softmax is a sigmoid of the score difference; in train each
-        of the four probability maps drops on its own, unrenormalised."""
+        of the four probability maps drops on its own, unrenormalised.
+        Scores and probabilities are float32, the probabilities cast to
+        the stream's dtype before ·V (JAX ``blocks.py:830-865``)."""
         b, s, t, f = x.shape
         h = self.num_heads
         d = self.dim // h
@@ -513,18 +580,23 @@ class MultiHeadAttention(nn.Module):
         scale = 1.0 / math.sqrt(d)
         if s == 2:
             def head_scores(qq, kk):                      # [B, T, H]
-                return (qq * kk).sum(dim=-1) * scale
+                return (qq * kk).float().sum(dim=-1) * scale
 
             w00 = torch.sigmoid(head_scores(q[:, 0], k[:, 0])
                                 - head_scores(q[:, 0], k[:, 1]))[..., None]
             w11 = torch.sigmoid(head_scores(q[:, 1], k[:, 1])
                                 - head_scores(q[:, 1], k[:, 0]))[..., None]
-            drop = train.dropout if train is not None else (lambda w: w)
+
+            def drop(w):
+                w = train.dropout(w) if train is not None else w
+                return w.to(x.dtype)
+
             out0 = drop(w00) * v[:, 0] + drop(1.0 - w00) * v[:, 1]
             out1 = drop(w11) * v[:, 1] + drop(1.0 - w11) * v[:, 0]
             out = torch.stack([out0, out1], dim=1).reshape(b, s, t, f)
         else:
-            scores = torch.einsum("bpthd,bqthd->bpqth", q, k) * scale
+            scores = torch.einsum("bpthd,bqthd->bpqth", q.float(),
+                                  k.float()) * scale
             attn = torch.softmax(scores.float(), dim=2).to(x.dtype)
             if train is not None:
                 attn = train.dropout(attn)
@@ -546,8 +618,8 @@ class EGA(nn.Module):
         super().__init__()
         self.block = nn.ModuleDict({
             "self_attn": MultiHeadAttention(dim, num_heads, norm_eps),
-            "linear": nn.ModuleList([nn.LayerNorm(dim, eps=norm_eps),
-                                     nn.Linear(dim, dim)]),
+            "linear": nn.ModuleList([LayerNorm(dim, eps=norm_eps),
+                                     Linear(dim, dim)]),
         })
         store_in_out(self.block["linear"][1])  # K16 reads the gate [in, out]
 
@@ -583,13 +655,13 @@ class CLA(nn.Module):
                  fused: str = "auto"):
         super().__init__()
         self.fused = fused
-        self.layer_norm = nn.LayerNorm(dim, eps=norm_eps)
-        self.linear1 = nn.Linear(dim, 2 * dim)
+        self.layer_norm = LayerNorm(dim, eps=norm_eps)
+        self.linear1 = Linear(dim, 2 * dim)
         self.dw_conv_1d = DepthwiseConv1d(dim, kernel_size, padding="SAME")
-        self.linear2 = nn.Linear(dim, 2 * dim)
+        self.linear2 = Linear(dim, 2 * dim)
         self.BN = BatchNorm(2 * dim, eps=norm_eps)
         self.linear3 = nn.ModuleList([nn.Identity(),
-                                      nn.Linear(2 * dim, dim)])
+                                      Linear(2 * dim, dim)])
         self.Layer_scale = LayerScale(dim)
         # K15 reads the three products' weights [in, out]
         store_in_out(self.linear1, self.linear2, self.linear3[1])

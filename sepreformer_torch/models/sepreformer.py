@@ -15,6 +15,12 @@ package's ``models/sepreformer.py``:
 ``lengths`` (true samples per row) makes bucket and batch padding
 invisible: ``audio[:, b, :lengths[b]]`` equals the row run alone at its
 true length.  Module names follow the reference state_dict.
+
+``ModelConfig.compute_dtype`` "bfloat16" casts the waveform to bfloat16
+at the entry and runs the stream in it (parameters stay float32; the
+encoder and decoder cast their weights to it), and the outputs come back
+as float32, as the JAX package's model does.  Training in bfloat16 is
+not ported (``engine/train.py`` refuses it).
 """
 
 from __future__ import annotations
@@ -32,7 +38,9 @@ from sepreformer_torch.models.blocks import (
     DepthwiseConv1d,
     DownConvLayer,
     GlobalBlock,
+    LayerNorm,
     LayerScale,
+    Linear,
     LocalBlock,
     MaskedGroupNorm,
     RelPos,
@@ -43,15 +51,19 @@ from sepreformer_torch.models.blocks import (
     glu_last,
     length_mask,
     pad_time,
+    stream_param,
 )
 from sepreformer_torch.ops.framing import decoder_overlap_add, encoder_conv
 from sepreformer_torch.ops.kernels import pos_kt
 from sepreformer_torch.ops.resample import nearest_upsample_time
 
 # float32 on the card means float32: cuDNN would otherwise run the k65
-# depthwise conv in TF32, and the reference is held at float32.
+# depthwise conv in TF32, and the reference is held at float32.  bfloat16
+# products sum in float32, as XLA's do: cuBLAS may otherwise reduce them
+# in bfloat16 (this leaves float32 products as they are).
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 class AudioEncoder(nn.Module):
@@ -65,7 +77,7 @@ class AudioEncoder(nn.Module):
             torch.empty(cfg.enc_dim, 1, cfg.enc_kernel))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.conv1d.weight[:, 0, :].t()               # [K, N]
+        w = stream_param(self.conv1d.weight, x.dtype)[:, 0, :].t()  # [K, N]
         return gelu_exact(encoder_conv(x, w, self.stride))
 
 
@@ -98,6 +110,7 @@ class RelativePositionalEncoding(nn.Module):
         self.dropout = cfg.dropout
         self.impl, self.train_impl = (cfg.attention_impl,
                                       cfg.attention_train_impl)
+        self.scores_dtype = cfg.torch_dtype("scores_dtype")
         self.pe_k = nn.Embedding(2 * cfg.pos_maxlen, cfg.head_dim)
 
     def forward(self, length: int, train=None,
@@ -115,7 +128,8 @@ class RelativePositionalEncoding(nn.Module):
             kt = pos_kt(table, -(-length // 128) * 128, self.maxlen)
         return RelPos(length=length, pos_kt=kt, table=table,
                       maxlen=self.maxlen, impl=self.impl,
-                      train_impl=self.train_impl)
+                      train_impl=self.train_impl,
+                      scores_dtype=self.scores_dtype)
 
 
 class SepEncStage(nn.Module):
@@ -243,8 +257,8 @@ class OutputLayer(nn.Module):
         super().__init__()
         self.cfg, self.masking = cfg, masking
         self.end_conv1x1 = nn.ModuleList([
-            nn.Linear(cfg.feat_dim, 4 * cfg.feat_dim), nn.Identity(),
-            nn.Linear(2 * cfg.feat_dim, cfg.enc_dim)])
+            Linear(cfg.feat_dim, 4 * cfg.feat_dim), nn.Identity(),
+            Linear(2 * cfg.feat_dim, cfg.enc_dim)])
 
     def forward(self, x, enc_out):
         cfg = self.cfg
@@ -268,7 +282,9 @@ class AudioDecoder(nn.Module):
         self.weight = nn.Parameter(torch.empty(cfg.enc_dim, 1, cfg.enc_kernel))
 
     def forward(self, h):
-        return decoder_overlap_add(h, self.weight[:, 0, :], self.stride)
+        # the overlap-add sums in the stream's dtype, as JAX's does
+        return decoder_overlap_add(
+            h, stream_param(self.weight, h.dtype)[:, 0, :], self.stride)
 
 
 class SepReformer(nn.Module):
@@ -283,7 +299,8 @@ class SepReformer(nn.Module):
     same bits either way.  ``train``, a ``TrainMode``, makes it the train
     forward (the JAX package's ``train=True``): dropout, and BatchNorm on
     batch statistics with a running update.  ``nn.Module.train()`` does
-    not select it.
+    not select it.  The stream runs in ``cfg.compute_dtype``; ``audio``
+    and ``aux`` are float32 either way.
     """
 
     def __init__(self, cfg: ModelConfig):
@@ -304,7 +321,7 @@ class SepReformer(nn.Module):
                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         cfg = self.cfg
         t_samples = x.shape[-1]
-        enc = self.audio_encoder(x.float())
+        enc = self.audio_encoder(x.to(cfg.torch_dtype()))
         enc_mask = frame_lens = None
         if lengths is not None:
             lengths = torch.as_tensor(lengths, device=x.device)
@@ -322,7 +339,7 @@ class SepReformer(nn.Module):
         if enc_mask is not None:
             out = out * enc_mask[None]
         audio = torch.stack([self.audio_decoder(out[i])[..., :t_samples]
-                             for i in range(cfg.num_spks)])
+                             for i in range(cfg.num_spks)]).float()
         if not aux:
             return audio
         t_enc = enc.shape[1]
@@ -332,7 +349,7 @@ class SepReformer(nn.Module):
             heads.append(torch.stack(
                 [self.decoder_bn[idx](o[j])[..., :t_samples]
                  for j in range(cfg.num_spks)]))
-        return audio, torch.stack(heads)
+        return audio, torch.stack(heads).float()
 
 
 def init_weights(model: SepReformer, generator: torch.Generator) -> None:
@@ -358,7 +375,7 @@ def init_weights(model: SepReformer, generator: torch.Generator) -> None:
                 uniform(mod.weight, fan_in)
                 if mod.bias is not None:
                     uniform(mod.bias, fan_in)
-            elif isinstance(mod, (nn.LayerNorm, MaskedGroupNorm, BatchNorm)):
+            elif isinstance(mod, (LayerNorm, MaskedGroupNorm, BatchNorm)):
                 mod.weight.fill_(1.0)
                 mod.bias.fill_(0.0)
             elif isinstance(mod, LayerScale):

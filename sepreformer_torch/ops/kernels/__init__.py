@@ -7,7 +7,10 @@ Eval: K1 ``fused_gcfn``, K2 ``materialize_pos_kt`` (``pos_kt`` adds its
 gradient), K3 ``softmax_pv``, K12 ``flash_relpos_attention`` (past the
 bottleneck length ``blocks.FUSED_PV_MAX_LENGTH``, in place of K2 and
 K3); the gradients of K1, K3 and K12 recompute their plain versions,
-as the JAX package's ``custom_vjp``s do.  Train: K5 ``depthwise_bwd``
+as the JAX package's ``custom_vjp``s do.  K1, K3 and K12 also take
+bfloat16 streams (``ModelConfig.compute_dtype``), each through an
+instance of its own; every other kernel raises on a bfloat16 tensor,
+naming ROADMAP.md's queue B, bfloat16 streams.  Train: K5 ``depthwise_bwd``
 (the backward of ``depthwise_large``; under ``depthwise.BWD_MODE =
 "conv"`` K6 ``depthwise_bwd_w`` for dw and db), K7 ``gcfn_train_fwd`` and K8
 ``gcfn_train_bwd`` (the autograd function ``fused_gcfn_train``), K9
@@ -95,10 +98,18 @@ WRAPPERS = (fused_gcfn, materialize_pos_kt, softmax_pv, depthwise_bwd,
 def reset_launches() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+        if hasattr(fn, "instance_launches"):
+            fn.instance_launches = {}
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in WRAPPERS}
+    """Each wrapper's launches, and those of its other dtype instances
+    (K1, K3 and K12 in bfloat16) as "<wrapper> <instance>"."""
+    counts = {fn.__name__: fn.launches for fn in WRAPPERS}
+    for fn in WRAPPERS:
+        for instance, n in getattr(fn, "instance_launches", {}).items():
+            counts[f"{fn.__name__} {instance}"] = n
+    return counts
 
 
 __all__ = [

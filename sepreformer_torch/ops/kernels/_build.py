@@ -38,6 +38,8 @@ SIGNATURES = {
     # x, lens, lns, lnb, win, bin, wdw, bdw, wout, bout, ls, out,
     # B, T, F, eps, stream
     "sep_gcfn_f32": [_P] * 12 + [_I, _I, _I, _F, _P],
+    # the same with x and out bfloat16 (the parameters float32)
+    "sep_gcfn_bf16": [_P] * 12 + [_I, _I, _I, _F, _P],
     # table, out, t, d, maxlen, stream
     "sep_relpos_f32": [_P, _P, _I, _I, _I, _P],
     # t, d, int out[5] -> K2's blocks, tiles, blocks per SM, registers,
@@ -45,6 +47,9 @@ SIGNATURES = {
     "sep_relpos_occupancy": [_I, _I, _P],
     # scores, v, lens, out, B, H, Lp, F, length, stream
     "sep_softmax_pv_f32": [_P] * 4 + [_I] * 5 + [_P],
+    # the same with scores_bf16, v_bf16 (one at least 1; out in v's
+    # dtype) before the stream
+    "sep_softmax_pv_bf16": [_P] * 4 + [_I] * 7 + [_P],
     # scores, bias, v, lens, out, B, H, Lp, F, length, stream
     "sep_softmax_pv_bias_f32": [_P] * 5 + [_I] * 5 + [_P],
     # x, dy, w, dx, dw, db, partial, partial_floats, B, T, C, K, stream
@@ -82,6 +87,8 @@ SIGNATURES = {
     "sep_gcfn_train_occupancy": [_I, _P],
     # q, k, v, table, lens, out, B, L, H, D, maxlen, stream
     "sep_flash_relpos_f32": [_P] * 6 + [_I] * 5 + [_P],
+    # the same with q, k, v, table and out bfloat16
+    "sep_flash_relpos_bf16": [_P] * 6 + [_I] * 5 + [_P],
     # x, dy, dw, db, partial, partial_floats, B, T, C, K, stream
     "sep_depthwise_bwd_w_f32": [_P] * 5 + [_L] + [_I] * 4 + [_P],
     # q, k, v, table, lens, out, row_max, row_sum, BH, L, H, D, maxlen,
@@ -216,6 +223,8 @@ def library() -> ctypes.CDLL:
 # The ROADMAP item, by title, that builds the widths a kernel is not built
 # for: the T/S/M presets' widths (F 64, 96, 160; head widths 8, 12, 20).
 OTHER_PRESETS = "ROADMAP.md queue A, T/S/M"
+# The one that builds the bfloat16 instances a kernel does not have.
+BF16_STREAMS = "ROADMAP.md queue B, bfloat16 streams"
 
 
 def check_width(name: str, what: str, value: int, built, todo: str) -> None:
@@ -224,6 +233,31 @@ def check_width(name: str, what: str, value: int, built, todo: str) -> None:
     if value not in built:
         raise ValueError(f"{name}: {what} {value} not in {tuple(built)} "
                          f"(not built yet: {todo})")
+
+
+def check_dtype(name: str, a, built=None,
+                todo: str = BF16_STREAMS) -> None:
+    """Raise unless tensor ``a``'s dtype is one the kernel is built for
+    (default float32 alone); the error names the ROADMAP item ``todo``
+    that builds the others.  A kernel never converts a tensor behind the
+    caller's back."""
+    import torch
+
+    built = (torch.float32,) if built is None else tuple(built)
+    if a.dtype not in built:
+        raise ValueError(f"{name}: dtype {a.dtype} not in {built} "
+                         f"(not built yet: {todo})")
+
+
+def count_launch(wrapper, instance: str = "") -> None:
+    """One launch of ``wrapper``'s kernel: its float32 instance counts in
+    ``wrapper.launches``, another (``instance``, e.g. "bf16") in
+    ``wrapper.instance_launches[instance]``."""
+    if instance:
+        counts = wrapper.instance_launches
+        counts[instance] = counts.get(instance, 0) + 1
+    else:
+        wrapper.launches += 1
 
 
 def check_launch(name: str, err: int) -> None:
@@ -244,10 +278,10 @@ def check_tensor(a, name: str, shape, device, dtype=None,
     import torch
 
     dtype = torch.float32 if dtype is None else dtype
-    if a.device.type != "cuda" or a.device != device:
-        raise ValueError(f"{name}: on {a.device}, expected {device} (CUDA)")
     if a.dtype != dtype:
         raise ValueError(f"{name}: dtype {a.dtype}, expected {dtype}")
+    if a.device.type != "cuda" or a.device != device:
+        raise ValueError(f"{name}: on {a.device}, expected {device} (CUDA)")
     if tuple(a.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(a.shape)}, expected {shape}")
     if not a.is_contiguous():

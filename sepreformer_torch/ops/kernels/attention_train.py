@@ -257,6 +257,8 @@ def flash_relpos_attention_train(q: torch.Tensor, k: torch.Tensor,
     its autograd; CUDA tensors launch K13, and K14 in the backward (each
     ``lens[b]`` must be >= 1)."""
     b, _, length, _ = q.shape
+    for a in (q, k, v, table):  # float32 alone, on either device
+        _build.check_dtype("flash_relpos_attention_train", a)
     if not supported_length(length):
         raise NotImplementedError(
             f"flash_relpos_attention_train: length {length} > {MAX_LENGTH}; "

@@ -112,7 +112,9 @@ def blocks_per_sm(f: int) -> Tuple[int, int]:
 def fused_cla(x: torch.Tensor, params: Sequence[torch.Tensor],
               eps: float) -> torch.Tensor:
     """K15: ``cla_plain`` for CPU tensors; the kernel for CUDA tensors.
-    Gradients recompute ``cla_plain``."""
+    Gradients recompute ``cla_plain``.  float32 alone, on either device
+    (a bfloat16 x raises, naming its ROADMAP item)."""
+    _build.check_dtype("fused_cla", x)
     kernel = cla_plain if x.device.type == "cpu" else cla_kernel
     return with_plain_grad(lambda xx, *pp: kernel(xx, pp, eps),
                            lambda xx, *pp: cla_plain(xx, pp, eps),

@@ -56,7 +56,9 @@ def depthwise_fwd_plain(x: torch.Tensor, weight: torch.Tensor,
 def depthwise_fwd(x: torch.Tensor, weight: torch.Tensor,
                   bias: torch.Tensor) -> torch.Tensor:
     """K4: ``depthwise_fwd_plain`` for CPU tensors; the kernel for CUDA
-    tensors (no backward: it raises where autograd would record it)."""
+    tensors (no backward: it raises where autograd would record it).
+    float32 alone, on either device."""
+    _build.check_dtype("depthwise_fwd", x)
     if x.device.type == "cpu":
         return depthwise_fwd_plain(x, weight, bias)
     _build.check_no_grad("depthwise_fwd", x, weight, bias)
@@ -129,7 +131,9 @@ def _check_and_scratch(name, x, dy, k, with_dx):
 def depthwise_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K5: ``depthwise_bwd_plain`` for CPU tensors; the kernel for CUDA
-    tensors."""
+    tensors.  float32 alone, on either device."""
+    for a in (x, dy):
+        _build.check_dtype("depthwise_bwd", a)
     if x.device.type == "cpu":
         return depthwise_bwd_plain(x, weight, dy)
     b, t, c = x.shape
@@ -153,7 +157,10 @@ def depthwise_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor
 def depthwise_bwd_w(x: torch.Tensor, dy: torch.Tensor, k: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6, (dw [C, 1, K], db [C]): ``depthwise_bwd_w_plain`` for CPU
-    tensors; the kernel for CUDA tensors."""
+    tensors; the kernel for CUDA tensors.  float32 alone, on either
+    device."""
+    for a in (x, dy):
+        _build.check_dtype("depthwise_bwd_w", a)
     if x.device.type == "cpu":
         return depthwise_bwd_w_plain(x, dy, k)
     b, t, c = x.shape

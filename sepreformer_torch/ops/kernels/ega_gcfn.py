@@ -88,7 +88,10 @@ def fused_ega_tail_gcfn(x: torch.Tensor, x_down: torch.Tensor,
                         gcfn_params: Sequence[torch.Tensor],
                         eps: float) -> torch.Tensor:
     """K16: ``ega_tail_gcfn_plain`` for CPU tensors; the kernel for CUDA
-    tensors.  Gradients recompute the plain version."""
+    tensors.  Gradients recompute the plain version.  float32 alone, on
+    either device (bfloat16 raises, naming its ROADMAP item)."""
+    for a in (x, x_down):
+        _build.check_dtype("fused_ega_tail_gcfn", a)
     kernel = ega_tail_gcfn_plain if x.device.type == "cpu" else pair_kernel
     return with_plain_grad(
         lambda xx, xd, *pp: kernel(xx, xd, pp[:4], pp[4:], eps),

@@ -4,7 +4,12 @@ Replaces ``sepreformer_tpu/ops/pallas/gcfn.py::fused_gcfn``.  The CUDA
 kernel is ``sepreformer_torch/csrc/gcfn.cu``; ``gcfn_plain`` is the same
 math in PyTorch (the JAX package's ``gcfn_reference``).  On CUDA tensors
 the gradient recomputes ``gcfn_plain``, as the JAX package's
-``custom_vjp`` recomputes its reference.
+``custom_vjp`` recomputes its reference.  x may be float32 or bfloat16
+(the parameters are float32 either way); a bfloat16 stream takes the
+JAX kernel's rounding steps (``gcfn.py:162-211``): the LayerNorm's
+output and the GLU's are rounded to bfloat16 before the products,
+whose weights are rounded too and whose sums are float32, and the
+residual is formed in float32 and stored as bfloat16.
 """
 
 from __future__ import annotations
@@ -16,8 +21,10 @@ import torch
 from sepreformer_torch.ops.kernels import _build
 from sepreformer_torch.ops.kernels._autograd import with_plain_grad
 
-# K1's instances: Base's F = 128 and Large's F = 256
+# K1's instances: Base's F = 128 and Large's F = 256, each for float32
+# and bfloat16 streams
 SUPPORTED_WIDTHS = (128, 256)
+SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 MAX_BLOCK = 512
 MIN_BLOCK = 64
 
@@ -51,12 +58,22 @@ def gcfn_plain(x: torch.Tensor, params: Sequence[torch.Tensor], eps: float,
     wout [3F, F], bout, ls): the products' weights [in, out], the k3
     weight as the Conv1d weight [6F, 1, 3] without its middle axis.
     ``drop(site, v)``, when given, drops the GLU output (site 0) and the
-    down-projection (site 1)."""
+    down-projection (site 1).  A bfloat16 x gives a bfloat16 result, with
+    the kernel's rounding steps (the module docstring)."""
     lns, lnb, win, bin_, wdw, bdw, wout, bout, ls = params
+    dtype = x.dtype
+    low = dtype != torch.float32
+
+    def rounded(a):  # a float32 tensor rounded to the stream's dtype
+        return a.to(dtype).float() if low else a
+
+    if low:
+        x = x.float()
+        win, wout = rounded(win), rounded(wout)
     mean = x.mean(dim=-1, keepdim=True)
     c = x - mean
     var = (c * c).mean(dim=-1, keepdim=True)
-    xn = c * torch.rsqrt(var + eps) * lns + lnb
+    xn = rounded(c * torch.rsqrt(var + eps) * lns + lnb)
     u = torch.matmul(xn, win) + bin_
     t = x.shape[1]
     if lens is not None:
@@ -65,29 +82,32 @@ def gcfn_plain(x: torch.Tensor, params: Sequence[torch.Tensor], eps: float,
     y = (up[:, :t] * wdw[:, 0] + up[:, 1:t + 1] * wdw[:, 1]
          + up[:, 2:t + 2] * wdw[:, 2] + bdw)
     half = y.shape[-1] // 2
-    g = y[..., :half] * torch.sigmoid(y[..., half:])
+    g = rounded(y[..., :half] * torch.sigmoid(y[..., half:]))
     if drop is not None:
         g = drop(0, g)
     o = torch.matmul(g, wout) + bout
     if drop is not None:
         o = drop(1, o)
-    return x + ls * o
+    return (x + ls * o).to(dtype)
 
 
 def check_params(name: str, x: torch.Tensor,
                  params: Sequence[torch.Tensor],
                  widths: Sequence[int] = SUPPORTED_WIDTHS,
-                 todo: str = _build.OTHER_PRESETS) -> None:
+                 todo: str = _build.OTHER_PRESETS,
+                 dtypes: Sequence[torch.dtype] = (torch.float32,)) -> None:
     """Raise unless x [B, T, F] and ``params`` (``gcfn_plain``'s) are
-    contiguous float32 CUDA tensors at a width in ``widths``, the widths
-    the calling kernel is built for (K1's by default); the width error
-    names the ROADMAP item ``todo``."""
+    contiguous CUDA tensors at a width in ``widths``, the widths the
+    calling kernel is built for (K1's by default), x in one of
+    ``dtypes`` and the parameters float32; the width error names the
+    ROADMAP item ``todo``, the dtype error queue B's bfloat16 streams."""
     b, t, f = x.shape
     hidden = 6 * f
     _build.check_width(name, "width", f, widths, todo)
+    _build.check_dtype(name, x, dtypes)
     shapes = [(f,), (f,), (f, hidden), (hidden,), (hidden, 3), (hidden,),
               (hidden // 2, f), (f,), (f,)]
-    _build.check_tensor(x, f"{name} x", (b, t, f), x.device)
+    _build.check_tensor(x, f"{name} x", (b, t, f), x.device, x.dtype)
     for pname, a, shape in zip("lns lnb win bin wdw bdw wout bout ls".split(),
                                params, shapes):
         _build.check_tensor(a, f"{name} {pname}", shape, x.device)
@@ -95,15 +115,18 @@ def check_params(name: str, x: torch.Tensor,
 
 def _launch(x: torch.Tensor, params: Sequence[torch.Tensor], eps: float,
             lens: Optional[torch.Tensor]) -> torch.Tensor:
-    """The K1 launch on checked CUDA tensors (no autograd)."""
+    """The K1 launch on checked CUDA tensors (no autograd): the float32
+    instance or the bfloat16 one, by x's dtype."""
     b, t, f = x.shape
     out = torch.empty_like(x)
-    err = _build.library().sep_gcfn_f32(
+    entry = "sep_gcfn_f32" if x.dtype == torch.float32 else "sep_gcfn_bf16"
+    err = getattr(_build.library(), entry)(
         x.data_ptr(), None if lens is None else lens.data_ptr(),
         *(p.data_ptr() for p in params), out.data_ptr(), b, t, f, float(eps),
         _build.stream_handle(x.device))
-    _build.check_launch("sep_gcfn_f32", err)
-    fused_gcfn.launches += 1
+    _build.check_launch(entry, err)
+    _build.count_launch(fused_gcfn,
+                        "" if x.dtype == torch.float32 else "bf16")
     return out
 
 
@@ -119,12 +142,13 @@ def _with_grad(kernel, x, params, eps, lens):
 
 def fused_gcfn(x: torch.Tensor, params: Sequence[torch.Tensor], eps: float,
                lens: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x [B, T, F] float32; ``lens`` [B] int (optional) masks u-rows at
-    t >= lens[b].  CPU tensors take ``gcfn_plain``; CUDA tensors launch
-    the kernel, and their gradient recomputes ``gcfn_plain``."""
+    """x [B, T, F] float32 or bfloat16 (the result in x's dtype);
+    ``lens`` [B] int (optional) masks u-rows at t >= lens[b].  CPU tensors
+    take ``gcfn_plain``; CUDA tensors launch the kernel, and their
+    gradient recomputes ``gcfn_plain``."""
     if x.device.type == "cpu":
         return gcfn_plain(x, params, eps, lens)
-    check_params("fused_gcfn", x, params)
+    check_params("fused_gcfn", x, params, dtypes=SUPPORTED_DTYPES)
     if lens is not None:
         lens = lens.to(dtype=torch.int32).contiguous()
         _build.check_tensor(lens, "fused_gcfn lens", (x.shape[0],), x.device,
@@ -133,3 +157,4 @@ def fused_gcfn(x: torch.Tensor, params: Sequence[torch.Tensor], eps: float,
 
 
 fused_gcfn.launches = 0
+fused_gcfn.instance_launches = {}

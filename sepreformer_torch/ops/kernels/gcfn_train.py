@@ -152,7 +152,9 @@ def fused_gcfn_train(x: torch.Tensor, params: Sequence[torch.Tensor],
     ``gcfn_plain``'s, the int hash ``seed``, the drop rate ``p``.  CPU
     tensors take ``gcfn_train_plain`` and its autograd; CUDA tensors
     launch K7, and K8 in the backward (F 128 and 256; other widths
-    raise, naming the ROADMAP item that builds them)."""
+    raise, naming the ROADMAP item that builds them; so does a bfloat16
+    x, on either device)."""
+    _build.check_dtype("fused_gcfn_train", x)
     if x.device.type == "cpu":
         return gcfn_train_plain(x, params, eps, seed, p)
     return _GcfnTrain.apply(x, float(eps), int(seed), float(p), *params)

@@ -3,9 +3,12 @@
 Replaces ``sepreformer_tpu/ops/pallas/softmax_pv.py::softmax_pv``, with
 ``bias=`` its ``_softmax_pv2_impl``.  The CUDA kernels are
 ``sepreformer_torch/csrc/softmax_pv.cu``; ``softmax_pv_plain`` is the
-same math in PyTorch (the JAX package's ``softmax_pv_reference``).  On
-CUDA tensors the gradient recomputes ``softmax_pv_plain``, as the JAX
-package's ``custom_vjp`` recomputes its reference.
+same math in PyTorch, in the order the JAX kernel takes it
+(``softmax_pv.py:94-103``).  On CUDA tensors the gradient recomputes
+``softmax_pv_plain``, as the JAX package's ``custom_vjp`` recomputes its
+reference.  K3 takes scores and V each in float32 or bfloat16 (the
+output in V's dtype), through an instance per pairing; K3b takes
+float32 alone.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ NEG_INF = -1.0e30
 # K3's and K3b's instances: Base's head width 16 and Large's 32
 SUPPORTED_HEAD_DIMS = (16, 32)
 BIAS_HEAD_DIMS = (16, 32)
+SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _key_lens(b: int, length: int, lens: Optional[torch.Tensor],
@@ -36,38 +40,63 @@ def softmax_pv_plain(scores: torch.Tensor, v: torch.Tensor,
                      length: Optional[int] = None,
                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """scores [B, H, Lp, Lp] (already scaled), v [B, Lp, H*d] -> [B, Lp,
-    H*d]: ``bias`` (a second scores tensor, optional) added in f32 first,
-    keys j >= min(length, lens[b]) get -1e30, f32 softmax over the keys,
-    then ·V.  Rows past ``length`` are padding the caller drops."""
+    H*d] in V's dtype: the scores (and ``bias``, a second scores tensor,
+    optional, added to them) in float32, keys j >= min(length, lens[b])
+    at -1e30, a float32 softmax over the keys, then ·V.  A bfloat16 V
+    takes the JAX kernel's order instead: p = exp(s - max) and its sum l
+    in float32, p rounded to bfloat16, ·V with float32 sums, then / l
+    (normalizing before the rounding would differ by a bfloat16 ulp).
+    Rows past ``length`` are padding the caller drops."""
+    scores = scores.float()
     if bias is not None:
-        scores = scores.float() + bias.float()
+        scores = scores + bias.float()
     b, h, lp, _ = scores.shape
     d = v.shape[-1] // h
     length = lp if length is None else length
     key_len = _key_lens(b, length, lens, scores.device)
     kmask = torch.arange(lp, device=scores.device)[None] < key_len[:, None]
     masked = torch.where(kmask[:, None, None, :], scores,
-                         torch.tensor(NEG_INF, dtype=scores.dtype,
-                                      device=scores.device))
-    attn = torch.softmax(masked.float(), dim=-1).to(v.dtype)
+                         torch.tensor(NEG_INF, device=scores.device))
     vh = v.reshape(b, lp, h, d).permute(0, 2, 1, 3)       # [B, H, Lp, d]
-    out = torch.matmul(attn, vh)                          # [B, H, Lp, d]
+    if v.dtype == torch.float32:
+        out = torch.matmul(torch.softmax(masked, dim=-1), vh)
+    else:
+        p = torch.exp(masked - masked.amax(dim=-1, keepdim=True))
+        out = (torch.matmul(p.to(v.dtype).float(), vh.float())
+               / p.sum(dim=-1, keepdim=True)).to(v.dtype)
     return out.permute(0, 2, 1, 3).reshape(b, lp, h * d)
 
 
 def _launch(scores: torch.Tensor, v: torch.Tensor, key_len: torch.Tensor,
             length: int, bias: Optional[torch.Tensor]) -> torch.Tensor:
-    """K3, or K3b with ``bias``, on checked CUDA tensors (no autograd)."""
+    """K3, or K3b with ``bias``, on checked CUDA tensors (no autograd):
+    K3's float32 instance, or the one for its bfloat16 pairing."""
     if bias is not None:
         return softmax_pv_bias(scores, bias, v, key_len, length)
     b, h, lp, _ = scores.shape
     out = torch.empty_like(v)
-    err = _build.library().sep_softmax_pv_f32(
-        scores.data_ptr(), v.data_ptr(), key_len.data_ptr(), out.data_ptr(),
-        b, h, lp, v.shape[-1], length, _build.stream_handle(scores.device))
-    _build.check_launch("sep_softmax_pv_f32", err)
-    softmax_pv.launches += 1
+    args = (scores.data_ptr(), v.data_ptr(), key_len.data_ptr(),
+            out.data_ptr(), b, h, lp, v.shape[-1], length)
+    instance = dtype_instance(scores.dtype, v.dtype)
+    if instance:
+        entry = "sep_softmax_pv_bf16"
+        args += (int(scores.dtype == torch.bfloat16),
+                 int(v.dtype == torch.bfloat16))
+    else:
+        entry = "sep_softmax_pv_f32"
+    err = getattr(_build.library(), entry)(
+        *args, _build.stream_handle(scores.device))
+    _build.check_launch(entry, err)
+    _build.count_launch(softmax_pv, instance)
     return out
+
+
+def dtype_instance(scores_dtype: torch.dtype, v_dtype: torch.dtype) -> str:
+    """The name of K3's instance for this pairing: "" (float32), "bf16"
+    (V bfloat16), "bf16 scores" (both), "bf16 scores f32 v"."""
+    if scores_dtype == torch.float32:
+        return "" if v_dtype == torch.float32 else "bf16"
+    return "bf16 scores" if v_dtype == torch.bfloat16 else "bf16 scores f32 v"
 
 
 def softmax_pv_bias(scores: torch.Tensor, bias: torch.Tensor,
@@ -100,11 +129,16 @@ def softmax_pv(scores: torch.Tensor, v: torch.Tensor,
                lens: Optional[torch.Tensor] = None,
                length: Optional[int] = None,
                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Masked softmax(scores [+ bias])·V with channels-last V and output.
-    CPU tensors take the plain version; CUDA tensors launch K3 (K3b with
-    ``bias``, a second [B, H, Lp, Lp] float32 tensor), which needs every
+    """Masked softmax(scores [+ bias])·V with channels-last V and output
+    (in V's dtype; scores and V float32 or bfloat16, float32 alone with
+    ``bias``).  CPU tensors take the plain version; CUDA tensors launch K3
+    (K3b with ``bias``, a second [B, H, Lp, Lp] float32 tensor), which
+    needs every
     ``lens[b] >= 1`` (a row with no valid key cannot occur on the model's
     path); their gradient recomputes the plain version."""
+    if bias is not None:  # K3b: float32 alone, on either device
+        for a in (scores, bias, v):
+            _build.check_dtype("softmax_pv (bias=)", a)
     if scores.device.type == "cpu":
         return softmax_pv_plain(scores, v, lens, length, bias)
     b, h, lp, _ = scores.shape
@@ -116,17 +150,20 @@ def softmax_pv(scores: torch.Tensor, v: torch.Tensor,
     if bias is None:
         _build.check_width("softmax_pv", "head dim", f // h,
                            SUPPORTED_HEAD_DIMS, _build.OTHER_PRESETS)
+        for a in (scores, v):
+            _build.check_dtype("softmax_pv", a, SUPPORTED_DTYPES)
     else:
         _build.check_width("softmax_pv (bias=)", "head dim", f // h,
                            BIAS_HEAD_DIMS, _build.OTHER_PRESETS)
     if not 1 <= length <= lp:
         raise ValueError(f"softmax_pv: length {length} outside [1, {lp}]")
     _build.check_tensor(scores, "softmax_pv scores", (b, h, lp, lp),
-                        scores.device)
+                        scores.device, scores.dtype)
     if bias is not None:
         _build.check_tensor(bias, "softmax_pv bias", (b, h, lp, lp),
                             scores.device)
-    _build.check_tensor(v, "softmax_pv v", (b, lp, f), scores.device)
+    _build.check_tensor(v, "softmax_pv v", (b, lp, f), scores.device,
+                        v.dtype)
     key_len = _key_lens(b, length, lens, scores.device).contiguous()
     if lens is not None:
         torch._assert_async(key_len.min() >= 1)  # no host sync
@@ -157,4 +194,5 @@ def occupancy() -> Dict[str, Dict[str, int]]:
 
 
 softmax_pv.launches = 0
+softmax_pv.instance_launches = {}
 softmax_pv_bias.launches = 0

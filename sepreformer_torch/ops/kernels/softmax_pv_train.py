@@ -273,6 +273,9 @@ def softmax_pv_dropout(scores: torch.Tensor, v: torch.Tensor, seed: int,
     the JAX package."""
     lp = scores.shape[2]
     length = lp if length is None else int(length)
+    for a in (scores, v) if bias is None else (scores, bias, v):
+        # float32 alone, on either device
+        _build.check_dtype("softmax_pv_dropout", a)
     if lp > MAX_LENGTH:
         raise NotImplementedError(
             f"softmax_pv_dropout: padded length {lp} > {MAX_LENGTH}; the "

@@ -1287,3 +1287,182 @@ BASE_DIGESTS = {
 @pytest.mark.cuda
 def test_base_instances_keep_their_bits(cuda_device):
     assert base_digests(cuda_device) == BASE_DIGESTS
+
+
+# The bfloat16 instances of K1, K3 and K12 against their plain bfloat16
+# versions on the card (chip_smoke.py's limits; PERF.md section 2): max
+# |kernel - plain| <= 2 bf16 ulps of max|out|; each bit-equal on repeat,
+# each counted as its bf16 instance and not as the float32 one.  Where
+# the kernel and the plain version round the probabilities against the
+# same max (K1, which has none; K3 and K12 on scores whose row max lies in
+# the first key tile of each warp that walks the row), the mean is held
+# to BF16_MEAN, and the plain version with the rounding steps left out
+# (float32 operands throughout, the result rounded) must exceed it, so
+# the limit sees them.  On other scores K3 and K12 round p against each
+# key tile's running max, the plain versions against the row's, which
+# moves the mean as far as leaving the rounding out does (up to 5.6e-5 on
+# an H100): BF16_TILE_MEAN holds agreement only.
+BF16 = torch.bfloat16
+BF16_MAX = 2 * 2.0 ** -7
+BF16_MEAN = 1e-5
+BF16_TILE_MEAN = 6e-5
+
+
+def bf16_errors(got, ref):
+    d = (got.float() - ref.float()).abs()
+    scale = ref.float().abs().max()
+    return (d.max() / scale).item(), (d.mean() / scale).item()
+
+
+def assert_bf16_close(got, ref, limit=BF16_MEAN, control=None):
+    assert got.dtype == ref.dtype == BF16
+    err_max, err_mean = bf16_errors(got, ref)
+    ctl_mean = None if control is None else bf16_errors(control, ref)[1]
+    print(f"bf16: max {err_max:.3e}, mean {err_mean:.3e} (limit {limit:.0e})"
+          f", without the rounding steps {ctl_mean}")
+    assert err_max <= BF16_MAX, err_max
+    assert err_mean <= limit, err_mean
+    if control is not None:
+        assert control.dtype == BF16
+        assert ctl_mean > limit, ctl_mean
+
+
+def max_in_first_tiles(scores, lens):
+    """Each row's max over its valid keys copied to keys 0, 64, 128 and
+    192, the first key tile of each warp that shares a row in K3."""
+    lp = scores.shape[-1]
+    valid = torch.arange(lp, device=scores.device)[None] < lens[:, None]
+    row_max = scores.float().masked_fill(
+        ~valid[:, None, None, :], float("-inf")).amax(dim=-1)
+    out = scores.clone()
+    for j in range(0, min(lp, 256), 64):
+        out[..., j] = row_max.to(scores.dtype)
+    return out
+
+
+def max_at_key0(gen, b, length, h, d, maxlen, device):
+    """bf16 q, k, v [B, L, H*d] and a table on which every query's largest
+    score is at key 0: per head the keys are multiples lambda_j < 0.9 of
+    one vector w (lambda_0 = 1), each query w plus noise, and the table
+    one repeated row (the same bias on each of a query's keys)."""
+    w = torch.randn(h, d, generator=gen)
+    q = w + 0.3 * torch.randn(b, length, h, d, generator=gen)
+    lam = torch.rand(b, length, generator=gen) * 1.9 - 1.0
+    lam[:, 0] = 1.0
+    k = lam[..., None, None] * w
+    v = torch.randn(b, length, h, d, generator=gen)
+    table = (0.5 * torch.randn(1, d, generator=gen)).expand(2 * maxlen, d)
+    return [a.reshape(b, length, -1).to(device, BF16).contiguous()
+            for a in (q, k, v)] + [table.to(device, BF16).contiguous()]
+
+
+def check_bf16_launch(wrapper, instance, run):
+    """``run()`` twice: one launch each of ``wrapper``'s ``instance`` and
+    none of its float32 instance; the same bits both times."""
+    f32, other = wrapper.launches, wrapper.instance_launches.get(instance, 0)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert wrapper.launches == f32
+    assert wrapper.instance_launches[instance] == other + 2
+    assert torch.equal(got, again)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [128, 256])
+@pytest.mark.parametrize("b,t,masked", [(2, 500, True), (3, 77, False),
+                                        (4, 8000, True), (3, 124, True)])
+def test_gcfn_bf16_kernel_matches_plain(cuda_device, f, b, t, masked):
+    gen = torch.Generator().manual_seed(t + f)
+    x = torch.randn(b, t, f, generator=gen).to(cuda_device).to(BF16)
+    params = gcfn_params(gen, f, cuda_device)
+    lens = (torch.tensor([t, t - 63, 62, 1][:b], device=cuda_device)
+            if masked else None)
+    got = check_bf16_launch(fused_gcfn, "bf16",
+                            lambda: fused_gcfn(x, params, 1e-5, lens))
+    assert_bf16_close(got, gcfn_plain(x, params, 1e-5, lens), control=(
+        gcfn_plain(x.float(), params, 1e-5, lens).to(BF16)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("scores_bf16,v_bf16", [(False, True), (True, True),
+                                                (True, False)])
+@pytest.mark.parametrize("b,h,lp,length,lens", SOFTMAX_PV_SHAPES)
+def test_softmax_pv_bf16_kernel_matches_plain(cuda_device, d, scores_bf16,
+                                              v_bf16, b, h, lp, length, lens):
+    scores, _, v, lens = softmax_pv_case(cuda_device, b, h, lp, length,
+                                         lens, seed=3)
+    if d == 32:
+        v = torch.cat([v, v.flip(-1)], dim=-1)
+    if scores_bf16:
+        scores = scores.to(BF16)
+    if v_bf16:
+        v = v.to(BF16).contiguous()
+    instance = {(False, True): "bf16", (True, True): "bf16 scores",
+                (True, False): "bf16 scores f32 v"}[scores_bf16, v_bf16]
+    got = check_bf16_launch(softmax_pv, instance,
+                            lambda: softmax_pv(scores, v, lens, length))
+    ref = softmax_pv_plain(scores, v, lens, length)
+    if v_bf16:
+        assert_bf16_close(got, ref, BF16_TILE_MEAN)
+        first = max_in_first_tiles(scores, lens)
+        got = check_bf16_launch(softmax_pv, instance,
+                                lambda: softmax_pv(first, v, lens, length))
+        assert_bf16_close(got, softmax_pv_plain(first, v, lens, length),
+                          control=softmax_pv_plain(first.float(), v.float(),
+                                                   lens, length).to(BF16))
+    else:  # float32 out: float32's bar
+        torch.testing.assert_close(got, ref, **CARD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("b,length,maxlen,lens", [
+    (3, 77, 64, (77, 30, 1)), (2, 300, 64, (300, 131)),
+    (2, 8750, 2000, (8750, 7000)), (2, 1000, 100, (1000, 517)),
+    (2, 129, 2000, (128, 129))])
+def test_flash_bf16_kernel_matches_plain(cuda_device, d, b, length, maxlen,
+                                         lens):
+    h = 8
+    gen = torch.Generator().manual_seed(length + d)
+    q, k, v = (torch.randn(b, length, h * d, generator=gen).to(cuda_device)
+               .to(BF16) for _ in range(3))
+    table = torch.randn(2 * maxlen, d, generator=gen).to(cuda_device).to(BF16)
+    tl = torch.tensor(lens, device=cuda_device)
+    got = check_bf16_launch(
+        flash_relpos_attention, "bf16",
+        lambda: flash_relpos_attention(q, k, v, table, maxlen, tl))
+    assert_bf16_close(got, flash_relpos_attention_plain(
+        q, k, v, table, maxlen, tl), BF16_TILE_MEAN)
+    first = max_at_key0(gen, b, length, h, d, maxlen, cuda_device)
+    got = check_bf16_launch(
+        flash_relpos_attention, "bf16",
+        lambda: flash_relpos_attention(*first, maxlen, tl))
+    control = flash_relpos_attention_plain(*(a.float() for a in first),
+                                           maxlen, tl)
+    assert_bf16_close(got, flash_relpos_attention_plain(*first, maxlen, tl),
+                      control=control.to(BF16))
+
+
+@pytest.mark.cuda
+def test_kernels_without_bf16_refuse_it_on_the_card(cuda_device):
+    """K13, K15 and K16 (and K3b) raise on a bf16 CUDA tensor, naming the
+    ROADMAP item, and launch nothing."""
+    dev = cuda_device
+    x = torch.zeros(1, 64, 128, device=dev, dtype=BF16)
+    q = torch.zeros(1, 2, 64, 16, device=dev, dtype=BF16)
+    s = torch.zeros(1, 2, 128, 128, device=dev, dtype=BF16)
+    calls = [
+        lambda: fused_cla(x, [], 1e-5),
+        lambda: fused_ega_tail_gcfn(x, x[:, :8].contiguous(), [], [], 1e-5),
+        lambda: flash_relpos_attention_train(q, q, q, q[0, 0], 1, 64, 0.0),
+        lambda: softmax_pv(s, torch.zeros(1, 128, 32, device=dev), bias=s),
+    ]
+    before = (fused_cla.launches, fused_ega_tail_gcfn.launches,
+              attention_train_fwd.launches, softmax_pv_bias.launches)
+    for call in calls:
+        with pytest.raises(ValueError, match="queue B, bfloat16 streams"):
+            call()
+    assert before == (fused_cla.launches, fused_ega_tail_gcfn.launches,
+                      attention_train_fwd.launches, softmax_pv_bias.launches)
