@@ -192,9 +192,9 @@ Phases, each of which fails the run:
                s crop (phase 7's limit, a TF32 control); one F=256 GCFN
                in train mode at dropout 0.1, card against CPU; one
                ``SepReformer_Large_DM_WHAM`` step (its speaker-split
-               blocks' gradients finite); two epochs of ``cli.main --model
+               blocks' gradients finite); one epoch of ``cli.main --model
                SepReformer_Large_DM_WSJ0`` on phase 8's corpus (dynamic
-               mixing), a resumed third and a test.  Then the "pallas"
+               mixing), a resumed second and a test.  Then the "pallas"
                and "single" routes at head width 32: four Large B=2 x 4 s
                steps on ``attention_train_impl="pallas"`` (each one K13
                and one K14 per global attention (22), no K2, K9 or K10;
@@ -235,9 +235,9 @@ Phases, each of which fails the run:
                full context, traced, with its peak memory;
                ``infer_sample`` through ``cli.main`` with ``--set
                model.compute_dtype=bfloat16``; Large's batch against
-               float32, traced, and its 70 s in full context; then
-               ``train_step`` in bfloat16 and a bfloat16 tensor into
-               K13, K15 and K16, each refused naming its ROADMAP item.
+               float32, traced, and its 70 s in full context; then a
+               bfloat16 tensor into K13, K15 and K16, each refused
+               naming its ROADMAP item.
                Phase 2 also holds the bfloat16 instances against their
                plain versions at its shapes (K1 at F 128 and 256, K3 on
                float32 or bfloat16 scores with a bfloat16 V at head
@@ -246,6 +246,30 @@ Phases, each of which fails the run:
                repeat, with their times, bounds (bytes at the bfloat16
                sizes, bfloat16 products at 989 TFLOP/s) and library
                calls (a bfloat16 softmax and matmul; bfloat16 SDPA).
+14. bf16_train - training in bfloat16 on the default train route, Base
+               (dropout 0.05) and ``SepReformer_Large_DM_WSJ0`` (0.1),
+               seeded weights: three ``train_step``s on B=2 x 4 s
+               (each one launch of K7's and K8's bfloat16 instances per
+               GCFN (56), of K9's and K10's per global attention (22),
+               K5 per CLA on float32 operands, no float32 instance of
+               K7-K10; float32 parameters and gradients), one traced
+               step beside a traced float32 step of the same model (busy,
+               launches, idle share, kernel groups, peak memory), one
+               step under ``BWD_MODE = "conv"`` (K6, no K5), for Base one
+               step with the scores in bfloat16 under each compute dtype
+               (K9's and K10's other pairings), one step card against the
+               CPU at the preset's dropout with the plain sites' masks
+               drawn on the CPU (the loss within a limit that the float32
+               step exceeds; the gradients within an agreement limit),
+               one ``cli.main`` epoch with ``--set
+               model.compute_dtype=bfloat16`` on phase 8's corpus, a
+               resumed second, a test (float32 checkpoints); then the
+               "pallas" route and the fused pair in bfloat16, refused
+               before any launch.  Phase 2 also holds the bfloat16
+               instances of K7/K8 (F 128, 256) and K9/K10 (head widths 16
+               and 32; at 16 the three pairings) against their plain
+               versions, bit-equal on repeat, with their times, bounds
+               and K8's time by launch.
 
 Prints one JSON line of kernel results, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -319,6 +343,16 @@ BF16_SYMBOLS = {"fused_gcfn": "gcfn_bf16_kernel",
 BF16_MAX = 2 * 2.0 ** -7
 BF16_MEAN = 1e-5
 BF16_TILE_MEAN = 6e-5
+# K8's float32 parameter gradients, sums of products of rounded operands
+# whose rounding can flip between two orders of summation
+# (tests/test_torch_cuda.py's BF16_SUM_MEAN)
+BF16_SUM_MEAN = 5e-5
+# K9 rounds its weights after the drop's 1 / (1 - p), against each key
+# tile's running max: on scores with the row max anywhere the mean reads
+# up to 7.3e-5 of max|out| on an H100 (agreement only, as
+# BF16_TILE_MEAN for K3 and K12; K9 is held to BF16_MEAN on scores with
+# the row max in the first key tiles)
+K9_TILE_MEAN = 1e-4
 # max |a - b| over max|out| between two bfloat16 forwards that round at
 # other places (the port on the card and on the CPU; scores stored in
 # bfloat16 or float32), the CPU tests' port-against-JAX limit; bfloat16
@@ -504,12 +538,6 @@ def kernel_phase(torch, K, device_ms):
         bwd_blocks_per_sm,
         fwd_occupancy,
     )
-
-    def print_occupancy(occupancy):
-        for name, occ in occupancy.items():
-            print(f"[kernels] {name}: {occ['warps']} warps, "
-                  f"{occ['blocks_per_sm']} blocks per SM, {occ['registers']} "
-                  f"registers, {occ['local_bytes']} local (spill) bytes")
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1032,9 +1060,11 @@ def kernel_phase(torch, K, device_ms):
     # and the "pallas" train step's K13/K14 at Large's head width
     attention_train_rows(torch, K, device_ms, randn, record, d=32, p=0.1,
                          instance="d=32")
-    # the bfloat16 instances of K1, K3 and K12 at the shapes above
+    # the bfloat16 instances of K1, K3 and K12 at the shapes above, and
+    # those of K7/K8 and K9/K10 at their train rows' shapes
     torch.cuda.empty_cache()
     bf16_kernel_rows(torch, K, device_ms, randn, record)
+    bf16_train_rows(torch, K, device_ms, randn, record)
     return results
 
 
@@ -1946,6 +1976,236 @@ def bf16_kernel_rows(torch, K, device_ms, randn, record):
         torch.cuda.empty_cache()
 
 
+def bf16_train_rows(torch, K, device_ms, randn, record):
+    """The bfloat16 instances of K7/K8 and K9/K10 at the shapes of their
+    float32 rows (phase 14's main path): each against its plain bfloat16
+    version on the card, bit-equal on a repeat call, with its time, bound
+    (bytes at the bfloat16 sizes, bfloat16 products at ``BF16_FLOPS``)
+    and plain time; no PyTorch call computes any of the four.  Limits:
+    a bfloat16 output within ``BF16_MAX`` and ``BF16_MEAN`` (K9 on scores
+    whose row max is in the first key tiles; ``K9_TILE_MEAN`` on other
+    scores), which the plain version without its rounding steps must
+    exceed; K8's nine float32 parameter gradients within ``BF16_MAX`` and
+    ``BF16_SUM_MEAN`` (tests/test_torch_cuda.py says why), the control
+    exceeding it on d win and d wout; float32 outputs of float32 operands
+    (K9 and K10 with a float32 V, K10's dS of float32 scores) at max 1e-4
+    of max|out|."""
+    from sepreformer_torch.ops.kernels.softmax_pv import dtype_instance
+    from sepreformer_torch.ops.kernels.softmax_pv_train import (
+        softmax_pv_train_bwd_bf16,
+        softmax_pv_train_fwd_bf16,
+    )
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    tolerance = (f"max {BF16_MAX:.4f}, mean {BF16_MEAN:.0e} of max|out| "
+                 f"(bfloat16; {K9_TILE_MEAN:.0e} where K9 rounds against "
+                 f"a tile's running max; parameter gradients "
+                 f"{BF16_SUM_MEAN:.0e})")
+
+    def held(name, got, ref, control=None, mean=BF16_MEAN):
+        """Fail unless ``got`` agrees with ``ref``: a bfloat16 output, or
+        a float32 one from rounded operands (``mean`` given with a float32
+        ``got``), within ``BF16_MAX`` and ``mean``; other float32 outputs
+        within 1e-4 of max|out|; ``control`` must exceed the mean limit.
+        Returns max |got - ref|."""
+        err_max, err_mean = bf16_errors(got, ref)
+        ctl = None if control is None else bf16_errors(control, ref)[1]
+        print(f"[kernels] {name}: max |kernel - plain| / max|out| "
+              f"{err_max:.3e}, mean {err_mean:.3e}" + (
+                  "" if ctl is None else f"; the plain version without its "
+                  f"rounding steps {ctl:.3e}"))
+        assert got.dtype == ref.dtype, (got.dtype, ref.dtype)
+        if got.dtype == bf or mean != BF16_MEAN:
+            assert err_max <= BF16_MAX and err_mean <= mean, (
+                f"{name}: {err_max:.3e}, {err_mean:.3e}")
+        else:
+            assert err_max <= 1e-4, f"{name}: {err_max:.3e}"
+        if ctl is not None:
+            assert ctl > mean, f"{name}: the limit does not see the rounding"
+        return (got.float() - ref.float()).abs().max().item()
+
+    def repeat(name, run):
+        first, again = run(), run()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(first, again))
+        print(f"[kernels] {name}: bit-equal on a repeat call: {same}")
+        assert same, f"{name} is not bit-equal on repeat"
+        return first
+
+    # K7 and K8 at [4, 8000, F]: Base's F 128 at dropout 0.05, Large's 256
+    # at 0.1, x and dout bfloat16
+    b, t, seed = 4, 8000, 4321
+    for f, p in ((128, 0.05), (256, 0.1)):
+        inst = "bf16" if f == 128 else f"F={f} bf16"
+        h = 6 * f
+        x, dout = randn(b, t, f).to(bf), randn(b, t, f).to(bf)
+        params = [randn(f), randn(f), randn(f, h, scale=0.1),
+                  randn(h, scale=0.1), randn(h, 3, scale=0.3),
+                  randn(h, scale=0.1), randn(h // 2, f, scale=0.1),
+                  randn(f, scale=0.1), randn(f, scale=0.5)]
+        (got,) = repeat(f"gcfn_train_fwd {inst}", lambda: (
+            K.gcfn_train_fwd(x, params, 1e-5, seed, p),))
+        err = held(f"gcfn_train_fwd {inst}", got,
+                   K.gcfn_train_plain(x, params, 1e-5, seed, p),
+                   K.gcfn_train_plain(x.float(), params, 1e-5, seed,
+                                      p).to(bf))
+        print_occupancy(K.gcfn_train.occupancy(f, bf16=True))
+        products = 2 * f * h + 2 * (h // 2) * f         # flops per row
+        rest = 8 * f + 7 * h + 6 * (h // 2) + 4 * f     # LN, dw3, GLU, drop
+        nparams = sum(q.numel() for q in params)
+        record(K.gcfn_train_fwd,
+               lambda: K.gcfn_train_fwd(x, params, 1e-5, seed, p),
+               lambda: K.gcfn_train_plain(x, params, 1e-5, seed, p), None,
+               err, 2 * 2 * x.numel() + 4 * nparams, b * t * rest,
+               source="sepreformer_torch/csrc/gcfn_train.cu",
+               replaces="sepreformer_tpu/ops/pallas/gcfn_train.py:549",
+               shape=f"x [{b}, {t}, {f}] bfloat16, hidden {h}, p {p}",
+               tolerance=tolerance, exps=b * t * (h // 2),
+               bf16_flops=b * t * products, instance=inst,
+               symbol="gcfn_train_fwd_bf16_kernel")
+        del got
+        dx, *dparams = repeat(f"gcfn_train_bwd {inst}", lambda: (
+            lambda r: (r[0], *r[1]))(K.gcfn_train_bwd(x, params, 1e-5, seed,
+                                                      p, dout)))
+        ref_dx, ref_dp = K.gcfn_train_bwd_plain(x, params, 1e-5, seed, p,
+                                                dout)
+        ctl_dx, ctl_dp = K.gcfn_train_bwd_plain(x.float(), params, 1e-5,
+                                                seed, p, dout.float())
+        err = held(f"gcfn_train_bwd {inst} dx", dx, ref_dx, ctl_dx.to(bf))
+        names = "lns lnb win bin wdw bdw wout bout ls".split()
+        for i, (name, g, r) in enumerate(zip(names, dparams, ref_dp)):
+            err = max(err, held(
+                f"gcfn_train_bwd {inst} d{name}", g, r,
+                ctl_dp[i] if name in ("win", "wout") else None,
+                mean=BF16_SUM_MEAN))
+        del dx, dparams, ref_dx, ref_dp, ctl_dx, ctl_dp
+        record(K.gcfn_train_bwd,
+               lambda: K.gcfn_train_bwd(x, params, 1e-5, seed, p, dout),
+               lambda: K.gcfn_train_bwd_plain(x, params, 1e-5, seed, p,
+                                              dout),
+               None, err, 2 * 3 * x.numel() + 4 * 2 * nparams,
+               b * t * (40 * f + 20 * h),
+               source="sepreformer_torch/csrc/gcfn_train.cu",
+               replaces="sepreformer_tpu/ops/pallas/gcfn_train.py:599",
+               shape=f"x, dout [{b}, {t}, {f}] bfloat16, hidden {h}, p {p}",
+               tolerance=tolerance, exps=b * t * (h // 2),
+               bf16_flops=b * t * 3 * products, instance=inst,
+               symbol="gcfn_train_bwd")
+        launch_split(torch, lambda: K.gcfn_train_bwd(x, params, 1e-5, seed,
+                                                     p, dout),
+                     "gcfn_train_bwd", ("rows", "atb dWin", "atb dWout",
+                                        "reduce dWin, dWout",
+                                        "reduce small"))
+        del x, dout, params
+        torch.cuda.empty_cache()
+
+    # K9 and K10 at the decoder attention of a B=2 x 4 s train batch:
+    # [4, 8, 512, 512], length 500, no key lengths; a bfloat16 V with
+    # float32 scores (the default route in bfloat16) at head widths 16 and
+    # 32, and at 16 the other pairings
+    b, heads, lp, length, seed = 4, 8, 512, 500, 1234
+    key_len = torch.full((b,), length, dtype=torch.int32, device=dev)
+    keys = b * length
+    pairs = heads * lp * keys
+    for d, p, s_dtype, v_dtype in ((16, 0.05, torch.float32, bf),
+                                   (16, 0.05, bf, bf),
+                                   (16, 0.05, bf, torch.float32),
+                                   (32, 0.1, torch.float32, bf)):
+        f = heads * d
+        inst = dtype_instance(s_dtype, v_dtype)
+        inst = inst if d == 16 else f"d={d} {inst}"
+        scores = randn(b, heads, lp, lp, scale=3.0).to(s_dtype)
+        v, dout = randn(b, lp, f).to(v_dtype), randn(b, lp, f).to(v_dtype)
+        low_v = v_dtype == bf
+
+        def fwd(s):
+            return softmax_pv_train_fwd_bf16(s, v, seed, key_len, length, p)
+
+        err = 0.0
+        for first in (False, True):
+            s = (max_in_first_tiles(torch, scores, key_len) if first
+                 else scores)
+            out, out32, rmax, rsum = repeat(
+                f"softmax_pv_train_fwd {inst}", lambda: fwd(s))
+            ref = K.softmax_pv_dropout_plain(s, v, seed, None, length, p)
+            rows = slice(0, length)
+            where = ", the row max in the first tiles" if first else ""
+            err = max(err, held(
+                f"softmax_pv_train_fwd {inst}{where}", out[:, rows],
+                ref[:, rows],
+                K.softmax_pv_dropout_plain(s.float(), v.float(), seed, None,
+                                           length, p).to(bf)[:, rows]
+                if first and low_v else None,
+                BF16_MEAN if first or not low_v else K9_TILE_MEAN))
+            if not first:
+                ss, vs = scores.element_size(), v.element_size()
+                record(K.softmax_pv_train_fwd, lambda: fwd(scores),
+                       lambda: K.softmax_pv_dropout_plain(
+                           scores, v, seed, None, length, p), None, err,
+                       # the function's bytes: scores and V of the valid
+                       # keys in, out written (out32 and the row stats are
+                       # this design's residuals)
+                       ss * heads * lp * keys + vs * (keys * f + b * lp * f),
+                       18 * pairs,
+                       source="sepreformer_torch/csrc/softmax_pv_train.cu",
+                       replaces="sepreformer_tpu/ops/pallas/"
+                                "softmax_pv_train.py:221",
+                       shape=(f"scores [{b}, {heads}, {lp}, {lp}] {s_dtype}, "
+                              f"v [{b}, {lp}, {f}] {v_dtype}, length "
+                              f"{length}, p {p}"),
+                       tolerance=tolerance, exps=pairs,
+                       bf16_flops=2 * d * pairs if low_v else 0.0,
+                       tc_flops=0.0 if low_v else 2 * d * pairs, timings=3,
+                       instance=inst,
+                       symbol="softmax_pv_train_fwd_bf16_kernel")
+
+            def bwd():
+                return softmax_pv_train_bwd_bf16(s, v, out32, dout, rmax,
+                                                 rsum, seed, key_len, length,
+                                                 p)
+
+            ds, dv = repeat(f"softmax_pv_train_bwd {inst}", bwd)
+            ref_ds, ref_dv = K.softmax_pv_dropout_bwd_plain(
+                s, v, seed, None, length, p, dout)
+            ctl_ds, ctl_dv = K.softmax_pv_dropout_bwd_plain(
+                s.float(), v.float(), seed, None, length, p, dout.float())
+            err10 = max(held(f"softmax_pv_train_bwd {inst} dS{where}",
+                             ds[:, :, :length], ref_ds[:, :, :length]),
+                        held(f"softmax_pv_train_bwd {inst} dV{where}", dv,
+                             ref_dv, ctl_dv.to(bf) if low_v else None))
+            if not first:
+                ss, vs = scores.element_size(), v.element_size()
+                record(K.softmax_pv_train_bwd, bwd,
+                       lambda: K.softmax_pv_dropout_bwd_plain(
+                           scores, v, seed, None, length, p, dout), None,
+                       err10,
+                       # scores and V of the valid keys and dout in, the
+                       # full dScores and dV written
+                       ss * (heads * lp * keys + scores.numel())
+                       + vs * (keys * f + 2 * b * lp * f),
+                       heads * lp * keys * (4 * d + 8),
+                       source="sepreformer_torch/csrc/softmax_pv_train.cu",
+                       replaces="sepreformer_tpu/ops/pallas/"
+                                "softmax_pv_train.py:249",
+                       shape=(f"scores [{b}, {heads}, {lp}, {lp}] {s_dtype}, "
+                              f"v, dout [{b}, {lp}, {f}] {v_dtype}, out32, "
+                              f"length {length}, p {p}"),
+                       tolerance=tolerance, timings=3, instance=inst,
+                       symbol="softmax_pv_train_bwd_kernel")
+            del out, out32, rmax, rsum, ds, dv, ref_ds, ref_dv, ctl_ds, ctl_dv
+        del scores, v, dout
+        torch.cuda.empty_cache()
+
+
+def print_occupancy(occupancy):
+    """Each launch's warps, blocks per SM, registers and spills."""
+    for name, occ in occupancy.items():
+        print(f"[kernels] {name}: {occ['warps']} warps, "
+              f"{occ['blocks_per_sm']} blocks per SM, {occ['registers']} "
+              f"registers, {occ['local_bytes']} local (spill) bytes")
+
+
 def serve_phase(torch, np, sep_torch, K):
     """Base at full width: three requests and one ragged B=4 x 4 s batch."""
     t0 = time.perf_counter()
@@ -2522,9 +2782,13 @@ def epoch_losses(line):
     return [float(v) for v in line.split()[3:6:2]]
 
 
-def engine_phase(torch, np, K, model="SepReformer_Base_WSJ0", tag="engine"):
+def engine_phase(torch, np, K, model="SepReformer_Base_WSJ0", tag="engine",
+                 sets=(), epochs=(3, 4), kernels=None):
     """Train ``model`` from ``sepreformer_torch.cli.main`` on a seeded
-    synthetic corpus: 2 epochs, a resumed third, then test."""
+    synthetic corpus (``--set`` each of ``sets``): to ``--max-epoch
+    epochs[0]`` (2 epochs by default), resumed to ``epochs[1]``, then
+    test; the checkpoints float32, each of ``kernels`` (by default the
+    train and eval kernels) launched."""
     import csv
     import tempfile
 
@@ -2543,9 +2807,11 @@ def engine_phase(torch, np, K, model="SepReformer_Base_WSJ0", tag="engine"):
                     os.path.join(tmp, "corpus"), "--scp-dir", "scp",
                     "--workdir", work, "--batch-size", "2",
                     "--set", "engine.test_epochs="]
+            for field in sets:
+                args += ["--set", field]
             K.reset_launches()
-            for mode, extra in (("train", ["--max-epoch", "3"]),
-                                ("resume", ["--max-epoch", "4"]),
+            for mode, extra in (("train", ["--max-epoch", str(epochs[0])]),
+                                ("resume", ["--max-epoch", str(epochs[1])]),
                                 ("test", ["--engine-mode", "test"])):
                 t0 = time.perf_counter()
                 assert cli.main(args + extra) == 0, mode
@@ -2553,14 +2819,18 @@ def engine_phase(torch, np, K, model="SepReformer_Base_WSJ0", tag="engine"):
             counts = K.launch_counts()
             for line in lines:
                 print(f"[{tag}] log: {line}")
-            epochs = [ln for ln in lines if ln.startswith("epoch ")]
-            assert len(epochs) == 3, epochs
+            trained = [ln for ln in lines if ln.startswith("epoch ")]
+            assert len(trained) == epochs[1] - 1, trained
             assert any(ln.startswith("resumed from epoch") for ln in lines)
-            for ln in epochs:
+            for ln in trained:
                 assert all(np.isfinite(epoch_losses(ln))), ln
             ckpt = os.path.join(work, "log", "scratch_weights",
-                                "epoch.0003.pth")
+                                f"epoch.{epochs[1] - 1:04d}.pth")
             assert os.path.exists(ckpt), "no checkpoint of the resumed epoch"
+            saved = torch.load(ckpt, weights_only=True)["model_state_dict"]
+            odd = {n: a.dtype for n, a in saved.items()
+                   if a.is_floating_point() and a.dtype != torch.float32}
+            assert not odd, f"checkpoint tensors not float32: {odd}"
             means = {}
             for name in ("SISNRi", "SDRi"):
                 with open(os.path.join(work, f"test_{name}_value.csv")) as f:
@@ -2571,7 +2841,8 @@ def engine_phase(torch, np, K, model="SepReformer_Base_WSJ0", tag="engine"):
                   f"{means['SISNRi']:.4f} dB, SDRi {means['SDRi']:.4f} dB")
             assert all(np.isfinite(v) for v in means.values()), means
     print(f"[{tag}] launches over the three runs: {counts}")
-    missing = [n for n in TRAIN_KERNELS + EVAL_KERNELS if counts[n] == 0]
+    kernels = TRAIN_KERNELS + EVAL_KERNELS if kernels is None else kernels
+    missing = [n for n in kernels if not counts.get(n)]
     assert not missing, f"kernels never launched by the CLI: {missing}"
     return counts
 
@@ -3742,8 +4013,8 @@ def large_train(torch, np, sep_torch, K, variant, busy_us, kernel_events,
     moving), one traced step, one step card against CPU (phase 7's limit,
     a TF32 control), one train-mode GCFN of F 256 at dropout 0.1 card
     against CPU, one ``SepReformer_Large_DM_WHAM`` step (a speaker-split
-    block per stage), two CLI epochs of ``LARGE`` on phase 8's corpus with
-    a resumed third and a test, and then the "pallas" and "single" routes
+    block per stage), one CLI epoch of ``LARGE`` on phase 8's corpus with
+    a resumed second and a test, and then the "pallas" and "single" routes
     (``large_pallas``).  ``run`` and ``total`` are the phase's: counts at
     0 before each run, main-path launches summed."""
     import dataclasses
@@ -3854,8 +4125,9 @@ def large_train(torch, np, sep_torch, K, variant, busy_us, kernel_events,
     del state
     torch.cuda.empty_cache()
 
-    # the CLI: two epochs, a resumed third, a test, on phase 8's corpus
-    counts = engine_phase(torch, np, K, model=LARGE, tag="large cli")
+    # the CLI: an epoch, a resumed second, a test, on phase 8's corpus
+    counts = engine_phase(torch, np, K, model=LARGE, tag="large cli",
+                          epochs=(2, 3))
     for name, n in counts.items():
         total[name] += n
 
@@ -4001,16 +4273,15 @@ def bf16_phase(torch, np, sep_torch, K, busy_us, kernel_events):
     peak memory; ``cli.main``'s ``infer_sample`` with ``--set
     model.compute_dtype=bfloat16``.  Large: the ragged batch (F 256,
     heads of 32) against float32, its modules' dtypes, traced, and 70 s
-    in full context.  Then
-    the refusals: ``train_step`` in bfloat16, and a bfloat16 tensor into
-    K13, K15 and K16.  Returns the bfloat16 instances' launches over the
-    main-path runs, by their phase-2 row names."""
+    in full context.  Then the refusals: a bfloat16 tensor into K13, K15
+    and K16 (phase 14 trains in bfloat16).  Returns the bfloat16
+    instances' launches over the main-path runs, by their phase-2 row
+    names."""
     import tempfile
 
     from sepreformer_torch import cli
     from sepreformer_torch.config import apply_override
     from sepreformer_torch.data.audio import read_wav, write_wav
-    from sepreformer_torch.engine import create_train_state, train_step
 
     rows = defaultdict(int)
     rng = np.random.default_rng(13)
@@ -4293,18 +4564,8 @@ def bf16_phase(torch, np, sep_torch, K, busy_us, kernel_events):
     del sep16, model16
     torch.cuda.empty_cache()
 
-    # g. the refusals: nothing trains in bfloat16, nothing falls back
-    state = create_train_state(base16, device="cuda",
-                               generator=torch.Generator().manual_seed(0))
-    mix, src = synthetic_batch(torch, np, rng, 2, SAMPLE_RATE)
-    try:
-        train_step(state, mix, src, 1e-3, 0.4, torch.Generator())
-    except NotImplementedError as exc:
-        assert "queue A, bf16 training" in str(exc), exc
-        print(f"[bf16] train_step in bfloat16 refused: {exc}")
-    else:
-        raise AssertionError("train_step trained in bfloat16")
-    del state
+    # g. the refusals of the kernels with no bfloat16 instance (phase 14
+    #    holds the train routes that reach them)
     x = torch.zeros(1, 64, 128, device="cuda", dtype=torch.bfloat16)
     q = torch.zeros(1, 2, 64, 16, device="cuda", dtype=torch.bfloat16)
     K.reset_launches()
@@ -4332,6 +4593,325 @@ def bf16_phase(torch, np, sep_torch, K, busy_us, kernel_events):
           f"main-path runs: {dict(rows)}")
     return dict(rows)
 
+
+# phase 14's main-path launches by phase-2 row name: each model's train
+# wrappers and the instance width of its rows
+BF16_TRAIN_ROWS = {BASE: {"gcfn_train_fwd": "gcfn_train_fwd",
+                          "gcfn_train_bwd": "gcfn_train_bwd",
+                          "softmax_pv_train_fwd": "softmax_pv_train_fwd",
+                          "softmax_pv_train_bwd": "softmax_pv_train_bwd"},
+                   LARGE: {"gcfn_train_fwd": "gcfn_train_fwd F=256",
+                           "gcfn_train_bwd": "gcfn_train_bwd F=256",
+                           "softmax_pv_train_fwd": "softmax_pv_train_fwd d=32",
+                           "softmax_pv_train_bwd":
+                               "softmax_pv_train_bwd d=32"}}
+# phase 14, a bfloat16 train step at dropout > 0 card against CPU: max
+# |card - cpu| over every gradient element, over the largest cpu
+# gradient, and |card - cpu| / |cpu| of the loss.  Readings on an H100
+# (PERF.md sections 2 and 6): gradients 8.6e-3 to 9.7e-3 (Base, three
+# runs: the card's bfloat16 step is not bit-stable from run to run) and
+# 4.9e-3 (Large); losses 4.5e-4 and 3.5e-4.  The card's float32 step,
+# the control, reads 2.2e-3 and 2.3e-3 on the loss, past its limit, but
+# 1.95e-2 and 6.1e-3 on the gradients, where bfloat16 rounding that
+# differs between the card and the CPU grows through the backward as far
+# as leaving the rounding out does: the gradient limit holds agreement
+# only, the loss limit tells the float32 step apart.
+BF16_TRAIN_CPU_LIMIT = 1.4e-2
+BF16_TRAIN_LOSS_LIMIT = 1e-3
+
+
+@contextlib.contextmanager
+def cpu_drawn_masks(torch, seed=11):
+    """The plain dropout sites' masks drawn from a CPU generator seeded
+    with ``seed`` at each ``TrainMode`` and moved to the tensor's device,
+    so that a step on the card and one on the CPU drop the same elements
+    (the kernel sites' hash masks match by construction)."""
+    from sepreformer_torch.models.blocks import TrainMode
+
+    saved = TrainMode.dropout
+
+    def dropout(self, x):
+        if self.p == 0.0:
+            return x
+        if not hasattr(self, "cpu_masks"):
+            self.cpu_masks = torch.Generator().manual_seed(seed)
+        keep = (torch.rand(x.shape, generator=self.cpu_masks)
+                >= self.p).to(x.device)
+        if x.dtype != torch.float32:
+            return torch.where(keep, x / (1.0 - self.p), 0.0)
+        return x * keep.to(x.dtype).mul_(1.0 / (1.0 - self.p))
+
+    TrainMode.dropout = dropout
+    try:
+        yield
+    finally:
+        TrainMode.dropout = saved
+
+
+def bf16_against_cpu(torch, np, variant, tag):
+    """One bfloat16 train step of ``variant`` at its dropout on the card
+    and on the CPU (the plain versions) from the same weights, every
+    LayerScale at 0.5, a 1 s crop, the same masks (``cpu_drawn_masks``):
+    the loss within ``BF16_TRAIN_LOSS_LIMIT``, which the card's float32
+    step, the control, must exceed, and every gradient within
+    ``BF16_TRAIN_CPU_LIMIT`` of the largest CPU gradient (the constants
+    say why that one holds agreement only)."""
+    import dataclasses
+
+    from sepreformer_torch.engine import create_train_state, train_step
+    from sepreformer_torch.models import build_model
+
+    model = build_model(variant.model, device="cpu",
+                        generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        for name, prm in model.named_parameters():
+            if name.endswith("layer_scale"):
+                prm.fill_(0.5)
+    mix, src = synthetic_batch(torch, np, np.random.default_rng(5),
+                               variant.dataset.batch_size, SAMPLE_RATE)
+
+    def step(cfg, device):
+        # the model reads its dtype from its own config
+        twin = build_model(cfg.model, device="cpu")
+        twin.load_state_dict(model.state_dict())
+        state = create_train_state(cfg, model=twin.to(device))
+        with cpu_drawn_masks(torch):
+            metrics = train_step(state, mix, src, 1e-3, 0.4,
+                                 torch.Generator().manual_seed(6))
+        grads = {n: prm.grad.detach().cpu()
+                 for n, prm in state.model.named_parameters()}
+        assert all(g.dtype == torch.float32 and torch.isfinite(g).all()
+                   for g in grads.values()), "gradients not finite float32"
+        return float(metrics["total_loss"]), grads
+
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = step(variant, "cpu")
+    print(f"[{tag}] CPU bfloat16 step {time.perf_counter() - t0:.2f} s, "
+          f"loss {cpu_loss:.6f}, dropout {variant.model.dropout}")
+    scale = max(g.abs().max().item() for g in cpu_grads.values())
+    f32 = dataclasses.replace(variant, model=dataclasses.replace(
+        variant.model, compute_dtype="float32"))
+    cpu_norm = math.sqrt(sum((g.double() ** 2).sum().item()
+                             for g in cpu_grads.values()))
+    errs = {}
+    for label, cfg in (("bfloat16", variant), ("control, float32", f32)):
+        loss, grads = step(cfg, "cuda")
+        worst = max(grads, key=lambda n: (grads[n] - cpu_grads[n]).abs().max())
+        err = (grads[worst] - cpu_grads[worst]).abs().max().item() / scale
+        l2 = math.sqrt(sum(((grads[n] - cpu_grads[n]).double() ** 2).sum()
+                           .item() for n in grads)) / cpu_norm
+        errs[label] = (abs(loss - cpu_loss) / abs(cpu_loss), err, l2)
+        print(f"[{tag}] card {label} step against the CPU's bfloat16 one: "
+              f"loss {loss:.6f} (|card - cpu| / |cpu| {errs[label][0]:.3e}); "
+              f"max |card - cpu| over every gradient / max |cpu gradient| "
+              f"{err:.3e} (max {scale:.3e}, worst {worst}), limit "
+              f"{BF16_TRAIN_CPU_LIMIT:.1e}; |card - cpu| / |cpu| over all "
+              f"gradients (L2) {l2:.3e}")
+    loss, grad, _ = errs["bfloat16"]
+    assert loss <= BF16_TRAIN_LOSS_LIMIT, "the card's bfloat16 loss disagrees"
+    assert grad <= BF16_TRAIN_CPU_LIMIT, (
+        "the card's bfloat16 gradients disagree with the CPU's")
+    assert errs["control, float32"][0] > BF16_TRAIN_LOSS_LIMIT, (
+        "the loss limit does not tell a float32 step apart")
+
+
+def bf16_train_phase(torch, np, sep_torch, K, busy_us, kernel_events,
+                     steps=3):
+    """Phase 14: training in bfloat16 on the default train route, for
+    Base (dropout 0.05) and ``LARGE`` (0.1), seeded weights: ``steps``
+    ``train_step``s on seeded B=2 x 4 s batches (each one launch of K7's
+    and K8's bfloat16 instances per GCFN, of K9's and K10's per global
+    attention, K5 per CLA on float32 operands, K2 and K11 once, no float32
+    instance of K7-K10 and no eval kernel; finite losses, float32
+    parameters and gradients), one traced step beside a traced float32
+    step of the same model (busy, launches, idle share, peak memory,
+    kernel groups), one step under the depthwise module's ``BWD_MODE =
+    "conv"`` (K6, no K5), for Base one step with the scores stored in
+    bfloat16 under each compute dtype (K9's and K10's other pairings),
+    one step card against the CPU at the preset's
+    dropout (``bf16_against_cpu``), one CLI epoch with ``--set
+    model.compute_dtype=bfloat16`` on phase 8's corpus, resumed for a
+    second, then tested; then the refusals of the "pallas" route and the
+    fused pair, raised before any launch.  Returns the bfloat16
+    instances' launches over the main-path steps, by their phase-2 row
+    names."""
+    import dataclasses
+
+    from sepreformer_torch.config import apply_override
+    from sepreformer_torch.engine import (
+        LRController,
+        create_train_state,
+        train_step,
+    )
+
+    rows = defaultdict(int)
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    rng = np.random.default_rng(14)
+
+    def main_path(name, counts):
+        for wrapper, row in BF16_TRAIN_ROWS[name].items():
+            rows[f"{row} bf16"] += counts.get(f"{wrapper} bf16", 0)
+
+    for name in (BASE, LARGE):
+        tag = f"bf16_train {'Base' if name == BASE else 'Large'}"
+        variant = apply_override(sep_torch.get_variant(name),
+                                 "model.compute_dtype", "bfloat16")
+        state = create_train_state(variant, device="cuda",
+                                   generator=torch.Generator().manual_seed(0))
+        model, o = state.model, variant.optim
+        kinds = [type(m).__name__ for m in model.modules()]
+        gcfns, attentions = kinds.count("GCFN"), kinds.count("EGA")
+        clas = kinds.count("CLA")
+        expected = {"gcfn_train_fwd bf16": gcfns,
+                    "gcfn_train_bwd bf16": gcfns,
+                    "softmax_pv_train_fwd bf16": attentions,
+                    "softmax_pv_train_bwd bf16": attentions,
+                    "depthwise_bwd": clas, "materialize_pos_kt": 1,
+                    "sisnr_pairwise_neg_fused": 1, "gcfn_train_fwd": 0,
+                    "gcfn_train_bwd": 0, "softmax_pv_train_fwd": 0,
+                    "softmax_pv_train_bwd": 0}
+        lrc = LRController(o.lr, o.warmup_steps, o.plateau_factor,
+                           o.plateau_patience, o.plateau_min_lr)
+        batches = [tuple(a.cuda() for a in synthetic_batch(
+            torch, np, rng, variant.dataset.batch_size,
+            variant.dataset.max_len)) for _ in range(steps + 1)]
+        grads = {}
+        hooks = [prm.register_hook(
+            lambda g, n=n: grads.__setitem__(n, g.dtype))
+            for n, prm in model.named_parameters()]
+        total = defaultdict(int)
+        torch.cuda.reset_peak_memory_stats()
+        times = timed_train_steps(torch, np, K, state, lrc, batches[:steps],
+                                  torch.Generator().manual_seed(1), expected,
+                                  total, tag)
+        for h in hooks:
+            h.remove()
+        main_path(name, total)
+        assert all(p.dtype == torch.float32 for p in model.parameters())
+        assert set(grads.values()) == {torch.float32}, set(grads.values())
+        assert len(grads) == len(list(model.parameters()))
+        print(f"[{tag}] {steps} steps, ms {[round(t, 2) for t in times]}; "
+              f"median after the first {statistics.median(times[1:]):.2f} "
+              f"ms; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+              f"launches per step {expected}")
+
+        # one traced step of each dtype, the float32 one after a warm step
+        f32 = create_train_state(
+            dataclasses.replace(variant, model=dataclasses.replace(
+                variant.model, compute_dtype="float32")),
+            device="cuda", generator=torch.Generator().manual_seed(0))
+        mix, src = batches[steps]
+        train_step(f32, mix, src, lrc.lr, 0.4, torch.Generator())
+        for label, st in (("bfloat16", state), ("float32", f32)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launches()
+            with torch.profiler.profile(activities=activities) as prof:
+                t0 = time.perf_counter()
+                train_step(st, mix, src, lrc.lr, 0.4, torch.Generator())
+                torch.cuda.synchronize()
+                window_us = (time.perf_counter() - t0) * 1e6
+            counts = K.launch_counts()
+            if label == "bfloat16":
+                main_path(name, counts)
+            kernels = kernel_events(prof)
+            print_trace("bf16_train", kernels, busy_us(kernels), window_us,
+                        {n: c for n, c in counts.items() if c},
+                        f"{tag} step, {label}")
+            print(f"[{tag}] traced {label} step: max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        del f32, prof
+
+        # one step under BWD_MODE "conv": K6 and the library dx, no K5
+        K.reset_launches()
+        with depthwise_conv_mode():
+            metrics = train_step(state, *batches[0], lrc.lr, 0.4,
+                                 torch.Generator())
+        counts = K.launch_counts()
+        loss = float(metrics["total_loss"])
+        print(f"[{tag}] BWD_MODE conv step: loss {loss:.4f}; launches "
+              f"{ {n: c for n, c in counts.items() if c} }")
+        assert np.isfinite(loss), loss
+        assert counts["depthwise_bwd_w"] == clas, counts
+        assert counts["depthwise_bwd"] == 0, counts
+        del state, model
+        torch.cuda.empty_cache()
+
+        # Base: the scores stored in bfloat16, under bfloat16 compute (K9
+        # and K10 on bfloat16 scores and V) and under float32 compute
+        # (bfloat16 scores, a float32 V)
+        for compute, inst in (("bfloat16", "bf16 scores"),
+                              ("float32", "bf16 scores f32 v")):
+            if name != BASE:
+                break
+            cfg = apply_override(apply_override(
+                variant, "model.compute_dtype", compute),
+                "model.scores_dtype", "bfloat16")
+            st = create_train_state(cfg, device="cuda",
+                                    generator=torch.Generator().manual_seed(0))
+            K.reset_launches()
+            loss = float(train_step(st, *batches[1], lrc.lr, 0.4,
+                                    torch.Generator())["total_loss"])
+            counts = K.launch_counts()
+            for wrapper in ("softmax_pv_train_fwd", "softmax_pv_train_bwd"):
+                rows[f"{wrapper} {inst}"] += counts[f"{wrapper} {inst}"]
+                assert counts[f"{wrapper} {inst}"] == attentions, counts
+            print(f"[{tag}] a step with the scores in bfloat16, {compute} "
+                  f"compute: loss {loss:.4f}; K9, K10 launches "
+                  f"{counts[f'softmax_pv_train_fwd {inst}']}, "
+                  f"{counts[f'softmax_pv_train_bwd {inst}']} ({inst})")
+            assert np.isfinite(loss), loss
+            del st
+        del batches
+
+        bf16_against_cpu(torch, np, variant, tag)
+
+        # the CLI: an epoch, a resumed second, a test
+        engine_phase(torch, np, K, model=name, tag=f"{tag} cli",
+                     sets=("model.compute_dtype=bfloat16",), epochs=(2, 3),
+                     kernels=("gcfn_train_fwd bf16", "gcfn_train_bwd bf16",
+                              "softmax_pv_train_fwd bf16",
+                              "softmax_pv_train_bwd bf16", "depthwise_bwd",
+                              "materialize_pos_kt", "fused_gcfn bf16",
+                              "softmax_pv bf16"))
+
+    # the refusals, before any launch: the "pallas" route (K13/K14) and
+    # the fused pair (K16) in bfloat16
+    variant = apply_override(sep_torch.get_variant(BASE),
+                             "model.compute_dtype", "bfloat16")
+    state = create_train_state(variant, device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+    mix, src = synthetic_batch(torch, np, rng, 2, SAMPLE_RATE)
+    before = [p.detach().clone() for p in state.model.parameters()]
+    for field, value in (("model.attention_train_impl", "pallas"),
+                         ("model.fused_pair", "on")):
+        state.cfg = apply_override(variant, field, value)
+        K.reset_launches()
+        try:
+            train_step(state, mix, src, 1e-3, 0.4, torch.Generator())
+        except NotImplementedError as exc:
+            assert "queue A, bf16 training off the default route" in str(
+                exc), exc
+            print(f"[bf16_train] {field}={value} in bfloat16 refused: {exc}")
+        else:
+            raise AssertionError(f"{field}={value} trained in bfloat16")
+        assert not any(K.launch_counts().values()), "a refusal launched"
+    assert all(torch.equal(a, b) for a, b in zip(
+        before, state.model.parameters())), "a refusal moved a parameter"
+    missing = [n for n in (
+        "gcfn_train_fwd bf16", "gcfn_train_bwd bf16",
+        "gcfn_train_fwd F=256 bf16", "gcfn_train_bwd F=256 bf16",
+        "softmax_pv_train_fwd bf16", "softmax_pv_train_bwd bf16",
+        "softmax_pv_train_fwd d=32 bf16", "softmax_pv_train_bwd d=32 bf16",
+        "softmax_pv_train_fwd bf16 scores", "softmax_pv_train_bwd bf16 scores",
+        "softmax_pv_train_fwd bf16 scores f32 v",
+        "softmax_pv_train_bwd bf16 scores f32 v") if not rows[n]]
+    assert not missing, f"bfloat16 instances never launched: {missing}"
+    print(f"[bf16_train] launches of the bfloat16 train instances over the "
+          f"phase's main-path steps: {dict(rows)}")
+    return dict(rows)
 
 def main() -> int:
     import torch
@@ -4415,6 +4995,8 @@ def main() -> int:
                        busy_us, kernel_events) or {}
     bf16_counts = run("bf16", bf16_phase, torch, np, sep_torch, K, busy_us,
                       kernel_events) or {}
+    bf16_counts.update(run("bf16_train", bf16_train_phase, torch, np,
+                           sep_torch, K, busy_us, kernel_events) or {})
 
     # each kernel's launches on the main path of its slice: the eval
     # kernels' in serving, the train kernels' in training, K12's in

@@ -5,7 +5,7 @@ package's ``config.py`` holds the same numbers; the port imports nothing
 from it), with its ``--set`` overrides (``apply_override``) and its
 reader of the reference's ``configs.yaml`` (``from_reference_yaml``).
 Only the knobs the port reads are kept, and the dtype policy
-(``ModelConfig.compute_dtype``, ``scores_dtype``; serving only).  Of the
+(``ModelConfig.compute_dtype``, ``scores_dtype``).  Of the
 JAX package's implementation selectors the port keeps the two attention
 routes, ``attention_impl`` and ``attention_train_impl``, and the two
 fused eval blocks, ``fused_local`` (the CLA through K15) and
@@ -84,12 +84,12 @@ class ModelConfig:
     # Large_DM_WHAM: num_stages + 1 independent speaker-split blocks (one
     # per encoder stage and the bottleneck) instead of one shared block
     per_stage_spk_split: bool = False
-    # activations: "float32" or "bfloat16" (serving only; training in
-    # bf16 is ROADMAP.md queue A, bf16 training).  Parameters stay
-    # float32 and each module casts its weights to the stream's dtype;
-    # norms and softmaxes compute in float32 and cast back; the kernels
-    # K1, K3 and K12 take bf16 operands with float32 accumulation; the
-    # model returns float32 audio
+    # activations: "float32" or "bfloat16", in serving and in training
+    # on the default train route (engine/train.py::check_trainable names
+    # what refuses it).  Parameters stay float32 and each module casts
+    # its weights to the stream's dtype; norms and softmaxes compute in
+    # float32 and cast back; the kernels K1, K3, K7-K10 and K12 take bf16
+    # operands with float32 accumulation; the model returns float32 audio
     compute_dtype: str = "float32"
     # storage dtype of the scores tensor K3 reads: "auto" resolves to
     # float32 (the JAX rule off a TPU; the card's own rule belongs to

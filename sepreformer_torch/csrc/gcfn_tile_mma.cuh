@@ -73,11 +73,12 @@
 // b*T + t, and scales the kept values by 1 / (1 - p): the JAX package's
 // gcfn_train.py::_fwd_train_kernel.
 //
-// With In = __nv_bfloat16 (K1's bfloat16 instance) x and out are
-// bfloat16 and the tile takes the JAX kernel's rounding steps
-// (gcfn.py:162-211): x is upcast as it is read, the LayerNorm runs in
-// float32 and its rows are rounded to bfloat16 as they land in xn, g is
-// rounded as it lands in g, the weights are rounded as the products read
+// With In = __nv_bfloat16 (K1's and K7's bfloat16 instances) x and out
+// are bfloat16 and the tile takes the JAX kernels' rounding steps
+// (gcfn.py:162-211, gcfn_train.py:557-559): x is upcast as it is read,
+// the LayerNorm runs in float32 and its rows are rounded to bfloat16 as
+// they land in xn, g is rounded (after K7's drop at site 0) as it lands
+// in g, the weights are rounded as the products read
 // them, and each product is one TF32 mma.sync on those exact values
 // (mma_tf32x3.cuh) in place of three; u, the conv, the GLU and the
 // residual stay float32, and out is stored rounded.  The weights stay
@@ -223,8 +224,7 @@ __device__ __forceinline__ void tile(
     GcfnDrop drop, Pair pair = Pair{}) {
   static_assert(!(kDrop && kPair), "K16 runs at dropout 0");
   constexpr bool kBf16 = !std::is_same<In, float>::value;
-  static_assert(!kBf16 || (!kDrop && !kPair),
-                "bfloat16: K1's eval tile alone");
+  static_assert(!kBf16 || !kPair, "bfloat16: K1's and K7's tiles");
   using S = Shape<F>;
   static_assert(!kPair || S::pair_fits,
                 "K16: y overlays wo and u, or wi at one block per SM");

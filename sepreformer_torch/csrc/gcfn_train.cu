@@ -50,17 +50,32 @@
 //     tensor cores over a fixed split of the rows, 32 rows at a time
 //     double-buffered with cp.async, each split's partial written apart.
 //  3. reduce: the partials of each split (or block) added in a fixed order.
-// No atomics: two runs give the same bits.  The launcher picks the
+// No atomics: two runs give the same bits.
+//
+// The bfloat16 instances (x, out, dout and dx bfloat16, the parameters
+// and their nine gradients float32) take the JAX kernels' rounding steps
+// (gcfn_train.py:557-559, :606-608): K7 is K1's bfloat16 tile with the
+// drops (g rounded after its drop); K8's row pass (In = __nv_bfloat16)
+// rounds xn, g, do0 and du as the JAX kernel casts them for its
+// products, and takes each product as one TF32 mma.sync on those exact
+// values (bf16s::warp_product; do0 rounded as the dg product reads it,
+// since its float32 rows also give db_out), with float32 statistics,
+// conv, GLU, masks and LayerNorm backward; it writes xn, du, g and do0
+// rounded, so the weight products take one TF32 product too
+// (gcfn_train_bwd_atb_kernel<true>).  Same tiles, shared memory and
+// blocks per SM as the float32 instances.  The launcher picks the
 // partition from B and T (BwdPartition): at most one wave of blocks of
 // pass 1 (two per SM at F=128, 105 KB each; one at F=256, whose 16 warps
 // take 205 KB) and kMaxSplits row splits, so the partial buffers,
 // [blocks, 34F] and [splits, 9F^2] floats, stay at 5 MB and 19 MB at
 // [4, 8000, 128] (4 and 75 MB at F=256).  The caller sizes its one
 // scratch buffer with sep_gcfn_train_bwd_scratch_floats.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <stdint.h>
+#include <type_traits>
 
 #include "gcfn_tile_mma.cuh"
 #include "mma_tf32x3.cuh"
@@ -92,9 +107,45 @@ gcfn_train_fwd_kernel(const float* __restrict__ x,
                           wout, bout, ls, out, T, eps, drop);
 }
 
+// K7's bfloat16 instance: x and out bfloat16, the parameters float32.
+template <int F>
+__global__ void __launch_bounds__(gcfn_mma::kThreads,
+                                  gcfn_mma::Shape<F>::blocks_per_sm)
+gcfn_train_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                           const float* __restrict__ lns,
+                           const float* __restrict__ lnb,
+                           const float* __restrict__ win,
+                           const float* __restrict__ bin,
+                           const float* __restrict__ wdw,
+                           const float* __restrict__ bdw,
+                           const float* __restrict__ wout,
+                           const float* __restrict__ bout,
+                           const float* __restrict__ ls,
+                           __nv_bfloat16* __restrict__ out, int T, float eps,
+                           GcfnDrop drop) {
+  extern __shared__ __align__(16) float smem[];
+  gcfn_mma::tile<F, true, false, __nv_bfloat16>(
+      smem, x, nullptr, lns, lnb, win, bin, wdw, bdw, wout, bout, ls, out, T,
+      eps, drop);
+}
+
 using tf32x3::frag_col;
 using tf32x3::frag_row;
-using tf32x3::warp_product;
+
+// A product of K8's row pass: 3xTF32 for float32 streams, one TF32
+// product on bfloat16-exact operands for bfloat16 ones (A already
+// rounded, or rounded as it is read with kRoundA; B rounded as it is
+// read).
+template <bool kBf16, bool kRoundA = false, int MT, int NT, int KS,
+          class BFrag>
+__device__ __forceinline__ void warp_product(float (&acc)[MT][NT][4],
+                                             const float* A, int lda,
+                                             BFrag bfrag) {
+  if constexpr (kBf16)
+    bf16s::warp_product<MT, NT, KS, kRoundA>(acc, A, lda, bfrag);
+  else
+    tf32x3::warp_product<MT, NT, KS>(acc, A, lda, bfrag);
+}
 
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
@@ -145,16 +196,16 @@ __device__ __forceinline__ int hidden_col(int c, int j) {
   return c * CH + j + (j < CH ? 0 : 3 * F - CH);
 }
 
-template <int F>
+template <int F, class In>
 __global__ void __launch_bounds__(BwdShape<F>::kThreads,
                                   BwdShape<F>::blocks_per_sm)
 gcfn_train_bwd_rows_kernel(
-    const float* __restrict__ x, const float* __restrict__ dout,
+    const In* __restrict__ x, const In* __restrict__ dout,
     const float* __restrict__ lns, const float* __restrict__ lnb,
     const float* __restrict__ win, const float* __restrict__ bin,
     const float* __restrict__ wdw, const float* __restrict__ bdw,
     const float* __restrict__ wout, const float* __restrict__ bout,
-    const float* __restrict__ ls, float* __restrict__ dx,
+    const float* __restrict__ ls, In* __restrict__ dx,
     float* __restrict__ xn_g, float* __restrict__ du_g,
     float* __restrict__ g_g, float* __restrict__ do0_g,
     float* __restrict__ partial, int B, int T, float eps, GcfnDrop drop) {
@@ -163,6 +214,11 @@ gcfn_train_bwd_rows_kernel(
   constexpr int TT = S::TT, R4 = S::R4, R2 = S::R2, H6 = S::H6, H3 = S::H3,
                 CH = S::CH, NC = S::NC, LX = S::LX, LU = S::LU, LG = S::LG;
   constexpr int kThreads = S::kThreads, kWarps = S::kWarps;
+  // bfloat16: every product operand rounded where the JAX kernel rounds
+  // it (gcfn_train.py:453-517), the rest float32
+  constexpr bool kBf16 = !std::is_same<In, float>::value;
+  auto rnd = [](float v) { return kBf16 ? bf16s::rounded(v) : v; };
+  using bf16s::to_f;
   extern __shared__ __align__(16) float smem[];
   float* xn = smem + S::xn;    // [R4][LX] LN rows t0-2 .. t0+TT+1
   float* d0 = smem + S::d0;    // [32][LX] do0 rows t0-1 .. t0+TT, rows R2..
@@ -205,12 +261,12 @@ gcfn_train_bwd_rows_kernel(
         for (int k = lane; k < F; k += 32) dst[k] = 0.f;
         continue;
       }
-      const float* src = x + (base + t) * F;
+      const In* src = x + (base + t) * F;
       float v[F / 32];
       float s = 0.f;
 #pragma unroll
       for (int q = 0; q < F / 32; ++q) {
-        v[q] = src[lane + 32 * q];
+        v[q] = to_f(src[lane + 32 * q]);
         s += v[q];
       }
       const float mean = gcfn_mma::warp_sum(s) * (1.f / F);
@@ -224,7 +280,7 @@ gcfn_train_bwd_rows_kernel(
 #pragma unroll
       for (int q = 0; q < F / 32; ++q) {
         const int k = lane + 32 * q;
-        const float n = v[q] * iv * lns[k] + lnb[k];
+        const float n = rnd(v[q] * iv * lns[k] + lnb[k]);
         dst[k] = n;
         if (main) xn_g[(base + t) * F + k] = n;
       }
@@ -237,9 +293,11 @@ gcfn_train_bwd_rows_kernel(
       if (t >= 0 && t < T) {
         const size_t gr = base + t;
         v = sep_keep(drop.seed1, (uint32_t)gr, (uint32_t)f, drop.threshold)
-                ? dout[gr * F + f] * ls[f] * drop.scale
+                ? to_f(dout[gr * F + f]) * ls[f] * drop.scale
                 : 0.f;
-        if (i >= 1 && i <= TT) do0_g[gr * F + f] = v;
+        // d0 keeps the float32 do0 (its sum is db_out); the products
+        // read it rounded
+        if (i >= 1 && i <= TT) do0_g[gr * F + f] = rnd(v);
       }
       d0[i * LX + f] = v;
     }
@@ -259,7 +317,8 @@ gcfn_train_bwd_rows_kernel(
       //    This warp: local columns 16 warp .. 16 warp + 15.
       {
         float a[2][2][4] = {};
-        warp_product<2, 2, F / 8>(a, xn, LX, [&](int ks, int nt) {
+        warp_product<kBf16, false, 2, 2, F / 8>(a, xn, LX, [&](int ks,
+                                                               int nt) {
           const float* w = win + (size_t)(8 * ks + 2 * t4) * H6 +
                            hidden_col<F>(c, 16 * warp + 8 * nt + g8);
           return make_float2(w[0], w[H6]);
@@ -300,6 +359,7 @@ gcfn_train_bwd_rows_kernel(
                        drop.threshold)
                   ? yr[cl] * sigmoid(yr[CH + cl]) * drop.scale
                   : 0.f;
+          v = rnd(v);
           g_g[gr * H3 + col] = v;
         }
         gc[i * LG + cl] = v;
@@ -308,14 +368,15 @@ gcfn_train_bwd_rows_kernel(
 
       // d. o0 += g_c wout_c (wout rows c*CH ..); dg_c = do0 wout_c^T, this
       //    warp's 8 GLU pairs.
-      warp_product<2, 2, CH / 8>(o0, gc, LG, [&](int ks, int nt) {
+      warp_product<kBf16, false, 2, 2, CH / 8>(o0, gc, LG, [&](int ks,
+                                                                int nt) {
         const float* w = wout + (size_t)(c * CH + 8 * ks + 2 * t4) * F +
                          16 * warp + 8 * nt + g8;
         return make_float2(w[0], w[F]);
       });
       {
         float a[2][1][4] = {};
-        warp_product<2, 1, F / 8>(a, d0, LX, [&](int ks, int) {
+        warp_product<kBf16, true, 2, 1, F / 8>(a, d0, LX, [&](int ks, int) {
           return *reinterpret_cast<const float2*>(
               wout + (size_t)(c * CH + 8 * warp + g8) * F + 8 * ks + 2 * t4);
         });
@@ -366,8 +427,9 @@ gcfn_train_bwd_rows_kernel(
           if (t0 + i < T) {
             v = y[(i + 2) * LU + j] * w[0] + y[(i + 1) * LU + j] * w[1] +
                 y[i * LU + j] * w[2];
-            du_g[(base + t0 + i) * H6 + hj] = v;
             sbin += v;
+            v = rnd(v);
+            du_g[(base + t0 + i) * H6 + hj] = v;
           }
           u[(i + 2) * LU + j] = v;
         }
@@ -381,7 +443,8 @@ gcfn_train_bwd_rows_kernel(
 
       // g. dxn += du_c win_c^T (du rows from u row 2; the fragments' rows
       //    past TT are discarded).
-      warp_product<2, 2, NC / 8>(dxn, u + 2 * LU, LU, [&](int ks, int nt) {
+      warp_product<kBf16, false, 2, 2, NC / 8>(dxn, u + 2 * LU, LU, [&](int ks,
+                                                                    int nt) {
         return *reinterpret_cast<const float2*>(
             win + (size_t)(16 * warp + 8 * nt + g8) * H6 +
             hidden_col<F>(c, 8 * ks + 2 * t4));
@@ -412,7 +475,8 @@ gcfn_train_bwd_rows_kernel(
       for (int i = 0; i < TT && t0 + i < T; ++i) {
         const size_t gr = base + t0 + i;
         if (sep_keep(drop.seed1, (uint32_t)gr, (uint32_t)f, drop.threshold))
-          s += dout[gr * F + f] * (u[i * LU + f] + bout[f]) * drop.scale;
+          s += to_f(dout[gr * F + f]) * (u[i * LU + f] + bout[f]) *
+               drop.scale;
       }
       acc[P::ls + f] += s;
     } else if (tid < 2 * F) {
@@ -432,12 +496,12 @@ gcfn_train_bwd_rows_kernel(
         continue;
       }
       const size_t gr = base + t;
-      const float* src = x + gr * F;
+      const In* src = x + gr * F;
       float hv[F / 32], dh[F / 32];
       float s = 0.f;
 #pragma unroll
       for (int q = 0; q < F / 32; ++q) {
-        hv[q] = src[lane + 32 * q];
+        hv[q] = to_f(src[lane + 32 * q]);
         s += hv[q];
       }
       const float mean = gcfn_mma::warp_sum(s) * (1.f / F);
@@ -464,7 +528,8 @@ gcfn_train_bwd_rows_kernel(
 #pragma unroll
       for (int q = 0; q < F / 32; ++q) {
         const int k = lane + 32 * q;
-        dx[gr * F + k] = dout[gr * F + k] + (dh[q] - m1 - hv[q] * m2) * iv;
+        dx[gr * F + k] = bf16s::from_f<In>(
+            to_f(dout[gr * F + k]) + (dh[q] - m1 - hv[q] * m2) * iv);
       }
     }
     __syncthreads();
@@ -492,7 +557,10 @@ constexpr int kAL = kTM + 8;                // staged row stride (8 mod 32)
 // partial[split][m][n] = sum over the split's rows r of A[r][m] * B[r][n];
 // A [rows][M], B [rows][N], M and N multiples of 64.  The row index is
 // the products' k: a k-step's A fragment is As[r][m] and its B fragment
-// Bs[r][n], 32 rows staged at a time, two stages in flight.
+// Bs[r][n], 32 rows staged at a time, two stages in flight.  kExact: A
+// and B hold bfloat16-exact values (the bfloat16 row pass wrote them
+// rounded), so one TF32 product takes each exactly, in place of three.
+template <bool kExact>
 __global__ void __launch_bounds__(kAtbThreads)
 gcfn_train_bwd_atb_kernel(const float* __restrict__ A,
                           const float* __restrict__ Bm,
@@ -541,17 +609,29 @@ gcfn_train_bwd_atb_kernel(const float* __restrict__ A,
         const float a[4] = {As[buf][8 * kk + t][m], As[buf][8 * kk + t][m + 8],
                             As[buf][8 * kk + t + 4][m],
                             As[buf][8 * kk + t + 4][m + 8]};
-        tf32x3::split(a, ab[mt], as[mt]);
+        if constexpr (kExact) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) ab[mt][i] = __float_as_uint(a[i]);
+        } else {
+          tf32x3::split(a, ab[mt], as[mt]);
+        }
       }
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         const int nn = wn + 8 * nt + g;
         uint32_t bb[2], bs[2];
-        tf32x3::split(Bs[buf][8 * kk + t][nn], bb[0], bs[0]);
-        tf32x3::split(Bs[buf][8 * kk + t + 4][nn], bb[1], bs[1]);
+        if constexpr (kExact) {
+          bb[0] = __float_as_uint(Bs[buf][8 * kk + t][nn]);
+          bb[1] = __float_as_uint(Bs[buf][8 * kk + t + 4][nn]);
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          tf32x3::mma3(cs[mt][nt], ab[mt], as[mt], bb, bs);
+          for (int mt = 0; mt < 2; ++mt) tf32x3::mma(cs[mt][nt], ab[mt], bb);
+        } else {
+          tf32x3::split(Bs[buf][8 * kk + t][nn], bb[0], bs[0]);
+          tf32x3::split(Bs[buf][8 * kk + t + 4][nn], bb[1], bs[1]);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            tf32x3::mma3(cs[mt][nt], ab[mt], as[mt], bb, bs);
+        }
       }
     }
 #pragma unroll
@@ -622,43 +702,60 @@ struct BwdPartition {
   }
 };
 
-template <int F>
-int launch_fwd(const float* x, const float* lns, const float* lnb,
-               const float* win, const float* bin, const float* wdw,
-               const float* bdw, const float* wout, const float* bout,
-               const float* ls, float* out, int B, int T, float eps,
-               GcfnDrop drop, cudaStream_t s) {
-  constexpr int TT = gcfn_mma::kTT;
+// K7's float32 or bfloat16 instance at width F.
+template <int F, class In>
+constexpr auto fwd_kernel() {
+  if constexpr (std::is_same<In, float>::value)
+    return gcfn_train_fwd_kernel<F>;
+  else
+    return gcfn_train_fwd_bf16_kernel<F>;
+}
+
+template <int F, class In>
+cudaError_t set_fwd_attributes() {
   constexpr size_t smem = gcfn_mma::Shape<F>::smem_bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      gcfn_train_fwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd_kernel<F, In>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err == cudaSuccess)  // room for Shape<F>::blocks_per_sm blocks
-    err = cudaFuncSetAttribute(gcfn_train_fwd_kernel<F>,
+    err = cudaFuncSetAttribute(fwd_kernel<F, In>(),
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+template <int F, class In>
+int launch_fwd(const In* x, const float* lns, const float* lnb,
+               const float* win, const float* bin, const float* wdw,
+               const float* bdw, const float* wout, const float* bout,
+               const float* ls, In* out, int B, int T, float eps,
+               GcfnDrop drop, cudaStream_t s) {
+  constexpr int TT = gcfn_mma::kTT;
+  const cudaError_t err = set_fwd_attributes<F, In>();
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T + TT - 1) / TT, B);
-  gcfn_train_fwd_kernel<F><<<grid, gcfn_mma::kThreads, smem, s>>>(
+  const auto kernel = fwd_kernel<F, In>();
+  kernel<<<grid, gcfn_mma::kThreads, gcfn_mma::Shape<F>::smem_bytes, s>>>(
       x, lns, lnb, win, bin, wdw, bdw, wout, bout, ls, out, T, eps, drop);
   return (int)cudaGetLastError();
 }
 
-template <int F>
+template <int F, class In>
 cudaError_t set_rows_attributes() {
-  return cudaFuncSetAttribute(gcfn_train_bwd_rows_kernel<F>,
+  return cudaFuncSetAttribute(gcfn_train_bwd_rows_kernel<F, In>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)BwdShape<F>::smem_bytes);
 }
 
-template <int F>
-int launch_bwd(const float* x, const float* dout, const float* lns,
+template <int F, class In>
+int launch_bwd(const In* x, const In* dout, const float* lns,
                const float* lnb, const float* win, const float* bin,
                const float* wdw, const float* bdw, const float* wout,
-               const float* bout, const float* ls, float* dx,
+               const float* bout, const float* ls, In* dx,
                float* grads_small, float* grads_big, float* scratch,
                long long scratch_floats, int B, int T, float eps,
                GcfnDrop drop, cudaStream_t s) {
+  constexpr bool kExact = !std::is_same<In, float>::value;
   constexpr int H6 = 6 * F, H3 = 3 * F;
   const BwdPartition<F> part(B, T);
   if (scratch_floats < part.floats()) return (int)cudaErrorInvalidValue;
@@ -666,9 +763,9 @@ int launch_bwd(const float* x, const float* dout, const float* lns,
         *g = scratch + part.g(), *do0 = scratch + part.do0(),
         *small_partial = scratch + part.small_partial(),
         *big_partial = scratch + part.big_partial();
-  cudaError_t err = set_rows_attributes<F>();
+  cudaError_t err = set_rows_attributes<F, In>();
   if (err != cudaSuccess) return (int)err;
-  gcfn_train_bwd_rows_kernel<F>
+  gcfn_train_bwd_rows_kernel<F, In>
       <<<part.groups, BwdShape<F>::kThreads, BwdShape<F>::smem_bytes, s>>>(
           x, dout, lns, lnb, win, bin, wdw, bdw, wout, bout, ls, dx, xn, du,
           g, do0, small_partial, B, T, eps, drop);
@@ -677,12 +774,12 @@ int launch_bwd(const float* x, const float* dout, const float* lns,
   const int rows = B * T;
   const int per_split = (rows + part.splits - 1) / part.splits;
   const long long big = (long long)F * H6 + (long long)H3 * F;
-  gcfn_train_bwd_atb_kernel<<<dim3(H6 / kTN, F / kTM, part.splits),
-                              kAtbThreads, 0, s>>>(
+  gcfn_train_bwd_atb_kernel<kExact>
+      <<<dim3(H6 / kTN, F / kTM, part.splits), kAtbThreads, 0, s>>>(
       xn, du, big_partial, rows, F, H6, per_split, big);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  gcfn_train_bwd_atb_kernel<<<dim3(F / kTN, H3 / kTM, part.splits),
-                              kAtbThreads, 0, s>>>(
+  gcfn_train_bwd_atb_kernel<kExact>
+      <<<dim3(F / kTN, H3 / kTM, part.splits), kAtbThreads, 0, s>>>(
       g, do0, big_partial + (size_t)F * H6, rows, H3, F, per_split, big);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   int e = reduce(big_partial, grads_big, part.splits, big, s);
@@ -691,22 +788,17 @@ int launch_bwd(const float* x, const float* dout, const float* lns,
 }
 
 // K7's and K8's row pass's blocks per SM, registers, local (spill) bytes
-// and warps per block at width F, into o[0 .. 3] and o[4 .. 7].
-template <int F>
+// and warps per block at width F, for stream type In, into o[0 .. 3] and
+// o[4 .. 7].
+template <int F, class In>
 cudaError_t occupancy(int* o) {
   constexpr int kSmem[2] = {(int)gcfn_mma::Shape<F>::smem_bytes,
                             (int)BwdShape<F>::smem_bytes};
   constexpr int kBlock[2] = {gcfn_mma::kThreads, BwdShape<F>::kThreads};
-  const void* kernels[2] = {(const void*)gcfn_train_fwd_kernel<F>,
-                            (const void*)gcfn_train_bwd_rows_kernel<F>};
-  cudaError_t err = cudaFuncSetAttribute(
-      gcfn_train_fwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem[0]);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(gcfn_train_fwd_kernel<F>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess) err = set_rows_attributes<F>();
+  const void* kernels[2] = {(const void*)fwd_kernel<F, In>(),
+                            (const void*)gcfn_train_bwd_rows_kernel<F, In>};
+  cudaError_t err = set_fwd_attributes<F, In>();
+  if (err == cudaSuccess) err = set_rows_attributes<F, In>();
   for (int k = 0; k < 2 && err == cudaSuccess; ++k) {
     cudaFuncAttributes attr;
     err = cudaFuncGetAttributes(&attr, kernels[k]);
@@ -748,7 +840,33 @@ extern "C" int sep_gcfn_train_fwd_f32(
   return (int)cudaErrorInvalidValue;
 }
 
-// The floats of scratch that sep_gcfn_train_bwd_f32 needs at B x T
+// K7's bfloat16 instance: x and out bfloat16 [B, T, F], the rest as
+// sep_gcfn_train_fwd_f32's.
+extern "C" int sep_gcfn_train_fwd_bf16(
+    const void* x, const void* lns, const void* lnb, const void* win,
+    const void* bin, const void* wdw, const void* bdw, const void* wout,
+    const void* bout, const void* ls, void* out, int B, int T, int F,
+    float eps, unsigned seed0, unsigned seed1, unsigned threshold,
+    float scale, void* stream) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto xb = static_cast<const __nv_bfloat16*>(x);
+  auto o = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const GcfnDrop drop{seed0, seed1, threshold, scale};
+  if (B <= 0 || T <= 0) return 0;
+  if (F == 128)
+    return launch_fwd<128>(xb, f(lns), f(lnb), f(win), f(bin), f(wdw),
+                           f(bdw), f(wout), f(bout), f(ls), o, B, T, eps,
+                           drop, s);
+  if (F == 256)
+    return launch_fwd<256>(xb, f(lns), f(lnb), f(win), f(bin), f(wdw),
+                           f(bdw), f(wout), f(bout), f(ls), o, B, T, eps,
+                           drop, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The floats of scratch that sep_gcfn_train_bwd_f32 (and _bf16) needs at
+// B x T
 // (F = 128 or 256; 0 for other widths).
 extern "C" long long sep_gcfn_train_bwd_scratch_floats(int B, int T, int F) {
   if (B <= 0 || T <= 0) return 0;
@@ -789,12 +907,52 @@ extern "C" int sep_gcfn_train_bwd_f32(
   return (int)cudaErrorInvalidValue;
 }
 
+// K8's bfloat16 instance: x, dout and dx bfloat16 [B, T, F], the nine
+// parameter gradients float32 sums, the rest as sep_gcfn_train_bwd_f32's.
+extern "C" int sep_gcfn_train_bwd_bf16(
+    const void* x, const void* dout, const void* lns, const void* lnb,
+    const void* win, const void* bin, const void* wdw, const void* bdw,
+    const void* wout, const void* bout, const void* ls, void* dx,
+    void* grads_small, void* grads_big, void* scratch,
+    long long scratch_floats, int B, int T, int F, float eps,
+    unsigned seed0, unsigned seed1, unsigned threshold, float scale,
+    void* stream) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto w = [](void* p) { return static_cast<float*>(p); };
+  auto b = [](const void* p) {
+    return static_cast<const __nv_bfloat16*>(p);
+  };
+  auto dxb = static_cast<__nv_bfloat16*>(dx);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const GcfnDrop drop{seed0, seed1, threshold, scale};
+  if (B <= 0 || T <= 0) return 0;
+  if (F == 128)
+    return launch_bwd<128>(b(x), b(dout), f(lns), f(lnb), f(win), f(bin),
+                           f(wdw), f(bdw), f(wout), f(bout), f(ls), dxb,
+                           w(grads_small), w(grads_big), w(scratch),
+                           scratch_floats, B, T, eps, drop, s);
+  if (F == 256)
+    return launch_bwd<256>(b(x), b(dout), f(lns), f(lnb), f(win), f(bin),
+                           f(wdw), f(bdw), f(wout), f(bout), f(ls), dxb,
+                           w(grads_small), w(grads_big), w(scratch),
+                           scratch_floats, B, T, eps, drop, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 // K7's then K8's row pass's blocks per SM, registers, local (spill) bytes
 // and warps per block at width F (128 or 256), with the launches'
 // attributes set, into out[0 .. 7].
 extern "C" int sep_gcfn_train_occupancy(int F, void* out) {
   int* o = static_cast<int*>(out);
-  if (F == 128) return (int)occupancy<128>(o);
-  if (F == 256) return (int)occupancy<256>(o);
+  if (F == 128) return (int)occupancy<128, float>(o);
+  if (F == 256) return (int)occupancy<256, float>(o);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The same of the bfloat16 instances.
+extern "C" int sep_gcfn_train_bf16_occupancy(int F, void* out) {
+  int* o = static_cast<int*>(out);
+  if (F == 128) return (int)occupancy<128, __nv_bfloat16>(o);
+  if (F == 256) return (int)occupancy<256, __nv_bfloat16>(o);
   return (int)cudaErrorInvalidValue;
 }

@@ -39,6 +39,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace tf32x3 {
 
 // x rounded to TF32 (as cvt.rna.tf32.f32 rounds a finite x): half a TF32
@@ -190,8 +192,9 @@ __device__ __forceinline__ void cp_async_wait() {
 }  // namespace tf32x3
 
 // bfloat16 streams on the tensor cores (namespace bf16s): the helpers of
-// the bfloat16 instances of K1 (gcfn_tile_mma.cuh), K3
-// (softmax_pv_tile.cuh) and K12 (flash_relpos_tile.cuh).
+// the bfloat16 instances of K1 and K7 (gcfn_tile_mma.cuh), K3 and K9
+// (softmax_pv_tile.cuh), K8 and K10 (gcfn_train.cu, softmax_pv_train.cu)
+// and K12 (flash_relpos_tile.cuh).
 //
 // The JAX kernels take a bfloat16 stream as bfloat16 operands with float32
 // sums (preferred_element_type=float32) and keep their statistics, softmax
@@ -222,6 +225,15 @@ __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
+// A float as a value of type T (rounded to nearest even into bfloat16).
+template <class T>
+__device__ __forceinline__ T from_f(float v) {
+  if constexpr (std::is_same<T, float>::value)
+    return v;
+  else
+    return __float2bfloat16_rn(v);
+}
+
 // Two floats stored as two consecutive values (rounded to nearest even
 // into bfloat16).
 __device__ __forceinline__ void store2(float* p, float a, float b) {
@@ -233,10 +245,12 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 
 // acc[mt][nt] += A B by one warp, as tf32x3::warp_product lays out its
 // fragments, but with one TF32 product per fragment: A (row-major in
-// shared memory) holds values already rounded to bfloat16, and bfrag's
-// two B values are rounded here, so every product is exact.  The product
-// sums into zeroed fragments, added to acc in float32 at the end.
-template <int MT, int NT, int KS, class BFrag>
+// shared memory) holds values already rounded to bfloat16 (or, with
+// kRoundA, float32 values that are rounded as they are read: K8's do0,
+// whose float32 rows also give its bias gradient), and bfrag's two B
+// values are rounded here, so every product is exact.  The product sums
+// into zeroed fragments, added to acc in float32 at the end.
+template <int MT, int NT, int KS, bool kRoundA = false, class BFrag>
 __device__ __forceinline__ void warp_product(float (&acc)[MT][NT][4],
                                              const float* A, int lda,
                                              BFrag bfrag) {
@@ -250,10 +264,17 @@ __device__ __forceinline__ void warp_product(float (&acc)[MT][NT][4],
       const float* p = A + (16 * mt + g) * lda + 8 * ks + 2 * t;
       const float2 lo = *reinterpret_cast<const float2*>(p);
       const float2 hi = *reinterpret_cast<const float2*>(p + 8 * lda);
-      a[mt][0] = __float_as_uint(lo.x);
-      a[mt][1] = __float_as_uint(hi.x);
-      a[mt][2] = __float_as_uint(lo.y);
-      a[mt][3] = __float_as_uint(hi.y);
+      if (kRoundA) {
+        a[mt][0] = __float_as_uint(rounded(lo.x));
+        a[mt][1] = __float_as_uint(rounded(hi.x));
+        a[mt][2] = __float_as_uint(rounded(lo.y));
+        a[mt][3] = __float_as_uint(rounded(hi.y));
+      } else {
+        a[mt][0] = __float_as_uint(lo.x);
+        a[mt][1] = __float_as_uint(hi.x);
+        a[mt][2] = __float_as_uint(lo.y);
+        a[mt][3] = __float_as_uint(hi.y);
+      }
     }
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {

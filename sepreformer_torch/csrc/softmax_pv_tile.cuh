@@ -65,7 +65,11 @@
 // TF32 mma.sync on those exact values (mma_tf32x3.cuh) in place of
 // three; V's tiles are staged as bfloat16 rows at stride D + 8 (no XOR),
 // and the output, divided by l in float32, is stored rounded.  With a
-// float32 V the P·V stays 3xTF32.
+// float32 V the P·V stays 3xTF32.  K9 (TRAIN) takes the same bfloat16
+// forms: with a bfloat16 V it rounds e * keep / (1 - p) (the JAX
+// kernel's e * drop_scale), and also sums the unrounded weights' P·V
+// into out32 (float32), two TF32 products per k-step (V is exact), into
+// its running fragments rescaled by alpha per tile: K10 reads it.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -123,6 +127,8 @@ struct Args {
   int H, Lp, F, length;
   uint32_t seed_word, threshold;  // threshold 0: no dropout
   float keep_scale;               // 1 / (1 - p)
+  float* out32;  // K9 with a bfloat16 V: [B, Lp, F] float32, the output
+                 // of the unrounded weights (K10's dOut . out), else null
 };
 
 // 2^x on the SFU (relative error about 2^-22; 2^-inf = 0).
@@ -246,9 +252,11 @@ __device__ __forceinline__ void run(const Args& a) {
   constexpr int kRowTiles = S::kRowTiles, kStepKeys = S::kStepKeys;
   constexpr int kVS = S::kVS, kNN = S::kNN, kChains = S::kChains;
   constexpr bool kBf16V = std::is_same<VT, __nv_bfloat16>::value;
-  static_assert(!(HAS_BIAS || TRAIN) ||
-                    (std::is_same<SC, float>::value && !kBf16V),
-                "bfloat16: K3's one-tensor eval form alone");
+  static_assert(!HAS_BIAS || (std::is_same<SC, float>::value && !kBf16V),
+                "bfloat16: the one-tensor forms alone (K3, K9)");
+  // K9 with a bfloat16 V also sums the unrounded weights' P·V, in
+  // float32 (out32)
+  constexpr bool kO32 = TRAIN && kBf16V;
   // a bfloat16 V stage: rows at stride D + 8 bfloat16 values (16-byte
   // aligned), within the float stage's room
   constexpr int kVSb = D + 8;
@@ -314,7 +322,11 @@ __device__ __forceinline__ void run(const Args& a) {
       sep_row_half(a.seed_word, (uint32_t)(bh * Lp + iw + g + 8))};
   const uint32_t threshold8 = a.threshold << 8;
   constexpr float kLog2e = 1.4426950408889634f;
+  // K9 with a bfloat16 V rounds e / (1 - p) (the JAX kernel's e *
+  // drop_scale) before ·V, so 1 / (1 - p) goes into the weights there
+  const float wscale = kO32 && a.threshold ? a.keep_scale : 1.f;
   float o[kNN][4] = {};
+  float o32[kO32 ? kNN : 1][4] = {};
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 
   // the tile's softmax and P·V, on its scores in cur, V's rows in vt
@@ -373,15 +385,29 @@ __device__ __forceinline__ void run(const Args& a) {
     // accumulators (k-steps nt mod kChains), summed and added to O in
     // float32.
     float pv[kChains][kNN][4] = {};
+    // out32 takes its products straight into its fragments, rescaled
+    // here (at most eight tiles of eight k-steps a row, so the tensor
+    // cores' accumulation cannot drift as it did over K12's thousands):
+    // a fresh chain of its own spilled at 128 registers
+    if constexpr (kO32) {
+#pragma unroll
+      for (int nn = 0; nn < kNN; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o32[nn][e] *= alpha[e >> 1];
+    }
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       const float p4[4] = {cur[nt][0], cur[nt][2], cur[nt][1], cur[nt][3]};
       if constexpr (kBf16V) {
         // P rounded to V's dtype (after its sum), one exact TF32 product
-        uint32_t pb[4];
+        float w4[4];
+        uint32_t pb[4], wb[4], ws[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          pb[i] = __float_as_uint(bf16s::rounded(p4[i]));
+        for (int i = 0; i < 4; ++i) {
+          w4[i] = kO32 ? p4[i] * wscale : p4[i];
+          pb[i] = __float_as_uint(bf16s::rounded(w4[i]));
+        }
+        if constexpr (kO32) tf32x3::split(w4, wb, ws);
         const __nv_bfloat16* vp = vt + key_of(nt, 0, t) * kVSb + g;
 #pragma unroll
         for (int nn = 0; nn < kNN; ++nn) {
@@ -389,6 +415,10 @@ __device__ __forceinline__ void run(const Args& a) {
               __float_as_uint(__bfloat162float(vp[8 * nn])),
               __float_as_uint(__bfloat162float(vp[kVSb + 8 * nn]))};
           tf32x3::mma(pv[nt % kChains][nn], pb, vb2);
+          if constexpr (kO32) {  // V is exact in TF32: two terms
+            tf32x3::mma(o32[nn], ws, vb2);
+            tf32x3::mma(o32[nn], wb, vb2);
+          }
         }
       } else {
         uint32_t pb[4], ps[4];
@@ -468,8 +498,11 @@ __device__ __forceinline__ void run(const Args& a) {
   // their max, sums and output fragments, warp 0 of the row tile merges
   // them into its own in the order of ks (m the larger max, each side
   // scaled by exp(m_side - m)) and writes the rows
-  float* xch = &vs[0][0] + (rt * 32 + lane) * S::kXch;
-  constexpr int kXch = kRowTiles * 32 * S::kXch;  // floats per split warp
+  constexpr int kLane = S::kXch + (kO32 ? 4 * kNN : 0);  // floats a lane
+  static_assert((SPLIT - 1) * kRowTiles * 32 * kLane <= 2 * S::kStage,
+                "the split warps' states fit over the V stages");
+  float* xch = &vs[0][0] + (rt * 32 + lane) * kLane;
+  constexpr int kXch = kRowTiles * 32 * kLane;  // floats per split warp
   if (ks > 0) {
     float* mine = xch + (ks - 1) * kXch;
 #pragma unroll
@@ -480,7 +513,10 @@ __device__ __forceinline__ void run(const Args& a) {
 #pragma unroll
     for (int nn = 0; nn < kNN; ++nn)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) mine[4 + 4 * nn + e] = o[nn][e];
+      for (int e = 0; e < 4; ++e) {
+        mine[4 + 4 * nn + e] = o[nn][e];
+        if constexpr (kO32) mine[4 + 4 * kNN + 4 * nn + e] = o32[nn][e];
+      }
   }
   __syncthreads();
   if (ks != 0) return;
@@ -499,22 +535,31 @@ __device__ __forceinline__ void run(const Args& a) {
 #pragma unroll
     for (int nn = 0; nn < kNN; ++nn)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
+      for (int e = 0; e < 4; ++e) {
         o[nn][e] = o[nn][e] * c0[e >> 1] + other[4 + 4 * nn + e] * c1[e >> 1];
+        if constexpr (kO32)
+          o32[nn][e] = o32[nn][e] * c0[e >> 1] +
+                       other[4 + 4 * kNN + 4 * nn + e] * c1[e >> 1];
+      }
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = iw + g + 8 * r;
     const float l = quad_sum(l_run[r]);
-    const float inv = (TRAIN && a.threshold ? a.keep_scale : 1.f) / l;
+    const float inv =
+        (TRAIN && !kO32 && a.threshold ? a.keep_scale : 1.f) / l;
     if (i < Lp) {
-      VT* dst = reinterpret_cast<VT*>(a.out) + ((size_t)b * Lp + i) * F +
-                h * D + 2 * t;
+      const size_t off = ((size_t)b * Lp + i) * F + h * D + 2 * t;
+      VT* dst = reinterpret_cast<VT*>(a.out) + off;
 #pragma unroll
-      for (int nn = 0; nn < kNN; ++nn)
+      for (int nn = 0; nn < kNN; ++nn) {
         bf16s::store2(dst + 8 * nn, o[nn][2 * r] * inv,
                       o[nn][2 * r + 1] * inv);
+        if constexpr (kO32)
+          bf16s::store2(a.out32 + off + 8 * nn, o32[nn][2 * r] * inv,
+                        o32[nn][2 * r + 1] * inv);
+      }
       if (TRAIN && t == 0) {
         a.row_max[bh * Lp + i] = m_run[r];
         a.row_sum[bh * Lp + i] = l;
@@ -580,14 +625,15 @@ inline int launch(Kernel one, Kernel two, const void* scores,
                   const void* bias, const void* v, const void* lens,
                   void* out, void* row_max, void* row_sum, int B, int H,
                   int Lp, int F, int length, uint32_t seed_word,
-                  uint32_t threshold, float keep_scale, void* stream) {
+                  uint32_t threshold, float keep_scale, void* stream,
+                  float* out32 = nullptr) {
   if (B <= 0 || Lp <= 0) return 0;
   if (int err = check<D>(B, H, Lp, F, length)) return err;
   const Args a{static_cast<const float*>(scores),
                static_cast<const float*>(bias), static_cast<const float*>(v),
                static_cast<const int*>(lens), static_cast<float*>(out),
                static_cast<float*>(row_max), static_cast<float*>(row_sum),
-               H, Lp, F, length, seed_word, threshold, keep_scale};
+               H, Lp, F, length, seed_word, threshold, keep_scale, out32};
   const int split =
       split_for(B, H, Lp, bias ? kMinBlocksBias : kMinBlocks);
   const int rows = split == 2 ? Shape<2, D>::kRows : Shape<1, D>::kRows;

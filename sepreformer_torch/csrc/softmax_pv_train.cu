@@ -56,6 +56,19 @@
 // The products (dP of depth 16, dV) stay on the CUDA cores: about 8 us of
 // FMAs at [4, 8, 512, 512], under the 21 us of bytes.
 //
+// bfloat16 streams (the JAX kernels' steps, :96-112 and :160-186): K9's
+// instances (softmax_pv_train_fwd_bf16_kernel<D, SPLIT, SC, VT>) are
+// K3's bfloat16 tile with the drop, e / (1 - p) rounded to V's dtype
+// before P·V and / l after, and with a bfloat16 V also the float32 P·V
+// of the unrounded weights (out32), since rowsum(dP * P) = dOut . out
+// holds for those weights and not for the rounded output; K10's
+// (softmax_pv_train_bwd_kernel<D, false, SC, VT>) stage the scores (SC)
+// and dOut (VT) in their dtype inside the float32 stage layout, read
+// out32 as out, round Pd to V's dtype before dV, and store dS in the
+// scores' dtype and dV in V's.  One instance per pairing the routes
+// reach: float32 scores with a bfloat16 V, both bfloat16, bfloat16
+// scores with a float32 V.
+//
 // Two instances of each, by head width D: Base's 16 and Large's 32.  K9
 // at D = 32 is the tile's D = 32 instance (K3's).  K10 at D = 32 keeps
 // the design: a lane's two keys' V rows and dV partials and a dOut row
@@ -66,9 +79,12 @@
 // a stage's dOut and out rows are D floats, the dV partials' rows D + 4,
 // their sum two float4s a thread.  Its FMAs double (16 us at [4, 8, 512,
 // 512]), still under the bytes' 21 us.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hash_dropout.cuh"
 #include "mma_tf32x3.cuh"  // cp_async16, cp_async4 and their group helpers
@@ -89,6 +105,15 @@ __global__ void __launch_bounds__(softmax_pv_tile::kThreads,
                                            : softmax_pv_tile::kMinBlocks)
 softmax_pv_train_fwd_kernel(softmax_pv_tile::Args a) {
   softmax_pv_tile::run<D, SPLIT, HAS_BIAS, true>(a);
+}
+
+// K9's bfloat16 instances: scores SC and V (and out) VT, one of them
+// bfloat16.
+template <int D, int SPLIT, class SC, class VT>
+__global__ void __launch_bounds__(softmax_pv_tile::kThreads,
+                                  softmax_pv_tile::kMinBlocks)
+softmax_pv_train_fwd_bf16_kernel(softmax_pv_tile::Args a) {
+  softmax_pv_tile::run<D, SPLIT, false, true, SC, VT>(a);
 }
 
 // K10's ring at head width D: kStages stages, each kStageRows query rows
@@ -115,21 +140,30 @@ struct BwdStage {
   static_assert(smem_bytes <= 227 * 1024, "the ring fits one block");
 };
 
-template <int D, bool HAS_BIAS>
+// SC is the scores' and dS's type, VT V's, dOut's and dV's (float or
+// __nv_bfloat16; the bias forms float alone); out is always float32: K9's
+// output, or with a bfloat16 V its float32 P·V of the unrounded weights
+// (out32), so that dOut . out is rowsum(dP * P) as the JAX kernel sums
+// it.  The stages keep their float32 layout; bfloat16 rows fill the
+// first half of their room.
+template <int D, bool HAS_BIAS, class SC = float, class VT = float>
 __global__ void __launch_bounds__(kThreads, (BwdStage<D, HAS_BIAS>::kBlocks))
-softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
+softmax_pv_train_bwd_kernel(const SC* __restrict__ scores,
                             const float* __restrict__ bias,
-                            const float* __restrict__ v,
+                            const VT* __restrict__ v,
                             const float* __restrict__ out,
-                            const float* __restrict__ dout,
+                            const VT* __restrict__ dout,
                             const float* __restrict__ row_max,
                             const float* __restrict__ row_sum,
                             const int* __restrict__ lens,
-                            float* __restrict__ dscores,
-                            float* __restrict__ dv, int H, int Lp, int F,
+                            SC* __restrict__ dscores,
+                            VT* __restrict__ dv, int H, int Lp, int F,
                             int length, uint32_t seed_word,
                             uint32_t threshold, float keep_scale) {
   static_assert(D == 16 || D == 32, "head widths 16 and 32");
+  constexpr bool kBf16S = !std::is_same<SC, float>::value;
+  constexpr bool kBf16V = !std::is_same<VT, float>::value;
+  static_assert(!HAS_BIAS || (!kBf16S && !kBf16V), "K10b: float32 alone");
   using S = BwdStage<D, HAS_BIAS>;
   constexpr int kStages = S::kStages;
   constexpr int RW = kStageRows / kWarps;  // rows of a stage per warp
@@ -142,27 +176,31 @@ softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
   const int j0 = blockIdx.x * kKeyTile, jl = j0 + 2 * lane;  // lane's keys
   const int lim = min(min(length, lens[b]), Lp);
   const size_t bh = (size_t)b * H + h;
-  const float* sb = scores + bh * Lp * Lp;
+  const SC* sb = scores + bh * Lp * Lp;
   const float* bb = HAS_BIAS ? bias + bh * Lp * Lp : nullptr;
-  float* dsb = dscores + bh * Lp * Lp;
-  const bool vec = Lp % 4 == 0;  // score rows in 16-byte copies
+  SC* dsb = dscores + bh * Lp * Lp;
+  // score rows in 16-byte copies (four floats, or eight bfloat16 values)
+  const bool vec = Lp % (kBf16S ? 8 : 4) == 0;
   const int tiles = (Lp + kStageRows - 1) / kStageRows;
+  using bf16s::from_f;
+  using bf16s::to_f;
 
   // dS row i at the lane's two keys (nothing at keys >= Lp)
   auto store_ds = [&](int i, float d0, float d1) {
-    float* dst = dsb + (size_t)i * Lp + jl;
+    SC* dst = dsb + (size_t)i * Lp + jl;
     if (Lp % 2 == 0 && jl + 1 < Lp) {
-      *reinterpret_cast<float2*>(dst) = make_float2(d0, d1);
+      bf16s::store2(dst, d0, d1);
     } else {
-      if (jl < Lp) dst[0] = d0;
-      if (jl + 1 < Lp) dst[1] = d1;
+      if (jl < Lp) dst[0] = from_f<SC>(d0);
+      if (jl + 1 < Lp) dst[1] = from_f<SC>(d1);
     }
   };
   if (j0 >= lim) {  // no valid key: dS and dV are zero
     for (int i = warp; i < Lp; i += kWarps) store_ds(i, 0.f, 0.f);
     for (int e = tid; e < kKeyTile * D; e += kThreads) {
       const int k = e / D, c = e - k * D;
-      if (j0 + k < Lp) dv[((size_t)b * Lp + j0 + k) * F + h * D + c] = 0.f;
+      if (j0 + k < Lp)
+        dv[((size_t)b * Lp + j0 + k) * F + h * D + c] = from_f<VT>(0.f);
     }
     return;
   }
@@ -174,7 +212,27 @@ softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
     if (k < tiles) {
       float* st = smem + (k % kStages) * S::floats;
       const int i0 = k * kStageRows;
-      if (vec) {
+      if constexpr (kBf16S) {
+        // the score rows as bfloat16 [rows][keys], 16-byte pieces of
+        // eight keys (one a thread), or plain loads where Lp % 8 != 0
+        auto* ss = reinterpret_cast<SC*>(st + S::s);
+        if (vec) {
+          static_assert(kStageRows * kKeyTile / 8 == kThreads,
+                        "one 16-byte piece of bfloat16 scores a thread");
+          const int r = tid / (kKeyTile / 8), j = 8 * (tid % (kKeyTile / 8));
+          const bool in = i0 + r < Lp && j0 + j < lim;
+          const size_t off = in ? (size_t)(i0 + r) * Lp + j0 + j : 0;
+          tf32x3::cp_async16(reinterpret_cast<float*>(ss + r * kKeyTile + j),
+                             reinterpret_cast<const float*>(sb + off), in);
+        } else {
+          for (int e = tid; e < kStageRows * kKeyTile; e += kThreads) {
+            const int r = e / kKeyTile, j = e - r * kKeyTile;
+            const bool in = i0 + r < Lp && j0 + j < lim;
+            ss[r * kKeyTile + j] =
+                in ? sb[(size_t)(i0 + r) * Lp + j0 + j] : from_f<SC>(0.f);
+          }
+        }
+      } else if (vec) {
 #pragma unroll
         for (int q = 0; q < kStageRows * kKeyTile / 4 / kThreads; ++q) {
           const int e = tid + q * kThreads;
@@ -197,6 +255,27 @@ softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
             tf32x3::cp_async4(st + S::bias + r * kKeyTile + j, bb + off, in);
         }
       }
+      if constexpr (kBf16V) {
+        // dOut rows as bfloat16 [rows][D] (D / 8 pieces a row), then out
+        // rows (float32, D / 4 pieces a row)
+        constexpr int kDout = kStageRows * D / 8, kAll = kDout + kStageRows * PR;
+        for (int e0 = tid; e0 < kAll; e0 += kThreads) {
+          const bool second = e0 >= kDout;
+          const int e = e0 - (second ? kDout : 0);
+          const int per = second ? PR : D / 8;
+          const int r = e / per, c = e % per;
+          const bool in = i0 + r < Lp;
+          const size_t row = ((size_t)b * Lp + (in ? i0 + r : 0)) * F + h * D;
+          if (second)
+            tf32x3::cp_async16(st + S::out + r * D + 4 * c, out + row + 4 * c,
+                               in);
+          else
+            tf32x3::cp_async16(
+                reinterpret_cast<float*>(
+                    reinterpret_cast<VT*>(st + S::dout) + r * D + 8 * c),
+                reinterpret_cast<const float*>(dout + row + 8 * c), in);
+        }
+      } else {
       // dOut rows (the first kStageRows * D / 4 copies), then out rows
       static_assert(2 * kStageRows * PR % kThreads == 0,
                     "16-byte copies of dOut and out, the same count a "
@@ -213,6 +292,7 @@ softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
                            c;
         tf32x3::cp_async16(st + (second ? S::out : S::dout) + r * D + c, src,
                            in);
+      }
       }
       if (tid < 2 * kStageRows) {  // row max (threads 0..31), then sum
         const bool second = tid >= kStageRows;
@@ -234,11 +314,11 @@ softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
 #pragma unroll
   for (int q = 0; q < 2; ++q) {
     const bool in = q ? valid1 : valid0;
-    const float4* src = reinterpret_cast<const float4*>(
-        v + ((size_t)b * Lp + (in ? jl + q : 0)) * F + h * D);
+    const VT* src = v + ((size_t)b * Lp + (in ? jl + q : 0)) * F + h * D;
 #pragma unroll
     for (int c4 = 0; c4 < D / 4; ++c4) {
-      const float4 t = in ? src[c4] : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 t = in ? softmax_pv_tile::load4(src + 4 * c4)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
       vj[q][4 * c4] = t.x;
       vj[q][4 * c4 + 1] = t.y;
       vj[q][4 * c4 + 2] = t.z;
@@ -263,8 +343,8 @@ softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
     {
       const int rr = (lane % (RW * PR)) / PR, c4 = lane % PR;
       const int r = warp + kWarps * rr;
-      const float4 g =
-          reinterpret_cast<const float4*>(st + S::dout + r * D)[c4];
+      const float4 g = softmax_pv_tile::load4(
+          reinterpret_cast<const VT*>(st + S::dout) + r * D + 4 * c4);
       const float4 o = reinterpret_cast<const float4*>(st + S::out + r * D)[c4];
       float d = g.x * o.x + g.y * o.y + g.z * o.z + g.w * o.w;
 #pragma unroll
@@ -283,15 +363,15 @@ softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
       float g[D];
 #pragma unroll
       for (int c4 = 0; c4 < D / 4; ++c4) {
-        const float4 t =
-            reinterpret_cast<const float4*>(st + S::dout + r * D)[c4];
+        const float4 t = softmax_pv_tile::load4(
+            reinterpret_cast<const VT*>(st + S::dout) + r * D + 4 * c4);
         g[4 * c4] = t.x;
         g[4 * c4 + 1] = t.y;
         g[4 * c4 + 2] = t.z;
         g[4 * c4 + 3] = t.w;
       }
-      float2 s2 = *reinterpret_cast<const float2*>(st + S::s + r * kKeyTile +
-                                                   2 * lane);
+      float2 s2 = bf16s::load2(reinterpret_cast<const SC*>(st + S::s) +
+                               r * kKeyTile + 2 * lane);
       if constexpr (HAS_BIAS) {
         const float2 b2 = *reinterpret_cast<const float2*>(
             st + S::bias + r * kKeyTile + 2 * lane);
@@ -318,7 +398,8 @@ softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
           d1 = fmaf(g[c + 1], vj[q][c + 1], d1);
         }
         ds[q] = p * ((d0 + d1) * scale - rowdot);
-        const float pd = p * scale;
+        // with a bfloat16 V (and dOut), Pd rounded to it before dV
+        const float pd = kBf16V ? bf16s::rounded(p * scale) : p * scale;
 #pragma unroll
         for (int c = 0; c < D; ++c) dvj[q][c] = fmaf(pd, g[c], dvj[q][c]);
       }
@@ -355,20 +436,27 @@ softmax_pv_train_bwd_kernel(const float* __restrict__ scores,
       acc.z += t.z;
       acc.w += t.w;
     }
-    if (j0 + k < Lp)
-      *reinterpret_cast<float4*>(dv + ((size_t)b * Lp + j0 + k) * F + h * D +
-                                 4 * c4) = acc;
+    if (j0 + k < Lp) {
+      VT* dst = dv + ((size_t)b * Lp + j0 + k) * F + h * D + 4 * c4;
+      if constexpr (kBf16V) {
+        bf16s::store2(dst, acc.x, acc.y);
+        bf16s::store2(dst + 2, acc.z, acc.w);
+      } else {
+        *reinterpret_cast<float4*>(dst) = acc;
+      }
+    }
   }
 }
 
-template <int D, bool HAS_BIAS>
+template <int D, bool HAS_BIAS, class SC = float, class VT = float>
 cudaError_t set_bwd_attributes() {
-  return cudaFuncSetAttribute(softmax_pv_train_bwd_kernel<D, HAS_BIAS>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)BwdStage<D, HAS_BIAS>::smem_bytes);
+  return cudaFuncSetAttribute(
+      softmax_pv_train_bwd_kernel<D, HAS_BIAS, SC, VT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)BwdStage<D, HAS_BIAS>::smem_bytes);
 }
 
-template <int D, bool HAS_BIAS>
+template <int D, bool HAS_BIAS, class SC = float, class VT = float>
 int launch_bwd(const void* scores, const void* bias, const void* v,
                const void* out, const void* dout, const void* row_max,
                const void* row_sum, const void* lens, void* dscores,
@@ -376,17 +464,18 @@ int launch_bwd(const void* scores, const void* bias, const void* v,
                uint32_t seed_word, uint32_t threshold, float keep_scale,
                void* stream) {
   if (int err = softmax_pv_tile::check<D>(B, H, Lp, F, length)) return err;
-  const cudaError_t err = set_bwd_attributes<D, HAS_BIAS>();
+  const cudaError_t err = set_bwd_attributes<D, HAS_BIAS, SC, VT>();
   if (err != cudaSuccess) return (int)err;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   dim3 grid((Lp + kKeyTile - 1) / kKeyTile, H, B);
-  softmax_pv_train_bwd_kernel<D, HAS_BIAS>
+  softmax_pv_train_bwd_kernel<D, HAS_BIAS, SC, VT>
       <<<grid, kThreads, BwdStage<D, HAS_BIAS>::smem_bytes,
          static_cast<cudaStream_t>(stream)>>>(
-          f(scores), f(bias), f(v), f(out), f(dout), f(row_max), f(row_sum),
-          static_cast<const int*>(lens), static_cast<float*>(dscores),
-          static_cast<float*>(dv), H, Lp, F, length, seed_word, threshold,
-          keep_scale);
+          static_cast<const SC*>(scores), f(bias),
+          static_cast<const VT*>(v), f(out), static_cast<const VT*>(dout),
+          f(row_max), f(row_sum), static_cast<const int*>(lens),
+          static_cast<SC*>(dscores), static_cast<VT*>(dv), H, Lp, F, length,
+          seed_word, threshold, keep_scale);
   return (int)cudaGetLastError();
 }
 
@@ -424,6 +513,47 @@ int launch_bwd_any(const void* scores, const void* bias, const void* v,
                : &launch_bwd<kBaseD, HAS_BIAS>)(
       scores, bias, v, out, dout, row_max, row_sum, lens, dscores, dv, B, H,
       Lp, F, length, seed_word, threshold, keep_scale, stream);
+}
+
+// K9's bfloat16 instances at head width D, by pairing: scores bfloat16
+// (sbf) or float32, V bfloat16 (vbf) or float32, one of them bfloat16.
+template <int D>
+int launch_fwd_bf16(const void* scores, const void* v, const void* lens,
+                    void* out, void* out32, void* row_max, void* row_sum,
+                    int B, int H, int Lp, int F, int length, bool sbf,
+                    bool vbf, uint32_t seed_word, uint32_t threshold,
+                    float keep_scale, void* stream) {
+  using bf = __nv_bfloat16;
+  using softmax_pv_tile::launch;
+  float* o32 = static_cast<float*>(out32);
+#define SEP_K9_BF16(SC, VT)                                                \
+  launch<D>(softmax_pv_train_fwd_bf16_kernel<D, 1, SC, VT>,                \
+            softmax_pv_train_fwd_bf16_kernel<D, 2, SC, VT>, scores, nullptr, \
+            v, lens, out, row_max, row_sum, B, H, Lp, F, length, seed_word, \
+            threshold, keep_scale, stream, o32)
+  if (sbf && vbf) return SEP_K9_BF16(bf, bf);
+  if (vbf) return SEP_K9_BF16(float, bf);
+  if (sbf) return SEP_K9_BF16(bf, float);
+#undef SEP_K9_BF16
+  return (int)cudaErrorInvalidValue;
+}
+
+// K10's bfloat16 instances at head width D, by pairing.
+template <int D>
+int launch_bwd_bf16(const void* scores, const void* v, const void* out,
+                    const void* dout, const void* row_max,
+                    const void* row_sum, const void* lens, void* dscores,
+                    void* dv, int B, int H, int Lp, int F, int length,
+                    bool sbf, bool vbf, uint32_t seed_word,
+                    uint32_t threshold, float keep_scale, void* stream) {
+  using bf = __nv_bfloat16;
+  auto pick = sbf && vbf ? &launch_bwd<D, false, bf, bf>
+              : vbf      ? &launch_bwd<D, false, float, bf>
+                         : &launch_bwd<D, false, bf, float>;
+  if (!sbf && !vbf) return (int)cudaErrorInvalidValue;
+  return pick(scores, nullptr, v, out, dout, row_max, row_sum, lens, dscores,
+              dv, B, H, Lp, F, length, seed_word, threshold, keep_scale,
+              stream);
 }
 
 template <int D, bool HAS_BIAS>
@@ -488,6 +618,41 @@ extern "C" int sep_softmax_pv_train_bwd_bias_f32(
   return launch_bwd_any<true>(scores, bias, v, out, dout, row_max, row_sum,
                               lens, dscores, dv, B, H, Lp, F, length,
                               seed_word, threshold, keep_scale, stream);
+}
+
+// K9's bfloat16 instances: scores [B, H, Lp, Lp] bfloat16 if scores_bf16
+// else float32, v and out [B, Lp, F] bfloat16 if v_bf16 else float32 (one
+// of the two at least bfloat16); with a bfloat16 V, out32 [B, Lp, F]
+// float32 receives the output of the unrounded weights, which K10 reads
+// (null otherwise).  The rest as sep_softmax_pv_train_fwd_f32's.
+extern "C" int sep_softmax_pv_train_fwd_bf16(
+    const void* scores, const void* v, const void* lens, void* out,
+    void* out32, void* row_max, void* row_sum, int B, int H, int Lp, int F,
+    int length, int scores_bf16, int v_bf16, unsigned int seed_word,
+    unsigned int threshold, float keep_scale, void* stream) {
+  if (v_bf16 && out32 == nullptr) return (int)cudaErrorInvalidValue;
+  const bool wide = H > 0 && F == 32 * H;
+  return (wide ? &launch_fwd_bf16<32> : &launch_fwd_bf16<kBaseD>)(
+      scores, v, lens, out, out32, row_max, row_sum, B, H, Lp, F, length,
+      scores_bf16 != 0, v_bf16 != 0, seed_word, threshold, keep_scale,
+      stream);
+}
+
+// K10's bfloat16 instances: scores and dscores in the scores' dtype, v,
+// dout and dv in V's; out is float32 (K9's out32 with a bfloat16 V, its
+// out otherwise).  The rest as sep_softmax_pv_train_bwd_f32's.
+extern "C" int sep_softmax_pv_train_bwd_bf16(
+    const void* scores, const void* v, const void* out, const void* dout,
+    const void* row_max, const void* row_sum, const void* lens,
+    void* dscores, void* dv, int B, int H, int Lp, int F, int length,
+    int scores_bf16, int v_bf16, unsigned int seed_word,
+    unsigned int threshold, float keep_scale, void* stream) {
+  if (B <= 0 || Lp <= 0) return 0;
+  const bool wide = H > 0 && F == 32 * H;
+  return (wide ? &launch_bwd_bf16<32> : &launch_bwd_bf16<kBaseD>)(
+      scores, v, out, dout, row_max, row_sum, lens, dscores, dv, B, H, Lp, F,
+      length, scores_bf16 != 0, v_bf16 != 0, seed_word, threshold,
+      keep_scale, stream);
 }
 
 // Blocks that one SM holds at once, with the launch's attributes set, of

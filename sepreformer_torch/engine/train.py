@@ -161,20 +161,37 @@ def apply_gradients(state: TrainState, lr: float) -> torch.Tensor:
     return norm.detach()
 
 
-# The ROADMAP item that ports training in bfloat16 (K5, K7/K8 and K9/K10
-# in bfloat16, the train step, the CLI).
-BF16_TRAINING = "ROADMAP.md queue A, bf16 training"
+# The ROADMAP item that trains in bfloat16 off the default train route:
+# K13/K14 ("pallas"), K16 (the fused train pair) and K15 in bfloat16.
+# (K5 and K6 need no bfloat16 instance: JAX upcasts their operands.)
+BF16_TRAINING_ROUTES = ("ROADMAP.md queue A, bf16 training off the default "
+                        "route")
 
 
 def check_trainable(cfg) -> None:
-    """Raise where the port cannot train ``cfg``: a bfloat16
-    ``model.compute_dtype`` serves but does not train yet (nothing falls
-    back to float32)."""
-    if cfg.model.compute_dtype != "float32":
+    """Raise where the port cannot train ``cfg``, before any launch (the
+    kernels' dtype checks are the last guard; nothing falls back to
+    float32): a bfloat16 ``model.compute_dtype`` trains on the default
+    train route alone, not on ``attention_train_impl="pallas"``
+    (K13/K14), with ``fused_pair="on"`` (K16 at dropout 0) or with
+    ``fused_local="on"`` (K15 in validation) or ``attention_impl=
+    "single"`` (K13 in validation)."""
+    m = cfg.model
+    if m.compute_dtype == "float32":
+        return
+    unbuilt = [name for name, on in (
+        ('attention_train_impl="pallas" (K13/K14)',
+         m.attention_train_impl == "pallas"),
+        ('fused_pair="on" (K16)', m.fused_pair == "on"),
+        ('fused_local="on" (K15)', m.fused_local == "on"),
+        ('attention_impl="single" (K13 in validation)',
+         m.attention_impl == "single")) if on]
+    if unbuilt:
         raise NotImplementedError(
-            f"training with model.compute_dtype={cfg.model.compute_dtype!r} "
-            f"is not ported (not built yet: {BF16_TRAINING}); serve in it, "
-            f"or train in float32")
+            f"training with model.compute_dtype={m.compute_dtype!r} and "
+            f"{', '.join(unbuilt)} is not ported (not built yet: "
+            f"{BF16_TRAINING_ROUTES}); train on the default route, or in "
+            f"float32")
 
 
 def train_step(state: TrainState, mixture: torch.Tensor,

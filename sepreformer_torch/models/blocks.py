@@ -40,7 +40,12 @@ dtype through ``stream_param``, once per weight in a serving forward
 the norms compute in float32 and cast back (``LayerNorm``,
 ``BatchNorm``, ``MaskedGroupNorm``); the attention scores are float32
 products of the upcast q and k (stored in ``RelPos.scores_dtype`` for
-K3), and the softmaxes run in float32.
+K3), and the softmaxes run in float32.  Training keeps the stream in
+bfloat16 too: K7/K8 and K9/K10 take it through their bfloat16 instances
+(the GCFN's nine parameters reach K7/K8 in float32, as the JAX kernel
+takes them, so their gradients are float32 sums), the k65 backward runs
+K5 (K6) on float32 operands and rounds its gradients back, as JAX's does,
+and every other gradient flows through ``stream_param``'s cast.
 """
 
 from __future__ import annotations
@@ -214,6 +219,8 @@ class TrainMode:
             return x
         keep = torch.rand(x.shape, generator=self.generator,
                           device=x.device) >= self.p
+        if x.dtype != torch.float32:  # flax's select(keep, x / (1 - p), 0)
+            return torch.where(keep, x / (1.0 - self.p), 0.0)
         return x * keep.to(x.dtype).mul_(1.0 / (1.0 - self.p))
 
     def kernel_seed(self) -> int:

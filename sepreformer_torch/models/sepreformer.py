@@ -19,8 +19,9 @@ true length.  Module names follow the reference state_dict.
 ``ModelConfig.compute_dtype`` "bfloat16" casts the waveform to bfloat16
 at the entry and runs the stream in it (parameters stay float32; the
 encoder and decoder cast their weights to it), and the outputs come back
-as float32, as the JAX package's model does.  Training in bfloat16 is
-not ported (``engine/train.py`` refuses it).
+as float32 for the losses, as the JAX package's model does; a train
+forward runs in it too, on the default train route
+(``engine/train.py::check_trainable`` names what still refuses it).
 """
 
 from __future__ import annotations

@@ -60,6 +60,14 @@ SIGNATURES = {
     # scores, v, out, dout, row_max, row_sum, lens, dscores, dv, B, H, Lp,
     # F, length, seed_word, threshold, keep_scale, stream
     "sep_softmax_pv_train_bwd_f32": [_P] * 9 + [_I] * 5 + [_U, _U, _F, _P],
+    # K9's bfloat16 instances: scores, v, lens, out, out32, row_max,
+    # row_sum, B, H, Lp, F, length, scores_bf16, v_bf16, seed_word,
+    # threshold, keep_scale, stream
+    "sep_softmax_pv_train_fwd_bf16": [_P] * 7 + [_I] * 7 + [_U, _U, _F, _P],
+    # K10's: scores, v, out (float32), dout, row_max, row_sum, lens,
+    # dscores, dv, B, H, Lp, F, length, scores_bf16, v_bf16, seed_word,
+    # threshold, keep_scale, stream
+    "sep_softmax_pv_train_bwd_bf16": [_P] * 9 + [_I] * 7 + [_U, _U, _F, _P],
     # the same two with the bias after the scores
     "sep_softmax_pv_train_fwd_bias_f32": [_P] * 7 + [_I] * 5 + [_U, _U, _F,
                                                                _P],
@@ -80,11 +88,18 @@ SIGNATURES = {
     # scratch_floats, B, T, F, eps, seed0, seed1, threshold, scale, stream
     "sep_gcfn_train_bwd_f32": [_P] * 15 + [_L] + [_I] * 3 + [_F, _U, _U, _U,
                                                              _F, _P],
+    # the same two with x, out, dout and dx bfloat16
+    "sep_gcfn_train_fwd_bf16": [_P] * 11 + [_I] * 3 + [_F, _U, _U, _U, _F,
+                                                       _P],
+    "sep_gcfn_train_bwd_bf16": [_P] * 15 + [_L] + [_I] * 3 + [_F, _U, _U,
+                                                              _U, _F, _P],
     # B, T, F -> floats of K8's scratch
     "sep_gcfn_train_bwd_scratch_floats": [_I, _I, _I],
     # F, int out[8] -> K7's, then K8's row pass's, blocks per SM,
     # registers, local bytes, warps
     "sep_gcfn_train_occupancy": [_I, _P],
+    # the same of the bfloat16 instances
+    "sep_gcfn_train_bf16_occupancy": [_I, _P],
     # q, k, v, table, lens, out, B, L, H, D, maxlen, stream
     "sep_flash_relpos_f32": [_P] * 6 + [_I] * 5 + [_P],
     # the same with q, k, v, table and out bfloat16

@@ -202,24 +202,35 @@ class _DepthwiseLarge(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
+        # The JAX package's _vjp_bwd (depthwise.py:262-282): a bfloat16
+        # stream's x, weight and dy are upcast to float32 for K5 (K6), and
+        # dx, dw and db come back rounded to the stream's dtype.  These
+        # casts are the reference's semantics at this boundary, not a
+        # fallback: the JAX kernels take float32 there too.
         x, weight = ctx.saved_tensors
-        x, dy = x.contiguous(), dy.contiguous()
+        dtype = x.dtype
+        x, dy = x.float().contiguous(), dy.float().contiguous()
         if BWD_MODE == "conv":
             # dx[t] = sum_tap w[tap] dy[t + h - tap]: the "same" conv of dy
-            # with the kernel reversed along its taps
-            dx = depthwise_forward(dy, weight.flip(-1), None)
+            # with the kernel reversed along its taps (on the stream's
+            # values, summed in float32, as JAX's preferred_element_type)
+            dx = depthwise_forward(dy, weight.flip(-1).float(), None)
             dw, db = depthwise_bwd_w(x, dy, weight.shape[-1])
         elif BWD_MODE == "fused":
-            dx, dw, db = depthwise_bwd(x, weight, dy)
+            dx, dw, db = depthwise_bwd(x, weight.float(), dy)
         else:
             raise ValueError(f"depthwise.BWD_MODE {BWD_MODE!r} is not "
                              f"'fused' or 'conv'")
-        return dx, dw, db if ctx.has_bias else None
+        return (dx.to(dtype), dw.to(weight.dtype),
+                db.to(weight.dtype) if ctx.has_bias else None)
 
 
 def depthwise_large(x: torch.Tensor, weight: torch.Tensor,
                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """"Same" depthwise conv of x [B, T, C] with weight [C, 1, K] (odd K)
-    and bias [C]; its backward is K5, or under ``BWD_MODE = "conv"`` a
-    library conv for dx and K6 for dw and db."""
+    and bias [C], all float32 or all bfloat16; its backward is K5, or
+    under ``BWD_MODE = "conv"`` a library conv for dx and K6 for dw and
+    db, in float32 on upcast operands for a bfloat16 stream, the
+    gradients rounded back to its dtype (as the JAX package's
+    ``_vjp_bwd``)."""
     return _DepthwiseLarge.apply(x, weight, bias)

@@ -59,7 +59,8 @@ def gcfn_plain(x: torch.Tensor, params: Sequence[torch.Tensor], eps: float,
     weight as the Conv1d weight [6F, 1, 3] without its middle axis.
     ``drop(site, v)``, when given, drops the GLU output (site 0) and the
     down-projection (site 1).  A bfloat16 x gives a bfloat16 result, with
-    the kernel's rounding steps (the module docstring)."""
+    the kernel's rounding steps (the module docstring; the GLU output is
+    rounded after its drop, as the JAX train kernel rounds it)."""
     lns, lnb, win, bin_, wdw, bdw, wout, bout, ls = params
     dtype = x.dtype
     low = dtype != torch.float32
@@ -82,10 +83,10 @@ def gcfn_plain(x: torch.Tensor, params: Sequence[torch.Tensor], eps: float,
     y = (up[:, :t] * wdw[:, 0] + up[:, 1:t + 1] * wdw[:, 1]
          + up[:, 2:t + 2] * wdw[:, 2] + bdw)
     half = y.shape[-1] // 2
-    g = rounded(y[..., :half] * torch.sigmoid(y[..., half:]))
+    g = y[..., :half] * torch.sigmoid(y[..., half:])
     if drop is not None:
         g = drop(0, g)
-    o = torch.matmul(g, wout) + bout
+    o = torch.matmul(rounded(g), wout) + bout
     if drop is not None:
         o = drop(1, o)
     return (x + ls * o).to(dtype)

@@ -10,6 +10,20 @@ same math in PyTorch (the JAX package's ``softmax_pv_dropout_reference``
 and the formulas of its ``_bwd_kernel``).  The dropout mask is the JAX
 package's hash mask (``hash_dropout.keep_mask``), so both packages drop
 the same probabilities for the same seed.
+
+K9 and K10 also take bfloat16 streams, through instances for each
+pairing the routes reach: float32 scores with a bfloat16 V (a bfloat16
+``compute_dtype``), bfloat16 scores with a bfloat16 V, and bfloat16
+scores with a float32 V (``scores_dtype="bfloat16"`` in a float32 step).
+They take the JAX kernels' rounding steps (``softmax_pv_train.py:96-112``
+and ``:160-186``): the softmax and its statistics stay float32; with a
+bfloat16 V, e * keep / (1 - p) is rounded to bfloat16 before ·V and the
+float32 sum is divided by l after, and in the backward Pd is rounded
+before dV and dP sums the exact products of the bfloat16 dOut and V;
+dS comes in the scores' dtype and dV in V's.  K9's bfloat16-V instances
+also write the float32 output of the unrounded weights (``out32``),
+whose dot with dOut is rowsum(dP * P) as the JAX kernel sums it; K10
+reads it in place of the rounded output.  The bias forms stay float32.
 """
 
 from __future__ import annotations
@@ -28,12 +42,15 @@ from sepreformer_torch.ops.kernels.hash_dropout import (
 from sepreformer_torch.ops.kernels.softmax_pv import (
     NEG_INF,
     _key_lens,
+    dtype_instance,
     tile_occupancy,
 )
 
 MAX_LENGTH = 512   # the JAX package's train kernel's padded-length limit
 # K9/K10's (and K9b/K10b's) instances: Base's head width 16 and Large's 32
 TRAIN_HEAD_DIMS = (16, 32)
+# the dtypes of K9's and K10's scores and V (the bias forms: float32)
+SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _drop_scale(seed: int, b: int, h: int, lp: int, p: float,
@@ -75,15 +92,39 @@ def softmax_pv_dropout_plain(scores: torch.Tensor, v: torch.Tensor,
                              bias: Optional[torch.Tensor] = None
                              ) -> torch.Tensor:
     """scores [B, H, Lp, Lp] (already scaled), v [B, Lp, H*d] -> [B, Lp,
-    H*d]: ``bias`` (a second scores tensor, optional) added in f32, keys
-    j >= min(length, lens[b]) masked, f32 softmax, hash dropout with
-    ``seed`` at rate ``p`` (no renormalisation), then ·V."""
+    H*d] in V's dtype: ``bias`` (a second scores tensor, optional) added
+    in f32, keys j >= min(length, lens[b]) masked, f32 softmax, hash
+    dropout with ``seed`` at rate ``p`` (no renormalisation), then ·V.
+    A bfloat16 V takes the JAX kernel's order: e = exp(s - max) and its
+    sum l in float32, e * keep / (1 - p) rounded to bfloat16, ·V with
+    float32 sums, then / l."""
     b, h, lp, _ = scores.shape
     length = lp if length is None else length
+    if v.dtype != torch.float32:
+        return _out32(scores, v, seed, lens, length, p, rounded=True
+                      ).to(v.dtype)
     probs = _probs(scores, lens, length, bias)
     if p > 0.0:
         probs = probs * _drop_scale(seed, b, h, lp, p, scores.device)
     return _channels_last(torch.matmul(probs, _heads(v, h)))
+
+
+def _out32(scores, v, seed, lens, length, p, rounded):
+    """The float32 output of the JAX kernel's order (the docstring above)
+    for a bfloat16 V: with ``rounded`` the weights rounded to V's dtype
+    (K9's output before its cast), else not (K9's out32)."""
+    b, h, lp, _ = scores.shape
+    key_len = _key_lens(b, length, lens, scores.device)
+    kmask = torch.arange(lp, device=scores.device)[None] < key_len[:, None]
+    s = torch.where(kmask[:, None, None, :], scores.float(),
+                    torch.tensor(NEG_INF, device=scores.device))
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = e.sum(dim=-1, keepdim=True)
+    if p > 0.0:
+        e = e * _drop_scale(seed, b, h, lp, p, scores.device)
+    if rounded:
+        e = e.to(v.dtype).float()
+    return _channels_last(torch.matmul(e, _heads(v, h).float()) / l)
 
 
 def softmax_pv_dropout_bwd_plain(scores, v, seed, lens, length, p, dout,
@@ -91,17 +132,20 @@ def softmax_pv_dropout_bwd_plain(scores, v, seed, lens, length, p, dout,
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dScores, dV) of ``softmax_pv_dropout_plain`` for the output
     cotangent ``dout`` [B, Lp, H*d]: dV = Pdᵀ·dOut, dP = (dOut·Vᵀ) ∘
-    keep/(1-p), dS = P ∘ (dP - rowsum(dP ∘ P)).  With ``bias``, dS is
-    also its cotangent."""
+    keep/(1-p), dS = P ∘ (dP - rowsum(dP ∘ P)), dS in the scores' dtype
+    and dV in V's.  With ``bias``, dS is also its cotangent.  A bfloat16
+    V takes the JAX kernel's steps: dOut in V's dtype, Pd rounded to it
+    before dV, dP from the exact products of dOut and V, float32 sums."""
     b, h, lp, _ = scores.shape
     probs = _probs(scores, lens, lp if length is None else length, bias)
     scale = (_drop_scale(seed, b, h, lp, p, scores.device) if p > 0.0
              else torch.ones((), device=scores.device))
-    g = _heads(dout, h)
-    dv = torch.matmul((probs * scale).transpose(-1, -2), g)
-    dp = torch.matmul(g, _heads(v, h).transpose(-1, -2)) * scale
+    g = _heads(dout.to(v.dtype), h).float()
+    pd = (probs * scale).to(v.dtype).float()
+    dv = torch.matmul(pd.transpose(-1, -2), g)
+    dp = torch.matmul(g, _heads(v, h).float().transpose(-1, -2)) * scale
     ds = probs * (dp - (dp * probs).sum(dim=-1, keepdim=True))
-    return ds, _channels_last(dv)
+    return ds.to(scores.dtype), _channels_last(dv).to(v.dtype)
 
 
 def _check(scores, v, length, bias=None):
@@ -116,11 +160,12 @@ def _check(scores, v, length, bias=None):
         raise ValueError(f"softmax_pv_dropout: length {length} outside "
                          f"[1, {lp}]")
     _build.check_tensor(scores, "softmax_pv_dropout scores", (b, h, lp, lp),
-                        scores.device)
+                        scores.device, scores.dtype)
     if bias is not None:
         _build.check_tensor(bias, "softmax_pv_dropout bias", (b, h, lp, lp),
                             scores.device)
-    _build.check_tensor(v, "softmax_pv_dropout v", (b, lp, f), scores.device)
+    _build.check_tensor(v, "softmax_pv_dropout v", (b, lp, f), scores.device,
+                        v.dtype)
     return b, h, lp, f
 
 
@@ -162,6 +207,59 @@ def _train_bwd(entry, scores, bias, v, out, dout, row_max, row_sum, seed,
         key_len.data_ptr(), ds.data_ptr(), dv.data_ptr(), b, h, lp, f, length,
         *_hash_args(seed, p), _build.stream_handle(scores.device))
     _build.check_launch(entry, err)
+    return ds, dv
+
+
+def softmax_pv_train_fwd_bf16(scores, v, seed, key_len, length, p):
+    """K9's bfloat16 instances on CUDA tensors (scores and V each float32
+    or bfloat16, one at least bfloat16): (out [B, Lp, F] in V's dtype,
+    out32, the float32 output K10 reads (out itself for a float32 V),
+    row max and row sum [B, H, Lp]); counted as K9's instance
+    ``softmax_pv.dtype_instance``."""
+    b, h, lp, f = _check(scores, v, length)
+    out = torch.empty_like(v)
+    v_bf16 = v.dtype == torch.bfloat16
+    out32 = (torch.empty(v.shape, dtype=torch.float32, device=v.device)
+             if v_bf16 else out)
+    row_max = torch.empty((b, h, lp), dtype=torch.float32,
+                          device=scores.device)
+    row_sum = torch.empty_like(row_max)
+    err = _build.library().sep_softmax_pv_train_fwd_bf16(
+        scores.data_ptr(), v.data_ptr(), key_len.data_ptr(), out.data_ptr(),
+        out32.data_ptr() if v_bf16 else None, row_max.data_ptr(),
+        row_sum.data_ptr(), b, h, lp, f, length,
+        int(scores.dtype == torch.bfloat16), int(v_bf16),
+        *_hash_args(seed, p), _build.stream_handle(scores.device))
+    _build.check_launch("sep_softmax_pv_train_fwd_bf16", err)
+    _build.count_launch(softmax_pv_train_fwd,
+                        dtype_instance(scores.dtype, v.dtype))
+    return out, out32, row_max, row_sum
+
+
+def softmax_pv_train_bwd_bf16(scores, v, out32, dout, row_max, row_sum,
+                              seed, key_len, length, p):
+    """K10's bfloat16 instances on CUDA tensors: (dScores in the scores'
+    dtype, dV in V's) from K9's inputs, its ``out32`` and the output
+    cotangent ``dout`` (in V's dtype); counted as K10's instance."""
+    b, h, lp, f = _check(scores, v, length)
+    _build.check_tensor(out32, "softmax_pv_dropout out32", (b, lp, f),
+                        scores.device)
+    _build.check_tensor(dout, "softmax_pv_dropout dout", (b, lp, f),
+                        scores.device, v.dtype)
+    for name, a in (("row_max", row_max), ("row_sum", row_sum)):
+        _build.check_tensor(a, f"softmax_pv_dropout {name}", (b, h, lp),
+                            scores.device)
+    ds = torch.empty_like(scores)
+    dv = torch.empty_like(v)
+    err = _build.library().sep_softmax_pv_train_bwd_bf16(
+        scores.data_ptr(), v.data_ptr(), out32.data_ptr(), dout.data_ptr(),
+        row_max.data_ptr(), row_sum.data_ptr(), key_len.data_ptr(),
+        ds.data_ptr(), dv.data_ptr(), b, h, lp, f, length,
+        int(scores.dtype == torch.bfloat16), int(v.dtype == torch.bfloat16),
+        *_hash_args(seed, p), _build.stream_handle(scores.device))
+    _build.check_launch("sep_softmax_pv_train_bwd_bf16", err)
+    _build.count_launch(softmax_pv_train_bwd,
+                        dtype_instance(scores.dtype, v.dtype))
     return ds, dv
 
 
@@ -222,34 +320,63 @@ def fwd_occupancy():
 
 softmax_pv_train_fwd.launches = 0
 softmax_pv_train_bwd.launches = 0
+softmax_pv_train_fwd.instance_launches = {}
+softmax_pv_train_bwd.instance_launches = {}
 softmax_pv_train_fwd_bias.launches = 0
 softmax_pv_train_bwd_bias.launches = 0
 
 
 class _SoftmaxPvDropout(torch.autograd.Function):
+    """K9 (K9b) and K10 (K10b) in the instance the dtypes pick; on CPU
+    tensors the plain versions, with ``softmax_pv_dropout_bwd_plain`` as
+    the backward (an autograd through the rounding would round the
+    gradients too)."""
+
     @staticmethod
     def forward(ctx, scores, v, seed, key_len, length, p, bias):
-        if bias is None:
+        ctx.args = (seed, length, p)
+        if scores.device.type == "cpu":
+            ctx.save_for_backward(scores, v, key_len, bias)
+            return softmax_pv_dropout_plain(scores, v, seed, key_len, length,
+                                            p, bias)
+        if scores.dtype != torch.float32 or v.dtype != torch.float32:
+            # K10 reads out32, the unrounded weights' float32 output
+            out, dot_out, row_max, row_sum = softmax_pv_train_fwd_bf16(
+                scores, v, seed, key_len, length, p)
+        elif bias is None:
             out, row_max, row_sum = softmax_pv_train_fwd(
                 scores, v, seed, key_len, length, p)
+            dot_out = out
         else:
             out, row_max, row_sum = softmax_pv_train_fwd_bias(
                 scores, bias, v, seed, key_len, length, p)
-        ctx.save_for_backward(scores, v, out, row_max, row_sum, key_len,
-                              bias)
-        ctx.args = (seed, length, p)
+            dot_out = out
+        ctx.save_for_backward(scores, v, key_len, bias, dot_out, row_max,
+                              row_sum)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        scores, v, out, row_max, row_sum, key_len, bias = ctx.saved_tensors
         seed, length, p = ctx.args
-        stats = (out, dout.contiguous(), row_max, row_sum, seed, key_len,
-                 length, p)
+        scores, v, key_len, bias, *stats = ctx.saved_tensors
+        dout = dout.contiguous()
+        if scores.device.type == "cpu":
+            ds, dv = softmax_pv_dropout_bwd_plain(scores, v, seed, key_len,
+                                                  length, p, dout, bias)
+        elif scores.dtype != torch.float32 or v.dtype != torch.float32:
+            ds, dv = softmax_pv_train_bwd_bf16(scores, v, stats[0], dout,
+                                               *stats[1:], seed, key_len,
+                                               length, p)
+        elif bias is None:
+            ds, dv = softmax_pv_train_bwd(scores, v, stats[0], dout,
+                                          *stats[1:], seed, key_len, length,
+                                          p)
+        else:
+            ds, dv = softmax_pv_train_bwd_bias(scores, bias, v, stats[0],
+                                               dout, *stats[1:], seed,
+                                               key_len, length, p)
         if bias is None:
-            ds, dv = softmax_pv_train_bwd(scores, v, *stats)
             return ds, dv, None, None, None, None, None
-        ds, dv = softmax_pv_train_bwd_bias(scores, bias, v, *stats)
         # the add distributes dS to both; each gets a tensor of its own, so
         # that autograd accumulating into one in place cannot touch the other
         need_s, need_b = ctx.needs_input_grad[0], ctx.needs_input_grad[6]
@@ -263,30 +390,31 @@ def softmax_pv_dropout(scores: torch.Tensor, v: torch.Tensor, seed: int,
                        bias: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
     """Masked softmax(scores [+ bias]) with attention-prob hash dropout,
-    times V, with a gradient: scores [B, H, Lp, Lp] float32 (1/sqrt(d)
-    applied), v [B, Lp, H*d] channels-last, ``seed`` the int hash seed,
-    ``lens`` [B] key lengths or None, ``length`` the true length (rows
-    past it are padding the caller drops), ``p`` the drop rate, ``bias``
-    an optional second scores tensor summed in f32.  CPU tensors take the
-    plain version and its autograd; CUDA tensors launch K9 (K9b with
-    ``bias``), and K10 (K10b) in the backward.  Lp is at most 512, as in
-    the JAX package."""
+    times V, with a gradient: scores [B, H, Lp, Lp] (1/sqrt(d) applied)
+    and v [B, Lp, H*d] channels-last, each float32 or bfloat16 (the
+    output in V's dtype), ``seed`` the int hash seed, ``lens`` [B] key
+    lengths or None, ``length`` the true length (rows past it are padding
+    the caller drops), ``p`` the drop rate, ``bias`` an optional second
+    scores tensor summed in f32 (float32 alone, with float32 scores and
+    V).  CPU tensors take the plain versions, forward and backward; CUDA
+    tensors launch K9 (K9b with ``bias``), and K10 (K10b) in the
+    backward.  Lp is at most 512, as in the JAX package."""
     lp = scores.shape[2]
     length = lp if length is None else int(length)
-    for a in (scores, v) if bias is None else (scores, bias, v):
-        # float32 alone, on either device
-        _build.check_dtype("softmax_pv_dropout", a)
+    if bias is None:
+        for a in (scores, v):
+            _build.check_dtype("softmax_pv_dropout", a, SUPPORTED_DTYPES)
+    else:
+        for a in (scores, bias, v):  # float32 alone, on either device
+            _build.check_dtype("softmax_pv_dropout (bias=)", a)
     if lp > MAX_LENGTH:
         raise NotImplementedError(
             f"softmax_pv_dropout: padded length {lp} > {MAX_LENGTH}; the "
             f"caller takes the dense train attention there "
             f"(MultiHeadAttention._dense_attention)")
-    if scores.device.type == "cpu":
-        return softmax_pv_dropout_plain(scores, v, seed, lens, length, p,
-                                        bias)
     key_len = _key_lens(scores.shape[0], length, lens,
                         scores.device).contiguous()
-    if lens is not None:
+    if lens is not None and scores.device.type != "cpu":
         torch._assert_async(key_len.min() >= 1)  # no host sync
     return _SoftmaxPvDropout.apply(scores, v, int(seed), key_len, length,
                                    float(p), bias)

@@ -1,6 +1,8 @@
 """The bfloat16 forms of K1, K3 and K12: their plain versions against the
 JAX package's Pallas kernels in interpret mode; the refusals of the
-kernels that have no bfloat16 instance, and of training in bfloat16.
+kernels that have no bfloat16 instance, and of training in bfloat16 off
+the default train route (K7/K8 and K9/K10 in bfloat16:
+``tests/test_torch_bf16_train.py``).
 
 Both sides take bfloat16 streams as the Pallas kernels do: bfloat16
 operands, float32 sums, float32 statistics and softmax, the result in
@@ -33,10 +35,8 @@ from sepreformer_torch.ops.kernels import (
     flash_relpos_attention_train,
     fused_cla,
     fused_ega_tail_gcfn,
-    fused_gcfn_train,
     gcfn_plain,
     softmax_pv,
-    softmax_pv_dropout,
     softmax_pv_plain,
 )
 from sepreformer_torch import get_variant
@@ -163,12 +163,6 @@ REFUSALS = {
                               bias=cpu_bf16(1, 2, 128, 128)),
     "K5": lambda: depthwise_bwd(cpu_bf16(1, 40, 8), torch.zeros(8, 1, 9),
                                 cpu_bf16(1, 40, 8)),
-    "K7/K8": lambda: fused_gcfn_train(cpu_bf16(1, 40, 16),
-                                      torch_layout(gcfn_params(
-                                          np.random.default_rng(0), 16)),
-                                      1e-5, 1, 0.1),
-    "K9/K10": lambda: softmax_pv_dropout(cpu_bf16(1, 2, 128, 128),
-                                         cpu_bf16(1, 128, 32), 1, p=0.1),
     "K13/K14": lambda: flash_relpos_attention_train(
         *(cpu_bf16(1, 2, 64, 16) for _ in range(3)), cpu_bf16(128, 16), 1,
         64, 0.1),
@@ -195,18 +189,24 @@ def test_dtype_checks_raise_without_launching():
         _build.check_tensor(x, "k x", (4, 4), x.device)
 
 
-def test_training_refuses_bf16(tmp_path):
+@pytest.mark.parametrize("field,value", [
+    ("model.attention_train_impl", "pallas"), ("model.fused_pair", "on")])
+def test_training_refuses_bf16(tmp_path, field, value):
     """``train_step`` and the ``Engine``'s train mode raise on a bf16
-    ``compute_dtype``, naming the ROADMAP item; nothing trains in float32
-    instead."""
+    ``compute_dtype`` off the default train route ("pallas": K13/K14;
+    the fused pair: K16), naming the ROADMAP item; nothing trains in
+    float32 instead.  (The default route trains in bfloat16:
+    ``tests/test_torch_bf16_train.py``.)"""
     cfg = apply_override(get_variant("tiny"), "model.compute_dtype",
                          "bfloat16")
+    cfg = apply_override(cfg, field, value)
     engine = Engine(cfg, str(tmp_path), device="cpu")
     state = engine.state
     before = [p.detach().clone() for p in state.model.parameters()]
-    with pytest.raises(NotImplementedError, match="queue A, bf16 training"):
+    item = "queue A, bf16 training off the default route"
+    with pytest.raises(NotImplementedError, match=item):
         engine.run("train")
-    with pytest.raises(NotImplementedError, match="queue A, bf16 training"):
+    with pytest.raises(NotImplementedError, match=item):
         train_step(state, torch.zeros(2, 800), torch.zeros(2, 2, 800), 1e-3,
                    0.4, torch.Generator().manual_seed(0))
     assert all(torch.equal(a, b)

@@ -51,6 +51,10 @@ from sepreformer_torch.ops.kernels import (
     softmax_pv_train_fwd,
     softmax_pv_train_fwd_bias,
 )
+from sepreformer_torch.ops.kernels.softmax_pv_train import (
+    softmax_pv_train_bwd_bf16,
+    softmax_pv_train_fwd_bf16,
+)
 
 # float32 sums in the kernels' order against cuBLAS's
 CARD_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -1466,3 +1470,150 @@ def test_kernels_without_bf16_refuse_it_on_the_card(cuda_device):
             call()
     assert before == (fused_cla.launches, fused_ega_tail_gcfn.launches,
                       attention_train_fwd.launches, softmax_pv_bias.launches)
+
+
+# The bfloat16 instances of K7/K8 and K9/K10 (training) against their
+# plain bfloat16 versions, at the limits above.  K7 and K8 round at the
+# same points as their plain versions; so does K10, whose P comes from
+# K9's final row statistics, and whose rowsum(dP * P) is dOut . out32
+# (K9's float32 output of the unrounded weights).  K9 rounds its weights
+# against each key tile's running max, as K3 does: BF16_MEAN holds on the
+# scores of ``max_in_first_tiles``, K9_TILE_MEAN elsewhere.  Float32
+# outputs of float32 operands (K10's dS, K9 and K10 with a float32 V) are
+# held at max <= 1e-4 of max|out|.  K8's nine parameter gradients are
+# float32 sums over the rows of products of rounded operands: where du's
+# float32 value differs in its last bits between the kernel's order of
+# summation and the plain version's, its bfloat16 rounding can flip by an
+# ulp (2^-8 of it), and the short sums (the LayerNorm's, ls's) carry that
+# into their mean: up to 2.8e-5 of max|grad| on an H100, where the
+# unrounded control reads 1e-4 and more.  They are held at BF16_MAX and
+# BF16_SUM_MEAN, and the control must exceed it on the two products'
+# gradients.
+F32_OUT_MAX = 1e-4
+BF16_SUM_MEAN = 5e-5
+# K9 rounds e / (1 - p) against each key tile's running max: up to 7.3e-5
+# of max|out| on other scores (agreement only; chip_smoke.py's
+# K9_TILE_MEAN)
+K9_TILE_MEAN = 1e-4
+
+
+def assert_f32_close(got, ref, max_limit=F32_OUT_MAX, mean_limit=None):
+    assert got.dtype == ref.dtype == torch.float32
+    err_max, err_mean = bf16_errors(got, ref)
+    assert err_max <= max_limit, (err_max, err_mean)
+    assert mean_limit is None or err_mean <= mean_limit, (err_max, err_mean)
+
+
+def check_bf16_launches(wrappers, instance, run):
+    """``run()`` twice: one launch each of each wrapper's ``instance`` a
+    run and none of their float32 instances; the same bits both times."""
+    before = [(w.launches, w.instance_launches.get(instance, 0))
+              for w in wrappers]
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    for w, (f32, other) in zip(wrappers, before):
+        assert w.launches == f32
+        assert w.instance_launches[instance] == other + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [128, 256])
+@pytest.mark.parametrize("b,t,p", [(2, 500, 0.1), (3, 77, 0.0),
+                                   (2, 2000, 0.05), (1, 29, 0.1)])
+def test_gcfn_train_bf16_kernels_match_plain(cuda_device, f, b, t, p):
+    gen = torch.Generator().manual_seed(t + f)
+    x = torch.randn(b, t, f, generator=gen).to(cuda_device).to(BF16)
+    dout = torch.randn(b, t, f, generator=gen).to(cuda_device).to(BF16)
+    params = gcfn_params(gen, f, cuda_device)
+    (got,) = check_bf16_launches(
+        [gcfn_train_fwd], "bf16",
+        lambda: (gcfn_train_fwd(x, params, 1e-5, 99, p),))
+    assert_bf16_close(got, gcfn_train_plain(x, params, 1e-5, 99, p),
+                      control=gcfn_train_plain(x.float(), params, 1e-5, 99,
+                                               p).to(BF16))
+    dx, *dparams = check_bf16_launches(
+        [gcfn_train_bwd], "bf16",
+        lambda: (lambda r: (r[0], *r[1]))(
+            gcfn_train_bwd(x, params, 1e-5, 99, p, dout)))
+    ref_dx, ref_dp = gcfn_train_bwd_plain(x, params, 1e-5, 99, p, dout)
+    ctl_dx, ctl_dp = gcfn_train_bwd_plain(x.float(), params, 1e-5, 99, p,
+                                          dout.float())
+    assert_bf16_close(dx, ref_dx, control=ctl_dx.to(BF16))
+    for g, r in zip(dparams, ref_dp):
+        assert_f32_close(g, r, BF16_MAX, BF16_SUM_MEAN)
+    for i in (2, 6):  # d win, d wout
+        assert bf16_errors(ctl_dp[i], ref_dp[i])[1] > BF16_SUM_MEAN
+
+
+TRAIN_PV_SHAPES = [(3, 4, 512, 500, None), (3, 4, 128, 77, None),
+                   (3, 4, 77, 77, (1, 77, 40)), (2, 4, 136, 130, (65, 1)),
+                   (3, 4, 17, 17, (17, 9, 1))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("scores_bf16,v_bf16", [(False, True), (True, True),
+                                                (True, False)])
+@pytest.mark.parametrize("b,h,lp,length,lens", TRAIN_PV_SHAPES)
+def test_softmax_pv_train_bf16_kernels_match_plain(
+        cuda_device, d, scores_bf16, v_bf16, b, h, lp, length, lens):
+    scores, _, v, lens = softmax_pv_case(cuda_device, b, h, lp, length,
+                                         lens, seed=7)
+    if d == 32:
+        v = torch.cat([v, v.flip(-1)], dim=-1)
+    gen = torch.Generator().manual_seed(lp + d)
+    dout = torch.randn(v.shape, generator=gen).to(cuda_device)
+    key_len = lens.to(torch.int32).contiguous()
+    if v_bf16:
+        v, dout = v.to(BF16).contiguous(), dout.to(BF16)
+    instance = {(False, True): "bf16", (True, True): "bf16 scores",
+                (True, False): "bf16 scores f32 v"}[scores_bf16, v_bf16]
+    for first in (False, True):
+        s = max_in_first_tiles(scores, lens) if first else scores
+        s = s.to(BF16) if scores_bf16 else s
+        out, out32, rmax, rsum = check_bf16_launches(
+            [softmax_pv_train_fwd], instance,
+            lambda: softmax_pv_train_fwd_bf16(s, v, 31, key_len, length,
+                                              0.1))
+        ref = softmax_pv_dropout_plain(s, v, 31, lens, length, 0.1)
+        rows = slice(0, length)
+        if v_bf16:
+            control = softmax_pv_dropout_plain(s.float(), v.float(), 31, lens,
+                                               length, 0.1).to(BF16)
+            assert_bf16_close(out[:, rows], ref[:, rows],
+                              BF16_MEAN if first else K9_TILE_MEAN,
+                              control[:, rows] if first else None)
+        else:
+            assert_f32_close(out[:, rows], ref[:, rows])
+        ds, dv = check_bf16_launches(
+            [softmax_pv_train_bwd], instance,
+            lambda: softmax_pv_train_bwd_bf16(s, v, out32, dout, rmax, rsum,
+                                              31, key_len, length, 0.1))
+        ref_ds, ref_dv = softmax_pv_dropout_bwd_plain(s, v, 31, lens, length,
+                                                      0.1, dout)
+        keep = torch.arange(lp, device=cuda_device) < length
+        for got, want in ((ds[:, :, keep], ref_ds[:, :, keep]), (dv, ref_dv)):
+            if got.dtype == BF16:
+                assert_bf16_close(got, want)
+            else:
+                assert_f32_close(got, want)
+
+
+@pytest.mark.cuda
+def test_softmax_pv_dropout_bf16_route(cuda_device):
+    """``softmax_pv_dropout`` takes K9's and K10's bfloat16 instances
+    under autograd for each pairing, and its gradients are K10's."""
+    scores, _, v, lens = softmax_pv_case(cuda_device, 2, 8, 512, 500,
+                                         (500, 311), seed=9)
+    for sdt, vdt in ((torch.float32, BF16), (BF16, BF16),
+                     (BF16, torch.float32)):
+        s = scores.to(sdt).clone().requires_grad_()
+        vv = v.to(vdt).clone().requires_grad_()
+        out = softmax_pv_dropout(s, vv, 5, lens, 500, 0.1)
+        assert out.dtype == vdt
+        out.float().square().sum().backward()
+        assert s.grad.dtype == sdt and vv.grad.dtype == vdt
+        assert torch.isfinite(s.grad.float()).all()
