@@ -235,17 +235,27 @@ Phases, each of which fails the run:
                full context, traced, with its peak memory;
                ``infer_sample`` through ``cli.main`` with ``--set
                model.compute_dtype=bfloat16``; Large's batch against
-               float32, traced, and its 70 s in full context; then a
-               bfloat16 tensor into K13, K15 and K16, each refused
-               naming its ROADMAP item.
+               float32, traced, and its 70 s in full context; then, for
+               Base and Large, the routes off the default one in
+               bfloat16 (``attention_impl="single"``, ``fused_local``,
+               ``fused_pair``, both fused routes, and all three): the
+               ragged batch where the route takes lengths and the batch
+               without them, each launching the bfloat16 instances of
+               K13, K15 and K16 where ``fused_route`` admits them and no
+               float32 instance, against the float32 default route on
+               the card, traced; all three also card against the CPU.
                Phase 2 also holds the bfloat16 instances against their
                plain versions at its shapes (K1 at F 128 and 256, K3 on
                float32 or bfloat16 scores with a bfloat16 V at head
                width 16, float32 scores at 32, bfloat16 scores with a
-               float32 V; K12 at head widths 16 and 32), bit-equal on
-               repeat, with their times, bounds (bytes at the bfloat16
-               sizes, bfloat16 products at 989 TFLOP/s) and library
-               calls (a bfloat16 softmax and matmul; bfloat16 SDPA).
+               float32 V; K12 at head widths 16 and 32; K13 and K14 at
+               [4, 8, 500, 16] p 0.05 and [4, 8, 500, 32] p 0.1; K15 and
+               K16 at [4, 8000, 128] and [4, 8000, 256]), bit-equal on
+               repeat, with their registers and spills, times, bounds
+               (bytes at the bfloat16 sizes, bfloat16 products at 989
+               TFLOP/s) and library calls (a bfloat16 softmax and
+               matmul; bfloat16 SDPA for K12 and K13), K14 and K15 by
+               launch.
 14. bf16_train - training in bfloat16 on the default train route, Base
                (dropout 0.05) and ``SepReformer_Large_DM_WSJ0`` (0.1),
                seeded weights: three ``train_step``s on B=2 x 4 s
@@ -264,8 +274,15 @@ Phases, each of which fails the run:
                one ``cli.main`` epoch with ``--set
                model.compute_dtype=bfloat16`` on phase 8's corpus, a
                resumed second, a test (float32 checkpoints); then the
-               "pallas" route and the fused pair in bfloat16, refused
-               before any launch.  Phase 2 also holds the bfloat16
+               "pallas" route in bfloat16: three steps (each one launch
+               of K13's and K14's bfloat16 instances per global
+               attention), a traced step beside a traced float32
+               "pallas" step, a step card against the CPU, and one CLI
+               epoch with the fused routes on, whose validation launches
+               K15's and K16's bfloat16 instances; then the fused pair
+               at dropout 0 in bfloat16 (K16 has no bfloat16 gradient,
+               as the JAX package's has none), refused before any
+               launch.  Phase 2 also holds the bfloat16
                instances of K7/K8 (F 128, 256) and K9/K10 (head widths 16
                and 32; at 16 the three pairings) against their plain
                versions, bit-equal on repeat, with their times, bounds
@@ -325,10 +342,16 @@ KERNEL_SYMBOLS = {"fused_gcfn": "gcfn_kernel",
                   "depthwise_fwd": "depthwise_fwd_kernel",
                   "fused_cla": "cla_",       # cla_glu_ and cla_tail_kernel
                   "fused_ega_tail_gcfn": "ega_gcfn_kernel"}
-# the bfloat16 instances' kernels, as named in a trace
+# the bfloat16 instances' kernels, as named in a trace (K14's, K15's and
+# K16's bfloat16 instances share their names with the float32 ones but
+# for a template argument, which a trace of one call tells apart)
 BF16_SYMBOLS = {"fused_gcfn": "gcfn_bf16_kernel",
                 "softmax_pv": "softmax_pv_bf16_kernel",
-                "flash_relpos_attention": "flash_relpos_bf16_kernel"}
+                "flash_relpos_attention": "flash_relpos_bf16_kernel",
+                "attention_train_fwd": "attn_train_fwd_bf16_kernel",
+                "attention_train_bwd": "attn_train_bwd",
+                "fused_cla": "cla_",
+                "fused_ega_tail_gcfn": "ega_gcfn_kernel"}
 # max |kernel - plain| over max|out| allowed for the bfloat16 instances
 # (tests/test_torch_cuda.py's limits), two bfloat16 ulps, and the mean
 # (PERF.md section 2).  Where the kernel and its plain version round the
@@ -1065,6 +1088,7 @@ def kernel_phase(torch, K, device_ms):
     torch.cuda.empty_cache()
     bf16_kernel_rows(torch, K, device_ms, randn, record)
     bf16_train_rows(torch, K, device_ms, randn, record)
+    bf16_route_rows(torch, K, device_ms, randn, record)
     return results
 
 
@@ -1238,7 +1262,8 @@ def bias_train_rows(torch, K, randn, record, d=16, p=0.05, instance=None):
 
 def ptxas_report():
     """The ptxas lines (registers, spills) of each kernel in the build
-    log, by its name and template arguments ("cla_tail_kernel<256>")."""
+    log, by its name and template arguments ("cla_tail_kernel<256>";
+    a bfloat16 type argument as "bf16": "cla_tail_kernel<256, bf16>")."""
     from sepreformer_torch.ops.kernels import _build
 
     log = _build.BUILD_DIR / "build.log"
@@ -1247,13 +1272,23 @@ def ptxas_report():
         return report
     for line in log.read_text().splitlines():
         if "Function properties for" in line:  # a kernel's report follows
-            # the mangled name's kernel and its template arguments
-            found = re.search(r"\d+([A-Za-z_]+kernel)((?:I?L[ib]\d+E)*)",
-                              line)
-            args = re.findall(r"L[ib](\d+)E", found.group(2) if found
-                              else "")
-            name = (found.group(1) + (f"<{', '.join(args)}>" if args else "")
-                    if found else line.split()[-1])
+            # the mangled name's kernel (a source name of the length its
+            # prefix gives, ending in "kernel") and its template arguments
+            # (the innermost such name, where an enclosing one also fits)
+            name = line.split()[-1]
+            words = [(m.end(), line[m.end():m.end() + int(m.group()[i:])])
+                     for m in re.finditer(r"\d+", line)
+                     for i in range(len(m.group()))]
+            words = [(end, word) for end, word in words
+                     if re.fullmatch(r"[A-Za-z_]\w*kernel", word)]
+            if words:
+                end, word = max(words)
+                rest = re.match(r"((?:I?L[ib]\d+E)*)(13__nv_bfloat16)?",
+                                line[end + len(word):])
+                args = re.findall(r"L[ib](\d+)E", rest.group(1))
+                if rest.group(2):  # a bfloat16 type argument
+                    args.append("bf16")
+                name = word + (f"<{', '.join(args)}>" if args else "")
         elif "registers" in line or "spill" in line:
             report[name].append(line.strip())
     return report
@@ -2195,6 +2230,256 @@ def bf16_train_rows(torch, K, device_ms, randn, record):
                        symbol="softmax_pv_train_bwd_kernel")
             del out, out32, rmax, rsum, ds, dv, ref_ds, ref_dv, ctl_ds, ctl_dv
         del scores, v, dout
+        torch.cuda.empty_cache()
+
+
+def bf16_route_rows(torch, K, device_ms, randn, record):
+    """The bfloat16 instances of K13/K14 (the single-block attention), K15
+    (the fused CLA) and K16 (the EGA tail + GCFN) at the shapes of their
+    float32 rows (phases 13's and 14's main paths): each against its plain
+    bfloat16 version on the card, with the plain version without its
+    rounding steps as the control, bit-equal on a repeat call, with its
+    registers and spills from the build log, its time, its bound (bytes
+    at the bfloat16 sizes, bfloat16 products at ``BF16_FLOPS``; K13's
+    second pass and K14's recomputed scores are this design's work, not
+    the function's) and its plain version's time; K13's library yardstick
+    is bfloat16 SDPA with the rel-pos bias as a bfloat16 float mask (at p
+    0).  Limits: each bfloat16 output within ``BF16_MAX`` and
+    ``BF16_MEAN`` (they round where their plain versions do; K14's
+    gradients within ``BF16_SUM_MEAN``: sums of products of rounded
+    operands whose rounding can flip between two orders of summation), the
+    control above the kernel's mean; K13's out32, the float32 P·V of the
+    unrounded weights, within 1e-4 of max|out| of the float32 plain
+    version on the same values."""
+    from sepreformer_torch.ops.kernels.attention_train import (
+        attention_train_fwd_bf16,
+    )
+    from sepreformer_torch.ops.kernels.cla import (
+        blocks_per_sm as cla_blocks_per_sm,
+    )
+    from sepreformer_torch.ops.kernels.ega_gcfn import blocks_per_sm
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    ptxas = ptxas_report()
+    tolerance = (f"max {BF16_MAX:.4f}, mean {BF16_MEAN:.0e} of max|out| "
+                 f"(bfloat16; K14's gradients {BF16_SUM_MEAN:.0e})")
+
+    def held(name, got, ref, control=None, mean=BF16_MEAN):
+        """Fail unless ``got`` (bfloat16) agrees with ``ref`` within
+        ``BF16_MAX`` and ``mean``, and unless ``control`` is further from
+        ``ref`` than ``got`` is; a float32 ``got`` within 1e-4 of
+        max|out|.  Returns max |got - ref|."""
+        err_max, err_mean = bf16_errors(got, ref)
+        ctl = None if control is None else bf16_errors(control, ref)[1]
+        print(f"[kernels] {name}: max |kernel - plain| / max|out| "
+              f"{err_max:.3e}, mean {err_mean:.3e}" + (
+                  "" if ctl is None else f"; the plain version without its "
+                  f"rounding steps {ctl:.3e}"))
+        assert got.dtype == ref.dtype, (got.dtype, ref.dtype)
+        if got.dtype == bf:
+            assert err_max <= BF16_MAX and err_mean <= mean, (
+                f"{name}: {err_max:.3e}, {err_mean:.3e}")
+        else:
+            assert err_max <= 1e-4, f"{name}: {err_max:.3e}"
+        if ctl is not None:
+            assert ctl > max(err_mean, BF16_MEAN if mean == BF16_MEAN
+                             else 0.0), (
+                f"{name}: the limit does not see the rounding")
+        return (got.float() - ref.float()).abs().max().item()
+
+    def repeat(name, run):
+        first, again = run(), run()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(first, again))
+        print(f"[kernels] {name}: bit-equal on a repeat call: {same}")
+        assert same, f"{name} is not bit-equal on repeat"
+        return first
+
+    def registers(name, kernels):
+        for kernel in kernels:
+            print(f"[kernels] {name}: {kernel}: " + "; ".join(
+                ptxas.get(kernel, ["not in the build log"])))
+
+    # K13 and K14 at the decoder attention of a B=2 x 4 s train batch,
+    # [4, 8, 500, d], as the float32 rows: Base's d 16 at p 0.05, Large's
+    # 32 at 0.1, q, k, v, the table and dout bfloat16
+    b, heads, length, maxlen, seed = 4, 8, 500, 2000, 4321
+    key_len = torch.full((b,), length, dtype=torch.int32, device=dev)
+    klens = [length] * b
+    pos = torch.arange(length, device=dev)
+    idx = torch.clamp(pos[:, None] - pos[None], -maxlen, maxlen - 1) + maxlen
+    for d, p in ((16, 0.05), (32, 0.1)):
+        inst = "bf16" if d == 16 else f"d={d} bf16"
+        q, k, v, dout = (randn(b, heads, length, d).to(bf) for _ in range(4))
+        table = randn(2 * maxlen, d).to(bf)
+        f32 = [a.float() for a in (q, k, v, table)]
+
+        def fwd():
+            return attention_train_fwd_bf16(q, k, v, table, maxlen, seed, p,
+                                            key_len)
+
+        out, out32, row_max, row_sum = repeat(
+            f"attention_train_fwd {inst}", fwd)
+        err = held(f"attention_train_fwd {inst}", out,
+                   K.attention_train_plain(q, k, v, table, maxlen, seed, p),
+                   K.attention_train_plain(*f32, maxlen, seed, p).to(bf))
+        held(f"attention_train_fwd {inst} out32", out32,
+             K.attention_train_plain(*f32, maxlen, seed, p))
+        registers(f"attention_train_fwd {inst}",
+                  [f"attn_train_fwd_bf16_kernel<{d}, {sp}>"
+                   for sp in (1, 2, 4)])
+        storage = torch.empty(b, heads, length, -(-length // 16) * 16,
+                              device=dev, dtype=bf)
+        bias = storage[..., :length]
+        with torch.no_grad():
+            bias.copy_((torch.gather(torch.matmul(f32[0], f32[3].t()), 3,
+                                     idx.expand(b, heads, length, length))
+                        / math.sqrt(d)).to(bf))
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias)
+
+        keys = b * length
+        pairs = heads * relpos_pairs(length, klens, maxlen)[0]
+        record(K.attention_train_fwd, fwd,
+               lambda: K.attention_train_plain(q, k, v, table, maxlen, seed,
+                                               p),
+               library, err,
+               # q in and out written, k and v of the valid keys, the table
+               # (bfloat16), the row statistics written (out32 is this
+               # design's residual for K14)
+               2 * (2 * q.numel() + 2 * keys * heads * d + table.numel())
+               + 4 * (b + 2 * b * heads * length), 3 * pairs,
+               source="sepreformer_torch/csrc/attention_train.cu",
+               replaces="sepreformer_tpu/ops/pallas/attention_train.py:202",
+               shape=(f"q, k, v [{b}, {heads}, {length}, {d}] bfloat16, "
+                      f"table [{2 * maxlen}, {d}], p {p}"),
+               tolerance=tolerance, exps=pairs,
+               bf16_flops=flash_relpos_ops(length, klens, maxlen, heads, d),
+               timings=5, instance=inst,
+               symbol=BF16_SYMBOLS["attention_train_fwd"])
+        del storage, bias
+
+        def bwd():
+            return K.attention_train_bwd(q, k, v, table, maxlen, seed, p,
+                                         key_len, out32, dout, row_max,
+                                         row_sum)
+
+        grads = repeat(f"attention_train_bwd {inst}", bwd)
+        refs = K.attention_train_bwd_plain(q, k, v, table, maxlen, seed, p,
+                                           None, dout)
+        ctls = K.attention_train_bwd_plain(*f32, maxlen, seed, p, None,
+                                           dout.float())
+        err = max(held(f"attention_train_bwd {inst} {name}", g, r,
+                       c.to(bf), BF16_SUM_MEAN)
+                  for name, g, r, c in zip(("dq", "dk", "dv", "dtable"),
+                                           grads, refs, ctls))
+        registers(f"attention_train_bwd {inst}",
+                  [f"attn_train_bwd_{part}_kernel<{d}, bf16>"
+                   for part in ("dq", "dkv", "table")])
+        record(K.attention_train_bwd, bwd,
+               lambda: K.attention_train_bwd_plain(q, k, v, table, maxlen,
+                                                   seed, p, None, dout),
+               None, err,
+               # q, k, v, dout and the table in (bfloat16), out32 and the
+               # row statistics (float32); dq, dk, dv and dtable out
+               2 * (7 * q.numel() + 2 * table.numel())
+               + 4 * (q.numel() + 2 * b * heads * length + b), 6 * pairs,
+               source="sepreformer_torch/csrc/attention_train.cu",
+               replaces="sepreformer_tpu/ops/pallas/attention_train.py:226",
+               shape=(f"q, k, v, dout [{b}, {heads}, {length}, {d}] "
+                      f"bfloat16, out32, table [{2 * maxlen}, {d}], p {p}"),
+               tolerance=tolerance, exps=pairs,
+               bf16_flops=attention_train_bwd_ops(length, klens, maxlen,
+                                                  heads, d),
+               timings=5, instance=inst,
+               symbol=BF16_SYMBOLS["attention_train_bwd"])
+        launch_split(torch, bwd, "attn_train_bwd",
+                     (f"dq d={d} bf16", f"dk/dv d={d} bf16",
+                      f"table d={d} bf16"))
+        del q, k, v, dout, table, f32, out, out32, row_max, row_sum, grads
+        del refs, ctls
+        torch.cuda.empty_cache()
+
+    # K15 and K16 at the widest blocks of a B=4 x 4 s forward without
+    # lengths, [4, 8000, F] (K16's attention output at length 500), x and
+    # x_down bfloat16
+    b, t, kk, length = 4, 8000, 65, 500
+    for f in (128, 256):
+        inst = "bf16" if f == 128 else f"F={f} bf16"
+        h = 2 * f
+        x = randn(b, t, f).to(bf)
+        cla = [randn(f), randn(f), randn(f, h, scale=0.1),
+               randn(h, scale=0.1), randn(f, kk, scale=0.1).t(),
+               randn(f, scale=0.1), randn(f, h, scale=0.1),
+               randn(h, scale=0.1), 1.0 + randn(h, scale=0.1),
+               randn(h, scale=0.1), randn(h, f, scale=0.1),
+               randn(f, scale=0.1), randn(f, scale=0.5)]
+        with torch.no_grad():
+            (got,) = repeat(f"fused_cla {inst}",
+                            lambda: (K.fused_cla(x, cla, 1e-5),))
+        err = held(f"fused_cla {inst}", got, K.cla_plain(x, cla, 1e-5),
+                   K.cla_plain(x.float(), cla, 1e-5).to(bf))
+        print(f"[kernels] fused_cla {inst}: blocks per SM (GLU launch, "
+              f"tail) {cla_blocks_per_sm(f)} (the float32 instance's "
+              f"shared memory)")
+        registers(f"fused_cla {inst}", [f"cla_glu_kernel<{f}, bf16>",
+                                        f"cla_tail_kernel<{f}, bf16>"])
+        products = 3 * 2 * f * h
+        rest = 2 * kk * f + 37 * f
+        record(K.fused_cla, lambda: K.fused_cla(x, cla, 1e-5),
+               lambda: K.cla_plain(x, cla, 1e-5), None, err,
+               2 * 2 * x.numel() + 4 * sum(q.numel() for q in cla),
+               b * t * rest,
+               source="sepreformer_torch/csrc/cla.cu",
+               replaces="sepreformer_tpu/ops/pallas/cla.py:209",
+               shape=f"x [{b}, {t}, {f}] bfloat16, k {kk}",
+               tolerance=tolerance, exps=b * t * f,
+               bf16_flops=b * t * products, timings=5, instance=inst,
+               symbol=BF16_SYMBOLS["fused_cla"])
+        launch_split(torch, lambda: K.fused_cla(x, cla, 1e-5), "cla_",
+                     (f"GLU {inst}", f"conv and tail {inst}"))
+        del cla, got
+
+        h6 = 6 * f
+        xd = randn(b, length, f).to(bf)
+        gate = [randn(f), randn(f), randn(f, f, scale=0.1),
+                randn(f, scale=0.1)]
+        gcfn = [randn(f), randn(f), randn(f, h6, scale=0.1),
+                randn(h6, scale=0.1), randn(h6, 3, scale=0.3),
+                randn(h6, scale=0.1), randn(h6 // 2, f, scale=0.1),
+                randn(f, scale=0.1), randn(f, scale=0.5)]
+        with torch.no_grad():
+            (got,) = repeat(f"fused_ega_tail_gcfn {inst}", lambda: (
+                K.fused_ega_tail_gcfn(x, xd, gate, gcfn, 1e-5),))
+        err = held(f"fused_ega_tail_gcfn {inst}", got,
+                   K.ega_tail_gcfn_plain(x, xd, gate, gcfn, 1e-5),
+                   K.ega_tail_gcfn_plain(x.float(), xd.float(), gate, gcfn,
+                                         1e-5).to(bf))
+        print(f"[kernels] fused_ega_tail_gcfn {inst}: {blocks_per_sm(f)} "
+              f"blocks per SM (the float32 instance's shared memory)")
+        registers(f"fused_ega_tail_gcfn {inst}",
+                  [f"ega_gcfn_kernel<{f}, bf16>"])
+        products = 2 * f * f + 2 * f * h6 + 2 * (h6 // 2) * f
+        rest = 8 * f + 5 * f + 8 * f + 7 * h6 + 5 * (h6 // 2) + 3 * f
+        record(K.fused_ega_tail_gcfn,
+               lambda: K.fused_ega_tail_gcfn(x, xd, gate, gcfn, 1e-5),
+               lambda: K.ega_tail_gcfn_plain(x, xd, gate, gcfn, 1e-5), None,
+               err,
+               # x, x_down in and out written (bfloat16), the parameters;
+               # the float32 residual y is this design's scratch
+               2 * (2 * x.numel() + xd.numel())
+               + 4 * sum(q.numel() for q in gate + gcfn), b * t * rest,
+               source="sepreformer_torch/csrc/ega_gcfn.cu",
+               replaces="sepreformer_tpu/ops/pallas/ega_gcfn.py:181",
+               shape=f"x [{b}, {t}, {f}], x_down [{b}, {length}, {f}] "
+                     f"bfloat16, hidden {h6}",
+               tolerance=tolerance, exps=b * t * (f + h6 // 2),
+               bf16_flops=b * t * products, timings=5, instance=inst,
+               symbol=BF16_SYMBOLS["fused_ega_tail_gcfn"])
+        del x, xd, gate, gcfn, got
         torch.cuda.empty_cache()
 
 
@@ -3359,11 +3644,14 @@ def single_against_default(torch, np, sep_torch, K, busy_us, base, rng, tag,
     torch.cuda.empty_cache()
 
 
-def cli_pallas_epoch(torch, np, K, model, tag):
+def cli_pallas_epoch(torch, np, K, model, tag, sets=(), instance="",
+                     launched=()):
     """One epoch of ``model`` through ``cli.main`` with ``--set
-    model.attention_train_impl=pallas`` on phase 8's synthetic corpus:
-    the train and valid losses finite, K13 and K14 launched and K9 not.
-    Returns the launches."""
+    model.attention_train_impl=pallas`` (and each of ``sets``) on phase
+    8's synthetic corpus: the train and valid losses finite, K13 and K14
+    launched (their ``instance``, e.g. "bf16") and K9 not, and each of
+    ``launched`` (validation's kernels) launched.  Returns the
+    launches."""
     import tempfile
 
     from sepreformer_torch import cli
@@ -3377,6 +3665,8 @@ def cli_pallas_epoch(torch, np, K, model, tag):
                 "--workdir", os.path.join(tmp, "work"), "--batch-size", "2",
                 "--max-epoch", "2", "--set", "engine.test_epochs=",
                 "--set", "model.attention_train_impl=pallas"]
+        for field in sets:
+            args += ["--set", field]
         K.reset_launches()
         t0 = time.perf_counter()
         assert cli.main(args) == 0
@@ -3387,8 +3677,13 @@ def cli_pallas_epoch(torch, np, K, model, tag):
     assert len(epochs) == 1, epochs
     print(f"[{tag}] log: {epochs[0]}")
     assert all(np.isfinite(epoch_losses(epochs[0]))), epochs[0]
-    assert counts["attention_train_fwd"] == counts["attention_train_bwd"] > 0
+    k13, k14 = (f"{w} {instance}".strip()
+                for w in ("attention_train_fwd", "attention_train_bwd"))
+    assert counts.get(k13, 0) == counts.get(k14, 0) > 0, counts
     assert counts["softmax_pv_train_fwd"] == 0
+    assert not counts.get("softmax_pv_train_fwd bf16"), counts
+    missing = [n for n in launched if not counts.get(n)]
+    assert not missing, f"never launched by the epoch: {missing}"
     return counts
 
 
@@ -4252,10 +4547,25 @@ def large_pallas(torch, np, sep_torch, K, variant, busy_us, total, gcfns,
 BASE = "SepReformer_Base_WSJ0"
 # the bfloat16 rows of phase 2, by the model that launches them
 BF16_ROWS = {BASE: {"fused_gcfn": "fused_gcfn", "softmax_pv": "softmax_pv",
-                    "flash_relpos_attention": "flash_relpos_attention"},
+                    "flash_relpos_attention": "flash_relpos_attention",
+                    "attention_train_fwd": "attention_train_fwd",
+                    "fused_cla": "fused_cla",
+                    "fused_ega_tail_gcfn": "fused_ega_tail_gcfn"},
              LARGE: {"fused_gcfn": "fused_gcfn F=256",
                      "softmax_pv": "softmax_pv d=32",
-                     "flash_relpos_attention": "flash_relpos_attention d=32"}}
+                     "flash_relpos_attention": "flash_relpos_attention d=32",
+                     "attention_train_fwd": "attention_train_fwd d=32",
+                     "fused_cla": "fused_cla F=256",
+                     "fused_ega_tail_gcfn": "fused_ega_tail_gcfn F=256"}}
+# phase 13's routes off the default one, by name: the model fields each
+# sets (every one served in bfloat16 with and without lengths where it
+# takes them; "all" also card against the CPU)
+BF16_ROUTES = {"single": dict(attention_impl="single"),
+               "fused_local": dict(fused_local="on"),
+               "fused_pair": dict(fused_pair="on"),
+               "fused": dict(fused_local="on", fused_pair="on"),
+               "all": dict(attention_impl="single", fused_local="on",
+                           fused_pair="on")}
 
 
 def bf16_phase(torch, np, sep_torch, K, busy_us, kernel_events):
@@ -4273,10 +4583,11 @@ def bf16_phase(torch, np, sep_torch, K, busy_us, kernel_events):
     peak memory; ``cli.main``'s ``infer_sample`` with ``--set
     model.compute_dtype=bfloat16``.  Large: the ragged batch (F 256,
     heads of 32) against float32, its modules' dtypes, traced, and 70 s
-    in full context.  Then the refusals: a bfloat16 tensor into K13, K15
-    and K16 (phase 14 trains in bfloat16).  Returns the bfloat16
-    instances' launches over the main-path runs, by their phase-2 row
-    names."""
+    in full context.  Then, for Base and Large, the routes off the default
+    one (``bf16_routes``): "single" (K13's bfloat16 instance), the fused
+    CLA (K15's), the fused pair (K16's), both fused routes, and all
+    three.  Returns the bfloat16 instances' launches over the main-path
+    runs, by their phase-2 row names."""
     import tempfile
 
     from sepreformer_torch import cli
@@ -4564,34 +4875,104 @@ def bf16_phase(torch, np, sep_torch, K, busy_us, kernel_events):
     del sep16, model16
     torch.cuda.empty_cache()
 
-    # g. the refusals of the kernels with no bfloat16 instance (phase 14
-    #    holds the train routes that reach them)
-    x = torch.zeros(1, 64, 128, device="cuda", dtype=torch.bfloat16)
-    q = torch.zeros(1, 2, 64, 16, device="cuda", dtype=torch.bfloat16)
-    K.reset_launches()
-    for name, call in (
-            ("K15", lambda: K.fused_cla(x, [], 1e-5)),
-            ("K16", lambda: K.fused_ega_tail_gcfn(
-                x, x[:, :8].contiguous(), [], [], 1e-5)),
-            ("K13", lambda: K.flash_relpos_attention_train(
-                q, q, q, q[0, 0], 1, 64, 0.0))):
-        try:
-            call()
-        except ValueError as exc:
-            assert "queue B, bfloat16 streams" in str(exc), exc
-            print(f"[bf16] {name} refused a bfloat16 tensor: {exc}")
-        else:
-            raise AssertionError(f"{name} took a bfloat16 tensor")
-    assert not any(K.launch_counts().values()), "a refusal launched"
+    # g. the routes off the default one, Base and Large
+    for name in (BASE, LARGE):
+        bf16_routes(torch, np, sep_torch, variant_of, seeded, run, traced,
+                    agree, stream_is_bf16, name, batch, lengths, seconds)
     missing = [name for name in (
         "fused_gcfn bf16", "fused_gcfn F=256 bf16", "softmax_pv bf16",
         "softmax_pv bf16 scores", "softmax_pv bf16 scores f32 v",
         "softmax_pv d=32 bf16", "flash_relpos_attention bf16",
-        "flash_relpos_attention d=32 bf16") if not rows[name]]
+        "flash_relpos_attention d=32 bf16", "attention_train_fwd bf16",
+        "attention_train_fwd d=32 bf16", "fused_cla bf16",
+        "fused_cla F=256 bf16", "fused_ega_tail_gcfn bf16",
+        "fused_ega_tail_gcfn F=256 bf16") if not rows[name]]
     assert not missing, f"bfloat16 instances never launched: {missing}"
     print(f"[bf16] launches of the bfloat16 instances over the phase's "
           f"main-path runs: {dict(rows)}")
     return dict(rows)
+
+
+def bf16_routes(torch, np, sep_torch, variant_of, seeded, run, traced,
+                agree, stream_is_bf16, name, batch, lengths, seconds):
+    """Phase 13's routes off the default one for model ``name``, in
+    bfloat16 through ``Separator.separate`` with the same seeded weights
+    (every LayerScale at 0.5), each route of ``BF16_ROUTES``: the ragged
+    B=4 x 4 s batch where the route takes lengths ("single": K13 with key
+    lengths) and the batch without lengths (the fused routes take no
+    lengths: K15 and K16 in every block ``fused_route`` admits); each
+    against the float32 default route on the card, launching the
+    bfloat16 instances of K13, K15 and K16 and no float32 instance of
+    them, one traced forward each (busy, launches, kernel groups, peak
+    memory); "all" also card against the port on the CPU in bfloat16 and
+    with every module's output bfloat16."""
+    import copy
+
+    tag = "Base" if name == BASE else "Large"
+    base16 = variant_of(name, compute_dtype="bfloat16")
+    seeded16 = seeded(base16)
+    weights = seeded16.state_dict()
+    kinds = [type(m).__name__ for m in seeded16.modules()]
+    gcfns, attentions = kinds.count("GCFN"), kinds.count("EGA")
+    del seeded16
+    ref = sep_torch.Separator(variant_of(name), seeded(variant_of(name)))
+    f32 = {"lengths": ref.separate(batch, lengths),
+           "no lengths": ref.separate(batch)}
+    del ref
+    mc = base16.model
+    frames = mc.padded_frames((batch.shape[1] - mc.enc_kernel)
+                              // mc.enc_stride + 1)
+    fused = fused_expected(base16, frames, gcfns)
+    for route, fields in BF16_ROUTES.items():
+        variant = variant_of(name, compute_dtype="bfloat16", **fields)
+        model = sep_torch.build_model(variant.model, device="cuda")
+        model.load_state_dict(weights)
+        sep = sep_torch.Separator(variant, model)
+        single = "attention_impl" in fields
+        local, pair = (fields.get(k) == "on"
+                       for k in ("fused_local", "fused_pair"))
+        cases = (("lengths", lambda: sep.separate(batch, lengths)),
+                 ("no lengths", lambda: sep.separate(batch)))
+        for case, fn in cases:
+            if case == "lengths" and not single:
+                continue   # the fused routes take no lengths
+            fn()
+            audio, counts = run(f"{tag} B=4 x 4 s, bfloat16, {route}, "
+                                f"{case}", fn, seconds, name)
+            assert audio.dtype == torch.float32
+            assert torch.isfinite(audio).all().item(), "non-finite audio"
+            on = case == "no lengths"
+            want = {"attention_train_fwd bf16": attentions if single else 0,
+                    "fused_cla bf16": fused["fused_cla"] if local and on
+                    else 0,
+                    "fused_ega_tail_gcfn bf16":
+                        fused["fused_ega_tail_gcfn"] if pair and on else 0,
+                    "attention_train_fwd": 0, "fused_cla": 0,
+                    "fused_ega_tail_gcfn": 0, "fused_gcfn": 0}
+            got = {k: counts.get(k, 0) for k in want}
+            assert got == want, (route, case, got, want)
+            if single:
+                assert counts["softmax_pv"] == counts.get(
+                    "softmax_pv bf16", 0) == 0, counts
+            agree(f"{tag} {route}, {case}, bfloat16 against the float32 "
+                  f"default route on the card", audio, f32[case],
+                  BF16_F32_LIMIT)
+            traced(f"{tag} B=4 x 4 s forward, bfloat16, {route}, {case}",
+                   fn, name)
+        if route == "all":
+            stream_is_bf16(f"{tag} batch, bfloat16, all three routes", model,
+                           lambda: sep.separate(batch))
+            t0 = time.perf_counter()
+            cpu = sep_torch.Separator(
+                variant, copy.deepcopy(model).to("cpu")).separate(batch)
+            print(f"[bf16] {tag} batch without lengths on the CPU in "
+                  f"bfloat16, all three routes (plain versions): "
+                  f"{time.perf_counter() - t0:.2f} s")
+            agree(f"{tag} all three routes, bfloat16, card against the CPU",
+                  audio.cpu(), cpu, BF16_FORWARD_LIMIT)
+            del cpu
+        del sep, model
+        torch.cuda.empty_cache()
 
 
 # phase 14's main-path launches by phase-2 row name: each model's train
@@ -4599,12 +4980,17 @@ def bf16_phase(torch, np, sep_torch, K, busy_us, kernel_events):
 BF16_TRAIN_ROWS = {BASE: {"gcfn_train_fwd": "gcfn_train_fwd",
                           "gcfn_train_bwd": "gcfn_train_bwd",
                           "softmax_pv_train_fwd": "softmax_pv_train_fwd",
-                          "softmax_pv_train_bwd": "softmax_pv_train_bwd"},
+                          "softmax_pv_train_bwd": "softmax_pv_train_bwd",
+                          "attention_train_fwd": "attention_train_fwd",
+                          "attention_train_bwd": "attention_train_bwd"},
                    LARGE: {"gcfn_train_fwd": "gcfn_train_fwd F=256",
                            "gcfn_train_bwd": "gcfn_train_bwd F=256",
                            "softmax_pv_train_fwd": "softmax_pv_train_fwd d=32",
                            "softmax_pv_train_bwd":
-                               "softmax_pv_train_bwd d=32"}}
+                               "softmax_pv_train_bwd d=32",
+                           "attention_train_fwd": "attention_train_fwd d=32",
+                           "attention_train_bwd":
+                               "attention_train_bwd d=32"}}
 # phase 14, a bfloat16 train step at dropout > 0 card against CPU: max
 # |card - cpu| over every gradient element, over the largest cpu
 # gradient, and |card - cpu| / |cpu| of the loss.  Readings on an H100
@@ -4618,6 +5004,20 @@ BF16_TRAIN_ROWS = {BASE: {"gcfn_train_fwd": "gcfn_train_fwd",
 # only, the loss limit tells the float32 step apart.
 BF16_TRAIN_CPU_LIMIT = 1.4e-2
 BF16_TRAIN_LOSS_LIMIT = 1e-3
+# the same on the "pallas" route: every gradient within an agreement
+# limit, the GCFNs' and the attentions' (the kernels' modules) within
+# BF16_TRAIN_CPU_LIMIT.  Reading (PR 25, Base): 2.42e-2 at the fusion's
+# 1x1 conv weight, a plain module, where the card's float32 step, the
+# control, reads 2.41e-2 too: bfloat16 rounding in the CPU's plain
+# modules, which no limit between the two tells apart.
+BF16_PALLAS_CPU_LIMIT = 3e-2
+
+
+def kernel_module(name):
+    """Whether parameter ``name`` belongs to a module that runs a train
+    kernel: a GCFN (K7/K8) or an attention (K9/K10, K13/K14)."""
+    return any(part in name for part in (".gcfn.", "feed_forward",
+                                         "self_attn", ".ega."))
 
 
 @contextlib.contextmanager
@@ -4648,14 +5048,15 @@ def cpu_drawn_masks(torch, seed=11):
         TrainMode.dropout = saved
 
 
-def bf16_against_cpu(torch, np, variant, tag):
+def bf16_against_cpu(torch, np, variant, tag, limit=BF16_TRAIN_CPU_LIMIT):
     """One bfloat16 train step of ``variant`` at its dropout on the card
     and on the CPU (the plain versions) from the same weights, every
     LayerScale at 0.5, a 1 s crop, the same masks (``cpu_drawn_masks``):
     the loss within ``BF16_TRAIN_LOSS_LIMIT``, which the card's float32
-    step, the control, must exceed, and every gradient within
-    ``BF16_TRAIN_CPU_LIMIT`` of the largest CPU gradient (the constants
-    say why that one holds agreement only)."""
+    step, the control, must exceed, every gradient within ``limit`` of
+    the largest CPU gradient and the kernels' modules' within
+    ``BF16_TRAIN_CPU_LIMIT`` (the constants say why those hold agreement
+    only)."""
     import dataclasses
 
     from sepreformer_torch.engine import create_train_state, train_step
@@ -4698,21 +5099,112 @@ def bf16_against_cpu(torch, np, variant, tag):
         loss, grads = step(cfg, "cuda")
         worst = max(grads, key=lambda n: (grads[n] - cpu_grads[n]).abs().max())
         err = (grads[worst] - cpu_grads[worst]).abs().max().item() / scale
+        kernels = max((grads[n] - cpu_grads[n]).abs().max().item()
+                      for n in grads if kernel_module(n)) / scale
         l2 = math.sqrt(sum(((grads[n] - cpu_grads[n]).double() ** 2).sum()
                            .item() for n in grads)) / cpu_norm
-        errs[label] = (abs(loss - cpu_loss) / abs(cpu_loss), err, l2)
+        errs[label] = (abs(loss - cpu_loss) / abs(cpu_loss), err, kernels)
         print(f"[{tag}] card {label} step against the CPU's bfloat16 one: "
               f"loss {loss:.6f} (|card - cpu| / |cpu| {errs[label][0]:.3e}); "
               f"max |card - cpu| over every gradient / max |cpu gradient| "
               f"{err:.3e} (max {scale:.3e}, worst {worst}), limit "
-              f"{BF16_TRAIN_CPU_LIMIT:.1e}; |card - cpu| / |cpu| over all "
-              f"gradients (L2) {l2:.3e}")
-    loss, grad, _ = errs["bfloat16"]
+              f"{limit:.1e}; over the GCFNs' and attentions' {kernels:.3e}, "
+              f"limit {BF16_TRAIN_CPU_LIMIT:.1e}; |card - cpu| / |cpu| over "
+              f"all gradients (L2) {l2:.3e}")
+    loss, grad, kernels = errs["bfloat16"]
     assert loss <= BF16_TRAIN_LOSS_LIMIT, "the card's bfloat16 loss disagrees"
-    assert grad <= BF16_TRAIN_CPU_LIMIT, (
+    assert grad <= limit and kernels <= BF16_TRAIN_CPU_LIMIT, (
         "the card's bfloat16 gradients disagree with the CPU's")
     assert errs["control, float32"][0] > BF16_TRAIN_LOSS_LIMIT, (
         "the loss limit does not tell a float32 step apart")
+
+
+def bf16_pallas(torch, np, K, variant, busy_us, kernel_events, rng, tag,
+                steps=3):
+    """Phase 14's "pallas" train route in bfloat16 for ``variant`` (a
+    bfloat16 preset) at its preset's dropout: ``steps`` ``train_step``s on
+    seeded B=2 x 4 s batches (each one launch of K13's and K14's bfloat16
+    instances per global attention, of K7's and K8's per GCFN, K5 per
+    CLA, K11 once; no K2, K9, K10, no float32 K13/K14 and no eval
+    kernel), one traced step beside a traced float32 "pallas" step of the
+    same model (busy, launches, idle share, peak memory, kernel groups),
+    one step card against the CPU (``bf16_against_cpu``'s limits), and
+    one CLI epoch with ``--set model.attention_train_impl=pallas`` and
+    the fused routes on, whose validation launches K15's and K16's
+    bfloat16 instances.  Yields the launches of each main-path run."""
+    import dataclasses
+
+    from sepreformer_torch.config import apply_override
+    from sepreformer_torch.engine import (
+        LRController,
+        create_train_state,
+        train_step,
+    )
+
+    cfg = apply_override(variant, "model.attention_train_impl", "pallas")
+    state = create_train_state(cfg, device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+    kinds = [type(m).__name__ for m in state.model.modules()]
+    gcfns, attentions = kinds.count("GCFN"), kinds.count("EGA")
+    o = cfg.optim
+    lrc = LRController(o.lr, o.warmup_steps, o.plateau_factor,
+                       o.plateau_patience, o.plateau_min_lr)
+    batches = [tuple(a.cuda() for a in synthetic_batch(
+        torch, np, rng, cfg.dataset.batch_size, cfg.dataset.max_len))
+        for _ in range(steps + 1)]
+    expected = {"attention_train_fwd bf16": attentions,
+                "attention_train_bwd bf16": attentions,
+                "gcfn_train_fwd bf16": gcfns, "gcfn_train_bwd bf16": gcfns,
+                "depthwise_bwd": kinds.count("CLA"),
+                "sisnr_pairwise_neg_fused": 1, "materialize_pos_kt": 0,
+                "attention_train_fwd": 0, "attention_train_bwd": 0,
+                "softmax_pv_train_fwd": 0, "softmax_pv_train_bwd": 0}
+    total = defaultdict(int)
+    torch.cuda.reset_peak_memory_stats()
+    times = timed_train_steps(torch, np, K, state, lrc, batches[:steps],
+                              torch.Generator().manual_seed(1), expected,
+                              total, f"{tag} pallas")
+    assert not total.get("softmax_pv_train_fwd bf16"), dict(total)
+    yield total
+    print(f"[{tag} pallas] {steps} steps, ms {[round(t, 2) for t in times]}; "
+          f"median after the first {statistics.median(times[1:]):.2f} ms; "
+          f"max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
+          f"per step {expected}")
+    f32 = create_train_state(
+        dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, compute_dtype="float32")),
+        device="cuda", generator=torch.Generator().manual_seed(0))
+    mix, src = batches[steps]
+    train_step(f32, mix, src, lrc.lr, 0.4, torch.Generator())
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    for label, st in (("bfloat16", state), ("float32", f32)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            train_step(st, mix, src, lrc.lr, 0.4, torch.Generator())
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+        counts = K.launch_counts()
+        if label == "bfloat16":
+            yield counts
+        kernels = kernel_events(prof)
+        print_trace("bf16_train", kernels, busy_us(kernels), window_us,
+                    {n: c for n, c in counts.items() if c},
+                    f"{tag} pallas step, {label}")
+        print(f"[{tag} pallas] traced {label} step: max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del state, f32, prof, batches
+    torch.cuda.empty_cache()
+    bf16_against_cpu(torch, np, cfg, f"{tag} pallas", BF16_PALLAS_CPU_LIMIT)
+    yield cli_pallas_epoch(
+        torch, np, K, cfg.name, f"{tag} pallas cli",
+        sets=("model.compute_dtype=bfloat16", "model.fused_local=on",
+              "model.fused_pair=on"), instance="bf16",
+        launched=("fused_cla bf16", "fused_ega_tail_gcfn bf16"))
 
 
 def bf16_train_phase(torch, np, sep_torch, K, busy_us, kernel_events,
@@ -4731,8 +5223,9 @@ def bf16_train_phase(torch, np, sep_torch, K, busy_us, kernel_events,
     one step card against the CPU at the preset's
     dropout (``bf16_against_cpu``), one CLI epoch with ``--set
     model.compute_dtype=bfloat16`` on phase 8's corpus, resumed for a
-    second, then tested; then the refusals of the "pallas" route and the
-    fused pair, raised before any launch.  Returns the bfloat16
+    second, then tested; then the "pallas" route (``bf16_pallas``); then
+    the refusal of the fused pair at dropout 0 (K16 has no bfloat16
+    gradient), raised before any launch.  Returns the bfloat16
     instances' launches over the main-path steps, by their phase-2 row
     names."""
     import dataclasses
@@ -4877,29 +5370,34 @@ def bf16_train_phase(torch, np, sep_torch, K, busy_us, kernel_events,
                               "materialize_pos_kt", "fused_gcfn bf16",
                               "softmax_pv bf16"))
 
-    # the refusals, before any launch: the "pallas" route (K13/K14) and
-    # the fused pair (K16) in bfloat16
-    variant = apply_override(sep_torch.get_variant(BASE),
-                             "model.compute_dtype", "bfloat16")
+        # the "pallas" route in bfloat16 (K13/K14's bfloat16 instances)
+        for counts in bf16_pallas(torch, np, K, variant, busy_us,
+                                  kernel_events, rng, tag):
+            main_path(name, counts)
+
+    # the one refusal left, before any launch: the fused pair (K16) at
+    # dropout 0, whose bfloat16 gradient the JAX package cannot take
+    variant = apply_override(apply_override(
+        sep_torch.get_variant(BASE), "model.compute_dtype", "bfloat16"),
+        "model.dropout", 0.0)
     state = create_train_state(variant, device="cuda",
                                generator=torch.Generator().manual_seed(0))
     mix, src = synthetic_batch(torch, np, rng, 2, SAMPLE_RATE)
     before = [p.detach().clone() for p in state.model.parameters()]
-    for field, value in (("model.attention_train_impl", "pallas"),
-                         ("model.fused_pair", "on")):
-        state.cfg = apply_override(variant, field, value)
-        K.reset_launches()
-        try:
-            train_step(state, mix, src, 1e-3, 0.4, torch.Generator())
-        except NotImplementedError as exc:
-            assert "queue A, bf16 training off the default route" in str(
-                exc), exc
-            print(f"[bf16_train] {field}={value} in bfloat16 refused: {exc}")
-        else:
-            raise AssertionError(f"{field}={value} trained in bfloat16")
-        assert not any(K.launch_counts().values()), "a refusal launched"
+    state.cfg = apply_override(variant, "model.fused_pair", "on")
+    K.reset_launches()
+    try:
+        train_step(state, mix, src, 1e-3, 0.4, torch.Generator())
+    except NotImplementedError as exc:
+        assert "no bfloat16 gradient" in str(exc), exc
+        print(f"[bf16_train] fused_pair=on at dropout 0 in bfloat16 refused: "
+              f"{exc}")
+    else:
+        raise AssertionError("fused_pair=on at dropout 0 trained in bfloat16")
+    assert not any(K.launch_counts().values()), "the refusal launched"
     assert all(torch.equal(a, b) for a, b in zip(
-        before, state.model.parameters())), "a refusal moved a parameter"
+        before, state.model.parameters())), "the refusal moved a parameter"
+    del state
     missing = [n for n in (
         "gcfn_train_fwd bf16", "gcfn_train_bwd bf16",
         "gcfn_train_fwd F=256 bf16", "gcfn_train_bwd F=256 bf16",
@@ -4907,7 +5405,9 @@ def bf16_train_phase(torch, np, sep_torch, K, busy_us, kernel_events,
         "softmax_pv_train_fwd d=32 bf16", "softmax_pv_train_bwd d=32 bf16",
         "softmax_pv_train_fwd bf16 scores", "softmax_pv_train_bwd bf16 scores",
         "softmax_pv_train_fwd bf16 scores f32 v",
-        "softmax_pv_train_bwd bf16 scores f32 v") if not rows[n]]
+        "softmax_pv_train_bwd bf16 scores f32 v", "attention_train_fwd bf16",
+        "attention_train_bwd bf16", "attention_train_fwd d=32 bf16",
+        "attention_train_bwd d=32 bf16") if not rows[n]]
     assert not missing, f"bfloat16 instances never launched: {missing}"
     print(f"[bf16_train] launches of the bfloat16 train instances over the "
           f"phase's main-path steps: {dict(rows)}")
@@ -4995,14 +5495,17 @@ def main() -> int:
                        busy_us, kernel_events) or {}
     bf16_counts = run("bf16", bf16_phase, torch, np, sep_torch, K, busy_us,
                       kernel_events) or {}
-    bf16_counts.update(run("bf16_train", bf16_train_phase, torch, np,
-                           sep_torch, K, busy_us, kernel_events) or {})
+    # (K13's bfloat16 instance runs on both phases' main paths: summed)
+    for row, n in (run("bf16_train", bf16_train_phase, torch, np, sep_torch,
+                       K, busy_us, kernel_events) or {}).items():
+        bf16_counts[row] = bf16_counts.get(row, 0) + n
 
     # each kernel's launches on the main path of its slice: the eval
     # kernels' in serving, the train kernels' in training, K12's in
     # long-form serving, K6's, K13's and K14's on the routes, K15's and
     # K16's on the fused routes, the instances at Large's widths in Large's
-    # serving and training, the bfloat16 instances in bfloat16 serving;
+    # serving and training, the bfloat16 instances in bfloat16 serving
+    # and training (phases 13 and 14);
     # K4, on no path, its launches summed over every phase's main-path
     # runs, which must be 0
     main_paths = (counts, train_counts, long_counts, route_counts,

@@ -85,11 +85,12 @@ class ModelConfig:
     # per encoder stage and the bottleneck) instead of one shared block
     per_stage_spk_split: bool = False
     # activations: "float32" or "bfloat16", in serving and in training
-    # on the default train route (engine/train.py::check_trainable names
-    # what refuses it).  Parameters stay float32 and each module casts
-    # its weights to the stream's dtype; norms and softmaxes compute in
-    # float32 and cast back; the kernels K1, K3, K7-K10 and K12 take bf16
-    # operands with float32 accumulation; the model returns float32 audio
+    # on every route (engine/train.py::check_trainable names the one
+    # train case it refuses: K16 at dropout 0).  Parameters stay float32
+    # and each module casts its weights to the stream's dtype; norms and
+    # softmaxes compute in float32 and cast back; the kernels K1, K3,
+    # K7-K10 and K12-K16 take bf16 operands with float32 accumulation;
+    # the model returns float32 audio
     compute_dtype: str = "float32"
     # storage dtype of the scores tensor K3 reads: "auto" resolves to
     # float32 (the JAX rule off a TPU; the card's own rule belongs to

@@ -86,6 +86,23 @@
 // atomics: two runs give the same bits.  Query rows past L are computed
 // on zeros and never written; keys at or past lim score -inf (forward) or
 // carry no gradient (backward).  64-bit offsets throughout.
+//
+// bfloat16 streams (sep_attn_train_fwd_bf16, sep_attn_train_bwd_bf16):
+// q, k, v, the table, dout and the four gradients bfloat16, with the JAX
+// kernels' rounding steps (attention_train.py:84-172).  K13 is the
+// tile's two-pass instance (flash_relpos_tile.cuh says why), which also
+// writes out32, the float32 P·V of the unrounded weights.  K14's three
+// launches keep their plan and shared memory: the bfloat16 rows are
+// upcast as they are staged (plain loads in place of cp.async, the stage
+// layouts unchanged), every operand of a product is then bfloat16-exact
+// (q, k, v, dO and the band as read; P·z, G and G_skew rounded where JAX
+// rounds Pd, dS and its barrel scatter), so each product is one TF32
+// mma.sync (mma_tf32x3.cuh) in place of three, and the A fragments need
+// no small parts; delta_i = dO_i·out32_i is the row sum of dP·P as JAX
+// sums it; dq is stored rounded; the dk/dv launch writes both halves to
+// float32 scratch and the third launch stores their sum rounded, and the
+// table's float32 sum rounded.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -120,6 +137,14 @@ __global__ void __launch_bounds__(relpos_flash::Shape<SPLIT, D>::kThreads,
                                   relpos_flash::Shape<SPLIT, D>::kMinBlocks)
 attn_train_fwd_kernel(relpos_flash::Args a) {
   relpos_flash::run<D, SPLIT, true, true, true>(a);
+}
+
+// The same on bfloat16 rows: the tile's two-pass instance, with out32.
+template <int D, int SPLIT>
+__global__ void __launch_bounds__(relpos_flash::Shape<SPLIT, D>::kThreads,
+                                  relpos_flash::Shape<SPLIT, D>::kMinBlocks)
+attn_train_fwd_bf16_kernel(relpos_flash::Args a) {
+  relpos_flash::run<D, SPLIT, true, true, true, __nv_bfloat16>(a);
 }
 
 // ---------------------------------------------------------------- K14
@@ -191,37 +216,60 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// The bfloat16 instance's rows are upcast as they are staged: each
+// thread loads its 8 bytes (four values) and stores them as a float4.
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// 16 bytes of floats (4 values) at src into dst, zero where !ok: by
+// cp.async for float rows, by a load and a store for bfloat16 ones
+__device__ __forceinline__ void stage4(float* dst, const float* src,
+                                       bool ok) {
+  cp_async16(dst, src, ok);
+}
+__device__ __forceinline__ void stage4(float* dst, const __nv_bfloat16* src,
+                                       bool ok) {
+  *reinterpret_cast<float4*>(dst) =
+      ok ? load4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
 // rows r0 .. r0 + n - 1 of a [*, D] array into s[rr * LD + c] by
 // cp.async, zero at or past lim: thread tid copies 16 bytes of every
-// kRowStep-th row
-template <int D, int LD = Dims<D>::kS>
-__device__ __forceinline__ void stage_rows(float* s, const float* a, int r0,
+// kRowStep-th row (bfloat16: 4 values, upcast)
+template <int D, int LD = Dims<D>::kS, class In>
+__device__ __forceinline__ void stage_rows(float* s, const In* a, int r0,
                                            int lim, int n) {
   using M = Dims<D>;
   const int c4 = (threadIdx.x % M::kPerRow) * 4;
   for (int rr = threadIdx.x / M::kPerRow; rr < n; rr += M::kRowStep) {
     const bool ok = r0 + rr < lim;
-    cp_async16(s + rr * LD + c4, a + (size_t)(ok ? r0 + rr : 0) * D + c4,
-               ok);
+    stage4(s + rr * LD + c4, a + (size_t)(ok ? r0 + rr : 0) * D + c4, ok);
   }
 }
 
 // the kBand clamped table rows of offsets rel0 .. rel0 + kBand - 1
-template <int D>
-__device__ __forceinline__ void stage_band(float* s, const float* table,
+template <int D, class In>
+__device__ __forceinline__ void stage_band(float* s, const In* table,
                                            int rel0, int maxlen) {
   using M = Dims<D>;
   const int c4 = (threadIdx.x % M::kPerRow) * 4;
   for (int rr = threadIdx.x / M::kPerRow; rr < kBand; rr += M::kRowStep) {
     const int row = min(max(rel0 + rr, -maxlen), maxlen - 1) + maxlen;
-    cp_async16(s + rr * M::kS + c4, table + (size_t)row * D + c4, true);
+    stage4(s + rr * M::kS + c4, table + (size_t)row * D + c4, true);
   }
 }
 
 // A fragments (standard k order: slots t, t+4 = columns 8 ks + t, + 4) of
-// rows r and r + 8 of a [*, D] array (zero past n), split once
-template <int D>
-__device__ __forceinline__ void rows_split(const float* a, int r, int n,
+// rows r and r + 8 of a [*, D] array (zero past n), split once; a
+// bfloat16 array's values are exact in TF32 (small stays zero)
+template <int D, class In>
+__device__ __forceinline__ void rows_split(const In* a, int r, int n,
                                            uint32_t (&big)[D / 8][4],
                                            uint32_t (&small)[D / 8][4]) {
   const int t = threadIdx.x & 3;
@@ -231,9 +279,17 @@ __device__ __forceinline__ void rows_split(const float* a, int r, int n,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = r + 8 * (e & 1), col = 8 * ks + t + 4 * (e >> 1);
-      v[e] = row < n ? a[(size_t)row * D + col] : 0.f;
+      v[e] = row < n ? bf16s::to_f(a[(size_t)row * D + col]) : 0.f;
     }
-    tf32x3::split(v, big[ks], small[ks]);
+    if constexpr (std::is_same<In, float>::value) {
+      tf32x3::split(v, big[ks], small[ks]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        big[ks][e] = __float_as_uint(v[e]);
+        small[ks][e] = 0u;
+      }
+    }
   }
 }
 
@@ -241,8 +297,9 @@ __device__ __forceinline__ void rows_split(const float* a, int r, int n,
 // A the warp's register fragments, split once; bfrag(ks, nt) gives
 // B[8 ks + t] and B[8 ks + t + 4] of the lane's column g of n-tile nt.
 // Each term is issued over all NT fragments before the next, so that
-// independent products sit between dependent ones.
-template <int NT, int KK, class BFrag>
+// independent products sit between dependent ones.  kExact: A and B are
+// exact in TF32 (bfloat16 values), one product a term.
+template <int NT, int KK, bool kExact = false, class BFrag>
 __device__ __forceinline__ void regs_product(float (&c)[NT][4],
                                              const uint32_t (&ab)[KK][4],
                                              const uint32_t (&as)[KK][4],
@@ -258,12 +315,19 @@ __device__ __forceinline__ void regs_product(float (&c)[NT][4],
     for (int nt = 0; nt < NT; ++nt) {
       const float2 b = bfrag(ks, nt);
       const float v[2] = {b.x, b.y};
-      tf32x3::split(v, bb[nt], bs[nt]);
+      if constexpr (kExact) {
+        bb[nt][0] = __float_as_uint(v[0]);
+        bb[nt][1] = __float_as_uint(v[1]);
+      } else {
+        tf32x3::split(v, bb[nt], bs[nt]);
+      }
     }
+    if constexpr (!kExact) {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) tf32x3::mma(c[nt], as[ks], bb[nt]);
+      for (int nt = 0; nt < NT; ++nt) tf32x3::mma(c[nt], as[ks], bb[nt]);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) tf32x3::mma(c[nt], ab[ks], bs[nt]);
+      for (int nt = 0; nt < NT; ++nt) tf32x3::mma(c[nt], ab[ks], bs[nt]);
+    }
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) tf32x3::mma(c[nt], ab[ks], bb[nt]);
   }
@@ -274,8 +338,9 @@ __device__ __forceinline__ void regs_product(float (&c)[NT][4],
 // and t + 4 hold k = 8 ks + 2t and + 1), bfrag(ks, nn) gives B[8 ks + 2t]
 // and B[8 ks + 2t + 1] of the lane's column g of n-tile nn.  The k-steps
 // of either parity sum into their own zeroed fragments (2 NN independent
-// products per term), added to acc in float32 at the end.
-template <int KS, int NN, class AFrag, class BFrag>
+// products per term), added to acc in float32 at the end.  kExact: A and
+// B are exact in TF32 (bfloat16 values), one product a term.
+template <int KS, int NN, bool kExact = false, class AFrag, class BFrag>
 __device__ __forceinline__ void pair_product(float (&acc)[NN][4], AFrag afrag,
                                              BFrag bfrag) {
   static_assert(KS % 2 == 0, "k-steps in pairs");
@@ -287,24 +352,36 @@ __device__ __forceinline__ void pair_product(float (&acc)[NN][4], AFrag afrag,
     for (int x = 0; x < 2; ++x) {
       float a[4];
       afrag(k2 + x, a);
-      tf32x3::split(a, ab[x], as[x]);
+      if constexpr (kExact) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ab[x][e] = __float_as_uint(a[e]);
+      } else {
+        tf32x3::split(a, ab[x], as[x]);
+      }
 #pragma unroll
       for (int nn = 0; nn < NN; ++nn) {
         const float2 b = bfrag(k2 + x, nn);
         const float v[2] = {b.x, b.y};
-        tf32x3::split(v, bb[x][nn], bs[x][nn]);
+        if constexpr (kExact) {
+          bb[x][nn][0] = __float_as_uint(v[0]);
+          bb[x][nn][1] = __float_as_uint(v[1]);
+        } else {
+          tf32x3::split(v, bb[x][nn], bs[x][nn]);
+        }
       }
     }
+    if constexpr (!kExact) {
 #pragma unroll
-    for (int x = 0; x < 2; ++x)
+      for (int x = 0; x < 2; ++x)
 #pragma unroll
-      for (int nn = 0; nn < NN; ++nn)
-        tf32x3::mma(sum[x][nn], as[x], bb[x][nn]);
+        for (int nn = 0; nn < NN; ++nn)
+          tf32x3::mma(sum[x][nn], as[x], bb[x][nn]);
 #pragma unroll
-    for (int x = 0; x < 2; ++x)
+      for (int x = 0; x < 2; ++x)
 #pragma unroll
-      for (int nn = 0; nn < NN; ++nn)
-        tf32x3::mma(sum[x][nn], ab[x], bs[x][nn]);
+        for (int nn = 0; nn < NN; ++nn)
+          tf32x3::mma(sum[x][nn], ab[x], bs[x][nn]);
+    }
 #pragma unroll
     for (int x = 0; x < 2; ++x)
 #pragma unroll
@@ -320,7 +397,7 @@ __device__ __forceinline__ void pair_product(float (&acc)[NN][4], AFrag afrag,
 // bias[r][cc] = sum_c A[r][c] band[cc][c] for the warp's 16 rows and 80
 // band rows (stride KS), written to out[r * LD + cc] (in pairs where LD
 // is even)
-template <int LD, int KS, int KK>
+template <int LD, int KS, int KK, bool kExact = false>
 __device__ __forceinline__ void band_bias(const uint32_t (&ab)[KK][4],
                                           const uint32_t (&as)[KK][4],
                                           const float* band, float* out) {
@@ -328,7 +405,7 @@ __device__ __forceinline__ void band_bias(const uint32_t (&ab)[KK][4],
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     float c[5][4];
-    regs_product<5>(c, ab, as, [&](int ks, int nt) {
+    regs_product<5, KK, kExact>(c, ab, as, [&](int ks, int nt) {
       const float* br = band + (8 * (5 * half + nt) + g) * KS + 8 * ks + t;
       return make_float2(br[0], br[4]);
     });
@@ -351,10 +428,12 @@ __device__ __forceinline__ void band_bias(const uint32_t (&ab)[KK][4],
 
 // The scratch of the three launches, in floats: delta [BH, L]; the second
 // halves' dk and dv [BH, L, D] each (the first halves write the outputs,
-// and the table launch adds the second in a fixed order); the dq blocks'
-// frames of band sums [BH][query tiles][frame_rows(L)][D].
+// and the table launch adds the second in a fixed order; the bfloat16
+// instance writes its first halves to dk0 and dv0 too, and the table
+// launch stores the rounded sums); the dq blocks' frames of band sums
+// [BH][query tiles][frame_rows(L)][D].
 struct Scratch {
-  float *delta, *dk1, *dv1, *frames;
+  float *delta, *dk1, *dv1, *frames, *dk0, *dv0;
 };
 
 // rows of a query tile's frame of relative offsets: offset i0 - Lk + 1 +
@@ -363,22 +442,24 @@ __host__ __device__ inline int frame_rows(int L) {
   return ((L + kTile - 1) / kTile) * kTile + kTile;
 }
 
-// Launch 1, dq: a block per (query tile, bh).
-template <int D>
+// Launch 1, dq: a block per (query tile, bh).  In: float, or bfloat16
+// (q, k, v, the table, dout and dq; out is then K13's float32 out32).
+template <int D, class In = float>
 __global__ void __launch_bounds__(kThreads, Dims<D>::kDqBlocks)
-attn_train_bwd_dq_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ table,
+attn_train_bwd_dq_kernel(const In* __restrict__ q,
+                         const In* __restrict__ k,
+                         const In* __restrict__ v,
+                         const In* __restrict__ table,
                          const int* __restrict__ lens,
                          const float* __restrict__ out,
-                         const float* __restrict__ dout,
+                         const In* __restrict__ dout,
                          const float* __restrict__ row_max,
                          const float* __restrict__ row_sum,
-                         float* __restrict__ dq, Scratch scratch, int L,
+                         In* __restrict__ dq, Scratch scratch, int L,
                          int H, int maxlen, float scale, Drop drop) {
   using M = Dims<D>;
   constexpr int kS = M::kS, kQ = M::kQ, kK = M::kK;
+  constexpr bool kBf16 = !std::is_same<In, float>::value;
   extern __shared__ __align__(16) float smem[];
   float* gsk = smem + 2 * M::kStageDq;   // [kTile][kGS] G_skew
   float* qsm = gsk + kTile * kGS;        // [kTile][kQ] the query tile
@@ -423,7 +504,7 @@ attn_train_bwd_dq_kernel(const float* __restrict__ q,
     float sum = 0.f;
 #pragma unroll
     for (int c = t; c < D; c += 4)
-      if (in) sum = fmaf(dout[head + (size_t)i * D + c],
+      if (in) sum = fmaf(bf16s::to_f(dout[head + (size_t)i * D + c]),
                          out[head + (size_t)i * D + c], sum);
     dl[h] = quad_sum(sum);
     ml2[h] = in ? row_max[(size_t)bh * L + i] * kLog2e : 0.f;
@@ -448,7 +529,7 @@ attn_train_bwd_dq_kernel(const float* __restrict__ q,
 
     // the bias Q·bandᵀ over the warp's 80 band rows, written to its rows
     // of G_skew: pair (row r, key jj) reads column r - jj + 63
-    band_bias<kGS, kS>(qb, qs, band + 16 * warp * kS, wg);
+    band_bias<kGS, kS, kK, kBf16>(qb, qs, band + 16 * warp * kS, wg);
     __syncwarp();
     // by halves of 32 keys: S = Q Kᵀ plus the bias, dP = dO Vᵀ, then
     // G = c P (z dP - delta) (keys past lim: 0), written skewed over the
@@ -457,11 +538,11 @@ attn_train_bwd_dq_kernel(const float* __restrict__ q,
     for (int kh = 0; kh < 2; ++kh) {
       const float* kh_ = ks_ + 32 * kh * kS;
       float s[4][4], dp[4][4];
-      regs_product<4>(s, qb, qs, [&](int ks, int nt) {
+      regs_product<4, kK, kBf16>(s, qb, qs, [&](int ks, int nt) {
         const float* br = kh_ + (8 * nt + g) * kS + 8 * ks + t;
         return make_float2(br[0], br[4]);
       });
-      regs_product<4>(dp, ob, os, [&](int ks, int nt) {
+      regs_product<4, kK, kBf16>(dp, ob, os, [&](int ks, int nt) {
         const float* br = vs_ + (32 * kh + 8 * nt + g) * kS + 8 * ks + t;
         return make_float2(br[0], br[4]);
       });
@@ -478,11 +559,12 @@ attn_train_bwd_dq_kernel(const float* __restrict__ q,
             const float p =
                 ex2(fmaf(s[nt][e] + *cell, cl2, -ml2[h])) * linv[h];
             gv = scale * p * (drop.z(bh, i, j) * dp[nt][e] - dl[h]);
+            if (kBf16) gv = bf16s::rounded(gv);  // JAX's dsq and ds2
           }
           s[nt][e] = gv;
           *cell = gv;
         }
-      pair_product<4, kK>(
+      pair_product<4, kK, kBf16>(
           dqa,
           [&](int nt, float(&a)[4]) {
             a[0] = s[nt][0];
@@ -504,7 +586,7 @@ attn_train_bwd_dq_kernel(const float* __restrict__ q,
     __syncwarp();
     // dq += G_skew band: the rel-pos adjoint, pe_{i-j} of every pair,
     // over the warp's 80 band rows
-    pair_product<10, kK>(
+    pair_product<10, kK, kBf16>(
         dqa,
         [&](int ks, float(&a)[4]) {
           const float* a0 = wg + g * kGS + 8 * ks + 2 * t;
@@ -545,24 +627,36 @@ attn_train_bwd_dq_kernel(const float* __restrict__ q,
           const int ks = on[x] ? (x ? lo1 + step : step) : 0;
           const float* a0 = gsk + (8 * ks + t) * kGS + 16 * m + g;
           const float a[4] = {a0[0], a0[8], a0[4 * kGS], a0[4 * kGS + 8]};
-          tf32x3::split(a, ab[x], as[x]);
           const float* br = qsm + (8 * ks + t) * kQ + g;
+          if constexpr (kBf16) {  // G_skew and Q are bfloat16-exact
 #pragma unroll
-          for (int nn = 0; nn < kK; ++nn) {
-            const float v2[2] = {br[8 * nn], br[4 * kQ + 8 * nn]};
-            tf32x3::split(v2, bb[x][nn], bs[x][nn]);
+            for (int e = 0; e < 4; ++e) ab[x][e] = __float_as_uint(a[e]);
+#pragma unroll
+            for (int nn = 0; nn < kK; ++nn) {
+              bb[x][nn][0] = __float_as_uint(br[8 * nn]);
+              bb[x][nn][1] = __float_as_uint(br[4 * kQ + 8 * nn]);
+            }
+          } else {
+            tf32x3::split(a, ab[x], as[x]);
+#pragma unroll
+            for (int nn = 0; nn < kK; ++nn) {
+              const float v2[2] = {br[8 * nn], br[4 * kQ + 8 * nn]};
+              tf32x3::split(v2, bb[x][nn], bs[x][nn]);
+            }
           }
         }
+        if constexpr (!kBf16) {
 #pragma unroll
-        for (int x = 0; x < 2; ++x)
+          for (int x = 0; x < 2; ++x)
 #pragma unroll
-          for (int nn = 0; nn < kK; ++nn)
-            if (on[x]) tf32x3::mma(sums[x][nn], as[x], bb[x][nn]);
+            for (int nn = 0; nn < kK; ++nn)
+              if (on[x]) tf32x3::mma(sums[x][nn], as[x], bb[x][nn]);
 #pragma unroll
-        for (int x = 0; x < 2; ++x)
+          for (int x = 0; x < 2; ++x)
 #pragma unroll
-          for (int nn = 0; nn < kK; ++nn)
-            if (on[x]) tf32x3::mma(sums[x][nn], ab[x], bs[x][nn]);
+            for (int nn = 0; nn < kK; ++nn)
+              if (on[x]) tf32x3::mma(sums[x][nn], ab[x], bs[x][nn]);
+        }
 #pragma unroll
         for (int x = 0; x < 2; ++x)
 #pragma unroll
@@ -603,22 +697,22 @@ attn_train_bwd_dq_kernel(const float* __restrict__ q,
     if (i < L)
 #pragma unroll
       for (int nn = 0; nn < kK; ++nn)
-        *reinterpret_cast<float2*>(dq + head + (size_t)i * D + 8 * nn +
-                                   2 * t) =
-            make_float2(dqa[nn][2 * h], dqa[nn][2 * h + 1]);
+        bf16s::store2(dq + head + (size_t)i * D + 8 * nn + 2 * t,
+                      dqa[nn][2 * h], dqa[nn][2 * h + 1]);
   }
 }
 
 // Launch 2, dk and dv: block (key tile, bh, z) takes the query tiles of
-// half z (four blocks share an SM at D 16, two at D 32).
-template <int D>
+// half z (four blocks share an SM at D 16, two at D 32).  In: as launch
+// 1's; the bfloat16 instance writes both halves to scratch.
+template <int D, class In = float>
 __global__ void __launch_bounds__(kThreads, Dims<D>::kKvBlocks)
-attn_train_bwd_dkv_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v,
-                          const float* __restrict__ table,
+attn_train_bwd_dkv_kernel(const In* __restrict__ q,
+                          const In* __restrict__ k,
+                          const In* __restrict__ v,
+                          const In* __restrict__ table,
                           const int* __restrict__ lens,
-                          const float* __restrict__ dout,
+                          const In* __restrict__ dout,
                           const float* __restrict__ row_max,
                           const float* __restrict__ row_sum,
                           float* __restrict__ dk, float* __restrict__ dv,
@@ -626,6 +720,7 @@ attn_train_bwd_dkv_kernel(const float* __restrict__ q,
                           int H, int maxlen, float scale, Drop drop) {
   using M = Dims<D>;
   constexpr int kS = M::kS, kK = M::kK;
+  constexpr bool kBf16 = !std::is_same<In, float>::value;
   extern __shared__ __align__(16) float smem[];
   float* qs_ = smem;                     // [kTile][kS] Q
   float* os_ = qs_ + kTile * kS;         // [kTile][kS] dO
@@ -678,10 +773,15 @@ attn_train_bwd_dkv_kernel(const float* __restrict__ q,
         for (int ks = 0; ks < kK; ++ks) {
           const float* a0 = qs_ + (16 * warp + g) * kS + 8 * ks + t;
           const float a[4] = {a0[0], a0[8 * kS], a0[4], a0[8 * kS + 4]};
-          tf32x3::split(a, ab[ks], as[ks]);
+          if constexpr (kBf16) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) ab[ks][e] = __float_as_uint(a[e]);
+          } else {
+            tf32x3::split(a, ab[ks], as[ks]);
+          }
         }
-        band_bias<kQB, kS>(ab, as, band + 16 * warp * kS,
-                       qbias + 16 * warp * kQB + 16 * warp);
+        band_bias<kQB, kS, kK, kBf16>(ab, as, band + 16 * warp * kS,
+                                      qbias + 16 * warp * kQB + 16 * warp);
       }
       __syncthreads();  // the bias table is whole
       // by halves of 32 queries: Sᵀ = K Qᵀ plus the bias and dPᵀ = V dOᵀ
@@ -690,11 +790,11 @@ attn_train_bwd_dkv_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int qh = 0; qh < 2; ++qh) {
         float st[4][4], dpt[4][4];
-        regs_product<4>(st, kb, ksm, [&](int ks, int nt) {
+        regs_product<4, kK, kBf16>(st, kb, ksm, [&](int ks, int nt) {
           const float* br = qs_ + (32 * qh + 8 * nt + g) * kS + 8 * ks + t;
           return make_float2(br[0], br[4]);
         });
-        regs_product<4>(dpt, vb, vsm, [&](int ks, int nt) {
+        regs_product<4, kK, kBf16>(dpt, vb, vsm, [&](int ks, int nt) {
           const float* br = os_ + (32 * qh + 8 * nt + g) * kS + 8 * ks + t;
           return make_float2(br[0], br[4]);
         });
@@ -713,11 +813,15 @@ attn_train_bwd_dkv_kernel(const float* __restrict__ q,
               const float zv = drop.z(bh, i, j);
               pz = p * zv;
               gv = scale * p * (zv * dpt[nt][e] - ds[ii]);
+              if (kBf16) {  // JAX's rounded Pd and dS
+                pz = bf16s::rounded(pz);
+                gv = bf16s::rounded(gv);
+              }
             }
             st[nt][e] = pz;
             dpt[nt][e] = gv;
           }
-        pair_product<4, kK>(
+        pair_product<4, kK, kBf16>(
             dva,
             [&](int nt, float(&a)[4]) {
               a[0] = st[nt][0];
@@ -730,7 +834,7 @@ attn_train_bwd_dkv_kernel(const float* __restrict__ q,
                   os_ + (32 * qh + 8 * nt + 2 * t) * kS + 8 * nn + g;
               return make_float2(br[0], br[kS]);
             });
-        pair_product<4, kK>(
+        pair_product<4, kK, kBf16>(
             dka,
             [&](int nt, float(&a)[4]) {
               a[0] = dpt[nt][0];
@@ -746,8 +850,8 @@ attn_train_bwd_dkv_kernel(const float* __restrict__ q,
       }
     }
   }
-  float* dkz = z ? scratch.dk1 : dk;
-  float* dvz = z ? scratch.dv1 : dv;
+  float* dkz = z ? scratch.dk1 : kBf16 ? scratch.dk0 : dk;
+  float* dvz = z ? scratch.dv1 : kBf16 ? scratch.dv0 : dv;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int j = jw + g + 8 * h;
@@ -768,18 +872,25 @@ attn_train_bwd_dkv_kernel(const float* __restrict__ q,
 // every rel >= maxlen - 1 at the last row), over bh and query tiles.  A block per table row: thread (part, c) sums the partials of
 // bh = part, part + kParts, ..., and the parts are added in their order.
 // The blocks also complete dk and dv (their two halves, in order).
+// The bfloat16 instance (Out = __nv_bfloat16) stores dk, dv (the sums of
+// the scratch halves) and dtable rounded.
 constexpr int kParts = 16;
-template <int D>
+template <int D, class Out = float>
 __global__ void __launch_bounds__(kParts * D)
-attn_train_bwd_table_kernel(Scratch scratch, float* __restrict__ dtable,
-                            float* __restrict__ dk, float* __restrict__ dv,
+attn_train_bwd_table_kernel(Scratch scratch, Out* __restrict__ dtable,
+                            Out* __restrict__ dk, Out* __restrict__ dv,
                             int BH, int L, int maxlen) {
   __shared__ float parts[kParts * D];
   const size_t n = (size_t)BH * L * D;
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
        e += (size_t)gridDim.x * blockDim.x) {
-    dk[e] += scratch.dk1[e];
-    dv[e] += scratch.dv1[e];
+    if constexpr (std::is_same<Out, float>::value) {
+      dk[e] += scratch.dk1[e];
+      dv[e] += scratch.dv1[e];
+    } else {
+      dk[e] = __float2bfloat16_rn(scratch.dk0[e] + scratch.dk1[e]);
+      dv[e] = __float2bfloat16_rn(scratch.dv0[e] + scratch.dv1[e]);
+    }
   }
   const int r = blockIdx.x, c = threadIdx.x % D, part = threadIdx.x / D;
   const int nqt = (L + kTile - 1) / kTile, lk = nqt * kTile;
@@ -804,7 +915,7 @@ attn_train_bwd_table_kernel(Scratch scratch, float* __restrict__ dtable,
     float total = 0.f;
 #pragma unroll
     for (int x = 0; x < kParts; ++x) total += parts[x * D + c];
-    dtable[(size_t)r * D + c] = total;
+    dtable[(size_t)r * D + c] = bf16s::from_f<Out>(total);
   }
 }
 
@@ -839,17 +950,18 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return err;
 }
 
-// K13's launch: SPLIT warps per row tile, on the grid (L / 64, B*H).
-template <int D, int SPLIT>
+// K13's launch: SPLIT warps per row tile, on the grid (L / 64, B*H); the
+// float32 instance or (kBf16) the bfloat16 one.
+template <int D, int SPLIT, bool kBf16 = false>
 cudaError_t launch_fwd(const relpos_flash::Args& a, int BH,
                        cudaStream_t stream) {
   using S = relpos_flash::Shape<SPLIT, D>;
-  const cudaError_t err =
-      set_smem(attn_train_fwd_kernel<D, SPLIT>, S::kSmemBytes);
+  auto kernel = kBf16 ? attn_train_fwd_bf16_kernel<D, SPLIT>
+                      : attn_train_fwd_kernel<D, SPLIT>;
+  const cudaError_t err = set_smem(kernel, S::kSmemBytes);
   if (err != cudaSuccess) return err;
   dim3 grid((a.L + relpos_flash::kRows - 1) / relpos_flash::kRows, BH);
-  attn_train_fwd_kernel<D, SPLIT>
-      <<<grid, S::kThreads, S::kSmemBytes, stream>>>(a);
+  kernel<<<grid, S::kThreads, S::kSmemBytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -881,14 +993,16 @@ int split_for(int BH, int L) {
   return min(fit, tiles >= 4 ? 4 : tiles >= 2 ? 2 : 1);
 }
 
-// K13 at head width D and `split` warps per row tile (0: split_for's)
-template <int D>
+// K13 at head width D and `split` warps per row tile (0: split_for's;
+// the bfloat16 instances' shared memory is the float32 ones', so the
+// rule is the same)
+template <int D, bool kBf16 = false>
 cudaError_t launch_fwd_at(const relpos_flash::Args& a, int BH, int split,
                           cudaStream_t stream) {
   switch (split ? split : split_for<D>(BH, a.L)) {
-    case 4: return launch_fwd<D, 4>(a, BH, stream);
-    case 2: return launch_fwd<D, 2>(a, BH, stream);
-    default: return launch_fwd<D, 1>(a, BH, stream);
+    case 4: return launch_fwd<D, 4, kBf16>(a, BH, stream);
+    case 2: return launch_fwd<D, 2, kBf16>(a, BH, stream);
+    default: return launch_fwd<D, 1, kBf16>(a, BH, stream);
   }
 }
 
@@ -916,41 +1030,110 @@ cudaError_t fwd_occupancy_all(int BH, int L, int* o) {
   return err;
 }
 
-// K14's three launches at head width D
-template <int D>
-cudaError_t launch_bwd(const float* q, const float* k, const float* v,
-                       const float* table, const int* lens, const float* out,
-                       const float* dout, const float* row_max,
-                       const float* row_sum, float* dq, float* dk, float* dv,
-                       float* dtable, bwd::Scratch sc, int BH, int L, int H,
+// K14's three launches at head width D, for In = float or bfloat16 (q, k,
+// v, table, dout and the four gradients; out is then out32)
+template <int D, class In>
+cudaError_t launch_bwd(const In* q, const In* k, const In* v,
+                       const In* table, const int* lens, const float* out,
+                       const In* dout, const float* row_max,
+                       const float* row_sum, In* dq, In* dk, In* dv,
+                       In* dtable, bwd::Scratch sc, int BH, int L, int H,
                        int maxlen, float scale, Drop drop,
                        cudaStream_t st) {
   using M = bwd::Dims<D>;
+  constexpr bool kBf16 = !std::is_same<In, float>::value;
   const int nt = (L + kTile - 1) / kTile;
   const size_t dq_smem = sizeof(float) * (size_t)M::kDqFloats;
-  cudaError_t err = set_smem(bwd::attn_train_bwd_dq_kernel<D>, dq_smem);
+  cudaError_t err = set_smem(bwd::attn_train_bwd_dq_kernel<D, In>, dq_smem);
   if (err != cudaSuccess) return err;
-  bwd::attn_train_bwd_dq_kernel<D>
+  bwd::attn_train_bwd_dq_kernel<D, In>
       <<<dim3(nt, BH), bwd::kThreads, dq_smem, st>>>(
           q, k, v, table, lens, out, dout, row_max, row_sum, dq, sc, L, H,
           maxlen, scale, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
+  // (the bfloat16 instance writes both halves of dk and dv to scratch)
+  float* dk32 = kBf16 ? sc.dk0 : reinterpret_cast<float*>(dk);
+  float* dv32 = kBf16 ? sc.dv0 : reinterpret_cast<float*>(dv);
   const size_t dkv_smem = sizeof(float) * (size_t)M::kKvFloats;
-  err = set_smem(bwd::attn_train_bwd_dkv_kernel<D>, dkv_smem);
+  err = set_smem(bwd::attn_train_bwd_dkv_kernel<D, In>, dkv_smem);
   if (err != cudaSuccess) return err;
-  bwd::attn_train_bwd_dkv_kernel<D>
+  bwd::attn_train_bwd_dkv_kernel<D, In>
       <<<dim3(nt, BH, 2), bwd::kThreads, dkv_smem, st>>>(
-          q, k, v, table, lens, dout, row_max, row_sum, dk, dv, sc, L, H,
-          maxlen, scale, drop);
+          q, k, v, table, lens, dout, row_max, row_sum, dk32, dv32, sc, L,
+          H, maxlen, scale, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  bwd::attn_train_bwd_table_kernel<D>
+  bwd::attn_train_bwd_table_kernel<D, In>
       <<<2 * maxlen, bwd::kParts * D, 0, st>>>(sc, dtable, dk, dv, BH, L,
                                                maxlen);
   return cudaGetLastError();
+}
+
+// The Args of a K13 launch.
+relpos_flash::Args fwd_args(const void* q, const void* k, const void* v,
+                            const void* table, const void* lens, void* out,
+                            void* row_max, void* row_sum, void* out32, int L,
+                            int H, int D, int maxlen, int block,
+                            unsigned seed_word, unsigned threshold,
+                            float keep_scale) {
+  relpos_flash::Args a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.table = static_cast<const float*>(table);
+  a.lens = static_cast<const int*>(lens);
+  a.out = static_cast<float*>(out);
+  a.row_max = static_cast<float*>(row_max);
+  a.row_sum = static_cast<float*>(row_sum);
+  a.out32 = static_cast<float*>(out32);
+  a.L = L;
+  a.H = H;
+  a.maxlen = maxlen;
+  a.scale_log2 = 1.4426950408889634f / sqrtf((float)D);
+  a.seed_word = seed_word;
+  a.threshold8 = threshold << 8;       // threshold < 2^24
+  a.keep_scale = keep_scale;
+  a.block = block;
+  return a;
+}
+
+// K14 at head width D for In = float or bfloat16: the scratch carved up
+// and the three launches.
+template <class In>
+int run_bwd(const void* q, const void* k, const void* v, const void* table,
+            const void* lens, const void* out, const void* dout,
+            const void* row_max, const void* row_sum, void* dq, void* dk,
+            void* dv, void* dtable, void* scratch, int BH, int L, int H,
+            int D, int maxlen, int block, unsigned seed_word,
+            unsigned threshold, float keep_scale, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  const Drop drop = make_drop(seed_word, threshold, keep_scale, block);
+  const float scale = 1.0f / sqrtf((float)D);
+  const size_t rows = (size_t)BH * L;
+  bwd::Scratch sc;
+  sc.delta = static_cast<float*>(scratch);
+  sc.dk1 = sc.delta + rows;
+  sc.dv1 = sc.dk1 + rows * D;
+  sc.frames = sc.dv1 + rows * D;
+  const long long nqt = (L + kTile - 1) / kTile;
+  sc.dk0 = sc.frames + BH * nqt * bwd::frame_rows(L) * D;  // bfloat16 only
+  sc.dv0 = sc.dk0 + rows * D;
+  auto i = [](const void* p) { return static_cast<const In*>(p); };
+  auto o = [](void* p) { return static_cast<In*>(p); };
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const int* kl = static_cast<const int*>(lens);
+  return (int)(D == 32
+                   ? launch_bwd<32>(i(q), i(k), i(v), i(table), kl, f(out),
+                                    i(dout), f(row_max), f(row_sum), o(dq),
+                                    o(dk), o(dv), o(dtable), sc, BH, L, H,
+                                    maxlen, scale, drop, st)
+                   : launch_bwd<16>(i(q), i(k), i(v), i(table), kl, f(out),
+                                    i(dout), f(row_max), f(row_sum), o(dq),
+                                    o(dk), o(dv), o(dtable), sc, BH, L, H,
+                                    maxlen, scale, drop, st));
 }
 
 }  // namespace
@@ -972,26 +1155,36 @@ extern "C" int sep_attn_train_fwd_f32(const void* q, const void* k,
   if (bad_args(BH, L, H, D, maxlen, block) ||
       (split != 0 && split != 1 && split != 2 && split != 4))
     return (int)cudaErrorInvalidValue;
-  relpos_flash::Args a{};
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
-  a.table = static_cast<const float*>(table);
-  a.lens = static_cast<const int*>(lens);
-  a.out = static_cast<float*>(out);
-  a.row_max = static_cast<float*>(row_max);
-  a.row_sum = static_cast<float*>(row_sum);
-  a.L = L;
-  a.H = H;
-  a.maxlen = maxlen;
-  a.scale_log2 = 1.4426950408889634f / sqrtf((float)D);
-  a.seed_word = seed_word;
-  a.threshold8 = threshold << 8;       // threshold < 2^24
-  a.keep_scale = keep_scale;
-  a.block = block;
+  const relpos_flash::Args a =
+      fwd_args(q, k, v, table, lens, out, row_max, row_sum, nullptr, L, H, D,
+               maxlen, block, seed_word, threshold, keep_scale);
   auto st = static_cast<cudaStream_t>(stream);
   return (int)(D == 32 ? launch_fwd_at<32>(a, BH, split, st)
                        : launch_fwd_at<16>(a, BH, split, st));
+}
+
+// K13's bfloat16 instance: q, k, v, table and out bfloat16 (16-byte
+// aligned); out32 [B*H, L, D] float32, the P·V of the unrounded weights;
+// the rest as sep_attn_train_fwd_f32's.
+extern "C" int sep_attn_train_fwd_bf16(const void* q, const void* k,
+                                       const void* v, const void* table,
+                                       const void* lens, void* out,
+                                       void* out32, void* row_max,
+                                       void* row_sum, int BH, int L, int H,
+                                       int D, int maxlen, int block,
+                                       unsigned seed_word,
+                                       unsigned threshold, float keep_scale,
+                                       int split, void* stream) {
+  if (BH <= 0 || L <= 0) return 0;
+  if (bad_args(BH, L, H, D, maxlen, block) ||
+      (split != 0 && split != 1 && split != 2 && split != 4))
+    return (int)cudaErrorInvalidValue;
+  const relpos_flash::Args a =
+      fwd_args(q, k, v, table, lens, out, row_max, row_sum, out32, L, H, D,
+               maxlen, block, seed_word, threshold, keep_scale);
+  auto st = static_cast<cudaStream_t>(stream);
+  return (int)(D == 32 ? launch_fwd_at<32, true>(a, BH, split, st)
+                       : launch_fwd_at<16, true>(a, BH, split, st));
 }
 
 // K13's split at (BH, L) and head width D into o[0], then its blocks per
@@ -1012,6 +1205,13 @@ extern "C" long long sep_attn_train_bwd_scratch_floats(int BH, int L,
   return rows + 2 * rows * D + BH * nqt * bwd::frame_rows(L) * D;
 }
 
+// ... and of its bfloat16 instance's: the first halves of dk and dv too
+extern "C" long long sep_attn_train_bwd_bf16_scratch_floats(int BH, int L,
+                                                            int D) {
+  return sep_attn_train_bwd_scratch_floats(BH, L, D) +
+         2 * (long long)BH * L * D;
+}
+
 // K14.  As K13, plus out and dout [B*H, L, D]; dq, dk, dv [B*H, L, D];
 // dtable [2*maxlen, D]; scratch of sep_attn_train_bwd_scratch_floats.
 extern "C" int sep_attn_train_bwd_f32(
@@ -1024,25 +1224,26 @@ extern "C" int sep_attn_train_bwd_f32(
   if (bad_args(BH, L, H, D, maxlen, block) || BH <= 0 || L <= 0 ||
       scratch_floats < sep_attn_train_bwd_scratch_floats(BH, L, D))
     return (int)cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
-  const Drop drop = make_drop(seed_word, threshold, keep_scale, block);
-  const float scale = 1.0f / sqrtf((float)D);
-  const size_t rows = (size_t)BH * L;
-  bwd::Scratch sc;
-  sc.delta = static_cast<float*>(scratch);
-  sc.dk1 = sc.delta + rows;
-  sc.dv1 = sc.dk1 + rows * D;
-  sc.frames = sc.dv1 + rows * D;
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto o = [](void* p) { return static_cast<float*>(p); };
-  const int* kl = static_cast<const int*>(lens);
-  return (int)(D == 32
-                   ? launch_bwd<32>(f(q), f(k), f(v), f(table), kl, f(out),
-                                    f(dout), f(row_max), f(row_sum), o(dq),
-                                    o(dk), o(dv), o(dtable), sc, BH, L, H,
-                                    maxlen, scale, drop, st)
-                   : launch_bwd<16>(f(q), f(k), f(v), f(table), kl, f(out),
-                                    f(dout), f(row_max), f(row_sum), o(dq),
-                                    o(dk), o(dv), o(dtable), sc, BH, L, H,
-                                    maxlen, scale, drop, st));
+  return run_bwd<float>(q, k, v, table, lens, out, dout, row_max, row_sum,
+                        dq, dk, dv, dtable, scratch, BH, L, H, D, maxlen,
+                        block, seed_word, threshold, keep_scale, stream);
+}
+
+// K14's bfloat16 instance: q, k, v, table, dout, dq, dk, dv and dtable
+// bfloat16 (16-byte aligned); out is K13's float32 out32; scratch of
+// sep_attn_train_bwd_bf16_scratch_floats.
+extern "C" int sep_attn_train_bwd_bf16(
+    const void* q, const void* k, const void* v, const void* table,
+    const void* lens, const void* out32, const void* dout,
+    const void* row_max, const void* row_sum, void* dq, void* dk, void* dv,
+    void* dtable, void* scratch, long long scratch_floats, int BH, int L,
+    int H, int D, int maxlen, int block, unsigned seed_word,
+    unsigned threshold, float keep_scale, void* stream) {
+  if (bad_args(BH, L, H, D, maxlen, block) || BH <= 0 || L <= 0 ||
+      scratch_floats < sep_attn_train_bwd_bf16_scratch_floats(BH, L, D))
+    return (int)cudaErrorInvalidValue;
+  return run_bwd<__nv_bfloat16>(q, k, v, table, lens, out32, dout, row_max,
+                                row_sum, dq, dk, dv, dtable, scratch, BH, L,
+                                H, D, maxlen, block, seed_word, threshold,
+                                keep_scale, stream);
 }

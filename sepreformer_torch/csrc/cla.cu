@@ -66,8 +66,24 @@
 //     twice as often and stage a 64-row halo for 32 rows of output.
 // Each shape asserts its budget; tests/test_torch_large_fused_tiling.py
 // reads the numbers back from this file.
+//
+// With In = __nv_bfloat16 (the bfloat16 instances, sep_cla_bf16) x and
+// out are bfloat16 and the kernels take the JAX kernel's rounding steps
+// (cla.py:89-122): x is upcast as it is read and the LayerNorm runs in
+// float32, its rows rounded to bfloat16 as they land in xn; u, the GLU
+// and v stay float32 (v is the JAX kernel's float32 v_scratch, so its
+// round trip between the launches stays float32), and so does the k65
+// conv on the float32 weight; y and the GELU's output z are rounded as
+// they land in shared memory; the weights are rounded as the products
+// read them, each product one TF32 mma.sync on exact values
+// (mma_tf32x3.cuh, bf16s) in place of three; x + ls * o is stored
+// rounded.  The shared-memory plan, and the blocks per SM, are the
+// float32 instance's; x's and out's bytes halve.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_tf32x3.cuh"
 
@@ -112,20 +128,24 @@ struct GluShape {
 };
 
 // LayerNorm of rows t0 .. t0+kTT-1 of xb into xn [kTT][LX], zero past T;
-// each warp takes every kWarps-th row, all its rows' loads in flight.
-template <int F, int LX>
+// each warp takes every kWarps-th row, all its rows' loads in flight.  A
+// bfloat16 xb is upcast as it is read, and its rows are rounded to
+// bfloat16 as they are stored.
+template <int F, int LX, class In>
 __device__ __forceinline__ void layer_norm_tile(
-    float* xn, const float* __restrict__ xb, const float* __restrict__ lns,
+    float* xn, const In* __restrict__ xb, const float* __restrict__ lns,
     const float* __restrict__ lnb, int t0, int T, float eps) {
+  constexpr bool kBf16 = !std::is_same<In, float>::value;
   constexpr int RW = kTT / kWarps, Q = F / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float v[RW][Q];
 #pragma unroll
   for (int i = 0; i < RW; ++i) {
     const int t = t0 + warp + i * kWarps;
-    const float* src = xb + (size_t)(t < T ? t : 0) * F + lane;
+    const In* src = xb + (size_t)(t < T ? t : 0) * F + lane;
 #pragma unroll
-    for (int q = 0; q < Q; ++q) v[i][q] = t < T ? src[32 * q] : 0.f;
+    for (int q = 0; q < Q; ++q)
+      v[i][q] = t < T ? bf16s::to_f(src[32 * q]) : 0.f;
   }
 #pragma unroll
   for (int i = 0; i < RW; ++i) {
@@ -145,20 +165,22 @@ __device__ __forceinline__ void layer_norm_tile(
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
       const int k = lane + 32 * q;
-      xn[r * LX + k] = in ? v[i][q] * inv * lns[k] + lnb[k] : 0.f;
+      const float xv = v[i][q] * inv * lns[k] + lnb[k];
+      xn[r * LX + k] = in ? (kBf16 ? bf16s::rounded(xv) : xv) : 0.f;
     }
   }
 }
 
 // Launch 1: v[b, t] = GLU(LN(x[b, t]) W_in + b_in) for kTT rows a block.
-template <int F>
+template <int F, class In>
 __global__ void __launch_bounds__(kThreads, GluShape<F>::blocks_per_sm)
-cla_glu_kernel(const float* __restrict__ x, const float* __restrict__ lns,
+cla_glu_kernel(const In* __restrict__ x, const float* __restrict__ lns,
                const float* __restrict__ lnb, const float* __restrict__ w_in,
                const float* __restrict__ b_in, float* __restrict__ v, int T,
                float eps) {
   using S = GluShape<F>;
   constexpr int NC = S::NC, LX = S::LX, LW = S::LW, MT = S::MT;
+  constexpr bool kBf16 = !std::is_same<In, float>::value;
   extern __shared__ __align__(16) float smem[];
   float* xn = smem + S::xn;  // [kTT][LX] LN rows t0 ..
   const int b = blockIdx.y, t0 = blockIdx.x * kTT;
@@ -194,11 +216,16 @@ cla_glu_kernel(const float* __restrict__ x, const float* __restrict__ lns,
     const float* wi = smem + S::wi + (c & 1) * F * LW;
     // n-tile 0: the values of pairs 8 wn .., n-tile 1: their gates
     float a[MT][2][4] = {};
-    tf32x3::warp_product<MT, 2, F / 8>(
-        a, xn + 16 * MT * wm * LX, LX, [&](int ks, int nt) {
-          const float* w = wi + (8 * ks + 2 * t4) * LW + nt * kCH + 8 * wn + g8;
-          return make_float2(w[0], w[LW]);
-        });
+    auto win_frag = [&](int ks, int nt) {
+      const float* w = wi + (8 * ks + 2 * t4) * LW + nt * kCH + 8 * wn + g8;
+      return make_float2(w[0], w[LW]);
+    };
+    if constexpr (kBf16)
+      bf16s::warp_product<MT, 2, F / 8>(a, xn + 16 * MT * wm * LX, LX,
+                                        win_frag);
+    else
+      tf32x3::warp_product<MT, 2, F / 8>(a, xn + 16 * MT * wm * LX, LX,
+                                         win_frag);
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -260,17 +287,18 @@ struct TailShape {
 
 // Launch 2: out = x + ls * (GELU((conv(v) W_mid + b_mid) * s + t) W_out +
 // b_out) for kTT rows a block.
-template <int F>
+template <int F, class In>
 __global__ void __launch_bounds__(kThreads, TailShape<F>::blocks_per_sm)
-cla_tail_kernel(const float* __restrict__ x, const float* __restrict__ v,
+cla_tail_kernel(const In* __restrict__ x, const float* __restrict__ v,
                 const float* __restrict__ wdw, const float* __restrict__ bdw,
                 const float* __restrict__ w_mid,
                 const float* __restrict__ b_mid,
                 const float* __restrict__ bn_s, const float* __restrict__ bn_t,
                 const float* __restrict__ w_out,
                 const float* __restrict__ b_out, const float* __restrict__ ls,
-                float* __restrict__ out, int T) {
+                In* __restrict__ out, int T) {
   using S = TailShape<F>;
+  constexpr bool kBf16 = !std::is_same<In, float>::value;
   constexpr int R = S::R, LY = S::LY, LZ = S::LZ, LM = S::LM, LO = S::LO;
   constexpr int ZMT = S::ZMT, ZNT = S::ZNT, OMT = S::OMT, ONT = S::ONT,
                 H = S::H;
@@ -355,7 +383,8 @@ cla_tail_kernel(const float* __restrict__ x, const float* __restrict__ v,
   {
     const int ch = tid % F, r0 = (tid / F) * R;
 #pragma unroll
-    for (int r = 0; r < R; ++r) y[(r0 + r) * LY + ch] = acc[r];
+    for (int r = 0; r < R; ++r)
+      y[(r0 + r) * LY + ch] = kBf16 ? bf16s::rounded(acc[r]) : acc[r];
   }
 
   const int zwm = warp / S::ZWN, zwn = warp - zwm * S::ZWN;
@@ -371,12 +400,17 @@ cla_tail_kernel(const float* __restrict__ x, const float* __restrict__ v,
     // columns 8 ZNT zwn ..
     {
       float a[ZMT][ZNT][4] = {};
-      tf32x3::warp_product<ZMT, ZNT, F / 8>(
-          a, y + 16 * ZMT * zwm * LY, LY, [&](int ks, int nt) {
-            const float* w =
-                wm + (8 * ks + 2 * t4) * LM + 8 * (ZNT * zwn + nt) + g8;
-            return make_float2(w[0], w[LM]);
-          });
+      auto wmid_frag = [&](int ks, int nt) {
+        const float* w =
+            wm + (8 * ks + 2 * t4) * LM + 8 * (ZNT * zwn + nt) + g8;
+        return make_float2(w[0], w[LM]);
+      };
+      if constexpr (kBf16)
+        bf16s::warp_product<ZMT, ZNT, F / 8>(a, y + 16 * ZMT * zwm * LY, LY,
+                                             wmid_frag);
+      else
+        tf32x3::warp_product<ZMT, ZNT, F / 8>(a, y + 16 * ZMT * zwm * LY,
+                                              LY, wmid_frag);
 #pragma unroll
       for (int mt = 0; mt < ZMT; ++mt)
 #pragma unroll
@@ -392,6 +426,7 @@ cla_tail_kernel(const float* __restrict__ x, const float* __restrict__ v,
                   (a[mt][nt][2 * h + q] + b_mid[hc + q]) * bn_s[hc + q] +
                   bn_t[hc + q];
               g[q] = 0.5f * hv * (1.f + erff(hv * 0.70710678118654752f));
+              if (kBf16) g[q] = bf16s::rounded(g[q]);
             }
             *reinterpret_cast<float2*>(z + r * LZ + j) =
                 make_float2(g[0], g[1]);
@@ -402,12 +437,16 @@ cla_tail_kernel(const float* __restrict__ x, const float* __restrict__ v,
     if (c + 1 < S::chunks) stage_mid(c + 1);  // lands during the o product
 
     // o += z_c wo: rows 32 owm .., columns 32 own ..
-    tf32x3::warp_product<OMT, ONT, kCH / 8>(
-        o, z + 16 * OMT * owm * LZ, LZ, [&](int ks, int nt) {
-          const float* w =
-              wo + (8 * ks + 2 * t4) * LO + 8 * (ONT * own + nt) + g8;
-          return make_float2(w[0], w[LO]);
-        });
+    auto wout_frag = [&](int ks, int nt) {
+      const float* w = wo + (8 * ks + 2 * t4) * LO + 8 * (ONT * own + nt) + g8;
+      return make_float2(w[0], w[LO]);
+    };
+    if constexpr (kBf16)
+      bf16s::warp_product<OMT, ONT, kCH / 8>(o, z + 16 * OMT * owm * LZ, LZ,
+                                             wout_frag);
+    else
+      tf32x3::warp_product<OMT, ONT, kCH / 8>(o, z + 16 * OMT * owm * LZ, LZ,
+                                              wout_frag);
   }
 
   // out = x + ls * (o + b_out) for the rows t < T
@@ -421,66 +460,91 @@ cla_tail_kernel(const float* __restrict__ x, const float* __restrict__ v,
 #pragma unroll
       for (int nt = 0; nt < ONT; ++nt) {
         const int col = 8 * (ONT * own + nt) + 2 * t4;
-        const float2 xv = *reinterpret_cast<const float2*>(x + off + col);
+        const float2 xv = bf16s::load2(x + off + col);
         const float o0 = xv.x + ls[col] * (o[mt][nt][0 + 2 * h] + b_out[col]);
         const float o1 =
             xv.y + ls[col + 1] * (o[mt][nt][1 + 2 * h] + b_out[col + 1]);
-        *reinterpret_cast<float2*>(out + off + col) = make_float2(o0, o1);
+        bf16s::store2(out + off + col, o0, o1);
       }
     }
 }
 
 // Both kernels' dynamic shared memory, and the carveout at its most shared
 // memory, so that two blocks share an SM at F = 128 and one fits at 256.
-template <int F>
+template <int F, class In>
 cudaError_t set_attributes() {
   cudaError_t err = cudaFuncSetAttribute(
-      cla_glu_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cla_glu_kernel<F, In>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)GluShape<F>::smem_bytes);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(cla_tail_kernel<F>,
+    err = cudaFuncSetAttribute(cla_tail_kernel<F, In>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)TailShape<F>::smem_bytes);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(cla_glu_kernel<F>,
+    err = cudaFuncSetAttribute(cla_glu_kernel<F, In>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(cla_tail_kernel<F>,
+    err = cudaFuncSetAttribute(cla_tail_kernel<F, In>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   return err;
 }
 
-template <int F>
-int launch(const float* x, const float* lns, const float* lnb,
+template <int F, class In>
+int launch(const In* x, const float* lns, const float* lnb,
            const float* w_in, const float* b_in, const float* wdw,
            const float* bdw, const float* w_mid, const float* b_mid,
            const float* bn_s, const float* bn_t, const float* w_out,
-           const float* b_out, const float* ls, float* v, float* out, int B,
+           const float* b_out, const float* ls, float* v, In* out, int B,
            int T, float eps, cudaStream_t stream) {
-  cudaError_t err = set_attributes<F>();
+  cudaError_t err = set_attributes<F, In>();
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T + kTT - 1) / kTT, B);
-  cla_glu_kernel<F><<<grid, kThreads, GluShape<F>::smem_bytes, stream>>>(
+  cla_glu_kernel<F, In><<<grid, kThreads, GluShape<F>::smem_bytes, stream>>>(
       x, lns, lnb, w_in, b_in, v, T, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  cla_tail_kernel<F><<<grid, kThreads, TailShape<F>::smem_bytes, stream>>>(
-      x, v, wdw, bdw, w_mid, b_mid, bn_s, bn_t, w_out, b_out, ls, out, T);
+  cla_tail_kernel<F, In>
+      <<<grid, kThreads, TailShape<F>::smem_bytes, stream>>>(
+          x, v, wdw, bdw, w_mid, b_mid, bn_s, bn_t, w_out, b_out, ls, out, T);
   return (int)cudaGetLastError();
 }
 
 template <int F>
 cudaError_t blocks_per_sm(int* n) {
-  cudaError_t err = set_attributes<F>();
+  cudaError_t err = set_attributes<F, float>();
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        n, cla_glu_kernel<F>, kThreads, GluShape<F>::smem_bytes);
+        n, cla_glu_kernel<F, float>, kThreads, GluShape<F>::smem_bytes);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        n + 1, cla_tail_kernel<F>, kThreads, TailShape<F>::smem_bytes);
+        n + 1, cla_tail_kernel<F, float>, kThreads,
+        TailShape<F>::smem_bytes);
   return err;
+}
+
+// Both instances of width F for x of type In (float or bfloat16).
+template <class In>
+int run_cla(const void* x, const void* lns, const void* lnb,
+            const void* w_in, const void* b_in, const void* wdw,
+            const void* bdw, const void* w_mid, const void* b_mid,
+            const void* bn_s, const void* bn_t, const void* w_out,
+            const void* b_out, const void* ls, void* v, void* out, int B,
+            int T, int F, float eps, void* stream) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  if (B <= 0 || T <= 0) return 0;
+  if (B > 65535) return (int)cudaErrorInvalidValue;
+  auto run = [&](auto launcher) {
+    return launcher(static_cast<const In*>(x), f(lns), f(lnb), f(w_in),
+                    f(b_in), f(wdw), f(bdw), f(w_mid), f(b_mid), f(bn_s),
+                    f(bn_t), f(w_out), f(b_out), f(ls), static_cast<float*>(v),
+                    static_cast<In*>(out), B, T, eps,
+                    static_cast<cudaStream_t>(stream));
+  };
+  if (F == 128) return run(launch<128, In>);
+  if (F == 256) return run(launch<256, In>);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -498,18 +562,23 @@ extern "C" int sep_cla_f32(const void* x, const void* lns, const void* lnb,
                            const void* w_out, const void* b_out,
                            const void* ls, void* v, void* out, int B, int T,
                            int F, float eps, void* stream) {
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  if (B <= 0 || T <= 0) return 0;
-  if (B > 65535) return (int)cudaErrorInvalidValue;
-  auto run = [&](auto launcher) {
-    return launcher(f(x), f(lns), f(lnb), f(w_in), f(b_in), f(wdw), f(bdw),
-                    f(w_mid), f(b_mid), f(bn_s), f(bn_t), f(w_out), f(b_out),
-                    f(ls), static_cast<float*>(v), static_cast<float*>(out),
-                    B, T, eps, static_cast<cudaStream_t>(stream));
-  };
-  if (F == 128) return run(launch<128>);
-  if (F == 256) return run(launch<256>);
-  return (int)cudaErrorInvalidValue;
+  return run_cla<float>(x, lns, lnb, w_in, b_in, wdw, bdw, w_mid, b_mid,
+                        bn_s, bn_t, w_out, b_out, ls, v, out, B, T, F, eps,
+                        stream);
+}
+
+// The same with x and out bfloat16 (16-byte aligned); v stays float32.
+extern "C" int sep_cla_bf16(const void* x, const void* lns, const void* lnb,
+                            const void* w_in, const void* b_in,
+                            const void* wdw, const void* bdw,
+                            const void* w_mid, const void* b_mid,
+                            const void* bn_s, const void* bn_t,
+                            const void* w_out, const void* b_out,
+                            const void* ls, void* v, void* out, int B, int T,
+                            int F, float eps, void* stream) {
+  return run_cla<__nv_bfloat16>(x, lns, lnb, w_in, b_in, wdw, bdw, w_mid,
+                                b_mid, bn_s, bn_t, w_out, b_out, ls, v, out,
+                                B, T, F, eps, stream);
 }
 
 // Blocks of each K15 launch at width F that one SM holds at once, with the

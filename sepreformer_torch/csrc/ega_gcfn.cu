@@ -37,6 +37,15 @@
 // driver's default.  The carveout did not explain the spread of K16's
 // earlier CUDA-core times: that kernel (96 KB per block) ran two blocks
 // per SM with or without it, within 1 % (PERF.md section 6).
+//
+// bfloat16 streams (sep_ega_gcfn_bf16): x, x_down and out bfloat16, the
+// tile's In = __nv_bfloat16 form with the JAX kernel's rounding steps
+// (ega_gcfn.py:57-90; gcfn_tile_mma.cuh lists them): y = x + gate * up
+// stays float32 and waits in a float32 scratch [B, T, F] for the
+// epilogue, since the bfloat16 out would round it.  Forward only: the
+// JAX package's bfloat16 gradient of this kernel raises, and the port's
+// wrapper raises under autograd too.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "gcfn_tile_mma.cuh"
@@ -45,60 +54,87 @@ namespace {
 
 using gcfn_mma::kThreads;
 
-template <int F>
+// In: the stream's type, float or __nv_bfloat16 (x, x_down and out)
+template <int F, class In>
 __global__ void __launch_bounds__(kThreads,
                                   gcfn_mma::Shape<F>::blocks_per_sm)
-ega_gcfn_kernel(const float* __restrict__ x, gcfn_mma::Pair pair,
+ega_gcfn_kernel(const In* __restrict__ x, gcfn_mma::Pair<In> pair,
                 const float* __restrict__ lns, const float* __restrict__ lnb,
                 const float* __restrict__ win, const float* __restrict__ bin,
                 const float* __restrict__ wdw, const float* __restrict__ bdw,
                 const float* __restrict__ wout,
                 const float* __restrict__ bout, const float* __restrict__ ls,
-                float* __restrict__ out, int T, float eps) {
+                In* __restrict__ out, int T, float eps) {
   extern __shared__ __align__(16) float smem[];
-  gcfn_mma::tile<F, false, true>(smem, x, nullptr, lns, lnb, win, bin, wdw,
-                                 bdw, wout, bout, ls, out, T, eps,
-                                 GcfnDrop{}, pair);
+  gcfn_mma::tile<F, false, true, In>(smem, x, nullptr, lns, lnb, win, bin,
+                                     wdw, bdw, wout, bout, ls, out, T, eps,
+                                     GcfnDrop{}, pair);
 }
 
 // the launch's attributes: its dynamic shared memory, and room for
 // Shape<F>::blocks_per_sm blocks per SM
-template <int F>
+template <int F, class In>
 cudaError_t set_attributes() {
   cudaError_t err = cudaFuncSetAttribute(
-      ega_gcfn_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ega_gcfn_kernel<F, In>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)gcfn_mma::Shape<F>::smem_bytes);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ega_gcfn_kernel<F>,
+    err = cudaFuncSetAttribute(ega_gcfn_kernel<F, In>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   return err;
 }
 
-template <int F>
-int launch(const float* x, gcfn_mma::Pair pair, const float* lns,
+template <int F, class In>
+int launch(const In* x, gcfn_mma::Pair<In> pair, const float* lns,
            const float* lnb, const float* win, const float* bin,
            const float* wdw, const float* bdw, const float* wout,
-           const float* bout, const float* ls, float* out, int B, int T,
+           const float* bout, const float* ls, In* out, int B, int T,
            float eps, cudaStream_t stream) {
   constexpr int TT = gcfn_mma::kTT;
-  const cudaError_t err = set_attributes<F>();
+  const cudaError_t err = set_attributes<F, In>();
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T + TT - 1) / TT, B);
-  ega_gcfn_kernel<F><<<grid, kThreads, gcfn_mma::Shape<F>::smem_bytes,
-                       stream>>>(x, pair, lns, lnb, win, bin, wdw, bdw, wout,
-                                 bout, ls, out, T, eps);
+  ega_gcfn_kernel<F, In><<<grid, kThreads, gcfn_mma::Shape<F>::smem_bytes,
+                           stream>>>(x, pair, lns, lnb, win, bin, wdw, bdw,
+                                     wout, bout, ls, out, T, eps);
   return (int)cudaGetLastError();
 }
 
 template <int F>
 cudaError_t blocks_per_sm(int* blocks) {
-  cudaError_t err = set_attributes<F>();
+  cudaError_t err = set_attributes<F, float>();
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, ega_gcfn_kernel<F>, kThreads,
+        blocks, ega_gcfn_kernel<F, float>, kThreads,
         gcfn_mma::Shape<F>::smem_bytes);
   return err;
+}
+
+// Either instance at width F, for the stream's type In.
+template <class In>
+int run_pair(const void* x, const void* x_down, const void* gns,
+             const void* gnb, const void* wg, const void* bg,
+             const void* lns, const void* lnb, const void* win,
+             const void* bin, const void* wdw, const void* bdw,
+             const void* wout, const void* bout, const void* ls, void* out,
+             void* yres, int B, int T, int L, int F, float eps,
+             void* stream) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  if (B <= 0 || T <= 0) return 0;
+  if (L <= 0 || T % L != 0 || B > 65535) return (int)cudaErrorInvalidValue;
+  const gcfn_mma::Pair<In> pair{static_cast<const In*>(x_down), L, f(gns),
+                                f(gnb), f(wg), f(bg),
+                                static_cast<float*>(yres)};
+  auto run = [&](auto launcher) {
+    return launcher(static_cast<const In*>(x), pair, f(lns), f(lnb), f(win),
+                    f(bin), f(wdw), f(bdw), f(wout), f(bout), f(ls),
+                    static_cast<In*>(out), B, T, eps,
+                    static_cast<cudaStream_t>(stream));
+  };
+  if (F == 128) return run(launch<128, In>);
+  if (F == 256) return run(launch<256, In>);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -117,18 +153,27 @@ extern "C" int sep_ega_gcfn_f32(const void* x, const void* x_down,
                                 const void* wout, const void* bout,
                                 const void* ls, void* out, int B, int T,
                                 int L, int F, float eps, void* stream) {
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  if (B <= 0 || T <= 0) return 0;
-  if (L <= 0 || T % L != 0 || B > 65535) return (int)cudaErrorInvalidValue;
-  const gcfn_mma::Pair pair{f(x_down), L, f(gns), f(gnb), f(wg), f(bg)};
-  auto run = [&](auto launcher) {
-    return launcher(f(x), pair, f(lns), f(lnb), f(win), f(bin), f(wdw),
-                    f(bdw), f(wout), f(bout), f(ls), static_cast<float*>(out),
-                    B, T, eps, static_cast<cudaStream_t>(stream));
-  };
-  if (F == 128) return run(launch<128>);
-  if (F == 256) return run(launch<256>);
-  return (int)cudaErrorInvalidValue;
+  return run_pair<float>(x, x_down, gns, gnb, wg, bg, lns, lnb, win, bin,
+                         wdw, bdw, wout, bout, ls, out, nullptr, B, T, L, F,
+                         eps, stream);
+}
+
+// The bfloat16 instance: x, x_down and out bfloat16 (16-byte aligned), the
+// parameters float32, yres a float32 scratch [B, T, F] (y's tile rows,
+// the residual).
+extern "C" int sep_ega_gcfn_bf16(const void* x, const void* x_down,
+                                 const void* gns, const void* gnb,
+                                 const void* wg, const void* bg,
+                                 const void* lns, const void* lnb,
+                                 const void* win, const void* bin,
+                                 const void* wdw, const void* bdw,
+                                 const void* wout, const void* bout,
+                                 const void* ls, void* out, void* yres,
+                                 int B, int T, int L, int F, float eps,
+                                 void* stream) {
+  return run_pair<__nv_bfloat16>(x, x_down, gns, gnb, wg, bg, lns, lnb, win,
+                                 bin, wdw, bdw, wout, bout, ls, out, yres, B,
+                                 T, L, F, eps, stream);
 }
 
 // Blocks of K16 at width F that one SM holds at once, with the launch's

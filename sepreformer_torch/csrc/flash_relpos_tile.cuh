@@ -88,6 +88,23 @@
 // rounded.  K, V and the band are staged as bfloat16 rows at stride
 // D + 8 (16-byte aligned), within the float stages' room, so the shared
 // memory and blocks per SM are the float32 instance's.
+//
+// K13's bfloat16 instances (kHeadMajor, kDrop, kStats, every SPLIT) take
+// the JAX train kernel's steps (attention_train.py:84-118), which round
+// the normalised, dropped probability P · keep / (1 - p), not p against
+// a running max.  So the tile walks the keys twice (kTwoPass): the first
+// pass takes each row's max and sum alone (the online softmax, no P·V),
+// and the row tile's split warps merge them over the stages; the second
+// recomputes the scores bit for bit, p = 2^(s - m) / l in float32, drops,
+// rounds p to bfloat16 and takes P·V as one exact mma.sync, added in
+// float32 with no rescaling; out is stored rounded, with no division.
+// The same pass sums out32, the float32 P·V of the unrounded p (its TF32
+// split, two mma.sync on the exact V), which K14 dots with dOut for the
+// row sum of dP·P (the rounded out is off by bfloat16's rounding there).
+// The statistics pass costs a second QKᵀ and bias per tile (one TF32
+// product each, a third of the float32 instance's); holding a row
+// tile's 16 x 512 scores instead would take 128 KB of shared memory a
+// block at SPLIT 1.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -169,6 +186,8 @@ struct Args {
   float* out;
   float* row_max;       // [B*H, L] (kStats)
   float* row_sum;
+  float* out32;         // [B*H, L, D]: K13's bfloat16 instances' float32
+                        // P·V of the unrounded weights
   int L, H, maxlen;
   float scale_log2;     // log2(e) / sqrt(D)
   uint32_t seed_word;   // the hash's seed word of site 0
@@ -216,8 +235,15 @@ __device__ __forceinline__ void run(const Args& a) {
   constexpr int kKS = S::kKS, kVS = S::kVS, kPerLane = S::kPerLane,
                 kNN = S::kNN, kChains = S::kChains;
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  static_assert(!kBf16 || (!kHeadMajor && !kDrop && !kStats && SPLIT == 1),
-                "bfloat16: K12's tile alone");
+  static_assert(!kBf16 || (kHeadMajor && kDrop && kStats) ||
+                    (!kHeadMajor && !kDrop && !kStats && SPLIT == 1),
+                "bfloat16: K12's one-pass tile, or K13's two-pass tile");
+  // K13 in bfloat16: a statistics pass, then P·V on the normalised p
+  constexpr bool kTwoPass = kBf16 && kHeadMajor;
+  static_assert(!kTwoPass ||
+                    (SPLIT - 1) * kRowTiles * 32 * 8 * kNN <=
+                        S::kStages * S::kStage,
+                "K13 bf16: the split warps' outputs fit over the stages");
   // bfloat16 rows of K, V and the band: stride D + 8 values (16-byte
   // aligned), within the float rows' room
   constexpr int kRS = D + 8;
@@ -401,8 +427,15 @@ __device__ __forceinline__ void run(const Args& a) {
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 
+  // kTwoPass: out32's accumulator, and each row's factor 1 / l of the
+  // second pass
+  float o32[kTwoPass ? kNN : 1][4] = {};
+  float inv_l[2] = {1.f, 1.f};
+
   const int tiles = (lim + kKeys - 1) / kKeys;
   const int steps = (tiles + SPLIT - 1) / SPLIT;
+  for (int pass = kTwoPass ? 0 : 1; pass < 2; ++pass) {
+  const bool stats_pass = kTwoPass && pass == 0;
   stage(0, 0);
   for (int step = 0; step < steps; ++step) {
     if (S::kStages == 2 && step + 1 < steps) {
@@ -518,18 +551,24 @@ __device__ __forceinline__ void run(const Args& a) {
           for (int e = 0; e < 4; ++e)
             if (j0 + 8 * nt + 2 * t + (e & 1) >= lim) s[nt][e] = -INFINITY;
       }
-      float mx[2] = {-INFINITY, -INFINITY};
+      float alpha[2] = {1.f, 1.f}, m_sub[2];
+      if (!kTwoPass || stats_pass) {
+        float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+        for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      float alpha[2], m_sub[2];
+          for (int e = 0; e < 4; ++e)
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float m_new = fmaxf(m_run[r], quad_max(mx[r]) + shift[r]);
-        alpha[r] = ex2(m_run[r] - m_new);     // 0 at the first tile
-        m_run[r] = m_new;
-        m_sub[r] = m_new - shift[r];
+        for (int r = 0; r < 2; ++r) {
+          const float m_new = fmaxf(m_run[r], quad_max(mx[r]) + shift[r]);
+          alpha[r] = ex2(m_run[r] - m_new);     // 0 at the first tile
+          m_run[r] = m_new;
+          m_sub[r] = m_new - shift[r];
+        }
+      } else {  // the second pass: the rows' final max
+#pragma unroll
+        for (int r = 0; r < 2; ++r) m_sub[r] = m_run[r] - shift[r];
       }
       float sum[2] = {0.f, 0.f};
 #pragma unroll
@@ -539,10 +578,21 @@ __device__ __forceinline__ void run(const Args& a) {
           s[nt][e] = ex2(s[nt][e] - m_sub[e >> 1]);
           sum[e >> 1] += s[nt][e];
         }
+      if (!kTwoPass || stats_pass) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + sum[r];
-      // the drop, after the sum (1 / (1 - p) comes with 1 / l at the end):
-      // s[nt][e] is row g + 8 (e / 2), key j0 + 8 nt + 2t + e % 2
+        for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + sum[r];
+      }
+      if (!stats_pass) {
+      // the second pass normalises p (the first has the row sums)
+      if (kTwoPass) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] *= inv_l[e >> 1];
+      }
+      // the drop, after the sum (1 / (1 - p) comes with 1 / l at the end,
+      // or, in the second pass, here): s[nt][e] is row g + 8 (e / 2), key
+      // j0 + 8 nt + 2t + e % 2
       if (kDrop && a.threshold8) {
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt)
@@ -554,6 +604,8 @@ __device__ __forceinline__ void run(const Args& a) {
             for (int r = 0; r < 2; ++r)
               if (!sep_keep_halves(row_half[r], col, a.threshold8))
                 s[nt][2 * r + c] = 0.f;
+              else if (kTwoPass)
+                s[nt][2 * r + c] *= a.keep_scale;
           }
       }
 
@@ -566,11 +618,16 @@ __device__ __forceinline__ void run(const Args& a) {
       for (int nt = 0; nt < 8; ++nt) {
         const float p4[4] = {s[nt][0], s[nt][2], s[nt][1], s[nt][3]};
         if constexpr (kBf16) {
-          // p rounded to bfloat16 after its sum, one exact product
-          uint32_t pb[4];
+          // p rounded to bfloat16 after its sum (K13: normalised and
+          // dropped), one exact product; K13's out32 takes the unrounded
+          // p's TF32 split, two exact products accumulated on the tensor
+          // cores across the tiles (its fresh chains would spill at D 32,
+          // SPLIT 4; out32 only feeds K14's row sums)
+          uint32_t pb[4], pbig[4], psmall[4];
 #pragma unroll
           for (int i = 0; i < 4; ++i)
             pb[i] = __float_as_uint(bf16s::rounded(p4[i]));
+          if constexpr (kTwoPass) tf32x3::split(p4, pbig, psmall);
           const bf* vp =
               reinterpret_cast<const bf*>(vs_) + (8 * nt + 2 * t) * kRS + g;
 #pragma unroll
@@ -579,6 +636,10 @@ __device__ __forceinline__ void run(const Args& a) {
                 __float_as_uint(__bfloat162float(vp[8 * nn])),
                 __float_as_uint(__bfloat162float(vp[kRS + 8 * nn]))};
             tf32x3::mma(pv[nt % kChains][nn], pb, vb2);
+            if constexpr (kTwoPass) {
+              tf32x3::mma(o32[nn], psmall, vb2);
+              tf32x3::mma(o32[nn], pbig, vb2);
+            }
           }
         } else {
           uint32_t pb[4], ps[4];
@@ -597,16 +658,87 @@ __device__ __forceinline__ void run(const Args& a) {
           float sum = pv[0][nn][e];
 #pragma unroll
           for (int ch = 1; ch < kChains; ++ch) sum += pv[ch][nn][e];
-          o[nn][e] = o[nn][e] * alpha[e >> 1] + sum;
+          if constexpr (kTwoPass) {
+            o[nn][e] += sum;
+          } else {
+            o[nn][e] = o[nn][e] * alpha[e >> 1] + sum;
+          }
         }
+      }  // !stats_pass
     }
     __syncthreads();  // this stage's buffers are consumed
     // one stage: the next step's loads wait for this step's products
     if (S::kStages == 1 && step + 1 < steps)
       stage(0, (step + 1) * S::kStepKeys);
   }
+  if (stats_pass) {
+    // the row tile's split warps merge their maxes and sums over the
+    // stages, each the same way, in the order of ks
+    if constexpr (SPLIT > 1) {
+      float* mine = smem + ((ks * kRowTiles + rt) * 32 + lane) * 4;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mine[r] = m_run[r];
+        mine[2 + r] = l_run[r];
+      }
+      __syncthreads();
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+      for (int w = 0; w < SPLIT; ++w) {
+        const float* other = smem + ((w * kRowTiles + rt) * 32 + lane) * 4;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) m[r] = fmaxf(m[r], other[r]);
+      }
+#pragma unroll
+      for (int w = 0; w < SPLIT; ++w) {
+        const float* other = smem + ((w * kRowTiles + rt) * 32 + lane) * 4;
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          l[r] += other[2 + r] * ex2(other[r] - m[r]);  // 0: no tile
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m_run[r] = m[r];
+        l_run[r] = l[r];
+      }
+      __syncthreads();  // read before the second pass stages over them
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      inv_l[r] = 1.f / fmaxf(quad_sum(l_run[r]), 1e-30f);
+  }
+  }  // pass
 
-  if constexpr (SPLIT > 1) {
+  if constexpr (SPLIT > 1 && kTwoPass) {
+    // the row tile's warps meet over the stages: warps ks > 0 leave their
+    // out and out32 fragments (of one max and sum), warp 0 adds them in
+    // the order of ks
+    float* xch = smem + (rt * 32 + lane) * 8 * kNN;
+    constexpr int kXch = kRowTiles * 32 * 8 * kNN;  // floats per warp
+    if (ks > 0) {
+      float* mine = xch + (ks - 1) * kXch;
+#pragma unroll
+      for (int nn = 0; nn < kNN; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          mine[4 * nn + e] = o[nn][e];
+          mine[4 * kNN + 4 * nn + e] = o32[nn][e];
+        }
+    }
+    __syncthreads();
+    if (ks != 0) return;
+#pragma unroll
+    for (int w = 0; w < SPLIT - 1; ++w) {
+      const float* other = xch + w * kXch;
+#pragma unroll
+      for (int nn = 0; nn < kNN; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          o[nn][e] += other[4 * nn + e];
+          o32[nn][e] += other[4 * kNN + 4 * nn + e];
+        }
+    }
+  } else if constexpr (SPLIT > 1) {
     // the row tile's warps meet over the stages: warps ks > 0 leave their
     // max, sums and output fragments, warp 0 merges them in the order of
     // ks (m the larger max, each side scaled by 2^(m_side - m))
@@ -651,14 +783,21 @@ __device__ __forceinline__ void run(const Args& a) {
   for (int r = 0; r < 2; ++r) {
     const int i = iw + g + 8 * r;
     const float l = quad_sum(l_run[r]);
+    // (the second pass's p is normalised and scaled already)
     const float inv =
-        (kDrop && a.threshold8 ? a.keep_scale : 1.f) / fmaxf(l, 1e-30f);
+        kTwoPass ? 1.f
+                 : (kDrop && a.threshold8 ? a.keep_scale : 1.f) /
+                       fmaxf(l, 1e-30f);
     if (i < L) {
 #pragma unroll
-      for (int nn = 0; nn < kNN; ++nn)
-        bf16s::store2(reinterpret_cast<T*>(a.out) + head + (size_t)i * F +
-                          8 * nn + 2 * t,
+      for (int nn = 0; nn < kNN; ++nn) {
+        const size_t off = head + (size_t)i * F + 8 * nn + 2 * t;
+        bf16s::store2(reinterpret_cast<T*>(a.out) + off,
                       o[nn][2 * r] * inv, o[nn][2 * r + 1] * inv);
+        if constexpr (kTwoPass)
+          *reinterpret_cast<float2*>(a.out32 + off) =
+              make_float2(o32[nn][2 * r], o32[nn][2 * r + 1]);
+      }
       if (kStats && t == 0) {
         a.row_max[(size_t)bh * L + i] = m_run[r] * kLn2;
         a.row_sum[(size_t)bh * L + i] = l;

@@ -84,7 +84,12 @@
 // residual stay float32, and out is stored rounded.  The weights stay
 // float32 in memory and in the stages, so the shared-memory plan (and
 // the blocks per SM) is the float32 instance's; x's and out's bytes
-// halve.
+// halve.  K16's bfloat16 instance (kPair) takes the same steps after the
+// JAX kernel's tail (ega_gcfn.py:57-90): x and x_down bfloat16, LN_g(x)
+// rounded as it lands in xn, wg rounded as the gate product reads it, the
+// gate and y = x + gate * up float32; y's tile rows go to a float32
+// scratch (Pair::yres), since the bfloat16 out would round them, and the
+// epilogue reads its residual there.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -148,14 +153,16 @@ struct Shape {
       (y_over_wo || (R * LY <= F * LW && blocks_per_sm == 1));
 };
 
-// The EGA tail's inputs (K16).
+// The EGA tail's inputs (K16), x_down in the stream's type In.
+template <class In = float>
 struct Pair {
-  const float* x_down;  // [B, L, F], the attention's output
+  const In* x_down;     // [B, L, F], the attention's output
   int L;                // the bottleneck length; T = L * (T / L)
   const float* gns;     // the gate's LayerNorm scale and bias [F]
   const float* gnb;
   const float* wg;      // the gate's Linear [F, F], [in, out]
   const float* bg;      // [F]
+  float* yres;          // [B, T, F]: y's tile rows (bfloat16 In alone)
 };
 
 // LayerNorm of frames t0-1 .. t0+TT into xn [R][LX], a warp taking every
@@ -221,10 +228,9 @@ __device__ __forceinline__ void tile(
     const float* __restrict__ wdw, const float* __restrict__ bdw,
     const float* __restrict__ wout, const float* __restrict__ bout,
     const float* __restrict__ ls, In* __restrict__ out, int T, float eps,
-    GcfnDrop drop, Pair pair = Pair{}) {
+    GcfnDrop drop, Pair<In> pair = Pair<In>{}) {
   static_assert(!(kDrop && kPair), "K16 runs at dropout 0");
   constexpr bool kBf16 = !std::is_same<In, float>::value;
-  static_assert(!kBf16 || !kPair, "bfloat16: K1's and K7's tiles");
   using S = Shape<F>;
   static_assert(!kPair || S::pair_fits,
                 "K16: y overlays wo and u, or wi at one block per SM");
@@ -300,21 +306,33 @@ __device__ __forceinline__ void tile(
       tf32x3::cp_async_commit();
     };
     stage_gate(0);
-    layer_norm_rows<F>(xn, x_row, pair.gns, pair.gnb, t0, T, eps);
+    layer_norm_rows<F, kBf16>(xn, x_row, pair.gns, pair.gnb, t0, T, eps);
     const int ratio = T / pair.L;
-    const float* xd = pair.x_down + (size_t)b * pair.L * F;
+    const In* xd = pair.x_down + (size_t)b * pair.L * F;
+    // where y's tile rows wait for the epilogue: out, or (bfloat16) the
+    // float32 scratch
+    float* yres;
+    if constexpr (kBf16)
+      yres = pair.yres;
+    else
+      yres = out;
     // unrolled where held[h] must be a register
 #pragma unroll (kHold ? P : 1)
     for (int h = 0; h < P; ++h) {
       tf32x3::cp_async_wait<0>();
       __syncthreads();  // wg's part h (and LN_g(x)) are in place
       float a[UMT][UNT][4] = {};
-      tf32x3::warp_product<UMT, UNT, F / 8>(
-          a, xn + 16 * UMT * wm * LX, LX, [&](int ks, int nt) {
-            const float* w =
-                wi + (8 * ks + 2 * t4) * LW + 8 * (UNT * wn + nt) + g8;
-            return make_float2(w[0], w[LW]);
-          });
+      auto wg_frag = [&](int ks, int nt) {
+        const float* w =
+            wi + (8 * ks + 2 * t4) * LW + 8 * (UNT * wn + nt) + g8;
+        return make_float2(w[0], w[LW]);
+      };
+      if constexpr (kBf16)
+        bf16s::warp_product<UMT, UNT, F / 8>(a, xn + 16 * UMT * wm * LX, LX,
+                                             wg_frag);
+      else
+        tf32x3::warp_product<UMT, UNT, F / 8>(a, xn + 16 * UMT * wm * LX,
+                                              LX, wg_frag);
       __syncthreads();  // every warp has read wi
       if (h + 1 < P)
         stage_gate(h + 1);
@@ -331,9 +349,9 @@ __device__ __forceinline__ void tile(
             float yv[2] = {0.f, 0.f};
             if (t >= 0 && t < T) {
               const size_t off = ((size_t)b * T + t) * F + col;
-              const float2 xv = *reinterpret_cast<const float2*>(x + off);
-              const float2 dv = *reinterpret_cast<const float2*>(
-                  xd + (size_t)(t / ratio) * F + col);
+              const float2 xv = bf16s::load2(x + off);
+              const float2 dv =
+                  bf16s::load2(xd + (size_t)(t / ratio) * F + col);
 #pragma unroll
               for (int q = 0; q < 2; ++q) {
                 const float z = a[mt][nt][2 * hr + q] + pair.bg[col + q];
@@ -341,7 +359,7 @@ __device__ __forceinline__ void tile(
                 yv[q] = (q ? xv.y : xv.x) + gate * (q ? dv.y : dv.x);
               }
               if (r >= 1 && r <= TT)  // a tile row: the residual
-                *reinterpret_cast<float2*>(out + off) =
+                *reinterpret_cast<float2*>(yres + off) =
                     make_float2(yv[0], yv[1]);
             }
             if (kHold) {
@@ -370,7 +388,7 @@ __device__ __forceinline__ void tile(
             }
     }
     __syncthreads();  // y is whole and LN_g(x) read
-    layer_norm_rows<F>(
+    layer_norm_rows<F, kBf16>(
         xn, [&](int r, int) { return (const float*)(y + r * S::LY); }, lns,
         lnb, t0, T, eps);
     if (kHold) {
@@ -488,7 +506,12 @@ __device__ __forceinline__ void tile(
       for (int nt = 0; nt < ONT; ++nt) {
         const int col = 8 * (ONT * wn + nt) + 2 * t4;
         // the residual: x, or K16's y, which its prologue wrote to out
-        const float2 xv = bf16s::load2((kPair ? out : x) + off + col);
+        // (bfloat16: to the float32 scratch)
+        float2 xv;
+        if constexpr (kPair && kBf16)
+          xv = bf16s::load2(pair.yres + off + col);
+        else
+          xv = bf16s::load2((kPair ? out : x) + off + col);
         float v[2];
 #pragma unroll
         for (int q = 0; q < 2; ++q) {

@@ -22,6 +22,7 @@ from sepreformer_torch.config import OptimConfig, VariantConfig
 from sepreformer_torch.losses import pit_sisnr_mag, pit_sisnr_time
 from sepreformer_torch.models.blocks import TrainMode
 from sepreformer_torch.models.sepreformer import SepReformer, build_model
+from sepreformer_torch.ops.kernels.ega_gcfn import NO_BF16_GRAD
 from sepreformer_torch.ops.stft import make_mel_filterbank, make_stft_kernel
 
 
@@ -161,37 +162,23 @@ def apply_gradients(state: TrainState, lr: float) -> torch.Tensor:
     return norm.detach()
 
 
-# The ROADMAP item that trains in bfloat16 off the default train route:
-# K13/K14 ("pallas"), K16 (the fused train pair) and K15 in bfloat16.
-# (K5 and K6 need no bfloat16 instance: JAX upcasts their operands.)
-BF16_TRAINING_ROUTES = ("ROADMAP.md queue A, bf16 training off the default "
-                        "route")
-
-
 def check_trainable(cfg) -> None:
     """Raise where the port cannot train ``cfg``, before any launch (the
-    kernels' dtype checks are the last guard; nothing falls back to
-    float32): a bfloat16 ``model.compute_dtype`` trains on the default
-    train route alone, not on ``attention_train_impl="pallas"``
-    (K13/K14), with ``fused_pair="on"`` (K16 at dropout 0) or with
-    ``fused_local="on"`` (K15 in validation) or ``attention_impl=
-    "single"`` (K13 in validation)."""
+    kernels' checks are the last guard; nothing falls back to float32): a
+    bfloat16 ``model.compute_dtype`` trains on every route but one, the
+    fused pair (``fused_pair="on"``) at dropout 0, where the train step
+    would take K16, whose bfloat16 form has no gradient because the JAX
+    package's raises (``ops/kernels/ega_gcfn.py::NO_BF16_GRAD``).  At
+    dropout > 0 the train step takes no fused block, as in JAX, and the
+    fused routes (K15, K16) serve validation."""
     m = cfg.model
-    if m.compute_dtype == "float32":
-        return
-    unbuilt = [name for name, on in (
-        ('attention_train_impl="pallas" (K13/K14)',
-         m.attention_train_impl == "pallas"),
-        ('fused_pair="on" (K16)', m.fused_pair == "on"),
-        ('fused_local="on" (K15)', m.fused_local == "on"),
-        ('attention_impl="single" (K13 in validation)',
-         m.attention_impl == "single")) if on]
-    if unbuilt:
+    if (m.compute_dtype != "float32" and m.fused_pair == "on"
+            and m.dropout == 0.0):
         raise NotImplementedError(
-            f"training with model.compute_dtype={m.compute_dtype!r} and "
-            f"{', '.join(unbuilt)} is not ported (not built yet: "
-            f"{BF16_TRAINING_ROUTES}); train on the default route, or in "
-            f"float32")
+            f"training with model.compute_dtype={m.compute_dtype!r}, "
+            f"fused_pair=\"on\" and dropout 0 would take K16's gradient "
+            f"in bfloat16: {NO_BF16_GRAD}; train with fused_pair=\"off\" "
+            f"(validation may still use it), a dropout > 0, or in float32")
 
 
 def train_step(state: TrainState, mixture: torch.Tensor,

@@ -40,12 +40,17 @@ dtype through ``stream_param``, once per weight in a serving forward
 the norms compute in float32 and cast back (``LayerNorm``,
 ``BatchNorm``, ``MaskedGroupNorm``); the attention scores are float32
 products of the upcast q and k (stored in ``RelPos.scores_dtype`` for
-K3), and the softmaxes run in float32.  Training keeps the stream in
-bfloat16 too: K7/K8 and K9/K10 take it through their bfloat16 instances
-(the GCFN's nine parameters reach K7/K8 in float32, as the JAX kernel
-takes them, so their gradients are float32 sums), the k65 backward runs
-K5 (K6) on float32 operands and rounds its gradients back, as JAX's does,
-and every other gradient flows through ``stream_param``'s cast.
+K3), and the softmaxes run in float32.  Every route takes the stream:
+K13 ("single", "pallas") gets the table in the stream's dtype, K15 and
+K16 (the fused blocks) the bfloat16 x with their float32 parameters.
+Training keeps the stream in bfloat16 too: K7/K8, K9/K10 and K13/K14
+take it through their bfloat16 instances (the GCFN's nine parameters
+reach K7/K8 in float32, as the JAX kernel takes them, so their gradients
+are float32 sums), the k65 backward runs K5 (K6) on float32 operands and
+rounds its gradients back, as JAX's does, and every other gradient flows
+through ``stream_param``'s cast.  K16 has no bfloat16 gradient (the JAX
+package's raises), so a bfloat16 train step at dropout 0 cannot take
+``fused_pair="on"`` (``engine/train.py::check_trainable``).
 """
 
 from __future__ import annotations
@@ -535,10 +540,12 @@ class MultiHeadAttention(nn.Module):
         if route == "single":
             seed, p = (0, 0.0) if train is None else (train.kernel_seed(),
                                                       train.p)
+            # the table in the stream's dtype (JAX blocks.py:670, :705)
             out = flash_relpos_attention_train(
                 q.transpose(1, 2), k.transpose(1, 2),
-                v.reshape(b, t, h, d).transpose(1, 2), pos.table, seed,
-                pos.maxlen, p, key_lens)
+                v.reshape(b, t, h, d).transpose(1, 2),
+                stream_param(pos.table, q.dtype), seed, pos.maxlen, p,
+                key_lens)
             return self._project_out(out.transpose(1, 2).reshape(b, t, -1),
                                      train)
         scores = fused_pv_scores(q, k, pos.pos_kt, pos.scores_dtype)

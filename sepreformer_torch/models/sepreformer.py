@@ -20,8 +20,8 @@ true length.  Module names follow the reference state_dict.
 at the entry and runs the stream in it (parameters stay float32; the
 encoder and decoder cast their weights to it), and the outputs come back
 as float32 for the losses, as the JAX package's model does; a train
-forward runs in it too, on the default train route
-(``engine/train.py::check_trainable`` names what still refuses it).
+forward runs in it too, on every train route
+(``engine/train.py::check_trainable`` names the one case it refuses).
 """
 
 from __future__ import annotations

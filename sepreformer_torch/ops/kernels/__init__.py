@@ -7,11 +7,12 @@ Eval: K1 ``fused_gcfn``, K2 ``materialize_pos_kt`` (``pos_kt`` adds its
 gradient), K3 ``softmax_pv``, K12 ``flash_relpos_attention`` (past the
 bottleneck length ``blocks.FUSED_PV_MAX_LENGTH``, in place of K2 and
 K3); the gradients of K1, K3 and K12 recompute their plain versions,
-as the JAX package's ``custom_vjp``s do.  K1, K3, K7-K10 and K12 also
-take bfloat16 streams (``ModelConfig.compute_dtype``), each through an
-instance of its own (K5 and K6 take float32 operands there, as in JAX);
-every other kernel raises on a bfloat16 tensor, naming ROADMAP.md's
-queue B, bfloat16 streams.  Train: K5 ``depthwise_bwd``
+as the JAX package's ``custom_vjp``s do.  K1, K3, K7-K10 and K12-K16
+also take bfloat16 streams (``ModelConfig.compute_dtype``), each through
+an instance of its own (K5 and K6 take float32 operands there, as in
+JAX), on every route; K16's bfloat16 form has no gradient, since the JAX
+package's raises.  The kernels on no route (K3b, K4, K9b, K10b) raise on
+a bfloat16 tensor, naming ROADMAP.md's queue B, bfloat16 streams.  Train: K5 ``depthwise_bwd``
 (the backward of ``depthwise_large``; under ``depthwise.BWD_MODE =
 "conv"`` K6 ``depthwise_bwd_w`` for dw and db), K7 ``gcfn_train_fwd`` and K8
 ``gcfn_train_bwd`` (the autograd function ``fused_gcfn_train``), K9
@@ -34,10 +35,15 @@ from sepreformer_torch.ops.kernels.attention_train import (
     attention_train_bwd,
     attention_train_bwd_plain,
     attention_train_fwd,
+    attention_train_fwd_bf16,
     attention_train_plain,
     flash_relpos_attention_train,
 )
-from sepreformer_torch.ops.kernels.cla import cla_plain, fused_cla
+from sepreformer_torch.ops.kernels.cla import (
+    cla_plain,
+    cla_reference,
+    fused_cla,
+)
 from sepreformer_torch.ops.kernels.depthwise import (
     depthwise_bwd,
     depthwise_bwd_plain,
@@ -105,7 +111,7 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict:
     """Each wrapper's launches, and those of its other dtype instances
-    (K1, K3, K7-K10 and K12 in bfloat16) as "<wrapper> <instance>"."""
+    (K1, K3, K7-K10 and K12-K16 in bfloat16) as "<wrapper> <instance>"."""
     counts = {fn.__name__: fn.launches for fn in WRAPPERS}
     for fn in WRAPPERS:
         for instance, n in getattr(fn, "instance_launches", {}).items():
@@ -115,7 +121,8 @@ def launch_counts() -> dict:
 
 __all__ = [
     "WRAPPERS", "attention_train_bwd", "attention_train_bwd_plain",
-    "attention_train_fwd", "attention_train_plain", "cla_plain",
+    "attention_train_fwd", "attention_train_fwd_bf16",
+    "attention_train_plain", "cla_plain", "cla_reference",
     "depthwise_bwd", "depthwise_bwd_plain", "depthwise_bwd_w",
     "depthwise_bwd_w_plain", "depthwise_fwd", "depthwise_fwd_plain",
     "depthwise_large", "ega_tail_gcfn_plain", "flash_relpos_attention_train",

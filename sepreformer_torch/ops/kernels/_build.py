@@ -109,22 +109,35 @@ SIGNATURES = {
     # q, k, v, table, lens, out, row_max, row_sum, BH, L, H, D, maxlen,
     # block, seed_word, threshold, keep_scale, split, stream
     "sep_attn_train_fwd_f32": [_P] * 8 + [_I] * 6 + [_U, _U, _F, _I, _P],
+    # K13's bfloat16 instance: q, k, v, table (bfloat16), lens, out
+    # (bfloat16), out32, row_max, row_sum, then as the float32 entry
+    "sep_attn_train_fwd_bf16": [_P] * 9 + [_I] * 6 + [_U, _U, _F, _I, _P],
     # BH, L, D, int out[13] -> K13's split, then its blocks per SM,
     # registers, local bytes, warps at SPLIT 1, 2 and 4
     "sep_attn_train_fwd_occupancy": [_I, _I, _I, _P],
-    # BH, L, D -> floats of K14's scratch
+    # BH, L, D -> floats of K14's scratch, and of its bfloat16 instance's
     "sep_attn_train_bwd_scratch_floats": [_I, _I, _I],
+    "sep_attn_train_bwd_bf16_scratch_floats": [_I, _I, _I],
     # q, k, v, table, lens, out, dout, row_max, row_sum, dq, dk, dv,
     # dtable, scratch, scratch_floats, BH, L, H, D, maxlen, block,
     # seed_word, threshold, keep_scale, stream
     "sep_attn_train_bwd_f32": [_P] * 14 + [_L] + [_I] * 6 + [_U, _U, _F,
                                                              _P],
+    # the same with q, k, v, table, dout, dq, dk, dv and dtable bfloat16
+    # and out K13's float32 out32
+    "sep_attn_train_bwd_bf16": [_P] * 14 + [_L] + [_I] * 6 + [_U, _U, _F,
+                                                              _P],
     # x, w, bias, y, B, T, C, K, stream
     "sep_depthwise_fwd_f32": [_P] * 4 + [_I] * 4 + [_P],
     # x, 13 params, v, out, B, T, F, eps, stream
     "sep_cla_f32": [_P] * 16 + [_I] * 3 + [_F, _P],
+    # the same with x and out bfloat16 (v float32)
+    "sep_cla_bf16": [_P] * 16 + [_I] * 3 + [_F, _P],
     # x, x_down, 4 gate params, 9 GCFN params, out, B, T, L, F, eps, stream
     "sep_ega_gcfn_f32": [_P] * 16 + [_I] * 4 + [_F, _P],
+    # the same with x, x_down and out bfloat16, and y, a float32 scratch
+    # [B, T, F] for the residual, after out
+    "sep_ega_gcfn_bf16": [_P] * 17 + [_I] * 4 + [_F, _P],
     # F, int* blocks -> K16's blocks per SM
     "sep_ega_gcfn_blocks_per_sm": [_I, _P],
     # F, int blocks[2] -> K15's blocks per SM, the GLU launch and the tail
@@ -146,6 +159,7 @@ SIGNATURES = {
 # launchers that return something else than a cudaError_t
 RESTYPES = {"sep_gcfn_train_bwd_scratch_floats": _L,
             "sep_attn_train_bwd_scratch_floats": _L,
+            "sep_attn_train_bwd_bf16_scratch_floats": _L,
             "sep_depthwise_bwd_partial_floats": _L}
 
 

@@ -51,7 +51,8 @@ def _length_mask(lens: torch.Tensor, t: int) -> torch.Tensor:
 
 def gcfn_plain(x: torch.Tensor, params: Sequence[torch.Tensor], eps: float,
                lens: Optional[torch.Tensor] = None,
-               drop: Optional[Callable] = None) -> torch.Tensor:
+               drop: Optional[Callable] = None,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """LN -> Linear F->6F -> u-row mask (rows t >= lens[b]) -> depthwise
     k3 with zero padding in u-space -> GLU -> Linear 3F->F -> LayerScale
     residual.  ``params`` = (lns, lnb, win [F, 6F], bin, wdw [6F, 3], bdw,
@@ -60,9 +61,11 @@ def gcfn_plain(x: torch.Tensor, params: Sequence[torch.Tensor], eps: float,
     ``drop(site, v)``, when given, drops the GLU output (site 0) and the
     down-projection (site 1).  A bfloat16 x gives a bfloat16 result, with
     the kernel's rounding steps (the module docstring; the GLU output is
-    rounded after its drop, as the JAX train kernel rounds it)."""
+    rounded after its drop, as the JAX train kernel rounds it).  ``dtype``
+    (default x's) is the stream's: K16 passes its float32 y with its
+    bfloat16 stream's dtype, so y keeps float32 and the steps round."""
     lns, lnb, win, bin_, wdw, bdw, wout, bout, ls = params
-    dtype = x.dtype
+    dtype = x.dtype if dtype is None else dtype
     low = dtype != torch.float32
 
     def rounded(a):  # a float32 tensor rounded to the stream's dtype

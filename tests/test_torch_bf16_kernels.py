@@ -1,8 +1,9 @@
 """The bfloat16 forms of K1, K3 and K12: their plain versions against the
 JAX package's Pallas kernels in interpret mode; the refusals of the
-kernels that have no bfloat16 instance, and of training in bfloat16 off
-the default train route (K7/K8 and K9/K10 in bfloat16:
-``tests/test_torch_bf16_train.py``).
+kernels that have no bfloat16 instance (K3b, K5), the bfloat16 results
+of those that came since (K13/K14, K15, K16), and the refusal of
+training in bfloat16 through K16 at dropout 0 (K7/K8 and K9/K10 in
+bfloat16: ``tests/test_torch_bf16_train.py``).
 
 Both sides take bfloat16 streams as the Pallas kernels do: bfloat16
 operands, float32 sums, float32 statistics and softmax, the result in
@@ -41,7 +42,7 @@ from sepreformer_torch.ops.kernels import (
 )
 from sepreformer_torch import get_variant
 from sepreformer_torch.config import apply_override
-from sepreformer_torch.engine import Engine, train_step
+from sepreformer_torch.engine import Engine, create_train_state, train_step
 from sepreformer_torch.ops.kernels import depthwise_bwd
 
 from test_torch_kernels import gcfn_params, torch_layout
@@ -163,12 +164,6 @@ REFUSALS = {
                               bias=cpu_bf16(1, 2, 128, 128)),
     "K5": lambda: depthwise_bwd(cpu_bf16(1, 40, 8), torch.zeros(8, 1, 9),
                                 cpu_bf16(1, 40, 8)),
-    "K13/K14": lambda: flash_relpos_attention_train(
-        *(cpu_bf16(1, 2, 64, 16) for _ in range(3)), cpu_bf16(128, 16), 1,
-        64, 0.1),
-    "K15": lambda: fused_cla(cpu_bf16(1, 64, 128), [], 1e-5),
-    "K16": lambda: fused_ega_tail_gcfn(cpu_bf16(1, 64, 128),
-                                       cpu_bf16(1, 8, 128), [], [], 1e-5),
 }
 
 
@@ -176,6 +171,42 @@ REFUSALS = {
 def test_kernels_without_bf16_refuse_it(kernel):
     with pytest.raises(ValueError, match=ITEM):
         REFUSALS[kernel]()
+
+
+def cla_zeros(f):
+    h = 2 * f
+    return [torch.zeros(s) for s in ((f,), (f,), (f, h), (h,), (65, f),
+                                     (f,), (f, h), (h,), (h,), (h,),
+                                     (h, f), (f,), (f,))]
+
+
+def gcfn_zeros(f):
+    h = 6 * f
+    return [torch.zeros(s) for s in ((f,), (f,), (f, h), (h,), (h, 3),
+                                     (h,), (h // 2, f), (f,), (f,))]
+
+
+# the kernels that refused a bf16 tensor until their bfloat16 instances
+# came (K13/K14, K15, K16): each now takes it on the CPU and returns its
+# result in bfloat16 (their plain versions against the JAX kernels:
+# tests/test_torch_bf16_routes.py and the files it names)
+TAKEN = {
+    "K13/K14": lambda: flash_relpos_attention_train(
+        *(cpu_bf16(1, 2, 64, 16) for _ in range(3)), cpu_bf16(128, 16), 1,
+        64, 0.1),
+    "K15": lambda: fused_cla(cpu_bf16(1, 64, 128), cla_zeros(128), 1e-5),
+    "K16": lambda: fused_ega_tail_gcfn(
+        cpu_bf16(1, 64, 128), cpu_bf16(1, 8, 128),
+        [torch.zeros(128), torch.zeros(128), torch.zeros(128, 128),
+         torch.zeros(128)], gcfn_zeros(128), 1e-5),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(TAKEN))
+def test_kernels_with_bf16_take_it(kernel):
+    out = TAKEN[kernel]()
+    assert out.dtype == BF16
+    assert torch.isfinite(out.float()).all()
 
 
 def test_dtype_checks_raise_without_launching():
@@ -189,25 +220,48 @@ def test_dtype_checks_raise_without_launching():
         _build.check_tensor(x, "k x", (4, 4), x.device)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("model.attention_train_impl", "pallas"), ("model.fused_pair", "on")])
+@pytest.mark.parametrize("field,value", [("model.fused_pair", "on")])
 def test_training_refuses_bf16(tmp_path, field, value):
     """``train_step`` and the ``Engine``'s train mode raise on a bf16
-    ``compute_dtype`` off the default train route ("pallas": K13/K14;
-    the fused pair: K16), naming the ROADMAP item; nothing trains in
-    float32 instead.  (The default route trains in bfloat16:
-    ``tests/test_torch_bf16_train.py``.)"""
+    ``compute_dtype`` with the fused pair at dropout 0, where the train
+    step would take K16's gradient, which the JAX package cannot take in
+    bfloat16 either; nothing trains in float32 instead.  (Every other
+    route trains in bfloat16: ``tests/test_torch_bf16_train.py``; the
+    "pallas" case that stood here trains since K13/K14's bfloat16
+    instances came: ``test_pallas_trains_bf16`` below.)"""
     cfg = apply_override(get_variant("tiny"), "model.compute_dtype",
                          "bfloat16")
-    cfg = apply_override(cfg, field, value)
+    cfg = apply_override(apply_override(cfg, field, value), "model.dropout",
+                         0.0)
     engine = Engine(cfg, str(tmp_path), device="cpu")
     state = engine.state
     before = [p.detach().clone() for p in state.model.parameters()]
-    item = "queue A, bf16 training off the default route"
+    item = "ega_gcfn.py::_bwd.*no bfloat16 gradient"
     with pytest.raises(NotImplementedError, match=item):
         engine.run("train")
     with pytest.raises(NotImplementedError, match=item):
         train_step(state, torch.zeros(2, 800), torch.zeros(2, 2, 800), 1e-3,
                    0.4, torch.Generator().manual_seed(0))
     assert all(torch.equal(a, b)
+               for a, b in zip(before, state.model.parameters()))
+
+
+def test_pallas_trains_bf16():
+    """The "pallas" train route in bfloat16 (once a refusal case of
+    ``test_training_refuses_bf16``): one ``train_step`` of the tiny
+    variant runs K13/K14's plain bfloat16 versions, and the float32
+    parameters move."""
+    cfg = apply_override(get_variant("tiny"), "model.compute_dtype",
+                         "bfloat16")
+    cfg = apply_override(cfg, "model.attention_train_impl", "pallas")
+    state = create_train_state(cfg, device="cpu")
+    before = [p.detach().clone() for p in state.model.parameters()]
+    rng = np.random.default_rng(8)
+    mix = torch.from_numpy(rng.normal(size=(2, 800)).astype(np.float32))
+    src = torch.from_numpy(rng.normal(size=(2, 2, 800)).astype(np.float32))
+    metrics = train_step(state, mix, src, 1e-3, 0.4,
+                         torch.Generator().manual_seed(0))
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert all(p.dtype == torch.float32 for p in state.model.parameters())
+    assert any(not torch.equal(a, b)
                for a, b in zip(before, state.model.parameters()))

@@ -1,8 +1,9 @@
 """Training in bfloat16 on the default train route, on the CPU: the
 bfloat16 forms of K7/K8 and K9/K10 (their plain versions against the JAX
 package's Pallas kernels in interpret mode), the k65 depthwise gradient
-against ``jax.vjp``, the stream's dtypes through one train step, the
-refusals of the routes still unbuilt, and one CLI epoch with a resume.
+against ``jax.vjp``, the stream's dtypes through one train step, one
+train step on each route off the default one, and one CLI epoch with a
+resume.
 
 The plain versions take a bfloat16 stream as the Pallas kernels do:
 bfloat16 product operands, float32 sums, float32 statistics and
@@ -35,8 +36,9 @@ from sepreformer_tpu.ops.pallas.softmax_pv_train import _bwd_impl, _fwd_impl
 from sepreformer_torch import cli, get_variant
 from sepreformer_torch.config import ModelConfig, VariantConfig, apply_override
 from sepreformer_torch.data.synth import generate_corpus
-from sepreformer_torch.engine import Engine, create_train_state, train_step
+from sepreformer_torch.engine import create_train_state, train_step
 from sepreformer_torch.engine.checkpoint import latest_epoch
+from sepreformer_torch.engine.train import check_trainable
 from sepreformer_torch.ops.kernels import (
     depthwise,
     depthwise_large,
@@ -53,7 +55,6 @@ from test_torch_train import STEP_MODEL, boosted_model
 BF16 = torch.bfloat16
 MAX_ULPS = 2 * 2.0 ** -7      # max |port - JAX| over max|ref|
 MEAN_LIMIT = 2e-5             # mean |port - JAX| over max|ref|
-ROUTES_ITEM = "queue A, bf16 training off the default route"
 
 
 @pytest.fixture(autouse=True)
@@ -328,9 +329,9 @@ def test_bf16_gradient_rounding_by_group():
                    if grads[n].abs().max() > 0 and grads[n].numel() > 8)
 
 
-# ---- the routes still unbuilt -----------------------------------------------
+# ---- the routes off the default one ----------------------------------------
 
-UNBUILT = {
+OFF_DEFAULT = {
     "pallas": ("model.attention_train_impl", "pallas"),
     "fused_pair": ("model.fused_pair", "on"),
     "fused_local": ("model.fused_local", "on"),
@@ -338,24 +339,30 @@ UNBUILT = {
 }
 
 
-@pytest.mark.parametrize("route", sorted(UNBUILT))
-def test_check_trainable_refuses_unbuilt_routes(route, tmp_path):
-    """bfloat16 training on a route whose kernels have no bfloat16
-    instance raises in ``train_step`` and in the ``Engine``'s train mode
-    before any launch, naming the ROADMAP item; the parameters stay
-    untouched and nothing trains in float32 instead."""
+@pytest.mark.parametrize("route", sorted(OFF_DEFAULT))
+def test_bf16_trains_off_the_default_route(route):
+    """bfloat16 trains on the routes off the default one (these cases
+    were refusals until K13/K14, K15 and K16 had bfloat16 instances):
+    "pallas" through K13/K14's plain versions, "single" at the tiny
+    variant's dropout 0.05 (its train attention stays on K9/K10), and the
+    fused routes, which a train step at dropout > 0 does not take (they
+    serve validation).  ``check_trainable`` passes, one ``train_step``
+    changes the float32 parameters, every gradient float32 and finite.
+    (The one refusal left, the fused pair at dropout 0:
+    ``tests/test_torch_bf16_kernels.py::test_training_refuses_bf16``.)"""
     cfg = apply_override(get_variant("tiny"), "model.compute_dtype",
                          "bfloat16")
-    cfg = apply_override(cfg, *UNBUILT[route])
-    engine = Engine(cfg, str(tmp_path), device="cpu")
-    state = engine.state
+    cfg = apply_override(cfg, *OFF_DEFAULT[route])
+    assert cfg.model.dropout > 0.0
+    check_trainable(cfg)
+    state = create_train_state(cfg, device="cpu")
     before = [p.detach().clone() for p in state.model.parameters()]
-    with pytest.raises(NotImplementedError, match=ROUTES_ITEM):
-        engine.run("train")
-    with pytest.raises(NotImplementedError, match=ROUTES_ITEM):
-        train_step(state, torch.zeros(2, 800), torch.zeros(2, 2, 800), 1e-3,
-                   0.4, torch.Generator().manual_seed(0))
-    assert all(torch.equal(a, b)
+    m = train_step(state, *[a[..., :800] for a in step_batch()], 1e-3, 0.4,
+                   torch.Generator().manual_seed(0))
+    assert all(np.isfinite(float(v)) for v in m.values())
+    assert all(p.dtype == torch.float32 and torch.isfinite(p.grad).all()
+               for p in state.model.parameters())
+    assert any(not torch.equal(a, b)
                for a, b in zip(before, state.model.parameters()))
 
 

@@ -14,6 +14,7 @@ from sepreformer_torch.ops.kernels import (
     attention_train_bwd,
     attention_train_bwd_plain,
     attention_train_fwd,
+    attention_train_fwd_bf16,
     attention_train_plain,
     cla_plain,
     depthwise_bwd,
@@ -1451,25 +1452,153 @@ def test_flash_bf16_kernel_matches_plain(cuda_device, d, b, length, maxlen,
 
 @pytest.mark.cuda
 def test_kernels_without_bf16_refuse_it_on_the_card(cuda_device):
-    """K13, K15 and K16 (and K3b) raise on a bf16 CUDA tensor, naming the
-    ROADMAP item, and launch nothing."""
+    """K3b raises on a bf16 CUDA tensor, naming the ROADMAP item, and
+    launches nothing (K13-K16 take bfloat16 since their instances came:
+    ``test_*_bf16_kernel*_match_plain`` below)."""
     dev = cuda_device
-    x = torch.zeros(1, 64, 128, device=dev, dtype=BF16)
-    q = torch.zeros(1, 2, 64, 16, device=dev, dtype=BF16)
     s = torch.zeros(1, 2, 128, 128, device=dev, dtype=BF16)
-    calls = [
-        lambda: fused_cla(x, [], 1e-5),
-        lambda: fused_ega_tail_gcfn(x, x[:, :8].contiguous(), [], [], 1e-5),
-        lambda: flash_relpos_attention_train(q, q, q, q[0, 0], 1, 64, 0.0),
-        lambda: softmax_pv(s, torch.zeros(1, 128, 32, device=dev), bias=s),
-    ]
-    before = (fused_cla.launches, fused_ega_tail_gcfn.launches,
-              attention_train_fwd.launches, softmax_pv_bias.launches)
-    for call in calls:
-        with pytest.raises(ValueError, match="queue B, bfloat16 streams"):
-            call()
-    assert before == (fused_cla.launches, fused_ega_tail_gcfn.launches,
-                      attention_train_fwd.launches, softmax_pv_bias.launches)
+    before = softmax_pv_bias.launches
+    with pytest.raises(ValueError, match="queue B, bfloat16 streams"):
+        softmax_pv(s, torch.zeros(1, 128, 32, device=dev), bias=s)
+    assert softmax_pv_bias.launches == before
+
+
+# The bfloat16 instances of K13/K14 (the single-block attention), K15 (the
+# fused CLA) and K16 (the EGA tail + GCFN) against their plain bfloat16
+# versions, at the limits above: each kernel rounds at its plain
+# version's points (K13 the normalised, dropped p, after a statistics
+# pass), so BF16_MEAN holds and the plain version without its rounding
+# steps must exceed it; each bit-equal on a repeat call, counted as its
+# bf16 instance.  K13's out32 (the float32 P·V of the unrounded p) is held
+# at F32_OUT_MAX against the float32 plain version on the same values.
+# K14's gradients are sums of products of rounded operands (P·z, G),
+# whose rounding can flip between two orders of summation: they are held
+# at BF16_SUM_MEAN, with the control further from the plain version than
+# the kernel (dv's control cannot exceed BF16_MEAN: P·z's rounding errors
+# average out over the 500 query rows of each sum).  Readings on an H100
+# (mean over max|out|): K13 3e-8 to 8e-8 at every split, K14's four 7e-8
+# to 2.5e-7, K15 and K16 6e-8 to 5.6e-6; the controls 6.8e-5 and above
+# but K14's dv with key lengths (1.8e-6, 2.4e-6).
+def bf16_attention_case(b, h, length, maxlen, device, seed, d):
+    q, k, v, table, dout = attention_train_case(b, h, length, maxlen,
+                                                device, seed, d)
+    return [a.to(BF16).contiguous() for a in (q, k, v, table, dout)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,p", [(16, 0.05), (32, 0.1)])
+@pytest.mark.parametrize("lens", [None, (500, 438, 375, 1)])
+@pytest.mark.parametrize("split", [0, 1, 2, 4])
+def test_attention_train_bf16_kernels_match_plain(cuda_device, d, p, lens,
+                                                  split):
+    """K13's and K14's bfloat16 instances at [4, 8, 500, d] (PERF.md
+    section 6's shapes), with and without key lengths, K13 at every
+    split (0: its rule's)."""
+    b, h, length, maxlen, seed = 4, 8, 500, 2000, 77
+    q, k, v, table, dout = bf16_attention_case(b, h, length, maxlen,
+                                               cuda_device, length + d, d)
+    tl = None if lens is None else torch.tensor(lens, device=cuda_device)
+    key_len = (torch.full((b,), length, dtype=torch.int32, device=cuda_device)
+               if tl is None else tl.to(torch.int32))
+    out, out32, row_max, row_sum = check_bf16_launches(
+        [attention_train_fwd], "bf16",
+        lambda: attention_train_fwd_bf16(q, k, v, table, maxlen, seed, p,
+                                         key_len, split))
+    f32 = [a.float() for a in (q, k, v, table)]
+    assert_bf16_close(out, attention_train_plain(q, k, v, table, maxlen,
+                                                 seed, p, tl),
+                      control=attention_train_plain(*f32, maxlen, seed, p,
+                                                    tl).to(BF16))
+    assert_f32_close(out32, attention_train_plain(*f32, maxlen, seed, p, tl))
+    if split:
+        return
+    grads = check_bf16_launches(
+        [attention_train_bwd], "bf16",
+        lambda: attention_train_bwd(q, k, v, table, maxlen, seed, p, key_len,
+                                    out32, dout, row_max, row_sum))
+    ref = attention_train_bwd_plain(q, k, v, table, maxlen, seed, p, tl,
+                                    dout)
+    ctl = attention_train_bwd_plain(*f32, maxlen, seed, p, tl, dout.float())
+    for name, g, r, c in zip(("dq", "dk", "dv", "dtable"), grads, ref, ctl):
+        print(name, end=": ")
+        assert_bf16_close(g, r, BF16_SUM_MEAN)
+        # the control is further from the plain version than the kernel
+        assert bf16_errors(c.to(BF16), r)[1] > bf16_errors(g, r)[1], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32])
+def test_flash_relpos_attention_train_bf16_route(cuda_device, d):
+    """``flash_relpos_attention_train`` on bfloat16 tensors under autograd
+    takes K13's and K14's bfloat16 instances: bfloat16 gradients equal to
+    K14's on K13's outputs, and a "single"-style eval call (key lengths,
+    p 0) launches K13's bfloat16 instance alone."""
+    b, h, length, maxlen = 2, 8, 300, 64
+    q, k, v, table, dout = bf16_attention_case(b, h, length, maxlen,
+                                               cuda_device, 5, d)
+    leaves = [a.clone().requires_grad_() for a in (q, k, v, table)]
+    fwd = attention_train_fwd.instance_launches.get("bf16", 0)
+    bwd = attention_train_bwd.instance_launches.get("bf16", 0)
+    out = flash_relpos_attention_train(*leaves, 9, maxlen, 0.1)
+    out.backward(dout)
+    assert out.dtype == BF16
+    assert all(a.grad.dtype == BF16 for a in leaves)
+    assert attention_train_fwd.instance_launches["bf16"] == fwd + 1
+    assert attention_train_bwd.instance_launches["bf16"] == bwd + 1
+    key_len = torch.full((b,), length, dtype=torch.int32, device=cuda_device)
+    o, o32, rmax, rsum = attention_train_fwd_bf16(q, k, v, table, maxlen, 9,
+                                                  0.1, key_len)
+    want = attention_train_bwd(q, k, v, table, maxlen, 9, 0.1, key_len, o32,
+                               dout, rmax, rsum)
+    for a, w in zip(leaves, want):
+        assert torch.equal(a.grad, w)
+    lens = torch.tensor([300, 17], device=cuda_device)
+    with torch.no_grad():
+        got = flash_relpos_attention_train(q, k, v, table, 0, maxlen, 0.0,
+                                           lens)
+    assert_bf16_close(got, attention_train_plain(q, k, v, table, maxlen, 0,
+                                                 0.0, lens))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [128, 256])
+@pytest.mark.parametrize("b,t", [(4, 8000), (3, 77), (3, 65), (1, 128)])
+def test_cla_bf16_kernel_matches_plain(cuda_device, f, b, t):
+    """K15's bfloat16 instances at Base's and Large's widths: [4, 8000, F]
+    and the float32 tests' tile edges."""
+    gen = torch.Generator().manual_seed(t + f)
+    x = torch.randn(b, t, f, generator=gen).to(cuda_device, BF16)
+    params = cla_params(gen, f, 65, cuda_device)
+    with torch.no_grad():
+        got = check_bf16_launch(fused_cla, "bf16",
+                                lambda: fused_cla(x, params, 1e-5))
+    assert_bf16_close(got, cla_plain(x, params, 1e-5),
+                      control=cla_plain(x.float(), params, 1e-5).to(BF16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [128, 256])
+@pytest.mark.parametrize("b,t,length", [(4, 8000, 500), (2, 77, 77),
+                                        (2, 124, 62), (3, 125, 125)])
+def test_pair_bf16_kernel_matches_plain(cuda_device, f, b, t, length):
+    """K16's bfloat16 instances at Base's and Large's widths: [4, 8000, F]
+    at r = 16 and the float32 tests' tile edges; under autograd a
+    bfloat16 call raises, as the JAX package's VJP does."""
+    gen = torch.Generator().manual_seed(t + length + f)
+    x = torch.randn(b, t, f, generator=gen).to(cuda_device, BF16)
+    xd = torch.randn(b, length, f, generator=gen).to(cuda_device, BF16)
+    gate, gcfn = pair_params(gen, f, cuda_device)
+    with torch.no_grad():
+        got = check_bf16_launch(
+            fused_ega_tail_gcfn, "bf16",
+            lambda: fused_ega_tail_gcfn(x, xd, gate, gcfn, 1e-5))
+    assert_bf16_close(got, ega_tail_gcfn_plain(x, xd, gate, gcfn, 1e-5),
+                      control=ega_tail_gcfn_plain(
+                          x.float(), xd.float(), gate, gcfn, 1e-5).to(BF16))
+    before = fused_ega_tail_gcfn.instance_launches["bf16"]
+    with pytest.raises(NotImplementedError, match="no bfloat16 gradient"):
+        fused_ega_tail_gcfn(x.clone().requires_grad_(), xd, gate, gcfn, 1e-5)
+    assert fused_ega_tail_gcfn.instance_launches["bf16"] == before
 
 
 # The bfloat16 instances of K7/K8 and K9/K10 (training) against their

@@ -105,7 +105,7 @@ def test_k15_f256_plan():
     for text in ("return bytes <= kTwoBlocks ? 2 : 1;",
                  "__launch_bounds__(kThreads, GluShape<F>::blocks_per_sm)",
                  "__launch_bounds__(kThreads, TailShape<F>::blocks_per_sm)",
-                 "if (F == 256) return run(launch<256>);"):
+                 "if (F == 256) return run(launch<256, In>);"):
         assert text in CLA, text
 
 
@@ -118,7 +118,7 @@ def test_k16_f256_plan():
     assert large["held"] == 64
     assert "static constexpr int y = y_over_wo ? wo : wi;" in TILE
     assert "gcfn_mma::Shape<F>::blocks_per_sm)" in PAIR
-    assert "if (F == 256) return run(launch<256>);" in PAIR
+    assert "if (F == 256) return run(launch<256, In>);" in PAIR
 
 
 def fma32(a, b, c):
