@@ -74,6 +74,14 @@ Phases, each of which fails the run:
                at each split at [2, 8, 500, 32] and [4, 8, 500, 32] (the
                split rule's choice), and at the "pallas" step's encoder
                [2, 8, 500, 32] and the "single" serve's [8, 8, 500, 32].
+               Then the float32 instances at the T, S and M presets'
+               widths, at the shapes their serving path gives them, each
+               against its plain version (K2 bit-equal) and bit-equal on
+               a repeat call, with its times, bound, library call, blocks
+               per SM, registers and spills: K1 at [4, 8000, F] for F 64,
+               96 and 160, and at head widths 8, 12 and 20 K2 at [512, d,
+               512] from a [4000, d] table, K3 at [8, 8, 512, 512]
+               (ragged) and K12 at [2, 8750, 8 d].
 3. serve     - Base at full width, seeded weights: three requests through
                ``Separator.__call__`` and one batched B=4 x 4 s forward
                with ragged lengths; every eval kernel's count must rise.
@@ -287,6 +295,21 @@ Phases, each of which fails the run:
                and 32; at 16 the three pairings) against their plain
                versions, bit-equal on repeat, with their times, bounds
                and K8's time by launch.
+15. tsm      - ``SepReformer_T``, ``_S`` and ``_M`` at full width and
+               depth (F 64, 96, 160 in 8 heads of 8, 12, 20; 4 stages,
+               enc_dim 256), float32, seeded weights, every LayerScale at
+               0.5: for each, a 1 s request card against CPU (phase 5's
+               limit, a TF32 control), a ragged B=4 x 4 s batch through
+               ``Separator.separate`` (56 K1, 1 K2 and 22 K3 a forward at
+               the preset's widths and no other kernel; wall times, one
+               traced forward), and a 70 s request in full context (22
+               K12, no K2 or K3) against the dense route with the switch
+               raised (phase 5's limit; controls: TF32 allowed, K12
+               without the bias); then ``infer_sample`` of the 70 s wav
+               through ``cli.main --model SepReformer_T``, a T train step
+               that raises naming ROADMAP "T/S/M" (no train kernel is
+               built at these widths) and a bfloat16 T forward that
+               raises naming "bfloat16 streams".
 
 Prints one JSON line of kernel results, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -550,12 +573,21 @@ def kernel_phase(torch, K, device_ms):
     from sepreformer_torch.ops.kernels.depthwise import (
         occupancy as depthwise_occupancy,
     )
+    from sepreformer_torch.ops.kernels.flash_attention import (
+        occupancy as flash_occupancy,
+    )
+    from sepreformer_torch.ops.kernels.gcfn import (
+        occupancy as gcfn_occupancy,
+    )
     from sepreformer_torch.ops.kernels.pit import (
         empty_launch as pit_empty_launch,
     )
     from sepreformer_torch.ops.kernels.pit import occupancy as pit_occupancy
     from sepreformer_torch.ops.kernels.softmax_pv import (
         occupancy as softmax_pv_occupancy,
+    )
+    from sepreformer_torch.ops.kernels.softmax_pv import (
+        width_occupancy as softmax_pv_width_occupancy,
     )
     from sepreformer_torch.ops.kernels.softmax_pv_train import (
         bwd_blocks_per_sm,
@@ -1083,6 +1115,21 @@ def kernel_phase(torch, K, device_ms):
     # and the "pallas" train step's K13/K14 at Large's head width
     attention_train_rows(torch, K, device_ms, randn, record, d=32, p=0.1,
                          instance="d=32")
+    # the float32 instances at the T, S and M presets' widths (F 64, 96,
+    # 160 in 8 heads of 8, 12, 20), at the shapes their serving path gives
+    # them, each with its blocks per SM, registers and spills: K1 at [4,
+    # 8000, F], K2 at [512, d, 512] from a [4000, d] table, K3 at [8, 8,
+    # 512, 512], K12 at [2, 8750, 8 d]
+    torch.cuda.empty_cache()
+    for f, d in ((f, d) for _, f, d in TSM):
+        gcfn_row(f, instance=f"F={f}")
+        print_occupancy({f"K1 F={f}": gcfn_occupancy(f)})
+        relpos_rows(d, (512,), instance=f"d={d}")
+        softmax_pv_row(d, instance=f"d={d}")
+        print_occupancy(softmax_pv_width_occupancy(d))
+        flash_kernel_row(torch, K, device_ms, randn, record, d=d)
+        print_occupancy({f"K12 d={d}": flash_occupancy(d)})
+        torch.cuda.empty_cache()
     # the bfloat16 instances of K1, K3 and K12 at the shapes above, and
     # those of K7/K8 and K9/K10 at their train rows' shapes
     torch.cuda.empty_cache()
@@ -4069,6 +4116,68 @@ def fused_phase(torch, np, sep_torch, K, busy_us, kernel_events, iters=10,
 LARGE = "SepReformer_Large_DM_WSJ0"
 
 
+def k12_against_dense(torch, np, K, run, request, attentions, tag):
+    """A 70 s request in full context (``request()``, separated audio as
+    numpy) through K12 in every global attention (``attentions``) and no
+    K2 or K3, twice on the main path; then with the switch raised, on the
+    dense K2/K3 route, off it: the K12 route within ``CPU_REL_LIMIT`` of
+    max|out| of the dense one, with controls that the limit must catch:
+    TF32 allowed (the cuBLAS and cuDNN products), and K12 without the
+    rel-pos bias.  ``run(label, fn, seconds, main_path)`` runs ``fn``
+    with the counts at 0 and returns (its result, the counts)."""
+    from sepreformer_torch.models import blocks
+
+    for label in ("70 s full context, K12 route (first call)",
+                  "70 s full context, K12 route"):
+        flash, counts = run(label, request, LONG_SECONDS)
+        assert counts["flash_relpos_attention"] == attentions, counts
+        assert counts["materialize_pos_kt"] == counts["softmax_pv"] == 0
+    saved = blocks.FUSED_PV_MAX_LENGTH
+    blocks.FUSED_PV_MAX_LENGTH = 10 ** 9
+    try:
+        dense, counts = run("70 s full context, dense K2/K3 route (switch "
+                            "raised)", request, LONG_SECONDS,
+                            main_path=False)
+    finally:
+        blocks.FUSED_PV_MAX_LENGTH = saved
+    assert counts["flash_relpos_attention"] == 0
+    assert counts["materialize_pos_kt"] == 1
+    assert counts["softmax_pv"] == attentions
+    scale = float(np.abs(dense).max())
+    errs = {"float32": float(np.abs(flash - dense).max()) / scale}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        control, _ = run("70 s full context, K12 route, TF32 allowed",
+                         request, LONG_SECONDS, main_path=False)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    errs["control, TF32 allowed"] = float(
+        np.abs(control - dense).max()) / scale
+    k12_route = blocks.flash_relpos_attention
+    blocks.flash_relpos_attention = (
+        lambda q, k, v, table, maxlen, lens: K.flash_relpos_attention(
+            q, k, v, torch.zeros_like(table), maxlen, lens))
+    try:
+        control, counts = run("70 s full context, control, K12 without the "
+                              "bias", request, LONG_SECONDS,
+                              main_path=False)
+    finally:
+        blocks.flash_relpos_attention = k12_route
+    assert counts["flash_relpos_attention"] == attentions
+    errs["control, K12 without the bias"] = float(
+        np.abs(control - dense).max()) / scale
+    for label, e in errs.items():
+        print(f"[{tag}] K12 route against the dense route, {label}: max |d| "
+              f"/ max|out| {e:.3e} (max|out| {scale:.3f}), limit "
+              f"{CPU_REL_LIMIT:.1e}")
+    assert errs["float32"] <= CPU_REL_LIMIT, "K12 route disagrees"
+    for label, e in errs.items():
+        assert label == "float32" or e > CPU_REL_LIMIT, (
+            f"the limit does not catch the {label}")
+
+
 def large_phase(torch, np, sep_torch, K, busy_us, kernel_events):
     """Phase 12: the Large family served at full width (F 256, 8 heads of
     32, 4 stages, enc_dim 256), seeded weights, every LayerScale at 0.5,
@@ -4086,7 +4195,6 @@ def large_phase(torch, np, sep_torch, K, busy_us, kernel_events):
 
     from sepreformer_torch import cli
     from sepreformer_torch.data.audio import read_wav, write_wav
-    from sepreformer_torch.models import blocks
 
     t0 = time.perf_counter()
     sep = sep_torch.load_separator(LARGE, device="cuda", seed=0)
@@ -4179,63 +4287,11 @@ def large_phase(torch, np, sep_torch, K, busy_us, kernel_events):
                 K.launch_counts(), "B=4 x 4 s forward")
 
     # c. 70 s in full context: K12 at head width 32 in every global
-    #    attention, no pos_kt; against the dense K2/K3 route (switch
-    #    raised), with controls that the limit must catch: TF32 allowed
-    #    (the cuBLAS and cuDNN products), and K12 without the rel-pos bias
+    #    attention, no pos_kt; against the dense K2/K3 route
     n70 = int(LONG_SECONDS * SAMPLE_RATE)
     wav70 = (rng.normal(size=n70) * 0.1).astype(np.float32)
-    for label in ("70 s full context, K12 route (first call)",
-                  "70 s full context, K12 route"):
-        flash, counts = run(label, lambda: separated(sep, wav70),
-                            LONG_SECONDS)
-        assert counts["flash_relpos_attention"] == attentions
-        assert counts["materialize_pos_kt"] == counts["softmax_pv"] == 0
-    saved = blocks.FUSED_PV_MAX_LENGTH
-    blocks.FUSED_PV_MAX_LENGTH = 10 ** 9
-    try:
-        dense, counts = run("70 s full context, dense K2/K3 route (switch "
-                            "raised)", lambda: separated(sep, wav70),
-                            LONG_SECONDS, main_path=False)
-    finally:
-        blocks.FUSED_PV_MAX_LENGTH = saved
-    assert counts["flash_relpos_attention"] == 0
-    assert counts["materialize_pos_kt"] == 1
-    assert counts["softmax_pv"] == attentions
-    scale = float(np.abs(dense).max())
-    errs = {"float32": float(np.abs(flash - dense).max()) / scale}
-    torch.backends.cuda.matmul.allow_tf32 = True
-    torch.backends.cudnn.allow_tf32 = True
-    try:
-        control, _ = run("70 s full context, K12 route, TF32 allowed",
-                         lambda: separated(sep, wav70), LONG_SECONDS,
-                         main_path=False)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    errs["control, TF32 allowed"] = float(
-        np.abs(control - dense).max()) / scale
-    k12_route = blocks.flash_relpos_attention
-    blocks.flash_relpos_attention = (
-        lambda q, k, v, table, maxlen, lens: K.flash_relpos_attention(
-            q, k, v, torch.zeros_like(table), maxlen, lens))
-    try:
-        control, counts = run("70 s full context, control, K12 without the "
-                              "bias", lambda: separated(sep, wav70),
-                              LONG_SECONDS, main_path=False)
-    finally:
-        blocks.flash_relpos_attention = k12_route
-    assert counts["flash_relpos_attention"] == attentions
-    errs["control, K12 without the bias"] = float(
-        np.abs(control - dense).max()) / scale
-    for label, e in errs.items():
-        print(f"[large] K12 route against the dense route, {label}: max |d| "
-              f"/ max|out| {e:.3e} (max|out| {scale:.3f}), limit "
-              f"{CPU_REL_LIMIT:.1e}")
-    assert errs["float32"] <= CPU_REL_LIMIT, "K12 route disagrees"
-    for label, e in errs.items():
-        assert label == "float32" or e > CPU_REL_LIMIT, (
-            f"the limit does not catch the {label}")
-    del flash, dense, control
+    k12_against_dense(torch, np, K, run, lambda: separated(sep, wav70),
+                      attentions, "large")
 
     # d. 300 s in 8 s chunks: K1, K2 and K3, no K12
     n300 = int(LONGEST_SECONDS * SAMPLE_RATE)
@@ -4542,6 +4598,212 @@ def large_pallas(torch, np, sep_torch, K, variant, busy_us, total, gcfns,
         total[name] += n
     single_against_default(torch, np, sep_torch, K, busy_us, variant, rng,
                            "large single", attentions, total)
+
+
+# the T, S and M presets: (name, F, head width)
+TSM = (("SepReformer_T", 64, 8), ("SepReformer_S", 96, 12),
+       ("SepReformer_M", 160, 20))
+# their phase-2 rows' instance suffixes, whose launches phase 15 counts
+TSM_INSTANCES = {f"F={f}" for _, f, _ in TSM} | {f"d={d}" for *_, d in TSM}
+
+
+def tsm_phase(torch, np, sep_torch, K, busy_us, kernel_events):
+    """Phase 15: the T, S and M presets served at full width and depth
+    (F 64, 96, 160 in 8 heads of 8, 12, 20; 4 stages, enc_dim 256), float32,
+    seeded weights, every LayerScale at 0.5, through the entry points.
+    For each: a 1 s request card against CPU (phase 5's limit, a TF32
+    control); a ragged B=4 x 4 s batch through ``Separator.separate``
+    (56 K1, 1 K2 and 22 K3 a forward and no other kernel; wall times,
+    one traced forward: busy, launches, idle share); a 70 s request in
+    full context (22 K12, no K2 or K3) against the dense K2/K3 route with
+    the switch raised (phase 5's limit; controls: TF32 allowed, K12
+    without the bias).  Then for T: ``infer_sample`` of the 70 s wav
+    through ``cli.main --model SepReformer_T``; a train step, which
+    raises naming ROADMAP "T/S/M" (no train kernel is built at these
+    widths); a bfloat16 forward, which raises naming "bfloat16 streams".
+    Returns the launches over the main-path runs by phase-2 row name."""
+    import tempfile
+
+    from sepreformer_torch import cli
+    from sepreformer_torch.config import apply_override
+    from sepreformer_torch.data.audio import read_wav, write_wav
+    from sepreformer_torch.engine import create_train_state, train_step
+
+    rows = defaultdict(int)
+    rng = np.random.default_rng(15)
+    n70 = int(LONG_SECONDS * SAMPLE_RATE)
+    wav70 = (rng.normal(size=n70) * 0.1).astype(np.float32)
+    wav1 = (rng.normal(size=SAMPLE_RATE) * 0.1).astype(np.float32)
+    lengths = [32000, 28000, 24000, 20000]
+    batch = np.zeros((4, 32000), np.float32)
+    for i, n in enumerate(lengths):
+        batch[i, :n] = rng.normal(size=n) * 0.1
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+
+    def separated(separator, wav):
+        out = np.stack(separator(wav))
+        assert out.shape == (2, len(wav)), out.shape
+        assert np.isfinite(out).all(), "non-finite audio"
+        return out
+
+    def count(widths, counts):
+        for wrapper, row in widths.items():
+            rows[row] += counts.get(wrapper, 0)
+
+    for name, f, d in TSM:
+        tag = f"tsm {name[-1]}"
+        widths = {"fused_gcfn": f"fused_gcfn F={f}",
+                  "materialize_pos_kt": f"materialize_pos_kt d={d}",
+                  "softmax_pv": f"softmax_pv d={d}",
+                  "flash_relpos_attention": f"flash_relpos_attention d={d}"}
+
+        def run(label, fn, seconds, main_path=True):
+            """``fn()`` with every count at 0 just before and read just
+            after, on the host clock, with the call's peak memory."""
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = K.launch_counts()
+            if main_path:
+                count(widths, counts)
+            print(f"[{tag}] {label}: {dt:.3f} s wall, {seconds / dt:.2f} "
+                  f"audio-s/s, max_memory_allocated "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+                  f"launches { {n: c for n, c in counts.items() if c} }")
+            return out, counts
+
+        t0 = time.perf_counter()
+        sep = sep_torch.load_separator(name, device="cuda", seed=0)
+        model, variant = layer_scales_at(torch, sep.model), sep.variant
+        cfg = variant.model
+        assert (cfg.feat_dim, cfg.num_heads, cfg.head_dim, cfg.num_stages,
+                cfg.enc_dim) == (f, 8, d, 4, 256)
+        print(f"[{tag}] {name} built in {time.perf_counter() - t0:.2f} s, "
+              f"{sum(p.numel() for p in model.parameters())} parameters: F "
+              f"{f}, 8 heads of {d}, 4 stages, enc_dim 256")
+
+        # a. a 1 s request on the card against the CPU, a TF32 control
+        card_against_cpu(torch, np, sep_torch, variant, model, wav1, tag)
+
+        # b. the ragged batch: K1 in every GCFN, K2 once, K3 in every
+        #    global attention, and no other kernel
+        sep.separate(batch, lengths)
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            sep.separate(batch, lengths)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        seconds = sum(lengths) / SAMPLE_RATE
+        print(f"[{tag}] batch B=4 x 4 s (lengths {lengths}) over 5 "
+              f"forwards, ms: {[round(t, 2) for t in walls]}; "
+              f"{seconds / (statistics.median(walls) / 1e3):.2f} audio-s/s "
+              f"at the median")
+        audio, counts = run("batch B=4 x 4 s", lambda: sep.separate(
+            batch, lengths), seconds)
+        assert tuple(audio.shape) == (2, 4, 32000), tuple(audio.shape)
+        assert torch.isfinite(audio).all().item(), "non-finite audio"
+        ours = {n: c for n, c in counts.items() if c}
+        assert ours == {"fused_gcfn": 56, "materialize_pos_kt": 1,
+                        "softmax_pv": 22}, ours
+        del audio
+        K.reset_launches()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            sep.separate(batch, lengths)
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+        ours = {n: c for n, c in K.launch_counts().items() if c}
+        count(widths, ours)
+        kernels = kernel_events(prof)
+        print_trace(tag, kernels, busy_us(kernels), window_us, ours,
+                    "B=4 x 4 s forward")
+        del prof
+
+        # c. 70 s in full context: K12 at the preset's head width in every
+        #    global attention, no pos_kt; against the dense K2/K3 route
+        k12_against_dense(torch, np, K, run, lambda: separated(sep, wav70),
+                          22, tag)
+        del sep, model
+        torch.cuda.empty_cache()
+
+    # d. T's 70 s wav through the CLI's infer_sample, in full context
+    name, f, d = TSM[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "long70.wav")
+        write_wav(path, wav70, SAMPLE_RATE)
+        out_dir = os.path.join(tmp, "out")
+        args = ["--model", name, "--engine-mode", "infer_sample",
+                "--sample-file", path, "--workdir",
+                os.path.join(tmp, "work"), "--out-wav-dir", out_dir]
+        K.reset_launches()
+        t0 = time.perf_counter()
+        status = cli.main(args)
+        torch.cuda.synchronize()
+        ours = {n: c for n, c in K.launch_counts().items() if c}
+        count({"fused_gcfn": f"fused_gcfn F={f}",
+               "flash_relpos_attention": f"flash_relpos_attention d={d}"},
+              ours)
+        print(f"[tsm T] cli infer_sample, 70 s wav (with the model's "
+              f"set-up): {time.perf_counter() - t0:.3f} s wall; launches "
+              f"{ours}")
+        assert status == 0
+        assert ours.get("flash_relpos_attention") == 22, ours
+        for i in range(2):
+            x, rate = read_wav(os.path.join(out_dir, f"long70_out_{i}.wav"))
+            assert rate == SAMPLE_RATE and x.shape == (n70,), x.shape
+            assert np.isfinite(x).all() and np.abs(x).max() > 0.5
+
+    # e. what later slices build raises before it launches: a T train step
+    #    (no train kernel at these widths) and a bfloat16 T forward (no
+    #    bfloat16 instance at these widths)
+    variant = sep_torch.get_variant(name)
+    state = create_train_state(variant, device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+    mix, src = synthetic_batch(torch, np, rng, 2, SAMPLE_RATE)
+    before = [p.detach().clone() for p in state.model.parameters()]
+    K.reset_launches()
+    try:
+        train_step(state, mix.cuda(), src.cuda(), 1e-3, 0.4,
+                   torch.Generator())
+    except ValueError as exc:
+        assert "queue A, T/S/M" in str(exc), exc
+        print(f"[tsm T] a train step refused: {exc}")
+    else:
+        raise AssertionError("a T train step ran")
+    launched = {n: c for n, c in K.launch_counts().items() if c}
+    print(f"[tsm T] launches before the refusal: {launched}")
+    assert not any(n.startswith(("gcfn_train", "softmax_pv_train",
+                                 "attention_train")) for n in launched)
+    assert all(torch.equal(a, b) for a, b in zip(
+        before, state.model.parameters())), "the refusal moved a parameter"
+    del state
+    bf16 = sep_torch.load_separator(
+        apply_override(variant, "model.compute_dtype", "bfloat16"),
+        device="cuda", seed=0)
+    K.reset_launches()
+    try:
+        bf16(wav1)
+    except ValueError as exc:
+        assert "queue B, bfloat16 streams" in str(exc), exc
+        print(f"[tsm T] a bfloat16 forward refused: {exc}")
+    else:
+        raise AssertionError("a bfloat16 T forward ran")
+    launched = {n: c for n, c in K.launch_counts().items() if c}
+    assert not any("bf16" in n for n in launched), launched
+    del bf16
+    torch.cuda.empty_cache()
+    missing = [row for row, n in rows.items() if not n]
+    assert not missing, f"instances never launched: {missing}"
+    print(f"[tsm] launches over the phase's main-path runs: {dict(rows)}")
+    return dict(rows)
 
 
 BASE = "SepReformer_Base_WSJ0"
@@ -5499,13 +5761,16 @@ def main() -> int:
     for row, n in (run("bf16_train", bf16_train_phase, torch, np, sep_torch,
                        K, busy_us, kernel_events) or {}).items():
         bf16_counts[row] = bf16_counts.get(row, 0) + n
+    tsm_counts = run("tsm", tsm_phase, torch, np, sep_torch, K, busy_us,
+                     kernel_events) or {}
 
     # each kernel's launches on the main path of its slice: the eval
     # kernels' in serving, the train kernels' in training, K12's in
     # long-form serving, K6's, K13's and K14's on the routes, K15's and
     # K16's on the fused routes, the instances at Large's widths in Large's
     # serving and training, the bfloat16 instances in bfloat16 serving
-    # and training (phases 13 and 14);
+    # and training (phases 13 and 14), the instances at the T, S and M
+    # presets' widths in their serving (phase 15);
     # K4, on no path, its launches summed over every phase's main-path
     # runs, which must be 0
     main_paths = (counts, train_counts, long_counts, route_counts,
@@ -5514,6 +5779,8 @@ def main() -> int:
         name, _, instance = row["name"].partition(" ")
         row["launches"] = (bf16_counts.get(row["name"], 0)
                            if "bf16" in instance
+                           else tsm_counts.get(row["name"], 0)
+                           if instance in TSM_INSTANCES
                            else large_counts.get(name, 0) if instance
                            else counts.get(name, 0) if name in EVAL_KERNELS
                            else long_counts.get(name, 0)

@@ -17,11 +17,18 @@ are the JAX package's Base and Large families (``_large``: F=256, head
 width 32, dropout 0.1, lr 2e-4, dynamic mixing; ``Large_DM_WHAM`` with
 one speaker-split block per stage, ``per_stage_spk_split``); the Large
 family serves and trains on the card on every attention route (K13/K14
-at head width 32 on "pallas" and "single").  Not ported: the T, S and M
-presets (head widths 8, 12 and 20; ROADMAP "T/S/M"),
-``OptimConfig.flat_opt_state`` (a TPU lever the JAX package measured
-neutral), ``EngineConfig.steps_per_dispatch``, ``EngineConfig.dummy_len``
-(the startup summary) and the sharding settings (``parallel/``).
+at head width 32 on "pallas" and "single").  The T, S and M presets
+(F 64, 96 and 160 in 8 heads of 8, 12 and 20, enc_dim 256, 4 stages;
+Base's other fields) serve on the card on the default eval route (K1 at
+their widths, K2, K3 and K12 at their head widths, float32); their
+training and other routes raise naming ROADMAP "T/S/M", bfloat16 naming
+"bfloat16 streams".
+``ModelConfig.embed_v`` adds the rel-pos value table ``pe_v``, which
+exists and converts but is never read, as in the reference and the JAX
+package.  Not ported: ``OptimConfig.flat_opt_state`` (a TPU lever the
+JAX package measured neutral), ``EngineConfig.steps_per_dispatch``,
+``EngineConfig.dummy_len`` (the startup summary) and the sharding
+settings (``parallel/``).
 """
 
 from __future__ import annotations
@@ -57,6 +64,9 @@ class ModelConfig:
     feat_dim: int = 128           # F: separator width
     num_heads: int = 8
     pos_maxlen: int = 2000        # rel-pos table half-size
+    # a rel-pos value table pe_v beside pe_k: created and converted, never
+    # read (the reference's attention takes pos_k alone); no preset sets it
+    embed_v: bool = False
     local_kernel: int = 65        # CLA depthwise kernel
     down_kernel: int = 5          # DownConvLayer kernel
     dropout: float = 0.05         # Base 0.05 / Large 0.1
@@ -261,6 +271,15 @@ _PRESETS: Dict[str, VariantConfig] = {
     "SepReformer_Base_Libri2Mix": VariantConfig(
         "SepReformer_Base_Libri2Mix",
         dataset=DatasetConfig(scp_dir="data/scp_ss_8k_libri")),
+    # the paper's T, S and M sizes as the JAX package builds them: Base's
+    # variant with a whole new ModelConfig, so every other model field
+    # takes its default (the reference ships no configs for them)
+    "SepReformer_T": VariantConfig("SepReformer_T", model=ModelConfig(
+        feat_dim=64, enc_dim=256, num_stages=4)),
+    "SepReformer_S": VariantConfig("SepReformer_S", model=ModelConfig(
+        feat_dim=96, enc_dim=256, num_stages=4)),
+    "SepReformer_M": VariantConfig("SepReformer_M", model=ModelConfig(
+        feat_dim=160, enc_dim=256, num_stages=4)),
     # the Base block structure at a width and depth the CPU tests afford
     "tiny": VariantConfig("tiny", model=ModelConfig(
         num_stages=2, enc_dim=16, feat_dim=16, num_heads=2, pos_maxlen=64,
@@ -293,9 +312,6 @@ def from_reference_yaml(path: str | pathlib.Path,
     m = cfg["model"]
     sep = m["module_separator"]
     rel = sep["relative_positional_encoding"]
-    if rel.get("embed_v", False):
-        raise ValueError(
-            "embed_v is not ported (ROADMAP.md queue A, the other variants)")
     model = ModelConfig(
         num_stages=m["num_stages"],
         num_spks=m["num_spks"],
@@ -305,6 +321,7 @@ def from_reference_yaml(path: str | pathlib.Path,
         feat_dim=m["module_feature_projector"]["out_channels"],
         num_heads=rel["num_heads"],
         pos_maxlen=rel["maxlen"],
+        embed_v=rel.get("embed_v", False),
         local_kernel=sep["enc_stage"]["local_blocks"]["kernel_size"],
         down_kernel=sep["enc_stage"]["down_conv_layer"]["samp_kernel_size"],
         dropout=sep["enc_stage"]["global_blocks"]["dropout_rate"],

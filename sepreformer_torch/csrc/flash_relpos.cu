@@ -25,8 +25,10 @@
 // channels-last rows, without dropout or row statistics, in two
 // instances of the head width: Base's 16 (four blocks per SM) and
 // Large's 32 (92 KB of shared memory a block: two per SM; its products
-// per pair double, so its bound is about twice Base's).  The header holds
-// the tile's design and what holds it above its bound.
+// per pair double, so its bound is about twice Base's), and float32
+// instances at the T, S and M presets' 8, 12 and 20 (the tile's padded
+// plan: products at k = 8, 16 and 24).  The header holds the tile's
+// design and what holds it above its bound.
 //
 // bfloat16 streams (flash_relpos_bf16_kernel, q, k, v, the table and out
 // bfloat16, at both head widths): the tile's T = __nv_bfloat16 form, the
@@ -80,8 +82,9 @@ int entry(bool bf16, const void* q, const void* k, const void* v,
           const void* table, const void* lens, void* out, int B, int L,
           int H, int D, int maxlen, void* stream) {
   if (B <= 0 || L <= 0) return 0;
+  const bool tsm = D == 8 || D == 12 || D == 20;  // float32 alone
   if (H <= 0 || maxlen <= 0 || (long long)B * H > 65535 ||
-      (D != 16 && D != 32))
+      (D != 16 && D != 32 && !(tsm && !bf16)))
     return (int)cudaErrorInvalidValue;
   relpos_flash::Args a{};
   a.q = static_cast<const float*>(q);
@@ -97,16 +100,44 @@ int entry(bool bf16, const void* q, const void* k, const void* v,
   if (bf16)
     return D == 16 ? launch<16>(flash_relpos_bf16_kernel<16>, a, B, st)
                    : launch<32>(flash_relpos_bf16_kernel<32>, a, B, st);
+  switch (D) {
+    case 8: return launch<8>(flash_relpos_kernel<8>, a, B, st);
+    case 12: return launch<12>(flash_relpos_kernel<12>, a, B, st);
+    case 20: return launch<20>(flash_relpos_kernel<20>, a, B, st);
+  }
   return D == 16 ? launch<16>(flash_relpos_kernel<16>, a, B, st)
                  : launch<32>(flash_relpos_kernel<32>, a, B, st);
+}
+
+// The float32 instance at head width D: blocks per SM (at its shared
+// memory), registers, local (spill) bytes and warps per block, into
+// o[0 .. 3].
+template <int D>
+int occupancy(int* o) {
+  const auto kernel = flash_relpos_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Tile<D>::kSmemBytes);
+  if (err == cudaSuccess && Tile<D>::kMinBlocks < 4)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  o[1] = attr.numRegs;
+  o[2] = (int)attr.localSizeBytes;
+  o[3] = Tile<D>::kWarps;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      o, kernel, Tile<D>::kThreads, Tile<D>::kSmemBytes);
 }
 
 }  // namespace
 
 // q, k, v, out: device float32 [B, L, H*D] (16-byte aligned); table:
 // device float32 [2*maxlen, D]; lens: device int32 [B], each >= 1 (the
-// wrapper clamps them to L).  Built for Base's head width D = 16 and
-// Large's D = 32.
+// wrapper clamps them to L).  Built for Base's head width D = 16, Large's
+// D = 32 and the T, S and M presets' D = 8, 12 and 20.
 extern "C" int sep_flash_relpos_f32(const void* q, const void* k,
                                     const void* v, const void* table,
                                     const void* lens, void* out, int B, int L,
@@ -114,11 +145,25 @@ extern "C" int sep_flash_relpos_f32(const void* q, const void* k,
   return entry(false, q, k, v, table, lens, out, B, L, H, D, maxlen, stream);
 }
 
-// The same on bfloat16 q, k, v, table and out (16-byte aligned).
+// The same on bfloat16 q, k, v, table and out (16-byte aligned), at head
+// widths 16 and 32.
 extern "C" int sep_flash_relpos_bf16(const void* q, const void* k,
                                      const void* v, const void* table,
                                      const void* lens, void* out, int B,
                                      int L, int H, int D, int maxlen,
                                      void* stream) {
   return entry(true, q, k, v, table, lens, out, B, L, H, D, maxlen, stream);
+}
+
+// K12's float32 instance at a T, S or M preset's head width D (8, 12 or
+// 20): its blocks per SM, registers, local bytes and warps, into
+// out[0 .. 3].
+extern "C" int sep_flash_relpos_occupancy(int D, void* out) {
+  int* o = static_cast<int*>(out);
+  switch (D) {
+    case 8: return occupancy<8>(o);
+    case 12: return occupancy<12>(o);
+    case 20: return occupancy<20>(o);
+  }
+  return (int)cudaErrorInvalidValue;
 }

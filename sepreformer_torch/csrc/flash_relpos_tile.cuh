@@ -59,6 +59,22 @@
 // SPLIT 2 and 197 KB (one stage) at SPLIT 4, one, and P·V runs one chain
 // of fresh accumulators over its four output n-fragments.
 //
+// The T, S and M presets' head widths D = 8, 12 and 20 (K12's float32
+// instances alone) are not whole m16n8k8 steps: QKᵀ and Q·bandᵀ run at
+// k = Dp = 8 ceil(D / 8) (8, 16, 24) and P·V at Dp / 8 output
+// n-fragments.  Their k-step kk puts column 8 kk + 2t in slot t and
+// 8 kk + 2t + 1 in slot t + 4, so a lane's Q, K and band columns of a
+// k-step are one 8-byte load (Q's columns past D zero in registers); K
+// and the band are staged at stride 8 (D 8) or 24 (D 12, 20), where a
+// half-warp's 8-byte loads of four rows fall in 32 distinct banks, V at
+// Dp + 4 (12, 20, 28), where the scalar B reads do.  A row's D floats
+// are D / 4 16-byte pieces (every head's slice starts 16-byte aligned),
+// staged by a loop over the stage's pieces; the columns D .. Dp - 1 of
+// every staged K, V and band row are zeroed once, before the walk (the
+// products' k runs over them), and the output's columns past D are not
+// stored.  q, k, v and the table are not padded in memory: that would
+// copy them on every call.
+//
 // With SPLIT > 1 the row tile's warps meet at the end over the stage
 // buffers: warp 0 merges the others' (max, sums, output) in the order of
 // ks (the larger max, each side scaled by 2^(m_side - m)) and writes the
@@ -135,16 +151,27 @@ constexpr float kLn2 = 0.6931471805599453f;
 // A block's shape for SPLIT warps per row tile, at head width D.
 template <int SPLIT, int D>
 struct Shape {
-  static_assert(D == 16 || D == 32, "head widths 16 and 32");
-  static constexpr int kPerLane = D / 4;   // a lane's columns of a row
-  static constexpr int kLaneShift = D == 16 ? 2 : 3;  // log2(kPerLane)
-  static constexpr int kNN = D / 8;        // output n-fragments
-  static constexpr int kChains = D == 16 ? 2 : 1;  // P·V chains a tile
+  static_assert(D == 8 || D == 12 || D == 16 || D == 20 || D == 32,
+                "head widths 8, 12, 16, 20 and 32");
+  // Base's and Large's widths: whole k-steps of 16-byte lane loads (the
+  // T/S/M widths take the padded plan)
+  static constexpr bool kExact = D == 16 || D == 32;
+  static constexpr int kDp = (D + 7) / 8 * 8;  // the products' k and n
+  static constexpr int kPerLane = kDp / 4;  // a lane's columns of a row
+  static constexpr int kLaneShift = D == 16 ? 2 : 3;  // log2, kExact
+  static constexpr int kNN = kDp / 8;      // k-steps, output n-fragments
+  // P·V chains a tile: about four independent fragments (D 16: two
+  // chains of two; D 32: one of four)
+  static constexpr int kChains = kNN >= 3 ? 1 : 4 / kNN;
   // Row strides in floats.  K and the band are read as D / 16 16-byte
   // fragment loads per row and lane, conflict-free at stride 16 (D 16)
-  // and 36 (D 32: columns 8t .. 8t+3 of two rows 4 banks apart); V as
-  // scalars (rows 2t, 2t+1), conflict-free at D + 4.
-  static constexpr int kKS = D == 16 ? D : D + 4, kVS = D + 4;
+  // and 36 (D 32: columns 8t .. 8t+3 of two rows 4 banks apart), or (the
+  // T/S/M widths) as one 8-byte load per k-step, conflict-free at a
+  // stride of 8 or 24 mod 32; V as scalars (rows 2t, 2t+1),
+  // conflict-free at Dp + 4.
+  static constexpr int kKS = kExact ? (D == 16 ? D : D + 4)
+                                    : (kDp % 16 == 8 ? kDp : kDp + 8);
+  static constexpr int kVS = kDp + 4;
   static constexpr int kWarps = kRowTiles * SPLIT;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kStepKeys = kKeys * SPLIT;   // keys staged a step
@@ -169,7 +196,7 @@ struct Shape {
   static_assert(kMinBlocks >= 1 && kSmemBytes <= 227 * 1024,
                 "a block fits an SM");
   static constexpr int kRowStep = kThreads / kPerLane;  // rows a copy pass
-  static_assert(kStepKeys % kRowStep == 0,
+  static_assert(!kExact || kStepKeys % kRowStep == 0,
                 "each thread stages 16 bytes of every kRowStep-th key");
   // a split warp's state per lane: two maxes, two sums, its output
   static constexpr int kXch = 4 + 4 * kNN;
@@ -238,6 +265,10 @@ __device__ __forceinline__ void run(const Args& a) {
   static_assert(!kBf16 || (kHeadMajor && kDrop && kStats) ||
                     (!kHeadMajor && !kDrop && !kStats && SPLIT == 1),
                 "bfloat16: K12's one-pass tile, or K13's two-pass tile");
+  static_assert(S::kExact ||
+                    (!kBf16 && !kHeadMajor && !kDrop && !kStats &&
+                     SPLIT == 1),
+                "the T/S/M head widths: K12's float32 tile alone");
   // K13 in bfloat16: a statistics pass, then P·V on the normalised p
   constexpr bool kTwoPass = kBf16 && kHeadMajor;
   static_assert(!kTwoPass ||
@@ -314,6 +345,48 @@ __device__ __forceinline__ void run(const Args& a) {
       qb[kk][2] = __float_as_uint(qv[0][2 * kk + 1]);
       qb[kk][3] = __float_as_uint(qv[1][2 * kk + 1]);
     }
+  } else if constexpr (!S::kExact) {
+    // the T/S/M widths: k-step kk's columns 8 kk + 2t, 8 kk + 2t + 1 of
+    // rows g and g+8, zero past D (and past L)
+    float qv[2][kNN][2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = iw + g + 8 * r;
+#pragma unroll
+      for (int kk = 0; kk < kNN; ++kk) {
+        const int c = 8 * kk + 2 * t;
+        float2 x = make_float2(0.f, 0.f);
+        if (i < L && c < D)
+          x = *reinterpret_cast<const float2*>(a.q + head + (size_t)i * F +
+                                               c);
+        qv[r][kk][0] = x.x * a.scale_log2;
+        qv[r][kk][1] = x.y * a.scale_log2;
+      }
+    }
+    const float* top = a.table + (size_t)(2 * maxlen - 1) * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sh = 0.f, sl = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kNN; ++kk) {
+        const int c = 8 * kk + 2 * t;
+        if (c < D) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            sh = fmaf(qv[r][kk][q], top[c + q], sh);
+            sl = fmaf(qv[r][kk][q], a.table[c + q], sl);
+          }
+        }
+      }
+      hi[r] = quad_sum(sh);
+      lo[r] = quad_sum(sl);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kNN; ++kk) {
+      const float x[4] = {qv[0][kk][0], qv[1][kk][0], qv[0][kk][1],
+                          qv[1][kk][1]};
+      tf32x3::split(x, qb[kk], qs[kk]);
+    }
   } else {
     float qv[2][kPerLane];  // [row g, g+8][column c0 ..]
 #pragma unroll
@@ -389,6 +462,24 @@ __device__ __forceinline__ void run(const Args& a) {
                tb + (size_t)row * D + c8, true);
         }
       }
+    } else if constexpr (!S::kExact) {
+      // the T/S/M widths: the stage's D / 4 pieces a row, in turn
+      constexpr int kPer = D / 4;
+      for (int e = tid; e < S::kStepKeys * kPer; e += S::kThreads) {
+        const int r = e / kPer, c = 4 * (e - r * kPer), j = j0 + r;
+        const bool ok = j < lim;
+        const size_t off = head + (size_t)(ok ? j : 0) * F + c;
+        cp_async16(ks_ + r * kKS + c, a.k + off, ok);
+        cp_async16(vs_ + r * kVS + c, a.v + off, ok);
+      }
+      if (band_rows) {
+        for (int e = tid; e < S::kBand * kPer; e += S::kThreads) {
+          const int r = e / kPer, c = 4 * (e - r * kPer);
+          const int row = min(max(rel0 + r, -maxlen), maxlen - 1) + maxlen;
+          cp_async16(band + r * kKS + c, a.table + (size_t)row * D + c,
+                     true);
+        }
+      }
     } else {
 #pragma unroll
       for (int it = 0; it < S::kStepKeys / kRowStep; ++it) {
@@ -411,6 +502,22 @@ __device__ __forceinline__ void run(const Args& a) {
     }
     cp_async_commit();
   };
+  if constexpr (!S::kExact && D < S::kDp) {
+    // the staged K, V and band rows' columns D .. Dp - 1 (one 16-byte
+    // piece at D 12 and 20) are zero for the whole walk: no stage copy
+    // writes them
+    constexpr int kRowsA = 2 * S::kStepKeys + S::kBand;  // rows a stage
+    for (int e = tid; e < S::kStages * kRowsA; e += S::kThreads) {
+      const int st = e / kRowsA, r = e - st * kRowsA;
+      float* base = smem + st * S::kStage;
+      float* row = r < S::kStepKeys ? base + r * kKS
+                   : r < 2 * S::kStepKeys
+                       ? base + S::kStepKeys * kKS + (r - S::kStepKeys) * kVS
+                       : base + S::kStepKeys * (kKS + kVS) +
+                             (r - 2 * S::kStepKeys) * kKS;
+      *reinterpret_cast<float4*>(row + D) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
 
   // the hash's row halves, of rows bh * block + i for i = iw+g, iw+g+8
   uint32_t row_half[2] = {0u, 0u};
@@ -464,22 +571,33 @@ __device__ __forceinline__ void run(const Args& a) {
       for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+        if constexpr (!S::kExact) {  // the T/S/M widths
 #pragma unroll
-        for (int q4 = 0; q4 < kPerLane / 4; ++q4) {
-          if constexpr (kBf16) {
-            const float4 kk = load4_bf16(reinterpret_cast<const bf*>(ks_) +
-                                         (8 * nt + g) * kRS + c0 + 4 * q4);
-            const uint32_t b0[2] = {__float_as_uint(kk.x),
-                                    __float_as_uint(kk.y)};
-            const uint32_t b1[2] = {__float_as_uint(kk.z),
-                                    __float_as_uint(kk.w)};
-            tf32x3::mma(s[nt], qb[2 * q4], b0);
-            tf32x3::mma(s[nt], qb[2 * q4 + 1], b1);
-          } else {
-            const float4 kk = *reinterpret_cast<const float4*>(
-                ks_ + (8 * nt + g) * kKS + c0 + 4 * q4);
-            tf32x3::mma3(s[nt], qb[2 * q4], qs[2 * q4], kk.x, kk.y);
-            tf32x3::mma3(s[nt], qb[2 * q4 + 1], qs[2 * q4 + 1], kk.z, kk.w);
+          for (int kk = 0; kk < kNN; ++kk) {
+            const float2 kv = *reinterpret_cast<const float2*>(
+                ks_ + (8 * nt + g) * kKS + 8 * kk + 2 * t);
+            tf32x3::mma3(s[nt], qb[kk], qs[kk], kv.x, kv.y);
+          }
+        } else {
+#pragma unroll
+          for (int q4 = 0; q4 < kPerLane / 4; ++q4) {
+            if constexpr (kBf16) {
+              const float4 kk =
+                  load4_bf16(reinterpret_cast<const bf*>(ks_) +
+                             (8 * nt + g) * kRS + c0 + 4 * q4);
+              const uint32_t b0[2] = {__float_as_uint(kk.x),
+                                      __float_as_uint(kk.y)};
+              const uint32_t b1[2] = {__float_as_uint(kk.z),
+                                      __float_as_uint(kk.w)};
+              tf32x3::mma(s[nt], qb[2 * q4], b0);
+              tf32x3::mma(s[nt], qb[2 * q4 + 1], b1);
+            } else {
+              const float4 kk = *reinterpret_cast<const float4*>(
+                  ks_ + (8 * nt + g) * kKS + c0 + 4 * q4);
+              tf32x3::mma3(s[nt], qb[2 * q4], qs[2 * q4], kk.x, kk.y);
+              tf32x3::mma3(s[nt], qb[2 * q4 + 1], qs[2 * q4 + 1], kk.z,
+                           kk.w);
+            }
           }
         }
       }
@@ -499,22 +617,33 @@ __device__ __forceinline__ void run(const Args& a) {
 #pragma unroll
         for (int m = 0; m < kWarpBand / 8; ++m) {
           float c[4] = {0.f, 0.f, 0.f, 0.f};
+          if constexpr (!S::kExact) {  // the T/S/M widths
 #pragma unroll
-          for (int q4 = 0; q4 < kPerLane / 4; ++q4) {
-            if constexpr (kBf16) {
-              const float4 bb = load4_bf16(reinterpret_cast<const bf*>(band) +
-                                           (8 * m + g) * kRS + c0 + 4 * q4);
-              const uint32_t b0[2] = {__float_as_uint(bb.x),
-                                      __float_as_uint(bb.y)};
-              const uint32_t b1[2] = {__float_as_uint(bb.z),
-                                      __float_as_uint(bb.w)};
-              tf32x3::mma(c, qb[2 * q4], b0);
-              tf32x3::mma(c, qb[2 * q4 + 1], b1);
-            } else {
-              const float4 bb = *reinterpret_cast<const float4*>(
-                  band + (8 * m + g) * kKS + c0 + 4 * q4);
-              tf32x3::mma3(c, qb[2 * q4], qs[2 * q4], bb.x, bb.y);
-              tf32x3::mma3(c, qb[2 * q4 + 1], qs[2 * q4 + 1], bb.z, bb.w);
+            for (int kk = 0; kk < kNN; ++kk) {
+              const float2 bb = *reinterpret_cast<const float2*>(
+                  band + (8 * m + g) * kKS + 8 * kk + 2 * t);
+              tf32x3::mma3(c, qb[kk], qs[kk], bb.x, bb.y);
+            }
+          } else {
+#pragma unroll
+            for (int q4 = 0; q4 < kPerLane / 4; ++q4) {
+              if constexpr (kBf16) {
+                const float4 bb =
+                    load4_bf16(reinterpret_cast<const bf*>(band) +
+                               (8 * m + g) * kRS + c0 + 4 * q4);
+                const uint32_t b0[2] = {__float_as_uint(bb.x),
+                                        __float_as_uint(bb.y)};
+                const uint32_t b1[2] = {__float_as_uint(bb.z),
+                                        __float_as_uint(bb.w)};
+                tf32x3::mma(c, qb[2 * q4], b0);
+                tf32x3::mma(c, qb[2 * q4 + 1], b1);
+              } else {
+                const float4 bb = *reinterpret_cast<const float4*>(
+                    band + (8 * m + g) * kKS + c0 + 4 * q4);
+                tf32x3::mma3(c, qb[2 * q4], qs[2 * q4], bb.x, bb.y);
+                tf32x3::mma3(c, qb[2 * q4 + 1], qs[2 * q4 + 1], bb.z,
+                             bb.w);
+              }
             }
           }
           *reinterpret_cast<float2*>(wbias + g * kBS + 8 * m + 2 * t) =
@@ -791,6 +920,7 @@ __device__ __forceinline__ void run(const Args& a) {
     if (i < L) {
 #pragma unroll
       for (int nn = 0; nn < kNN; ++nn) {
+        if (!S::kExact && 8 * nn + 2 * t >= D) continue;  // padding
         const size_t off = head + (size_t)i * F + 8 * nn + 2 * t;
         bf16s::store2(reinterpret_cast<T*>(a.out) + off,
                       o[nn][2 * r] * inv, o[nn][2 * r + 1] * inv);

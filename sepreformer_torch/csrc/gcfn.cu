@@ -15,10 +15,13 @@
 //
 // Design: gcfn_tile_mma.cuh (shared with K7, the train forward): tiles of
 // 62 rows, the hidden width in chunks whose weights are staged in shared
-// memory, both products as 3xTF32 mma.sync.  Two instances: Base's
+// memory, both products as 3xTF32 mma.sync.  Float32 instances at Base's
 // F = 128 at two blocks per SM, and Large's F = 256 at one (its tile
 // takes 199 KB of shared memory, so the SM's eight warps are the block's
-// own and the GLU no longer overlaps another block's products).
+// own and the GLU no longer overlaps another block's products); and at
+// the T, S and M presets' F = 64, 96 and 160, the same tile, which needs
+// only F % 32 == 0 (F / 32 output n-fragments a warp, 3F / 32 chunks):
+// 71.5 and 92 KB, two blocks per SM, and 133 KB, one.
 //
 // The bfloat16 instances (x and out bfloat16, the parameters float32;
 // gcfn_bf16_kernel) take the JAX kernel's rounding steps for a bfloat16
@@ -72,6 +75,11 @@ gcfn_bf16_kernel(const __nv_bfloat16* __restrict__ x,
       eps, GcfnDrop{});
 }
 
+// sep_gcfn_f32's launch of the float32 instance at width F.
+#define SEP_GCFN_F32(F)                                                      \
+  launch<F>(gcfn_kernel<F>, f(x), l, f(lns), f(lnb), f(win), f(bin), f(wdw), \
+            f(bdw), f(wout), f(bout), f(ls), o, B, T, eps, s)
+
 template <int F, class In, class Kernel>
 int launch(Kernel kernel, const In* x, const int* lens, const float* lns,
            const float* lnb, const float* win, const float* bin,
@@ -97,8 +105,8 @@ int launch(Kernel kernel, const In* x, const int* lens, const float* lns,
 
 // Pointers are device pointers to contiguous float32 (lens: int32 [B] or
 // null).  win [F, 6F] and wout [3F, F] are [in, out]; wdw [6F, 3] is the
-// Conv1d weight [6F, 1, 3].  Built for Base's F = 128 and Large's
-// F = 256.
+// Conv1d weight [6F, 1, 3].  Built for Base's F = 128, Large's F = 256
+// and the T, S and M presets' F = 64, 96 and 160.
 extern "C" int sep_gcfn_f32(const void* x, const void* lens, const void* lns,
                             const void* lnb, const void* win, const void* bin,
                             const void* wdw, const void* bdw, const void* wout,
@@ -117,6 +125,11 @@ extern "C" int sep_gcfn_f32(const void* x, const void* lens, const void* lns,
     return launch<256>(gcfn_kernel<256>, f(x), l, f(lns), f(lnb), f(win),
                        f(bin), f(wdw), f(bdw), f(wout), f(bout), f(ls), o, B,
                        T, eps, s);
+  switch (F) {  // the T, S and M presets' widths
+    case 64: return SEP_GCFN_F32(64);
+    case 96: return SEP_GCFN_F32(96);
+    case 160: return SEP_GCFN_F32(160);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -142,5 +155,43 @@ extern "C" int sep_gcfn_bf16(const void* x, const void* lens,
     return launch<256>(gcfn_bf16_kernel<256>, xb, l, f(lns), f(lnb), f(win),
                        f(bin), f(wdw), f(bdw), f(wout), f(bout), f(ls), o, B,
                        T, eps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+namespace {
+
+// The float32 instance at width F: blocks per SM (at its shared memory),
+// registers, local (spill) bytes and warps per block, into o[0 .. 3].
+template <int F>
+int occupancy(int* o) {
+  const auto kernel = gcfn_kernel<F>;
+  constexpr size_t smem = gcfn_mma::Shape<F>::smem_bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  o[1] = attr.numRegs;
+  o[2] = (int)attr.localSizeBytes;
+  o[3] = kThreads / 32;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(o, kernel,
+                                                            kThreads, smem);
+}
+
+}  // namespace
+
+// K1's float32 instance at a T, S or M preset's width F: its blocks per
+// SM, registers, local bytes and warps, into out[0 .. 3].
+extern "C" int sep_gcfn_occupancy(int F, void* out) {
+  int* o = static_cast<int*>(out);
+  switch (F) {
+    case 64: return occupancy<64>(o);
+    case 96: return occupancy<96>(o);
+    case 160: return occupancy<160>(o);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -24,6 +24,10 @@
 // online softmax per quad of lanes, P·V on the tensor cores (3xTF32).
 // K3 and K3b have two instances of the tile's head width each, Base's 16
 // and Large's 32 (the scores' bytes are the same at both; V's double).
+// K3 also has float32 instances at the T, S and M presets' head widths 8,
+// 12 and 20, on the tile's padded plan (products at 8, 16 and 24, V's D
+// floats a row staged in 16-byte pieces, the pad columns zero): the
+// scores' bytes bound them as they bound the others.
 //
 // bfloat16 streams (softmax_pv_bf16_kernel, K3 alone): the scores in
 // float32 or bfloat16, V and the output in float32 or bfloat16, one
@@ -48,6 +52,18 @@ __global__ void __launch_bounds__(softmax_pv_tile::kThreads,
                                            : softmax_pv_tile::kMinBlocks)
 softmax_pv_kernel(Args a) {
   softmax_pv_tile::run<D, SPLIT, HAS_BIAS, false>(a);
+}
+
+// K3's float32 instance at head width D, at the split the tile's
+// launcher picks.
+template <int D>
+int launch_f32(const void* scores, const void* v, const void* lens,
+               void* out, int B, int H, int Lp, int F, int length,
+               void* stream) {
+  return softmax_pv_tile::launch<D>(
+      softmax_pv_kernel<D, 1, false>, softmax_pv_kernel<D, 2, false>, scores,
+      nullptr, v, lens, out, nullptr, nullptr, B, H, Lp, F, length, 0u, 0u,
+      1.f, stream);
 }
 
 template <int D, int SPLIT, class SC, class VT>
@@ -88,7 +104,8 @@ int launch_bf16(int scores_bf16, int v_bf16, const void* scores,
 
 // scores: device float32 [B, H, Lp, Lp]; v, out: [B, Lp, F] with F = H*D;
 // lens: device int32 [B], each >= 1; length: true length <= Lp.
-// Built for Base's head width D = 16 and Large's D = 32.
+// Built for Base's head width D = 16, Large's D = 32 and the T, S and M
+// presets' D = 8, 12 and 20.
 extern "C" int sep_softmax_pv_f32(const void* scores, const void* v,
                                   const void* lens, void* out, int B, int H,
                                   int Lp, int F, int length, void* stream) {
@@ -97,6 +114,16 @@ extern "C" int sep_softmax_pv_f32(const void* scores, const void* v,
         softmax_pv_kernel<32, 1, false>, softmax_pv_kernel<32, 2, false>,
         scores, nullptr, v, lens, out, nullptr, nullptr, B, H, Lp, F,
         length, 0u, 0u, 1.f, stream);
+  if (H > 0 && F % H == 0) {
+    switch (F / H) {  // the T, S and M presets' head widths
+      case 8: return launch_f32<8>(scores, v, lens, out, B, H, Lp, F,
+                                   length, stream);
+      case 12: return launch_f32<12>(scores, v, lens, out, B, H, Lp, F,
+                                     length, stream);
+      case 20: return launch_f32<20>(scores, v, lens, out, B, H, Lp, F,
+                                     length, stream);
+    }
+  }
   return softmax_pv_tile::launch<kBaseD>(
       softmax_pv_kernel<kBaseD, 1, false>,
       softmax_pv_kernel<kBaseD, 2, false>, scores, nullptr, v, lens, out,
@@ -163,4 +190,24 @@ extern "C" int sep_softmax_pv_occupancy(void* out) {
     err = softmax_pv_tile::occupancy(softmax_pv_kernel<32, 2, true>,
                                      o + 28);
   return (int)err;
+}
+
+// The occupancy of K3's float32 instance at a T, S or M preset's head
+// width D (8, 12 or 20) at SPLIT 1 and 2, into out[0 .. 7].
+extern "C" int sep_softmax_pv_width_occupancy(int D, void* out) {
+  int* o = static_cast<int*>(out);
+  auto both = [o](auto one, auto two) {
+    cudaError_t err = softmax_pv_tile::occupancy(one, o);
+    if (err == cudaSuccess) err = softmax_pv_tile::occupancy(two, o + 4);
+    return (int)err;
+  };
+  switch (D) {
+    case 8: return both(softmax_pv_kernel<8, 1, false>,
+                        softmax_pv_kernel<8, 2, false>);
+    case 12: return both(softmax_pv_kernel<12, 1, false>,
+                         softmax_pv_kernel<12, 2, false>);
+    case 20: return both(softmax_pv_kernel<20, 1, false>,
+                         softmax_pv_kernel<20, 2, false>);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -46,6 +46,18 @@
 // fall in 32 distinct banks: rows 4t + c sit 16 t banks apart), and a
 // thread stages 16 bytes of every 32nd row instead of every 64th.
 //
+// The T, S and M presets' head widths D = 8, 12 and 20 (K3 alone, float32)
+// are not whole n-fragments: the products run at Dp = 8 ceil(D / 8) (8,
+// 16, 24), Dp / 8 output n-fragments, and V's rows are staged in the
+// layout of width 16 (D 8, 12: stride 20) or 32 (D 20: stride 36) with
+// the same XOR 8, so the B fragments' reads keep their 32 distinct banks.
+// A row's D floats are D / 4 16-byte pieces (2, 3, 5; every head's slice
+// of V starts 16-byte aligned, 4 D being 32, 48 or 80 bytes), staged by
+// a loop over the stage's pieces (half a piece a thread at D 8, SPLIT 1;
+// 1.25 at D 20); the columns D .. Dp - 1 of every staged row are zeroed
+// once, before the walk, and the output's columns past D are not
+// stored.  V is not padded in memory: that would copy V on every call.
+//
 // SPLIT warps per row tile: with 1, a block holds 8 row tiles (128 rows),
 // each walked by one warp; with 2, 4 row tiles (64 rows), each walked by
 // two warps taking alternate key tiles, whose states merge at the end
@@ -97,18 +109,27 @@ constexpr int kMinBlocks = 2, kMinBlocksBias = 1;
 // key tiles n with n % SPLIT == the warp's), at head width D.
 template <int SPLIT, int D>
 struct Shape {
-  static_assert(D == 16 || D == 32, "head widths 16 and 32");
-  static constexpr int kNN = D / 8;                   // output n-fragments
-  static constexpr int kChains = D == 16 ? 2 : 1;     // P·V chains a tile
-  static constexpr int kVS = D + 4;     // staged V row stride in floats
+  static_assert(D == 8 || D == 12 || D == 16 || D == 20 || D == 32,
+                "head widths 8, 12, 16, 20 and 32");
+  // Base's and Large's widths: whole n-fragments, a fixed count of
+  // 16-byte pieces a thread (the T/S/M widths take the padded plan)
+  static constexpr bool kExact = D == 16 || D == 32;
+  static constexpr int kDp = (D + 7) / 8 * 8;         // the products' width
+  static constexpr int kNN = kDp / 8;                 // output n-fragments
+  // P·V chains a tile: about four independent fragments (D 16: two
+  // chains of two; D 32: one of four)
+  static constexpr int kChains = kNN >= 3 ? 1 : 4 / kNN;
+  // staged V row stride in floats: D + 4 at D 16 and 32; the T/S/M
+  // widths in the layout of width 16 or 32
+  static constexpr int kVS = (kDp <= 16 ? 16 : 32) + 4;
   static constexpr int kRowTiles = kWarps / SPLIT;
   static constexpr int kRows = 16 * kRowTiles;        // query rows a block
   static constexpr int kStepKeys = kKeys * SPLIT;     // keys staged a step
   static constexpr int kStage = kStepKeys * kVS;      // floats a V stage
   static constexpr int kPerRow = D / 4;               // 16-byte pieces a row
-  static constexpr int kRowShift = D == 16 ? 2 : 3;   // log2(kPerRow)
+  static constexpr int kRowShift = D == 16 ? 2 : 3;   // log2(kPerRow), kExact
   static constexpr int kPieces = kStepKeys * D / 4 / kThreads;  // copies
-  static_assert(kPieces * kThreads * 4 == kStepKeys * D,
+  static_assert(!kExact || kPieces * kThreads * 4 == kStepKeys * D,
                 "the threads stage a V stage in 16-byte pieces");
   // a split warp's state per lane: two maxes, two sums, its output
   static constexpr int kXch = 4 + 4 * kNN;
@@ -254,6 +275,9 @@ __device__ __forceinline__ void run(const Args& a) {
   constexpr bool kBf16V = std::is_same<VT, __nv_bfloat16>::value;
   static_assert(!HAS_BIAS || (std::is_same<SC, float>::value && !kBf16V),
                 "bfloat16: the one-tensor forms alone (K3, K9)");
+  static_assert(S::kExact || (!HAS_BIAS && !TRAIN && !kBf16V &&
+                              std::is_same<SC, float>::value),
+                "the T/S/M head widths: K3's float32 form alone");
   // K9 with a bfloat16 V also sums the unrounded weights' P·V, in
   // float32 (out32)
   constexpr bool kO32 = TRAIN && kBf16V;
@@ -304,7 +328,7 @@ __device__ __forceinline__ void run(const Args& a) {
                                            c8),
             ok);
       }
-    } else {
+    } else if constexpr (S::kExact) {
 #pragma unroll
       for (int it = 0; it < S::kPieces; ++it) {
         const int r = r0 + kThreads / S::kPerRow * it, j = j0 + r;
@@ -312,9 +336,28 @@ __device__ __forceinline__ void run(const Args& a) {
         tf32x3::cp_async16(&vs[buf][r * kVS + (c4 ^ (r & 8))],
                            vb + (size_t)(ok ? j : 0) * F + c4, ok);
       }
+    } else {
+      // the T/S/M widths: the stage's D / 4 pieces a row, in turn
+      constexpr int kTotal = kStepKeys * S::kPerRow;
+      for (int e = tid; e < kTotal; e += kThreads) {
+        const int r = e / S::kPerRow, c = 4 * (e - r * S::kPerRow);
+        const int j = j0 + r;
+        const bool ok = j < lim;
+        tf32x3::cp_async16(&vs[buf][r * kVS + (c ^ (r & 8))],
+                           vb + (size_t)(ok ? j : 0) * F + c, ok);
+      }
     }
     tf32x3::cp_async_commit();
   };
+  if constexpr (!S::kExact && D < S::kDp) {
+    // the staged rows' columns D .. Dp - 1 (one 16-byte piece at D 12 and
+    // 20) are zero for the whole walk: no stage copy writes them, and the
+    // split warps' states go over the stages only after the last read
+    for (int r = tid; r < 2 * kStepKeys; r += kThreads)
+      *reinterpret_cast<float4*>(&vs[r / kStepKeys][(r % kStepKeys) * kVS +
+                                                    (D ^ (r & 8))]) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+  }
 
   // the hash's row halves, of rows (b*H + h)*Lp + i for i = iw+g, iw+g+8
   const uint32_t row_half[2] = {
@@ -554,6 +597,7 @@ __device__ __forceinline__ void run(const Args& a) {
       VT* dst = reinterpret_cast<VT*>(a.out) + off;
 #pragma unroll
       for (int nn = 0; nn < kNN; ++nn) {
+        if (!S::kExact && 8 * nn + 2 * t >= D) continue;  // padding
         bf16s::store2(dst + 8 * nn, o[nn][2 * r] * inv,
                       o[nn][2 * r + 1] * inv);
         if constexpr (kO32)

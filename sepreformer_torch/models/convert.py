@@ -162,6 +162,9 @@ def mapping_entries(cfg: ModelConfig) -> List[Entry]:
     sep = ("separator",)
     out.append(Entry("identity", "params", sep + ("pos_emb", "pe_k"),
                      "separator.pos_emb.pe_k.weight"))
+    if cfg.embed_v:  # created and converted, never read
+        out.append(Entry("identity", "params", sep + ("pos_emb", "pe_v"),
+                         "separator.pos_emb.pe_v.weight"))
     for s in range(cfg.num_stages):
         _enc_stage(out, sep + (f"enc_{s}",), f"separator.enc_stages.{s}",
                    down=True)

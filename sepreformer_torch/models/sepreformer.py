@@ -103,7 +103,10 @@ class RelativePositionalEncoding(nn.Module):
     materializes pos_kt once, at the 128-padded attention length, through
     the K2 kernel (with its gradient), only where that route reads it:
     the K12 and K13 routes read the raw table, and then the table's
-    gradient comes from K14 alone."""
+    gradient comes from K14 alone.  With ``embed_v`` it also holds the
+    value table ``pe_v`` (reference module.py:50), which nothing reads:
+    the reference's attention takes pos_k alone, and so do both
+    packages."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -113,6 +116,8 @@ class RelativePositionalEncoding(nn.Module):
                                       cfg.attention_train_impl)
         self.scores_dtype = cfg.torch_dtype("scores_dtype")
         self.pe_k = nn.Embedding(2 * cfg.pos_maxlen, cfg.head_dim)
+        if cfg.embed_v:
+            self.pe_v = nn.Embedding(2 * cfg.pos_maxlen, cfg.head_dim)
 
     def forward(self, length: int, train=None,
                 has_key_lens: bool = False) -> RelPos:

@@ -11,7 +11,8 @@ as the JAX package's ``custom_vjp``s do.  K1, K3, K7-K10 and K12-K16
 also take bfloat16 streams (``ModelConfig.compute_dtype``), each through
 an instance of its own (K5 and K6 take float32 operands there, as in
 JAX), on every route; K16's bfloat16 form has no gradient, since the JAX
-package's raises.  The kernels on no route (K3b, K4, K9b, K10b) raise on
+package's raises.  At the T, S and M presets' widths K1, K3 and K12 are
+built, in float32 alone.  The kernels on no route (K3b, K4, K9b, K10b) raise on
 a bfloat16 tensor, naming ROADMAP.md's queue B, bfloat16 streams.  Train: K5 ``depthwise_bwd``
 (the backward of ``depthwise_large``; under ``depthwise.BWD_MODE =
 "conv"`` K6 ``depthwise_bwd_w`` for dw and db), K7 ``gcfn_train_fwd`` and K8

@@ -138,6 +138,13 @@ SIGNATURES = {
     # the same with x, x_down and out bfloat16, and y, a float32 scratch
     # [B, T, F] for the residual, after out
     "sep_ega_gcfn_bf16": [_P] * 17 + [_I] * 4 + [_F, _P],
+    # F, int out[4] -> K1's float32 instance's blocks per SM, registers,
+    # local bytes, warps at a T/S/M width F
+    "sep_gcfn_occupancy": [_I, _P],
+    # D, int out[8] -> K3's at a T/S/M head width D, at SPLIT 1 and 2
+    "sep_softmax_pv_width_occupancy": [_I, _P],
+    # D, int out[4] -> K12's float32 instance's at a T/S/M head width D
+    "sep_flash_relpos_occupancy": [_I, _P],
     # F, int* blocks -> K16's blocks per SM
     "sep_ega_gcfn_blocks_per_sm": [_I, _P],
     # F, int blocks[2] -> K15's blocks per SM, the GLU launch and the tail
@@ -250,7 +257,9 @@ def library() -> ctypes.CDLL:
 
 
 # The ROADMAP item, by title, that builds the widths a kernel is not built
-# for: the T/S/M presets' widths (F 64, 96, 160; head widths 8, 12, 20).
+# for: the T/S/M presets' widths (F 64, 96, 160; head widths 8, 12, 20),
+# built for K1, K3 and K12 in float32 (their serving path), for no other
+# kernel yet.
 OTHER_PRESETS = "ROADMAP.md queue A, T/S/M"
 # The one that builds the bfloat16 instances a kernel does not have.
 BF16_STREAMS = "ROADMAP.md queue B, bfloat16 streams"
@@ -276,6 +285,17 @@ def check_dtype(name: str, a, built=None,
     if a.dtype not in built:
         raise ValueError(f"{name}: dtype {a.dtype} not in {built} "
                          f"(not built yet: {todo})")
+
+
+def dtypes_at(width: int, bf16_widths):
+    """The dtypes a kernel's instances take at ``width`` (a width or head
+    width): float32 and bfloat16 at ``bf16_widths``, float32 alone
+    elsewhere (``check_dtype`` names queue B's item for the rest)."""
+    import torch
+
+    if width in bf16_widths:
+        return (torch.float32, torch.bfloat16)
+    return (torch.float32,)
 
 
 def count_launch(wrapper, instance: str = "") -> None:

@@ -13,13 +13,15 @@ gradient recomputes the plain version, as the JAX package's
 float32 or all bfloat16; in bfloat16 both take the JAX kernel's rounding
 steps (``attention.py:90-137``): float32 sums of the bfloat16 products,
 the scale, mask and softmax in float32, the probabilities rounded to
-bfloat16 before ·V, the output stored as bfloat16.
+bfloat16 before ·V, the output stored as bfloat16.  The T, S and M
+presets' head widths (8, 12, 20) have float32 instances alone.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -27,9 +29,11 @@ from sepreformer_torch.ops.kernels import _build
 from sepreformer_torch.ops.kernels._autograd import with_plain_grad
 from sepreformer_torch.ops.kernels.softmax_pv import NEG_INF, _key_lens
 
-# K12's instances: Base's head width 16 and Large's 32
-SUPPORTED_HEAD_DIMS = (16, 32)
+# K12's instances: the T, S and M presets' head widths 8, 12 and 20
+# (float32), Base's 16 and Large's 32 (float32 and bfloat16)
+SUPPORTED_HEAD_DIMS = (8, 12, 16, 20, 32)
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
+BF16_HEAD_DIMS = (16, 32)
 PLAIN_QUERY_BLOCK = 1024
 
 
@@ -132,7 +136,8 @@ def flash_relpos_attention(q: torch.Tensor, k: torch.Tensor,
     if n != 2 * maxlen:
         raise ValueError(
             f"flash_relpos_attention: table rows {n} != 2*{maxlen}")
-    _build.check_dtype("flash_relpos_attention", q, SUPPORTED_DTYPES)
+    _build.check_dtype("flash_relpos_attention", q,
+                       _build.dtypes_at(d, BF16_HEAD_DIMS))
     for name, a in (("q", q), ("k", k), ("v", v)):
         _build.check_tensor(a, f"flash_relpos_attention {name}",
                             (b, length, f), q.device, q.dtype)
@@ -142,6 +147,17 @@ def flash_relpos_attention(q: torch.Tensor, k: torch.Tensor,
     if lens is not None:
         torch._assert_async(key_len.min() >= 1)  # no host sync
     return _with_grad(_launch, q, k, v, table, maxlen, key_len)
+
+
+def occupancy(d: int) -> Dict[str, int]:
+    """K12's float32 instance at a T, S or M preset's head width ``d`` on
+    the current card: blocks per SM, registers, local (spill) bytes and
+    warps per block."""
+    out = (ctypes.c_int * 4)()
+    _build.check_launch("sep_flash_relpos_occupancy", _build.library()
+                        .sep_flash_relpos_occupancy(d, ctypes.addressof(out)))
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes", "warps"),
+                    out))
 
 
 flash_relpos_attention.launches = 0

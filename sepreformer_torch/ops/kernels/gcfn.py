@@ -9,22 +9,27 @@ the gradient recomputes ``gcfn_plain``, as the JAX package's
 JAX kernel's rounding steps (``gcfn.py:162-211``): the LayerNorm's
 output and the GLU's are rounded to bfloat16 before the products,
 whose weights are rounded too and whose sums are float32, and the
-residual is formed in float32 and stored as bfloat16.
+residual is formed in float32 and stored as bfloat16.  The T, S and M
+presets' widths (F 64, 96, 160) have float32 instances alone: a
+bfloat16 x at those widths raises on the card, naming ROADMAP.md queue
+B, bfloat16 streams.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+import ctypes
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
 from sepreformer_torch.ops.kernels import _build
 from sepreformer_torch.ops.kernels._autograd import with_plain_grad
 
-# K1's instances: Base's F = 128 and Large's F = 256, each for float32
-# and bfloat16 streams
-SUPPORTED_WIDTHS = (128, 256)
+# K1's instances: the T, S and M presets' F = 64, 96 and 160 for float32
+# streams, Base's F = 128 and Large's F = 256 for float32 and bfloat16
+SUPPORTED_WIDTHS = (64, 96, 128, 160, 256)
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
+BF16_WIDTHS = (128, 256)
 MAX_BLOCK = 512
 MIN_BLOCK = 64
 
@@ -152,12 +157,24 @@ def fused_gcfn(x: torch.Tensor, params: Sequence[torch.Tensor], eps: float,
     gradient recomputes ``gcfn_plain``."""
     if x.device.type == "cpu":
         return gcfn_plain(x, params, eps, lens)
-    check_params("fused_gcfn", x, params, dtypes=SUPPORTED_DTYPES)
+    check_params("fused_gcfn", x, params,
+                 dtypes=_build.dtypes_at(x.shape[-1], BF16_WIDTHS))
     if lens is not None:
         lens = lens.to(dtype=torch.int32).contiguous()
         _build.check_tensor(lens, "fused_gcfn lens", (x.shape[0],), x.device,
                             torch.int32, align=4)
     return _with_grad(_launch, x, params, eps, lens)
+
+
+def occupancy(f: int) -> Dict[str, int]:
+    """K1's float32 instance at a T, S or M preset's width ``f`` on the
+    current card: blocks per SM, registers, local (spill) bytes and warps
+    per block."""
+    out = (ctypes.c_int * 4)()
+    _build.check_launch("sep_gcfn_occupancy", _build.library()
+                        .sep_gcfn_occupancy(f, ctypes.addressof(out)))
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes", "warps"),
+                    out))
 
 
 fused_gcfn.launches = 0

@@ -7,8 +7,9 @@ same math in PyTorch, in the order the JAX kernel takes it
 (``softmax_pv.py:94-103``).  On CUDA tensors the gradient recomputes
 ``softmax_pv_plain``, as the JAX package's ``custom_vjp`` recomputes its
 reference.  K3 takes scores and V each in float32 or bfloat16 (the
-output in V's dtype), through an instance per pairing; K3b takes
-float32 alone.
+output in V's dtype), through an instance per pairing, at Base's and
+Large's head widths; at the T, S and M presets' head widths (8, 12, 20)
+float32 alone.  K3b takes float32 alone, at 16 and 32.
 """
 
 from __future__ import annotations
@@ -22,10 +23,13 @@ from sepreformer_torch.ops.kernels import _build
 from sepreformer_torch.ops.kernels._autograd import with_plain_grad
 
 NEG_INF = -1.0e30
-# K3's and K3b's instances: Base's head width 16 and Large's 32
-SUPPORTED_HEAD_DIMS = (16, 32)
+# K3's instances: the T, S and M presets' head widths 8, 12 and 20
+# (float32), Base's 16 and Large's 32 (float32 and bfloat16); K3b's: 16
+# and 32 (float32)
+SUPPORTED_HEAD_DIMS = (8, 12, 16, 20, 32)
 BIAS_HEAD_DIMS = (16, 32)
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
+BF16_HEAD_DIMS = (16, 32)
 
 
 def _key_lens(b: int, length: int, lens: Optional[torch.Tensor],
@@ -151,7 +155,8 @@ def softmax_pv(scores: torch.Tensor, v: torch.Tensor,
         _build.check_width("softmax_pv", "head dim", f // h,
                            SUPPORTED_HEAD_DIMS, _build.OTHER_PRESETS)
         for a in (scores, v):
-            _build.check_dtype("softmax_pv", a, SUPPORTED_DTYPES)
+            _build.check_dtype("softmax_pv", a,
+                               _build.dtypes_at(f // h, BF16_HEAD_DIMS))
     else:
         _build.check_width("softmax_pv (bias=)", "head dim", f // h,
                            BIAS_HEAD_DIMS, _build.OTHER_PRESETS)
@@ -191,6 +196,19 @@ def occupancy() -> Dict[str, Dict[str, int]]:
     """K3's and K3b's launches, at head widths 16 and 32, on the current
     card."""
     return tile_occupancy("sep_softmax_pv_occupancy", "K3", wide=("", "b"))
+
+
+def width_occupancy(d: int) -> Dict[str, Dict[str, int]]:
+    """K3's float32 instance at a T, S or M preset's head width ``d`` at
+    SPLIT 1 and 2 on the current card: blocks per SM, registers, local
+    (spill) bytes, warps."""
+    out = (ctypes.c_int * 8)()
+    _build.check_launch("sep_softmax_pv_width_occupancy", _build.library()
+                        .sep_softmax_pv_width_occupancy(
+                            d, ctypes.addressof(out)))
+    keys = ("blocks_per_sm", "registers", "local_bytes", "warps")
+    return {f"K3 d={d} split {s}": dict(zip(keys, out[4 * i:4 * i + 4]))
+            for i, s in enumerate((1, 2))}
 
 
 softmax_pv.launches = 0

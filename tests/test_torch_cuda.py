@@ -119,12 +119,15 @@ def test_relpos_kernel_matches_plain(cuda_device):
 # ends five rows into a second tile, 500 and 512 are the route's lengths
 # before and after its padding, 1024 that of the 8 s chunks; maxlen 200
 # makes both clips act; d 20 spans two table-column slices, d 32 (Large's
-# head width, [512, 32, 512] from a [4000, 32] table) two whole ones
+# head width, [512, 32, 512] from a [4000, 32] table) two whole ones; d 8,
+# 12 and 20 at maxlen 2000 are the T, S and M presets' pos_kt
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,maxlen,d", [(37, 10, 16), (500, 200, 16),
                                         (512, 200, 16), (1024, 200, 16),
                                         (512, 200, 20), (512, 2000, 32),
-                                        (37, 10, 32)])
+                                        (37, 10, 32), (512, 2000, 8),
+                                        (512, 2000, 12), (512, 2000, 20),
+                                        (37, 10, 12)])
 def test_relpos_kernel_tilings_match_plain(cuda_device, t, maxlen, d):
     gen = torch.Generator().manual_seed(t + d)
     table = torch.randn(2 * maxlen, d, generator=gen).to(cuda_device)
@@ -641,10 +644,16 @@ def test_flash_kernel_matches_plain(cuda_device, b, length, maxlen, lens):
 
 @pytest.mark.cuda
 def test_flash_kernel_refuses_other_head_widths(cuda_device):
-    q = torch.randn(1, 100, 128, device=cuda_device)
-    table = torch.randn(128, 16, device=cuda_device)
-    with pytest.raises(ValueError, match="head dim 8"):
-        flash_relpos_attention(q, q, q, table[:, :8], 64)
+    """Head width 24 is built for no preset; the T/S/M head widths have no
+    bfloat16 instance."""
+    q = torch.randn(1, 100, 96, device=cuda_device)
+    table = torch.randn(128, 24, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim 24"):
+        flash_relpos_attention(q, q, q, table, 64)
+    qb = q[..., :64].to(torch.bfloat16).contiguous()
+    tb = table[:, :8].to(torch.bfloat16).contiguous()
+    with pytest.raises(ValueError, match="queue B, bfloat16 streams"):
+        flash_relpos_attention(qb, qb, qb, tb, 64)
 
 
 @pytest.mark.cuda
@@ -1746,3 +1755,107 @@ def test_softmax_pv_dropout_bf16_route(cuda_device):
         out.float().square().sum().backward()
         assert s.grad.dtype == sdt and vv.grad.dtype == vdt
         assert torch.isfinite(s.grad.float()).all()
+
+
+# The instances at the T, S and M presets' widths (F 64, 96, 160; head
+# widths 8, 12, 20; float32), on the shapes of the Base and Large tests:
+# each against its plain version within the limits those instances meet,
+# bit-equal on a repeat call, counted as the wrapper's float32 launches.
+TSM_WIDTHS = [(64, 8), (96, 12), (160, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [64, 96, 160])
+@pytest.mark.parametrize("b,t,masked", [(2, 500, True), (3, 77, False),
+                                        (4, 8000, True), (2, 63, False),
+                                        (2, 125, True), (1, 20, (13,)),
+                                        (4, 200, (93, 62, 124, 63))])
+def test_gcfn_kernel_tsm_matches_plain(cuda_device, f, b, t, masked):
+    gen = torch.Generator().manual_seed(t + f)
+    x = torch.randn(b, t, f, generator=gen).to(cuda_device)
+    params = gcfn_params(gen, f, cuda_device)
+    lens = None
+    if masked is True:
+        lens = torch.tensor([t, max(1, t // 3)] + [t] * (b - 2),
+                            device=cuda_device)
+    elif masked:
+        lens = torch.tensor(masked, device=cuda_device)
+    before = fused_gcfn.launches
+    got = fused_gcfn(x, params, 1e-5, lens)
+    again = fused_gcfn(x, params, 1e-5, lens)
+    torch.cuda.synchronize()
+    assert fused_gcfn.launches == before + 2
+    torch.testing.assert_close(got, gcfn_plain(x, params, 1e-5, lens),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 12, 20])
+@pytest.mark.parametrize("b,h,lp,length,lens", SOFTMAX_PV_SHAPES)
+def test_softmax_pv_kernel_tsm_matches_plain(cuda_device, d, b, h, lp,
+                                             length, lens):
+    """K3 at the T/S/M head widths: V's rows staged as D / 4 16-byte
+    pieces, the products at 8 ceil(D / 8)."""
+    scores, _, _, lens = softmax_pv_case(cuda_device, b, h, lp, length,
+                                         lens, seed=d)
+    gen = torch.Generator().manual_seed(lp + d)
+    v = torch.randn(b, lp, h * d, generator=gen).to(cuda_device)
+    before = softmax_pv.launches
+    got = softmax_pv(scores, v, lens, length)
+    again = softmax_pv(scores, v, lens, length)
+    torch.cuda.synchronize()
+    assert softmax_pv.launches == before + 2
+    torch.testing.assert_close(got, softmax_pv_plain(scores, v, lens, length),
+                               **CARD_TOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 12, 20])
+# the cases of test_flash_kernel_d32_matches_plain
+@pytest.mark.parametrize("b,length,maxlen,lens", [
+    (3, 77, 64, (77, 30, 1)), (2, 300, 64, None), (2, 300, 64, (300, 131)),
+    (2, 8750, 2000, (8750, 7000)), (2, 300, 512, (300, 200)),
+    (2, 1000, 100, (1000, 517)), (3, 300, 64, (256, 257, 64)),
+    (2, 129, 2000, (128, 129))])
+def test_flash_kernel_tsm_matches_plain(cuda_device, d, b, length, maxlen,
+                                        lens):
+    """K12 at the T/S/M head widths: QKᵀ and Q·bandᵀ over k = 8 ceil(D /
+    8) with the staged rows' pad columns zero."""
+    h = 8
+    gen = torch.Generator().manual_seed(length + d)
+    q, k, v = (torch.randn(b, length, h * d, generator=gen).to(cuda_device)
+               for _ in range(3))
+    table = torch.randn(2 * maxlen, d, generator=gen).to(cuda_device)
+    tl = None if lens is None else torch.tensor(lens, device=cuda_device)
+    ref = flash_relpos_attention_plain(q, k, v, table, maxlen, tl)
+    before = flash_relpos_attention.launches
+    got = flash_relpos_attention(q, k, v, table, maxlen, tl)
+    again = flash_relpos_attention(q, k, v, table, maxlen, tl)
+    torch.cuda.synchronize()
+    assert flash_relpos_attention.launches == before + 2
+    torch.testing.assert_close(got, ref, **CARD_TOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,d", TSM_WIDTHS)
+def test_tsm_widths_refuse_bfloat16_on_the_card(cuda_device, f, d):
+    """No bfloat16 instance of K1, K3 or K12 at the T/S/M widths: each
+    refuses a bfloat16 stream before it launches."""
+    gen = torch.Generator().manual_seed(f)
+    x = torch.randn(1, 64, f, generator=gen).to(cuda_device, BF16)
+    params = gcfn_params(gen, f, cuda_device)
+    scores = torch.randn(1, 8, 128, 128, device=cuda_device)
+    v = torch.randn(1, 128, f, device=cuda_device).to(BF16)
+    table = torch.randn(128, d, device=cuda_device).to(BF16)
+    before = (fused_gcfn.launches, softmax_pv.launches,
+              flash_relpos_attention.launches)
+    for call in (lambda: fused_gcfn(x, params, 1e-5),
+                 lambda: softmax_pv(scores, v, None, 100),
+                 lambda: flash_relpos_attention(x, x, x, table, 64)):
+        with pytest.raises(ValueError, match="queue B, bfloat16 streams"):
+            call()
+    assert (fused_gcfn.launches, softmax_pv.launches,
+            flash_relpos_attention.launches) == before

@@ -290,7 +290,8 @@ def test_list_models(capsys):
     assert capsys.readouterr().out.split() == [
         "SepReformer_Base_Libri2Mix", "SepReformer_Base_WSJ0",
         "SepReformer_L", "SepReformer_Large_DM_WHAM",
-        "SepReformer_Large_DM_WHAMR", "SepReformer_Large_DM_WSJ0", "tiny"]
+        "SepReformer_Large_DM_WHAMR", "SepReformer_Large_DM_WSJ0",
+        "SepReformer_M", "SepReformer_S", "SepReformer_T", "tiny"]
 
 
 @pytest.mark.parametrize("flag", [["--engine-mode", "infer_sample"],
@@ -307,14 +308,26 @@ def test_cli_refuses_what_is_not_ported(flag, capsys):
 
 
 def test_reference_yaml_refuses_embed_v(tmp_path):
-    """embed_v is queued with the other variants: the refusal names the
-    ROADMAP item by its title."""
+    """embed_v is ported (ModelConfig.embed_v): the reader no longer
+    refuses it, and takes it into the model config as the JAX reader
+    does."""
     path = tmp_path / "configs.yaml"
-    path.write_text("config:\n  model:\n    module_separator:\n"
-                    "      relative_positional_encoding:\n"
-                    "        embed_v: true\n")
-    with pytest.raises(ValueError, match="queue A, the other variants"):
-        from_reference_yaml(str(path))
+    path.write_text(
+        "config:\n  model:\n    num_stages: 2\n    num_spks: 2\n"
+        "    module_audio_enc: {out_channels: 16, kernel_size: 16, "
+        "stride: 4}\n"
+        "    module_feature_projector: {out_channels: 16}\n"
+        "    module_separator:\n"
+        "      relative_positional_encoding: {num_heads: 2, maxlen: 64, "
+        "embed_v: true}\n"
+        "      enc_stage:\n"
+        "        local_blocks: {kernel_size: 9}\n"
+        "        down_conv_layer: {samp_kernel_size: 5}\n"
+        "        global_blocks: {dropout_rate: 0.1}\n")
+    port = from_reference_yaml(str(path)).model
+    assert port.embed_v is True
+    assert port.embed_v == jax_config.from_reference_yaml(
+        str(path)).model.embed_v
 
 
 @pytest.fixture(scope="module")

@@ -70,7 +70,8 @@ def test_cli_runs_without_jax():
     assert proc.stdout.split() == [
         "SepReformer_Base_Libri2Mix", "SepReformer_Base_WSJ0",
         "SepReformer_L", "SepReformer_Large_DM_WHAM",
-        "SepReformer_Large_DM_WHAMR", "SepReformer_Large_DM_WSJ0", "tiny"]
+        "SepReformer_Large_DM_WHAMR", "SepReformer_Large_DM_WSJ0",
+        "SepReformer_M", "SepReformer_S", "SepReformer_T", "tiny"]
     code = (
         "import sys\n"
         "from sepreformer_torch import cli\n"

@@ -15,12 +15,13 @@ the CPU (no JAX).
 - A wrapper asked for a width its kernel is not built for raises before
   anything launches, naming the ROADMAP item that builds it (meta
   tensors stand for the card's: a wrapper takes its plain version only
-  for CPU tensors): the "pallas" train route's K13/K14 at head width 32
-  name "Large training on the "pallas" route", K15/K16 at F 256 and K3b
-  at 32 "other widths", K1, K3 and K12 at the T/S/M widths "T/S/M".  K1
-  at 256 and K3 and K12 at 32 pass the width check, and so do a Large
-  train step's kernels on the default route: K7/K8 at F 256, K9/K10 and
-  K9b/K10b at head width 32.
+  for CPU tensors): K15/K16, K3b, K13 and the train kernels K7 and K9 at
+  the T/S/M widths name "T/S/M".  K1 at 256 and K3 and K12 at 32 pass
+  the width check, and so do a Large train step's kernels on the default
+  route: K7/K8 at F 256, K9/K10 and K9b/K10b at head width 32.  K1 at F
+  64, 96 and 160 and K3 and K12 at head widths 8, 12 and 20 (the T, S
+  and M presets' serving path) pass it in float32, and refuse bfloat16
+  naming queue B's "bfloat16 streams".
 """
 
 import dataclasses
@@ -236,15 +237,13 @@ def test_unbuilt_widths_name_their_roadmap_items():
         K.fused_ega_tail_gcfn(*pair_args(64), 1e-5)
     with pytest.raises(ValueError, match="width 64 .*" + tsm):
         K.fused_cla(*cla_args(64), 1e-5)
-    with pytest.raises(ValueError, match="width 64 .*" + tsm):
-        K.fused_gcfn(*gcfn_args(64), 1e-5)
-    with pytest.raises(ValueError, match="head dim 8 .*" + tsm):
-        K.softmax_pv(scores, meta(1, 128, 64), None, 100)
     with pytest.raises(ValueError, match="head dim 8 .*" + tsm):
         K.softmax_pv(scores, meta(1, 128, 64), None, 100, bias=scores)
-    q = meta(1, 64, 64)
+    # the T/S/M train step: K7 at their widths, K9 at their head widths
+    with pytest.raises(ValueError, match="width 64 .*" + tsm):
+        K.gcfn_train_fwd(*gcfn_args(64), 1e-5, 1, 0.05)
     with pytest.raises(ValueError, match="head dim 8 .*" + tsm):
-        K.flash_relpos_attention(q, q, q, meta(64, 8), 32)
+        K.softmax_pv_dropout(scores, meta(1, 128, 64), 1, None, 100, 0.05)
     qh = meta(1, 8, 64, 8)
     with pytest.raises(ValueError, match="head dim 8 .*" + tsm):
         K.flash_relpos_attention_train(qh, qh, qh, meta(64, 8), 1, 32, 0.1)
@@ -269,3 +268,41 @@ def test_large_serving_widths_pass_the_width_check():
     q = meta(1, 64, 256)
     with pytest.raises(ValueError, match=on_card):
         K.flash_relpos_attention(q, q, q, meta(64, 32), 32)
+
+
+# the T, S and M presets' (F, head width)
+TSM_WIDTHS = [(64, 8), (96, 12), (160, 20)]
+
+
+def tsm_serving_calls(f, d, dtype=torch.float32):
+    """K1, K3 and K12 at a T/S/M preset's widths, on meta tensors of
+    ``dtype``."""
+    def m(*shape):
+        return torch.empty(*shape, device="meta", dtype=dtype)
+
+    params = gcfn_args(f)[1]
+    scores, v, q = m(1, 8, 128, 128), m(1, 128, f), m(1, 64, f)
+    return {"K1": lambda: K.fused_gcfn(m(1, 8, f), params, 1e-5),
+            "K3": lambda: K.softmax_pv(scores, v, None, 100),
+            "K12": lambda: K.flash_relpos_attention(q, q, q, m(64, d), 32)}
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K3", "K12"])
+@pytest.mark.parametrize("f,d", TSM_WIDTHS)
+def test_tsm_serving_widths_pass_the_width_check(f, d, kernel):
+    """K1 at F 64, 96 and 160, K3 and K12 at head widths 8, 12 and 20 are
+    built in float32: their wrappers refuse the meta tensors only for not
+    lying on a card."""
+    on_card = "expected meta .*CUDA|expected .*\\(CUDA\\)"
+    with pytest.raises(ValueError, match=on_card):
+        tsm_serving_calls(f, d)[kernel]()
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K3", "K12"])
+@pytest.mark.parametrize("f,d", TSM_WIDTHS)
+def test_tsm_serving_widths_refuse_bfloat16(f, d, kernel):
+    """No bfloat16 instance at the T/S/M widths: the refusal names queue
+    B's item before anything launches."""
+    with pytest.raises(ValueError, match="bfloat16 .*not built yet: "
+                       "ROADMAP.md queue B, bfloat16 streams"):
+        tsm_serving_calls(f, d, torch.bfloat16)[kernel]()
